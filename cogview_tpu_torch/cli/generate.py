@@ -1,12 +1,20 @@
-"""Generation CLI of the port (twin of cogview_tpu/cli/generate.py), text2image.
+"""Generation CLI of the port (twin of cogview_tpu/cli/generate.py).
 
   python -m cogview_tpu_torch.cli.generate --input-source queries.txt \\
       --output-path samples --batch-size 4 \\
       --text-model-path pretrained/chinese_sentencepiece/cog-pretrain.model
 
-Inputs: 'interactive' or a file with one query per line.  Weights are the
-random initial weights of the preset (checkpoint import is a later slice).
-Runs on a CUDA device by default and fails if there is none.
+  python -m cogview_tpu_torch.cli.generate --generation-task post-selection \\
+      --input-source candidates.txt --output-path scores
+
+Tasks: text2image (PNGs), image2text (prints the text parts) and
+post-selection (appends the query and its tab-joined scores to
+``<output-path>/scores_rank_0.txt``).  Inputs: 'interactive' or a file with
+one query per line; tab-separated fields fill the task's template slots
+(image2text: an image path; post-selection: the text, then one image path
+per candidate).  Images are read as PNGs of 256 x 256 pixels.  Weights are
+the random initial weights of the preset (checkpoint import is a later
+slice).  Runs on a CUDA device by default and fails if there is none.
 """
 
 from __future__ import annotations
@@ -22,11 +30,13 @@ from cogview_tpu.tokenization import UnifiedTokenizer
 
 from ..config import GPTConfig, cogview_base, smoke, tiny_test
 from ..generation.sampling import SamplingParams
-from ..generation.tasks import generate_once
+from ..generation.tasks import generate_once, post_selection
 from ..models import gpt
 from ..ops.precision import set_fp32_precision
 from ..tokenization.vq_tokenizer import TorchVQTokenizer
 from ..utils.png import write_png
+
+TASKS = ("text2image", "image2text", "post-selection")
 
 PRESETS = {
     "cogview-base": cogview_base,
@@ -38,6 +48,7 @@ PRESETS = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("cogview-tpu-torch generate")
     g = p.add_argument_group("task")
+    g.add_argument("--generation-task", default="text2image", choices=TASKS)
     g.add_argument("--input-source", default="interactive",
                    help="'interactive' or a query file (one per line)")
     g.add_argument("--output-path", default="./samples")
@@ -141,17 +152,31 @@ def main(argv=None, txt_tokenizer=None) -> int:
 
     out_dir = args.output_path
     os.makedirs(out_dir, exist_ok=True)
+    task = args.generation_task
     for raw in iter_queries(args):
         t0 = time.time()
-        res = generate_once(params, cfg, tokenizer, raw, "text2image",
-                            num=args.batch_size,
-                            max_inference_batch_size=args.max_inference_batch_size,
-                            sampling=sampling, device=device)
-        for i, img in enumerate(res.images):
-            save_image_grid([img], os.path.join(out_dir, f"{i}.png"))
-        if res.images:
-            save_image_grid(res.images, os.path.join(out_dir, "concat.png"))
-        print(f"saved {len(res.images)} images -> {out_dir}")
+        if task == "post-selection":
+            scores = post_selection(params, cfg, tokenizer, raw,
+                                    args.max_inference_batch_size, device=device)
+            out_file = os.path.join(out_dir, "scores_rank_0.txt")
+            with open(out_file, "a") as f:
+                f.write(raw + "\n")
+                f.write("\t".join(str(x) for x in scores.tolist()) + "\n")
+            print(f"scores -> {out_file}")
+        else:
+            res = generate_once(params, cfg, tokenizer, raw, task,
+                                num=args.batch_size,
+                                max_inference_batch_size=args.max_inference_batch_size,
+                                sampling=sampling, device=device)
+            if task == "image2text":
+                for parts in res.texts:
+                    print([p for p in parts if isinstance(p, str)])
+            else:
+                for i, img in enumerate(res.images):
+                    save_image_grid([img], os.path.join(out_dir, f"{i}.png"))
+                if res.images:
+                    save_image_grid(res.images, os.path.join(out_dir, "concat.png"))
+                print(f"saved {len(res.images)} images -> {out_dir}")
         print(f"Taken time {time.time() - t0:.2f}", flush=True)
     return 0
 

@@ -1,7 +1,8 @@
 """Model configuration dataclasses and presets (twin of cogview_tpu/config.py).
 
 Only the fields the inference slice reads are mirrored (no dropout rates:
-the port has no training yet); ``compute_dtype`` is a torch dtype.  The
+the port has no training yet; no flash block sizes: they tune the TPU
+kernel's VMEM blocks); ``compute_dtype`` is a torch dtype.  The
 presets keep the JAX package's names and widths.
 """
 
@@ -31,6 +32,10 @@ class GPTConfig:
     init_std: float = 0.02
     scaled_output_init: bool = True  # N(0, std/sqrt(2L)) for output mats
     compute_dtype: torch.dtype = torch.bfloat16
+    # flash attention for full causal forwards (scoring): "auto" picks it
+    # iff the sequence length >= flash_min_seq; True/False force it
+    use_flash_attention: "bool | str" = "auto"
+    flash_min_seq: int = 1024
     # Only the int8 window-blocked cache is ported so far; the bfloat16
     # cache and the packed int4 cache come with later slices.
     kv_cache_dtype: str = "int8"

@@ -5,8 +5,8 @@ mask, vocabulary-mask mode, position ids with the [ROI2] restart).  The
 numpy template code is copied from the JAX package, which keeps it inside a
 module that imports jax.
 
-The decode loop is a host loop over positions ctx..S-1 with one
-``forward_with_cache`` call per step, as the JAX ``fori_loop`` makes.  Each
+The decode loop is a host loop with one ``forward_with_cache`` call per
+position from ctx to the last generated slot (:func:`decode_end`).  Each
 step: temperature, the per-row BOI/EOI vocabulary mode, top-k / top-p by
 threshold bisection, gumbel-max with counter-hash uniforms
 ``hash_uniform(seed, row, vocab_id, step)``, the ``fork_at`` lockstep, and
@@ -260,6 +260,15 @@ def _validate_fill(cfg: GPTConfig, template: Template, batch_size: int) -> int:
     return batch_size
 
 
+def decode_end(template: Template) -> int:
+    """One past the last generated slot: the decode loop stops there.  The
+    fixed slots after it (the [PAD] bucket) change neither the tokens nor
+    the scores; the JAX loop steps through them."""
+    ctx = int(template.context_length)
+    free = np.flatnonzero(~np.asarray(template.is_fixed[ctx:]))
+    return ctx + (int(free[-1]) + 1 if free.size else 0)
+
+
 @torch.no_grad()
 def filling_sequence(
     params,
@@ -303,7 +312,7 @@ def filling_sequence(
     cols = torch.arange(V, dtype=torch.int64, device=device)[None, :]
     scores = torch.zeros((B,), dtype=torch.float32, device=device)
 
-    for t in range(ctx, S):
+    for t in range(ctx, decode_end(template)):
         if template.is_fixed[t]:
             # the JAX step samples here too and then discards the draw
             # (where(fixed, template token, sampled); score += 0)

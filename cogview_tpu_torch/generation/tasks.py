@@ -1,7 +1,9 @@
-"""Generation tasks (twin of cogview_tpu/generation/tasks.py): text2image.
+"""Generation tasks (twin of cogview_tpu/generation/tasks.py).
 
-The query templates are the reference's; only text2image is ported so far
-(image2text, super-resolution and post-selection come with later slices).
+The query templates are the reference's.  Ported so far: text2image and
+image2text (``generate_once``) and post-selection (``post_selection``);
+super-resolution, low-level super-resolution and ``raw`` come with later
+slices.
 """
 
 from __future__ import annotations
@@ -10,10 +12,12 @@ import dataclasses
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..config import GPTConfig
 from ..ops.hash_prng import hash_u32
 from .sampling import SamplingParams, compile_template, filling_sequence
+from .scoring import inverse_prompt_score
 
 QUERY_TEMPLATES = {
     "text2image": "[ROI1] {} [BASE] [BOI1] [MASK]*1024",
@@ -71,13 +75,13 @@ def generate_once(
     device=None,
     pad_bucket: int = 32,
 ) -> GenerationOutput:
-    """text2image (generate_images_once): sample ``num`` images for one
-    query in chunks of at most ``max_inference_batch_size`` rows.  Template
-    lengths are bucketed to multiples of ``pad_bucket`` with fixed [PAD]
-    steps.  Chunk i samples with seed ``_chunk_seed(sampling.seed, i)``."""
-    if task != "text2image":
+    """text2image / image2text (generate_images_once): sample ``num`` rows
+    for one query in chunks of at most ``max_inference_batch_size`` rows.
+    Template lengths are bucketed to multiples of ``pad_bucket`` with fixed
+    [PAD] steps.  Chunk i samples with seed ``_chunk_seed(sampling.seed, i)``."""
+    if task not in ("text2image", "image2text"):
         raise NotImplementedError(
-            f"task {task!r}: the port has only text2image so far")
+            f"task {task!r}: the port has text2image and image2text so far")
     seq = parse_query_line(raw_text, task, tokenizer)
     tpl = compile_template(seq, tokenizer, padded_vocab=cfg.vocab_size,
                            pad_to=_round_up(len(seq), pad_bucket))
@@ -102,3 +106,26 @@ def generate_once(
         if imgs:
             images.append(imgs[-1])  # the generated (last) image
     return GenerationOutput(tokens, scores, images, texts)
+
+
+def post_selection(params, cfg: GPTConfig, tokenizer, raw_text: str,
+                   max_inference_batch_size: int = 12, device=None) -> np.ndarray:
+    """Score candidate images for one prompt (generate_samples.py:246-269).
+
+    ``raw_text`` = 'text\\timg1\\timg2...'; returns [n_candidates] float32
+    scores, each the caption log-likelihood given the image."""
+    parts = raw_text.split("\t")
+    seqs = [parse_query_line("\t".join([cand, parts[0]]), "post-selection", tokenizer)
+            for cand in parts[1:]]
+    tokens = np.asarray(seqs, np.int64)
+    assert tokens.ndim == 2
+    assert tokens[0, 2 + 1024 + 1] == tokenizer["[ROI1]"], "unexpected post-selection layout"
+
+    mbz = max_inference_batch_size
+    out = []
+    for i in range(0, len(tokens), mbz):
+        chunk = torch.as_tensor(tokens[i:i + mbz], device=device)
+        out.append(inverse_prompt_score(params, cfg, chunk,
+                                        img_vocab=tokenizer.img_tokenizer.num_tokens)
+                   .cpu().numpy())
+    return np.concatenate(out, axis=0)

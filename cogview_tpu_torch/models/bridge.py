@@ -35,15 +35,17 @@ def gpt_params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
 
 
 def vqvae_params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
-    """VQ-VAE decoder + codebook.  Convs HWIO -> OIHW.  Transposed convs
-    are stored [kh, kw, out, in] in the JAX package and map to PyTorch's
-    [in, out, kh, kw] by a pure permutation: both index taps the same way
-    (out[2q] takes x[q] * W[1] + x[q-1] * W[3]), so no flip."""
-    dec = tree["decoder"]
-    out = {}
-    for name, p in dec.items():
-        w = np.asarray(p["w"])  # both layouts permute (3, 2, 0, 1)
-        out[name] = {"w": _tensor(w.transpose(3, 2, 0, 1), device),
-                     "b": _tensor(p["b"], device)}
-    return {"decoder": out,
+    """VQ-VAE encoder, decoder and codebook.  Convs HWIO -> OIHW.
+    Transposed convs are stored [kh, kw, out, in] in the JAX package and
+    map to PyTorch's [in, out, kh, kw] by a pure permutation: both index
+    taps the same way (out[2q] takes x[q] * W[1] + x[q-1] * W[3]), so no
+    flip.  The codebook's EMA statistics (training state) are dropped."""
+
+    def convs(part):
+        # both layouts permute (3, 2, 0, 1)
+        return {name: {"w": _tensor(np.asarray(p["w"]).transpose(3, 2, 0, 1), device),
+                       "b": _tensor(p["b"], device)}
+                for name, p in part.items()}
+
+    return {"encoder": convs(tree["encoder"]), "decoder": convs(tree["decoder"]),
             "quantize": {"embed": _tensor(tree["quantize"]["embed"], device)}}

@@ -10,8 +10,10 @@ Per layer (Sandwich-LN):
   h = h + LN4(W2 @ gelu(W1 @ LN2(h)))
 with a final LayerNorm and float32 logits tied to the word embedding.
 
-Only the inference slice is ported: no dropout, no training paths, no
-sparse or flash attention, and only the int8 KV cache.
+Only the inference slices are ported: no dropout, no training paths, no
+sparse attention, and only the int8 KV cache.  A full causal forward at
+S >= ``flash_min_seq`` runs its attention through the flash kernel
+(ops/flash_attention.py), as the JAX package routes it.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..ops.decode_attention import (
     SEAL_GROUP, WRITE_WINDOW, decode_attention_quant, dequantize_kv, gather_kv,
     gather_kv_scales, pad_cache_len, quantize_kv, scatter_kv_columns,
     scatter_kv_scales)
+from ..ops.flash_attention import flash_attention
 from ..ops.layernorm import layer_norm
 
 Params = Dict[str, Any]
@@ -201,12 +204,20 @@ def _layer(params: Params, li: int) -> Params:
             for k, v in params["layers"].items()}
 
 
+def should_use_flash(cfg: GPTConfig, seq_len: int) -> bool:
+    """Flash-attention eligibility of a full causal forward."""
+    return (cfg.use_flash_attention is True
+            or (cfg.use_flash_attention == "auto" and seq_len >= cfg.flash_min_seq))
+
+
 def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
                 cache: Optional[QuantKVCache] = None, li: int = 0, index: int = 0,
-                full_prefix: bool = False) -> torch.Tensor:
-    """One transformer layer.  Without ``cache``: dense attention under
-    ``mask``.  With the int8 cache: S == 1 is a decode step through the
-    decode kernel; S > 1 is a prefill chunk at slots [index, index + S)."""
+                full_prefix: bool = False, sep_for_flash: Optional[int] = None) -> torch.Tensor:
+    """One transformer layer.  Without ``cache``: the flash kernel when
+    ``mask`` is exactly causal + ``sep_for_flash`` and
+    :func:`should_use_flash` says so, else dense attention under ``mask``.
+    With the int8 cache: S == 1 is a decode step through the decode kernel;
+    S > 1 is a prefill chunk at slots [index, index + S)."""
     B, S, H = h.shape
     N, D = cfg.num_heads, cfg.head_dim
     eps = cfg.layernorm_epsilon
@@ -218,7 +229,11 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
     k = qkv[:, :, 1]
     v = qkv[:, :, 2]
 
-    if cache is None:
+    if cache is None and sep_for_flash is not None and should_use_flash(cfg, S):
+        # strided q/k/v views of the fused projection go in as they are
+        ctx, _ = flash_attention(q, k.reshape(B, S, N, D), v.reshape(B, S, N, D),
+                                 sep_for_flash)
+    elif cache is None:
         ctx = dense_attention(q, k.reshape(B, S, N, D), v.reshape(B, S, N, D), mask)
     else:
         kv_l, s_l, ring_l = cache.kv[li], cache.scale[li], cache.recent[li]
@@ -289,23 +304,33 @@ def _logits(params: Params, cfg: GPTConfig, h: torch.Tensor) -> torch.Tensor:
     return _wmul(h, leaf, h.dtype, transpose=True)
 
 
-def _final(params: Params, cfg: GPTConfig, h: torch.Tensor) -> torch.Tensor:
+def _final_ln(params: Params, cfg: GPTConfig, h: torch.Tensor) -> torch.Tensor:
     lnf = params["ln_final"]
-    h = layer_norm(h, lnf["g"], lnf["b"], cfg.layernorm_epsilon, cfg.pb_relax)
-    return _logits(params, cfg, h)
+    return layer_norm(h, lnf["g"], lnf["b"], cfg.layernorm_epsilon, cfg.pb_relax)
 
 
 def forward(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
-            position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full causal forward -> float32 logits [B, S, V]."""
+            position_ids: Optional[torch.Tensor] = None, *, sep: int = 0,
+            logits_from: Optional[int] = None,
+            return_hidden: bool = False) -> torch.Tensor:
+    """Full forward under the causal mask with a bidirectional prefix of
+    ``sep`` positions -> float32 logits [B, S, V].
+
+    ``logits_from=t`` keeps positions >= t only ([B, S - t, V]); the final
+    LayerNorm then sees only those positions, whose PB-relax max is over
+    them alone, as in the JAX package.  ``return_hidden=True`` returns the
+    final-LayerNorm hidden states in place of logits."""
     B, S = tokens.shape
     if position_ids is None:
         position_ids = torch.arange(S, device=tokens.device).expand(B, S)
-    mask = causal_mask(S, device=tokens.device)
+    mask = causal_mask(S, sep=sep, device=tokens.device)
     h = _embed(params, cfg, tokens, position_ids)
     for li in range(cfg.num_layers):
-        h = _layer_body(cfg, h, _layer(params, li), mask)
-    return _final(params, cfg, h)
+        h = _layer_body(cfg, h, _layer(params, li), mask, sep_for_flash=sep)
+    if logits_from is not None:
+        h = h[:, logits_from:]
+    h = _final_ln(params, cfg, h)
+    return h if return_hidden else _logits(params, cfg, h)
 
 
 @torch.no_grad()
@@ -334,4 +359,4 @@ def forward_with_cache(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
     for li in range(cfg.num_layers):
         h = _layer_body(cfg, h, _layer(params, li), mask, cache, li, index,
                         full_prefix)
-    return _final(params, cfg, h)
+    return _logits(params, cfg, _final_ln(params, cfg, h))

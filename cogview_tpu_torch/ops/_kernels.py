@@ -1,11 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and loaded with ``ctypes``.  The build runs
-at first use, from the sources in the checkout, into
+Each ``csrc/<name>.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``.  The
+build runs at first use, from the sources in the checkout, into
 ``cogview_tpu_torch/build/`` (which git ignores); the library's file name
-carries a hash of its source, so an edited source is rebuilt.  Nothing here
-runs at import time.
+carries a hash of its source and flags, so an edited source is rebuilt.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -17,17 +17,39 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Dict, Iterable, List
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 
-# No --use_fast_math: the seal's division and round-half-even must be IEEE
-# so the quantized bytes equal the plain PyTorch version's.
+# No --use_fast_math: the decode seal's division and round-half-even, and
+# the flash kernel's expf / logf and dropout division, must be IEEE so the
+# kernels agree with their plain PyTorch versions.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-_LIB = None
+_P, _I, _L, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float, ctypes.c_uint)
+
+# library -> {exported C function: argtypes}; every function returns the
+# cudaError_t of its launch as an int
+SIGNATURES: Dict[str, Dict[str, List]] = {
+    "decode_attention": {
+        # q, q_is_bf16, ring, kv, scales, ctx, B, N, D, NW, G, index, stream
+        "decode_attention_int8": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "flash_attention": {
+        # q, k, v, o, lse, is_bf16, B, S, N, D,
+        # q/k/v batch and sequence strides (elements),
+        # sep, scale, seed, threshold, keep, dropout, stream
+        "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _L, _L, _L, _L, _L, _L,
+                                _I, _F, _U, _U, _F, _I, _P],
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -41,34 +63,49 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str = "decode_attention") -> Path:
-    """Compile ``csrc/<name>.cu`` (if not built yet) -> the library path."""
+def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD / f"lib{name}_{digest}.so"
-    if out.exists():
-        return out
-    BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
+    return BUILD / f"lib{name}_{digest}.so"
+
+
+def build_all(names: Iterable[str]) -> List[Path]:
+    """Compile ``csrc/<name>.cu`` for every name not built yet, one ``nvcc``
+    per source, all started together -> the library paths."""
+    names = list(names)
+    outs = [_target(n) for n in names]
+    jobs = []
     try:
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)], check=True)
-        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+        for name, out in zip(names, outs):
+            if out.exists():
+                continue
+            BUILD.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            jobs.append((subprocess.Popen(cmd), cmd, tmp, out))
+        for proc, cmd, tmp, out in jobs:
+            if proc.wait() != 0:
+                raise subprocess.CalledProcessError(proc.returncode, cmd)
+            os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+        for proc, _, tmp, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return outs
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded decode-attention library, built on first use."""
-    global _LIB
-    if _LIB is None:
-        so = ctypes.CDLL(str(build("decode_attention")))
-        fn = so.decode_attention_int8
-        P, I = ctypes.c_void_p, ctypes.c_int
-        # q, q_is_bf16, ring, kv, scales, ctx, B, N, D, NW, G, index, stream
-        fn.argtypes = [P, I, P, P, P, P, I, I, I, I, I, I, P]
-        fn.restype = I
-        _LIB = so
-    return _LIB
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` with its functions' argtypes set, built
+    on first use."""
+    if name not in _LIBS:
+        so = ctypes.CDLL(str(build_all([name])[0]))
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(so, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = _I
+        _LIBS[name] = so
+    return _LIBS[name]

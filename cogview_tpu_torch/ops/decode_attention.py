@@ -299,7 +299,7 @@ def decode_attention_quant(
     ctx = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _kernels.lib().decode_attention_int8(
+        err = _kernels.lib("decode_attention").decode_attention_int8(
             q.data_ptr(), int(q.dtype == torch.bfloat16), ring_l.data_ptr(),
             kv_l.data_ptr(), scales_l.data_ptr(), ctx.data_ptr(),
             B, N, D, NW, G, int(index), stream)

@@ -25,10 +25,16 @@ class TorchVQTokenizer:
     def __len__(self) -> int:
         return self.num_tokens
 
+    def read_img(self, path: str, img_size: int = 256) -> np.ndarray:
+        return vqvae.read_img(path, img_size)
+
     def EncodeAsIds(self, img) -> np.ndarray:
-        raise NotImplementedError(
-            "the VQ-VAE encoder is not ported yet; it comes with the "
-            "image->text slice (ROADMAP Queue A6)")
+        """img [b, h, w, 3] normalized -> [b, (h/8)*(w/8)] int codes."""
+        img = np.asarray(img, np.float32)
+        if img.ndim == 3:
+            img = img[None]
+        x = torch.from_numpy(img).to(self.device)
+        return vqvae.img2code(self.params, x).cpu().numpy()
 
     def DecodeIds(self, code, shape=None) -> np.ndarray:
         """codes (list | [n] | [b, n]) -> de-normalized image [b, 8s, 8s, 3]."""

@@ -35,6 +35,8 @@ def pytest_configure(config):
     # multi-step / CLI end-to-end tests)
     config.addinivalue_line(
         "markers", "slow: oracle-parity / multi-step tests (skip with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips itself elsewhere")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,107 @@
+"""Port parity: the plain PyTorch flash-attention forward (the CUDA kernel's
+twin) against cogview_tpu's Pallas kernel, which runs in interpret mode on
+the CPU, float32, atol 1e-5 (the two sum in different orders).
+
+The cases are those of tests/test_flash_attention.py: causal, a
+bidirectional prefix, a prefix past the block size, and hash dropout with a
+prefix.  The kernel itself is compared with the plain version on a card by
+tests/test_torch_kernels_cuda.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from cogview_tpu.ops import flash_attention as jfa
+from cogview_tpu_torch.config import tiny_test
+from cogview_tpu_torch.models.gpt import should_use_flash
+from cogview_tpu_torch.ops import flash_attention as tfa
+
+torch.set_num_threads(1)
+
+B, N, D = 2, 3, 32
+
+
+def _mk(s, seed=0):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(B, s, N, D).astype(np.float32) for _ in range(3)]
+
+
+def _both(s, sep, bq, bk, seed, rate=0.0, dropout_seed=None):
+    q, k, v = _mk(s, seed)
+    want = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), sep, bq, bk, True,
+                               dropout_rate=rate, dropout_seed=dropout_seed)
+    before = tfa.flash_attention.launches
+    o, lse = tfa.flash_attention(*map(torch.from_numpy, (q, k, v)), sep,
+                                 dropout_rate=rate, dropout_seed=dropout_seed)
+    assert tfa.flash_attention.launches == before  # CPU: the plain version
+    assert o.shape == (B, s, N, D) and o.dtype == torch.float32
+    assert lse.shape == (B, N, s) and lse.dtype == torch.float32
+    return o.numpy(), np.asarray(want), lse.numpy(), (q, k, v)
+
+
+@pytest.mark.parametrize("s,bq,bk", [(128, 64, 64), (200, 64, 64), (96, 32, 64)])
+def test_forward_matches_jax_kernel(s, bq, bk):
+    got, want, _, _ = _both(s, 0, bq, bk, seed=0)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_sep_prefix_matches_jax_kernel():
+    got, want, _, _ = _both(128, 37, 64, 64, seed=1)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("s,sep,bq,bk", [(192, 100, 32, 32), (256, 180, 64, 64)])
+def test_sep_larger_than_block_matches_jax_kernel(s, sep, bq, bk):
+    got, want, _, _ = _both(s, sep, bq, bk, seed=7)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("s,sep,rate", [(128, 0, 0.1), (150, 20, 0.4)])
+def test_dropout_matches_jax_kernel(s, sep, rate):
+    got, want, _, _ = _both(s, sep, 64, 64, seed=11, rate=rate, dropout_seed=123)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    assert (got == 0).mean() < 0.5 + rate  # dropout did not zero everything
+
+
+def test_dropout_keep_mask_bit_equal():
+    for b, n in ((0, 0), (1, 2)):
+        want = np.asarray(jfa.dropout_keep_reference(77, b, n, N, 40, 48, 0.3))
+        got = tfa.dropout_keep_reference(77, b, n, N, 40, 48, 0.3).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert 0.6 < got.mean() < 0.8
+
+
+@pytest.mark.parametrize("sep,rate", [(0, 0.0), (30, 0.0), (30, 0.25)])
+def test_lse_matches_numpy_logsumexp(sep, rate):
+    """lse = logsumexp of the masked, scaled logits, before dropout, to 1e-5."""
+    s = 96
+    _, _, lse, (q, k, _) = _both(s, sep, 32, 32, seed=3, rate=rate,
+                                 dropout_seed=9 if rate else None)
+    logits = np.einsum("bqnd,bknd->bnqk", q.astype(np.float64), k) / np.sqrt(D)
+    pos = np.arange(s)
+    visible = (pos[None, :] <= pos[:, None]) | (pos[None, :] < sep)
+    logits = np.where(visible, logits, -10000.0)
+    m = logits.max(-1, keepdims=True)
+    want = (m + np.log(np.exp(logits - m).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("flag", [True, False, "auto"])
+def test_should_use_flash_grid(flag):
+    cfg = tiny_test(use_flash_attention=flag, flash_min_seq=1024)
+    for seq_len in (1, 40, 1023, 1024, 1058, 1089):
+        want = flag is True or (flag == "auto" and seq_len >= 1024)
+        assert should_use_flash(cfg, seq_len) == want, (flag, seq_len)
+
+
+def test_raises_when_an_input_requires_grad():
+    q, k, v = (torch.from_numpy(a) for a in _mk(16))
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        tfa.flash_attention(q, k, v)
+    with torch.no_grad():  # no graph recorded: nothing needs a backward
+        tfa.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="dropout_seed"):
+        tfa.flash_attention(q.detach(), k, v, dropout_rate=0.1)

@@ -40,6 +40,27 @@ def test_forward_logits_match(weights):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
 
 
+@pytest.mark.parametrize("sep,logits_from,return_hidden,flash", [
+    (5, None, False, False), (5, 10, False, True), (0, 7, True, True), (9, 3, True, False)])
+def test_forward_sep_logits_from_hidden_match(weights, sep, logits_from, return_hidden, flash):
+    """forward with a bidirectional prefix, a logits tail and the hidden
+    states, on the flash path (JAX: Pallas in interpret mode; port: the
+    kernel's plain version) and the dense path, to 1e-4."""
+    from cogview_tpu_torch.ops import flash_attention as tfa
+
+    jcfg, jparams, tparams, tokens = weights
+    kw = dict(sep=sep, logits_from=logits_from, return_hidden=return_hidden)
+    want = np.asarray(jgpt.forward(jparams, jcfg.replace(use_flash_attention=flash),
+                                   jnp.asarray(tokens), **kw))
+    calls = tfa.flash_attention_reference.calls
+    got = gpt.forward(tparams, tiny_test(use_flash_attention=flash),
+                      torch.from_numpy(tokens).long(), **kw)
+    assert tfa.flash_attention_reference.calls - calls == (2 if flash else 0)
+    width = 64 if return_hidden else 128
+    assert got.shape == want.shape == (B, S - (logits_from or 0), width)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+
+
 def _decode_run_jax(jparams, jcfg, tokens, chunks):
     pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
     cache = jgpt.init_cache(jcfg, B, S)

@@ -5,6 +5,7 @@ KV cache, 1024 image slots) in both packages: the same tokens and images.
 The port derives each chunk's uint32 seed without ``jax.random``; the test
 hands it the seeds the JAX package derives, so both draw the same noise."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -100,6 +101,7 @@ def test_port_imports_no_jax():
         "import cogview_tpu_torch.models.bridge, cogview_tpu_torch.generation.tasks\n"
         "import cogview_tpu_torch.generation.sampling, cogview_tpu_torch.utils.png\n"
         "import cogview_tpu_torch.tokenization.vq_tokenizer\n"
+        "import cogview_tpu_torch.ops.flash_attention, cogview_tpu_torch.generation.scoring\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m.startswith('cogview_tpu.')\n"
         "       and not m.startswith('cogview_tpu.tokenization')]\n"
@@ -134,3 +136,54 @@ def test_cli_runs_on_cpu_and_writes_pngs(tmp_path):
                        txt_tokenizer=WordTok())
     assert rc == 0
     assert read_png(str(out / "0.png")).shape == (256, 256, 3)
+
+
+def test_cli_image2text_and_post_selection_on_cpu(tmp_path, monkeypatch, capsys):
+    """The CLI's image2text and post-selection tasks at the smoke preset on
+    the CPU, with a narrow random VQ-VAE and a stand-in text tokenizer:
+    20 text ids per row are printed, and the scores file holds the query
+    and one finite negative score per candidate."""
+    from cogview_tpu_torch.cli import generate
+    from cogview_tpu_torch.utils.png import write_png
+
+    class WordTok:
+        num_tokens = 50000
+
+        def encode(self, s):
+            return [100 + i for i, _ in enumerate(s.split())]
+
+        def decode(self, ids):
+            return " ".join(map(str, ids))
+
+    from cogview_tpu_torch.models import vqvae
+
+    small = VQVAEConfig(channel=16, embed_dim=8)  # n_embed stays 8192
+    monkeypatch.setattr(generate.TorchVQTokenizer, "random_init", classmethod(
+        lambda cls, device=None: cls(vqvae.init_params(small, torch.Generator().manual_seed(0)),
+                                     small, device)))
+    rng = np.random.RandomState(0)
+    imgs = []
+    for i in range(2):
+        imgs.append(str(tmp_path / f"{i}.png"))
+        write_png(imgs[-1], rng.randint(0, 256, (256, 256, 3)).astype(np.uint8))
+    common = ["--preset", "smoke", "--device", "cpu", "--output-path", str(tmp_path / "out")]
+
+    q = tmp_path / "i2t.txt"
+    q.write_text(imgs[0] + "\n")
+    assert generate.main(["--generation-task", "image2text", "--batch-size", "2",
+                          "--input-source", str(q)] + common, txt_tokenizer=WordTok()) == 0
+    printed = [ast.literal_eval(line) for line in capsys.readouterr().out.splitlines()
+               if line.startswith("[")]
+    assert len(printed) == 2
+    for parts in printed:  # the commands, then one string of the 20 text ids
+        assert parts[:4] == ["[BASE]", "[BOI1]", "[EOI1]", "[ROI1]"]
+        assert len(parts[-1].split()) == 20
+
+    q = tmp_path / "ps.txt"
+    q.write_text("\t".join(["w0 w1 w2"] + imgs) + "\n")
+    assert generate.main(["--generation-task", "post-selection", "--input-source", str(q)]
+                         + common, txt_tokenizer=WordTok()) == 0
+    lines = (tmp_path / "out" / "scores_rank_0.txt").read_text().splitlines()
+    assert lines[0] == q.read_text().strip()
+    scores = [float(x) for x in lines[1].split("\t")]
+    assert len(scores) == 2 and all(np.isfinite(x) and x < 0 for x in scores)
