@@ -18,19 +18,33 @@ result):
    float32 and bfloat16: S=1058 (post-selection), S=1089 with a prefix that
    crosses tiles, a ragged small S, and dropout 0.1; o and lse within
    tolerance; the microseconds per call of both at S=1058;
-5. small input: prefill + decode of a tiny float32 model, and a tiny
+5. flash backward kernels: dq (K4) and dk/dv (K5) against their plain
+   versions at tutorial head shapes (B=16, N=16, S=1088, sep 0 and 64, the
+   latter with dropout 0.1) and cogview-base head shapes (B=4, N=40,
+   S=1058), float32 and bfloat16; two launches bit-equal; the microseconds
+   per call of both at the tutorial's training shape;
+6. small input: prefill + decode of a tiny float32 model, and a tiny
    float32 forward through the flash kernel, on the card against the same
-   model on the CPU (plain versions);
-6. text->image: ``cogview_tpu_torch.cli.generate.main`` at cogview-base width
+   model on the CPU (plain versions); two tiny float32 train steps through
+   the three flash kernels with dropout 0.1, card against CPU;
+7. text->image: ``cogview_tpu_torch.cli.generate.main`` at cogview-base width
    (48 layers, random weights from a seed), int8 KV cache, batch 4, one
    request of 30 words, first with bf16 weights, then with int8 weights.
    Checks the generated ids, the four PNGs, and that every decode step of
    every layer launched the decode kernel and never its plain version;
-7. image->text: the CLI on the first bf16-weight PNG, batch 4: 20 text ids
+8. image->text: the CLI on the first bf16-weight PNG, batch 4: 20 text ids
    per row, 20 x 48 decode-kernel launches;
-8. post-selection: the CLI scores the four PNGs against the prompt: four
+9. post-selection: the CLI scores the four PNGs against the prompt: four
    finite negative scores in scores_rank_0.txt, 48 flash-kernel launches;
-   the same tokens scored again through dense attention on the card agree.
+   the same tokens scored again through dense attention on the card agree;
+10. pretraining: ``cogview_tpu_torch.cli.pretrain.main`` at the tutorial
+   preset's widths (12 layers, hidden 1024, 16 heads, vocab 58,240), bf16
+   compute, dropout 0.1, remat, batch 16 x 1,088 tokens, 30 steps on a
+   CompactBinary corpus written from a seed: finite falling losses, no
+   skipped step, every flash launch counted (2 forward and 1 of each
+   backward kernel per layer and step, no plain call), the step time,
+   tokens per second, device-busy share and peak memory; then a ``--load``
+   run resumes at the saved iteration and takes 2 more steps.
 
 The next-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -173,6 +187,116 @@ def phase_flash_kernel(torch, fa):
                 print(f"flash kernel time {name} S=1058: kernel {us_k:.1f} us/call, plain "
                       f"{us_p:.1f} us/call (CUDA events, median of 25)")
     return {"max_abs_err": worst, "times": times}
+
+
+def _backward_inputs(torch, fa, dtype, b, s, n, sep, rate, gen):
+    """Strided q/k/v views of a fused QKV tensor, dO, and the forward
+    kernel's lse with delta = rowsum(dO * O) -> (args, dropout kwargs)."""
+    qkv = torch.randn((b, s, 3, n * 64), generator=gen, device="cuda").to(dtype)
+    q, k, v = (qkv[:, :, i].reshape(b, s, n, 64) for i in range(3))
+    do = torch.randn((b, s, n, 64), generator=gen, device="cuda").to(dtype)
+    kw = dict(dropout_rate=rate, dropout_seed=2024 if rate else None)
+    with torch.no_grad():
+        o, lse = fa.flash_attention(q, k, v, sep, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return (q, k, v, do, lse, delta), kw
+
+
+def phase_flash_backward(torch, fa):
+    """K4 (dq) and K5 (dk, dv) against their plain versions -> summary.
+
+    Tolerances, relative to the largest |gradient|: float32 1e-4 (the
+    kernels sum 64-wide tiles with FMA, the plain versions whole rows);
+    bfloat16 2e-2 (ds and the dropped probabilities are rounded to
+    bfloat16 before their products, at points where the kernels and the
+    plain versions see slightly different float32 values, and the outputs
+    are bfloat16)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst, rel_worst = 0.0, 0.0
+    # (B, N, S, sep, rate): the tutorial's training shape, with a prefix on
+    # a tile edge and dropout, and cogview-base's post-selection length
+    for b, n, s, sep, rate in ((16, 16, 1088, 0, 0.0), (16, 16, 1088, 64, 0.1),
+                               (4, 40, 1058, 0, 0.0)):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            args, kw = _backward_inputs(torch, fa, dtype, b, s, n, sep, rate, gen)
+            dq = fa.flash_bwd_dq(*args, sep, **kw)
+            dk, dv = fa.flash_bwd_dkv(*args, sep, **kw)
+            dq2 = fa.flash_bwd_dq(*args, sep, **kw)
+            dk2, dv2 = fa.flash_bwd_dkv(*args, sep, **kw)
+            torch.cuda.synchronize()
+            same = torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+            want_dq = fa.flash_bwd_dq_reference(*args, sep, kw["dropout_rate"],
+                                                kw["dropout_seed"])
+            want_dk, want_dv = fa.flash_bwd_dkv_reference(*args, sep, kw["dropout_rate"],
+                                                          kw["dropout_seed"])
+            errs = []
+            for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                                    ("dv", dv, want_dv)):
+                _check(got.dtype == dtype and got.shape == (b, s, n, 64),
+                       f"{name} dtype or shape")
+                err = (got.float() - want.float()).abs().max().item()
+                scale = want.float().abs().max().item()
+                errs.append(f"{name} {err:.3e} ({err / scale:.2e} of max {scale:.3e})")
+                _check(err <= tol * scale, f"flash {name} kernel differs at B={b} N={n} S={s} "
+                       f"sep={sep} {dtype}: {err} > {tol} x {scale}")
+                worst, rel_worst = max(worst, err), max(rel_worst, err / scale)
+            print(f"flash backward {str(dtype)[6:]} B={b} N={n} S={s} sep={sep} dropout={rate}: "
+                  f"max_abs_err {', '.join(errs)} (tol {tol:g} x max); repeat bit-equal={same}")
+            _check(same, "two launches of the backward kernels differ")
+            del args, dq, dk, dv, dq2, dk2, dv2, want_dq, want_dk, want_dv
+
+    # time at the tutorial's training shape: bf16, dropout 0.1
+    args, kw = _backward_inputs(torch, fa, torch.bfloat16, 16, 1088, 16, 0, 0.1, gen)
+    rate, seed = kw["dropout_rate"], kw["dropout_seed"]
+    times = {
+        "dq": (_device_time_us(torch, lambda: fa.flash_bwd_dq(*args, 0, **kw)),
+               _device_time_us(torch, lambda: fa.flash_bwd_dq_reference(*args, 0, rate, seed))),
+        "dkv": (_device_time_us(torch, lambda: fa.flash_bwd_dkv(*args, 0, **kw)),
+                _device_time_us(torch, lambda: fa.flash_bwd_dkv_reference(*args, 0, rate,
+                                                                           seed))),
+    }
+    for name, (us_k, us_p) in times.items():
+        print(f"flash backward {name} time bf16 B=16 N=16 S=1088 dropout 0.1: kernel "
+              f"{us_k:.1f} us/call, plain {us_p:.1f} us/call (CUDA events, median of 25)")
+    return {"max_abs_err": worst, "rel_err": rel_worst, "times": times}
+
+
+def phase_small_training(torch, cfgmod, fa, tl, optim):
+    """Two tiny float32 train steps through the flash kernels (one head of
+    64, dropout 0.1) on the card, against the same steps on the CPU (plain
+    versions): losses to 1e-4 relative, params after the steps to 1e-4."""
+    from cogview_tpu_torch.models import gpt
+
+    cfg = cfgmod.tiny_test(num_heads=1, use_flash_attention=True, embedding_dropout=0.1,
+                           attention_dropout=0.1, output_dropout=0.1)
+    rng = torch.Generator().manual_seed(5)
+    batches = [{"text": torch.randint(0, 128, (2, 64), generator=rng),
+                "loss_mask": torch.ones(2, 64)} for _ in range(2)]
+    seeds = [torch.randint(0, 2 ** 32, (3,), generator=rng).tolist() for _ in range(2)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = optim.tree_map(lambda t: t.to(dev),
+                                gpt.init_params(cfg, torch.Generator().manual_seed(6)))
+        opt, _ = optim.make_optimizer(params, lr=1e-3, warmup_iter=1, num_iters=10)
+        state = tl.init_train_state(params, opt, torch.Generator().manual_seed(0))
+        step = tl.make_train_step(cfg, opt, img_vocab=64)
+        launches = (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
+                    fa.flash_bwd_dkv.launches)
+        losses = [step(state, batch, seeds=s)[1]["lm_loss"] for batch, s in zip(batches, seeds)]
+        launched = tuple(b - a for a, b in zip(launches, (
+            fa.flash_attention.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)))
+        runs[dev] = (losses, [p.detach().cpu() for p in optim.tree_leaves(state["params"])],
+                     launched)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    param_err = max((a - b).abs().max().item() for a, b in zip(runs["cuda"][1], runs["cpu"][1]))
+    print(f"small input training (tiny_test f32, 1 head of 64, S=63, dropout 0.1, 2 steps): "
+          f"losses card {runs['cuda'][0]} CPU {runs['cpu'][0]}, max rel diff {loss_err:.2e} "
+          f"(tol 1e-4); params max_abs_err {param_err:.2e} (tol 1e-4); kernel launches on the "
+          f"card (fwd, dq, dkv) {runs['cuda'][2]}, on the CPU {runs['cpu'][2]}")
+    _check(loss_err <= 1e-4 and param_err <= 1e-4, "card train steps differ from the CPU's")
+    # remat: per step and layer, the forward twice and each backward once
+    _check(runs["cuda"][2] == (8, 4, 4) and runs["cpu"][2] == (0, 0, 0),
+           "the card's train steps did not launch the flash kernels once per layer")
 
 
 def phase_small_input(torch, gpt, cfgmod, fa):
@@ -402,6 +526,188 @@ def phase_post_selection(torch, fa, cli, tasks, scoring, png_dir: str, work: str
     return launches
 
 
+PRETRAIN_STEPS = 30
+
+
+def _write_corpus(path: str, rows: int, seed: int) -> None:
+    """A CompactBinary corpus: per row 64 text ids (8-40 real, padded with
+    -1), then 1,024 image codes in [0, 8192)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    data = np.full((rows, 64 + 1024), -1, np.int32)
+    for r in range(rows):
+        n = rng.randint(8, 41)
+        data[r, :n] = rng.randint(8192, 8192 + 50000, n)
+    data[:, 64:] = rng.randint(0, 8192, (rows, 1024))
+    data.tofile(path)
+
+
+def _device_busy(torch, prof, wall_s: float):
+    """(device kernel seconds by category, busy share, the 8 longest
+    kernels) of a profile."""
+    cats = {"flash kernels": 0.0, "matmuls": 0.0, "elementwise": 0.0, "reductions": 0.0,
+            "copies / casts": 0.0, "other": 0.0}
+    top = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        top.append((us / 1e6, e.count, e.key[:90]))
+        name = e.key.lower()
+        if "flash" in name:
+            cat = "flash kernels"
+        elif any(t in name for t in ("gemm", "cutlass", "xmma", "nvjet", "sm90")):
+            cat = "matmuls"
+        elif "reduce" in name or "norm" in name or "softmax" in name:
+            cat = "reductions"
+        elif "copy" in name or "memcpy" in name or "memset" in name or "cast" in name:
+            cat = "copies / casts"
+        elif "elementwise" in name or "vectorized" in name or "unrolled" in name:
+            cat = "elementwise"
+        else:
+            cat = "other"
+        cats[cat] += us / 1e6
+    return cats, sum(cats.values()) / wall_s, sorted(top, reverse=True)[:8]
+
+
+def phase_pretrain(torch, fa, pretrain, losses, optim, work: str):
+    """Tutorial-width pretraining through the CLI, then a resumed run ->
+    (K3, K4, K5 launches, timings)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    corpus = os.path.join(work, "tutorial_t2i.bin")
+    _write_corpus(corpus, 600, seed=7)
+    save = os.path.join(work, "pretrain_ckpt")
+    argv = ["--preset", "tutorial", "--device", "cuda", "--train-data", corpus,
+            "--batch-size", "16", "--split", "0.9,0.1,0.0", "--lr", "1e-3", "--warmup", "0.1",
+            "--seed", "1234", "--log-interval", "5", "--eval-interval", str(PRETRAIN_STEPS),
+            "--eval-iters", "2", "--save", save, "--save-interval", str(PRETRAIN_STEPS)]
+    rec = {"metrics": [], "step_s": []}
+    orig_make = pretrain.make_train_step
+
+    def recording_make(cfg, opt, **kw):
+        step = orig_make(cfg, opt, **kw)
+        rec.update(cfg=cfg, kw=kw)
+
+        def timed(state, batch):
+            i = len(rec["step_s"])
+            if i == 5:
+                rec["prof"] = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+                rec["prof"].__enter__()
+                rec["prof_t0"] = time.perf_counter()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            rec["step_s"].append(time.perf_counter() - t0)
+            if i == 7:
+                rec["prof_wall"] = time.perf_counter() - rec["prof_t0"]
+                rec["prof"].__exit__(None, None, None)
+            rec["metrics"].append(metrics)
+            rec.update(state=state, batch=batch)
+            return state, metrics
+
+        return timed
+
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    plains = (fa.flash_attention_reference, fa.flash_bwd_dq_reference, fa.flash_bwd_dkv_reference)
+    for c in counters:
+        c.launches = 0
+    for c in plains:
+        c.calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    pretrain.make_train_step = recording_make
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = pretrain.main(argv + ["--train-iters", str(PRETRAIN_STEPS)],
+                               txt_tokenizer=WordTokenizer())
+    finally:
+        pretrain.make_train_step = orig_make
+    launches = [c.launches for c in counters]
+    plain_calls = [c.calls for c in plains]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(out.getvalue(), end="")
+    _check(rc == 0, f"pretrain.main returned {rc}")
+
+    steps = len(rec["metrics"])
+    lm = [m["lm_loss"] for m in rec["metrics"]]
+    skipped = sum(m["skipped"] for m in rec["metrics"])
+    print(f"pretrain: {steps} steps, lm loss first {lm[0]:.4f}, mean of the last 5 "
+          f"{np.mean(lm[-5:]):.4f}, all finite: {bool(np.isfinite(lm).all())}, skipped {skipped}")
+    _check(steps == PRETRAIN_STEPS and np.isfinite(lm).all() and skipped == 0,
+           "pretraining losses not finite or a step skipped")
+    _check(np.mean(lm[-5:]) <= lm[0] - 0.5, "pretraining loss did not fall by 0.5")
+    val = [ln for ln in out.getvalue().splitlines() if ln.startswith(" validation loss")]
+    L = rec["cfg"].num_layers
+    want = [2 * L * steps + L * 2, L * steps, L * steps]  # remat replay; 2 eval batches
+    print(f"pretrain: launches (flash fwd, dq, dkv) {launches}, expected {want}; plain-version "
+          f"calls {plain_calls}; eval lines {len(val)}")
+    _check(launches == want and plain_calls == [0, 0, 0] and len(val) == 1,
+           "pretraining did not run the flash kernels once per layer and step")
+
+    step_ms = 1000.0 * statistics.median(rec["step_s"][3:])
+    tokens = 16 * 1088
+    cats, busy, top = _device_busy(torch, rec["prof"], rec["prof_wall"])
+    print(f"pretrain: {step_ms:.3f} ms per step (median of steps 4-{steps}, host clock around "
+          f"synchronised steps), {tokens / step_ms * 1000.0:.1f} tokens/s; peak memory "
+          f"{peak_gib:.3f} GiB")
+    print(f"pretrain: steps 6-8 under torch.profiler: wall {rec['prof_wall']:.3f} s, device "
+          f"busy {100.0 * busy:.1f}%; kernel time by kind " + ", ".join(
+              f"{k} {1000.0 * v / 3:.3f} ms/step" for k, v in cats.items()))
+    for sec, n, name in top:
+        print(f"pretrain: kernel {1000.0 * sec / 3:.3f} ms/step ({n // 3} launches/step) {name}")
+
+    # forward, backward and optimizer apart, on the last batch and state
+    state, cfg, kw = rec["state"], rec["cfg"], rec["kw"]
+    params = state["params"]
+    leaves = list(optim.tree_leaves(params))
+    batch = {k: torch.as_tensor(v).cuda() for k, v in rec["batch"].items()}
+    seeds = list(range(1, L + 2))
+    parts = {"forward": [], "forward + backward": []}
+    for _ in range(3):
+        for name in parts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = losses.lm_loss(params, cfg, batch, img_vocab=kw["img_vocab"],
+                                     txt_loss_scale=kw["txt_loss_scale"], seeds=seeds)
+            if name != "forward":
+                torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            parts[name].append(time.perf_counter() - t0)
+            del loss
+    fwd = 1000.0 * min(parts["forward"])
+    fb = 1000.0 * min(parts["forward + backward"])
+    print(f"pretrain: forward {fwd:.3f} ms, backward {fb - fwd:.3f} ms (remat replay "
+          f"included), optimizer and the rest {step_ms - fb:.3f} ms per step (host clock, "
+          f"best of 3)")
+    del rec, state, params, leaves, batch
+    torch.cuda.empty_cache()
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = pretrain.main(argv + ["--train-iters", str(PRETRAIN_STEPS + 2), "--load", save,
+                                   "--resume-dataloader", "--log-interval", "1",
+                                   "--save", os.path.join(work, "pretrain_ckpt2")],
+                           txt_tokenizer=WordTokenizer())
+    print(out.getvalue(), end="")
+    lines = out.getvalue().splitlines()
+    resumed = f"loaded checkpoint from {save} at iteration {PRETRAIN_STEPS}" in lines
+    iters = [ln.split("/")[0].split()[-1] for ln in lines if ln.startswith(" iteration")]
+    print(f"pretrain resume: loaded at iteration {PRETRAIN_STEPS}: {resumed}; iterations run "
+          f"{iters}")
+    _check(rc == 0 and resumed and iters == [str(PRETRAIN_STEPS + 1), str(PRETRAIN_STEPS + 2)],
+           "the --load run did not resume at the saved iteration")
+    return launches, {"step_ms": step_ms, "busy": busy}
+
+
 def main() -> int:
     import torch
 
@@ -410,12 +716,15 @@ def main() -> int:
     try:
         from cogview_tpu_torch import config as cfgmod
         from cogview_tpu_torch.cli import generate as cli
+        from cogview_tpu_torch.cli import pretrain
         from cogview_tpu_torch.generation import sampling, scoring, tasks
         from cogview_tpu_torch.models import gpt
         from cogview_tpu_torch.ops import _kernels
         from cogview_tpu_torch.ops import decode_attention as da
         from cogview_tpu_torch.ops import flash_attention as fa
         from cogview_tpu_torch.ops.precision import set_fp32_precision
+        from cogview_tpu_torch.training import losses, optim
+        from cogview_tpu_torch.training import train_loop as tl
         from cogview_tpu_torch.utils import png
     except ImportError as e:
         _fail(f"the port is not importable here ({e}); run from the repository root")
@@ -437,19 +746,23 @@ def main() -> int:
         _kernels.lib(name)
     print(f"build: {', '.join(so.name for so in sos)} in {time.perf_counter() - t0:.2f} s")
 
-    # phases 3-5: kernels against their plain versions, small input
+    # phases 3-6: kernels against their plain versions, small input
     k1 = phase_kernel(torch, da)
     k3 = phase_flash_kernel(torch, fa)
+    k45 = phase_flash_backward(torch, fa)
     phase_small_input(torch, gpt, cfgmod, fa)
+    phase_small_training(torch, cfgmod, fa, tl, optim)
 
     with tempfile.TemporaryDirectory() as work:
-        # phase 6: text->image, bf16 then int8 weights; the bf16 PNGs feed 7, 8
+        # phase 7: text->image, bf16 then int8 weights; the bf16 PNGs feed 8, 9
         t2i = [phase_main_path(torch, da, cli, tasks, sampling, png, w, work)
                for w in ("bfloat16", "int8")]
         png_dir = t2i[0][1]
-        # phase 7: image->text; phase 8: post-selection
+        # phase 8: image->text; phase 9: post-selection
         i2t = phase_image2text(torch, da, fa, cli, tasks, sampling, png_dir, work)
         flash_launches = phase_post_selection(torch, fa, cli, tasks, scoring, png_dir, work)
+        # phase 10: pretraining at the tutorial width, then a resumed run
+        train_launches, _ = phase_pretrain(torch, fa, pretrain, losses, optim, work)
 
     us_k, us_p = k1["times"][("bfloat16", 600)]
     fk, fp = k3["times"]["bfloat16"]
@@ -467,11 +780,20 @@ def main() -> int:
         "route": "cuda",
         "source": "cogview_tpu_torch/csrc/flash_attention.cu",
         "replaces": "cogview_tpu/ops/flash_attention.py:163",
-        "launches": flash_launches,
+        "launches": flash_launches + train_launches[0],
         "max_abs_err": k3["max_abs_err"],
         "ms": fk / 1000.0,
         "plain_ms": fp / 1000.0,
-    }]}))
+    }] + [{
+        "name": f"flash_attention_bwd_{name}",
+        "route": "cuda",
+        "source": "cogview_tpu_torch/csrc/flash_attention.cu",
+        "replaces": f"cogview_tpu/ops/flash_attention.py:{line}",
+        "launches": n,
+        "max_abs_err": k45["max_abs_err"],
+        "ms": k45["times"][name][0] / 1000.0,
+        "plain_ms": k45["times"][name][1] / 1000.0,
+    } for name, line, n in (("dq", 212, train_launches[1]), ("dkv", 249, train_launches[2]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,9 @@
 """Model configuration dataclasses and presets (twin of cogview_tpu/config.py).
 
-Only the fields the inference slice reads are mirrored (no dropout rates:
-the port has no training yet; no flash block sizes: they tune the TPU
-kernel's VMEM blocks); ``compute_dtype`` is a torch dtype.  The
-presets keep the JAX package's names and widths.
+Only the fields the ported slices read are mirrored (no sparse-attention
+geometry, no parallelism axes; no flash block sizes: they tune the TPU
+kernel's VMEM blocks); ``compute_dtype`` is a torch dtype.  The presets
+keep the JAX package's names and widths.
 """
 
 from __future__ import annotations
@@ -27,6 +27,9 @@ class GPTConfig:
     vocab_size: int
     max_position_embeddings: int = 1089
     layernorm_epsilon: float = 1e-5
+    embedding_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    output_dropout: float = 0.1
     sandwich_ln: bool = True  # third/fourth layernorm (Sandwich-LN)
     pb_relax: bool = True  # PB-relax LN prescale, folded into eps
     init_std: float = 0.02
@@ -36,6 +39,10 @@ class GPTConfig:
     # iff the sequence length >= flash_min_seq; True/False force it
     use_flash_attention: "bool | str" = "auto"
     flash_min_seq: int = 1024
+    # training CE over sequence chunks of (the largest divisor of S <=) this
+    # many tokens; >= S forces full logits; 0 = auto: full logits while the
+    # float32 [B, S, V] logits fit in 4.5 GiB, 160-token chunks above
+    ce_chunk_target: int = 0
     # Only the int8 window-blocked cache is ported so far; the bfloat16
     # cache and the packed int4 cache come with later slices.
     kv_cache_dtype: str = "int8"
@@ -75,6 +82,17 @@ def cogview_base(**kw) -> GPTConfig:
     return cfg.replace(**kw) if kw else cfg
 
 
+def cogview_tutorial(**kw) -> GPTConfig:
+    """Tutorial pretraining scale: 12L x 1024H x 16 heads."""
+    cfg = GPTConfig(
+        num_layers=12,
+        hidden_size=1024,
+        num_heads=16,
+        vocab_size=pad_vocab_size(UNIFIED_VOCAB_RAW),
+    )
+    return cfg.replace(**kw) if kw else cfg
+
+
 def smoke(**kw) -> GPTConfig:
     """Tiny dims over the real unified vocab (random-init CLI runs)."""
     cfg = GPTConfig(
@@ -82,6 +100,9 @@ def smoke(**kw) -> GPTConfig:
         hidden_size=64,
         num_heads=4,
         vocab_size=pad_vocab_size(UNIFIED_VOCAB_RAW),
+        embedding_dropout=0.0,
+        attention_dropout=0.0,
+        output_dropout=0.0,
     )
     return cfg.replace(**kw) if kw else cfg
 
@@ -94,6 +115,9 @@ def tiny_test(**kw) -> GPTConfig:
         num_heads=8,
         vocab_size=128,
         max_position_embeddings=64,
+        embedding_dropout=0.0,
+        attention_dropout=0.0,
+        output_dropout=0.0,
         compute_dtype=torch.float32,
     )
     return cfg.replace(**kw) if kw else cfg

@@ -34,6 +34,18 @@ def gpt_params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     return _tree(tree, lambda a: _tensor(a, device))
 
 
+def gpt_params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The reverse of :func:`gpt_params_from_jax`: the port's GPT params as a
+    numpy tree with the same names and layouts.  bfloat16 leaves become
+    float32, which holds every bfloat16 value exactly."""
+
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return _tree(tree, leaf)
+
+
 def vqvae_params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """VQ-VAE encoder, decoder and codebook.  Convs HWIO -> OIHW.
     Transposed convs are stored [kh, kw, out, in] in the JAX package and

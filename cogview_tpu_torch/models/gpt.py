@@ -10,20 +10,24 @@ Per layer (Sandwich-LN):
   h = h + LN4(W2 @ gelu(W1 @ LN2(h)))
 with a final LayerNorm and float32 logits tied to the word embedding.
 
-Only the inference slices are ported: no dropout, no training paths, no
-sparse attention, and only the int8 KV cache.  A full causal forward at
-S >= ``flash_min_seq`` runs its attention through the flash kernel
-(ops/flash_attention.py), as the JAX package routes it.
+Ported so far: the inference paths with the int8 KV cache, and the
+training forward (``forward(train=True, seeds=..., remat=...)``) with
+counter-hash dropout at the JAX package's salted sites.  Not ported: sparse
+attention, transformer-XL mems, the bfloat16 and int4 caches.  A full
+causal forward at S >= ``flash_min_seq`` runs its attention through the
+flash kernels (ops/flash_attention.py), forward and backward, as the JAX
+package routes it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import GPTConfig
 from ..ops.attention import causal_mask, decode_mask, dense_attention, dense_attention_kvT
@@ -32,6 +36,7 @@ from ..ops.decode_attention import (
     gather_kv_scales, pad_cache_len, quantize_kv, scatter_kv_columns,
     scatter_kv_scales)
 from ..ops.flash_attention import flash_attention
+from ..ops.hash_prng import hash_dropout
 from ..ops.layernorm import layer_norm
 
 Params = Dict[str, Any]
@@ -121,30 +126,59 @@ def quantize_weights(params: Params) -> Params:
     }
 
 
+class _MatmulF32(torch.autograd.Function):
+    """[M, K] @ [K, N] of low-precision CUDA operands -> float32, float32
+    sums and no rounding of the output.  The backward multiplies in the
+    operands' dtype with float32 sums, as autograd of a low-precision matmul
+    does."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = torch.mm(g, b.t()) if ctx.needs_input_grad[0] else None
+        gb = torch.mm(a.t(), g) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [K, N] -> float32 [..., N] with float32 sums and no
+    rounding to x's dtype: the JAX package's ``preferred_element_type=
+    float32``.  On the CPU the operands are upcast: a product of two bf16
+    or fp16 values is exact in float32."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if x.device.type != "cuda":
+        return torch.matmul(x.float(), w.float())
+    y = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[1])
+
+
 def _wmul(x: torch.Tensor, leaf: Params, cdt: torch.dtype, out32: bool = True,
           transpose: bool = False) -> torch.Tensor:
     """x [..., in] times a weight leaf, ``{"w"}`` or ``{"w8", "s"}``, whose
     input axis is the first (or, with ``transpose``, the last) -> [..., out].
 
-    Returns float32, bias not yet added.  ``out32=False`` with bfloat16
-    compute returns the product rounded to bfloat16 before the caller's
-    float32 bias add, as the JAX package does for the layer matmuls.  An
-    int8 leaf always returns float32: (x @ w8) * s.
-
-    The JAX package asks the dot itself for a float32 result; PyTorch's
-    bfloat16 matmul accumulates in float32 but returns bfloat16, so with
-    bfloat16 compute the int8 path and the logits carry one bfloat16
-    rounding the JAX package does not.  float32 compute is identical."""
+    Returns float32, bias not yet added: the product of the compute-dtype
+    operands with float32 sums, not rounded to the compute dtype (the JAX
+    package's ``preferred_element_type=float32``).  ``out32=False`` with
+    bfloat16 compute instead returns the product rounded to bfloat16 before
+    the caller's float32 bias add, as the JAX package does for the layer
+    matmuls.  An int8 leaf always returns float32: (x @ w8) * s."""
     if "w8" in leaf:
         w = leaf["w8"]
         w = w.t() if transpose else w.reshape(w.shape[0], -1)
-        y = torch.matmul(x, w.to(cdt)).float()
-        return y * leaf["s"].reshape(-1)
+        return _matmul_f32(x, w.to(cdt)) * leaf["s"].reshape(-1)
     w = leaf["w"]
     w = w.t() if transpose else w.reshape(w.shape[0], -1)
-    y = torch.matmul(x, w.to(cdt))
-    want32 = out32 or x.dtype != torch.bfloat16
-    return y.float() if want32 else y
+    if out32 or x.dtype != torch.bfloat16:
+        return _matmul_f32(x, w.to(cdt))
+    return torch.matmul(x, w.to(cdt))
 
 
 def _affine(x, leaf, cdt):
@@ -205,23 +239,42 @@ def _layer(params: Params, li: int) -> Params:
 
 
 def should_use_flash(cfg: GPTConfig, seq_len: int) -> bool:
-    """Flash-attention eligibility of a full causal forward."""
+    """Flash-attention eligibility of a full causal forward.  float16
+    compute stays on dense attention even when flash is forced, as in the
+    JAX package; the flash kernels take bfloat16 and float32 only."""
+    if cfg.compute_dtype == torch.float16:
+        return False
     return (cfg.use_flash_attention is True
             or (cfg.use_flash_attention == "auto" and seq_len >= cfg.flash_min_seq))
 
 
+def _dropout(x: torch.Tensor, rate: float, seed: Optional[int], train: bool,
+             salt: int) -> torch.Tensor:
+    """Counter-hash dropout (ops/hash_prng.py) in training, else ``x``."""
+    if not train or rate <= 0.0 or seed is None:
+        return x
+    return hash_dropout(x, rate, seed, salt)
+
+
 def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
                 cache: Optional[QuantKVCache] = None, li: int = 0, index: int = 0,
-                full_prefix: bool = False, sep_for_flash: Optional[int] = None) -> torch.Tensor:
-    """One transformer layer.  Without ``cache``: the flash kernel when
+                full_prefix: bool = False, sep_for_flash: Optional[int] = None,
+                seed: Optional[int] = None, train: bool = False) -> torch.Tensor:
+    """One transformer layer.  Without ``cache``: the flash kernels when
     ``mask`` is exactly causal + ``sep_for_flash`` and
     :func:`should_use_flash` says so, else dense attention under ``mask``.
     With the int8 cache: S == 1 is a decode step through the decode kernel;
-    S > 1 is a prefill chunk at slots [index, index + S)."""
+    S > 1 is a prefill chunk at slots [index, index + S).
+
+    In training, ``seed`` is the layer's uint32 seed: salt 1 drops attention
+    probabilities on the dense route (the flash kernels are seeded with
+    ``seed ^ 0x5BD1E995``), salt 2 the attention output, salt 3 the MLP
+    output."""
     B, S, H = h.shape
     N, D = cfg.num_heads, cfg.head_dim
     eps = cfg.layernorm_epsilon
     cdt = h.dtype
+    lseed = seed if train else None
 
     ln1 = layer_norm(h, p["ln_in"]["g"], p["ln_in"]["b"], eps, cfg.pb_relax)
     qkv = _affine(ln1, p["qkv"], cdt).reshape(B, S, 3, H)
@@ -231,10 +284,14 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
 
     if cache is None and sep_for_flash is not None and should_use_flash(cfg, S):
         # strided q/k/v views of the fused projection go in as they are
+        rate = cfg.attention_dropout if lseed is not None else 0.0
+        fseed = (lseed ^ 0x5BD1E995) if rate > 0.0 else None
         ctx, _ = flash_attention(q, k.reshape(B, S, N, D), v.reshape(B, S, N, D),
-                                 sep_for_flash)
+                                 sep_for_flash, dropout_rate=rate, dropout_seed=fseed)
     elif cache is None:
-        ctx = dense_attention(q, k.reshape(B, S, N, D), v.reshape(B, S, N, D), mask)
+        ctx = dense_attention(q, k.reshape(B, S, N, D), v.reshape(B, S, N, D), mask,
+                              dropout_rate=cfg.attention_dropout, dropout_seed=lseed,
+                              train=train)
     else:
         kv_l, s_l, ring_l = cache.kv[li], cache.scale[li], cache.recent[li]
         G = ring_l.shape[0]
@@ -273,6 +330,7 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
     ctx = ctx.reshape(B, S, H)
 
     attn_out = _affine(ctx, p["attn_out"], cdt)
+    attn_out = _dropout(attn_out, cfg.output_dropout, lseed, train, salt=2)
     if cfg.sandwich_ln:
         attn_out = layer_norm(attn_out, p["ln_attn"]["g"], p["ln_attn"]["b"], eps, cfg.pb_relax)
     h = h + attn_out
@@ -280,13 +338,15 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
     ln2 = layer_norm(h, p["ln_post"]["g"], p["ln_post"]["b"], eps, cfg.pb_relax)
     inter = F.gelu(_affine(ln2, p["mlp_in"], cdt), approximate="tanh")
     mlp_out = _affine(inter, p["mlp_out"], cdt)
+    mlp_out = _dropout(mlp_out, cfg.output_dropout, lseed, train, salt=3)
     if cfg.sandwich_ln:
         mlp_out = layer_norm(mlp_out, p["ln_mlp"]["g"], p["ln_mlp"]["b"], eps, cfg.pb_relax)
     return h + mlp_out
 
 
 def _embed(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
-           position_ids: torch.Tensor) -> torch.Tensor:
+           position_ids: torch.Tensor, seed: Optional[int] = None,
+           train: bool = False) -> torch.Tensor:
     cdt = cfg.compute_dtype
     word = params["embed"]["word"]
     if isinstance(word, dict):
@@ -294,7 +354,8 @@ def _embed(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
         h = (rows * word["s"][tokens][..., None]).to(cdt)
     else:
         h = word[tokens].to(cdt)
-    return h + params["embed"]["pos"][position_ids].to(cdt)
+    h = h + params["embed"]["pos"][position_ids].to(cdt)
+    return _dropout(h, cfg.embedding_dropout, seed, train, salt=4)
 
 
 def _logits(params: Params, cfg: GPTConfig, h: torch.Tensor) -> torch.Tensor:
@@ -311,22 +372,39 @@ def _final_ln(params: Params, cfg: GPTConfig, h: torch.Tensor) -> torch.Tensor:
 
 def forward(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
             position_ids: Optional[torch.Tensor] = None, *, sep: int = 0,
-            logits_from: Optional[int] = None,
+            train: bool = False, seeds: Optional[Sequence[int]] = None,
+            remat: bool = False, logits_from: Optional[int] = None,
             return_hidden: bool = False) -> torch.Tensor:
     """Full forward under the causal mask with a bidirectional prefix of
     ``sep`` positions -> float32 logits [B, S, V].
+
+    ``train=True`` with ``seeds`` applies dropout: ``seeds`` holds L + 1
+    uint32 values, the embedding's first, then one per layer (the JAX
+    package derives them from its key; the port takes them as given).
+    ``remat=True`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``), so the flash forward runs twice per layer.
 
     ``logits_from=t`` keeps positions >= t only ([B, S - t, V]); the final
     LayerNorm then sees only those positions, whose PB-relax max is over
     them alone, as in the JAX package.  ``return_hidden=True`` returns the
     final-LayerNorm hidden states in place of logits."""
     B, S = tokens.shape
+    L = cfg.num_layers
     if position_ids is None:
         position_ids = torch.arange(S, device=tokens.device).expand(B, S)
+    if seeds is None:
+        seeds = [None] * (L + 1)
+    elif len(seeds) != L + 1:
+        raise ValueError(f"seeds: {len(seeds)} values, expected num_layers + 1 = {L + 1}")
     mask = causal_mask(S, sep=sep, device=tokens.device)
-    h = _embed(params, cfg, tokens, position_ids)
-    for li in range(cfg.num_layers):
-        h = _layer_body(cfg, h, _layer(params, li), mask, sep_for_flash=sep)
+    h = _embed(params, cfg, tokens, position_ids, seeds[0], train)
+    for li in range(L):
+        kw = dict(sep_for_flash=sep, seed=seeds[li + 1], train=train)
+        if remat:
+            h = checkpoint(_layer_body, cfg, h, _layer(params, li), mask, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
+        else:
+            h = _layer_body(cfg, h, _layer(params, li), mask, **kw)
     if logits_from is not None:
         h = h[:, logits_from:]
     h = _final_ln(params, cfg, h)

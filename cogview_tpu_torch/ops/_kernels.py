@@ -24,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 
 # No --use_fast_math: the decode seal's division and round-half-even, and
-# the flash kernel's expf / logf and dropout division, must be IEEE so the
+# the flash kernels' expf / logf and dropout division, must be IEEE so the
 # kernels agree with their plain PyTorch versions.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -46,6 +46,15 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L,
                                 _I, _F, _U, _U, _F, _I, _P],
+        # q, k, v, dO, lse, delta, dq, is_bf16, B, S, N, D,
+        # q/k/v/dO batch and sequence strides, then as the forward
+        "flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _L, _L, _L, _L, _L, _L, _L, _L,
+                                   _I, _F, _U, _U, _F, _I, _P],
+        # q, k, v, dO, lse, delta, dk, dv, is_bf16, B, S, N, D, then as dq
+        "flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _L, _L, _L, _L, _L, _L, _L, _L,
+                                    _I, _F, _U, _U, _F, _I, _P],
     },
 }
 

@@ -14,18 +14,27 @@ from typing import Optional
 
 import torch
 
+from .hash_prng import hash_dropout
+
 MASK_VALUE = -10000.0
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+                    mask: torch.Tensor, *, dropout_rate: float = 0.0,
+                    dropout_seed: Optional[int] = None,
+                    train: bool = False) -> torch.Tensor:
     """q [B, Sq, N, D], k/v [B, Sk, N, D], mask broadcastable to
-    [B, N, Sq, Sk] -> ctx [B, Sq, N, D] in v.dtype."""
+    [B, N, Sq, Sk] -> ctx [B, Sq, N, D] in v.dtype.  In training, the float32
+    probabilities go through counter-hash dropout with salt 1 (seed a
+    uint32) before the cast to v's dtype."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qs = (q * scale).to(q.dtype)
     scores = torch.einsum("bqnd,bknd->bnqk", qs.float(), k.float())
     scores = torch.where(mask.bool(), scores, MASK_VALUE)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if train and dropout_rate > 0.0 and dropout_seed is not None:
+        probs = hash_dropout(probs, dropout_rate, dropout_seed, salt=1)
+    probs = probs.to(v.dtype)
     return torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float()).to(v.dtype)
 
 

@@ -66,6 +66,25 @@ def hash_uniform(seed, c0, c1, c2) -> torch.Tensor:
     return torch.clamp(u, max=1.0 - 2.0 ** -24)
 
 
+def hash_dropout(x: torch.Tensor, rate: float, seed: int, salt: int = 0) -> torch.Tensor:
+    """Inverted dropout with a counter-hash keep mask: element i of x is kept
+    iff hash_u32(seed, flat_index(i), salt, 0) >= round(rate * 2^32), and a
+    kept value is ``x / (1 - rate)``.  ``salt`` separates call sites that
+    share a seed.
+
+    The JAX package builds the flat index per dimension as ``flat * n +
+    iota`` in wrapping uint32; that is the row-major linear index mod 2^32,
+    which is what is computed here."""
+    if rate <= 0.0:
+        return x
+    flat = (torch.arange(x.numel(), device=x.device) & _M32).reshape(x.shape)
+    threshold = min(int(round(rate * 2.0 ** 32)), 2 ** 32 - 1)
+    keep = hash_u32(seed, flat, salt, 0) >= threshold
+    # a 0-d tensor divisor: CUDA divides by a Python scalar through its
+    # reciprocal, which is not the true division
+    return torch.where(keep, x / x.new_full((), 1.0 - rate), 0.0)
+
+
 def seed_from_key_data(data) -> int:
     """uint32 seed from a PRNG key's uint32 words: the arithmetic of the JAX
     package's ``seed_from_key``, ``data[-1] ^ (data[0] << 1)``, wrapped to

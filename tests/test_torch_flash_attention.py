@@ -96,12 +96,9 @@ def test_should_use_flash_grid(flag):
         assert should_use_flash(cfg, seq_len) == want, (flag, seq_len)
 
 
-def test_raises_when_an_input_requires_grad():
+def test_dropout_needs_a_seed_and_a_rate_below_one():
     q, k, v = (torch.from_numpy(a) for a in _mk(16))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tfa.flash_attention(q, k, v)
-    with torch.no_grad():  # no graph recorded: nothing needs a backward
-        tfa.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="dropout_seed"):
-        tfa.flash_attention(q.detach(), k, v, dropout_rate=0.1)
+        tfa.flash_attention(q, k, v, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="outside"):
+        tfa.flash_attention(q, k, v, dropout_rate=1.0, dropout_seed=1)

@@ -140,6 +140,73 @@ def test_quantized_weights_bytes_and_logits_match(weights):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
 
 
+def test_bf16_logits_and_int8_wmul_keep_float32_outputs():
+    """bf16-compute logits and the int8-weight product are the float32
+    products of the bf16 operands, not rounded to bf16 (the JAX package's
+    ``preferred_element_type=float32``): within 1e-5 of the largest
+    magnitude, where a bf16 rounding of the output is off by ~4e-3."""
+    rng = np.random.RandomState(3)
+    h = rng.randn(2, 5, 64).astype(np.float32)
+    word = (rng.randn(128, 64) * 0.5).astype(np.float32)
+    hb = jnp.asarray(h, jnp.bfloat16)
+    th = torch.from_numpy(h).bfloat16()
+    want = np.asarray(jgpt._logits({"embed": {"word": jnp.asarray(word)}}, None, hb))
+    got = gpt._logits({"embed": {"word": torch.from_numpy(word)}}, None, th)
+    assert got.dtype == torch.float32 and got.shape == (2, 5, 128)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+    w8 = rng.randint(-127, 128, (64, 96)).astype(np.int8)
+    s = (rng.rand(96) * 0.01).astype(np.float32)
+    want = np.asarray(jgpt._wmul(hb, {"w8": jnp.asarray(w8), "s": jnp.asarray(s)},
+                                 "bsh,hj->bsj", jnp.bfloat16))
+    got = gpt._wmul(th, {"w8": torch.from_numpy(w8), "s": torch.from_numpy(s)}, torch.bfloat16)
+    assert got.dtype == torch.float32
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_fp16_never_routes_to_flash(monkeypatch):
+    """float16 compute stays on dense attention even when flash is forced,
+    as in the JAX package (tests/test_flash_attention.py); the flash kernels
+    take bfloat16 and float32 only."""
+    def boom(*a, **k):
+        raise AssertionError("flash_attention called")
+
+    monkeypatch.setattr(gpt, "flash_attention", boom)
+    cfg16 = tiny_test(pb_relax=False, use_flash_attention=True, compute_dtype=torch.float16)
+    assert not gpt.should_use_flash(cfg16, 4096)
+    params = gpt.init_params(cfg16, torch.Generator().manual_seed(0))
+    tokens = torch.zeros((1, 24), dtype=torch.long)
+    out = gpt.forward(params, cfg16, tokens)  # dense path, no raise
+    assert torch.isfinite(out).all()
+    with pytest.raises(AssertionError, match="flash_attention called"):
+        gpt.forward(params, tiny_test(pb_relax=False, use_flash_attention=True), tokens)
+
+
+@pytest.mark.parametrize("flash,remat", [(False, False), (True, True)])
+def test_training_forward_with_dropout_matches(weights, flash, remat):
+    """forward(train=True) with all three dropouts at 0.1 against the JAX
+    package's, float32, to 1e-4: the port takes the L + 1 seeds that the
+    JAX forward derives from its key (embedding first, then one per layer)
+    and the same salted sites and flash seed."""
+    from cogview_tpu.ops.hash_prng import seed_from_key
+
+    _, jparams, tparams, tokens = weights
+    drop = dict(embedding_dropout=0.1, attention_dropout=0.1, output_dropout=0.1,
+                use_flash_attention=flash)
+    key = jax.random.PRNGKey(7)
+    want = np.asarray(jgpt.forward(jparams, jax_tiny(kv_cache_dtype="int8", **drop),
+                                   jnp.asarray(tokens), sep=3, train=True, rng=key,
+                                   remat=remat))
+    rest, r_embed = jax.random.split(key)
+    seeds = [int(seed_from_key(r_embed))] + [int(seed_from_key(r))
+                                             for r in jax.random.split(rest, 2)]
+    got = gpt.forward(tparams, tiny_test(**drop), torch.from_numpy(tokens).long(), sep=3,
+                      train=True, seeds=seeds, remat=remat)
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-4)
+    plain = gpt.forward(tparams, tiny_test(**drop), torch.from_numpy(tokens).long(), sep=3)
+    assert not torch.allclose(got, plain, atol=1e-3)  # dropout did something
+
+
 def test_only_int8_cache_is_ported():
     with pytest.raises(NotImplementedError):
         tiny_test(kv_cache_dtype="bfloat16")

@@ -70,6 +70,34 @@ def test_hash_uniform_clamps_below_one():
     assert np.float32(got) == want == np.float32(1.0 - 2.0 ** -24)
 
 
+@pytest.mark.parametrize("shape,salt", [((7, 33), 0), ((3, 5, 17), 1), ((2, 3, 4, 9), 4),
+                                        ((2, 64, 300), 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hash_dropout_bit_equal(shape, salt, dtype):
+    """hash_dropout's keep mask and kept values are bit-equal to the JAX
+    package's on 2-D, 3-D and 4-D inputs, float32 and bfloat16."""
+    rate, seed = 0.3, 0xDEADBEEF
+    x = np.random.RandomState(len(shape)).randn(*shape).astype(np.float32) + 3.0
+    if dtype == "bfloat16":
+        want = np.asarray(jh.hash_dropout(jnp.asarray(x, jnp.bfloat16), rate, jnp.uint32(seed),
+                                          salt)).astype(np.float32)
+        xt = torch.from_numpy(x).bfloat16()
+    else:
+        want = np.asarray(jh.hash_dropout(jnp.asarray(x), rate, jnp.uint32(seed), salt))
+        xt = torch.from_numpy(x)
+    got = th.hash_dropout(xt, rate, seed, salt)
+    assert got.dtype == xt.dtype and got.shape == xt.shape
+    got = got.float().numpy()
+    np.testing.assert_array_equal(got != 0, want != 0)  # the keep mask
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert 0.6 < (got != 0).mean() < 0.8
+
+
+def test_hash_dropout_rate_zero_is_identity():
+    x = torch.randn(4, 5)
+    assert th.hash_dropout(x, 0.0, 1) is x
+
+
 def test_seed_from_key_data_matches_jax():
     from cogview_tpu.utils.rng import rbg_key
     import jax

@@ -45,6 +45,69 @@ def test_flash_kernel_matches_plain_version(cuda_device, dtype, tol, s, sep, rat
     assert (lse - rlse).abs().max().item() <= 1e-4
 
 
+def _backward_inputs(device, dtype, b, s, n, sep, rate, seed=0):
+    """Strided q/k/v of a fused QKV tensor, dO, and the forward kernel's lse
+    with delta = rowsum(dO * O)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((b, s, 3, n * 64), generator=gen, device=device).to(dtype)
+    q, k, v = (qkv[:, :, i].reshape(b, s, n, 64) for i in range(3))
+    do = torch.randn((b, s, n, 64), generator=gen, device=device).to(dtype)
+    kw = dict(dropout_rate=rate, dropout_seed=4321 if rate else None)
+    with torch.no_grad():
+        o, lse = fa.flash_attention(q, k, v, sep, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return (q, k, v, do, lse, delta), kw
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("s,sep,rate", [(77, 0, 0.0), (77, 64, 0.1), (130, 5, 0.0),
+                                        (130, 100, 0.0), (130, 64, 0.1), (1088, 0, 0.1),
+                                        (1088, 100, 0.0)])
+def test_flash_backward_kernels_match_plain_versions(cuda_device, dtype, tol, s, sep, rate):
+    """dq (K4) and dk, dv (K5) against their plain versions on strided
+    q/k/v: each within ``tol`` of its largest magnitude (bfloat16: ds and pd
+    are rounded to bfloat16 before their products, and the outputs once
+    more), and two launches on the same inputs bit-equal (no atomics)."""
+    args, kw = _backward_inputs(cuda_device, dtype, 2, s, 4, sep, rate)
+    n_dq, n_dkv = fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches
+    dq = fa.flash_bwd_dq(*args, sep, **kw)
+    dk, dv = fa.flash_bwd_dkv(*args, sep, **kw)
+    dq2 = fa.flash_bwd_dq(*args, sep, **kw)
+    dk2, dv2 = fa.flash_bwd_dkv(*args, sep, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches - n_dq, fa.flash_bwd_dkv.launches - n_dkv) == (2, 2)
+    rdq = fa.flash_bwd_dq_reference(*args, sep, kw["dropout_rate"], kw["dropout_seed"])
+    rdk, rdv = fa.flash_bwd_dkv_reference(*args, sep, kw["dropout_rate"], kw["dropout_seed"])
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert got.dtype == dtype and got.shape == (2, s, 4, 64)
+        assert _rel_err(got, want) <= tol
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sep,rate", [(0, 0.0), (40, 0.1)])
+def test_flash_grads_match_autograd_of_plain_forward(cuda_device, sep, rate):
+    """Gradients through the three kernels (forward, dq, dk/dv) against
+    autograd of the plain forward, float32, within 1e-4 of the largest."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn((2, 200, 3, 64), generator=gen, device=cuda_device)
+               .requires_grad_() for _ in range(3))
+    w = torch.randn((2, 200, 3, 64), generator=gen, device=cuda_device)
+    kw = dict(dropout_rate=rate, dropout_seed=77 if rate else None)
+    o, lse = fa.flash_attention(q, k, v, sep, **kw)
+    assert not lse.requires_grad
+    got = torch.autograd.grad((o * w).sum(), (q, k, v))
+    ro, _ = fa.flash_attention_reference(q, k, v, sep, kw["dropout_rate"], kw["dropout_seed"])
+    want = torch.autograd.grad((ro * w).sum(), (q, k, v))
+    for g, r in zip(got, want):
+        assert _rel_err(g, r) <= 1e-4
+
+
 @pytest.mark.cuda
 def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros((1, 8, 2, 32), device=cuda_device)

@@ -89,8 +89,9 @@ def test_chunk_seeds_differ_and_are_uint32():
 
 
 def test_port_imports_no_jax():
-    """The port and every main-path module import without jax; the only
-    cogview_tpu code they load is the framework-free tokenization package."""
+    """The port and every module of its slices import without jax; the only
+    cogview_tpu code they load is the framework-free tokenization and data
+    packages."""
     code = (
         "import sys\n"
         "import cogview_tpu_torch, cogview_tpu_torch.config, cogview_tpu_torch.cli.generate\n"
@@ -102,9 +103,13 @@ def test_port_imports_no_jax():
         "import cogview_tpu_torch.generation.sampling, cogview_tpu_torch.utils.png\n"
         "import cogview_tpu_torch.tokenization.vq_tokenizer\n"
         "import cogview_tpu_torch.ops.flash_attention, cogview_tpu_torch.generation.scoring\n"
+        "import cogview_tpu_torch.cli.pretrain, cogview_tpu_torch.training.losses\n"
+        "import cogview_tpu_torch.training.optim, cogview_tpu_torch.training.loss_scaler\n"
+        "import cogview_tpu_torch.training.train_loop, cogview_tpu_torch.training.checkpointing\n"
+        "import cogview_tpu_torch.utils.timers, cogview_tpu_torch.utils.metrics\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m.startswith('cogview_tpu.')\n"
-        "       and not m.startswith('cogview_tpu.tokenization')]\n"
+        "       and not m.startswith(('cogview_tpu.tokenization', 'cogview_tpu.data'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
