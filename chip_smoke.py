@@ -7,37 +7,51 @@ Phases (each prints its lines; any failure exits non-zero and prints no
 result):
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
-2. build: compile both kernels from cogview_tpu_torch/csrc/ with nvcc, one
-   process per source, in parallel;
-3. decode kernel: against its plain PyTorch version at cogview-base head
-   shapes (B=4, N=40, D=64, 9 windows), float32 and bfloat16 queries, seal and
-   non-seal steps; context within tolerance, seal bytes bit-equal; the
-   microseconds per call of both;
+2. build: compile both kernel sources from cogview_tpu_torch/csrc/ with nvcc,
+   one process per source, in parallel;
+3. decode kernels: K1 (int8 cache) and K2 (packed int4 cache) against their
+   plain PyTorch version at cogview-base head shapes (B=4, N=40, D=64, 9
+   windows), float32 and bfloat16 queries, seal and non-seal steps (index
+   135 seals on a window boundary); context within tolerance, cache bytes
+   bit-equal; the microseconds per call of both at index 600 and 1031, and
+   the bound;
 4. flash kernel: against its plain PyTorch version at cogview-base head
    shapes (B=4, N=40, D=64) on strided q/k/v views of a fused QKV tensor,
    float32 and bfloat16: S=1058 (post-selection), S=1089 with a prefix that
    crosses tiles, a ragged small S, and dropout 0.1; o and lse within
-   tolerance; the microseconds per call of both at S=1058;
+   tolerance; the microseconds per call of both at S=1058, of
+   F.scaled_dot_product_attention with the same mask (a yardstick the port
+   never calls), and the bound;
 5. flash backward kernels: dq (K4) and dk/dv (K5) against their plain
    versions at tutorial head shapes (B=16, N=16, S=1088, sep 0 and 64, the
    latter with dropout 0.1) and cogview-base head shapes (B=4, N=40,
    S=1058), float32 and bfloat16; two launches bit-equal; the microseconds
-   per call of both at the tutorial's training shape;
-6. small input: prefill + decode of a tiny float32 model, and a tiny
-   float32 forward through the flash kernel, on the card against the same
-   model on the CPU (plain versions); two tiny float32 train steps through
-   the three flash kernels with dropout 0.1, card against CPU;
+   per call of both at the tutorial's training shape, with and without
+   dropout, and of one torch.autograd.grad through SDPA;
+6. small input: prefill + decode of a tiny float32 model through the int8,
+   int4 and bfloat16 caches, and a tiny float32 forward through the flash
+   kernel, on the card against the same model on the CPU (plain versions);
+   two tiny float32 train steps through the three flash kernels with
+   dropout 0.1, card against CPU;
 7. text->image: ``cogview_tpu_torch.cli.generate.main`` at cogview-base width
    (48 layers, random weights from a seed), int8 KV cache, batch 4, one
    request of 30 words, first with bf16 weights, then with int8 weights.
    Checks the generated ids, the four PNGs, and that every decode step of
-   every layer launched the decode kernel and never its plain version;
+   every layer launched K1 and never its plain version;
 8. image->text: the CLI on the first bf16-weight PNG, batch 4: 20 text ids
-   per row, 20 x 48 decode-kernel launches;
+   per row, 20 x 48 K1 launches;
 9. post-selection: the CLI scores the four PNGs against the prompt: four
    finite negative scores in scores_rank_0.txt, 48 flash-kernel launches;
    the same tokens scored again through dense attention on the card agree;
-10. pretraining: ``cogview_tpu_torch.cli.pretrain.main`` at the tutorial
+10. serve: ``cogview_tpu_torch.cli.serve.main`` at cogview-base width with
+   the int4 cache, bf16 weights, batch 4, one query file of the 30-word
+   prompt: the file reaches done/ and failed/ stays empty, four PNGs, ids in
+   [0, 8192), 1024 x 48 K2 launches, no K1 launch and no plain call;
+11. cache fidelity: cogview-base at batch 4, random weights, the
+   text->image context and 64 teacher-forced decode steps through the bf16,
+   int8 and int4 caches: finite logits, the mean per-step KL of int8 and
+   int4 against the bf16 cache (int8's no larger) and the argmax agreement;
+12. pretraining: ``cogview_tpu_torch.cli.pretrain.main`` at the tutorial
    preset's widths (12 layers, hidden 1024, 16 heads, vocab 58,240), bf16
    compute, dropout 0.1, remat, batch 16 x 1,088 tokens, 30 steps on a
    CompactBinary corpus written from a seed: finite falling losses, no
@@ -46,8 +60,9 @@ result):
    tokens per second, device-busy share and peak memory; then a ``--load``
    run resumes at the saved iteration and takes 2 more steps.
 
-The next-to-last line is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``.
+The next-to-last line is the kernels' JSON record (each kernel's launches
+on the main path, error, time, plain version's time, bound and library
+time), the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -107,36 +122,90 @@ def _device_time_us(torch, fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def phase_kernel(torch, da):
-    """Kernel vs plain version at cogview-base head shapes -> summary dict."""
+# the card's peaks for bound_ms: NVIDIA's H100 SXM data sheet, dense rates
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+
+
+def _bound(nbytes: float, ops: float, kind: str):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of ``kind``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[kind]
+    return 1000.0 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _decode_bound(B, N, D, Dc, G, index, q_bytes):
+    """Least time of one decode call: the K/V bytes and scales of the c0
+    visible sealed columns and the rem + 1 visible ring slots read once, q
+    read once, ctx written once (plus the sealed group on a seal step);
+    float32 operations (the dots run outside the tensor cores).  Columns the
+    kernel streams but masks (those >= c0 of the last window, or the whole
+    window at c0 = 0) and ring slots > rem are not counted."""
+    rem = index % G
+    c0, slots = index - rem, rem + 1
+    nbytes = B * N * (c0 * 2 * (Dc + 4) + slots * 2 * D * 4 + 2 * D * q_bytes)
+    if rem == G - 1:
+        nbytes += B * N * G * 2 * (Dc + 4)
+    ops = B * N * (c0 + slots) * 4 * D
+    return _bound(nbytes, ops, "f32")
+
+
+def _attn_pairs(S: int, sep: int) -> int:
+    """Visible (query, key) pairs of the causal mask with a prefix of sep."""
+    return sum(max(i + 1, sep) for i in range(S))
+
+
+def phase_kernel(torch, da, packed: bool):
+    """K1 (int8 cache) or K2 (packed int4 cache) against the plain version
+    at cogview-base head shapes -> summary dict."""
     dev = torch.device("cuda")
     B, N, D, W, G, L, li = 4, 40, 64, da.WRITE_WINDOW, da.SEAL_GROUP, 2, 1
+    Dc = D // 2 if packed else D
+    name = "K2 int4" if packed else "K1 int8"
     NW = da.pad_cache_len(1088) // W
-    gen = torch.Generator(device=dev).manual_seed(0)
-    kv = torch.randint(-127, 128, (L, NW, B, 2, N, D, W), generator=gen, device=dev,
-                       dtype=torch.int8)
-    sc = torch.rand((L, NW, B, 2, N, W), generator=gen, device=dev) * 0.02
+    gen = torch.Generator(device=dev).manual_seed(9 if packed else 0)
+    if packed:  # bytes the packer can make: 16 * hi + lo + 8, hi, lo in [-7, 7]
+        hi, lo = (torch.randint(-7, 8, (L, NW, B, 2, N, Dc, W), generator=gen, device=dev)
+                  for _ in range(2))
+        kv = (16 * hi + lo + 8).to(torch.int8)
+        sc = torch.rand((L, NW, B, 2, N, W), generator=gen, device=dev) * 0.3
+    else:
+        kv = torch.randint(-127, 128, (L, NW, B, 2, N, D, W), generator=gen, device=dev,
+                           dtype=torch.int8)
+        sc = torch.rand((L, NW, B, 2, N, W), generator=gen, device=dev) * 0.02
     ring = torch.randn((L, G, B, N, 2 * D), generator=gen, device=dev)
     q32 = torch.randn((B, N, D), generator=gen, device=dev)
     worst = 0.0
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+    # K1's bf16 path rounds q and p * vs to bf16 (2e-2); K2 computes in
+    # float32 and rounds its bf16 ctx once, as its plain version does, so the
+    # two may differ by the float32 tolerance plus one bf16 ulp (2^-7 of the
+    # value), no more
+    bf16_tol = None if packed else 2e-2
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, bf16_tol)):
         q = q32.to(dtype)
         for idx in (10, 133, 600, 15, 135, 1031):
             kv_k, sc_k, kv_r, sc_r = kv.clone(), sc.clone(), kv.clone(), sc.clone()
             ctx_k = da.decode_attention_quant(q, ring[li], kv_k[li], sc_k[li], idx)
             ctx_r = da.decode_attention_quant_reference(q, ring[li], kv_r[li], sc_r[li], idx)
             torch.cuda.synchronize()
-            err = (ctx_k.float() - ctx_r.float()).abs().max().item()
+            diff = (ctx_k.float() - ctx_r.float()).abs()
+            err = diff.max().item()
+            if tol is None:
+                ok = bool((diff <= 1e-4 + ctx_r.float().abs() * 2.0 ** -7).all())
+                tol_text = "1e-4 + one bf16 ulp"
+            else:
+                ok, tol_text = err <= tol, f"{tol:g}"
             seal = idx % G == G - 1
             same = torch.equal(kv_k, kv_r) and torch.equal(sc_k, sc_r)
             changed = not torch.equal(kv_k, kv)
-            print(f"kernel {str(dtype)[6:]} index={idx} seal={seal}: ctx max_abs_err={err:.3e} "
-                  f"(tol {tol:g}) cache bit-equal={same} cache written={changed}")
+            print(f"kernel {name} {str(dtype)[6:]} index={idx} seal={seal}: ctx max_abs_err="
+                  f"{err:.3e} (tol {tol_text}) cache bit-equal={same} cache written={changed}")
             _check(ctx_k.dtype == dtype and ctx_k.shape == (B, N, D), "ctx dtype/shape")
-            _check(err <= tol, f"ctx error {err} > {tol} at index {idx}")
-            _check(same, f"cache differs from the plain version at index {idx}: "
+            _check(ok, f"{name} ctx error {err} beyond {tol_text} at index {idx}")
+            _check(same, f"{name} cache differs from the plain version at index {idx}: "
                    f"{(kv_k != kv_r).sum().item()} bytes, {(sc_k != sc_r).sum().item()} scales")
-            _check(changed == seal, f"cache written={changed} on seal={seal} at index {idx}")
+            _check(changed == seal, f"{name} cache written={changed} on seal={seal} at index {idx}")
             worst = max(worst, err)
 
     times = {}
@@ -147,9 +216,11 @@ def phase_kernel(torch, da):
             args = (q, ring[li], kv_t[li], sc_t[li], idx)
             us_k = _device_time_us(torch, lambda: da.decode_attention_quant(*args))
             us_p = _device_time_us(torch, lambda: da.decode_attention_quant_reference(*args))
-            times[(str(dtype)[6:], idx)] = (us_k, us_p)
-            print(f"kernel time {str(dtype)[6:]} index={idx}: kernel {us_k:.1f} us/call, "
-                  f"plain {us_p:.1f} us/call (CUDA events, median of 25)")
+            bound_ms, by = _decode_bound(B, N, D, Dc, G, idx, q.element_size())
+            times[(str(dtype)[6:], idx)] = (us_k, us_p, bound_ms, by)
+            print(f"kernel {name} time {str(dtype)[6:]} index={idx}: kernel {us_k:.1f} us/call, "
+                  f"plain {us_p:.1f} us/call (CUDA events, median of 25); bound "
+                  f"{1000.0 * bound_ms:.2f} us ({by})")
     return {"max_abs_err": worst, "times": times}
 
 
@@ -183,10 +254,36 @@ def phase_flash_kernel(torch, fa):
             if S == 1058:
                 us_k = _device_time_us(torch, lambda: fa.flash_attention(q, k, v, sep))
                 us_p = _device_time_us(torch, lambda: fa.flash_attention_reference(q, k, v, sep))
-                times[name] = (us_k, us_p)
+                us_l = _sdpa_time_us(torch, q, k, v, sep)
+                esz = q.element_size()
+                bound_ms, by = _bound(4 * B * S * N * D * esz + B * N * S * 4,
+                                      4 * D * _attn_pairs(S, sep) * B * N,
+                                      "bf16" if dtype == torch.bfloat16 else "f32")
+                times[name] = (us_k, us_p, us_l, bound_ms, by)
                 print(f"flash kernel time {name} S=1058: kernel {us_k:.1f} us/call, plain "
-                      f"{us_p:.1f} us/call (CUDA events, median of 25)")
+                      f"{us_p:.1f} us/call, scaled_dot_product_attention with the boolean mask "
+                      f"{us_l:.1f} us/call (CUDA events, median of 25); bound "
+                      f"{1000.0 * bound_ms:.2f} us ({by})")
     return {"max_abs_err": worst, "times": times}
+
+
+def _sdpa_args(torch, q, k, v, sep):
+    """[B, S, N, D] views -> SDPA's [B, N, S, D] views and the boolean
+    causal-with-prefix mask (True = visible)."""
+    S = q.shape[1]
+    i = torch.arange(S, device=q.device)
+    mask = (i[None, :] <= i[:, None]) | (i[None, :] < sep)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask
+
+
+def _sdpa_time_us(torch, q, k, v, sep):
+    """One F.scaled_dot_product_attention call on the same inputs, the
+    yardstick of the flash forward; the port never calls it."""
+    import torch.nn.functional as F
+
+    qt, kt, vt, mask = _sdpa_args(torch, q, k, v, sep)
+    return _device_time_us(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                         attn_mask=mask))
 
 
 def _backward_inputs(torch, fa, dtype, b, s, n, sep, rate, gen):
@@ -255,10 +352,37 @@ def phase_flash_backward(torch, fa):
                 _device_time_us(torch, lambda: fa.flash_bwd_dkv_reference(*args, 0, rate,
                                                                            seed))),
     }
+    B, S, N, D = 16, 1088, 16, 64
+    pairs = _attn_pairs(S, 0) * B * N
+    io = B * S * N * D * 2  # one bf16 [B, S, N, D] tensor
+    bounds = {"dq": _bound(5 * io + 2 * B * N * S * 4, 6 * D * pairs, "bf16"),
+              "dkv": _bound(6 * io + 2 * B * N * S * 4, 8 * D * pairs, "bf16")}
     for name, (us_k, us_p) in times.items():
         print(f"flash backward {name} time bf16 B=16 N=16 S=1088 dropout 0.1: kernel "
-              f"{us_k:.1f} us/call, plain {us_p:.1f} us/call (CUDA events, median of 25)")
-    return {"max_abs_err": worst, "rel_err": rel_worst, "times": times}
+              f"{us_k:.1f} us/call, plain {us_p:.1f} us/call (CUDA events, median of 25); "
+              f"bound {1000.0 * bounds[name][0]:.2f} us ({bounds[name][1]})")
+    del args
+
+    # the yardstick: one torch.autograd.grad through SDPA on the same inputs
+    # without dropout, against dq + dk/dv without dropout
+    import torch.nn.functional as F
+
+    args, kw = _backward_inputs(torch, fa, torch.bfloat16, 16, 1088, 16, 0, 0.0, gen)
+    nodrop = [_device_time_us(torch, lambda: fa.flash_bwd_dq(*args, 0)),
+              _device_time_us(torch, lambda: fa.flash_bwd_dkv(*args, 0))]
+    qt, kt, vt, mask = _sdpa_args(torch, *args[:3], 0)
+    qt, kt, vt = (t.detach().contiguous().requires_grad_() for t in (qt, kt, vt))
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    dot = args[3].transpose(1, 2)
+    us_l = _device_time_us(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                                              retain_graph=True))
+    print(f"flash backward without dropout, bf16 B=16 N=16 S=1088: dq {nodrop[0]:.1f} + dk/dv "
+          f"{nodrop[1]:.1f} = {sum(nodrop):.1f} us/call; torch.autograd.grad through "
+          f"scaled_dot_product_attention with the boolean mask {us_l:.1f} us/call (CUDA events, "
+          f"median of 25)")
+    del args, o, qt, kt, vt
+    return {"max_abs_err": worst, "rel_err": rel_worst, "times": times, "bounds": bounds,
+            "library_us": us_l, "nodrop_us": nodrop}
 
 
 def phase_small_training(torch, cfgmod, fa, tl, optim):
@@ -299,34 +423,43 @@ def phase_small_training(torch, cfgmod, fa, tl, optim):
            "the card's train steps did not launch the flash kernels once per layer")
 
 
-def phase_small_input(torch, gpt, cfgmod, fa):
+def phase_small_input(torch, gpt, cfgmod, da, fa):
     """Tiny float32 models on the card (kernels) against the CPU (plain
-    versions) with the same weights: prefill + 28 decode steps, and a full
-    forward through the flash kernel."""
-    cfg = cfgmod.tiny_test()
+    versions) with the same weights: prefill + 28 decode steps through the
+    int8, int4 and bfloat16 caches, and a full forward through the flash
+    kernel."""
     gen = torch.Generator().manual_seed(1)
-    params_cpu = gpt.init_params(cfg, gen)
+    params_cpu = gpt.init_params(cfgmod.tiny_test(), gen)
 
     def to_dev(t):
         return {k: to_dev(v) for k, v in t.items()} if isinstance(t, dict) else t.cuda()
 
     params_gpu = to_dev(params_cpu)
     B, S, ctx = 2, 40, 12
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    tokens = torch.randint(0, 128, (B, S), generator=gen)
     pos = torch.arange(S).expand(B, S)
-    outs = {}
-    for name, params, dev in (("cpu", params_cpu, "cpu"), ("cuda", params_gpu, "cuda")):
-        cache = gpt.init_cache(cfg, B, S, device=dev)
-        tk, ps = tokens.to(dev), pos.to(dev)
-        got = [gpt.forward_with_cache(params, cfg, tk[:, :ctx], ps[:, :ctx], cache, 0)]
-        for t in range(ctx, S):
-            got.append(gpt.forward_with_cache(params, cfg, tk[:, t:t + 1], ps[:, t:t + 1],
-                                              cache, t))
-        outs[name] = torch.cat(got, dim=1).cpu()
-    err = (outs["cpu"] - outs["cuda"]).abs().max().item()
-    print(f"small input (tiny_test f32, prefill 12 + 28 decode steps): logits max_abs_err "
-          f"card vs CPU = {err:.3e} (tol 1e-3)")
-    _check(err <= 1e-3, f"card logits differ from the CPU's by {err}")
+    for kv in ("int8", "int4", "bfloat16"):
+        cfg = cfgmod.tiny_test(kv_cache_dtype=kv)
+        outs, launched = {}, {}
+        for name, params, dev in (("cpu", params_cpu, "cpu"), ("cuda", params_gpu, "cuda")):
+            n1, n2 = da.decode_attention_quant.launches, da.decode_attention_quant.launches_int4
+            cache = gpt.init_cache(cfg, B, S, device=dev)
+            tk, ps = tokens.to(dev), pos.to(dev)
+            got = [gpt.forward_with_cache(params, cfg, tk[:, :ctx], ps[:, :ctx], cache, 0)]
+            for t in range(ctx, S):
+                got.append(gpt.forward_with_cache(params, cfg, tk[:, t:t + 1], ps[:, t:t + 1],
+                                                  cache, t))
+            outs[name] = torch.cat(got, dim=1).cpu()
+            launched[name] = (da.decode_attention_quant.launches - n1,
+                              da.decode_attention_quant.launches_int4 - n2)
+        err = (outs["cpu"] - outs["cuda"]).abs().max().item()
+        want = {"int8": ((S - ctx) * 2, 0), "int4": (0, (S - ctx) * 2), "bfloat16": (0, 0)}[kv]
+        print(f"small input (tiny_test f32, {kv} cache, prefill 12 + 28 decode steps): logits "
+              f"max_abs_err card vs CPU = {err:.3e} (tol 1e-3); (K1, K2) launches on the card "
+              f"{launched['cuda']}, on the CPU {launched['cpu']}")
+        _check(err <= 1e-3, f"card logits differ from the CPU's by {err} ({kv} cache)")
+        _check(launched["cuda"] == want and launched["cpu"] == (0, 0),
+               f"the {kv} cache did not launch its decode kernel once per step and layer")
 
     # one head of 64 dims, the flash kernel's width; S=40 is one ragged tile
     cfg = cfgmod.tiny_test(num_heads=1, use_flash_attention=True)
@@ -392,10 +525,12 @@ def phase_main_path(torch, da, cli, tasks, sampling, png, weights: str, work: st
     captured = {}
     da.decode_attention_quant.launches = 0
     da.decode_attention_quant_reference.calls = 0
+    da.decode_attention_quant.launches_int4 = 0
     _run_cli(cli, tasks, sampling, torch, _cli_argv(weights, "text2image", query, out_dir),
              captured)
     launches = da.decode_attention_quant.launches
     plain_calls = da.decode_attention_quant_reference.calls
+    _check(da.decode_attention_quant.launches_int4 == 0, "the int8 cache launched K2")
 
     res = captured["res"]
     ctx, steps = captured["ctx"], captured["steps"]
@@ -524,6 +659,99 @@ def phase_post_selection(torch, fa, cli, tasks, scoring, png_dir: str, work: str
           f"{rerun:.4e}; scoring forward {t['flash'][0]:.3f} s flash, {t['dense'][0]:.3f} s dense")
     _check(diff <= tol and rerun <= tol, "flash and dense scores disagree")
     return launches
+
+
+def phase_serve_int4(torch, da, serve, tasks, sampling, png, work: str):
+    """One request through the folder-watcher server with the int4 cache ->
+    K2 launches."""
+    import numpy as np
+
+    inp, img = os.path.join(work, "serve_in"), os.path.join(work, "serve_img")
+    os.makedirs(inp)
+    with open(os.path.join(inp, "query.txt"), "w") as f:
+        f.write(PROMPT + "\n")
+    argv = ["--preset", "cogview-base", "--dtype", "bfloat16", "--weights", "bfloat16",
+            "--kv-cache", "int4", "--batch-size", "4", "--top_k", "200", "--seed", "1234",
+            "--device", "cuda", "--no-warmup", "--max-polls", "1", "--time-interval", "0",
+            "--input-folder-path", inp, "--img-folder-path", img]
+    captured = {}
+    da.decode_attention_quant.launches = 0
+    da.decode_attention_quant.launches_int4 = 0
+    da.decode_attention_quant_reference.calls = 0
+    _run_cli(serve, tasks, sampling, torch, argv, captured)
+    k1, k2 = da.decode_attention_quant.launches, da.decode_attention_quant.launches_int4
+    plain_calls = da.decode_attention_quant_reference.calls
+
+    failed = os.listdir(os.path.join(inp, "failed"))
+    done = os.listdir(os.path.join(inp, "done"))
+    print(f"serve int4: done/ {done}, failed/ {failed}")
+    _check(done == ["query.txt"] and failed == [], "the query file did not reach done/ alone")
+    res, ctx, steps = captured["res"], captured["ctx"], captured["steps"]
+    gen_ids = res.tokens[:, ctx:ctx + 1024]
+    ok_ids = gen_ids.shape == (4, 1024) and bool(((gen_ids >= 0) & (gen_ids < 8192)).all())
+    shapes = [png.read_png(os.path.join(img, "query-0", f"{i}.png")).shape for i in range(4)]
+    finite = len(res.images) == 4 and all(bool(np.isfinite(a).all()) for a in res.images)
+    print(f"serve int4: {gen_ids.size} generated ids, all in [0, 8192): {ok_ids}; PNG shapes "
+          f"{shapes}, images finite: {finite}")
+    _check(ok_ids and finite and shapes == [(256, 256, 3)] * 4, "serve outputs")
+    print(f"serve int4: K2 launches {k2} == 1024 x 48 = {1024 * 48}: {k2 == 1024 * 48}; K1 "
+          f"launches {k1}; plain-version calls {plain_calls}")
+    _check(steps == 1024 and k2 == 1024 * 48 and k1 == 0 and plain_calls == 0,
+           "the int4 request did not run K2 once per step and layer")
+    print(f"serve int4: {captured['request_s']:.3f} s per request (batch 4); filling "
+          f"{captured['fill_s']:.3f} s = {1000.0 * captured['fill_s'] / steps:.3f} ms per decode "
+          f"step (prefill included, {steps} steps)")
+    return k2
+
+
+FIDELITY_STEPS = 64
+
+
+def phase_cache_fidelity(torch, gpt, cfgmod, tasks, sampling, tokenization):
+    """cogview-base at batch 4 with random weights: the text->image context,
+    then 64 teacher-forced image tokens, once through each cache.  The
+    per-step KL of the int8 and int4 caches' next-token distributions from
+    the exact bf16 cache's, and the argmax agreement."""
+    import numpy as np
+
+    cfg = cfgmod.cogview_base()
+    dev = torch.device("cuda")
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(3),
+                             dtype=torch.bfloat16, device=dev)
+    tok = tokenization.UnifiedTokenizer(img_tokenizer=tokenization.FakeImageTokenizer(8192),
+                                        txt_tokenizer=WordTokenizer())
+    seq = tasks.parse_query_line(PROMPT, "text2image", tok)
+    tpl = sampling.compile_template(seq, tok, padded_vocab=cfg.vocab_size,
+                                    pad_to=-(-len(seq) // 32) * 32)
+    ctx, B = int(tpl.context_length), 4
+    S = ctx + FIDELITY_STEPS
+    tokens = torch.as_tensor(tpl.tokens[:S], device=dev).long().expand(B, S).clone()
+    tokens[:, ctx:] = torch.as_tensor(np.random.RandomState(11).randint(0, 8192, (B, S - ctx)),
+                                      device=dev)
+    pos = torch.as_tensor(tpl.position_ids[:S], device=dev).long().expand(B, S)
+    logp = {}
+    for kv in ("bfloat16", "int8", "int4"):
+        c = cfg.replace(kv_cache_dtype=kv)
+        cache = gpt.init_cache(c, B, S, device=dev)
+        gpt.forward_with_cache(params, c, tokens[:, :ctx], pos[:, :ctx], cache, 0)
+        steps = [gpt.forward_with_cache(params, c, tokens[:, t:t + 1], pos[:, t:t + 1], cache,
+                                        t)[:, 0] for t in range(ctx, S)]
+        logp[kv] = torch.log_softmax(torch.stack(steps, dim=1).float(), dim=-1)
+        del cache
+        _check(bool(torch.isfinite(logp[kv]).all()), f"non-finite logits with the {kv} cache")
+    ref = logp["bfloat16"]
+    out = {}
+    for kv in ("int8", "int4"):
+        kl = (ref.exp() * (ref - logp[kv])).sum(-1)  # [B, steps]
+        agree = (ref.argmax(-1) == logp[kv].argmax(-1)).float().mean().item()
+        out[kv] = (kl.mean().item(), kl.max().item(), agree)
+        print(f"cache fidelity cogview-base B=4, context {ctx} + {FIDELITY_STEPS} teacher-forced "
+              f"steps: {kv} vs the bf16 cache: mean per-step KL {out[kv][0]:.4e} nats (max "
+              f"{out[kv][1]:.4e}), argmax agreement {100.0 * agree:.2f}%")
+    _check(out["int8"][0] <= out["int4"][0], "the int8 cache's KL exceeds the int4 cache's")
+    del params, logp, ref
+    torch.cuda.empty_cache()
+    return out
 
 
 PRETRAIN_STEPS = 30
@@ -715,8 +943,9 @@ def main() -> int:
         _fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
     try:
         from cogview_tpu_torch import config as cfgmod
+        from cogview_tpu_torch import tokenization
         from cogview_tpu_torch.cli import generate as cli
-        from cogview_tpu_torch.cli import pretrain
+        from cogview_tpu_torch.cli import pretrain, serve
         from cogview_tpu_torch.generation import sampling, scoring, tasks
         from cogview_tpu_torch.models import gpt
         from cogview_tpu_torch.ops import _kernels
@@ -728,6 +957,7 @@ def main() -> int:
         from cogview_tpu_torch.utils import png
     except ImportError as e:
         _fail(f"the port is not importable here ({e}); run from the repository root")
+    t_start = time.perf_counter()
 
     # phase 1: device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -747,10 +977,11 @@ def main() -> int:
     print(f"build: {', '.join(so.name for so in sos)} in {time.perf_counter() - t0:.2f} s")
 
     # phases 3-6: kernels against their plain versions, small input
-    k1 = phase_kernel(torch, da)
+    k1 = phase_kernel(torch, da, packed=False)
+    k2 = phase_kernel(torch, da, packed=True)
     k3 = phase_flash_kernel(torch, fa)
     k45 = phase_flash_backward(torch, fa)
-    phase_small_input(torch, gpt, cfgmod, fa)
+    phase_small_input(torch, gpt, cfgmod, da, fa)
     phase_small_training(torch, cfgmod, fa, tl, optim)
 
     with tempfile.TemporaryDirectory() as work:
@@ -761,30 +992,32 @@ def main() -> int:
         # phase 8: image->text; phase 9: post-selection
         i2t = phase_image2text(torch, da, fa, cli, tasks, sampling, png_dir, work)
         flash_launches = phase_post_selection(torch, fa, cli, tasks, scoring, png_dir, work)
-        # phase 10: pretraining at the tutorial width, then a resumed run
+        # phase 10: the folder-watcher server, int4 cache; phase 11: fidelity
+        k2_launches = phase_serve_int4(torch, da, serve, tasks, sampling, png, work)
+        phase_cache_fidelity(torch, gpt, cfgmod, tasks, sampling, tokenization)
+        # phase 12: pretraining at the tutorial width, then a resumed run
         train_launches, _ = phase_pretrain(torch, fa, pretrain, losses, optim, work)
 
-    us_k, us_p = k1["times"][("bfloat16", 600)]
-    fk, fp = k3["times"]["bfloat16"]
-    print(json.dumps({"kernels": [{
-        "name": "decode_attention_int8",
-        "route": "cuda",
-        "source": "cogview_tpu_torch/csrc/decode_attention.cu",
-        "replaces": "cogview_tpu/ops/decode_attention.py:161",
-        "launches": sum(n for n, _ in t2i) + i2t,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": us_k / 1000.0,
-        "plain_ms": us_p / 1000.0,
-    }, {
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "cogview_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "cogview_tpu/ops/flash_attention.py:163",
-        "launches": flash_launches + train_launches[0],
-        "max_abs_err": k3["max_abs_err"],
-        "ms": fk / 1000.0,
-        "plain_ms": fp / 1000.0,
-    }] + [{
+    def decode_entry(name, summary, launches, err):
+        us_k, us_p, bound_ms, by = summary["times"][("bfloat16", 600)]
+        return {"name": name, "route": "cuda",
+                "source": "cogview_tpu_torch/csrc/decode_attention.cu",
+                "replaces": "cogview_tpu/ops/decode_attention.py:161", "launches": launches,
+                "max_abs_err": err, "ms": us_k / 1000.0, "plain_ms": us_p / 1000.0,
+                "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+
+    fk, fp, fl, fbound, fby = k3["times"]["bfloat16"]
+    kernels = [
+        decode_entry("decode_attention_int8", k1, sum(n for n, _ in t2i) + i2t,
+                     k1["max_abs_err"]),
+        decode_entry("decode_attention_int4", k2, k2_launches, k2["max_abs_err"]),
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "cogview_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "cogview_tpu/ops/flash_attention.py:163",
+         "launches": flash_launches + train_launches[0], "max_abs_err": k3["max_abs_err"],
+         "ms": fk / 1000.0, "plain_ms": fp / 1000.0, "bound_ms": fbound, "bound_by": fby,
+         "library_ms": fl / 1000.0},
+    ] + [{
         "name": f"flash_attention_bwd_{name}",
         "route": "cuda",
         "source": "cogview_tpu_torch/csrc/flash_attention.cu",
@@ -793,7 +1026,18 @@ def main() -> int:
         "max_abs_err": k45["max_abs_err"],
         "ms": k45["times"][name][0] / 1000.0,
         "plain_ms": k45["times"][name][1] / 1000.0,
-    } for name, line, n in (("dq", 212, train_launches[1]), ("dkv", 249, train_launches[2]))]}))
+        "bound_ms": k45["bounds"][name][0],
+        "bound_by": k45["bounds"][name][1],
+        # one autograd.grad through SDPA without dropout computes dq, dk and
+        # dv together: hold it against the sum of both entries' nodrop_ms,
+        # not against one entry's ms (timed with dropout 0.1)
+        "library_ms": k45["library_us"] / 1000.0,
+        "library_covers": "dq+dkv",
+        "nodrop_ms": k45["nodrop_us"][i] / 1000.0,
+    } for i, (name, line, n) in enumerate((("dq", 212, train_launches[1]),
+                                           ("dkv", 249, train_launches[2])))]
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

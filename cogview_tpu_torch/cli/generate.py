@@ -26,13 +26,13 @@ import time
 
 import numpy as np
 import torch
-from cogview_tpu.tokenization import UnifiedTokenizer
 
 from ..config import GPTConfig, cogview_base, smoke, tiny_test
 from ..generation.sampling import SamplingParams
 from ..generation.tasks import generate_once, post_selection
 from ..models import gpt
 from ..ops.precision import set_fp32_precision
+from ..tokenization.unified import UnifiedTokenizer
 from ..tokenization.vq_tokenizer import TorchVQTokenizer
 from ..utils.png import write_png
 
@@ -61,8 +61,11 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--weights", default="bfloat16", choices=["bfloat16", "int8"],
                    help="int8 = weight-only per-channel quantization of the "
                         "matmul weights")
-    m.add_argument("--kv-cache", default="int8", choices=["int8"],
-                   help="decode KV cache; the port has the int8 cache only")
+    m.add_argument("--kv-cache", default="int8", choices=["int8", "int4", "bfloat16"],
+                   help="decode KV cache: int8 (the K1 decode kernel), int4 (two "
+                        "values a byte, the K2 decode kernel; a quantization step "
+                        "of absmax/7, 127/7 = 18x int8's) or bfloat16 (exact, "
+                        "dense attention)")
     m.add_argument("--device", default="cuda")
 
     s = p.add_argument_group("sampling")

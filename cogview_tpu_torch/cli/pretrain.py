@@ -6,8 +6,8 @@ device.
       --save ckpts/run1 \\
       --text-model-path pretrained/chinese_sentencepiece/cog-pretrain.model
 
-Iterates global batches from ``cogview_tpu.data`` (the JAX package's
-numpy-only loader, reused as it is), runs the NaN-skipping train step with
+Iterates global batches from ``cogview_tpu_torch.data`` (the port's copy
+of the JAX package's numpy-only loader), runs the NaN-skipping train step with
 activation recomputation, evaluates (loss and PPL), writes checkpoints with
 the tracker-file protocol, and prints the JAX CLI's per-interval line.  The
 JAX CLI's multi-device, sparse-attention, transformer-XL-mems,
@@ -24,12 +24,12 @@ import time
 
 import numpy as np
 import torch
-from cogview_tpu.data.loader import DataConfig, detect_new_datasets, make_loaders
-from cogview_tpu.tokenization import FakeImageTokenizer, UnifiedTokenizer
 
 from .. import config as C
+from ..data.loader import DataConfig, detect_new_datasets, make_loaders
 from ..models import gpt
 from ..ops.precision import set_fp32_precision
+from ..tokenization.unified import FakeImageTokenizer, UnifiedTokenizer
 from ..training import checkpointing
 from ..training.loss_scaler import LossScaleState
 from ..training.losses import lm_loss

@@ -43,17 +43,16 @@ class GPTConfig:
     # many tokens; >= S forces full logits; 0 = auto: full logits while the
     # float32 [B, S, V] logits fit in 4.5 GiB, 160-token chunks above
     ce_chunk_target: int = 0
-    # Only the int8 window-blocked cache is ported so far; the bfloat16
-    # cache and the packed int4 cache come with later slices.
-    kv_cache_dtype: str = "int8"
+    # autoregressive KV cache: "bfloat16" (exact, in the compute dtype,
+    # dense attention), "int8" (per-(head, token) absmax/127 scales, the K1
+    # decode kernel) or "int4" (two values a byte, absmax/7 scales, the K2
+    # decode kernel); the JAX package's default is "bfloat16"
+    kv_cache_dtype: str = "bfloat16"
 
     def __post_init__(self):
         assert self.hidden_size % self.num_heads == 0
-        if self.kv_cache_dtype != "int8":
-            raise NotImplementedError(
-                f"kv_cache_dtype={self.kv_cache_dtype!r}: the port has only "
-                "the int8 cache so far; the bfloat16 cache (ROADMAP Queue A3) "
-                "and the int4 cache (Queue A8) come with later slices")
+        if self.kv_cache_dtype not in ("int8", "int4", "bfloat16"):
+            raise ValueError(f"kv_cache_dtype={self.kv_cache_dtype!r}: int8, int4 or bfloat16")
 
     @property
     def head_dim(self) -> int:

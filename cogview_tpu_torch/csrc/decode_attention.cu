@@ -1,40 +1,56 @@
-// Single-token decode attention over the int8 window-blocked KV cache, with
-// the deferred seal of the last SEAL_GROUP tokens, for NVIDIA Hopper (sm_90a).
+// Single-token decode attention over the int8 or packed int4 window-blocked
+// KV cache, with the deferred seal of the last SEAL_GROUP tokens, for NVIDIA
+// Hopper (sm_90a).
 //
-// Replaces: cogview_tpu/ops/decode_attention.py::_decode_kernel, int8 branch
-// (Dc == D), launched by decode_attention_quant's pallas_call.
+// Replaces: cogview_tpu/ops/decode_attention.py::_decode_kernel, launched by
+// decode_attention_quant's pallas_call: its int8 branch (Dc == D, K1,
+// decode_attention_int8) and its packed int4 branch (Dc == D / 2, K2,
+// decode_attention_int4).  One kernel template serves both (PACKED).
 //
 // Layout (the JAX package's, kept so cache bytes compare with no converter):
-//   kv     [NW, B, 2, N, D, W] int8   one layer's view, K at 0 / V at 1,
-//                                     W = 128 tokens minor per [D, W] block
-//   scales [NW, B, 2, N, W]    float  per (head, token), absmax / 127
+//   kv     [NW, B, 2, N, Dc, W] int8  one layer's view, K at 0 / V at 1,
+//                                     W = 128 tokens minor per [Dc, W] block;
+//                                     int4: byte (d2, t) = 16 * v[d2] +
+//                                     (v[d2 + D/2] + 8), v in [-7, 7]
+//   scales [NW, B, 2, N, W]    float  per (head, token), absmax / 127 or / 7
 //   ring   [G, B, N, 2*D]      float  exact K|V columns of positions c0 + g
 //   q, ctx [B, N, D]                  bfloat16 or float32
 //
 // Design: one block per (row, head) and 128 threads, one per token lane.
 // The block loops over the max(ceil(c0 / 128), 1) sealed windows; for each,
-// it copies the 8 KB K and V [D, W] blocks (D = 64) into shared memory with
-// 16-byte loads, computes the 128 logits (thread t owns token t), and folds
-// them into a float32 online softmax.  Then it merges the exact ring slots
-// g <= index % G and writes ctx in q's dtype.  On seal steps
-// (index % G == G - 1) the same block quantizes its own (row, head) slice of
-// the G ring columns (scale = absmax * float32(1/127), values rounded half
-// to even) into window c0 / W, lanes [c0 % W, c0 % W + G).  Only this block
+// it copies the K and V [Dc, W] blocks (8 KB each for int8 at D = 64, 4 KB
+// for int4) into shared memory with 16-byte loads, computes the 128 logits
+// (thread t owns token t), and folds them into a float32 online softmax.
+// Then it merges the exact ring slots g <= index % G and writes ctx in q's
+// dtype.  On seal steps (index % G == G - 1) the same block quantizes its own
+// (row, head) slice of the G ring columns (scale = absmax * float32(1/127)
+// or float32(1/7), values rounded half to even; int4 clips to [-7, 7] and
+// packs) into window c0 / W, lanes [c0 % W, c0 % W + G).  Only this block
 // touches that slice, and those lanes are >= c0, so this step's attention
-// has them masked.
+// has them masked; the window's other lanes keep their bytes.
 //
-// Rounding follows the JAX kernel: with bfloat16 q the logits are
+// Rounding follows the JAX kernel.  int8: with bfloat16 q the logits are
 // (q . k) * (ks * scale) and the PV operand is bf16(p * vs); with float32 q
-// the query is scaled first.  The seal's division x / scale and rintf must
-// be IEEE (no --use_fast_math) so its bytes equal the plain PyTorch version's.
+// the query is scaled first.  int4: float32 throughout whatever q's dtype,
+// logits (q_hi . k_hi + q_lo . k_lo) * ks of the scaled query.  The nibbles
+// unpack with integer ops, hi = b >> 4 (arithmetic) and lo = (b & 15) - 8,
+// equal to the JAX float formula floor(b / 16), b - 16 hi - 8 for every byte
+// the packer makes.  The seal's division x / scale and rintf must be IEEE
+// (no --use_fast_math) so its bytes equal the plain PyTorch version's.
 //
-// What bounds it on an H100: bytes streamed from device memory, about
-// 2 x 8 KB x windows per (row, head) per layer, plus scales and the ring.
-// At cogview-base, batch 4 (160 blocks on 132 SMs) a step reads at most
-// 9 windows, about 23 MB per layer.  This simple design leaves for later:
-// overlapping the next window's loads with this one's math (cp.async or
-// TMA), split-K over windows for small batches, tensor-core dots, and a
-// layout with heads inside the window block.
+// What bounds it on an H100: bytes streamed from device memory, 2 x Dc
+// bytes and two scales per visible sealed column per (row, head) per layer,
+// plus the visible ring slots; the arithmetic is a few float32 operations
+// per byte.  At cogview-base, batch 4 (160 blocks on 132 SMs), index 600
+// (600 visible columns in 5 windows) one call needs about 13.2 MB with the
+// int8 cache and 7.0 MB with the int4 cache; it streams 5 whole windows,
+// 640 columns, so it reads 7% more window bytes than it needs.  The int4 cache halves the
+// window bytes; unpacking costs two
+// integer ops per byte in registers and never widens the data in memory.
+// This simple design leaves for later: overlapping the next window's loads
+// with this one's math (cp.async or TMA), split-K over windows for small
+// batches, tensor-core dots, and a layout with heads inside the window
+// block.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -85,16 +101,18 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
-template <typename T, bool BF16>
+template <typename T, bool BF16, bool PACKED>
 __global__ void __launch_bounds__(W)
-decode_attention_int8_kernel(const T* __restrict__ q, const float* __restrict__ ring,
-                             int8_t* __restrict__ kv, float* __restrict__ scales,
-                             T* __restrict__ ctx, int B, int N, int D, int G, int index) {
+decode_attention_kernel(const T* __restrict__ q, const float* __restrict__ ring,
+                        int8_t* __restrict__ kv, float* __restrict__ scales,
+                        T* __restrict__ ctx, int B, int N, int D, int G, int index) {
+  static_assert(!(BF16 && PACKED), "the packed branch is float32 throughout");
   extern __shared__ __align__(16) unsigned char smem[];
   const int D_ = D;
-  int8_t* ks8 = reinterpret_cast<int8_t*>(smem);            // [D, W]
-  int8_t* vs8 = ks8 + D_ * W;                                // [D, W]
-  float* qsh = reinterpret_cast<float*>(vs8 + D_ * W);       // [D] query (see below)
+  const int Dc = PACKED ? D_ / 2 : D_;                       // bytes per column
+  int8_t* ks8 = reinterpret_cast<int8_t*>(smem);            // [Dc, W]
+  int8_t* vs8 = ks8 + Dc * W;                                // [Dc, W]
+  float* qsh = reinterpret_cast<float*>(vs8 + Dc * W);       // [D] query (see below)
   float* pvs = qsh + D_;                                     // [W] PV operand
   float* part = pvs + W;                                     // [W] PV partial sums
   float* red = part + W;                                     // [4] reductions
@@ -109,20 +127,22 @@ decode_attention_int8_kernel(const T* __restrict__ q, const float* __restrict__ 
   const float scale = 1.0f / sqrtf((float)D_);
 
   // q32 for the bf16 path (scale folds into the K scale), q32 * scale for
-  // the float32 path, as the JAX kernel rounds
+  // the float32 and packed paths, as the JAX kernel rounds
   for (int d = tid; d < D_; d += W) {
     float x = to_f32<T>(q[(size_t)bn * D_ + d]);
     qsh[d] = BF16 ? x : x * scale;
   }
 
   // PV partition: thread (dd, pp) sums tokens [pp * span, (pp + 1) * span)
-  // for output dim dd
+  // for output dim dd; packed, dim dd reads row dd % Dc, high nibble for
+  // dd < Dc and low nibble above
   const int P = W / D_;
   const int span = W / P;
   const int dd = tid % D_, pp = tid / D_;
+  const int vrow = PACKED ? dd % Dc : dd;
 
   float m = -1e30f, l = 0.0f, acc = 0.0f;
-  const size_t blk = (size_t)D_ * W;           // bytes of one [D, W] block
+  const size_t blk = (size_t)Dc * W;           // bytes of one [Dc, W] block
   const int nvec = (int)(blk / 16);
   for (int w = 0; w < swl; ++w) {
     const size_t kb = ((((size_t)w * B + b) * 2 + 0) * N + n) * blk;
@@ -140,8 +160,18 @@ decode_attention_int8_kernel(const T* __restrict__ q, const float* __restrict__ 
     __syncthreads();
 
     float s = 0.0f;
-    for (int d = 0; d < D_; ++d) s += qsh[d] * (float)ks8[d * W + tid];
-    s = BF16 ? s * (ksc * scale) : s * ksc;
+    if constexpr (PACKED) {
+      float s_hi = 0.0f, s_lo = 0.0f;
+      for (int d = 0; d < Dc; ++d) {
+        const int byte = ks8[d * W + tid];
+        s_hi += qsh[d] * (float)(byte >> 4);
+        s_lo += qsh[Dc + d] * (float)((byte & 15) - 8);
+      }
+      s = (s_hi + s_lo) * ksc;
+    } else {
+      for (int d = 0; d < D_; ++d) s += qsh[d] * (float)ks8[d * W + tid];
+      s = BF16 ? s * (ksc * scale) : s * ksc;
+    }
     const int kpos = w * W + tid;
     if (kpos >= c0) s = MASK_VALUE;
 
@@ -160,7 +190,14 @@ decode_attention_int8_kernel(const T* __restrict__ q, const float* __restrict__ 
     const int t0 = pp * span;
     for (int j = 0; j < span; ++j) {
       const int t = t0 + (j + 4 * dd) % span;
-      a += pvs[t] * (float)vs8[dd * W + t];
+      const int byte = vs8[vrow * W + t];
+      float v;
+      if constexpr (PACKED) {
+        v = (float)(dd < Dc ? (byte >> 4) : ((byte & 15) - 8));
+      } else {
+        v = (float)byte;
+      }
+      a += pvs[t] * v;
     }
     acc = acc * alpha + a;
     m = m_new;
@@ -204,33 +241,56 @@ decode_attention_int8_kernel(const T* __restrict__ q, const float* __restrict__ 
     const float* col = rbase + (size_t)g * gstride + t * D_;
     float amax = 0.0f;
     for (int d = 0; d < D_; ++d) amax = fmaxf(amax, fabsf(col[d]));
-    // times float32(1/127), not / 127: the JAX seal compiles to this
-    const float sc = fmaxf(amax, 1e-8f) * (1.0f / 127.0f);
+    // times float32(1/127) or float32(1/7), not a division: the JAX seal
+    // compiles to this
+    const float sc = fmaxf(amax, 1e-8f) * (PACKED ? (1.0f / 7.0f) : (1.0f / 127.0f));
     const int win = c0 / W, lane = c0 % W + g;
     int8_t* dst = kv + ((((size_t)win * B + b) * 2 + t) * N + n) * blk;
-    for (int d = 0; d < D_; ++d) dst[(size_t)d * W + lane] = (int8_t)rintf(col[d] / sc);
+    if constexpr (PACKED) {
+      for (int d = 0; d < Dc; ++d) {
+        const float hi = fminf(fmaxf(rintf(col[d] / sc), -7.0f), 7.0f);
+        const float lo = fminf(fmaxf(rintf(col[Dc + d] / sc), -7.0f), 7.0f);
+        dst[(size_t)d * W + lane] = (int8_t)(16.0f * hi + (lo + 8.0f));
+      }
+    } else {
+      for (int d = 0; d < D_; ++d) dst[(size_t)d * W + lane] = (int8_t)rintf(col[d] / sc);
+    }
     scales[((((size_t)win * B + b) * 2 + t) * N + n) * W + lane] = sc;
   }
 }
 
-template <typename T, bool BF16>
+template <typename T, bool BF16, bool PACKED>
 cudaError_t launch(const void* q, const float* ring, int8_t* kv, float* scales, void* ctx,
                    int B, int N, int D, int G, int index, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)D * W + sizeof(float) * (D + 2 * W + 4 + G);
-  decode_attention_int8_kernel<T, BF16><<<B * N, W, smem, stream>>>(
+  const int Dc = PACKED ? D / 2 : D;
+  const size_t smem = 2 * (size_t)Dc * W + sizeof(float) * (D + 2 * W + 4 + G);
+  decode_attention_kernel<T, BF16, PACKED><<<B * N, W, smem, stream>>>(
       static_cast<const T*>(q), ring, kv, scales, static_cast<T*>(ctx), B, N, D, G, index);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// K1: int8 cache, Dc == D
 extern "C" int decode_attention_int8(const void* q, int q_is_bf16, const float* ring,
                                      int8_t* kv, float* scales, void* ctx, int B, int N,
                                      int D, int NW, int G, int index, void* stream) {
   (void)NW;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = q_is_bf16
-      ? launch<__nv_bfloat16, true>(q, ring, kv, scales, ctx, B, N, D, G, index, s)
-      : launch<float, false>(q, ring, kv, scales, ctx, B, N, D, G, index, s);
+      ? launch<__nv_bfloat16, true, false>(q, ring, kv, scales, ctx, B, N, D, G, index, s)
+      : launch<float, false, false>(q, ring, kv, scales, ctx, B, N, D, G, index, s);
+  return (int)err;
+}
+
+// K2: packed int4 cache, Dc == D / 2; float32 arithmetic for both q dtypes
+extern "C" int decode_attention_int4(const void* q, int q_is_bf16, const float* ring,
+                                     int8_t* kv, float* scales, void* ctx, int B, int N,
+                                     int D, int NW, int G, int index, void* stream) {
+  (void)NW;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = q_is_bf16
+      ? launch<__nv_bfloat16, false, true>(q, ring, kv, scales, ctx, B, N, D, G, index, s)
+      : launch<float, false, true>(q, ring, kv, scales, ctx, B, N, D, G, index, s);
   return (int)err;
 }

@@ -10,10 +10,10 @@ Per layer (Sandwich-LN):
   h = h + LN4(W2 @ gelu(W1 @ LN2(h)))
 with a final LayerNorm and float32 logits tied to the word embedding.
 
-Ported so far: the inference paths with the int8 KV cache, and the
-training forward (``forward(train=True, seeds=..., remat=...)``) with
-counter-hash dropout at the JAX package's salted sites.  Not ported: sparse
-attention, transformer-XL mems, the bfloat16 and int4 caches.  A full
+Ported so far: the inference paths with the int8, int4 and bfloat16 KV
+caches, and the training forward (``forward(train=True, seeds=...,
+remat=...)``) with counter-hash dropout at the JAX package's salted sites.
+Not ported: sparse attention, transformer-XL mems.  A full
 causal forward at S >= ``flash_min_seq`` runs its attention through the
 flash kernels (ops/flash_attention.py), forward and backward, as the JAX
 package routes it.
@@ -32,9 +32,8 @@ from torch.utils.checkpoint import checkpoint
 from ..config import GPTConfig
 from ..ops.attention import causal_mask, decode_mask, dense_attention, dense_attention_kvT
 from ..ops.decode_attention import (
-    SEAL_GROUP, WRITE_WINDOW, decode_attention_quant, dequantize_kv, gather_kv,
-    gather_kv_scales, pad_cache_len, quantize_kv, scatter_kv_columns,
-    scatter_kv_scales)
+    SEAL_GROUP, WRITE_WINDOW, decode_attention_quant, gather_kv, gather_kv_scales, kv_codec,
+    pad_cache_len, scatter_kv_columns, scatter_kv_scales)
 from ..ops.flash_attention import flash_attention
 from ..ops.hash_prng import hash_dropout
 from ..ops.layernorm import layer_norm
@@ -192,12 +191,29 @@ def _affine(x, leaf, cdt):
 
 
 @dataclasses.dataclass
+class KVCache:
+    """The exact cache (``kv_cache_dtype="bfloat16"``): K and V stored
+    transposed, [L, B, H, T] with T = max_len (unpadded), in the compute
+    dtype.  Attention runs dense over all T slots under the decode mask.
+    It has no sequencing contract: chunks and decode steps mix freely."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+
+@dataclasses.dataclass
 class QuantKVCache:
-    """int8 KV cache + per-(head, token) scales + the exact ring.
+    """int8 or packed int4 KV cache + per-(head, token) scales + the exact
+    ring.
 
     Layout is the JAX package's (ops/decode_attention.py): data
-    [L, NW, B, 2, N, D, W] int8, scales [L, NW, B, 2, N, W] float32, ring
-    [L, G, B, N, 2*D] float32.  The tensors are updated in place.
+    [L, NW, B, 2, N, Dc, W] int8 with Dc = D (int8) or D/2 (int4), scales
+    [L, NW, B, 2, N, W] float32, ring [L, G, B, N, 2*D] float32.  The
+    tensors are updated in place.
 
     Sequencing contract: every Q>1 prefill chunk must precede the first
     Q==1 decode step.  After decode steps that do not end a seal group, the
@@ -216,12 +232,19 @@ class QuantKVCache:
         return self.kv.shape[1] * self.kv.shape[6]
 
 
-def init_cache(cfg: GPTConfig, batch: int, max_len: int, device=None) -> QuantKVCache:
-    """Zero int8 data, scales of ONE (as the JAX package), zero ring."""
-    L, N, D = cfg.num_layers, cfg.num_heads, cfg.head_dim
+def init_cache(cfg: GPTConfig, batch: int, max_len: int, device=None):
+    """The cache ``cfg.kv_cache_dtype`` names, as the JAX package makes it:
+    int8 or int4 (Dc = D/2) data of zeros, scales of ONE and a zero float32
+    ring; or zero [L, B, H, max_len] K and V in the compute dtype."""
+    L, H, N, D = cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.head_dim
+    if cfg.kv_cache_dtype == "bfloat16":
+        shape = (L, batch, H, max_len)
+        return KVCache(torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+                       torch.zeros(shape, dtype=cfg.compute_dtype, device=device))
     NW = pad_cache_len(max_len) // WRITE_WINDOW
+    Dc = D if cfg.kv_cache_dtype == "int8" else D // 2
     return QuantKVCache(
-        torch.zeros((L, NW, batch, 2, N, D, WRITE_WINDOW), dtype=torch.int8, device=device),
+        torch.zeros((L, NW, batch, 2, N, Dc, WRITE_WINDOW), dtype=torch.int8, device=device),
         torch.ones((L, NW, batch, 2, N, WRITE_WINDOW), dtype=torch.float32, device=device),
         torch.zeros((L, SEAL_GROUP, batch, N, 2 * D), dtype=torch.float32, device=device),
     )
@@ -257,14 +280,16 @@ def _dropout(x: torch.Tensor, rate: float, seed: Optional[int], train: bool,
 
 
 def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
-                cache: Optional[QuantKVCache] = None, li: int = 0, index: int = 0,
+                cache=None, li: int = 0, index: int = 0,
                 full_prefix: bool = False, sep_for_flash: Optional[int] = None,
                 seed: Optional[int] = None, train: bool = False) -> torch.Tensor:
     """One transformer layer.  Without ``cache``: the flash kernels when
     ``mask`` is exactly causal + ``sep_for_flash`` and
     :func:`should_use_flash` says so, else dense attention under ``mask``.
-    With the int8 cache: S == 1 is a decode step through the decode kernel;
-    S > 1 is a prefill chunk at slots [index, index + S).
+    With a quantized cache (int8 or int4): S == 1 is a decode step through a
+    decode kernel; S > 1 is a prefill chunk at slots [index, index + S).
+    With the bfloat16 cache: the chunk's K/V columns are written at
+    ``index`` and attention runs dense over the whole cache under ``mask``.
 
     In training, ``seed`` is the layer's uint32 seed: salt 1 drops attention
     probabilities on the dense route (the flash kernels are seeded with
@@ -292,20 +317,28 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
         ctx = dense_attention(q, k.reshape(B, S, N, D), v.reshape(B, S, N, D), mask,
                               dropout_rate=cfg.attention_dropout, dropout_seed=lseed,
                               train=train)
+    elif isinstance(cache, KVCache):
+        ck, cv = cache.k[li], cache.v[li]  # [B, H, T] views
+        ck[:, :, index:index + S] = k.transpose(1, 2).to(ck.dtype)
+        cv[:, :, index:index + S] = v.transpose(1, 2).to(cv.dtype)
+        T = ck.shape[2]
+        ctx = dense_attention_kvT(q, ck.to(cdt).reshape(B, N, D, T),
+                                  cv.to(cdt).reshape(B, N, D, T), mask)
     else:
         kv_l, s_l, ring_l = cache.kv[li], cache.scale[li], cache.recent[li]
         G = ring_l.shape[0]
         if S == 1:
             # append the current token's exact K|V column to ring slot
-            # index % G, then attend sealed int8 windows + the ring; the
-            # kernel seals a whole group every G-th step
+            # index % G, then attend sealed windows + the ring; the kernel
+            # seals a whole group every G-th step
             cols = torch.cat([k[:, 0].reshape(B, N, D), v[:, 0].reshape(B, N, D)], dim=-1)
             ring_l[index % G].copy_(cols)
             ctx = decode_attention_quant(q[:, 0].contiguous(), ring_l, kv_l, s_l, index)
             ctx = ctx.to(cdt)
         else:
-            k8, ksc = quantize_kv(k.transpose(1, 2), N)
-            v8, vsc = quantize_kv(v.transpose(1, 2), N)
+            quant, dequant = kv_codec(kv_l, D)
+            k8, ksc = quant(k.transpose(1, 2), N)
+            v8, vsc = quant(v.transpose(1, 2), N)
             scatter_kv_columns(kv_l, k8, v8, index)
             scatter_kv_scales(s_l, ksc, vsc, index)
             # fill the ring with the last min(G, S) columns: G consecutive
@@ -320,12 +353,12 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
             if full_prefix:
                 # the chunk is the whole visible prefix: attend the
                 # just-quantized local columns
-                kT, vT = dequantize_kv(k8, ksc, cdt), dequantize_kv(v8, vsc, cdt)
+                kT, vT = dequant(k8, ksc, cdt), dequant(v8, vsc, cdt)
                 ctx = dense_attention_kvT(q, kT, vT, mask[..., :S])
             else:
                 k8g, v8g = gather_kv(kv_l)
                 ksg, vsg = gather_kv_scales(s_l)
-                kT, vT = dequantize_kv(k8g, ksg, cdt), dequantize_kv(v8g, vsg, cdt)
+                kT, vT = dequant(k8g, ksg, cdt), dequant(v8g, vsg, cdt)
                 ctx = dense_attention_kvT(q, kT, vT, mask)
     ctx = ctx.reshape(B, S, H)
 
@@ -413,27 +446,29 @@ def forward(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
 
 @torch.no_grad()
 def forward_with_cache(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
-                       position_ids: torch.Tensor, cache: QuantKVCache,
-                       index: int) -> torch.Tensor:
+                       position_ids: torch.Tensor, cache, index: int) -> torch.Tensor:
     """Prefill (Q = context length) or decode (Q = 1) at absolute slot
     ``index`` -> float32 logits [B, Q, V]; ``cache`` is updated in place.
 
     Attention visibility uses absolute slots (index + arange(Q)); the
-    position ids only select position embeddings.  A Q > 1 chunk at index 0
-    is the whole visible prefix and attends its own quantized columns.  See
-    :class:`QuantKVCache` for the sequencing contract."""
+    position ids only select position embeddings.  ``cache`` is a
+    :class:`QuantKVCache` (int8 or int4) or a :class:`KVCache` (bfloat16).
+    On a quantized cache a Q > 1 chunk at index 0 is the whole visible
+    prefix and attends its own quantized columns; see :class:`QuantKVCache`
+    for its sequencing contract."""
     B, Q = tokens.shape
     index = int(index)
-    if Q > 1 and cache.decoding:
-        raise ValueError(
-            "forward_with_cache: Q>1 chunk after a decode step on a quantized "
-            "cache; prefill chunks must precede all decode steps")
-    if Q == 1:
-        cache.decoding = True
+    if isinstance(cache, QuantKVCache):
+        if Q > 1 and cache.decoding:
+            raise ValueError(
+                "forward_with_cache: Q>1 chunk after a decode step on a quantized "
+                "cache; prefill chunks must precede all decode steps")
+        if Q == 1:
+            cache.decoding = True
     h = _embed(params, cfg, tokens, position_ids)
     q_abs = index + torch.arange(Q, device=tokens.device)
     mask = decode_mask(q_abs.expand(B, Q), cache.max_len)
-    full_prefix = Q > 1 and index == 0
+    full_prefix = Q > 1 and index == 0 and isinstance(cache, QuantKVCache)
     for li in range(cfg.num_layers):
         h = _layer_body(cfg, h, _layer(params, li), mask, cache, li, index,
                         full_prefix)

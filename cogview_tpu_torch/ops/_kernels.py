@@ -38,6 +38,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "decode_attention": {
         # q, q_is_bf16, ring, kv, scales, ctx, B, N, D, NW, G, index, stream
         "decode_attention_int8": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # the packed int4 cache, same arguments
+        "decode_attention_int4": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "flash_attention": {
         # q, k, v, o, lse, is_bf16, B, S, N, D,

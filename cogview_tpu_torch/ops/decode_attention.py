@@ -1,12 +1,17 @@
-"""Single-token decode attention over the int8 window-blocked KV cache.
+"""Single-token decode attention over the int8 or int4 window-blocked KV
+cache.
 
 Twin of cogview_tpu/ops/decode_attention.py.  The cache layout is the JAX
 package's, so tests compare cache bytes with no converter:
 
-* data ``[L, NW, B, 2, N, D, W]`` int8 (K at 0, V at 1 on the ``2`` dim),
+* data ``[L, NW, B, 2, N, Dc, W]`` int8 (K at 0, V at 1 on the ``2`` dim),
   NW windows of W = 128 tokens; for each (layer, window, row, K/V, head) the
-  ``[D, W]`` block is 8 KB (D = 64) with tokens minor;
-* scales ``[L, NW, B, 2, N, W]`` float32, per (head, token), absmax / 127;
+  ``[Dc, W]`` block has tokens minor.  The int8 cache has Dc = D (8 KB at
+  D = 64); the int4 cache packs two values a byte, Dc = D / 2 (4 KB): byte
+  (d2, t) holds row d2 in its high nibble (signed, [-7, 7]) and row
+  d2 + D/2 in its low nibble, stored plus 8;
+* scales ``[L, NW, B, 2, N, W]`` float32, per (head, token): absmax / 127
+  (int8) or absmax / 7 (int4);
 * ring ``[L, G, B, N, 2*D]`` float32: the exact K|V columns of the last
   G = 8 positions, K in lanes [0, D) and V in [D, 2D).
 
@@ -16,18 +21,19 @@ its cache buffers and gets the updated arrays back; here the cache is
 updated in place, which is what the donation achieved.
 
 Decode step at absolute position ``index`` (rem = index % G,
-c0 = index - rem): attend the int8 sealed prefix [0, c0), K scale on the
-logits and V scale on the probabilities, plus the exact ring slots g <= rem
-(positions c0 + g).  Masked sealed logits are exactly -10000; logits are
-scaled by 1/sqrt(D).  On seal steps (rem == G - 1) the G ring columns are
-quantized (absmax times float32(1/127), round half to even) into window
-c0 // W, lanes
-[c0 % W, c0 % W + G); no other byte changes.  Other steps leave the cache
-untouched.
+c0 = index - rem): attend the quantized sealed prefix [0, c0), K scale on
+the logits and V scale on the probabilities, plus the exact ring slots
+g <= rem (positions c0 + g).  Masked sealed logits are exactly -10000;
+logits are scaled by 1/sqrt(D).  On seal steps (rem == G - 1) the G ring
+columns are quantized (absmax times float32(1/127), or float32(1/7) with the
+values clipped to [-7, 7] and packed; round half to even) into window
+c0 // W, lanes [c0 % W, c0 % W + G); no other byte changes.  Other steps
+leave the cache untouched.
 
 :func:`decode_attention_quant` is the entry point: on a CUDA tensor it
-launches the hand-written kernel (csrc/decode_attention.cu), on a CPU tensor
-it runs :func:`decode_attention_quant_reference`, the plain PyTorch version.
+launches a hand-written kernel of csrc/decode_attention.cu (K1 for the int8
+cache, K2 for the int4 cache), on a CPU tensor it runs
+:func:`decode_attention_quant_reference`, the plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ def pad_cache_len(max_len: int) -> int:
 
 
 def _absmax_scale(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Prefill scales: max(absmax over ``dim``, 1e-8) / 127 with an IEEE
+    """int8 prefill scales: max(absmax over ``dim``, 1e-8) / 127 with an IEEE
     division, as the JAX package's ``quantize_kv`` computes them.  PyTorch's
     CUDA division by a Python scalar multiplies by the reciprocal instead;
     a 0-d tensor divisor keeps the true division."""
@@ -61,13 +67,14 @@ def _absmax_scale(x: torch.Tensor, dim: int) -> torch.Tensor:
     return amax / amax.new_full((), 127.0)
 
 
-def _seal_scale(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Seal scales: max(absmax over ``dim``, 1e-8) times float32(1/127).  The
-    JAX kernel writes ``/ 127.0`` but XLA compiles its seal to a multiply by
-    the float32 reciprocal (checked bit for bit on the CPU), which can differ
-    from the division in the last bit; the CUDA kernel does the same."""
+def _reciprocal_scale(x: torch.Tensor, dim: int, qmax: float) -> torch.Tensor:
+    """max(absmax over ``dim``, 1e-8) times float32(1 / qmax).  The JAX
+    package writes ``/ qmax``, but XLA compiles the interpret-mode seal (int8
+    and int4) and the jitted ``quantize_kv4`` to a multiply by the float32
+    reciprocal (checked bit for bit on the CPU), which can differ from the
+    division in the last bit; the CUDA kernels do the same."""
     amax = torch.clamp(x.abs().amax(dim=dim), min=1e-8)
-    return amax * amax.new_full((), 1.0 / 127.0)
+    return amax * amax.new_full((), 1.0 / qmax)
 
 
 def quantize_kv(cols: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -89,6 +96,64 @@ def dequantize_kv(q8: torch.Tensor, scales: torch.Tensor,
     return (q8.float() * scales[:, :, None, :]).to(dtype)
 
 
+def _unpack4(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed int8 bytes -> (hi, lo) float32 nibble values: hi = floor(b / 16)
+    and lo = b - 16 hi - 8, the JAX package's float formula.  For every byte
+    the packer makes they equal ``b >> 4`` and ``(b & 15) - 8``, which the
+    CUDA kernel uses."""
+    b = packed.float()
+    hi = torch.floor(b * (1.0 / 16.0))
+    return hi, b - 16.0 * hi - 8.0
+
+
+def _pack4(qv: torch.Tensor, dim: int) -> torch.Tensor:
+    """Integer-valued float32 in [-7, 7] with D rows on ``dim`` -> int8 bytes
+    with D/2 rows: 16 * row d2 + (row d2 + D/2 + 8)."""
+    hi, lo = qv.chunk(2, dim=dim)
+    return (16.0 * hi + (lo + 8.0)).to(torch.int8)
+
+
+def quantize_kv4(cols: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(head, token) absmax int4 quantization and nibble packing.
+
+    cols [B, H, S] -> (packed int8 [B, N, D/2, S], float32 scales [B, N, S]).
+    Scales are absmax times float32(1/7), as the jitted JAX function computes
+    them; values are clip(round(c / s), -7, 7)."""
+    B, H, S = cols.shape
+    D = H // num_heads
+    c = cols.reshape(B, num_heads, D, S).float()
+    s = _reciprocal_scale(c, 2, 7.0)
+    qv = torch.clamp(torch.round(c / s[:, :, None, :]), -7.0, 7.0)
+    return _pack4(qv, 2), s
+
+
+def dequantize_kv4(q4: torch.Tensor, scales: torch.Tensor,
+                   dtype=torch.float32) -> torch.Tensor:
+    """[B, N, D/2, T] packed + [B, N, T] scales -> [B, N, D, T] floats."""
+    hi, lo = _unpack4(q4)
+    return (torch.cat([hi, lo], dim=2) * scales[:, :, None, :]).to(dtype)
+
+
+def is_packed(kv_l: torch.Tensor, head_dim: int) -> bool:
+    """Whether a cache view [..., Dc, W] is the packed int4 cache
+    (Dc = head_dim / 2) rather than the int8 one (Dc = head_dim); any other
+    width raises.  The one place the cache's format is read off its shape."""
+    Dc = kv_l.shape[-2]
+    if Dc != head_dim and 2 * Dc != head_dim:
+        raise ValueError(f"cache column width {Dc} is neither head_dim {head_dim} (int8) "
+                         f"nor {head_dim // 2} (int4)")
+    return Dc != head_dim
+
+
+def kv_codec(kv_l: torch.Tensor, head_dim: int):
+    """The (quantize, dequantize) pair that writes and reads the cache view
+    ``kv_l``: :func:`quantize_kv4`/:func:`dequantize_kv4` for the packed
+    int4 cache, :func:`quantize_kv`/:func:`dequantize_kv` for int8."""
+    if is_packed(kv_l, head_dim):
+        return quantize_kv4, dequantize_kv4
+    return quantize_kv, dequantize_kv
+
+
 def _window_spans(index: int, S: int, W: int):
     """(window, lane_lo, lane_hi, col_lo, col_hi) pieces of slots
     [index, index + S) cut at window boundaries."""
@@ -102,8 +167,8 @@ def _window_spans(index: int, S: int, W: int):
 
 def scatter_kv_columns(cache_l: torch.Tensor, kcols: torch.Tensor,
                        vcols: torch.Tensor, index: int) -> None:
-    """Write K/V columns [B, N, D, S] into one layer's window-blocked cache
-    [NW, B, 2, N, D, W] at slots [index, index + S), in place."""
+    """Write K/V columns [B, N, Dc, S] into one layer's window-blocked cache
+    [NW, B, 2, N, Dc, W] at slots [index, index + S), in place."""
     W = cache_l.shape[-1]
     for w, lo, hi, a, b in _window_spans(index, kcols.shape[3], W):
         cache_l[w, :, 0, :, :, lo:hi] = kcols[..., a:b]
@@ -120,9 +185,9 @@ def scatter_kv_scales(scales_l: torch.Tensor, kscols: torch.Tensor,
 
 
 def gather_kv(cache_l: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer [NW, B, 2, N, D, W] -> (K [B, N, D, NW*W], V likewise)."""
-    NW, B, _, N, D, W = cache_l.shape
-    cols = cache_l.permute(1, 2, 3, 4, 0, 5).reshape(B, 2, N, D, NW * W)
+    """One layer [NW, B, 2, N, Dc, W] -> (K [B, N, Dc, NW*W], V likewise)."""
+    NW, B, _, N, Dc, W = cache_l.shape
+    cols = cache_l.permute(1, 2, 3, 4, 0, 5).reshape(B, 2, N, Dc, NW * W)
     return cols[:, 0], cols[:, 1]
 
 
@@ -172,14 +237,18 @@ def fuse_ring(ring_split: torch.Tensor) -> torch.Tensor:
 def _seal(ring_l: torch.Tensor, kv_l: torch.Tensor, scales_l: torch.Tensor,
           c0: int) -> None:
     """Quantize the G ring columns into window c0 // W, lanes
-    [c0 % W, c0 % W + G), in place (the kernel's seal, in PyTorch)."""
+    [c0 % W, c0 % W + G), in place (the kernels' seal, in PyTorch).  A
+    packed cache clips to [-7, 7] and packs after quantizing; the lanes
+    outside the group keep their bytes."""
     G, B, N, D2 = ring_l.shape
     D, W = D2 // 2, kv_l.shape[-1]
+    packed = is_packed(kv_l, D)
     w, lane0 = divmod(c0, W)
     for t in (0, 1):
         col = ring_l[..., t * D:(t + 1) * D]  # [G, B, N, D]
-        sc = _seal_scale(col, -1)  # [G, B, N]
-        q = torch.round(col / sc[..., None]).to(torch.int8)
+        sc = _reciprocal_scale(col, -1, 7.0 if packed else 127.0)  # [G, B, N]
+        q = torch.round(col / sc[..., None])
+        q = _pack4(torch.clamp(q, -7.0, 7.0), -1) if packed else q.to(torch.int8)
         kv_l[w, :, t, :, :, lane0:lane0 + G] = q.permute(1, 2, 3, 0)
         scales_l[w, :, t, :, lane0:lane0 + G] = sc.permute(1, 2, 0)
 
@@ -187,37 +256,45 @@ def _seal(ring_l: torch.Tensor, kv_l: torch.Tensor, scales_l: torch.Tensor,
 def decode_attention_quant_reference(
     q: torch.Tensor,  # [B, N, D] bfloat16 or float32
     ring_l: torch.Tensor,  # [G, B, N, 2*D] float32
-    kv_l: torch.Tensor,  # [NW, B, 2, N, D, W] int8
+    kv_l: torch.Tensor,  # [NW, B, 2, N, Dc, W] int8, Dc = D or D/2 (packed)
     scales_l: torch.Tensor,  # [NW, B, 2, N, W] float32
     index: int,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the decode kernel -> ctx [B, N, D] in
+    """Plain PyTorch version of the decode kernels -> ctx [B, N, D] in
     q.dtype; seals into ``kv_l``/``scales_l`` in place on seal steps.
 
-    Rounding points follow the JAX kernel: with bfloat16 q the QK product
-    takes bf16(q) and the logits are multiplied by ``ks * scale``, and the
-    PV operand is bf16(p * vs); with float32 q, q is scaled first.  The ring
-    epilogue is float32 throughout.  One softmax over all slots replaces the
-    kernel's per-window online softmax (equal up to float32 rounding)."""
+    Rounding points follow the JAX kernel.  int8 cache: with bfloat16 q the
+    QK product takes bf16(q) and the logits are multiplied by
+    ``ks * scale``, and the PV operand is bf16(p * vs); with float32 q, q is
+    scaled first.  Packed int4 cache: float32 throughout, whatever q's
+    dtype; the logits are (q_hi . k_hi + q_lo . k_lo) * ks of the scaled
+    query and the context is [pv . v_hi | pv . v_lo].  The ring epilogue is
+    float32 throughout.  One softmax over all slots replaces the kernels'
+    per-window online softmax (equal up to float32 rounding)."""
     decode_attention_quant_reference.calls += 1
-    NW, B, _, N, D, W = kv_l.shape
+    NW, B, _, N, Dc, W = kv_l.shape
+    D = q.shape[2]
     G = ring_l.shape[0]
     rem = index % G
     c0 = index - rem
     swl = max(-(-c0 // W), 1)  # windows the kernel streams
     scale = 1.0 / math.sqrt(D)
-    bf = q.dtype == torch.bfloat16
+    packed = is_packed(kv_l, D)
+    bf =q.dtype == torch.bfloat16 and not packed
 
-    win = kv_l[:swl].permute(1, 2, 3, 4, 0, 5).reshape(B, 2, N, D, swl * W)
+    win = kv_l[:swl].permute(1, 2, 3, 4, 0, 5).reshape(B, 2, N, Dc, swl * W)
     sw = scales_l[:swl].permute(1, 2, 3, 0, 4).reshape(B, 2, N, swl * W)
-    k8, v8 = win[:, 0].float(), win[:, 1].float()  # [B, N, D, T]
     ks, vs = sw[:, 0], sw[:, 1]  # [B, N, T]
     q32 = q.float()
     qs = q32 * scale
-    if bf:
-        s = torch.einsum("bnd,bndt->bnt", q32, k8) * (ks * scale)
+    if packed:
+        k_hi, k_lo = _unpack4(win[:, 0])  # [B, N, Dc, T]
+        s = (torch.einsum("bnd,bndt->bnt", qs[..., :Dc], k_hi)
+             + torch.einsum("bnd,bndt->bnt", qs[..., Dc:], k_lo)) * ks
+    elif bf:
+        s = torch.einsum("bnd,bndt->bnt", q32, win[:, 0].float()) * (ks * scale)
     else:
-        s = torch.einsum("bnd,bndt->bnt", qs, k8) * ks
+        s = torch.einsum("bnd,bndt->bnt", qs, win[:, 0].float()) * ks
     kpos = torch.arange(swl * W, device=q.device)
     s = torch.where(kpos < c0, s, MASK_VALUE)
 
@@ -230,9 +307,14 @@ def decode_attention_quant_reference(
     pg = torch.exp(sg - m)
     l = p.sum(dim=-1) + pg.sum(dim=-1)  # [B, N]
     pv = p * vs
-    if bf:
-        pv = pv.to(torch.bfloat16).float()
-    acc = torch.einsum("bnt,bndt->bnd", pv, v8)
+    if packed:
+        v_hi, v_lo = _unpack4(win[:, 1])
+        acc = torch.cat([torch.einsum("bnt,bndt->bnd", pv, v_hi),
+                         torch.einsum("bnt,bndt->bnd", pv, v_lo)], dim=-1)
+    else:
+        if bf:
+            pv = pv.to(torch.bfloat16).float()
+        acc = torch.einsum("bnt,bndt->bnd", pv, win[:, 1].float())
     acc = acc + torch.einsum("bng,gbnd->bnd", pg, ring_v)
     ctx = (acc / l[..., None]).to(q.dtype)
 
@@ -247,7 +329,7 @@ decode_attention_quant_reference.calls = 0
 def decode_attention_quant(
     q: torch.Tensor,  # [B, N, D] bfloat16 or float32
     ring_l: torch.Tensor,  # [G, B, N, 2*D] float32
-    kv_l: torch.Tensor,  # [NW, B, 2, N, D, W] int8
+    kv_l: torch.Tensor,  # [NW, B, 2, N, Dc, W] int8, Dc = D or D/2 (packed)
     scales_l: torch.Tensor,  # [NW, B, 2, N, W] float32
     index: int,
 ) -> torch.Tensor:
@@ -257,9 +339,10 @@ def decode_attention_quant(
     every g <= index % G, the current token included (the caller writes it
     before the call).  On seal steps the cache views are updated in place.
 
-    A CPU tensor runs the plain version.  A CUDA tensor launches the kernel
-    of csrc/decode_attention.cu on the current stream, or raises; there is
-    no fallback."""
+    A CPU tensor runs the plain version.  A CUDA tensor launches a kernel
+    of csrc/decode_attention.cu on the current stream, chosen by the cache's
+    column width ``kv_l.shape[4]``: D is the int8 kernel (K1), D/2 the
+    packed int4 kernel (K2).  Anything else raises; there is no fallback."""
     if q.device.type == "cpu":
         return decode_attention_quant_reference(q, ring_l, kv_l, scales_l, index)
     if q.device.type != "cuda":
@@ -269,14 +352,11 @@ def decode_attention_quant(
     B, N, D = q.shape
     G = ring_l.shape[0]
     if kv_l.ndim != 6 or kv_l.shape[5] != WRITE_WINDOW:
-        raise ValueError(f"kv cache layer view must be [NW, B, 2, N, D, 128], got {tuple(kv_l.shape)}")
-    NW = kv_l.shape[0]
-    if kv_l.shape[4] != D:
-        # a packed int4 cache has D/2 bytes per column
-        raise NotImplementedError(
-            f"cache column width {kv_l.shape[4]} != head_dim {D}: only the "
-            "int8 cache has a CUDA kernel so far (int4 is ROADMAP Queue A8)")
-    if tuple(kv_l.shape) != (NW, B, 2, N, D, WRITE_WINDOW):
+        raise ValueError(f"kv cache layer view must be [NW, B, 2, N, Dc, 128], got {tuple(kv_l.shape)}")
+    NW, Dc = kv_l.shape[0], kv_l.shape[4]
+    packed = is_packed(kv_l, D)
+    fn = "decode_attention_int4" if packed else "decode_attention_int8"
+    if tuple(kv_l.shape) != (NW, B, 2, N, Dc, WRITE_WINDOW):
         raise ValueError(f"kv shape {tuple(kv_l.shape)} does not match q {tuple(q.shape)}")
     if tuple(scales_l.shape) != (NW, B, 2, N, WRITE_WINDOW):
         raise ValueError(f"scales shape {tuple(scales_l.shape)}")
@@ -294,19 +374,26 @@ def decode_attention_quant(
         if not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"{name} must be contiguous on {q.device}")
     if kv_l.data_ptr() % 16:
+        # the kernels copy [Dc, 128] blocks in 16-byte vectors; every block
+        # starts 16-byte aligned when the view does (Dc * 128 % 16 == 0)
         raise ValueError("kv cache view must be 16-byte aligned")
 
     ctx = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _kernels.lib("decode_attention").decode_attention_int8(
+        err = getattr(_kernels.lib("decode_attention"), fn)(
             q.data_ptr(), int(q.dtype == torch.bfloat16), ring_l.data_ptr(),
             kv_l.data_ptr(), scales_l.data_ptr(), ctx.data_ptr(),
             B, N, D, NW, G, int(index), stream)
     if err != 0:
-        raise RuntimeError(f"decode_attention_int8 launch failed: CUDA error {err}")
-    decode_attention_quant.launches += 1
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
+    if packed:
+        decode_attention_quant.launches_int4 += 1
+    else:
+        decode_attention_quant.launches += 1
     return ctx
 
 
+# launches of K1 (int8 cache) and of K2 (int4 cache)
 decode_attention_quant.launches = 0
+decode_attention_quant.launches_int4 = 0

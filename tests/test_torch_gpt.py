@@ -98,7 +98,7 @@ def test_int8_cache_prefill_and_decode_match(weights, chunks):
     float32 rounding, so they agree to a few float32 ulps."""
     jcfg, jparams, tparams, tokens = weights
     want, jcache = _decode_run_jax(jparams, jcfg, tokens, chunks)
-    got, tcache = _decode_run_torch(tparams, tiny_test(), tokens, chunks)
+    got, tcache = _decode_run_torch(tparams, tiny_test(kv_cache_dtype="int8"), tokens, chunks)
     np.testing.assert_allclose(got, want, atol=1e-4)
     last = S - 1
     upto = last - last % 8 + 8
@@ -113,7 +113,7 @@ def test_int8_cache_prefill_and_decode_match(weights, chunks):
 
 def test_prefill_after_decode_raises(weights):
     _, _, tparams, tokens = weights
-    cfg = tiny_test()
+    cfg = tiny_test(kv_cache_dtype="int8")
     cache = gpt.init_cache(cfg, B, S)
     tk = torch.from_numpy(tokens).long()
     pos = torch.arange(S).expand(B, S)
@@ -208,5 +208,10 @@ def test_training_forward_with_dropout_matches(weights, flash, remat):
 
 
 def test_only_int8_cache_is_ported():
-    with pytest.raises(NotImplementedError):
-        tiny_test(kv_cache_dtype="bfloat16")
+    """The three caches of the JAX package are ported, bfloat16 the default
+    as there; any other name is refused."""
+    assert tiny_test().kv_cache_dtype == "bfloat16"
+    for name in ("int8", "int4", "bfloat16"):
+        assert tiny_test(kv_cache_dtype=name).kv_cache_dtype == name
+    with pytest.raises(ValueError):
+        tiny_test(kv_cache_dtype="float8")

@@ -143,3 +143,85 @@ def test_decode_kernel_matches_plain_version(cuda_device, dtype, tol, index):
     assert (ctx.float() - want.float()).abs().max().item() <= tol
     assert torch.equal(kv_k, kv_r) and torch.equal(sc_k, sc_r)
     assert torch.equal(kv_k, kv) == (index % G != G - 1)
+
+
+def _int4_cache(device, B, N, D, NW, seed):
+    """Packed bytes the packer can make, scales and ring at cogview-base
+    head shapes."""
+    W, G = da.WRITE_WINDOW, da.SEAL_GROUP
+    gen = torch.Generator(device=device).manual_seed(seed)
+    hi = torch.randint(-7, 8, (NW, B, 2, N, D // 2, W), generator=gen, device=device)
+    lo = torch.randint(-7, 8, (NW, B, 2, N, D // 2, W), generator=gen, device=device)
+    kv = (16 * hi + lo + 8).to(torch.int8)
+    sc = torch.rand((NW, B, 2, N, W), generator=gen, device=device) * 0.3
+    ring = torch.randn((G, B, N, 2 * D), generator=gen, device=device)
+    q = torch.randn((B, N, D), generator=gen, device=device)
+    return q, ring, kv, sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, None)])
+@pytest.mark.parametrize("index", [10, 15, 133, 135, 600, 1031])
+def test_int4_decode_kernel_matches_plain_version(cuda_device, dtype, tol, index):
+    """K2 at cogview-base head shapes (B=4, N=40, D=64, 9 windows): ctx
+    within ``tol`` (float32) or, for a bf16 q, within the float32 tolerance
+    plus one bf16 ulp, 1e-4 + 2^-7 of the value (K2 computes in float32 and
+    rounds its bf16 ctx once, as the plain version does), the cache bit-equal to the plain version's after seal (index 135
+    seals with c0 = 128, a window boundary) and non-seal steps, untouched on
+    non-seal steps, and two launches bit-equal."""
+    B, N, D, G = 4, 40, 64, da.SEAL_GROUP
+    NW = da.pad_cache_len(1088) // da.WRITE_WINDOW
+    q, ring, kv, sc = _int4_cache(cuda_device, B, N, D, NW, seed=2)
+    q = q.to(dtype)
+    kv_k, sc_k, kv_r, sc_r = kv.clone(), sc.clone(), kv.clone(), sc.clone()
+    n1, n2 = da.decode_attention_quant.launches, da.decode_attention_quant.launches_int4
+    ctx = da.decode_attention_quant(q, ring, kv_k, sc_k, index)
+    ctx2 = da.decode_attention_quant(q, ring, kv_k.clone(), sc_k.clone(), index)
+    torch.cuda.synchronize()
+    assert (da.decode_attention_quant.launches - n1,
+            da.decode_attention_quant.launches_int4 - n2) == (0, 2)
+    want = da.decode_attention_quant_reference(q, ring, kv_r, sc_r, index)
+    assert ctx.dtype == dtype and ctx.shape == (B, N, D)
+    diff = (ctx.float() - want.float()).abs()
+    if tol is None:
+        assert bool((diff <= 1e-4 + want.float().abs() * 2.0 ** -7).all())
+    else:
+        assert diff.max().item() <= tol
+    assert torch.equal(kv_k, kv_r) and torch.equal(sc_k, sc_r)
+    assert torch.equal(kv_k, kv) == (index % G != G - 1)
+    assert torch.equal(ctx, ctx2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_cache", ["int4", "bfloat16"])
+def test_tiny_decode_card_matches_cpu(cuda_device, kv_cache):
+    """A tiny float32 model's prefill + 28 decode steps through the int4
+    cache (K2 on the card) and the bfloat16 cache, card against CPU."""
+    from cogview_tpu_torch.config import tiny_test
+    from cogview_tpu_torch.models import gpt
+
+    cfg = tiny_test(kv_cache_dtype=kv_cache)
+    gen = torch.Generator().manual_seed(1)
+    params = gpt.init_params(cfg, gen)
+    B, S, ctx = 2, 40, 12
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    pos = torch.arange(S).expand(B, S)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = _tree_to(params, dev)
+        cache = gpt.init_cache(cfg, B, S, device=dev)
+        tk, ps = tokens.to(dev), pos.to(dev)
+        n2 = da.decode_attention_quant.launches_int4
+        got = [gpt.forward_with_cache(p, cfg, tk[:, :ctx], ps[:, :ctx], cache, 0)]
+        for t in range(ctx, S):
+            got.append(gpt.forward_with_cache(p, cfg, tk[:, t:t + 1], ps[:, t:t + 1], cache, t))
+        launched = da.decode_attention_quant.launches_int4 - n2
+        outs[dev] = torch.cat(got, dim=1).cpu()
+        want_launches = (S - ctx) * cfg.num_layers if (dev, kv_cache) == ("cuda", "int4") else 0
+        assert launched == want_launches
+    assert (outs["cpu"] - outs["cuda"]).abs().max().item() <= 1e-3
+
+
+def _tree_to(t, device):
+    return ({k: _tree_to(v, device) for k, v in t.items()} if isinstance(t, dict)
+            else t.to(device))

@@ -98,7 +98,7 @@ def test_filling_sequence_identical_tokens(tok, params, name, top_k, top_p, seed
     seed_u32 = int(seed_from_key(rbg_key(seed)))
     ttpl = ts.compile_template(seq, tok, padded_vocab=128)
     got_t, got_s = ts.filling_sequence(
-        tparams, tiny_test(), ttpl, batch,
+        tparams, tiny_test(kv_cache_dtype="int8"), ttpl, batch,
         ts.SamplingParams(top_k=top_k, top_p=top_p, seed=seed), seed_u32)
     np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=1e-4)
@@ -111,4 +111,4 @@ def test_filling_validates_positions(tok, params):
     _, tparams = params
     tpl = ts.compile_template([tok["[BOI1]"]] + [-1] * 70, tok, padded_vocab=128)
     with pytest.raises(ValueError):
-        ts.filling_sequence(tparams, tiny_test(), tpl, 1)
+        ts.filling_sequence(tparams, tiny_test(kv_cache_dtype="int8"), tpl, 1)

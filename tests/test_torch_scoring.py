@@ -126,7 +126,8 @@ def test_image2text_generate_once_matches_jax(gpt_weights, tokenizers, tmp_path,
         rng, sub = jax.random.split(rng)
         seeds.append(int(seed_from_key(rbg_key(sub))))
     monkeypatch.setattr(ttasks, "_chunk_seed", lambda s, i: seeds[i])
-    got = ttasks.generate_once(tparams, tiny_test(max_position_embeddings=1088), ttok, path,
+    got = ttasks.generate_once(tparams, tiny_test(max_position_embeddings=1088,
+                                                  kv_cache_dtype="int8"), ttok, path,
                                "image2text", num=num, max_inference_batch_size=mbz,
                                sampling=ts.SamplingParams(top_k=20, seed=seed))
     assert got.tokens.shape == want.tokens.shape == (3, 1048)

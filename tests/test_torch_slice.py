@@ -69,7 +69,8 @@ def test_generate_once_text2image_matches_jax(monkeypatch):
                                        VQVAEConfig(**SMALL_VQ)),
         txt_tokenizer=TinyTextTok())
     got = ttasks.generate_once(gpt_params_from_jax(jax.tree.map(np.asarray, jparams)),
-                               tiny_test(max_position_embeddings=1088), ttok, "ab cd",
+                               tiny_test(max_position_embeddings=1088, kv_cache_dtype="int8"),
+                               ttok, "ab cd",
                                "text2image", num=num, max_inference_batch_size=mbz,
                                sampling=ts.SamplingParams(top_k=20, seed=seed))
     assert got.tokens.shape == want.tokens.shape == (3, 1032)
@@ -89,33 +90,39 @@ def test_chunk_seeds_differ_and_are_uint32():
 
 
 def test_port_imports_no_jax():
-    """The port and every module of its slices import without jax; the only
-    cogview_tpu code they load is the framework-free tokenization and data
-    packages."""
+    """Every module of the port, its CLIs included, imports without jax and
+    without loading any module of cogview_tpu; chip_smoke.py imports
+    nothing of cogview_tpu either (checked on its syntax tree)."""
+    import pkgutil
+
+    import cogview_tpu_torch
+
+    mods = sorted(m.name for m in pkgutil.walk_packages(cogview_tpu_torch.__path__,
+                                                        "cogview_tpu_torch."))
+    assert {"cogview_tpu_torch.cli.generate", "cogview_tpu_torch.cli.serve",
+            "cogview_tpu_torch.cli.pretrain", "cogview_tpu_torch.tokenization.unified",
+            "cogview_tpu_torch.data.loader", "cogview_tpu_torch.data.lmdb_io"} <= set(mods)
     code = (
-        "import sys\n"
-        "import cogview_tpu_torch, cogview_tpu_torch.config, cogview_tpu_torch.cli.generate\n"
-        "import cogview_tpu_torch.ops.attention, cogview_tpu_torch.ops.decode_attention\n"
-        "import cogview_tpu_torch.ops.hash_prng, cogview_tpu_torch.ops.layernorm\n"
-        "import cogview_tpu_torch.ops.precision, cogview_tpu_torch.ops._kernels\n"
-        "import cogview_tpu_torch.models.gpt, cogview_tpu_torch.models.vqvae\n"
-        "import cogview_tpu_torch.models.bridge, cogview_tpu_torch.generation.tasks\n"
-        "import cogview_tpu_torch.generation.sampling, cogview_tpu_torch.utils.png\n"
-        "import cogview_tpu_torch.tokenization.vq_tokenizer\n"
-        "import cogview_tpu_torch.ops.flash_attention, cogview_tpu_torch.generation.scoring\n"
-        "import cogview_tpu_torch.cli.pretrain, cogview_tpu_torch.training.losses\n"
-        "import cogview_tpu_torch.training.optim, cogview_tpu_torch.training.loss_scaler\n"
-        "import cogview_tpu_torch.training.train_loop, cogview_tpu_torch.training.checkpointing\n"
-        "import cogview_tpu_torch.utils.timers, cogview_tpu_torch.utils.metrics\n"
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
-        "bad = [m for m in sys.modules if m.startswith('cogview_tpu.')\n"
-        "       and not m.startswith(('cogview_tpu.tokenization', 'cogview_tpu.data'))]\n"
+        "bad = [m for m in sys.modules if m == 'cogview_tpu' or m.startswith('cogview_tpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [f"{n.module}.{a.name}" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+              for a in n.names]
+    assert "cogview_tpu_torch.cli.serve" in names
+    bad = [m for m in names if m == "cogview_tpu" or m.startswith(("cogview_tpu.", "jax"))]
+    assert not bad, bad
 
 
 def test_cli_runs_on_cpu_and_writes_pngs(tmp_path):
