@@ -7,8 +7,8 @@ Phases (each prints its lines; any failure exits non-zero and prints no
 result):
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
-2. build: compile both kernel sources from cogview_tpu_torch/csrc/ with nvcc,
-   one process per source, in parallel;
+2. build: compile the three kernel sources from cogview_tpu_torch/csrc/ with
+   nvcc, one process per source, in parallel;
 3. decode kernels: K1 (int8 cache) and K2 (packed int4 cache) against their
    plain PyTorch version at cogview-base head shapes (B=4, N=40, D=64, 9
    windows), float32 and bfloat16 queries, seal and non-seal steps (index
@@ -28,30 +28,46 @@ result):
    S=1058), float32 and bfloat16; two launches bit-equal; the microseconds
    per call of both at the tutorial's training shape, with and without
    dropout, and of one torch.autograd.grad through SDPA;
-6. small input: prefill + decode of a tiny float32 model through the int8,
+6. probes: P1a (add_one) on a random block and P2 (the seal's lane
+   scatter) on the TPU probe's inputs and random lane0 in [0, 120]
+   bit-equal to their plain versions; P1b's SASS holds its cp.async
+   copies.  Then the three measurement entry points at their default
+   shapes, each of which checks what it times and exits non-zero on a
+   difference: ``scripts.launch_probe`` (P1b at cogview-base width and batch
+   40 on a random 12 GB cache, layers 0, 1, 47, bit-equal; the P1a and P1b
+   480-call chains, eager and replayed from a CUDA graph, bit-equal to the
+   plain chains), ``scripts.seal_scatter_probe`` (the 64-call loop and the
+   kernel alone), and ``scripts.decode_kernel_microbench`` for the int8 and
+   the int4 cache and for the int8 cache without the ring write (K1, K2 on
+   a random cache at batch 40 over 1-9 live windows, each point's ctx
+   against the plain version: the slope and intercept, eager and in a
+   graph), each cache freed before the next.  The probes' times are per
+   call of many calls replayed from one CUDA graph, the plain versions'
+   and torch.add's beside them, with the bounds;
+7. small input: prefill + decode of a tiny float32 model through the int8,
    int4 and bfloat16 caches, and a tiny float32 forward through the flash
    kernel, on the card against the same model on the CPU (plain versions);
-   two tiny float32 train steps through the three flash kernels with
+8. two tiny float32 train steps through the three flash kernels with
    dropout 0.1, card against CPU;
-7. text->image: ``cogview_tpu_torch.cli.generate.main`` at cogview-base width
+9. text->image: ``cogview_tpu_torch.cli.generate.main`` at cogview-base width
    (48 layers, random weights from a seed), int8 KV cache, batch 4, one
    request of 30 words, first with bf16 weights, then with int8 weights.
    Checks the generated ids, the four PNGs, and that every decode step of
    every layer launched K1 and never its plain version;
-8. image->text: the CLI on the first bf16-weight PNG, batch 4: 20 text ids
+10. image->text: the CLI on the first bf16-weight PNG, batch 4: 20 text ids
    per row, 20 x 48 K1 launches;
-9. post-selection: the CLI scores the four PNGs against the prompt: four
+11. post-selection: the CLI scores the four PNGs against the prompt: four
    finite negative scores in scores_rank_0.txt, 48 flash-kernel launches;
    the same tokens scored again through dense attention on the card agree;
-10. serve: ``cogview_tpu_torch.cli.serve.main`` at cogview-base width with
+12. serve: ``cogview_tpu_torch.cli.serve.main`` at cogview-base width with
    the int4 cache, bf16 weights, batch 4, one query file of the 30-word
    prompt: the file reaches done/ and failed/ stays empty, four PNGs, ids in
    [0, 8192), 1024 x 48 K2 launches, no K1 launch and no plain call;
-11. cache fidelity: cogview-base at batch 4, random weights, the
+13. cache fidelity: cogview-base at batch 4, random weights, the
    text->image context and 64 teacher-forced decode steps through the bf16,
    int8 and int4 caches: finite logits, the mean per-step KL of int8 and
    int4 against the bf16 cache (int8's no larger) and the argmax agreement;
-12. pretraining: ``cogview_tpu_torch.cli.pretrain.main`` at the tutorial
+14. pretraining: ``cogview_tpu_torch.cli.pretrain.main`` at the tutorial
    preset's widths (12 layers, hidden 1024, 16 heads, vocab 58,240), bf16
    compute, dropout 0.1, remat, batch 16 x 1,088 tokens, 30 steps on a
    CompactBinary corpus written from a seed: finite falling losses, no
@@ -68,6 +84,7 @@ time), the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -383,6 +400,94 @@ def phase_flash_backward(torch, fa):
     del args, o, qt, kt, vt
     return {"max_abs_err": worst, "rel_err": rel_worst, "times": times, "bounds": bounds,
             "library_us": us_l, "nodrop_us": nodrop}
+
+
+def phase_probes(torch, probes, ssp):
+    """P1a on a random block and P2 on the TPU probe's inputs and random
+    lane0, single calls, against their plain versions bit for bit -> the
+    largest difference of each.  P1b's checks, and the chains eager and in a CUDA
+    graph, are the entry points' own (``phase_probe_entry_points``)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def diff(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    x = torch.randn((8, 128), generator=gen, device=dev)
+    err = {"add_one": diff(probes.add_one(x), probes.add_one_reference(x)), "seal_scatter": 0.0}
+    print(f"probe P1a add_one [8,128]: max_abs_err {err['add_one']:.1e} (tol 0)")
+    _check(err["add_one"] == 0, "P1a differs from its plain version")
+
+    qc, oh, l0 = ssp.probe_inputs(dev)
+    cases = [(qc, oh, l0)]
+    rng = torch.Generator().manual_seed(10)
+    for lane0 in torch.randint(0, 121, (6,), generator=rng).tolist() + [0, 120]:
+        cases.append((torch.randint(-127, 127, qc.shape, generator=rng).float().to(dev),
+                      ssp.one_hot(lane0, dev),
+                      torch.full((1, 1), lane0, dtype=torch.int32, device=dev)))
+    for qc_c, oh_c, l0_c in cases:
+        got = probes.seal_scatter(qc_c, oh_c, l0_c)
+        want = probes.seal_scatter_reference(qc_c, oh_c, l0_c)
+        _check(torch.equal(got, want), f"P2 bytes differ at lane0 {l0_c.item()}")
+        err["seal_scatter"] = max(err["seal_scatter"], diff(got, want))
+    print(f"probe P2 seal_scatter [40,64,128]: byte-equal at lane0 "
+          f"{[int(c[2].item()) for c in cases]}")
+    return err
+
+
+def _check_async_copy(so) -> None:
+    """P1b's copy must not be optimised away: its kernel in the built
+    library holds LDGSTS (cp.async) in its SASS."""
+    from cogview_tpu_torch.ops import _kernels
+
+    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    found = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split(None, 1)[0]
+        if "decode_convention_kernel" in name:
+            found[name] = section.count("LDGSTS")
+    print(f"probe P1b SASS (cuobjdump): LDGSTS in the kernel {list(found.values())}")
+    _check(len(found) == 1 and all(found.values()), "P1b's asynchronous copy is missing")
+
+
+# the window sweeps: (key, decode_kernel_microbench arguments)
+SWEEPS = (("sweep_int8", ["--kv", "int8"]), ("sweep_int4", ["--kv", "int4"]),
+          ("sweep_int8_no_ring_write", ["--kv", "int8", "--ring-write", "0"]))
+
+
+def phase_probe_entry_points(torch, da, probes, lp, ssp, dkm):
+    """The three measurement entry points at their default shapes, each
+    12 GB cache freed before the next is made -> (their results, the
+    wrappers' launch counts of each run: eager calls and graph captures;
+    the entry points count what the replays ran)."""
+    counters = (probes.add_one, probes.decode_convention, probes.seal_scatter)
+    for c in counters:
+        c.launches = 0
+    res = {"launch_probe": lp.main([])}
+    torch.cuda.empty_cache()
+    res["seal_scatter_probe"] = ssp.main([])
+    launches = {c.__name__: c.launches for c in counters}
+    decode = da.decode_attention_quant
+    for key, argv in SWEEPS:
+        decode.launches = decode.launches_int4 = 0
+        res[key] = dkm.main(argv)
+        launches[key] = decode.launches + decode.launches_int4
+        torch.cuda.empty_cache()
+    replayed = {key: res[key]["graph_replayed"] for key, _ in SWEEPS}
+    replayed["add_one"] = res["launch_probe"]["tiny"]["graph_replayed"]
+    replayed["decode_convention"] = res["launch_probe"]["convention"]["graph_replayed"]
+    replayed["seal_scatter"] = res["seal_scatter_probe"]["graph_replayed"]
+    print(f"probe entry points: wrapper launches {launches} (eager calls and graph captures); "
+          f"launches run by graph replays {replayed}")
+    _check(all(n > 0 for n in launches.values()), "an entry point launched no kernel")
+    for key, _ in SWEEPS:
+        s = res[key]
+        _check(len(s["points"]) == 5 and all(
+            math.isfinite(s[col][k]) for col in ("eager", "graph")
+            for k in ("slope_us", "intercept_us")), f"the {key} sweep gave no line")
+    return res, launches
 
 
 def phase_small_training(torch, cfgmod, fa, tl, optim):
@@ -951,7 +1056,11 @@ def main() -> int:
         from cogview_tpu_torch.ops import _kernels
         from cogview_tpu_torch.ops import decode_attention as da
         from cogview_tpu_torch.ops import flash_attention as fa
+        from cogview_tpu_torch.ops import probes
         from cogview_tpu_torch.ops.precision import set_fp32_precision
+        from cogview_tpu_torch.scripts import decode_kernel_microbench as dkm
+        from cogview_tpu_torch.scripts import launch_probe as lp
+        from cogview_tpu_torch.scripts import seal_scatter_probe as ssp
         from cogview_tpu_torch.training import losses, optim
         from cogview_tpu_torch.training import train_loop as tl
         from cogview_tpu_torch.utils import png
@@ -968,49 +1077,105 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     set_fp32_precision()
 
-    # phase 2: build both libraries, one nvcc each, in parallel
+    # phase 2: build the three libraries, one nvcc each, in parallel
     t0 = time.perf_counter()
-    names = ("decode_attention", "flash_attention")
+    names = ("decode_attention", "flash_attention", "probes")
     sos = _kernels.build_all(names)
     for name in names:
         _kernels.lib(name)
     print(f"build: {', '.join(so.name for so in sos)} in {time.perf_counter() - t0:.2f} s")
 
-    # phases 3-6: kernels against their plain versions, small input
+    # phases 3-5: kernels against their plain versions
     k1 = phase_kernel(torch, da, packed=False)
     k2 = phase_kernel(torch, da, packed=True)
     k3 = phase_flash_kernel(torch, fa)
     k45 = phase_flash_backward(torch, fa)
+    # phase 6: the probes against their plain versions, then the three
+    # measurement entry points
+    probe_err = phase_probes(torch, probes, ssp)
+    _check_async_copy(sos[names.index("probes")])
+    entry, probe_launches = phase_probe_entry_points(torch, da, probes, lp, ssp, dkm)
+    # phases 7-8: small input
     phase_small_input(torch, gpt, cfgmod, da, fa)
     phase_small_training(torch, cfgmod, fa, tl, optim)
 
     with tempfile.TemporaryDirectory() as work:
-        # phase 7: text->image, bf16 then int8 weights; the bf16 PNGs feed 8, 9
+        # phase 9: text->image, bf16 then int8 weights; the bf16 PNGs feed 10, 11
         t2i = [phase_main_path(torch, da, cli, tasks, sampling, png, w, work)
                for w in ("bfloat16", "int8")]
         png_dir = t2i[0][1]
-        # phase 8: image->text; phase 9: post-selection
+        # phase 10: image->text; phase 11: post-selection
         i2t = phase_image2text(torch, da, fa, cli, tasks, sampling, png_dir, work)
         flash_launches = phase_post_selection(torch, fa, cli, tasks, scoring, png_dir, work)
-        # phase 10: the folder-watcher server, int4 cache; phase 11: fidelity
+        # phase 12: the folder-watcher server, int4 cache; phase 13: fidelity
         k2_launches = phase_serve_int4(torch, da, serve, tasks, sampling, png, work)
         phase_cache_fidelity(torch, gpt, cfgmod, tasks, sampling, tokenization)
-        # phase 12: pretraining at the tutorial width, then a resumed run
+        # phase 14: pretraining at the tutorial width, then a resumed run
         train_launches, _ = phase_pretrain(torch, fa, pretrain, losses, optim, work)
 
-    def decode_entry(name, summary, launches, err):
+    def decode_entry(name, summary, launches, err, kv):
         us_k, us_p, bound_ms, by = summary["times"][("bfloat16", 600)]
+        sweeps = [key for key, argv in SWEEPS if argv[1] == kv]
         return {"name": name, "route": "cuda",
                 "source": "cogview_tpu_torch/csrc/decode_attention.cu",
                 "replaces": "cogview_tpu/ops/decode_attention.py:161", "launches": launches,
                 "max_abs_err": err, "ms": us_k / 1000.0, "plain_ms": us_p / 1000.0,
-                "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+                "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+                # the window sweeps at batch 40 (decode_kernel_microbench):
+                # launches are eager calls and graph captures, captured the
+                # calls the captures recorded (they run nothing), replayed
+                # the launches the graphs' replays ran
+                **{f"{key}_{field}": value for key in sweeps for field, value in (
+                    ("launches", probe_launches[key]),
+                    ("captured", entry[key]["graph_captured"]),
+                    ("replayed", entry[key]["graph_replayed"]),
+                    ("max_abs_err", entry[key]["max_abs_err"]),
+                    ("us", {col: {k: entry[key][col][k] for k in ("slope_us", "intercept_us")}
+                            for col in ("eager", "graph")}))}}
+
+    def probe_entry(name, fn, line, err, us, plain_us, library_us, bound, loop):
+        # ms: per call of the kernel alone, many calls replayed from one CUDA
+        # graph (one call between an event pair would time the ~5 us floor
+        # of the method); eager_ms: per call of the entry point's loop issued
+        # from Python; launches: eager calls and graph captures, captured:
+        # the calls the captures recorded (they run nothing), replayed: the
+        # launches the graphs' replays ran
+        return {"name": name, "route": "cuda", "source": "cogview_tpu_torch/csrc/probes.cu",
+                "replaces": line, "launches": probe_launches[fn], "max_abs_err": err,
+                "ms": us / 1000.0, "plain_ms": plain_us / 1000.0, "bound_ms": bound[0],
+                "bound_by": bound[1],
+                "library_ms": None if library_us is None else library_us / 1000.0,
+                "eager_ms": loop["eager_us"] / 1000.0, "captured": loop["graph_captured"],
+                "replayed": loop["graph_replayed"]}
+
+    lpr, ssr = entry["launch_probe"], entry["seal_scatter_probe"]
+    L, NW, B, N, D, W = lp.CONVENTION_SHAPE
+    # P1b: the window rows and their scales copied, q read, ctx written
+    p1b_bytes = 2 * 2 * N * D * W + 2 * 2 * N * W * 4 + 2 * B * N * D * 2
+    # P2: qc, oh and lane0 read, out written; G products for each of the G
+    # lanes of the group
+    p2_bytes = (ssp.G * ssp.HB * ssp.DC * 4 + ssp.G * ssp.W * 4 + 4
+                + ssp.HB * ssp.DC * ssp.W)
+    probe_rows = [
+        probe_entry("probe_add_one", "add_one", "scripts/pallas_launch_probe.py:51",
+                    probe_err["add_one"], lpr["tiny"]["graph_us"],
+                    # the plain version is x + 1.0, the library call itself
+                    lpr["torch_add"]["graph_us"], lpr["torch_add"]["graph_us"],
+                    _bound(2 * 8 * 128 * 4, 8 * 128, "f32"), lpr["tiny"]),
+        probe_entry("probe_decode_convention", "decode_convention",
+                    "scripts/pallas_launch_probe.py:73", lpr["convention"]["max_abs_err"],
+                    lpr["convention"]["graph_us"], lpr["convention"]["plain_graph_us"], None,
+                    _bound(p1b_bytes, B * N * D, "f32"), lpr["convention"]),
+        probe_entry("probe_seal_scatter", "seal_scatter", "scripts/seal_scatter_probe.py:49",
+                    probe_err["seal_scatter"], ssr["kernel_graph_us"], ssr["plain_graph_us"],
+                    None, _bound(p2_bytes, 2 * ssp.HB * ssp.DC * ssp.G * ssp.G, "f32"), ssr),
+    ]
 
     fk, fp, fl, fbound, fby = k3["times"]["bfloat16"]
     kernels = [
         decode_entry("decode_attention_int8", k1, sum(n for n, _ in t2i) + i2t,
-                     k1["max_abs_err"]),
-        decode_entry("decode_attention_int4", k2, k2_launches, k2["max_abs_err"]),
+                     k1["max_abs_err"], "int8"),
+        decode_entry("decode_attention_int4", k2, k2_launches, k2["max_abs_err"], "int4"),
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "cogview_tpu_torch/csrc/flash_attention.cu",
          "replaces": "cogview_tpu/ops/flash_attention.py:163",
@@ -1035,7 +1200,7 @@ def main() -> int:
         "library_covers": "dq+dkv",
         "nodrop_ms": k45["nodrop_us"][i] / 1000.0,
     } for i, (name, line, n) in enumerate((("dq", 212, train_launches[1]),
-                                           ("dkv", 249, train_launches[2])))]
+                                           ("dkv", 249, train_launches[2])))] + probe_rows
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

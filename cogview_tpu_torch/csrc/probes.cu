@@ -1,0 +1,134 @@
+// The decode kernels' measurement probes, for NVIDIA Hopper (sm_90a).
+//
+// Replaces the three Pallas kernels of the JAX package's probe scripts:
+//   probe_add_one            scripts/pallas_launch_probe.py::tiny_kernel (P1a)
+//   probe_decode_convention  scripts/pallas_launch_probe.py::conv_kernel (P1b)
+//   probe_seal_scatter       scripts/seal_scatter_probe.py::make.kernel (P2)
+// Each is small on purpose: what the scripts measure with them is the cost of
+// a launch, of the decode kernel's calling convention, and of the seal's lane
+// scatter, not a roofline.
+//
+// P1a: o = x + 1.0 over a few float32 values, one block.  Its bound is
+// nanoseconds (8 KB at [8, 128]); its time is the launch floor.
+//
+// P1b: the decode kernel's argument list (decode_attention_int8 in
+// decode_attention.cu: q, q_is_bf16, ring, one layer's kv and scales views,
+// ctx, B, N, D, NW, G, index, stream) with one window's copy in place of the
+// attention.  q is bfloat16, as in the probe and the decode step it stands
+// for; q_is_bf16 = 0 is refused.  Rows [0, 2) x {K, V} x heads [0, N) of window 0 are the first
+// 4 N [D, W] int8 blocks of the layer view [NW, B, 2, N, D, W], and their
+// scale rows the first 4 N rows of [NW, B, 2, N, W]: one contiguous range
+// each.  Block i of 4 N copies [D, W] block i and its scale row into shared
+// memory with cp.async (LDGSTS, asynchronous copies the compiler cannot drop),
+// waits for them, then writes its share of ctx = T(q + T(scales[0])), the
+// JAX kernel's o = q + bf16(sum(sbuf[0, 0, 0, :1])).  At cogview-base width
+// and batch 40 the copy is 1.31 MB of int8 and 80 KB of scales, q and ctx
+// 410 KB: about 0.54 us at 3.35 TB/s.
+//
+// P2: out[h, d, l] = int8(sum_g qc[g, h, d] * oh[g, l]) for lanes
+// lane0 <= l < lane0 + G and 0 elsewhere ([hb, Dc, W] int8), lane0 read from
+// a device int32 so a captured CUDA graph can replay the call.  The float to
+// int8 conversion truncates toward zero, as torch's .to(torch.int8) and XLA's
+// convert do on in-range values.  The TPU probe compared five Mosaic
+// lowerings of this one function (accum, bigsum, batched, fused2d, serial);
+// on Hopper there is one: a thread per 4 output lanes, the contraction only
+// for the G lanes of the group.  Bound: the 414 KB of qc, oh and out.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_pipeline.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int W = 128;  // tokens per cache window == threads of a P1b block
+
+__global__ void add_one_kernel(const float* __restrict__ x, float* __restrict__ o, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) o[i] = x[i] + 1.0f;
+}
+
+__global__ void __launch_bounds__(W)
+decode_convention_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kv,
+                         const float* __restrict__ scales, __nv_bfloat16* __restrict__ ctx,
+                         int total, int D) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* buf = reinterpret_cast<int8_t*>(smem);            // [D, W]
+  float* sbuf = reinterpret_cast<float*>(buf + D * W);       // [W]
+  const int tid = threadIdx.x;
+  const int blk = blockIdx.x;                                // (row * 2 + kv) * N + head
+
+  const int8_t* src = kv + (size_t)blk * D * W;
+  for (int i = tid; i < D * W / 16; i += W)
+    __pipeline_memcpy_async(buf + 16 * i, src + 16 * i, 16);
+  const float* ssrc = scales + (size_t)blk * W;
+  if (tid < W / 4) __pipeline_memcpy_async(sbuf + 4 * tid, ssrc + 4 * tid, 16);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  // scales[0] is the first value block 0 copied; the others read it through L2
+  const float s0 = blk == 0 ? sbuf[0] : __ldg(scales);
+  const float add = __bfloat162float(__float2bfloat16(s0));
+  const int chunk = (total + gridDim.x - 1) / gridDim.x;
+  const int end = min(total, (blk + 1) * chunk);
+  for (int i = blk * chunk + tid; i < end; i += W)
+    ctx[i] = __float2bfloat16(__bfloat162float(q[i]) + add);
+}
+
+__global__ void seal_scatter_kernel(const float* __restrict__ qc, const float* __restrict__ oh,
+                                    const int* __restrict__ lane0_ptr, int8_t* __restrict__ out,
+                                    int G, int rows, int width) {
+  // thread i: output row i / (width / 4) (= h * Dc + d), lanes [l4, l4 + 4)
+  const int quads = width / 4;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)rows * quads) return;
+  const int row = (int)(i / quads);
+  const int l4 = (int)(i % quads) * 4;
+  const int lane0 = *lane0_ptr;
+  char4 v = make_char4(0, 0, 0, 0);
+  int8_t* vb = reinterpret_cast<int8_t*>(&v);
+  for (int k = 0; k < 4; ++k) {
+    const int l = l4 + k;
+    if (l < lane0 || l >= lane0 + G) continue;
+    float acc = 0.0f;
+    for (int g = 0; g < G; ++g) acc += qc[(size_t)g * rows + row] * oh[(size_t)g * width + l];
+    vb[k] = (int8_t)__float2int_rz(acc);
+  }
+  reinterpret_cast<char4*>(out + (size_t)row * width)[l4 / 4] = v;
+}
+
+}  // namespace
+
+// P1a: o = x + 1.0 over n float32 values, one block of 256 threads
+extern "C" int probe_add_one(const float* x, float* o, int n, void* stream) {
+  add_one_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, o, n);
+  return (int)cudaGetLastError();
+}
+
+// P1b: K1's argument list; ring, NW, G and index are taken and not read, and
+// a float32 q (q_is_bf16 = 0) is refused
+extern "C" int probe_decode_convention(const void* q, int q_is_bf16, const float* ring,
+                                       const int8_t* kv, const float* scales, void* ctx, int B,
+                                       int N, int D, int NW, int G, int index, void* stream) {
+  (void)ring;
+  (void)NW;
+  (void)G;
+  (void)index;
+  if (!q_is_bf16) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)D * W + W * sizeof(float);
+  decode_convention_kernel<<<2 * 2 * N, W, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), kv, scales, static_cast<__nv_bfloat16*>(ctx),
+      B * N * D, D);
+  return (int)cudaGetLastError();
+}
+
+// P2: the seal's lane scatter; qc [G, hb, Dc], oh [G, width], out [hb, Dc, width]
+extern "C" int probe_seal_scatter(const float* qc, const float* oh, const int* lane0, int8_t* out,
+                                  int G, int hb, int Dc, int width, void* stream) {
+  const long long threads = (long long)hb * Dc * (width / 4);
+  const int block = 128;
+  const int grid = (int)((threads + block - 1) / block);
+  seal_scatter_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      qc, oh, lane0, out, G, hb * Dc, width);
+  return (int)cudaGetLastError();
+}

@@ -58,6 +58,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                     _L, _L, _L, _L, _L, _L, _L, _L,
                                     _I, _F, _U, _U, _F, _I, _P],
     },
+    "probes": {
+        # x, o, n, stream
+        "probe_add_one": [_P, _P, _I, _P],
+        # the decode kernels' arguments
+        "probe_decode_convention": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # qc, oh, lane0, out, G, hb, Dc, W, stream
+        "probe_seal_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

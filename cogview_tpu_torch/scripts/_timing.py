@@ -1,0 +1,89 @@
+"""Device choice and loop timing shared by the measurement entry points.
+
+A loop is timed two ways on a card: eagerly, each launch issued from Python
+as the port's decode step issues it, and as one CUDA graph captured from the
+same loop and replayed, one dispatch carrying every launch.  Both are CUDA
+events around whole runs after one warm run.  On the CPU only the eager
+loop exists, timed by the host clock; such a time describes the plain
+versions on the CPU, never the card.
+
+Capturing a graph passes through the kernel wrappers, which count each
+call once, but a capture records a node and runs nothing; replays run every
+recorded node and pass through no wrapper.  :func:`time_graph` therefore
+reports what the capture recorded and counts the launches its replays ran.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+
+def pick_device(name: str) -> torch.device:
+    """``cuda`` or ``cpu``; exits non-zero when ``cuda`` is asked for and
+    there is no card (there is no silent CPU path)."""
+    if name == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: these probes time the card's kernels; pass "
+                         "--device cpu to run the plain versions on the CPU")
+    return torch.device(name)
+
+
+def time_runs(device: torch.device, run: Callable[[], object], reps: int) -> float:
+    """Mean seconds of ``run()`` (an eager loop, or a graph's replay) over
+    ``reps`` runs after one warm run."""
+    run()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        return (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1000.0 / reps
+
+
+def capture(loop: Callable[[], torch.Tensor]) -> Tuple[torch.cuda.CUDAGraph, torch.Tensor]:
+    """``loop()`` captured once in a CUDA graph -> (graph, its output, which
+    every replay overwrites).  The loop's inputs must outlive the graph."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = loop()
+    return graph, out
+
+
+def time_graph(device: torch.device, loop: Callable[[], torch.Tensor], reps: int,
+               count: Callable[[], int] = lambda: 0) -> Optional[Dict]:
+    """``loop`` captured as one CUDA graph and timed over ``reps`` replays
+    after one warm replay -> {"seconds": mean seconds of one replay, "out":
+    the graph's output after the replays, "captured": the rise of
+    ``count()`` (a wrapper's launch counter) during the capture, i.e. the
+    kernel calls one replay runs, "replayed": captured times the replays
+    actually made}; None off the card."""
+    if device.type != "cuda":
+        return None
+    before = count()
+    graph, out = capture(loop)
+    captured = count() - before
+    replays = 0
+
+    def replay():
+        nonlocal replays
+        graph.replay()
+        replays += 1
+
+    seconds = time_runs(device, replay, reps)
+    torch.cuda.synchronize(device)
+    return {"seconds": seconds, "out": out, "captured": captured,
+            "replayed": replays * captured}
+
+
+def us_text(us: Optional[float]) -> str:
+    return "     n/a" if us is None else f"{us:8.2f}"

@@ -12,6 +12,8 @@ import torch
 
 from cogview_tpu_torch.ops import decode_attention as da
 from cogview_tpu_torch.ops import flash_attention as fa
+from cogview_tpu_torch.ops import probes
+from cogview_tpu_torch.scripts import _timing, launch_probe, seal_scatter_probe
 
 
 @pytest.fixture
@@ -220,6 +222,102 @@ def test_tiny_decode_card_matches_cpu(cuda_device, kv_cache):
         want_launches = (S - ctx) * cfg.num_layers if (dev, kv_cache) == ("cuda", "int4") else 0
         assert launched == want_launches
     assert (outs["cpu"] - outs["cuda"]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_add_one_kernel_matches_plain_version(cuda_device):
+    x = torch.randn((8, 128), generator=torch.Generator(device=cuda_device).manual_seed(0),
+                    device=cuda_device)
+    before = probes.add_one.launches
+    got = probes.add_one(x)
+    torch.cuda.synchronize()
+    assert probes.add_one.launches == before + 1
+    assert torch.equal(got, probes.add_one_reference(x))
+
+
+@pytest.mark.cuda
+def test_decode_convention_kernel_matches_plain_version(cuda_device):
+    """P1b at cogview-base head widths (3 layers, 2 windows, batch 4) on a
+    random cache, every layer view: bit-equal to its plain version."""
+    q, ring, kv, sc = launch_probe.convention_inputs(cuda_device, (3, 2, 4, 40, 64, 128), seed=5)
+    before = probes.decode_convention.launches
+    for li in range(3):
+        got = probes.decode_convention(q, ring[li], kv[li], sc[li], 0)
+        want = probes.decode_convention_reference(q, ring[li], kv[li], sc[li], 0)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+        assert not torch.equal(got, q)
+    assert probes.decode_convention.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_seal_scatter_kernel_matches_plain_version(cuda_device):
+    """P2 on the probe's inputs and on random lane0 in [0, 120] with the
+    matching one-hot: byte-equal, lane0 read on the device."""
+    qc, oh, l0 = seal_scatter_probe.probe_inputs(cuda_device)
+    cases = [(qc, oh, l0)]
+    rng = torch.Generator().manual_seed(3)
+    for lane0 in torch.randint(0, 121, (5,), generator=rng).tolist() + [0, 120]:
+        qc_r = torch.randint(-127, 127, qc.shape, generator=rng).float().to(cuda_device)
+        cases.append((qc_r, seal_scatter_probe.one_hot(lane0, cuda_device),
+                      torch.full((1, 1), lane0, dtype=torch.int32, device=cuda_device)))
+    before = probes.seal_scatter.launches
+    for qc_c, oh_c, l0_c in cases:
+        got = probes.seal_scatter(qc_c, oh_c, l0_c)
+        want = probes.seal_scatter_reference(qc_c, oh_c, l0_c)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int8 and torch.equal(got, want)
+    assert probes.seal_scatter.launches == before + len(cases)
+
+
+@pytest.mark.cuda
+def test_probe_loops_in_a_cuda_graph_match_eager(cuda_device):
+    """A P1a chain and a P2 loop captured in CUDA graphs and replayed give
+    the eager loops' results; capture counts each wrapper call once and
+    replays count nothing, and ``time_graph`` counts what its replays ran."""
+    x0 = torch.zeros((8, 128), device=cuda_device)
+    eager = launch_probe.tiny_chain(x0, 20)
+    before = probes.add_one.launches
+    graph, out = _timing.capture(lambda: launch_probe.tiny_chain(x0, 20))
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert probes.add_one.launches == before + 20
+    assert torch.equal(out, eager) and eager.sum().item() == 1024 * 20
+    timed = _timing.time_graph(cuda_device, lambda: launch_probe.tiny_chain(x0, 20), 2,
+                               lambda: probes.add_one.launches)
+    assert timed["captured"] == 20 and timed["replayed"] == 3 * 20
+    assert probes.add_one.launches == before + 40 and torch.equal(timed["out"], eager)
+
+    qc, oh, l0 = seal_scatter_probe.probe_inputs(cuda_device)
+    eager = seal_scatter_probe.seal_loop(qc, oh, l0, 5)
+    graph, out = _timing.capture(lambda: seal_scatter_probe.seal_loop(qc, oh, l0, 5))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    # the graph reads lane0 and the one-hot on the device at each replay
+    l0.fill_(40)
+    oh.copy_(seal_scatter_probe.one_hot(40, cuda_device))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, seal_scatter_probe.seal_loop(qc, oh, l0, 5,
+                                                         probes.seal_scatter_reference))
+    assert not torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    with pytest.raises(ValueError, match="float32"):
+        probes.add_one(torch.zeros((8, 128), dtype=torch.float16, device=cuda_device))
+    q, ring, kv, sc = launch_probe.convention_inputs(cuda_device, (1, 2, 1, 4, 64, 128), seed=0)
+    with pytest.raises(ValueError, match="batch"):
+        probes.decode_convention(q, ring[0], kv[0], sc[0], 0)
+    q, ring, kv, sc = launch_probe.convention_inputs(cuda_device, (1, 2, 2, 4, 64, 128), seed=0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        probes.decode_convention(q.float(), ring[0], kv[0], sc[0], 0)
+    qc, oh, l0 = seal_scatter_probe.probe_inputs(cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        probes.seal_scatter(qc, oh, l0.long())
 
 
 def _tree_to(t, device):

@@ -101,7 +101,10 @@ def test_port_imports_no_jax():
                                                         "cogview_tpu_torch."))
     assert {"cogview_tpu_torch.cli.generate", "cogview_tpu_torch.cli.serve",
             "cogview_tpu_torch.cli.pretrain", "cogview_tpu_torch.tokenization.unified",
-            "cogview_tpu_torch.data.loader", "cogview_tpu_torch.data.lmdb_io"} <= set(mods)
+            "cogview_tpu_torch.data.loader", "cogview_tpu_torch.data.lmdb_io",
+            "cogview_tpu_torch.ops.probes", "cogview_tpu_torch.scripts.launch_probe",
+            "cogview_tpu_torch.scripts.seal_scatter_probe",
+            "cogview_tpu_torch.scripts.decode_kernel_microbench"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
