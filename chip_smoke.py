@@ -18,16 +18,20 @@ result):
 4. flash kernel: against its plain PyTorch version at cogview-base head
    shapes (B=4, N=40, D=64) on strided q/k/v views of a fused QKV tensor,
    float32 and bfloat16: S=1058 (post-selection), S=1089 with a prefix that
-   crosses tiles, a ragged small S, and dropout 0.1; o and lse within
-   tolerance; the microseconds per call of both at S=1058, of
+   crosses tiles, a ragged small S, and dropout 0.1; and at D=16, 32, 128
+   (B=2, N=4, S=77, and 333 with dropout); o and lse within tolerance; the
+   microseconds per call of both at S=1058, of
    F.scaled_dot_product_attention with the same mask (a yardstick the port
    never calls), and the bound;
 5. flash backward kernels: dq (K4) and dk/dv (K5) against their plain
    versions at tutorial head shapes (B=16, N=16, S=1088, sep 0 and 64, the
-   latter with dropout 0.1) and cogview-base head shapes (B=4, N=40,
-   S=1058), float32 and bfloat16; two launches bit-equal; the microseconds
-   per call of both at the tutorial's training shape, with and without
-   dropout, and of one torch.autograd.grad through SDPA;
+   latter with dropout 0.1), cogview-base head shapes (B=4, N=40,
+   S=1058) and at D=16, 32, 128 (B=2, N=4, S=130, and 333 with dropout),
+   float32 and bfloat16; two launches bit-equal; the microseconds per call
+   of both at the tutorial's training shape, with and without dropout, and
+   of one torch.autograd.grad through SDPA with the boolean mask and with
+   is_causal; the SASS of every bf16 instantiation of both holds HGMMA
+   (wgmma) and LDGSTS (cp.async), and at D=64 they spill nothing;
 6. probes: P1a (add_one) on a random block and P2 (the seal's lane
    scatter) on the TPU probe's inputs and random lane0 in [0, 120]
    bit-equal to their plain versions; P1b's SASS holds its cp.async
@@ -86,6 +90,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -242,14 +247,19 @@ def phase_kernel(torch, da, packed: bool):
 
 
 def phase_flash_kernel(torch, fa):
-    """Flash kernel vs plain version at cogview-base head shapes -> summary."""
+    """Flash kernel vs plain version at cogview-base head shapes (D = 64),
+    and at small shapes for the other head widths -> summary."""
     dev = torch.device("cuda")
-    B, N, D = 4, 40, 64
     gen = torch.Generator(device=dev).manual_seed(2)
     worst, times = 0.0, {}
-    # (S, sep, dropout rate): post-selection's length, a prefix that crosses
-    # the 64-row tiles, a ragged small S, and dropout with a fixed seed
-    for S, sep, rate in ((1058, 0, 0.0), (1089, 100, 0.0), (77, 5, 0.0), (333, 40, 0.1)):
+    # (B, N, D, S, sep, dropout rate): post-selection's length, a prefix that
+    # crosses the 64-row tiles, a ragged small S, and dropout with a fixed
+    # seed; then two small cases at each other head width
+    cases = [(4, 40, 64, 1058, 0, 0.0), (4, 40, 64, 1089, 100, 0.0), (4, 40, 64, 77, 5, 0.0),
+             (4, 40, 64, 333, 40, 0.1)]
+    cases += [(2, 4, d, S, sep, rate) for d in (16, 32, 128)
+              for S, sep, rate in ((77, 5, 0.0), (333, 40, 0.1))]
+    for B, N, D, S, sep, rate in cases:
         qkv32 = torch.randn((B, S, 3, N * D), generator=gen, device=dev)
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             # strided views of a fused projection, as the model passes them
@@ -262,11 +272,11 @@ def phase_flash_kernel(torch, fa):
             err = (o.float() - ro.float()).abs().max().item()
             lerr = (lse - rlse).abs().max().item()
             name = str(dtype)[6:]
-            print(f"flash kernel {name} S={S} sep={sep} dropout={rate}: o max_abs_err="
-                  f"{err:.3e} (tol {tol:g}), lse max_abs_err={lerr:.3e} (tol 1e-4)")
+            print(f"flash kernel {name} B={B} N={N} D={D} S={S} sep={sep} dropout={rate}: o "
+                  f"max_abs_err={err:.3e} (tol {tol:g}), lse max_abs_err={lerr:.3e} (tol 1e-4)")
             _check(o.dtype == dtype and o.shape == (B, S, N, D) and lse.shape == (B, N, S),
                    "flash o/lse dtype or shape")
-            _check(err <= tol and lerr <= 1e-4, f"flash kernel differs at S={S} {name}")
+            _check(err <= tol and lerr <= 1e-4, f"flash kernel differs at D={D} S={S} {name}")
             worst = max(worst, err)
             if S == 1058:
                 us_k = _device_time_us(torch, lambda: fa.flash_attention(q, k, v, sep))
@@ -303,12 +313,12 @@ def _sdpa_time_us(torch, q, k, v, sep):
                                                                          attn_mask=mask))
 
 
-def _backward_inputs(torch, fa, dtype, b, s, n, sep, rate, gen):
+def _backward_inputs(torch, fa, dtype, b, s, n, sep, rate, gen, d=64):
     """Strided q/k/v views of a fused QKV tensor, dO, and the forward
     kernel's lse with delta = rowsum(dO * O) -> (args, dropout kwargs)."""
-    qkv = torch.randn((b, s, 3, n * 64), generator=gen, device="cuda").to(dtype)
-    q, k, v = (qkv[:, :, i].reshape(b, s, n, 64) for i in range(3))
-    do = torch.randn((b, s, n, 64), generator=gen, device="cuda").to(dtype)
+    qkv = torch.randn((b, s, 3, n * d), generator=gen, device="cuda").to(dtype)
+    q, k, v = (qkv[:, :, i].reshape(b, s, n, d) for i in range(3))
+    do = torch.randn((b, s, n, d), generator=gen, device="cuda").to(dtype)
     kw = dict(dropout_rate=rate, dropout_seed=2024 if rate else None)
     with torch.no_grad():
         o, lse = fa.flash_attention(q, k, v, sep, **kw)
@@ -327,12 +337,15 @@ def phase_flash_backward(torch, fa):
     are bfloat16)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst, rel_worst = 0.0, 0.0
-    # (B, N, S, sep, rate): the tutorial's training shape, with a prefix on
-    # a tile edge and dropout, and cogview-base's post-selection length
-    for b, n, s, sep, rate in ((16, 16, 1088, 0, 0.0), (16, 16, 1088, 64, 0.1),
-                               (4, 40, 1058, 0, 0.0)):
+    # (B, N, D, S, sep, rate): the tutorial's training shape, with a prefix
+    # on a tile edge and dropout, and cogview-base's post-selection length;
+    # then two small cases at each other head width
+    cases = [(16, 16, 64, 1088, 0, 0.0), (16, 16, 64, 1088, 64, 0.1), (4, 40, 64, 1058, 0, 0.0)]
+    cases += [(2, 4, d, s, sep, rate) for d in (16, 32, 128)
+              for s, sep, rate in ((130, 5, 0.0), (333, 64, 0.1))]
+    for b, n, d, s, sep, rate in cases:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            args, kw = _backward_inputs(torch, fa, dtype, b, s, n, sep, rate, gen)
+            args, kw = _backward_inputs(torch, fa, dtype, b, s, n, sep, rate, gen, d)
             dq = fa.flash_bwd_dq(*args, sep, **kw)
             dk, dv = fa.flash_bwd_dkv(*args, sep, **kw)
             dq2 = fa.flash_bwd_dq(*args, sep, **kw)
@@ -346,16 +359,17 @@ def phase_flash_backward(torch, fa):
             errs = []
             for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
                                     ("dv", dv, want_dv)):
-                _check(got.dtype == dtype and got.shape == (b, s, n, 64),
+                _check(got.dtype == dtype and got.shape == (b, s, n, d),
                        f"{name} dtype or shape")
                 err = (got.float() - want.float()).abs().max().item()
                 scale = want.float().abs().max().item()
                 errs.append(f"{name} {err:.3e} ({err / scale:.2e} of max {scale:.3e})")
-                _check(err <= tol * scale, f"flash {name} kernel differs at B={b} N={n} S={s} "
-                       f"sep={sep} {dtype}: {err} > {tol} x {scale}")
+                _check(err <= tol * scale, f"flash {name} kernel differs at B={b} N={n} D={d} "
+                       f"S={s} sep={sep} {dtype}: {err} > {tol} x {scale}")
                 worst, rel_worst = max(worst, err), max(rel_worst, err / scale)
-            print(f"flash backward {str(dtype)[6:]} B={b} N={n} S={s} sep={sep} dropout={rate}: "
-                  f"max_abs_err {', '.join(errs)} (tol {tol:g} x max); repeat bit-equal={same}")
+            print(f"flash backward {str(dtype)[6:]} B={b} N={n} D={d} S={s} sep={sep} "
+                  f"dropout={rate}: max_abs_err {', '.join(errs)} (tol {tol:g} x max); repeat "
+                  f"bit-equal={same}")
             _check(same, "two launches of the backward kernels differ")
             del args, dq, dk, dv, dq2, dk2, dv2, want_dq, want_dk, want_dv
 
@@ -380,8 +394,9 @@ def phase_flash_backward(torch, fa):
               f"bound {1000.0 * bounds[name][0]:.2f} us ({bounds[name][1]})")
     del args
 
-    # the yardstick: one torch.autograd.grad through SDPA on the same inputs
-    # without dropout, against dq + dk/dv without dropout
+    # the yardsticks: one torch.autograd.grad through SDPA on the same inputs
+    # without dropout, with the boolean mask and with is_causal (the same
+    # function at sep 0), against dq + dk/dv without dropout
     import torch.nn.functional as F
 
     args, kw = _backward_inputs(torch, fa, torch.bfloat16, 16, 1088, 16, 0, 0.0, gen)
@@ -389,17 +404,60 @@ def phase_flash_backward(torch, fa):
               _device_time_us(torch, lambda: fa.flash_bwd_dkv(*args, 0))]
     qt, kt, vt, mask = _sdpa_args(torch, *args[:3], 0)
     qt, kt, vt = (t.detach().contiguous().requires_grad_() for t in (qt, kt, vt))
-    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     dot = args[3].transpose(1, 2)
-    us_l = _device_time_us(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
-                                                              retain_graph=True))
+    library = {}
+    for name, sdpa_kw in (("boolean mask", dict(attn_mask=mask)),
+                          ("is_causal", dict(is_causal=True))):
+        o = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+        library[name] = _device_time_us(torch, lambda: torch.autograd.grad(
+            o, (qt, kt, vt), dot, retain_graph=True))
+        del o
+    shares = [bounds[k][0] * 1000.0 / us for k, us in zip(("dq", "dkv"), nodrop)]
     print(f"flash backward without dropout, bf16 B=16 N=16 S=1088: dq {nodrop[0]:.1f} + dk/dv "
-          f"{nodrop[1]:.1f} = {sum(nodrop):.1f} us/call; torch.autograd.grad through "
-          f"scaled_dot_product_attention with the boolean mask {us_l:.1f} us/call (CUDA events, "
-          f"median of 25)")
-    del args, o, qt, kt, vt
+          f"{nodrop[1]:.1f} = {sum(nodrop):.1f} us/call (bound shares {shares[0]:.3f}, "
+          f"{shares[1]:.3f}); torch.autograd.grad through scaled_dot_product_attention with the "
+          f"boolean mask {library['boolean mask']:.1f} us/call, with is_causal "
+          f"{library['is_causal']:.1f} us/call (CUDA events, median of 25); kernels / boolean-mask "
+          f"call = {sum(nodrop) / library['boolean mask']:.3f}")
+    del args, qt, kt, vt
     return {"max_abs_err": worst, "rel_err": rel_worst, "times": times, "bounds": bounds,
-            "library_us": us_l, "nodrop_us": nodrop}
+            "library_us": library["boolean mask"], "library_causal_us": library["is_causal"],
+            "nodrop_us": nodrop}
+
+
+def _cuobjdump(so, flag):
+    from cogview_tpu_torch.ops import _kernels
+
+    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, flag, str(so)], capture_output=True, text=True,
+                          check=True).stdout
+
+
+def _check_tensor_core_backward(so) -> None:
+    """The bf16 backward kernels (K4, K5) run their products on the tensor
+    cores and copy asynchronously: each instantiation's SASS holds HGMMA and
+    UTMALDG or LDGSTS; and at D = 64 neither spills (no stack, no local
+    memory in cuobjdump's resource usage)."""
+    found = {}
+    for section in _cuobjdump(so, "-sass").split("Function : ")[1:]:
+        name = section.split(None, 1)[0]
+        if "wgmma_kernel" in name:
+            found[name] = (section.count("HGMMA"),
+                           section.count("UTMALDG") + section.count("LDGSTS"))
+    usage = {}
+    for fn, line in re.findall(r"Function (\S+?):\s*\n\s*(REG:.*)", _cuobjdump(so, "-res-usage")):
+        if "wgmma_kernel" in fn:
+            usage[fn] = {k: int(v) for k, v in re.findall(r"(REG|STACK|LOCAL):(\d+)", line)}
+    d64 = {fn: u for fn, u in usage.items() if "Li64E" in fn}
+    print(f"flash backward SASS (cuobjdump): {len(found)} bf16 instantiations, HGMMA "
+          f"{sorted({h for h, _ in found.values()})}, UTMALDG + LDGSTS "
+          f"{sorted({c for _, c in found.values()})}; registers at D = 64 "
+          f"{sorted(u['REG'] for u in d64.values())}, stack and local bytes "
+          f"{sorted({u['STACK'] + u['LOCAL'] for u in d64.values()})}")
+    _check(len(found) == 16 and all(h > 0 and c > 0 for h, c in found.values()),
+           "a bf16 backward kernel lacks tensor-core products or asynchronous copies")
+    _check(len(d64) == 4 and all(u["STACK"] == 0 and u["LOCAL"] == 0 for u in d64.values()),
+           "a bf16 backward kernel at D = 64 spills")
 
 
 def phase_probes(torch, probes, ssp):
@@ -438,13 +496,8 @@ def phase_probes(torch, probes, ssp):
 def _check_async_copy(so) -> None:
     """P1b's copy must not be optimised away: its kernel in the built
     library holds LDGSTS (cp.async) in its SASS."""
-    from cogview_tpu_torch.ops import _kernels
-
-    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True,
-                          check=True).stdout
     found = {}
-    for section in sass.split("Function : ")[1:]:
+    for section in _cuobjdump(so, "-sass").split("Function : ")[1:]:
         name = section.split(None, 1)[0]
         if "decode_convention_kernel" in name:
             found[name] = section.count("LDGSTS")
@@ -1090,6 +1143,7 @@ def main() -> int:
     k2 = phase_kernel(torch, da, packed=True)
     k3 = phase_flash_kernel(torch, fa)
     k45 = phase_flash_backward(torch, fa)
+    _check_tensor_core_backward(sos[names.index("flash_attention")])
     # phase 6: the probes against their plain versions, then the three
     # measurement entry points
     probe_err = phase_probes(torch, probes, ssp)
@@ -1198,7 +1252,10 @@ def main() -> int:
         # not against one entry's ms (timed with dropout 0.1)
         "library_ms": k45["library_us"] / 1000.0,
         "library_covers": "dq+dkv",
+        "library_causal_ms": k45["library_causal_us"] / 1000.0,
         "nodrop_ms": k45["nodrop_us"][i] / 1000.0,
+        "design": "wgmma",
+        "bound_share": k45["bounds"][name][0] / (k45["times"][name][0] / 1000.0),
     } for i, (name, line, n) in enumerate((("dq", 212, train_launches[1]),
                                            ("dkv", 249, train_launches[2])))] + probe_rows
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -14,7 +14,8 @@
 // hash_u32(seed, qpos, kpos, b * N + n) >= threshold in wrapping uint32
 // arithmetic, bit for bit the JAX package's ops/hash_prng.py.
 //
-// Layout: q, k, v [B, S, N, D] with D = 64, read through batch and sequence
+// Layout: q, k, v [B, S, N, D] with D in {16, 32, 64, 128} (with_head_dim
+// below; every kernel is a template on D), read through batch and sequence
 // strides (the slices of a fused QKV projection are not contiguous; the
 // wrapper passes their strides, so nothing is copied); o [B, S, N, D]
 // contiguous; lse [B, N, S].
@@ -23,39 +24,45 @@
 // blocks in VMEM.  Here one block of 128 threads owns one (b, n, 64-row
 // query tile), and the blocks run in parallel.  The query tile stays in
 // shared memory; 64-key K and V tiles are staged through shared memory one
-// after the other (64 KB in all).  Thread (ty, tx) owns rows 4ty..4ty+3 and
-// columns {4tx..4tx+3, 32+4tx..32+4tx+3} of each 64 x 64 score tile, and the
-// same rows and head dims of the output, so the online-softmax state
-// (m, l and a 4 x 8 accumulator) stays in registers.  Row maxima and sums
-// are reduced over the 8 threads of a row with warp shuffles.  Key tiles
-// wholly above the diagonal and past sep are skipped (the TPU's `last`);
-// the ragged edge (positions >= S) is zero-filled and masked.  Query tiles
-// are issued longest first to even out the causal triangle.
+// after the other (64 KB in all at D = 64).  Thread (ty, tx) owns rows
+// 4ty..4ty+3 and columns Cols<64>::of(tx, j) = {4tx..4tx+3, 32+4tx..32+4tx+3}
+// of each 64 x 64 score tile, and rows 4ty..4ty+3 and head dims
+// Cols<D>::of(tx, j) (4 x D/8 of them) of the output, so the online-softmax
+// state (m, l and a 4 x D/8 accumulator) stays in registers.  Row maxima
+// and sums are reduced over the 8 threads of a row with warp shuffles.  Key
+// tiles wholly above the diagonal and past sep are skipped (the TPU's
+// `last`); the ragged edge (positions >= S) is zero-filled and masked.
+// Query tiles are issued longest first to even out the causal triangle.
 //
 // What bounds it on an H100: arithmetic.  Both products run as float32 FMA
 // on the CUDA cores (67 TFLOP/s peak), not on the tensor cores (989 TFLOP/s
 // bf16).  At post-selection's S = 1058, B = 4, N = 40 the causal half is
 // about 23 GFLOP per layer, while q, k, v and o are 87 MB in bf16: about
 // 260 operations per byte.  Each thread does 32 FMA for every 3 16-byte
-// shared-memory loads.  Left for later: mma.sync / wgmma tensor-core dots
-// for bf16 (float32 inputs need float32 products), cp.async or TMA double
-// buffering of the K/V tiles, and a separate unmasked path for tiles below
-// the diagonal.
+// shared-memory loads.  Left for later: wgmma tensor-core dots for bf16 as
+// the backward below has them (float32 inputs need float32 products),
+// asynchronous double buffering of the K/V tiles, and a separate unmasked
+// path for tiles below the diagonal.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int D = 64;         // head dim
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 128;  // 16 row groups x 8 column groups
+constexpr int THREADS = 128;  // 16 row groups x 8 column groups; one warpgroup
 constexpr float MASK_VALUE = -10000.0f;
 static_assert(BQ == BK, "load_transposed writes [D][BQ] tiles for both Q and K");
-constexpr size_t SMEM_BYTES = sizeof(float) * (D * BQ + D * BK + BK * D + BK * BQ);
+
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  return sizeof(float) * (D * BQ + D * BK + BK * D + BK * BQ);
+}
 
 struct Params {
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss;  // batch / sequence strides, elements
@@ -77,8 +84,8 @@ __device__ __forceinline__ uint32_t hash_u32(uint32_t seed, uint32_t c0, uint32_
   return x;
 }
 
-// four consecutive elements <-> float4, and the rounding of a probability
-// to v's dtype
+// two or four consecutive elements <-> floats, and the rounding of a
+// probability to v's dtype
 template <typename T> struct Io;
 
 template <> struct Io<float> {
@@ -87,6 +94,9 @@ template <> struct Io<float> {
   }
   static __device__ __forceinline__ void store4(float* p, float4 x) {
     *reinterpret_cast<float4*>(p) = x;
+  }
+  static __device__ __forceinline__ void store2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
   }
   static __device__ __forceinline__ float round(float x) { return x; }
 };
@@ -108,17 +118,54 @@ template <> struct Io<__nv_bfloat16> {
     raw.y = *reinterpret_cast<const uint32_t*>(&hi);
     *reinterpret_cast<uint2*>(p) = raw;
   }
+  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
   static __device__ __forceinline__ float round(float x) {
     return __bfloat162float(__float2bfloat16(x));
   }
 };
 
-// column (or head dim) j of thread tx: 4tx..4tx+3, then 32+4tx..32+4tx+3
-__device__ __forceinline__ int col_of(int tx, int j) { return (j < 4 ? 0 : 28) + 4 * tx + j; }
+// The columns thread tx (of the 8 in a row) owns in a tile W wide: N of
+// them, in groups of VW consecutive ones 8 VW apart.  W = 64 (a score tile,
+// or D = 64): {4tx..4tx+3, 32+4tx..32+4tx+3}.
+template <int W> struct Cols {
+  static constexpr int N = W / 8;
+  static constexpr int VW = N < 4 ? N : 4;
+  static __device__ __forceinline__ int of(int tx, int j) {
+    return (j / VW) * (8 * VW) + VW * tx + j % VW;
+  }
+};
+
+// VW consecutive floats of shared memory
+template <int VW>
+__device__ __forceinline__ void lds(float* out, const float* p) {
+  if constexpr (VW == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    out[0] = x.x, out[1] = x.y, out[2] = x.z, out[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    out[0] = x.x, out[1] = x.y;
+  }
+}
+
+// a thread's columns of one row, Cols<W> over a row of W values
+template <typename T, int W>
+__device__ __forceinline__ void store_row(T* row, const float (&x)[Cols<W>::N], int tx) {
+  using C = Cols<W>;
+#pragma unroll
+  for (int g = 0; g < C::N / C::VW; ++g) {
+    T* dst = row + C::of(tx, g * C::VW);
+    if constexpr (C::VW == 4)
+      Io<T>::store4(dst, make_float4(x[4 * g], x[4 * g + 1], x[4 * g + 2], x[4 * g + 3]));
+    else
+      Io<T>::store2(dst, x[2 * g], x[2 * g + 1]);
+  }
+}
 
 // rows [0, BQ) of a [S, ...] operand starting at row r0, as a transposed
 // [D][BQ] float tile (zero past S)
-template <typename T>
+template <typename T, int D>
 __device__ __forceinline__ void load_transposed(float* dst, const T* src, long long row_stride,
                                                 int r0, int S) {
   for (int i = threadIdx.x; i < BQ * D / 4; i += THREADS) {
@@ -132,10 +179,25 @@ __device__ __forceinline__ void load_transposed(float* dst, const T* src, long l
   }
 }
 
-template <typename T, bool DROPOUT>
+// rows [0, BK) of a [S, ...] operand starting at row r0, as a [BK][D] float
+// tile (zero past S)
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, long long row_stride, int r0,
+                                          int S) {
+  for (int i = threadIdx.x; i < BK * D / 4; i += THREADS) {
+    const int r = i / (D / 4), d4 = i % (D / 4);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < S) x = Io<T>::load4(src + (long long)(r0 + r) * row_stride + 4 * d4);
+    *reinterpret_cast<float4*>(&dst[r * D + 4 * d4]) = x;
+  }
+}
+
+template <typename T, int D, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, const Params p) {
+  using CK = Cols<BK>;  // the score tile's key columns
+  using CD = Cols<D>;   // the output's head dims
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;            // [D][BQ]  query tile, transposed
   float* Ks = Qs + D * BQ;     // [D][BK]  key tile, transposed
@@ -154,15 +216,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* kb = k + (long long)b * p.k_sb + (long long)n * D;
   const T* vb = v + (long long)b * p.v_sb + (long long)n * D;
 
-  load_transposed<T>(Qs, qb, p.q_ss, q0, S);
+  load_transposed<T, D>(Qs, qb, p.q_ss, q0, S);
 
-  float m[4], l[4], acc[4][8];
+  float m[4], l[4], acc[4][CD::N];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < CD::N; ++j) acc[i][j] = 0.0f;
   }
 
   // keys any row of this tile can see: [0, max(last row + 1, sep)) within S
@@ -173,7 +235,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's reads of Ks, Vs and Ps are done
-    load_transposed<T>(Ks, kb, p.k_ss, k0, S);
+    load_transposed<T, D>(Ks, kb, p.k_ss, k0, S);
     for (int i = tid; i < BK * D / 4; i += THREADS) {
       const int r = i / (D / 4), d4 = i % (D / 4);
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -208,7 +270,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int kpos = k0 + col_of(tx, j);
+        const int kpos = k0 + CK::of(tx, j);
         const bool vis = (kpos <= qpos || kpos < p.sep) && kpos < S && qpos < S;
         s[i][j] = vis ? s[i][j] * p.scale : MASK_VALUE;
         mx = fmaxf(mx, s[i][j]);
@@ -230,11 +292,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       l[i] = l[i] * alpha + rs;
       m[i] = m_new;
 #pragma unroll
+      for (int j = 0; j < CD::N; ++j) acc[i][j] *= alpha;
+#pragma unroll
       for (int j = 0; j < 8; ++j) {
-        acc[i][j] *= alpha;
         float pj = s[i][j];
         if (DROPOUT) {
-          const uint32_t h = hash_u32(p.seed, (uint32_t)qpos, (uint32_t)(k0 + col_of(tx, j)), bn);
+          const uint32_t h = hash_u32(p.seed, (uint32_t)qpos, (uint32_t)(k0 + CK::of(tx, j)), bn);
           pj = h >= p.threshold ? pj / p.keep : 0.0f;
         }
         s[i][j] = Io<T>::round(pj);
@@ -242,7 +305,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<float4*>(&Ps[col_of(tx, j) * BQ + 4 * ty]) =
+      *reinterpret_cast<float4*>(&Ps[CK::of(tx, j) * BQ + 4 * ty]) =
           make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
     __syncthreads();
 
@@ -250,14 +313,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
       const float4 pa = *reinterpret_cast<const float4*>(&Ps[c * BQ + 4 * ty]);
-      const float4 va = *reinterpret_cast<const float4*>(&Vs[c * D + 4 * tx]);
-      const float4 vc = *reinterpret_cast<const float4*>(&Vs[c * D + 32 + 4 * tx]);
+      float vv[CD::N];
+#pragma unroll
+      for (int g = 0; g < CD::N / CD::VW; ++g)
+        lds<CD::VW>(&vv[g * CD::VW], &Vs[c * D + CD::of(tx, g * CD::VW)]);
       const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
-      const float vv[8] = {va.x, va.y, va.z, va.w, vc.x, vc.y, vc.z, vc.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int j = 0; j < CD::N; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
     }
   }
 
@@ -265,11 +329,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + 4 * ty + i;
     if (r >= S) continue;
-    T* orow = o + (((long long)b * S + r) * p.N + n) * D;
-    Io<T>::store4(orow + 4 * tx, make_float4(acc[i][0] / l[i], acc[i][1] / l[i],
-                                             acc[i][2] / l[i], acc[i][3] / l[i]));
-    Io<T>::store4(orow + 32 + 4 * tx, make_float4(acc[i][4] / l[i], acc[i][5] / l[i],
-                                                  acc[i][6] / l[i], acc[i][7] / l[i]));
+    float out[CD::N];
+#pragma unroll
+    for (int j = 0; j < CD::N; ++j) out[j] = acc[i][j] / l[i];
+    store_row<T, D>(o + (((long long)b * S + r) * p.N + n) * D, out, tx);
     if (tx == 0) lse[((long long)b * p.N + n) * S + r] = m[i] + logf(l[i]);
   }
 }
@@ -288,32 +351,31 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // outputs in the input dtype.  Query rows at or past S contribute nothing
 // (zero dO, zero delta, masked); keys at or past S are masked.
 //
-// Design: the TPU runs the two passes as two pallas_calls over grids
-// (B, N, Sq/bq) and (B, N, Sk/bk), so every output element has one owner
-// and no sum crosses grid cells.  The CUDA kernels keep that split: no
-// atomics, so two launches on the same inputs give the same bits.
+// The TPU runs the two passes as two pallas_calls over grids (B, N, Sq/bq)
+// and (B, N, Sk/bk), so every output element has one owner and no sum
+// crosses grid cells.  The CUDA kernels keep that split: no atomics, so two
+// launches on the same inputs give the same bits.  Each pass recomputes s
+// and dp.  float32 inputs run the FMA kernels right below (float32 inputs
+// need float32 products); bfloat16 inputs run the tensor-core kernels after
+// them.
+//
+// float32 design (FMA on the CUDA cores, 67 TFLOP/s peak):
 //  - dq: one 128-thread block per (b, n, 64-row query tile), the layout of
 //    the forward (thread (ty, tx) owns rows 4ty..4ty+3 and columns
-//    col_of(tx, j)).  Q and dO stay in shared memory, transposed; each
+//    Cols<W>::of(tx, j)).  Q and dO stay in shared memory, transposed; each
 //    64-key tile of K (transposed and by rows) and V (transposed) is staged
 //    in turn, s and dp are formed together, ds goes through shared memory,
 //    and the dq accumulator stays in registers.  Key tiles stop at the
-//    forward's bound (the diagonal, or sep).  96 KB of shared memory.
+//    forward's bound (the diagonal, or sep).  96 KB of shared memory at
+//    D = 64.
 //  - dk/dv: one 128-thread block per (b, n, 64-key tile).  K and V stay in
 //    shared memory, transposed; the block walks the query tiles from the
 //    first that can see one of its keys (0 if the tile holds prefix keys
 //    < sep, else the diagonal's tile) to the end, forming the transposed
-//    score tile (rows are keys), and keeps both accumulators (2 x 4 x 8 per
-//    thread) in registers.  lse and delta of the query tile are staged in
-//    shared memory.  130 KB of shared memory: one block per SM.
-//
-// What bounds them on an H100: arithmetic, as the forward.  The dq pass
-// does three 64-deep products per tile pair and the dk/dv pass four, all as
-// float32 FMA on the CUDA cores (67 TFLOP/s peak) rather than the tensor
-// cores.  Left for later: mma.sync / wgmma dots for bf16, cp.async or TMA
-// staging of the next tile while the current one is multiplied, more warps
-// per block (one 128-thread block per SM leaves the dk/dv pass latency
-// bound), and an unmasked path below the diagonal.
+//    score tile (rows are keys), and keeps both accumulators (2 x 4 x D/8
+//    per thread) in registers.  lse and delta of the query tile are staged
+//    in shared memory.  130 KB of shared memory at D = 64 (225 KB at
+//    D = 128): one block per SM.
 // ------------------------------------------------------------------------
 
 struct BwdParams {
@@ -323,38 +385,33 @@ struct BwdParams {
   uint32_t seed, threshold;
 };
 
-constexpr size_t DQ_SMEM_BYTES = sizeof(float) * (6 * D * BQ);
-constexpr size_t DKV_SMEM_BYTES = sizeof(float) * (8 * D * BQ + 2 * BQ);
-static_assert(D == BQ, "the backward tiles are square");
-
-// rows [0, BK) of a [S, ...] operand starting at row r0, as a [BK][D] float
-// tile (zero past S)
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, long long row_stride, int r0,
-                                          int S) {
-  for (int i = threadIdx.x; i < BK * D / 4; i += THREADS) {
-    const int r = i / (D / 4), d4 = i % (D / 4);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < S) x = Io<T>::load4(src + (long long)(r0 + r) * row_stride + 4 * d4);
-    *reinterpret_cast<float4*>(&dst[r * D + 4 * d4]) = x;
-  }
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(float) * (5 * D * BQ + BK * BQ);
+}
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(float) * (6 * D * BQ + 2 * BQ * BK + 2 * BQ);
 }
 
-// acc[i][j] += sum_c A[c][4ty + i] * B[c][col_of(tx, j)] over c in [0, 64),
-// for two 64 x 64 float tiles held with the summed index first
-__device__ __forceinline__ void tile_product(float (&acc)[4][8], const float* A, const float* Bm,
-                                             int ty, int tx) {
+// acc[i][j] += sum_c A[c][4ty + i] * B[c][Cols<W>::of(tx, j)] over c in
+// [0, KLEN), A held [KLEN][64] and B [KLEN][W], the summed index first
+template <int KLEN, int W>
+__device__ __forceinline__ void tile_product(float (&acc)[4][Cols<W>::N], const float* A,
+                                             const float* Bm, int ty, int tx) {
+  using C = Cols<W>;
 #pragma unroll 4
-  for (int c = 0; c < 64; ++c) {
+  for (int c = 0; c < KLEN; ++c) {
     const float4 a = *reinterpret_cast<const float4*>(&A[c * 64 + 4 * ty]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&Bm[c * 64 + 4 * tx]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&Bm[c * 64 + 32 + 4 * tx]);
+    float bv[C::N];
+#pragma unroll
+    for (int g = 0; g < C::N / C::VW; ++g)
+      lds<C::VW>(&bv[g * C::VW], &Bm[c * W + C::of(tx, g * C::VW)]);
     const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < C::N; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 
@@ -363,28 +420,29 @@ __device__ __forceinline__ void store_patch_transposed(float* dst, const float (
                                                        int tx) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
-    *reinterpret_cast<float4*>(&dst[col_of(tx, j) * 64 + 4 * ty]) =
+    *reinterpret_cast<float4*>(&dst[Cols<64>::of(tx, j) * 64 + 4 * ty]) =
         make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
 }
 
-template <typename T>
+template <typename T, int D>
 __device__ __forceinline__ void store_patch(T* base, long long row_stride, int r0, int S,
-                                            const float (&x)[4][8], int ty, int tx) {
+                                            const float (&x)[4][Cols<D>::N], int ty, int tx) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + 4 * ty + i;
     if (r >= S) continue;
-    T* row = base + (long long)r * row_stride;
-    Io<T>::store4(row + 4 * tx, make_float4(x[i][0], x[i][1], x[i][2], x[i][3]));
-    Io<T>::store4(row + 32 + 4 * tx, make_float4(x[i][4], x[i][5], x[i][6], x[i][7]));
+    store_row<T, D>(base + (long long)r * row_stride, x[i], tx);
   }
 }
 
-template <typename T, bool DROPOUT>
+template <int D, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, const BwdParams p) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, const BwdParams p) {
+  using T = float;  // bfloat16 inputs run the tensor-core kernels below
+  using CK = Cols<BK>;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;            // [D][BQ]  query tile, transposed
   float* Os = Qs + D * BQ;     // [D][BQ]  dO tile, transposed
@@ -408,17 +466,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const float* lse_b = lse + ((long long)b * p.N + n) * S;
   const float* delta_b = delta + ((long long)b * p.N + n) * S;
 
-  load_transposed<T>(Qs, qb, p.q_ss, q0, S);
-  load_transposed<T>(Os, ob, p.o_ss, q0, S);
+  load_transposed<T, D>(Qs, qb, p.q_ss, q0, S);
+  load_transposed<T, D>(Os, ob, p.o_ss, q0, S);
 
-  float lse_r[4], delta_r[4], acc[4][8];
+  float lse_r[4], delta_r[4], acc[4][Cols<D>::N];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + 4 * ty + i;
     lse_r[i] = r < S ? lse_b[r] : 0.0f;
     delta_r[i] = r < S ? delta_b[r] : 0.0f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < Cols<D>::N; ++j) acc[i][j] = 0.0f;
   }
 
   // the forward's bound: keys any row of this tile can see
@@ -429,9 +487,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's reads of Ks, Vs, Kr and Ds are done
-    load_transposed<T>(Ks, kb, p.k_ss, k0, S);
-    load_transposed<T>(Vs, vb, p.v_ss, k0, S);
-    load_rows<T>(Kr, kb, p.k_ss, k0, S);
+    load_transposed<T, D>(Ks, kb, p.k_ss, k0, S);
+    load_transposed<T, D>(Vs, vb, p.v_ss, k0, S);
+    load_rows<T, D>(Kr, kb, p.k_ss, k0, S);
     __syncthreads();
 
     // s = q . k and dp = dO . v over D, float32 sums
@@ -440,15 +498,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.0f;
-    tile_product(s, Qs, Ks, ty, tx);
-    tile_product(dp, Os, Vs, ty, tx);
+    tile_product<D, BK>(s, Qs, Ks, ty, tx);
+    tile_product<D, BK>(dp, Os, Vs, ty, tx);
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qpos = q0 + 4 * ty + i;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int kpos = k0 + col_of(tx, j);
+        const int kpos = k0 + CK::of(tx, j);
         const bool vis = (kpos <= qpos || kpos < p.sep) && kpos < S && qpos < S;
         const float pr = expf((vis ? s[i][j] * p.scale : MASK_VALUE) - lse_r[i]);
         float pd = pr;
@@ -462,19 +520,21 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     store_patch_transposed(Ds, s, ty, tx);
     __syncthreads();
 
-    tile_product(acc, Ds, Kr, ty, tx);  // dq += ds . k
+    tile_product<BK, D>(acc, Ds, Kr, ty, tx);  // dq += ds . k
   }
 
-  store_patch<T>(dq + (long long)b * S * p.N * D + (long long)n * D, (long long)p.N * D, q0, S,
-                 acc, ty, tx);
+  store_patch<T, D>(dq + (long long)b * S * p.N * D + (long long)n * D, (long long)p.N * D, q0,
+                    S, acc, ty, tx);
 }
 
-template <typename T, bool DROPOUT>
+template <int D, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     const BwdParams p) {
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv, const BwdParams p) {
+  using T = float;  // bfloat16 inputs run the tensor-core kernels below
+  using CQ = Cols<BQ>;
   extern __shared__ __align__(16) float smem[];
   float* Kt = smem;            // [D][BK]  key tile, transposed
   float* Vt = Kt + D * BK;     // [D][BK]  value tile, transposed
@@ -502,14 +562,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const float* lse_b = lse + ((long long)b * p.N + n) * S;
   const float* delta_b = delta + ((long long)b * p.N + n) * S;
 
-  load_transposed<T>(Kt, kb, p.k_ss, k0, S);
-  load_transposed<T>(Vt, vb, p.v_ss, k0, S);
+  load_transposed<T, D>(Kt, kb, p.k_ss, k0, S);
+  load_transposed<T, D>(Vt, vb, p.v_ss, k0, S);
 
-  float dk_acc[4][8], dv_acc[4][8];
+  float dk_acc[4][Cols<D>::N], dv_acc[4][Cols<D>::N];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.0f;
+    for (int j = 0; j < Cols<D>::N; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.0f;
 
   // every query tile sees a prefix key (< sep); otherwise the first query
   // that sees key k0 is k0 itself
@@ -519,10 +579,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int qt = first; qt < nqt; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();  // the previous tile's reads are done
-    load_transposed<T>(Qt, qb, p.q_ss, q0, S);
-    load_transposed<T>(Ot, ob, p.o_ss, q0, S);
-    load_rows<T>(Qr, qb, p.q_ss, q0, S);
-    load_rows<T>(Or, ob, p.o_ss, q0, S);
+    load_transposed<T, D>(Qt, qb, p.q_ss, q0, S);
+    load_transposed<T, D>(Ot, ob, p.o_ss, q0, S);
+    load_rows<T, D>(Qr, qb, p.q_ss, q0, S);
+    load_rows<T, D>(Or, ob, p.o_ss, q0, S);
     for (int i = tid; i < BQ; i += THREADS) {
       const int r = q0 + i;
       Ls[i] = r < S ? lse_b[r] : 0.0f;
@@ -536,12 +596,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.0f;
-    tile_product(s, Kt, Qt, ty, tx);
-    tile_product(dp, Vt, Ot, ty, tx);
+    tile_product<D, BQ>(s, Kt, Qt, ty, tx);
+    tile_product<D, BQ>(dp, Vt, Ot, ty, tx);
 
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int c = col_of(tx, j);
+      const int c = CQ::of(tx, j);
       const int qpos = q0 + c;
       const float lse_c = Ls[c], delta_c = Es[c];
 #pragma unroll
@@ -562,54 +622,668 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     store_patch_transposed(Ps, dp, ty, tx);
     __syncthreads();
 
-    tile_product(dv_acc, Ps, Or, ty, tx);  // dv += pd^T . dO
-    tile_product(dk_acc, Ds, Qr, ty, tx);  // dk += ds^T . q
+    tile_product<BQ, D>(dv_acc, Ps, Or, ty, tx);  // dv += pd^T . dO
+    tile_product<BQ, D>(dk_acc, Ds, Qr, ty, tx);  // dk += ds^T . q
   }
 
   const long long out_b = (long long)b * S * p.N * D + (long long)n * D;
-  store_patch<T>(dk + out_b, (long long)p.N * D, k0, S, dk_acc, ty, tx);
-  store_patch<T>(dv + out_b, (long long)p.N * D, k0, S, dv_acc, ty, tx);
+  store_patch<T, D>(dk + out_b, (long long)p.N * D, k0, S, dk_acc, ty, tx);
+  store_patch<T, D>(dv + out_b, (long long)p.N * D, k0, S, dv_acc, ty, tx);
 }
 
-template <typename T, bool DROPOUT>
+// ------------------------------------------------------------------------
+// Backward on the tensor cores: the bfloat16 dq kernel (K4) and dk/dv
+// kernel (K5).
+//
+// Replaces: cogview_tpu/ops/flash_attention.py::_bwd_dq_kernel (:212) and
+// ::_bwd_dkv_kernel (:249), launched by _flash_bwd_impl's pallas_calls
+// (:433, :451), for bfloat16 inputs.  Semantics: the backward's, above.
+//
+// What bounds them on an H100: the products and the epilogue.  Per visible
+// (query, key) pair the dq pass does 6 D operations (s, dp and dq) and the
+// dk/dv pass 8 D (s, dp, dv and dk): at the tutorial's B = 16, N = 16,
+// S = 1088, D = 64 that is 58 and 78 GFLOP, 58.9 and 78.5 us at the bf16
+// tensor-core peak (989 TFLOP/s).  Beside them every pair pays, on the CUDA
+// cores, one exp2 on the special-function units (~40 us a pass over the
+// 151.7 M visible pairs) and, with dropout, the ~12 integer operations of
+// the counter hash (~100 us a pass), so with dropout the epilogue may set
+// the pace.  The bytes (q, k, v, dO, lse and delta read once, the outputs
+// written once: 180 and 216 MB) take 54 and 65 us at 3.35 TB/s, just
+// under the products.
+//
+// Design.  One warpgroup (128 threads) per block owns 64 rows of the
+// output: the dq pass a query tile (Q and dO resident), the dk/dv pass a
+// key tile (K and V resident); each walks the other side's tiles between
+// the same bounds as the float32 kernels (keys up to the diagonal or sep;
+// queries from the first that sees the key tile), longest query tiles
+// first in the dq pass.
+//  - Products with wgmma.mma_async m64nNk16, bf16 in, float32 accumulators.
+//    S = Q.K^T and dP = dO.V^T (dk/dv pass: S^T = K.Q^T, dP^T = V.dO^T)
+//    take both operands from shared memory, D/16 k-steps.  The epilogue
+//    turns them into ds (and pd) in the accumulator registers; these are
+//    rounded to bf16 and fed straight back as the A operand of
+//    dQ += dS.K (dV += Pd^T.dO, dK += dS^T.Q), with no trip through shared
+//    memory, and the streamed tile read MN-major as B (4 k-steps of 16).
+//  - Tiles are bf16 in shared memory, in the swizzled layout the wgmma
+//    descriptors name (128-byte swizzle in 64-column panels for D >= 64,
+//    64-byte for D = 32, 32-byte for D = 16), filled by 16-byte cp.async
+//    copies (zero past S) through the batch and sequence strides.  The
+//    streamed tiles are double-buffered: the next tile's copies are issued
+//    before this tile's products, so they overlap.
+//  - Tiles that every row sees wholly (below the diagonal, or inside the
+//    prefix, and inside S: the JAX kernels' full blocks) skip the mask;
+//    dropout still hashes every pair.  exp2 with log2(e) folded into the
+//    scale and lse; the kept probability is multiplied by 1 / keep_rate,
+//    as PyTorch divides a CUDA tensor by a scalar.
+//  - Registers: the dq pass holds S, dP (32 floats each), dQ (D/2) and the
+//    16 ds fragment registers.  The dk/dv pass holds dK and dV (D/2 each)
+//    beside S^T and dP^T; at D = 128 its query tiles are 32 wide, so S^T
+//    and dP^T take 16 floats each and dK, dV 64 each.
+//  - Several blocks share an SM, so one block's epilogue overlaps another's
+//    products.
+//  - ptxas (-Xptxas -v, sm_90a, a CUDA 12 nvcc), registers
+//    without / with dropout, and dynamic shared memory:
+//      dq:    D = 16: 98 / 103, D = 32: 118 / 128, D = 64: 128 / 162,
+//             D = 128: 190 / 234; 13,312 / 25,600 / 50,176 / 99,328 bytes
+//      dk/dv: D = 16: 138 / 158, D = 32: 155 / 160, D = 64: 198 / 218,
+//             D = 128: 210 / 228; 14,336 / 26,624 / 51,200 / 67,072 bytes
+//    no instantiation spills (0-byte stack frames), so at D = 64 four dq
+//    blocks (three with dropout) and two dk/dv blocks share an SM.
+//    chip_smoke.py prints the D = 64 registers from cuobjdump and fails on
+//    any stack or local memory there.
+// ------------------------------------------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes global -> shared, zero-filled where src_bytes is 0
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// this thread's shared-memory writes become visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// d[64 x 32] += A[64 x 16] . B[16 x 32], both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] . B[16 x 64], both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64 x 16] += A[64 x 16] . B[16 x 16], A from registers (bf16 pairs), B
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 32] += A[64 x 16] . B[16 x 32], A from registers (bf16 pairs), B
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (bf16 pairs), B
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] . B[16 x 128], A from registers (bf16 pairs), B
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// An R x D bf16 tile in shared memory, in the canonical layout of wgmma's
+// descriptors: panels of PW = min(D, 64) columns, each R rows of 2 PW bytes,
+// with the 16-byte chunks of a row XOR-swizzled by the row's address bits
+// (128-, 64- or 32-byte swizzle).  The tile's base is 1024-byte aligned.
+template <int D, int R> struct Tile {
+  static constexpr int PW = D < 64 ? D : 64;
+  static constexpr int ROWB = 2 * PW;
+  static constexpr int PANEL = R * ROWB;
+  static constexpr int BYTES = R * D * 2;
+  static constexpr uint64_t LAYOUT = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;  // B128, B64, B32
+
+  // byte offset of the 8 values (r, 8 c8 .. 8 c8 + 7)
+  static __device__ __forceinline__ uint32_t chunk(int r, int c8) {
+    const uint32_t off = (c8 / (PW / 8)) * PANEL + r * ROWB + (c8 % (PW / 8)) * 16;
+    return off ^ (((off >> 7) & (ROWB / 16 - 1)) << 4);
+  }
+  static __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+           (uint64_t)(sbo >> 4) << 32 | LAYOUT << 62;
+  }
+  // as a K-major operand (summed over the D columns): k-step kk, columns
+  // 16 kk .. 16 kk + 15
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t base, int kk) {
+    return desc(base + (16 * kk / PW) * PANEL + (16 * kk % PW) * 2, 16, 8 * ROWB);
+  }
+  // as an MN-major B operand (summed over the rows, N = D): k-step kk, rows
+  // 16 kk .. 16 kk + 15; panels PANEL bytes apart
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t base, int kk) {
+    return desc(base + 16 * kk * ROWB, PANEL, 8 * ROWB);
+  }
+  // rows [r0, r0 + R) of a [S, ...] operand (row stride in elements), zero
+  // past S, by 16-byte asynchronous copies from all 128 threads
+  static __device__ __forceinline__ void load(uint32_t base, const __nv_bfloat16* src,
+                                              long long row_stride, int r0, int S) {
+    constexpr int CHUNKS = R * D / 8;
+#pragma unroll
+    for (int it = 0; it < (CHUNKS + THREADS - 1) / THREADS; ++it) {
+      const int i = it * THREADS + threadIdx.x;
+      if (CHUNKS % THREADS != 0 && i >= CHUNKS) break;
+      const int r = i / (D / 8), c8 = i % (D / 8);
+      const bool in = r0 + r < S;
+      cp_async16(base + chunk(r, c8), src + (in ? (long long)(r0 + r) * row_stride + 8 * c8 : 0),
+                 in ? 16 : 0);
+    }
+  }
+};
+
+// the accumulator fragment of an m64nN product: element i of a thread
+// (warp w, lane l) is row 16 w + l / 4 + 8 ((i >> 1) & 1), column
+// 8 (i >> 2) + 2 (l % 4) + (i & 1); as the A operand of the next product,
+// k-step kk's four registers are the pairs (2 j, 2 j + 1) of elements
+// 8 kk .. 8 kk + 7, so a[i] = bf16x2(d[2 i], d[2 i + 1])
+
+// Every (row, column) of a tile pair is visible: all keys <= every query
+// or < sep, and everything inside S.
+__device__ __forceinline__ bool tile_full(int q0, int nq, int k0, int nk, int sep, int S) {
+  return k0 + nk <= max(q0 + 1, sep) && q0 + nq <= S && k0 + nk <= S;
+}
+
+// ds (and pd) of one element pair from the scores; q/k positions for the
+// mask and the hash
+template <bool MASKED, bool DROPOUT>
+__device__ __forceinline__ float2 bwd_pair(float s0, float s1, float dp0, float dp1, int qpos0,
+                                           int qpos1, int kpos0, int kpos1, float lse2_0,
+                                           float lse2_1, float delta0, float delta1,
+                                           float scale_log2, float inv_keep, const BwdParams& p,
+                                           uint32_t bn, float2* pd_out) {
+  float arg0 = fmaf(s0, scale_log2, -lse2_0), arg1 = fmaf(s1, scale_log2, -lse2_1);
+  if (MASKED) {
+    const bool vis0 = (kpos0 <= qpos0 || kpos0 < p.sep) && kpos0 < p.S && qpos0 < p.S;
+    const bool vis1 = (kpos1 <= qpos1 || kpos1 < p.sep) && kpos1 < p.S && qpos1 < p.S;
+    if (!vis0) arg0 = MASK_VALUE * LOG2E - lse2_0;
+    if (!vis1) arg1 = MASK_VALUE * LOG2E - lse2_1;
+  }
+  const float p0 = exp2f(arg0), p1 = exp2f(arg1);
+  float pd0 = p0, pd1 = p1;
+  if (DROPOUT) {
+    pd0 = hash_u32(p.seed, (uint32_t)qpos0, (uint32_t)kpos0, bn) >= p.threshold ? p0 * inv_keep
+                                                                                 : 0.0f;
+    pd1 = hash_u32(p.seed, (uint32_t)qpos1, (uint32_t)kpos1, bn) >= p.threshold ? p1 * inv_keep
+                                                                                 : 0.0f;
+  }
+  if (pd_out != nullptr) *pd_out = make_float2(pd0, pd1);
+  return make_float2((pd0 * dp0 - p0 * delta0) * p.scale, (pd1 * dp1 - p1 * delta1) * p.scale);
+}
+
+// dq pass epilogue: rows are queries (qrow = the thread's first row),
+// columns keys (kcol = k0 + 2 (lane % 4)) -> ds as A fragments
+template <bool MASKED, bool DROPOUT>
+__device__ __forceinline__ void dq_epilogue(const float (&s)[32], const float (&dp)[32],
+                                            uint32_t (&a)[16], int qrow, int kcol,
+                                            const float (&lse2)[2], const float (&dlt)[2],
+                                            float scale_log2, float inv_keep, const BwdParams& p,
+                                            uint32_t bn) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int h = i & 1, kpos = kcol + 8 * (i >> 1), qpos = qrow + 8 * h;
+    const float2 ds = bwd_pair<MASKED, DROPOUT>(
+        s[2 * i], s[2 * i + 1], dp[2 * i], dp[2 * i + 1], qpos, qpos, kpos, kpos + 1, lse2[h],
+        lse2[h], dlt[h], dlt[h], scale_log2, inv_keep, p, bn, nullptr);
+    a[i] = pack_bf16(ds.x, ds.y);
+  }
+}
+
+// dk/dv pass epilogue: rows are keys (krow), columns queries (qcol =
+// q0 + 2 (lane % 4)); lse2 / delta per column -> pd and ds as A fragments
+template <int BN, bool MASKED, bool DROPOUT>
+__device__ __forceinline__ void dkv_epilogue(const float (&s)[BN / 2], const float (&dp)[BN / 2],
+                                             uint32_t (&ap)[BN / 4], uint32_t (&ad)[BN / 4],
+                                             int krow, int qcol, const float2 (&lse2)[BN / 8],
+                                             const float2 (&dlt)[BN / 8], float scale_log2,
+                                             float inv_keep, const BwdParams& p, uint32_t bn) {
+#pragma unroll
+  for (int i = 0; i < BN / 4; ++i) {
+    const int nb = i >> 1, kpos = krow + 8 * (i & 1), qpos = qcol + 8 * nb;
+    float2 pd;
+    const float2 ds = bwd_pair<MASKED, DROPOUT>(
+        s[2 * i], s[2 * i + 1], dp[2 * i], dp[2 * i + 1], qpos, qpos + 1, kpos, kpos,
+        lse2[nb].x, lse2[nb].y, dlt[nb].x, dlt[nb].y, scale_log2, inv_keep, p, bn, &pd);
+    ap[i] = pack_bf16(pd.x, pd.y);
+    ad[i] = pack_bf16(ds.x, ds.y);
+  }
+}
+
+// a thread's accumulator fragment of an m64nD product -> rows [r0, r0 + 64)
+// of a contiguous [S, N, D] bf16 output (row stride N D), rows < S only
+template <int D>
+__device__ __forceinline__ void store_fragment(__nv_bfloat16* out, long long row_stride, int r0,
+                                               int S, const float (&d)[D / 2]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 16 * warp + (lane >> 2) + 8 * h;
+    if (r >= S) continue;
+    __nv_bfloat16* row = out + (long long)r * row_stride + 2 * (lane & 3);
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+      *reinterpret_cast<uint32_t*>(row + 8 * nb) = pack_bf16(d[4 * nb + 2 * h],
+                                                             d[4 * nb + 2 * h + 1]);
+  }
+}
+
+template <int D>
+constexpr size_t dq_tc_smem_bytes() {
+  return 6 * Tile<D, 64>::BYTES + 1024;  // Q, dO, 2 x (K, V); alignment slack
+}
+
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+                          const BwdParams p) {
+  using TT = Tile<D, 64>;
+  extern __shared__ __align__(128) uint8_t smem_tc[];
+  const uint32_t sQ = (smem_u32(smem_tc) + 1023u) & ~1023u;
+  const uint32_t sO = sQ + TT::BYTES;
+  const uint32_t sKV = sO + TT::BYTES;  // buffer j: K at sKV + 2 j BYTES, V after it
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest rows first
+  const int n = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * 64;
+  const int S = p.S;
+  const uint32_t bn = (uint32_t)(b * p.N + n);
+
+  const __nv_bfloat16* qb = q + (long long)b * p.q_sb + (long long)n * D;
+  const __nv_bfloat16* kb = k + (long long)b * p.k_sb + (long long)n * D;
+  const __nv_bfloat16* vb = v + (long long)b * p.v_sb + (long long)n * D;
+  const __nv_bfloat16* ob = dout + (long long)b * p.o_sb + (long long)n * D;
+  const float* lse_b = lse + ((long long)b * p.N + n) * S;
+  const float* delta_b = delta + ((long long)b * p.N + n) * S;
+
+  const int qlast = min(q0 + 64, S) - 1;
+  const int nkt = (min(S, max(qlast + 1, p.sep)) + 63) / 64;
+
+  TT::load(sQ, qb, p.q_ss, q0, S);
+  TT::load(sO, ob, p.o_ss, q0, S);
+  TT::load(sKV, kb, p.k_ss, 0, S);
+  TT::load(sKV + TT::BYTES, vb, p.v_ss, 0, S);
+  cp_async_commit();
+
+  const int qrow = q0 + 16 * warp + (lane >> 2);
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = qrow + 8 * h;
+    lse2[h] = r < S ? lse_b[r] * LOG2E : 0.0f;
+    dlt[h] = r < S ? delta_b[r] : 0.0f;
+  }
+  const float scale_log2 = p.scale * LOG2E, inv_keep = 1.0f / p.keep;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * 64;
+    const uint32_t sK = sKV + (kt & 1) * 2 * TT::BYTES, sV = sK + TT::BYTES;
+    cp_async_wait_all();  // tile kt is in
+    fence_async_shared();
+    __syncthreads();  // ... for every thread, and tile kt - 1's buffer is free
+    if (kt + 1 < nkt) {
+      const uint32_t nK = sKV + ((kt + 1) & 1) * 2 * TT::BYTES;
+      TT::load(nK, kb, p.k_ss, k0 + 64, S);
+      TT::load(nK + TT::BYTES, vb, p.v_ss, k0 + 64, S);
+      cp_async_commit();
+    }
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+    fence_operands(s);
+    fence_operands(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(s, TT::kmajor(sQ, kk), TT::kmajor(sK, kk));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(dp, TT::kmajor(sO, kk), TT::kmajor(sV, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(s);
+    fence_operands(dp);
+
+    uint32_t a[16];
+    const int kcol = k0 + 2 * (lane & 3);
+    if (tile_full(q0, 64, k0, 64, p.sep, S))
+      dq_epilogue<false, DROPOUT>(s, dp, a, qrow, kcol, lse2, dlt, scale_log2, inv_keep, p, bn);
+    else
+      dq_epilogue<true, DROPOUT>(s, dp, a, qrow, kcol, lse2, dlt, scale_log2, inv_keep, p, bn);
+
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a + 4 * kk, TT::mnmajor(sK, kk));  // dq += ds.k
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(acc);
+  }
+
+  store_fragment<D>(dq + (long long)b * S * p.N * D + (long long)n * D, (long long)p.N * D, q0,
+                    S, acc);
+}
+
+// queries per streamed tile of the dk/dv pass: 32 at D = 128 keeps S^T and
+// dP^T at 16 registers each beside the two 64-register accumulators
+template <int D>
+constexpr int DKV_TC_BN = D == 128 ? 32 : 64;
+
+template <int D>
+constexpr size_t dkv_tc_smem_bytes() {
+  // K, V; 2 x (Q, dO); 2 x (lse, delta); alignment slack
+  return 2 * Tile<D, 64>::BYTES + 4 * Tile<D, DKV_TC_BN<D>>::BYTES +
+         4 * DKV_TC_BN<D> * sizeof(float) + 1024;
+}
+
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                           const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, const BwdParams p) {
+  constexpr int BN = DKV_TC_BN<D>;
+  using TK = Tile<D, 64>;
+  using TQ = Tile<D, BN>;
+  extern __shared__ __align__(128) uint8_t smem_tc[];
+  const uint32_t sK = (smem_u32(smem_tc) + 1023u) & ~1023u;
+  const uint32_t sV = sK + TK::BYTES;
+  const uint32_t sQO = sV + TK::BYTES;  // buffer j: Q at sQO + 2 j BYTES, dO after it
+  const uint32_t sLE = sQO + 4 * TQ::BYTES;  // buffer j: lse at sLE + 2 j BN 4, delta after
+  const float* le = reinterpret_cast<const float*>(smem_tc + (sLE - smem_u32(smem_tc)));
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tid = threadIdx.x;
+  const int kt = blockIdx.x;  // low key tiles see the most queries
+  const int n = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * 64;
+  const int S = p.S;
+  const uint32_t bn = (uint32_t)(b * p.N + n);
+
+  const __nv_bfloat16* qb = q + (long long)b * p.q_sb + (long long)n * D;
+  const __nv_bfloat16* kb = k + (long long)b * p.k_sb + (long long)n * D;
+  const __nv_bfloat16* vb = v + (long long)b * p.v_sb + (long long)n * D;
+  const __nv_bfloat16* ob = dout + (long long)b * p.o_sb + (long long)n * D;
+  const float* lse_b = lse + ((long long)b * p.N + n) * S;
+  const float* delta_b = delta + ((long long)b * p.N + n) * S;
+
+  // every query tile sees a prefix key (< sep); otherwise the first query
+  // that sees key k0 is k0 itself
+  const int first = k0 < p.sep ? 0 : k0 / BN;
+  const int nqt = (S + BN - 1) / BN;
+
+  // query tile qt (rows q0 ..) into buffer j: Q, dO, lse, delta
+  auto load_query_tile = [&](int j, int q0) {
+    const uint32_t sQ = sQO + j * 2 * TQ::BYTES;
+    TQ::load(sQ, qb, p.q_ss, q0, S);
+    TQ::load(sQ + TQ::BYTES, ob, p.o_ss, q0, S);
+    if (tid < 2 * BN) {
+      const int c = tid % BN, r = q0 + c;
+      const float* src = tid < BN ? lse_b : delta_b;
+      cp_async4(sLE + (j * 2 * BN + tid) * 4, src + (r < S ? r : 0), r < S ? 4 : 0);
+    }
+  };
+  TK::load(sK, kb, p.k_ss, k0, S);
+  TK::load(sV, vb, p.v_ss, k0, S);
+  load_query_tile(0, first * BN);
+  cp_async_commit();
+
+  const float scale_log2 = p.scale * LOG2E, inv_keep = 1.0f / p.keep;
+  const int krow = k0 + 16 * warp + (lane >> 2);
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+
+  for (int qt = first; qt < nqt; ++qt) {
+    const int q0 = qt * BN, j = (qt - first) & 1;
+    const uint32_t sQ = sQO + j * 2 * TQ::BYTES, sO = sQ + TQ::BYTES;
+    cp_async_wait_all();  // tile qt is in
+    fence_async_shared();
+    __syncthreads();  // ... for every thread, and tile qt - 1's buffer is free
+    if (qt + 1 < nqt) {
+      load_query_tile(j ^ 1, q0 + BN);
+      cp_async_commit();
+    }
+
+    float s[BN / 2], dp[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.0f;
+    fence_operands(s);
+    fence_operands(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(s, TK::kmajor(sK, kk), TQ::kmajor(sQ, kk));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(dp, TK::kmajor(sV, kk), TQ::kmajor(sO, kk));
+    wgmma_commit();
+
+    // lse (times log2 e) and delta of this thread's query columns
+    const int c0 = 2 * (lane & 3);
+    float2 lse2[BN / 8], dlt[BN / 8];
+#pragma unroll
+    for (int nb = 0; nb < BN / 8; ++nb) {
+      const float2 l2 = *reinterpret_cast<const float2*>(le + j * 2 * BN + 8 * nb + c0);
+      lse2[nb] = make_float2(l2.x * LOG2E, l2.y * LOG2E);
+      dlt[nb] = *reinterpret_cast<const float2*>(le + j * 2 * BN + BN + 8 * nb + c0);
+    }
+    wgmma_wait_all();
+    fence_operands(s);
+    fence_operands(dp);
+
+    uint32_t ap[BN / 4], ad[BN / 4];
+    if (tile_full(q0, BN, k0, 64, p.sep, S))
+      dkv_epilogue<BN, false, DROPOUT>(s, dp, ap, ad, krow, q0 + c0, lse2, dlt, scale_log2,
+                                       inv_keep, p, bn);
+    else
+      dkv_epilogue<BN, true, DROPOUT>(s, dp, ap, ad, krow, q0 + c0, lse2, dlt, scale_log2,
+                                      inv_keep, p, bn);
+
+    fence_operands(dk_acc);
+    fence_operands(dv_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs(dv_acc, ap + 4 * kk, TQ::mnmajor(sO, kk));  // dv += pd^T . dO
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs(dk_acc, ad + 4 * kk, TQ::mnmajor(sQ, kk));  // dk += ds^T . q
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(dk_acc);
+    fence_operands(dv_acc);
+  }
+
+  const long long out_b = (long long)b * S * p.N * D + (long long)n * D;
+  store_fragment<D>(dk + out_b, (long long)p.N * D, k0, S, dk_acc);
+  store_fragment<D>(dv + out_b, (long long)p.N * D, k0, S, dv_acc);
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_kernel(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
+                          Args... args) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, bool DROPOUT>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
                        const BwdParams& p, cudaStream_t stream) {
-  const int tiles = (p.S + BQ - 1) / BQ;
-  const dim3 grid(tiles, p.N, B);
+  const dim3 grid((p.S + BQ - 1) / BQ, p.N, B);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* ot = static_cast<const T*>(dout);
-  cudaError_t err;
-  if (dq != nullptr) {
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DROPOUT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DQ_SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_kernel<T, DROPOUT><<<grid, THREADS, DQ_SMEM_BYTES, stream>>>(
-        qt, kt, vt, ot, lse, delta, static_cast<T*>(dq), p);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (dq != nullptr)
+      return launch_kernel(flash_bwd_dq_wgmma_kernel<D, DROPOUT>, grid, dq_tc_smem_bytes<D>(),
+                           stream, qt, kt, vt, ot, lse, delta, static_cast<T*>(dq), p);
+    return launch_kernel(flash_bwd_dkv_wgmma_kernel<D, DROPOUT>, grid, dkv_tc_smem_bytes<D>(),
+                         stream, qt, kt, vt, ot, lse, delta, static_cast<T*>(dk),
+                         static_cast<T*>(dv), p);
   } else {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, DROPOUT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_kernel<T, DROPOUT><<<grid, THREADS, DKV_SMEM_BYTES, stream>>>(
-        qt, kt, vt, ot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), p);
+    if (dq != nullptr)
+      return launch_kernel(flash_bwd_dq_kernel<D, DROPOUT>, grid, dq_smem_bytes<D>(), stream,
+                           qt, kt, vt, ot, lse, delta, static_cast<T*>(dq), p);
+    return launch_kernel(flash_bwd_dkv_kernel<D, DROPOUT>, grid, dkv_smem_bytes<D>(), stream,
+                         qt, kt, vt, ot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+                         p);
   }
-  return cudaGetLastError();
 }
 
-template <typename T, bool DROPOUT>
+template <typename T, int D, bool DROPOUT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    const Params& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DROPOUT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
-  if (err != cudaSuccess) return err;
   const dim3 grid((p.S + BQ - 1) / BQ, p.N, B);
-  flash_fwd_kernel<T, DROPOUT><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, p);
-  return cudaGetLastError();
+  return launch_kernel(flash_fwd_kernel<T, D, DROPOUT>, grid, fwd_smem_bytes<D>(), stream,
+                       static_cast<const T*>(q), static_cast<const T*>(k),
+                       static_cast<const T*>(v), static_cast<T*>(o), lse, p);
+}
+
+// f(std::integral_constant<int, D>) for the head dims the kernels are built
+// for (ops/flash_attention.py HEAD_DIMS; a CPU test parses this switch)
+template <typename F>
+cudaError_t with_head_dim(int head_dim, F&& f) {
+  switch (head_dim) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -620,18 +1294,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    long long k_ss, long long v_sb, long long v_ss, int sep,
                                    float scale, unsigned int seed, unsigned int threshold,
                                    float keep, int dropout, void* stream) {
-  if (head_dim != D || B <= 0 || S <= 0 || N <= 0 || B > 65535 || N > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0 || N <= 0 || B > 65535 || N > 65535) return (int)cudaErrorInvalidValue;
   const Params p{q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, S, N, sep, scale, keep, seed, threshold};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_bf16)
-    err = dropout ? launch<__nv_bfloat16, true>(q, k, v, o, lse, B, p, s)
-                  : launch<__nv_bfloat16, false>(q, k, v, o, lse, B, p, s);
-  else
-    err = dropout ? launch<float, true>(q, k, v, o, lse, B, p, s)
-                  : launch<float, false>(q, k, v, o, lse, B, p, s);
-  return (int)err;
+  return (int)with_head_dim(head_dim, [&](auto hd) {
+    constexpr int D = decltype(hd)::value;
+    if (is_bf16)
+      return dropout ? launch<__nv_bfloat16, D, true>(q, k, v, o, lse, B, p, s)
+                     : launch<__nv_bfloat16, D, false>(q, k, v, o, lse, B, p, s);
+    return dropout ? launch<float, D, true>(q, k, v, o, lse, B, p, s)
+                   : launch<float, D, false>(q, k, v, o, lse, B, p, s);
+  });
 }
 
 // dq pass (dq != null) or dk/dv pass (dk, dv != null); outputs contiguous
@@ -643,19 +1316,19 @@ static int flash_attention_bwd(const void* q, const void* k, const void* v, cons
                                long long v_sb, long long v_ss, long long o_sb, long long o_ss,
                                int sep, float scale, unsigned int seed, unsigned int threshold,
                                float keep, int dropout, void* stream) {
-  if (head_dim != D || B <= 0 || S <= 0 || N <= 0 || B > 65535 || N > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0 || N <= 0 || B > 65535 || N > 65535) return (int)cudaErrorInvalidValue;
   const BwdParams p{q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss,
                     S,    N,    sep,  scale, keep, seed, threshold};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_bf16)
-    err = dropout ? launch_bwd<__nv_bfloat16, true>(q, k, v, dout, lse, delta, dq, dk, dv, B, p, s)
-                  : launch_bwd<__nv_bfloat16, false>(q, k, v, dout, lse, delta, dq, dk, dv, B, p, s);
-  else
-    err = dropout ? launch_bwd<float, true>(q, k, v, dout, lse, delta, dq, dk, dv, B, p, s)
-                  : launch_bwd<float, false>(q, k, v, dout, lse, delta, dq, dk, dv, B, p, s);
-  return (int)err;
+  return (int)with_head_dim(head_dim, [&](auto hd) {
+    constexpr int D = decltype(hd)::value;
+    using bf16 = __nv_bfloat16;
+    if (is_bf16)
+      return dropout ? launch_bwd<bf16, D, true>(q, k, v, dout, lse, delta, dq, dk, dv, B, p, s)
+                     : launch_bwd<bf16, D, false>(q, k, v, dout, lse, delta, dq, dk, dv, B, p, s);
+    return dropout ? launch_bwd<float, D, true>(q, k, v, dout, lse, delta, dq, dk, dv, B, p, s)
+                   : launch_bwd<float, D, false>(q, k, v, dout, lse, delta, dq, dk, dv, B, p, s);
+  });
 }
 
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,

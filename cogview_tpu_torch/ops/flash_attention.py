@@ -40,7 +40,9 @@ import torch
 from .hash_prng import hash_u32
 
 MASK_VALUE = -10000.0
-HEAD_DIM = 64  # the head width the CUDA kernels are built for
+# the head widths the CUDA kernels are built for (csrc/flash_attention.cu,
+# with_head_dim); the plain versions take any
+HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _rate_threshold(rate: float) -> int:
@@ -158,13 +160,14 @@ def _check_operand(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on {t.device}, "
                          f"expected {shape} {dtype} on {device}")
     # the kernels take batch and sequence strides; a head row must be
-    # contiguous and every 4-element group 16-byte (float32) or 8-byte
-    # (bfloat16) aligned
+    # contiguous and start 16-byte aligned (the float32 kernels read 4
+    # values at a time, the bfloat16 backward copies 16 bytes with cp.async)
     if t.stride(3) != 1 or t.stride(2) != shape[3]:
         raise ValueError(f"{name}: heads and head dims must be contiguous, "
                          f"strides {t.stride()}")
-    if t.data_ptr() % 16 or t.stride(0) % 4 or t.stride(1) % 4:
-        raise ValueError(f"{name}: pointer or strides not 4-element aligned, "
+    per16 = 16 // t.element_size()
+    if t.data_ptr() % 16 or t.stride(0) % per16 or t.stride(1) % per16:
+        raise ValueError(f"{name}: pointer or strides not 16-byte aligned, "
                          f"strides {t.stride()}")
 
 
@@ -175,8 +178,8 @@ def _cuda_operands(*named):
     if q.ndim != 4:
         raise ValueError(f"q must be [B, S, N, D], got {tuple(q.shape)}")
     B, S, N, D = q.shape
-    if D != HEAD_DIM:
-        raise NotImplementedError(f"head_dim {D}: the CUDA kernels are built for {HEAD_DIM}")
+    if D not in HEAD_DIMS:
+        raise NotImplementedError(f"head_dim {D}: the CUDA kernels are built for {HEAD_DIMS}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q dtype {q.dtype}: bfloat16 or float32")
     strides = []

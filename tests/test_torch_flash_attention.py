@@ -7,6 +7,9 @@ bidirectional prefix, a prefix past the block size, and hash dropout with a
 prefix.  The kernel itself is compared with the plain version on a card by
 tests/test_torch_kernels_cuda.py."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -23,20 +26,20 @@ torch.set_num_threads(1)
 B, N, D = 2, 3, 32
 
 
-def _mk(s, seed=0):
+def _mk(s, seed=0, d=D):
     rng = np.random.RandomState(seed)
-    return [rng.randn(B, s, N, D).astype(np.float32) for _ in range(3)]
+    return [rng.randn(B, s, N, d).astype(np.float32) for _ in range(3)]
 
 
-def _both(s, sep, bq, bk, seed, rate=0.0, dropout_seed=None):
-    q, k, v = _mk(s, seed)
+def _both(s, sep, bq, bk, seed, rate=0.0, dropout_seed=None, d=D):
+    q, k, v = _mk(s, seed, d)
     want = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), sep, bq, bk, True,
                                dropout_rate=rate, dropout_seed=dropout_seed)
     before = tfa.flash_attention.launches
     o, lse = tfa.flash_attention(*map(torch.from_numpy, (q, k, v)), sep,
                                  dropout_rate=rate, dropout_seed=dropout_seed)
     assert tfa.flash_attention.launches == before  # CPU: the plain version
-    assert o.shape == (B, s, N, D) and o.dtype == torch.float32
+    assert o.shape == (B, s, N, d) and o.dtype == torch.float32
     assert lse.shape == (B, N, s) and lse.dtype == torch.float32
     return o.numpy(), np.asarray(want), lse.numpy(), (q, k, v)
 
@@ -45,6 +48,29 @@ def _both(s, sep, bq, bk, seed, rate=0.0, dropout_seed=None):
 def test_forward_matches_jax_kernel(s, bq, bk):
     got, want, _, _ = _both(s, 0, bq, bk, seed=0)
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("d,s,sep,rate", [(16, 128, 0, 0.0), (16, 150, 20, 0.3),
+                                         (64, 200, 37, 0.0), (64, 128, 0, 0.1),
+                                         (128, 96, 0, 0.0), (128, 130, 64, 0.2)])
+def test_forward_matches_jax_kernel_at_other_head_dims(d, s, sep, rate):
+    """The other head widths the CUDA kernels are built for (the cases above
+    are D = 32), two cases each, one with dropout."""
+    got, want, _, _ = _both(s, sep, 64, 64, seed=d, rate=rate,
+                            dropout_seed=55 if rate else None, d=d)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_head_dims_match_the_kernels_dispatch():
+    """HEAD_DIMS is the set of head dims csrc/flash_attention.cu's
+    ``with_head_dim`` switch instantiates, so the wrapper and the C entry
+    points cannot drift apart."""
+    src = (Path(tfa.__file__).resolve().parent.parent / "csrc" / "flash_attention.cu").read_text()
+    body = src[src.index("cudaError_t with_head_dim("):]
+    body = body[:body.index("default:")]
+    pairs = re.findall(r"case (\d+): return f\(std::integral_constant<int, (\d+)>", body)
+    assert pairs and all(a == b for a, b in pairs)
+    assert tuple(sorted(int(a) for a, _ in pairs)) == tfa.HEAD_DIMS
 
 
 def test_sep_prefix_matches_jax_kernel():

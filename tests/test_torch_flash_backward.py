@@ -7,7 +7,9 @@ whole rows).
 
 The cases are those of tests/test_flash_attention.py's backward tests:
 causal, a ragged length, a prefix inside a tile, a prefix across tiles,
-asymmetric JAX blocks, and hash dropout with a fixed seed."""
+asymmetric JAX blocks, and hash dropout with a fixed seed, at D = 32; and
+two cases (one with dropout) at each other head width the CUDA kernels are
+built for, 16, 64 and 128."""
 
 import numpy as np
 import pytest
@@ -35,14 +37,34 @@ CASES = [  # s, sep, JAX block_q, JAX block_k, dropout rate
 ]
 
 
-def _inputs(s, seed):
+# the other head widths the CUDA kernels are built for, two cases each
+HEAD_DIM_CASES = [  # d, s, sep, JAX block_q, JAX block_k, dropout rate
+    (16, 96, 0, 32, 32, 0.0),
+    (16, 77, 37, 32, 32, 0.1),
+    (64, 130, 5, 64, 64, 0.0),
+    (64, 96, 0, 32, 64, 0.1),
+    (128, 77, 0, 32, 32, 0.0),
+    (128, 96, 40, 64, 32, 0.1),
+]
+
+
+def _inputs(s, seed, d=D):
     rng = np.random.RandomState(seed)
-    return [rng.randn(B, s, N, D).astype(np.float32) for _ in range(4)]
+    return [rng.randn(B, s, N, d).astype(np.float32) for _ in range(4)]
 
 
 @pytest.mark.parametrize("s,sep,bq,bk,rate", CASES)
 def test_backward_matches_jax_vjp(s, sep, bq, bk, rate):
-    q, k, v, do = _inputs(s, seed=s + sep)
+    _check_backward(s, sep, bq, bk, rate, D)
+
+
+@pytest.mark.parametrize("d,s,sep,bq,bk,rate", HEAD_DIM_CASES)
+def test_backward_matches_jax_vjp_at_other_head_dims(d, s, sep, bq, bk, rate):
+    _check_backward(s, sep, bq, bk, rate, d)
+
+
+def _check_backward(s, sep, bq, bk, rate, d):
+    q, k, v, do = _inputs(s, seed=s + sep, d=d)
     dseed = 321 if rate else None
 
     def jax_fwd(q, k, v):
@@ -62,7 +84,7 @@ def test_backward_matches_jax_vjp(s, sep, bq, bk, rate):
     assert not lse.requires_grad
     np.testing.assert_allclose(o.detach().numpy(), np.asarray(want_o), atol=1e-5)
     for g, w, name in zip(got, want, "qkv"):
-        assert g.shape == (B, s, N, D) and g.dtype == torch.float32
+        assert g.shape == (B, s, N, d) and g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), w, atol=1e-5, err_msg=f"d{name}")
 
     # the plain versions called directly, from the forward's lse and delta

@@ -24,15 +24,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _shape(d):
+    """(B, N) of a case: cogview-base's at D = 64, small at the other widths."""
+    return (4, 40) if d == 64 else (2, 4)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("s,sep,rate", [(77, 5, 0.0), (1058, 0, 0.0), (1089, 100, 0.0),
                                         (333, 40, 0.1)])
-def test_flash_kernel_matches_plain_version(cuda_device, dtype, tol, s, sep, rate):
-    """The flash kernel on strided views of a fused QKV tensor at
-    cogview-base head shapes: o within ``tol`` (bfloat16: one rounding of o
+def test_flash_kernel_matches_plain_version(cuda_device, dtype, tol, s, sep, rate, d):
+    """The flash kernel on strided views of a fused QKV tensor (at D = 64
+    cogview-base head shapes): o within ``tol`` (bfloat16: one rounding of o
     and of the probabilities), lse within 1e-4."""
-    b, n, d = 4, 40, 64
+    b, n = _shape(d)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     qkv = torch.randn((b, s, 3, n * d), generator=gen, device=cuda_device).to(dtype)
     q, k, v = (qkv[:, :, i].reshape(b, s, n, d) for i in range(3))
@@ -47,13 +53,13 @@ def test_flash_kernel_matches_plain_version(cuda_device, dtype, tol, s, sep, rat
     assert (lse - rlse).abs().max().item() <= 1e-4
 
 
-def _backward_inputs(device, dtype, b, s, n, sep, rate, seed=0):
+def _backward_inputs(device, dtype, b, s, n, sep, rate, seed=0, d=64):
     """Strided q/k/v of a fused QKV tensor, dO, and the forward kernel's lse
     with delta = rowsum(dO * O)."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    qkv = torch.randn((b, s, 3, n * 64), generator=gen, device=device).to(dtype)
-    q, k, v = (qkv[:, :, i].reshape(b, s, n, 64) for i in range(3))
-    do = torch.randn((b, s, n, 64), generator=gen, device=device).to(dtype)
+    qkv = torch.randn((b, s, 3, n * d), generator=gen, device=device).to(dtype)
+    q, k, v = (qkv[:, :, i].reshape(b, s, n, d) for i in range(3))
+    do = torch.randn((b, s, n, d), generator=gen, device=device).to(dtype)
     kw = dict(dropout_rate=rate, dropout_seed=4321 if rate else None)
     with torch.no_grad():
         o, lse = fa.flash_attention(q, k, v, sep, **kw)
@@ -66,16 +72,17 @@ def _rel_err(got, want):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("s,sep,rate", [(77, 0, 0.0), (77, 64, 0.1), (130, 5, 0.0),
                                         (130, 100, 0.0), (130, 64, 0.1), (1088, 0, 0.1),
                                         (1088, 100, 0.0)])
-def test_flash_backward_kernels_match_plain_versions(cuda_device, dtype, tol, s, sep, rate):
+def test_flash_backward_kernels_match_plain_versions(cuda_device, dtype, tol, s, sep, rate, d):
     """dq (K4) and dk, dv (K5) against their plain versions on strided
     q/k/v: each within ``tol`` of its largest magnitude (bfloat16: ds and pd
     are rounded to bfloat16 before their products, and the outputs once
     more), and two launches on the same inputs bit-equal (no atomics)."""
-    args, kw = _backward_inputs(cuda_device, dtype, 2, s, 4, sep, rate)
+    args, kw = _backward_inputs(cuda_device, dtype, 2, s, 4, sep, rate, d=d)
     n_dq, n_dkv = fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches
     dq = fa.flash_bwd_dq(*args, sep, **kw)
     dk, dv = fa.flash_bwd_dkv(*args, sep, **kw)
@@ -86,20 +93,21 @@ def test_flash_backward_kernels_match_plain_versions(cuda_device, dtype, tol, s,
     rdq = fa.flash_bwd_dq_reference(*args, sep, kw["dropout_rate"], kw["dropout_seed"])
     rdk, rdv = fa.flash_bwd_dkv_reference(*args, sep, kw["dropout_rate"], kw["dropout_seed"])
     for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
-        assert got.dtype == dtype and got.shape == (2, s, 4, 64)
+        assert got.dtype == dtype and got.shape == (2, s, 4, d)
         assert _rel_err(got, want) <= tol
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("sep,rate", [(0, 0.0), (40, 0.1)])
-def test_flash_grads_match_autograd_of_plain_forward(cuda_device, sep, rate):
+def test_flash_grads_match_autograd_of_plain_forward(cuda_device, sep, rate, d):
     """Gradients through the three kernels (forward, dq, dk/dv) against
     autograd of the plain forward, float32, within 1e-4 of the largest."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
-    q, k, v = (torch.randn((2, 200, 3, 64), generator=gen, device=cuda_device)
+    q, k, v = (torch.randn((2, 200, 3, d), generator=gen, device=cuda_device)
                .requires_grad_() for _ in range(3))
-    w = torch.randn((2, 200, 3, 64), generator=gen, device=cuda_device)
+    w = torch.randn((2, 200, 3, d), generator=gen, device=cuda_device)
     kw = dict(dropout_rate=rate, dropout_seed=77 if rate else None)
     o, lse = fa.flash_attention(q, k, v, sep, **kw)
     assert not lse.requires_grad
@@ -112,13 +120,74 @@ def test_flash_grads_match_autograd_of_plain_forward(cuda_device, sep, rate):
 
 @pytest.mark.cuda
 def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
-    q = torch.zeros((1, 8, 2, 32), device=cuda_device)
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        fa.flash_attention(q, q, q)
+    for d in (8, 48):  # outside HEAD_DIMS
+        q = torch.zeros((1, 8, 2, d), device=cuda_device)
+        with pytest.raises(NotImplementedError, match="head_dim"):
+            fa.flash_attention(q, q, q)
     qkv = torch.zeros((1, 8, 3 * 64 * 2 + 1), device=cuda_device)
     q = qkv[:, :, 1:129].reshape(1, 8, 2, 64)  # rows not 4-element aligned
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention(q, q, q)
+    # bfloat16 rows 8 bytes past a 16-byte boundary: the cp.async copies of
+    # the backward need 16
+    qkv = torch.zeros((1, 8, 3 * 64 * 2 + 4), dtype=torch.bfloat16, device=cuda_device)
+    q = qkv[:, :, 4:132].reshape(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+def test_smoke_post_selection_runs_the_flash_kernel(cuda_device):
+    """The smoke preset (D = 16) scores 4 sequences of 1058 tokens in bf16
+    through the flash kernel, once per layer, and agrees with dense attention
+    on the card to 2e-3 of the largest score (the two paths round bf16
+    probabilities and contexts at different points)."""
+    from cogview_tpu_torch.config import smoke
+    from cogview_tpu_torch.generation import scoring
+    from cogview_tpu_torch.models import gpt
+
+    cfg = smoke()
+    assert cfg.head_dim == 16 and cfg.compute_dtype == torch.bfloat16
+    params = gpt.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                             dtype=torch.bfloat16, device=cuda_device)
+    # text ids throughout: the scored tail must lie outside the image vocabulary
+    tokens = torch.randint(8192, 8192 + 50000, (4, 1058),
+                           generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    before = fa.flash_attention.launches
+    got = scoring.inverse_prompt_score(params, cfg, tokens)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - before == cfg.num_layers
+    want = scoring.inverse_prompt_score(params, cfg.replace(use_flash_attention=False), tokens)
+    assert fa.flash_attention.launches - before == cfg.num_layers
+    assert bool(torch.isfinite(got).all()) and got.shape == (4,)
+    assert (got - want).abs().max().item() <= 2e-3 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_smoke_pretrain_step_runs_the_flash_kernels(cuda_device):
+    """One train step of the smoke preset (D = 16, bf16 compute) on 1088
+    tokens: with remat the forward kernel runs twice per layer and each
+    backward kernel once; the loss is finite."""
+    from cogview_tpu_torch.config import smoke
+    from cogview_tpu_torch.models import gpt
+    from cogview_tpu_torch.training import optim
+    from cogview_tpu_torch.training import train_loop as tl
+
+    cfg = smoke()
+    params = gpt.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                             device=cuda_device)
+    opt, _ = optim.make_optimizer(params, lr=1e-3, warmup_iter=1, num_iters=10)
+    state = tl.init_train_state(params, opt, torch.Generator().manual_seed(0))
+    rng = torch.Generator().manual_seed(2)
+    batch = {"text": torch.randint(0, cfg.vocab_size, (2, 1089), generator=rng).to(cuda_device),
+             "loss_mask": torch.ones(2, 1089, device=cuda_device)}
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [c.launches for c in counters]
+    _, metrics = tl.make_train_step(cfg, opt)(state, batch)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert [c.launches - n for c, n in zip(counters, before)] == [2 * L, L, L]
+    assert metrics["skipped"] == 0 and torch.isfinite(torch.tensor(metrics["lm_loss"]))
 
 
 @pytest.mark.cuda
