@@ -15,14 +15,17 @@ result):
    135 seals on a window boundary); context within tolerance, cache bytes
    bit-equal; the microseconds per call of both at index 600 and 1031, and
    the bound;
-4. flash kernel: against its plain PyTorch version at cogview-base head
-   shapes (B=4, N=40, D=64) on strided q/k/v views of a fused QKV tensor,
-   float32 and bfloat16: S=1058 (post-selection), S=1089 with a prefix that
-   crosses tiles, a ragged small S, and dropout 0.1; and at D=16, 32, 128
-   (B=2, N=4, S=77, and 333 with dropout); o and lse within tolerance; the
-   microseconds per call of both at S=1058, of
-   F.scaled_dot_product_attention with the same mask (a yardstick the port
-   never calls), and the bound;
+4. flash forward kernel (K3; bf16 on the tensor cores, float32 FMA):
+   against its plain PyTorch version at cogview-base head shapes (B=4,
+   N=40, D=64) on strided q/k/v views of a fused QKV tensor, float32 and
+   bfloat16: S=1058 (post-selection), S=1089 with a prefix that crosses
+   tiles, a ragged small S, and dropout 0.1; at the tutorial's training
+   shape (B=16, N=16, S=1088, sep 0, dropout 0.1); and at D=16, 32, 128
+   (B=2, N=4, S=77, and 333 with dropout); o and lse within tolerance, two
+   launches bit-equal; the microseconds per call of both at S=1058, of the
+   kernel at the training shape with and without dropout, and of
+   F.scaled_dot_product_attention with the same mask and with is_causal at
+   both shapes (yardsticks the port never calls), and the bounds;
 5. flash backward kernels: dq (K4) and dk/dv (K5) against their plain
    versions at tutorial head shapes (B=16, N=16, S=1088, sep 0 and 64, the
    latter with dropout 0.1), cogview-base head shapes (B=4, N=40,
@@ -30,8 +33,9 @@ result):
    float32 and bfloat16; two launches bit-equal; the microseconds per call
    of both at the tutorial's training shape, with and without dropout, and
    of one torch.autograd.grad through SDPA with the boolean mask and with
-   is_causal; the SASS of every bf16 instantiation of both holds HGMMA
-   (wgmma) and LDGSTS (cp.async), and at D=64 they spill nothing;
+   is_causal; then the SASS of every bf16 instantiation of the three flash
+   kernels (8 each) holds HGMMA (wgmma) and LDGSTS (cp.async), their
+   registers are printed, and at D=64 they spill nothing;
 6. probes: P1a (add_one) on a random block and P2 (the seal's lane
    scatter) on the TPU probe's inputs and random lane0 in [0, 120]
    bit-equal to their plain versions; P1b's SASS holds its cp.async
@@ -77,7 +81,8 @@ result):
    CompactBinary corpus written from a seed: finite falling losses, no
    skipped step, every flash launch counted (2 forward and 1 of each
    backward kernel per layer and step, no plain call), the step time,
-   tokens per second, device-busy share and peak memory; then a ``--load``
+   tokens per second, device-busy share, each flash kernel's milliseconds
+   per step (torch.profiler) and peak memory; then a ``--load``
    run resumes at the saved iteration and takes 2 more steps.
 
 The next-to-last line is the kernels' JSON record (each kernel's launches
@@ -246,17 +251,26 @@ def phase_kernel(torch, da, packed: bool):
     return {"max_abs_err": worst, "times": times}
 
 
+def _flash_bound(B, N, D, S, sep, esz, kind):
+    """Least time of one forward: q, k, v read once, o and lse written once;
+    4 D operations (s and p.v) per visible pair."""
+    return _bound(4 * B * S * N * D * esz + B * N * S * 4, 4 * D * _attn_pairs(S, sep) * B * N,
+                  kind)
+
+
 def phase_flash_kernel(torch, fa):
     """Flash kernel vs plain version at cogview-base head shapes (D = 64),
-    and at small shapes for the other head widths -> summary."""
+    at the tutorial's training shape, and at small shapes for the other head
+    widths; two launches bit-equal -> summary."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     worst, times = 0.0, {}
     # (B, N, D, S, sep, dropout rate): post-selection's length, a prefix that
-    # crosses the 64-row tiles, a ragged small S, and dropout with a fixed
-    # seed; then two small cases at each other head width
+    # crosses the 64-row tiles, a ragged small S, dropout with a fixed seed,
+    # and the tutorial's training shape with dropout; then two small cases
+    # at each other head width
     cases = [(4, 40, 64, 1058, 0, 0.0), (4, 40, 64, 1089, 100, 0.0), (4, 40, 64, 77, 5, 0.0),
-             (4, 40, 64, 333, 40, 0.1)]
+             (4, 40, 64, 333, 40, 0.1), (16, 16, 64, 1088, 0, 0.1)]
     cases += [(2, 4, d, S, sep, rate) for d in (16, 32, 128)
               for S, sep, rate in ((77, 5, 0.0), (333, 40, 0.1))]
     for B, N, D, S, sep, rate in cases:
@@ -267,30 +281,53 @@ def phase_flash_kernel(torch, fa):
             q, k, v = (qkv[:, :, i].reshape(B, S, N, D) for i in range(3))
             kw = dict(dropout_rate=rate, dropout_seed=1234 if rate else None)
             o, lse = fa.flash_attention(q, k, v, sep, **kw)
+            o2, lse2 = fa.flash_attention(q, k, v, sep, **kw)
             ro, rlse = fa.flash_attention_reference(q, k, v, sep, **kw)
             torch.cuda.synchronize()
             err = (o.float() - ro.float()).abs().max().item()
             lerr = (lse - rlse).abs().max().item()
+            same = torch.equal(o, o2) and torch.equal(lse, lse2)
             name = str(dtype)[6:]
             print(f"flash kernel {name} B={B} N={N} D={D} S={S} sep={sep} dropout={rate}: o "
-                  f"max_abs_err={err:.3e} (tol {tol:g}), lse max_abs_err={lerr:.3e} (tol 1e-4)")
+                  f"max_abs_err={err:.3e} (tol {tol:g}), lse max_abs_err={lerr:.3e} (tol 1e-4); "
+                  f"repeat bit-equal={same}")
             _check(o.dtype == dtype and o.shape == (B, S, N, D) and lse.shape == (B, N, S),
                    "flash o/lse dtype or shape")
             _check(err <= tol and lerr <= 1e-4, f"flash kernel differs at D={D} S={S} {name}")
+            _check(same, f"two launches of the flash kernel differ at D={D} S={S} {name}")
             worst = max(worst, err)
+            del o, o2, ro, lse, lse2, rlse
             if S == 1058:
                 us_k = _device_time_us(torch, lambda: fa.flash_attention(q, k, v, sep))
                 us_p = _device_time_us(torch, lambda: fa.flash_attention_reference(q, k, v, sep))
-                us_l = _sdpa_time_us(torch, q, k, v, sep)
-                esz = q.element_size()
-                bound_ms, by = _bound(4 * B * S * N * D * esz + B * N * S * 4,
-                                      4 * D * _attn_pairs(S, sep) * B * N,
-                                      "bf16" if dtype == torch.bfloat16 else "f32")
-                times[name] = (us_k, us_p, us_l, bound_ms, by)
+                us_l, us_c = _sdpa_time_us(torch, q, k, v, sep)
+                bound_ms, by = _flash_bound(B, N, D, S, sep, q.element_size(),
+                                            "bf16" if dtype == torch.bfloat16 else "f32")
+                times[name] = (us_k, us_p, us_l, us_c, bound_ms, by)
                 print(f"flash kernel time {name} S=1058: kernel {us_k:.1f} us/call, plain "
                       f"{us_p:.1f} us/call, scaled_dot_product_attention with the boolean mask "
-                      f"{us_l:.1f} us/call (CUDA events, median of 25); bound "
-                      f"{1000.0 * bound_ms:.2f} us ({by})")
+                      f"{us_l:.1f} us/call, with is_causal {us_c:.1f} us/call (CUDA events, median "
+                      f"of 25); bound {1000.0 * bound_ms:.2f} us ({by}), share "
+                      f"{bound_ms * 1000.0 / us_k:.3f}")
+        del qkv32, qkv, q, k, v
+
+    # the tutorial's training shape, where 744 of the 792 launches run: bf16,
+    # sep 0, with dropout 0.1 (as the train step) and without
+    B, N, D, S = 16, 16, 64, 1088
+    qkv = torch.randn((B, S, 3, N * D), generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].reshape(B, S, N, D) for i in range(3))
+    us_drop = _device_time_us(torch, lambda: fa.flash_attention(q, k, v, 0, dropout_rate=0.1,
+                                                                dropout_seed=1234))
+    us_nodrop = _device_time_us(torch, lambda: fa.flash_attention(q, k, v, 0))
+    us_l, us_c = _sdpa_time_us(torch, q, k, v, 0)
+    bound_ms, by = _flash_bound(B, N, D, S, 0, 2, "bf16")
+    times["train"] = (us_drop, us_nodrop, us_l, us_c, bound_ms, by)
+    print(f"flash kernel time bf16 B=16 N=16 S=1088 (training): kernel {us_drop:.1f} us/call "
+          f"with dropout 0.1, {us_nodrop:.1f} without; scaled_dot_product_attention with the "
+          f"boolean mask {us_l:.1f} us/call, with is_causal {us_c:.1f} us/call (CUDA events, "
+          f"median of 25); bound {1000.0 * bound_ms:.2f} us ({by}), share "
+          f"{bound_ms * 1000.0 / us_nodrop:.3f} without dropout")
+    del qkv, q, k, v
     return {"max_abs_err": worst, "times": times}
 
 
@@ -305,12 +342,16 @@ def _sdpa_args(torch, q, k, v, sep):
 
 def _sdpa_time_us(torch, q, k, v, sep):
     """One F.scaled_dot_product_attention call on the same inputs, the
-    yardstick of the flash forward; the port never calls it."""
+    yardstick of the flash forward, with the boolean mask and with
+    is_causal (the same function at sep 0) -> (us, us); the port never
+    calls it."""
     import torch.nn.functional as F
 
     qt, kt, vt, mask = _sdpa_args(torch, q, k, v, sep)
-    return _device_time_us(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                         attn_mask=mask))
+    return (_device_time_us(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                          attn_mask=mask)),
+            _device_time_us(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                          is_causal=True)))
 
 
 def _backward_inputs(torch, fa, dtype, b, s, n, sep, rate, gen, d=64):
@@ -433,11 +474,16 @@ def _cuobjdump(so, flag):
                           check=True).stdout
 
 
-def _check_tensor_core_backward(so) -> None:
-    """The bf16 backward kernels (K4, K5) run their products on the tensor
-    cores and copy asynchronously: each instantiation's SASS holds HGMMA and
-    UTMALDG or LDGSTS; and at D = 64 neither spills (no stack, no local
-    memory in cuobjdump's resource usage)."""
+FLASH_TC_KERNELS = {"fwd": "flash_fwd_wgmma_kernel", "dq": "flash_bwd_dq_wgmma_kernel",
+                    "dkv": "flash_bwd_dkv_wgmma_kernel"}
+
+
+def _check_tensor_core_kernels(so) -> None:
+    """The bf16 flash kernels (K3 forward, K4, K5) run their products on the
+    tensor cores and copy asynchronously: each of the 8 instantiations of
+    each (D in HEAD_DIMS, with and without dropout) holds HGMMA and UTMALDG
+    or LDGSTS in its SASS; and at D = 64 none spills (no stack, no local
+    memory in cuobjdump's resource usage).  Prints every one's registers."""
     found = {}
     for section in _cuobjdump(so, "-sass").split("Function : ")[1:]:
         name = section.split(None, 1)[0]
@@ -448,16 +494,22 @@ def _check_tensor_core_backward(so) -> None:
     for fn, line in re.findall(r"Function (\S+?):\s*\n\s*(REG:.*)", _cuobjdump(so, "-res-usage")):
         if "wgmma_kernel" in fn:
             usage[fn] = {k: int(v) for k, v in re.findall(r"(REG|STACK|LOCAL):(\d+)", line)}
+    for kind, kernel in FLASH_TC_KERNELS.items():
+        mine = {fn: hc for fn, hc in found.items() if kernel in fn}
+        regs = {(int(d), drop == "1"): u["REG"] for fn, u in usage.items() if kernel in fn
+                for d, drop in re.findall(r"ILi(\d+)ELb([01])E", fn)}
+        print(f"flash {kind} SASS (cuobjdump): {len(mine)} bf16 instantiations, HGMMA "
+              f"{sorted({h for h, _ in mine.values()})}, UTMALDG + LDGSTS "
+              f"{sorted({c for _, c in mine.values()})}; registers (D, dropout) "
+              f"{dict(sorted(regs.items()))}")
+        _check(len(mine) == 8 and all(h > 0 and c > 0 for h, c in mine.values()),
+               f"a bf16 {kind} kernel lacks tensor-core products or asynchronous copies")
     d64 = {fn: u for fn, u in usage.items() if "Li64E" in fn}
-    print(f"flash backward SASS (cuobjdump): {len(found)} bf16 instantiations, HGMMA "
-          f"{sorted({h for h, _ in found.values()})}, UTMALDG + LDGSTS "
-          f"{sorted({c for _, c in found.values()})}; registers at D = 64 "
-          f"{sorted(u['REG'] for u in d64.values())}, stack and local bytes "
+    print(f"flash SASS at D = 64: {len(d64)} bf16 instantiations, stack and local bytes "
           f"{sorted({u['STACK'] + u['LOCAL'] for u in d64.values()})}")
-    _check(len(found) == 16 and all(h > 0 and c > 0 for h, c in found.values()),
-           "a bf16 backward kernel lacks tensor-core products or asynchronous copies")
-    _check(len(d64) == 4 and all(u["STACK"] == 0 and u["LOCAL"] == 0 for u in d64.values()),
-           "a bf16 backward kernel at D = 64 spills")
+    _check(len(found) == 24, f"{len(found)} bf16 flash instantiations, expected 24")
+    _check(len(d64) == 6 and all(u["STACK"] == 0 and u["LOCAL"] == 0 for u in d64.values()),
+           "a bf16 flash kernel at D = 64 spills")
 
 
 def phase_probes(torch, probes, ssp):
@@ -931,10 +983,11 @@ def _write_corpus(path: str, rows: int, seed: int) -> None:
 
 def _device_busy(torch, prof, wall_s: float):
     """(device kernel seconds by category, busy share, the 8 longest
-    kernels) of a profile."""
+    kernels, the flash kernels' (seconds, launches) by instantiation) of a
+    profile."""
     cats = {"flash kernels": 0.0, "matmuls": 0.0, "elementwise": 0.0, "reductions": 0.0,
             "copies / casts": 0.0, "other": 0.0}
-    top = []
+    top, flash = [], {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -945,6 +998,8 @@ def _device_busy(torch, prof, wall_s: float):
         name = e.key.lower()
         if "flash" in name:
             cat = "flash kernels"
+            short = re.search(r"flash_\w+<[^>]*>", e.key)
+            flash[short.group(0) if short else e.key[:90]] = (us / 1e6, e.count)
         elif any(t in name for t in ("gemm", "cutlass", "xmma", "nvjet", "sm90")):
             cat = "matmuls"
         elif "reduce" in name or "norm" in name or "softmax" in name:
@@ -956,7 +1011,7 @@ def _device_busy(torch, prof, wall_s: float):
         else:
             cat = "other"
         cats[cat] += us / 1e6
-    return cats, sum(cats.values()) / wall_s, sorted(top, reverse=True)[:8]
+    return cats, sum(cats.values()) / wall_s, sorted(top, reverse=True)[:8], flash
 
 
 def phase_pretrain(torch, fa, pretrain, losses, optim, work: str):
@@ -1041,7 +1096,7 @@ def phase_pretrain(torch, fa, pretrain, losses, optim, work: str):
 
     step_ms = 1000.0 * statistics.median(rec["step_s"][3:])
     tokens = 16 * 1088
-    cats, busy, top = _device_busy(torch, rec["prof"], rec["prof_wall"])
+    cats, busy, top, flash = _device_busy(torch, rec["prof"], rec["prof_wall"])
     print(f"pretrain: {step_ms:.3f} ms per step (median of steps 4-{steps}, host clock around "
           f"synchronised steps), {tokens / step_ms * 1000.0:.1f} tokens/s; peak memory "
           f"{peak_gib:.3f} GiB")
@@ -1050,6 +1105,9 @@ def phase_pretrain(torch, fa, pretrain, losses, optim, work: str):
               f"{k} {1000.0 * v / 3:.3f} ms/step" for k, v in cats.items()))
     for sec, n, name in top:
         print(f"pretrain: kernel {1000.0 * sec / 3:.3f} ms/step ({n // 3} launches/step) {name}")
+    for name, (sec, n) in sorted(flash.items()):
+        print(f"pretrain: flash kernel {name} {1000.0 * sec / 3:.3f} ms/step ({n // 3} "
+              f"launches/step)")
 
     # forward, backward and optimizer apart, on the last batch and state
     state, cfg, kw = rec["state"], rec["cfg"], rec["kw"]
@@ -1143,7 +1201,7 @@ def main() -> int:
     k2 = phase_kernel(torch, da, packed=True)
     k3 = phase_flash_kernel(torch, fa)
     k45 = phase_flash_backward(torch, fa)
-    _check_tensor_core_backward(sos[names.index("flash_attention")])
+    _check_tensor_core_kernels(sos[names.index("flash_attention")])
     # phase 6: the probes against their plain versions, then the three
     # measurement entry points
     probe_err = phase_probes(torch, probes, ssp)
@@ -1225,17 +1283,24 @@ def main() -> int:
                     None, _bound(p2_bytes, 2 * ssp.HB * ssp.DC * ssp.G * ssp.G, "f32"), ssr),
     ]
 
-    fk, fp, fl, fbound, fby = k3["times"]["bfloat16"]
+    fk, fp, fl, fc, fbound, fby = k3["times"]["bfloat16"]
+    tdrop, tnodrop, tl_, tc, tbound, _ = k3["times"]["train"]
     kernels = [
         decode_entry("decode_attention_int8", k1, sum(n for n, _ in t2i) + i2t,
                      k1["max_abs_err"], "int8"),
         decode_entry("decode_attention_int4", k2, k2_launches, k2["max_abs_err"], "int4"),
+        # ms, plain_ms, library_ms and bound_ms at post-selection's shape
+        # (B=4, N=40, S=1058); train_* at the tutorial's training shape
+        # (B=16, N=16, S=1088), train_ms with dropout 0.1 as the train step
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "cogview_tpu_torch/csrc/flash_attention.cu",
          "replaces": "cogview_tpu/ops/flash_attention.py:163",
          "launches": flash_launches + train_launches[0], "max_abs_err": k3["max_abs_err"],
          "ms": fk / 1000.0, "plain_ms": fp / 1000.0, "bound_ms": fbound, "bound_by": fby,
-         "library_ms": fl / 1000.0},
+         "library_ms": fl / 1000.0, "library_causal_ms": fc / 1000.0, "design": "wgmma",
+         "bound_share": fbound / (fk / 1000.0), "train_ms": tdrop / 1000.0,
+         "train_nodrop_ms": tnodrop / 1000.0, "train_bound_ms": tbound,
+         "train_library_ms": tl_ / 1000.0, "train_library_causal_ms": tc / 1000.0},
     ] + [{
         "name": f"flash_attention_bwd_{name}",
         "route": "cuda",

@@ -3,14 +3,17 @@
 //
 // Replaces: cogview_tpu/ops/flash_attention.py::_fwd_kernel (:163), launched
 // by _flash_fwd_impl's pallas_call (:371); the backward kernels below
-// replace _bwd_dq_kernel (:212) and _bwd_dkv_kernel (:249).
+// replace _bwd_dq_kernel (:212) and _bwd_dkv_kernel (:249).  bfloat16
+// inputs run all three passes on the tensor cores (the wgmma kernels in the
+// second half of this file); float32 inputs run FMA kernels on the CUDA
+// cores, since float32 inputs need float32 products.
 //
 // Semantics (the JAX kernel's): s = (q . k) * scale with float32 sums; a key
 // is visible iff (kpos <= qpos || kpos < sep) and both positions are < S,
 // else its logit is -10000.  Online softmax in float32; l sums the mass
-// before dropout; a kept probability is p / keep (keep = 1 - rate), cast to
-// v's dtype, then multiplied with V.  o = acc / l in q's dtype and
-// lse = m + log(l) in float32.  The dropout keep bit is
+// before dropout; a kept probability is scaled by 1 / keep (keep = 1 -
+// rate), cast to v's dtype, then multiplied with V.  o = acc / l in q's
+// dtype and lse = m + log(l) in float32.  The dropout keep bit is
 // hash_u32(seed, qpos, kpos, b * N + n) >= threshold in wrapping uint32
 // arithmetic, bit for bit the JAX package's ops/hash_prng.py.
 //
@@ -20,29 +23,24 @@
 // wrapper passes their strides, so nothing is copied); o [B, S, N, D]
 // contiguous; lse [B, N, S].
 //
-// Design: the TPU runs its grid (B, N, Sq/bq) in order with whole-S K/V
-// blocks in VMEM.  Here one block of 128 threads owns one (b, n, 64-row
-// query tile), and the blocks run in parallel.  The query tile stays in
-// shared memory; 64-key K and V tiles are staged through shared memory one
-// after the other (64 KB in all at D = 64).  Thread (ty, tx) owns rows
-// 4ty..4ty+3 and columns Cols<64>::of(tx, j) = {4tx..4tx+3, 32+4tx..32+4tx+3}
-// of each 64 x 64 score tile, and rows 4ty..4ty+3 and head dims
-// Cols<D>::of(tx, j) (4 x D/8 of them) of the output, so the online-softmax
-// state (m, l and a 4 x D/8 accumulator) stays in registers.  Row maxima
-// and sums are reduced over the 8 threads of a row with warp shuffles.  Key
-// tiles wholly above the diagonal and past sep are skipped (the TPU's
-// `last`); the ragged edge (positions >= S) is zero-filled and masked.
-// Query tiles are issued longest first to even out the causal triangle.
+// The TPU runs its grid (B, N, Sq/bq) in order with whole-S K/V blocks in
+// VMEM.  Here one block of 128 threads owns one (b, n, 64-row query tile),
+// and the blocks run in parallel, longest query tiles first to even out the
+// causal triangle.  Key tiles wholly above the diagonal and past sep are
+// skipped (the TPU's `last`); the ragged edge (positions >= S) is
+// zero-filled and masked.  The bfloat16 forward is described with the
+// tensor-core kernels below.
 //
-// What bounds it on an H100: arithmetic.  Both products run as float32 FMA
-// on the CUDA cores (67 TFLOP/s peak), not on the tensor cores (989 TFLOP/s
-// bf16).  At post-selection's S = 1058, B = 4, N = 40 the causal half is
-// about 23 GFLOP per layer, while q, k, v and o are 87 MB in bf16: about
-// 260 operations per byte.  Each thread does 32 FMA for every 3 16-byte
-// shared-memory loads.  Left for later: wgmma tensor-core dots for bf16 as
-// the backward below has them (float32 inputs need float32 products),
-// asynchronous double buffering of the K/V tiles, and a separate unmasked
-// path for tiles below the diagonal.
+// float32 forward (FMA on the CUDA cores, 67 TFLOP/s peak): the query tile
+// stays in shared memory; 64-key K and V tiles are staged through shared
+// memory one after the other (64 KB in all at D = 64).  Thread (ty, tx)
+// owns rows 4ty..4ty+3 and columns Cols<64>::of(tx, j) = {4tx..4tx+3,
+// 32+4tx..32+4tx+3} of each 64 x 64 score tile, and rows 4ty..4ty+3 and
+// head dims Cols<D>::of(tx, j) (4 x D/8 of them) of the output, so the
+// online-softmax state (m, l and a 4 x D/8 accumulator) stays in registers.
+// Row maxima and sums are reduced over the 8 threads of a row with warp
+// shuffles.  It divides a kept probability by keep, as the float32 backward
+// kernels do.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -99,31 +97,6 @@ template <> struct Io<float> {
     *reinterpret_cast<float2*>(p) = make_float2(a, b);
   }
   static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <> struct Io<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    __nv_bfloat162 lo, hi;
-    *reinterpret_cast<uint32_t*>(&lo) = raw.x;
-    *reinterpret_cast<uint32_t*>(&hi) = raw.y;
-    const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<const uint32_t*>(&lo);
-    raw.y = *reinterpret_cast<const uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
 };
 
 // The columns thread tx (of the 8 in a row) owns in a tile W wide: N of
@@ -192,10 +165,12 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, long long ro
   }
 }
 
-template <typename T, int D, bool DROPOUT>
+template <int D, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, const Params p) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 const Params p) {
+  using T = float;      // bfloat16 inputs run the tensor-core kernel below
   using CK = Cols<BK>;  // the score tile's key columns
   using CD = Cols<D>;   // the output's head dims
   extern __shared__ __align__(16) float smem[];
@@ -632,38 +607,58 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------------------------
-// Backward on the tensor cores: the bfloat16 dq kernel (K4) and dk/dv
+// On the tensor cores: the bfloat16 forward (K3), dq kernel (K4) and dk/dv
 // kernel (K5).
 //
-// Replaces: cogview_tpu/ops/flash_attention.py::_bwd_dq_kernel (:212) and
-// ::_bwd_dkv_kernel (:249), launched by _flash_bwd_impl's pallas_calls
-// (:433, :451), for bfloat16 inputs.  Semantics: the backward's, above.
+// Replaces: cogview_tpu/ops/flash_attention.py::_fwd_kernel (:163),
+// ::_bwd_dq_kernel (:212) and ::_bwd_dkv_kernel (:249), launched by
+// _flash_fwd_impl's pallas_call (:371) and _flash_bwd_impl's (:433, :451),
+// for bfloat16 inputs.  Semantics: the forward's (file header) and the
+// backward's, above.
 //
-// What bounds them on an H100: the products and the epilogue.  Per visible
-// (query, key) pair the dq pass does 6 D operations (s, dp and dq) and the
-// dk/dv pass 8 D (s, dp, dv and dk): at the tutorial's B = 16, N = 16,
-// S = 1088, D = 64 that is 58 and 78 GFLOP, 58.9 and 78.5 us at the bf16
-// tensor-core peak (989 TFLOP/s).  Beside them every pair pays, on the CUDA
-// cores, one exp2 on the special-function units (~40 us a pass over the
-// 151.7 M visible pairs) and, with dropout, the ~12 integer operations of
-// the counter hash (~100 us a pass), so with dropout the epilogue may set
-// the pace.  The bytes (q, k, v, dO, lse and delta read once, the outputs
-// written once: 180 and 216 MB) take 54 and 65 us at 3.35 TB/s, just
-// under the products.
+// What bounds them on an H100.  The forward does 4 D operations per
+// visible (query, key) pair (s and p.v): at post-selection's B = 4, N = 40,
+// S = 1058, D = 64 that is 23 GFLOP, 23.2 us at the bf16 tensor-core peak
+// (989 TFLOP/s), against 87 MB of q, k, v, o and lse, 26.1 us at 3.35 TB/s:
+// bytes-bound at 26.1 us (at the tutorial's B = 16, N = 16, S = 1088: 39
+// GFLOP and 144 MB, 42.9 us).  The dq pass does 6 D operations per pair
+// (s, dp and dq) and the dk/dv pass 8 D (s, dp, dv and dk): at the
+// tutorial's shape 58 and 78 GFLOP, 58.9 and 78.5 us, just above their
+// bytes (q, k, v, dO, lse and delta read once, the outputs written once:
+// 180 and 216 MB, 54 and 65 us).  Beside the products every pair pays, on
+// the CUDA cores, one exp2 on the special-function units (~40 us a pass
+// over the tutorial's 151.7 M visible pairs) and, with dropout, the ~12
+// integer operations of the counter hash (~100 us a pass), so with dropout
+// the epilogue may set the pace of every pass.
 //
 // Design.  One warpgroup (128 threads) per block owns 64 rows of the
-// output: the dq pass a query tile (Q and dO resident), the dk/dv pass a
-// key tile (K and V resident); each walks the other side's tiles between
-// the same bounds as the float32 kernels (keys up to the diagonal or sep;
-// queries from the first that sees the key tile), longest query tiles
-// first in the dq pass.
+// output: the forward and the dq pass a query tile (Q, and dO for dq,
+// resident), the dk/dv pass a key tile (K and V resident); each walks the
+// other side's tiles between the same bounds as the float32 kernels (keys
+// up to the diagonal or sep; queries from the first that sees the key
+// tile), longest query tiles first in the forward and the dq pass.
 //  - Products with wgmma.mma_async m64nNk16, bf16 in, float32 accumulators.
 //    S = Q.K^T and dP = dO.V^T (dk/dv pass: S^T = K.Q^T, dP^T = V.dO^T)
 //    take both operands from shared memory, D/16 k-steps.  The epilogue
-//    turns them into ds (and pd) in the accumulator registers; these are
-//    rounded to bf16 and fed straight back as the A operand of
-//    dQ += dS.K (dV += Pd^T.dO, dK += dS^T.Q), with no trip through shared
-//    memory, and the streamed tile read MN-major as B (4 k-steps of 16).
+//    turns them into p (forward), ds (and pd) in the accumulator registers;
+//    these are rounded to bf16 and fed straight back as the A operand of
+//    O += P.V (dQ += dS.K, dV += Pd^T.dO, dK += dS^T.Q), with no trip
+//    through shared memory, and the streamed tile read MN-major as B (4
+//    k-steps of 16).
+//  - Forward epilogue: the online softmax in the log2 domain, each thread
+//    holding two rows of the 64 x 64 score tile (16 values each); row maxima
+//    over the thread's values, then over the row's 4 lanes by shuffles;
+//    O's D/2 accumulator registers are rescaled by their row's
+//    alpha = exp2(m_old - m_new) between the two products; each thread keeps
+//    its own part of l and the 4 lanes sum them once, at the end.  The
+//    epilogue, not the products, sets the forward's pace, so it is kept
+//    short: full tiles take the maximum of the raw scores and fold the
+//    scale into the fma before the exp2, and the exp2 is ex2.approx.ftz
+//    (exp2f adds three instructions for results below 2^-126).  Tried on
+//    an H100 and slower: 128-row blocks of two warpgroups sharing the K/V
+//    tiles (the tiles' L2 traffic does not bound it), the next tile's S
+//    issued before this tile's softmax within a warpgroup (more registers,
+//    and ptxas fences the register operands), and 5 blocks per SM at D = 64.
 //  - Tiles are bf16 in shared memory, in the swizzled layout the wgmma
 //    descriptors name (128-byte swizzle in 64-column panels for D >= 64,
 //    64-byte for D = 32, 32-byte for D = 16), filled by 16-byte cp.async
@@ -671,29 +666,40 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 //    streamed tiles are double-buffered: the next tile's copies are issued
 //    before this tile's products, so they overlap.
 //  - Tiles that every row sees wholly (below the diagonal, or inside the
-//    prefix, and inside S: the JAX kernels' full blocks) skip the mask;
-//    dropout still hashes every pair.  exp2 with log2(e) folded into the
-//    scale and lse; the kept probability is multiplied by 1 / keep_rate,
-//    as PyTorch divides a CUDA tensor by a scalar.
-//  - Registers: the dq pass holds S, dP (32 floats each), dQ (D/2) and the
+//    prefix, and inside S: the JAX kernels' full blocks) skip the mask (a
+//    MASKED template split); dropout still hashes every pair.  exp2 with
+//    log2(e) folded into the scale and lse; the forward's lse is
+//    (m2 + log2 l) ln 2.
+//  - Dropout scaling: the kept probability is multiplied by 1 / keep_rate,
+//    as PyTorch divides a CUDA tensor by a scalar, in all three bf16
+//    kernels, so the forward's kept probabilities and the backward's pd are
+//    the same numbers (the JAX kernel and the float32 kernels divide; the
+//    bf16 tolerance covers the one-ulp difference).
+//  - Registers: the forward holds S (32 floats), O (D/2) and the 16 p
+//    fragment registers; the dq pass S, dP (32 floats each), dQ (D/2) and the
 //    16 ds fragment registers.  The dk/dv pass holds dK and dV (D/2 each)
 //    beside S^T and dP^T; at D = 128 its query tiles are 32 wide, so S^T
 //    and dP^T take 16 floats each and dK, dV 64 each.
 //  - Several blocks share an SM, so one block's epilogue overlaps another's
 //    products.
-//  - ptxas (-Xptxas -v, sm_90a, a CUDA 12 nvcc), registers
-//    without / with dropout, and dynamic shared memory:
+//  - ptxas (-Xptxas -v, sm_90a, a CUDA 12 nvcc; chip_smoke.py prints the
+//    same from cuobjdump), registers without / with dropout, and dynamic
+//    shared memory:
+//      fwd:   D = 16: 72 / 79, D = 32: 89 / 93, D = 64: 128 / 128,
+//             D = 128: 166 / 168; 11,264 / 21,504 / 41,984 / 82,944 bytes
 //      dq:    D = 16: 98 / 103, D = 32: 118 / 128, D = 64: 128 / 162,
 //             D = 128: 190 / 234; 13,312 / 25,600 / 50,176 / 99,328 bytes
 //      dk/dv: D = 16: 138 / 158, D = 32: 155 / 160, D = 64: 198 / 218,
 //             D = 128: 210 / 228; 14,336 / 26,624 / 51,200 / 67,072 bytes
-//    no instantiation spills (0-byte stack frames), so at D = 64 four dq
-//    blocks (three with dropout) and two dk/dv blocks share an SM.
-//    chip_smoke.py prints the D = 64 registers from cuobjdump and fails on
-//    any stack or local memory there.
+//    no instantiation spills (0-byte stack frames), so at D = 64 four
+//    forward blocks, four dq blocks (three with dropout) and two dk/dv
+//    blocks share an SM.
+//    chip_smoke.py prints every bf16 kernel's registers from cuobjdump and
+//    fails on any stack or local memory at D = 64.
 // ------------------------------------------------------------------------
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -990,6 +996,171 @@ __device__ __forceinline__ void store_fragment(__nv_bfloat16* out, long long row
   }
 }
 
+// 2^x on the special-function unit, results below 2^-126 flushed to zero
+// (exp2f adds a rescale around it for them, three more instructions)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// forward epilogue: rows are queries (qrow = the thread's first row),
+// columns keys (kcol = k0 + 2 (lane % 4)).  Scores s -> the probabilities
+// as A fragments, the rows' new maxima m (log2 domain), the rescale alpha of
+// the old state, and this thread's part of l
+template <bool MASKED, bool DROPOUT>
+__device__ __forceinline__ void fwd_epilogue(float (&s)[32], uint32_t (&a)[16], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2], int qrow,
+                                             int kcol, float scale_log2, float inv_keep,
+                                             const Params& p, uint32_t bn) {
+  // A masked tile scales its scores and masks them in place.  A full tile
+  // keeps them raw: the row maximum of s * c is round(max(s) * c) for
+  // c > 0, and s * c - m goes into one fma.
+  const float c = MASKED ? 1.0f : scale_log2;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    if (MASKED) {
+      const int qpos = qrow + 8 * h, kpos = kcol + 8 * (i >> 2) + (i & 1);
+      s[i] = (kpos <= qpos || kpos < p.sep) && kpos < p.S && qpos < p.S ? s[i] * scale_log2
+                                                                        : MASK_VALUE * LOG2E;
+    }
+    mx[h] = fmaxf(mx[h], s[i]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h] * c);
+    alpha[h] = exp2_ftz(m[h] - m_new);  // 0 on the first tile (m = -inf)
+    m[h] = m_new;
+    l[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int h = i & 1;
+    float p0 = exp2_ftz(fmaf(s[2 * i], c, -m[h])), p1 = exp2_ftz(fmaf(s[2 * i + 1], c, -m[h]));
+    l[h] += p0 + p1;  // the mass before dropout
+    if (DROPOUT) {
+      const int qpos = qrow + 8 * h, kpos = kcol + 8 * (i >> 1);
+      p0 = hash_u32(p.seed, (uint32_t)qpos, (uint32_t)kpos, bn) >= p.threshold ? p0 * inv_keep
+                                                                              : 0.0f;
+      p1 = hash_u32(p.seed, (uint32_t)qpos, (uint32_t)(kpos + 1), bn) >= p.threshold
+               ? p1 * inv_keep
+               : 0.0f;
+    }
+    a[i] = pack_bf16(p0, p1);
+  }
+}
+
+template <int D>
+constexpr size_t fwd_tc_smem_bytes() {
+  return 5 * Tile<D, 64>::BYTES + 1024;  // Q, 2 x (K, V); alignment slack
+}
+
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, const Params p) {
+  using TT = Tile<D, 64>;
+  extern __shared__ __align__(128) uint8_t smem_tc[];
+  const uint32_t sQ = (smem_u32(smem_tc) + 1023u) & ~1023u;
+  const uint32_t sKV = sQ + TT::BYTES;  // buffer j: K at sKV + 2 j BYTES, V after it
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest rows first
+  const int n = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * 64;
+  const int S = p.S;
+  const uint32_t bn = (uint32_t)(b * p.N + n);
+
+  const __nv_bfloat16* qb = q + (long long)b * p.q_sb + (long long)n * D;
+  const __nv_bfloat16* kb = k + (long long)b * p.k_sb + (long long)n * D;
+  const __nv_bfloat16* vb = v + (long long)b * p.v_sb + (long long)n * D;
+
+  // keys any row of this tile can see: [0, max(last row + 1, sep)) within S
+  const int qlast = min(q0 + 64, S) - 1;
+  const int nkt = (min(S, max(qlast + 1, p.sep)) + 63) / 64;
+
+  TT::load(sQ, qb, p.q_ss, q0, S);
+  TT::load(sKV, kb, p.k_ss, 0, S);
+  TT::load(sKV + TT::BYTES, vb, p.v_ss, 0, S);
+  cp_async_commit();
+
+  const int qrow = q0 + 16 * warp + (lane >> 2);
+  const float scale_log2 = p.scale * LOG2E, inv_keep = 1.0f / p.keep;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * 64;
+    const uint32_t sK = sKV + (kt & 1) * 2 * TT::BYTES, sV = sK + TT::BYTES;
+    cp_async_wait_all();  // tile kt is in
+    fence_async_shared();
+    __syncthreads();  // ... for every thread, and tile kt - 1's buffer is free
+    if (kt + 1 < nkt) {
+      const uint32_t nK = sKV + ((kt + 1) & 1) * 2 * TT::BYTES;
+      TT::load(nK, kb, p.k_ss, k0 + 64, S);
+      TT::load(nK + TT::BYTES, vb, p.v_ss, k0 + 64, S);
+      cp_async_commit();
+    }
+
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+    fence_operands(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(s, TT::kmajor(sQ, kk), TT::kmajor(sK, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(s);
+
+    uint32_t a[16];
+    float alpha[2];
+    const int kcol = k0 + 2 * (lane & 3);
+    if (tile_full(q0, 64, k0, 64, p.sep, S))
+      fwd_epilogue<false, DROPOUT>(s, a, m, l, alpha, qrow, kcol, scale_log2, inv_keep, p, bn);
+    else
+      fwd_epilogue<true, DROPOUT>(s, a, m, l, alpha, qrow, kcol, scale_log2, inv_keep, p, bn);
+
+    // the previous product is complete (waited below), so the rescale reads
+    // and writes settled registers; the fence keeps it ahead of the next one
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a + 4 * kk, TT::mnmajor(sV, kk));  // o += p.v
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(acc);
+  }
+
+  // l: the sum of the 4 lanes' parts of each row
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = acc[i] / l[(i >> 1) & 1];
+  store_fragment<D>(o + (long long)b * S * p.N * D + (long long)n * D, (long long)p.N * D, q0, S,
+                    acc);
+  if ((lane & 3) == 0) {
+    float* lse_b = lse + ((long long)b * p.N + n) * S;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = qrow + 8 * h;
+      if (r < S) lse_b[r] = (m[h] + log2f(l[h])) * LN2;
+    }
+  }
+}
+
 template <int D>
 constexpr size_t dq_tc_smem_bytes() {
   return 6 * Tile<D, 64>::BYTES + 1024;  // Q, dO, 2 x (K, V); alignment slack
@@ -1268,9 +1439,15 @@ template <typename T, int D, bool DROPOUT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    const Params& p, cudaStream_t stream) {
   const dim3 grid((p.S + BQ - 1) / BQ, p.N, B);
-  return launch_kernel(flash_fwd_kernel<T, D, DROPOUT>, grid, fwd_smem_bytes<D>(), stream,
-                       static_cast<const T*>(q), static_cast<const T*>(k),
-                       static_cast<const T*>(v), static_cast<T*>(o), lse, p);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return launch_kernel(flash_fwd_wgmma_kernel<D, DROPOUT>, grid, fwd_tc_smem_bytes<D>(),
+                         stream, qt, kt, vt, static_cast<T*>(o), lse, p);
+  else
+    return launch_kernel(flash_fwd_kernel<D, DROPOUT>, grid, fwd_smem_bytes<D>(), stream, qt,
+                         kt, vt, static_cast<T*>(o), lse, p);
 }
 
 // f(std::integral_constant<int, D>) for the head dims the kernels are built

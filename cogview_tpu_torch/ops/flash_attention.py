@@ -23,7 +23,8 @@ backward computes ``delta = rowsum(dO * O)`` in float32 and then dq through
 of the JAX package's custom VJP.  lse has no gradient.
 
 Each of the three passes launches a hand-written kernel of
-csrc/flash_attention.cu on a CUDA tensor, or raises; on a CPU tensor it runs
+csrc/flash_attention.cu on a CUDA tensor (bfloat16 on the tensor cores,
+float32 on the CUDA cores), or raises; on a CPU tensor it runs
 its plain PyTorch version (``flash_attention_reference``,
 ``flash_bwd_dq_reference``, ``flash_bwd_dkv_reference``).  ``.launches`` on
 each wrapper counts kernel launches, ``.calls`` on each plain version counts
@@ -161,7 +162,7 @@ def _check_operand(name: str, t: torch.Tensor, shape, dtype, device) -> None:
                          f"expected {shape} {dtype} on {device}")
     # the kernels take batch and sequence strides; a head row must be
     # contiguous and start 16-byte aligned (the float32 kernels read 4
-    # values at a time, the bfloat16 backward copies 16 bytes with cp.async)
+    # values at a time, the bfloat16 kernels copy 16 bytes with cp.async)
     if t.stride(3) != 1 or t.stride(2) != shape[3]:
         raise ValueError(f"{name}: heads and head dims must be contiguous, "
                          f"strides {t.stride()}")

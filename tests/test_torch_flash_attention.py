@@ -1,11 +1,12 @@
-"""Port parity: the plain PyTorch flash-attention forward (the CUDA kernel's
+"""Port parity: the plain PyTorch flash-attention forward (the CUDA kernels'
 twin) against cogview_tpu's Pallas kernel, which runs in interpret mode on
-the CPU, float32, atol 1e-5 (the two sum in different orders).
+the CPU, float32, atol 1e-5 (the two sum in different orders), and in
+bfloat16, the tensor-core kernel's working type (o 2e-2, lse 1e-4).
 
 The cases are those of tests/test_flash_attention.py: causal, a
 bidirectional prefix, a prefix past the block size, and hash dropout with a
-prefix.  The kernel itself is compared with the plain version on a card by
-tests/test_torch_kernels_cuda.py."""
+prefix.  The kernels themselves are compared with the plain version on a
+card by tests/test_torch_kernels_cuda.py."""
 
 import re
 from pathlib import Path
@@ -59,6 +60,28 @@ def test_forward_matches_jax_kernel_at_other_head_dims(d, s, sep, rate):
     got, want, _, _ = _both(s, sep, 64, 64, seed=d, rate=rate,
                             dropout_seed=55 if rate else None, d=d)
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("sep,rate", [(0, 0.0), (37, 0.0), (0, 0.1), (37, 0.1)])
+def test_bf16_forward_matches_jax_kernel(sep, rate):
+    """bfloat16 inputs, the working type of the tensor-core kernel: the
+    port's plain forward against the Pallas kernel in interpret mode on the
+    same bf16 values, D = 64, S = 200.  Both sum products of bf16 values in
+    float32 and round p to bf16 before p.v, but after different maxima (the
+    Pallas kernel its running one, the plain version the row's), and o is
+    bf16, so o agrees within 2e-2 (a few bf16 ulps of |o| < 4).  lse is
+    float32 from the same products and agrees within 1e-4."""
+    s, d, dseed = 200, 64, 55 if rate else None
+    q, k, v = _mk(s, seed=21, d=d)
+    seed = jnp.asarray([dseed or 0], dtype=jnp.uint32)
+    want_o, res = jfa._flash_fwd_impl(*(jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v)),
+                                      seed, sep, 64, 64, True, rate)
+    want_lse = np.asarray(res[5])[:, :, :s, 0]
+    o, lse = tfa.flash_attention(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+                                 sep, dropout_rate=rate, dropout_seed=dseed)
+    assert o.dtype == torch.bfloat16 and o.shape == (B, s, N, d) and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.float().numpy(), np.asarray(want_o, dtype=np.float32), atol=2e-2)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=1e-4)
 
 
 def test_head_dims_match_the_kernels_dispatch():

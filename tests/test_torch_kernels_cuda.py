@@ -32,16 +32,21 @@ def _shape(d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("s,sep,rate", [(77, 5, 0.0), (1058, 0, 0.0), (1089, 100, 0.0),
-                                        (333, 40, 0.1)])
-def test_flash_kernel_matches_plain_version(cuda_device, dtype, tol, s, sep, rate, d):
+@pytest.mark.parametrize("s,sep,rate,q_scale", [(77, 5, 0.0, 1.0), (1058, 0, 0.0, 1.0),
+                                                (1089, 100, 0.0, 1.0), (333, 40, 0.1, 1.0),
+                                                (128, 64, 0.0, 1.0), (64, 0, 0.0, 1.0),
+                                                (1088, 0, 0.1, 1.0), (333, 0, 0.0, 8.0)])
+def test_flash_kernel_matches_plain_version(cuda_device, dtype, tol, s, sep, rate, q_scale, d):
     """The flash kernel on strided views of a fused QKV tensor (at D = 64
     cogview-base head shapes): o within ``tol`` (bfloat16: one rounding of o
-    and of the probabilities), lse within 1e-4."""
+    and of the probabilities), lse within 1e-4.  Besides a ragged S, prefixes
+    that cross tiles and dropout: the unmasked tiles' edges (S = 128 with the
+    prefix ending on a tile edge, S = 64 one full tile), the tutorial's
+    training shape (S = 1088, sep 0, dropout 0.1), and q scaled by 8, which
+    puts the rows' largest logits near 25 (the bf16 kernel sums in the log2
+    domain and converts once, lse = (m2 + log2 l) ln 2)."""
     b, n = _shape(d)
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    qkv = torch.randn((b, s, 3, n * d), generator=gen, device=cuda_device).to(dtype)
-    q, k, v = (qkv[:, :, i].reshape(b, s, n, d) for i in range(3))
+    q, k, v = _flash_inputs(cuda_device, dtype, b, s, n, d, q_scale)
     kw = dict(dropout_rate=rate, dropout_seed=1234 if rate else None)
     before = fa.flash_attention.launches
     o, lse = fa.flash_attention(q, k, v, sep, **kw)
@@ -51,6 +56,29 @@ def test_flash_kernel_matches_plain_version(cuda_device, dtype, tol, s, sep, rat
     assert o.dtype == dtype and o.shape == (b, s, n, d) and lse.shape == (b, n, s)
     assert (o.float() - ro.float()).abs().max().item() <= tol
     assert (lse - rlse).abs().max().item() <= 1e-4
+
+
+def _flash_inputs(device, dtype, b, s, n, d, q_scale=1.0):
+    """Strided q/k/v views of a fused QKV tensor, q scaled by ``q_scale``."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    qkv = torch.randn((b, s, 3, n * d), generator=gen, device=device)
+    qkv[:, :, 0] *= q_scale
+    qkv = qkv.to(dtype)
+    return tuple(qkv[:, :, i].reshape(b, s, n, d) for i in range(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_repeats_bit_equal(cuda_device, dtype, d):
+    """Two forward launches on the same inputs (a prefix across tiles,
+    dropout) give the same bits: no atomics, no order that changes."""
+    q, k, v = _flash_inputs(cuda_device, dtype, 2, 333, 4, d)
+    kw = dict(dropout_rate=0.1, dropout_seed=99)
+    o, lse = fa.flash_attention(q, k, v, 40, **kw)
+    o2, lse2 = fa.flash_attention(q, k, v, 40, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 def _backward_inputs(device, dtype, b, s, n, sep, rate, seed=0, d=64):
@@ -129,7 +157,7 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention(q, q, q)
     # bfloat16 rows 8 bytes past a 16-byte boundary: the cp.async copies of
-    # the backward need 16
+    # the bfloat16 kernels need 16
     qkv = torch.zeros((1, 8, 3 * 64 * 2 + 4), dtype=torch.bfloat16, device=cuda_device)
     q = qkv[:, :, 4:132].reshape(1, 8, 2, 64)
     with pytest.raises(ValueError, match="aligned"):
