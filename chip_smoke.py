@@ -10,11 +10,15 @@ result):
 2. build: compile the three kernel sources from cogview_tpu_torch/csrc/ with
    nvcc, one process per source, in parallel;
 3. decode kernels: K1 (int8 cache) and K2 (packed int4 cache) against their
-   plain PyTorch version at cogview-base head shapes (B=4, N=40, D=64, 9
-   windows), float32 and bfloat16 queries, seal and non-seal steps (index
-   135 seals on a window boundary); context within tolerance, cache bytes
-   bit-equal; the microseconds per call of both at index 600 and 1031, and
-   the bound;
+   plain PyTorch version at cogview-base head shapes (N=40, D=64, 9
+   windows) at batch 4 (the split plan's 4 splits) and 40 (one), float32
+   and bfloat16 queries, seal and non-seal steps (index 135 seals on a
+   window boundary, 1031 mid-window, index 3 has every sealed column
+   masked); context within tolerance, cache bytes bit-equal, two launches
+   bit-equal; the microseconds per call of both at index 600 and 1031 at
+   both batches, and the bound; at batch 4 also at every split count.
+   Then the SASS of all 20 decode instantiations holds LDGSTS (cp.async),
+   their registers are printed, and at D=64 they spill nothing;
 4. flash forward kernel (K3; bf16 on the tensor cores, float32 FMA):
    against its plain PyTorch version at cogview-base head shapes (B=4,
    N=40, D=64) on strided q/k/v views of a fused QKV tensor, float32 and
@@ -46,10 +50,10 @@ result):
    480-call chains, eager and replayed from a CUDA graph, bit-equal to the
    plain chains), ``scripts.seal_scatter_probe`` (the 64-call loop and the
    kernel alone), and ``scripts.decode_kernel_microbench`` for the int8 and
-   the int4 cache and for the int8 cache without the ring write (K1, K2 on
-   a random cache at batch 40 over 1-9 live windows, each point's ctx
-   against the plain version: the slope and intercept, eager and in a
-   graph), each cache freed before the next.  The probes' times are per
+   the int4 cache, for the int8 cache without the ring write, and for the
+   int8 cache at batch 4 (K1, K2 on a random cache at batch 40, or 4, over
+   1-9 live windows, each point's ctx against the plain version: the slope
+   and intercept, eager and in a graph), each cache freed before the next.  The probes' times are per
    call of many calls replayed from one CUDA graph, the plain versions'
    and torch.add's beside them, with the bounds;
 7. small input: prefill + decode of a tiny float32 model through the int8,
@@ -59,9 +63,13 @@ result):
    dropout 0.1, card against CPU;
 9. text->image: ``cogview_tpu_torch.cli.generate.main`` at cogview-base width
    (48 layers, random weights from a seed), int8 KV cache, batch 4, one
-   request of 30 words, first with bf16 weights, then with int8 weights.
+   request of 30 words, first with int8 weights, then with bf16 weights.
    Checks the generated ids, the four PNGs, and that every decode step of
-   every layer launched K1 and never its plain version;
+   every layer launched K1 and never its plain version; decode steps
+   512-519 of the bf16-weight request run under torch.profiler, which gives
+   K1's device milliseconds per step, and the host clock per step before
+   and after them (the profiler leaves a cost on later launches, so phase
+   12, the other long host-bound request, runs before phase 9);
 10. image->text: the CLI on the first bf16-weight PNG, batch 4: 20 text ids
    per row, 20 x 48 K1 launches;
 11. post-selection: the CLI scores the four PNGs against the prompt: four
@@ -183,17 +191,15 @@ def _attn_pairs(S: int, sep: int) -> int:
     return sum(max(i + 1, sep) for i in range(S))
 
 
-def phase_kernel(torch, da, packed: bool):
-    """K1 (int8 cache) or K2 (packed int4 cache) against the plain version
-    at cogview-base head shapes -> summary dict."""
+def _decode_inputs(torch, da, packed: bool, B: int, seed: int):
+    """Two layers of a random cogview-base cache (N=40, D=64, 9 windows) at
+    batch B -> (kv, scales, ring, float32 q)."""
     dev = torch.device("cuda")
-    B, N, D, W, G, L, li = 4, 40, 64, da.WRITE_WINDOW, da.SEAL_GROUP, 2, 1
-    Dc = D // 2 if packed else D
-    name = "K2 int4" if packed else "K1 int8"
+    N, D, W, G, L = 40, 64, da.WRITE_WINDOW, da.SEAL_GROUP, 2
     NW = da.pad_cache_len(1088) // W
-    gen = torch.Generator(device=dev).manual_seed(9 if packed else 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     if packed:  # bytes the packer can make: 16 * hi + lo + 8, hi, lo in [-7, 7]
-        hi, lo = (torch.randint(-7, 8, (L, NW, B, 2, N, Dc, W), generator=gen, device=dev)
+        hi, lo = (torch.randint(-7, 8, (L, NW, B, 2, N, D // 2, W), generator=gen, device=dev)
                   for _ in range(2))
         kv = (16 * hi + lo + 8).to(torch.int8)
         sc = torch.rand((L, NW, B, 2, N, W), generator=gen, device=dev) * 0.3
@@ -202,53 +208,91 @@ def phase_kernel(torch, da, packed: bool):
                            dtype=torch.int8)
         sc = torch.rand((L, NW, B, 2, N, W), generator=gen, device=dev) * 0.02
     ring = torch.randn((L, G, B, N, 2 * D), generator=gen, device=dev)
-    q32 = torch.randn((B, N, D), generator=gen, device=dev)
-    worst = 0.0
+    return kv, sc, ring, torch.randn((B, N, D), generator=gen, device=dev)
+
+
+# phase 3's cases: (batch, seed, indices checked, indices timed)
+DECODE_CASES = ((4, 0, (10, 133, 600, 15, 135, 1031, 3, 7, 1088), (600, 1031)),
+                (40, 1, (600, 1031), (600, 1031)))
+
+
+def phase_kernel(torch, da, packed: bool):
+    """K1 (int8 cache) or K2 (packed int4 cache) against the plain version
+    at cogview-base head shapes, batch 4 and 40, on layer 1 of a two-layer
+    cache: ctx within tolerance, cache bytes bit-equal, two launches
+    bit-equal; then the times of both, and at batch 4 of the kernel at
+    every split count -> summary dict."""
+    N, D, G, li = 40, 64, da.SEAL_GROUP, 1
+    Dc = D // 2 if packed else D
+    NW = da.pad_cache_len(1088) // da.WRITE_WINDOW
+    name = "K2 int4" if packed else "K1 int8"
+    worst, times, split_us = 0.0, {}, {}
     # K1's bf16 path rounds q and p * vs to bf16 (2e-2); K2 computes in
     # float32 and rounds its bf16 ctx once, as its plain version does, so the
     # two may differ by the float32 tolerance plus one bf16 ulp (2^-7 of the
     # value), no more
     bf16_tol = None if packed else 2e-2
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, bf16_tol)):
-        q = q32.to(dtype)
-        for idx in (10, 133, 600, 15, 135, 1031):
-            kv_k, sc_k, kv_r, sc_r = kv.clone(), sc.clone(), kv.clone(), sc.clone()
-            ctx_k = da.decode_attention_quant(q, ring[li], kv_k[li], sc_k[li], idx)
-            ctx_r = da.decode_attention_quant_reference(q, ring[li], kv_r[li], sc_r[li], idx)
-            torch.cuda.synchronize()
-            diff = (ctx_k.float() - ctx_r.float()).abs()
-            err = diff.max().item()
-            if tol is None:
-                ok = bool((diff <= 1e-4 + ctx_r.float().abs() * 2.0 ** -7).all())
-                tol_text = "1e-4 + one bf16 ulp"
-            else:
-                ok, tol_text = err <= tol, f"{tol:g}"
-            seal = idx % G == G - 1
-            same = torch.equal(kv_k, kv_r) and torch.equal(sc_k, sc_r)
-            changed = not torch.equal(kv_k, kv)
-            print(f"kernel {name} {str(dtype)[6:]} index={idx} seal={seal}: ctx max_abs_err="
-                  f"{err:.3e} (tol {tol_text}) cache bit-equal={same} cache written={changed}")
-            _check(ctx_k.dtype == dtype and ctx_k.shape == (B, N, D), "ctx dtype/shape")
-            _check(ok, f"{name} ctx error {err} beyond {tol_text} at index {idx}")
-            _check(same, f"{name} cache differs from the plain version at index {idx}: "
-                   f"{(kv_k != kv_r).sum().item()} bytes, {(sc_k != sc_r).sum().item()} scales")
-            _check(changed == seal, f"{name} cache written={changed} on seal={seal} at index {idx}")
-            worst = max(worst, err)
+    for B, seed, indices, timed in DECODE_CASES:
+        kv, sc, ring, q32 = _decode_inputs(torch, da, packed, B, seed + (9 if packed else 0))
+        splits = da.split_plan(B, N, NW)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, bf16_tol)):
+            q = q32.to(dtype)
+            for idx in indices:
+                kv_k, sc_k, kv_2, sc_2, kv_r, sc_r = (t.clone() for t in (kv, sc) * 3)
+                ctx_k = da.decode_attention_quant(q, ring[li], kv_k[li], sc_k[li], idx)
+                ctx_2 = da.decode_attention_quant(q, ring[li], kv_2[li], sc_2[li], idx)
+                ctx_r = da.decode_attention_quant_reference(q, ring[li], kv_r[li], sc_r[li], idx)
+                torch.cuda.synchronize()
+                diff = (ctx_k.float() - ctx_r.float()).abs()
+                err = diff.max().item()
+                if tol is None:
+                    ok = bool((diff <= 1e-4 + ctx_r.float().abs() * 2.0 ** -7).all())
+                    tol_text = "1e-4 + one bf16 ulp"
+                else:
+                    ok, tol_text = err <= tol, f"{tol:g}"
+                seal = idx % G == G - 1
+                same = torch.equal(kv_k, kv_r) and torch.equal(sc_k, sc_r)
+                changed = not torch.equal(kv_k, kv)
+                repeat = (torch.equal(ctx_k, ctx_2) and torch.equal(kv_k, kv_2)
+                          and torch.equal(sc_k, sc_2))
+                print(f"kernel {name} {str(dtype)[6:]} B={B} splits={splits} index={idx} "
+                      f"seal={seal}: ctx max_abs_err={err:.3e} (tol {tol_text}) cache "
+                      f"bit-equal={same} cache written={changed} repeat bit-equal={repeat}")
+                _check(ctx_k.dtype == dtype and ctx_k.shape == (B, N, D), "ctx dtype/shape")
+                _check(ok, f"{name} ctx error {err} beyond {tol_text} at B={B} index {idx}")
+                _check(same, f"{name} cache differs from the plain version at B={B} index "
+                       f"{idx}: {(kv_k != kv_r).sum().item()} bytes, "
+                       f"{(sc_k != sc_r).sum().item()} scales")
+                _check(changed == seal, f"{name} cache written={changed} on seal={seal} at "
+                       f"index {idx}")
+                _check(repeat, f"two launches of {name} differ at B={B} index {idx}")
+                worst = max(worst, err)
+                del kv_k, sc_k, kv_2, sc_2, kv_r, sc_r
 
-    times = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q = q32.to(dtype)
-        for idx in (600, 1031):
-            kv_t, sc_t = kv.clone(), sc.clone()
-            args = (q, ring[li], kv_t[li], sc_t[li], idx)
-            us_k = _device_time_us(torch, lambda: da.decode_attention_quant(*args))
-            us_p = _device_time_us(torch, lambda: da.decode_attention_quant_reference(*args))
-            bound_ms, by = _decode_bound(B, N, D, Dc, G, idx, q.element_size())
-            times[(str(dtype)[6:], idx)] = (us_k, us_p, bound_ms, by)
-            print(f"kernel {name} time {str(dtype)[6:]} index={idx}: kernel {us_k:.1f} us/call, "
-                  f"plain {us_p:.1f} us/call (CUDA events, median of 25); bound "
-                  f"{1000.0 * bound_ms:.2f} us ({by})")
-    return {"max_abs_err": worst, "times": times}
+        for dtype in (torch.float32, torch.bfloat16):
+            q = q32.to(dtype)
+            for idx in timed:
+                kv_t, sc_t = kv.clone(), sc.clone()
+                args = (q, ring[li], kv_t[li], sc_t[li], idx)
+                us_k = _device_time_us(torch, lambda: da.decode_attention_quant(*args))
+                us_p = _device_time_us(torch, lambda: da.decode_attention_quant_reference(*args))
+                bound_ms, by = _decode_bound(B, N, D, Dc, G, idx, q.element_size())
+                times[(B, str(dtype)[6:], idx)] = (us_k, us_p, bound_ms, by)
+                print(f"kernel {name} time {str(dtype)[6:]} B={B} index={idx}: kernel "
+                      f"{us_k:.2f} us/call ({splits} splits), plain {us_p:.1f} us/call (CUDA "
+                      f"events, median of 25); bound {1000.0 * bound_ms:.2f} us ({by}), share "
+                      f"{1000.0 * bound_ms / us_k:.3f}")
+                if B == 4 and dtype == torch.bfloat16:
+                    # the split plan's choice against every other split count
+                    split_us[idx] = [_device_time_us(torch, lambda: da.decode_attention_quant(
+                        *args, splits=s)) for s in range(1, NW + 1)]
+                    print(f"kernel {name} time bf16 B=4 index={idx} at 1..{NW} splits: "
+                          + ", ".join(f"{u:.2f}" for u in split_us[idx])
+                          + f" us/call (the plan takes {splits})")
+                del kv_t, sc_t
+        del kv, sc, ring
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "times": times, "split_us": split_us}
 
 
 def _flash_bound(B, N, D, S, sep, esz, kind):
@@ -512,6 +556,39 @@ def _check_tensor_core_kernels(so) -> None:
            "a bf16 flash kernel at D = 64 spills")
 
 
+def _check_decode_kernels(so, head_dims) -> None:
+    """K1 and K2 stream their windows with cp.async: each of the 20
+    instantiations (int8 with bf16 or float32 q, int4 with either, D in
+    HEAD_DIMS) holds LDGSTS in its SASS, and at D = 64 none spills (no stack,
+    no local memory).  Prints every one's registers."""
+    pat = r"decode_attention_kernelI(f|13__nv_bfloat16)Lb[01]ELb([01])ELi(\d+)E"
+    copies = {}
+    for section in _cuobjdump(so, "-sass").split("Function : ")[1:]:
+        m = re.search(pat, section.split(None, 1)[0])
+        if m:
+            copies[m.groups()] = section.count("LDGSTS")
+    usage = {}
+    for fn, line in re.findall(r"Function (\S+?):\s*\n\s*(REG:.*)", _cuobjdump(so, "-res-usage")):
+        m = re.search(pat, fn)
+        if m:
+            usage[m.groups()] = {k: int(v) for k, v in re.findall(r"(REG|STACK|LOCAL):(\d+)", line)}
+
+    def key(t, packed, d):
+        return f"{'int4' if packed == '1' else 'int8'} {'f32' if t == 'f' else 'bf16'} D={d}"
+
+    regs = {key(*k): u["REG"] for k, u in sorted(usage.items(), key=lambda kv: int(kv[0][2]))}
+    print(f"decode SASS (cuobjdump): {len(copies)} instantiations, LDGSTS "
+          f"{sorted(set(copies.values()))}; registers {regs}")
+    d64 = [u for (_, _, d), u in usage.items() if d == "64"]
+    print(f"decode SASS at D = 64: {len(d64)} instantiations, stack and local bytes "
+          f"{sorted({u['STACK'] + u['LOCAL'] for u in d64})}")
+    _check(len(copies) == 4 * len(head_dims) and all(copies.values())
+           and {int(d) for _, _, d in copies} == set(head_dims),
+           f"a decode kernel lacks cp.async or an instantiation is missing: {copies}")
+    _check(len(d64) == 4 and all(u["STACK"] == 0 and u["LOCAL"] == 0 for u in d64),
+           "a decode kernel at D = 64 spills")
+
+
 def phase_probes(torch, probes, ssp):
     """P1a on a random block and P2 on the TPU probe's inputs and random
     lane0, single calls, against their plain versions bit for bit -> the
@@ -557,9 +634,11 @@ def _check_async_copy(so) -> None:
     _check(len(found) == 1 and all(found.values()), "P1b's asynchronous copy is missing")
 
 
-# the window sweeps: (key, decode_kernel_microbench arguments)
+# the window sweeps: (key, decode_kernel_microbench arguments); batch 40
+# unless named, and the main path's batch 4 (the split plan's 4 splits)
 SWEEPS = (("sweep_int8", ["--kv", "int8"]), ("sweep_int4", ["--kv", "int4"]),
-          ("sweep_int8_no_ring_write", ["--kv", "int8", "--ring-write", "0"]))
+          ("sweep_int8_no_ring_write", ["--kv", "int8", "--ring-write", "0"]),
+          ("sweep_int8_b4", ["--kv", "int8", "--batch", "4"]))
 
 
 def phase_probe_entry_points(torch, da, probes, lp, ssp, dkm):
@@ -724,20 +803,87 @@ def _cli_argv(weights: str, task: str, query: str, out_dir: str):
             "--output-path", out_dir]
 
 
-def phase_main_path(torch, da, cli, tasks, sampling, png, weights: str, work: str):
-    """One text2image request through the CLI -> (kernel launches, PNG dir)."""
+PROFILED_STEPS = (512, 8)  # (first decode step, steps) under torch.profiler
+
+
+def _profiling_decode_steps(torch, gpt, rec):
+    """A stand-in for ``gpt.forward_with_cache`` that runs decode steps
+    PROFILED_STEPS under torch.profiler and keeps the profile and its wall
+    time in ``rec``, with the host clock at the first decode step, at the
+    profiled window's ends and after the last step (the steps before and
+    after the window show what the profiler costs the steps it does not
+    trace)."""
+    orig = gpt.forward_with_cache
+    first, count = PROFILED_STEPS
+
+    def forward_with_cache(params, cfg, tokens, *a, **kw):
+        if tokens.shape[1] != 1:  # the prefill
+            return orig(params, cfg, tokens, *a, **kw)
+        step = rec.setdefault("steps", 0)
+        rec["steps"] = step + 1
+        if step in (0, first, first + count):
+            rec[f"host_{step}"] = time.perf_counter()
+        if step == first:
+            torch.cuda.synchronize()
+            rec["prof"] = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+            rec["prof"].__enter__()
+            rec["t0"] = time.perf_counter()
+        out = orig(params, cfg, tokens, *a, **kw)
+        if step == first + count - 1:
+            torch.cuda.synchronize()
+            rec["wall"] = time.perf_counter() - rec["t0"]
+            rec["prof"].__exit__(None, None, None)
+        rec["host_end"] = time.perf_counter()
+        return out
+
+    return forward_with_cache
+
+
+def _decode_step_profile(torch, rec) -> dict:
+    """K1's device ms and launches per decode step, all kernels' device ms
+    per step and the busy share, from a profile of PROFILED_STEPS."""
+    count = PROFILED_STEPS[1]
+    k1_us = k1_n = total_us = 0.0
+    for e in rec["prof"].key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        total_us += us
+        if "decode_attention_kernel" in e.key:
+            k1_us, k1_n = k1_us + us, k1_n + e.count
+    first = PROFILED_STEPS[0]
+    after = rec["steps"] - first - count
+    return {"k1_ms": k1_us / 1000.0 / count, "k1_launches": k1_n / count,
+            "kernels_ms": total_us / 1000.0 / count, "wall_ms": 1000.0 * rec["wall"] / count,
+            "busy": total_us / 1e6 / rec["wall"],
+            "host_ms_before": 1000.0 * (rec[f"host_{first}"] - rec["host_0"]) / first,
+            "host_ms_after": 1000.0 * (rec["host_end"] - rec[f"host_{first + count}"]) / after}
+
+
+def phase_main_path(torch, da, gpt, cli, tasks, sampling, png, weights: str, work: str):
+    """One text2image request through the CLI -> (kernel launches, PNG dir,
+    the decode-step profile of the bf16-weight request or None)."""
     import numpy as np
 
     query = os.path.join(work, "query.txt")
     with open(query, "w") as f:
         f.write(PROMPT + "\n")
     out_dir = os.path.join(work, f"t2i_{weights}")
-    captured = {}
+    captured, rec = {}, {}
     da.decode_attention_quant.launches = 0
     da.decode_attention_quant_reference.calls = 0
     da.decode_attention_quant.launches_int4 = 0
-    _run_cli(cli, tasks, sampling, torch, _cli_argv(weights, "text2image", query, out_dir),
-             captured)
+    orig_fwc = gpt.forward_with_cache
+    if weights == "bfloat16":
+        gpt.forward_with_cache = _profiling_decode_steps(torch, gpt, rec)
+    try:
+        _run_cli(cli, tasks, sampling, torch, _cli_argv(weights, "text2image", query, out_dir),
+                 captured)
+    finally:
+        gpt.forward_with_cache = orig_fwc
     launches = da.decode_attention_quant.launches
     plain_calls = da.decode_attention_quant_reference.calls
     _check(da.decode_attention_quant.launches_int4 == 0, "the int8 cache launched K2")
@@ -767,7 +913,19 @@ def phase_main_path(torch, da, cli, tasks, sampling, png, weights: str, work: st
           f"(batch 4); filling {captured['fill_s']:.3f} s = "
           f"{1000.0 * captured['fill_s'] / steps:.3f} ms per decode step "
           f"(prefill included, {steps} steps)")
-    return launches, out_dir
+    profile = None
+    if rec:
+        profile = _decode_step_profile(torch, rec)
+        first, count = PROFILED_STEPS
+        print(f"main path weights={weights}: decode steps {first}-{first + count - 1} under "
+              f"torch.profiler: K1 {profile['k1_ms']:.4f} ms of device time per step in "
+              f"{profile['k1_launches']:g} launches; all kernels {profile['kernels_ms']:.3f} ms "
+              f"per step, wall {profile['wall_ms']:.3f} ms per step, device busy "
+              f"{100.0 * profile['busy']:.1f}%; host clock {profile['host_ms_before']:.3f} ms "
+              f"per step before the window, {profile['host_ms_after']:.3f} after")
+        _check(profile["k1_launches"] == 48, "the profiled decode steps did not launch K1 48 "
+               "times each")
+    return launches, out_dir, profile
 
 
 def phase_image2text(torch, da, fa, cli, tasks, sampling, png_dir: str, work: str):
@@ -1199,6 +1357,7 @@ def main() -> int:
     # phases 3-5: kernels against their plain versions
     k1 = phase_kernel(torch, da, packed=False)
     k2 = phase_kernel(torch, da, packed=True)
+    _check_decode_kernels(sos[names.index("decode_attention")], da.HEAD_DIMS)
     k3 = phase_flash_kernel(torch, fa)
     k45 = phase_flash_backward(torch, fa)
     _check_tensor_core_kernels(sos[names.index("flash_attention")])
@@ -1212,38 +1371,60 @@ def main() -> int:
     phase_small_training(torch, cfgmod, fa, tl, optim)
 
     with tempfile.TemporaryDirectory() as work:
-        # phase 9: text->image, bf16 then int8 weights; the bf16 PNGs feed 10, 11
-        t2i = [phase_main_path(torch, da, cli, tasks, sampling, png, w, work)
-               for w in ("bfloat16", "int8")]
-        png_dir = t2i[0][1]
-        # phase 10: image->text; phase 11: post-selection
+        # phase 12 first: the folder-watcher server, int4 cache, runs before
+        # phase 9's profiled decode steps, whose tracing leaves a cost on
+        # every later launch
+        k2_launches = phase_serve_int4(torch, da, serve, tasks, sampling, png, work)
+        # phase 9: text->image, int8 then bf16 weights (profiled); the bf16
+        # PNGs feed 10, 11
+        t2i = [phase_main_path(torch, da, gpt, cli, tasks, sampling, png, w, work)
+               for w in ("int8", "bfloat16")]
+        png_dir = t2i[1][1]
+        # phase 10: image->text; phase 11: post-selection; phase 13: fidelity
         i2t = phase_image2text(torch, da, fa, cli, tasks, sampling, png_dir, work)
         flash_launches = phase_post_selection(torch, fa, cli, tasks, scoring, png_dir, work)
-        # phase 12: the folder-watcher server, int4 cache; phase 13: fidelity
-        k2_launches = phase_serve_int4(torch, da, serve, tasks, sampling, png, work)
         phase_cache_fidelity(torch, gpt, cfgmod, tasks, sampling, tokenization)
         # phase 14: pretraining at the tutorial width, then a resumed run
         train_launches, _ = phase_pretrain(torch, fa, pretrain, losses, optim, work)
 
     def decode_entry(name, summary, launches, err, kv):
-        us_k, us_p, bound_ms, by = summary["times"][("bfloat16", 600)]
+        times = summary["times"]
+        us_k, us_p, bound_ms, by = times[(4, "bfloat16", 600)]
         sweeps = [key for key, argv in SWEEPS if argv[1] == kv]
+        # ms, plain_ms, bound_ms: bf16 q, B=4, index 600; index1031_* the
+        # seal step mid-window; b40_*: B=40, index 600; splits_us: the
+        # kernel at B=4 (index 600 and 1031) at 1..9 splits
         return {"name": name, "route": "cuda",
                 "source": "cogview_tpu_torch/csrc/decode_attention.cu",
                 "replaces": "cogview_tpu/ops/decode_attention.py:161", "launches": launches,
                 "max_abs_err": err, "ms": us_k / 1000.0, "plain_ms": us_p / 1000.0,
                 "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-                # the window sweeps at batch 40 (decode_kernel_microbench):
+                "design": "split over windows, merged in one launch; cp.async double buffer; "
+                          "D a template",
+                "bound_share": bound_ms / (us_k / 1000.0),
+                "index1031_ms": times[(4, "bfloat16", 1031)][0] / 1000.0,
+                "index1031_bound_ms": times[(4, "bfloat16", 1031)][2],
+                "b40_ms": times[(40, "bfloat16", 600)][0] / 1000.0,
+                "b40_plain_ms": times[(40, "bfloat16", 600)][1] / 1000.0,
+                "b40_bound_ms": times[(40, "bfloat16", 600)][2],
+                "b40_bound_share": times[(40, "bfloat16", 600)][2]
+                / (times[(40, "bfloat16", 600)][0] / 1000.0),
+                "splits_us": summary["split_us"],
+                # the window sweeps at batch 40, or 4 where the key ends in
+                # b4 (decode_kernel_microbench):
                 # launches are eager calls and graph captures, captured the
                 # calls the captures recorded (they run nothing), replayed
-                # the launches the graphs' replays ran
+                # the launches the graphs' replays ran; window_bound_share:
+                # a window's bytes at 3.35 TB/s over the graph's slope
                 **{f"{key}_{field}": value for key in sweeps for field, value in (
                     ("launches", probe_launches[key]),
                     ("captured", entry[key]["graph_captured"]),
                     ("replayed", entry[key]["graph_replayed"]),
                     ("max_abs_err", entry[key]["max_abs_err"]),
                     ("us", {col: {k: entry[key][col][k] for k in ("slope_us", "intercept_us")}
-                            for col in ("eager", "graph")}))}}
+                            for col in ("eager", "graph")}),
+                    ("window_bound_share", entry[key]["window_mb"] * 1e6 / HBM_BYTES_PER_S
+                     * 1e6 / entry[key]["graph"]["slope_us"]))}}
 
     def probe_entry(name, fn, line, err, us, plain_us, library_us, bound, loop):
         # ms: per call of the kernel alone, many calls replayed from one CUDA
@@ -1286,8 +1467,11 @@ def main() -> int:
     fk, fp, fl, fc, fbound, fby = k3["times"]["bfloat16"]
     tdrop, tnodrop, tl_, tc, tbound, _ = k3["times"]["train"]
     kernels = [
-        decode_entry("decode_attention_int8", k1, sum(n for n, _ in t2i) + i2t,
-                     k1["max_abs_err"], "int8"),
+        {**decode_entry("decode_attention_int8", k1, sum(n for n, _, _ in t2i) + i2t,
+                        k1["max_abs_err"], "int8"),
+         # device ms of K1 per decode step of the bf16-weight request
+         # (torch.profiler over PROFILED_STEPS)
+         "step_ms": t2i[1][2]["k1_ms"]},
         decode_entry("decode_attention_int4", k2, k2_launches, k2["max_abs_err"], "int4"),
         # ms, plain_ms, library_ms and bound_ms at post-selection's shape
         # (B=4, N=40, S=1058); train_* at the tutorial's training shape

@@ -5,7 +5,8 @@
 // Replaces: cogview_tpu/ops/decode_attention.py::_decode_kernel, launched by
 // decode_attention_quant's pallas_call: its int8 branch (Dc == D, K1,
 // decode_attention_int8) and its packed int4 branch (Dc == D / 2, K2,
-// decode_attention_int4).  One kernel template serves both (PACKED).
+// decode_attention_int4).  One kernel template serves both (PACKED), for
+// each head dim of with_head_dim below (ops/decode_attention.py HEAD_DIMS).
 //
 // Layout (the JAX package's, kept so cache bytes compare with no converter):
 //   kv     [NW, B, 2, N, Dc, W] int8  one layer's view, K at 0 / V at 1,
@@ -16,50 +17,79 @@
 //   ring   [G, B, N, 2*D]      float  exact K|V columns of positions c0 + g
 //   q, ctx [B, N, D]                  bfloat16 or float32
 //
-// Design: one block per (row, head) and 128 threads, one per token lane.
-// The block loops over the max(ceil(c0 / 128), 1) sealed windows; for each,
-// it copies the K and V [Dc, W] blocks (8 KB each for int8 at D = 64, 4 KB
-// for int4) into shared memory with 16-byte loads, computes the 128 logits
-// (thread t owns token t), and folds them into a float32 online softmax.
-// Then it merges the exact ring slots g <= index % G and writes ctx in q's
-// dtype.  On seal steps (index % G == G - 1) the same block quantizes its own
-// (row, head) slice of the G ring columns (scale = absmax * float32(1/127)
-// or float32(1/7), values rounded half to even; int4 clips to [-7, 7] and
-// packs) into window c0 / W, lanes [c0 % W, c0 % W + G).  Only this block
-// touches that slice, and those lanes are >= c0, so this step's attention
-// has them masked; the window's other lanes keep their bytes.
-//
-// Rounding follows the JAX kernel.  int8: with bfloat16 q the logits are
-// (q . k) * (ks * scale) and the PV operand is bf16(p * vs); with float32 q
-// the query is scaled first.  int4: float32 throughout whatever q's dtype,
-// logits (q_hi . k_hi + q_lo . k_lo) * ks of the scaled query.  The nibbles
-// unpack with integer ops, hi = b >> 4 (arithmetic) and lo = (b & 15) - 8,
-// equal to the JAX float formula floor(b / 16), b - 16 hi - 8 for every byte
-// the packer makes.  The seal's division x / scale and rintf must be IEEE
-// (no --use_fast_math) so its bytes equal the plain PyTorch version's.
+// Semantics (the JAX kernel's).  A step at index (rem = index % G, c0 =
+// index - rem) attends the sealed columns [0, c0) of the
+// swl = max(ceil(c0 / W), 1) windows it streams (columns >= c0 take the
+// logit -10000) and the exact ring slots g <= rem, scaled by 1/sqrt(D).
+// int8: with bfloat16 q the logits are (q . k) * (ks * scale) and the PV
+// operand is bf16(p * vs); with float32 q the query is scaled first.  int4:
+// float32 throughout whatever q's dtype, logits (q_hi . k_hi + q_lo . k_lo) *
+// ks of the scaled query; hi = floor(b / 16) and lo = (b & 15) - 8 of every
+// byte b.  The ring is float32.  On seal steps (rem == G - 1) the G ring
+// columns of each (row, head) are quantized (scale = absmax * float32(1/127)
+// or float32(1/7), x / scale rounded half to even; int4 clips to [-7, 7]
+// and packs) into window c0 / W, lanes [c0 % W, c0 % W + G); the window's
+// other lanes keep their bytes.  The division and rintf must be IEEE (no
+// --use_fast_math) so the bytes equal the plain PyTorch version's.
 //
 // What bounds it on an H100: bytes streamed from device memory, 2 x Dc
-// bytes and two scales per visible sealed column per (row, head) per layer,
-// plus the visible ring slots; the arithmetic is a few float32 operations
-// per byte.  At cogview-base, batch 4 (160 blocks on 132 SMs), index 600
-// (600 visible columns in 5 windows) one call needs about 13.2 MB with the
-// int8 cache and 7.0 MB with the int4 cache; it streams 5 whole windows,
-// 640 columns, so it reads 7% more window bytes than it needs.  The int4 cache halves the
-// window bytes; unpacking costs two
-// integer ops per byte in registers and never widens the data in memory.
-// This simple design leaves for later: overlapping the next window's loads
-// with this one's math (cp.async or TMA), split-K over windows for small
-// batches, tensor-core dots, and a layout with heads inside the window
-// block.
+// bytes and two scales per visible sealed column per (row, head), plus the
+// visible ring slots; the arithmetic is a few float32 operations per byte
+// (one query per (row, head), no grouped heads: no tensor-core product).
+// At cogview-base, batch 4, index 600 one call needs about 13.2 MB with the
+// int8 cache and 7.0 MB with the int4 cache, 3.9 and 2.1 us at 3.35 TB/s.
+//
+// Design.  The grid is (B * N) x splits blocks of 128 threads (4 warps).
+// splits is a function of the shapes (B, N, NW) alone, never of index
+// (ops/decode_attention.py split_plan): at batch 4 the 160 (row, head) pairs
+// alone would leave most of the 132 SMs' warp slots empty, at batch 40 one
+// split per pair fills them.  Split s streams windows s, s + splits, ...
+// below swl; a split with none writes an empty partial.
+// - Window loop: the next window's K and V [Dc, W] blocks and its two scale
+//   rows are copied into the other of two shared-memory stages with 16-byte
+//   cp.async while this window computes; the one barrier per window is the
+//   stage hand-off.  Split 0 also copies its pair's ring slots 0..rem at
+//   kernel start, in the first window's copy group.
+// - Lanes: warp w owns tokens [32w, 32w + 32) of every window, and lane
+//   (quad, grp) the four tokens 32w + 4 quad .. + 3 and a quarter of the
+//   block's rows (row_of).  Each 32-bit shared load gives it four tokens of
+//   one row, in the QK pass (K) and the PV pass (V) alike, and every byte of
+//   a window is read by one lane once.  A row's 16-byte chunk c sits at
+//   chunk c ^ (row & 7), which keeps both passes free of bank conflicts.
+//   Bytes become floats exactly with integer ops and one add (the byte
+//   placed in the mantissa of 2^23), never through the conversion unit.
+// - Softmax: each warp keeps its own running max; each lane its share of
+//   the sum and its rows' P.V over its four tokens, all in registers; D is a
+//   template parameter, so q sits in registers and every loop unrolls.  In
+//   the loop only shuffles meet: two for the logits' four row groups, three
+//   for the warp's max.  After it the lanes' sums meet by shuffles and the
+//   four warps (in split 0 with the exact ring slots) merge once.
+// - Merge: with splits > 1 each block writes its partial (acc[D], m, l) to a
+//   float32 scratch [splits, B, N, D + 2], fences, and takes a ticket from
+//   its (row, head)'s counter; the last block merges the partials in split
+//   order (the same bits whichever block finishes last), writes ctx, resets
+//   the counter to 0 and, on seal steps, seals: every split has read its
+//   windows by then.  One launch per call.  Calls that share the counters
+//   must run in order (one stream).
+// - Seal: four warps, one ring column at a time: the column's absmax by a
+//   warp reduction, then its D values (int4: D/2 packed bytes) written one
+//   lane each.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int W = 128;          // tokens per window == threads per block
+constexpr int W = 128;        // tokens per window
+constexpr int G = 8;          // ring slots, columns per seal (SEAL_GROUP)
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int STAGES = 2;     // window buffers in shared memory
 constexpr float MASK_VALUE = -10000.0f;
+constexpr float EMPTY = -1e30f;  // running max over no column
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -71,23 +101,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Block-wide max and sum over 128 threads (4 warps); red holds 4 floats.
-__device__ __forceinline__ float block_max(float v, float* red) {
-  v = warp_max(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = (red[0] + red[1]) + (red[2] + red[3]);
-  __syncthreads();
-  return r;
+// sum over the 8 quads of a warp (lane bits 0-2)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v + __shfl_xor_sync(0xffffffffu, v, 4);
 }
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
@@ -101,196 +119,429 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
-template <typename T, bool BF16, bool PACKED>
-__global__ void __launch_bounds__(W)
-decode_attention_kernel(const T* __restrict__ q, const float* __restrict__ ring,
-                        int8_t* __restrict__ kv, float* __restrict__ scales,
-                        T* __restrict__ ctx, int B, int N, int D, int G, int index) {
-  static_assert(!(BF16 && PACKED), "the packed branch is float32 throughout");
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int D_ = D;
-  const int Dc = PACKED ? D_ / 2 : D_;                       // bytes per column
-  int8_t* ks8 = reinterpret_cast<int8_t*>(smem);            // [Dc, W]
-  int8_t* vs8 = ks8 + Dc * W;                                // [Dc, W]
-  float* qsh = reinterpret_cast<float*>(vs8 + Dc * W);       // [D] query (see below)
-  float* pvs = qsh + D_;                                     // [W] PV operand
-  float* part = pvs + W;                                     // [W] PV partial sums
-  float* red = part + W;                                     // [4] reductions
-  float* sg = red + 4;                                       // [G] ring logits
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
 
-  const int tid = threadIdx.x;
-  const int bn = blockIdx.x;                                 // row * N + head
-  const int b = bn / N, n = bn - b * N;
-  const int rem = index % G;
-  const int c0 = index - rem;
-  const int swl = max((c0 + W - 1) / W, 1);
-  const float scale = 1.0f / sqrtf((float)D_);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
 
-  // q32 for the bf16 path (scale folds into the K scale), q32 * scale for
-  // the float32 and packed paths, as the JAX kernel rounds
-  for (int d = tid; d < D_; d += W) {
-    float x = to_f32<T>(q[(size_t)bn * D_ + d]);
-    qsh[d] = BF16 ? x : x * scale;
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  // PV partition: thread (dd, pp) sums tokens [pp * span, (pp + 1) * span)
-  // for output dim dd; packed, dim dd reads row dd % Dc, high nibble for
-  // dd < Dc and low nibble above
-  const int P = W / D_;
-  const int span = W / P;
-  const int dd = tid % D_, pp = tid / D_;
-  const int vrow = PACKED ? dd % Dc : dd;
+// all but the newest N groups of this thread's copies have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  float m = -1e30f, l = 0.0f, acc = 0.0f;
-  const size_t blk = (size_t)Dc * W;           // bytes of one [Dc, W] block
-  const int nvec = (int)(blk / 16);
-  for (int w = 0; w < swl; ++w) {
-    const size_t kb = ((((size_t)w * B + b) * 2 + 0) * N + n) * blk;
-    const size_t vb = ((((size_t)w * B + b) * 2 + 1) * N + n) * blk;
-    const uint4* kg = reinterpret_cast<const uint4*>(kv + kb);
-    const uint4* vg = reinterpret_cast<const uint4*>(kv + vb);
-    __syncthreads();                           // previous window's smem reads done
-    for (int i = tid; i < nvec; i += W) {
-      reinterpret_cast<uint4*>(ks8)[i] = kg[i];
-      reinterpret_cast<uint4*>(vs8)[i] = vg[i];
-    }
-    const size_t sb = (((size_t)w * B + b) * 2 * N + n) * W;
-    const float ksc = scales[sb + tid];
-    const float vsc = scales[sb + (size_t)N * W + tid];
-    __syncthreads();
+// byte j of u (0..255) as the float 2^23 + u_j
+__device__ __forceinline__ float byte_f32(uint32_t u, int j) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + j));
+}
 
-    float s = 0.0f;
-    if constexpr (PACKED) {
-      float s_hi = 0.0f, s_lo = 0.0f;
-      for (int d = 0; d < Dc; ++d) {
-        const int byte = ks8[d * W + tid];
-        s_hi += qsh[d] * (float)(byte >> 4);
-        s_lo += qsh[Dc + d] * (float)((byte & 15) - 8);
-      }
-      s = (s_hi + s_lo) * ksc;
-    } else {
-      for (int d = 0; d < D_; ++d) s += qsh[d] * (float)ks8[d * W + tid];
-      s = BF16 ? s * (ksc * scale) : s * ksc;
-    }
-    const int kpos = w * W + tid;
-    if (kpos >= c0) s = MASK_VALUE;
+// the four signed bytes of a word, exactly: b ^ 0x80 is b + 128
+__device__ __forceinline__ void int8x4_f32(uint32_t w, float (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) f[j] = byte_f32(u, j) - 8388736.0f;  // 2^23 + 128
+}
 
-    const float m_new = fmaxf(m, block_max(s, red));
-    const float alpha = expf(m - m_new);
-    const float p = expf(s - m_new);
-    l = l * alpha + block_sum(p, red);
-    float pv = p * vsc;
-    if (BF16) pv = __bfloat162float(__float2bfloat16(pv));
-    pvs[tid] = pv;
-    __syncthreads();
-
-    // rotate the start token by dd so the threads of a warp hit different
-    // shared-memory banks
-    float a = 0.0f;
-    const int t0 = pp * span;
-    for (int j = 0; j < span; ++j) {
-      const int t = t0 + (j + 4 * dd) % span;
-      const int byte = vs8[vrow * W + t];
-      float v;
-      if constexpr (PACKED) {
-        v = (float)(dd < Dc ? (byte >> 4) : ((byte & 15) - 8));
-      } else {
-        v = (float)byte;
-      }
-      a += pvs[t] * v;
-    }
-    acc = acc * alpha + a;
-    m = m_new;
-  }
-
-  // ---- exact ring epilogue, float32: slots g <= rem hold positions c0 + g
-  const float* rbase = ring + ((size_t)b * N + n) * 2 * D_;
-  const size_t gstride = (size_t)B * N * 2 * D_;
-  if (tid < G) {
-    float x = 0.0f;
-    const float* rk = rbase + (size_t)tid * gstride;
-    for (int d = 0; d < D_; ++d) {
-      const float qd = BF16 ? qsh[d] * scale : qsh[d];
-      x += qd * rk[d];
-    }
-    sg[tid] = tid <= rem ? x : -1e30f;
-  }
-  part[tid] = acc;
-  __syncthreads();
-
-  if (tid < D_) {
-    float m2 = m;
-    for (int g = 0; g < G; ++g) m2 = fmaxf(m2, sg[g]);
-    const float a2 = expf(m - m2);
-    float l_e = l * a2;
-    float tot = 0.0f;
-    for (int k = 0; k < P; ++k) tot += part[k * D_ + tid];
-    tot *= a2;
-    for (int g = 0; g < G; ++g) {
-      const float pg = expf(sg[g] - m2);
-      l_e += pg;
-      tot += pg * rbase[(size_t)g * gstride + D_ + tid];
-    }
-    ctx[(size_t)bn * D_ + tid] = from_f32<T>(tot / l_e);
-  }
-
-  // ---- seal: quantize the G ring columns of this (row, head) into window
-  // c0 / W, lanes [c0 % W, c0 % W + G); thread (g, kv) owns one column
-  if (rem == G - 1 && tid < 2 * G) {
-    const int g = tid >> 1, t = tid & 1;
-    const float* col = rbase + (size_t)g * gstride + t * D_;
-    float amax = 0.0f;
-    for (int d = 0; d < D_; ++d) amax = fmaxf(amax, fabsf(col[d]));
-    // times float32(1/127) or float32(1/7), not a division: the JAX seal
-    // compiles to this
-    const float sc = fmaxf(amax, 1e-8f) * (PACKED ? (1.0f / 7.0f) : (1.0f / 127.0f));
-    const int win = c0 / W, lane = c0 % W + g;
-    int8_t* dst = kv + ((((size_t)win * B + b) * 2 + t) * N + n) * blk;
-    if constexpr (PACKED) {
-      for (int d = 0; d < Dc; ++d) {
-        const float hi = fminf(fmaxf(rintf(col[d] / sc), -7.0f), 7.0f);
-        const float lo = fminf(fmaxf(rintf(col[Dc + d] / sc), -7.0f), 7.0f);
-        dst[(size_t)d * W + lane] = (int8_t)(16.0f * hi + (lo + 8.0f));
-      }
-    } else {
-      for (int d = 0; d < D_; ++d) dst[(size_t)d * W + lane] = (int8_t)rintf(col[d] / sc);
-    }
-    scales[((((size_t)win * B + b) * 2 + t) * N + n) * W + lane] = sc;
+// hi = floor(b / 16) and lo = (b & 15) - 8 of the four bytes of a word:
+// (b ^ 0x80) >> 4 is hi + 8
+__device__ __forceinline__ void int4x8_f32(uint32_t w, float (&hi)[4], float (&lo)[4]) {
+  const uint32_t h = ((w ^ 0x80808080u) >> 4) & 0x0F0F0F0Fu;
+  const uint32_t l = w & 0x0F0F0F0Fu;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    hi[j] = byte_f32(h, j) - 8388616.0f;  // 2^23 + 8
+    lo[j] = byte_f32(l, j) - 8388616.0f;
   }
 }
 
-template <typename T, bool BF16, bool PACKED>
-cudaError_t launch(const void* q, const float* ring, int8_t* kv, float* scales, void* ctx,
-                   int B, int N, int D, int G, int index, cudaStream_t stream) {
-  const int Dc = PACKED ? D / 2 : D;
-  const size_t smem = 2 * (size_t)Dc * W + sizeof(float) * (D + 2 * W + 4 + G);
-  decode_attention_kernel<T, BF16, PACKED><<<B * N, W, smem, stream>>>(
-      static_cast<const T*>(q), ring, kv, scales, static_cast<T*>(ctx), B, N, D, G, index);
+// one window in shared memory: the K and V [Dc, W] blocks, row r's 16-byte
+// chunk c at chunk c ^ (r & 7), and the K and V scale rows
+template <int Dc>
+struct Stage {
+  int8_t k[Dc * W];
+  int8_t v[Dc * W];
+  float ks[W];
+  float vs[W];
+};
+
+template <int D, bool PACKED>
+struct Shared {
+  static constexpr int Dc = PACKED ? D / 2 : D;
+  Stage<Dc> stage[STAGES];
+  float ring[G][2 * D];  // split 0: its pair's ring slots 0..rem
+  float acc[WARPS][D];   // each warp's P.V
+  float m[WARPS], l[WARPS];  // each warp's max and sum
+  float sg[G];           // split 0: the ring logits
+  int last;              // this block merges the splits
+};
+
+// Row i of lane group grp (i < Dc / 4).  For Dc >= 8 the four groups read
+// rows whose (r & 7) / 2 differ, so a warp's 32 loads of a pass (8 quads x
+// 4 groups, two chunks of each row) land in 32 different banks.
+template <int Dc>
+__device__ __forceinline__ int row_of(int grp, int i) {
+  if constexpr (Dc >= 8)
+    return 8 * (i >> 1) + 2 * grp + (i & 1);
+  else
+    return grp;  // Dc == 4 (int4 at D = 8): one row per group
+}
+
+struct Args {
+  const void* q;
+  const float* ring;
+  int8_t* kv;
+  float* scales;
+  void* ctx;
+  float* part;    // [splits, B, N, D + 2] partials (splits > 1)
+  int* counters;  // [B * N] tickets, 0 between calls (splits > 1)
+  int B, N, index, splits;
+};
+
+template <typename T, bool BF16, bool PACKED, int D>
+__global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a) {
+  static_assert(!(BF16 && PACKED), "the packed branch is float32 throughout");
+  constexpr int Dc = PACKED ? D / 2 : D;  // bytes per column
+  constexpr int RPG = Dc / 4;             // rows per lane group
+  constexpr size_t BLK = (size_t)Dc * W;  // bytes of one [Dc, W] block
+  static_assert(W % D == 0 && Dc >= 4, "D divides 128, D >= 8");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Shared<D, PACKED>& sh = *reinterpret_cast<Shared<D, PACKED>*>(smem_raw);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int quad = lane & 7, grp = lane >> 3;
+  const int bn = blockIdx.x, split = blockIdx.y, splits = a.splits;
+  const int B = a.B, N = a.N;
+  const int b = bn / N, n = bn - b * N;
+  const int rem = a.index % G, c0 = a.index - rem;
+  const int swl = max((c0 + W - 1) / W, 1);
+  const int nwin = split < swl ? (swl - 1 - split) / splits + 1 : 0;
+  const float scale = 1.0f / sqrtf((float)D);
+  const float* ring_bn = a.ring + (size_t)bn * 2 * D;
+  const size_t gstride = (size_t)B * N * 2 * D;  // between ring slots
+  const T* qg = static_cast<const T*>(a.q) + (size_t)bn * D;
+
+  // window split + i * splits into stage i % STAGES, as one copy group
+  auto issue = [&](int i) {
+    if (i < nwin) {
+      const int w = split + i * splits;
+      Stage<Dc>& st = sh.stage[i % STAGES];
+      const int8_t* kg = a.kv + ((((size_t)w * B + b) * 2) * N + n) * BLK;
+      const int8_t* vg = kg + (size_t)N * BLK;
+      constexpr int CHUNKS = Dc * W / 16;  // 16-byte chunks of a block
+#pragma unroll
+      for (int k = 0; k < (CHUNKS + THREADS - 1) / THREADS; ++k) {
+        const int c = tid + k * THREADS;
+        if (CHUNKS % THREADS == 0 || c < CHUNKS) {
+          const int r = c >> 3, off = r * W + (((c & 7) ^ (r & 7)) << 4);
+          cp_async16(st.k + off, kg + 16 * c);
+          cp_async16(st.v + off, vg + 16 * c);
+        }
+      }
+      if (tid < 64) {
+        const float* sk = a.scales + (((size_t)w * B + b) * 2 * N + n) * W;
+        if (tid < 32)
+          cp_async16(st.ks + 4 * tid, sk + 4 * tid);
+        else
+          cp_async16(st.vs + 4 * (tid - 32), sk + (size_t)N * W + 4 * (tid - 32));
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (split == 0)  // the ring slots 0..rem, 2D floats each, join window 0's group
+    for (int c = tid; c < (rem + 1) * (D / 2); c += THREADS) {
+      const int g = c / (D / 2), k = c - g * (D / 2);
+      cp_async16(&sh.ring[g][4 * k], ring_bn + g * gstride + 4 * k);
+    }
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) issue(i);
+
+  // this lane's rows of q: scaled unless the bf16 path scales the logits
+  float qr[RPG], qlo[PACKED ? RPG : 1];
+#pragma unroll
+  for (int i = 0; i < RPG; ++i) {
+    const int r = row_of<Dc>(grp, i);
+    const float x = to_f32<T>(qg[r]);
+    qr[i] = BF16 ? x : x * scale;
+    if constexpr (PACKED) qlo[i] = to_f32<T>(qg[Dc + r]) * scale;
+  }
+
+  float m = EMPTY, l = 0.0f;  // the warp's running max, this lane's share of the sum
+  float acc[RPG], acc_lo[PACKED ? RPG : 1];
+#pragma unroll
+  for (int i = 0; i < RPG; ++i) acc[i] = 0.0f;
+  if constexpr (PACKED) {
+#pragma unroll
+    for (int i = 0; i < RPG; ++i) acc_lo[i] = 0.0f;
+  }
+  const int chunk = 2 * warp + (quad >> 2);  // this lane's chunk of every row
+  const int word = 4 * (quad & 3);           // and its word in the chunk
+  const int tok = 16 * chunk + word;         // its first token in a window
+
+  for (int i = 0; i < nwin; ++i) {
+    cp_async_wait<STAGES - 2>();  // window i has landed, for this thread's copies
+    __syncthreads();              // for everyone's; window i - 1's stage is free
+    issue(i + STAGES - 1);
+    const Stage<Dc>& st = sh.stage[i % STAGES];
+
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < RPG; ++k) {
+      const int r = row_of<Dc>(grp, k);
+      const uint32_t wk =
+          *reinterpret_cast<const uint32_t*>(st.k + r * W + ((chunk ^ (r & 7)) << 4) + word);
+      if constexpr (PACKED) {
+        float hi[4], lo[4];
+        int4x8_f32(wk, hi, lo);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[j] += qr[k] * hi[j] + qlo[k] * lo[j];
+      } else {
+        float kf[4];
+        int8x4_f32(wk, kf);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[j] += qr[k] * kf[j];
+      }
+    }
+    const float4 ks4 = *reinterpret_cast<const float4*>(st.ks + tok);
+    const float4 vs4 = *reinterpret_cast<const float4*>(st.vs + tok);
+    const float ksc[4] = {ks4.x, ks4.y, ks4.z, ks4.w};
+    const float vsc[4] = {vs4.x, vs4.y, vs4.z, vs4.w};
+    const int t0 = (split + i * splits) * W + tok;
+    float mx = EMPTY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[j] += __shfl_xor_sync(0xffffffffu, s[j], 8);  // the four row groups
+      s[j] += __shfl_xor_sync(0xffffffffu, s[j], 16);
+      s[j] = BF16 ? s[j] * (ksc[j] * scale) : s[j] * ksc[j];
+      if (t0 + j >= c0) s[j] = MASK_VALUE;
+      mx = fmaxf(mx, s[j]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = expf(m - m_new);
+    float pv[4], psum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p = expf(s[j] - m_new);
+      psum += p;
+      pv[j] = p * vsc[j];
+      if constexpr (BF16) pv[j] = __bfloat162float(__float2bfloat16(pv[j]));
+    }
+    l = l * alpha + psum;
+    m = m_new;
+
+#pragma unroll
+    for (int k = 0; k < RPG; ++k) {
+      const int r = row_of<Dc>(grp, k);
+      const uint32_t wv =
+          *reinterpret_cast<const uint32_t*>(st.v + r * W + ((chunk ^ (r & 7)) << 4) + word);
+      if constexpr (PACKED) {
+        float hi[4], lo[4];
+        int4x8_f32(wv, hi, lo);
+        float ah = 0.0f, al = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ah += pv[j] * hi[j], al += pv[j] * lo[j];
+        acc[k] = acc[k] * alpha + ah;
+        acc_lo[k] = acc_lo[k] * alpha + al;
+      } else {
+        float vf[4];
+        int8x4_f32(wv, vf);
+        float av = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) av += pv[j] * vf[j];
+        acc[k] = acc[k] * alpha + av;
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // the warp's sum and P.V over its 32 tokens (the four groups hold the
+  // same tokens, the eight quads different ones)
+  l = quad_sum(l);
+#pragma unroll
+  for (int k = 0; k < RPG; ++k) {
+    acc[k] = quad_sum(acc[k]);
+    if constexpr (PACKED) acc_lo[k] = quad_sum(acc_lo[k]);
+  }
+  if (quad == 0) {
+#pragma unroll
+    for (int k = 0; k < RPG; ++k) {
+      const int r = row_of<Dc>(grp, k);
+      sh.acc[warp][r] = acc[k];
+      if constexpr (PACKED) sh.acc[warp][Dc + r] = acc_lo[k];
+    }
+  }
+  if (lane == 0) sh.m[warp] = m, sh.l[warp] = l;
+  // split 0: the exact ring logits, float32, of the scaled query; warp w
+  // takes slots w and w + 4 (the ring landed with window 0)
+  if (split == 0)
+    for (int g = warp; g <= rem; g += WARPS) {
+      float x = 0.0f;
+      for (int d = lane; d < D; d += 32) x += to_f32<T>(qg[d]) * scale * sh.ring[g][d];
+      x = warp_sum(x);
+      if (lane == 0) sh.sg[g] = x;
+    }
+  __syncthreads();
+
+  // the block's partial: thread d merges the warps' (and split 0's ring)
+  T* ctx = static_cast<T*>(a.ctx) + (size_t)bn * D;
+  if (tid < D) {
+    float M = sh.m[0];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) M = fmaxf(M, sh.m[w]);
+    if (split == 0)
+      for (int g = 0; g <= rem; ++g) M = fmaxf(M, sh.sg[g]);
+    float lb = 0.0f, ab = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float e = expf(sh.m[w] - M);
+      lb += e * sh.l[w];
+      ab += e * sh.acc[w][tid];
+    }
+    if (split == 0)
+      for (int g = 0; g <= rem; ++g) {
+        const float e = expf(sh.sg[g] - M);
+        lb += e;
+        ab += e * sh.ring[g][D + tid];
+      }
+    if (splits == 1) {
+      ctx[tid] = from_f32<T>(ab / lb);
+    } else {
+      float* p = a.part + ((size_t)split * B * N + bn) * (D + 2);
+      p[tid] = ab;
+      if (tid == 0) p[D] = M, p[D + 1] = lb;
+    }
+  }
+
+  if (splits > 1) {
+    __threadfence();  // the partial is visible before the ticket
+    __syncthreads();
+    if (tid == 0) sh.last = atomicAdd(&a.counters[bn], 1) == splits - 1;
+    __syncthreads();
+    if (!sh.last) return;
+    __threadfence();
+    if (tid < D) {  // merge the splits in split order, online: one pass
+      const size_t stride = (size_t)B * N * (D + 2);
+      const float* p = a.part + (size_t)bn * (D + 2);
+      float M = EMPTY, lt = 0.0f, at = 0.0f;
+#pragma unroll 4
+      for (int s = 0; s < splits; ++s) {
+        const float ms = __ldcg(p + s * stride + D), ls = __ldcg(p + s * stride + D + 1);
+        const float as = __ldcg(p + s * stride + tid);
+        const float Mn = fmaxf(M, ms);
+        const float r = expf(M - Mn), e = expf(ms - Mn);
+        lt = lt * r + ls * e;
+        at = at * r + as * e;
+        M = Mn;
+      }
+      ctx[tid] = from_f32<T>(at / lt);
+    }
+    if (tid == 0) a.counters[bn] = 0;
+  }
+
+  // ---- seal: the G ring columns of this (row, head) into window c0 / W,
+  // lanes [c0 % W, c0 % W + G); warp w takes columns w, w + 4, ...
+  if (rem == G - 1) {
+    const int win = c0 / W;
+    for (int col = warp; col < 2 * G; col += WARPS) {
+      const int g = col >> 1, t = col & 1;
+      const float* x = ring_bn + g * gstride + t * D;
+      float amax = 0.0f;
+      for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(x[d]));
+      amax = warp_max(amax);
+      // times float32(1/127) or float32(1/7), not a division: the JAX seal
+      // compiles to this
+      const float sc = fmaxf(amax, 1e-8f) * (PACKED ? (1.0f / 7.0f) : (1.0f / 127.0f));
+      const size_t blk = (((size_t)win * B + b) * 2 + t) * N + n;
+      const int pos = c0 % W + g;
+      int8_t* dst = a.kv + blk * BLK + pos;
+      if constexpr (PACKED) {
+        for (int d = lane; d < Dc; d += 32) {
+          const float hi = fminf(fmaxf(rintf(x[d] / sc), -7.0f), 7.0f);
+          const float lo = fminf(fmaxf(rintf(x[Dc + d] / sc), -7.0f), 7.0f);
+          dst[(size_t)d * W] = (int8_t)(16.0f * hi + (lo + 8.0f));
+        }
+      } else {
+        for (int d = lane; d < D; d += 32) dst[(size_t)d * W] = (int8_t)rintf(x[d] / sc);
+      }
+      if (lane == 0) a.scales[blk * W + pos] = sc;
+    }
+  }
+}
+
+template <typename T, bool BF16, bool PACKED, int D>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const auto kernel = decode_attention_kernel<T, BF16, PACKED, D>;
+  constexpr size_t smem = sizeof(Shared<D, PACKED>);
+  if constexpr (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<dim3(a.B * a.N, a.splits), THREADS, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// f(std::integral_constant<int, D>) for the head dims the kernels are built
+// for (ops/decode_attention.py HEAD_DIMS; a CPU test parses this switch)
+template <typename F>
+cudaError_t with_head_dim(int head_dim, F&& f) {
+  switch (head_dim) {
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool PACKED>
+int decode_attention(const void* q, int q_is_bf16, const float* ring, int8_t* kv,
+                     float* scales, void* ctx, float* part, int* counters, int B, int N, int D,
+                     int NW, int index, int splits, void* stream) {
+  if (B <= 0 || N <= 0 || NW <= 0 || index < 0 || index >= NW * W || splits < 1 ||
+      splits > 65535 || (splits > 1 && (part == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, ring, kv, scales, ctx, part, counters, B, N, index, splits};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)with_head_dim(D, [&](auto hd) {
+    constexpr int Dv = decltype(hd)::value;
+    if constexpr (PACKED)  // float32 arithmetic for both q dtypes
+      return q_is_bf16 ? launch<__nv_bfloat16, false, true, Dv>(a, s)
+                       : launch<float, false, true, Dv>(a, s);
+    else
+      return q_is_bf16 ? launch<__nv_bfloat16, true, false, Dv>(a, s)
+                       : launch<float, false, false, Dv>(a, s);
+  });
 }
 
 }  // namespace
 
 // K1: int8 cache, Dc == D
 extern "C" int decode_attention_int8(const void* q, int q_is_bf16, const float* ring,
-                                     int8_t* kv, float* scales, void* ctx, int B, int N,
-                                     int D, int NW, int G, int index, void* stream) {
-  (void)NW;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = q_is_bf16
-      ? launch<__nv_bfloat16, true, false>(q, ring, kv, scales, ctx, B, N, D, G, index, s)
-      : launch<float, false, false>(q, ring, kv, scales, ctx, B, N, D, G, index, s);
-  return (int)err;
+                                     int8_t* kv, float* scales, void* ctx, float* part,
+                                     int* counters, int B, int N, int D, int NW, int index,
+                                     int splits, void* stream) {
+  return decode_attention<false>(q, q_is_bf16, ring, kv, scales, ctx, part, counters, B, N, D,
+                                 NW, index, splits, stream);
 }
 
-// K2: packed int4 cache, Dc == D / 2; float32 arithmetic for both q dtypes
+// K2: packed int4 cache, Dc == D / 2
 extern "C" int decode_attention_int4(const void* q, int q_is_bf16, const float* ring,
-                                     int8_t* kv, float* scales, void* ctx, int B, int N,
-                                     int D, int NW, int G, int index, void* stream) {
-  (void)NW;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = q_is_bf16
-      ? launch<__nv_bfloat16, false, true>(q, ring, kv, scales, ctx, B, N, D, G, index, s)
-      : launch<float, false, true>(q, ring, kv, scales, ctx, B, N, D, G, index, s);
-  return (int)err;
+                                     int8_t* kv, float* scales, void* ctx, float* part,
+                                     int* counters, int B, int N, int D, int NW, int index,
+                                     int splits, void* stream) {
+  return decode_attention<true>(q, q_is_bf16, ring, kv, scales, ctx, part, counters, B, N, D,
+                                NW, index, splits, stream);
 }

@@ -36,10 +36,11 @@ _P, _I, _L, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # cudaError_t of its launch as an int
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "decode_attention": {
-        # q, q_is_bf16, ring, kv, scales, ctx, B, N, D, NW, G, index, stream
-        "decode_attention_int8": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # q, q_is_bf16, ring, kv, scales, ctx, split partials, split
+        # counters, B, N, D, NW, index, splits, stream
+        "decode_attention_int8": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         # the packed int4 cache, same arguments
-        "decode_attention_int4": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "decode_attention_int4": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "flash_attention": {
         # q, k, v, o, lse, is_bf16, B, S, N, D,
@@ -61,7 +62,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "probes": {
         # x, o, n, stream
         "probe_add_one": [_P, _P, _I, _P],
-        # the decode kernels' arguments
+        # the TPU probe's calling convention (the decode kernels' arguments
+        # before their split over windows): q, q_is_bf16, ring, kv, scales,
+        # ctx, B, N, D, NW, G, index, stream
         "probe_decode_convention": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         # qc, oh, lane0, out, G, hb, Dc, W, stream
         "probe_seal_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

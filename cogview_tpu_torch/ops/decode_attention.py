@@ -33,24 +33,55 @@ leave the cache untouched.
 :func:`decode_attention_quant` is the entry point: on a CUDA tensor it
 launches a hand-written kernel of csrc/decode_attention.cu (K1 for the int8
 cache, K2 for the int4 cache), on a CPU tensor it runs
-:func:`decode_attention_quant_reference`, the plain PyTorch version.
+:func:`decode_attention_quant_reference`, the plain PyTorch version.  The
+kernel splits each (row, head)'s window loop over ``split_plan(B, N, NW)``
+blocks and merges their partial softmaxes in the same launch.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 MASK_VALUE = -10000.0
 WRITE_WINDOW = 128  # tokens per cache window
 SEAL_GROUP = 8  # decode steps per seal; the last <= 8 tokens ride the ring
+# the head dims the kernels are built for: every D that divides WRITE_WINDOW
+# from 8 up (csrc/decode_attention.cu's with_head_dim switch); the plain
+# version takes any
+HEAD_DIMS = (8, 16, 32, 64, 128)
+# blocks a call aims for: four of 128 threads for each of an H100's 132 SMs
+SPLIT_TARGET_BLOCKS = 4 * 132
 
 
 def pad_cache_len(max_len: int) -> int:
     """Cache length rounded up to a WRITE_WINDOW multiple."""
     return -(-max_len // WRITE_WINDOW) * WRITE_WINDOW
+
+
+def streamed_windows(index: int) -> int:
+    """Windows a decode step at ``index`` streams: max(ceil(c0 / W), 1) with
+    c0 = index - index % SEAL_GROUP (window 0 even when every column is
+    masked)."""
+    c0 = index - index % SEAL_GROUP
+    return max(-(-c0 // WRITE_WINDOW), 1)
+
+
+def split_plan(batch: int, heads: int, num_windows: int) -> int:
+    """How many blocks share one (row, head)'s window loop in the kernels: as
+    many as bring the call to SPLIT_TARGET_BLOCKS blocks, at most one per
+    window of the cache.  A function of the shapes alone, never of the
+    index, so one grid serves every step: cogview-base (40 heads, 9
+    windows) gets 4 splits at batch 4 and 1 from batch 14 up."""
+    return max(1, min(num_windows, -(-SPLIT_TARGET_BLOCKS // (batch * heads))))
+
+
+def split_windows(split: int, splits: int, index: int) -> range:
+    """The windows split ``split`` of ``splits`` streams at ``index``:
+    every ``splits``-th from ``split`` on, below :func:`streamed_windows`."""
+    return range(split, streamed_windows(index), splits)
 
 
 # ------------------------------------------------------------------ #
@@ -280,7 +311,7 @@ def decode_attention_quant_reference(
     swl = max(-(-c0 // W), 1)  # windows the kernel streams
     scale = 1.0 / math.sqrt(D)
     packed = is_packed(kv_l, D)
-    bf =q.dtype == torch.bfloat16 and not packed
+    bf = q.dtype == torch.bfloat16 and not packed
 
     win = kv_l[:swl].permute(1, 2, 3, 4, 0, 5).reshape(B, 2, N, Dc, swl * W)
     sw = scales_l[:swl].permute(1, 2, 3, 0, 4).reshape(B, 2, N, swl * W)
@@ -325,6 +356,23 @@ def decode_attention_quant_reference(
 
 decode_attention_quant_reference.calls = 0
 
+# the kernels' per-(row, head) split tickets, one zeroed int32 buffer per
+# device, made on first use and kept: a CUDA graph that captured a call
+# holds its address, and every launch leaves it zeroed
+_COUNTER_SLOTS = 1 << 16
+_split_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device: torch.device) -> torch.Tensor:
+    buf = _split_counters.get(device)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode_attention_quant makes its split counters on the first "
+                               "split call on a device: make one outside CUDA-graph capture")
+        buf = _split_counters[device] = torch.zeros(_COUNTER_SLOTS, dtype=torch.int32,
+                                                    device=device)
+    return buf
+
 
 def decode_attention_quant(
     q: torch.Tensor,  # [B, N, D] bfloat16 or float32
@@ -332,6 +380,7 @@ def decode_attention_quant(
     kv_l: torch.Tensor,  # [NW, B, 2, N, Dc, W] int8, Dc = D or D/2 (packed)
     scales_l: torch.Tensor,  # [NW, B, 2, N, W] float32
     index: int,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """Decode attention for one layer -> ctx [B, N, D] in q.dtype.
 
@@ -342,7 +391,11 @@ def decode_attention_quant(
     A CPU tensor runs the plain version.  A CUDA tensor launches a kernel
     of csrc/decode_attention.cu on the current stream, chosen by the cache's
     column width ``kv_l.shape[4]``: D is the int8 kernel (K1), D/2 the
-    packed int4 kernel (K2).  Anything else raises; there is no fallback."""
+    packed int4 kernel (K2).  Anything else raises; there is no fallback.
+    The kernel runs ``splits`` blocks per (row, head), :func:`split_plan`
+    unless given (tests and measurements pick others), and merges them in
+    the same launch; with more than one, the calls on a device must run in
+    stream order, as they share its split counters."""
     if q.device.type == "cpu":
         return decode_attention_quant_reference(q, ring_l, kv_l, scales_l, index)
     if q.device.type != "cuda":
@@ -350,41 +403,50 @@ def decode_attention_quant(
     from . import _kernels
 
     B, N, D = q.shape
-    G = ring_l.shape[0]
     if kv_l.ndim != 6 or kv_l.shape[5] != WRITE_WINDOW:
         raise ValueError(f"kv cache layer view must be [NW, B, 2, N, Dc, 128], got {tuple(kv_l.shape)}")
     NW, Dc = kv_l.shape[0], kv_l.shape[4]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D}: the kernels are built for {HEAD_DIMS}")
     packed = is_packed(kv_l, D)
     fn = "decode_attention_int4" if packed else "decode_attention_int8"
     if tuple(kv_l.shape) != (NW, B, 2, N, Dc, WRITE_WINDOW):
         raise ValueError(f"kv shape {tuple(kv_l.shape)} does not match q {tuple(q.shape)}")
     if tuple(scales_l.shape) != (NW, B, 2, N, WRITE_WINDOW):
         raise ValueError(f"scales shape {tuple(scales_l.shape)}")
-    if tuple(ring_l.shape) != (G, B, N, 2 * D) or WRITE_WINDOW % G or 2 * G > WRITE_WINDOW:
-        raise ValueError(f"ring shape {tuple(ring_l.shape)}")  # the seal needs 2G threads
+    if tuple(ring_l.shape) != (SEAL_GROUP, B, N, 2 * D):
+        raise ValueError(f"ring shape {tuple(ring_l.shape)}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q dtype {q.dtype}: bfloat16 or float32")
     if (kv_l.dtype, scales_l.dtype, ring_l.dtype) != (torch.int8, torch.float32, torch.float32):
         raise ValueError("cache dtypes must be int8 data, float32 scales and ring")
-    if WRITE_WINDOW % D:
-        raise ValueError(f"head_dim {D} must divide {WRITE_WINDOW}")
     if index < 0 or index >= NW * WRITE_WINDOW:
         raise ValueError(f"index {index} outside the cache")
     for name, t in (("q", q), ("ring", ring_l), ("kv", kv_l), ("scales", scales_l)):
         if not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"{name} must be contiguous on {q.device}")
-    if kv_l.data_ptr() % 16:
-        # the kernels copy [Dc, 128] blocks in 16-byte vectors; every block
-        # starts 16-byte aligned when the view does (Dc * 128 % 16 == 0)
-        raise ValueError("kv cache view must be 16-byte aligned")
+    for name, t in (("kv cache", kv_l), ("scales", scales_l), ("ring", ring_l)):
+        # the kernels copy [Dc, 128] blocks, scale rows and ring slots with
+        # 16-byte cp.async; each starts 16-byte aligned when the view does
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} view must be 16-byte aligned")
+    splits = split_plan(B, N, NW) if splits is None else splits
+    if not 1 <= splits <= NW or (splits > 1 and B * N > _COUNTER_SLOTS):
+        raise ValueError(f"{splits} splits of {B * N} (row, head) pairs and {NW} windows")
 
     ctx = torch.empty_like(q)
+    part = counters = None
+    if splits > 1:
+        part = torch.empty((splits, B, N, D + 2), dtype=torch.float32, device=q.device)
+        counters = _counters(q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = getattr(_kernels.lib("decode_attention"), fn)(
             q.data_ptr(), int(q.dtype == torch.bfloat16), ring_l.data_ptr(),
             kv_l.data_ptr(), scales_l.data_ptr(), ctx.data_ptr(),
-            B, N, D, NW, G, int(index), stream)
+            None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            B, N, D, NW, int(index), splits, stream)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
     if packed:

@@ -218,77 +218,133 @@ def test_smoke_pretrain_step_runs_the_flash_kernels(cuda_device):
     assert metrics["skipped"] == 0 and torch.isfinite(torch.tensor(metrics["lm_loss"]))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("index", [10, 15, 135, 600])
-def test_decode_kernel_matches_plain_version(cuda_device, dtype, tol, index):
-    """The decode kernel at cogview-base head shapes: ctx within ``tol``,
-    the cache bytes bit-equal after seal and non-seal steps."""
-    B, N, D, W, G = 4, 40, 64, da.WRITE_WINDOW, da.SEAL_GROUP
-    NW = da.pad_cache_len(1088) // W
-    gen = torch.Generator(device=cuda_device).manual_seed(1)
-    kv = torch.randint(-127, 128, (NW, B, 2, N, D, W), generator=gen, device=cuda_device,
-                       dtype=torch.int8)
-    sc = torch.rand((NW, B, 2, N, W), generator=gen, device=cuda_device) * 0.02
-    ring = torch.randn((G, B, N, 2 * D), generator=gen, device=cuda_device)
-    q = torch.randn((B, N, D), generator=gen, device=cuda_device).to(dtype)
-    kv_k, sc_k, kv_r, sc_r = kv.clone(), sc.clone(), kv.clone(), sc.clone()
-    before = da.decode_attention_quant.launches
-    ctx = da.decode_attention_quant(q, ring, kv_k, sc_k, index)
-    torch.cuda.synchronize()
-    assert da.decode_attention_quant.launches == before + 1
-    want = da.decode_attention_quant_reference(q, ring, kv_r, sc_r, index)
-    assert ctx.dtype == dtype and ctx.shape == (B, N, D)
-    assert (ctx.float() - want.float()).abs().max().item() <= tol
-    assert torch.equal(kv_k, kv_r) and torch.equal(sc_k, sc_r)
-    assert torch.equal(kv_k, kv) == (index % G != G - 1)
-
-
-def _int4_cache(device, B, N, D, NW, seed):
-    """Packed bytes the packer can make, scales and ring at cogview-base
-    head shapes."""
+def _decode_cache(device, packed, B, N, D, seed):
+    """One layer of a random cache of 9 windows (cogview-base's 1088
+    positions): int8 bytes, or packed bytes the packer can make, scales,
+    ring and a float32 q."""
     W, G = da.WRITE_WINDOW, da.SEAL_GROUP
+    NW = da.pad_cache_len(1088) // W
     gen = torch.Generator(device=device).manual_seed(seed)
-    hi = torch.randint(-7, 8, (NW, B, 2, N, D // 2, W), generator=gen, device=device)
-    lo = torch.randint(-7, 8, (NW, B, 2, N, D // 2, W), generator=gen, device=device)
-    kv = (16 * hi + lo + 8).to(torch.int8)
-    sc = torch.rand((NW, B, 2, N, W), generator=gen, device=device) * 0.3
+    if packed:
+        hi, lo = (torch.randint(-7, 8, (NW, B, 2, N, D // 2, W), generator=gen, device=device)
+                  for _ in range(2))
+        kv = (16 * hi + lo + 8).to(torch.int8)
+        sc = torch.rand((NW, B, 2, N, W), generator=gen, device=device) * 0.3
+    else:
+        kv = torch.randint(-127, 128, (NW, B, 2, N, D, W), generator=gen, device=device,
+                           dtype=torch.int8)
+        sc = torch.rand((NW, B, 2, N, W), generator=gen, device=device) * 0.02
     ring = torch.randn((G, B, N, 2 * D), generator=gen, device=device)
     q = torch.randn((B, N, D), generator=gen, device=device)
     return q, ring, kv, sc
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, None)])
-@pytest.mark.parametrize("index", [10, 15, 133, 135, 600, 1031])
-def test_int4_decode_kernel_matches_plain_version(cuda_device, dtype, tol, index):
-    """K2 at cogview-base head shapes (B=4, N=40, D=64, 9 windows): ctx
-    within ``tol`` (float32) or, for a bf16 q, within the float32 tolerance
-    plus one bf16 ulp, 1e-4 + 2^-7 of the value (K2 computes in float32 and
-    rounds its bf16 ctx once, as the plain version does), the cache bit-equal to the plain version's after seal (index 135
-    seals with c0 = 128, a window boundary) and non-seal steps, untouched on
-    non-seal steps, and two launches bit-equal."""
-    B, N, D, G = 4, 40, 64, da.SEAL_GROUP
-    NW = da.pad_cache_len(1088) // da.WRITE_WINDOW
-    q, ring, kv, sc = _int4_cache(cuda_device, B, N, D, NW, seed=2)
+def _check_decode(device, packed, dtype, B, N, D, index, seed, splits=None):
+    """K2 (``packed``) or K1 on one layer, twice from the same cache, and
+    the plain version: ctx within the kernel's tolerance (float32 q 1e-4;
+    bf16 q: K1 2e-2, as it rounds q and p * vs to bf16; K2 1e-4 + one bf16
+    ulp, 2^-7 of the value, as it computes in float32 and rounds its ctx
+    once); the cache bit-equal to the plain version's and written on seal
+    steps only; the two launches bit-equal, ctx and cache; one launch
+    counted per call, on the kernel's own counter."""
+    G = da.SEAL_GROUP
+    q, ring, kv, sc = _decode_cache(device, packed, B, N, D, seed)
     q = q.to(dtype)
-    kv_k, sc_k, kv_r, sc_r = kv.clone(), sc.clone(), kv.clone(), sc.clone()
+    kv_k, sc_k, kv_2, sc_2, kv_r, sc_r = (t.clone() for t in (kv, sc) * 3)
     n1, n2 = da.decode_attention_quant.launches, da.decode_attention_quant.launches_int4
-    ctx = da.decode_attention_quant(q, ring, kv_k, sc_k, index)
-    ctx2 = da.decode_attention_quant(q, ring, kv_k.clone(), sc_k.clone(), index)
+    ctx = da.decode_attention_quant(q, ring, kv_k, sc_k, index, splits=splits)
+    ctx2 = da.decode_attention_quant(q, ring, kv_2, sc_2, index, splits=splits)
     torch.cuda.synchronize()
     assert (da.decode_attention_quant.launches - n1,
-            da.decode_attention_quant.launches_int4 - n2) == (0, 2)
+            da.decode_attention_quant.launches_int4 - n2) == ((0, 2) if packed else (2, 0))
     want = da.decode_attention_quant_reference(q, ring, kv_r, sc_r, index)
     assert ctx.dtype == dtype and ctx.shape == (B, N, D)
     diff = (ctx.float() - want.float()).abs()
-    if tol is None:
+    if dtype == torch.float32:
+        assert diff.max().item() <= 1e-4
+    elif packed:
         assert bool((diff <= 1e-4 + want.float().abs() * 2.0 ** -7).all())
     else:
-        assert diff.max().item() <= tol
+        assert diff.max().item() <= 2e-2
     assert torch.equal(kv_k, kv_r) and torch.equal(sc_k, sc_r)
     assert torch.equal(kv_k, kv) == (index % G != G - 1)
-    assert torch.equal(ctx, ctx2)
+    assert torch.equal(ctx, ctx2) and torch.equal(kv_k, kv_2) and torch.equal(sc_k, sc_2)
+
+
+# c0 = 0 (every sealed column masked, seal into lanes 0-7 at index 7), two
+# non-seal steps, a seal on a window boundary (135: c0 = 128) and mid-window
+# (1031), a step past the middle (600) and the cache's last slot (1088)
+DECODE_INDICES = list(range(8)) + [10, 15, 133, 135, 600, 1031, 1088]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("index", DECODE_INDICES)
+def test_decode_kernel_matches_plain_version(cuda_device, dtype, index):
+    """K1 at cogview-base head shapes (B=4, N=40, D=64, 9 windows, the
+    split plan's 4 splits): see ``_check_decode``."""
+    _check_decode(cuda_device, False, dtype, 4, 40, 64, index, seed=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("index", DECODE_INDICES)
+def test_int4_decode_kernel_matches_plain_version(cuda_device, dtype, index):
+    """K2 at cogview-base head shapes: see ``_check_decode``."""
+    _check_decode(cuda_device, True, dtype, 4, 40, 64, index, seed=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", da.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("index", [3, 135, 1031, 1088])
+@pytest.mark.parametrize("packed", [False, True], ids=["K1", "K2"])
+def test_decode_kernels_over_head_dims(cuda_device, packed, dtype, index, d):
+    """K1 and K2 at every head dim of the switch, B=2, N=4 (9 splits): at
+    D = 8 an int4 block is 512 bytes, 4 rows of 128."""
+    _check_decode(cuda_device, packed, dtype, 2, 4, d, index, seed=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 4, 40])
+@pytest.mark.parametrize("index", [600, 1031])
+@pytest.mark.parametrize("packed", [False, True], ids=["K1", "K2"])
+def test_decode_kernels_over_batch(cuda_device, packed, index, batch):
+    """bf16 q at cogview-base head shapes and batch 1 (9 splits), 4 (4) and
+    40 (one split, no merge)."""
+    assert da.split_plan(batch, 40, 9) == {1: 9, 4: 4, 40: 1}[batch]
+    _check_decode(cuda_device, packed, torch.bfloat16, batch, 40, 64, index, seed=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", range(1, 10))
+@pytest.mark.parametrize("packed", [False, True], ids=["K1", "K2"])
+def test_decode_kernels_at_every_split_count(cuda_device, packed, splits):
+    """Any split count from 1 to the 9 windows gives the same answers: a
+    seal mid-window (1031), float32 and bf16 q."""
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_decode(cuda_device, packed, dtype, 4, 40, 64, 1031, seed=5, splits=splits)
+
+
+@pytest.mark.cuda
+def test_decode_wrapper_rejects_what_the_kernels_do_not_take(cuda_device):
+    q, ring, kv, sc = _decode_cache(cuda_device, False, 2, 4, 48, seed=0)
+    with pytest.raises(ValueError, match="head_dim"):  # 48 does not divide 128
+        da.decode_attention_quant(q, ring, kv, sc, 20)
+    q, ring, kv, sc = _decode_cache(cuda_device, False, 2, 4, 64, seed=0)
+
+    def misaligned(t):  # a contiguous view 4 bytes past a 16-byte boundary
+        return torch.zeros(t.numel() + 1, device=cuda_device)[1:].view(t.shape).copy_(t)
+
+    with pytest.raises(ValueError, match="aligned"):
+        da.decode_attention_quant(q, ring, kv, misaligned(sc), 20)
+    with pytest.raises(ValueError, match="aligned"):
+        da.decode_attention_quant(q, misaligned(ring), kv, sc, 20)
+    for splits in (0, 10):
+        with pytest.raises(ValueError, match="splits"):
+            da.decode_attention_quant(q, ring, kv, sc, 20, splits=splits)
+    with pytest.raises(ValueError, match="ring"):  # the kernels' ring has 8 slots
+        da.decode_attention_quant(q, ring[:4].contiguous(), kv, sc, 20)
 
 
 @pytest.mark.cuda
