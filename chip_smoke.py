@@ -55,7 +55,9 @@ result):
    1-9 live windows, each point's ctx against the plain version: the slope
    and intercept, eager and in a graph), each cache freed before the next.  The probes' times are per
    call of many calls replayed from one CUDA graph, the plain versions'
-   and torch.add's beside them, with the bounds;
+   and torch.add's beside them, with the bounds; P1a's, torch.add's and
+   P1b's device time per launch is read by torch.profiler off graph
+   replays, and P1b's bound share given on both;
 7. small input: prefill + decode of a tiny float32 model through the int8,
    int4 and bfloat16 caches, and a tiny float32 forward through the flash
    kernel, on the card against the same model on the CPU (plain versions);
@@ -1439,7 +1441,10 @@ def main() -> int:
                 "bound_by": bound[1],
                 "library_ms": None if library_us is None else library_us / 1000.0,
                 "eager_ms": loop["eager_us"] / 1000.0, "captured": loop["graph_captured"],
-                "replayed": loop["graph_replayed"]}
+                "replayed": loop["graph_replayed"],
+                # the kernel's own time per launch, torch.profiler over graph
+                # replays (null when the profiler saw no launch of it)
+                "device_us": loop["device_us"]}
 
     lpr, ssr = entry["launch_probe"], entry["seal_scatter_probe"]
     L, NW, B, N, D, W = lp.CONVENTION_SHAPE
@@ -1463,6 +1468,25 @@ def main() -> int:
                     probe_err["seal_scatter"], ssr["kernel_graph_us"], ssr["plain_graph_us"],
                     None, _bound(p2_bytes, 2 * ssp.HB * ssp.DC * ssp.G * ssp.G, "f32"), ssr),
     ]
+
+    # P1a beside torch.add, P1b beside its bound, per call from a graph and
+    # per launch on the device
+    p1a, p1b = probe_rows[0], probe_rows[1]
+    add = lpr["torch_add"]
+
+    def us(v):
+        return "not measured" if v is None else f"{v:.3f} us"
+
+    print(f"probe P1a [8,128]: {p1a['ms'] * 1e3:.3f} us/call in a graph, torch.add "
+          f"{add['graph_us']:.3f}; eager {p1a['eager_ms'] * 1e3:.2f} us/call, torch.add "
+          f"{add['eager_us']:.2f}; device {us(p1a['device_us'])} a launch, torch.add "
+          f"{us(add['device_us'])}; bound {p1a['bound_ms'] * 1e3:.4f} us")
+    share_dev = (None if p1b["device_us"] is None
+                 else f"{p1b['bound_ms'] * 1e3 / p1b['device_us']:.3f}")
+    print(f"probe P1b B={B} N={N} D={D}: {p1b['ms'] * 1e3:.3f} us/call in a graph (bound share "
+          f"{p1b['bound_ms'] / p1b['ms']:.3f}), device {us(p1b['device_us'])} a launch (bound "
+          f"share {share_dev}), plain {p1b['plain_ms'] * 1e3:.3f} us/call; bound "
+          f"{p1b['bound_ms'] * 1e3:.3f} us ({p1b_bytes / 1e6:.2f} MB)")
 
     fk, fp, fl, fc, fbound, fby = k3["times"]["bfloat16"]
     tdrop, tnodrop, tl_, tc, tbound, _ = k3["times"]["train"]

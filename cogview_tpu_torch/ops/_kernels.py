@@ -6,6 +6,9 @@ build runs at first use, from the sources in the checkout, into
 ``cogview_tpu_torch/build/`` (which git ignores); the library's file name
 carries a hash of its source and flags, so an edited source is rebuilt.
 Nothing here runs at import time.
+
+:func:`launch` is the one place a kernel is launched from Python: every
+wrapper in ``ops/`` calls it.
 """
 
 from __future__ import annotations
@@ -17,7 +20,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -72,6 +77,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# (library, function) -> its ctypes function, resolved at its first launch
+_FNS: Dict[Tuple[str, str], Callable[..., int]] = {}
 
 
 def _nvcc() -> str:
@@ -131,3 +138,25 @@ def lib(name: str) -> ctypes.CDLL:
             fn.restype = _I
         _LIBS[name] = so
     return _LIBS[name]
+
+
+def launch(lib_name: str, fn_name: str, device: torch.device, *args) -> None:
+    """Call ``fn_name`` of library ``lib_name`` with ``args`` and, last, the
+    raw handle of ``device``'s current stream (the capture stream under
+    CUDA-graph capture).  The ctypes function is resolved once and kept; a
+    device guard is entered only when ``device`` is not the current one.
+    Raises RuntimeError on a non-zero CUDA error."""
+    fn = _FNS.get((lib_name, fn_name))
+    if fn is None:
+        fn = _FNS[(lib_name, fn_name)] = getattr(lib(lib_name), fn_name)
+    # torch._C's _cuda_* functions exist only in CUDA builds: looked up
+    # here, on a CUDA tensor's launch, never at import
+    C = torch._C
+    index = device.index  # a CUDA tensor's device always has one
+    if index == C._cuda_getDevice():
+        err = fn(*args, C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")

@@ -45,6 +45,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from ._kernels import launch
+
 MASK_VALUE = -10000.0
 WRITE_WINDOW = 128  # tokens per cache window
 SEAL_GROUP = 8  # decode steps per seal; the last <= 8 tokens ride the ring
@@ -400,8 +402,6 @@ def decode_attention_quant(
         return decode_attention_quant_reference(q, ring_l, kv_l, scales_l, index)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_quant: unsupported device {q.device}")
-    from . import _kernels
-
     B, N, D = q.shape
     if kv_l.ndim != 6 or kv_l.shape[5] != WRITE_WINDOW:
         raise ValueError(f"kv cache layer view must be [NW, B, 2, N, Dc, 128], got {tuple(kv_l.shape)}")
@@ -439,16 +439,12 @@ def decode_attention_quant(
     if splits > 1:
         part = torch.empty((splits, B, N, D + 2), dtype=torch.float32, device=q.device)
         counters = _counters(q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = getattr(_kernels.lib("decode_attention"), fn)(
-            q.data_ptr(), int(q.dtype == torch.bfloat16), ring_l.data_ptr(),
-            kv_l.data_ptr(), scales_l.data_ptr(), ctx.data_ptr(),
-            None if part is None else part.data_ptr(),
-            None if counters is None else counters.data_ptr(),
-            B, N, D, NW, int(index), splits, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
+    launch("decode_attention", fn, q.device,
+           q.data_ptr(), int(q.dtype == torch.bfloat16), ring_l.data_ptr(),
+           kv_l.data_ptr(), scales_l.data_ptr(), ctx.data_ptr(),
+           None if part is None else part.data_ptr(),
+           None if counters is None else counters.data_ptr(),
+           B, N, D, NW, int(index), splits)
     if packed:
         decode_attention_quant.launches_int4 += 1
     else:

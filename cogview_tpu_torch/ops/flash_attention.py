@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ._kernels import launch
 from .hash_prng import hash_u32
 
 MASK_VALUE = -10000.0
@@ -202,16 +203,6 @@ def _dropout_args(D: int, sep: int, rate: float, seed: Optional[int]):
             _rate_threshold(rate), 1.0 - rate, int(rate > 0.0))
 
 
-def _launch(fn_name: str, device: torch.device, *args) -> None:
-    from . import _kernels
-
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = getattr(_kernels.lib("flash_attention"), fn_name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
-
-
 def _flash_fwd(q, k, v, sep, rate, seed):
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, sep, rate, seed)
@@ -220,10 +211,10 @@ def _flash_fwd(q, k, v, sep, rate, seed):
     B, S, N, D, strides = _cuda_operands(("q", q), ("k", k), ("v", v))
     o = torch.empty((B, S, N, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, N, S), dtype=torch.float32, device=q.device)
-    _launch("flash_attention_fwd", q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, S, N, D, *strides,
-            *_dropout_args(D, sep, rate, seed))
+    launch("flash_attention", "flash_attention_fwd", q.device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+           int(q.dtype == torch.bfloat16), B, S, N, D, *strides,
+           *_dropout_args(D, sep, rate, seed))
     flash_attention.launches += 1
     return o, lse
 
@@ -247,10 +238,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, sep: int = 0, *, dropout_rate: float =
     do = do.contiguous()
     B, S, N, D, strides = _bwd_launch_args(q, k, v, do, lse, delta)
     dq = torch.empty((B, S, N, D), dtype=q.dtype, device=q.device)
-    _launch("flash_attention_bwd_dq", q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), int(q.dtype == torch.bfloat16), B, S, N, D,
-            *strides, *_dropout_args(D, sep, dropout_rate, dropout_seed))
+    launch("flash_attention", "flash_attention_bwd_dq", q.device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+           delta.data_ptr(), dq.data_ptr(), int(q.dtype == torch.bfloat16), B, S, N, D,
+           *strides, *_dropout_args(D, sep, dropout_rate, dropout_seed))
     flash_bwd_dq.launches += 1
     return dq
 
@@ -270,10 +261,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, sep: int = 0, *, dropout_rate: float 
     B, S, N, D, strides = _bwd_launch_args(q, k, v, do, lse, delta)
     dk = torch.empty((B, S, N, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, S, N, D), dtype=q.dtype, device=q.device)
-    _launch("flash_attention_bwd_dkv", q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
-            B, S, N, D, *strides, *_dropout_args(D, sep, dropout_rate, dropout_seed))
+    launch("flash_attention", "flash_attention_bwd_dkv", q.device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+           delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
+           B, S, N, D, *strides, *_dropout_args(D, sep, dropout_rate, dropout_seed))
     flash_bwd_dkv.launches += 1
     return dk, dv
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ._kernels import launch
 from .decode_attention import WRITE_WINDOW
 
 ROWS = 2  # batch rows of window 0 that P1b copies, as the TPU probe's rb
@@ -43,16 +44,6 @@ def _check_on(fn: str, device: torch.device, **tensors) -> None:
     for name, t in tensors.items():
         if not t.is_contiguous() or t.device != device:
             raise ValueError(f"{fn}: {name} must be contiguous on {device}")
-
-
-def _launch(fn: str, device: torch.device, *args) -> None:
-    from . import _kernels
-
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = getattr(_kernels.lib("probes"), fn)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
 
 
 # ------------------------------------------------------------------ #
@@ -73,7 +64,7 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"add_one: x dtype {x.dtype}, float32 expected")
     _check_on("add_one", x.device, x=x)
     o = torch.empty_like(x)
-    _launch("probe_add_one", x.device, x.data_ptr(), o.data_ptr(), x.numel())
+    launch("probes", "probe_add_one", x.device, x.data_ptr(), o.data_ptr(), x.numel())
     add_one.launches += 1
     return o
 
@@ -128,8 +119,8 @@ def decode_convention(q: torch.Tensor, ring_l: torch.Tensor, kv_l: torch.Tensor,
     if kv_l.data_ptr() % 16 or scales_l.data_ptr() % 16:
         raise ValueError("kv and scales views must be 16-byte aligned (16-byte async copies)")
     ctx = torch.empty_like(q)
-    _launch("probe_decode_convention", q.device, q.data_ptr(), 1, ring_l.data_ptr(),
-            kv_l.data_ptr(), scales_l.data_ptr(), ctx.data_ptr(), B, N, D, NW, G, int(index))
+    launch("probes", "probe_decode_convention", q.device, q.data_ptr(), 1, ring_l.data_ptr(),
+           kv_l.data_ptr(), scales_l.data_ptr(), ctx.data_ptr(), B, N, D, NW, G, int(index))
     decode_convention.launches += 1
     return ctx
 
@@ -173,8 +164,8 @@ def seal_scatter(qc: torch.Tensor, oh: torch.Tensor, lane0: torch.Tensor) -> tor
         raise ValueError(f"lane0 must hold one value, got {tuple(lane0.shape)}")
     _check_on("seal_scatter", qc.device, qc=qc, oh=oh, lane0=lane0)
     out = torch.empty((hb, Dc, W), dtype=torch.int8, device=qc.device)
-    _launch("probe_seal_scatter", qc.device, qc.data_ptr(), oh.data_ptr(), lane0.data_ptr(),
-            out.data_ptr(), G, hb, Dc, W)
+    launch("probes", "probe_seal_scatter", qc.device, qc.data_ptr(), oh.data_ptr(),
+           lane0.data_ptr(), out.data_ptr(), G, hb, Dc, W)
     seal_scatter.launches += 1
     return out
 

@@ -25,7 +25,7 @@ def pick_device(name: str) -> torch.device:
     """``cuda`` or ``cpu``; exits non-zero when ``cuda`` is asked for and
     there is no card (there is no silent CPU path)."""
     if name == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: these probes time the card's kernels; pass "
+        raise SystemExit("no CUDA device: this script runs the card's kernels; pass "
                          "--device cpu to run the plain versions on the CPU")
     return torch.device(name)
 
@@ -59,14 +59,37 @@ def capture(loop: Callable[[], torch.Tensor]) -> Tuple[torch.cuda.CUDAGraph, tor
     return graph, out
 
 
+def profile_device_us(device: torch.device, run: Callable[[], object], kernel: str,
+                      reps: int = 2) -> Tuple[Optional[float], int]:
+    """``reps`` runs of ``run`` under torch.profiler -> (mean device
+    microseconds of one launch of the kernels whose name holds ``kernel``,
+    their launches), or (None, 0) when the profiler recorded none."""
+    torch.cuda.synchronize(device)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize(device)
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key and t > 0:
+            us, n = us + t, n + e.count
+    return (us / n if n else None), n
+
+
 def time_graph(device: torch.device, loop: Callable[[], torch.Tensor], reps: int,
-               count: Callable[[], int] = lambda: 0) -> Optional[Dict]:
+               count: Callable[[], int] = lambda: 0,
+               profile: Optional[str] = None) -> Optional[Dict]:
     """``loop`` captured as one CUDA graph and timed over ``reps`` replays
     after one warm replay -> {"seconds": mean seconds of one replay, "out":
     the graph's output after the replays, "captured": the rise of
     ``count()`` (a wrapper's launch counter) during the capture, i.e. the
     kernel calls one replay runs, "replayed": captured times the replays
-    actually made}; None off the card."""
+    actually made}; None off the card.  With ``profile``, two more replays
+    run under torch.profiler and add "device_us" and "device_launches"
+    (:func:`profile_device_us` for the kernels named ``profile``)."""
     if device.type != "cuda":
         return None
     before = count()
@@ -81,8 +104,11 @@ def time_graph(device: torch.device, loop: Callable[[], torch.Tensor], reps: int
 
     seconds = time_runs(device, replay, reps)
     torch.cuda.synchronize(device)
-    return {"seconds": seconds, "out": out, "captured": captured,
-            "replayed": replays * captured}
+    res = {"seconds": seconds, "out": out}
+    if profile is not None:
+        res["device_us"], res["device_launches"] = profile_device_us(device, replay, profile)
+    res.update(captured=captured, replayed=replays * captured)
+    return res
 
 
 def us_text(us: Optional[float]) -> str:

@@ -24,9 +24,11 @@ the calls (the counterpart of the TPU probe's on-device loop), whose time
 per call is the kernel's own with the launch cost a graph leaves.  P1b's
 plain version is chained and replayed from a graph beside it.  Times are
 CUDA events over ``--reps`` runs after one warm run, in microseconds per
-call.  Before timing, P1b at layers 0, 1 and L - 1 must equal its plain
-version bit for bit and change q; after, the eager and graph chains must
-equal the plain versions' chain bit for bit, or the script exits non-zero.
+call; the kernels' own device time per launch is read by torch.profiler off
+two more graph replays.  Before timing, P1b at layers 0, 1 and L - 1 must
+equal its plain version bit for bit and change q; after, the eager and
+graph chains must equal the plain versions' chain bit for bit, or the
+script exits non-zero.
 The kernel does the same work whatever the values; the random cache makes
 the checks see a kernel that reads the wrong layer, row or scale.
 
@@ -106,19 +108,27 @@ def check_layers(q, ring, kv, scales, layers: Sequence[int]) -> float:
 
 
 def _timed(name: str, device, loop, reps: int, iters: int, want: torch.Tensor,
-           count: Callable[[], int] = lambda: 0, plain: Optional[Callable] = None) -> Dict:
+           count: Callable[[], int] = lambda: 0, plain: Optional[Callable] = None,
+           kernel: Optional[str] = None) -> Dict:
     """Time ``loop`` eagerly and as a graph (and ``plain``, the plain
     versions' chain, as a graph), print one line each, and check both of
-    ``loop``'s outputs equal ``want`` bit for bit."""
+    ``loop``'s outputs equal ``want`` bit for bit.  ``kernel`` names the
+    kernel whose device time per launch torch.profiler reads off two more
+    graph replays."""
     eager_s = time_runs(device, loop, reps)
     eager_out = loop()
-    graph = time_graph(device, loop, reps, count)
+    graph = time_graph(device, loop, reps, count, profile=kernel)
     res = {"eager_us": eager_s / iters * 1e6,
            "graph_us": None if graph is None else graph["seconds"] / iters * 1e6,
+           "device_us": None if graph is None else graph.get("device_us"),
            "graph_captured": 0 if graph is None else graph["captured"],
            "graph_replayed": 0 if graph is None else graph["replayed"]}
     print(f"{name + ' eager':40s} {us_text(res['eager_us'])} us/call", flush=True)
     print(f"{name + ' CUDA graph':40s} {us_text(res['graph_us'])} us/call", flush=True)
+    if kernel is not None:
+        print(f"{name + ' device (torch.profiler)':40s} {us_text(res['device_us'])} us/launch "
+              f"({0 if graph is None else graph['device_launches']} launches seen)",
+              flush=True)
     if plain is not None:
         plain_graph = time_graph(device, plain, reps)
         res["plain_graph_us"] = (None if plain_graph is None
@@ -142,17 +152,18 @@ def run(device: torch.device, iters: int, reps: int,
     if want.sum().item() != 1024 * iters:
         raise SystemExit("the tiny chain does not end at iters")
     out["tiny"] = _timed("tiny [8,128] block", device, lambda: tiny_chain(x0, iters), reps,
-                         iters, want, lambda: probes.add_one.launches)
+                         iters, want, lambda: probes.add_one.launches, kernel="add_one_kernel")
     out["torch_add"] = _timed("torch.add [8,128] block", device,
                               lambda: tiny_chain(x0, iters, lambda x: torch.add(x, 1.0)),
-                              reps, iters, want)
+                              reps, iters, want, kernel="elementwise")
     inputs = convention_inputs(device, shape, SEED)
     err = check_layers(*inputs, (0, 1, shape[0] - 1))
     want = convention_chain(*inputs, iters, probes.decode_convention_reference)
     out["convention"] = _timed(
         "decode-convention 1 window", device, lambda: convention_chain(*inputs, iters), reps,
         iters, want, lambda: probes.decode_convention.launches,
-        plain=lambda: convention_chain(*inputs, iters, probes.decode_convention_reference))
+        plain=lambda: convention_chain(*inputs, iters, probes.decode_convention_reference),
+        kernel="decode_convention_kernel")
     out["convention"]["max_abs_err"] = err
     del inputs, want
     return out

@@ -28,7 +28,8 @@ equal iters times the plain version's bytes, and exits non-zero otherwise.
 The loop's time per call holds the cast and the add; ``--iters`` calls of
 the kernel alone, and of its plain version alone, are then replayed from a
 CUDA graph each and timed the same way, the kernel's last output held
-byte-equal to the plain version's.
+byte-equal to the plain version's; torch.profiler reads the kernel's own
+device time per launch off two more replays of its graph.
 
 Usage: python -m cogview_tpu_torch.scripts.seal_scatter_probe [--iters 64]
        [--reps 3] [--device cuda|cpu]
@@ -98,7 +99,8 @@ def run(device: torch.device, iters: int, reps: int) -> Dict:
     ok = torch.equal(loop(), want)
     graph = time_graph(device, loop, reps, count)
     ok = ok and (graph is None or torch.equal(graph["out"], want))
-    alone = time_graph(device, lambda: scatter_calls(qc, oh, lane0, iters), reps, count)
+    alone = time_graph(device, lambda: scatter_calls(qc, oh, lane0, iters), reps, count,
+                       profile="seal_scatter_kernel")
     ok = ok and (alone is None or torch.equal(alone["out"], plain))
     plain_alone = time_graph(
         device, lambda: scatter_calls(qc, oh, lane0, iters, probes.seal_scatter_reference), reps)
@@ -110,12 +112,14 @@ def run(device: torch.device, iters: int, reps: int) -> Dict:
            "iters": iters, "reps": reps, "pass": ok, "eager_us": eager_s / iters * 1e6,
            "graph_us": per_call(graph), "kernel_graph_us": per_call(alone),
            "plain_graph_us": per_call(plain_alone),
+           "device_us": None if alone is None else alone["device_us"],
            "graph_captured": sum(g["captured"] for g in (graph, alone) if g is not None),
            "graph_replayed": sum(g["replayed"] for g in (graph, alone) if g is not None)}
     print(f"seal {'PASS' if ok else 'FAIL'}  {us_text(res['eager_us'])} us/call eager, "
           f"{us_text(res['graph_us'])} us/call in a CUDA graph", flush=True)
     print(f"seal kernel alone {us_text(res['kernel_graph_us'])} us/call in a CUDA graph, "
-          f"plain version {us_text(res['plain_graph_us'])} us/call", flush=True)
+          f"plain version {us_text(res['plain_graph_us'])} us/call; the kernel's device time "
+          f"{us_text(res['device_us'])} us/launch (torch.profiler)", flush=True)
     if not ok:
         raise SystemExit("seal: the kernel's bytes differ from the plain version's")
     return res

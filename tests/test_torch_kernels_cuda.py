@@ -389,6 +389,20 @@ def test_add_one_kernel_matches_plain_version(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(1024, 0), (1023, 0), (4097, 0), (1024, 1), (4097, 3)])
+def test_add_one_kernel_sizes_and_offset_views(cuda_device, n, offset):
+    """n = 1024 (the vector path only), 1023 and 4097 (its scalar tail), and
+    views 4 and 12 bytes into their buffer (off a 16-byte boundary: the
+    scalar path): bit-equal to x + 1.0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + offset)
+    x = torch.randn(n + offset, generator=gen, device=cuda_device)[offset:]
+    assert x.data_ptr() % 16 == 4 * offset % 16
+    got = probes.add_one(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, x + 1.0)
+
+
+@pytest.mark.cuda
 def test_decode_convention_kernel_matches_plain_version(cuda_device):
     """P1b at cogview-base head widths (3 layers, 2 windows, batch 4) on a
     random cache, every layer view: bit-equal to its plain version."""
@@ -401,6 +415,50 @@ def test_decode_convention_kernel_matches_plain_version(cuda_device):
         assert got.dtype == torch.bfloat16 and torch.equal(got, want)
         assert not torch.equal(got, q)
     assert probes.decode_convention.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_decode_convention_kernel_at_layers_0_1_47(cuda_device):
+    """P1b on a 48-layer cache at cogview-base head widths (1 window, batch
+    2), layers 0, 1 and 47: bit-equal; and a q 2 bytes off a 16-byte
+    boundary (the kernel's scalar path) too."""
+    q, ring, kv, sc = launch_probe.convention_inputs(cuda_device, (48, 1, 2, 40, 64, 128), seed=6)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    q_off = buf[1:].view(q.shape)
+    q_off.copy_(q)
+    assert q_off.is_contiguous() and q_off.data_ptr() % 16 == 2
+    for li in (0, 1, 47):
+        want = probes.decode_convention_reference(q, ring[li], kv[li], sc[li], 0)
+        for qq in (q, q_off):
+            got = probes.decode_convention(qq, ring[li], kv[li], sc[li], 0)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want) and not torch.equal(got, q)
+
+
+@pytest.mark.cuda
+def test_launch_probes_replayed_from_a_cuda_graph_bit_equal(cuda_device):
+    """P1a and P1b (layers 0, 1, 2 in turn) captured in one CUDA graph
+    through the shared launch path and replayed: bit-equal to their plain
+    versions, and again after the inputs change in place."""
+    x = torch.randn(4097, device=cuda_device)
+    q, ring, kv, sc = launch_probe.convention_inputs(cuda_device, (3, 2, 4, 40, 64, 128), seed=7)
+
+    def step():
+        return (probes.add_one(x),
+                launch_probe.convention_chain(q, ring, kv, sc, 3))
+
+    def plain():
+        return (probes.add_one_reference(x),
+                launch_probe.convention_chain(q, ring, kv, sc, 3,
+                                              probes.decode_convention_reference))
+
+    graph, out = _timing.capture(step)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, plain()))
+        x.mul_(-0.5)
+        sc.mul_(3.0)
 
 
 @pytest.mark.cuda

@@ -89,6 +89,21 @@ def test_add_one_matches_tiny_kernel():
                                   _bits(want))
 
 
+@pytest.mark.parametrize("n,offset", [(1023, 0), (4097, 0), (1024, 1), (1023, 3)])
+def test_add_one_odd_n_and_offset_view_match_tiny_kernel(n, offset):
+    """n not a multiple of 4 (the card kernel's scalar tail) and a view
+    ``offset`` float32 values into its buffer (off a 16-byte boundary: the
+    card kernel's scalar path), bit-equal to the Pallas kernel on n values."""
+    ns = _script_defs("pallas_launch_probe.py", {"tiny_kernel"})
+    buf = np.random.RandomState(n).randn(n + offset).astype(np.float32)
+    want = pl.pallas_call(ns["tiny_kernel"], out_shape=jax.ShapeDtypeStruct((n,), jnp.float32),
+                          interpret=True)(jnp.asarray(buf[offset:]))
+    x = torch.from_numpy(buf)[offset:]
+    assert x.is_contiguous() and x.storage_offset() == offset
+    got = probes.add_one(x)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
 # the TPU probe's kernel at L=3 layers, 2 windows, batch 4 (its widths: 40
 # heads of 64, 128-token windows, rows [0, 2) copied)
 P1B = dict(L=3, NW=2, B=4, N=40, D=64, W=128)
