@@ -41,9 +41,10 @@ result):
    kernels (8 each) holds HGMMA (wgmma) and LDGSTS (cp.async), their
    registers are printed, and at D=64 they spill nothing;
 6. probes: P1a (add_one) on a random block and P2 (the seal's lane
-   scatter) on the TPU probe's inputs and random lane0 in [0, 120]
-   bit-equal to their plain versions; P1b's SASS holds its cp.async
-   copies.  Then the three measurement entry points at their default
+   scatter) on the TPU probe's inputs and at every lane0 in [0, 120], with
+   the one-hot and with it permuted within the group, bit-equal to their
+   plain versions; P1b's SASS holds its cp.async copies, and every global
+   store in P2's is 128 bits wide (STG.E.128).  Then the three measurement entry points at their default
    shapes, each of which checks what it times and exits non-zero on a
    difference: ``scripts.launch_probe`` (P1b at cogview-base width and batch
    40 on a random 12 GB cache, layers 0, 1, 47, bit-equal; the P1a and P1b
@@ -592,10 +593,12 @@ def _check_decode_kernels(so, head_dims) -> None:
 
 
 def phase_probes(torch, probes, ssp):
-    """P1a on a random block and P2 on the TPU probe's inputs and random
-    lane0, single calls, against their plain versions bit for bit -> the
-    largest difference of each.  P1b's checks, and the chains eager and in a CUDA
-    graph, are the entry points' own (``phase_probe_entry_points``)."""
+    """P1a on a random block and P2 on the TPU probe's inputs, then at every
+    lane0 in [0, 120] on random qc with the matching one-hot and with a
+    one-hot permuted within the group, single calls, against their plain
+    versions bit for bit -> the largest difference of each.  P1b's checks,
+    and the chains eager and in a CUDA graph, are the entry points' own
+    (``phase_probe_entry_points``)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(8)
 
@@ -610,17 +613,20 @@ def phase_probes(torch, probes, ssp):
     qc, oh, l0 = ssp.probe_inputs(dev)
     cases = [(qc, oh, l0)]
     rng = torch.Generator().manual_seed(10)
-    for lane0 in torch.randint(0, 121, (6,), generator=rng).tolist() + [0, 120]:
-        cases.append((torch.randint(-127, 127, qc.shape, generator=rng).float().to(dev),
-                      ssp.one_hot(lane0, dev),
-                      torch.full((1, 1), lane0, dtype=torch.int32, device=dev)))
+    for lane0 in range(ssp.W - ssp.G + 1):
+        l0_c = torch.full((1, 1), lane0, dtype=torch.int32, device=dev)
+        qc_c = torch.randint(-127, 127, qc.shape, generator=rng).float().to(dev)
+        perm = torch.randperm(ssp.G, generator=rng).to(dev)
+        cases += [(qc_c, ssp.one_hot(lane0, dev), l0_c),
+                  (qc_c, ssp.one_hot(lane0, dev)[perm], l0_c)]
     for qc_c, oh_c, l0_c in cases:
         got = probes.seal_scatter(qc_c, oh_c, l0_c)
         want = probes.seal_scatter_reference(qc_c, oh_c, l0_c)
         _check(torch.equal(got, want), f"P2 bytes differ at lane0 {l0_c.item()}")
         err["seal_scatter"] = max(err["seal_scatter"], diff(got, want))
-    print(f"probe P2 seal_scatter [40,64,128]: byte-equal at lane0 "
-          f"{[int(c[2].item()) for c in cases]}")
+    print(f"probe P2 seal_scatter [40,64,128]: byte-equal in {len(cases)} cases, lane0 "
+          f"{ssp.LANE0} (the probe's inputs) and every lane0 in [0, {ssp.W - ssp.G}], each "
+          f"with the one-hot and with it permuted within the group")
     return err
 
 
@@ -634,6 +640,18 @@ def _check_async_copy(so) -> None:
             found[name] = section.count("LDGSTS")
     print(f"probe P1b SASS (cuobjdump): LDGSTS in the kernel {list(found.values())}")
     _check(len(found) == 1 and all(found.values()), "P1b's asynchronous copy is missing")
+
+
+def _check_seal_stores(so) -> None:
+    """P2 writes its output 16 bytes at a time: every global store in its
+    kernel's SASS is STG.E.128."""
+    stores = []
+    for section in _cuobjdump(so, "-sass").split("Function : ")[1:]:
+        if "seal_scatter_kernel" in section.split(None, 1)[0]:
+            stores += re.findall(r"\bSTG\S*", section)
+    print(f"probe P2 SASS (cuobjdump): global stores {sorted(set(stores))} x {len(stores)}")
+    _check(stores and all(st.startswith("STG.E.128") for st in stores),
+           "P2's kernel does not store 128 bits at a time")
 
 
 # the window sweeps: (key, decode_kernel_microbench arguments); batch 40
@@ -1367,6 +1385,7 @@ def main() -> int:
     # measurement entry points
     probe_err = phase_probes(torch, probes, ssp)
     _check_async_copy(sos[names.index("probes")])
+    _check_seal_stores(sos[names.index("probes")])
     entry, probe_launches = phase_probe_entry_points(torch, da, probes, lp, ssp, dkm)
     # phases 7-8: small input
     phase_small_input(torch, gpt, cfgmod, da, fa)
@@ -1487,6 +1506,20 @@ def main() -> int:
           f"{p1b['bound_ms'] / p1b['ms']:.3f}), device {us(p1b['device_us'])} a launch (bound "
           f"share {share_dev}), plain {p1b['plain_ms'] * 1e3:.3f} us/call; bound "
           f"{p1b['bound_ms'] * 1e3:.3f} us ({p1b_bytes / 1e6:.2f} MB)")
+
+    # P2: its bound share on the graph time and on the device time
+    p2 = probe_rows[2]
+    p2.update(design="a thread per 16 output bytes; oh by cp.async, lane0 and qc loaded "
+                     "together; masked in registers",
+              bound_share=p2["bound_ms"] / p2["ms"],
+              device_bound_share=(None if p2["device_us"] is None
+                                  else p2["bound_ms"] * 1e3 / p2["device_us"]))
+    share_dev = (None if p2["device_bound_share"] is None
+                 else f"{p2['device_bound_share']:.3f}")
+    print(f"probe P2 [40,64,128]: {p2['ms'] * 1e3:.3f} us/call in a graph (bound share "
+          f"{p2['bound_share']:.3f}), device {us(p2['device_us'])} a launch (bound share "
+          f"{share_dev}), plain {p2['plain_ms'] * 1e3:.3f} us/call; bound "
+          f"{p2['bound_ms'] * 1e3:.4f} us ({p2_bytes / 1e3:.0f} KB)")
 
     fk, fp, fl, fc, fbound, fby = k3["times"]["bfloat16"]
     tdrop, tnodrop, tl_, tc, tbound, _ = k3["times"]["train"]

@@ -39,8 +39,19 @@
 // int8 conversion truncates toward zero, as torch's .to(torch.int8) and XLA's
 // convert do on in-range values.  The TPU probe compared five Mosaic
 // lowerings of this one function (accum, bigsum, batched, fused2d, serial);
-// on Hopper there is one: a thread per 4 output lanes, the contraction only
-// for the G lanes of the group.  Bound: the 414 KB of qc, oh and out.
+// on Hopper there is one.  Its bound is the 414 KB of qc, oh and out
+// (0.12 us), far below the card's ~1 us floor for a launch that reads
+// memory, so the design aims at that floor: one DRAM round trip.  A thread
+// owns 16 output lanes of one row and writes them with one 16-byte store
+// (20,480 threads at [40, 64, 128], 32-bit index arithmetic).  No load waits
+// on lane0: each block's cp.async copy of oh ([G, W], 4 KB) into shared
+// memory, lane0 and the row's G qc values are all in flight together.  A
+// chunk that misses [lane0, lane0 + G) stores its zeros as soon as lane0
+// arrives; the at most two chunks of a row that meet the group compute
+// their lanes 4 at a time, the at most three fours that meet it (G x 4
+// FMAs each, oh read from shared memory), and mask them in registers.  Computing every chunk instead, a first version, ran 3.5 us
+// on an H100: 8 threads of a row reading 64-byte-strided oh words made
+// 4-way bank conflicts.  G is the seal group, 8.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -136,26 +147,68 @@ decode_convention_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __re
   }
 }
 
-__global__ void seal_scatter_kernel(const float* __restrict__ qc, const float* __restrict__ oh,
-                                    const int* __restrict__ lane0_ptr, int8_t* __restrict__ out,
-                                    int G, int rows, int width) {
-  // thread i: output row i / (width / 4) (= h * Dc + d), lanes [l4, l4 + 4)
-  const int quads = width / 4;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)rows * quads) return;
-  const int row = (int)(i / quads);
-  const int l4 = (int)(i % quads) * 4;
-  const int lane0 = *lane0_ptr;
-  char4 v = make_char4(0, 0, 0, 0);
-  int8_t* vb = reinterpret_cast<int8_t*>(&v);
-  for (int k = 0; k < 4; ++k) {
-    const int l = l4 + k;
-    if (l < lane0 || l >= lane0 + G) continue;
-    float acc = 0.0f;
-    for (int g = 0; g < G; ++g) acc += qc[(size_t)g * rows + row] * oh[(size_t)g * width + l];
-    vb[k] = (int8_t)__float2int_rz(acc);
+constexpr int SEAL_G = 8;         // the seal group: columns sealed at once
+constexpr int SEAL_BLOCK = 128;   // threads of a P2 block
+constexpr int SEAL_LANES = 16;    // output lanes (bytes) a thread owns
+
+// thread i: output row i / (width / 16) (= h * Dc + d), lanes [l16, l16 + 16)
+__global__ void __launch_bounds__(SEAL_BLOCK)
+seal_scatter_kernel(const float* __restrict__ qc, const float* __restrict__ oh,
+                    const int* __restrict__ lane0_ptr, int8_t* __restrict__ out, int rows,
+                    int width) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ohs = reinterpret_cast<float*>(smem);  // [SEAL_G, width]
+  const int tid = threadIdx.x;
+  const int chunks = width / SEAL_LANES;
+  const int i = blockIdx.x * SEAL_BLOCK + tid;
+  const bool live = i < rows * chunks;
+  const int row = i / chunks;
+  const int l16 = (i - row * chunks) * SEAL_LANES;
+
+  // 1. every load at once: oh into shared memory, lane0, the row's qc
+  for (int j = tid; j < SEAL_G * width / 4; j += SEAL_BLOCK)
+    __pipeline_memcpy_async(ohs + 4 * j, oh + 4 * j, 16);
+  __pipeline_commit();
+  const int lane0 = __ldg(lane0_ptr);
+  float q[SEAL_G];
+#pragma unroll
+  for (int g = 0; g < SEAL_G; ++g) q[g] = live ? __ldg(qc + g * rows + row) : 0.0f;
+
+  // 2. a chunk that misses the group stores its zeros at once; at most two
+  // chunks of a row meet it
+  const bool meets = live && l16 < lane0 + SEAL_G && l16 + SEAL_LANES > lane0;
+  uint4* dst = reinterpret_cast<uint4*>(out) + i;
+  if (live && !meets) *dst = make_uint4(0u, 0u, 0u, 0u);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  if (!meets) return;
+
+  // 3. the contractions of the chunk's lanes in groups of 4 that meet the
+  // group (the chunk's threads of a warp read the same oh words, a
+  // broadcast), truncated, masked to the group, packed
+  uint32_t packed[SEAL_LANES / 4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int k4 = 0; k4 < SEAL_LANES / 4; ++k4) {
+    if (l16 + 4 * k4 + 4 <= lane0 || l16 + 4 * k4 >= lane0 + SEAL_G) continue;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int g = 0; g < SEAL_G; ++g) {
+      const float4 o = *reinterpret_cast<const float4*>(ohs + g * width + l16 + 4 * k4);
+      acc.x += q[g] * o.x;
+      acc.y += q[g] * o.y;
+      acc.z += q[g] * o.z;
+      acc.w += q[g] * o.w;
+    }
+    const float a[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int l = l16 + 4 * k4 + k;
+      const bool in_group = l >= lane0 && l < lane0 + SEAL_G;
+      const uint32_t b = in_group ? (uint32_t)(uint8_t)(int8_t)__float2int_rz(a[k]) : 0u;
+      packed[k4] |= b << (8 * k);
+    }
   }
-  reinterpret_cast<char4*>(out + (size_t)row * width)[l4 / 4] = v;
+  *dst = make_uint4(packed[0], packed[1], packed[2], packed[3]);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -193,13 +246,17 @@ extern "C" int probe_decode_convention(const void* q, int q_is_bf16, const float
   return (int)cudaGetLastError();
 }
 
-// P2: the seal's lane scatter; qc [G, hb, Dc], oh [G, width], out [hb, Dc, width]
+// P2: the seal's lane scatter; qc [G, hb, Dc], oh [G, width], out
+// [hb, Dc, width]; G must be the seal group (8), width a multiple of 16, oh
+// and out 16-byte aligned
 extern "C" int probe_seal_scatter(const float* qc, const float* oh, const int* lane0, int8_t* out,
                                   int G, int hb, int Dc, int width, void* stream) {
-  const long long threads = (long long)hb * Dc * (width / 4);
-  const int block = 128;
-  const int grid = (int)((threads + block - 1) / block);
-  seal_scatter_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      qc, oh, lane0, out, G, hb * Dc, width);
+  if (G != SEAL_G || width % SEAL_LANES || !aligned16(oh) || !aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  const int threads = hb * Dc * (width / SEAL_LANES);
+  const int grid = threads > 0 ? (threads + SEAL_BLOCK - 1) / SEAL_BLOCK : 1;
+  const size_t smem = (size_t)SEAL_G * width * sizeof(float);
+  seal_scatter_kernel<<<grid, SEAL_BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+      qc, oh, lane0, out, hb * Dc, width);
   return (int)cudaGetLastError();
 }

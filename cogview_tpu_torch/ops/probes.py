@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ._kernels import launch
-from .decode_attention import WRITE_WINDOW
+from .decode_attention import SEAL_GROUP, WRITE_WINDOW
 
 ROWS = 2  # batch rows of window 0 that P1b copies, as the TPU probe's rb
 
@@ -150,14 +150,18 @@ def seal_scatter_reference(qc: torch.Tensor, oh: torch.Tensor,
 
 def seal_scatter(qc: torch.Tensor, oh: torch.Tensor, lane0: torch.Tensor) -> torch.Tensor:
     """P2 -> out [hb, Dc, W] int8.  On a CUDA tensor it launches
-    ``probe_seal_scatter``, which reads lane0 on the device; on a CPU tensor
-    the plain version."""
+    ``probe_seal_scatter``, which reads lane0 on the device and takes G =
+    SEAL_GROUP and W a multiple of 16 up to 1536 (oh is staged in 48 KB of
+    shared memory); on a CPU tensor the plain version."""
     if not _on_card("seal_scatter", qc):
         return seal_scatter_reference(qc, oh, lane0)
     G, hb, Dc = qc.shape
     W = oh.shape[1]
-    if tuple(oh.shape) != (G, W) or W % 4:
-        raise ValueError(f"oh must be [{G}, W] with W a multiple of 4, got {tuple(oh.shape)}")
+    if G != SEAL_GROUP:
+        raise ValueError(f"qc must hold the seal group's {SEAL_GROUP} columns, got {G}")
+    if tuple(oh.shape) != (G, W) or W % 16 or W > 1536:
+        raise ValueError(f"oh must be [{G}, W] with W a multiple of 16 up to 1536, got "
+                         f"{tuple(oh.shape)}")
     if (qc.dtype, oh.dtype, lane0.dtype) != (torch.float32, torch.float32, torch.int32):
         raise ValueError("qc and oh must be float32, lane0 int32")
     if lane0.numel() != 1:

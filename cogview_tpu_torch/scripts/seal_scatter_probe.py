@@ -29,7 +29,9 @@ The loop's time per call holds the cast and the add; ``--iters`` calls of
 the kernel alone, and of its plain version alone, are then replayed from a
 CUDA graph each and timed the same way, the kernel's last output held
 byte-equal to the plain version's; torch.profiler reads the kernel's own
-device time per launch off two more replays of its graph.
+device time per launch off two more replays of its graph, printed beside
+its bound (:func:`bound_us`: qc, oh and lane0 read once and out written
+once at the H100's 3.35 TB/s) and the bound's share of it.
 
 Usage: python -m cogview_tpu_torch.scripts.seal_scatter_probe [--iters 64]
        [--reps 3] [--device cuda|cpu]
@@ -49,6 +51,15 @@ from ._timing import pick_device, time_graph, time_runs, us_text
 
 G, HB, DC, W = 8, 40, 64, 128
 LANE0 = 16
+HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM data sheet
+
+
+def bound_us() -> float:
+    """Least device microseconds of one call at the probe's shapes: qc, oh
+    and lane0 read once, out written once, at the memory rate (the G x G
+    products of each row are far below the float32 peak)."""
+    nbytes = G * HB * DC * 4 + G * W * 4 + 4 + HB * DC * W
+    return nbytes / HBM_BYTES_PER_S * 1e6
 
 
 def one_hot(lane0: int, device=None) -> torch.Tensor:
@@ -113,13 +124,17 @@ def run(device: torch.device, iters: int, reps: int) -> Dict:
            "graph_us": per_call(graph), "kernel_graph_us": per_call(alone),
            "plain_graph_us": per_call(plain_alone),
            "device_us": None if alone is None else alone["device_us"],
+           "bound_us": bound_us(),
            "graph_captured": sum(g["captured"] for g in (graph, alone) if g is not None),
            "graph_replayed": sum(g["replayed"] for g in (graph, alone) if g is not None)}
     print(f"seal {'PASS' if ok else 'FAIL'}  {us_text(res['eager_us'])} us/call eager, "
           f"{us_text(res['graph_us'])} us/call in a CUDA graph", flush=True)
+    share = (None if res["device_us"] is None
+             else f"{res['bound_us'] / res['device_us']:.3f}")
     print(f"seal kernel alone {us_text(res['kernel_graph_us'])} us/call in a CUDA graph, "
           f"plain version {us_text(res['plain_graph_us'])} us/call; the kernel's device time "
-          f"{us_text(res['device_us'])} us/launch (torch.profiler)", flush=True)
+          f"{us_text(res['device_us'])} us/launch (torch.profiler), bound "
+          f"{res['bound_us']:.4f} us, share {share}", flush=True)
     if not ok:
         raise SystemExit("seal: the kernel's bytes differ from the plain version's")
     return res

@@ -482,6 +482,44 @@ def test_seal_scatter_kernel_matches_plain_version(cuda_device):
 
 
 @pytest.mark.cuda
+def test_seal_scatter_kernel_at_every_lane0(cuda_device):
+    """P2 at every lane0 in [0, 120] on random qc, with the matching one-hot
+    and with it permuted within the group: byte-equal to the plain version,
+    and two launches bit-equal."""
+    G, W = seal_scatter_probe.G, seal_scatter_probe.W
+    rng = torch.Generator().manual_seed(4)
+    for lane0 in range(W - G + 1):
+        qc = torch.randint(-127, 127, (G, 40, 64), generator=rng).float().to(cuda_device)
+        l0 = torch.full((1, 1), lane0, dtype=torch.int32, device=cuda_device)
+        perm = torch.randperm(G, generator=rng).to(cuda_device)
+        for oh in (seal_scatter_probe.one_hot(lane0, cuda_device),
+                   seal_scatter_probe.one_hot(lane0, cuda_device)[perm]):
+            got, again = probes.seal_scatter(qc, oh, l0), probes.seal_scatter(qc, oh, l0)
+            torch.cuda.synchronize()
+            assert torch.equal(got, probes.seal_scatter_reference(qc, oh, l0))
+            assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_seal_scatter_kernel_in_a_cuda_graph_after_inputs_change(cuda_device):
+    """One P2 call captured in a CUDA graph reads qc, oh and lane0 anew at
+    every replay: changed in place, the replay gives the plain version's
+    bytes for the new inputs."""
+    qc, oh, l0 = seal_scatter_probe.probe_inputs(cuda_device)
+    graph, out = _timing.capture(lambda: seal_scatter_probe.scatter_calls(qc, oh, l0, 1))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, probes.seal_scatter_reference(qc, oh, l0))
+    qc.mul_(-1.0)
+    l0.fill_(97)
+    oh.copy_(seal_scatter_probe.one_hot(97, cuda_device).flip(0))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = probes.seal_scatter_reference(qc, oh, l0)
+    assert torch.count_nonzero(want[:, :, 97:105]) > 0 and torch.equal(out, want)
+
+
+@pytest.mark.cuda
 def test_probe_loops_in_a_cuda_graph_match_eager(cuda_device):
     """A P1a chain and a P2 loop captured in CUDA graphs and replayed give
     the eager loops' results; capture counts each wrapper call once and
@@ -529,6 +567,10 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     qc, oh, l0 = seal_scatter_probe.probe_inputs(cuda_device)
     with pytest.raises(ValueError, match="int32"):
         probes.seal_scatter(qc, oh, l0.long())
+    with pytest.raises(ValueError, match="seal group"):
+        probes.seal_scatter(qc[:4].contiguous(), oh[:4].contiguous(), l0)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        probes.seal_scatter(qc, oh[:, :120].contiguous(), l0)
 
 
 def _tree_to(t, device):
