@@ -14,9 +14,12 @@ result):
    windows) at batch 4 (the split plan's 4 splits) and 40 (one), float32
    and bfloat16 queries, seal and non-seal steps (index 135 seals on a
    window boundary, 1031 mid-window, index 3 has every sealed column
-   masked); context within tolerance, cache bytes bit-equal, two launches
-   bit-equal; the microseconds per call of both at index 600 and 1031 at
-   both batches, and the bound; at batch 4 also at every split count.
+   masked), and at batch 1 over 11 windows, a super-resolution window's
+   cache (indices 1300, and 1151 and 1343, seals); context within
+   tolerance, cache bytes bit-equal, two launches bit-equal; the
+   microseconds per call of both at index 600 and 1031 at batches 4 and 40
+   and at 1300 and 1343 at batch 1, and the bound; at batch 4 also at
+   every split count.
    Then the SASS of all 20 decode instantiations holds LDGSTS (cp.async),
    their registers are printed, and at D=64 they spill nothing;
 4. flash forward kernel (K3; bf16 on the tensor cores, float32 FMA):
@@ -44,8 +47,8 @@ result):
    scatter) on the TPU probe's inputs and at every lane0 in [0, 120], with
    the one-hot and with it permuted within the group, bit-equal to their
    plain versions; P1b's SASS holds its cp.async copies, and every global
-   store in P2's is 128 bits wide (STG.E.128).  Then the three measurement entry points at their default
-   shapes, each of which checks what it times and exits non-zero on a
+   store in P2's is 128 bits wide (STG.E.128).  Then the three measurement
+   entry points at their default shapes, each of which checks what it times and exits non-zero on a
    difference: ``scripts.launch_probe`` (P1b at cogview-base width and batch
    40 on a random 12 GB cache, layers 0, 1, 47, bit-equal; the P1a and P1b
    480-call chains, eager and replayed from a CUDA graph, bit-equal to the
@@ -72,7 +75,8 @@ result):
    512-519 of the bf16-weight request run under torch.profiler, which gives
    K1's device milliseconds per step, and the host clock per step before
    and after them (the profiler leaves a cost on later launches, so phase
-   12, the other long host-bound request, runs before phase 9);
+   12, 15 and 16, the other long host-bound requests, run before the
+   profiled request);
 10. image->text: the CLI on the first bf16-weight PNG, batch 4: 20 text ids
    per row, 20 x 48 K1 launches;
 11. post-selection: the CLI scores the four PNGs against the prompt: four
@@ -94,7 +98,18 @@ result):
    backward kernel per layer and step, no plain call), the step time,
    tokens per second, device-busy share, each flash kernel's milliseconds
    per step (torch.profiler) and peak memory; then a ``--load``
-   run resumes at the saved iteration and takes 2 more steps.
+   run resumes at the saved iteration and takes 2 more steps;
+15. low-level super-resolution: the CLI at cogview-base width and depth,
+   int8 cache, batch 4, on the prompt and the int8-weight request's first
+   PNG read at 128 pixels (the bilinear resize): 256 context codes, 4 x
+   1024 ids in [0, 8192), four finite PNGs, 1024 x 48 K1 launches;
+16. super-resolution: the CLI with ``--preset cogview-sr`` at its
+   published widths (hidden 2560, 40 heads, 1,345 positions, vocabulary
+   58,240), depth cut to SR_LAYERS, int8 cache, batch 1, on the same PNG:
+   nine magnify windows, 4,096 codes in [0, 8192), a finite 512 x 512
+   image in sr-0.png, K1 launched once per decode step and layer.
+   Phases 15 and 16 run between the int8- and the bf16-weight text->image
+   requests.
 
 The next-to-last line is the kernels' JSON record (each kernel's launches
 on the main path, error, time, plain version's time, bound and library
@@ -194,12 +209,11 @@ def _attn_pairs(S: int, sep: int) -> int:
     return sum(max(i + 1, sep) for i in range(S))
 
 
-def _decode_inputs(torch, da, packed: bool, B: int, seed: int):
-    """Two layers of a random cogview-base cache (N=40, D=64, 9 windows) at
+def _decode_inputs(torch, da, packed: bool, B: int, seed: int, NW: int):
+    """Two layers of a random cogview-base cache (N=40, D=64, NW windows) at
     batch B -> (kv, scales, ring, float32 q)."""
     dev = torch.device("cuda")
     N, D, W, G, L = 40, 64, da.WRITE_WINDOW, da.SEAL_GROUP, 2
-    NW = da.pad_cache_len(1088) // W
     gen = torch.Generator(device=dev).manual_seed(seed)
     if packed:  # bytes the packer can make: 16 * hi + lo + 8, hi, lo in [-7, 7]
         hi, lo = (torch.randint(-7, 8, (L, NW, B, 2, N, D // 2, W), generator=gen, device=dev)
@@ -214,20 +228,23 @@ def _decode_inputs(torch, da, packed: bool, B: int, seed: int):
     return kv, sc, ring, torch.randn((B, N, D), generator=gen, device=dev)
 
 
-# phase 3's cases: (batch, seed, indices checked, indices timed)
-DECODE_CASES = ((4, 0, (10, 133, 600, 15, 135, 1031, 3, 7, 1088), (600, 1031)),
-                (40, 1, (600, 1031), (600, 1031)))
+# phase 3's cases: (batch, seed, windows, indices checked, indices timed):
+# text->image's 9 windows (1,088 positions) at batch 4 and 40, and a
+# super-resolution window's cache at batch 1 (11 windows: a magnify or
+# low-level SR template of 1,318 slots, up to 1,345 positions)
+DECODE_CASES = ((4, 0, 9, (10, 133, 600, 15, 135, 1031, 3, 7, 1088), (600, 1031)),
+                (40, 1, 9, (600, 1031), (600, 1031)),
+                (1, 2, 11, (1300, 1343, 1151), (1300, 1343)))
 
 
 def phase_kernel(torch, da, packed: bool):
     """K1 (int8 cache) or K2 (packed int4 cache) against the plain version
-    at cogview-base head shapes, batch 4 and 40, on layer 1 of a two-layer
-    cache: ctx within tolerance, cache bytes bit-equal, two launches
-    bit-equal; then the times of both, and at batch 4 of the kernel at
-    every split count -> summary dict."""
+    at cogview-base head shapes, batch 4 and 40 over 9 windows and batch 1
+    over 11, on layer 1 of a two-layer cache: ctx within tolerance, cache
+    bytes bit-equal, two launches bit-equal; then the times of both, and at
+    batch 4 of the kernel at every split count -> summary dict."""
     N, D, G, li = 40, 64, da.SEAL_GROUP, 1
     Dc = D // 2 if packed else D
-    NW = da.pad_cache_len(1088) // da.WRITE_WINDOW
     name = "K2 int4" if packed else "K1 int8"
     worst, times, split_us = 0.0, {}, {}
     # K1's bf16 path rounds q and p * vs to bf16 (2e-2); K2 computes in
@@ -235,8 +252,8 @@ def phase_kernel(torch, da, packed: bool):
     # two may differ by the float32 tolerance plus one bf16 ulp (2^-7 of the
     # value), no more
     bf16_tol = None if packed else 2e-2
-    for B, seed, indices, timed in DECODE_CASES:
-        kv, sc, ring, q32 = _decode_inputs(torch, da, packed, B, seed + (9 if packed else 0))
+    for B, seed, NW, indices, timed in DECODE_CASES:
+        kv, sc, ring, q32 = _decode_inputs(torch, da, packed, B, seed + (9 if packed else 0), NW)
         splits = da.split_plan(B, N, NW)
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, bf16_tol)):
             q = q32.to(dtype)
@@ -258,7 +275,7 @@ def phase_kernel(torch, da, packed: bool):
                 changed = not torch.equal(kv_k, kv)
                 repeat = (torch.equal(ctx_k, ctx_2) and torch.equal(kv_k, kv_2)
                           and torch.equal(sc_k, sc_2))
-                print(f"kernel {name} {str(dtype)[6:]} B={B} splits={splits} index={idx} "
+                print(f"kernel {name} {str(dtype)[6:]} B={B} NW={NW} splits={splits} index={idx} "
                       f"seal={seal}: ctx max_abs_err={err:.3e} (tol {tol_text}) cache "
                       f"bit-equal={same} cache written={changed} repeat bit-equal={repeat}")
                 _check(ctx_k.dtype == dtype and ctx_k.shape == (B, N, D), "ctx dtype/shape")
@@ -281,7 +298,7 @@ def phase_kernel(torch, da, packed: bool):
                 us_p = _device_time_us(torch, lambda: da.decode_attention_quant_reference(*args))
                 bound_ms, by = _decode_bound(B, N, D, Dc, G, idx, q.element_size())
                 times[(B, str(dtype)[6:], idx)] = (us_k, us_p, bound_ms, by)
-                print(f"kernel {name} time {str(dtype)[6:]} B={B} index={idx}: kernel "
+                print(f"kernel {name} time {str(dtype)[6:]} B={B} NW={NW} index={idx}: kernel "
                       f"{us_k:.2f} us/call ({splits} splits), plain {us_p:.1f} us/call (CUDA "
                       f"events, median of 25); bound {1000.0 * bound_ms:.2f} us ({by}), share "
                       f"{1000.0 * bound_ms / us_k:.3f}")
@@ -832,7 +849,10 @@ def _profiling_decode_steps(torch, gpt, rec):
     time in ``rec``, with the host clock at the first decode step, at the
     profiled window's ends and after the last step (the steps before and
     after the window show what the profiler costs the steps it does not
-    trace)."""
+    trace).  The step before the window is the profiler's warmup step
+    (``torch.profiler.schedule``): tracing starts there and is discarded, so
+    the window's first launches are not lost to the tracer's start (a run
+    without it once saw 383 of the window's 384 K1 launches)."""
     orig = gpt.forward_with_cache
     first, count = PROFILED_STEPS
 
@@ -843,16 +863,24 @@ def _profiling_decode_steps(torch, gpt, rec):
         rec["steps"] = step + 1
         if step in (0, first, first + count):
             rec[f"host_{step}"] = time.perf_counter()
-        if step == first:
+        if step == first - 1:
             torch.cuda.synchronize()
-            rec["prof"] = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+            rec["prof"] = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA],
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=count, repeat=1))
             rec["prof"].__enter__()
-            rec["t0"] = time.perf_counter()
+        if first <= step < first + count:
+            if step == first:
+                torch.cuda.synchronize()
+            rec["prof"].step()
+            if step == first:
+                rec["t0"] = time.perf_counter()
         out = orig(params, cfg, tokens, *a, **kw)
         if step == first + count - 1:
             torch.cuda.synchronize()
             rec["wall"] = time.perf_counter() - rec["t0"]
+            rec["prof"].step()
             rec["prof"].__exit__(None, None, None)
         rec["host_end"] = time.perf_counter()
         return out
@@ -869,7 +897,10 @@ def _decode_step_profile(torch, rec) -> dict:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+        # the schedule's ProfilerStep annotations span each step on the
+        # device timeline: they are ranges, not kernels
+        if (us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key.startswith("ProfilerStep")):
             continue
         total_us += us
         if "decode_attention_kernel" in e.key:
@@ -973,6 +1004,133 @@ def phase_image2text(torch, da, fa, cli, tasks, sampling, png_dir: str, work: st
            "image2text did not run the decode kernel once per step and layer")
     print(f"image2text: {captured['request_s']:.3f} s per request (batch 4, encode + prefill "
           f"1028 + 20 decode steps); filling {captured['fill_s']:.3f} s")
+    return launches
+
+
+def phase_low_level_sr(torch, da, cli, tasks, sampling, png, png_dir: str, work: str):
+    """Low-level super-resolution through the CLI at cogview-base width and
+    depth, int8 cache, batch 4, on the prompt and the first PNG of the
+    int8-weight text->image request, read at 128 pixels (the bilinear
+    resize, 256 -> 128) -> K1 launches."""
+    import numpy as np
+
+    query = os.path.join(work, "llsr.txt")
+    with open(query, "w") as f:
+        f.write(PROMPT + "\t" + os.path.join(png_dir, "0.png") + "\n")
+    out_dir = os.path.join(work, "llsr")
+    captured = {}
+    da.decode_attention_quant.launches = 0
+    da.decode_attention_quant.launches_int4 = 0
+    da.decode_attention_quant_reference.calls = 0
+    _run_cli(cli, tasks, sampling, torch,
+             _cli_argv("bfloat16", "low-level super-resolution", query, out_dir), captured)
+    launches = da.decode_attention_quant.launches
+    plain_calls = da.decode_attention_quant_reference.calls
+    _check(da.decode_attention_quant.launches_int4 == 0, "the int8 cache launched K2")
+
+    res, ctx, steps = captured["res"], captured["ctx"], captured["steps"]
+    # [ROI1], 30 words, [BASE] [BOI1], the 16 x 16 codes of a 128-pixel
+    # image, [EOI1] [ROI2] [POS0] [BASE] [BOI2]
+    ctx_codes = res.tokens[:, 33:33 + 256]
+    gen_ids = res.tokens[:, ctx:ctx + 1024]
+    ok_ids = (ctx == 33 + 256 + 5 and gen_ids.shape == (4, 1024)
+              and bool(((gen_ids >= 0) & (gen_ids < 8192)).all())
+              and bool(((ctx_codes >= 0) & (ctx_codes < 8192)).all()))
+    shapes = [png.read_png(os.path.join(out_dir, f"{i}.png")).shape for i in range(4)]
+    finite = len(res.images) == 4 and all(
+        a.shape == (1, 256, 256, 3) and bool(np.isfinite(a).all()) for a in res.images)
+    print(f"low-level SR: context {ctx} (256 codes of the 128-pixel image), {gen_ids.size} "
+          f"generated ids, all in [0, 8192): {ok_ids}; PNG shapes {shapes}, images finite: "
+          f"{finite}")
+    _check(ok_ids and finite and shapes == [(256, 256, 3)] * 4, "low-level SR outputs")
+    print(f"low-level SR: K1 launches {launches} == decode steps x 48 = {steps} x 48 = "
+          f"{steps * 48}: {launches == steps * 48}; plain-version calls {plain_calls}")
+    _check(steps == 1024 and launches == steps * 48 and plain_calls == 0,
+           "low-level SR did not run K1 once per step and layer")
+    print(f"low-level SR: {captured['request_s']:.3f} s per request (batch 4, cogview-base, 48 "
+          f"layers); filling {captured['fill_s']:.3f} s = "
+          f"{1000.0 * captured['fill_s'] / steps:.3f} ms per decode step (prefill included)")
+    return launches
+
+
+# the super-resolution request's depth, cut from cogview-sr's 48 layers: its
+# nine windows are 6,048 decode steps at batch 1
+SR_LAYERS = 2
+
+
+def phase_super_resolution(torch, da, cfgmod, cli, magnify, sampling, png, png_dir: str,
+                           work: str):
+    """Super-resolution through the CLI with ``--preset cogview-sr`` at its
+    published widths (hidden 2560, 40 heads, 1,345 positions, the full
+    vocabulary), depth cut to SR_LAYERS, int8 cache, batch 1, on the prompt
+    and the first PNG of the int8-weight text->image request: nine magnify
+    windows -> K1 launches."""
+    import numpy as np
+
+    query = os.path.join(work, "sr.txt")
+    with open(query, "w") as f:
+        f.write(PROMPT + "\t" + os.path.join(png_dir, "0.png") + "\n")
+    out_dir = os.path.join(work, "sr")
+    rec = {"steps": 0, "windows": 0}
+    orig_sr, orig_fill = cli.super_resolution, magnify.filling_sequence
+    orig_preset = cli.PRESETS["cogview-sr"]
+
+    def timed_sr(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig_sr(*a, **kw)
+        torch.cuda.synchronize()
+        rec.update(request_s=time.perf_counter() - t0, res=res)
+        return res
+
+    def counted_fill(params, cfg, template, *a, **kw):
+        rec["steps"] += sampling.decode_end(template) - template.context_length
+        rec["windows"] += 1
+        rec.update(cfg=cfg, length=template.length)
+        return orig_fill(params, cfg, template, *a, **kw)
+
+    argv = ["--preset", "cogview-sr", "--dtype", "bfloat16", "--weights", "bfloat16",
+            "--kv-cache", "int8", "--top_k", "200", "--seed", "1234", "--device", "cuda",
+            "--generation-task", "super-resolution", "--input-source", query,
+            "--output-path", out_dir]
+    da.decode_attention_quant.launches = 0
+    da.decode_attention_quant.launches_int4 = 0
+    da.decode_attention_quant_reference.calls = 0
+    cli.super_resolution, magnify.filling_sequence = timed_sr, counted_fill
+    cli.PRESETS["cogview-sr"] = lambda: cfgmod.cogview_sr(num_layers=SR_LAYERS)
+    try:
+        rc = cli.main(argv, txt_tokenizer=WordTokenizer())
+    finally:
+        cli.super_resolution, magnify.filling_sequence = orig_sr, orig_fill
+        cli.PRESETS["cogview-sr"] = orig_preset
+    _check(rc == 0, f"cli.main returned {rc}")
+    launches = da.decode_attention_quant.launches
+    plain_calls = da.decode_attention_quant_reference.calls
+    _check(da.decode_attention_quant.launches_int4 == 0, "the int8 cache launched K2")
+
+    cfg, res, steps = rec["cfg"], rec["res"], rec["steps"]
+    widths = (cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.max_position_embeddings,
+              cfg.vocab_size)
+    print(f"super-resolution: cogview-sr (layers, hidden, heads, positions, vocabulary) "
+          f"{widths}; {rec['windows']} windows of {rec['length']} slots")
+    _check(widths == (SR_LAYERS, 2560, 40, 1345, 58240) and rec["windows"] == 9,
+           "super-resolution did not run cogview-sr's widths through nine windows")
+    codes = res.tokens
+    ok_ids = codes.shape == (1, 4096) and bool(((codes >= 0) & (codes < 8192)).all())
+    (img,) = res.images
+    shape = png.read_png(os.path.join(out_dir, "sr-0.png")).shape
+    finite = img.shape == (1, 512, 512, 3) and bool(np.isfinite(img).all())
+    print(f"super-resolution: {codes.size} codes, all in [0, 8192): {ok_ids}; image "
+          f"{img.shape} finite: {finite}; sr-0.png {shape}")
+    _check(ok_ids and finite and shape == (512, 512, 3), "super-resolution outputs")
+    print(f"super-resolution: K1 launches {launches} == decode steps x layers = {steps} x "
+          f"{SR_LAYERS} = {steps * SR_LAYERS}: {launches == steps * SR_LAYERS}; plain-version "
+          f"calls {plain_calls}")
+    _check(launches == steps * SR_LAYERS and plain_calls == 0,
+           "super-resolution did not run K1 once per step and layer")
+    print(f"super-resolution: {rec['request_s']:.3f} s per request (batch 1, {SR_LAYERS} "
+          f"layers, {steps} decode steps: {1000.0 * rec['request_s'] / steps:.3f} ms per step, "
+          f"the windows' prefills included)")
     return launches
 
 
@@ -1340,7 +1498,7 @@ def main() -> int:
         from cogview_tpu_torch import tokenization
         from cogview_tpu_torch.cli import generate as cli
         from cogview_tpu_torch.cli import pretrain, serve
-        from cogview_tpu_torch.generation import sampling, scoring, tasks
+        from cogview_tpu_torch.generation import magnify, sampling, scoring, tasks
         from cogview_tpu_torch.models import gpt
         from cogview_tpu_torch.ops import _kernels
         from cogview_tpu_torch.ops import decode_attention as da
@@ -1396,10 +1554,15 @@ def main() -> int:
         # phase 9's profiled decode steps, whose tracing leaves a cost on
         # every later launch
         k2_launches = phase_serve_int4(torch, da, serve, tasks, sampling, png, work)
-        # phase 9: text->image, int8 then bf16 weights (profiled); the bf16
-        # PNGs feed 10, 11
-        t2i = [phase_main_path(torch, da, gpt, cli, tasks, sampling, png, w, work)
-               for w in ("int8", "bfloat16")]
+        # phase 9: text->image with int8 weights; its PNGs feed phases 15
+        # (low-level SR) and 16 (super-resolution), which also run before
+        # the profiled request; then the bf16-weight request (profiled),
+        # whose PNGs feed 10, 11
+        t2i = [phase_main_path(torch, da, gpt, cli, tasks, sampling, png, "int8", work)]
+        llsr_launches = phase_low_level_sr(torch, da, cli, tasks, sampling, png, t2i[0][1], work)
+        sr_launches = phase_super_resolution(torch, da, cfgmod, cli, magnify, sampling, png,
+                                             t2i[0][1], work)
+        t2i.append(phase_main_path(torch, da, gpt, cli, tasks, sampling, png, "bfloat16", work))
         png_dir = t2i[1][1]
         # phase 10: image->text; phase 11: post-selection; phase 13: fidelity
         i2t = phase_image2text(torch, da, fa, cli, tasks, sampling, png_dir, work)
@@ -1430,6 +1593,16 @@ def main() -> int:
                 "b40_bound_ms": times[(40, "bfloat16", 600)][2],
                 "b40_bound_share": times[(40, "bfloat16", 600)][2]
                 / (times[(40, "bfloat16", 600)][0] / 1000.0),
+                # b1_*: B=1 over 11 windows (a super-resolution window's
+                # cache, the plan's 11 splits), index 1300; b1_seal_*: the
+                # seal step at index 1343
+                "b1_ms": times[(1, "bfloat16", 1300)][0] / 1000.0,
+                "b1_plain_ms": times[(1, "bfloat16", 1300)][1] / 1000.0,
+                "b1_bound_ms": times[(1, "bfloat16", 1300)][2],
+                "b1_bound_share": times[(1, "bfloat16", 1300)][2]
+                / (times[(1, "bfloat16", 1300)][0] / 1000.0),
+                "b1_seal_ms": times[(1, "bfloat16", 1343)][0] / 1000.0,
+                "b1_seal_bound_ms": times[(1, "bfloat16", 1343)][2],
                 "splits_us": summary["split_us"],
                 # the window sweeps at batch 40, or 4 where the key ends in
                 # b4 (decode_kernel_microbench):
@@ -1506,7 +1679,6 @@ def main() -> int:
           f"{p1b['bound_ms'] / p1b['ms']:.3f}), device {us(p1b['device_us'])} a launch (bound "
           f"share {share_dev}), plain {p1b['plain_ms'] * 1e3:.3f} us/call; bound "
           f"{p1b['bound_ms'] * 1e3:.3f} us ({p1b_bytes / 1e6:.2f} MB)")
-
     # P2: its bound share on the graph time and on the device time
     p2 = probe_rows[2]
     p2.update(design="a thread per 16 output bytes; oh by cp.async, lane0 and qc loaded "
@@ -1524,7 +1696,8 @@ def main() -> int:
     fk, fp, fl, fc, fbound, fby = k3["times"]["bfloat16"]
     tdrop, tnodrop, tl_, tc, tbound, _ = k3["times"]["train"]
     kernels = [
-        {**decode_entry("decode_attention_int8", k1, sum(n for n, _, _ in t2i) + i2t,
+        {**decode_entry("decode_attention_int8", k1,
+                        sum(n for n, _, _ in t2i) + i2t + llsr_launches + sr_launches,
                         k1["max_abs_err"], "int8"),
          # device ms of K1 per decode step of the bf16-weight request
          # (torch.profiler over PROFILED_STEPS)

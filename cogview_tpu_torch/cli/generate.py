@@ -7,14 +7,24 @@
   python -m cogview_tpu_torch.cli.generate --generation-task post-selection \\
       --input-source candidates.txt --output-path scores
 
-Tasks: text2image (PNGs), image2text (prints the text parts) and
-post-selection (appends the query and its tab-joined scores to
-``<output-path>/scores_rank_0.txt``).  Inputs: 'interactive' or a file with
-one query per line; tab-separated fields fill the task's template slots
-(image2text: an image path; post-selection: the text, then one image path
-per candidate).  Images are read as PNGs of 256 x 256 pixels.  Weights are
-the random initial weights of the preset (checkpoint import is a later
-slice).  Runs on a CUDA device by default and fails if there is none.
+  python -m cogview_tpu_torch.cli.generate --generation-task super-resolution \
+      --preset cogview-sr --input-source sr.txt --output-path sr
+
+Tasks: text2image and low-level super-resolution (PNGs, one per sample,
+and ``concat.png``), image2text (prints the text parts), super-resolution
+(``sr-<query index>.png``, 512 x 512 pixels), raw (the line is the
+template-language query: PNGs where it generates an image, else the
+printed text parts) and post-selection (appends the query and its
+tab-joined scores to ``<output-path>/scores_rank_0.txt``).  Inputs:
+'interactive' or a file with one query per line; tab-separated fields fill
+the task's template slots (image2text: an image path; low-level
+super-resolution and super-resolution: the text, then an image path;
+post-selection: the text, then one image path per candidate).  Images are
+PNGs, resized as the JAX package does (short side to 256 pixels, 128 for
+low-level super-resolution, Pillow's bilinear filter, centre crop).
+Weights are the random initial weights of the preset (checkpoint import is
+a later slice).  Runs on a CUDA device by default and fails if there is
+none.
 """
 
 from __future__ import annotations
@@ -27,19 +37,21 @@ import time
 import numpy as np
 import torch
 
-from ..config import GPTConfig, cogview_base, smoke, tiny_test
+from ..config import GPTConfig, cogview_base, cogview_sr, smoke, tiny_test
 from ..generation.sampling import SamplingParams
-from ..generation.tasks import generate_once, post_selection
+from ..generation.tasks import generate_once, post_selection, super_resolution
 from ..models import gpt
 from ..ops.precision import set_fp32_precision
 from ..tokenization.unified import UnifiedTokenizer
 from ..tokenization.vq_tokenizer import TorchVQTokenizer
 from ..utils.png import write_png
 
-TASKS = ("text2image", "image2text", "post-selection")
+TASKS = ("text2image", "image2text", "super-resolution", "low-level super-resolution",
+         "post-selection", "raw")
 
 PRESETS = {
     "cogview-base": cogview_base,
+    "cogview-sr": cogview_sr,
     "smoke": smoke,
     "tiny": tiny_test,
 }
@@ -156,7 +168,7 @@ def main(argv=None, txt_tokenizer=None) -> int:
     out_dir = args.output_path
     os.makedirs(out_dir, exist_ok=True)
     task = args.generation_task
-    for raw in iter_queries(args):
+    for qi, raw in enumerate(iter_queries(args)):
         t0 = time.time()
         if task == "post-selection":
             scores = post_selection(params, cfg, tokenizer, raw,
@@ -166,12 +178,17 @@ def main(argv=None, txt_tokenizer=None) -> int:
                 f.write(raw + "\n")
                 f.write("\t".join(str(x) for x in scores.tolist()) + "\n")
             print(f"scores -> {out_file}")
+        elif task == "super-resolution":
+            res = super_resolution(params, cfg, tokenizer, raw, sampling, device=device)
+            out_file = os.path.join(out_dir, f"sr-{qi}.png")
+            save_image_grid(res.images, out_file)
+            print(f"saved {out_file}")
         else:
             res = generate_once(params, cfg, tokenizer, raw, task,
                                 num=args.batch_size,
                                 max_inference_batch_size=args.max_inference_batch_size,
                                 sampling=sampling, device=device)
-            if task == "image2text":
+            if task == "image2text" or (task == "raw" and not res.images):
                 for parts in res.texts:
                     print([p for p in parts if isinstance(p, str)])
             else:

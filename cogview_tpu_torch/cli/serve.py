@@ -15,9 +15,8 @@ Before serving, one warmup generation (``--no-warmup`` skips it) builds the
 CUDA kernels and initialises cuBLAS, so the first query does not pay for
 them.  Weights are the preset's random initial weights (checkpoint import is
 a later slice, so there is no --load).  The JAX server's --aot-dir and its
-persistent compile cache are JAX executable stores and have no counterpart;
-the cogview-sr preset comes with super-resolution.  Runs on a CUDA device by
-default and fails if there is none.
+persistent compile cache are JAX executable stores and have no counterpart.
+Runs on a CUDA device by default and fails if there is none.
 """
 
 from __future__ import annotations

@@ -81,6 +81,12 @@ def cogview_base(**kw) -> GPTConfig:
     return cfg.replace(**kw) if kw else cfg
 
 
+def cogview_sr(**kw) -> GPTConfig:
+    """Super-resolution: cogview-base with 1345 positions
+    (scripts/super_resolution.sh:8)."""
+    return cogview_base(max_position_embeddings=1345, **kw)
+
+
 def cogview_tutorial(**kw) -> GPTConfig:
     """Tutorial pretraining scale: 12L x 1024H x 16 heads."""
     cfg = GPTConfig(

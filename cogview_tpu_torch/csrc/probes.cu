@@ -49,9 +49,11 @@
 // chunk that misses [lane0, lane0 + G) stores its zeros as soon as lane0
 // arrives; the at most two chunks of a row that meet the group compute
 // their lanes 4 at a time, the at most three fours that meet it (G x 4
-// FMAs each, oh read from shared memory), and mask them in registers.  Computing every chunk instead, a first version, ran 3.5 us
-// on an H100: 8 threads of a row reading 64-byte-strided oh words made
-// 4-way bank conflicts.  G is the seal group, 8.
+// FMAs each, oh read from shared memory), and mask them in registers.
+// Two versions lost on an H100 (1.72 us of device time): computing every
+// chunk, 3.5 us (8 threads of a row read oh words 64 bytes apart, 4-way
+// bank conflicts by their addresses); staging oh by plain loads and shared
+// stores in place of cp.async, 1.79 us.  G is the seal group, 8.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

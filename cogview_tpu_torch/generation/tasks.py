@@ -1,9 +1,11 @@
 """Generation tasks (twin of cogview_tpu/generation/tasks.py).
 
-The query templates are the reference's.  Ported so far: text2image and
-image2text (``generate_once``) and post-selection (``post_selection``);
-super-resolution, low-level super-resolution and ``raw`` come with later
-slices.
+The query templates are the reference's.  ``generate_once`` samples
+text2image, image2text, low-level super-resolution (a 128-pixel image
+context) and ``raw`` (the input line is the template-language query);
+``super_resolution`` magnifies a 256-pixel image's codes to 512 pixels
+through the nine windows of ``magnify``; ``post_selection`` scores
+candidate images.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from ..config import GPTConfig
 from ..ops.hash_prng import hash_u32
+from .magnify import magnify
 from .sampling import SamplingParams, compile_template, filling_sequence
 from .scoring import inverse_prompt_score
 
@@ -75,13 +78,11 @@ def generate_once(
     device=None,
     pad_bucket: int = 32,
 ) -> GenerationOutput:
-    """text2image / image2text (generate_images_once): sample ``num`` rows
-    for one query in chunks of at most ``max_inference_batch_size`` rows.
-    Template lengths are bucketed to multiples of ``pad_bucket`` with fixed
-    [PAD] steps.  Chunk i samples with seed ``_chunk_seed(sampling.seed, i)``."""
-    if task not in ("text2image", "image2text"):
-        raise NotImplementedError(
-            f"task {task!r}: the port has text2image and image2text so far")
+    """text2image / image2text / low-level super-resolution / raw
+    (generate_images_once): sample ``num`` rows for one query in chunks of
+    at most ``max_inference_batch_size`` rows.  Template lengths are
+    bucketed to multiples of ``pad_bucket`` with fixed [PAD] steps.  Chunk
+    i samples with seed ``_chunk_seed(sampling.seed, i)``."""
     seq = parse_query_line(raw_text, task, tokenizer)
     tpl = compile_template(seq, tokenizer, padded_vocab=cfg.vocab_size,
                            pad_to=_round_up(len(seq), pad_bucket))
@@ -106,6 +107,21 @@ def generate_once(
         if imgs:
             images.append(imgs[-1])  # the generated (last) image
     return GenerationOutput(tokens, scores, images, texts)
+
+
+def super_resolution(params, cfg: GPTConfig, tokenizer, raw_text: str,
+                     sampling: SamplingParams = SamplingParams(), device=None,
+                     window_seeds: Optional[List[int]] = None) -> GenerationOutput:
+    """256 -> 512 pixels (generate_samples.py:223-244): parse the text and
+    image context, magnify the last 1024 codes through the nine windows
+    (``window_seeds``: see :func:`magnify.magnify`), and decode the first
+    row's 64 x 64 codes -> tokens [1, 4096], one [1, 512, 512, 3] image."""
+    seq = parse_query_line(raw_text, "super-resolution", tokenizer)
+    code, text_part = seq[-1024:], seq[:-1024]
+    magnified = magnify(params, cfg, tokenizer, code, text_part, sampling, window_seeds,
+                        device)
+    images = [tokenizer.img_tokenizer.DecodeIds(magnified[0])]
+    return GenerationOutput(magnified, np.zeros((1,)), images, [])
 
 
 def post_selection(params, cfg: GPTConfig, tokenizer, raw_text: str,

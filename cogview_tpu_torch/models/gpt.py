@@ -125,6 +125,28 @@ def quantize_weights(params: Params) -> Params:
     }
 
 
+def extend_position_embedding(weight: torch.Tensor, length: int) -> torch.Tensor:
+    """A position table [P, H] fitted to [length, H]: truncated when length
+    <= P, else tiled and the tiling truncated to length (rows P.. reuse rows
+    0..; the reference's ``expand(length // P)`` where P divides length)."""
+    P = weight.shape[0]
+    if length <= P:
+        return weight[:length]
+    return weight.repeat(-(-length // P), 1)[:length]
+
+
+def adapt_position_embeddings(params: Params, cfg: GPTConfig) -> Params:
+    """Fit loaded params to ``cfg.max_position_embeddings``: a 1089-position
+    base checkpoint into the 1345-position super-resolution preset, or a
+    longer table truncated.  The same params when the lengths match."""
+    pos = params["embed"]["pos"]
+    target = cfg.max_position_embeddings
+    if pos.shape[0] == target:
+        return params
+    return {**params, "embed": {**params["embed"],
+                                "pos": extend_position_embedding(pos, target)}}
+
+
 class _MatmulF32(torch.autograd.Function):
     """[M, K] @ [K, N] of low-precision CUDA operands -> float32, float32
     sums and no rounding of the output.  The backward multiplies in the

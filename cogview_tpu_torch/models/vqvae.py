@@ -132,18 +132,80 @@ def code2img(params: Params, codes: torch.Tensor) -> torch.Tensor:
     return (out * std + mean).float()
 
 
+# Pillow's fixed-point precision for 8-bit images (libImaging/Resample.c)
+PRECISION_BITS = 32 - 8 - 2
+
+
+def _bilinear_coeffs(in_size: int, out_size: int):
+    """Pillow's ``precompute_coeffs`` for its bilinear (triangle, support 1)
+    filter over the whole axis, then ``normalize_coeffs_8bpc`` -> (first
+    input index [out], integer weights [out, ksize]; a weight past a row's
+    support is 0).  The support widens by the downscale factor, so a
+    reduction antialiases.  Python floats are the C code's doubles, and the
+    sums run in its order."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    inv = 1.0 / filterscale
+    first = np.zeros(out_size, np.int64)
+    kk = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        count = min(int(center + support + 0.5), in_size) - xmin
+        w = []
+        for x in range(count):
+            t = abs((x + xmin - center + 0.5) * inv)
+            w.append(1.0 - t if t < 1.0 else 0.0)
+        total = 0.0
+        for v in w:
+            total += v
+        for x, v in enumerate(w):
+            v = v / total if total != 0.0 else v
+            kk[xx, x] = int((0.5 if v >= 0 else -0.5) + v * (1 << PRECISION_BITS))
+        first[xx] = xmin
+    return first, kk
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of Pillow's 8-bit bilinear resample along ``axis`` of a
+    uint8 image: sums of pixel x integer weight from half a unit, then
+    clipped to [0, 255] and shifted back."""
+    in_size = img.shape[axis]
+    if in_size == out_size:
+        return img
+    first, kk = _bilinear_coeffs(in_size, out_size)
+    idx = np.minimum(first[:, None] + np.arange(kk.shape[1])[None, :], in_size - 1)
+    x = np.moveaxis(img, axis, 0).astype(np.int64)  # [in, other, 3]
+    acc = np.full((out_size,) + x.shape[1:], 1 << (PRECISION_BITS - 1), np.int64)
+    for k in range(kk.shape[1]):
+        acc += x[idx[:, k]] * kk[:, k].reshape((-1,) + (1,) * (x.ndim - 1))
+    out = np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """[h, w, 3] uint8 -> [height, width, 3] uint8, equal to Pillow's
+    ``Image.resize((width, height), Image.BILINEAR)`` on an RGB image: the
+    horizontal pass first, rounded to 8 bits, then the vertical."""
+    return _resample_axis(_resample_axis(img, width, 1), height, 0)
+
+
 def read_img(path: str, img_size: int = 256) -> np.ndarray:
-    """A PNG of ``img_size`` x ``img_size`` pixels -> the normalized float32
-    image [1, h, w, 3], equal bit for bit to the JAX package's ``read_img``
-    (Pillow's resize to the same size is a copy and the centre crop is the
-    whole image).  Other sizes raise: the JAX package resizes them with
-    Pillow's bilinear filter, which is not ported."""
+    """A PNG -> the normalized float32 image [1, img_size, img_size, 3], as
+    the JAX package's ``read_img``: the short side resized to ``img_size``
+    with Pillow's bilinear filter (:func:`resize_bilinear`), then the centre
+    crop."""
     img = read_png(path)
-    if img.shape[:2] != (img_size, img_size):
-        raise NotImplementedError(
-            f"{path}: {img.shape[1]}x{img.shape[0]} pixels; only {img_size}x{img_size} "
-            "images are read: the PIL bilinear resize of the JAX package's "
-            "read_img is not ported")
+    h, w = img.shape[:2]
+    if w < h:
+        nw, nh = img_size, max(1, round(h * img_size / w))
+    else:
+        nw, nh = max(1, round(w * img_size / h)), img_size
+    img = resize_bilinear(img, nw, nh)
+    left, top = (nw - img_size) // 2, (nh - img_size) // 2
+    img = img[top:top + img_size, left:left + img_size]
     arr = np.asarray(img, dtype=np.float32) / 255.0
     arr = (arr - np.asarray(IMG_MEAN, np.float32)) / np.asarray(IMG_STD, np.float32)
     return arr[None]

@@ -164,6 +164,35 @@ def test_bf16_logits_and_int8_wmul_keep_float32_outputs():
     assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("w_shape,subscripts", [((64, 3, 64), "bsh,hcj->bscj"),
+                                                ((64, 256), "bsh,hj->bsj"),
+                                                ((256, 64), "bsj,jh->bsh")],
+                         ids=["qkv", "attn_out,mlp_in", "mlp_out"])
+def test_wmul_out32_false_rounds_the_bf16_output_once(w_shape, subscripts):
+    """The layer matmuls in bf16 compute (``_wmul(out32=False)``, every
+    decode step's qkv, attention-out and MLP products): the float32 sums
+    of the bf16 operands rounded once to bf16, as the JAX package's bf16
+    einsum, and not the float32 product itself.  The two packages (and
+    the port's float32 product) sum in different orders, so where a float32
+    sum lies at a bf16 rounding boundary they may differ by one bf16 ulp
+    (2^-7 of the value); fewer than 1% of the values may differ from the
+    JAX package's."""
+    rng = np.random.RandomState(4)
+    x = rng.randn(2, 7, w_shape[0]).astype(np.float32)
+    w = (rng.randn(*w_shape) * 0.1).astype(np.float32)
+    want = np.asarray(jgpt._wmul(jnp.asarray(x, jnp.bfloat16), {"w": jnp.asarray(w, jnp.bfloat16)},
+                                 subscripts, jnp.bfloat16, out32=False), np.float32)
+    xb, leaf = torch.from_numpy(x).bfloat16(), {"w": torch.from_numpy(w).bfloat16()}
+    got = gpt._wmul(xb, leaf, torch.bfloat16, out32=False)
+    f32 = gpt._wmul(xb, leaf, torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and f32.dtype == torch.float32
+    got_np, want = got.float().numpy(), want.reshape(got.shape)
+    np.testing.assert_allclose(got_np, want, rtol=2.0 ** -7, atol=0)
+    assert np.count_nonzero(got_np != want) < 0.01 * want.size
+    np.testing.assert_allclose(got_np, f32.bfloat16().float().numpy(), rtol=2.0 ** -7, atol=0)
+    assert not torch.equal(got.float(), f32)
+
+
 def test_fp16_never_routes_to_flash(monkeypatch):
     """float16 compute stays on dense attention even when flash is forced,
     as in the JAX package (tests/test_flash_attention.py); the flash kernels

@@ -218,12 +218,11 @@ def test_smoke_pretrain_step_runs_the_flash_kernels(cuda_device):
     assert metrics["skipped"] == 0 and torch.isfinite(torch.tensor(metrics["lm_loss"]))
 
 
-def _decode_cache(device, packed, B, N, D, seed):
-    """One layer of a random cache of 9 windows (cogview-base's 1088
+def _decode_cache(device, packed, B, N, D, seed, NW=9):
+    """One layer of a random cache of NW windows (9: cogview-base's 1088
     positions): int8 bytes, or packed bytes the packer can make, scales,
     ring and a float32 q."""
     W, G = da.WRITE_WINDOW, da.SEAL_GROUP
-    NW = da.pad_cache_len(1088) // W
     gen = torch.Generator(device=device).manual_seed(seed)
     if packed:
         hi, lo = (torch.randint(-7, 8, (NW, B, 2, N, D // 2, W), generator=gen, device=device)
@@ -239,7 +238,7 @@ def _decode_cache(device, packed, B, N, D, seed):
     return q, ring, kv, sc
 
 
-def _check_decode(device, packed, dtype, B, N, D, index, seed, splits=None):
+def _check_decode(device, packed, dtype, B, N, D, index, seed, splits=None, NW=9):
     """K2 (``packed``) or K1 on one layer, twice from the same cache, and
     the plain version: ctx within the kernel's tolerance (float32 q 1e-4;
     bf16 q: K1 2e-2, as it rounds q and p * vs to bf16; K2 1e-4 + one bf16
@@ -248,7 +247,7 @@ def _check_decode(device, packed, dtype, B, N, D, index, seed, splits=None):
     steps only; the two launches bit-equal, ctx and cache; one launch
     counted per call, on the kernel's own counter."""
     G = da.SEAL_GROUP
-    q, ring, kv, sc = _decode_cache(device, packed, B, N, D, seed)
+    q, ring, kv, sc = _decode_cache(device, packed, B, N, D, seed, NW)
     q = q.to(dtype)
     kv_k, sc_k, kv_2, sc_2, kv_r, sc_r = (t.clone() for t in (kv, sc) * 3)
     n1, n2 = da.decode_attention_quant.launches, da.decode_attention_quant.launches_int4
@@ -314,6 +313,18 @@ def test_decode_kernels_over_batch(cuda_device, packed, index, batch):
     40 (one split, no merge)."""
     assert da.split_plan(batch, 40, 9) == {1: 9, 4: 4, 40: 1}[batch]
     _check_decode(cuda_device, packed, torch.bfloat16, batch, 40, 64, index, seed=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", [1088, 1151, 1300, 1343])
+@pytest.mark.parametrize("packed", [False, True], ids=["K1", "K2"])
+def test_decode_kernels_on_a_super_resolution_cache(cuda_device, packed, index):
+    """Batch 1 over 11 windows, the cache of a magnify window (up to 1,345
+    positions), at cogview-base head shapes: the split plan's 11 splits,
+    float32 and bf16 q, a seal at 1151 and 1343."""
+    assert da.split_plan(1, 40, 11) == 11
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_decode(cuda_device, packed, dtype, 1, 40, 64, index, seed=6, NW=11)
 
 
 @pytest.mark.cuda
@@ -576,3 +587,53 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 def _tree_to(t, device):
     return ({k: _tree_to(v, device) for k, v in t.items()} if isinstance(t, dict)
             else t.to(device))
+
+
+class _TinyTextTok:
+    num_tokens = 64
+
+    def encode(self, s):
+        return [ord(c) % 64 for c in s]
+
+    def decode(self, ids):
+        return "".join(chr(97 + (i % 26)) for i in ids)
+
+
+@pytest.mark.cuda
+def test_smoke_width_magnify_card_matches_cpu(cuda_device, monkeypatch):
+    """The nine magnify windows at the smoke preset's widths (2 layers,
+    hidden 64, 4 heads of 16), float32, int8 cache, with a 128-token
+    vocabulary: on the card K1 runs once per decode step and layer, and the
+    [1, 4096] codes equal the CPU's (plain versions) from the same seeds."""
+    import numpy as np
+
+    from cogview_tpu_torch.config import smoke
+    from cogview_tpu_torch.generation import magnify
+    from cogview_tpu_torch.generation.sampling import SamplingParams, decode_end
+    from cogview_tpu_torch.models import gpt
+    from cogview_tpu_torch.tokenization.unified import FakeImageTokenizer, UnifiedTokenizer
+
+    cfg = smoke(vocab_size=128, max_position_embeddings=1400, kv_cache_dtype="int8",
+                compute_dtype=torch.float32)
+    params = gpt.init_params(cfg, torch.Generator().manual_seed(2))
+    tok = UnifiedTokenizer(img_tokenizer=FakeImageTokenizer(32), txt_tokenizer=_TinyTextTok())
+    codes = np.random.RandomState(0).randint(0, 32, (1, 1024))
+    text = tok.parse_query("[ROI1] ab [BASE] [BOI1]")
+    steps = []
+    fill = magnify.filling_sequence
+
+    def counted(p, c, template, *a, **kw):
+        steps.append(decode_end(template) - template.context_length)
+        return fill(p, c, template, *a, **kw)
+
+    monkeypatch.setattr(magnify, "filling_sequence", counted)
+    out, launched = {}, {}
+    for dev in ("cpu", "cuda"):
+        n = da.decode_attention_quant.launches
+        out[dev] = magnify.magnify(_tree_to(params, dev), cfg, tok, codes, text,
+                                   SamplingParams(seed=3), device=torch.device(dev))
+        launched[dev] = da.decode_attention_quant.launches - n
+    assert len(steps) == 18
+    assert launched == {"cpu": 0, "cuda": cfg.num_layers * sum(steps[9:])}
+    assert out["cuda"].shape == (1, 4096) and ((out["cuda"] >= 0) & (out["cuda"] < 32)).all()
+    np.testing.assert_array_equal(out["cuda"], out["cpu"])

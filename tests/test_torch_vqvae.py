@@ -112,10 +112,15 @@ def test_read_img_bit_equal_to_jax(tmp_path):
 
 
 def test_read_img_other_size_raises(tmp_path):
+    """An image of another size no longer raises: its short side is resized
+    with Pillow's bilinear filter and centre-cropped, bit-equal to the JAX
+    package's ``read_img``."""
+    pytest.importorskip("PIL")
     path = str(tmp_path / "img.png")
-    write_png(path, np.zeros((128, 256, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="bilinear"):
-        vqvae.read_img(path)
+    write_png(path, np.random.RandomState(9).randint(0, 256, (128, 256, 3)).astype(np.uint8))
+    got = vqvae.read_img(path)
+    assert got.shape == (1, 256, 256, 3)
+    np.testing.assert_array_equal(got, jvq.read_img(path))
 
 
 @pytest.mark.parametrize("mode", ["RGB", "RGBA"])
