@@ -105,11 +105,33 @@ result):
    1024 ids in [0, 8192), four finite PNGs, 1024 x 48 K1 launches;
 16. super-resolution: the CLI with ``--preset cogview-sr`` at its
    published widths (hidden 2560, 40 heads, 1,345 positions, vocabulary
-   58,240), depth cut to SR_LAYERS, int8 cache, batch 1, on the same PNG:
-   nine magnify windows, 4,096 codes in [0, 8192), a finite 512 x 512
-   image in sr-0.png, K1 launched once per decode step and layer.
+   58,240), depth cut to SR_LAYERS, int8 cache, batch 1, on the same PNG,
+   its weights through ``--load`` of a 1,089-position bfloat16 DeepSpeed
+   file at cogview-base widths and SR_LAYERS depth written here from
+   seeds: every leaf bit-equal to the file's, the position table fitted
+   to 1,345 rows (the file's 1,089, then the tiled rows); nine magnify
+   windows, 4,096 codes in [0, 8192), a finite 512 x 512 image in
+   sr-0.png, K1 launched once per decode step and layer.
    Phases 15 and 16 run between the int8- and the bf16-weight text->image
-   requests.
+   requests;
+17. checkpoint: a 48-layer cogview-base checkpoint in the reference's
+   DeepSpeed layout (``{"module": state dict}``, ``module.`` keys, every
+   tensor float16 from its own seed, 7.86 GB; written by a child process,
+   ``chip_smoke.py --write-checkpoint``, so that this process never holds
+   it) and a VQ-VAE state dict in the reference's layout, written to the
+   phase's temporary directory; another child process (``chip_smoke.py
+   --checkpoint-child``, so that its peak RSS measures the load alone)
+   runs ``cli.generate.main`` with ``--load``
+   and ``--img-tokenizer-path``, one image->text request on phase 9's
+   first PNG: every leaf bit-equal to the file's tensors drawn again on the
+   card, float16 kept, the load's peak host RSS at most 1.2 x the file
+   above the RSS before it, 20 text ids a row, 960 K1 launches, the load's
+   seconds and the decode step's milliseconds;
+18. serving the pretraining checkpoint: after phase 14, ``cli.generate.main
+   --preset tutorial --load <phase 14's save directory>``, one text->image
+   request at batch 4: the loaded params equal the checkpoint's float32
+   params cast to bf16, four finite PNGs, ids in [0, 8192), 1024 x 12 K1
+   launches.
 
 The next-to-last line is the kernels' JSON record (each kernel's launches
 on the main path, error, time, plain version's time, bound and library
@@ -122,6 +144,7 @@ import json
 import math
 import os
 import re
+import resource
 import statistics
 import subprocess
 import sys
@@ -1058,15 +1081,24 @@ def phase_low_level_sr(torch, da, cli, tasks, sampling, png, png_dir: str, work:
 SR_LAYERS = 2
 
 
-def phase_super_resolution(torch, da, cfgmod, cli, magnify, sampling, png, png_dir: str,
-                           work: str):
+def phase_super_resolution(torch, da, cfgmod, cli, gpt, magnify, sampling, png, png_dir: str,
+                           work: str, smi: str):
     """Super-resolution through the CLI with ``--preset cogview-sr`` at its
     published widths (hidden 2560, 40 heads, 1,345 positions, the full
     vocabulary), depth cut to SR_LAYERS, int8 cache, batch 1, on the prompt
     and the first PNG of the int8-weight text->image request: nine magnify
-    windows -> K1 launches."""
+    windows -> K1 launches.  The weights come through ``--load`` of a
+    1,089-position bfloat16 DeepSpeed file at cogview-base widths and
+    SR_LAYERS depth, so the CLI fits the position table to 1,345 rows."""
     import numpy as np
 
+    base = cfgmod.cogview_base()
+    dims = (SR_LAYERS, base.hidden_size, base.vocab_size, base.max_position_embeddings)
+    ckpt_dir = tempfile.TemporaryDirectory(dir=work)
+    ckpt = os.path.join(ckpt_dir.name, "mp_rank_00_model_states.pt")
+    file_bytes = _write_gpt_checkpoint(torch, ckpt, *dims, torch.bfloat16)
+    print(f"super-resolution: wrote a {SR_LAYERS}-layer cogview-base DeepSpeed file, bfloat16, "
+          f"{base.max_position_embeddings} positions, {file_bytes / 1e9:.3f} GB")
     query = os.path.join(work, "sr.txt")
     with open(query, "w") as f:
         f.write(PROMPT + "\t" + os.path.join(png_dir, "0.png") + "\n")
@@ -1089,20 +1121,41 @@ def phase_super_resolution(torch, da, cfgmod, cli, magnify, sampling, png, png_d
         rec.update(cfg=cfg, length=template.length)
         return orig_fill(params, cfg, template, *a, **kw)
 
-    argv = ["--preset", "cogview-sr", "--dtype", "bfloat16", "--weights", "bfloat16",
-            "--kv-cache", "int8", "--top_k", "200", "--seed", "1234", "--device", "cuda",
-            "--generation-task", "super-resolution", "--input-source", query,
+    orig_load = cli.load_model
+
+    def checked_load(args, device):
+        """The loaded params against the file: every leaf, and the position
+        table's rows past the file's 1,089 against the port's
+        extend_position_embedding of the file's table."""
+        params, cfg = orig_load(args, device)
+        pos = params["embed"]["pos"]
+        n, bad = _verify_gpt_leaves(torch, params, *dims, torch.bfloat16)
+        src_pos = _seeded(torch, 1, (dims[3], dims[1]), "", torch.bfloat16)
+        tail = torch.equal(pos, gpt.extend_position_embedding(src_pos, cfg.max_position_embeddings))
+        print(f"super-resolution: --load {file_bytes / 1e9:.3f} GB under the cogview-sr preset: "
+              f"{n} leaves bit-equal to the file's: {not bad}; position table {tuple(pos.shape)} "
+              f"{pos.dtype}, rows {dims[3]}.. equal the tiled table: {tail}")
+        _check(not bad and tail and tuple(pos.shape) == (1345, dims[1])
+               and pos.dtype == torch.bfloat16, "the super-resolution params differ from the file")
+        return params, cfg
+
+    argv = ["--preset", "cogview-sr", "--load", ckpt, "--dtype", "bfloat16", "--weights",
+            "bfloat16", "--kv-cache", "int8", "--top_k", "200", "--seed", "1234", "--device",
+            "cuda", "--generation-task", "super-resolution", "--input-source", query,
             "--output-path", out_dir]
     da.decode_attention_quant.launches = 0
     da.decode_attention_quant.launches_int4 = 0
     da.decode_attention_quant_reference.calls = 0
     cli.super_resolution, magnify.filling_sequence = timed_sr, counted_fill
     cli.PRESETS["cogview-sr"] = lambda: cfgmod.cogview_sr(num_layers=SR_LAYERS)
+    cli.load_model = checked_load
     try:
         rc = cli.main(argv, txt_tokenizer=WordTokenizer())
     finally:
         cli.super_resolution, magnify.filling_sequence = orig_sr, orig_fill
         cli.PRESETS["cogview-sr"] = orig_preset
+        cli.load_model = orig_load
+        ckpt_dir.cleanup()
     _check(rc == 0, f"cli.main returned {rc}")
     launches = da.decode_attention_quant.launches
     plain_calls = da.decode_attention_quant_reference.calls
@@ -1130,7 +1183,7 @@ def phase_super_resolution(torch, da, cfgmod, cli, magnify, sampling, png, png_d
            "super-resolution did not run K1 once per step and layer")
     print(f"super-resolution: {rec['request_s']:.3f} s per request (batch 1, {SR_LAYERS} "
           f"layers, {steps} decode steps: {1000.0 * rec['request_s'] / steps:.3f} ms per step, "
-          f"the windows' prefills included)")
+          f"the windows' prefills included; {smi})")
     return launches
 
 
@@ -1488,6 +1541,385 @@ def phase_pretrain(torch, fa, pretrain, losses, optim, work: str):
     return launches, {"step_ms": step_ms, "busy": busy}
 
 
+# ---------------------------------------------------------------------------
+# checkpoints in the reference's layouts, every tensor drawn from its own seed
+# ---------------------------------------------------------------------------
+
+CKPT_SEED = 1000
+# per-layer keys of the reference's GPT state dict -> (port leaf, field, how
+# the converter lays the [out, in] tensor out)
+_LAYER_KEYS = (
+    ("input_layernorm.weight", "ln_in", "g", "gain"),
+    ("input_layernorm.bias", "ln_in", "b", ""),
+    ("attention.query_key_value.weight", "qkv", "w", "qkv"),
+    ("attention.query_key_value.bias", "qkv", "b", "qkv_b"),
+    ("attention.dense.weight", "attn_out", "w", "t"),
+    ("attention.dense.bias", "attn_out", "b", ""),
+    ("post_attention_layernorm.weight", "ln_post", "g", "gain"),
+    ("post_attention_layernorm.bias", "ln_post", "b", ""),
+    ("third_layernorm.weight", "ln_attn", "g", "gain"),
+    ("third_layernorm.bias", "ln_attn", "b", ""),
+    ("fourth_layernorm.weight", "ln_mlp", "g", "gain"),
+    ("fourth_layernorm.bias", "ln_mlp", "b", ""),
+    ("mlp.dense_h_to_4h.weight", "mlp_in", "w", "t"),
+    ("mlp.dense_h_to_4h.bias", "mlp_in", "b", ""),
+    ("mlp.dense_4h_to_h.weight", "mlp_out", "w", "t"),
+    ("mlp.dense_4h_to_h.bias", "mlp_out", "b", ""),
+)
+
+
+def _gpt_layout(L: int, H: int, V: int, P: int):
+    """The reference GPT state dict in order -> [(key, shape, port leaf path,
+    layer or None, layout)]."""
+    shapes = {"input_layernorm": (H,), "post_attention_layernorm": (H,), "third_layernorm": (H,),
+              "fourth_layernorm": (H,), "attention.query_key_value": (3 * H, H),
+              "attention.dense": (H, H), "mlp.dense_h_to_4h": (4 * H, H),
+              "mlp.dense_4h_to_h": (H, 4 * H)}
+    out = [("word_embeddings.weight", (V, H), ("embed", "word"), None, ""),
+           ("transformer.position_embeddings.weight", (P, H), ("embed", "pos"), None, "")]
+    for i in range(L):
+        for key, leaf, field, how in _LAYER_KEYS:
+            mod, kind = key.rsplit(".", 1)
+            shape = shapes[mod] if kind == "weight" else shapes[mod][:1]
+            out.append((f"transformer.layers.{i}.{key}", shape, ("layers", leaf, field), i, how))
+    out += [("transformer.final_layernorm.weight", (H,), ("ln_final", "g"), None, "gain"),
+            ("transformer.final_layernorm.bias", (H,), ("ln_final", "b"), None, "")]
+    return out
+
+
+def _seeded(torch, idx: int, shape, how: str, dtype):
+    """Tensor ``idx`` of a synthetic checkpoint, drawn on the card from seed
+    CKPT_SEED + idx: N(0, 0.02^2), plus 1 for a LayerNorm gain."""
+    dev = torch.device("cuda")
+    t = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(CKPT_SEED + idx),
+                    device=dev, dtype=torch.float32).mul_(0.02)
+    if how == "gain":
+        t.add_(1.0)
+    return t.to(dtype)
+
+
+def _write_gpt_checkpoint(torch, path: str, L: int, H: int, V: int, P: int, dtype) -> int:
+    """A DeepSpeed mp_rank_00_model_states.pt: {"module": state dict with
+    module. keys, ...} with the training arguments beside it -> its bytes."""
+    import argparse
+
+    sd = {f"module.{key}": _seeded(torch, i, shape, how, dtype).cpu()
+          for i, (key, shape, _, _, how) in enumerate(_gpt_layout(L, H, V, P))}
+    torch.save({"module": sd, "mp_world_size": 1, "iteration": 0,
+                "args": argparse.Namespace(num_layers=L, hidden_size=H)}, path)
+    del sd
+    return os.path.getsize(path)
+
+
+def _verify_gpt_leaves(torch, params, L: int, H: int, V: int, P: int, dtype):
+    """Every leaf of loaded GPT params against its source tensor drawn again
+    from its seed on the card, laid out as the converter lays it out (a
+    longer position table against its first P rows) -> (leaves checked,
+    the keys that differ in value or dtype)."""
+    bad, n = [], 0
+    for i, (key, shape, path, layer, how) in enumerate(_gpt_layout(L, H, V, P)):
+        leaf = params
+        for k in path:
+            leaf = leaf[k]
+        if layer is not None:
+            leaf = leaf[layer]
+        src = _seeded(torch, i, shape, how, dtype)
+        if how == "qkv":
+            src = src.t().reshape(H, 3, H)
+        elif how == "qkv_b":
+            src = src.reshape(3, H)
+        elif how == "t":
+            src = src.t()
+        if key == "transformer.position_embeddings.weight":
+            leaf = leaf[:P]
+        if leaf.dtype != dtype or not torch.equal(leaf, src):
+            bad.append(key)
+        n += 1
+    return n, bad
+
+
+def _write_vqvae_checkpoint(torch, vqvae, cfgmod, path: str) -> None:
+    """The released VQ-VAE's state dict layout (enc_b.blocks.{0,2,4,6},
+    quantize_t.*, dec.blocks.{0,2,4,6}) at its published widths, float32,
+    from the port's random init with a seed."""
+    dev = torch.device("cuda")
+    p = vqvae.init_params(cfgmod.VQVAEConfig(), torch.Generator(device=dev).manual_seed(5), dev)
+    sd = {}
+    for part, names in (("enc_b", ("conv0", "conv1", "conv2", "proj")),
+                        ("dec", ("convt0", "convt1", "convt2", "proj"))):
+        tree = p["encoder" if part == "enc_b" else "decoder"]
+        for j, name in enumerate(names):
+            sd[f"{part}.blocks.{2 * j}.weight"] = tree[name]["w"].cpu()
+            sd[f"{part}.blocks.{2 * j}.bias"] = tree[name]["b"].cpu()
+    embed = p["quantize"]["embed"].cpu()
+    sd.update({"quantize_t.embed": embed, "quantize_t.embed_avg": embed.clone(),
+               "quantize_t.cluster_size": torch.ones(embed.shape[1])})
+    torch.save(sd, path)
+
+
+def _status_kib(field: str):
+    """A field of /proc/self/status in KiB (VmRSS, VmHWM), or None where the
+    kernel does not report it."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(field + ":"):
+                return int(line.split()[1])
+    return None
+
+
+class _PeakRss:
+    """The process's peak host RSS over a span in KiB, by every measure the
+    kernel offers (a sandboxed kernel may report no VmHWM): VmHWM; VmRSS
+    sampled every 2 ms by a thread; and getrusage's ru_maxrss where it grew
+    during the span.  ru_maxrss keeps what the process inherited across
+    fork and exec (the parent's peak), so only a rise within the span makes
+    it this span's peak."""
+
+    def __enter__(self):
+        import resource
+        import threading
+
+        self.maxrss_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        self.sampled, self._stop = _status_kib("VmRSS") or 0, threading.Event()
+
+        def poll():
+            while not self._stop.wait(0.002):
+                self.sampled = max(self.sampled, _status_kib("VmRSS") or 0)
+
+        self._thread = threading.Thread(target=poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        import resource
+
+        self._stop.set()
+        self._thread.join()
+        self.sampled = max(self.sampled, _status_kib("VmRSS") or 0)
+        self.hwm = _status_kib("VmHWM")
+        self.maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        grew = self.maxrss if self.maxrss > self.maxrss_before else 0
+        self.peak = max(self.sampled, self.hwm or 0, grew)
+        return False
+
+
+def write_checkpoint_child(spec_json: str) -> int:
+    """``chip_smoke.py --write-checkpoint <json>``: the GPT checkpoint that
+    phase 17 loads, written by its own process, so that the parent's peak
+    host RSS (which a child's ru_maxrss inherits) never holds the 7.9 GB
+    dict.  Prints one JSON line: the file's bytes and the seconds taken."""
+    import torch
+
+    spec = json.loads(spec_json)
+    t0 = time.perf_counter()
+    nbytes = _write_gpt_checkpoint(torch, spec["path"], *spec["dims"],
+                                   getattr(torch, spec["dtype"]))
+    print(json.dumps({"bytes": nbytes, "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def _run_child(flag: str, spec: dict, what: str):
+    """``chip_smoke.py <flag> <spec as JSON>`` from the script's directory:
+    its output lines but the last, prefixed, and its last line's JSON."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"), flag,
+                           json.dumps(spec)], cwd=here, capture_output=True, text=True,
+                          timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    if lines[:-1]:
+        print("\n".join(f"{what}: {ln}" for ln in lines[:-1]))
+    if proc.returncode != 0 or not lines:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        _fail(f"the {what} process exited {proc.returncode}")
+    return json.loads(lines[-1])
+
+
+def checkpoint_child(spec_json: str) -> int:
+    """The child process of the checkpoint phase: ``cli.generate.main``
+    with --load (the 48-layer float16 DeepSpeed file) and
+    --img-tokenizer-path, one image->text request.  Prints its numbers, then
+    one JSON line: the load's seconds, peak and pre-load host RSS, the
+    params' bytes on the card, the leaves' check, the request's seconds and
+    ms per decode step, K1 launches and the generated ids' check."""
+    import torch
+
+    from cogview_tpu_torch import config as cfgmod
+    from cogview_tpu_torch.cli import generate as cli
+    from cogview_tpu_torch.generation import sampling, tasks
+    from cogview_tpu_torch.models import gpt
+    from cogview_tpu_torch.ops import decode_attention as da
+    from cogview_tpu_torch.training.optim import tree_leaves
+
+    spec = json.loads(spec_json)
+    cfg = cfgmod.cogview_base()
+    dims = (cfg.num_layers, cfg.hidden_size, cfg.vocab_size, cfg.max_position_embeddings)
+    torch.zeros(1, device="cuda")  # the CUDA context before the baseline RSS
+    torch.cuda.synchronize()
+    rec = {"rss_before_kib": _status_kib("VmRSS")}
+    orig_load, orig_fwc = cli.load_model, gpt.forward_with_cache
+
+    def measured_load(args, device):
+        with _PeakRss() as peak:
+            t0 = time.perf_counter()
+            params, c = orig_load(args, device)
+            torch.cuda.synchronize()
+            rec["load_s"] = time.perf_counter() - t0
+        rec.update(hwm_kib=peak.peak, vmhwm_kib=peak.hwm, maxrss_kib=peak.maxrss,
+                   maxrss_before_kib=peak.maxrss_before, sampled_kib=peak.sampled,
+                   rss_after_kib=_status_kib("VmRSS"))
+        rec["params_bytes"] = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        rec["dtypes"] = sorted({str(t.dtype) for t in tree_leaves(params)})
+        rec["leaves"], rec["differ"] = _verify_gpt_leaves(torch, params, *dims, torch.float16)
+        return params, c
+
+    step_t = []
+
+    def timed_fwc(params, c, tokens, *a, **kw):
+        if tokens.shape[1] == 1:
+            step_t.append(time.perf_counter())
+        return orig_fwc(params, c, tokens, *a, **kw)
+
+    captured = {}
+    da.decode_attention_quant.launches = 0
+    da.decode_attention_quant_reference.calls = 0
+    cli.load_model, gpt.forward_with_cache = measured_load, timed_fwc
+    try:
+        _run_cli(cli, tasks, sampling, torch,
+                 _cli_argv("bfloat16", "image2text", spec["query"], spec["out"])
+                 + ["--load", spec["gpt"], "--img-tokenizer-path", spec["vq"]], captured)
+    finally:
+        cli.load_model, gpt.forward_with_cache = orig_load, orig_fwc
+    torch.cuda.synchronize()
+    res, ctx = captured["res"], captured["ctx"]
+    ids = res.tokens[:, ctx:ctx + 20]
+    rec.update(k1_launches=da.decode_attention_quant.launches,
+               plain_calls=da.decode_attention_quant_reference.calls,
+               ctx=ctx, steps=captured["steps"], request_s=captured["request_s"],
+               ids_ok=bool(ids.shape == (4, 20) and ((ids >= 8192) & (ids < 58192)).all()),
+               step_ms=1000.0 * (step_t[-1] - step_t[1]) / (len(step_t) - 2))
+    print(json.dumps(rec))
+    return 0
+
+
+def phase_checkpoint(torch, cfgmod, vqvae, png_dir: str, work: str, smi: str) -> int:
+    """cogview-base at full size from the reference's file layouts: a
+    48-layer float16 DeepSpeed checkpoint (written by a child process, so
+    this one never holds the 7.9 GB dict) and the VQ-VAE's state dict, both
+    from seeds, loaded by another child process, whose peak RSS measures
+    the load alone, that serves one image->text request -> its K1
+    launches."""
+    cfg = cfgmod.cogview_base()
+    dims = (cfg.num_layers, cfg.hidden_size, cfg.vocab_size, cfg.max_position_embeddings)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        gpt_path = os.path.join(tmp, "mp_rank_00_model_states.pt")
+        vq_path = os.path.join(tmp, "vqvae_hard_biggerset_011.pt")
+        w = _run_child("--write-checkpoint", {"path": gpt_path, "dims": dims,
+                                              "dtype": "float16"}, "checkpoint writer")
+        file_bytes = w["bytes"]
+        _write_vqvae_checkpoint(torch, vqvae, cfgmod, vq_path)
+        query = os.path.join(tmp, "i2t.txt")
+        with open(query, "w") as f:
+            f.write(os.path.join(png_dir, "0.png") + "\n")
+        maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        print(f"checkpoint: a child process wrote a 48-layer cogview-base DeepSpeed file, "
+              f"float16, {file_bytes / 1e9:.3f} GB in {w['seconds']:.2f} s; the VQ-VAE's "
+              f"state dict; this process's ru_maxrss {maxrss} KiB, which the loading child "
+              f"inherits")
+        torch.cuda.empty_cache()  # the child needs the card's memory
+        r = _run_child("--checkpoint-child", {"gpt": gpt_path, "vq": vq_path, "query": query,
+                                              "out": os.path.join(tmp, "i2t")},
+                       "checkpoint child")
+    gib = 2.0 ** 30
+    peak = (r["hwm_kib"] - r["rss_before_kib"]) * 1024
+    print(f"checkpoint: load {r['load_s']:.3f} s; peak host RSS {r['hwm_kib'] * 1024 / gib:.3f} "
+          f"GiB (the largest of VmHWM {r['vmhwm_kib']} KiB, VmRSS sampled every 2 ms "
+          f"{r['sampled_kib']} KiB, and ru_maxrss {r['maxrss_kib']} KiB where it grew from the "
+          f"{r['maxrss_before_kib']} KiB it held before the load), "
+          f"{peak / gib:.3f} GiB above the {r['rss_before_kib'] * 1024 / gib:.3f} GiB "
+          f"before the load = {peak / file_bytes:.3f} x the file (bound 1.2); RSS after the "
+          f"load {r['rss_after_kib'] * 1024 / gib:.3f} GiB; params on the card "
+          f"{r['params_bytes'] / 1e9:.3f} GB, dtypes {r['dtypes']} ({smi})")
+    print(f"checkpoint: {r['leaves']} leaves bit-equal to the file's tensors: "
+          f"{not r['differ']} (differ: {r['differ'][:4]})")
+    _check(not r["differ"] and r["dtypes"] == ["torch.float16"],
+           "loaded leaves differ from the checkpoint's tensors")
+    _check(peak <= 1.2 * file_bytes, "the load's peak host RSS exceeds 1.2 x the file")
+    print(f"checkpoint: image2text from the loaded model: context {r['ctx']}, 20 ids a row in "
+          f"the text range: {r['ids_ok']}; K1 launches {r['k1_launches']} == 20 x 48 = 960, "
+          f"plain-version calls {r['plain_calls']}; {r['request_s']:.3f} s per request, "
+          f"{r['step_ms']:.3f} ms per decode step (host clock, float16 weights cast at use; "
+          f"{smi})")
+    _check(r["ids_ok"] and r["ctx"] == 1028 and r["steps"] == 20 and r["k1_launches"] == 960
+           and r["plain_calls"] == 0, "the loaded model's image2text request")
+    return r["k1_launches"]
+
+
+def phase_serve_pretrained(torch, da, cli, optim, tasks, sampling, png, work: str,
+                           smi: str) -> int:
+    """text->image at the tutorial preset through ``cli.generate.main --load``
+    of phase 14's pretraining checkpoint -> K1 launches."""
+    import numpy as np
+
+    save = os.path.join(work, "pretrain_ckpt")
+    query = os.path.join(work, "tutorial_query.txt")
+    with open(query, "w") as f:
+        f.write(PROMPT + "\n")
+    out_dir = os.path.join(work, "tutorial_t2i")
+    argv = ["--preset", "tutorial", "--load", save, "--dtype", "bfloat16", "--weights",
+            "bfloat16", "--kv-cache", "int8", "--batch-size", "4", "--top_k", "200", "--seed",
+            "1234", "--device", "cuda", "--generation-task", "text2image", "--input-source",
+            query, "--output-path", out_dir]
+    loaded = {}
+    orig_load = cli.load_model
+
+    def keep(args, device):
+        params, cfg = orig_load(args, device)
+        loaded.update(params=params, cfg=cfg)
+        return params, cfg
+
+    captured = {}
+    da.decode_attention_quant.launches = 0
+    da.decode_attention_quant.launches_int4 = 0
+    da.decode_attention_quant_reference.calls = 0
+    cli.load_model = keep
+    try:
+        _run_cli(cli, tasks, sampling, torch, argv, captured)
+    finally:
+        cli.load_model = orig_load
+    launches = da.decode_attention_quant.launches
+    plain_calls = da.decode_attention_quant_reference.calls
+    L = loaded["cfg"].num_layers
+
+    with open(os.path.join(save, "latest_checkpointed_iteration.txt")) as f:
+        it = f.read().strip()
+    saved = torch.load(os.path.join(save, it, "state.pt"), map_location="cuda",
+                       weights_only=True)["params"]
+    got, want = list(optim.tree_leaves(loaded["params"])), list(optim.tree_leaves(saved))
+    same = len(got) == len(want) and all(
+        g.dtype == torch.bfloat16 and torch.equal(g, w.to(torch.bfloat16))
+        for g, w in zip(got, want))
+    print(f"serve pretrained: --preset tutorial --load {os.path.basename(save)} (iteration "
+          f"{it}): {len(got)} leaves equal to the checkpoint's float32 params cast to bf16: "
+          f"{same}")
+    _check(same, "the loaded tutorial params differ from the checkpoint's")
+    res, ctx, steps = captured["res"], captured["ctx"], captured["steps"]
+    gen_ids = res.tokens[:, ctx:ctx + 1024]
+    ok_ids = gen_ids.shape == (4, 1024) and bool(((gen_ids >= 0) & (gen_ids < 8192)).all())
+    shapes = [png.read_png(os.path.join(out_dir, f"{i}.png")).shape for i in range(4)]
+    finite = len(res.images) == 4 and all(bool(np.isfinite(a).all()) for a in res.images)
+    print(f"serve pretrained: {gen_ids.size} generated ids, all in [0, 8192): {ok_ids}; PNG "
+          f"shapes {shapes}, images finite: {finite}")
+    _check(ok_ids and finite and shapes == [(256, 256, 3)] * 4, "tutorial text2image outputs")
+    print(f"serve pretrained: K1 launches {launches} == 1024 x {L} = {1024 * L}: "
+          f"{launches == 1024 * L}; plain-version calls {plain_calls}; "
+          f"{captured['request_s']:.3f} s per request (batch 4), "
+          f"{1000.0 * captured['fill_s'] / steps:.3f} ms per decode step (prefill included; "
+          f"{smi})")
+    _check(L == 12 and steps == 1024 and launches == 1024 * L and plain_calls == 0,
+           "the tutorial request did not run K1 once per step and layer")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1499,7 +1931,7 @@ def main() -> int:
         from cogview_tpu_torch.cli import generate as cli
         from cogview_tpu_torch.cli import pretrain, serve
         from cogview_tpu_torch.generation import magnify, sampling, scoring, tasks
-        from cogview_tpu_torch.models import gpt
+        from cogview_tpu_torch.models import gpt, vqvae
         from cogview_tpu_torch.ops import _kernels
         from cogview_tpu_torch.ops import decode_attention as da
         from cogview_tpu_torch.ops import flash_attention as fa
@@ -1560,16 +1992,23 @@ def main() -> int:
         # whose PNGs feed 10, 11
         t2i = [phase_main_path(torch, da, gpt, cli, tasks, sampling, png, "int8", work)]
         llsr_launches = phase_low_level_sr(torch, da, cli, tasks, sampling, png, t2i[0][1], work)
-        sr_launches = phase_super_resolution(torch, da, cfgmod, cli, magnify, sampling, png,
-                                             t2i[0][1], work)
+        sr_launches = phase_super_resolution(torch, da, cfgmod, cli, gpt, magnify, sampling,
+                                             png, t2i[0][1], work, smi.splitlines()[0])
         t2i.append(phase_main_path(torch, da, gpt, cli, tasks, sampling, png, "bfloat16", work))
         png_dir = t2i[1][1]
         # phase 10: image->text; phase 11: post-selection; phase 13: fidelity
         i2t = phase_image2text(torch, da, fa, cli, tasks, sampling, png_dir, work)
         flash_launches = phase_post_selection(torch, fa, cli, tasks, scoring, png_dir, work)
         phase_cache_fidelity(torch, gpt, cfgmod, tasks, sampling, tokenization)
-        # phase 14: pretraining at the tutorial width, then a resumed run
+        # phase 17: the 48-layer float16 DeepSpeed file through --load in a
+        # child process, one image->text request on phase 9's first PNG
+        ckpt_launches = phase_checkpoint(torch, cfgmod, vqvae, png_dir, work,
+                                         smi.splitlines()[0])
+        # phase 14: pretraining at the tutorial width, then a resumed run;
+        # phase 18: its checkpoint served through --load
         train_launches, _ = phase_pretrain(torch, fa, pretrain, losses, optim, work)
+        tut_launches = phase_serve_pretrained(torch, da, cli, optim, tasks, sampling, png,
+                                              work, smi.splitlines()[0])
 
     def decode_entry(name, summary, launches, err, kv):
         times = summary["times"]
@@ -1697,7 +2136,8 @@ def main() -> int:
     tdrop, tnodrop, tl_, tc, tbound, _ = k3["times"]["train"]
     kernels = [
         {**decode_entry("decode_attention_int8", k1,
-                        sum(n for n, _, _ in t2i) + i2t + llsr_launches + sr_launches,
+                        sum(n for n, _, _ in t2i) + i2t + llsr_launches + sr_launches
+                        + ckpt_launches + tut_launches,
                         k1["max_abs_err"], "int8"),
          # device ms of K1 per decode step of the bf16-weight request
          # (torch.profiler over PROFILED_STEPS)
@@ -1746,4 +2186,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--checkpoint-child"]:
+        sys.exit(checkpoint_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--write-checkpoint"]:
+        sys.exit(write_checkpoint_child(sys.argv[2]))
     sys.exit(main())

@@ -9,14 +9,19 @@ exception in a sibling ``.err`` file.
 
   python -m cogview_tpu_torch.cli.serve --preset cogview-base --kv-cache int4 \\
       --input-folder-path input/ --img-folder-path image/ \\
+      --load ckpts/cogview-base/mp_rank_00_model_states.pt \\
+      --img-tokenizer-path ckpts/vqvae_hard_biggerset_011.pt \\
       --text-model-path pretrained/chinese_sentencepiece/cog-pretrain.model
 
 Before serving, one warmup generation (``--no-warmup`` skips it) builds the
 CUDA kernels and initialises cuBLAS, so the first query does not pay for
-them.  Weights are the preset's random initial weights (checkpoint import is
-a later slice, so there is no --load).  The JAX server's --aot-dir and its
-persistent compile cache are JAX executable stores and have no counterpart.
-Runs on a CUDA device by default and fails if there is none.
+them.  ``--load`` and ``--img-tokenizer-path`` take what ``cli.generate``
+takes (the reference's checkpoint files, or a directory of this package's
+pretraining checkpoints for ``--load``); without them the weights are the
+preset's random initial weights, with a warning.  The JAX server's
+--aot-dir and its persistent compile cache are JAX executable stores and
+have no counterpart.  Runs on a CUDA device by default and fails if there
+is none.
 """
 
 from __future__ import annotations
@@ -41,6 +46,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--generation-task", default="text2image",
                    choices=["text2image", "image2text"])
     p.add_argument("--preset", default="cogview-base", choices=list(PRESETS.keys()))
+    p.add_argument("--load", default=None,
+                   help="GPT checkpoint file or pretraining checkpoint directory "
+                        "(see generate --load); omitted = random init")
+    p.add_argument("--img-tokenizer-path", default=None,
+                   help="VQ-VAE .pt checkpoint; omitted = random init")
     p.add_argument("--text-model-path", default=None)
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--weights", default="bfloat16", choices=["bfloat16", "int8"],

@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import VQVAEConfig
-from ..utils.png import read_png
+from ..utils.jpeg import decode_jpeg
+from ..utils.png import decode_png
 
 Params = Dict[str, Any]
 
@@ -192,12 +193,29 @@ def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
     return _resample_axis(_resample_axis(img, width, 1), height, 0)
 
 
+def decode_image(data: bytes) -> np.ndarray:
+    """The bytes of an image file -> [h, w, 3] uint8, as Pillow's
+    ``Image.open(...).convert("RGB")``.  The reader is chosen by the file's
+    magic bytes, as ``Image.open`` chooses it, never by a file name."""
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        return decode_png(data)
+    if data[:3] == b"\xff\xd8\xff":
+        return decode_jpeg(data)
+    raise ValueError("not an image this package reads: PNG (every colour type, depth "
+                     "and interlace) or baseline JPEG")
+
+
 def read_img(path: str, img_size: int = 256) -> np.ndarray:
-    """A PNG -> the normalized float32 image [1, img_size, img_size, 3], as
-    the JAX package's ``read_img``: the short side resized to ``img_size``
-    with Pillow's bilinear filter (:func:`resize_bilinear`), then the centre
-    crop."""
-    img = read_png(path)
+    """A PNG or baseline JPEG -> the normalized float32 image [1, img_size,
+    img_size, 3], as the JAX package's ``read_img``: the short side resized
+    to ``img_size`` with Pillow's bilinear filter (:func:`resize_bilinear`),
+    then the centre crop."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        img = decode_image(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
     h, w = img.shape[:2]
     if w < h:
         nw, nh = img_size, max(1, round(h * img_size / w))

@@ -7,7 +7,7 @@ import numpy as np
 import torch
 
 from ..config import VQVAEConfig
-from ..models import vqvae
+from ..models import convert, vqvae
 
 
 class TorchVQTokenizer:
@@ -16,6 +16,11 @@ class TorchVQTokenizer:
         self.cfg = cfg
         self.device = device
         self.num_tokens = cfg.n_embed
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg: VQVAEConfig = VQVAEConfig(), device=None):
+        """The reference's VQ-VAE ``.pt`` file (models/convert.py)."""
+        return cls(convert.load_vqvae_checkpoint(path, device), cfg, device)
 
     @classmethod
     def random_init(cls, seed: int = 0, cfg: VQVAEConfig = VQVAEConfig(), device=None):

@@ -45,8 +45,11 @@ def get_checkpoint_iteration(load_dir: str) -> Optional[int]:
 
 
 def load_checkpoint(path: str, map_location=None) -> Dict[str, Any]:
+    """Through mmap: a tensor's pages are read from the file only when it is
+    used, so a server that takes the params leaves the optimizer state on
+    disk."""
     return torch.load(os.path.join(path, STATE_FILE), map_location=map_location,
-                      weights_only=True)
+                      weights_only=True, mmap=True)
 
 
 def load_latest(load_dir: str, map_location=None) -> Optional[Dict[str, Any]]:

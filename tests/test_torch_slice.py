@@ -91,8 +91,9 @@ def test_chunk_seeds_differ_and_are_uint32():
 
 def test_port_imports_no_jax():
     """Every module of the port, its CLIs included, imports without jax and
-    without loading any module of cogview_tpu; chip_smoke.py imports
-    nothing of cogview_tpu either (checked on its syntax tree)."""
+    without loading any module of cogview_tpu, Pillow (PIL) or ml_dtypes
+    (neither is installed where the port runs on the card); chip_smoke.py
+    imports nothing of cogview_tpu either (checked on its syntax tree)."""
     import pkgutil
 
     import cogview_tpu_torch
@@ -104,6 +105,8 @@ def test_port_imports_no_jax():
             "cogview_tpu_torch.data.loader", "cogview_tpu_torch.data.lmdb_io",
             "cogview_tpu_torch.ops.probes", "cogview_tpu_torch.scripts.launch_probe",
             "cogview_tpu_torch.generation.magnify",
+            "cogview_tpu_torch.models.convert", "cogview_tpu_torch.models.hf_import",
+            "cogview_tpu_torch.utils.jpeg", "cogview_tpu_torch.utils.png",
             "cogview_tpu_torch.scripts.seal_scatter_probe",
             "cogview_tpu_torch.scripts.decode_kernel_microbench"} <= set(mods)
     code = (
@@ -112,6 +115,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'cogview_tpu' or m.startswith('cogview_tpu.')]\n"
+        "assert not bad, bad\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('PIL', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
