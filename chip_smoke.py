@@ -82,10 +82,12 @@ result):
 11. post-selection: the CLI scores the four PNGs against the prompt: four
    finite negative scores in scores_rank_0.txt, 48 flash-kernel launches;
    the same tokens scored again through dense attention on the card agree;
-12. serve: ``cogview_tpu_torch.cli.serve.main`` at cogview-base width with
-   the int4 cache, bf16 weights, batch 4, one query file of the 30-word
-   prompt: the file reaches done/ and failed/ stays empty, four PNGs, ids in
-   [0, 8192), 1024 x 48 K2 launches, no K1 launch and no plain call;
+12. serve: ``cogview_tpu_torch.cli.serve.main`` at cogview-base's widths
+   with the int4 cache, depth cut to CUT_LAYERS (12 of 48, to keep the
+   script inside its time limit), bf16 weights, batch 4, one query file of
+   the 30-word prompt: the file reaches done/ and failed/ stays empty, four
+   PNGs, ids in [0, 8192), 1024 x CUT_LAYERS K2 launches, no K1 launch and
+   no plain call;
 13. cache fidelity: cogview-base at batch 4, random weights, the
    text->image context and 64 teacher-forced decode steps through the bf16,
    int8 and int4 caches: finite logits, the mean per-step KL of int8 and
@@ -99,10 +101,11 @@ result):
    tokens per second, device-busy share, each flash kernel's milliseconds
    per step (torch.profiler) and peak memory; then a ``--load``
    run resumes at the saved iteration and takes 2 more steps;
-15. low-level super-resolution: the CLI at cogview-base width and depth,
-   int8 cache, batch 4, on the prompt and the int8-weight request's first
-   PNG read at 128 pixels (the bilinear resize): 256 context codes, 4 x
-   1024 ids in [0, 8192), four finite PNGs, 1024 x 48 K1 launches;
+15. low-level super-resolution: the CLI at cogview-base's widths, depth
+   cut to CUT_LAYERS, int8 cache, batch 4, on the prompt and the
+   int8-weight request's first PNG read at 128 pixels (the bilinear
+   resize): 256 context codes, 4 x 1024 ids in [0, 8192), four finite PNGs,
+   1024 x CUT_LAYERS K1 launches;
 16. super-resolution: the CLI with ``--preset cogview-sr`` at its
    published widths (hidden 2560, 40 heads, 1,345 positions, vocabulary
    58,240), depth cut to SR_LAYERS, int8 cache, batch 1, on the same PNG,
@@ -131,7 +134,37 @@ result):
    --preset tutorial --load <phase 14's save directory>``, one text->image
    request at batch 4: the loaded params equal the checkpoint's float32
    params cast to bf16, four finite PNGs, ids in [0, 8192), 1024 x 12 K1
-   launches.
+   launches;
+19. super-resolution finetuning from a checkpoint: ``cli.pretrain.main
+   --preset cogview-base`` at its widths, depth cut to SR_LAYERS, 2 steps
+   with --save (a 1,089-position checkpoint), then ``--preset cogview-sr
+   --load <it> --finetune --dual-positions --dataset-type TokenizedDataset``
+   for SR_TRAIN_STEPS steps on rows laid out as the JAX package's
+   super-resolution rows (IndexedDataset, from a seed): iteration and
+   optimizer count start at 0, [ROI2]'s id reaches the step, the position
+   table's first 1,089 rows are the saved ones bit for bit and the rest the
+   tiled table, finite losses, K3/K4/K5 once per layer and step (twice the
+   forward); then ``--load`` of that checkpoint without --finetune resumes
+   its iteration and optimizer count;
+20. super-resolution finetuning at full depth: ``--preset cogview-sr
+   --dual-positions``, 48 layers, batch SR_FULL_BATCH x 1,344 tokens,
+   SR_FULL_STEPS steps, in a child process (``chip_smoke.py
+   --sr-train-child``) whose peak device memory is its own: finite losses,
+   no skipped step, 96 / 48 / 48 K3 / K4 / K5 launches a step; ms per step,
+   tokens per second, peak memory, and two steps under torch.profiler
+   (kernel time by kind, zero fills apart, busy share);
+21. K3, K4 and K5 at the finetune's shape (B=2, N=40, D=64, S=1344, bf16,
+   dropout 0.1 and none) against their plain versions, two launches
+   bit-equal; their times beside the plain versions', the bounds, SDPA with
+   the boolean mask and with is_causal, and torch.autograd.grad through it;
+22. the memory, sparse and float16 routes through ``cli.pretrain.main`` at
+   the tutorial preset, batch 4: ``--max-memory-length 512`` (the memory
+   of 13 hidden states at 512 positions), ``--is-sparse 1 --query-window 64
+   --key-window-times 4 --num-pivot 256``, 6 steps each, and ``--fp16
+   --profile-dir`` for 14 steps from a loss scale of 2^16 (the scale moves
+   and not every step is skipped; the Chrome trace's kernels span steps
+   10-13): finite losses, no flash launch (these routes are dense torch,
+   as in the JAX package).
 
 The next-to-last line is the kernels' JSON record (each kernel's launches
 on the main path, error, time, plain version's time, bound and library
@@ -454,6 +487,36 @@ def _backward_inputs(torch, fa, dtype, b, s, n, sep, rate, gen, d=64):
     return (q, k, v, do, lse, delta), kw
 
 
+def _bwd_bounds(B, N, D, S):
+    """Least times of dq and of dk/dv in bf16 at sep 0: q, k, v, dO (and o)
+    read and the outputs written once, lse and delta read; 6 D (dq) and 8 D
+    (dk, dv) operations per visible pair -> {"dq": (ms, by), "dkv": ...}."""
+    pairs = _attn_pairs(S, 0) * B * N
+    io = B * S * N * D * 2  # one bf16 [B, S, N, D] tensor
+    return {"dq": _bound(5 * io + 2 * B * N * S * 4, 6 * D * pairs, "bf16"),
+            "dkv": _bound(6 * io + 2 * B * N * S * 4, 8 * D * pairs, "bf16")}
+
+
+def _sdpa_backward_us(torch, args):
+    """One torch.autograd.grad through SDPA on the q, k, v and dO of
+    ``args`` (sep 0, no dropout), with the boolean mask and with is_causal
+    -> {"boolean mask": us, "is_causal": us}; the yardstick of dq + dk/dv,
+    which the port never calls."""
+    import torch.nn.functional as F
+
+    qt, kt, vt, mask = _sdpa_args(torch, *args[:3], 0)
+    qt, kt, vt = (t.detach().contiguous().requires_grad_() for t in (qt, kt, vt))
+    dot = args[3].transpose(1, 2)
+    library = {}
+    for name, sdpa_kw in (("boolean mask", dict(attn_mask=mask)),
+                          ("is_causal", dict(is_causal=True))):
+        o = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+        library[name] = _device_time_us(torch, lambda: torch.autograd.grad(
+            o, (qt, kt, vt), dot, retain_graph=True))
+        del o
+    return library
+
+
 def phase_flash_backward(torch, fa):
     """K4 (dq) and K5 (dk, dv) against their plain versions -> summary.
 
@@ -511,11 +574,7 @@ def phase_flash_backward(torch, fa):
                 _device_time_us(torch, lambda: fa.flash_bwd_dkv_reference(*args, 0, rate,
                                                                            seed))),
     }
-    B, S, N, D = 16, 1088, 16, 64
-    pairs = _attn_pairs(S, 0) * B * N
-    io = B * S * N * D * 2  # one bf16 [B, S, N, D] tensor
-    bounds = {"dq": _bound(5 * io + 2 * B * N * S * 4, 6 * D * pairs, "bf16"),
-              "dkv": _bound(6 * io + 2 * B * N * S * 4, 8 * D * pairs, "bf16")}
+    bounds = _bwd_bounds(16, 16, 64, 1088)
     for name, (us_k, us_p) in times.items():
         print(f"flash backward {name} time bf16 B=16 N=16 S=1088 dropout 0.1: kernel "
               f"{us_k:.1f} us/call, plain {us_p:.1f} us/call (CUDA events, median of 25); "
@@ -525,21 +584,10 @@ def phase_flash_backward(torch, fa):
     # the yardsticks: one torch.autograd.grad through SDPA on the same inputs
     # without dropout, with the boolean mask and with is_causal (the same
     # function at sep 0), against dq + dk/dv without dropout
-    import torch.nn.functional as F
-
     args, kw = _backward_inputs(torch, fa, torch.bfloat16, 16, 1088, 16, 0, 0.0, gen)
     nodrop = [_device_time_us(torch, lambda: fa.flash_bwd_dq(*args, 0)),
               _device_time_us(torch, lambda: fa.flash_bwd_dkv(*args, 0))]
-    qt, kt, vt, mask = _sdpa_args(torch, *args[:3], 0)
-    qt, kt, vt = (t.detach().contiguous().requires_grad_() for t in (qt, kt, vt))
-    dot = args[3].transpose(1, 2)
-    library = {}
-    for name, sdpa_kw in (("boolean mask", dict(attn_mask=mask)),
-                          ("is_causal", dict(is_causal=True))):
-        o = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
-        library[name] = _device_time_us(torch, lambda: torch.autograd.grad(
-            o, (qt, kt, vt), dot, retain_graph=True))
-        del o
+    library = _sdpa_backward_us(torch, args)
     shares = [bounds[k][0] * 1000.0 / us for k, us in zip(("dq", "dkv"), nodrop)]
     print(f"flash backward without dropout, bf16 B=16 N=16 S=1088: dq {nodrop[0]:.1f} + dk/dv "
           f"{nodrop[1]:.1f} = {sum(nodrop):.1f} us/call (bound shares {shares[0]:.3f}, "
@@ -547,7 +595,7 @@ def phase_flash_backward(torch, fa):
           f"boolean mask {library['boolean mask']:.1f} us/call, with is_causal "
           f"{library['is_causal']:.1f} us/call (CUDA events, median of 25); kernels / boolean-mask "
           f"call = {sum(nodrop) / library['boolean mask']:.3f}")
-    del args, qt, kt, vt
+    del args
     return {"max_abs_err": worst, "rel_err": rel_worst, "times": times, "bounds": bounds,
             "library_us": library["boolean mask"], "library_causal_us": library["is_causal"],
             "nodrop_us": nodrop}
@@ -1031,10 +1079,10 @@ def phase_image2text(torch, da, fa, cli, tasks, sampling, png_dir: str, work: st
 
 
 def phase_low_level_sr(torch, da, cli, tasks, sampling, png, png_dir: str, work: str):
-    """Low-level super-resolution through the CLI at cogview-base width and
-    depth, int8 cache, batch 4, on the prompt and the first PNG of the
-    int8-weight text->image request, read at 128 pixels (the bilinear
-    resize, 256 -> 128) -> K1 launches."""
+    """Low-level super-resolution through the CLI at cogview-base's widths,
+    depth cut to CUT_LAYERS, int8 cache, batch 4, on the prompt and the
+    first PNG of the int8-weight text->image request, read at 128 pixels
+    (the bilinear resize, 256 -> 128) -> K1 launches."""
     import numpy as np
 
     query = os.path.join(work, "llsr.txt")
@@ -1045,8 +1093,9 @@ def phase_low_level_sr(torch, da, cli, tasks, sampling, png, png_dir: str, work:
     da.decode_attention_quant.launches = 0
     da.decode_attention_quant.launches_int4 = 0
     da.decode_attention_quant_reference.calls = 0
-    _run_cli(cli, tasks, sampling, torch,
-             _cli_argv("bfloat16", "low-level super-resolution", query, out_dir), captured)
+    with _CutDepth(cli, "cogview-base", CUT_LAYERS):
+        _run_cli(cli, tasks, sampling, torch,
+                 _cli_argv("bfloat16", "low-level super-resolution", query, out_dir), captured)
     launches = da.decode_attention_quant.launches
     plain_calls = da.decode_attention_quant_reference.calls
     _check(da.decode_attention_quant.launches_int4 == 0, "the int8 cache launched K2")
@@ -1066,12 +1115,13 @@ def phase_low_level_sr(torch, da, cli, tasks, sampling, png, png_dir: str, work:
           f"generated ids, all in [0, 8192): {ok_ids}; PNG shapes {shapes}, images finite: "
           f"{finite}")
     _check(ok_ids and finite and shapes == [(256, 256, 3)] * 4, "low-level SR outputs")
-    print(f"low-level SR: K1 launches {launches} == decode steps x 48 = {steps} x 48 = "
-          f"{steps * 48}: {launches == steps * 48}; plain-version calls {plain_calls}")
-    _check(steps == 1024 and launches == steps * 48 and plain_calls == 0,
+    L = CUT_LAYERS
+    print(f"low-level SR: K1 launches {launches} == decode steps x {L} = {steps} x {L} = "
+          f"{steps * L}: {launches == steps * L}; plain-version calls {plain_calls}")
+    _check(steps == 1024 and launches == steps * L and plain_calls == 0,
            "low-level SR did not run K1 once per step and layer")
-    print(f"low-level SR: {captured['request_s']:.3f} s per request (batch 4, cogview-base, 48 "
-          f"layers); filling {captured['fill_s']:.3f} s = "
+    print(f"low-level SR: {captured['request_s']:.3f} s per request (batch 4, cogview-base "
+          f"widths, {L} layers); filling {captured['fill_s']:.3f} s = "
           f"{1000.0 * captured['fill_s'] / steps:.3f} ms per decode step (prefill included)")
     return launches
 
@@ -1105,7 +1155,6 @@ def phase_super_resolution(torch, da, cfgmod, cli, gpt, magnify, sampling, png, 
     out_dir = os.path.join(work, "sr")
     rec = {"steps": 0, "windows": 0}
     orig_sr, orig_fill = cli.super_resolution, magnify.filling_sequence
-    orig_preset = cli.PRESETS["cogview-sr"]
 
     def timed_sr(*a, **kw):
         torch.cuda.synchronize()
@@ -1147,13 +1196,12 @@ def phase_super_resolution(torch, da, cfgmod, cli, gpt, magnify, sampling, png, 
     da.decode_attention_quant.launches_int4 = 0
     da.decode_attention_quant_reference.calls = 0
     cli.super_resolution, magnify.filling_sequence = timed_sr, counted_fill
-    cli.PRESETS["cogview-sr"] = lambda: cfgmod.cogview_sr(num_layers=SR_LAYERS)
     cli.load_model = checked_load
     try:
-        rc = cli.main(argv, txt_tokenizer=WordTokenizer())
+        with _CutDepth(cli, "cogview-sr", SR_LAYERS):
+            rc = cli.main(argv, txt_tokenizer=WordTokenizer())
     finally:
         cli.super_resolution, magnify.filling_sequence = orig_sr, orig_fill
-        cli.PRESETS["cogview-sr"] = orig_preset
         cli.load_model = orig_load
         ckpt_dir.cleanup()
     _check(rc == 0, f"cli.main returned {rc}")
@@ -1260,9 +1308,31 @@ def phase_post_selection(torch, fa, cli, tasks, scoring, png_dir: str, work: str
     return launches
 
 
+# the depth of the int4 server request (phase 12) and the low-level
+# super-resolution request (phase 15), cut from cogview-base's 48 layers to
+# keep the script inside its time limit; phases 9 and 17 decode at 48
+CUT_LAYERS = 12
+
+
+class _CutDepth:
+    """``with _CutDepth(cli, name, n):`` the CLIs' preset ``name`` at n
+    layers, its widths unchanged."""
+
+    def __init__(self, cli, name: str, layers: int):
+        self.presets, self.name, self.layers = cli.PRESETS, name, layers
+
+    def __enter__(self):
+        self.orig = self.presets[self.name]
+        self.presets[self.name] = lambda: self.orig().replace(num_layers=self.layers)
+
+    def __exit__(self, *exc):
+        self.presets[self.name] = self.orig
+        return False
+
+
 def phase_serve_int4(torch, da, serve, tasks, sampling, png, work: str):
-    """One request through the folder-watcher server with the int4 cache ->
-    K2 launches."""
+    """One request through the folder-watcher server with the int4 cache at
+    cogview-base's widths, depth cut to CUT_LAYERS -> K2 launches."""
     import numpy as np
 
     inp, img = os.path.join(work, "serve_in"), os.path.join(work, "serve_img")
@@ -1277,7 +1347,8 @@ def phase_serve_int4(torch, da, serve, tasks, sampling, png, work: str):
     da.decode_attention_quant.launches = 0
     da.decode_attention_quant.launches_int4 = 0
     da.decode_attention_quant_reference.calls = 0
-    _run_cli(serve, tasks, sampling, torch, argv, captured)
+    with _CutDepth(serve, "cogview-base", CUT_LAYERS):
+        _run_cli(serve, tasks, sampling, torch, argv, captured)
     k1, k2 = da.decode_attention_quant.launches, da.decode_attention_quant.launches_int4
     plain_calls = da.decode_attention_quant_reference.calls
 
@@ -1293,11 +1364,12 @@ def phase_serve_int4(torch, da, serve, tasks, sampling, png, work: str):
     print(f"serve int4: {gen_ids.size} generated ids, all in [0, 8192): {ok_ids}; PNG shapes "
           f"{shapes}, images finite: {finite}")
     _check(ok_ids and finite and shapes == [(256, 256, 3)] * 4, "serve outputs")
-    print(f"serve int4: K2 launches {k2} == 1024 x 48 = {1024 * 48}: {k2 == 1024 * 48}; K1 "
+    L = CUT_LAYERS
+    print(f"serve int4: K2 launches {k2} == 1024 x {L} = {1024 * L}: {k2 == 1024 * L}; K1 "
           f"launches {k1}; plain-version calls {plain_calls}")
-    _check(steps == 1024 and k2 == 1024 * 48 and k1 == 0 and plain_calls == 0,
+    _check(steps == 1024 and k2 == 1024 * L and k1 == 0 and plain_calls == 0,
            "the int4 request did not run K2 once per step and layer")
-    print(f"serve int4: {captured['request_s']:.3f} s per request (batch 4); filling "
+    print(f"serve int4: {captured['request_s']:.3f} s per request (batch 4, {L} layers); filling "
           f"{captured['fill_s']:.3f} s = {1000.0 * captured['fill_s'] / steps:.3f} ms per decode "
           f"step (prefill included, {steps} steps)")
     return k2
@@ -1368,39 +1440,6 @@ def _write_corpus(path: str, rows: int, seed: int) -> None:
         data[r, :n] = rng.randint(8192, 8192 + 50000, n)
     data[:, 64:] = rng.randint(0, 8192, (rows, 1024))
     data.tofile(path)
-
-
-def _device_busy(torch, prof, wall_s: float):
-    """(device kernel seconds by category, busy share, the 8 longest
-    kernels, the flash kernels' (seconds, launches) by instantiation) of a
-    profile."""
-    cats = {"flash kernels": 0.0, "matmuls": 0.0, "elementwise": 0.0, "reductions": 0.0,
-            "copies / casts": 0.0, "other": 0.0}
-    top, flash = [], {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        top.append((us / 1e6, e.count, e.key[:90]))
-        name = e.key.lower()
-        if "flash" in name:
-            cat = "flash kernels"
-            short = re.search(r"flash_\w+<[^>]*>", e.key)
-            flash[short.group(0) if short else e.key[:90]] = (us / 1e6, e.count)
-        elif any(t in name for t in ("gemm", "cutlass", "xmma", "nvjet", "sm90")):
-            cat = "matmuls"
-        elif "reduce" in name or "norm" in name or "softmax" in name:
-            cat = "reductions"
-        elif "copy" in name or "memcpy" in name or "memset" in name or "cast" in name:
-            cat = "copies / casts"
-        elif "elementwise" in name or "vectorized" in name or "unrolled" in name:
-            cat = "elementwise"
-        else:
-            cat = "other"
-        cats[cat] += us / 1e6
-    return cats, sum(cats.values()) / wall_s, sorted(top, reverse=True)[:8], flash
 
 
 def phase_pretrain(torch, fa, pretrain, losses, optim, work: str):
@@ -1485,7 +1524,9 @@ def phase_pretrain(torch, fa, pretrain, losses, optim, work: str):
 
     step_ms = 1000.0 * statistics.median(rec["step_s"][3:])
     tokens = 16 * 1088
-    cats, busy, top, flash = _device_busy(torch, rec["prof"], rec["prof_wall"])
+    from cogview_tpu_torch.scripts.train_step_profile import device_time
+
+    cats, _, busy, top, flash = device_time(rec["prof"], rec["prof_wall"])
     print(f"pretrain: {step_ms:.3f} ms per step (median of steps 4-{steps}, host clock around "
           f"synchronised steps), {tokens / step_ms * 1000.0:.1f} tokens/s; peak memory "
           f"{peak_gib:.3f} GiB")
@@ -1533,7 +1574,7 @@ def phase_pretrain(torch, fa, pretrain, losses, optim, work: str):
     print(out.getvalue(), end="")
     lines = out.getvalue().splitlines()
     resumed = f"loaded checkpoint from {save} at iteration {PRETRAIN_STEPS}" in lines
-    iters = [ln.split("/")[0].split()[-1] for ln in lines if ln.startswith(" iteration")]
+    iters = _iterations(out.getvalue())
     print(f"pretrain resume: loaded at iteration {PRETRAIN_STEPS}: {resumed}; iterations run "
           f"{iters}")
     _check(rc == 0 and resumed and iters == [str(PRETRAIN_STEPS + 1), str(PRETRAIN_STEPS + 2)],
@@ -1718,13 +1759,14 @@ def write_checkpoint_child(spec_json: str) -> int:
     return 0
 
 
-def _run_child(flag: str, spec: dict, what: str):
-    """``chip_smoke.py <flag> <spec as JSON>`` from the script's directory:
-    its output lines but the last, prefixed, and its last line's JSON."""
+def _run_child(flag: str, spec: dict, what: str, env=None):
+    """``chip_smoke.py <flag> <spec as JSON>`` from the script's directory,
+    with ``env`` added to the environment: its output lines but the last,
+    prefixed, and its last line's JSON."""
     here = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"), flag,
                            json.dumps(spec)], cwd=here, capture_output=True, text=True,
-                          timeout=900)
+                          timeout=900, env={**os.environ, **(env or {})})
     lines = proc.stdout.strip().splitlines()
     if lines[:-1]:
         print("\n".join(f"{what}: {ln}" for ln in lines[:-1]))
@@ -1920,6 +1962,446 @@ def phase_serve_pretrained(torch, da, cli, optim, tasks, sampling, png, work: st
     return launches
 
 
+# ---------------------------------------------------------------------------
+# super-resolution finetuning, and the memory, sparse and float16 routes
+# ---------------------------------------------------------------------------
+
+
+def _write_sr_corpus(path: str, rows: int, seed: int) -> int:
+    """An IndexedDataset of super-resolution rows laid out as
+    cogview_tpu/preprocess/tokenize_images.py's make_super_resolution_rows
+    lays them out: [ROI1], 8-40 text ids, [BASE] [BOI1], the overview's
+    1,024 codes, [EOI1] [ROI2] [POSp] [BASE] [BOI2], the patch's 1,024
+    codes, [EOI2] (the 1,345-position preset reads each row's first 1,345
+    ids) -> the id of [ROI2]."""
+    import numpy as np
+
+    from cogview_tpu_torch.data.datasets import IndexedDataset
+    from cogview_tpu_torch.tokenization.unified import FakeImageTokenizer, UnifiedTokenizer
+
+    tok = UnifiedTokenizer(img_tokenizer=FakeImageTokenizer(8192), txt_tokenizer=WordTokenizer())
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(rows):
+        n = rng.randint(8, 41)
+        out.append(np.concatenate([
+            [tok["[ROI1]"]], rng.randint(8192, 8192 + 50000, n), [tok["[BASE]"], tok["[BOI1]"]],
+            rng.randint(0, 8192, 1024),
+            [tok["[EOI1]"], tok["[ROI2]"], tok[f"[POS{rng.randint(9)}]"], tok["[BASE]"],
+             tok["[BOI2]"]],
+            rng.randint(0, 8192, 1024), [tok["[EOI2]"]]]).astype(np.int32))
+    IndexedDataset.write(path, out)
+    return tok["[ROI2]"]
+
+
+def _recording_steps(torch, pretrain, name: str, rec: dict, profile_steps=()):
+    """Wraps the CLI's step factory ``pretrain.<name>``: each step is timed
+    (host clock around a synchronised step), its metrics, the memory's shape
+    and at the first step the position table and the optimizer count are
+    kept in ``rec``; the steps at the 0-based indices ``profile_steps`` run
+    under torch.profiler (rec["prof"], rec["prof_wall"]) -> a function that
+    puts the factory back."""
+    orig = getattr(pretrain, name)
+    rec.update(metrics=[], step_s=[], mems=[])
+
+    def make(cfg, opt, **kw):
+        step = orig(cfg, opt, **kw)
+        rec["kw"] = kw
+
+        def timed(state, batch, *a, **k):
+            i = len(rec["step_s"])
+            if i == 0:
+                rec["first"] = {"pos": state["params"]["embed"]["pos"].detach().clone(),
+                                "count": state["opt_state"]["count"]}
+            if profile_steps and i == profile_steps[0]:
+                rec["prof"] = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+                rec["prof"].__enter__()
+                rec["prof_t0"] = time.perf_counter()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch, *a, **k)
+            torch.cuda.synchronize()
+            rec["step_s"].append(time.perf_counter() - t0)
+            if profile_steps and i == profile_steps[-1]:
+                rec["prof_wall"] = time.perf_counter() - rec["prof_t0"]
+                rec["prof"].__exit__(None, None, None)
+            rec["metrics"].append(out[1])
+            if len(out) == 3:
+                rec["mems"].append(tuple(out[2].shape))
+            return out
+
+        return timed
+
+    setattr(pretrain, name, make)
+    return lambda: setattr(pretrain, name, orig)
+
+
+def _run_pretrain(pretrain, argv):
+    """``cli.pretrain.main(argv)`` with its output captured and printed ->
+    (return code, output)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = pretrain.main(argv, txt_tokenizer=WordTokenizer())
+    print(out.getvalue(), end="")
+    return rc, out.getvalue()
+
+
+def _iterations(out: str):
+    return [ln.split("/")[0].split()[-1] for ln in out.splitlines()
+            if ln.startswith(" iteration")]
+
+
+FLASH_COUNTERS = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv")
+FLASH_PLAINS = ("flash_attention_reference", "flash_bwd_dq_reference", "flash_bwd_dkv_reference")
+
+
+def _zero_flash_counts(fa) -> None:
+    for name in FLASH_COUNTERS:
+        getattr(fa, name).launches = 0
+    for name in FLASH_PLAINS:
+        getattr(fa, name).calls = 0
+
+
+def _flash_counts(fa):
+    """-> ([K3, K4, K5 launches], [their plain versions' calls])."""
+    return ([getattr(fa, n).launches for n in FLASH_COUNTERS],
+            [getattr(fa, n).calls for n in FLASH_PLAINS])
+
+
+SR_TRAIN_STEPS = 4
+
+
+def phase_sr_finetune(torch, fa, pretrain, gpt, work: str):
+    """Super-resolution finetuning through ``cli.pretrain.main`` at the
+    published widths, depth cut to SR_LAYERS: cogview-base trains 2 steps
+    and saves a 1,089-position checkpoint; cogview-sr loads it with
+    --finetune --dual-positions and trains SR_TRAIN_STEPS steps on rows
+    laid out as the JAX package's super-resolution rows; a second --load
+    without --finetune resumes the optimizer -> [K3, K4, K5 launches]."""
+    import numpy as np
+
+    t2i = os.path.join(work, "sr_base_t2i.bin")
+    _write_corpus(t2i, 16, seed=11)
+    rows = os.path.join(work, "sr_rows")
+    roi2 = _write_sr_corpus(rows, 16, seed=12)
+    base, ft = os.path.join(work, "sr_base_ckpt"), os.path.join(work, "sr_ft_ckpt")
+    common = ["--num-layers", str(SR_LAYERS), "--device", "cuda", "--batch-size", "2",
+              "--split", "1.0,0.0,0.0", "--log-interval", "1", "--lr", "1e-4", "--warmup",
+              "0.0", "--seed", "1234"]
+    sr = ["--preset", "cogview-sr", "--dual-positions", "--dataset-type", "TokenizedDataset",
+          "--train-data", rows]
+    L, total = SR_LAYERS, np.zeros(3, np.int64)
+
+    _zero_flash_counts(fa)
+    rc, out = _run_pretrain(pretrain, ["--preset", "cogview-base", "--train-data", t2i,
+                                       "--train-iters", "2", "--save", base] + common)
+    launches, plain = _flash_counts(fa)
+    _check(rc == 0 and _iterations(out) == ["1", "2"], "the cogview-base run failed")
+    _check(launches == [4 * L, 2 * L, 2 * L] and plain == [0, 0, 0],
+           "the cogview-base steps did not run the flash kernels once per layer")
+    total += launches
+    saved = torch.load(os.path.join(base, "2", "state.pt"), map_location="cuda",
+                       weights_only=True)["params"]["embed"]["pos"]
+    print(f"sr finetune: cogview-base ({L} of 48 layers) saved at iteration 2, position "
+          f"table {tuple(saved.shape)}")
+
+    rec = {}
+    restore = _recording_steps(torch, pretrain, "make_train_step", rec)
+    _zero_flash_counts(fa)
+    try:
+        rc, out = _run_pretrain(pretrain, sr + common + [
+            "--load", base, "--finetune", "--train-iters", str(SR_TRAIN_STEPS), "--save", ft])
+    finally:
+        restore()
+    launches, plain = _flash_counts(fa)
+    total += launches
+    pos = rec["first"]["pos"]
+    lm = [m["lm_loss"] for m in rec["metrics"]]
+    skipped = sum(m["skipped"] for m in rec["metrics"])
+    extended = torch.equal(pos, gpt.extend_position_embedding(saved, 1345))
+    print(f"sr finetune: --preset cogview-sr --load --finetune --dual-positions: loaded at "
+          f"iteration 0: {f'loaded checkpoint from {base} at iteration 0' in out}; iterations "
+          f"{_iterations(out)}; optimizer count at the first step {rec['first']['count']}; "
+          f"[ROI2] id {rec['kw']['dual_positions_roi2']} (want {roi2}); position table "
+          f"{tuple(pos.shape)}, rows 0-1088 bit-equal to the saved table: "
+          f"{torch.equal(pos[:1089], saved)}, rows 1089-1344 the tiled table: {extended}")
+    print(f"sr finetune: lm loss {['%.4f' % v for v in lm]}, skipped {skipped}; flash launches "
+          f"(fwd, dq, dkv) {launches}, plain-version calls {plain}; "
+          f"{1000.0 * statistics.median(rec['step_s']):.3f} ms per step at batch 2 x 1,344")
+    _check(rc == 0 and f"loaded checkpoint from {base} at iteration 0" in out
+           and _iterations(out) == [str(i + 1) for i in range(SR_TRAIN_STEPS)],
+           "the --finetune run did not start at iteration 0")
+    _check(rec["first"]["count"] == 0 and rec["kw"]["dual_positions_roi2"] == roi2,
+           "--finetune kept the optimizer state, or --dual-positions was not passed on")
+    _check(pos.shape == (1345, saved.shape[1]) and torch.equal(pos[:1089], saved) and extended,
+           "the finetune's position table is not the saved one extended")
+    _check(np.isfinite(lm).all() and skipped == 0, "finetune losses not finite or a step skipped")
+    want = [2 * L * SR_TRAIN_STEPS, L * SR_TRAIN_STEPS, L * SR_TRAIN_STEPS]
+    _check(launches == want and plain == [0, 0, 0],
+           f"the finetune steps launched {launches} flash kernels, not {want}")
+
+    restore = _recording_steps(torch, pretrain, "make_train_step", rec)
+    _zero_flash_counts(fa)
+    try:
+        rc, out = _run_pretrain(pretrain, sr + common + [
+            "--load", ft, "--train-iters", str(SR_TRAIN_STEPS + 2)])
+    finally:
+        restore()
+    launches, _ = _flash_counts(fa)
+    total += launches
+    resumed = f"loaded checkpoint from {ft} at iteration {SR_TRAIN_STEPS}" in out
+    print(f"sr finetune resume: --load without --finetune: loaded at iteration "
+          f"{SR_TRAIN_STEPS}: {resumed}; iterations {_iterations(out)}; optimizer count at the "
+          f"first step {rec['first']['count']}")
+    _check(rc == 0 and resumed and rec["first"]["count"] == SR_TRAIN_STEPS
+           and _iterations(out) == [str(SR_TRAIN_STEPS + 1), str(SR_TRAIN_STEPS + 2)],
+           "the --load run without --finetune did not resume the optimizer")
+    return rows, [int(n) for n in total]
+
+
+# cogview-sr finetuning at its full depth: batch 2 x 1,344 tokens
+SR_FULL_BATCH = 2
+SR_FULL_STEPS = 6
+SR_FULL_PROFILED = (4, 5)  # the 0-based steps under torch.profiler; 1-3 are timed
+
+
+def sr_train_child(spec_json: str) -> int:
+    """``chip_smoke.py --sr-train-child <json>``: cogview-sr at its published
+    widths and 48 layers through ``cli.pretrain.main --dual-positions`` in a
+    process of its own, so that its peak device memory is its own.  Prints
+    the CLI's lines, then one JSON line: per-step times, losses, skips, the
+    flash launches, the peak memory, and the profiled steps' kernel time by
+    kind."""
+    import torch
+
+    from cogview_tpu_torch.cli import pretrain
+    from cogview_tpu_torch.ops import flash_attention as fa
+    from cogview_tpu_torch.scripts.train_step_profile import device_time
+
+    spec = json.loads(spec_json)
+    rec = {}
+    restore = _recording_steps(torch, pretrain, "make_train_step", rec, SR_FULL_PROFILED)
+    _zero_flash_counts(fa)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        rc, out = _run_pretrain(pretrain, [
+            "--preset", "cogview-sr", "--dual-positions", "--device", "cuda",
+            "--dataset-type", "TokenizedDataset", "--train-data", spec["data"],
+            "--batch-size", str(SR_FULL_BATCH), "--train-iters", str(SR_FULL_STEPS),
+            "--split", "1.0,0.0,0.0", "--log-interval", "1", "--lr", "1e-4", "--warmup", "0.0",
+            "--seed", "1234"])
+    finally:
+        restore()
+    launches, plain = _flash_counts(fa)
+    secs, counts, busy, top, flash = device_time(rec["prof"], rec["prof_wall"])
+    n = len(SR_FULL_PROFILED)
+    print(json.dumps({
+        "rc": rc, "iterations": _iterations(out), "step_s": rec["step_s"],
+        "lm": [m["lm_loss"] for m in rec["metrics"]],
+        "skipped": sum(m["skipped"] for m in rec["metrics"]),
+        "roi2": rec["kw"]["dual_positions_roi2"], "launches": launches, "plain": plain,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "kernel_ms": {k: 1000.0 * v / n for k, v in secs.items()},
+        "kernel_launches": {k: v // n for k, v in counts.items()},
+        "busy": busy, "prof_wall_ms": 1000.0 * rec["prof_wall"] / n,
+        "top": [(1000.0 * s / n, c // n, name) for s, c, name in top],
+        "flash": {k: (1000.0 * s / n, c // n) for k, (s, c) in flash.items()}}))
+    return 0
+
+
+def phase_sr_full_depth(torch, rows: str, smi: str):
+    """cogview-sr finetuning at full depth in a child process (the rows of
+    phase 19) -> ([K3, K4, K5 launches], summary)."""
+    import numpy as np
+
+    torch.cuda.empty_cache()  # the child needs the card's memory
+    held = torch.cuda.memory_reserved() / 2 ** 30
+    print(f"sr full depth: this process holds {held:.3f} GiB of the card's memory "
+          f"(torch.cuda.memory_reserved) while the child runs")
+    # the step's peak is 63 GiB; with fixed segments the largest gradient
+    # leaf's 4.7 GiB can find no free block that large near the peak
+    r = _run_child("--sr-train-child", {"data": rows}, "sr full depth",
+                   env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    L, S = 48, SR_FULL_STEPS
+    step_ms = 1000.0 * statistics.median(r["step_s"][1:SR_FULL_PROFILED[0]])
+    tokens = SR_FULL_BATCH * 1344
+    print(f"sr full depth: cogview-sr, 48 layers, batch {SR_FULL_BATCH} x 1,344, --dual-positions "
+          f"([ROI2] {r['roi2']}): iterations {r['iterations']}, lm loss "
+          f"{['%.4f' % v for v in r['lm']]}, skipped {r['skipped']}")
+    print(f"sr full depth: {step_ms:.3f} ms per step (median of steps 2-{SR_FULL_PROFILED[0]}, "
+          f"host clock around "
+          f"synchronised steps; all {['%.1f' % (1000.0 * t) for t in r['step_s']]}), "
+          f"{tokens / step_ms * 1000.0:.1f} tokens/s; peak memory {r['peak_gib']:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated, the child's own); {smi}")
+    kernel_ms = sum(r["kernel_ms"].values())
+    print(f"sr full depth: steps {SR_FULL_PROFILED[0] + 1}-{SR_FULL_PROFILED[-1] + 1} under "
+          f"torch.profiler: wall {r['prof_wall_ms']:.3f} ms a step, device busy "
+          f"{100.0 * r['busy']:.1f}% of it; {kernel_ms:.3f} ms of kernels a step, "
+          f"{100.0 * kernel_ms / step_ms:.1f}% of the unprofiled step; kernel time by kind "
+          + ", ".join(
+              f"{k} {v:.3f} ms/step ({r['kernel_launches'][k]} launches)"
+              for k, v in r["kernel_ms"].items()))
+    for ms, n, name in r["top"]:
+        print(f"sr full depth: kernel {ms:.3f} ms/step ({n} launches/step) {name}")
+    for name, (ms, n) in sorted(r["flash"].items()):
+        print(f"sr full depth: flash kernel {name} {ms:.3f} ms/step ({n} launches/step)")
+    want = [2 * L * S, L * S, L * S]
+    print(f"sr full depth: flash launches (fwd, dq, dkv) {r['launches']} == {want} (96 / 48 / "
+          f"48 a step with remat); plain-version calls {r['plain']}")
+    _check(r["rc"] == 0 and r["iterations"] == [str(i + 1) for i in range(S)]
+           and np.isfinite(r["lm"]).all() and r["skipped"] == 0,
+           "the full-depth finetune's losses are not finite or a step skipped")
+    _check(r["launches"] == want and r["plain"] == [0, 0, 0],
+           "the full-depth finetune did not launch the flash kernels once per layer and step")
+    return r["launches"], {"step_ms": step_ms, "peak_gib": r["peak_gib"], "busy": r["busy"]}
+
+
+SR_SHAPE = (SR_FULL_BATCH, 40, 64, 1344)  # B, N, D, S of cogview-sr finetuning
+
+
+def phase_flash_sr_shape(torch, fa):
+    """K3, K4 and K5 at super-resolution finetuning's shape (bf16, sep 0,
+    dropout 0.1 and none) against their plain versions, two launches
+    bit-equal; their times, bounds and the SDPA yardsticks -> summary."""
+    B, N, D, S = SR_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    qkv = torch.randn((B, S, 3, N * D), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].reshape(B, S, N, D) for i in range(3))
+    worst = 0.0
+    for rate in (0.1, 0.0):
+        kw = dict(dropout_rate=rate, dropout_seed=1234 if rate else None)
+        o, lse = fa.flash_attention(q, k, v, 0, **kw)
+        o2, lse2 = fa.flash_attention(q, k, v, 0, **kw)
+        ro, rlse = fa.flash_attention_reference(q, k, v, 0, **kw)
+        torch.cuda.synchronize()
+        err, lerr = (o.float() - ro.float()).abs().max().item(), (lse - rlse).abs().max().item()
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        print(f"flash sr shape bf16 B={B} N={N} D={D} S={S} dropout={rate}: o max_abs_err "
+              f"{err:.3e} (tol 2e-2), lse {lerr:.3e} (tol 1e-4); repeat bit-equal={same}")
+        _check(err <= 2e-2 and lerr <= 1e-4 and same, f"K3 differs at the SR shape, dropout {rate}")
+        worst = max(worst, err)
+        del o, o2, ro, lse, lse2, rlse
+    drop = dict(dropout_rate=0.1, dropout_seed=1234)
+    fwd = {"ms": _device_time_us(torch, lambda: fa.flash_attention(q, k, v, 0, **drop)),
+           "nodrop_ms": _device_time_us(torch, lambda: fa.flash_attention(q, k, v, 0)),
+           "plain_ms": _device_time_us(torch, lambda: fa.flash_attention_reference(q, k, v, 0,
+                                                                                   **drop))}
+    fwd["library_ms"], fwd["library_causal_ms"] = _sdpa_time_us(torch, q, k, v, 0)
+    fwd = {key: us / 1000.0 for key, us in fwd.items()}
+    fwd["bound_ms"], fwd["bound_by"] = _flash_bound(B, N, D, S, 0, 2, "bf16")
+    del qkv, q, k, v
+
+    args, kw = _backward_inputs(torch, fa, torch.bfloat16, B, S, N, 0, 0.1, gen)
+    rate, seed = kw["dropout_rate"], kw["dropout_seed"]
+    dq, (dk, dv) = fa.flash_bwd_dq(*args, 0, **kw), fa.flash_bwd_dkv(*args, 0, **kw)
+    dq2, (dk2, dv2) = fa.flash_bwd_dq(*args, 0, **kw), fa.flash_bwd_dkv(*args, 0, **kw)
+    want = (fa.flash_bwd_dq_reference(*args, 0, rate, seed),
+            *fa.flash_bwd_dkv_reference(*args, 0, rate, seed))
+    torch.cuda.synchronize()
+    same = torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    rel = [((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+           for g, w in zip((dq, dk, dv), want)]
+    print(f"flash sr shape backward bf16 dropout 0.1: dq, dk, dv max_abs_err / max "
+          f"{['%.2e' % r for r in rel]} (tol 2e-2); repeat bit-equal={same}")
+    _check(max(rel) <= 2e-2 and same, "K4/K5 differ at the SR shape")
+    del dq, dk, dv, dq2, dk2, dv2, want
+    bounds = _bwd_bounds(B, N, D, S)
+    bwd = {}
+    for name, fn, plain in (("dq", fa.flash_bwd_dq, fa.flash_bwd_dq_reference),
+                            ("dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_reference)):
+        bwd[name] = {"ms": _device_time_us(torch, lambda: fn(*args, 0, **kw)) / 1000.0,
+                     "nodrop_ms": _device_time_us(torch, lambda: fn(*args, 0)) / 1000.0,
+                     "plain_ms": _device_time_us(torch, lambda: plain(*args, 0, rate,
+                                                                      seed)) / 1000.0,
+                     "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+    library = _sdpa_backward_us(torch, args)
+    del args
+    print(f"flash sr shape times bf16 B={B} N={N} S={S}: K3 {1000 * fwd['ms']:.1f} us with "
+          f"dropout 0.1, {1000 * fwd['nodrop_ms']:.1f} without, plain "
+          f"{1000 * fwd['plain_ms']:.1f}, SDPA boolean mask {1000 * fwd['library_ms']:.1f}, "
+          f"is_causal {1000 * fwd['library_causal_ms']:.1f}, bound "
+          f"{1000 * fwd['bound_ms']:.2f} us ({fwd['bound_by']}); " + "; ".join(
+              f"{n} {1000 * b['ms']:.1f} us with dropout, {1000 * b['nodrop_ms']:.1f} without, "
+              f"plain {1000 * b['plain_ms']:.1f}, bound {1000 * b['bound_ms']:.2f} us "
+              f"({b['bound_by']})" for n, b in bwd.items())
+          + f"; autograd.grad through SDPA boolean mask {library['boolean mask']:.1f} us, "
+          f"is_causal {library['is_causal']:.1f} us (CUDA events, median of 25)")
+    return {"max_abs_err": worst, "rel_err": max(rel), "fwd": fwd, "bwd": bwd,
+            "library_ms": library["boolean mask"] / 1000.0,
+            "library_causal_ms": library["is_causal"] / 1000.0}
+
+
+ROUTE_STEPS = 6
+
+
+def phase_other_routes(torch, fa, pretrain, work: str):
+    """The memory, sparse and float16 routes through ``cli.pretrain.main`` at
+    the tutorial preset (batch 4 x 1,088, phase 14's corpus): the memory at
+    512 positions, sparse attention at the reference's shipped 64 / 4 / 256,
+    and float16 for 14 steps with --profile-dir; none launches a flash
+    kernel (dense torch, as in the JAX package)."""
+    import numpy as np
+
+    common = ["--preset", "tutorial", "--device", "cuda", "--train-data",
+              os.path.join(work, "tutorial_t2i.bin"), "--batch-size", "4", "--split",
+              "1.0,0.0,0.0", "--log-interval", "1", "--lr", "1e-4", "--warmup", "0.0",
+              "--seed", "1234"]
+    prof_dir = os.path.join(work, "fp16_profile")
+    routes = (("mems", "make_train_step", ["--max-memory-length", "512"], ROUTE_STEPS),
+              ("sparse", "make_train_step", ["--is-sparse", "1", "--query-window", "64",
+                                             "--key-window-times", "4", "--num-pivot", "256"],
+               ROUTE_STEPS),
+              # a scale of 2^16 that doubles after 4 good steps and halves on
+              # an overflow: steps apply and the scale moves within 14 steps
+              ("fp16", "make_fp16_train_step", ["--fp16", "--profile-dir", prof_dir,
+                                                "--loss-scale-init", "65536",
+                                                "--loss-scale-window", "4"], 14))
+    for route, factory, flags, steps in routes:
+        rec = {}
+        restore = _recording_steps(torch, pretrain, factory, rec)
+        _zero_flash_counts(fa)
+        try:
+            rc, out = _run_pretrain(pretrain, common + flags + ["--train-iters", str(steps)])
+        finally:
+            restore()
+        launches, plain = _flash_counts(fa)
+        lm = [m["lm_loss"] for m in rec["metrics"]]
+        print(f"route {route}: {len(lm)} steps, lm loss {['%.4f' % v for v in lm]}, skipped "
+              f"{sum(m['skipped'] for m in rec['metrics'])}, "
+              f"{1000.0 * statistics.median(rec['step_s'][1:]):.3f} ms per step (batch 4); "
+              f"flash launches {launches}, plain-version calls {plain}")
+        _check(rc == 0 and len(lm) == steps and np.isfinite(lm).all(),
+               f"the {route} route's losses are not finite")
+        _check(launches == [0, 0, 0] and plain == [0, 0, 0],
+               f"the {route} route ran flash attention")
+        if route == "mems":
+            print(f"route mems: memory shapes {rec['mems'][:2]} ... {rec['mems'][-1]}")
+            _check(rec["mems"] == [(13, 4, 512, 1024)] * steps,
+                   "the memory did not reach 512 positions of the 13 hidden states")
+        elif route == "sparse":
+            _check(rec["kw"]["is_sparse"], "--is-sparse did not reach the step")
+        else:
+            scales = [m["loss_scale"] for m in rec["metrics"]]
+            trace = os.path.join(prof_dir, "trace.json")
+            with open(trace) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            span_ms = (max(e["ts"] + e["dur"] for e in kernels)
+                       - min(e["ts"] for e in kernels)) / 1000.0 if kernels else 0.0
+            steps_ms = 1000.0 * sum(rec["step_s"][9:13])
+            print(f"route fp16: loss scale {scales}; {trace}: {len(kernels)} kernel events over "
+                  f"{span_ms:.1f} ms of the {steps_ms:.1f} ms that steps 10-13 took")
+            skipped = sum(m["skipped"] for m in rec["metrics"])
+            _check(len(set(scales)) > 1 and skipped < steps,
+                   "the float16 loss scale did not move, or every step was skipped")
+            _check(f"profiler trace (steps 10-13) -> {trace}" in out and kernels
+                   and span_ms >= 0.5 * steps_ms, "the profile does not cover steps 10-13")
+
+
 def main() -> int:
     import torch
 
@@ -2009,6 +2491,17 @@ def main() -> int:
         train_launches, _ = phase_pretrain(torch, fa, pretrain, losses, optim, work)
         tut_launches = phase_serve_pretrained(torch, da, cli, optim, tasks, sampling, png,
                                               work, smi.splitlines()[0])
+        # phase 19: cogview-base -> cogview-sr finetuning at SR_LAYERS depth
+        # (--load --finetune --dual-positions, then a resume); phase 20:
+        # cogview-sr at full depth in a child process, on phase 19's rows
+        sr_rows, ft_launches = phase_sr_finetune(torch, fa, pretrain, gpt, work)
+        full_launches, _ = phase_sr_full_depth(torch, sr_rows, smi.splitlines()[0])
+        # phase 21: K3, K4, K5 at the finetune's shape; phase 22: the memory,
+        # sparse and float16 routes at the tutorial width
+        k345_sr = phase_flash_sr_shape(torch, fa)
+        phase_other_routes(torch, fa, pretrain, work)
+    # the flash kernels' launches on the training paths: phases 14, 19, 20
+    train_launches = [a + b + c for a, b, c in zip(train_launches, ft_launches, full_launches)]
 
     def decode_entry(name, summary, launches, err, kv):
         times = summary["times"]
@@ -2154,7 +2647,11 @@ def main() -> int:
          "library_ms": fl / 1000.0, "library_causal_ms": fc / 1000.0, "design": "wgmma",
          "bound_share": fbound / (fk / 1000.0), "train_ms": tdrop / 1000.0,
          "train_nodrop_ms": tnodrop / 1000.0, "train_bound_ms": tbound,
-         "train_library_ms": tl_ / 1000.0, "train_library_causal_ms": tc / 1000.0},
+         "train_library_ms": tl_ / 1000.0, "train_library_causal_ms": tc / 1000.0,
+         # sr_*: super-resolution finetuning's shape (B=2, N=40, S=1344),
+         # sr_ms with dropout 0.1 as the train step (phase 21)
+         **{f"sr_{key}": value for key, value in k345_sr["fwd"].items()},
+         "sr_max_abs_err": k345_sr["max_abs_err"]},
     ] + [{
         "name": f"flash_attention_bwd_{name}",
         "route": "cuda",
@@ -2175,6 +2672,12 @@ def main() -> int:
         "nodrop_ms": k45["nodrop_us"][i] / 1000.0,
         "design": "wgmma",
         "bound_share": k45["bounds"][name][0] / (k45["times"][name][0] / 1000.0),
+        # sr_*: super-resolution finetuning's shape, with dropout 0.1 (sr_ms)
+        # and without; sr_library_ms covers dq + dk/dv, as library_ms does
+        **{f"sr_{key}": value for key, value in k345_sr["bwd"][name].items()},
+        "sr_library_ms": k345_sr["library_ms"],
+        "sr_library_causal_ms": k345_sr["library_causal_ms"],
+        "sr_rel_err": k345_sr["rel_err"],
     } for i, (name, line, n) in enumerate((("dq", 212, train_launches[1]),
                                            ("dkv", 249, train_launches[2])))] + probe_rows
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -2190,4 +2693,6 @@ if __name__ == "__main__":
         sys.exit(checkpoint_child(sys.argv[2]))
     if sys.argv[1:2] == ["--write-checkpoint"]:
         sys.exit(write_checkpoint_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--sr-train-child"]:
+        sys.exit(sr_train_child(sys.argv[2]))
     sys.exit(main())

@@ -28,9 +28,9 @@ super-resolution and super-resolution: the text, then an image path;
 post-selection: the text, then one image path per candidate).  With
 ``--with-id`` each file line is the output id, a tab, then the query, and
 its outputs go to ``<output-path>/<id>/``.  Images are PNGs (every colour
-type, depth and interlace) or baseline JPEGs, resized as the JAX package
-does (short side to 256 pixels, 128 for low-level super-resolution,
-Pillow's bilinear filter, centre crop).
+type, depth and interlace) or baseline or progressive JPEGs, resized as the
+JAX package does (short side to 256 pixels, 128 for low-level
+super-resolution, Pillow's bilinear filter, centre crop).
 
 Weights: ``--load`` takes the reference's GPT checkpoint file (DeepSpeed's
 ``mp_rank_00_model_states.pt`` or a plain state dict; a trusted file, see

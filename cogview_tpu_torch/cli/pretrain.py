@@ -6,19 +6,28 @@ device.
       --save ckpts/run1 \\
       --text-model-path pretrained/chinese_sentencepiece/cog-pretrain.model
 
+Super-resolution finetuning from a cogview-base checkpoint (the position
+table extended from 1,089 to 1,345 rows, positions restarting at [ROI2]):
+
+  python -m cogview_tpu_torch.cli.pretrain --preset cogview-sr \
+      --load ckpts/base --finetune --dual-positions \
+      --dataset-type TokenizedDataset --train-data data/sr ...
+
 Iterates global batches from ``cogview_tpu_torch.data`` (the port's copy
 of the JAX package's numpy-only loader), runs the NaN-skipping train step with
 activation recomputation, evaluates (loss and PPL), writes checkpoints with
-the tracker-file protocol, and prints the JAX CLI's per-interval line.  The
-JAX CLI's multi-device, sparse-attention, transformer-XL-mems,
-dual-position and finetune flags are not offered.  Runs on a CUDA device by
-default and fails if there is none.
+the tracker-file protocol, and prints the JAX CLI's per-interval line.  It
+takes every flag of the JAX CLI but the multi-device ones
+(``--model-parallel-size``, ``--fsdp``, ``--sequence-parallel-size``,
+``--pipeline-parallel-size``, ``--pipeline-microbatches``, ``--multihost``).
+Runs on a CUDA device by default and fails if there is none.
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 import time
 
@@ -39,7 +48,8 @@ from ..training.train_loop import (init_fp16_train_state, init_train_state,
 from ..utils.metrics import MetricsWriter
 from ..utils.timers import Timers
 
-PRESETS = {"tutorial": C.cogview_tutorial, "smoke": C.smoke, "tiny": C.tiny_test}
+PRESETS = {"cogview-base": C.cogview_base, "cogview-sr": C.cogview_sr,
+           "tutorial": C.cogview_tutorial, "smoke": C.smoke, "tiny": C.tiny_test}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,6 +60,12 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--hidden-size", type=int, default=None)
     m.add_argument("--num-attention-heads", type=int, default=None)
     m.add_argument("--max-position-embeddings", type=int, default=None)
+    m.add_argument("--checkpoint-activations", action="store_true", default=True,
+                   help="recompute each layer in the backward (always on)")
+    m.add_argument("--finetune", action="store_true",
+                   help="with --load, take only the params (the position table fitted "
+                        "to the preset) and start the iteration, optimizer, generator "
+                        "and loss scale afresh")
     m.add_argument("--device", default="cuda")
 
     t = p.add_argument_group("train")
@@ -65,6 +81,24 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--clip-grad", type=float, default=1.0)
     t.add_argument("--txt-loss-scale", type=float, default=1.0)
     t.add_argument("--seed", type=int, default=1234)
+    t.add_argument("--is-sparse", type=int, default=0, choices=[0, 1],
+                   help="1 = pivot + window sparse attention for training")
+    # the reference's shipped scripts pass 64/4/256, which divide the 1,088
+    # training tokens of the production presets (the 128 default does not)
+    t.add_argument("--query-window", type=int, default=0,
+                   help="sparse attention's local window (0 = the config's 128; the "
+                        "training tokens must be a multiple)")
+    t.add_argument("--key-window-times", type=int, default=0,
+                   help="sparse attention's window multiplier (0 = the config's 6)")
+    t.add_argument("--num-pivot", type=int, default=0,
+                   help="sparse attention's pivot count (0 = the config's 768)")
+    t.add_argument("--max-memory-length", type=int, default=0,
+                   help="transformer-XL memory of layer hidden states carried across "
+                        "training batches: each batch continues the last as a segment; "
+                        "no gradient flows through the memory")
+    t.add_argument("--dual-positions", action="store_true",
+                   help="dual-segment position ids restarting at [ROI2] "
+                        "(super-resolution finetuning)")
     t.add_argument("--fp16", action="store_true",
                    help="float16 compute with dynamic loss scaling (the default "
                         "is bfloat16, which needs no scaling)")
@@ -92,6 +126,9 @@ def build_parser() -> argparse.ArgumentParser:
     io.add_argument("--summary-dir", default=None)
     io.add_argument("--experiment-name", default="cogview-tpu")
     io.add_argument("--exit-interval", type=int, default=None)
+    io.add_argument("--profile-dir", default=None,
+                    help="trace steps 10-13 with torch.profiler and write a Chrome "
+                         "trace, trace.json, here")
     return p
 
 
@@ -106,6 +143,9 @@ def get_config(args) -> C.GPTConfig:
         over["num_heads"] = args.num_attention_heads
     if args.max_position_embeddings:
         over["max_position_embeddings"] = args.max_position_embeddings
+    for name in ("query_window", "key_window_times", "num_pivot"):
+        if getattr(args, name):
+            over[name] = getattr(args, name)
     return cfg.replace(**over) if over else cfg
 
 
@@ -148,16 +188,38 @@ def _checkpoint_state(state, iteration: int, loader_consumed: int, fp16: bool):
 
 
 @torch.no_grad()
-def _restore(state, loaded, fp16: bool) -> None:
-    """Copy a loaded checkpoint into ``state`` in place."""
+def _restore(state, loaded, cfg, finetune: bool, fp16: bool) -> None:
+    """Copy a loaded checkpoint into ``state`` in place: the params, their
+    position table fitted to ``cfg`` (``gpt.adapt_position_embeddings``),
+    and without ``finetune`` the optimizer state, the generator and the loss
+    scale."""
     copy = lambda dst, src: dst.copy_(src)
-    tree_map(copy, state["params"], loaded["params"])
+    tree_map(copy, state["params"], gpt.adapt_position_embeddings(loaded["params"], cfg))
+    if finetune:
+        return
     tree_map(copy, state["opt_state"]["mu"], loaded["opt_state"]["mu"])
     tree_map(copy, state["opt_state"]["nu"], loaded["opt_state"]["nu"])
     state["opt_state"]["count"] = int(loaded["opt_state"]["count"])
     state["generator"].set_state(loaded["generator"].cpu())  # a CPU generator
     if fp16 and "loss_scale" in loaded:
         state["loss_scale"] = LossScaleState(**loaded["loss_scale"])
+
+
+def _start_profile(device: torch.device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.__enter__()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str) -> None:
+    prof.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace (steps 10-13) -> {path}")
 
 
 def main(argv=None, txt_tokenizer=None) -> int:
@@ -210,23 +272,26 @@ def main(argv=None, txt_tokenizer=None) -> int:
     if args.load:
         loaded = checkpointing.load_latest(args.load, map_location=device)
         if loaded is not None:
-            _restore(state, loaded, args.fp16)
-            iteration = int(loaded["iteration"])
-            loader_consumed = int(loaded.get("loader_consumed", iteration))
+            _restore(state, loaded, cfg, args.finetune, args.fp16)
+            if not args.finetune:
+                iteration = int(loaded["iteration"])
+                loader_consumed = int(loaded.get("loader_consumed", iteration))
             print(f"loaded checkpoint from {args.load} at iteration {iteration}")
+            del loaded
     if args.resume_dataloader and loader_consumed > 0:
         train_it.fast_forward(loader_consumed)
 
     img_vocab = tokenizer.img_tokenizer.num_tokens
+    step_kw = dict(img_vocab=img_vocab, txt_loss_scale=args.txt_loss_scale,
+                   remat=args.checkpoint_activations, is_sparse=bool(args.is_sparse),
+                   dual_positions_roi2=tokenizer["[ROI2]"] if args.dual_positions else None,
+                   max_memory_length=args.max_memory_length)
     if args.fp16:
-        step = make_fp16_train_step(cfg, opt, img_vocab=img_vocab,
-                                    txt_loss_scale=args.txt_loss_scale,
-                                    scale_window=args.loss_scale_window,
+        step = make_fp16_train_step(cfg, opt, scale_window=args.loss_scale_window,
                                     min_scale=args.min_loss_scale,
-                                    hysteresis=args.loss_scale_hysteresis)
+                                    hysteresis=args.loss_scale_hysteresis, **step_kw)
     else:
-        step = make_train_step(cfg, opt, img_vocab=img_vocab,
-                               txt_loss_scale=args.txt_loss_scale)
+        step = make_train_step(cfg, opt, **step_kw)
 
     @torch.no_grad()
     def eval_loss(batch):
@@ -237,6 +302,8 @@ def main(argv=None, txt_tokenizer=None) -> int:
     known_paths = set(args.train_data or ())
     data_iter = iter(train_it)
     eval_batches = None  # created lazily, reused across eval intervals
+    mems = None  # the rolling memory, with --max-memory-length
+    prof = None  # torch.profiler over steps 10-13, with --profile-dir
     log_loss, log_img, log_txt, t_last = 0.0, 0.0, 0.0, time.time()
 
     while iteration < args.train_iters:
@@ -253,11 +320,19 @@ def main(argv=None, txt_tokenizer=None) -> int:
         loader_consumed += 1
         timers("data loader").stop()
 
+        if args.profile_dir and iteration == 9:
+            prof = _start_profile(device)
         timers("train step").start()
-        state, metrics = step(state, batch)
+        if args.max_memory_length > 0:
+            state, metrics, mems = step(state, batch, mems=mems)
+        else:
+            state, metrics = step(state, batch)
         timers("train step").stop()
 
         iteration += 1
+        if prof is not None and iteration == 13:
+            _stop_profile(prof, args.profile_dir)
+            prof = None
         log_loss += metrics["lm_loss"]
         log_img += metrics["img_loss"]
         log_txt += metrics["txt_loss"]
@@ -296,6 +371,8 @@ def main(argv=None, txt_tokenizer=None) -> int:
             print(f"exiting at iteration {iteration} (--exit-interval)")
             break
 
+    if prof is not None:
+        _stop_profile(prof, args.profile_dir)
     if args.save:
         checkpointing.save_checkpoint(
             args.save, iteration, _checkpoint_state(state, iteration, loader_consumed, args.fp16))

@@ -1,9 +1,9 @@
 """Model configuration dataclasses and presets (twin of cogview_tpu/config.py).
 
-Only the fields the ported slices read are mirrored (no sparse-attention
-geometry, no parallelism axes; no flash block sizes: they tune the TPU
-kernel's VMEM blocks); ``compute_dtype`` is a torch dtype.  The presets
-keep the JAX package's names and widths.
+Only the fields the ported slices read are mirrored (no parallelism axes;
+no flash block sizes: they tune the TPU kernel's VMEM blocks);
+``compute_dtype`` is a torch dtype.  The presets keep the JAX package's
+names and widths.
 """
 
 from __future__ import annotations
@@ -34,6 +34,10 @@ class GPTConfig:
     pb_relax: bool = True  # PB-relax LN prescale, folded into eps
     init_std: float = 0.02
     scaled_output_init: bool = True  # N(0, std/sqrt(2L)) for output mats
+    # pivot + window sparse training attention (ops/sparse_attention.py)
+    query_window: int = 128
+    key_window_times: int = 6
+    num_pivot: int = 768
     compute_dtype: torch.dtype = torch.bfloat16
     # flash attention for full causal forwards (scoring): "auto" picks it
     # iff the sequence length >= flash_min_seq; True/False force it

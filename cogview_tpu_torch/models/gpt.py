@@ -10,20 +10,22 @@ Per layer (Sandwich-LN):
   h = h + LN4(W2 @ gelu(W1 @ LN2(h)))
 with a final LayerNorm and float32 logits tied to the word embedding.
 
-Ported so far: the inference paths with the int8, int4 and bfloat16 KV
-caches, and the training forward (``forward(train=True, seeds=...,
-remat=...)``) with counter-hash dropout at the JAX package's salted sites.
-Not ported: sparse attention, transformer-XL mems.  A full
-causal forward at S >= ``flash_min_seq`` runs its attention through the
-flash kernels (ops/flash_attention.py), forward and backward, as the JAX
-package routes it.
+Ported: the inference paths with the int8, int4 and bfloat16 KV caches,
+and the training forwards (``forward(train=True, seeds=..., remat=...)``,
+with pivot + window sparse attention through ``sparse=``, and
+``forward_with_mems``, transformer-XL memory) with counter-hash dropout at
+the JAX package's salted sites.  A full causal forward at S >=
+``flash_min_seq`` runs its attention through the flash kernels
+(ops/flash_attention.py), forward and backward, as the JAX package routes
+it; the sparse and memory routes are plain torch, as they are plain XLA
+there.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,8 +39,18 @@ from ..ops.decode_attention import (
 from ..ops.flash_attention import flash_attention
 from ..ops.hash_prng import hash_dropout
 from ..ops.layernorm import layer_norm
+from ..ops.sparse_attention import pivot_window_attention
 
 Params = Dict[str, Any]
+
+
+class SparseSpec(NamedTuple):
+    """Pivot + window sparse attention inputs (ops/sparse_attention.py)."""
+
+    pivot_idx: torch.Tensor  # [B, P]
+    pivot_mask: torch.Tensor  # [B, S, P]
+    query_window: int
+    key_window_times: int
 
 
 # --------------------------------------------------------------------- #
@@ -277,10 +289,15 @@ def init_cache(cfg: GPTConfig, batch: int, max_len: int, device=None):
 # --------------------------------------------------------------------- #
 
 
-def _layer(params: Params, li: int) -> Params:
-    """Layer ``li``'s leaves (views into the stacked [L, ...] tensors)."""
-    return {k: {kk: vv[li] for kk, vv in v.items()}
-            for k, v in params["layers"].items()}
+def _layers(params: Params) -> List[Params]:
+    """Every layer's leaves, views of the stacked [L, ...] tensors made by
+    one ``unbind`` per leaf.  Its backward stacks the L layer gradients once;
+    a ``select`` per layer would instead add a zero-filled tensor the size of
+    the whole stacked leaf into the gradient for each layer."""
+    per = {k: {kk: torch.unbind(vv) for kk, vv in v.items()}
+           for k, v in params["layers"].items()}
+    return [{k: {kk: vv[li] for kk, vv in v.items()} for k, v in per.items()}
+            for li in range(len(per["ln_in"]["g"]))]
 
 
 def should_use_flash(cfg: GPTConfig, seq_len: int) -> bool:
@@ -304,10 +321,15 @@ def _dropout(x: torch.Tensor, rate: float, seed: Optional[int], train: bool,
 def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
                 cache=None, li: int = 0, index: int = 0,
                 full_prefix: bool = False, sep_for_flash: Optional[int] = None,
-                seed: Optional[int] = None, train: bool = False) -> torch.Tensor:
-    """One transformer layer.  Without ``cache``: the flash kernels when
-    ``mask`` is exactly causal + ``sep_for_flash`` and
-    :func:`should_use_flash` says so, else dense attention under ``mask``.
+                seed: Optional[int] = None, train: bool = False,
+                sparse: Optional[SparseSpec] = None,
+                mem: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One transformer layer.  Without ``cache``: pivot + window attention
+    when ``sparse`` is given, else the flash kernels when ``mask`` is
+    exactly causal + ``sep_for_flash`` and :func:`should_use_flash` says so,
+    else dense attention under ``mask``.  ``mem`` [B, M, H] is this layer's
+    transformer-XL memory: it goes through this layer's input LayerNorm and
+    QKV projection and adds M keys and values in front (no queries).
     With a quantized cache (int8 or int4): S == 1 is a decode step through a
     decode kernel; S > 1 is a prefill chunk at slots [index, index + S).
     With the bfloat16 cache: the chunk's K/V columns are written at
@@ -328,15 +350,25 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
     q = qkv[:, :, 0].reshape(B, S, N, D)
     k = qkv[:, :, 1]
     v = qkv[:, :, 2]
+    if mem is not None:
+        lnm = layer_norm(mem.to(cdt), p["ln_in"]["g"], p["ln_in"]["b"], eps, cfg.pb_relax)
+        qkv_m = _affine(lnm, p["qkv"], cdt).reshape(B, mem.shape[1], 3, H)
+        k = torch.cat([qkv_m[:, :, 1], k], dim=1)
+        v = torch.cat([qkv_m[:, :, 2], v], dim=1)
 
-    if cache is None and sep_for_flash is not None and should_use_flash(cfg, S):
+    if cache is None and sparse is not None:
+        ctx = pivot_window_attention(
+            q, k.reshape(B, S, N, D), v.reshape(B, S, N, D), sparse.pivot_idx,
+            sparse.pivot_mask, sparse.query_window, sparse.key_window_times,
+            dropout_rate=cfg.attention_dropout, dropout_seed=lseed, train=train)
+    elif cache is None and sep_for_flash is not None and should_use_flash(cfg, S):
         # strided q/k/v views of the fused projection go in as they are
         rate = cfg.attention_dropout if lseed is not None else 0.0
         fseed = (lseed ^ 0x5BD1E995) if rate > 0.0 else None
         ctx, _ = flash_attention(q, k.reshape(B, S, N, D), v.reshape(B, S, N, D),
                                  sep_for_flash, dropout_rate=rate, dropout_seed=fseed)
     elif cache is None:
-        ctx = dense_attention(q, k.reshape(B, S, N, D), v.reshape(B, S, N, D), mask,
+        ctx = dense_attention(q, k.reshape(B, -1, N, D), v.reshape(B, -1, N, D), mask,
                               dropout_rate=cfg.attention_dropout, dropout_seed=lseed,
                               train=train)
     elif isinstance(cache, KVCache):
@@ -425,10 +457,29 @@ def _final_ln(params: Params, cfg: GPTConfig, h: torch.Tensor) -> torch.Tensor:
     return layer_norm(h, lnf["g"], lnf["b"], cfg.layernorm_epsilon, cfg.pb_relax)
 
 
+def _check_seeds(cfg: GPTConfig, seeds: Optional[Sequence[int]]) -> Sequence[Optional[int]]:
+    L = cfg.num_layers
+    if seeds is None:
+        return [None] * (L + 1)
+    if len(seeds) != L + 1:
+        raise ValueError(f"seeds: {len(seeds)} values, expected num_layers + 1 = {L + 1}")
+    return seeds
+
+
+def _run_layer(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
+               remat: bool, **kw) -> torch.Tensor:
+    """One layer, recomputed in the backward when ``remat``."""
+    if remat:
+        return checkpoint(_layer_body, cfg, h, p, mask, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return _layer_body(cfg, h, p, mask, **kw)
+
+
 def forward(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
             position_ids: Optional[torch.Tensor] = None, *, sep: int = 0,
             train: bool = False, seeds: Optional[Sequence[int]] = None,
-            remat: bool = False, logits_from: Optional[int] = None,
+            remat: bool = False, sparse: Optional[SparseSpec] = None,
+            logits_from: Optional[int] = None,
             return_hidden: bool = False) -> torch.Tensor:
     """Full forward under the causal mask with a bidirectional prefix of
     ``sep`` positions -> float32 logits [B, S, V].
@@ -438,32 +489,73 @@ def forward(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
     package derives them from its key; the port takes them as given).
     ``remat=True`` recomputes each layer in the backward
     (``torch.utils.checkpoint``), so the flash forward runs twice per layer.
+    ``sparse`` switches every layer to pivot + window attention (one pivot
+    set for all layers); ``sep`` is then ignored.
 
     ``logits_from=t`` keeps positions >= t only ([B, S - t, V]); the final
     LayerNorm then sees only those positions, whose PB-relax max is over
     them alone, as in the JAX package.  ``return_hidden=True`` returns the
     final-LayerNorm hidden states in place of logits."""
     B, S = tokens.shape
-    L = cfg.num_layers
     if position_ids is None:
         position_ids = torch.arange(S, device=tokens.device).expand(B, S)
-    if seeds is None:
-        seeds = [None] * (L + 1)
-    elif len(seeds) != L + 1:
-        raise ValueError(f"seeds: {len(seeds)} values, expected num_layers + 1 = {L + 1}")
+    seeds = _check_seeds(cfg, seeds)
     mask = causal_mask(S, sep=sep, device=tokens.device)
     h = _embed(params, cfg, tokens, position_ids, seeds[0], train)
-    for li in range(L):
-        kw = dict(sep_for_flash=sep, seed=seeds[li + 1], train=train)
-        if remat:
-            h = checkpoint(_layer_body, cfg, h, _layer(params, li), mask, use_reentrant=False,
-                           preserve_rng_state=False, **kw)
-        else:
-            h = _layer_body(cfg, h, _layer(params, li), mask, **kw)
+    for li, p in enumerate(_layers(params)):
+        h = _run_layer(cfg, h, p, mask, remat, sep_for_flash=sep, seed=seeds[li + 1],
+                       train=train, sparse=sparse)
     if logits_from is not None:
         h = h[:, logits_from:]
     h = _final_ln(params, cfg, h)
     return h if return_hidden else _logits(params, cfg, h)
+
+
+def update_mems(hiddens: torch.Tensor, mems: Optional[torch.Tensor],
+                max_memory_length: int) -> torch.Tensor:
+    """The rolling, detached memory: hiddens [L + 1, B, S, H] (the embedding
+    output and every layer's output) after the last mems [L + 1, B, M, H]
+    -> their last min(max_memory_length, M + S) positions."""
+    S = hiddens.shape[2]
+    M = 0 if mems is None else mems.shape[2]
+    new_len = min(max_memory_length, M + S)
+    if new_len <= S:
+        out = hiddens[:, :, S - new_len:]
+    else:
+        out = torch.cat([mems[:, :, M - (new_len - S):], hiddens], dim=2)
+    return out.detach()
+
+
+def forward_with_mems(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
+                      mems: Optional[torch.Tensor] = None, *, max_memory_length: int,
+                      position_ids: Optional[torch.Tensor] = None, sep: int = 0,
+                      train: bool = False, seeds: Optional[Sequence[int]] = None,
+                      remat: bool = False, return_hidden: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training-time transformer-XL memory -> (float32 logits [B, S, V], or
+    the final-LayerNorm hidden states with ``return_hidden``, and the new
+    mems [L + 1, B, M', H]).
+
+    Every memory position is visible to every query; keys and values run
+    over LN(mem) ++ LN(h) through dense attention (``causal_mask(S, sk=M +
+    S, sep)``).  Entry i of ``mems`` feeds layer i; entry 0 is the
+    embedding output, and entry L, the last layer's output, is returned and
+    never read, as in the reference."""
+    B, S = tokens.shape
+    if position_ids is None:
+        position_ids = torch.arange(S, device=tokens.device).expand(B, S)
+    seeds = _check_seeds(cfg, seeds)
+    M = 0 if mems is None else mems.shape[2]
+    mask = causal_mask(S, sk=M + S, sep=sep, device=tokens.device)
+    h = _embed(params, cfg, tokens, position_ids, seeds[0], train)
+    outs = [h]
+    for li, p in enumerate(_layers(params)):
+        h = _run_layer(cfg, h, p, mask, remat, seed=seeds[li + 1], train=train,
+                       mem=None if mems is None else mems[li])
+        outs.append(h)
+    new_mems = update_mems(torch.stack(outs).detach(), mems, max_memory_length)
+    h = _final_ln(params, cfg, h)
+    return (h if return_hidden else _logits(params, cfg, h)), new_mems
 
 
 @torch.no_grad()
@@ -491,7 +583,6 @@ def forward_with_cache(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
     q_abs = index + torch.arange(Q, device=tokens.device)
     mask = decode_mask(q_abs.expand(B, Q), cache.max_len)
     full_prefix = Q > 1 and index == 0 and isinstance(cache, QuantKVCache)
-    for li in range(cfg.num_layers):
-        h = _layer_body(cfg, h, _layer(params, li), mask, cache, li, index,
-                        full_prefix)
+    for li, p in enumerate(_layers(params)):
+        h = _layer_body(cfg, h, p, mask, cache, li, index, full_prefix)
     return _logits(params, cfg, _final_ln(params, cfg, h))

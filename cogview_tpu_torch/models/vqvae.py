@@ -202,11 +202,11 @@ def decode_image(data: bytes) -> np.ndarray:
     if data[:3] == b"\xff\xd8\xff":
         return decode_jpeg(data)
     raise ValueError("not an image this package reads: PNG (every colour type, depth "
-                     "and interlace) or baseline JPEG")
+                     "and interlace) or baseline JPEG or progressive JPEG")
 
 
 def read_img(path: str, img_size: int = 256) -> np.ndarray:
-    """A PNG or baseline JPEG -> the normalized float32 image [1, img_size,
+    """A PNG or JPEG -> the normalized float32 image [1, img_size,
     img_size, 3], as the JAX package's ``read_img``: the short side resized
     to ``img_size`` with Pillow's bilinear filter (:func:`resize_bilinear`),
     then the centre crop."""

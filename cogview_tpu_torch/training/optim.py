@@ -88,11 +88,31 @@ def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
 
 
+# the optimizer updates a leaf in slices of whole rows (whole layers of a
+# stacked [L, ...] leaf) of at most this many elements: its temporaries are
+# then a few slices in size, not a few leaves (a [48, 2560, 10240] float32
+# leaf of cogview-base is 4.7 GiB)
+UPDATE_SLICE_ELEMS = 1 << 26
+
+
+def _row_slices(*ts: torch.Tensor):
+    """Same-shaped tensors -> tuples of their views over the same runs of
+    rows along dim 0, each at most UPDATE_SLICE_ELEMS elements (at least
+    one row)."""
+    t = ts[0]
+    if t.dim() == 0 or t.numel() <= UPDATE_SLICE_ELEMS:
+        return [ts]
+    rows = max(1, UPDATE_SLICE_ELEMS // (t.numel() // t.shape[0]))
+    return list(zip(*(x.split(rows) for x in ts)))
+
+
 class AdamW:
     """The JAX package's optax chain, written out.  State is a dict
     ``{"count": int, "mu": tree, "nu": tree}``; :meth:`update` changes the
     params and the state in place, to keep one copy of each at 4 bytes per
-    parameter, and is only called on steps whose gradients are finite."""
+    parameter, and is only called on steps whose gradients are finite.  It
+    works through each leaf in slices of rows (:func:`_row_slices`): the
+    arithmetic is elementwise, so the result is the same bit for bit."""
 
     def __init__(self, params: Params, schedule: Callable[[int], float], *,
                  weight_decay: float = 1e-2, betas: Tuple[float, float] = (0.9, 0.95),
@@ -122,20 +142,25 @@ class AdamW:
         bc1 = f32(1) - f32(self.b1) ** f32(count + 1)
         bc2 = f32(1) - f32(self.b2) ** f32(count + 1)
         step = -f32(self.schedule(count))
+        # 0-d divisors: CUDA divides by a Python scalar through its reciprocal
+        dev = g_norm.device
+        bc1_t, bc2_t, step_t = (torch.tensor(x, device=dev) for x in (bc1, bc2, step))
 
         def one(p, g, mu, nu, decay):
-            dev = p.device
             if clip:
-                g = g / g_norm.to(dev) * self.grad_clip
+                g = g / g_norm * self.grad_clip
             mu.mul_(self.b1).add_((1 - self.b1) * g)
             nu.mul_(self.b2).add_((1 - self.b2) * torch.square(g))
-            u = (mu / torch.tensor(bc1, device=dev)) / (
-                torch.sqrt(nu / torch.tensor(bc2, device=dev)) + self.eps)
+            u = (mu / bc1_t) / (torch.sqrt(nu / bc2_t) + self.eps)
             if decay and self.weight_decay:
                 u = u + self.weight_decay * p
-            p.add_(torch.tensor(step, device=dev) * u)
+            p.add_(step_t * u)
 
-        tree_map(one, params, grads, state["mu"], state["nu"], self.mask)
+        def leaf(p, g, mu, nu, decay):
+            for sl in _row_slices(p, g, mu, nu):
+                one(*sl, decay)
+
+        tree_map(leaf, params, grads, state["mu"], state["nu"], self.mask)
         state["count"] = count + 1
 
 

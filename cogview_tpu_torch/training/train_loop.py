@@ -8,9 +8,11 @@ and drives the dynamic loss scaler (training/loss_scaler.py).
 
 The train state is a dict: ``params`` (leaf tensors with ``requires_grad``),
 ``opt_state``, ``step``, ``skipped``, ``generator`` (the ``torch.Generator``
-each step draws its L + 1 uint32 dropout seeds from) and, for float16,
-``loss_scale``.  Transformer-XL mems, sparse attention and the dual-segment
-position ids are not ported.
+each step draws its L + 1 uint32 dropout seeds, and the sparse pivots,
+from) and, for float16, ``loss_scale``.  The step factories also train with
+pivot + window sparse attention, the dual-segment position ids of
+super-resolution finetuning, or the transformer-XL memory; the memory
+advances even on a skipped step, as the reference's does.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 
 from ..config import GPTConfig
 from .loss_scaler import LossScaleState, init_loss_scale, update_loss_scale
-from .losses import lm_loss
+from .losses import lm_loss, lm_loss_with_mems
 from .optim import AdamW, global_norm, tree_leaves, tree_map
 
 TrainState = Dict[str, Any]
@@ -55,25 +57,46 @@ def _unflatten(tree, leaves):
     return build(tree)
 
 
-def _grads(cfg: GPTConfig, state: TrainState, batch, seeds, scale: Optional[float],
-           img_vocab: int, txt_loss_scale: float, remat: bool):
-    """-> (loss, metrics, grads as a tree, their global norm), the gradients
-    divided by ``scale`` when one is given."""
+def _loss_fn(cfg: GPTConfig, *, img_vocab: int, txt_loss_scale: float, remat: bool,
+             is_sparse: bool, dual_positions_roi2: Optional[int], max_memory_length: int):
+    """-> loss_fn(params, batch, seeds, generator, mems, pivot_idx) -> (loss,
+    metrics, new mems or None)."""
+    if is_sparse and max_memory_length:
+        raise ValueError("sparse training attention has no mems path "
+                         "(the reference trains sparse with --max-memory-length 0)")
+    common = dict(img_vocab=img_vocab, txt_loss_scale=txt_loss_scale, train=True,
+                  remat=remat, dual_positions_roi2=dual_positions_roi2)
+
+    def fn(params, batch, seeds, generator, mems, pivot_idx):
+        if max_memory_length > 0:
+            return lm_loss_with_mems(params, cfg, batch, mems,
+                                     max_memory_length=max_memory_length, seeds=seeds,
+                                     **common)
+        loss, metrics = lm_loss(params, cfg, batch, seeds=seeds, is_sparse=is_sparse,
+                                generator=generator, pivot_idx=pivot_idx, **common)
+        return loss, metrics, None
+
+    return fn
+
+
+def _grads(cfg: GPTConfig, loss_fn, state: TrainState, batch, seeds, scale: Optional[float],
+           mems, pivot_idx):
+    """-> (loss, metrics, grads as a tree, their global norm, new mems), the
+    gradients divided by ``scale`` when one is given."""
     params = state["params"]
     leaves = list(tree_leaves(params))
     dev = leaves[0].device
     batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
     if seeds is None:
         seeds = draw_seeds(state["generator"], cfg.num_layers + 1)
-    loss, metrics = lm_loss(params, cfg, batch, img_vocab=img_vocab,
-                            txt_loss_scale=txt_loss_scale, seeds=seeds, train=True,
-                            remat=remat)
+    loss, metrics, new_mems = loss_fn(params, batch, seeds, state["generator"], mems,
+                                      pivot_idx)
     grads = torch.autograd.grad(loss if scale is None else loss * scale, leaves)
     if scale is not None:
         inv = torch.tensor(1.0 / scale, dtype=torch.float32, device=dev)
         grads = [g * inv for g in grads]
     g_norm = global_norm(grads)
-    return loss.detach(), metrics, _unflatten(params, grads), g_norm
+    return loss.detach(), metrics, _unflatten(params, grads), g_norm, new_mems
 
 
 def _metrics(metrics, g_norm, skipped: bool) -> Dict[str, float]:
@@ -83,42 +106,59 @@ def _metrics(metrics, g_norm, skipped: bool) -> Dict[str, float]:
 
 
 def make_train_step(cfg: GPTConfig, opt: AdamW, *, img_vocab: int = 8192,
-                    txt_loss_scale: float = 1.0, remat: bool = True):
-    """-> train_step(state, batch, seeds=None) -> (state, metrics).
+                    txt_loss_scale: float = 1.0, remat: bool = True, is_sparse: bool = False,
+                    dual_positions_roi2: Optional[int] = None, max_memory_length: int = 0):
+    """-> train_step(state, batch, seeds=None, mems=None, pivot_idx=None) ->
+    (state, metrics), or (state, metrics, new_mems) when
+    ``max_memory_length > 0`` (pass ``mems=None`` on the first step; the
+    memory grows to its cap over the first steps).
 
     ``batch`` holds ``text`` and ``loss_mask`` (numpy or tensors).  The step
     draws its seeds from ``state["generator"]`` unless ``seeds`` (L + 1
-    uint32 values) are given.  ``state`` is updated in place and returned."""
+    uint32 values) are given, and with ``is_sparse`` then its pivots, unless
+    ``pivot_idx`` is given.  ``dual_positions_roi2`` is the [ROI2] id of
+    super-resolution finetuning's dual-segment position ids.  Sparse
+    attention with mems raises.  ``state`` is updated in place and
+    returned."""
+    loss_fn = _loss_fn(cfg, img_vocab=img_vocab, txt_loss_scale=txt_loss_scale, remat=remat,
+                       is_sparse=is_sparse, dual_positions_roi2=dual_positions_roi2,
+                       max_memory_length=max_memory_length)
 
-    def step(state: TrainState, batch, seeds: Optional[Sequence[int]] = None
-             ) -> Tuple[TrainState, Dict[str, float]]:
-        loss, metrics, grads, g_norm = _grads(cfg, state, batch, seeds, None, img_vocab,
-                                              txt_loss_scale, remat)
+    def step(state: TrainState, batch, seeds: Optional[Sequence[int]] = None, mems=None,
+             pivot_idx=None):
+        loss, metrics, grads, g_norm, new_mems = _grads(cfg, loss_fn, state, batch, seeds,
+                                                        None, mems, pivot_idx)
         finite = bool(torch.isfinite(loss)) and bool(torch.isfinite(g_norm))
         if finite:
             opt.update(grads, state["opt_state"], state["params"], g_norm)
         state["step"] += int(finite)
         state["skipped"] += int(not finite)
-        return state, _metrics(metrics, g_norm, not finite)
+        out = (state, _metrics(metrics, g_norm, not finite))
+        return out + (new_mems,) if max_memory_length > 0 else out
 
     return step
 
 
 def make_fp16_train_step(cfg: GPTConfig, opt: AdamW, *, img_vocab: int = 8192,
                          txt_loss_scale: float = 1.0, remat: bool = True,
-                         scale_factor: float = 2.0, scale_window: int = 1000,
-                         min_scale: float = 1.0, hysteresis: int = 2):
+                         is_sparse: bool = False, dual_positions_roi2: Optional[int] = None,
+                         max_memory_length: int = 0, scale_factor: float = 2.0,
+                         scale_window: int = 1000, min_scale: float = 1.0, hysteresis: int = 2):
     """float16-compute step with dynamic loss scaling: params stay float32,
     the model computes in float16, the loss is scaled before the backward,
     the gradients are unscaled in float32, and an overflow skips the update
-    and drives the scaler.  State from :func:`init_fp16_train_state`."""
+    and drives the scaler.  State from :func:`init_fp16_train_state`; the
+    other arguments and the signature as :func:`make_train_step`."""
     cfg = cfg.replace(compute_dtype=torch.float16)
+    loss_fn = _loss_fn(cfg, img_vocab=img_vocab, txt_loss_scale=txt_loss_scale, remat=remat,
+                       is_sparse=is_sparse, dual_positions_roi2=dual_positions_roi2,
+                       max_memory_length=max_memory_length)
 
-    def step(state: TrainState, batch, seeds: Optional[Sequence[int]] = None
-             ) -> Tuple[TrainState, Dict[str, float]]:
+    def step(state: TrainState, batch, seeds: Optional[Sequence[int]] = None, mems=None,
+             pivot_idx=None):
         ls: LossScaleState = state["loss_scale"]
-        loss, metrics, grads, g_norm = _grads(cfg, state, batch, seeds, ls.scale, img_vocab,
-                                              txt_loss_scale, remat)
+        loss, metrics, grads, g_norm, new_mems = _grads(cfg, loss_fn, state, batch, seeds,
+                                                        ls.scale, mems, pivot_idx)
         overflow = not (bool(torch.isfinite(loss)) and bool(torch.isfinite(g_norm)))
         new_ls, apply = update_loss_scale(ls, overflow, scale_factor=scale_factor,
                                           scale_window=scale_window, min_scale=min_scale,
@@ -130,6 +170,6 @@ def make_fp16_train_step(cfg: GPTConfig, opt: AdamW, *, img_vocab: int = 8192,
         state["loss_scale"] = new_ls
         out = _metrics(metrics, g_norm, overflow)
         out["loss_scale"] = new_ls.scale
-        return state, out
+        return (state, out) + ((new_mems,) if max_memory_length > 0 else ())
 
     return step

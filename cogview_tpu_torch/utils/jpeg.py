@@ -1,9 +1,17 @@
-"""Baseline JPEG decoder on numpy, equal to libjpeg-turbo's default output.
+"""Baseline and progressive JPEG decoder on numpy, equal to libjpeg-turbo's
+default output.
 
-Reads sequential Huffman JPEG at 8 bits (SOF0, and SOF1 at 8 bits): 1 or 3
+Reads Huffman JPEG at 8 bits, sequential (SOF0, and SOF1 at 8 bits) and
+progressive (SOF2: spectral selection and successive approximation, the DC
+and AC first and refinement scans with their end-of-band runs): 1 or 3
 components, any sampling factors whose H and V are 1 or 2 (4:4:4, 4:2:2,
 4:2:0, 4:4:0 and the rest), restart intervals, several scans, and images
-whose sides are not a multiple of the MCU.  It returns [h, w, 3] uint8, as
+whose sides are not a multiple of the MCU.  A progressive file's scans fill
+one whole-image coefficient buffer before the IDCT, as libjpeg-turbo reads
+every scan before its first output pass when not in buffered-image mode;
+once every coefficient is complete its block smoothing (``jdcoefct.c``,
+``smoothing_ok``) is off, so the output is that of a baseline file with the
+same coefficients.  It returns [h, w, 3] uint8, as
 Pillow's ``Image.open(path).convert("RGB")``: Pillow decodes through
 libjpeg-turbo, whose default output is integer arithmetic, ported here:
 
@@ -15,9 +23,8 @@ libjpeg-turbo, whose default output is integer arithmetic, ported here:
 - the fixed-point YCbCr -> RGB tables (``jdcolor.c``: 16 fraction bits,
   ``ONE_HALF``).
 
-Progressive, lossless, hierarchical, arithmetic-coded, 12-bit and
-four-component (CMYK, YCCK) files raise a ``ValueError`` that names the
-format.  Huffman decoding is a Python loop over symbols: each reads a
+Lossless, hierarchical, arithmetic-coded, 12-bit and four-component
+(CMYK, YCCK) files raise a ``ValueError`` that names the format.  Huffman decoding is a Python loop over symbols: each reads a
 16-bit window through a 65,536-entry table.
 """
 
@@ -32,7 +39,7 @@ _ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 3
            62, 63)
 
 _UNSUPPORTED_SOF = {
-    0xC2: "progressive JPEG (SOF2)", 0xC3: "lossless JPEG (SOF3)",
+    0xC3: "lossless JPEG (SOF3)",
     0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical progressive JPEG (SOF6)",
     0xC7: "hierarchical lossless JPEG (SOF7)", 0xC9: "arithmetic-coded JPEG (SOF9)",
     0xCA: "arithmetic-coded progressive JPEG (SOF10)",
@@ -148,6 +155,121 @@ def _decode_segment(seg: bytes, blocks, coefs, tables) -> None:
                 k += 16
             else:
                 break
+
+
+class _BitReader:
+    """MSB-first bits of one restart interval, zero bits past its end as
+    libjpeg feeds them."""
+
+    def __init__(self, seg: bytes):
+        self.seg = seg + b"\x00" * 8
+        self.acc = self.nbits = self.pos = 0
+
+    def _fill(self) -> None:
+        if self.nbits < 32:
+            self.acc = (((self.acc & ((1 << self.nbits) - 1)) << 32)
+                        | int.from_bytes(self.seg[self.pos:self.pos + 4], "big"))
+            self.pos += 4
+            self.nbits += 32
+
+    def huff(self, lut) -> int:
+        self._fill()
+        e = lut[(self.acc >> (self.nbits - 16)) & 0xFFFF]
+        if not e:
+            raise ValueError("corrupt JPEG: bad Huffman code")
+        self.nbits -= e >> 8
+        return e & 0xFF
+
+    def bits(self, n: int) -> int:
+        self._fill()
+        self.nbits -= n
+        return (self.acc >> self.nbits) & ((1 << n) - 1)
+
+    def signed(self, s: int) -> int:
+        """s bits as the JPEG magnitude category s value (HUFF_EXTEND)."""
+        v = self.bits(s)
+        return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
+
+
+def _decode_progressive_segment(seg: bytes, blocks, coefs, tables, ss: int, se: int,
+                                ah: int, al: int) -> None:
+    """One restart interval of a progressive scan (``jdphuff.c``): DC first
+    (Ss = 0, Ah = 0) or refinement, AC first or refinement over zigzag
+    positions ss..se with point transform al.  ``blocks`` and ``tables`` as
+    :func:`_decode_segment`; the DC predictions and the end-of-band run
+    start at 0."""
+    br = _BitReader(seg)
+    zz = _ZIGZAG
+    if ss == 0:
+        pred = {}
+        for comp, base in blocks:
+            if ah:
+                if br.bits(1):
+                    coefs[comp][base] |= 1 << al
+                continue
+            s = br.huff(tables[comp][0])
+            v = (br.signed(s) if s else 0) + pred.get(comp, 0)
+            pred[comp] = v
+            coefs[comp][base] = v << al
+        return
+    p1, m1 = 1 << al, -1 << al
+    eobrun = 0
+    for comp, base in blocks:
+        out, ac = coefs[comp], tables[comp][1]
+        if not ah:
+            if eobrun:
+                eobrun -= 1
+                continue
+            k = ss
+            while k <= se:
+                rs = br.huff(ac)
+                r, s = rs >> 4, rs & 15
+                if s:
+                    k += r
+                    if k > 63:
+                        raise ValueError("corrupt JPEG: coefficient index past 63")
+                    out[base + zz[k]] = br.signed(s) * p1
+                elif r == 15:
+                    k += 15
+                else:
+                    eobrun = (1 << r) + (br.bits(r) if r else 0) - 1
+                    break
+                k += 1
+            continue
+        # refinement: a correction bit for every coefficient already nonzero
+        # that the pass crosses, and new coefficients of magnitude 1 << al
+        k = ss
+        if not eobrun:
+            while k <= se:
+                rs = br.huff(ac)
+                r, s = rs >> 4, rs & 15
+                if s:
+                    s = p1 if br.bits(1) else m1
+                elif r != 15:
+                    eobrun = (1 << r) + (br.bits(r) if r else 0)
+                    break
+                while k <= se:
+                    pos = base + zz[k]
+                    if out[pos]:
+                        if br.bits(1) and not out[pos] & p1:
+                            out[pos] += p1 if out[pos] >= 0 else m1
+                    else:
+                        r -= 1
+                        if r < 0:
+                            break
+                    k += 1
+                if s:
+                    if k > 63:
+                        raise ValueError("corrupt JPEG: coefficient index past 63")
+                    out[base + zz[k]] = s
+                k += 1
+        if eobrun:
+            while k <= se:
+                pos = base + zz[k]
+                if out[pos] and br.bits(1) and not out[pos] & p1:
+                    out[pos] += p1 if out[pos] >= 0 else m1
+                k += 1
+            eobrun -= 1
 
 
 # jidctint.c's fixed-point constants, FIX(x) = round(x * 2**13)
@@ -297,12 +419,13 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """The bytes of a baseline JPEG file -> [h, w, 3] uint8."""
+    """The bytes of a baseline or progressive JPEG file -> [h, w, 3] uint8."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG")
     pos = 2
     quant, dc_tables, ac_tables = {}, {}, {}
     frame = None
+    progressive = False
     restart = 0
     adobe = None
     jfif = False
@@ -325,7 +448,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         length = _u16(data, pos)
         body = data[pos + 2:pos + length]
         pos += length
-        if m in (0xC0, 0xC1):
+        if m in (0xC0, 0xC1, 0xC2):
+            progressive = m == 0xC2
             precision, h, w, nc = body[0], _u16(body, 1), _u16(body, 3), body[5]
             if precision != 8:
                 raise ValueError(f"{precision}-bit JPEG is not supported (8-bit only)")
@@ -353,7 +477,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             coefs = [[0] * (c["bw"] * c["bh"] * 64) for c in comps]
         elif m in _UNSUPPORTED_SOF or m == 0xCC:
             raise ValueError(f"{_UNSUPPORTED_SOF.get(m, 'arithmetic-coded JPEG (DAC)')} is "
-                             "not supported (baseline sequential Huffman only)")
+                             "not supported (sequential and progressive Huffman only)")
         elif m == 0xC4:  # DHT
             at = 0
             while at < len(body):
@@ -394,9 +518,14 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 if ci is None:
                     raise ValueError("corrupt JPEG: scan names an unknown component")
                 scan.append(ci)
-                comps[ci]["tables"] = (dc_tables[tdta >> 4], ac_tables[tdta & 15])
+                # a progressive DC scan needs no AC table, an AC scan no DC table
+                comps[ci]["tables"] = (dc_tables.get(tdta >> 4), ac_tables.get(tdta & 15))
+            ss, se, ah, al = body[1 + 2 * ns], body[2 + 2 * ns], *divmod(body[3 + 2 * ns], 16)
             if len(scan) > 1 and sum(comps[ci]["h"] * comps[ci]["v"] for ci in scan) > 10:
                 raise ValueError("corrupt JPEG: more than 10 blocks in an MCU")
+            if progressive and (se > 63 or ss > se or (ss == 0) != (se == 0)
+                                or (ss and len(scan) > 1)):
+                raise ValueError("corrupt JPEG: bad progressive scan parameters")
             blocks = _scan_blocks(comps, scan, w, h)
             segments, pos = _scan_segments(data, pos)
             per = restart * len(blocks) // _scan_mcus(comps, scan, w, h) if restart else 0
@@ -405,11 +534,12 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 parts = [blocks[k:k + per] for k in range(0, len(blocks), per)]
             else:
                 parts = [blocks]
+            segments += [b""] * (len(parts) - len(segments))
             for seg, part in zip(segments, parts):
-                _decode_segment(seg, part, coefs, tables)
-            if len(segments) < len(parts):
-                for part in parts[len(segments):]:
-                    _decode_segment(b"", part, coefs, tables)
+                if progressive:
+                    _decode_progressive_segment(seg, part, coefs, tables, ss, se, ah, al)
+                else:
+                    _decode_segment(seg, part, coefs, tables)
         # every other marker (APPn, COM, ...) is skipped
     if frame is None:
         raise ValueError("corrupt JPEG: no frame header")

@@ -1,7 +1,8 @@
 """The port's image readers against Pillow and the JAX package.
 
 ``cogview_tpu_torch/utils/png.py`` reads every PNG colour type, depth and
-interlace, ``cogview_tpu_torch/utils/jpeg.py`` baseline JPEG, and
+interlace, ``cogview_tpu_torch/utils/jpeg.py`` baseline and progressive
+JPEG, and
 ``models/vqvae.py::read_img`` picks between them by the file's magic bytes.
 Each case holds the port's pixels against Pillow 12.1's
 ``Image.open(p).convert("RGB")`` and its ``read_img`` against the JAX
@@ -15,7 +16,7 @@ sampling factors, several scans, RGB and SOF1 files come from a small
 baseline encoder here (a float DCT, flat Huffman tables).
 
 Run as a script, it prints this machine's host-CPU time to decode a
-256 x 256 and a 1024 x 768 baseline JPEG:
+256 x 256 and a 1024 x 768 baseline and progressive JPEG:
 ``PYTHONPATH=. python tests/test_torch_image_io.py`` from the repository root.
 """
 
@@ -280,6 +281,32 @@ def test_jpeg_restart_markers(tmp_path, restart, subsampling):
         _check_jpeg(tmp_path, data)
 
 
+PROGRESSIVE_CASES = (
+    [dict(quality=q, subsampling=sub) for sub in ("4:4:4", "4:2:2", "4:2:0")
+     for q in (50, 75, 95)]
+    + [dict(quality=q, gray=True) for q in (50, 75, 95)]
+    + [dict(quality=75, subsampling=sub, **restart) for sub in ("4:4:4", "4:2:0")
+       for restart in ({"restart_marker_blocks": 1}, {"restart_marker_blocks": 3},
+                       {"restart_marker_rows": 1})]
+    + [dict(quality=q, subsampling="4:2:0", optimize=True) for q in (50, 95)]
+    + [dict(quality=80, gray=True, optimize=True, restart_marker_blocks=2)])
+
+
+@pytest.mark.parametrize("case", PROGRESSIVE_CASES,
+                         ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
+def test_progressive_jpeg_reads_as_pillow(tmp_path, case):
+    """Pillow's progressive=True files (libjpeg's standard script: DC first
+    and refinement, spectral bands of AC first scans with end-of-band runs,
+    AC refinement with correction bits) at odd sizes, byte-equal."""
+    case = dict(case)
+    gray = case.pop("gray", False)
+    for h, w in JPEG_SIZES + ((40, 72),):
+        arr = _picture(h, w, h * 10 + w)
+        data = _pillow_jpeg(arr[..., 2] if gray else arr, progressive=True, **case)
+        assert b"\xff\xc2" in data
+        _check_jpeg(tmp_path, data)
+
+
 def test_jpeg_restart_markers_grayscale(tmp_path):
     data = _pillow_jpeg(_picture(37, 53, 8)[..., 0], quality=90, restart_marker_blocks=2)
     assert b"\xff\xd0" in data
@@ -464,10 +491,14 @@ def test_jpeg_encoder_variants(tmp_path, variant):
 # --------------------------------------------------------------------- #
 
 
-def test_progressive_jpeg_raises_a_named_error():
-    data = _pillow_jpeg(_picture(37, 53, 1), quality=75, progressive=True)
-    with pytest.raises(ValueError, match="progressive JPEG"):
-        decode_jpeg(data)
+@pytest.mark.parametrize("sof,match", [(0xC6, "hierarchical progressive JPEG"),
+                                       (0xCA, "arithmetic-coded progressive JPEG")])
+def test_progressive_jpeg_raises_a_named_error(sof, match):
+    """The progressive frames that still raise (Huffman SOF2 reads, above):
+    hierarchical (SOF6) and arithmetic-coded (SOF10), in hand-made headers."""
+    header = bytes([0xFF, sof]) + struct.pack(">HBHHB", 11, 8, 8, 8, 1) + b"\x01\x11\x00"
+    with pytest.raises(ValueError, match=match):
+        decode_jpeg(b"\xff\xd8" + header + b"\xff\xd9")
 
 
 def test_cmyk_jpeg_raises_a_named_error(tmp_path):
@@ -579,10 +610,11 @@ def test_image_query_context_tokens_match_jax(tmp_path):
 
 def main() -> None:
     """This machine's host-CPU seconds to decode a 256 x 256 and a
-    1024 x 768 baseline JPEG (quality 75, 4:2:0), best of 3, against
-    Pillow's decode of the same bytes."""
-    for h, w in ((256, 256), (768, 1024)):
-        data = _pillow_jpeg(_picture(h, w, 1), quality=75)
+    1024 x 768 baseline and progressive JPEG (quality 75, 4:2:0), best of 3,
+    against Pillow's decode of the same bytes."""
+    for (h, w), progressive in ((hw, p) for p in (False, True)
+                                for hw in ((256, 256), (768, 1024))):
+        data = _pillow_jpeg(_picture(h, w, 1), quality=75, progressive=progressive)
         ours, pillow = [], []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -592,7 +624,8 @@ def main() -> None:
             want = _pillow(data)
             pillow.append(time.perf_counter() - t0)
         assert np.array_equal(got, want)
-        print(f"{w}x{h} baseline JPEG ({len(data)} bytes): decode_jpeg {min(ours):.4f} s, "
+        kind = "progressive" if progressive else "baseline"
+        print(f"{w}x{h} {kind} JPEG ({len(data)} bytes): decode_jpeg {min(ours):.4f} s, "
               f"Pillow {min(pillow):.4f} s (host CPU, best of 3), byte-equal")
 
 

@@ -35,14 +35,16 @@ def _shape(d):
 @pytest.mark.parametrize("s,sep,rate,q_scale", [(77, 5, 0.0, 1.0), (1058, 0, 0.0, 1.0),
                                                 (1089, 100, 0.0, 1.0), (333, 40, 0.1, 1.0),
                                                 (128, 64, 0.0, 1.0), (64, 0, 0.0, 1.0),
-                                                (1088, 0, 0.1, 1.0), (333, 0, 0.0, 8.0)])
+                                                (1088, 0, 0.1, 1.0), (333, 0, 0.0, 8.0),
+                                                (1344, 0, 0.1, 1.0)])
 def test_flash_kernel_matches_plain_version(cuda_device, dtype, tol, s, sep, rate, q_scale, d):
     """The flash kernel on strided views of a fused QKV tensor (at D = 64
     cogview-base head shapes): o within ``tol`` (bfloat16: one rounding of o
     and of the probabilities), lse within 1e-4.  Besides a ragged S, prefixes
     that cross tiles and dropout: the unmasked tiles' edges (S = 128 with the
     prefix ending on a tile edge, S = 64 one full tile), the tutorial's
-    training shape (S = 1088, sep 0, dropout 0.1), and q scaled by 8, which
+    training shape (S = 1088, sep 0, dropout 0.1), super-resolution
+    finetuning's (S = 1344 = 21 x 64), and q scaled by 8, which
     puts the rows' largest logits near 25 (the bf16 kernel sums in the log2
     domain and converts once, lse = (m2 + log2 l) ln 2)."""
     b, n = _shape(d)
@@ -104,7 +106,7 @@ def _rel_err(got, want):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("s,sep,rate", [(77, 0, 0.0), (77, 64, 0.1), (130, 5, 0.0),
                                         (130, 100, 0.0), (130, 64, 0.1), (1088, 0, 0.1),
-                                        (1088, 100, 0.0)])
+                                        (1088, 100, 0.0), (1344, 0, 0.1)])
 def test_flash_backward_kernels_match_plain_versions(cuda_device, dtype, tol, s, sep, rate, d):
     """dq (K4) and dk, dv (K5) against their plain versions on strided
     q/k/v: each within ``tol`` of its largest magnitude (bfloat16: ds and pd
@@ -216,6 +218,48 @@ def test_smoke_pretrain_step_runs_the_flash_kernels(cuda_device):
     L = cfg.num_layers
     assert [c.launches - n for c, n in zip(counters, before)] == [2 * L, L, L]
     assert metrics["skipped"] == 0 and torch.isfinite(torch.tensor(metrics["lm_loss"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["mems", "sparse", "dual positions"])
+def test_smoke_pretrain_steps_of_the_other_routes(cuda_device, route):
+    """Two train steps of the smoke preset on the card through the memory
+    route (the memory grows), the sparse route (64 / 4 / 256 over 1,088
+    tokens) and dual positions at 1,344 tokens: finite losses, no skipped
+    step; the memory and sparse routes are dense torch (no flash launch),
+    dual positions runs the flash kernels as the plain route does."""
+    from cogview_tpu_torch.config import smoke
+    from cogview_tpu_torch.models import gpt
+    from cogview_tpu_torch.training import optim
+    from cogview_tpu_torch.training import train_loop as tl
+
+    S = 1345 if route == "dual positions" else 1089
+    cfg = smoke(max_position_embeddings=S, query_window=64, key_window_times=4, num_pivot=256)
+    params = gpt.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                             device=cuda_device)
+    opt, _ = optim.make_optimizer(params, lr=1e-3, warmup_iter=1, num_iters=10)
+    state = tl.init_train_state(params, opt, torch.Generator().manual_seed(0))
+    kw = {"mems": dict(max_memory_length=1500), "sparse": dict(is_sparse=True),
+          "dual positions": dict(dual_positions_roi2=58200)}[route]
+    step = tl.make_train_step(cfg, opt, img_vocab=8192, **kw)
+    rng = torch.Generator().manual_seed(2)
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [c.launches for c in counters]
+    mems = None
+    for i in range(2):
+        text = torch.randint(0, 8192, (2, S), generator=rng)
+        text[:, 1000] = 58200  # [ROI2]
+        batch = {"text": text.to(cuda_device), "loss_mask": torch.ones(2, S, device=cuda_device)}
+        if route == "mems":
+            _, metrics, mems = step(state, batch, mems=mems)
+            assert mems.shape == (cfg.num_layers + 1, 2, min(1500, 1088 * (i + 1)), 64)
+        else:
+            _, metrics = step(state, batch)
+        assert metrics["skipped"] == 0 and torch.isfinite(torch.tensor(metrics["lm_loss"]))
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    want = [4 * L, 2 * L, 2 * L] if route == "dual positions" else [0, 0, 0]
+    assert [c.launches - n for c, n in zip(counters, before)] == want
 
 
 def _decode_cache(device, packed, B, N, D, seed, NW=9):

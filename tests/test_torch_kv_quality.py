@@ -176,3 +176,55 @@ def test_kv_quality_flips_along_one_stream_at_tutorial():
                       "first_difference_per_row": first, "jax_int4": want, "port_int4": got}))
     for k in ("argmax_flip_rate", "sampled_flip_rate"):
         assert abs(got[k] - want[k]) <= 4 / (B * T), (k, got[k], want[k])
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("threads", [1, 2])
+def test_bf16_streams_part_at_near_ties_at_tutorial(threads):
+    """C4's measurement: where the two packages' bf16 streams part, is it a
+    near-tie or a rounding the port does differently?  Both packages run the
+    bf16 cache along the JAX package's greedy stream (tutorial, batch 4, the
+    JAX script's PRNGKey(0) weights, the same prefix), so at every step they
+    see the same prefix.  At each step where the port's argmax differs from
+    the JAX stream's token: the two candidates' logit margin in each
+    package's logits, against the largest |delta logit| between the
+    packages at that step (over the image vocabulary).  A near-tie is a
+    margin below that delta: the packages' own bf16 roundings, not a
+    misrounded op, decide it.  The port runs on 1 and on 2 CPU threads,
+    which sum its float32 matmuls in other orders.  Prints one JSON line per
+    parting step."""
+    from cogview_tpu.config import cogview_tutorial
+
+    cfg_j = cogview_tutorial()
+    vocab, T = kq.img_vocab("tutorial"), 100  # the recorded partings are at steps 62, 99
+    jparams = jgpt.init_params(jax.random.PRNGKey(SEED), cfg_j, dtype=jnp.bfloat16)
+    params = gpt_params_from_jax(jax.tree.map(np.asarray, jparams))
+    prefix = np.random.RandomState(SEED).randint(
+        vocab, min(cfg_j.vocab_size, vocab + 1000), (B, 33)).astype(np.int32)
+    j_ref, stream = _jax_rollout(jparams, cfg_j.replace(kv_cache_dtype="bfloat16"), prefix,
+                                 T, vocab)
+    del jparams
+    cfg = kq.PRESETS["tutorial"]()
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        with torch.no_grad():
+            t_ref, _ = kq.rollout(params, cfg.replace(kv_cache_dtype="bfloat16"),
+                                  torch.as_tensor(prefix, dtype=torch.long), T, vocab, stream)
+    finally:
+        torch.set_num_threads(before)
+    jl, tl = j_ref[..., :vocab], t_ref[..., :vocab]
+    port_pick = tl.argmax(-1)
+    parts = []
+    for b, t in zip(*np.nonzero(port_pick != stream)):
+        a, c = stream[b, t], port_pick[b, t]
+        parts.append(dict(threads=threads, row=int(b), step=int(t), jax_token=int(a),
+                          port_token=int(c),
+                          jax_margin=float(jl[b, t, a] - jl[b, t, c]),
+                          port_margin=float(tl[b, t, c] - tl[b, t, a]),
+                          max_abs_dlogit=float(np.abs(jl[b, t] - tl[b, t]).max()),
+                          mean_abs_dlogit=float(np.abs(jl[b, t] - tl[b, t]).mean())))
+        print(json.dumps(parts[-1]))
+    assert parts, "the streams did not part in these steps"
+    for p in parts:
+        assert max(p["jax_margin"], p["port_margin"]) < p["max_abs_dlogit"], p

@@ -70,3 +70,89 @@ def test_pretrain_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="cuda"):
         pretrain.main(["--preset", "smoke", "--device", "cuda", "--train-data",
                        _corpus(tmp_path / "x.bin", rows=4)])
+
+
+MULTI_DEVICE_FLAGS = {"--model-parallel-size", "--fsdp", "--sequence-parallel-size",
+                      "--pipeline-parallel-size", "--pipeline-microbatches", "--multihost"}
+
+
+def _flags(parser):
+    return {s for a in parser._actions for s in a.option_strings if s.startswith("--")}
+
+
+def test_pretrain_cli_takes_every_single_device_flag_of_the_jax_cli():
+    """Every flag of cogview_tpu.cli.pretrain but the multi-device ones, the
+    same presets, and ``--checkpoint-activations`` on by default (the port
+    always recomputes)."""
+    from cogview_tpu.cli import pretrain as jax_pretrain
+
+    jp, tp = jax_pretrain.build_parser(), pretrain.build_parser()
+    assert _flags(jp) - MULTI_DEVICE_FLAGS <= _flags(tp)
+    assert not (_flags(tp) & MULTI_DEVICE_FLAGS)
+    jpreset = next(a for a in jp._actions if "--preset" in a.option_strings).choices
+    assert set(jpreset) == set(pretrain.PRESETS)
+    args = tp.parse_args(["--checkpoint-activations", "--is-sparse", "1", "--query-window",
+                          "64", "--key-window-times", "4", "--num-pivot", "256"])
+    cfg = pretrain.get_config(args)
+    assert args.checkpoint_activations and tp.parse_args([]).checkpoint_activations
+    assert (cfg.query_window, cfg.key_window_times, cfg.num_pivot) == (64, 4, 256)
+    jcfg = jax_pretrain.get_config(jp.parse_args(["--preset", "cogview-sr"]))
+    tcfg = pretrain.get_config(tp.parse_args(["--preset", "cogview-sr"]))
+    assert (tcfg.max_position_embeddings, tcfg.num_layers, tcfg.hidden_size) == (
+        jcfg.max_position_embeddings, jcfg.num_layers, jcfg.hidden_size) == (1345, 48, 2560)
+
+
+def _recording_steps(monkeypatch, name="make_train_step"):
+    """Wraps the CLI's step factory: -> the list of (factory kwargs, metrics)
+    of every step run."""
+    seen = []
+    make = getattr(pretrain, name)
+
+    def recording(cfg, opt, **kw):
+        step = make(cfg, opt, **kw)
+
+        def wrapped(state, batch, *a, **k):
+            out = step(state, batch, *a, **k)
+            seen.append((kw, out[1], state))
+            return out
+
+        return wrapped
+
+    monkeypatch.setattr(pretrain, name, recording)
+    return seen
+
+
+def test_pretrain_cli_is_sparse(tmp_path, monkeypatch, capsys):
+    """``--is-sparse 1`` with the reference's shipped geometry (64 / 4 / 256,
+    which divides the 1,088 training tokens) at the smoke widths, one layer:
+    the step is made sparse and the losses are finite (the geometry reaching
+    the config is checked above, the sparse step against JAX in
+    test_torch_sparse_attention.py)."""
+    seen = _recording_steps(monkeypatch)
+    rc = pretrain.main(["--preset", "smoke", "--num-layers", "1", "--device", "cpu",
+                        "--train-data", _corpus(tmp_path / "s.bin", rows=4), "--batch-size", "1",
+                        "--train-iters", "2", "--split", "1.0,0.0,0.0", "--log-interval", "1",
+                        "--is-sparse", "1", "--query-window", "64", "--key-window-times", "4",
+                        "--num-pivot", "256"], txt_tokenizer=VocabOnlyTextTokenizer())
+    assert rc == 0
+    assert [kw["is_sparse"] for kw, _, _ in seen] == [True, True]
+    assert all(np.isfinite(m["lm_loss"]) for _, m, _ in seen)
+    assert np.isfinite(_lm_losses(capsys.readouterr().out)).all()
+
+
+def test_pretrain_cli_profile_dir(tmp_path, monkeypatch, capsys):
+    """``--profile-dir`` traces steps 10-13 with torch.profiler and writes a
+    Chrome trace whose events include the train step's ops."""
+    import json
+
+    prof_dir = tmp_path / "prof"
+    rc = pretrain.main(["--preset", "smoke", "--num-layers", "1", "--device", "cpu",
+                        "--train-data", _corpus(tmp_path / "p.bin", rows=4), "--batch-size", "1",
+                        "--train-iters", "13", "--split", "1.0,0.0,0.0", "--log-interval", "13",
+                        "--profile-dir", str(prof_dir)], txt_tokenizer=VocabOnlyTextTokenizer())
+    assert rc == 0
+    assert f"profiler trace (steps 10-13) -> {prof_dir / 'trace.json'}" in (
+        capsys.readouterr().out)
+    events = json.loads((prof_dir / "trace.json").read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any("aten::mm" in n or "aten::matmul" in n for n in names)

@@ -108,7 +108,9 @@ def test_port_imports_no_jax():
             "cogview_tpu_torch.models.convert", "cogview_tpu_torch.models.hf_import",
             "cogview_tpu_torch.utils.jpeg", "cogview_tpu_torch.utils.png",
             "cogview_tpu_torch.scripts.seal_scatter_probe",
-            "cogview_tpu_torch.scripts.decode_kernel_microbench"} <= set(mods)
+            "cogview_tpu_torch.scripts.decode_kernel_microbench",
+            "cogview_tpu_torch.ops.sparse_attention", "cogview_tpu_torch.data.position_ids",
+            "cogview_tpu_torch.scripts.train_step_profile"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

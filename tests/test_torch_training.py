@@ -332,3 +332,52 @@ def test_resume_from_checkpoint_is_bit_equal(tmp_path):
         assert torch.equal(x, y)
     (tmp_path / checkpointing.TRACKER).write_text("release")
     assert checkpointing.get_checkpoint_iteration(str(tmp_path)) == 0
+
+
+def test_sliced_optimizer_update_is_bit_equal_to_the_whole_leaf(monkeypatch):
+    """AdamW works through each leaf in runs of whole rows (layers of a
+    stacked leaf): with slices of 1,000 elements and with every leaf whole,
+    four updates (two of them clipped, weight decay on) leave params, mu and
+    nu bit-equal."""
+    jparams = _jparams(5)
+    g_rng = np.random.RandomState(1)
+    grads = [_to_torch(jax.tree.map(lambda a: (g_rng.randn(*a.shape) * s).astype(np.float32),
+                                    jparams)) for s in (0.01, 1.0, 0.001, 1.0)]
+    out = []
+    for elems in (1000, 1 << 40):
+        monkeypatch.setattr(optim, "UPDATE_SLICE_ELEMS", elems)
+        params = _to_torch(jparams)
+        opt, _ = optim.make_optimizer(params, lr=1e-3, warmup_iter=1, num_iters=10,
+                                      weight_decay=0.1)
+        state = opt.init(params)
+        for g in grads:
+            opt.update(g, state, params)
+        out.append([*optim.tree_leaves(params), *optim.tree_leaves(state["mu"]),
+                    *optim.tree_leaves(state["nu"])])
+        if elems == 1000:  # qkv.w [2, 64, 3, 64]: one layer a slice
+            assert len(optim._row_slices(params["layers"]["qkv"]["w"])) == 2
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("flash", [True, False])
+def test_layer_views_by_unbind_keep_gradients_bit_equal(monkeypatch, flash):
+    """The layer views ``gpt._layers`` makes with one unbind per stacked leaf
+    give the same loss and gradients, bit for bit, as a select per layer
+    (the views before), with dropout and remat, through the flash and dense
+    routes."""
+    cfg = tiny_test(**DROP, use_flash_attention=flash)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(np.random.RandomState(2)).items()}
+
+    def selects(params):
+        return [{k: {kk: vv[li] for kk, vv in v.items()} for k, v in params["layers"].items()}
+                for li in range(cfg.num_layers)]
+
+    got = []
+    for views in (gpt._layers, selects):
+        monkeypatch.setattr(gpt, "_layers", views)
+        params = optim.tree_map(lambda p: p.requires_grad_(True), _to_torch(_jparams(6, **DROP)))
+        loss, _ = losses.lm_loss(params, cfg, batch, img_vocab=IMG_VOCAB, seeds=[1, 2, 3])
+        got.append([loss, *torch.autograd.grad(loss, list(optim.tree_leaves(params)))])
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
