@@ -82,12 +82,10 @@ result):
 11. post-selection: the CLI scores the four PNGs against the prompt: four
    finite negative scores in scores_rank_0.txt, 48 flash-kernel launches;
    the same tokens scored again through dense attention on the card agree;
-12. serve: ``cogview_tpu_torch.cli.serve.main`` at cogview-base's widths
-   with the int4 cache, depth cut to CUT_LAYERS (12 of 48, to keep the
-   script inside its time limit), bf16 weights, batch 4, one query file of
-   the 30-word prompt: the file reaches done/ and failed/ stays empty, four
-   PNGs, ids in [0, 8192), 1024 x CUT_LAYERS K2 launches, no K1 launch and
-   no plain call;
+12. serve: ``cogview_tpu_torch.cli.serve.main`` at cogview-base width with
+   the int4 cache, bf16 weights, batch 4, one query file of the 30-word
+   prompt: the file reaches done/ and failed/ stays empty, four PNGs, ids in
+   [0, 8192), 1024 x 48 K2 launches, no K1 launch and no plain call;
 13. cache fidelity: cogview-base at batch 4, random weights, the
    text->image context and 64 teacher-forced decode steps through the bf16,
    int8 and int4 caches: finite logits, the mean per-step KL of int8 and
@@ -101,11 +99,10 @@ result):
    tokens per second, device-busy share, each flash kernel's milliseconds
    per step (torch.profiler) and peak memory; then a ``--load``
    run resumes at the saved iteration and takes 2 more steps;
-15. low-level super-resolution: the CLI at cogview-base's widths, depth
-   cut to CUT_LAYERS, int8 cache, batch 4, on the prompt and the
-   int8-weight request's first PNG read at 128 pixels (the bilinear
-   resize): 256 context codes, 4 x 1024 ids in [0, 8192), four finite PNGs,
-   1024 x CUT_LAYERS K1 launches;
+15. low-level super-resolution: the CLI at cogview-base width and depth,
+   int8 cache, batch 4, on the prompt and the int8-weight request's first
+   PNG read at 128 pixels (the bilinear resize): 256 context codes, 4 x
+   1024 ids in [0, 8192), four finite PNGs, 1024 x 48 K1 launches;
 16. super-resolution: the CLI with ``--preset cogview-sr`` at its
    published widths (hidden 2560, 40 heads, 1,345 positions, vocabulary
    58,240), depth cut to SR_LAYERS, int8 cache, batch 1, on the same PNG,
@@ -149,7 +146,9 @@ result):
 20. super-resolution finetuning at full depth: ``--preset cogview-sr
    --dual-positions``, 48 layers, batch SR_FULL_BATCH x 1,344 tokens,
    SR_FULL_STEPS steps, in a child process (``chip_smoke.py
-   --sr-train-child``) whose peak device memory is its own: finite losses,
+   --sr-train-child``) whose peak device memory is its own, with the
+   environment unchanged (the CLI sets the allocator's expandable
+   segments itself): finite losses,
    no skipped step, 96 / 48 / 48 K3 / K4 / K5 launches a step; ms per step,
    tokens per second, peak memory, and two steps under torch.profiler
    (kernel time by kind, zero fills apart, busy share);
@@ -158,13 +157,13 @@ result):
    bit-equal; their times beside the plain versions', the bounds, SDPA with
    the boolean mask and with is_causal, and torch.autograd.grad through it;
 22. the memory, sparse and float16 routes through ``cli.pretrain.main`` at
-   the tutorial preset, batch 4: ``--max-memory-length 512`` (the memory
-   of 13 hidden states at 512 positions), ``--is-sparse 1 --query-window 64
-   --key-window-times 4 --num-pivot 256``, 6 steps each, and ``--fp16
-   --profile-dir`` for 14 steps from a loss scale of 2^16 (the scale moves
-   and not every step is skipped; the Chrome trace's kernels span steps
-   10-13): finite losses, no flash launch (these routes are dense torch,
-   as in the JAX package).
+   the tutorial preset, batch ROUTE_BATCH: ``--max-memory-length 512``
+   (the memory of 13 hidden states at 512 positions), ``--is-sparse 1
+   --query-window 64 --key-window-times 4 --num-pivot 256``, 6 steps each,
+   and ``--fp16 --profile-dir`` for 14 steps from a loss scale of 2^16
+   (the scale moves and not every step is skipped; the Chrome trace's
+   kernels span steps 10-13): finite losses, no flash launch (these
+   routes are dense torch, as in the JAX package).
 
 The next-to-last line is the kernels' JSON record (each kernel's launches
 on the main path, error, time, plain version's time, bound and library
@@ -1079,10 +1078,10 @@ def phase_image2text(torch, da, fa, cli, tasks, sampling, png_dir: str, work: st
 
 
 def phase_low_level_sr(torch, da, cli, tasks, sampling, png, png_dir: str, work: str):
-    """Low-level super-resolution through the CLI at cogview-base's widths,
-    depth cut to CUT_LAYERS, int8 cache, batch 4, on the prompt and the
-    first PNG of the int8-weight text->image request, read at 128 pixels
-    (the bilinear resize, 256 -> 128) -> K1 launches."""
+    """Low-level super-resolution through the CLI at cogview-base width and
+    depth, int8 cache, batch 4, on the prompt and the first PNG of the
+    int8-weight text->image request, read at 128 pixels (the bilinear
+    resize, 256 -> 128) -> K1 launches."""
     import numpy as np
 
     query = os.path.join(work, "llsr.txt")
@@ -1093,9 +1092,8 @@ def phase_low_level_sr(torch, da, cli, tasks, sampling, png, png_dir: str, work:
     da.decode_attention_quant.launches = 0
     da.decode_attention_quant.launches_int4 = 0
     da.decode_attention_quant_reference.calls = 0
-    with _CutDepth(cli, "cogview-base", CUT_LAYERS):
-        _run_cli(cli, tasks, sampling, torch,
-                 _cli_argv("bfloat16", "low-level super-resolution", query, out_dir), captured)
+    _run_cli(cli, tasks, sampling, torch,
+             _cli_argv("bfloat16", "low-level super-resolution", query, out_dir), captured)
     launches = da.decode_attention_quant.launches
     plain_calls = da.decode_attention_quant_reference.calls
     _check(da.decode_attention_quant.launches_int4 == 0, "the int8 cache launched K2")
@@ -1115,13 +1113,12 @@ def phase_low_level_sr(torch, da, cli, tasks, sampling, png, png_dir: str, work:
           f"generated ids, all in [0, 8192): {ok_ids}; PNG shapes {shapes}, images finite: "
           f"{finite}")
     _check(ok_ids and finite and shapes == [(256, 256, 3)] * 4, "low-level SR outputs")
-    L = CUT_LAYERS
-    print(f"low-level SR: K1 launches {launches} == decode steps x {L} = {steps} x {L} = "
-          f"{steps * L}: {launches == steps * L}; plain-version calls {plain_calls}")
-    _check(steps == 1024 and launches == steps * L and plain_calls == 0,
+    print(f"low-level SR: K1 launches {launches} == decode steps x 48 = {steps} x 48 = "
+          f"{steps * 48}: {launches == steps * 48}; plain-version calls {plain_calls}")
+    _check(steps == 1024 and launches == steps * 48 and plain_calls == 0,
            "low-level SR did not run K1 once per step and layer")
-    print(f"low-level SR: {captured['request_s']:.3f} s per request (batch 4, cogview-base "
-          f"widths, {L} layers); filling {captured['fill_s']:.3f} s = "
+    print(f"low-level SR: {captured['request_s']:.3f} s per request (batch 4, cogview-base, 48 "
+          f"layers); filling {captured['fill_s']:.3f} s = "
           f"{1000.0 * captured['fill_s'] / steps:.3f} ms per decode step (prefill included)")
     return launches
 
@@ -1155,6 +1152,7 @@ def phase_super_resolution(torch, da, cfgmod, cli, gpt, magnify, sampling, png, 
     out_dir = os.path.join(work, "sr")
     rec = {"steps": 0, "windows": 0}
     orig_sr, orig_fill = cli.super_resolution, magnify.filling_sequence
+    orig_preset = cli.PRESETS["cogview-sr"]
 
     def timed_sr(*a, **kw):
         torch.cuda.synchronize()
@@ -1196,12 +1194,13 @@ def phase_super_resolution(torch, da, cfgmod, cli, gpt, magnify, sampling, png, 
     da.decode_attention_quant.launches_int4 = 0
     da.decode_attention_quant_reference.calls = 0
     cli.super_resolution, magnify.filling_sequence = timed_sr, counted_fill
+    cli.PRESETS["cogview-sr"] = lambda: cfgmod.cogview_sr(num_layers=SR_LAYERS)
     cli.load_model = checked_load
     try:
-        with _CutDepth(cli, "cogview-sr", SR_LAYERS):
-            rc = cli.main(argv, txt_tokenizer=WordTokenizer())
+        rc = cli.main(argv, txt_tokenizer=WordTokenizer())
     finally:
         cli.super_resolution, magnify.filling_sequence = orig_sr, orig_fill
+        cli.PRESETS["cogview-sr"] = orig_preset
         cli.load_model = orig_load
         ckpt_dir.cleanup()
     _check(rc == 0, f"cli.main returned {rc}")
@@ -1308,31 +1307,9 @@ def phase_post_selection(torch, fa, cli, tasks, scoring, png_dir: str, work: str
     return launches
 
 
-# the depth of the int4 server request (phase 12) and the low-level
-# super-resolution request (phase 15), cut from cogview-base's 48 layers to
-# keep the script inside its time limit; phases 9 and 17 decode at 48
-CUT_LAYERS = 12
-
-
-class _CutDepth:
-    """``with _CutDepth(cli, name, n):`` the CLIs' preset ``name`` at n
-    layers, its widths unchanged."""
-
-    def __init__(self, cli, name: str, layers: int):
-        self.presets, self.name, self.layers = cli.PRESETS, name, layers
-
-    def __enter__(self):
-        self.orig = self.presets[self.name]
-        self.presets[self.name] = lambda: self.orig().replace(num_layers=self.layers)
-
-    def __exit__(self, *exc):
-        self.presets[self.name] = self.orig
-        return False
-
-
 def phase_serve_int4(torch, da, serve, tasks, sampling, png, work: str):
-    """One request through the folder-watcher server with the int4 cache at
-    cogview-base's widths, depth cut to CUT_LAYERS -> K2 launches."""
+    """One request through the folder-watcher server with the int4 cache ->
+    K2 launches."""
     import numpy as np
 
     inp, img = os.path.join(work, "serve_in"), os.path.join(work, "serve_img")
@@ -1347,8 +1324,7 @@ def phase_serve_int4(torch, da, serve, tasks, sampling, png, work: str):
     da.decode_attention_quant.launches = 0
     da.decode_attention_quant.launches_int4 = 0
     da.decode_attention_quant_reference.calls = 0
-    with _CutDepth(serve, "cogview-base", CUT_LAYERS):
-        _run_cli(serve, tasks, sampling, torch, argv, captured)
+    _run_cli(serve, tasks, sampling, torch, argv, captured)
     k1, k2 = da.decode_attention_quant.launches, da.decode_attention_quant.launches_int4
     plain_calls = da.decode_attention_quant_reference.calls
 
@@ -1364,12 +1340,11 @@ def phase_serve_int4(torch, da, serve, tasks, sampling, png, work: str):
     print(f"serve int4: {gen_ids.size} generated ids, all in [0, 8192): {ok_ids}; PNG shapes "
           f"{shapes}, images finite: {finite}")
     _check(ok_ids and finite and shapes == [(256, 256, 3)] * 4, "serve outputs")
-    L = CUT_LAYERS
-    print(f"serve int4: K2 launches {k2} == 1024 x {L} = {1024 * L}: {k2 == 1024 * L}; K1 "
+    print(f"serve int4: K2 launches {k2} == 1024 x 48 = {1024 * 48}: {k2 == 1024 * 48}; K1 "
           f"launches {k1}; plain-version calls {plain_calls}")
-    _check(steps == 1024 and k2 == 1024 * L and k1 == 0 and plain_calls == 0,
+    _check(steps == 1024 and k2 == 1024 * 48 and k1 == 0 and plain_calls == 0,
            "the int4 request did not run K2 once per step and layer")
-    print(f"serve int4: {captured['request_s']:.3f} s per request (batch 4, {L} layers); filling "
+    print(f"serve int4: {captured['request_s']:.3f} s per request (batch 4); filling "
           f"{captured['fill_s']:.3f} s = {1000.0 * captured['fill_s'] / steps:.3f} ms per decode "
           f"step (prefill included, {steps} steps)")
     return k2
@@ -1524,7 +1499,7 @@ def phase_pretrain(torch, fa, pretrain, losses, optim, work: str):
 
     step_ms = 1000.0 * statistics.median(rec["step_s"][3:])
     tokens = 16 * 1088
-    from cogview_tpu_torch.scripts.train_step_profile import device_time
+    from cogview_tpu_torch.scripts._timing import device_time
 
     cats, _, busy, top, flash = device_time(rec["prof"], rec["prof_wall"])
     print(f"pretrain: {step_ms:.3f} ms per step (median of steps 4-{steps}, host clock around "
@@ -1759,14 +1734,13 @@ def write_checkpoint_child(spec_json: str) -> int:
     return 0
 
 
-def _run_child(flag: str, spec: dict, what: str, env=None):
-    """``chip_smoke.py <flag> <spec as JSON>`` from the script's directory,
-    with ``env`` added to the environment: its output lines but the last,
-    prefixed, and its last line's JSON."""
+def _run_child(flag: str, spec: dict, what: str):
+    """``chip_smoke.py <flag> <spec as JSON>`` from the script's directory:
+    its output lines but the last, prefixed, and its last line's JSON."""
     here = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"), flag,
                            json.dumps(spec)], cwd=here, capture_output=True, text=True,
-                          timeout=900, env={**os.environ, **(env or {})})
+                          timeout=900)
     lines = proc.stdout.strip().splitlines()
     if lines[:-1]:
         print("\n".join(f"{what}: {ln}" for ln in lines[:-1]))
@@ -2180,13 +2154,14 @@ def sr_train_child(spec_json: str) -> int:
 
     from cogview_tpu_torch.cli import pretrain
     from cogview_tpu_torch.ops import flash_attention as fa
-    from cogview_tpu_torch.scripts.train_step_profile import device_time
+    from cogview_tpu_torch.scripts._timing import device_time
 
     spec = json.loads(spec_json)
     rec = {}
     restore = _recording_steps(torch, pretrain, "make_train_step", rec, SR_FULL_PROFILED)
     _zero_flash_counts(fa)
-    torch.cuda.reset_peak_memory_stats()
+    # nothing here touches CUDA before the CLI does, so the CLI's allocator
+    # setting takes effect; the peak is this process's own
     try:
         rc, out = _run_pretrain(pretrain, [
             "--preset", "cogview-sr", "--dual-positions", "--device", "cuda",
@@ -2205,6 +2180,7 @@ def sr_train_child(spec_json: str) -> int:
         "skipped": sum(m["skipped"] for m in rec["metrics"]),
         "roi2": rec["kw"]["dual_positions_roi2"], "launches": launches, "plain": plain,
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
         "kernel_ms": {k: 1000.0 * v / n for k, v in secs.items()},
         "kernel_launches": {k: v // n for k, v in counts.items()},
         "busy": busy, "prof_wall_ms": 1000.0 * rec["prof_wall"] / n,
@@ -2222,10 +2198,14 @@ def phase_sr_full_depth(torch, rows: str, smi: str):
     held = torch.cuda.memory_reserved() / 2 ** 30
     print(f"sr full depth: this process holds {held:.3f} GiB of the card's memory "
           f"(torch.cuda.memory_reserved) while the child runs")
-    # the step's peak is 63 GiB; with fixed segments the largest gradient
-    # leaf's 4.7 GiB can find no free block that large near the peak
-    r = _run_child("--sr-train-child", {"data": rows}, "sr full depth",
-                   env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    # the child inherits this environment as it is: the allocator setting
+    # the 48-layer step needs is the CLI's own
+    inherited = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    r = _run_child("--sr-train-child", {"data": rows}, "sr full depth")
+    print(f"sr full depth: PYTORCH_CUDA_ALLOC_CONF {inherited!r} in this process, "
+          f"{r['alloc_conf']!r} in the child after cli.pretrain.main")
+    _check(inherited is not None or r["alloc_conf"] == "expandable_segments:True",
+           "the pretrain CLI did not set the allocator's expandable segments")
     L, S = 48, SR_FULL_STEPS
     step_ms = 1000.0 * statistics.median(r["step_s"][1:SR_FULL_PROFILED[0]])
     tokens = SR_FULL_BATCH * 1344
@@ -2336,18 +2316,19 @@ def phase_flash_sr_shape(torch, fa):
 
 
 ROUTE_STEPS = 6
+ROUTE_BATCH = 1
 
 
 def phase_other_routes(torch, fa, pretrain, work: str):
     """The memory, sparse and float16 routes through ``cli.pretrain.main`` at
-    the tutorial preset (batch 4 x 1,088, phase 14's corpus): the memory at
+    the tutorial preset (batch ROUTE_BATCH x 1,088, phase 14's corpus): the memory at
     512 positions, sparse attention at the reference's shipped 64 / 4 / 256,
     and float16 for 14 steps with --profile-dir; none launches a flash
     kernel (dense torch, as in the JAX package)."""
     import numpy as np
 
     common = ["--preset", "tutorial", "--device", "cuda", "--train-data",
-              os.path.join(work, "tutorial_t2i.bin"), "--batch-size", "4", "--split",
+              os.path.join(work, "tutorial_t2i.bin"), "--batch-size", str(ROUTE_BATCH), "--split",
               "1.0,0.0,0.0", "--log-interval", "1", "--lr", "1e-4", "--warmup", "0.0",
               "--seed", "1234"]
     prof_dir = os.path.join(work, "fp16_profile")
@@ -2372,7 +2353,8 @@ def phase_other_routes(torch, fa, pretrain, work: str):
         lm = [m["lm_loss"] for m in rec["metrics"]]
         print(f"route {route}: {len(lm)} steps, lm loss {['%.4f' % v for v in lm]}, skipped "
               f"{sum(m['skipped'] for m in rec['metrics'])}, "
-              f"{1000.0 * statistics.median(rec['step_s'][1:]):.3f} ms per step (batch 4); "
+              f"{1000.0 * statistics.median(rec['step_s'][1:]):.3f} ms per step "
+              f"(batch {ROUTE_BATCH}); "
               f"flash launches {launches}, plain-version calls {plain}")
         _check(rc == 0 and len(lm) == steps and np.isfinite(lm).all(),
                f"the {route} route's losses are not finite")
@@ -2380,7 +2362,7 @@ def phase_other_routes(torch, fa, pretrain, work: str):
                f"the {route} route ran flash attention")
         if route == "mems":
             print(f"route mems: memory shapes {rec['mems'][:2]} ... {rec['mems'][-1]}")
-            _check(rec["mems"] == [(13, 4, 512, 1024)] * steps,
+            _check(rec["mems"] == [(13, ROUTE_BATCH, 512, 1024)] * steps,
                    "the memory did not reach 512 positions of the 13 hidden states")
         elif route == "sparse":
             _check(rec["kw"]["is_sparse"], "--is-sparse did not reach the step")
@@ -2429,6 +2411,9 @@ def main() -> int:
         _fail(f"the port is not importable here ({e}); run from the repository root")
     t_start = time.perf_counter()
 
+    def lap(what: str) -> None:  # where the time limit goes
+        print(f"chip_smoke: {what} done at {time.perf_counter() - t_start:.1f} s")
+
     # phase 1: device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2453,53 +2438,69 @@ def main() -> int:
     k3 = phase_flash_kernel(torch, fa)
     k45 = phase_flash_backward(torch, fa)
     _check_tensor_core_kernels(sos[names.index("flash_attention")])
+    lap("phases 3-5")
     # phase 6: the probes against their plain versions, then the three
     # measurement entry points
     probe_err = phase_probes(torch, probes, ssp)
     _check_async_copy(sos[names.index("probes")])
     _check_seal_stores(sos[names.index("probes")])
     entry, probe_launches = phase_probe_entry_points(torch, da, probes, lp, ssp, dkm)
+    lap("phase 6")
     # phases 7-8: small input
     phase_small_input(torch, gpt, cfgmod, da, fa)
     phase_small_training(torch, cfgmod, fa, tl, optim)
+    lap("phases 7-8")
 
     with tempfile.TemporaryDirectory() as work:
         # phase 12 first: the folder-watcher server, int4 cache, runs before
         # phase 9's profiled decode steps, whose tracing leaves a cost on
         # every later launch
         k2_launches = phase_serve_int4(torch, da, serve, tasks, sampling, png, work)
+        lap("phase 12")
         # phase 9: text->image with int8 weights; its PNGs feed phases 15
         # (low-level SR) and 16 (super-resolution), which also run before
         # the profiled request; then the bf16-weight request (profiled),
         # whose PNGs feed 10, 11
         t2i = [phase_main_path(torch, da, gpt, cli, tasks, sampling, png, "int8", work)]
+        lap("phase 9, int8 weights")
         llsr_launches = phase_low_level_sr(torch, da, cli, tasks, sampling, png, t2i[0][1], work)
+        lap("phase 15")
         sr_launches = phase_super_resolution(torch, da, cfgmod, cli, gpt, magnify, sampling,
                                              png, t2i[0][1], work, smi.splitlines()[0])
+        lap("phase 16")
         t2i.append(phase_main_path(torch, da, gpt, cli, tasks, sampling, png, "bfloat16", work))
+        lap("phase 9, bf16 weights")
         png_dir = t2i[1][1]
         # phase 10: image->text; phase 11: post-selection; phase 13: fidelity
         i2t = phase_image2text(torch, da, fa, cli, tasks, sampling, png_dir, work)
         flash_launches = phase_post_selection(torch, fa, cli, tasks, scoring, png_dir, work)
         phase_cache_fidelity(torch, gpt, cfgmod, tasks, sampling, tokenization)
+        lap("phases 10, 11, 13")
         # phase 17: the 48-layer float16 DeepSpeed file through --load in a
         # child process, one image->text request on phase 9's first PNG
         ckpt_launches = phase_checkpoint(torch, cfgmod, vqvae, png_dir, work,
                                          smi.splitlines()[0])
+        lap("phase 17")
         # phase 14: pretraining at the tutorial width, then a resumed run;
         # phase 18: its checkpoint served through --load
         train_launches, _ = phase_pretrain(torch, fa, pretrain, losses, optim, work)
+        lap("phase 14")
         tut_launches = phase_serve_pretrained(torch, da, cli, optim, tasks, sampling, png,
                                               work, smi.splitlines()[0])
+        lap("phase 18")
         # phase 19: cogview-base -> cogview-sr finetuning at SR_LAYERS depth
         # (--load --finetune --dual-positions, then a resume); phase 20:
         # cogview-sr at full depth in a child process, on phase 19's rows
         sr_rows, ft_launches = phase_sr_finetune(torch, fa, pretrain, gpt, work)
+        lap("phase 19")
         full_launches, _ = phase_sr_full_depth(torch, sr_rows, smi.splitlines()[0])
+        lap("phase 20")
         # phase 21: K3, K4, K5 at the finetune's shape; phase 22: the memory,
         # sparse and float16 routes at the tutorial width
         k345_sr = phase_flash_sr_shape(torch, fa)
+        lap("phase 21")
         phase_other_routes(torch, fa, pretrain, work)
+        lap("phase 22")
     # the flash kernels' launches on the training paths: phases 14, 19, 20
     train_launches = [a + b + c for a, b, c in zip(train_launches, ft_launches, full_launches)]
 

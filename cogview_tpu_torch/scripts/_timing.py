@@ -15,6 +15,7 @@ reports what the capture recorded and counts the launches its replays ran.
 
 from __future__ import annotations
 
+import re
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -109,6 +110,50 @@ def time_graph(device: torch.device, loop: Callable[[], torch.Tensor], reps: int
         res["device_us"], res["device_launches"] = profile_device_us(device, replay, profile)
     res.update(captured=captured, replayed=replays * captured)
     return res
+
+
+KINDS = ("flash kernels", "matmuls", "elementwise", "zero fills", "reductions",
+         "copies / casts", "other")
+
+
+def kernel_kind(name: str) -> str:
+    """A CUDA kernel's name -> one of KINDS."""
+    name = name.lower()
+    if "flash" in name:
+        return "flash kernels"
+    if any(t in name for t in ("gemm", "cutlass", "xmma", "nvjet", "sm90")):
+        return "matmuls"
+    if "fill" in name:
+        return "zero fills"
+    if "reduce" in name or "norm" in name or "softmax" in name:
+        return "reductions"
+    if "copy" in name or "memcpy" in name or "memset" in name or "cast" in name:
+        return "copies / casts"
+    if "elementwise" in name or "vectorized" in name or "unrolled" in name:
+        return "elementwise"
+    return "other"
+
+
+def device_time(prof, wall_s: float):
+    """A profile's CUDA kernels -> (seconds by kind, launches by kind, busy
+    share of ``wall_s``, the 8 longest as (seconds, launches, name), the
+    flash kernels' (seconds, launches) by instantiation)."""
+    secs, counts = dict.fromkeys(KINDS, 0.0), dict.fromkeys(KINDS, 0)
+    top, flash = [], {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = kernel_kind(e.key)
+        secs[kind] += us / 1e6
+        counts[kind] += e.count
+        top.append((us / 1e6, e.count, e.key[:90]))
+        if kind == "flash kernels":
+            short = re.search(r"flash_\w+<[^>]*>", e.key)
+            flash[short.group(0) if short else e.key[:90]] = (us / 1e6, e.count)
+    return secs, counts, sum(secs.values()) / wall_s, sorted(top, reverse=True)[:8], flash
 
 
 def us_text(us: Optional[float]) -> str:

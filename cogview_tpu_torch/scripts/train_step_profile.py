@@ -5,27 +5,21 @@ memory, and the device's kernel time by kind from ``torch.profiler``.
   python -m cogview_tpu_torch.scripts.train_step_profile --preset cogview-sr \\
       --batch 2 --grad-only
 
-Random weights from ``--seed`` and a batch of random rows of
+Random weights from a fixed seed and a batch of random rows of
 ``max_position_embeddings`` tokens (a text prefix, then image codes), the
 step of ``training/train_loop.py`` (bf16, dropout 0.1, remat) after two
-warm steps: ``--steps`` steps by the host clock around synchronised steps,
-then two more under ``torch.profiler``.  ``--grad-only`` times the loss and
+warm steps: six steps by the host clock around synchronised steps, then
+two more under ``torch.profiler``.  ``--grad-only`` times the loss and
 its gradients without the optimizer.  Zero fills (the ``FillFunctor``
 kernels) are counted apart from the other elementwise kernels.  Prints one
 JSON line with the card's name and power limit; exits non-zero without a
 card.
-
-The script imports only what the port has had since its training slice,
-so it also runs against an older checkout of the package put first on
-``PYTHONPATH`` (``python <this file>``), to compare two versions in one
-call on one card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import re
 import statistics
 import subprocess
 import sys
@@ -37,52 +31,13 @@ import torch
 from cogview_tpu_torch import config as C
 from cogview_tpu_torch.models import gpt
 from cogview_tpu_torch.ops.precision import set_fp32_precision
+from cogview_tpu_torch.scripts._timing import device_time
 from cogview_tpu_torch.training import losses, optim
 from cogview_tpu_torch.training import train_loop as tl
 
 PRESETS = {"tutorial": C.cogview_tutorial, "cogview-base": C.cogview_base,
            "cogview-sr": C.cogview_sr}
-KINDS = ("flash kernels", "matmuls", "elementwise", "zero fills", "reductions",
-         "copies / casts", "other")
-
-
-def kernel_kind(name: str) -> str:
-    name = name.lower()
-    if "flash" in name:
-        return "flash kernels"
-    if any(t in name for t in ("gemm", "cutlass", "xmma", "nvjet", "sm90")):
-        return "matmuls"
-    if "fill" in name:
-        return "zero fills"
-    if "reduce" in name or "norm" in name or "softmax" in name:
-        return "reductions"
-    if "copy" in name or "memcpy" in name or "memset" in name or "cast" in name:
-        return "copies / casts"
-    if "elementwise" in name or "vectorized" in name or "unrolled" in name:
-        return "elementwise"
-    return "other"
-
-
-def device_time(prof, wall_s: float):
-    """A profile's CUDA kernels -> (seconds by kind, launches by kind, busy
-    share of ``wall_s``, the 8 longest as (seconds, launches, name), the
-    flash kernels' (seconds, launches) by instantiation)."""
-    secs, counts = dict.fromkeys(KINDS, 0.0), dict.fromkeys(KINDS, 0)
-    top, flash = [], {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        kind = kernel_kind(e.key)
-        secs[kind] += us / 1e6
-        counts[kind] += e.count
-        top.append((us / 1e6, e.count, e.key[:90]))
-        if kind == "flash kernels":
-            short = re.search(r"flash_\w+<[^>]*>", e.key)
-            flash[short.group(0) if short else e.key[:90]] = (us / 1e6, e.count)
-    return secs, counts, sum(secs.values()) / wall_s, sorted(top, reverse=True)[:8], flash
+STEPS, SEED = 6, 1234
 
 
 def random_batch(cfg, batch: int, seed: int):
@@ -101,10 +56,7 @@ def random_batch(cfg, batch: int, seed: int):
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser("train_step_profile")
     p.add_argument("--preset", default="tutorial", choices=list(PRESETS))
-    p.add_argument("--layers", type=int, default=0, help="cut the depth (0: the preset's)")
     p.add_argument("--batch", type=int, default=16)
-    p.add_argument("--steps", type=int, default=6)
-    p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--grad-only", action="store_true")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -113,11 +65,9 @@ def main(argv=None) -> dict:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     cfg = PRESETS[args.preset]()
-    if args.layers:
-        cfg = cfg.replace(num_layers=args.layers)
-    params = gpt.init_params(cfg, torch.Generator(device="cuda").manual_seed(args.seed),
+    params = gpt.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                              device="cuda")
-    batch = random_batch(cfg, args.batch, args.seed)
+    batch = random_batch(cfg, args.batch, SEED)
     if args.grad_only:
         optim.tree_map(lambda t: t.requires_grad_(True), params)
         leaves = list(optim.tree_leaves(params))
@@ -128,7 +78,7 @@ def main(argv=None) -> dict:
             torch.autograd.grad(loss, leaves)
     else:
         opt, _ = optim.make_optimizer(params, lr=1e-4, warmup_iter=1, num_iters=100)
-        state = tl.init_train_state(params, opt, torch.Generator().manual_seed(args.seed))
+        state = tl.init_train_state(params, opt, torch.Generator().manual_seed(SEED))
         step = tl.make_train_step(cfg, opt)
 
         def run():
@@ -139,7 +89,7 @@ def main(argv=None) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(args.steps):
+    for _ in range(STEPS):
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()

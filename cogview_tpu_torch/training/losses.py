@@ -132,8 +132,8 @@ def lm_loss(params, cfg: GPTConfig, batch: Dict[str, torch.Tensor], *,
 
     ``is_sparse`` trains with pivot + window attention (S a multiple of
     ``cfg.query_window``): the pivots are every text position and sampled
-    image positions, drawn from ``generator`` (a fresh one seeded 0 when
-    None), or ``pivot_idx`` [B, num_pivot] when given.
+    image positions, drawn from ``generator``, or ``pivot_idx`` [B,
+    num_pivot] when given; one of the two is required.
     ``dual_positions_roi2`` is the [ROI2] id whose first occurrence
     restarts the position ids (:func:`dual_position_ids`)."""
     tokens, labels, lmask, img_ind, txt_ind = _split_batch(batch, img_vocab, txt_loss_scale)
@@ -145,7 +145,8 @@ def lm_loss(params, cfg: GPTConfig, batch: Dict[str, torch.Tensor], *,
             raise ValueError(f"seq len {S} must be divisible by query_window "
                              f"{cfg.query_window}")
         if pivot_idx is None:
-            generator = generator or torch.Generator().manual_seed(0)
+            if generator is None:
+                raise ValueError("is_sparse needs a generator to draw the pivots, or pivot_idx")
             pivot_idx = sample_pivots(generator, tokens, cfg.num_pivot, img_vocab,
                                       loss_mask=lmask)
         rmask = torch.from_numpy(build_rmask(S, cfg.query_window, cfg.key_window_times))

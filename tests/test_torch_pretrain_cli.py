@@ -3,6 +3,8 @@ real 58,240-token vocabulary) on a CompactBinary corpus written here: the
 loss is finite and falls, the per-interval and eval lines are printed, the
 tracker file names the saved iteration, and ``--load`` resumes there."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -70,6 +72,29 @@ def test_pretrain_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="cuda"):
         pretrain.main(["--preset", "smoke", "--device", "cuda", "--train-data",
                        _corpus(tmp_path / "x.bin", rows=4)])
+
+
+@pytest.mark.parametrize("preset", [None, "expandable_segments:False", "alloc:other"])
+def test_pretrain_cli_sets_expandable_segments_before_cuda(monkeypatch, preset):
+    """On a CUDA device not yet used, the CLI turns on the allocator's
+    expandable segments unless the environment holds an allocator setting;
+    a CPU run or a process that has used CUDA already is left alone."""
+    for name in ("PYTORCH_CUDA_ALLOC_CONF", "PYTORCH_ALLOC_CONF"):
+        monkeypatch.delenv(name, raising=False)
+    if preset == "alloc:other":
+        monkeypatch.setenv("PYTORCH_ALLOC_CONF", preset)
+    elif preset is not None:
+        monkeypatch.setenv("PYTORCH_CUDA_ALLOC_CONF", preset)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    pretrain.expandable_segments(torch.device("cuda"))
+    pretrain.expandable_segments(torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    pretrain.expandable_segments(torch.device("cpu"))
+    assert os.environ.get("PYTORCH_CUDA_ALLOC_CONF") == (
+        None if preset == "alloc:other" else preset)
+    pretrain.expandable_segments(torch.device("cuda"))
+    want = preset or "expandable_segments:True"
+    assert os.environ.get("PYTORCH_CUDA_ALLOC_CONF", os.environ.get("PYTORCH_ALLOC_CONF")) == want
 
 
 MULTI_DEVICE_FLAGS = {"--model-parallel-size", "--fsdp", "--sequence-parallel-size",

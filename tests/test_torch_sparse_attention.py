@@ -221,6 +221,18 @@ def test_sparse_lm_loss_matches_jax():
                        is_sparse=True, pivot_idx=pivots)
 
 
+def test_sparse_lm_loss_needs_a_pivot_source():
+    """Sparse lm_loss draws its pivots from the caller's generator or takes
+    them as pivot_idx; with neither it raises rather than draw the same
+    pivots on every call."""
+    cfg = tiny_test(**SPARSE)
+    params = gpt_params_from_jax(jax.tree.map(np.asarray, _jparams(2, **SPARSE)))
+    tb = {k: torch.from_numpy(v) for k, v in _batch(np.random.RandomState(3)).items()}
+    with pytest.raises(ValueError, match="generator"):
+        losses.lm_loss(params, cfg, tb, img_vocab=IMG_VOCAB, train=False, remat=False,
+                       is_sparse=True)
+
+
 def _assert_params_close(tparams, jparams, atol):
     jl = jax.tree_util.tree_leaves_with_path(jax.tree.map(np.asarray, jparams))
     tflat = {jax.tree_util.keystr(p): v for p, v in
