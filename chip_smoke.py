@@ -165,6 +165,28 @@ result):
    kernels span steps 10-13): finite losses, no flash launch (these
    routes are dense torch, as in the JAX package).
 
+23. preprocessing into pretraining: ``cogview_tpu_torch.cli.preprocess.main``
+   at the released VQ-VAE geometry (channel 512, embed 256, 8,192 codes;
+   a checkpoint in the reference's layout from a seed), text2image from a
+   folder, a zip and a tar of the same 64 smooth 256 x 320 PNGs and a
+   caption TSV: the three .bin files byte-equal, every row's codes those
+   of the card's own img2code on the same arrays and in [0, 8192); the
+   bfloat16 encoder's codes on the same arrays (the share equal to
+   float32's); the encoder alone at batch 32 in float32 and bfloat16; super-resolution on
+   4 images at 512 (16 rows, each laid out as the JAX package's); then 2
+   ``cli.pretrain`` steps at the tutorial preset on the .bin: finite
+   losses, the flash kernels launched;
+24. VQ-VAE training: ``cli.vqtrain.main`` at the released geometry, batch
+   32 x 256^2 on phase 23's images, 40 straight-through + EMA iterations
+   (the recon MSE at the last log below the first, the codebook's
+   cluster_size moved) and 20 with --gumbel --gumbel-hard; ms per
+   iteration (CUDA events), images/s and peak memory of each;
+25. FID and IS: ``cli.fid.main`` with the seeded random InceptionV3 on the
+   card: FID(A, A) below 1e-3 and FID(A, B) > 0 for two sets of 32
+   smooth 160 x 200 PNGs, --inception-score, a TSV of A's images giving the
+   folder's statistics (to 1e-5), --extractor vq on phase 23's VQ-VAE;
+   then pool3 alone at batch 50, 299 x 299 (images/s).
+
 The next-to-last line is the kernels' JSON record (each kernel's launches
 on the main path, error, time, plain version's time, bound and library
 time), the last line ``{"ok": true, "device": {...}}``.
@@ -2384,6 +2406,273 @@ def phase_other_routes(torch, fa, pretrain, work: str):
                    and span_ms >= 0.5 * steps_ms, "the profile does not cover steps 10-13")
 
 
+# --------------------------------------------------------------------- #
+# phases 23-25: preprocessing -> pretraining, VQ-VAE training, FID / IS
+# --------------------------------------------------------------------- #
+
+CORPUS_IMAGES = 64  # 256 x 320 images of phase 23's sources
+SR_IMAGES = 4  # 512 x 640 images of its super-resolution task
+VQ_ST_ITERS, VQ_GUMBEL_ITERS, VQ_BATCH = 40, 20, 32
+INCEPTION_BATCH = 50
+
+
+def _gradient_image(rng, h: int, w: int):
+    """A smooth seeded image: per channel a sine over a random direction
+    and phase, plus a soft blob (not noise, so the VQ-VAE has structure to
+    learn)."""
+    import numpy as np
+
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    chans = []
+    for _ in range(3):
+        fx, fy, ph = rng.uniform(-2.5, 2.5), rng.uniform(-2.5, 2.5), rng.uniform(0, 6.3)
+        cy, cx, r = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(h / 8, h / 3)
+        wave = np.sin(2 * np.pi * (fx * x / w + fy * y / h) + ph)
+        blob = np.exp(-((y - cy) ** 2 + (x - cx) ** 2) / (2 * r * r))
+        chans.append(127.5 + 90.0 * wave * (1 - 0.5 * blob) + 35.0 * blob)
+    return np.clip(np.stack(chans, -1), 0, 255).astype(np.uint8)
+
+
+def _write_image_sources(png, work: str, n: int, seed: int, h: int = 256, w: int = 320):
+    """n smooth images as a folder of PNGs, a zip and a tar of the same
+    files, and a caption TSV -> (folder, zip, tar, captions)."""
+    import io
+    import tarfile
+    import zipfile
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    folder = os.path.join(work, f"images_{seed}")
+    os.makedirs(folder)
+    names = [f"img_{i:03d}.png" for i in range(n)]
+    for name in names:
+        png.write_png(os.path.join(folder, name), _gradient_image(rng, h, w))
+    zp, tp = folder + ".zip", folder + ".tar"
+    with zipfile.ZipFile(zp, "w") as z, tarfile.open(tp, "w") as t:
+        for name in names:
+            with open(os.path.join(folder, name), "rb") as f:
+                data = f.read()
+            z.writestr(name, data)
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            t.addfile(info, io.BytesIO(data))
+    caps = folder + ".tsv"
+    with open(caps, "w") as f:
+        for i, name in enumerate(names):
+            f.write(f"{name}\t" + " ".join(f"word{(i + k) % 50}" for k in range(6 + i % 7)) + "\n")
+    return folder, zp, tp, caps
+
+
+def _run_quiet(fn, *args, **kw):
+    """fn(*args, **kw) with its standard output captured and printed ->
+    (its return value, the output)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn(*args, **kw)
+    print(out.getvalue(), end="")
+    return rc, out.getvalue()
+
+
+def phase_preprocess(torch, fa, vqvae, cfgmod, png, pretrain, work: str) -> list:
+    """``cli.preprocess.main`` at the released VQ-VAE geometry: text2image
+    from a folder, a zip and a tar of the same 64 images (the three .bin
+    byte-equal, every row's codes those of the card's own img2code, in
+    [0, 8192)), the bfloat16 encoder's codes beside them, super-resolution on 4
+    images at 512, then 2 tutorial pretraining steps on the .bin -> the
+    flash kernels' launches in those steps."""
+    import re
+
+    import numpy as np
+
+    from cogview_tpu_torch.cli import preprocess
+    from cogview_tpu_torch.data.datasets import IndexedDataset
+    from cogview_tpu_torch.models import convert
+    from cogview_tpu_torch.preprocess.raw_datasets import open_image_source
+    from cogview_tpu_torch.tokenization import FakeImageTokenizer, UnifiedTokenizer
+
+    folder, zp, tp, caps = _write_image_sources(png, work, CORPUS_IMAGES, seed=23)
+    vq_path = os.path.join(work, "vqvae_released.pt")
+    _write_vqvae_checkpoint(torch, vqvae, cfgmod, vq_path)
+    rates, bins = {}, {}
+    for kind, src in (("folder", folder), ("zip", zp), ("tar", tp)):
+        out = os.path.join(work, f"t2i_{kind}.bin")
+        rc, log = _run_quiet(preprocess.main, [
+            "--task", "text2image", "--image-source", src, "--text-source", caps,
+            "--img-tokenizer-path", vq_path, "--output", out, "--batch-size", "32",
+            "--device", "cuda"], txt_tokenizer=WordTokenizer())
+        _check(rc == 0, f"preprocess text2image on the {kind} source failed")
+        rates[kind] = float(re.search(r"\(([\d.]+) images/s\)", log).group(1))
+        with open(out, "rb") as f:
+            bins[kind] = f.read()
+    _check(bins["folder"] == bins["zip"] == bins["tar"],
+           "the folder, zip and tar corpora differ")
+    rows = np.frombuffer(bins["folder"], np.int32).reshape(-1, 64 + 1024)
+    _check(rows.shape[0] == CORPUS_IMAGES, f"{rows.shape[0]} rows, not {CORPUS_IMAGES}")
+    codes = rows[:, 64:]
+    _check(((codes >= 0) & (codes < 8192)).all(), "a code outside [0, 8192)")
+    params = convert.load_vqvae_checkpoint(vq_path, torch.device("cuda"))
+    imgs = np.stack([a for _, a in open_image_source(folder, 256)])
+    x = torch.from_numpy(imgs).cuda()
+    own = torch.cat([vqvae.img2code(params, x[i:i + 32]) for i in range(0, len(x), 32)])
+    _check(np.array_equal(own.cpu().numpy(), codes),
+           "the corpus codes differ from the card's img2code on the same arrays")
+    bf = torch.cat([vqvae.img2code(params, x[i:i + 32], dtype=torch.bfloat16)
+                    for i in range(0, len(x), 32)])
+    agree = float((bf.cpu().numpy() == codes).mean())
+    # the encoder alone on the card, batch 32, float32 and bfloat16
+    batch = x[:32]
+    enc_us = {name: _device_time_us(torch, lambda d=dtype: vqvae.img2code(params, batch, dtype=d),
+                                    reps=10)
+              for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16))}
+    print(f"preprocess text2image: {CORPUS_IMAGES} images 256x320 -> {rows.shape[0]} rows, "
+          f"folder/zip/tar byte-equal; images/s (CLI end to end, host decode included): "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in rates.items())}; VQ encode alone at batch 32: "
+          f"float32 {enc_us['float32'] / 1000:.3f} ms ({32e6 / enc_us['float32']:.1f} images/s), "
+          f"bfloat16 {enc_us['bfloat16'] / 1000:.3f} ms ({32e6 / enc_us['bfloat16']:.1f} "
+          f"images/s); bfloat16 codes equal to float32's: {agree:.4f}")
+
+    sr_folder, _, _, sr_caps = _write_image_sources(png, work, SR_IMAGES, seed=24, h=512, w=640)
+    sr_out = os.path.join(work, "sr_rows")
+    rc, _ = _run_quiet(preprocess.main, [
+        "--task", "super-resolution", "--image-source", sr_folder, "--text-source", sr_caps,
+        "--img-tokenizer-path", vq_path, "--output", sr_out, "--img-size", "512",
+        "--sampling-num", "4", "--batch-size", "4", "--device", "cuda"],
+        txt_tokenizer=WordTokenizer())
+    tok = UnifiedTokenizer(img_tokenizer=FakeImageTokenizer(8192), txt_tokenizer=WordTokenizer())
+    sr = IndexedDataset(sr_out)
+    _check(rc == 0 and len(sr) == SR_IMAGES * 4, f"{len(sr)} super-resolution rows, not 16")
+    for r in (np.asarray(sr[i]) for i in range(len(sr))):
+        boi1, eoi1 = (int(np.nonzero(r == tok[t])[0][0]) for t in ("[BOI1]", "[EOI1]"))
+        boi2 = int(np.nonzero(r == tok["[BOI2]"])[0][0])
+        _check(r[0] == tok["[ROI1]"] and r[-1] == tok["[EOI2]"] and eoi1 - boi1 - 1 == 1024
+               and len(r) - 2 - boi2 == 1024 and (r[boi1 + 1:eoi1] < 8192).all()
+               and (r[boi2 + 1:-1] < 8192).all(), "a super-resolution row is malformed")
+    print(f"preprocess super-resolution: {SR_IMAGES} images at 512 -> {len(sr)} rows of "
+          f"{len(sr[0])} ids")
+
+    rec = {}
+    restore = _recording_steps(torch, pretrain, "make_train_step", rec)
+    _zero_flash_counts(fa)
+    try:
+        rc, _ = _run_pretrain(pretrain, [
+            "--preset", "tutorial", "--device", "cuda", "--train-data",
+            os.path.join(work, "t2i_folder.bin"), "--batch-size", "8", "--split", "1.0,0.0,0.0",
+            "--train-iters", "2", "--log-interval", "1", "--lr", "1e-4", "--warmup", "0.0",
+            "--seed", "1234"])
+    finally:
+        restore()
+    launches, plain = _flash_counts(fa)
+    lm = [m["lm_loss"] for m in rec["metrics"]]
+    print(f"pretrain on the preprocessed corpus: lm loss {['%.4f' % v for v in lm]}; "
+          f"flash launches {launches}, plain-version calls {plain}")
+    _check(rc == 0 and len(lm) == 2 and np.isfinite(lm).all(),
+           "pretraining on the preprocessed corpus did not give finite losses")
+    _check(min(launches) > 0 and plain == [0, 0, 0],
+           "pretraining on the preprocessed corpus did not run the flash kernels")
+    return launches
+
+
+def phase_vqtrain(torch, work: str, smi: str) -> None:
+    """``cli.vqtrain.main`` at the released geometry (channel 512, embed
+    256, 8,192 codes, 256-pixel images, batch 32) on phase 23's images:
+    VQ_ST_ITERS straight-through + EMA iterations (the recon MSE falls
+    between the first and the last log, the codebook's cluster_size moves),
+    then VQ_GUMBEL_ITERS with --gumbel --gumbel-hard; ms per iteration,
+    images/s and peak memory."""
+    import re
+
+    import numpy as np
+
+    from cogview_tpu_torch.cli import vqtrain
+    from cogview_tpu_torch.training.checkpointing import load_latest
+
+    folder = os.path.join(work, "images_23")
+    save = os.path.join(work, "vqtrain_ckpt")
+    results = {}
+    for mode, iters, extra in (("st-ema", VQ_ST_ITERS, ["--save", save, "--save-interval",
+                                                        str(VQ_ST_ITERS)]),
+                               ("gumbel-hard", VQ_GUMBEL_ITERS, ["--gumbel", "--gumbel-hard"])):
+        torch.cuda.reset_peak_memory_stats()
+        rc, log = _run_quiet(vqtrain.main, [
+            "--data", folder, "--batch-size", str(VQ_BATCH), "--train-iters", str(iters),
+            "--log-interval", "10", "--device", "cuda", "--seed", "0", *extra])
+        mse = [float(v) for v in re.findall(r"recon_mse (\S+)", log)]
+        loss = [float(v) for v in re.findall(r"\bloss (\S+)", log)]
+        _check(rc == 0 and len(mse) == iters // 10 and np.isfinite(mse + loss).all(),
+               f"vqtrain {mode} did not log finite losses")
+        results[mode] = dict(vqtrain.main.last, mse=mse)
+    st = results["st-ema"]
+    _check(st["mse"][-1] < st["mse"][0],
+           f"the ST + EMA recon MSE did not fall: {st['mse']}")
+    state = load_latest(save)
+    moved = float((state["params"]["quantize"]["cluster_size"] != 0).float().mean())
+    _check(state["step"] == VQ_ST_ITERS and moved > 0, "the EMA codebook's cluster_size did not move")
+    for mode, r in results.items():
+        print(f"vqtrain {mode} ({smi}): batch {VQ_BATCH} x 256^2, channel 512, 8192 codes: "
+              f"{r['ms_per_iter']:.1f} ms/iter over the last 10 iterations (CUDA events), "
+              f"{VQ_BATCH * 1000.0 / r['ms_per_iter']:.1f} images/s, peak {r['peak_gib']:.2f} GiB; "
+              f"recon mse by log {['%.5f' % v for v in r['mse']]}")
+    print(f"vqtrain st-ema: codes with a nonzero EMA cluster size {moved:.4f}")
+
+
+def phase_fid(torch, png, work: str, smi: str) -> None:
+    """``cli.fid.main`` on the card: the seeded random InceptionV3 gives
+    FID(A, A) below 1e-3 and FID(A, B) > 0 for two distinct sets of 32
+    smooth 160 x 200 images; --inception-score; a TSV of A's images gives
+    A's statistics; --extractor vq with phase 23's VQ-VAE; then the
+    extractor's images/s at batch 50, 299 x 299."""
+    import base64
+
+    import numpy as np
+
+    from cogview_tpu_torch.cli import fid
+    from cogview_tpu_torch.eval_utils import inception
+
+    # 160 x 200 PNGs (resized to 256 by the CLI): a TSV row of one stays
+    # under the csv module's 131,072-character field limit, which the JAX
+    # package's stream shares
+    a = _write_image_sources(png, work, 32, seed=25, h=160, w=200)[0]
+    b = _write_image_sources(png, work, 32, seed=26, h=160, w=200)[0]
+    tsv = os.path.join(work, "fid_a.tsv")
+    with open(tsv, "w") as f:
+        for n in sorted(os.listdir(a)):
+            with open(os.path.join(a, n), "rb") as g:
+                f.write(f"{n}\t_\tcaption\t{base64.urlsafe_b64encode(g.read()).decode()}\n")
+    runs = {}
+    for key, argv in (("aa", ["--path1", a, "--path2", a]),
+                      ("ab", ["--path1", a, "--path2", b, "--inception-score", "--is-splits", "2"]),
+                      ("tsv", ["--path1", tsv, "--path2", b]),
+                      ("vq", ["--path1", a, "--path2", b, "--extractor", "vq",
+                              "--img-tokenizer-path", os.path.join(work, "vqvae_released.pt")])):
+        rc, _ = _run_quiet(fid.main, [*argv, "--batch-size", "16", "--device", "cuda"])
+        _check(rc == 0, f"fid {key} failed")
+        runs[key] = dict(fid.main.last)
+    aa, ab, ts, vq = runs["aa"], runs["ab"], runs["tsv"], runs["vq"]
+    _check(abs(aa["fid"]) < 1e-3, f"FID(A, A) = {aa['fid']}")
+    _check(ab["fid"] > 0 and vq["fid"] > 0, f"FID(A, B) = {ab['fid']}, vq {vq['fid']}")
+    _check(np.isfinite(ab["is_mean"]) and ab["is_mean"] >= 1.0 - 1e-6, "IS is not finite")
+    mu_err = float(np.abs(ts["mu1"] - ab["mu1"]).max())
+    sig_err = float(np.abs(ts["sigma1"] - ab["sigma1"]).max())
+    _check(ts["n1"] == ab["n1"] == 32 and mu_err <= 1e-5 * float(np.abs(ab["mu1"]).max())
+           and sig_err <= 1e-5 * float(np.abs(ab["sigma1"]).max()),
+           f"the TSV's statistics differ from the folder's (mu {mu_err}, sigma {sig_err})")
+    # the extractor alone: pool3 of a batch of 50 256-pixel images (the
+    # resize to 299 inside), CUDA events
+    model = inception.init_model(0, with_fc=False, device="cuda")
+    x = torch.rand(INCEPTION_BATCH, 256, 256, 3, generator=torch.Generator(device="cuda")
+                   .manual_seed(0), device="cuda")
+    us = _device_time_us(torch, lambda: inception.pool3_features(model, x), reps=10)
+    print(f"fid ({smi}): FID(A, A) {aa['fid']:.3e}, FID(A, B) {ab['fid']:.6f}, "
+          f"IS(B) {ab['is_mean']:.6f} +/- {ab['is_std']:.6f}, vq-proxy FID(A, B) "
+          f"{vq['fid']:.6f}; TSV vs folder statistics max |d mu| {mu_err:.3e}, "
+          f"max |d sigma| {sig_err:.3e}; InceptionV3 pool3 at batch {INCEPTION_BATCH}, 299^2: "
+          f"{us / 1000:.3f} ms ({INCEPTION_BATCH * 1e6 / us:.1f} images/s)")
+
+
 def main() -> int:
     import torch
 
@@ -2501,8 +2790,17 @@ def main() -> int:
         lap("phase 21")
         phase_other_routes(torch, fa, pretrain, work)
         lap("phase 22")
-    # the flash kernels' launches on the training paths: phases 14, 19, 20
-    train_launches = [a + b + c for a, b, c in zip(train_launches, ft_launches, full_launches)]
+        # phase 23: a corpus from images through the preprocess CLI, then
+        # pretraining on it; phase 24: VQ-VAE training; phase 25: FID and IS
+        pre_launches = phase_preprocess(torch, fa, vqvae, cfgmod, png, pretrain, work)
+        lap("phase 23")
+        phase_vqtrain(torch, work, smi.splitlines()[0])
+        lap("phase 24")
+        phase_fid(torch, png, work, smi.splitlines()[0])
+        lap("phase 25")
+    # the flash kernels' launches on the training paths: phases 14, 19, 20, 23
+    train_launches = [a + b + c + d for a, b, c, d in zip(train_launches, ft_launches,
+                                                          full_launches, pre_launches)]
 
     def decode_entry(name, summary, launches, err, kv):
         times = summary["times"]

@@ -46,12 +46,14 @@ def gpt_params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     return _tree(tree, leaf)
 
 
-def vqvae_params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+def vqvae_params_from_jax(tree: Dict[str, Any], device=None,
+                          ema: bool = False) -> Dict[str, Any]:
     """VQ-VAE encoder, decoder and codebook.  Convs HWIO -> OIHW.
     Transposed convs are stored [kh, kw, out, in] in the JAX package and
     map to PyTorch's [in, out, kh, kw] by a pure permutation: both index
     taps the same way (out[2q] takes x[q] * W[1] + x[q-1] * W[3]), so no
-    flip.  The codebook's EMA statistics (training state) are dropped."""
+    flip.  The codebook's EMA statistics (training state) are dropped
+    unless ``ema``."""
 
     def convs(part):
         # both layouts permute (3, 2, 0, 1)
@@ -59,5 +61,18 @@ def vqvae_params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
                        "b": _tensor(p["b"], device)}
                 for name, p in part.items()}
 
+    keys = ("embed", "cluster_size", "embed_avg") if ema else ("embed",)
     return {"encoder": convs(tree["encoder"]), "decoder": convs(tree["decoder"]),
-            "quantize": {"embed": _tensor(tree["quantize"]["embed"], device)}}
+            "quantize": {k: _tensor(tree["quantize"][k], device) for k in keys}}
+
+
+def vqvae_params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The reverse of :func:`vqvae_params_from_jax`: the JAX package's
+    layouts (convs HWIO, transposed convs [kh, kw, out, in]) as numpy."""
+
+    def convs(part):
+        return {name: {"w": p["w"].detach().cpu().numpy().transpose(2, 3, 1, 0),
+                       "b": p["b"].detach().cpu().numpy()} for name, p in part.items()}
+
+    return {"encoder": convs(tree["encoder"]), "decoder": convs(tree["decoder"]),
+            "quantize": {k: v.detach().cpu().numpy() for k, v in tree["quantize"].items()}}

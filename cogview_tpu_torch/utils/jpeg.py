@@ -23,14 +23,20 @@ libjpeg-turbo, whose default output is integer arithmetic, ported here:
 - the fixed-point YCbCr -> RGB tables (``jdcolor.c``: 16 fraction bits,
   ``ONE_HALF``).
 
-Lossless, hierarchical, arithmetic-coded, 12-bit and four-component
-(CMYK, YCCK) files raise a ``ValueError`` that names the format.  Huffman decoding is a Python loop over symbols: each reads a
+Four components are read as libjpeg-turbo reads them for Pillow: CMYK
+without an Adobe marker or with transform 0, YCCK with transform 2 (or any
+other), each inverted as Pillow's ``CMYK;I`` raw mode and converted to RGB
+as Pillow's ``cmyk2rgb`` does.  Lossless, hierarchical, arithmetic-coded
+and 12-bit files raise an ``UnsupportedImageError`` (a ``ValueError``) that
+names the format.  Huffman decoding is a Python loop over symbols: each reads a
 16-bit window through a 65,536-entry table.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .image_errors import UnsupportedImageError
 
 # zigzag index -> natural (row-major) index of the 8x8 block
 _ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48,
@@ -452,10 +458,9 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             progressive = m == 0xC2
             precision, h, w, nc = body[0], _u16(body, 1), _u16(body, 3), body[5]
             if precision != 8:
-                raise ValueError(f"{precision}-bit JPEG is not supported (8-bit only)")
-            if nc == 4:
-                raise ValueError("CMYK/YCCK JPEG (4 components) is not supported")
-            if nc not in (1, 3):
+                raise UnsupportedImageError(
+                    f"{precision}-bit JPEG is not supported (8-bit only)")
+            if nc not in (1, 3, 4):
                 raise ValueError(f"JPEG with {nc} components is not supported")
             if h == 0 or w == 0:
                 raise ValueError("JPEG with a DNL-defined height is not supported")
@@ -476,8 +481,9 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 c["dh"] = -(-h * c["v"] // vmax)
             coefs = [[0] * (c["bw"] * c["bh"] * 64) for c in comps]
         elif m in _UNSUPPORTED_SOF or m == 0xCC:
-            raise ValueError(f"{_UNSUPPORTED_SOF.get(m, 'arithmetic-coded JPEG (DAC)')} is "
-                             "not supported (sequential and progressive Huffman only)")
+            raise UnsupportedImageError(
+                f"{_UNSUPPORTED_SOF.get(m, 'arithmetic-coded JPEG (DAC)')} is not supported "
+                "(sequential and progressive Huffman only)")
         elif m == 0xC4:  # DHT
             at = 0
             while at < len(body):
@@ -555,6 +561,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         planes.append(_upsample(plane, hmax // c["h"], vmax // c["v"])[:h, :w])
     if len(planes) == 1:
         return np.repeat(planes[0][..., None], 3, axis=2)
+    if len(planes) == 4:
+        return _four_to_rgb(planes, adobe)
     if _is_rgb(comps, jfif, adobe):
         return np.stack(planes, axis=-1)
     return ycc_to_rgb(*planes)
@@ -568,9 +576,33 @@ def _is_rgb(comps, jfif: bool, adobe) -> bool:
         return False
     if adobe is not None:
         if adobe == 2:
-            raise ValueError("Adobe transform 2 (YCCK) JPEG is not supported")
+            raise UnsupportedImageError(
+                "Adobe transform 2 (YCCK) on a three-component JPEG is not supported")
         return adobe == 0
     return [c["id"] for c in comps] == [82, 71, 66]
+
+
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Pillow's MULDIV255: a * b / 255, rounded, in integers."""
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def _four_to_rgb(planes, adobe) -> np.ndarray:
+    """Four components -> [h, w, 3] uint8, as Pillow's
+    ``convert("RGB")`` of the CMYK image it opens.  libjpeg's
+    default_decompress_parms: no Adobe marker means CMYK, transform 0 CMYK,
+    any other YCCK, which jdcolor.c's ycck_cmyk_convert turns into CMYK
+    (255 minus the YCbCr -> RGB of the first three, K as it is).  Pillow
+    then inverts all four (``CMYK;I``, Adobe's polarity) and ``cmyk2rgb``
+    gives each channel ``nk - nk * c / 255`` with ``nk = 255 - k``."""
+    c, m, y, k = (p.astype(np.int64) for p in planes)
+    if adobe is not None and adobe != 0:  # YCCK: the inverted CMYK is the RGB
+        inv = ycc_to_rgb(*planes[:3]).astype(np.int64)
+    else:
+        inv = 255 - np.stack([c, m, y], axis=-1)
+    nk = k[..., None]  # 255 - (255 - k)
+    return np.clip(nk - _muldiv255(inv, nk), 0, 255).astype(np.uint8)
 
 
 def _scan_mcus(comps, scan, w: int, h: int) -> int:

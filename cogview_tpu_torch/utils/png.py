@@ -36,18 +36,22 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """img: [h, w, 3] uint8."""
+def encode_png(img: np.ndarray) -> bytes:
+    """img: [h, w, 3] uint8 -> the bytes of a PNG file."""
     img = np.ascontiguousarray(img)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"write_png wants [h, w, 3] uint8, got {img.shape} {img.dtype}")
     h, w, _ = img.shape
     raw = b"".join(b"\x00" + img[r].tobytes() for r in range(h))
+    return (_SIG + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """img: [h, w, 3] uint8."""
+    data = encode_png(img)
     with open(path, "wb") as f:
-        f.write(_SIG)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(data)
 
 
 def _paeth(a: int, b: int, c: int) -> int:

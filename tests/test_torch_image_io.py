@@ -2,7 +2,8 @@
 
 ``cogview_tpu_torch/utils/png.py`` reads every PNG colour type, depth and
 interlace, ``cogview_tpu_torch/utils/jpeg.py`` baseline and progressive
-JPEG, and
+JPEG (also CMYK and YCCK), ``utils/bmp.py`` BMP and ``utils/gif.py`` GIF's
+first frame, and
 ``models/vqvae.py::read_img`` picks between them by the file's magic bytes.
 Each case holds the port's pixels against Pillow 12.1's
 ``Image.open(p).convert("RGB")`` and its ``read_img`` against the JAX
@@ -34,6 +35,9 @@ Image = pytest.importorskip("PIL.Image")
 
 from cogview_tpu.models import vqvae as jvq  # noqa: E402
 from cogview_tpu_torch.models import vqvae  # noqa: E402
+from cogview_tpu_torch.utils.bmp import decode_bmp  # noqa: E402
+from cogview_tpu_torch.utils.gif import decode_gif  # noqa: E402
+from cogview_tpu_torch.utils.image_errors import UnsupportedImageError  # noqa: E402
 from cogview_tpu_torch.utils.jpeg import decode_jpeg  # noqa: E402
 from cogview_tpu_torch.utils.png import decode_png, read_png  # noqa: E402
 
@@ -502,12 +506,18 @@ def test_progressive_jpeg_raises_a_named_error(sof, match):
 
 
 def test_cmyk_jpeg_raises_a_named_error(tmp_path):
+    """A CMYK JPEG now reads as Pillow reads it (the cases below); what
+    still raises by name is a four-component frame that no reader here
+    takes, an arithmetic-coded one."""
     buf = io.BytesIO()
     Image.fromarray(_picture(9, 7, 1)).convert("CMYK").save(buf, "JPEG")
     path = tmp_path / "cmyk.jpg"
     path.write_bytes(buf.getvalue())
-    with pytest.raises(ValueError, match="CMYK"):
-        vqvae.read_img(str(path))
+    np.testing.assert_array_equal(vqvae.read_img(str(path)), jvq.read_img(str(path)))
+    header = b"\xff\xc9" + struct.pack(">HBHHB", 20, 8, 8, 8, 4) + b"".join(
+        bytes([k, 0x11, 0]) for k in range(1, 5))
+    with pytest.raises(UnsupportedImageError, match="arithmetic-coded"):
+        decode_jpeg(b"\xff\xd8" + header + b"\xff\xd9")
 
 
 @pytest.mark.parametrize("header,match", [
@@ -535,12 +545,19 @@ def test_adobe_transform_2_and_oversized_mcus_raise():
 
 @pytest.mark.parametrize("fmt", ["GIF", "BMP", "TIFF", "text"])
 def test_other_files_raise_an_error_naming_what_is_read(tmp_path, fmt):
+    """GIF and BMP now read, by their magic bytes, as the JAX package reads
+    them; TIFF raises an ``UnsupportedImageError`` and other bytes a
+    ``ValueError``, each naming what is read."""
     path = tmp_path / "img.png"  # the name is not what decides
     if fmt == "text":
         path.write_bytes(b"not an image\n")
     else:
         Image.fromarray(_picture(9, 7, 2)).save(str(path), fmt)
-    with pytest.raises(ValueError, match="PNG .* or baseline JPEG"):
+    if fmt in ("GIF", "BMP"):
+        np.testing.assert_array_equal(vqvae.read_img(str(path)), jvq.read_img(str(path)))
+        return
+    error = UnsupportedImageError if fmt == "TIFF" else ValueError
+    with pytest.raises(error, match="PNG .* or baseline JPEG"):
         vqvae.read_img(str(path))
 
 
@@ -606,6 +623,321 @@ def test_image_query_context_tokens_match_jax(tmp_path):
             got = ttasks.parse_query_line(raw, task, ttok)
             assert len(got) == len(want) > 256, (name, task)
             assert list(got) == list(want), (name, task)
+
+
+# --------------------------------------------------------------------- #
+# CMYK / YCCK JPEG, BMP and GIF: byte-equal to Pillow's convert("RGB")
+# --------------------------------------------------------------------- #
+
+
+def _check_pillow(decode, data: bytes) -> None:
+    """The port's pixels equal Pillow's, or both refuse the file."""
+    try:
+        want = _pillow(data)
+    except (OSError, ValueError, SyntaxError):
+        with pytest.raises(ValueError):
+            decode(data)
+        return
+    got = decode(data)
+    assert got.shape == want.shape and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kw", [{}, {"quality": 50}, {"subsampling": "4:2:0"},
+                                {"progressive": True}, {"progressive": True, "quality": 95}],
+                         ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()) or "default")
+def test_cmyk_jpeg_as_pillow_writes_it(tmp_path, kw):
+    """Pillow's CMYK files (Adobe marker, transform 0), baseline and
+    progressive, at odd sizes."""
+    for h, w in JPEG_SIZES:
+        cmyk = Image.fromarray(_picture(h, w, h + w)).convert("CMYK")
+        buf = io.BytesIO()
+        cmyk.save(buf, "JPEG", **kw)
+        assert b"Adobe" in buf.getvalue()
+        _check_jpeg(tmp_path, buf.getvalue())
+
+
+@pytest.mark.parametrize("app,sampling", [
+    (b"", ((1, 1),) * 4), (_adobe(0), ((2, 2), (1, 1), (1, 1), (1, 1))),
+    (_adobe(2), ((2, 2), (1, 1), (1, 1), (2, 2))), (_adobe(1), ((1, 1),) * 4),
+    (JFIF + _adobe(2), ((2, 1), (1, 1), (1, 1), (1, 1)))],
+    ids=["no marker", "transform 0", "transform 2", "transform 1", "JFIF + transform 2"])
+def test_four_component_jpeg_colour_spaces(tmp_path, app, sampling):
+    """Four components from the small encoder: no Adobe marker and
+    transform 0 are CMYK, transform 2 (and 1) YCCK, as libjpeg decides."""
+    for h, w in ((1, 1), (9, 7), (37, 53)):
+        arr = _picture(h, w, 5 * h + w)
+        planes = list(np.concatenate([arr, arr[..., :1] // 2 + 64], -1).transpose(2, 0, 1))
+        _check_jpeg(tmp_path, _encode_jpeg(planes, sampling, ids=(1, 2, 3, 4), app=app))
+
+
+def _bmp(pix: bytes, w: int, h: int, bits: int, *, header: int = 40, compression: int = 0,
+         palette: bytes = b"", masks=(), colors: int = 0, topdown: bool = False) -> bytes:
+    """A BMP file around ``pix`` (rows already in file order and padded)."""
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if topdown else h, 1, bits,
+                           compression, len(pix), 2835, 2835, colors, 0)
+        tail = b"".join(struct.pack("<I", m) for m in masks) if header > 40 else b""
+        info += (tail + bytes(header - 40))[:header - 40]
+        if header == 40:
+            info += b"".join(struct.pack("<I", m) for m in masks)
+    offset = 14 + len(info) + len(palette)
+    return b"BM" + struct.pack("<IHHI", offset + len(pix), 0, 0, offset) + info + palette + pix
+
+
+def _rows(idx_or_bytes: np.ndarray, bits: int, topdown=False) -> bytes:
+    """[h, w] indices (bits <= 8) or [h, w*k] bytes -> padded rows, bottom-up
+    unless ``topdown``."""
+    a = np.asarray(idx_or_bytes)
+    if bits < 8:
+        per = 8 // bits
+        a = np.pad(a, ((0, 0), (0, -a.shape[1] % per)))
+        a = a.reshape(a.shape[0], -1, per)
+        a = sum(a[..., i].astype(np.uint8) << (8 - bits * (i + 1)) for i in range(per))
+    a = a.astype(np.uint8)
+    a = np.pad(a, ((0, 0), (0, -a.shape[1] % 4)))
+    return (a if topdown else a[::-1]).tobytes()
+
+
+def _rle8(idx: np.ndarray, rle4=False) -> bytes:
+    """Bottom-up RLE: encoded runs, an absolute run, a delta and EOLs."""
+    out = bytearray()
+    h, w = idx.shape
+    for y, row in enumerate(idx[::-1]):
+        x = 0
+        if y == 1 and w > 4:  # a delta of 2 right in row 1 (Pillow reads 4 bytes)
+            out += bytes([0, 2, 0, 0, 2, 0])
+            x = 2
+        while x < w:
+            if w - x >= 4 and x % 2 == 0:  # an absolute run of up to 4 pixels
+                n = min(w - x, 4) & ~1 if rle4 else min(w - x, 3)
+                vals = row[x:x + n]
+                if rle4:
+                    out += bytes([0, n]) + bytes((vals[i] << 4) | vals[i + 1] for i in range(0, n, 2))
+                    pad = (n // 2) % 2
+                else:
+                    out += bytes([0, n]) + bytes(int(v) for v in vals)
+                    pad = n % 2
+                out += bytes(pad)
+                x += n
+                continue
+            n = 1
+            while x + n < w and row[x + n] == row[x] and n < 255:
+                n += 1
+            v = int((row[x] << 4) | row[x] if rle4 else row[x])
+            out += bytes([n, v])
+            x += n
+        out += bytes([0, 0])
+    return bytes(out + bytes([0, 1]))
+
+
+def _bmp_cases(h: int, w: int, rng):
+    """(name, file) of every BMP variant at h x w."""
+    out = []
+    for bits in (1, 4, 8):
+        ncol = 1 << bits
+        for colors, top in ((0, False), (3, True)):
+            pal = rng.randint(0, 256, ((colors or ncol), 4)).astype(np.uint8).tobytes()
+            idx = rng.randint(0, ncol, (h, w))
+            for hdr in (40, 124, 12):
+                if hdr == 12 and top:
+                    continue
+                p = pal if hdr != 12 else np.frombuffer(pal, np.uint8).reshape(-1, 4)[:, :3].tobytes()
+                out.append((f"{bits}-bit colors={colors} topdown={top} header={hdr}",
+                            _bmp(_rows(idx, bits, top), w, h, bits, header=hdr, palette=p,
+                                 colors=colors, topdown=top)))
+        if bits > 1:
+            pal = rng.randint(0, 256, (ncol, 4)).astype(np.uint8).tobytes()
+            out.append((f"RLE{bits}", _bmp(_rle8(rng.randint(0, 3, (h, w)), bits == 4), w, h,
+                                           bits, compression=2 if bits == 4 else 1, palette=pal)))
+    gray = b"".join(bytes([i, i, i, 0]) for i in range(256))
+    out += [("gray 8-bit", _bmp(_rows(rng.randint(0, 256, (h, w)), 8), w, h, 8, palette=gray)),
+            ("gray 1-bit", _bmp(_rows(rng.randint(0, 2, (h, w)), 1), w, h, 1,
+                                palette=bytes(4) + bytes([255] * 3 + [0]))),
+            ("gray 4-bit (Pillow refuses)", _bmp(_rows(rng.randint(0, 16, (h, w)), 4), w, h, 4,
+                                                 palette=gray[:64]))]
+    px16 = rng.randint(0, 65536, (h, w)).astype("<u2").view(np.uint8).reshape(h, 2 * w)
+    out.append(("16-bit", _bmp(_rows(px16, 8), w, h, 16)))
+    for masks in ((0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F), (0xF00, 0xF0, 0xF)):
+        for hdr in (40, 56, 124):
+            out.append((f"16-bit bitfields {masks} header={hdr}",
+                        _bmp(_rows(px16, 8), w, h, 16, compression=3, header=hdr,
+                             masks=masks + ((0,) if hdr > 40 else ()))))
+    out.append(("24-bit top-down", _bmp(_rows(rng.randint(0, 256, (h, 3 * w)), 8, True), w, h,
+                                         24, topdown=True)))
+    px32 = rng.randint(0, 256, (h, 4 * w))
+    out.append(("32-bit", _bmp(_rows(px32, 8), w, h, 32)))
+    for masks in ((0xFF0000, 0xFF00, 0xFF, 0), (0xFF000000, 0xFF0000, 0xFF00, 0),
+                  (0xFF, 0xFF00, 0xFF0000, 0xFF000000), (0xFF000000, 0xFF00, 0xFF, 0xFF0000),
+                  (0, 0, 0, 0)):
+        out.append((f"32-bit bitfields {masks}",
+                    _bmp(_rows(px32, 8), w, h, 32, compression=3, masks=masks, header=124)))
+    return out
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (3, 5), (9, 7), (17, 33)], ids=str)
+def test_bmp_every_depth_compression_and_header(hw):
+    """BI_RGB at 1/4/8 (palettes, short ones, gray ones Pillow drops),
+    16/24/32 bits, BI_BITFIELDS (Pillow's masks, and one it refuses), RLE8
+    and RLE4 with a delta and absolute runs, top-down and bottom-up, the
+    core, info, v3 and v5 headers; equal to Pillow or refused by both."""
+    rng = np.random.RandomState(hw[0] * 100 + hw[1])
+    for name, data in _bmp_cases(*hw, rng):
+        try:
+            _check_pillow(decode_bmp, data)
+        except AssertionError as e:
+            raise AssertionError(name) from e
+
+
+@pytest.mark.parametrize("mode", ["RGB", "P", "L", "1", "RGBA"])
+def test_bmp_as_pillow_writes_it(tmp_path, mode):
+    for h, w in ((1, 1), (9, 7), (37, 53)):
+        im = Image.fromarray(_picture(h, w, h * w))
+        im = im.quantize(7) if mode == "P" else im.convert(mode)
+        buf = io.BytesIO()
+        im.save(buf, "BMP")
+        _check_pillow(decode_bmp, buf.getvalue())
+        _check_read_img(tmp_path, buf.getvalue(), "img.bmp")
+
+
+
+def _lzw_encode(idx, bits, clear_every=0):
+    """Plain LZW (codes LSB-first) with a clear code first, optional clears."""
+    clear, end = 1 << bits, (1 << bits) + 1
+    out, acc, nacc = bytearray(), 0, 0
+    size = bits + 1
+
+    def put(code):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += size
+        while nacc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nacc -= 8
+
+    def reset():
+        return {bytes([i]): i for i in range(clear)}, end + 1
+
+    put(clear)
+    table, nxt = reset()
+    w = b""
+    for k, v in enumerate(bytes(int(x) for x in idx)):
+        if clear_every and k and k % clear_every == 0 and w:
+            put(table[w]); put(clear)
+            table, nxt = reset(); size = bits + 1; w = b""
+        wc = w + bytes([v])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        if nxt < 4096:
+            table[wc] = nxt
+            nxt += 1
+            if nxt - 1 == (1 << size) and size < 12:
+                size += 1
+        w = bytes([v])
+    if w:
+        put(table[w])
+    put(end)
+    if nacc:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _blocks(b):
+    return b"".join(bytes([len(b[i:i + 255])]) + b[i:i + 255] for i in range(0, len(b), 255)) + b"\x00"
+
+
+def _gif(frame, sw, sh, *, x0=0, y0=0, gpal=None, lpal=None, interlace=False, trns=None,
+         bits=None, extra=b"", clear_every=0, end=b";"):
+    """A GIF89a of one frame ([fh, fw] indices) at (x0, y0) on an sw x sh screen."""
+    fh, fw = frame.shape
+    def pal_flags(p):
+        n = len(p) // 3
+        return 0x80 | (n.bit_length() - 2)
+    head = b"GIF89a" + struct.pack("<HH", sw, sh) + bytes([pal_flags(gpal) if gpal else 0, 0, 0])
+    head += gpal or b""
+    head += extra
+    if trns is not None:
+        head += b"!\xf9\x04" + bytes([1, 0, 0, trns]) + b"\x00"
+    rows = frame
+    if interlace:
+        order = [r for s, st in ((0, 8), (4, 8), (2, 4), (1, 2)) for r in range(s, fh, st)]
+        rows = frame[order]
+    flags = (pal_flags(lpal) if lpal else 0) | (0x40 if interlace else 0)
+    desc = b"," + struct.pack("<HHHH", x0, y0, fw, fh) + bytes([flags]) + (lpal or b"")
+    if bits is None:
+        bits = max(2, int(frame.max()).bit_length())
+    return head + desc + bytes([bits]) + _blocks(_lzw_encode(rows.reshape(-1), bits, clear_every)) + end
+
+
+@pytest.mark.parametrize("ncol", [2, 4, 16, 256])
+def test_gif_palettes_interlace_transparency_and_frames(ncol):
+    """Global and local palettes, a gray palette Pillow drops, none at all,
+    interlace, a transparent index, a frame offset on a larger screen and
+    one that overhangs it, clear codes mid-stream and a comment; equal to
+    Pillow."""
+    rng = np.random.RandomState(ncol)
+
+    def pal(n):
+        return rng.randint(0, 256, 3 * n).astype(np.uint8).tobytes()
+
+    gray = bytes(np.repeat(np.arange(ncol, dtype=np.uint8), 3))
+    for h, w in ((1, 1), (3, 5), (9, 7), (17, 33), (64, 80)):
+        fr = rng.randint(0, ncol, (h, w))
+        for data in (_gif(fr, w, h, gpal=pal(ncol)),
+                     _gif(fr, w, h, gpal=pal(ncol), lpal=pal(ncol), interlace=True),
+                     _gif(fr, w + 3, h + 2, x0=2, y0=1, gpal=pal(ncol), trns=1),
+                     _gif(fr, w + 3, h + 2, x0=2, y0=1, gpal=pal(ncol)),
+                     _gif(fr, max(1, w - 2), h, x0=1, lpal=pal(ncol)),
+                     _gif(fr, w, h),
+                     _gif(fr, w, h, gpal=pal(ncol), clear_every=7, extra=b"!\xfe\x03abc\x00"),
+                     _gif(fr, w, h, gpal=gray)):
+            _check_pillow(decode_gif, data)
+
+
+def test_gif_short_palette_truncation_and_pillow_files(tmp_path):
+    """Indices past a two-entry palette, files cut short (both refuse), and
+    Pillow's own GIFs of P, L and RGB images with and without transparency,
+    through ``read_img`` as well."""
+    rng = np.random.RandomState(7)
+    for h, w in ((1, 1), (9, 7), (64, 80)):
+        _check_pillow(decode_gif, _gif(rng.randint(0, 4, (h, w)), w, h,
+                                       gpal=bytes(range(6)), bits=2))
+        data = _gif(rng.randint(0, 16, (h, w)), w, h, gpal=bytes(range(48)))
+        _check_pillow(decode_gif, data[:len(data) // 2 + 20])
+    for mode in ("P", "L", "RGB"):
+        im = Image.fromarray(_picture(33, 47, 3))
+        im = im.quantize(50) if mode == "P" else im.convert(mode)
+        for kw in ({}, {"transparency": 3}):
+            buf = io.BytesIO()
+            im.save(buf, "GIF", **kw)
+            _check_pillow(decode_gif, buf.getvalue())
+            _check_read_img(tmp_path, buf.getvalue(), "img.gif")
+
+
+@pytest.mark.parametrize("fmt", ["WEBP", "TIFF", "ICO", "PPM", "JPEG2000", "PSD", "QOI"])
+def test_formats_pillow_reads_raise_a_named_error(fmt):
+    """Files Pillow reads and the port does not: an ``UnsupportedImageError``
+    naming the format (Pillow writes them here where it can)."""
+    names = {"WEBP": "WebP", "ICO": "ICO", "PPM": "PNM", "JPEG2000": "JPEG 2000", "TIFF": "TIFF",
+             "PSD": "PSD", "QOI": "QOI"}
+    try:
+        data = _encoded_by_pillow(fmt)
+    except (KeyError, OSError, ValueError):  # no writer in this Pillow: the magic bytes
+        data = {"WEBP": b"RIFF\x10\x00\x00\x00WEBPVP8 ", "PSD": b"8BPS\x00\x01",
+                "JPEG2000": b"\xff\x4f\xff\x51", "QOI": b"qoif"}[fmt] + bytes(16)
+    with pytest.raises(UnsupportedImageError, match=names[fmt]):
+        vqvae.decode_image(data)
+
+
+def _encoded_by_pillow(fmt: str) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(_picture(16, 16, 1)).save(buf, fmt)
+    return buf.getvalue()
 
 
 def main() -> None:

@@ -110,7 +110,18 @@ def test_port_imports_no_jax():
             "cogview_tpu_torch.scripts.seal_scatter_probe",
             "cogview_tpu_torch.scripts.decode_kernel_microbench",
             "cogview_tpu_torch.ops.sparse_attention", "cogview_tpu_torch.data.position_ids",
-            "cogview_tpu_torch.scripts.train_step_profile"} <= set(mods)
+            "cogview_tpu_torch.scripts.train_step_profile",
+            "cogview_tpu_torch.cli.vqtrain", "cogview_tpu_torch.cli.fid",
+            "cogview_tpu_torch.cli.preprocess", "cogview_tpu_torch.training.vqvae_train",
+            "cogview_tpu_torch.utils.memory", "cogview_tpu_torch.utils.bmp",
+            "cogview_tpu_torch.utils.gif", "cogview_tpu_torch.utils.image_errors",
+            "cogview_tpu_torch.preprocess.raw_datasets",
+            "cogview_tpu_torch.preprocess.rar_reader",
+            "cogview_tpu_torch.preprocess.tokenize_images",
+            "cogview_tpu_torch.preprocess.recover_grid",
+            "cogview_tpu_torch.eval_utils.inception", "cogview_tpu_torch.eval_utils.fid",
+            "cogview_tpu_torch.eval_utils.inception_score",
+            "cogview_tpu_torch.eval_utils.dataset"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
