@@ -185,7 +185,32 @@ result):
    card: FID(A, A) below 1e-3 and FID(A, B) > 0 for two sets of 32
    smooth 160 x 200 PNGs, --inception-score, a TSV of A's images giving the
    folder's statistics (to 1e-5), --extractor vq on phase 23's VQ-VAE;
-   then pool3 alone at batch 50, 299 x 299 (images/s).
+   then pool3 alone at batch 50, 299 x 299 (images/s);
+26. native host runtimes: ``g++`` builds csrc/spm and csrc/dataio into the
+   build directory; on a SentencePiece BPE model written here (2,248
+   pieces of every type), the native runtime, which ``make_text_tokenizer``
+   picks, gives the pure-Python runtime's ids over 4,000 captions, its
+   decodes and piece lookups, each one's encode rate printed; native
+   ``dataio`` batches equal the Python loader's rows of phase 23's corpus;
+27. K3, K4 and K5 of a shard: at the tutorial's training shape (B=16,
+   N=16, S=1,088, dropout 0.1), rows 8-15 and heads 8-15 with their batch
+   and head offsets, float32 and bf16: within tolerance of the plain
+   versions with the same offsets and bit-equal to the block of the
+   unsharded kernels' o, lse, dq, dk and dv (so the shard's keep mask is
+   the block of the unsharded one), the forward's time with and without
+   the offsets;
+28. two ranks on the one card (``parallel/spawn.run_ranks``): a one-rank
+   NCCL group checks its collectives on CUDA tensors and computes the
+   references; then two gloo ranks (NCCL refuses two ranks on one device)
+   report which collectives gloo took on CUDA tensors and which went
+   through host memory, run 2 tutorial train steps (batch 4 x 1,088,
+   dropout 0.1, the flash kernels) at (dp, mp, fsdp) = (2, 1, no), (1, 2,
+   no) and (2, 1, yes) against the one-rank run (losses, grad norms, every
+   param), and cogview-base (48 layers, hidden 2560, 40 heads) at TP=2,
+   20 heads a rank: a 64-token prefill and 16 decode steps on the int8
+   (K1) and int4 (K2) caches against the one-rank logits (max |diff|,
+   argmax agreement, ids under fixed gumbel draws); step times only under
+   the label "two ranks share one card".
 
 The next-to-last line is the kernels' JSON record (each kernel's launches
 on the main path, error, time, plain version's time, bound and library
@@ -210,6 +235,26 @@ import zlib
 def _fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     raise SystemExit(1)
+
+
+def _live_children() -> list:
+    """The command lines of this process's children that are still running
+    (zombies left out): the script must stop every process it starts."""
+    pids = []
+    for task in os.listdir("/proc/self/task"):
+        with open(f"/proc/self/task/{task}/children") as f:
+            pids += f.read().split()
+    alive = []
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                    continue
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                alive.append(f"{pid}: {f.read().replace(bytes(1), b' ').decode()[:200]}")
+        except FileNotFoundError:
+            continue
+    return alive
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -2673,6 +2718,521 @@ def phase_fid(torch, png, work: str, smi: str) -> None:
           f"{us / 1000:.3f} ms ({INCEPTION_BATCH * 1e6 / us:.1f} images/s)")
 
 
+# --------------------------------------------------------------------- #
+# phase 26: the native host runtimes
+# --------------------------------------------------------------------- #
+
+SPM_CAPTIONS = 4000
+
+
+def _pb_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _pb_field(num: int, wire: int, payload) -> bytes:
+    import struct
+
+    key = _pb_varint(num << 3 | wire)
+    if wire == 0:
+        return key + _pb_varint(payload)
+    if wire == 5:
+        return key + struct.pack("<f", payload)
+    return key + _pb_varint(len(payload)) + payload
+
+
+def _spm_corpus(seed: int):
+    """A SentencePiece BPE model (protobuf wire format: pieces of every
+    type, merges with negated ranks as scores, identity normalization with
+    the dummy prefix and whitespace folding) and SPM_CAPTIONS captions of
+    words from its syllables, CJK characters, digits, punctuation, pieces
+    the model lacks and runs of whitespace -> (model bytes, captions)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    syl = [a + b for a in "bcdfghklmnprstvz" for b in "aeiou"] + list("一只猫的小狗山水画风景")
+    words = ["".join(rng.choice(syl, rng.randint(1, 4))) for _ in range(600)]
+    merges = {}
+    for w in words:  # every prefix, with and without the word-start mark
+        for i in range(2, len(w) + 1):
+            for piece in (w[:i], "▁" + w[:i]):
+                merges.setdefault(piece, len(merges))
+    chars = sorted(set("".join(syl)) | set("▁.,!?0123456789"))
+    pieces = ([("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3), ("<n>", 0.0, 4),
+               ("[X]", 0.0, 4)] + [(p, -float(r), 1) for p, r in merges.items()]
+              + [(c, -1e4, 1) for c in chars])
+    blob = b"".join(_pb_field(1, 2, _pb_field(1, 2, p.encode()) + _pb_field(2, 5, s)
+                              + _pb_field(3, 0, t)) for p, s, t in pieces)
+    blob += _pb_field(2, 2, _pb_field(3, 0, 2) + _pb_field(40, 0, 0))  # BPE, unk 0
+    blob += _pb_field(3, 2, _pb_field(1, 2, b"identity") + _pb_field(3, 0, 1)
+                      + _pb_field(4, 0, 1) + _pb_field(5, 0, 1))
+    extra = ["", " ", "  ", "\t", ",", ".", "!", "<n>", "[X]", "0", "42", "Q", "é", "ß"]
+    caps = []
+    for _ in range(SPM_CAPTIONS):
+        toks = [rng.choice(words) if rng.rand() < 0.8 else rng.choice(extra)
+                for _ in range(rng.randint(1, 25))]
+        sep = " " if rng.rand() < 0.7 else rng.choice(["", "  ", " \t "])
+        caps.append(("  " if rng.rand() < 0.1 else "") + sep.join(toks))
+    return blob, caps
+
+
+def phase_native(torch, work: str) -> dict:
+    """The g++ build of csrc/spm and csrc/dataio into the build directory;
+    native SentencePiece ids, decodes and piece lookups equal to the
+    pure-Python runtime's over SPM_CAPTIONS captions, with each one's
+    encode rate; native dataio batches equal to the Python loader's rows
+    on phase 23's corpus -> rates."""
+    import numpy as np
+
+    from cogview_tpu_torch.data.datasets import get_dataset_by_type
+    from cogview_tpu_torch.data.native_loader import NativeCompactDataset
+    from cogview_tpu_torch.ops import _kernels
+    from cogview_tpu_torch.tokenization import FakeImageTokenizer, UnifiedTokenizer
+    from cogview_tpu_torch.tokenization import sp_cpp, text_tokenizer, unified
+
+    t0 = time.perf_counter()
+    libs = _kernels.build_host(["spm", "dataio"])
+    build_s = time.perf_counter() - t0
+    _check(all(p.exists() and p.parent == _kernels.BUILD for p in libs),
+           "the host libraries are not in the build directory")
+    blob, caps = _spm_corpus(26)
+    path = os.path.join(work, "spm_test.model")
+    with open(path, "wb") as f:
+        f.write(blob)
+    cpp = unified.make_text_tokenizer(path)
+    py = text_tokenizer.from_pretrained(path)
+    _check(isinstance(cpp, sp_cpp.CppTextTokenizer), "make_text_tokenizer did not pick the "
+           "native runtime")
+    rates, ids = {}, {}
+    for name, tok in (("native", cpp), ("python", py)):
+        t0 = time.perf_counter()
+        ids[name] = [tok.encode(c) for c in caps]
+        dt = time.perf_counter() - t0
+        rates[name] = sum(len(c) for c in caps) / dt
+    bad = sum(a != b for a, b in zip(ids["native"], ids["python"]))
+    _check(bad == 0, f"{bad} of {len(caps)} captions encode to other ids natively")
+    dec_bad = sum(cpp.decode(i) != py.decode(i) for i in ids["python"][:500])
+    _check(dec_bad == 0, f"{dec_bad} decodes differ")
+    for piece in ("<unk>", "<n>", "[X]", py.model.pieces[40], "not a piece"):
+        _check(cpp.convert_token_to_id(piece) == py.convert_token_to_id(piece),
+               f"piece lookup of {piece!r} differs")
+    n_ids = sum(len(i) for i in ids["python"])
+    print(f"native runtimes: g++ build of {', '.join(p.name for p in libs)} in {build_s:.2f} s; "
+          f"SentencePiece ({len(py.model.pieces)} pieces) ids equal over {len(caps)} captions "
+          f"({n_ids} ids), decodes and piece lookups equal; encode rate native "
+          f"{rates['native'] / 1e6:.3f} M chars/s, python {rates['python'] / 1e6:.4f} M chars/s "
+          f"(x{rates['native'] / rates['python']:.1f}, this host)")
+
+    tok = UnifiedTokenizer(img_tokenizer=FakeImageTokenizer(8192), txt_tokenizer=WordTokenizer())
+    corpus = os.path.join(work, "t2i_folder.bin")
+    pyds = get_dataset_by_type("CompactBinaryDataset", corpus, tok, max_len=1089)
+    native = NativeCompactDataset(corpus, tok, max_len=1089)
+    _check(len(native) == len(pyds) == CORPUS_IMAGES, "the corpus sizes differ")
+    order = np.random.RandomState(26).permutation(len(native))
+    t0 = time.perf_counter()
+    batches = [native.batch(order[i:i + 16]) for i in range(0, len(order), 16)]
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = [pyds[int(i)] for i in order]
+    py_s = time.perf_counter() - t0
+    text = np.concatenate([b["text"] for b in batches])
+    mask = np.concatenate([b["loss_mask"] for b in batches])
+    _check(np.array_equal(text, np.stack([r["text"] for r in rows]))
+           and np.array_equal(mask, np.stack([r["loss_mask"] for r in rows])),
+           "native dataio batches differ from the Python loader's rows")
+    print(f"native dataio: {len(order)} rows of phase 23's corpus in 4 batches equal to the "
+          f"Python loader's; {len(order) / nat_s:.0f} rows/s native, {len(order) / py_s:.0f} "
+          f"rows/s python (this host)")
+    return {"spm_native_chars_per_s": rates["native"], "spm_python_chars_per_s": rates["python"]}
+
+
+# --------------------------------------------------------------------- #
+# phase 27: K3-K5 of a shard, with batch and head offsets
+# --------------------------------------------------------------------- #
+
+
+def phase_flash_offsets(torch, fa) -> dict:
+    """K3, K4 and K5 at the tutorial's training shape (B=16, N=16, D=64,
+    S=1088, bf16, dropout 0.1) on the shard of rows 8-15 and heads 8-15,
+    with its batch and head offsets: within tolerance of their plain
+    versions with the same offsets, bit-equal to the block of the unsharded
+    kernels' results (each (row, head) is one block's work, so the keep mask
+    of the shard is the block of the unsharded mask), and the plain keep
+    masks equal -> summary."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    B, N, D, S, rate, seed = 16, 16, 64, 1088, 0.1, 2718
+    rows, heads, off = slice(8, 16), slice(8, 16), (8, 8, 16)
+    worst, out = 0.0, {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        qkv = torch.randn((B, S, 3, N * D), generator=gen, device=dev).to(dtype)
+        q, k, v = (qkv[:, :, i].reshape(B, S, N, D) for i in range(3))
+        do = torch.randn((B, S, N, D), generator=gen, device=dev).to(dtype)
+        kw = dict(dropout_rate=rate, dropout_seed=seed)
+        o, lse = fa.flash_attention(q, k, v, 0, **kw)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        full = [o, fa.flash_bwd_dq(q, k, v, do, lse, delta, 0, **kw),
+                *fa.flash_bwd_dkv(q, k, v, do, lse, delta, 0, **kw)]
+        blk = [t[rows, :, heads] for t in (q, k, v, do)]
+        bl, bd = lse[rows, heads].contiguous(), delta[rows, heads].contiguous()
+        so, slse = fa.flash_attention(*blk[:3], 0, batch_offset=8, head_offset=8,
+                                      num_heads=N, **kw)
+        shard = [so, fa.flash_bwd_dq(*blk, bl, bd, 0, offsets=off, **kw),
+                 *fa.flash_bwd_dkv(*blk, bl, bd, 0, offsets=off, **kw)]
+        plain = [fa.flash_attention_reference(*blk[:3], 0, rate, seed, off)[0],
+                 fa.flash_bwd_dq_reference(*blk, bl, bd, 0, rate, seed, off),
+                 *fa.flash_bwd_dkv_reference(*blk, bl, bd, 0, rate, seed, off)]
+        torch.cuda.synchronize()
+        errs = []
+        for name, s_, f_, p_ in zip(("o", "dq", "dk", "dv"), shard, full, plain):
+            err = (s_.float() - p_.float()).abs().max().item()
+            scale = p_.float().abs().max().item()
+            _check(err <= tol * scale, f"K3-K5 with offsets: {name} {dtype} {err} > {tol} x "
+                   f"{scale} of the plain version")
+            _check(torch.equal(s_, f_[rows, :, heads]), f"K3-K5 with offsets: {name} {dtype} "
+                   "is not the block of the unsharded kernel's result")
+            worst = max(worst, err)
+            errs.append(f"{name} {err:.3e}")
+        _check(torch.equal(slse, lse[rows, heads]), "the shard's lse is not the block")
+        name = str(dtype)[6:]
+        print(f"flash kernels with offsets (b0, n0, N) = {off}, {name} B=8 of 16, N=8 of 16, "
+              f"S=1088, dropout 0.1: max_abs_err vs plain {', '.join(errs)} (tol {tol:g} x max); "
+              f"o, lse, dq, dk, dv bit-equal to the unsharded kernels' block")
+        if dtype == torch.bfloat16:
+            ones = torch.ones((B, N, 64, 64), device=dev)
+            keep_full = fa._drop(ones, rate, seed) != 0
+            keep = fa._drop(ones[rows, heads], rate, seed, off) != 0
+            _check(torch.equal(keep, keep_full[rows, heads]), "the plain keep mask of the shard "
+                   "is not the block of the unsharded mask")
+            out["ms"] = _device_time_us(torch, lambda: fa.flash_attention(
+                *blk[:3], 0, batch_offset=8, head_offset=8, num_heads=N, **kw)) / 1000.0
+            out["zero_ms"] = _device_time_us(torch, lambda: fa.flash_attention(
+                *blk[:3], 0, **kw)) / 1000.0
+            print(f"flash forward on the shard, bf16 with dropout: {out['ms'] * 1e3:.1f} us/call "
+                  f"with offsets, {out['zero_ms'] * 1e3:.1f} us/call at zero offsets (CUDA "
+                  f"events, median of 25)")
+        del qkv, q, k, v, do, o, lse, delta, full, blk, shard, plain
+    out["max_abs_err"] = worst
+    return out
+
+
+# --------------------------------------------------------------------- #
+# phase 28: two ranks on the one card
+# --------------------------------------------------------------------- #
+
+TWO_RANK_MESHES = ((2, 1, False), (1, 2, False), (2, 1, True))  # (dp, mp, fsdp)
+TWO_RANK_BATCH, TWO_RANK_STEPS, TWO_RANK_LR = 4, 2, 1e-4
+TP_CTX, TP_STEPS, TP_BATCH = 64, 16, 4
+# one-rank against two-rank, bf16 compute: the loss and grad norm (the
+# row-parallel and cross-rank sums round at other points); Adam's first
+# moment after the two steps, 0.09 g1 + 0.1 g2, to 2e-2 of each leaf's
+# largest (a gradient check per leaf); every param, whose second update
+# is at most lr x 1.0003 in size (the bias-corrected m / sqrt(v) of two
+# steps), so 2 lr holds even where a near-zero gradient flips sign, with
+# the share of params off by more than lr / 10 at most 1%; the decode
+# logits (int4's step is absmax / 7, 18x int8's: a K or V value that the
+# bf16 sums move across a rounding boundary moves a whole step), their
+# argmax, and the ids drawn under the same gumbel noise
+TWO_RANK_TOL = {"loss_rtol": 1e-3, "grad_norm_rtol": 1e-2, "mu_rtol": 2e-2,
+                "param_atol": 2.0006 * TWO_RANK_LR + 1e-6, "param_far_share": 1e-2,
+                "logit_atol": {"int8": 0.2, "int4": 0.5},
+                "argmax_share": {"int8": 0.9, "int4": 0.85}, "ids_share": 0.95}
+
+
+def _tutorial_steps(torch, mesh):
+    """TWO_RANK_STEPS tutorial train steps from seeded params on this rank's
+    rows -> (metrics, ms a step, [K3, K4, K5] launches, state)."""
+    import numpy as np
+
+    from cogview_tpu_torch import config as C
+    from cogview_tpu_torch.models import gpt
+    from cogview_tpu_torch.ops import flash_attention as fa
+    from cogview_tpu_torch.parallel.sharding import shard_params
+    from cogview_tpu_torch.training import optim
+    from cogview_tpu_torch.training import train_loop as tl
+
+    dev = torch.device("cuda")
+    cfg = C.cogview_tutorial()
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(28), device=dev)
+    if mesh is not None:
+        params = shard_params(params, mesh)
+    opt, _ = optim.make_optimizer(params, lr=TWO_RANK_LR, warmup_iter=1, num_iters=10)
+    state = tl.init_train_state(params, opt, torch.Generator().manual_seed(29))
+    step = tl.make_train_step(cfg, opt, img_vocab=8192)
+    rng = np.random.RandomState(28)
+    text = rng.randint(0, 58219, (TWO_RANK_BATCH, 1089)).astype(np.int64)
+    batch = {"text": text, "loss_mask": np.ones_like(text, np.float32)}
+    rows = TWO_RANK_BATCH // (1 if mesh is None else mesh.data)
+    b0 = 0 if mesh is None else mesh.data_rank * rows
+    local = {k: v[b0:b0 + rows] for k, v in batch.items()}
+    _zero_flash_counts(fa)
+    metrics, ms = [], []
+    for _ in range(TWO_RANK_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, local)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1000.0)
+        metrics.append(m)
+    return metrics, ms, _flash_counts(fa), state
+
+
+def _tp_decode(torch, mesh, kv: str):
+    """cogview-base (48 layers, hidden 2560, 40 heads, bf16 weights from a
+    seed) at batch TP_BATCH: a TP_CTX-token prefill and TP_STEPS
+    teacher-forced decode steps on the ``kv`` cache -> (float32 logits of
+    every step on the CPU, ms a step, decode-kernel launches, plain-version
+    calls)."""
+    from cogview_tpu_torch import config as C
+    from cogview_tpu_torch.models import gpt
+    from cogview_tpu_torch.ops import decode_attention as da
+    from cogview_tpu_torch.parallel.sharding import shard_params
+
+    dev = torch.device("cuda")
+    cfg = C.cogview_base(kv_cache_dtype=kv)
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(31),
+                             dtype=torch.bfloat16, device=dev)
+    if mesh is not None:
+        params = shard_params(params, mesh)
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(32)
+    S = TP_CTX + TP_STEPS
+    toks = torch.randint(0, 58219, (TP_BATCH, S), generator=gen, device=dev)
+    pos = torch.arange(S, device=dev).expand(TP_BATCH, S)
+    cache = gpt.init_cache(cfg, TP_BATCH, S, device=dev)
+    counter = da.decode_attention_quant
+    counter.launches = counter.launches_int4 = 0
+    da.decode_attention_quant_reference.calls = 0
+    out = [gpt.forward_with_cache(params, cfg, toks[:, :TP_CTX], pos[:, :TP_CTX], cache, 0)
+           [:, -1:].float().cpu()]
+    ms = []
+    for t in range(TP_CTX, S):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = gpt.forward_with_cache(params, cfg, toks[:, t:t + 1], pos[:, t:t + 1], cache, t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1000.0)
+        out.append(lg.float().cpu())
+    launches = counter.launches_int4 if kv == "int4" else counter.launches
+    plain_calls = da.decode_attention_quant_reference.calls
+    del params, cache
+    torch.cuda.empty_cache()
+    return torch.cat(out, dim=1), ms, launches, plain_calls
+
+
+def two_rank_reference(rank: int, world: int, work: str) -> None:
+    """The one-rank NCCL group: its collectives on CUDA tensors, then the
+    references of the two-rank runs (the tutorial steps unsharded, and
+    cogview-base decode on one rank) written to ``work``."""
+    import torch
+    import torch.distributed as dist
+
+    from cogview_tpu_torch.training.optim import tree_map
+
+    dev = torch.device("cuda")
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    y = x.clone()
+    dist.all_reduce(y)
+    parts = [torch.empty_like(x)]
+    dist.all_gather(parts, x)
+    rs = torch.empty_like(x)
+    dist.reduce_scatter(rs, [x])
+    ok = torch.equal(y, x) and torch.equal(parts[0], x) and torch.equal(rs, x)
+    res = {"backend": dist.get_backend(), "collectives_ok": bool(ok)}
+    metrics, ms, counts, state = _tutorial_steps(torch, None)
+    torch.save({"params": tree_map(lambda p: p.detach().cpu(), state["params"]),
+                "mu": tree_map(lambda p: p.cpu(), state["opt_state"]["mu"])},
+               os.path.join(work, "ref_params.pt"))
+    res["train"] = {"metrics": metrics, "ms": ms, "flash_launches": counts[0],
+                    "flash_plain_calls": counts[1]}
+    del state
+    torch.cuda.empty_cache()
+    res["decode"] = {}
+    for kv in ("int8", "int4"):
+        logits, dms, launches, plain_calls = _tp_decode(torch, None, kv)
+        torch.save(logits, os.path.join(work, f"ref_logits_{kv}.pt"))
+        res["decode"][kv] = {"ms": dms, "launches": launches, "plain_calls": plain_calls}
+    with open(os.path.join(work, "ref.json"), "w") as f:
+        json.dump(res, f)
+
+
+def two_rank_worker(rank: int, world: int, work: str) -> None:
+    """One of two gloo ranks on the one card: gloo's all_reduce, all_gather
+    and reduce_scatter on CUDA tensors; the tutorial steps at each of
+    TWO_RANK_MESHES against the one-rank params; cogview-base decode at
+    TP=2 (20 heads a rank) on the int8 and int4 caches against the one-rank
+    logits.  Each rank writes its own results, kernel launches and
+    plain-version calls to two_<rank>.json."""
+    import torch
+
+    from cogview_tpu_torch.ops.hash_prng import hash_uniform
+    from cogview_tpu_torch.parallel import comm
+    from cogview_tpu_torch.parallel.mesh import create_mesh, use_mesh
+    from cogview_tpu_torch.parallel.sharding import gather_params
+    from cogview_tpu_torch.training.optim import tree_leaves
+
+    dev = torch.device("cuda")
+    res = {"train": {}, "decode": {}}
+    with use_mesh(create_mesh(model_parallel=1, data_parallel=2, device=dev)) as mesh:
+        x = torch.arange(8, dtype=torch.float32, device=dev) + 10 * rank
+        s = comm.all_reduce(x, "data")
+        g = comm.all_gather(x, "data", 0)
+        r = comm.reduce_scatter(x, "data", 0)
+        base = torch.arange(8, dtype=torch.float32, device=dev)
+        res["collectives_ok"] = bool(
+            torch.equal(s, 2 * base + 10) and torch.equal(g, torch.cat([base, base + 10]))
+            and torch.equal(r, (2 * base + 10)[4 * rank:4 * rank + 4]) and s.is_cuda
+            and g.is_cuda and r.is_cuda)
+    ref = torch.load(os.path.join(work, "ref_params.pt"), map_location=dev)
+    for dp, mp, fsdp in TWO_RANK_MESHES:
+        with use_mesh(create_mesh(model_parallel=mp, data_parallel=dp, fsdp=fsdp,
+                                  device=dev)) as mesh:
+            metrics, ms, counts, state = _tutorial_steps(torch, mesh)
+            full = gather_params(state["params"], mesh)
+            mu = gather_params(state["opt_state"]["mu"], mesh)
+            pairs = list(zip(tree_leaves(full), tree_leaves(ref["params"])))
+            far = sum(int(((a - b).abs() > TWO_RANK_LR / 10).sum()) for a, b in pairs)
+            res["train"][f"{dp}x{mp}{' fsdp' if fsdp else ''}"] = {
+                "metrics": metrics, "ms": ms, "flash_launches": counts[0],
+                "flash_plain_calls": counts[1],
+                "param_max_abs_diff": max((a - b).abs().max().item() for a, b in pairs),
+                "param_far_share": far / sum(a.numel() for a, _ in pairs),
+                "mu_rel_diff": max((a - b).abs().max().item() / b.abs().max().item()
+                                   for a, b in zip(tree_leaves(mu), tree_leaves(ref["mu"])))}
+            del state, full, mu
+            torch.cuda.empty_cache()
+    del ref
+    with use_mesh(create_mesh(model_parallel=2, data_parallel=1, device=dev)) as mesh:
+        for kv in ("int8", "int4"):
+            logits, dms, launches, plain_calls = _tp_decode(torch, mesh, kv)
+            want = torch.load(os.path.join(work, f"ref_logits_{kv}.pt"))
+            V = want.shape[-1]
+            rows = torch.arange(TP_BATCH)[:, None, None]
+            steps = torch.arange(want.shape[1])[None, :, None]
+            gumbel = -torch.log(-torch.log(hash_uniform(35, rows, torch.arange(V), steps)))
+            res["decode"][kv] = {
+                "ms": dms, "launches": launches, "plain_calls": plain_calls,
+                "max_abs_diff": (logits - want).abs().max().item(),
+                "max_abs_logit": want.abs().max().item(),
+                "argmax_share": (logits.argmax(-1) == want.argmax(-1)).float().mean().item(),
+                "ids_share": ((logits + gumbel).argmax(-1)
+                              == (want + gumbel).argmax(-1)).float().mean().item()}
+    res["cache_gap"] = (torch.load(os.path.join(work, "ref_logits_int4.pt"))
+                        - torch.load(os.path.join(work, "ref_logits_int8.pt"))).abs().max().item()
+    with open(os.path.join(work, f"two_{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_two_ranks(torch, work: str) -> dict:
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one
+    device) against a one-rank NCCL group on the same card: the tutorial
+    steps at (dp, mp, fsdp) = (2, 1, no), (1, 2, no), (2, 1, yes), and
+    cogview-base decode at TP=2 on the int8 (K1) and int4 (K2) caches; then
+    the dry run's four passes on four ranks on the card -> the kernels'
+    launches in the two-rank and one-rank runs, each rank's as it counted
+    them."""
+    from cogview_tpu_torch.dryrun import dryrun_multichip
+    from cogview_tpu_torch.parallel.spawn import run_ranks
+
+    torch.cuda.empty_cache()
+    d = os.path.join(work, "two_ranks")
+    t0 = time.perf_counter()
+    run_ranks(two_rank_reference, 1, d, d, device="cuda:0", timeout=400)
+    t1 = time.perf_counter()
+    run_ranks(two_rank_worker, 2, d, d, device="cuda:0", timeout=500)
+    t2 = time.perf_counter()
+    with open(os.path.join(d, "ref.json")) as f:
+        ref = json.load(f)
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(d, f"two_{rank}.json")) as f:
+            ranks.append(json.load(f))
+    tol = TWO_RANK_TOL
+    print(f"one-rank group: backend {ref['backend']}, all_reduce / all_gather / reduce_scatter "
+          f"on CUDA tensors {'correct' if ref['collectives_ok'] else 'WRONG'}; spawned and run "
+          f"in {t1 - t0:.1f} s")
+    print(f"two gloo ranks on the one card: all_reduce / all_gather / reduce_scatter on CUDA "
+          f"tensors, results on the card and correct on each rank: "
+          f"{[two['collectives_ok'] for two in ranks]}; spawned and run in {t2 - t1:.1f} s")
+    _check(ref["backend"] == "nccl" and ref["collectives_ok"]
+           and all(two["collectives_ok"] for two in ranks),
+           "a collective on CUDA tensors gave a wrong result")
+    rm = ref["train"]["metrics"]
+    _check(min(ref["train"]["flash_launches"]) > 0
+           and ref["train"]["flash_plain_calls"] == [0, 0, 0],
+           "one rank: the flash kernels did not run")
+    flash = list(ref["train"]["flash_launches"])
+    for name in ranks[0]["train"]:
+        for rank, two in enumerate(ranks):
+            r = two["train"][name]
+            m = r["metrics"]
+            for key, rt in (("lm_loss", tol["loss_rtol"]), ("grad_norm", tol["grad_norm_rtol"])):
+                for a, b in zip(m, rm):
+                    _check(abs(a[key] - b[key]) <= rt * abs(b[key]),
+                           f"two ranks {name}, rank {rank}: {key} {a[key]} vs one rank {b[key]}")
+            _check(r["param_max_abs_diff"] <= tol["param_atol"]
+                   and r["param_far_share"] <= tol["param_far_share"]
+                   and r["mu_rel_diff"] <= tol["mu_rtol"],
+                   f"two ranks {name}, rank {rank}: params or Adam moments differ "
+                   f"({r['param_max_abs_diff']}, {r['param_far_share']}, {r['mu_rel_diff']})")
+            _check(min(r["flash_launches"]) > 0 and r["flash_plain_calls"] == [0, 0, 0],
+                   f"two ranks {name}, rank {rank}: the flash kernels did not run")
+            flash = [a + b for a, b in zip(flash, r["flash_launches"])]
+        r = ranks[0]["train"][name]
+        m = r["metrics"]
+        print(f"tutorial train steps at (dp, mp) = {name}, batch {TWO_RANK_BATCH} x 1,088, "
+              f"dropout 0.1, rank 0: lm loss {['%.5f' % x['lm_loss'] for x in m]} vs one rank "
+              f"{['%.5f' % x['lm_loss'] for x in rm]}, grad norm "
+              f"{['%.4f' % x['grad_norm'] for x in m]} vs {['%.4f' % x['grad_norm'] for x in rm]}; "
+              f"params after step {TWO_RANK_STEPS} max |diff| {r['param_max_abs_diff']:.3e} (tol "
+              f"{tol['param_atol']:.4e}), share off by > lr/10 {r['param_far_share']:.2e}; Adam's "
+              f"first moment {r['mu_rel_diff']:.2e} of each leaf's max; K3/K4/K5 launches on "
+              f"ranks 0 and 1 {[two['train'][name]['flash_launches'] for two in ranks]}; ms a "
+              f"step, two ranks share one card: {['%.1f' % x for x in r['ms']]} (one rank alone: "
+              f"{['%.1f' % x for x in ref['train']['ms']]})")
+    decode = {}
+    gap = ranks[0]["cache_gap"]
+    print(f"for scale: the one-rank int4 logits differ from the one-rank int8 logits by up to "
+          f"{gap:.4f}")
+    for kv in ("int8", "int4"):
+        rr = ref["decode"][kv]
+        _check(rr["launches"] == 48 * TP_STEPS and rr["plain_calls"] == 0,
+               f"one-rank {kv} decode: {rr['launches']} kernel launches, {rr['plain_calls']} "
+               f"plain-version calls, not one launch a layer and step")
+        decode[kv] = rr["launches"]
+        for rank, two in enumerate(ranks):
+            r = two["decode"][kv]
+            _check(r["max_abs_diff"] <= tol["logit_atol"][kv]
+                   and r["argmax_share"] >= tol["argmax_share"][kv]
+                   and r["ids_share"] >= tol["ids_share"],
+                   f"TP=2 {kv} decode on rank {rank} differs from the one-rank run")
+            _check(r["launches"] == 48 * TP_STEPS and r["plain_calls"] == 0,
+                   f"TP=2 {kv} decode on rank {rank}: {r['launches']} kernel launches, "
+                   f"{r['plain_calls']} plain-version calls, not one launch a layer and step")
+            decode[kv] += r["launches"]
+        r = ranks[0]["decode"][kv]
+        print(f"cogview-base TP=2 (20 heads a rank) {kv} cache, batch {TP_BATCH}, rank 0: prefill "
+              f"{TP_CTX} + {TP_STEPS} decode steps; logits max |diff| {r['max_abs_diff']:.4f} of "
+              f"max |logit| {r['max_abs_logit']:.3f}, argmax agreement {r['argmax_share']:.4f}, "
+              f"ids under fixed gumbel draws equal {r['ids_share']:.4f}; decode-kernel launches on "
+              f"ranks 0 and 1 {[two['decode'][kv]['launches'] for two in ranks]} (one rank "
+              f"{rr['launches']}); ms a decode step, two ranks share one card: median "
+              f"{statistics.median(r['ms']):.1f} (one rank alone: "
+              f"{statistics.median(rr['ms']):.1f})")
+    t3 = time.perf_counter()
+    lines = dryrun_multichip(4, device="cuda", timeout=300)
+    _check(len(lines) == 4 and all(ln.startswith("dryrun_multichip ok") for ln in lines),
+           f"the dry run on the card: {lines}")
+    print(f"dry run, four gloo ranks share the card: passes 1-4 ok in "
+          f"{time.perf_counter() - t3:.1f} s")
+    return {"flash": flash, "decode": decode}
+
+
 def main() -> int:
     import torch
 
@@ -2798,9 +3358,17 @@ def main() -> int:
         lap("phase 24")
         phase_fid(torch, png, work, smi.splitlines()[0])
         lap("phase 25")
-    # the flash kernels' launches on the training paths: phases 14, 19, 20, 23
-    train_launches = [a + b + c + d for a, b, c, d in zip(train_launches, ft_launches,
-                                                          full_launches, pre_launches)]
+        # phase 26: the native host runtimes (phase 23's corpus); phase 27:
+        # K3-K5 of a shard; phase 28: two ranks on the one card
+        phase_native(torch, work)
+        lap("phase 26")
+        k345_off = phase_flash_offsets(torch, fa)
+        lap("phase 27")
+        two = phase_two_ranks(torch, work)
+        lap("phase 28")
+    # the flash kernels' launches on the training paths: phases 14, 19, 20, 23, 28
+    train_launches = [a + b + c + d + e for a, b, c, d, e in zip(
+        train_launches, ft_launches, full_launches, pre_launches, two["flash"])]
 
     def decode_entry(name, summary, launches, err, kv):
         times = summary["times"]
@@ -2929,12 +3497,14 @@ def main() -> int:
     kernels = [
         {**decode_entry("decode_attention_int8", k1,
                         sum(n for n, _, _ in t2i) + i2t + llsr_launches + sr_launches
+                        + two["decode"]["int8"]
                         + ckpt_launches + tut_launches,
                         k1["max_abs_err"], "int8"),
          # device ms of K1 per decode step of the bf16-weight request
          # (torch.profiler over PROFILED_STEPS)
          "step_ms": t2i[1][2]["k1_ms"]},
-        decode_entry("decode_attention_int4", k2, k2_launches, k2["max_abs_err"], "int4"),
+        decode_entry("decode_attention_int4", k2, k2_launches + two["decode"]["int4"],
+                     k2["max_abs_err"], "int4"),
         # ms, plain_ms, library_ms and bound_ms at post-selection's shape
         # (B=4, N=40, S=1058); train_* at the tutorial's training shape
         # (B=16, N=16, S=1088), train_ms with dropout 0.1 as the train step
@@ -2950,7 +3520,12 @@ def main() -> int:
          # sr_*: super-resolution finetuning's shape (B=2, N=40, S=1344),
          # sr_ms with dropout 0.1 as the train step (phase 21)
          **{f"sr_{key}": value for key, value in k345_sr["fwd"].items()},
-         "sr_max_abs_err": k345_sr["max_abs_err"]},
+         "sr_max_abs_err": k345_sr["max_abs_err"],
+         # offsets_*: a shard's rows 8-15 and heads 8-15 at the training shape
+         # with its batch and head offsets (phase 27), bf16 with dropout 0.1;
+         # offsets_max_abs_err over o, dq, dk, dv, float32 and bf16
+         "offsets_ms": k345_off["ms"], "offsets_zero_ms": k345_off["zero_ms"],
+         "offsets_max_abs_err": k345_off["max_abs_err"]},
     ] + [{
         "name": f"flash_attention_bwd_{name}",
         "route": "cuda",
@@ -2979,6 +3554,8 @@ def main() -> int:
         "sr_rel_err": k345_sr["rel_err"],
     } for i, (name, line, n) in enumerate((("dq", 212, train_launches[1]),
                                            ("dkv", 249, train_launches[2])))] + probe_rows
+    left = _live_children()
+    _check(not left, f"processes the script started are still running: {left}")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """Pretraining CLI of the port (twin of cogview_tpu/cli/pretrain.py), on one
-device.
+device or on a data x model mesh of torchrun processes.
 
   python -m cogview_tpu_torch.cli.pretrain --preset tutorial --device cuda \\
       --train-data data/corpus.bin --batch-size 16 --train-iters 1000 \\
@@ -13,13 +13,22 @@ table extended from 1,089 to 1,345 rows, positions restarting at [ROI2]):
       --load ckpts/base --finetune --dual-positions \
       --dataset-type TokenizedDataset --train-data data/sr ...
 
+Data x tensor parallelism, with FSDP (one process a card):
+
+  torchrun --nproc-per-node 4 -m cogview_tpu_torch.cli.pretrain \
+      --preset cogview-base --model-parallel-size 2 --fsdp ...
+
 Iterates global batches from ``cogview_tpu_torch.data`` (the port's copy
 of the JAX package's numpy-only loader), runs the NaN-skipping train step with
 activation recomputation, evaluates (loss and PPL), writes checkpoints with
 the tracker-file protocol, and prints the JAX CLI's per-interval line.  It
-takes every flag of the JAX CLI but the multi-device ones
-(``--model-parallel-size``, ``--fsdp``, ``--sequence-parallel-size``,
-``--pipeline-parallel-size``, ``--pipeline-microbatches``, ``--multihost``).
+takes every flag of the JAX CLI.  Where torchrun's ``WORLD_SIZE`` is above
+1 the process joins the group from its ``env://`` variables and trains its
+part of a ('data', 'model') mesh (parallel/mesh.py): ``--batch-size`` is
+the global batch, every rank reads it and trains its rows; checkpoints hold
+the full leaves, so ``--load`` works across layouts.
+``--sequence-parallel-size`` and ``--pipeline-*`` parse, and any value
+above 1 exits: ring attention and GPipe are not ported yet.
 Runs on a CUDA device by default and fails if there is none.  On CUDA it
 sets ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` before the first
 allocation unless the environment holds an allocator setting: without it
@@ -41,6 +50,9 @@ from .. import config as C
 from ..data.loader import DataConfig, detect_new_datasets, make_loaders
 from ..models import gpt
 from ..ops.precision import set_fp32_precision
+from ..parallel import comm
+from ..parallel.mesh import create_mesh, use_mesh
+from ..parallel.sharding import gather_params, shard_params
 from ..tokenization.unified import FakeImageTokenizer, UnifiedTokenizer
 from ..training import checkpointing
 from ..training.loss_scaler import LossScaleState
@@ -84,6 +96,19 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--clip-grad", type=float, default=1.0)
     t.add_argument("--txt-loss-scale", type=float, default=1.0)
     t.add_argument("--seed", type=int, default=1234)
+    t.add_argument("--model-parallel-size", type=int, default=1,
+                   help="tensor parallelism: heads, MLP columns and the vocab split "
+                        "over this many ranks of each data-parallel group")
+    t.add_argument("--fsdp", action="store_true",
+                   help="FSDP / ZeRO-3: also split every weight (its gradients and "
+                        "Adam state) over the data axis; each layer's weights are "
+                        "gathered inside the layer loop")
+    t.add_argument("--sequence-parallel-size", type=int, default=1,
+                   help="ring-attention sequence parallelism (not ported yet: > 1 exits)")
+    t.add_argument("--pipeline-parallel-size", type=int, default=1,
+                   help="GPipe pipeline parallelism (not ported yet: > 1 exits)")
+    t.add_argument("--pipeline-microbatches", type=int, default=0,
+                   help="GPipe microbatches (not ported yet: > 1 exits)")
     t.add_argument("--is-sparse", type=int, default=0, choices=[0, 1],
                    help="1 = pivot + window sparse attention for training")
     # the reference's shipped scripts pass 64/4/256, which divide the 1,088
@@ -132,6 +157,9 @@ def build_parser() -> argparse.ArgumentParser:
     io.add_argument("--profile-dir", default=None,
                     help="trace steps 10-13 with torch.profiler and write a Chrome "
                          "trace, trace.json, here")
+    io.add_argument("--multihost", action="store_true",
+                    help="the torchrun ranks span several hosts (without it every "
+                         "rank must be on this host)")
     return p
 
 
@@ -176,11 +204,15 @@ def evaluate(loss_fn, val_batches, eval_iters: int):
     return {"val_loss": loss, "val_ppl": math.exp(min(20.0, loss))}
 
 
-def _checkpoint_state(state, iteration: int, loader_consumed: int, fp16: bool):
+def _checkpoint_state(state, iteration: int, loader_consumed: int, fp16: bool, mesh=None):
+    """The state to save; under a mesh the full leaves, gathered from every
+    rank (a collective), so the file is the single-device format."""
     opt = state["opt_state"]
+    full = ((lambda t: gather_params(t, mesh, device="cpu")) if mesh is not None
+            else (lambda t: tree_map(torch.Tensor.detach, t)))
     out = {
-        "params": tree_map(torch.Tensor.detach, state["params"]),
-        "opt_state": {"count": opt["count"], "mu": opt["mu"], "nu": opt["nu"]},
+        "params": full(state["params"]),
+        "opt_state": {"count": opt["count"], "mu": full(opt["mu"]), "nu": full(opt["nu"])},
         "iteration": iteration,
         "generator": state["generator"].get_state(),
         "loader_consumed": loader_consumed,
@@ -191,17 +223,18 @@ def _checkpoint_state(state, iteration: int, loader_consumed: int, fp16: bool):
 
 
 @torch.no_grad()
-def _restore(state, loaded, cfg, finetune: bool, fp16: bool) -> None:
+def _restore(state, loaded, cfg, finetune: bool, fp16: bool, mesh=None) -> None:
     """Copy a loaded checkpoint into ``state`` in place: the params, their
     position table fitted to ``cfg`` (``gpt.adapt_position_embeddings``),
     and without ``finetune`` the optimizer state, the generator and the loss
-    scale."""
+    scale.  Under a mesh this rank's shards of the full leaves."""
     copy = lambda dst, src: dst.copy_(src)
-    tree_map(copy, state["params"], gpt.adapt_position_embeddings(loaded["params"], cfg))
+    local = (lambda t: shard_params(t, mesh)) if mesh is not None else (lambda t: t)
+    tree_map(copy, state["params"], local(gpt.adapt_position_embeddings(loaded["params"], cfg)))
     if finetune:
         return
-    tree_map(copy, state["opt_state"]["mu"], loaded["opt_state"]["mu"])
-    tree_map(copy, state["opt_state"]["nu"], loaded["opt_state"]["nu"])
+    tree_map(copy, state["opt_state"]["mu"], local(loaded["opt_state"]["mu"]))
+    tree_map(copy, state["opt_state"]["nu"], local(loaded["opt_state"]["nu"]))
     state["opt_state"]["count"] = int(loaded["opt_state"]["count"])
     state["generator"].set_state(loaded["generator"].cpu())  # a CPU generator
     if fp16 and "loss_scale" in loaded:
@@ -239,6 +272,43 @@ def _stop_profile(prof, profile_dir: str) -> None:
     print(f"profiler trace (steps 10-13) -> {path}")
 
 
+def join_group(args, device: torch.device):
+    """Join torchrun's group (its ``env://`` variables) where WORLD_SIZE > 1
+    -> (mesh or None, this rank's device, whether this call joined).  Each
+    rank takes the card LOCAL_RANK; NCCL where every rank has its own, gloo
+    otherwise.  A process that has joined a group already keeps it."""
+    if args.sequence_parallel_size > 1 or args.pipeline_parallel_size > 1 or (
+            args.pipeline_microbatches > 1):
+        raise SystemExit("--sequence-parallel-size, --pipeline-parallel-size and "
+                         "--pipeline-microbatches are not ported yet (ring attention "
+                         "and GPipe): leave them at 1")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return None, device, False
+    rank = int(os.environ["RANK"])
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if local_world != world and not args.multihost:
+        raise SystemExit(f"{world} ranks, {local_world} on this host: pass --multihost")
+    if device.type == "cuda":
+        device = torch.device("cuda", local_rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    joined = not torch.distributed.is_initialized()
+    if joined:
+        comm.init_process_group(rank, world, device, ranks_on_host=local_world,
+                                init_method="env://")
+    mp = min(args.model_parallel_size, world)
+    if world % mp:
+        raise SystemExit(f"{world} ranks not divisible by --model-parallel-size {mp}")
+    dp = world // mp
+    if args.batch_size % dp:
+        raise SystemExit(
+            f"--batch-size {args.batch_size} must be divisible by the data "
+            f"axis ({dp} = {world} ranks / mp {mp})")
+    return create_mesh(model_parallel=mp, data_parallel=dp, fsdp=args.fsdp,
+                       device=device), device, joined
+
+
 def main(argv=None, txt_tokenizer=None) -> int:
     """``txt_tokenizer`` replaces the SentencePiece text tokenizer (any
     object with ``num_tokens``); pretraining on token ids needs no more."""
@@ -248,6 +318,27 @@ def main(argv=None, txt_tokenizer=None) -> int:
         raise SystemExit("--device cuda but torch.cuda.is_available() is False")
     expandable_segments(device)
     set_fp32_precision()
+    mesh, device, joined = join_group(args, device)
+    try:
+        with use_mesh(mesh):
+            return _train(args, device, mesh, txt_tokenizer)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device: torch.device, mesh, txt_tokenizer) -> int:
+    rank = 0 if mesh is None else mesh.rank
+    # rows [b0, b0 + rows) of each global batch are this rank's
+    rows = args.batch_size // (1 if mesh is None else mesh.data)
+    b0 = 0 if mesh is None else mesh.data_rank * rows
+
+    def local(batch):
+        return {k: v[b0:b0 + rows] for k, v in batch.items()}
+
+    def say(*a, **kw):
+        if rank == 0:
+            print(*a, **kw)
 
     cfg = get_config(args)
     tokenizer = build_tokenizer(args, txt_tokenizer)
@@ -255,9 +346,11 @@ def main(argv=None, txt_tokenizer=None) -> int:
         print(f"[warn] model vocab {cfg.vocab_size} < tokenizer vocab {len(tokenizer)}: "
               "out-of-range ids fail; check --preset", file=sys.stderr)
     timers = Timers()
-    writer = MetricsWriter(args.summary_dir, args.experiment_name)
-    print(f"device: {device}; config {args.preset} ({cfg.num_layers}L/{cfg.hidden_size}H/"
-          f"{cfg.num_heads}h, vocab {cfg.vocab_size})")
+    writer = MetricsWriter(args.summary_dir if rank == 0 else None, args.experiment_name)
+    axes = "" if mesh is None else (f"; mesh data={mesh.data} x model={mesh.model}"
+                                    + (" (fsdp)" if mesh.fsdp else ""))
+    say(f"device: {device}{axes}; config {args.preset} ({cfg.num_layers}L/"
+        f"{cfg.hidden_size}H/{cfg.num_heads}h, vocab {cfg.vocab_size})")
 
     data_cfg = DataConfig(
         train_data=args.train_data or (),
@@ -273,6 +366,8 @@ def main(argv=None, txt_tokenizer=None) -> int:
 
     params = gpt.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed),
                              device=device)
+    if mesh is not None:  # every rank draws the full params, then keeps its shards
+        params = shard_params(params, mesh)
     opt, schedule = make_optimizer(
         params, lr=args.lr, warmup_iter=max(1, int(args.warmup * args.train_iters)),
         num_iters=args.train_iters, decay_style=args.lr_decay_style,
@@ -288,13 +383,16 @@ def main(argv=None, txt_tokenizer=None) -> int:
     loader_consumed = 0  # batches drawn from the current train iterator
 
     if args.load:
-        loaded = checkpointing.load_latest(args.load, map_location=device)
+        # under a mesh the full leaves stay on the host (mmap), and each rank
+        # copies its shards to its card
+        loaded = checkpointing.load_latest(args.load, map_location=device if mesh is None
+                                           else "cpu")
         if loaded is not None:
-            _restore(state, loaded, cfg, args.finetune, args.fp16)
+            _restore(state, loaded, cfg, args.finetune, args.fp16, mesh)
             if not args.finetune:
                 iteration = int(loaded["iteration"])
                 loader_consumed = int(loaded.get("loader_consumed", iteration))
-            print(f"loaded checkpoint from {args.load} at iteration {iteration}")
+            say(f"loaded checkpoint from {args.load} at iteration {iteration}")
             del loaded
     if args.resume_dataloader and loader_consumed > 0:
         train_it.fast_forward(loader_consumed)
@@ -313,9 +411,10 @@ def main(argv=None, txt_tokenizer=None) -> int:
 
     @torch.no_grad()
     def eval_loss(batch):
-        batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        batch = {k: torch.as_tensor(v).to(device) for k, v in local(batch).items()}
         return lm_loss(state["params"], cfg, batch, img_vocab=img_vocab,
-                       txt_loss_scale=args.txt_loss_scale, train=False, remat=False)[0]
+                       txt_loss_scale=args.txt_loss_scale, train=False,
+                       remat=False)[1]["lm_loss"]
 
     known_paths = set(args.train_data or ())
     data_iter = iter(train_it)
@@ -328,13 +427,13 @@ def main(argv=None, txt_tokenizer=None) -> int:
         if iteration % 100 == 0 and iteration > 0:
             new_it, known_paths = detect_new_datasets(data_cfg, tokenizer, known_paths)
             if new_it is not None:
-                print(f"detected new datasets ({len(known_paths)} paths)")
+                say(f"detected new datasets ({len(known_paths)} paths)")
                 train_it = new_it
                 data_iter = iter(train_it)
                 loader_consumed = 0  # position is relative to the new loader
 
         timers("data loader").start()
-        batch = next(data_iter)
+        batch = local(next(data_iter))
         loader_consumed += 1
         timers("data loader").stop()
 
@@ -359,12 +458,12 @@ def main(argv=None, txt_tokenizer=None) -> int:
             n = args.log_interval
             elapsed = (time.time() - t_last) * 1000.0 / n
             lr_now = schedule(iteration)
-            print(f" iteration {iteration:8d}/{args.train_iters} | "
+            say(f" iteration {iteration:8d}/{args.train_iters} | "
                   f"elapsed ms/iter {elapsed:.1f} | lr {lr_now:.3E} | "
                   f"lm loss {log_loss / n:.6f} | img loss {log_img / n:.6f} | "
                   f"unscaled txt loss {log_txt / n:.6f} | "
                   f"skipped {state['skipped']}", flush=True)
-            print("   " + timers.log(["data loader", "train step"], normalizer=n), flush=True)
+            say("   " + timers.log(["data loader", "train step"], normalizer=n), flush=True)
             writer.add_scalars(iteration, {
                 "lr": lr_now, "train_loss": log_loss / n, "img_loss": log_img / n,
                 "txt_loss": log_txt / n, "elapsed_ms": elapsed})
@@ -372,28 +471,31 @@ def main(argv=None, txt_tokenizer=None) -> int:
             t_last = time.time()
 
         if args.save and iteration % args.save_interval == 0:
-            checkpointing.save_checkpoint(
-                args.save, iteration,
-                _checkpoint_state(state, iteration, loader_consumed, args.fp16))
-            print(f"saved checkpoint at iteration {iteration}")
+            ck = _checkpoint_state(state, iteration, loader_consumed, args.fp16, mesh)
+            if rank == 0:
+                checkpointing.save_checkpoint(args.save, iteration, ck)
+            say(f"saved checkpoint at iteration {iteration}")
 
         if val_it is not None and iteration % args.eval_interval == 0:
             if eval_batches is None:
                 eval_batches = iter(val_it)
             ev = evaluate(eval_loss, eval_batches, args.eval_iters)
             if ev:
-                print(f" validation loss {ev['val_loss']:.6f} | ppl {ev['val_ppl']:.3f}")
+                say(f" validation loss {ev['val_loss']:.6f} | ppl {ev['val_ppl']:.3f}")
                 writer.add_scalars(iteration, ev)
 
         if args.exit_interval and iteration % args.exit_interval == 0:
-            print(f"exiting at iteration {iteration} (--exit-interval)")
+            say(f"exiting at iteration {iteration} (--exit-interval)")
             break
 
     if prof is not None:
         _stop_profile(prof, args.profile_dir)
     if args.save:
-        checkpointing.save_checkpoint(
-            args.save, iteration, _checkpoint_state(state, iteration, loader_consumed, args.fp16))
+        ck = _checkpoint_state(state, iteration, loader_consumed, args.fp16, mesh)
+        if rank == 0:
+            checkpointing.save_checkpoint(args.save, iteration, ck)
+    if mesh is not None:
+        torch.distributed.barrier()  # the checkpoint is written before any rank returns
     writer.close()
     return 0
 

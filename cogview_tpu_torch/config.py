@@ -1,7 +1,8 @@
 """Model configuration dataclasses and presets (twin of cogview_tpu/config.py).
 
-Only the fields the ported slices read are mirrored (no parallelism axes;
-no flash block sizes: they tune the TPU kernel's VMEM blocks);
+Only the fields the ported slices read are mirrored (of the parallelism
+axes only the sharded decode's; no flash block sizes: they tune the TPU
+kernel's VMEM blocks);
 ``compute_dtype`` is a torch dtype.  The presets keep the JAX package's
 names and widths.
 """

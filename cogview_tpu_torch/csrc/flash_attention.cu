@@ -14,8 +14,11 @@
 // before dropout; a kept probability is scaled by 1 / keep (keep = 1 -
 // rate), cast to v's dtype, then multiplied with V.  o = acc / l in q's
 // dtype and lse = m + log(l) in float32.  The dropout keep bit is
-// hash_u32(seed, qpos, kpos, b * N + n) >= threshold in wrapping uint32
-// arithmetic, bit for bit the JAX package's ops/hash_prng.py.
+// hash_u32(seed, qpos, kpos, (b0 + b) * Ng + n0 + n) >= threshold in
+// wrapping uint32 arithmetic, bit for bit the JAX package's
+// ops/hash_prng.py: (b0, n0) is the offset of this launch's batch rows and
+// heads in a sharded batch of Ng heads (zeros and N when unsharded), so a
+// shard hashes the global coordinates the JAX kernel hashes under GSPMD.
 //
 // Layout: q, k, v [B, S, N, D] with D in {16, 32, 64, 128} (with_head_dim
 // below; every kernel is a template on D), read through batch and sequence
@@ -67,7 +70,14 @@ struct Params {
   int S, N, sep;
   float scale, keep;
   uint32_t seed, threshold;
+  uint32_t b0, n0, Ng;  // the dropout hash's batch and head offsets, global heads
 };
+
+// the dropout hash's third coordinate of (batch row b, head n) of a launch
+template <class P>
+__device__ __forceinline__ uint32_t hash_bn(const P& p, int b, int n) {
+  return ((uint32_t)b + p.b0) * p.Ng + (uint32_t)n + p.n0;
+}
 
 // ops/hash_prng.py: murmur3-style finalizer over a mix of three coordinates
 __device__ __forceinline__ uint32_t hash_u32(uint32_t seed, uint32_t c0, uint32_t c1,
@@ -185,7 +195,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * BQ;
   const int S = p.S;
-  const uint32_t bn = (uint32_t)(b * p.N + n);
+  const uint32_t bn = hash_bn(p, b, n);
 
   const T* qb = q + (long long)b * p.q_sb + (long long)n * D;
   const T* kb = k + (long long)b * p.k_sb + (long long)n * D;
@@ -358,6 +368,7 @@ struct BwdParams {
   int S, N, sep;
   float scale, keep;
   uint32_t seed, threshold;
+  uint32_t b0, n0, Ng;  // as Params
 };
 
 template <int D>
@@ -432,7 +443,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * BQ;
   const int S = p.S;
-  const uint32_t bn = (uint32_t)(b * p.N + n);
+  const uint32_t bn = hash_bn(p, b, n);
 
   const T* qb = q + (long long)b * p.q_sb + (long long)n * D;
   const T* kb = k + (long long)b * p.k_sb + (long long)n * D;
@@ -528,7 +539,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n = blockIdx.y, b = blockIdx.z;
   const int k0 = kt * BK;
   const int S = p.S;
-  const uint32_t bn = (uint32_t)(b * p.N + n);
+  const uint32_t bn = hash_bn(p, b, n);
 
   const T* qb = q + (long long)b * p.q_sb + (long long)n * D;
   const T* kb = k + (long long)b * p.k_sb + (long long)n * D;
@@ -1074,7 +1085,7 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const int n = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * 64;
   const int S = p.S;
-  const uint32_t bn = (uint32_t)(b * p.N + n);
+  const uint32_t bn = hash_bn(p, b, n);
 
   const __nv_bfloat16* qb = q + (long long)b * p.q_sb + (long long)n * D;
   const __nv_bfloat16* kb = k + (long long)b * p.k_sb + (long long)n * D;
@@ -1184,7 +1195,7 @@ flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   const int n = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * 64;
   const int S = p.S;
-  const uint32_t bn = (uint32_t)(b * p.N + n);
+  const uint32_t bn = hash_bn(p, b, n);
 
   const __nv_bfloat16* qb = q + (long long)b * p.q_sb + (long long)n * D;
   const __nv_bfloat16* kb = k + (long long)b * p.k_sb + (long long)n * D;
@@ -1299,7 +1310,7 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int n = blockIdx.y, b = blockIdx.z;
   const int k0 = kt * 64;
   const int S = p.S;
-  const uint32_t bn = (uint32_t)(b * p.N + n);
+  const uint32_t bn = hash_bn(p, b, n);
 
   const __nv_bfloat16* qb = q + (long long)b * p.q_sb + (long long)n * D;
   const __nv_bfloat16* kb = k + (long long)b * p.k_sb + (long long)n * D;
@@ -1470,9 +1481,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    long long q_sb, long long q_ss, long long k_sb,
                                    long long k_ss, long long v_sb, long long v_ss, int sep,
                                    float scale, unsigned int seed, unsigned int threshold,
-                                   float keep, int dropout, void* stream) {
+                                   float keep, int dropout, unsigned int b0, unsigned int n0,
+                                   unsigned int Ng, void* stream) {
   if (B <= 0 || S <= 0 || N <= 0 || B > 65535 || N > 65535) return (int)cudaErrorInvalidValue;
-  const Params p{q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, S, N, sep, scale, keep, seed, threshold};
+  const Params p{q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, S, N, sep, scale, keep, seed, threshold,
+                 b0, n0, Ng};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(head_dim, [&](auto hd) {
     constexpr int D = decltype(hd)::value;
@@ -1492,10 +1505,11 @@ static int flash_attention_bwd(const void* q, const void* k, const void* v, cons
                                long long q_sb, long long q_ss, long long k_sb, long long k_ss,
                                long long v_sb, long long v_ss, long long o_sb, long long o_ss,
                                int sep, float scale, unsigned int seed, unsigned int threshold,
-                               float keep, int dropout, void* stream) {
+                               float keep, int dropout, unsigned int b0, unsigned int n0,
+                               unsigned int Ng, void* stream) {
   if (B <= 0 || S <= 0 || N <= 0 || B > 65535 || N > 65535) return (int)cudaErrorInvalidValue;
-  const BwdParams p{q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss,
-                    S,    N,    sep,  scale, keep, seed, threshold};
+  const BwdParams p{q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, S, N, sep, scale, keep,
+                    seed, threshold, b0, n0, Ng};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(head_dim, [&](auto hd) {
     constexpr int D = decltype(hd)::value;
@@ -1515,11 +1529,12 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
                                       long long k_ss, long long v_sb, long long v_ss,
                                       long long o_sb, long long o_ss, int sep, float scale,
                                       unsigned int seed, unsigned int threshold, float keep,
-                                      int dropout, void* stream) {
+                                      int dropout, unsigned int b0, unsigned int n0,
+                                      unsigned int Ng, void* stream) {
   if (dq == nullptr) return (int)cudaErrorInvalidValue;
   return flash_attention_bwd(q, k, v, dout, lse, delta, dq, nullptr, nullptr, is_bf16, B, S, N,
                              head_dim, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, sep,
-                             scale, seed, threshold, keep, dropout, stream);
+                             scale, seed, threshold, keep, dropout, b0, n0, Ng, stream);
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1529,9 +1544,10 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
                                        long long k_sb, long long k_ss, long long v_sb,
                                        long long v_ss, long long o_sb, long long o_ss, int sep,
                                        float scale, unsigned int seed, unsigned int threshold,
-                                       float keep, int dropout, void* stream) {
+                                       float keep, int dropout, unsigned int b0, unsigned int n0,
+                                       unsigned int Ng, void* stream) {
   if (dk == nullptr || dv == nullptr) return (int)cudaErrorInvalidValue;
   return flash_attention_bwd(q, k, v, dout, lse, delta, nullptr, dk, dv, is_bf16, B, S, N,
                              head_dim, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, sep,
-                             scale, seed, threshold, keep, dropout, stream);
+                             scale, seed, threshold, keep, dropout, b0, n0, Ng, stream);
 }

@@ -25,6 +25,8 @@ import torch
 from ..config import GPTConfig
 from ..models import gpt
 from ..ops.hash_prng import hash_uniform
+from ..parallel import comm
+from ..parallel.mesh import DATA_AXIS, current_mesh
 
 NEG_INF = -1e9
 
@@ -283,18 +285,28 @@ def filling_sequence(
 
     ``seed_u32`` is the uint32 seed of every gumbel draw; the JAX package
     derives its seed from a key as ``seed_from_key(rbg_key(key))``.  scores
-    sum the log-probs of the sampled (non-fixed) tokens."""
+    sum the log-probs of the sampled (non-fixed) tokens.
+
+    Under a mesh (parallel/mesh.py) each data rank fills its rows of the
+    batch, the model sharded as ``gpt.forward_with_cache`` is, and draws
+    its gumbel noise at the rows' global ids; every rank returns the whole
+    batch, gathered over 'data'."""
     B = _validate_fill(cfg, template, batch_size)
     S = template.length
     ctx = int(template.context_length)
     V = template.mask_table.shape[1]
     fork_at = int(template.fork_at)
+    mesh = current_mesh()
+    dp, dr = (1, 0) if mesh is None else (mesh.data, mesh.data_rank)
+    if B % dp:
+        raise ValueError(f"batch {B} does not split over data={dp}")
+    Bl, b0 = B // dp, dr * (B // dp)  # this rank's rows [b0, b0 + Bl)
 
-    cache = gpt.init_cache(cfg, B, S, device=device)
+    cache = gpt.init_cache(cfg, Bl, S, device=device)
     tokens = torch.as_tensor(template.tokens, dtype=torch.int64, device=device)
-    tokens = tokens.expand(B, S).clone()
+    tokens = tokens.expand(B, S)[b0:b0 + Bl].clone()
     pos = torch.as_tensor(template.position_ids, dtype=torch.int64,
-                          device=device).expand(B, S)
+                          device=device).expand(Bl, S)
     mask_table = torch.as_tensor(template.mask_table, device=device)
     boi_ids = torch.as_tensor(template.boi_ids, dtype=torch.int64, device=device)
     eoi_ids = torch.as_tensor(template.eoi_ids, dtype=torch.int64, device=device)
@@ -305,12 +317,12 @@ def filling_sequence(
     last_logits = logits_ctx[:, -1]
 
     # mode entering the first generated step = the fixed prefix's mode
-    cur_mode = torch.full((B,), int(template.mask_id[max(ctx - 1, 0)]),
+    cur_mode = torch.full((Bl,), int(template.mask_id[max(ctx - 1, 0)]),
                           dtype=torch.int64, device=device)
-    rows_all = torch.arange(B, dtype=torch.int64, device=device)[:, None]
+    rows_all = b0 + torch.arange(Bl, dtype=torch.int64, device=device)[:, None]
     rows_zero = torch.zeros_like(rows_all)
     cols = torch.arange(V, dtype=torch.int64, device=device)[None, :]
-    scores = torch.zeros((B,), dtype=torch.float32, device=device)
+    scores = torch.zeros((Bl,), dtype=torch.float32, device=device)
 
     for t in range(ctx, decode_end(template)):
         if template.is_fixed[t]:
@@ -338,4 +350,7 @@ def filling_sequence(
         step_logits = gpt.forward_with_cache(params, cfg, tok_t[:, None],
                                              pos[:, t:t + 1], cache, t)
         last_logits = step_logits[:, 0]
+    if dp > 1:
+        tokens = comm.all_gather(tokens, DATA_AXIS, 0)
+        scores = comm.all_gather(scores, DATA_AXIS, 0)
     return tokens, scores

@@ -19,6 +19,18 @@ the JAX package's salted sites.  A full causal forward at S >=
 (ops/flash_attention.py), forward and backward, as the JAX package routes
 it; the sparse and memory routes are plain torch, as they are plain XLA
 there.
+
+Under an ambient mesh (parallel/mesh.py, ``use_mesh``) every function here
+runs this rank's part of a ('data', 'model') mesh: the params are its
+shards (parallel/sharding.py), the token and cache arguments its batch
+rows, and the layer body Megatron's: local heads and MLP columns between
+``comm.copy_to_model`` and the all-reduce after ``attn_out`` and
+``mlp_out``, a vocab-parallel embedding and logits (the logits gathered
+over 'model'), and under FSDP each layer's weights gathered inside the
+layer loop.  Dropout hashes global coordinates, as the JAX package's does
+under GSPMD; a quantized cache holds the rank's rows and heads, and its
+decode kernel runs on them with no collective, as ``_shard_over_batch``
+runs the JAX kernel.
 """
 
 from __future__ import annotations
@@ -40,6 +52,9 @@ from ..ops.flash_attention import flash_attention
 from ..ops.hash_prng import hash_dropout
 from ..ops.layernorm import layer_norm
 from ..ops.sparse_attention import pivot_window_attention
+from ..parallel import comm
+from ..parallel.mesh import current_mesh
+from ..parallel.sharding import layer_fsdp_dim
 
 Params = Dict[str, Any]
 
@@ -266,11 +281,24 @@ class QuantKVCache:
         return self.kv.shape[1] * self.kv.shape[6]
 
 
+def _local_heads(cfg: GPTConfig) -> int:
+    """The heads of this rank: all of them, or 1/mp of them under a mesh."""
+    mesh = current_mesh()
+    mp = 1 if mesh is None else mesh.model
+    if cfg.num_heads % mp:
+        raise ValueError(f"{cfg.num_heads} heads do not split over model={mp}")
+    return cfg.num_heads // mp
+
+
 def init_cache(cfg: GPTConfig, batch: int, max_len: int, device=None):
     """The cache ``cfg.kv_cache_dtype`` names, as the JAX package makes it:
     int8 or int4 (Dc = D/2) data of zeros, scales of ONE and a zero float32
-    ring; or zero [L, B, H, max_len] K and V in the compute dtype."""
-    L, H, N, D = cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.head_dim
+    ring; or zero [L, B, H, max_len] K and V in the compute dtype.  Under a
+    mesh ``batch`` is this rank's rows and the cache holds its heads
+    (``parallel.sharding.cache_spec``)."""
+    L, D = cfg.num_layers, cfg.head_dim
+    N = _local_heads(cfg)
+    H = N * D
     if cfg.kv_cache_dtype == "bfloat16":
         shape = (L, batch, H, max_len)
         return KVCache(torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
@@ -310,12 +338,53 @@ def should_use_flash(cfg: GPTConfig, seq_len: int) -> bool:
             or (cfg.use_flash_attention == "auto" and seq_len >= cfg.flash_min_seq))
 
 
+def _block(shape, heads: bool = False):
+    """(origin, full shape) of this rank's block [B, ...] of a tensor whose
+    dim 0 is split over 'data' (and, with ``heads``, dim 1 over 'model'),
+    for :func:`hash_dropout`; (None, None) without a mesh."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None, None
+    origin, full = [0] * len(shape), list(shape)
+    origin[0], full[0] = mesh.data_rank * shape[0], mesh.data * shape[0]
+    if heads:
+        origin[1], full[1] = mesh.model_rank * shape[1], mesh.model * shape[1]
+    return origin, full
+
+
 def _dropout(x: torch.Tensor, rate: float, seed: Optional[int], train: bool,
              salt: int) -> torch.Tensor:
-    """Counter-hash dropout (ops/hash_prng.py) in training, else ``x``."""
+    """Counter-hash dropout (ops/hash_prng.py) in training, else ``x``; the
+    mask hashes the global coordinates of this rank's rows."""
     if not train or rate <= 0.0 or seed is None:
         return x
-    return hash_dropout(x, rate, seed, salt)
+    origin, full = _block(x.shape)
+    return hash_dropout(x, rate, seed, salt, origin=origin, full_shape=full)
+
+
+def _gather_layer(p: Params) -> Params:
+    """A layer's weights gathered over 'data' under FSDP (one layer at a
+    time: inside the remat boundary, so the backward gathers again)."""
+    mesh = current_mesh()
+    if mesh is None or not mesh.fsdp or mesh.data == 1:
+        return p
+    out = dict(p)
+    for name in ("qkv", "attn_out", "mlp_in", "mlp_out"):
+        if "w" in p[name]:
+            out[name] = {**p[name], "w": comm.fsdp_gather(p[name]["w"], layer_fsdp_dim(name))}
+    return out
+
+
+def _row_parallel(x: torch.Tensor, leaf: Params, cdt: torch.dtype, mp: int) -> torch.Tensor:
+    """:func:`_affine` of a matmul whose input dim is split over 'model':
+    the float32 partial products are summed over 'model' and then rounded
+    as :func:`_affine` rounds, before the bias."""
+    if mp == 1:
+        return _affine(x, leaf, cdt)
+    y = comm.reduce_from_model(_wmul(x, leaf, cdt))
+    if "w8" not in leaf and x.dtype == torch.bfloat16:
+        y = y.to(torch.bfloat16)
+    return (y + leaf["b"].float().reshape(-1)).to(cdt)
 
 
 def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
@@ -339,38 +408,48 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
     probabilities on the dense route (the flash kernels are seeded with
     ``seed ^ 0x5BD1E995``), salt 2 the attention output, salt 3 the MLP
     output."""
-    B, S, H = h.shape
-    N, D = cfg.num_heads, cfg.head_dim
+    B, S, _ = h.shape
+    D = cfg.head_dim
+    N = _local_heads(cfg)  # this rank's heads
+    H = N * D
+    mp = cfg.num_heads // N
     eps = cfg.layernorm_epsilon
     cdt = h.dtype
     lseed = seed if train else None
+    p = _gather_layer(p)
 
     ln1 = layer_norm(h, p["ln_in"]["g"], p["ln_in"]["b"], eps, cfg.pb_relax)
-    qkv = _affine(ln1, p["qkv"], cdt).reshape(B, S, 3, H)
+    qkv = _affine(comm.copy_to_model(ln1), p["qkv"], cdt).reshape(B, S, 3, H)
     q = qkv[:, :, 0].reshape(B, S, N, D)
     k = qkv[:, :, 1]
     v = qkv[:, :, 2]
     if mem is not None:
         lnm = layer_norm(mem.to(cdt), p["ln_in"]["g"], p["ln_in"]["b"], eps, cfg.pb_relax)
-        qkv_m = _affine(lnm, p["qkv"], cdt).reshape(B, mem.shape[1], 3, H)
+        qkv_m = _affine(comm.copy_to_model(lnm), p["qkv"], cdt).reshape(B, mem.shape[1], 3, H)
         k = torch.cat([qkv_m[:, :, 1], k], dim=1)
         v = torch.cat([qkv_m[:, :, 2], v], dim=1)
 
     if cache is None and sparse is not None:
+        origin, full = _block((B, N), heads=True)
         ctx = pivot_window_attention(
             q, k.reshape(B, S, N, D), v.reshape(B, S, N, D), sparse.pivot_idx,
             sparse.pivot_mask, sparse.query_window, sparse.key_window_times,
-            dropout_rate=cfg.attention_dropout, dropout_seed=lseed, train=train)
+            dropout_rate=cfg.attention_dropout, dropout_seed=lseed, train=train,
+            dropout_origin=origin, dropout_full=full)
     elif cache is None and sep_for_flash is not None and should_use_flash(cfg, S):
         # strided q/k/v views of the fused projection go in as they are
         rate = cfg.attention_dropout if lseed is not None else 0.0
         fseed = (lseed ^ 0x5BD1E995) if rate > 0.0 else None
+        origin, _ = _block((B, N), heads=True)
+        b0, n0 = origin if origin is not None else (0, 0)
         ctx, _ = flash_attention(q, k.reshape(B, S, N, D), v.reshape(B, S, N, D),
-                                 sep_for_flash, dropout_rate=rate, dropout_seed=fseed)
+                                 sep_for_flash, dropout_rate=rate, dropout_seed=fseed,
+                                 batch_offset=b0, head_offset=n0, num_heads=cfg.num_heads)
     elif cache is None:
+        origin, full = _block((B, N), heads=True)
         ctx = dense_attention(q, k.reshape(B, -1, N, D), v.reshape(B, -1, N, D), mask,
                               dropout_rate=cfg.attention_dropout, dropout_seed=lseed,
-                              train=train)
+                              train=train, dropout_origin=origin, dropout_full=full)
     elif isinstance(cache, KVCache):
         ck, cv = cache.k[li], cache.v[li]  # [B, H, T] views
         ck[:, :, index:index + S] = k.transpose(1, 2).to(ck.dtype)
@@ -416,15 +495,15 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
                 ctx = dense_attention_kvT(q, kT, vT, mask)
     ctx = ctx.reshape(B, S, H)
 
-    attn_out = _affine(ctx, p["attn_out"], cdt)
+    attn_out = _row_parallel(ctx, p["attn_out"], cdt, mp)
     attn_out = _dropout(attn_out, cfg.output_dropout, lseed, train, salt=2)
     if cfg.sandwich_ln:
         attn_out = layer_norm(attn_out, p["ln_attn"]["g"], p["ln_attn"]["b"], eps, cfg.pb_relax)
     h = h + attn_out
 
     ln2 = layer_norm(h, p["ln_post"]["g"], p["ln_post"]["b"], eps, cfg.pb_relax)
-    inter = F.gelu(_affine(ln2, p["mlp_in"], cdt), approximate="tanh")
-    mlp_out = _affine(inter, p["mlp_out"], cdt)
+    inter = F.gelu(_affine(comm.copy_to_model(ln2), p["mlp_in"], cdt), approximate="tanh")
+    mlp_out = _row_parallel(inter, p["mlp_out"], cdt, mp)
     mlp_out = _dropout(mlp_out, cfg.output_dropout, lseed, train, salt=3)
     if cfg.sandwich_ln:
         mlp_out = layer_norm(mlp_out, p["ln_mlp"]["g"], p["ln_mlp"]["b"], eps, cfg.pb_relax)
@@ -437,19 +516,28 @@ def _embed(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
     cdt = cfg.compute_dtype
     word = params["embed"]["word"]
     if isinstance(word, dict):
-        rows = word["w8"][tokens].float()
-        h = (rows * word["s"][tokens][..., None]).to(cdt)
+        w8, s = word["w8"], word["s"]
+        h = comm.vocab_parallel_rows(lambda t: w8[t].float() * s[t][..., None], tokens,
+                                     w8.shape[0]).to(cdt)
     else:
-        h = word[tokens].to(cdt)
-    h = h + params["embed"]["pos"][position_ids].to(cdt)
+        word = comm.fsdp_gather(word, 1)
+        h = comm.vocab_parallel_rows(lambda t: word[t], tokens, word.shape[0]).to(cdt)
+    pos = comm.fsdp_gather(params["embed"]["pos"], 1)
+    h = h + pos[position_ids].to(cdt)
     return _dropout(h, cfg.embedding_dropout, seed, train, salt=4)
+
+
+def tied_logits(params: Params, h: torch.Tensor) -> torch.Tensor:
+    """h [..., H] times the tied word table -> float32 logits [..., V]
+    (vocab-parallel under a mesh, gathered over 'model')."""
+    word = params["embed"]["word"]
+    leaf = word if isinstance(word, dict) else {"w": comm.fsdp_gather(word, 1)}
+    return comm.vocab_parallel_logits(h, lambda x: _wmul(x, leaf, x.dtype, transpose=True))
 
 
 def _logits(params: Params, cfg: GPTConfig, h: torch.Tensor) -> torch.Tensor:
     """Tied output projection, float32 logits."""
-    word = params["embed"]["word"]
-    leaf = word if isinstance(word, dict) else {"w": word}
-    return _wmul(h, leaf, h.dtype, transpose=True)
+    return tied_logits(params, h)
 
 
 def _final_ln(params: Params, cfg: GPTConfig, h: torch.Tensor) -> torch.Tensor:
@@ -569,7 +657,12 @@ def forward_with_cache(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
     :class:`QuantKVCache` (int8 or int4) or a :class:`KVCache` (bfloat16).
     On a quantized cache a Q > 1 chunk at index 0 is the whole visible
     prefix and attends its own quantized columns; see :class:`QuantKVCache`
-    for its sequencing contract."""
+    for its sequencing contract.
+
+    Under a mesh ``tokens`` and ``cache`` are this rank's rows and the
+    cache holds this rank's heads: batch rows over 'data', heads over
+    'model'.  Each rank runs K1/K2 on its rows and heads, with no
+    collective inside attention (the JAX package's ``_shard_over_batch``)."""
     B, Q = tokens.shape
     index = int(index)
     if isinstance(cache, QuantKVCache):

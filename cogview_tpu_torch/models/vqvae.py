@@ -37,6 +37,8 @@ from ..utils.gif import decode_gif
 from ..utils.image_errors import UnsupportedImageError
 from ..utils.jpeg import decode_jpeg
 from ..utils.png import decode_png
+from ..utils.pnm import decode_pnm
+from ..utils.qoi import decode_qoi
 
 Params = Dict[str, Any]
 
@@ -342,8 +344,8 @@ def resize_bicubic(img: np.ndarray, width: int, height: int) -> np.ndarray:
     return _resample_axis(_resample_axis(img, width, 1, BICUBIC), height, 0, BICUBIC)
 
 
-READ_FORMATS = ("PNG (every colour type, depth and interlace), BMP, GIF or baseline JPEG "
-                "or progressive JPEG (also CMYK and YCCK)")
+READ_FORMATS = ("PNG (every colour type, depth and interlace), BMP, GIF, PNM (P1-P6), QOI "
+                "or baseline JPEG or progressive JPEG (also CMYK and YCCK)")
 
 
 # formats Pillow reads that this package does not, by their magic bytes
@@ -351,12 +353,11 @@ _OTHER_FORMATS = (
     (lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", "WebP"),
     (lambda d: d[:4] in (b"II*\x00", b"MM\x00*"), "TIFF"),
     (lambda d: d[:4] in (b"\x00\x00\x01\x00", b"\x00\x00\x02\x00"), "ICO/CUR"),
-    (lambda d: d[:1] == b"P" and d[1:2] in b"1234567" and d[2:3] in b" \t\r\n", "PNM"),
+    (lambda d: d[:1] == b"P" and d[1:2] in b"0fy", "PNM extension (PFM, CMYK)"),
     (lambda d: d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or d[:4] == b"\xff\x4f\xff\x51",
      "JPEG 2000"),
     (lambda d: d[:4] == b"8BPS", "PSD"),
     (lambda d: d[:4] == b"DDS ", "DDS"),
-    (lambda d: d[:4] == b"qoif", "QOI"),
     (lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"heic", b"mif1"),
      "AVIF/HEIF"),
 )
@@ -378,6 +379,10 @@ def decode_image(data: bytes) -> np.ndarray:
         return decode_bmp(data)
     if data[:6] in (b"GIF87a", b"GIF89a"):
         return decode_gif(data)
+    if data[:1] == b"P" and data[1:2] in b"123456" and len(data) > 1:
+        return decode_pnm(data)
+    if data[:4] == b"qoif":
+        return decode_qoi(data)
     for test, name in _OTHER_FORMATS:
         if test(data):
             raise UnsupportedImageError(f"{name} is not an image this package reads: "

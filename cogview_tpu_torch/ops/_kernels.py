@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its native host libraries.
 
 Each ``csrc/<name>.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  The
@@ -6,6 +6,11 @@ build runs at first use, from the sources in the checkout, into
 ``cogview_tpu_torch/build/`` (which git ignores); the library's file name
 carries a hash of its source and flags, so an edited source is rebuilt.
 Nothing here runs at import time.
+
+:func:`build_host` does the same with ``g++`` for the host runtimes of
+``csrc/spm/`` and ``csrc/dataio/`` (the SentencePiece runtime and the
+corpus batch assembler), bound by ``tokenization/sp_cpp.py`` and
+``data/native_loader.py``.
 
 :func:`launch` is the one place a kernel is launched from Python: every
 wrapper in ``ops/`` calls it.
@@ -50,19 +55,20 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "flash_attention": {
         # q, k, v, o, lse, is_bf16, B, S, N, D,
         # q/k/v batch and sequence strides (elements),
-        # sep, scale, seed, threshold, keep, dropout, stream
+        # sep, scale, seed, threshold, keep, dropout,
+        # the dropout hash's batch offset, head offset and global heads, stream
         "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L,
-                                _I, _F, _U, _U, _F, _I, _P],
+                                _I, _F, _U, _U, _F, _I, _U, _U, _U, _P],
         # q, k, v, dO, lse, delta, dq, is_bf16, B, S, N, D,
         # q/k/v/dO batch and sequence strides, then as the forward
         "flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _L, _L, _L, _L, _L, _L, _L, _L,
-                                   _I, _F, _U, _U, _F, _I, _P],
+                                   _I, _F, _U, _U, _F, _I, _U, _U, _U, _P],
         # q, k, v, dO, lse, delta, dk, dv, is_bf16, B, S, N, D, then as dq
         "flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     _L, _L, _L, _L, _L, _L, _L, _L,
-                                    _I, _F, _U, _U, _F, _I, _P],
+                                    _I, _F, _U, _U, _F, _I, _U, _U, _U, _P],
     },
     "probes": {
         # x, o, n, stream
@@ -74,6 +80,15 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # qc, oh, lane0, out, G, hb, Dc, W, stream
         "probe_seal_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+}
+
+# the host libraries: name -> (source under csrc/, g++ flags).  No
+# -march=native: the build directory can outlive its host, and the ids
+# must not depend on the CPU that built them.
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
+HOST_LIBS: Dict[str, Tuple[str, List[str]]] = {
+    "spm": ("spm/spm.cc", HOST_FLAGS),
+    "dataio": ("dataio/dataio.cc", HOST_FLAGS + ["-lpthread"]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -92,26 +107,24 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+def _target(name: str, src: Path, flags: List[str]) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD / f"lib{name}_{digest}.so"
 
 
-def build_all(names: Iterable[str]) -> List[Path]:
-    """Compile ``csrc/<name>.cu`` for every name not built yet, one ``nvcc``
-    per source, all started together -> the library paths."""
-    names = list(names)
-    outs = [_target(n) for n in names]
+def _build(targets: List[Tuple[Path, Callable[[str], List[str]]]]) -> List[Path]:
+    """(library path, tmp path -> compile command) for each library; every
+    one not built yet is compiled, all started together, into a temporary
+    file renamed into place -> the library paths."""
     jobs = []
     try:
-        for name, out in zip(names, outs):
+        for out, command in targets:
             if out.exists():
                 continue
             BUILD.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
             os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            cmd = command(tmp)
             jobs.append((subprocess.Popen(cmd), cmd, tmp, out))
         for proc, cmd, tmp, out in jobs:
             if proc.wait() != 0:
@@ -124,7 +137,54 @@ def build_all(names: Iterable[str]) -> List[Path]:
                 proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    return outs
+    return [out for out, _ in targets]
+
+
+def build_all(names: Iterable[str]) -> List[Path]:
+    """Compile ``csrc/<name>.cu`` for every name not built yet, one ``nvcc``
+    per source, all started together -> the library paths."""
+    targets = []
+    for name in names:
+        src = CSRC / f"{name}.cu"
+        targets.append((_target(name, src, NVCC_FLAGS),
+                        lambda tmp, src=src: [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]))
+    return _build(targets)
+
+
+def host_compiler() -> "str | None":
+    """The C++ compiler of the host libraries (``$CXX`` or ``g++``), or None
+    where the machine has none."""
+    return shutil.which(os.environ.get("CXX", "g++"))
+
+
+def build_host(names: Iterable[str]) -> List[Path]:
+    """Compile the host libraries ``names`` (keys of HOST_LIBS) not built
+    yet with ``g++``, all started together -> the library paths.  Raises
+    where there is no compiler or a build fails."""
+    cxx = host_compiler()
+    targets = []
+    for name in names:
+        out = host_target(name)
+        if cxx is None and not out.exists():
+            raise RuntimeError(f"no C++ compiler (g++) to build the native library {name}")
+        rel, flags = HOST_LIBS[name]
+        # the libraries follow the source: -lpthread must come after it
+        compile_flags = [f for f in flags if not f.startswith("-l")]
+        libs = [f for f in flags if f.startswith("-l")]
+        targets.append((out, lambda tmp, src=CSRC / rel, cf=compile_flags, libs=libs:
+                        [cxx, *cf, "-o", tmp, str(src), *libs]))
+    return _build(targets)
+
+
+def host_target(name: str) -> Path:
+    """The path host library ``name`` is (or will be) built at."""
+    rel, flags = HOST_LIBS[name]
+    return _target(name, CSRC / rel, flags)
+
+
+def host_available(name: str) -> bool:
+    """True where host library ``name`` is built or a compiler can build it."""
+    return host_compiler() is not None or host_target(name).exists()
 
 
 def lib(name: str) -> ctypes.CDLL:

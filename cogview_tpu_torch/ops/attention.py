@@ -10,7 +10,7 @@ same exact products and float32 sums.  Layout is [B, S, N, D].
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -22,18 +22,22 @@ MASK_VALUE = -10000.0
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: torch.Tensor, *, dropout_rate: float = 0.0,
                     dropout_seed: Optional[int] = None,
-                    train: bool = False) -> torch.Tensor:
+                    train: bool = False, dropout_origin: Optional[Sequence[int]] = None,
+                    dropout_full: Optional[Sequence[int]] = None) -> torch.Tensor:
     """q [B, Sq, N, D], k/v [B, Sk, N, D], mask broadcastable to
     [B, N, Sq, Sk] -> ctx [B, Sq, N, D] in v.dtype.  In training, the float32
     probabilities go through counter-hash dropout with salt 1 (seed a
-    uint32) before the cast to v's dtype."""
+    uint32) before the cast to v's dtype; a shard of the batch and heads
+    passes its (b0, n0) in the global (B, N) as ``dropout_origin`` and
+    ``dropout_full``."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qs = (q * scale).to(q.dtype)
     scores = torch.einsum("bqnd,bknd->bnqk", qs.float(), k.float())
     scores = torch.where(mask.bool(), scores, MASK_VALUE)
     probs = torch.softmax(scores, dim=-1)
     if train and dropout_rate > 0.0 and dropout_seed is not None:
-        probs = hash_dropout(probs, dropout_rate, dropout_seed, salt=1)
+        probs = hash_dropout(probs, dropout_rate, dropout_seed, salt=1,
+                             origin=dropout_origin, full_shape=dropout_full)
     probs = probs.to(v.dtype)
     return torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float()).to(v.dtype)
 

@@ -11,7 +11,11 @@ float32 sums; the softmax is float32.
 Attention-probability dropout keeps the score element (b, n, qpos, kpos)
 iff ``hash_u32(seed, qpos, kpos, b * N + n) >= round(rate * 2^32)``
 (ops/hash_prng.py), so the mask depends on global coordinates only and the
-backward recomputes it.  ``l`` sums the softmax mass before dropout; kept
+backward recomputes it.  A shard of the batch and heads (tensor or data
+parallelism) passes its ``batch_offset`` b0, ``head_offset`` n0 and the
+global head count N: its element (b, n) hashes ``(b0 + b) * N + n0 + n``,
+the JAX package's global coordinates under GSPMD, so its mask is the
+matching block of the unsharded mask.  ``l`` sums the softmax mass before dropout; kept
 probabilities are scaled by ``1 / (1 - rate)`` and cast to v's dtype before
 the product with V.
 
@@ -75,12 +79,17 @@ def _masked_logits(q: torch.Tensor, k: torch.Tensor, sep: int) -> torch.Tensor:
     return torch.where(visible, s, MASK_VALUE)
 
 
-def _drop(p: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
-    """Kept probabilities of [B, N, S, S] ``p``, scaled by 1 / (1 - rate)."""
+def _drop(p: torch.Tensor, rate: float, seed: Optional[int], offsets=(0, 0, None)
+          ) -> torch.Tensor:
+    """Kept probabilities of [B, N, S, S] ``p``, scaled by 1 / (1 - rate);
+    ``offsets`` is (batch offset, head offset, global heads or None)."""
     if rate <= 0.0:
         return p
     B, N, S = p.shape[0], p.shape[1], p.shape[2]
-    bn = torch.arange(B * N, device=p.device).reshape(B, N, 1, 1)
+    b0, n0, n_global = offsets
+    b = b0 + torch.arange(B, device=p.device)
+    n = n0 + torch.arange(N, device=p.device)
+    bn = (b[:, None] * (n_global or N) + n[None, :]).reshape(B, N, 1, 1)
     return torch.where(_keep_mask(seed, bn, S, S, rate), p / (1.0 - rate), 0.0)
 
 
@@ -91,8 +100,10 @@ def flash_attention_reference(
     sep: int = 0,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
+    offsets=(0, 0, None),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the forward kernel -> (o, lse).
+    """Plain PyTorch version of the forward kernel -> (o, lse).  ``offsets``
+    is (batch offset, head offset, global heads or None) of a shard.
 
     One softmax over all keys replaces the kernel's per-tile online softmax
     (equal up to float32 rounding; with bfloat16 v the kernel rounds
@@ -103,7 +114,7 @@ def flash_attention_reference(
     m = s.amax(dim=-1, keepdim=True)  # [B, N, S, 1]
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    p = _drop(p, dropout_rate, dropout_seed)
+    p = _drop(p, dropout_rate, dropout_seed, offsets)
     acc = torch.einsum("bnqk,bknd->bqnd", p.to(v.dtype).float(), v.float())
     o = (acc / l.permute(0, 2, 1, 3)).to(q.dtype)
     return o, (m + torch.log(l))[..., 0]
@@ -112,24 +123,25 @@ def flash_attention_reference(
 flash_attention_reference.calls = 0
 
 
-def _bwd_terms(q, k, v, do, lse, delta, sep, rate, seed):
+def _bwd_terms(q, k, v, do, lse, delta, sep, rate, seed, offsets):
     """(pd, ds) [B, N, S, S] float32: the dropped probabilities and the
     logits' gradient, as both backward kernels form them."""
     p = torch.exp(_masked_logits(q, k, sep) - lse[..., None])
     dp = torch.einsum("bqnd,bknd->bnqk", do.float(), v.float())
-    pd = _drop(p, rate, seed)
+    pd = _drop(p, rate, seed, offsets)
     ds = (pd * dp - p * delta[..., None]) * (1.0 / math.sqrt(q.shape[3]))
     return pd, ds
 
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, sep: int = 0,
                            dropout_rate: float = 0.0,
-                           dropout_seed: Optional[int] = None) -> torch.Tensor:
+                           dropout_seed: Optional[int] = None,
+                           offsets=(0, 0, None)) -> torch.Tensor:
     """Plain PyTorch version of the dq kernel: dq = ds . k, with ds cast to
     k's dtype, float32 sums, dq in q's dtype.  ``lse`` and ``delta`` are
     [B, N, S] float32."""
     flash_bwd_dq_reference.calls += 1
-    _, ds = _bwd_terms(q, k, v, do, lse, delta, sep, dropout_rate, dropout_seed)
+    _, ds = _bwd_terms(q, k, v, do, lse, delta, sep, dropout_rate, dropout_seed, offsets)
     return torch.einsum("bnqk,bknd->bqnd", ds.to(k.dtype).float(), k.float()).to(q.dtype)
 
 
@@ -138,12 +150,12 @@ flash_bwd_dq_reference.calls = 0
 
 def flash_bwd_dkv_reference(q, k, v, do, lse, delta, sep: int = 0,
                             dropout_rate: float = 0.0,
-                            dropout_seed: Optional[int] = None
+                            dropout_seed: Optional[int] = None, offsets=(0, 0, None)
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the dk/dv kernel: dv = pd^T . dO with pd cast
     to dO's dtype, dk = ds^T . q with ds cast to q's dtype, float32 sums."""
     flash_bwd_dkv_reference.calls += 1
-    pd, ds = _bwd_terms(q, k, v, do, lse, delta, sep, dropout_rate, dropout_seed)
+    pd, ds = _bwd_terms(q, k, v, do, lse, delta, sep, dropout_rate, dropout_seed, offsets)
     dv = torch.einsum("bnqk,bqnd->bknd", pd.to(do.dtype).float(), do.float()).to(v.dtype)
     dk = torch.einsum("bnqk,bqnd->bknd", ds.to(q.dtype).float(), q.float()).to(k.dtype)
     return dk, dv
@@ -198,14 +210,16 @@ def _check_rows(name: str, t: torch.Tensor, shape, device) -> None:
                          f"contiguous {shape} float32 on {device}")
 
 
-def _dropout_args(D: int, sep: int, rate: float, seed: Optional[int]):
+def _dropout_args(D: int, N: int, sep: int, rate: float, seed: Optional[int], offsets):
+    b0, n0, n_global = offsets
     return (int(sep), 1.0 / math.sqrt(D), int(seed or 0) & 0xFFFFFFFF,
-            _rate_threshold(rate), 1.0 - rate, int(rate > 0.0))
+            _rate_threshold(rate), 1.0 - rate, int(rate > 0.0), int(b0), int(n0),
+            int(n_global or N))
 
 
-def _flash_fwd(q, k, v, sep, rate, seed):
+def _flash_fwd(q, k, v, sep, rate, seed, offsets=(0, 0, None)):
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, sep, rate, seed)
+        return flash_attention_reference(q, k, v, sep, rate, seed, offsets)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, S, N, D, strides = _cuda_operands(("q", q), ("k", k), ("v", v))
@@ -214,7 +228,7 @@ def _flash_fwd(q, k, v, sep, rate, seed):
     launch("flash_attention", "flash_attention_fwd", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
            int(q.dtype == torch.bfloat16), B, S, N, D, *strides,
-           *_dropout_args(D, sep, rate, seed))
+           *_dropout_args(D, N, sep, rate, seed, offsets))
     flash_attention.launches += 1
     return o, lse
 
@@ -227,12 +241,14 @@ def _bwd_launch_args(q, k, v, do, lse, delta):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, sep: int = 0, *, dropout_rate: float = 0.0,
-                 dropout_seed: Optional[int] = None) -> torch.Tensor:
+                 dropout_seed: Optional[int] = None, offsets=(0, 0, None)) -> torch.Tensor:
     """dq [B, S, N, D] of the backward: the dq kernel on a CUDA tensor (or
     raises), its plain version on a CPU tensor.  ``do`` is dO, ``lse`` and
-    ``delta`` are [B, N, S] float32."""
+    ``delta`` are [B, N, S] float32; ``offsets`` as :func:`flash_attention`'s
+    (batch offset, head offset, global heads or None)."""
     if q.device.type == "cpu":
-        return flash_bwd_dq_reference(q, k, v, do, lse, delta, sep, dropout_rate, dropout_seed)
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, sep, dropout_rate, dropout_seed,
+                                      offsets)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dq: unsupported device {q.device}")
     do = do.contiguous()
@@ -241,7 +257,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, sep: int = 0, *, dropout_rate: float =
     launch("flash_attention", "flash_attention_bwd_dq", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
            delta.data_ptr(), dq.data_ptr(), int(q.dtype == torch.bfloat16), B, S, N, D,
-           *strides, *_dropout_args(D, sep, dropout_rate, dropout_seed))
+           *strides, *_dropout_args(D, N, sep, dropout_rate, dropout_seed, offsets))
     flash_bwd_dq.launches += 1
     return dq
 
@@ -250,11 +266,13 @@ flash_bwd_dq.launches = 0
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, sep: int = 0, *, dropout_rate: float = 0.0,
-                  dropout_seed: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  dropout_seed: Optional[int] = None, offsets=(0, 0, None)
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B, S, N, D] of the backward: the dk/dv kernel on a CUDA
     tensor (or raises), its plain version on a CPU tensor."""
     if q.device.type == "cpu":
-        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, sep, dropout_rate, dropout_seed)
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, sep, dropout_rate, dropout_seed,
+                                       offsets)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dkv: unsupported device {q.device}")
     do = do.contiguous()
@@ -264,7 +282,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, sep: int = 0, *, dropout_rate: float 
     launch("flash_attention", "flash_attention_bwd_dkv", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
-           B, S, N, D, *strides, *_dropout_args(D, sep, dropout_rate, dropout_seed))
+           B, S, N, D, *strides, *_dropout_args(D, N, sep, dropout_rate, dropout_seed, offsets))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -277,10 +295,10 @@ class _FlashAttention(torch.autograd.Function):
     passes from the saved (q, k, v, o, lse)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sep, rate, seed):
-        o, lse = _flash_fwd(q, k, v, sep, rate, seed)
+    def forward(ctx, q, k, v, sep, rate, seed, offsets):
+        o, lse = _flash_fwd(q, k, v, sep, rate, seed, offsets)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.sep, ctx.rate, ctx.seed = sep, rate, seed
+        ctx.sep, ctx.rate, ctx.seed, ctx.offsets = sep, rate, seed, offsets
         ctx.mark_non_differentiable(lse)
         return o, lse
 
@@ -289,10 +307,10 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         # delta = rowsum(dO * O), float32, outside the kernels -> [B, N, S]
         delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
-        kw = dict(dropout_rate=ctx.rate, dropout_seed=ctx.seed)
+        kw = dict(dropout_rate=ctx.rate, dropout_seed=ctx.seed, offsets=ctx.offsets)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.sep, **kw)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.sep, **kw)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -303,9 +321,14 @@ def flash_attention(
     *,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
+    batch_offset: int = 0,
+    head_offset: int = 0,
+    num_heads: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention -> (o [B, S, N, D] in q.dtype, lse [B, N, S]), with a
-    backward to q, k and v.
+    backward to q, k and v.  A shard of a larger batch and head set passes
+    its ``batch_offset``, ``head_offset`` and the global ``num_heads`` for
+    the dropout hash (zeros and N: the unsharded call).
 
     q, k and v may be strided views (the slices of a fused QKV projection):
     the kernels read them through their batch and sequence strides, with no
@@ -316,7 +339,8 @@ def flash_attention(
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate {dropout_rate} outside [0, 1)")
-    return _FlashAttention.apply(q, k, v, int(sep), float(dropout_rate), dropout_seed)
+    offsets = (int(batch_offset), int(head_offset), num_heads)
+    return _FlashAttention.apply(q, k, v, int(sep), float(dropout_rate), dropout_seed, offsets)
 
 
 flash_attention.launches = 0

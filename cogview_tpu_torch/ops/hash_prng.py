@@ -12,6 +12,8 @@ constant into 16-bit halves so every partial product stays below 2^48.
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -66,7 +68,25 @@ def hash_uniform(seed, c0, c1, c2) -> torch.Tensor:
     return torch.clamp(u, max=1.0 - 2.0 ** -24)
 
 
-def hash_dropout(x: torch.Tensor, rate: float, seed: int, salt: int = 0) -> torch.Tensor:
+def _block_index(shape, origin: Sequence[int], full_shape: Sequence[int],
+                 device) -> torch.Tensor:
+    """Row-major flat indices mod 2^32, in a tensor of ``full_shape``, of the
+    block of ``shape`` at ``origin``; both may name only the leading dims
+    (the rest start at 0 and keep their size)."""
+    n = len(shape)
+    origin = list(origin) + [0] * (n - len(origin))
+    full = list(full_shape) + list(shape[len(full_shape):])
+    flat = torch.zeros((), dtype=torch.int64, device=device)
+    for d in range(n):
+        idx = (origin[d] + torch.arange(shape[d], device=device)).reshape(
+            [-1 if i == d else 1 for i in range(n)])
+        flat = ((flat * full[d]) & _M32) + idx
+    return flat & _M32
+
+
+def hash_dropout(x: torch.Tensor, rate: float, seed: int, salt: int = 0,
+                 origin: Optional[Sequence[int]] = None,
+                 full_shape: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Inverted dropout with a counter-hash keep mask: element i of x is kept
     iff hash_u32(seed, flat_index(i), salt, 0) >= round(rate * 2^32), and a
     kept value is ``x / (1 - rate)``.  ``salt`` separates call sites that
@@ -74,10 +94,17 @@ def hash_dropout(x: torch.Tensor, rate: float, seed: int, salt: int = 0) -> torc
 
     The JAX package builds the flat index per dimension as ``flat * n +
     iota`` in wrapping uint32; that is the row-major linear index mod 2^32,
-    which is what is computed here."""
+    which is what is computed here.  Under GSPMD that index is global: a
+    shard passes its block's ``origin`` in the whole tensor of
+    ``full_shape`` (both may name only the leading dims), and its mask is
+    that block of the unsharded mask.  A block along dim 0 alone is the
+    flat offset ``origin[0] * (numel / shape[0])``."""
     if rate <= 0.0:
         return x
-    flat = (torch.arange(x.numel(), device=x.device) & _M32).reshape(x.shape)
+    if origin is None:
+        flat = (torch.arange(x.numel(), device=x.device) & _M32).reshape(x.shape)
+    else:
+        flat = _block_index(x.shape, origin, full_shape, x.device)
     threshold = min(int(round(rate * 2.0 ** 32)), 2 ** 32 - 1)
     keep = hash_u32(seed, flat, salt, 0) >= threshold
     # a 0-d tensor divisor: CUDA divides by a Python scalar through its

@@ -19,7 +19,7 @@ union of the two masks.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -74,10 +74,12 @@ def pivot_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            query_window: int = 128, key_window_times: int = 6,
                            pivot_bias: Optional[float] = None, dropout_rate: float = 0.0,
                            dropout_seed: Optional[int] = None,
-                           train: bool = False) -> torch.Tensor:
+                           train: bool = False, dropout_origin: Optional[Sequence[int]] = None,
+                           dropout_full: Optional[Sequence[int]] = None) -> torch.Tensor:
     """q, k, v [B, S, N, D], pivot_idx [B, P], pivot_mask [B, S, P] ->
     ctx [B, S, N, D] in v's dtype.  In training the joint [B, N, S, P + T]
-    probabilities go through counter-hash dropout with salt 1."""
+    probabilities go through counter-hash dropout with salt 1 (a shard
+    passes its (b0, n0) in the global (B, N), as ``dense_attention``)."""
     B, S, N, D = q.shape
     P = pivot_idx.shape[1]
     w, times = query_window, key_window_times
@@ -97,7 +99,8 @@ def pivot_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     probs = torch.softmax(torch.cat([ps, wsc.reshape(B, N, S, T)], dim=-1), dim=-1)
     if train and dropout_rate > 0.0 and dropout_seed is not None:
-        probs = hash_dropout(probs, dropout_rate, dropout_seed, salt=1)
+        probs = hash_dropout(probs, dropout_rate, dropout_seed, salt=1,
+                             origin=dropout_origin, full_shape=dropout_full)
     probs = probs.to(v.dtype).float()
     out_piv = torch.einsum("bnqp,bpnd->bqnd", probs[..., :P], pv.float())
     out_win = torch.einsum("bngqk,bgknd->bgqnd", probs[..., P:].reshape(B, N, G, w, T),
@@ -126,17 +129,23 @@ def sparse_attention_inference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def sample_pivots(generator: torch.Generator, tokens: torch.Tensor, num_pivot: int,
-                  img_vocab: int, loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  img_vocab: int, loss_mask: Optional[torch.Tensor] = None,
+                  batch_offset: int = 0, global_batch: Optional[int] = None) -> torch.Tensor:
     """Pivot sets [B, num_pivot], sorted: every text position (a token id >=
     img_vocab whose loss mask is on) and uniformly sampled image positions,
     by priority top-k (text 2, image a uniform draw from ``generator``).
     Needs #text <= num_pivot <= S.  The JAX package draws its uniforms with
-    ``jax.random``, so one seed gives other pivots in the two packages."""
+    ``jax.random``, so one seed gives other pivots in the two packages.
+    A shard of the batch (``tokens`` are rows [batch_offset, batch_offset +
+    B) of ``global_batch``) draws the global batch's uniforms from the
+    replicated generator and keeps its rows, so its pivots are the
+    unsharded pivots of those rows."""
     B, S = tokens.shape
     is_txt = tokens >= img_vocab
     if loss_mask is not None:
         is_txt = is_txt & (loss_mask > 0)
-    u = torch.rand((B, S), generator=generator, device=generator.device).to(tokens.device)
+    u = torch.rand((global_batch or B, S), generator=generator, device=generator.device)
+    u = u[batch_offset:batch_offset + B].to(tokens.device)
     priority = torch.where(is_txt, 2.0, u)
     idx = torch.topk(priority, num_pivot, dim=-1).indices
     return torch.sort(idx, dim=-1).values

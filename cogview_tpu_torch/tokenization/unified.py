@@ -17,17 +17,28 @@ text into a template id list with -1 "generate here" slots, and
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .text_tokenizer import TextTokenizer, from_pretrained
+from .text_tokenizer import DEFAULT_MODEL_PATHS, TextTokenizer, from_pretrained
 
 
-def make_text_tokenizer(model_path=None):
-    """The pure-Python SentencePiece runtime.  The JAX package prefers its
-    native runtime (``sp_cpp.py``, byte-identical ids) when built; the port
-    has no native runtime yet."""
+def make_text_tokenizer(model_path=None, prefer_native: bool = True):
+    """The native SentencePiece runtime (``sp_cpp.py``, the same ids as the
+    pure-Python one) wherever it is built or a C++ compiler can build it,
+    as the JAX package prefers its own; a failed build or load raises.
+    ``prefer_native=False``, or a machine with neither, gives the
+    pure-Python runtime.  Without ``model_path`` the default path is
+    relative to the working directory."""
+    from . import sp_cpp
+
+    if prefer_native and sp_cpp.available():
+        if model_path is None:
+            model_path = next((c for c in DEFAULT_MODEL_PATHS if os.path.exists(c)), None)
+        if model_path is not None:
+            return sp_cpp.CppTextTokenizer(model_path)
     return from_pretrained(model_path)
 
 

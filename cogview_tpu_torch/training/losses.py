@@ -9,6 +9,11 @@ the img/txt means are reported separately (txt unscaled back).
 :func:`lm_loss` also trains with pivot + window sparse attention and with
 the dual-segment position ids of super-resolution finetuning;
 :func:`lm_loss_with_mems` threads the transformer-XL memory.
+
+Under a mesh with data > 1 the loss is the global masked mean: each rank
+returns its rows' masked sum over the global mask's sum (all-reduced), so
+the data all-reduce of the gradients is the gradient of the global mean,
+and the metrics are the global means.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from torch.utils.checkpoint import checkpoint
 from ..config import GPTConfig
 from ..models import gpt
 from ..ops.sparse_attention import build_rmask, gather_pivot_mask, sample_pivots
+from ..parallel import comm
+from ..parallel.mesh import DATA_AXIS, current_mesh
 
 
 def cross_entropy_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -43,11 +50,6 @@ def _pick_ce_chunk(S: int, target: int) -> int:
 _CE_AUTO_LOGIT_BYTES = int(4.5 * (1 << 30))
 
 
-def _tied_leaf(params):
-    word = params["embed"]["word"]
-    return word if isinstance(word, dict) else {"w": word}
-
-
 def cross_entropy_hidden(params, h: torch.Tensor, labels: torch.Tensor, *,
                          chunk_target: int = 0) -> torch.Tensor:
     """float32 softmax cross-entropy [B, S] from final-LayerNorm hidden
@@ -59,15 +61,17 @@ def cross_entropy_hidden(params, h: torch.Tensor, labels: torch.Tensor, *,
     ``jax.checkpoint`` on the chunk body), so at most one chunk's [B, C, V]
     logits are live.  The math equals
     ``cross_entropy_logits(_logits(h), labels)``."""
-    leaf = _tied_leaf(params)
+    word = params["embed"]["word"]
     B, S, _ = h.shape
     if chunk_target == 0:
-        V = leaf["w8" if "w8" in leaf else "w"].shape[0]
+        mesh = current_mesh()
+        V = (word["w8"] if isinstance(word, dict) else word).shape[0]
+        V *= 1 if mesh is None else mesh.model  # the gathered logits' width
         chunk_target = S if B * S * V * 4 <= _CE_AUTO_LOGIT_BYTES else 160
     C = _pick_ce_chunk(S, chunk_target)
 
     def chunk_ce(h_c, lab_c):
-        return cross_entropy_logits(gpt._wmul(h_c, leaf, h_c.dtype, transpose=True), lab_c)
+        return cross_entropy_logits(gpt.tied_logits(params, h_c), lab_c)
 
     if C == S:
         return chunk_ce(h, labels)
@@ -79,6 +83,17 @@ def cross_entropy_hidden(params, h: torch.Tensor, labels: torch.Tensor, *,
 def _split_ce(ce, lmask, img_ind, txt_ind, txt_loss_scale):
     """Masked mean CE and the reference's separate img/txt losses."""
     losses = ce * lmask
+    mesh = current_mesh()
+    if mesh is not None and mesh.data > 1:
+        # the global sums, one all-reduce over 'data'
+        sums = comm.all_reduce(torch.stack([
+            losses.sum(), lmask.sum(), (losses * img_ind).sum(), img_ind.sum(),
+            (losses * txt_ind).sum(), txt_ind.sum()]).detach(), DATA_AXIS)
+        denom = torch.clamp(sums[1], min=1.0)
+        return losses.sum() / denom, {
+            "lm_loss": sums[0] / denom,
+            "img_loss": sums[2] / torch.clamp(sums[3], min=1.0),
+            "txt_loss": sums[4] / torch.clamp(sums[5], min=1.0) / txt_loss_scale}
     denom = torch.clamp(lmask.sum(), min=1.0)
     loss = losses.sum() / denom
     img_loss = (losses * img_ind).sum() / torch.clamp(img_ind.sum(), min=1.0)
@@ -135,7 +150,10 @@ def lm_loss(params, cfg: GPTConfig, batch: Dict[str, torch.Tensor], *,
     image positions, drawn from ``generator``, or ``pivot_idx`` [B,
     num_pivot] when given; one of the two is required.
     ``dual_positions_roi2`` is the [ROI2] id whose first occurrence
-    restarts the position ids (:func:`dual_position_ids`)."""
+    restarts the position ids (:func:`dual_position_ids`).  Under a mesh
+    ``batch`` holds this rank's rows, and the pivots are drawn for the
+    global batch and sliced (``sample_pivots``); the first value returned
+    is then this rank's share of the loss, the metrics the global ones."""
     tokens, labels, lmask, img_ind, txt_ind = _split_batch(batch, img_vocab, txt_loss_scale)
     position_ids = _positions(cfg, tokens, position_ids, dual_positions_roi2)
     sparse = None
@@ -147,8 +165,12 @@ def lm_loss(params, cfg: GPTConfig, batch: Dict[str, torch.Tensor], *,
         if pivot_idx is None:
             if generator is None:
                 raise ValueError("is_sparse needs a generator to draw the pivots, or pivot_idx")
-            pivot_idx = sample_pivots(generator, tokens, cfg.num_pivot, img_vocab,
-                                      loss_mask=lmask)
+            mesh = current_mesh()
+            B = tokens.shape[0]
+            pivot_idx = sample_pivots(
+                generator, tokens, cfg.num_pivot, img_vocab, loss_mask=lmask,
+                batch_offset=0 if mesh is None else mesh.data_rank * B,
+                global_batch=None if mesh is None else mesh.data * B)
         rmask = torch.from_numpy(build_rmask(S, cfg.query_window, cfg.key_window_times))
         pivot_mask = gather_pivot_mask(rmask.to(tokens.device), pivot_idx)
         sparse = gpt.SparseSpec(pivot_idx, pivot_mask, cfg.query_window, cfg.key_window_times)

@@ -23,6 +23,8 @@ from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel import comm
+
 Params = Dict[str, Any]
 
 
@@ -83,9 +85,25 @@ def tree_map(fn, tree: Params, *rest: Params) -> Params:
             for k, v in tree.items()}
 
 
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every leaf's sum of squares, float32 0-d."""
-    return torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+def global_norm(grads: Sequence[torch.Tensor], specs: Optional[Sequence] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares, float32 0-d.  With
+    ``specs`` (parallel/sharding.py, one per leaf) the leaves are this
+    rank's shards under the ambient mesh: the sums of leaves split over an
+    axis are all-reduced over it, and a replicated leaf counts once."""
+    if specs is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+    buckets: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for g, spec in zip(grads, specs):
+        axes = tuple(sorted({a for a in spec if a is not None}))
+        sq = torch.sum(torch.square(g))
+        buckets[axes] = buckets[axes] + sq if axes in buckets else sq
+    total = None
+    for axes, sq in buckets.items():
+        for axis in axes:
+            sq = comm.all_reduce(sq, axis)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 # the optimizer updates a leaf in slices of whole rows (whole layers of a

@@ -13,6 +13,14 @@ from) and, for float16, ``loss_scale``.  The step factories also train with
 pivot + window sparse attention, the dual-segment position ids of
 super-resolution finetuning, or the transformer-XL memory; the memory
 advances even on a skipped step, as the reference's does.
+
+Under an ambient mesh (parallel/mesh.py) the step trains this rank's
+shards on its rows of the global batch: the loss is the global masked
+mean, the gradients of every leaf not split over 'data' are all-reduced
+over 'data' (an FSDP leaf's were reduce-scattered in the backward), the
+global norm sums every shard once, the NaN-skip decision is one flag
+all-reduced over every rank, and AdamW updates the local shards.  The
+generator is replicated: every rank draws the same seeds and pivots.
 """
 
 from __future__ import annotations
@@ -22,6 +30,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..config import GPTConfig
+from ..parallel import comm
+from ..parallel.mesh import DATA_AXIS, current_mesh
+from ..parallel.sharding import spec_leaves, specs_for
 from .loss_scaler import LossScaleState, init_loss_scale, update_loss_scale
 from .losses import lm_loss, lm_loss_with_mems
 from .optim import AdamW, global_norm, tree_leaves, tree_map
@@ -95,8 +106,14 @@ def _grads(cfg: GPTConfig, loss_fn, state: TrainState, batch, seeds, scale: Opti
     if scale is not None:
         inv = torch.tensor(1.0 / scale, dtype=torch.float32, device=dev)
         grads = [g * inv for g in grads]
-    g_norm = global_norm(grads)
-    return loss.detach(), metrics, _unflatten(params, grads), g_norm, new_mems
+    mesh = current_mesh()
+    specs = None
+    if mesh is not None:
+        specs = spec_leaves(params, specs_for(params, mesh.fsdp))
+        grads = [g if DATA_AXIS in spec else comm.all_reduce(g, DATA_AXIS)
+                 for g, spec in zip(grads, specs)]
+    g_norm = global_norm(grads, specs)
+    return metrics["lm_loss"].detach(), metrics, _unflatten(params, grads), g_norm, new_mems
 
 
 def _metrics(metrics, g_norm, skipped: bool) -> Dict[str, float]:
@@ -128,7 +145,7 @@ def make_train_step(cfg: GPTConfig, opt: AdamW, *, img_vocab: int = 8192,
              pivot_idx=None):
         loss, metrics, grads, g_norm, new_mems = _grads(cfg, loss_fn, state, batch, seeds,
                                                         None, mems, pivot_idx)
-        finite = bool(torch.isfinite(loss)) and bool(torch.isfinite(g_norm))
+        finite = comm.all_finite([loss, g_norm])
         if finite:
             opt.update(grads, state["opt_state"], state["params"], g_norm)
         state["step"] += int(finite)
@@ -159,7 +176,7 @@ def make_fp16_train_step(cfg: GPTConfig, opt: AdamW, *, img_vocab: int = 8192,
         ls: LossScaleState = state["loss_scale"]
         loss, metrics, grads, g_norm, new_mems = _grads(cfg, loss_fn, state, batch, seeds,
                                                         ls.scale, mems, pivot_idx)
-        overflow = not (bool(torch.isfinite(loss)) and bool(torch.isfinite(g_norm)))
+        overflow = not comm.all_finite([loss, g_norm])
         new_ls, apply = update_loss_scale(ls, overflow, scale_factor=scale_factor,
                                           scale_window=scale_window, min_scale=min_scale,
                                           hysteresis=hysteresis)

@@ -26,7 +26,10 @@ libjpeg-turbo, whose default output is integer arithmetic, ported here:
 Four components are read as libjpeg-turbo reads them for Pillow: CMYK
 without an Adobe marker or with transform 0, YCCK with transform 2 (or any
 other), each inverted as Pillow's ``CMYK;I`` raw mode and converted to RGB
-as Pillow's ``cmyk2rgb`` does.  Lossless, hierarchical, arithmetic-coded
+as Pillow's ``cmyk2rgb`` does.  Three components are YCbCr unless an
+Adobe marker's transform 0 or the ids 'R', 'G', 'B' (without JFIF) make
+them RGB: an Adobe transform 2 is read as YCbCr, as libjpeg reads it.
+Lossless, hierarchical, arithmetic-coded
 and 12-bit files raise an ``UnsupportedImageError`` (a ``ValueError``) that
 names the format.  Huffman decoding is a Python loop over symbols: each reads a
 16-bit window through a 65,536-entry table.
@@ -570,14 +573,13 @@ def decode_jpeg(data: bytes) -> np.ndarray:
 
 def _is_rgb(comps, jfif: bool, adobe) -> bool:
     """libjpeg's default_decompress_parms for three components: JFIF means
-    YCbCr; else an Adobe marker's transform (0 RGB, 1 YCbCr, 2 YCCK);
-    else component ids 'R', 'G', 'B' mean RGB."""
+    YCbCr; else an Adobe marker's transform 0 means RGB and any other
+    YCbCr (transform 2, YCCK, is a four-component transform: libjpeg warns
+    and reads the three as YCbCr); else component ids 'R', 'G', 'B' mean
+    RGB."""
     if jfif:
         return False
     if adobe is not None:
-        if adobe == 2:
-            raise UnsupportedImageError(
-                "Adobe transform 2 (YCCK) on a three-component JPEG is not supported")
         return adobe == 0
     return [c["id"] for c in comps] == [82, 71, 66]
 

@@ -531,11 +531,12 @@ def test_other_jpeg_frames_raise_named_errors(header, match):
 
 
 def test_adobe_transform_2_and_oversized_mcus_raise():
-    """An Adobe transform 2 (YCCK) file raises by name; an interleaved MCU
-    of more than 10 blocks raises as libjpeg (and so Pillow) refuses it."""
+    """A three-component file with Adobe transform 2 (a four-component
+    transform) now reads as YCbCr, byte-equal to Pillow, as libjpeg reads
+    it; an interleaved MCU of more than 10 blocks raises as libjpeg (and so
+    Pillow) refuses it."""
     planes = list(_picture(9, 7, 3).transpose(2, 0, 1))
-    with pytest.raises(ValueError, match="YCCK"):
-        decode_jpeg(_encode_jpeg(planes, ((1, 1),) * 3, app=_adobe(2)))
+    _check_pillow(decode_jpeg, _encode_jpeg(planes, ((1, 1),) * 3, app=_adobe(2)))
     data = _encode_jpeg(planes, ((2, 2),) * 3, app=JFIF)
     with pytest.raises(ValueError, match="10 blocks"):
         decode_jpeg(data)
@@ -922,14 +923,18 @@ def test_gif_short_palette_truncation_and_pillow_files(tmp_path):
 @pytest.mark.parametrize("fmt", ["WEBP", "TIFF", "ICO", "PPM", "JPEG2000", "PSD", "QOI"])
 def test_formats_pillow_reads_raise_a_named_error(fmt):
     """Files Pillow reads and the port does not: an ``UnsupportedImageError``
-    naming the format (Pillow writes them here where it can)."""
-    names = {"WEBP": "WebP", "ICO": "ICO", "PPM": "PNM", "JPEG2000": "JPEG 2000", "TIFF": "TIFF",
-             "PSD": "PSD", "QOI": "QOI"}
+    naming the format (Pillow writes them here where it can).  PNM and QOI
+    are read now: Pillow's own files decode byte-equal to it."""
+    if fmt in ("PPM", "QOI"):
+        _check_pillow(vqvae.decode_image, _encoded_by_pillow(fmt))
+        return
+    names = {"WEBP": "WebP", "ICO": "ICO", "JPEG2000": "JPEG 2000", "TIFF": "TIFF",
+             "PSD": "PSD"}
     try:
         data = _encoded_by_pillow(fmt)
     except (KeyError, OSError, ValueError):  # no writer in this Pillow: the magic bytes
         data = {"WEBP": b"RIFF\x10\x00\x00\x00WEBPVP8 ", "PSD": b"8BPS\x00\x01",
-                "JPEG2000": b"\xff\x4f\xff\x51", "QOI": b"qoif"}[fmt] + bytes(16)
+                "JPEG2000": b"\xff\x4f\xff\x51"}[fmt] + bytes(16)
     with pytest.raises(UnsupportedImageError, match=names[fmt]):
         vqvae.decode_image(data)
 
@@ -938,6 +943,138 @@ def _encoded_by_pillow(fmt: str) -> bytes:
     buf = io.BytesIO()
     Image.fromarray(_picture(16, 16, 1)).save(buf, fmt)
     return buf.getvalue()
+
+
+# --------------------------------------------------------------------- #
+# PNM, QOI and the three-component Adobe-transform-2 JPEG: byte-equal to
+# Pillow's convert("RGB")
+# --------------------------------------------------------------------- #
+
+
+def _plain(values, per_line=7, comment_every=0) -> bytes:
+    out, line = [], []
+    for i, v in enumerate(np.asarray(values).ravel().tolist()):
+        line.append(str(v))
+        if len(line) == per_line:
+            out.append(" ".join(line))
+            line = []
+        if comment_every and i % comment_every == comment_every - 1:
+            out.append("# a comment between values")
+    if line:
+        out.append(" ".join(line))
+    return ("\n".join(out) + "\n").encode()
+
+
+PNM_SIZES = ((1, 1), (3, 5), (9, 7), (17, 13))
+
+
+@pytest.mark.parametrize("maxval", [1, 7, 100, 255, 256, 1000, 65535])
+def test_pnm_gray_every_maxval(maxval):
+    """P2 (plain) and P5 (raw) at maxvals that take Pillow's three routes:
+    255 as it is, 65535 as 16-bit "I", any other scaled (to 65535 above
+    255, then clipped by the RGB conversion)."""
+    rng = np.random.RandomState(maxval)
+    for h, w in PNM_SIZES:
+        v = rng.randint(0, maxval + 1, (h, w))
+        head = b"%d %d\n%d\n" % (w, h, maxval)
+        _check_pillow(vqvae.decode_image, b"P2\n" + head + _plain(v, 5, 11))
+        raw = v.astype(np.uint8 if maxval < 256 else ">u2").tobytes()
+        _check_pillow(vqvae.decode_image, b"P5\n" + head + raw)
+
+
+@pytest.mark.parametrize("maxval", [1, 15, 255, 300, 4095, 65535])
+def test_pnm_colour_every_maxval(maxval):
+    rng = np.random.RandomState(maxval + 1)
+    for h, w in PNM_SIZES:
+        v = rng.randint(0, maxval + 1, (h, w, 3))
+        head = b"%d %d %d\n" % (w, h, maxval)
+        _check_pillow(vqvae.decode_image, b"P3 " + head + _plain(v, 9, 17))
+        raw = v.astype(np.uint8 if maxval < 256 else ">u2").tobytes()
+        _check_pillow(vqvae.decode_image, b"P6\t" + head + raw)
+
+
+def test_pnm_bitmaps():
+    """P1 with and without whitespace between bits and with comments; P4
+    at widths that are no multiple of 8 (each row padded to a byte)."""
+    rng = np.random.RandomState(3)
+    for h, w in PNM_SIZES + ((2, 8), (3, 9)):
+        bits = rng.randint(0, 2, (h, w))
+        head = b"%d %d\n" % (w, h)
+        _check_pillow(vqvae.decode_image, b"P1\n" + head + _plain(bits, 4, 9))
+        dense = b"".join(b"".join(b"%d" % x for x in row) + b"\n" for row in bits)
+        _check_pillow(vqvae.decode_image, b"P1\n# made by hand\n" + head + dense)
+        packed = np.packbits(bits.astype(np.uint8), axis=1).tobytes()
+        _check_pillow(vqvae.decode_image, b"P4\n" + head + packed)
+
+
+def test_pnm_headers_and_refusals():
+    """Comments and runs of whitespace in the header, raw values above
+    maxval (Pillow clamps them), Pillow's own files, and the files both
+    refuse: a truncated raster, a plain value above maxval, a bitmap byte
+    other than 0 or 1, maxval 0, an unknown magic."""
+    v = np.arange(12).reshape(3, 4)
+    for data in (b"P2 #c\n 4\t3 # w h\n\n15 " + _plain(v),
+                 b"P5\n4 3\n100\n" + bytes([0, 50, 100, 101, 200, 255] * 2),
+                 b"P6\n1 2\n65535\n" + bytes(range(12)),
+                 b"P5\n4 3\n255\n" + bytes(11),
+                 b"P2\n2 1\n5\n3 6\n",
+                 b"P1\n2 1\n1 2\n",
+                 b"P5\n2 1\n0\n\x00\x00",
+                 b"P8\n2 1\n255\n\x00\x00"):
+        _check_pillow(vqvae.decode_image, data)
+    pic = _picture(9, 7, 4)
+    for mode in ("1", "L", "I;16", "RGB"):
+        im = Image.fromarray(pic).convert("L" if mode == "I;16" else mode)
+        if mode == "I;16":
+            im = Image.fromarray(pic[..., 0].astype(np.uint16) * 257)
+        buf = io.BytesIO()
+        im.save(buf, "PPM")
+        _check_pillow(vqvae.decode_image, buf.getvalue())
+
+
+def _qoi(w: int, h: int, channels: int, ops: bytes) -> bytes:
+    return b"qoif" + struct.pack(">IIBB", w, h, channels, 0) + ops + bytes(7) + b"\x01"
+
+
+@pytest.mark.parametrize("mode", ["RGB", "RGBA"])
+def test_qoi_as_pillow_writes_it(mode):
+    """Pillow's QOI files (every op: runs of flat colour, small and luma
+    differences, index hits and whole pixels) at odd sizes."""
+    for h, w in ((1, 1), (9, 7), (37, 53)):
+        pic = _picture(h, w, h * w)
+        pic[: h // 2, : w // 2] = 40  # runs
+        if mode == "RGBA":
+            alpha = np.where(np.arange(w)[None, :] % 3 == 0, 255, 7 * np.arange(h)[:, None] % 256)
+            pic = np.concatenate([pic, alpha[..., None].astype(np.uint8)], -1)
+        buf = io.BytesIO()
+        Image.fromarray(pic, mode).save(buf, "QOI")
+        _check_pillow(vqvae.decode_image, buf.getvalue())
+
+
+def test_qoi_hand_built_ops():
+    """The ops Pillow's writer does not emit alike: an INDEX into an empty
+    slot (0, 0, 0, 0), RGB keeping the previous alpha, a RUN past the last
+    pixel, a channel count other than 3 or 4 (read as RGBA); a truncated
+    stream raises."""
+    ops = bytes([0xFF, 10, 20, 30, 40, 0x05, 0xFE, 1, 2, 3, 0x40 | 0x1B, 0x80 | 40, 0x9A,
+                 0xC0 | 9])
+    for channels in (3, 4, 5):
+        _check_pillow(vqvae.decode_image, _qoi(4, 3, channels, ops))
+    with pytest.raises(ValueError, match="QOI"):
+        vqvae.decode_image(_qoi(4, 3, 3, ops)[:20])
+
+
+@pytest.mark.parametrize("sampling", [((1, 1),) * 3, ((2, 2), (1, 1), (1, 1)),
+                                      ((2, 1), (1, 1), (1, 1))],
+                         ids=["4:4:4", "4:2:0", "4:2:2"])
+def test_three_component_adobe_transform_2_reads_as_ycbcr(tmp_path, sampling):
+    """libjpeg reads three components under an Adobe transform 2 as YCbCr
+    (with a warning), and so does the port, at odd sizes."""
+    for h, w in ((1, 1), (9, 7), (37, 53)):
+        planes = list(_picture(h, w, 3 * h + w).transpose(2, 0, 1))
+        data = _encode_jpeg(planes, sampling, app=_adobe(2))
+        _check_pillow(decode_jpeg, data)
+        _check_read_img(tmp_path, data, "img.jpg")
 
 
 def main() -> None:

@@ -149,6 +149,42 @@ def test_flash_grads_match_autograd_of_plain_forward(cuda_device, sep, rate, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("s,sep", [(130, 5), (1088, 0)])
+def test_flash_kernels_with_offsets_match_plain_versions(cuda_device, dtype, tol, s, sep):
+    """K3, K4 and K5 on a shard (rows 2-3 and heads 2-3 of a batch of 4 x 4
+    heads, strided views) with dropout 0.1 and the shard's batch and head
+    offsets: each within ``tol`` of its plain version with the same offsets
+    and of the unsharded kernels' block; zero offsets are the unsharded
+    launch, bit for bit."""
+    (q, k, v, do, lse, delta), kw = _backward_inputs(cuda_device, dtype, 4, s, 4, sep, 0.1)
+    full_o, full_lse = fa.flash_attention(q, k, v, sep, **kw)
+    zero_o, zero_lse = fa.flash_attention(q, k, v, sep, batch_offset=0, head_offset=0,
+                                          num_heads=4, **kw)
+    assert torch.equal(full_o, zero_o) and torch.equal(full_lse, zero_lse)
+    full_dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, sep, **kw)
+    full_dk, full_dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, sep, **kw)
+    rows, heads = slice(2, 4), slice(2, 4)
+    blk = [t[rows, :, heads] for t in (q, k, v, do)]
+    off = (2, 2, 4)
+    o, blse = fa.flash_attention(*blk[:3], sep, batch_offset=2, head_offset=2, num_heads=4,
+                                 **kw)
+    bl, bd = lse[rows, heads].contiguous(), delta[rows, heads].contiguous()
+    dq = fa.flash_bwd_dq(*blk, bl, bd, sep, offsets=off, **kw)
+    dk, dv = fa.flash_bwd_dkv(*blk, bl, bd, sep, offsets=off, **kw)
+    rate, seed = kw["dropout_rate"], kw["dropout_seed"]
+    ro, rlse = fa.flash_attention_reference(*blk[:3], sep, rate, seed, off)
+    rdq = fa.flash_bwd_dq_reference(*blk, bl, bd, sep, rate, seed, off)
+    rdk, rdv = fa.flash_bwd_dkv_reference(*blk, bl, bd, sep, rate, seed, off)
+    for got, plain, full in ((o, ro, full_o), (dq, rdq, full_dq), (dk, rdk, full_dk),
+                             (dv, rdv, full_dv)):
+        assert _rel_err(got, plain) <= tol
+        assert _rel_err(got, full[rows, :, heads]) <= tol
+    assert (blse - rlse).abs().max().item() <= 1e-4
+    assert (blse - full_lse[rows, heads]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
 def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
     for d in (8, 48):  # outside HEAD_DIMS
         q = torch.zeros((1, 8, 2, d), device=cuda_device)

@@ -106,14 +106,15 @@ def _flags(parser):
 
 
 def test_pretrain_cli_takes_every_single_device_flag_of_the_jax_cli():
-    """Every flag of cogview_tpu.cli.pretrain but the multi-device ones, the
-    same presets, and ``--checkpoint-activations`` on by default (the port
-    always recomputes)."""
+    """Every flag of cogview_tpu.cli.pretrain, the multi-device ones too
+    (tests/test_torch_parallel.py runs them), the same presets,
+    and ``--checkpoint-activations`` on by default (the port always
+    recomputes)."""
     from cogview_tpu.cli import pretrain as jax_pretrain
 
     jp, tp = jax_pretrain.build_parser(), pretrain.build_parser()
     assert _flags(jp) - MULTI_DEVICE_FLAGS <= _flags(tp)
-    assert not (_flags(tp) & MULTI_DEVICE_FLAGS)
+    assert MULTI_DEVICE_FLAGS <= _flags(jp) & _flags(tp)
     jpreset = next(a for a in jp._actions if "--preset" in a.option_strings).choices
     assert set(jpreset) == set(pretrain.PRESETS)
     args = tp.parse_args(["--checkpoint-activations", "--is-sparse", "1", "--query-window",

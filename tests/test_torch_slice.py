@@ -121,7 +121,12 @@ def test_port_imports_no_jax():
             "cogview_tpu_torch.preprocess.recover_grid",
             "cogview_tpu_torch.eval_utils.inception", "cogview_tpu_torch.eval_utils.fid",
             "cogview_tpu_torch.eval_utils.inception_score",
-            "cogview_tpu_torch.eval_utils.dataset"} <= set(mods)
+            "cogview_tpu_torch.eval_utils.dataset",
+            "cogview_tpu_torch.parallel.mesh", "cogview_tpu_torch.parallel.comm",
+            "cogview_tpu_torch.parallel.sharding", "cogview_tpu_torch.parallel.spawn",
+            "cogview_tpu_torch.dryrun", "cogview_tpu_torch.tokenization.sp_cpp",
+            "cogview_tpu_torch.data.native_loader", "cogview_tpu_torch.utils.pnm",
+            "cogview_tpu_torch.utils.qoi"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

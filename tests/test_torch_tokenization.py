@@ -89,13 +89,24 @@ def test_text_tokenizer_same_ids_as_jax(tmp_path, flags):
 
 
 def test_port_text_tokenizer_is_pure_python(tmp_path):
-    """make_text_tokenizer gives the pure-Python runtime (the JAX package
-    prefers its native one when built), with the JAX package's ids; the
-    default model path is relative to the working directory."""
+    """make_text_tokenizer gives the native runtime wherever it is built or
+    g++ can build it, as the JAX package prefers its own, and the
+    pure-Python runtime only with prefer_native=False; both with the JAX
+    package's ids.  The default model path is relative to the working
+    directory."""
+    from cogview_tpu_torch.ops import _kernels
+    from cogview_tpu_torch.tokenization import sp_cpp
+
     path = _write_model(tmp_path / "m.model")
     tok = tunified.make_text_tokenizer(path)
-    assert isinstance(tok, ttext.TextTokenizer)
-    assert tok.encode("the cat") == jtext.from_pretrained(path).encode("the cat")
+    assert sp_cpp.available() == (_kernels.host_compiler() is not None
+                                  or _kernels.host_target("spm").exists())
+    assert isinstance(tok, sp_cpp.CppTextTokenizer if sp_cpp.available()
+                      else ttext.TextTokenizer)
+    py = tunified.make_text_tokenizer(path, prefer_native=False)
+    assert isinstance(py, ttext.TextTokenizer)
+    want = jtext.from_pretrained(path).encode("the cat")
+    assert tok.encode("the cat") == py.encode("the cat") == want
     assert ttext.DEFAULT_MODEL_PATHS == ("pretrained/chinese_sentencepiece/cog-pretrain.model",)
     assert ttok.UnifiedTokenizer is tunified.UnifiedTokenizer
 
