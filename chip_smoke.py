@@ -68,8 +68,9 @@ result):
 8. two tiny float32 train steps through the three flash kernels with
    dropout 0.1, card against CPU;
 9. text->image: ``cogview_tpu_torch.cli.generate.main`` at cogview-base width
-   (48 layers, random weights from a seed), int8 KV cache, batch 4, one
-   request of 30 words, first with int8 weights, then with bf16 weights.
+   (random weights from a seed), int8 KV cache, batch 4, one request of 30
+   words, first with int8 weights at CUT_LAYERS (12, since phase 29 came),
+   then with bf16 weights at the full 48 layers.
    Checks the generated ids, the four PNGs, and that every decode step of
    every layer launched K1 and never its plain version; decode steps
    512-519 of the bf16-weight request run under torch.profiler, which gives
@@ -82,10 +83,11 @@ result):
 11. post-selection: the CLI scores the four PNGs against the prompt: four
    finite negative scores in scores_rank_0.txt, 48 flash-kernel launches;
    the same tokens scored again through dense attention on the card agree;
-12. serve: ``cogview_tpu_torch.cli.serve.main`` at cogview-base width with
-   the int4 cache, bf16 weights, batch 4, one query file of the 30-word
-   prompt: the file reaches done/ and failed/ stays empty, four PNGs, ids in
-   [0, 8192), 1024 x 48 K2 launches, no K1 launch and no plain call;
+12. serve: ``cogview_tpu_torch.cli.serve.main`` at cogview-base width, depth
+   cut to CUT_LAYERS (12, since phase 29 came), with the int4 cache, bf16
+   weights, batch 4, one query file of the 30-word prompt: the file reaches
+   done/ and failed/ stays empty, four PNGs, ids in [0, 8192), 1024 x 12 K2
+   launches, no K1 launch and no plain call;
 13. cache fidelity: cogview-base at batch 4, random weights, the
    text->image context and 64 teacher-forced decode steps through the bf16,
    int8 and int4 caches: finite logits, the mean per-step KL of int8 and
@@ -99,10 +101,11 @@ result):
    tokens per second, device-busy share, each flash kernel's milliseconds
    per step (torch.profiler) and peak memory; then a ``--load``
    run resumes at the saved iteration and takes 2 more steps;
-15. low-level super-resolution: the CLI at cogview-base width and depth,
-   int8 cache, batch 4, on the prompt and the int8-weight request's first
-   PNG read at 128 pixels (the bilinear resize): 256 context codes, 4 x
-   1024 ids in [0, 8192), four finite PNGs, 1024 x 48 K1 launches;
+15. low-level super-resolution: the CLI at cogview-base widths, depth cut
+   to CUT_LAYERS (12, since phase 29 came), int8 cache, batch 4, on the
+   prompt and the int8-weight request's first PNG read at 128 pixels (the
+   bilinear resize): 256 context codes, 4 x 1024 ids in [0, 8192), four
+   finite PNGs, 1024 x CUT_LAYERS K1 launches;
 16. super-resolution: the CLI with ``--preset cogview-sr`` at its
    published widths (hidden 2560, 40 heads, 1,345 positions, vocabulary
    58,240), depth cut to SR_LAYERS, int8 cache, batch 1, on the same PNG,
@@ -210,7 +213,23 @@ result):
    20 heads a rank: a 64-token prefill and 16 decode steps on the int8
    (K1) and int4 (K2) caches against the one-rank logits (max |diff|,
    argmax agreement, ids under fixed gumbel draws); step times only under
-   the label "two ranks share one card".
+   the label "two ranks share one card";
+29. ring attention and GPipe, two ranks on the one card the same way: a
+   one-rank NCCL group times K3 at the ring's global shape and computes
+   the references, then two gloo ranks report the ``comm.ppermute`` route
+   gloo takes on CUDA tensors (an all-gather: its send/recv aborts on
+   them) and check one shift and its backward; ring attention at
+   cogview-base widths (B=2, S=1,088, N=40, D=64, bf16, seq 2, sep 0 and
+   64, dropout 0 and 0.1) against dense attention on the whole sequence
+   (o, dq, dk, dv, and the 2 x 2 blocks' keep masks equal to the dense
+   mask), and its forward's time; 2 SP = 2 train steps of cogview-base at
+   SP_LAYERS (4) layers, float32, dropout 0.1, against one rank on the
+   dense route; 2 PP = 2 train steps at the full 48 layers, float32, 2
+   microbatches, dropout 0, against one rank (each rank's K3/K4/K5
+   launches, no plain version, its peak memory), then a bf16 step with
+   dropout 0.1; losses, grad norms and strided samples of every param and
+   Adam moment against the one-rank run; then ``dryrun_multichip(8)``,
+   its six passes, on the card.
 
 The next-to-last line is the kernels' JSON record (each kernel's launches
 on the main path, error, time, plain version's time, bound and library
@@ -219,6 +238,7 @@ time), the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1051,9 +1071,11 @@ def _decode_step_profile(torch, rec) -> dict:
             "host_ms_after": 1000.0 * (rec["host_end"] - rec[f"host_{first + count}"]) / after}
 
 
-def phase_main_path(torch, da, gpt, cli, tasks, sampling, png, weights: str, work: str):
-    """One text2image request through the CLI -> (kernel launches, PNG dir,
-    the decode-step profile of the bf16-weight request or None)."""
+def phase_main_path(torch, da, gpt, cli, cfgmod, tasks, sampling, png, weights: str,
+                    work: str, layers: int = 48):
+    """One text2image request through the CLI at cogview-base widths and
+    ``layers`` layers -> (kernel launches, PNG dir, the decode-step profile
+    of the bf16-weight request or None)."""
     import numpy as np
 
     query = os.path.join(work, "query.txt")
@@ -1068,8 +1090,9 @@ def phase_main_path(torch, da, gpt, cli, tasks, sampling, png, weights: str, wor
     if weights == "bfloat16":
         gpt.forward_with_cache = _profiling_decode_steps(torch, gpt, rec)
     try:
-        _run_cli(cli, tasks, sampling, torch, _cli_argv(weights, "text2image", query, out_dir),
-                 captured)
+        with _cut_depth(cli, cfgmod, layers):
+            _run_cli(cli, tasks, sampling, torch,
+                     _cli_argv(weights, "text2image", query, out_dir), captured)
     finally:
         gpt.forward_with_cache = orig_fwc
     launches = da.decode_attention_quant.launches
@@ -1092,9 +1115,10 @@ def phase_main_path(torch, da, gpt, cli, tasks, sampling, png, weights: str, wor
           f"PNG shapes {shapes}")
     _check(len(res.images) == 4 and finite and all(s == (256, 256, 3) for s in shapes),
            "images missing, non-finite or of the wrong shape")
-    want = steps * 48
-    print(f"main path weights={weights}: kernel launches {launches} == decode steps x 48 = "
-          f"{steps} x 48 = {want}: {launches == want}; plain-version calls {plain_calls}")
+    want = steps * layers
+    print(f"main path weights={weights}, {layers} layers: kernel launches {launches} == decode "
+          f"steps x {layers} = {steps} x {layers} = {want}: {launches == want}; plain-version "
+          f"calls {plain_calls}")
     _check(steps == 1024 and launches == want and plain_calls == 0,
            "the main path did not run the kernel once per step and layer")
     print(f"main path weights={weights}: {captured['request_s']:.3f} s per request "
@@ -1144,11 +1168,32 @@ def phase_image2text(torch, da, fa, cli, tasks, sampling, png_dir: str, work: st
     return launches
 
 
-def phase_low_level_sr(torch, da, cli, tasks, sampling, png, png_dir: str, work: str):
-    """Low-level super-resolution through the CLI at cogview-base width and
-    depth, int8 cache, batch 4, on the prompt and the first PNG of the
-    int8-weight text->image request, read at 128 pixels (the bilinear
-    resize, 256 -> 128) -> K1 launches."""
+# the depth of the decode requests other than the profiled bf16-weight
+# text->image one (which keeps cogview-base's 48 layers): the int8-weight
+# text->image request, the int4 server's and low-level super-resolution's,
+# cut to keep the script inside its time limit with phase 29 (their 1,024
+# host-bound decode steps at batch 4 took 81-116 s each at 48 layers on an
+# H100 host, 28-32 s at 12)
+CUT_LAYERS = 12
+
+
+@contextlib.contextmanager
+def _cut_depth(cli, cfgmod, layers: int):
+    """The generate and serve CLIs' ``cogview-base`` preset (one dict)
+    at its widths with ``layers`` layers, for the block."""
+    orig = cli.PRESETS["cogview-base"]
+    cli.PRESETS["cogview-base"] = lambda: cfgmod.cogview_base(num_layers=layers)
+    try:
+        yield
+    finally:
+        cli.PRESETS["cogview-base"] = orig
+
+
+def phase_low_level_sr(torch, da, cli, cfgmod, tasks, sampling, png, png_dir: str, work: str):
+    """Low-level super-resolution through the CLI at cogview-base widths,
+    depth cut to CUT_LAYERS, int8 cache, batch 4, on the prompt and the
+    first PNG of the int8-weight text->image request, read at 128 pixels
+    (the bilinear resize, 256 -> 128) -> K1 launches."""
     import numpy as np
 
     query = os.path.join(work, "llsr.txt")
@@ -1159,8 +1204,9 @@ def phase_low_level_sr(torch, da, cli, tasks, sampling, png, png_dir: str, work:
     da.decode_attention_quant.launches = 0
     da.decode_attention_quant.launches_int4 = 0
     da.decode_attention_quant_reference.calls = 0
-    _run_cli(cli, tasks, sampling, torch,
-             _cli_argv("bfloat16", "low-level super-resolution", query, out_dir), captured)
+    with _cut_depth(cli, cfgmod, CUT_LAYERS):
+        _run_cli(cli, tasks, sampling, torch,
+                 _cli_argv("bfloat16", "low-level super-resolution", query, out_dir), captured)
     launches = da.decode_attention_quant.launches
     plain_calls = da.decode_attention_quant_reference.calls
     _check(da.decode_attention_quant.launches_int4 == 0, "the int8 cache launched K2")
@@ -1180,12 +1226,13 @@ def phase_low_level_sr(torch, da, cli, tasks, sampling, png, png_dir: str, work:
           f"generated ids, all in [0, 8192): {ok_ids}; PNG shapes {shapes}, images finite: "
           f"{finite}")
     _check(ok_ids and finite and shapes == [(256, 256, 3)] * 4, "low-level SR outputs")
-    print(f"low-level SR: K1 launches {launches} == decode steps x 48 = {steps} x 48 = "
-          f"{steps * 48}: {launches == steps * 48}; plain-version calls {plain_calls}")
-    _check(steps == 1024 and launches == steps * 48 and plain_calls == 0,
+    L = CUT_LAYERS
+    print(f"low-level SR: K1 launches {launches} == decode steps x {L} = {steps} x {L} = "
+          f"{steps * L}: {launches == steps * L}; plain-version calls {plain_calls}")
+    _check(steps == 1024 and launches == steps * L and plain_calls == 0,
            "low-level SR did not run K1 once per step and layer")
-    print(f"low-level SR: {captured['request_s']:.3f} s per request (batch 4, cogview-base, 48 "
-          f"layers); filling {captured['fill_s']:.3f} s = "
+    print(f"low-level SR: {captured['request_s']:.3f} s per request (batch 4, cogview-base "
+          f"widths, {L} layers); filling {captured['fill_s']:.3f} s = "
           f"{1000.0 * captured['fill_s'] / steps:.3f} ms per decode step (prefill included)")
     return launches
 
@@ -1374,9 +1421,9 @@ def phase_post_selection(torch, fa, cli, tasks, scoring, png_dir: str, work: str
     return launches
 
 
-def phase_serve_int4(torch, da, serve, tasks, sampling, png, work: str):
-    """One request through the folder-watcher server with the int4 cache ->
-    K2 launches."""
+def phase_serve_int4(torch, da, serve, cfgmod, tasks, sampling, png, work: str):
+    """One request through the folder-watcher server with the int4 cache at
+    cogview-base widths, depth cut to CUT_LAYERS -> K2 launches."""
     import numpy as np
 
     inp, img = os.path.join(work, "serve_in"), os.path.join(work, "serve_img")
@@ -1391,7 +1438,8 @@ def phase_serve_int4(torch, da, serve, tasks, sampling, png, work: str):
     da.decode_attention_quant.launches = 0
     da.decode_attention_quant.launches_int4 = 0
     da.decode_attention_quant_reference.calls = 0
-    _run_cli(serve, tasks, sampling, torch, argv, captured)
+    with _cut_depth(serve, cfgmod, CUT_LAYERS):
+        _run_cli(serve, tasks, sampling, torch, argv, captured)
     k1, k2 = da.decode_attention_quant.launches, da.decode_attention_quant.launches_int4
     plain_calls = da.decode_attention_quant_reference.calls
 
@@ -1407,11 +1455,12 @@ def phase_serve_int4(torch, da, serve, tasks, sampling, png, work: str):
     print(f"serve int4: {gen_ids.size} generated ids, all in [0, 8192): {ok_ids}; PNG shapes "
           f"{shapes}, images finite: {finite}")
     _check(ok_ids and finite and shapes == [(256, 256, 3)] * 4, "serve outputs")
-    print(f"serve int4: K2 launches {k2} == 1024 x 48 = {1024 * 48}: {k2 == 1024 * 48}; K1 "
+    L = CUT_LAYERS
+    print(f"serve int4: K2 launches {k2} == 1024 x {L} = {1024 * L}: {k2 == 1024 * L}; K1 "
           f"launches {k1}; plain-version calls {plain_calls}")
-    _check(steps == 1024 and k2 == 1024 * 48 and k1 == 0 and plain_calls == 0,
+    _check(steps == 1024 and k2 == 1024 * L and k1 == 0 and plain_calls == 0,
            "the int4 request did not run K2 once per step and layer")
-    print(f"serve int4: {captured['request_s']:.3f} s per request (batch 4); filling "
+    print(f"serve int4: {captured['request_s']:.3f} s per request (batch 4, {L} layers); filling "
           f"{captured['fill_s']:.3f} s = {1000.0 * captured['fill_s'] / steps:.3f} ms per decode "
           f"step (prefill included, {steps} steps)")
     return k2
@@ -3133,7 +3182,7 @@ def phase_two_ranks(torch, work: str) -> dict:
     device) against a one-rank NCCL group on the same card: the tutorial
     steps at (dp, mp, fsdp) = (2, 1, no), (1, 2, no), (2, 1, yes), and
     cogview-base decode at TP=2 on the int8 (K1) and int4 (K2) caches; then
-    the dry run's four passes on four ranks on the card -> the kernels'
+    the dry run's six passes on four ranks on the card -> the kernels'
     launches in the two-rank and one-rank runs, each rank's as it counted
     them."""
     from cogview_tpu_torch.dryrun import dryrun_multichip
@@ -3226,11 +3275,385 @@ def phase_two_ranks(torch, work: str) -> dict:
               f"{statistics.median(rr['ms']):.1f})")
     t3 = time.perf_counter()
     lines = dryrun_multichip(4, device="cuda", timeout=300)
-    _check(len(lines) == 4 and all(ln.startswith("dryrun_multichip ok") for ln in lines),
+    _check(len(lines) == 6 and all(ln.startswith("dryrun_multichip ok") for ln in lines),
            f"the dry run on the card: {lines}")
-    print(f"dry run, four gloo ranks share the card: passes 1-4 ok in "
+    print(f"dry run, four gloo ranks share the card: passes 1-6 ok in "
           f"{time.perf_counter() - t3:.1f} s")
     return {"flash": flash, "decode": decode}
+
+
+# --------------------------------------------------------------------- #
+# phase 29: ring attention and the GPipe pipeline, two ranks on the one card
+# --------------------------------------------------------------------- #
+
+RING_B, RING_S, RING_N, RING_D = 2, 1088, 40, 64  # cogview-base's training shape
+RING_CASES = ((0, 0.0), (0, 0.1), (64, 0.0), (64, 0.1))  # (sep, dropout)
+RING_SEED = 2929
+# the two ranks hold the whole replicated model and its Adam state (about
+# 1.26 GB a layer each): two of them fit about 12 layers in 80 GB; SP's
+# depth is cut to 4 to keep the script inside its time limit (a step
+# all-reduces every float32 gradient over 'seq' through gloo: 10 s at 12
+# layers on two ranks sharing an H100)
+SP_LAYERS, PP_LAYERS, RING_STEPS, RING_LR = 4, 48, 2, 1e-4
+# bf16 ring against bf16 dense attention: the ring rounds its unnormalized
+# probabilities to bf16, dense its normalized ones, so the two differ by
+# about one bf16 step of the largest output (0.4-0.6% of the largest
+# gradient on a 512-position CPU rehearsal)
+RING_TOL = {"o_rel": 1e-2, "grad_rel": 2e-2}
+# the SP and PP steps are compared with one rank in float32 compute, held
+# to TWO_RANK_TOL: in bf16 the ring rounds its unnormalized probabilities
+# where the dense route rounds the normalized ones, and a microbatch's
+# matmuls take other shapes than the whole batch's, and over 12 and 48
+# layers Adam turned those roundings into 1.30% and 2.80% of the params
+# off by more than lr / 10 (NVIDIA H100 80GB HBM3); the bf16 ring is held
+# to dense attention above, and the pipeline's bf16 step is checked finite
+SAMPLES, LAYER_SAMPLES = 4096, 256  # elements of each leaf, and of each of its layers
+
+
+def _leaf_samples(torch, tree, mesh=None):
+    """Evenly strided elements of every leaf of ``tree`` (``tree_leaves``
+    order), float32 on the CPU: about SAMPLES of each whole leaf (all of a
+    smaller one), and of each stacked layer leaf about LAYER_SAMPLES of
+    every layer, gathered over 'pipe' where ``mesh`` splits the layers (a
+    few KB cross the group, not the leaves)."""
+    from cogview_tpu_torch.parallel import comm
+    from cogview_tpu_torch.parallel.mesh import PIPE_AXIS
+    from cogview_tpu_torch.training.optim import tree_leaves
+
+    out = []
+    for t in tree_leaves({k: v for k, v in tree.items() if k != "layers"}):
+        out.append(t.detach().reshape(-1)[::max(1, t.numel() // SAMPLES)].float().cpu())
+    for t in tree_leaves(tree["layers"]):
+        rows = t.detach().reshape(t.shape[0], -1)
+        rows = rows[:, ::max(1, rows.shape[1] // LAYER_SAMPLES)].float().contiguous()
+        out.append(comm.all_gather(rows, PIPE_AXIS, 0, mesh).cpu())
+    return out
+
+
+def _base_steps(torch, mesh, layers: int, dropout: float, flash_min_seq: int, steps: int):
+    """``steps`` cogview-base train steps (``layers`` deep, the published
+    widths, float32 compute) from seeded params at batch RING_B x 1,088 on
+    this rank's part of ``mesh`` (None: one rank) -> (metrics, ms a step,
+    [K3, K4, K5]
+    launches, their plain versions' calls, the param and Adam-moment
+    samples, peak GiB, the state, the config and the optimizer)."""
+    import numpy as np
+
+    from cogview_tpu_torch import config as C
+    from cogview_tpu_torch.models import gpt
+    from cogview_tpu_torch.ops import flash_attention as fa
+    from cogview_tpu_torch.parallel.sharding import shard_params
+    from cogview_tpu_torch.training import optim
+    from cogview_tpu_torch.training import train_loop as tl
+
+    dev = torch.device("cuda")
+    cfg = C.cogview_base(num_layers=layers, embedding_dropout=dropout,
+                         attention_dropout=dropout, output_dropout=dropout,
+                         flash_min_seq=flash_min_seq, pp_microbatches=2,
+                         compute_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(29), device=dev)
+    if mesh is not None:
+        params = shard_params(params, mesh)
+        torch.cuda.empty_cache()
+    opt, _ = optim.make_optimizer(params, lr=RING_LR, warmup_iter=1, num_iters=10)
+    state = tl.init_train_state(params, opt, torch.Generator().manual_seed(30))
+    step = tl.make_train_step(cfg, opt, img_vocab=8192)
+    text = np.random.RandomState(29).randint(0, 58219, (RING_B, 1089)).astype(np.int64)
+    batch = {"text": text, "loss_mask": np.ones_like(text, np.float32)}
+    _zero_flash_counts(fa)
+    metrics, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1000.0)
+        metrics.append(m)
+    launches, plain = _flash_counts(fa)
+    samples = {"params": _leaf_samples(torch, state["params"], mesh),
+               "mu": _leaf_samples(torch, state["opt_state"]["mu"], mesh)}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return metrics, ms, launches, plain, samples, peak, state, cfg, opt
+
+
+def _ring_qkv(torch, dev):
+    """The whole q, k, v and an output cotangent [B, S, N, D], bf16, from
+    RING_SEED on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(RING_SEED)
+    return [torch.randn((RING_B, RING_S, RING_N, RING_D), generator=g, device=dev
+                        ).to(torch.bfloat16) for _ in range(4)]
+
+
+def ring_reference(rank: int, world: int, work: str) -> None:
+    """The one-rank references of phase 29: K3 at the ring's global shape
+    (its time), 2 SP_LAYERS-deep steps on the dense route with dropout 0.1,
+    and 2 PP_LAYERS-deep steps through the flash kernels without dropout,
+    written to ``work``."""
+    import torch
+
+    from cogview_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    q, k, v, _ = _ring_qkv(torch, dev)
+    res = {"k3_ms": _device_time_us(torch, lambda: fa.flash_attention(q, k, v, 0)) / 1000.0}
+    del q, k, v
+    for name, layers, drop, fmin in (("sp", SP_LAYERS, 0.1, 4096),
+                                     ("pp", PP_LAYERS, 0.0, 1024)):
+        metrics, ms, launches, plain, samples, peak, state, _, _ = _base_steps(
+            torch, None, layers, drop, fmin, RING_STEPS)
+        torch.save(samples, os.path.join(work, f"ring_ref_{name}.pt"))
+        res[name] = {"metrics": metrics, "ms": ms, "flash_launches": launches,
+                     "flash_plain_calls": plain, "peak_gib": peak}
+        del state
+        torch.cuda.empty_cache()
+    with open(os.path.join(work, "ring_ref.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _compare_samples(got, want):
+    """-> (max |param diff|, share of param samples off by > lr / 10, Adam
+    moment's max |diff| over each leaf's max)."""
+    pairs = list(zip(got["params"], want["params"]))
+    far = sum(int(((a - b).abs() > RING_LR / 10).sum()) for a, b in pairs)
+    return (max((a - b).abs().max().item() for a, b in pairs),
+            far / sum(a.numel() for a, _ in pairs),
+            max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                for a, b in zip(got["mu"], want["mu"])))
+
+
+def ring_worker(rank: int, world: int, work: str) -> None:
+    """One of two gloo ranks on the one card: (a) the ppermute route gloo
+    takes on CUDA tensors, and one shift and its backward; (b) ring
+    attention at cogview-base widths over seq 2 against dense attention
+    on the whole sequence (o, dq, dk, dv; the keep masks), and its time;
+    (c) 2 SP = 2 train steps, SP_LAYERS deep, dropout 0.1; (d) 2 PP = 2
+    train steps at PP_LAYERS, dropout 0, then one with dropout 0.1.  Each
+    rank writes its results, launches and plain-version calls to
+    ring_<rank>.json."""
+    import numpy as np
+    import torch
+
+    from cogview_tpu_torch.ops import flash_attention as fa
+    from cogview_tpu_torch.ops.attention import causal_mask, dense_attention
+    from cogview_tpu_torch.ops.hash_prng import hash_dropout
+    from cogview_tpu_torch.ops.ring_attention import keep_mask, ring_attention
+    from cogview_tpu_torch.parallel import comm
+    from cogview_tpu_torch.parallel.mesh import SEQ_AXIS, create_mesh, use_mesh
+    from cogview_tpu_torch.training import train_loop as tl
+
+    dev = torch.device("cuda")
+    res = {"ring": {}}
+    with use_mesh(create_mesh(seq_parallel=2, device=dev)) as mesh:
+        x = (torch.arange(8, dtype=torch.float32, device=dev) + 10 * rank).requires_grad_(True)
+        y = comm.ppermute(x, SEQ_AXIS, 1)
+        (gx,) = torch.autograd.grad((y * (1 + rank)).sum(), x)
+        other = 1 - rank
+        res["route"] = comm.ppermute_route(dev)
+        res["ppermute_ok"] = bool(
+            y.is_cuda and torch.equal(y, torch.arange(8, dtype=torch.float32, device=dev)
+                                      + 10 * other)
+            and torch.equal(gx, torch.full_like(gx, 1.0 + other)))
+
+        q, k, v, do = _ring_qkv(torch, dev)
+        Sc = RING_S // 2
+        sl = slice(rank * Sc, (rank + 1) * Sc)
+        for sep, rate in RING_CASES:
+            ql, kl, vl = (t[:, sl].clone().requires_grad_(True) for t in (q, k, v))
+            kw = dict(sep=sep, dropout_rate=rate, dropout_seed=RING_SEED + sep, train=True)
+            o = ring_attention(ql, kl, vl, **kw)
+            grads = torch.autograd.grad((o.float() * do[:, sl].float()).sum(), (ql, kl, vl))
+            got = [comm.all_gather(t.contiguous(), SEQ_AXIS, 1) for t in (o,) + grads]
+            qf, kf, vf = (t.clone().requires_grad_(True) for t in (q, k, v))
+            ref = dense_attention(qf, kf, vf, causal_mask(RING_S, sep=sep, device=dev),
+                                  dropout_rate=rate, dropout_seed=RING_SEED + sep, train=True)
+            want = [ref] + list(torch.autograd.grad((ref.float() * do.float()).sum(),
+                                                    (qf, kf, vf)))
+            errs = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                    for a, b in zip(got, want)]
+            rec = {"o_rel": errs[0], "dq_rel": errs[1], "dk_rel": errs[2], "dv_rel": errs[3]}
+            if rate > 0.0:
+                full = (RING_B, RING_N, RING_S, RING_S)
+                blk = (RING_B, RING_N, Sc, Sc)
+                ring_keep = torch.cat([torch.cat(
+                    [keep_mask(blk, rate, RING_SEED + sep, (0, 0, i * Sc, j * Sc), full, dev)
+                     for j in range(2)], dim=3) for i in range(2)], dim=2)
+                dense_keep = hash_dropout(torch.ones(full, device=dev), rate,
+                                          RING_SEED + sep, salt=1) != 0
+                rec["keep_equal"] = bool(torch.equal(ring_keep, dense_keep))
+                rec["keep_share"] = dense_keep.float().mean().item()
+                del ring_keep, dense_keep
+            if (sep, rate) == (0, 0.0):
+                rec["ring_ms"] = _device_time_us(torch, lambda: ring_attention(
+                    q[:, sl], k[:, sl], v[:, sl], sep=0)) / 1000.0
+                rec["plain_ms"] = _device_time_us(torch, lambda: dense_attention(
+                    q, k, v, causal_mask(RING_S, device=dev))) / 1000.0
+            res["ring"][f"sep{sep} dropout{rate}"] = rec
+            del ql, kl, vl, o, grads, got, qf, kf, vf, ref, want
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+    want = {name: torch.load(os.path.join(work, f"ring_ref_{name}.pt")) for name in ("sp", "pp")}
+    for name, layers, drop, fmin, axes in (("sp", SP_LAYERS, 0.1, 4096, dict(seq_parallel=2)),
+                                           ("pp", PP_LAYERS, 0.0, 1024, dict(pipe_parallel=2))):
+        with use_mesh(create_mesh(device=dev, **axes)) as mesh:
+            metrics, ms, launches, plain, samples, peak, state, cfg, opt = _base_steps(
+                torch, mesh, layers, drop, fmin, RING_STEPS)
+            diff, far, mu = _compare_samples(samples, want[name])
+            res[name] = {"metrics": metrics, "ms": ms, "flash_launches": launches,
+                         "flash_plain_calls": plain, "param_max_abs_diff": diff,
+                         "param_far_share": far, "mu_rel_diff": mu, "peak_gib": peak}
+            if name == "pp":
+                # one more step on the same state, in bf16 with every
+                # dropout at 0.1
+                step = tl.make_train_step(cfg.replace(
+                    embedding_dropout=0.1, attention_dropout=0.1, output_dropout=0.1,
+                    compute_dtype=torch.bfloat16), opt, img_vocab=8192)
+                text = np.random.RandomState(31).randint(0, 58219, (RING_B, 1089))
+                _zero_flash_counts(fa)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, m = step(state, {"text": text, "loss_mask": np.ones(text.shape, np.float32)})
+                torch.cuda.synchronize()
+                launches, plain = _flash_counts(fa)
+                res["pp_dropout"] = {"metrics": m, "ms": (time.perf_counter() - t0) * 1000.0,
+                                     "flash_launches": launches, "flash_plain_calls": plain,
+                                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            del state
+            torch.cuda.empty_cache()
+    with open(os.path.join(work, f"ring_{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_ring_pipeline(torch, work: str) -> list:
+    """Ring attention (SP) and GPipe (PP) on two gloo ranks sharing the
+    card, against a one-rank NCCL group's references on the same card
+    (ring_reference, ring_worker); then the dry run's six passes on eight
+    ranks on the card -> the flash kernels' launches of the PP steps on
+    both ranks, each rank's as it counted them."""
+    from cogview_tpu_torch.dryrun import dryrun_multichip
+    from cogview_tpu_torch.parallel.spawn import run_ranks
+
+    torch.cuda.empty_cache()
+    d = os.path.join(work, "ring")
+    # the 48-layer steps leave two ranks about 33 GiB each of the card: let
+    # their allocators grow segments in place (fixed segments left 7 GiB
+    # cached and unusable on a rank); the ranks' fork server starts with
+    # this environment, and the script's own is restored after
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        t0 = time.perf_counter()
+        run_ranks(ring_reference, 1, d, d, device="cuda:0", timeout=300)
+        t1 = time.perf_counter()
+        run_ranks(ring_worker, 2, d, d, device="cuda:0", timeout=400)
+        t2 = time.perf_counter()
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    with open(os.path.join(d, "ring_ref.json")) as f:
+        ref = json.load(f)
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(d, f"ring_{rank}.json")) as f:
+            ranks.append(json.load(f))
+    print(f"ring/pipeline one-rank references spawned and run in {t1 - t0:.1f} s; two gloo "
+          f"ranks in {t2 - t1:.1f} s")
+    print(f"ppermute on CUDA tensors under gloo: route {[r['route'] for r in ranks]}, one shift "
+          f"and its backward correct on each rank: {[r['ppermute_ok'] for r in ranks]}")
+    _check(all(r["ppermute_ok"] and r["route"] == "all_gather" for r in ranks),
+           "ppermute on CUDA tensors under gloo")
+    for key in ranks[0]["ring"]:
+        for rank, r in enumerate(ranks):
+            rec = r["ring"][key]
+            _check(rec["o_rel"] <= RING_TOL["o_rel"]
+                   and max(rec["dq_rel"], rec["dk_rel"], rec["dv_rel"]) <= RING_TOL["grad_rel"]
+                   and rec.get("keep_equal", True),
+                   f"ring attention {key}, rank {rank}, differs from dense attention: {rec}")
+        rec = ranks[0]["ring"][key]
+        keep = (f"; keep masks of the 2 x 2 blocks equal the dense mask: {rec['keep_equal']} "
+                f"(kept {rec['keep_share']:.4f})" if "keep_equal" in rec else "")
+        print(f"ring attention B={RING_B} S={RING_S} N={RING_N} D={RING_D} bf16 seq 2, {key}: "
+              f"max |diff| over max |dense| o {rec['o_rel']:.2e}, dq {rec['dq_rel']:.2e}, dk "
+              f"{rec['dk_rel']:.2e}, dv {rec['dv_rel']:.2e} (tol {RING_TOL['o_rel']}, "
+              f"{RING_TOL['grad_rel']}){keep}")
+    rt = ranks[0]["ring"]["sep0 dropout0.0"]
+    print(f"ring forward, sep 0, no dropout, each rank's block, two ranks share one card: "
+          f"{[r['ring']['sep0 dropout0.0']['ring_ms'] for r in ranks]} ms; dense plain version "
+          f"on the whole sequence {rt['plain_ms']:.3f} ms; K3 on the whole sequence, one rank "
+          f"alone: {ref['k3_ms']:.3f} ms")
+    tol = TWO_RANK_TOL
+    flash = [0, 0, 0]
+    for name, what in (("sp", f"SP=2 (ring), {SP_LAYERS} layers, float32, dropout 0.1, against "
+                              f"one rank on the dense route"),
+                       ("pp", f"PP=2 (GPipe, 2 microbatches), {PP_LAYERS} layers, float32, "
+                              f"dropout 0, against one rank unpipelined")):
+        rr = ref[name]
+        for rank, two in enumerate(ranks):
+            r = two[name]
+            for key, rt in (("lm_loss", tol["loss_rtol"]), ("grad_norm", tol["grad_norm_rtol"])):
+                for a, b in zip(r["metrics"], rr["metrics"]):
+                    _check(abs(a[key] - b[key]) <= rt * abs(b[key]),
+                           f"{name} rank {rank}: {key} {a[key]} vs one rank {b[key]}")
+            _check(r["param_max_abs_diff"] <= tol["param_atol"]
+                   and r["param_far_share"] <= tol["param_far_share"]
+                   and r["mu_rel_diff"] <= tol["mu_rtol"],
+                   f"{name} rank {rank}: params or Adam moments differ "
+                   f"({r['param_max_abs_diff']}, {r['param_far_share']}, {r['mu_rel_diff']})")
+            _check(r["flash_plain_calls"] == [0, 0, 0],
+                   f"{name} rank {rank}: a flash plain version ran")
+        if name == "pp":
+            for rank, two in enumerate(ranks):
+                # each stage: 24 layers, the forward twice (remat) and each
+                # backward kernel once per layer and microbatch
+                per = PP_LAYERS // 2 * 2 * RING_STEPS
+                _check(two["pp"]["flash_launches"] == [2 * per, per, per],
+                       f"pp rank {rank}: flash launches {two['pp']['flash_launches']}, not "
+                       f"{[2 * per, per, per]}")
+                flash = [a + b for a, b in zip(flash, two["pp"]["flash_launches"])]
+            _check(rr["flash_launches"][0] > 0 and rr["flash_plain_calls"] == [0, 0, 0],
+                   "pp one rank: the flash kernels did not run")
+        else:
+            _check(all(two["sp"]["flash_launches"] == [0, 0, 0] for two in ranks),
+                   "sp: a flash kernel ran on the ring route")
+        r = ranks[0][name]
+        print(f"cogview-base {what}, batch {RING_B} x 1,088, rank 0: lm loss "
+              f"{['%.5f' % x['lm_loss'] for x in r['metrics']]} vs one rank "
+              f"{['%.5f' % x['lm_loss'] for x in rr['metrics']]}, grad norm "
+              f"{['%.4f' % x['grad_norm'] for x in r['metrics']]} vs "
+              f"{['%.4f' % x['grad_norm'] for x in rr['metrics']]}; sampled params after step "
+              f"{RING_STEPS} max |diff| {r['param_max_abs_diff']:.3e} (tol {tol['param_atol']:.4e}), "
+              f"share off by > lr/10 {r['param_far_share']:.2e}; Adam's first moment "
+              f"{r['mu_rel_diff']:.2e}; K3/K4/K5 launches on ranks 0 and 1 "
+              f"{[two[name]['flash_launches'] for two in ranks]} (one rank "
+              f"{rr['flash_launches']}), plain-version calls "
+              f"{[two[name]['flash_plain_calls'] for two in ranks]}; peak GiB on ranks 0 and 1 "
+              f"{['%.2f' % two[name]['peak_gib'] for two in ranks]} (one rank "
+              f"{rr['peak_gib']:.2f}); ms a step, two ranks share one card: "
+              f"{['%.1f' % x for x in r['ms']]} (one rank alone: "
+              f"{['%.1f' % x for x in rr['ms']]})")
+    for rank, two in enumerate(ranks):
+        r = two["pp_dropout"]
+        _check(math.isfinite(r["metrics"]["lm_loss"]) and math.isfinite(r["metrics"]["grad_norm"])
+               and r["metrics"]["skipped"] == 0 and r["flash_plain_calls"] == [0, 0, 0]
+               and min(r["flash_launches"]) > 0,
+               f"pp with dropout 0.1, rank {rank}: {r}")
+        flash = [a + b for a, b in zip(flash, r["flash_launches"])]
+    r = ranks[0]["pp_dropout"]
+    print(f"PP=2 step in bf16 with dropout 0.1: lm loss {r['metrics']['lm_loss']:.5f}, grad norm "
+          f"{r['metrics']['grad_norm']:.4f}, finite; K3/K4/K5 launches on ranks 0 and 1 "
+          f"{[two['pp_dropout']['flash_launches'] for two in ranks]}; peak GiB "
+          f"{['%.2f' % two['pp_dropout']['peak_gib'] for two in ranks]}; {r['ms']:.1f} ms, two "
+          f"ranks share one card")
+    t3 = time.perf_counter()
+    lines = dryrun_multichip(8, device="cuda", timeout=300)
+    _check(len(lines) == 6 and all(ln.startswith("dryrun_multichip ok") for ln in lines),
+           f"the dry run on the card: {lines}")
+    print(f"dry run, eight gloo ranks share the card: passes 1-6 ok in "
+          f"{time.perf_counter() - t3:.1f} s")
+    return flash
 
 
 def main() -> int:
@@ -3304,20 +3727,23 @@ def main() -> int:
         # phase 12 first: the folder-watcher server, int4 cache, runs before
         # phase 9's profiled decode steps, whose tracing leaves a cost on
         # every later launch
-        k2_launches = phase_serve_int4(torch, da, serve, tasks, sampling, png, work)
+        k2_launches = phase_serve_int4(torch, da, serve, cfgmod, tasks, sampling, png, work)
         lap("phase 12")
         # phase 9: text->image with int8 weights; its PNGs feed phases 15
         # (low-level SR) and 16 (super-resolution), which also run before
         # the profiled request; then the bf16-weight request (profiled),
         # whose PNGs feed 10, 11
-        t2i = [phase_main_path(torch, da, gpt, cli, tasks, sampling, png, "int8", work)]
+        t2i = [phase_main_path(torch, da, gpt, cli, cfgmod, tasks, sampling, png, "int8", work,
+                               layers=CUT_LAYERS)]
         lap("phase 9, int8 weights")
-        llsr_launches = phase_low_level_sr(torch, da, cli, tasks, sampling, png, t2i[0][1], work)
+        llsr_launches = phase_low_level_sr(torch, da, cli, cfgmod, tasks, sampling, png,
+                                           t2i[0][1], work)
         lap("phase 15")
         sr_launches = phase_super_resolution(torch, da, cfgmod, cli, gpt, magnify, sampling,
                                              png, t2i[0][1], work, smi.splitlines()[0])
         lap("phase 16")
-        t2i.append(phase_main_path(torch, da, gpt, cli, tasks, sampling, png, "bfloat16", work))
+        t2i.append(phase_main_path(torch, da, gpt, cli, cfgmod, tasks, sampling, png, "bfloat16",
+                                   work))
         lap("phase 9, bf16 weights")
         png_dir = t2i[1][1]
         # phase 10: image->text; phase 11: post-selection; phase 13: fidelity
@@ -3366,9 +3792,13 @@ def main() -> int:
         lap("phase 27")
         two = phase_two_ranks(torch, work)
         lap("phase 28")
-    # the flash kernels' launches on the training paths: phases 14, 19, 20, 23, 28
-    train_launches = [a + b + c + d + e for a, b, c, d, e in zip(
-        train_launches, ft_launches, full_launches, pre_launches, two["flash"])]
+        # phase 29: ring attention (SP) and GPipe (PP) on two ranks, then the
+        # dry run's six passes on eight
+        ring_launches = phase_ring_pipeline(torch, work)
+        lap("phase 29")
+    # the flash kernels' launches on the training paths: phases 14, 19, 20, 23, 28, 29
+    train_launches = [a + b + c + d + e + f for a, b, c, d, e, f in zip(
+        train_launches, ft_launches, full_launches, pre_launches, two["flash"], ring_launches)]
 
     def decode_entry(name, summary, launches, err, kv):
         times = summary["times"]

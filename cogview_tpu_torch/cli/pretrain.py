@@ -13,10 +13,15 @@ table extended from 1,089 to 1,345 rows, positions restarting at [ROI2]):
       --load ckpts/base --finetune --dual-positions \
       --dataset-type TokenizedDataset --train-data data/sr ...
 
-Data x tensor parallelism, with FSDP (one process a card):
+Data x tensor parallelism, with FSDP (one process a card), and with ring
+attention's sequence parallelism or GPipe's pipeline parallelism:
 
   torchrun --nproc-per-node 4 -m cogview_tpu_torch.cli.pretrain \
       --preset cogview-base --model-parallel-size 2 --fsdp ...
+  torchrun --nproc-per-node 4 -m cogview_tpu_torch.cli.pretrain \
+      --preset cogview-base --model-parallel-size 2 --sequence-parallel-size 2 ...
+  torchrun --nproc-per-node 4 -m cogview_tpu_torch.cli.pretrain \
+      --preset cogview-base --pipeline-parallel-size 2 --pipeline-microbatches 4 ...
 
 Iterates global batches from ``cogview_tpu_torch.data`` (the port's copy
 of the JAX package's numpy-only loader), runs the NaN-skipping train step with
@@ -24,11 +29,10 @@ activation recomputation, evaluates (loss and PPL), writes checkpoints with
 the tracker-file protocol, and prints the JAX CLI's per-interval line.  It
 takes every flag of the JAX CLI.  Where torchrun's ``WORLD_SIZE`` is above
 1 the process joins the group from its ``env://`` variables and trains its
-part of a ('data', 'model') mesh (parallel/mesh.py): ``--batch-size`` is
-the global batch, every rank reads it and trains its rows; checkpoints hold
-the full leaves, so ``--load`` works across layouts.
-``--sequence-parallel-size`` and ``--pipeline-*`` parse, and any value
-above 1 exits: ring attention and GPipe are not ported yet.
+part of a ('data', 'pipe', 'seq', 'model') mesh (parallel/mesh.py):
+``--batch-size`` is the global batch, every rank reads it and trains its
+rows (and under sequence parallelism its block of their positions);
+checkpoints hold the full leaves, so ``--load`` works across layouts.
 Runs on a CUDA device by default and fails if there is none.  On CUDA it
 sets ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` before the first
 allocation unless the environment holds an allocator setting: without it
@@ -104,11 +108,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "Adam state) over the data axis; each layer's weights are "
                         "gathered inside the layer loop")
     t.add_argument("--sequence-parallel-size", type=int, default=1,
-                   help="ring-attention sequence parallelism (not ported yet: > 1 exits)")
+                   help="ring-attention sequence parallelism: each row's positions split "
+                        "over this many ranks, K/V blocks rotating round them")
     t.add_argument("--pipeline-parallel-size", type=int, default=1,
-                   help="GPipe pipeline parallelism (not ported yet: > 1 exits)")
+                   help="GPipe pipeline parallelism: the layers split into this many "
+                        "stages (excludes --sequence-parallel-size)")
     t.add_argument("--pipeline-microbatches", type=int, default=0,
-                   help="GPipe microbatches (not ported yet: > 1 exits)")
+                   help="GPipe microbatches of each rank's rows (0 = one per stage)")
     t.add_argument("--is-sparse", type=int, default=0, choices=[0, 1],
                    help="1 = pivot + window sparse attention for training")
     # the reference's shipped scripts pass 64/4/256, which divide the 1,088
@@ -276,13 +282,36 @@ def join_group(args, device: torch.device):
     """Join torchrun's group (its ``env://`` variables) where WORLD_SIZE > 1
     -> (mesh or None, this rank's device, whether this call joined).  Each
     rank takes the card LOCAL_RANK; NCCL where every rank has its own, gloo
-    otherwise.  A process that has joined a group already keeps it."""
-    if args.sequence_parallel_size > 1 or args.pipeline_parallel_size > 1 or (
-            args.pipeline_microbatches > 1):
-        raise SystemExit("--sequence-parallel-size, --pipeline-parallel-size and "
-                         "--pipeline-microbatches are not ported yet (ring attention "
-                         "and GPipe): leave them at 1")
+    otherwise.  A process that has joined a group already keeps it.  The
+    layout checks and their messages are the JAX CLI's."""
+    sp = max(1, args.sequence_parallel_size)
+    pp = max(1, args.pipeline_parallel_size)
+    if sp > 1 and pp > 1:
+        raise SystemExit("--sequence-parallel-size and --pipeline-parallel-size are "
+                         "mutually exclusive")
     world = int(os.environ.get("WORLD_SIZE", "1"))
+    mp = min(args.model_parallel_size, world)
+    if world % (mp * sp * pp):
+        raise SystemExit(f"{world} devices not divisible by model_parallel {mp} x "
+                         f"sequence_parallel {sp} x pipeline_parallel {pp}")
+    dp = world // (mp * sp * pp)
+    if pp > 1:
+        layers = get_config(args).num_layers
+        if layers % pp:
+            raise SystemExit(f"num_layers {layers} not divisible by "
+                             f"--pipeline-parallel-size {pp}")
+        mb = args.pipeline_microbatches or pp
+        if args.batch_size % mb:
+            raise SystemExit(f"--batch-size {args.batch_size} not divisible by {mb} "
+                             "pipeline microbatches")
+        if (args.batch_size // dp) % mb:
+            raise SystemExit(f"--batch-size {args.batch_size} leaves each of the {dp} data "
+                             f"ranks {args.batch_size // dp} rows, not divisible by {mb} "
+                             "pipeline microbatches")
+    if args.batch_size % dp:
+        raise SystemExit(
+            f"--batch-size {args.batch_size} must be divisible by the data "
+            f"axis ({dp} = {world} devices / mp {mp} / sp {sp} / pp {pp})")
     if world == 1:
         return None, device, False
     rank = int(os.environ["RANK"])
@@ -297,16 +326,8 @@ def join_group(args, device: torch.device):
     if joined:
         comm.init_process_group(rank, world, device, ranks_on_host=local_world,
                                 init_method="env://")
-    mp = min(args.model_parallel_size, world)
-    if world % mp:
-        raise SystemExit(f"{world} ranks not divisible by --model-parallel-size {mp}")
-    dp = world // mp
-    if args.batch_size % dp:
-        raise SystemExit(
-            f"--batch-size {args.batch_size} must be divisible by the data "
-            f"axis ({dp} = {world} ranks / mp {mp})")
-    return create_mesh(model_parallel=mp, data_parallel=dp, fsdp=args.fsdp,
-                       device=device), device, joined
+    return create_mesh(model_parallel=mp, data_parallel=dp, fsdp=args.fsdp, device=device,
+                       seq_parallel=sp, pipe_parallel=pp), device, joined
 
 
 def main(argv=None, txt_tokenizer=None) -> int:
@@ -341,14 +362,18 @@ def _train(args, device: torch.device, mesh, txt_tokenizer) -> int:
             print(*a, **kw)
 
     cfg = get_config(args)
+    if args.pipeline_microbatches:
+        cfg = cfg.replace(pp_microbatches=args.pipeline_microbatches)
     tokenizer = build_tokenizer(args, txt_tokenizer)
     if cfg.vocab_size < len(tokenizer):
         print(f"[warn] model vocab {cfg.vocab_size} < tokenizer vocab {len(tokenizer)}: "
               "out-of-range ids fail; check --preset", file=sys.stderr)
     timers = Timers()
     writer = MetricsWriter(args.summary_dir if rank == 0 else None, args.experiment_name)
-    axes = "" if mesh is None else (f"; mesh data={mesh.data} x model={mesh.model}"
-                                    + (" (fsdp)" if mesh.fsdp else ""))
+    axes = "" if mesh is None else (
+        f"; mesh data={mesh.data}" + (f" x pipe={mesh.pipe}" if mesh.pipe > 1 else "")
+        + (f" x seq={mesh.seq}" if mesh.seq > 1 else "") + f" x model={mesh.model}"
+        + (" (fsdp)" if mesh.fsdp else ""))
     say(f"device: {device}{axes}; config {args.preset} ({cfg.num_layers}L/"
         f"{cfg.hidden_size}H/{cfg.num_heads}h, vocab {cfg.vocab_size})")
 

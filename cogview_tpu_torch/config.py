@@ -53,6 +53,9 @@ class GPTConfig:
     # decode kernel) or "int4" (two values a byte, absmax/7 scales, the K2
     # decode kernel); the JAX package's default is "bfloat16"
     kv_cache_dtype: str = "bfloat16"
+    # GPipe microbatches of a training forward on a mesh with a 'pipe' axis
+    # (parallel/pipeline.py); 0 = one per stage
+    pp_microbatches: int = 0
 
     def __post_init__(self):
         assert self.hidden_size % self.num_heads == 0

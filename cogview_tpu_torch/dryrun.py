@@ -1,5 +1,5 @@
-"""Multi-rank dry run of the port (twin of passes 1-4 of the JAX
-package's ``__graft_entry__.dryrun_multichip``).
+"""Multi-rank dry run of the port (twin of the JAX package's
+``__graft_entry__.dryrun_multichip``).
 
 ``dryrun_multichip(n)`` spawns ``n`` ranks (``n`` even, at least 2) on
 the card, or on the CPU where the caller asks for it, and runs, on meshes
@@ -9,15 +9,21 @@ of them:
 2. DP x TP with pivot + window sparse attention and dual-segment
    position ids, in bfloat16;
 3. int8-cache decode with the batch over 'data';
-4. int8-cache decode with heads over 'model' and rows over 'data'.
+4. int8-cache decode with heads over 'model' and rows over 'data';
+5. DP x SP x TP: a train step with ring attention over 'seq', FSDP, in
+   bfloat16 with attention dropout 0.1;
+6. DP x PP x TP: a GPipe train step, 4 layers in 2 stages, 2 microbatches,
+   in bfloat16 with attention dropout 0.1.
+
+Passes 5 and 6 run on the JAX package's 2 x 2 x 2 meshes with 8 ranks, on
+seq 2 x model 2 and pipe 2 x model 2 with 4, and without 'model' with 2.
 
 Each pass checks that its numbers are finite; rank 0 writes one line per
 pass, which the caller prints and returns.  The ranks join one group with
 the backend ``parallel.comm.backend_for`` picks: NCCL where each rank has
 a card of its own, gloo where ranks share a card or run on the CPU.
-Passes 5-6 of the JAX package (ring attention, GPipe) are not ported yet.
 
-  python -m cogview_tpu_torch.dryrun 4                # on the card
+  python -m cogview_tpu_torch.dryrun 8                # on the card
   python -m cogview_tpu_torch.dryrun 4 --device cpu   # gloo CPU processes
 """
 
@@ -119,9 +125,31 @@ def _passes(rank: int, world: int, out: str, device: str) -> None:
         _say(rank, out, f"dryrun_multichip ok: mesh=({world // 2}x2) TP+DP head-sharded "
                    "int8 decode")
 
+    mp = 2 if world % 4 == 0 else 1
+    dp = world // (2 * mp)
+    with use_mesh(create_mesh(model_parallel=mp, data_parallel=dp, seq_parallel=2,
+                              fsdp=True, device=dev)) as mesh:
+        cfg = C.tiny_test(num_layers=2, hidden_size=256, num_heads=8, vocab_size=1024,
+                          max_position_embeddings=65, compute_dtype=torch.bfloat16,
+                          attention_dropout=0.1)
+        text = np.random.RandomState(7).randint(0, 1024, (2 * dp, 65)).astype(np.int64)
+        loss = _train_pass(cfg, mesh, text, 6, img_vocab=512)
+        _say(rank, out, f"dryrun_multichip ok: mesh=({dp}x2x{mp} data x seq x model) "
+                        f"ring-attention SP + FSDP train step loss={loss:.4f}")
+
+    with use_mesh(create_mesh(model_parallel=mp, data_parallel=dp, pipe_parallel=2,
+                              device=dev)) as mesh:
+        cfg = C.tiny_test(num_layers=4, hidden_size=256, num_heads=8, vocab_size=1024,
+                          max_position_embeddings=65, compute_dtype=torch.bfloat16,
+                          attention_dropout=0.1, pp_microbatches=2)
+        text = np.random.RandomState(10).randint(0, 1024, (2 * dp, 65)).astype(np.int64)
+        loss = _train_pass(cfg, mesh, text, 9, img_vocab=512)
+        _say(rank, out, f"dryrun_multichip ok: mesh=({dp}x2x{mp} data x pipe x model) "
+                        f"GPipe train step loss={loss:.4f}")
+
 
 def dryrun_multichip(n: int = 4, device: str = "cuda", timeout: float = 300.0) -> List[str]:
-    """Passes 1-4 on ``n`` ranks on ``device`` ("cuda": every rank on
+    """Passes 1-6 on ``n`` ranks on ``device`` ("cuda": every rank on
     ``cuda:<rank % cards>``; "cpu": gloo CPU processes) -> their lines,
     printed; raises if any fails or hangs."""
     if n < 2 or n % 2:

@@ -27,8 +27,12 @@ rows, and the layer body Megatron's: local heads and MLP columns between
 ``comm.copy_to_model`` and the all-reduce after ``attn_out`` and
 ``mlp_out``, a vocab-parallel embedding and logits (the logits gathered
 over 'model'), and under FSDP each layer's weights gathered inside the
-layer loop.  Dropout hashes global coordinates, as the JAX package's does
-under GSPMD; a quantized cache holds the rank's rows and heads, and its
+layer loop.  On a mesh with a 'seq' axis a training forward holds this
+rank's block of the sequence, with global position ids, and its causal
+attention is ring attention (ops/ring_attention.py); on one with a 'pipe'
+axis the rank holds its stage's layers and the layer loop is a GPipe
+schedule (parallel/pipeline.py).  Dropout hashes global coordinates, as the
+JAX package's does under GSPMD; a quantized cache holds the rank's rows and heads, and its
 decode kernel runs on them with no collective, as ``_shard_over_batch``
 runs the JAX kernel.
 """
@@ -51,9 +55,11 @@ from ..ops.decode_attention import (
 from ..ops.flash_attention import flash_attention
 from ..ops.hash_prng import hash_dropout
 from ..ops.layernorm import layer_norm
+from ..ops.ring_attention import ring_attention
 from ..ops.sparse_attention import pivot_window_attention
 from ..parallel import comm
 from ..parallel.mesh import current_mesh
+from ..parallel.pipeline import gpipe, microbatch_seed
 from ..parallel.sharding import layer_fsdp_dim
 
 Params = Dict[str, Any]
@@ -340,8 +346,9 @@ def should_use_flash(cfg: GPTConfig, seq_len: int) -> bool:
 
 def _block(shape, heads: bool = False):
     """(origin, full shape) of this rank's block [B, ...] of a tensor whose
-    dim 0 is split over 'data' (and, with ``heads``, dim 1 over 'model'),
-    for :func:`hash_dropout`; (None, None) without a mesh."""
+    dim 0 is split over 'data' and dim 1 over 'model' (``heads``) or else
+    over 'seq' (an activation [B, S, H]), for :func:`hash_dropout`; (None,
+    None) without a mesh."""
     mesh = current_mesh()
     if mesh is None:
         return None, None
@@ -349,6 +356,8 @@ def _block(shape, heads: bool = False):
     origin[0], full[0] = mesh.data_rank * shape[0], mesh.data * shape[0]
     if heads:
         origin[1], full[1] = mesh.model_rank * shape[1], mesh.model * shape[1]
+    elif mesh.seq > 1:
+        origin[1], full[1] = mesh.seq_rank * shape[1], mesh.seq * shape[1]
     return origin, full
 
 
@@ -416,6 +425,13 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
     eps = cfg.layernorm_epsilon
     cdt = h.dtype
     lseed = seed if train else None
+    mesh = current_mesh()
+    sp = 1 if mesh is None else mesh.seq
+    ring = cache is None and sparse is None and mem is None and sep_for_flash is not None
+    if sp > 1 and not (ring and S * sp > 1):
+        raise ValueError("under sequence parallelism a layer holds a block of the sequence "
+                         "and attends through the ring: the causal mask only, with no "
+                         "cache, memory or sparse attention")
     p = _gather_layer(p)
 
     ln1 = layer_norm(h, p["ln_in"]["g"], p["ln_in"]["b"], eps, cfg.pb_relax)
@@ -429,7 +445,12 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
         k = torch.cat([qkv_m[:, :, 1], k], dim=1)
         v = torch.cat([qkv_m[:, :, 2], v], dim=1)
 
-    if cache is None and sparse is not None:
+    if sp > 1:
+        # the sequence is split over 'seq': S is this rank's block
+        ctx = ring_attention(q, k.reshape(B, S, N, D), v.reshape(B, S, N, D),
+                             sep=sep_for_flash, dropout_rate=cfg.attention_dropout,
+                             dropout_seed=lseed, train=train, num_heads=cfg.num_heads)
+    elif cache is None and sparse is not None:
         origin, full = _block((B, N), heads=True)
         ctx = pivot_window_attention(
             q, k.reshape(B, S, N, D), v.reshape(B, S, N, D), sparse.pivot_idx,
@@ -583,16 +604,50 @@ def forward(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
     ``logits_from=t`` keeps positions >= t only ([B, S - t, V]); the final
     LayerNorm then sees only those positions, whose PB-relax max is over
     them alone, as in the JAX package.  ``return_hidden=True`` returns the
-    final-LayerNorm hidden states in place of logits."""
+    final-LayerNorm hidden states in place of logits.
+
+    On a mesh with a 'seq' axis ``tokens`` (and ``position_ids``) are this
+    rank's block of the sequence, block i holding positions [i S, (i + 1)
+    S), and the default position ids are those global positions.  On a mesh
+    with a 'pipe' axis ``params`` hold this stage's layers, ``seeds`` all L
+    + 1, and the layers run as ``cfg.pp_microbatches`` microbatches (0: one
+    per stage) through the GPipe schedule; the result is every stage's."""
     B, S = tokens.shape
+    mesh = current_mesh()
+    sp, pp = (1, 1) if mesh is None else (mesh.seq, mesh.pipe)
+    if sp > 1 and pp > 1:
+        raise ValueError("sequence and pipeline parallelism do not compose (the JAX "
+                         "package's pp_axis excludes sp_axis)")
     if position_ids is None:
-        position_ids = torch.arange(S, device=tokens.device).expand(B, S)
+        off = mesh.seq_rank * S if sp > 1 else 0
+        position_ids = (off + torch.arange(S, device=tokens.device)).expand(B, S)
     seeds = _check_seeds(cfg, seeds)
     mask = causal_mask(S, sep=sep, device=tokens.device)
     h = _embed(params, cfg, tokens, position_ids, seeds[0], train)
-    for li, p in enumerate(_layers(params)):
-        h = _run_layer(cfg, h, p, mask, remat, sep_for_flash=sep, seed=seeds[li + 1],
-                       train=train, sparse=sparse)
+    layers = _layers(params)
+    if pp > 1:
+        # this stage's layers are [s Lp, (s + 1) Lp) of the L; each takes
+        # its seed perturbed by the microbatch, as the JAX pipeline does
+        Lp, s0 = len(layers), mesh.pipe_rank * len(layers)
+        if Lp * pp != cfg.num_layers:
+            raise ValueError(f"{Lp} layers a stage x {pp} stages != num_layers "
+                             f"{cfg.num_layers}")
+
+        def stage(act, m, *piv):
+            sp_m = sparse if not piv else sparse._replace(pivot_idx=piv[0], pivot_mask=piv[1])
+            for li, p in enumerate(layers):
+                seed = seeds[s0 + li + 1]
+                act = _run_layer(cfg, act, p, mask, remat, sep_for_flash=sep, train=train,
+                                 seed=None if seed is None else microbatch_seed(seed, m),
+                                 sparse=sp_m)
+            return act
+
+        h = gpipe(stage, h, cfg.pp_microbatches or pp,
+                  () if sparse is None else (sparse.pivot_idx, sparse.pivot_mask))
+    else:
+        for li, p in enumerate(layers):
+            h = _run_layer(cfg, h, p, mask, remat, sep_for_flash=sep, seed=seeds[li + 1],
+                           train=train, sparse=sparse)
     if logits_from is not None:
         h = h[:, logits_from:]
     h = _final_ln(params, cfg, h)

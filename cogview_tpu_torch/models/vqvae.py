@@ -39,6 +39,7 @@ from ..utils.jpeg import decode_jpeg
 from ..utils.png import decode_png
 from ..utils.pnm import decode_pnm
 from ..utils.qoi import decode_qoi
+from ..utils.webp import decode_webp
 
 Params = Dict[str, Any]
 
@@ -344,13 +345,13 @@ def resize_bicubic(img: np.ndarray, width: int, height: int) -> np.ndarray:
     return _resample_axis(_resample_axis(img, width, 1, BICUBIC), height, 0, BICUBIC)
 
 
-READ_FORMATS = ("PNG (every colour type, depth and interlace), BMP, GIF, PNM (P1-P6), QOI "
-                "or baseline JPEG or progressive JPEG (also CMYK and YCCK)")
+READ_FORMATS = ("PNG (every colour type, depth and interlace), BMP, GIF, PNM (P1-P6), QOI, "
+                "WebP (lossy, lossless, alpha, an animation's first frame) or baseline "
+                "JPEG or progressive JPEG (also CMYK and YCCK)")
 
 
 # formats Pillow reads that this package does not, by their magic bytes
 _OTHER_FORMATS = (
-    (lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", "WebP"),
     (lambda d: d[:4] in (b"II*\x00", b"MM\x00*"), "TIFF"),
     (lambda d: d[:4] in (b"\x00\x00\x01\x00", b"\x00\x00\x02\x00"), "ICO/CUR"),
     (lambda d: d[:1] == b"P" and d[1:2] in b"0fy", "PNM extension (PFM, CMYK)"),
@@ -367,7 +368,7 @@ def decode_image(data: bytes) -> np.ndarray:
     """The bytes of an image file -> [h, w, 3] uint8, as Pillow's
     ``Image.open(...).convert("RGB")``.  The reader is chosen by the file's
     magic bytes, as ``Image.open`` chooses it, never by a file name.  A
-    format that Pillow reads and this package does not (WebP, TIFF, ...,
+    format that Pillow reads and this package does not (TIFF, ICO, ...,
     known by its magic bytes; an arithmetic-coded JPEG, ...) raises
     :class:`UnsupportedImageError` naming it; bytes that are no image
     raise a plain ``ValueError``."""
@@ -383,6 +384,8 @@ def decode_image(data: bytes) -> np.ndarray:
         return decode_pnm(data)
     if data[:4] == b"qoif":
         return decode_qoi(data)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return decode_webp(data)
     for test, name in _OTHER_FORMATS:
         if test(data):
             raise UnsupportedImageError(f"{name} is not an image this package reads: "

@@ -15,7 +15,13 @@ wrote Megatron's (mpu/mappings.py):
 * :func:`vocab_parallel_rows` and :func:`vocab_parallel_logits`: the
   embedding lookup and the tied logits of a vocab table split over 'model';
 * :func:`fsdp_gather`: FSDP's all-gather of a weight over 'data', whose
-  backward reduce-scatters the gradient.
+  backward reduce-scatters the gradient;
+* :func:`ppermute`: ``lax.ppermute``'s one-hop shift along an axis, whose
+  backward shifts back (ring attention's K/V rotation, the pipeline's
+  activation hop);
+* :func:`copy_to_pipe` / :func:`sum_over_pipe`: the identity whose
+  backward all-reduces over 'pipe', and the all-reduce whose backward is
+  the identity; they bracket the GPipe schedule (parallel/pipeline.py).
 
 Each is the identity where the mesh has no such axis (or there is no
 mesh).  :func:`backend_for` is the one place a backend is chosen: NCCL when
@@ -32,7 +38,7 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, current_mesh
+from .mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, Axes, Mesh, current_mesh
 
 
 def backend_for(device, ranks_on_host: int) -> str:
@@ -62,20 +68,31 @@ def init_process_group(rank: int, world_size: int, device, *, ranks_on_host: Opt
     return backend
 
 
-def _axis(axis: str, mesh: Optional[Mesh] = None):
-    """-> (axis size, group) with the ambient mesh by default."""
+def _axis(axis: Axes, mesh: Optional[Mesh] = None):
+    """-> (size, group) of an axis, or of the plane of a tuple of axes (its
+    axes of size 1 dropped), with the ambient mesh by default."""
     mesh = mesh if mesh is not None else current_mesh()
     if mesh is None:
         return 1, None
+    if isinstance(axis, tuple):
+        axes = tuple(a for a in axis if mesh.size(a) > 1)
+        if len(axes) != 1:
+            n = 1
+            for a in axes:
+                n *= mesh.size(a)
+            return n, (mesh.group(axes) if n > 1 else None)
+        axis = axes[0]
     return mesh.size(axis), mesh.group(axis)
 
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
 
 
-def all_reduce(x: torch.Tensor, axis: str, op: str = "sum", mesh: Optional[Mesh] = None
+def all_reduce(x: torch.Tensor, axis: Axes, op: str = "sum", mesh: Optional[Mesh] = None
                ) -> torch.Tensor:
-    """A new tensor: ``x`` reduced over ``axis``."""
+    """A new tensor: ``x`` reduced over ``axis``, or in one collective over
+    the plane of a tuple of axes ((data, seq): the sums of a
+    sequence-parallel step)."""
     n, group = _axis(axis, mesh)
     if n == 1:
         return x
@@ -105,6 +122,38 @@ def reduce_scatter(x: torch.Tensor, axis: str, dim: int, mesh: Optional[Mesh] = 
     chunks = [c.contiguous() for c in x.chunk(n, dim=dim)]
     out = torch.empty_like(chunks[0])
     dist.reduce_scatter(out, chunks, group=group)
+    return out
+
+
+def ppermute_route(device) -> str:
+    """How :func:`ppermute` moves a tensor on ``device`` under the default
+    group's backend: "p2p" (one ``batch_isend_irecv`` of a send and a
+    receive) wherever the backend sends that device's tensors point to
+    point: NCCL, and gloo on the CPU.  gloo's send and receive take host
+    memory only (on CUDA tensors its TCP transport aborts the process,
+    "writev: Bad address", torch 2.11 on an H100), while its all_gather
+    takes CUDA tensors; so ranks that share a card under gloo take
+    "all_gather": an all-gather over the axis, of which the rank keeps its
+    neighbour's block."""
+    if torch.device(device).type == "cuda" and dist.get_backend() != "nccl":
+        return "all_gather"
+    return "p2p"
+
+
+def _shift(x: torch.Tensor, axis: str, shift: int, mesh: Mesh) -> torch.Tensor:
+    n, group = mesh.size(axis), mesh.group(axis)
+    r = mesh.axis_rank(axis)
+    x = x.contiguous()
+    if ppermute_route(x.device) == "all_gather":
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        return parts[(r - shift) % n]
+    out = torch.empty_like(x)
+    # a P2POp's peer is a global rank, not the rank within ``group``
+    ops = [dist.P2POp(dist.isend, x, mesh.peer(axis, r + shift), group),
+           dist.P2POp(dist.irecv, out, mesh.peer(axis, r - shift), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
     return out
 
 
@@ -170,6 +219,65 @@ class _FsdpGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return reduce_scatter(g, DATA_AXIS, ctx.dim, mesh=ctx.mesh), None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, shift, mesh):
+        ctx.axis, ctx.shift, ctx.mesh = axis, shift, mesh
+        return _shift(x, axis, shift, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.axis, -ctx.shift, ctx.mesh), None, None, None
+
+
+class _CopyToPipe(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh = current_mesh()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, PIPE_AXIS, mesh=ctx.mesh)
+
+
+class _SumOverPipe(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return all_reduce(x, PIPE_AXIS)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def ppermute(x: torch.Tensor, axis: str, shift: int = 1) -> torch.Tensor:
+    """``x`` of the rank ``shift`` places back along ``axis`` (each rank
+    sends to the one ``shift`` ahead, cyclically; ``lax.ppermute`` with
+    ``perm = [(r, (r + shift) % n)]``); the backward shifts the gradient
+    the other way.  Every rank of the axis must call it in the same order,
+    and must use its result, so that every rank runs its backward too."""
+    mesh = current_mesh()
+    if mesh is None or mesh.size(axis) == 1:
+        return x
+    return _PPermute.apply(x, axis, shift, mesh)
+
+
+def copy_to_pipe(x: torch.Tensor) -> torch.Tensor:
+    """Identity; the backward all-reduces over 'pipe' (the pipeline's input,
+    which only the first stage reads)."""
+    mesh = current_mesh()
+    return x if mesh is None or mesh.pipe == 1 else _CopyToPipe.apply(x)
+
+
+def sum_over_pipe(x: torch.Tensor) -> torch.Tensor:
+    """All-reduce over 'pipe' (the last stage's output, zeros elsewhere);
+    the backward is the identity: every stage computes the same loss from
+    the sum, and each passes its own gradient back."""
+    mesh = current_mesh()
+    return x if mesh is None or mesh.pipe == 1 else _SumOverPipe.apply(x)
 
 
 def _model_size() -> int:

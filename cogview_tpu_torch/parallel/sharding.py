@@ -15,7 +15,9 @@ Megatron's tensor parallelism:
                        parallel/comm.py)
 
 with the biases of column-parallel matmuls split like their outputs and
-everything else replicated.  ``fsdp=True`` also splits the other dim of
+everything else replicated.  ``pipe=True`` splits every layer leaf's
+leading L dim over 'pipe' (the pipeline's stages, parallel/pipeline.py).
+``fsdp=True`` also splits the other dim of
 every weight matrix and of both embedding tables over 'data' (FSDP /
 ZeRO-3); the model gathers a layer's weights inside its layer loop.  Int8
 weight-only leaves (``{"w8", "s"}``) split ``w8`` as ``w`` and their
@@ -30,20 +32,24 @@ import numpy as np
 import torch
 
 from . import comm
-from .mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from .mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, Mesh
 
 Spec = Tuple[Optional[str], ...]
 
 M = MODEL_AXIS
 
 
-def gpt_param_specs(fsdp: bool = False, quantized: bool = False) -> Dict[str, Any]:
+def gpt_param_specs(fsdp: bool = False, quantized: bool = False,
+                    pipe: bool = False) -> Dict[str, Any]:
     """The spec tree of ``models.gpt.init_params``'s layout, or of
-    ``gpt.quantize_weights``'s with ``quantized``."""
+    ``gpt.quantize_weights``'s with ``quantized``; ``pipe`` splits the
+    layer leaves' L dim over 'pipe'."""
     F = DATA_AXIS if fsdp and not quantized else None
-    ln = {"g": (None, None), "b": (None, None)}
+    Pp = PIPE_AXIS if pipe else None
+    ln = {"g": (Pp, None), "b": (Pp, None)}
 
     def mat(w: Spec, s: Spec, b: Spec):
+        w, s, b = (Pp,) + w[1:], (Pp,) + s[1:], (Pp,) + b[1:]
         return {"w8": w, "s": s, "b": b} if quantized else {"w": w, "b": b}
 
     word = {"w8": (M, None), "s": (M,)} if quantized else (M, F)
@@ -63,9 +69,12 @@ def gpt_param_specs(fsdp: bool = False, quantized: bool = False) -> Dict[str, An
     }
 
 
-def specs_for(params, fsdp: bool = False) -> Dict[str, Any]:
-    """The spec tree matching ``params`` (float or int8 weight-only)."""
-    return gpt_param_specs(fsdp, quantized=isinstance(params["embed"]["word"], dict))
+def specs_for(params, mesh: Mesh) -> Dict[str, Any]:
+    """The spec tree of ``params`` (float or int8 weight-only) on ``mesh``'s
+    layout: FSDP where it shards weights, layers over 'pipe' where it has
+    stages."""
+    return gpt_param_specs(mesh.fsdp, quantized=isinstance(params["embed"]["word"], dict),
+                           pipe=mesh.pipe > 1)
 
 
 def layer_fsdp_dim(name: str) -> Optional[int]:
@@ -116,8 +125,8 @@ def shard_leaf(x, spec: Spec, mesh: Mesh) -> torch.Tensor:
 
 def shard_params(params, mesh: Mesh, specs=None):
     """Full leaves (numpy or torch) -> this rank's shards; specs default to
-    the mesh's layout (:func:`specs_for` with ``mesh.fsdp``)."""
-    specs = specs if specs is not None else specs_for(params, mesh.fsdp)
+    the mesh's layout (:func:`specs_for`)."""
+    specs = specs if specs is not None else specs_for(params, mesh)
     return _map(lambda x, s: shard_leaf(x, s, mesh), params, specs)
 
 
@@ -135,7 +144,7 @@ def gather_params(params, mesh: Mesh, specs=None, device=None):
     """This rank's shards -> the full leaves, on every rank, each moved to
     ``device`` as soon as it is gathered (a checkpoint's leaves go to the
     host one at a time, so no card holds every full leaf at once)."""
-    specs = specs if specs is not None else specs_for(params, mesh.fsdp)
+    specs = specs if specs is not None else specs_for(params, mesh)
     return _map(lambda x, s: gather_leaf(x.detach(), s, mesh).to(device or x.device),
                 params, specs)
 

@@ -6,14 +6,14 @@ rar_reader.py) or HDF5 source yields ``(sample_id, normalized [h, w, 3]
 float32)`` pairs ready for VQ encoding, in the JAX package's order; a TSV
 or JSON file maps image names to captions.  Images are decoded by the
 port's own readers (``models/vqvae.py::decode_image``: PNG, JPEG, BMP,
-GIF) and resized as Pillow's bilinear filter does, byte-equal to Pillow's
+GIF, PNM, QOI, WebP) and resized as Pillow's bilinear filter does, byte-equal to Pillow's
 ``convert("RGB")`` and ``resize``.
 
 The JAX package drops every image Pillow cannot open.  Here bytes of a
 format the port reads that fail to decode, and bytes that are no image,
 are skipped too, and counted in the source's ``skipped`` (a warning names
 the count at the end); an image whose format the port does not read
-(WebP, TIFF, arithmetic-coded JPEG, ...: ``UnsupportedImageError``) stops
+(TIFF, ICO, arithmetic-coded JPEG, ...: ``UnsupportedImageError``) stops
 the run with an error naming the file, since the JAX package would have
 read it.
 """

@@ -13,7 +13,9 @@ the dual-segment position ids of super-resolution finetuning;
 Under a mesh with data > 1 the loss is the global masked mean: each rank
 returns its rows' masked sum over the global mask's sum (all-reduced), so
 the data all-reduce of the gradients is the gradient of the global mean,
-and the metrics are the global means.
+and the metrics are the global means.  Under sequence parallelism a rank
+takes its block of the shifted inputs and targets, and the sums run over
+data x seq.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from ..config import GPTConfig
 from ..models import gpt
 from ..ops.sparse_attention import build_rmask, gather_pivot_mask, sample_pivots
 from ..parallel import comm
-from ..parallel.mesh import DATA_AXIS, current_mesh
+from ..parallel.mesh import DATA_AXIS, SEQ_AXIS, current_mesh
 
 
 def cross_entropy_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -84,11 +86,11 @@ def _split_ce(ce, lmask, img_ind, txt_ind, txt_loss_scale):
     """Masked mean CE and the reference's separate img/txt losses."""
     losses = ce * lmask
     mesh = current_mesh()
-    if mesh is not None and mesh.data > 1:
-        # the global sums, one all-reduce over 'data'
+    if mesh is not None and mesh.data * mesh.seq > 1:
+        # the global sums, one all-reduce over data x seq
         sums = comm.all_reduce(torch.stack([
             losses.sum(), lmask.sum(), (losses * img_ind).sum(), img_ind.sum(),
-            (losses * txt_ind).sum(), txt_ind.sum()]).detach(), DATA_AXIS)
+            (losses * txt_ind).sum(), txt_ind.sum()]).detach(), (DATA_AXIS, SEQ_AXIS))
         denom = torch.clamp(sums[1], min=1.0)
         return losses.sum() / denom, {
             "lm_loss": sums[0] / denom,
@@ -133,6 +135,22 @@ def _positions(cfg, tokens, position_ids, dual_positions_roi2):
     return position_ids
 
 
+def _seq_block(position_ids, *ts):
+    """Under sequence parallelism, this rank's block of the shifted
+    [B, S] tensors (the position ids computed on the whole rows first, and
+    then the global positions of the block where there are none)."""
+    mesh = current_mesh()
+    if mesh is None or mesh.seq == 1:
+        return (position_ids,) + ts
+    S = ts[0].shape[1]
+    if S % mesh.seq:
+        raise ValueError(f"{S} training positions do not split over seq={mesh.seq}")
+    Sc = S // mesh.seq
+    sl = slice(mesh.seq_rank * Sc, (mesh.seq_rank + 1) * Sc)
+    return (None if position_ids is None else position_ids[:, sl],) + tuple(
+        t[:, sl] for t in ts)
+
+
 def lm_loss(params, cfg: GPTConfig, batch: Dict[str, torch.Tensor], *,
             img_vocab: int = 8192, txt_loss_scale: float = 1.0,
             seeds: Optional[Sequence[int]] = None, train: bool = True,
@@ -156,6 +174,8 @@ def lm_loss(params, cfg: GPTConfig, batch: Dict[str, torch.Tensor], *,
     is then this rank's share of the loss, the metrics the global ones."""
     tokens, labels, lmask, img_ind, txt_ind = _split_batch(batch, img_vocab, txt_loss_scale)
     position_ids = _positions(cfg, tokens, position_ids, dual_positions_roi2)
+    position_ids, tokens, labels, lmask, img_ind, txt_ind = _seq_block(
+        position_ids, tokens, labels, lmask, img_ind, txt_ind)
     sparse = None
     if is_sparse:
         S = tokens.shape[1]

@@ -17,8 +17,11 @@ advances even on a skipped step, as the reference's does.
 Under an ambient mesh (parallel/mesh.py) the step trains this rank's
 shards on its rows of the global batch: the loss is the global masked
 mean, the gradients of every leaf not split over 'data' are all-reduced
-over 'data' (an FSDP leaf's were reduce-scattered in the backward), the
-global norm sums every shard once, the NaN-skip decision is one flag
+over 'data' (an FSDP leaf's were reduce-scattered in the backward), and
+under sequence parallelism every gradient over 'seq' as well, in the same
+collective; a pipeline stage's gradients are its layers' and the whole
+replicated leaves' (parallel/pipeline.py); the global norm sums every
+shard once, the NaN-skip decision is one flag
 all-reduced over every rank, and AdamW updates the local shards.  The
 generator is replicated: every rank draws the same seeds and pivots.
 """
@@ -31,7 +34,7 @@ import torch
 
 from ..config import GPTConfig
 from ..parallel import comm
-from ..parallel.mesh import DATA_AXIS, current_mesh
+from ..parallel.mesh import DATA_AXIS, SEQ_AXIS, current_mesh
 from ..parallel.sharding import spec_leaves, specs_for
 from .loss_scaler import LossScaleState, init_loss_scale, update_loss_scale
 from .losses import lm_loss, lm_loss_with_mems
@@ -109,8 +112,8 @@ def _grads(cfg: GPTConfig, loss_fn, state: TrainState, batch, seeds, scale: Opti
     mesh = current_mesh()
     specs = None
     if mesh is not None:
-        specs = spec_leaves(params, specs_for(params, mesh.fsdp))
-        grads = [g if DATA_AXIS in spec else comm.all_reduce(g, DATA_AXIS)
+        specs = spec_leaves(params, specs_for(params, mesh))
+        grads = [comm.all_reduce(g, (SEQ_AXIS,) if DATA_AXIS in spec else (DATA_AXIS, SEQ_AXIS))
                  for g, spec in zip(grads, specs)]
     g_norm = global_norm(grads, specs)
     return metrics["lm_loss"].detach(), metrics, _unflatten(params, grads), g_norm, new_mems

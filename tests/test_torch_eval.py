@@ -119,6 +119,31 @@ def _tsv_rows(rng):
     return rows
 
 
+def test_tsv_stream_reads_webp_and_skips_truncated_webp(tmp_path):
+    """WebP rows (lossy, lossless, RGBA with an ALPH chunk) read as the JAX
+    stream reads them through Pillow; truncated WebP rows are skipped and
+    counted by both."""
+    rng = np.random.RandomState(6)
+
+    def a(h, w, c=3):
+        return rng.randint(0, 256, (h, w, c)).astype(np.uint8)
+
+    webp = [_encoded(a(16, 16), "WEBP", quality=80), _encoded(a(20, 24), "WEBP", lossless=True),
+            _encoded(a(18, 14, 4), "WEBP", quality=60)]
+    rows = [_row(i, d) for i, d in enumerate(webp)]
+    rows += [_row(3, webp[0][:40]), _row(4, webp[1][:len(webp[1]) - 3])]
+    path = tmp_path / "webp.tsv"
+    path.write_text("\n".join(rows) + "\n", encoding="utf-8")
+    want_stream = jdataset.TsvImageStream(str(path), img_size=16)
+    got_stream = dataset.TsvImageStream(str(path), img_size=16)
+    want, got = list(want_stream), list(got_stream)
+    assert len(got) == len(want) == 3
+    for (gi, gid, gc), (wi, wid, wc) in zip(got, want):
+        assert (gid, gc) == (wid, wc)
+        np.testing.assert_array_equal(gi, wi)
+    assert got_stream.skipped == want_stream.skipped == 2
+
+
 def test_tsv_stream_equals_jax(tmp_path):
     """The same images (byte-equal after /255), ids and captions, and the
     same rows skipped and counted; batches and the limit as in JAX."""

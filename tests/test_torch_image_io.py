@@ -40,6 +40,7 @@ from cogview_tpu_torch.utils.gif import decode_gif  # noqa: E402
 from cogview_tpu_torch.utils.image_errors import UnsupportedImageError  # noqa: E402
 from cogview_tpu_torch.utils.jpeg import decode_jpeg  # noqa: E402
 from cogview_tpu_torch.utils.png import decode_png, read_png  # noqa: E402
+from cogview_tpu_torch.utils import webp  # noqa: E402
 
 SIZES = ((1, 1), (3, 5), (9, 7), (37, 53))  # (height, width)
 DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
@@ -923,9 +924,9 @@ def test_gif_short_palette_truncation_and_pillow_files(tmp_path):
 @pytest.mark.parametrize("fmt", ["WEBP", "TIFF", "ICO", "PPM", "JPEG2000", "PSD", "QOI"])
 def test_formats_pillow_reads_raise_a_named_error(fmt):
     """Files Pillow reads and the port does not: an ``UnsupportedImageError``
-    naming the format (Pillow writes them here where it can).  PNM and QOI
-    are read now: Pillow's own files decode byte-equal to it."""
-    if fmt in ("PPM", "QOI"):
+    naming the format (Pillow writes them here where it can).  PNM, QOI and
+    WebP are read now: Pillow's own files decode byte-equal to it."""
+    if fmt in ("PPM", "QOI", "WEBP"):
         _check_pillow(vqvae.decode_image, _encoded_by_pillow(fmt))
         return
     names = {"WEBP": "WebP", "ICO": "ICO", "JPEG2000": "JPEG 2000", "TIFF": "TIFF",
@@ -1077,24 +1078,459 @@ def test_three_component_adobe_transform_2_reads_as_ycbcr(tmp_path, sampling):
         _check_read_img(tmp_path, data, "img.jpg")
 
 
+# --------------------------------------------------------------------- #
+# WebP: byte-equal to Pillow's convert("RGB") (libwebp's WebPAnimDecoder)
+# --------------------------------------------------------------------- #
+
+
+def _webp(arr: np.ndarray, **kw) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, "WEBP", **kw)
+    return buf.getvalue()
+
+
+def _counting(monkeypatch, names) -> dict:
+    """Wrap the webp module's functions ``names`` to count their calls (and
+    keep the arguments) -> name -> list of argument tuples."""
+    calls = {n: [] for n in names}
+    for n in names:
+        obj, attr = (webp._ColorCache, "lookup") if n == "cache" else (webp, n)
+        fn = getattr(obj, attr)
+
+        def wrapper(*a, _fn=fn, _n=n, **kw):
+            calls[_n].append(a)
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(obj, attr, wrapper)
+    return calls
+
+
+def _few_colours(h: int, w: int, n: int, seed: int) -> np.ndarray:
+    rng = np.random.RandomState(seed)
+    pal = rng.randint(0, 256, (n, 3))
+    y, x = np.mgrid[0:h, 0:w]
+    return pal[(x // 3 + y // 2 + rng.randint(0, 2, (h, w))) % n].astype(np.uint8)
+
+
+def test_webp_lossless_every_transform_and_the_colour_cache(monkeypatch):
+    """Pillow's lossless files of busy and smooth pictures at every method:
+    between them the predictor (its modes), cross-colour, subtract-green
+    and colour-indexing transforms, the colour cache and backward
+    references all run, and every file equals Pillow's pixels."""
+    calls = _counting(monkeypatch, ["_inverse_predictor", "_inverse_cross_color",
+                                    "_inverse_subtract_green", "_inverse_color_index",
+                                    "_copy_distance", "cache"])
+    pictures = [_picture(48, 64, 1), _picture(31, 45, 2), _few_colours(40, 56, 40, 3)]
+    tiled = np.tile(_picture(8, 8, 4), (6, 8, 1))
+    pictures.append(tiled)
+    for arr in pictures:
+        for method in (0, 4, 6):
+            _check_pillow(webp.decode_webp, _webp(arr, lossless=True, method=method))
+    assert all(calls[n] for n in calls), {n: len(v) for n, v in calls.items()}
+    modes = set()
+    for img, bits, data in calls["_inverse_predictor"]:
+        modes |= set(((np.asarray(data) >> 8) & 0xF).ravel().tolist())
+    assert len(modes) >= 8, modes  # many of the 14 predictors
+
+
+@pytest.mark.parametrize("ncolours,bits", [(2, 3), (4, 2), (16, 1), (256, 0)])
+def test_webp_lossless_colour_indexing_bundles_pixels(monkeypatch, ncolours, bits):
+    """A palette of 2, 4, 16 and 256 colours: 8, 4, 2 and 1 pixels a byte."""
+    calls = _counting(monkeypatch, ["_inverse_color_index"])
+    for h, w in ((1, 1), (7, 5), (37, 61)):
+        arr = _few_colours(h, w, ncolours, ncolours)
+        if h * w >= ncolours:  # every colour used, so the palette has them all
+            arr.reshape(-1, 3)[:ncolours] = np.random.RandomState(ncolours).randint(
+                0, 256, (ncolours, 3))
+        _check_pillow(webp.decode_webp, _webp(arr, lossless=True))
+    assert bits in {c[1] for c in calls["_inverse_color_index"]}
+
+
+@pytest.mark.parametrize("method", [0, 6])
+@pytest.mark.parametrize("quality", [5, 50, 95])
+def test_webp_lossy_qualities_and_methods(monkeypatch, quality, method):
+    """Lossy files through the 16x16, 4x4 and chroma predictors, the token
+    decoder, the IDCT and WHT and the normal loop filter, then the fancy
+    upsampler: equal to Pillow's pixels."""
+    calls = _counting(monkeypatch, ["_pred4", "_pred_block", "_edge"])
+    for h, w in ((64, 64), (40, 56)):
+        _check_pillow(webp.decode_webp, _webp(_picture(h, w, quality + method),
+                                              quality=quality, method=method))
+    assert calls["_pred_block"] and calls["_edge"]
+    if method == 6 or quality == 95:  # method 0 below 95 writes 16x16 modes only
+        assert {c[0] for c in calls["_pred4"]} == set(range(10))
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (1, 9), (8, 1), (2, 2), (3, 5), (17, 33), (31, 16)])
+def test_webp_odd_sizes(hw):
+    """Widths and heights where the upsampler's last column and row and the
+    4x4 prediction's above-right pixels at a macroblock row's end matter."""
+    h, w = hw
+    arr = _picture(h, w, h * 7 + w)
+    for kw in ({"quality": 80}, {"quality": 30, "method": 6}, {"lossless": True}):
+        _check_pillow(webp.decode_webp, _webp(arr, **kw))
+
+
+def test_webp_all_4x4_modes_at_macroblock_edges(monkeypatch):
+    """Busy pictures at high quality take every 4x4 mode, including on the
+    right column of the last macroblock of a row and in the first row."""
+    calls = _counting(monkeypatch, ["_pred4"])
+    rng = np.random.RandomState(11)
+    for seed in range(3):
+        arr = np.clip(_picture(48, 40, seed).astype(int)
+                      + rng.randint(-60, 61, (48, 40, 3)), 0, 255).astype(np.uint8)
+        _check_pillow(webp.decode_webp, _webp(arr, quality=95, method=seed * 3))
+    assert {c[0] for c in calls["_pred4"]} == set(range(10))
+
+
+@pytest.mark.parametrize("kw", [{"quality": 70}, {"quality": 70, "alpha_quality": 50},
+                                {"quality": 70, "alpha_quality": 100, "method": 0},
+                                {"lossless": True}, {"lossless": True, "exact": True},
+                                {"quality": 60, "exact": True}])
+def test_webp_rgba_alpha_is_checked_and_dropped(monkeypatch, kw):
+    """RGBA pictures: lossy with an ALPH chunk (compressed or not), decoded
+    for its validity and dropped; lossless with its own alpha."""
+    calls = _counting(monkeypatch, ["_check_alpha"])
+    arr = _picture(29, 38, 5)
+    alpha = np.clip(np.arange(29 * 38).reshape(29, 38) * 3 % 300, 0, 255).astype(np.uint8)
+    alpha[:10, :10] = 0
+    data = _webp(np.dstack([arr, alpha]), **kw)
+    assert data[12:16] == (b"VP8X" if not kw.get("lossless") else b"VP8L")
+    _check_pillow(webp.decode_webp, data)
+    assert bool(calls["_check_alpha"]) == (not kw.get("lossless"))
+    # a corrupt ALPH chunk: both refuse
+    if not kw.get("lossless"):
+        i = data.index(b"ALPH") + 8
+        bad = data[:i] + bytes([data[i] | 0xC0]) + data[i + 1:]
+        _check_pillow(webp.decode_webp, bad)
+
+
+def _riff(chunks) -> bytes:
+    body = b"WEBP" + b"".join(chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def _webp_chunk(fourcc: bytes, payload: bytes) -> bytes:
+    return fourcc + struct.pack("<I", len(payload)) + payload + b"\x00" * (len(payload) & 1)
+
+
+def _image_chunks(data: bytes) -> bytes:
+    """The ALPH, VP8 or VP8L chunks of a file Pillow wrote."""
+    pos, out = 12, b""
+    while pos < len(data):
+        size = struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        end = pos + 8 + size + (size & 1)
+        if data[pos:pos + 4] in (b"ALPH", b"VP8 ", b"VP8L"):
+            out += data[pos:end]
+        pos = end
+    return out
+
+
+def _vp8x(flags: int, w: int, h: int) -> bytes:
+    return _webp_chunk(b"VP8X", bytes([flags, 0, 0, 0]) + (w - 1).to_bytes(3, "little")
+                  + (h - 1).to_bytes(3, "little"))
+
+
+@pytest.mark.parametrize("kw", [{"quality": 75}, {"lossless": True}, {"quality": 75, "rgba": 1}])
+def test_webp_animation_first_frame_at_its_offset(kw):
+    """An animation whose first frame (lossy, lossless, or lossy with ALPH)
+    lies at an offset on a larger canvas, with a second frame after it: the
+    canvas is transparent black around the first frame, as libwebp's
+    WebPAnimDecoder leaves it.  Also Pillow's own animated file."""
+    kw = dict(kw)
+    rgba = kw.pop("rgba", 0)
+    arr = _picture(21, 27, 8)
+    if rgba:
+        arr = np.dstack([arr, np.full(arr.shape[:2], 200, np.uint8)])
+    first = _image_chunks(_webp(arr, **kw))
+    second = _image_chunks(_webp(_picture(10, 10, 9), **kw))
+
+    def anmf(x, y, w, h, chunks):
+        head = ((x // 2).to_bytes(3, "little") + (y // 2).to_bytes(3, "little")
+                + (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little")
+                + (100).to_bytes(3, "little") + b"\x00")
+        return _webp_chunk(b"ANMF", head + chunks)
+
+    flags = 0x02 | (0x10 if rgba or kw.get("lossless") else 0)
+    for x, y in ((0, 0), (6, 4), (20, 30)):
+        data = _riff([_vp8x(flags, 48, 52), _webp_chunk(b"ANIM", bytes(6)),
+                      anmf(x, y, 27, 21, first), anmf(2, 2, 10, 10, second)])
+        _check_pillow(webp.decode_webp, data)
+        got = webp.decode_webp(data)
+        assert (got[:y] == 0).all() and (got[y + 21:] == 0).all() and (got[:, :x] == 0).all()
+    # a first frame past the canvas: both refuse
+    _check_pillow(webp.decode_webp, _riff([_vp8x(flags, 30, 30), _webp_chunk(b"ANIM", bytes(6)),
+                                           anmf(10, 10, 27, 21, first)]))
+    frames = [Image.fromarray(_picture(20, 24, i)) for i in range(3)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:], duration=50, **kw)
+    _check_pillow(webp.decode_webp, buf.getvalue())
+
+
+def test_webp_extended_chunks_are_skipped():
+    """VP8X files with ICCP, EXIF, XMP and an unknown chunk around the
+    image; a still VP8X image that does not fill its canvas is refused."""
+    arr = _picture(19, 23, 10)
+    for kw in ({"quality": 80}, {"lossless": True}):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, "WEBP", icc_profile=b"\x00" * 131, exif=b"Exif\x00\x00x",
+                                  xmp=b"<x/>", **kw)
+        _check_pillow(webp.decode_webp, buf.getvalue())
+        img = _image_chunks(buf.getvalue())
+        data = _riff([_vp8x(0x2C, 23, 19), _webp_chunk(b"ICCP", b"icc"), _webp_chunk(b"ABCD", b"xyz"),
+                      img, _webp_chunk(b"EXIF", b"e"), _webp_chunk(b"XMP ", b"m")])
+        _check_pillow(webp.decode_webp, data)
+        _check_pillow(webp.decode_webp, _riff([_vp8x(0, 24, 19), img]))
+        _check_pillow(webp.decode_webp, _riff([_vp8x(0x01, 23, 19), img]))  # reserved flag
+
+
+class _RecordingBools(webp._BoolDecoder):
+    """A boolean decoder that keeps every (probability, bit) it reads."""
+
+    log = None
+
+    def get(self, prob):
+        bit = super().get(prob)
+        if self.log is not None:
+            self.log.append((prob, bit))
+        return bit
+
+
+def _bool_encode(symbols) -> bytes:
+    """RFC 6386's boolean encoder (section 7.3) over (probability, bit)."""
+    out = bytearray()
+    rng, bottom, count = 255, 0, 24
+
+    def carry():
+        i = len(out) - 1
+        while out[i] == 255:
+            out[i] = 0
+            i -= 1
+        out[i] += 1
+
+    for prob, bit in symbols:
+        split = 1 + (((rng - 1) * prob) >> 8)
+        if bit:
+            bottom += split
+            rng -= split
+        else:
+            rng = split
+        while rng < 128:
+            rng <<= 1
+            if bottom & (1 << 31):
+                carry()
+            bottom = (bottom << 1) & 0xFFFFFFFF
+            count -= 1
+            if not count:
+                out.append(bottom >> 24)
+                bottom &= (1 << 24) - 1
+                count = 8
+    c, v = count, bottom
+    if v & (1 << (32 - c)):
+        carry()
+    v = (v << (c & 7)) & 0xFFFFFFFF
+    for _ in range(c >> 3):
+        v = (v << 8) & 0xFFFFFFFF
+    for _ in range(4):
+        out.append(v >> 24)
+        v = (v << 8) & 0xFFFFFFFF
+    return bytes(out)
+
+
+def _vp8_bits(value: int, n: int):
+    return [(128, (value >> i) & 1) for i in range(n - 1, -1, -1)]
+
+
+def _vp8_signed(value: int, n: int):
+    return _vp8_bits(abs(value), n) + [(128, int(value < 0))]
+
+
+def _reencoded(monkeypatch, data: bytes, filter_hdr=None, quant=None, parts: int = 1) -> bytes:
+    """A Pillow lossy file with its first partition's filter header and
+    quantizer deltas replaced, or its tokens split over ``parts``
+    partitions, re-encoded with the boolean encoder."""
+    payload = data[data.index(b"VP8 ") + 8:]
+    frames = []  # (decoder, log, row starts)
+    spans = {}
+    real_filter, real_quant, real_modes = webp._filter_header, webp._quant_matrices, \
+        webp._parse_modes
+
+    class Rec(_RecordingBools):
+        def __init__(self, *a):
+            self.log = []
+            super().__init__(*a)
+            frames.append(self)
+
+    def filter_header(br):
+        start = len(br.log)
+        out = real_filter(br)
+        spans["filter"] = (start, len(br.log))
+        return out
+
+    def quant_matrices(br, seg):
+        start = len(br.log)
+        out = real_quant(br, seg)
+        spans["quant"] = (start, len(br.log))
+        return out
+
+    rows = []
+
+    def modes(br, seg, skip, top, left, x):
+        if x == 0:
+            rows.append(len(frames[-1].log))
+        return real_modes(br, seg, skip, top, left, x)
+
+    with monkeypatch.context() as m:
+        m.setattr(webp, "_BoolDecoder", Rec)
+        m.setattr(webp, "_filter_header", filter_header)
+        m.setattr(webp, "_quant_matrices", quant_matrices)
+        m.setattr(webp, "_parse_modes", modes)
+        webp.decode_webp(data)
+    p0, tokens = frames[0].log, frames[-1].log
+    assert len(frames) == 2, "expected one token partition"
+    f0, f1 = spans["filter"]
+    q0, q1 = spans["quant"]
+    new_filter = p0[f0:f1] if filter_hdr is None else filter_hdr
+    new_quant = p0[q0:q1] if quant is None else quant
+    # the two bits after the filter header give the partition count
+    part_bits = _vp8_bits({1: 0, 2: 1, 4: 2, 8: 3}[parts], 2)
+    p0_new = p0[:f0] + new_filter + part_bits + new_quant + p0[q1:]
+    part0 = _bool_encode(p0_new)
+    # the token partition's reads of each macroblock row
+    rows.append(len(tokens))
+    bounds = rows[1:]  # rows[0] is the first row of modes, before any token
+    starts = [0] + bounds[:-1]
+    streams = [[] for _ in range(parts)]
+    for r, (a, b) in enumerate(zip(starts, bounds)):
+        streams[r % parts] += tokens[a:b]
+    encoded = [_bool_encode(s) for s in streams]
+    sizes = b"".join(len(e).to_bytes(3, "little") for e in encoded[:-1])
+    w, h = struct.unpack("<HH", payload[6:10])
+    tag = (len(part0) << 5) | 0x10  # key frame, profile 0, shown
+    frame = tag.to_bytes(3, "little") + b"\x9d\x01\x2a" + struct.pack("<HH", w, h)
+    return _riff([_webp_chunk(b"VP8 ", frame + part0 + sizes + b"".join(encoded))])
+
+
+def _filter_bits(simple: int, level: int, sharpness: int, ref=None, mode=None):
+    out = [(128, simple)] + _vp8_bits(level, 6) + _vp8_bits(sharpness, 3)
+    if ref is None and mode is None:
+        return out + [(128, 0)]
+    out += [(128, 1), (128, 1)]
+    for deltas in (ref, mode):
+        for d in deltas:
+            out += [(128, 0)] if d is None else [(128, 1)] + _vp8_signed(d, 6)
+    return out
+
+
+@pytest.mark.parametrize("name,filter_hdr,quant,parts", [
+    ("as-written", None, None, 1),
+    ("simple-filter", _filter_bits(1, 20, 0), None, 1),
+    ("simple-filter-sharp", _filter_bits(1, 40, 5), None, 1),
+    ("normal-sharpness-3", _filter_bits(0, 30, 3), None, 1),
+    ("normal-sharpness-7-level-63", _filter_bits(0, 63, 7), None, 1),
+    ("lf-deltas", _filter_bits(0, 25, 2, ref=[6, None, -3, None], mode=[-12, 4, None, 2]), None,
+     1),
+    ("no-filter", _filter_bits(0, 0, 0), None, 1),
+    ("quant-deltas", None, _vp8_bits(40, 7) + [(128, 1)] + _vp8_signed(5, 4) + [(128, 1)]
+     + _vp8_signed(-7, 4) + [(128, 1)] + _vp8_signed(3, 4) + [(128, 0)] + [(128, 1)] + _vp8_signed(-2, 4),
+     1),
+    ("two-partitions", None, None, 2),
+    ("four-partitions", _filter_bits(1, 15, 1), None, 4),
+])
+def test_webp_lossy_header_variants(monkeypatch, name, filter_hdr, quant, parts):
+    """Pillow's encoder writes only the normal loop filter at sharpness 0,
+    no filter deltas and one token partition.  Its files re-encoded here
+    with the simple filter, other sharpness and levels, reference and mode
+    deltas, other quantizer deltas and 2 or 4 token partitions decode equal
+    to Pillow's pixels (the re-encoding itself is checked by the
+    unchanged file decoding equal too)."""
+    arr = _picture(48, 64, 12)
+    for kw in ({"quality": 60}, {"quality": 90, "method": 6}):
+        data = _reencoded(monkeypatch, _webp(arr, **kw), filter_hdr, quant, parts)
+        calls = _counting(monkeypatch, ["_edge", "_BoolDecoder"])
+        _check_pillow(webp.decode_webp, data)
+        kinds = {c[-1] for c in calls["_edge"]}
+        simple = filter_hdr is not None and filter_hdr[0][1]
+        level = 1 if filter_hdr is None else sum(b for _, b in filter_hdr[1:7])
+        assert kinds == (set() if not level else {"simple"} if simple
+                         else {"mb", "inner"}), kinds
+        assert len(calls["_BoolDecoder"]) == 1 + parts
+        if name == "as-written":
+            np.testing.assert_array_equal(_pillow(data), _pillow(_webp(arr, **kw)))
+
+
+def test_webp_truncated_and_corrupt_bytes_refuse_or_match():
+    """Files cut short are refused as Pillow refuses them.  Flipped bits:
+    where Pillow refuses so does the port, with a ValueError; a lossless
+    file that still decodes gives Pillow's pixels.  A lossy one gives an
+    image of Pillow's shape: out-of-range coefficients of a corrupt stream
+    go through libwebp's SSE2 transform, which wraps at 16 bits where its
+    C transform, followed here, does not, so a few pixels may differ."""
+    rng = np.random.RandomState(13)
+    arr = _picture(40, 48, 13)
+    for kw in ({"quality": 70}, {"lossless": True},
+               {"quality": 70, "alpha_quality": 80}):
+        src = arr if "alpha_quality" not in kw else np.dstack(
+            [arr, np.full(arr.shape[:2], 99, np.uint8)])
+        data = _webp(src, **kw)
+        for cut in (12, 20, 30, len(data) // 2, len(data) - 1):
+            with pytest.raises(ValueError):
+                webp.decode_webp(data[:cut])
+            _check_pillow(webp.decode_webp, data[:cut])
+        refused = 0
+        for _ in range(40):
+            i = rng.randint(12, len(data))
+            bad = data[:i] + bytes([data[i] ^ (1 << rng.randint(8))]) + data[i + 1:]
+            try:
+                want = _pillow(bad)
+            except (OSError, ValueError):
+                refused += 1
+                with pytest.raises(ValueError):
+                    webp.decode_webp(bad)
+                continue
+            got = webp.decode_webp(bad)
+            assert got.shape == want.shape
+            if kw.get("lossless"):
+                np.testing.assert_array_equal(got, want)
+        assert refused > 0
+
+
+def test_webp_reads_through_read_img(tmp_path):
+    """``read_img`` and ``decode_image`` take WebP by its magic bytes, as the
+    JAX package's Pillow reader does."""
+    arr = _picture(70, 90, 14)
+    for kw in ({"quality": 80}, {"lossless": True}):
+        data = _webp(arr, **kw)
+        _check_pillow(vqvae.decode_image, data)
+        _check_read_img(tmp_path, data, "img.png")
+
+
 def main() -> None:
     """This machine's host-CPU seconds to decode a 256 x 256 and a
-    1024 x 768 baseline and progressive JPEG (quality 75, 4:2:0), best of 3,
-    against Pillow's decode of the same bytes."""
-    for (h, w), progressive in ((hw, p) for p in (False, True)
-                                for hw in ((256, 256), (768, 1024))):
-        data = _pillow_jpeg(_picture(h, w, 1), quality=75, progressive=progressive)
+    1024 x 768 baseline and progressive JPEG (quality 75, 4:2:0) and WebP
+    (lossy at quality 75, and lossless), best of 3, against Pillow's decode
+    of the same bytes."""
+    cases = [(hw, "JPEG", dict(progressive=p)) for p in (False, True)
+             for hw in ((256, 256), (768, 1024))]
+    cases += [(hw, "WEBP", kw) for kw in ({"quality": 75}, {"lossless": True})
+              for hw in ((256, 256), (768, 1024))]
+    for (h, w), fmt, kw in cases:
+        if fmt == "JPEG":
+            data, decode = _pillow_jpeg(_picture(h, w, 1), quality=75, **kw), decode_jpeg
+            kind = "progressive JPEG" if kw["progressive"] else "baseline JPEG"
+        else:
+            data, decode = _webp(_picture(h, w, 1), **kw), webp.decode_webp
+            kind = "lossless WebP" if kw.get("lossless") else "lossy WebP"
         ours, pillow = [], []
         for _ in range(3):
             t0 = time.perf_counter()
-            got = decode_jpeg(data)
+            got = decode(data)
             ours.append(time.perf_counter() - t0)
             t0 = time.perf_counter()
             want = _pillow(data)
             pillow.append(time.perf_counter() - t0)
         assert np.array_equal(got, want)
-        kind = "progressive" if progressive else "baseline"
-        print(f"{w}x{h} {kind} JPEG ({len(data)} bytes): decode_jpeg {min(ours):.4f} s, "
+        print(f"{w}x{h} {kind} ({len(data)} bytes): {decode.__name__} {min(ours):.4f} s, "
               f"Pillow {min(pillow):.4f} s (host CPU, best of 3), byte-equal")
 
 

@@ -222,15 +222,21 @@ def test_pretrain_cli_checkpoints_load_across_layouts(tmp_path, capsys, monkeypa
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--sequence-parallel-size", "2"], "not ported yet"),
-    (["--pipeline-parallel-size", "2"], "not ported yet"),
-    (["--pipeline-microbatches", "4"], "not ported yet"),
+    (["--sequence-parallel-size", "2", "--pipeline-parallel-size", "2"], "mutually exclusive"),
+    (["--pipeline-parallel-size", "2", "--pipeline-microbatches", "3", "--num-layers", "2"],
+     "not divisible by 3 pipeline microbatches"),
+    (["--pipeline-parallel-size", "2"], "num_layers 1 not divisible by --pipeline-parallel-size 2"),
 ])
 def test_pretrain_cli_refuses_unported_parallelism(tmp_path, argv, msg, monkeypatch):
+    """The JAX CLI's refusals of a layout, on a 2-rank world (the checks
+    run before the group is joined): sequence with pipeline parallelism,
+    a batch that the microbatches do not divide, a depth that the stages
+    do not divide."""
     from cogview_tpu_torch.cli import pretrain
 
     monkeypatch.setattr(pretrain, "PRESETS", dict(pretrain.PRESETS))
     workers.register_presets(pretrain.PRESETS)
+    monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit, match=msg):
         pretrain.main(_cli_argv(_corpus(tmp_path / "c.bin", rows=4), *argv))
 

@@ -106,4 +106,4 @@ def test_sharded_filling_sequence_matches_jax_ids(tmp_path):
 
 def test_dryrun_multichip_four_ranks():
     lines = dryrun.dryrun_multichip(4, device="cpu", timeout=TIMEOUT)
-    assert len(lines) == 4 and all(ln.startswith("dryrun_multichip ok") for ln in lines), lines
+    assert len(lines) == 6 and all(ln.startswith("dryrun_multichip ok") for ln in lines), lines

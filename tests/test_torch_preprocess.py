@@ -100,6 +100,26 @@ def test_sources_yield_what_jax_yields(tmp_path, kind):
     assert src.skipped == 1  # broken.jpg, which the JAX package drops
 
 
+@pytest.mark.parametrize("kind", ["folder", "zip", "tar"])
+def test_sources_read_webp_and_skip_truncated_webp(tmp_path, kind):
+    """WebP files (lossy, lossless, RGBA) in a source read as the JAX
+    package reads them through Pillow; a truncated WebP is skipped and
+    counted, as the JAX package drops it."""
+    files = {"a.webp": _encoded(_picture(40, 44, 1), "WEBP", quality=75),
+             "b.png": _encoded(_picture(36, 50, 2), "WEBP", lossless=True),
+             "c.webp": _encoded(np.dstack([_picture(30, 30, 3), _picture(30, 30, 4)[..., 0]]),
+                                "WEBP", quality=50),
+             "d.webp": _encoded(_picture(40, 40, 5), "WEBP", quality=75)[:-25]}
+    path = _write_sources(tmp_path, files)[kind]
+    want = list(jraw.open_image_source(path, img_size=32))
+    src = raw.open_image_source(path, img_size=32)
+    got = list(src)
+    assert [n for n, _ in got] == [n for n, _ in want] and len(got) == 3
+    for (_, g), (_, w) in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert src.skipped == 1
+
+
 def test_h5_source(tmp_path):
     h5py = pytest.importorskip("h5py")
     path = str(tmp_path / "imgs.h5")
@@ -117,7 +137,7 @@ def test_h5_source(tmp_path):
 
 
 def test_unread_format_stops_the_run(tmp_path):
-    """A WebP or TIFF in an archive: the JAX package reads it, the port
+    """A TIFF in an archive: the JAX package reads it, the port
     stops with an UnsupportedImageError naming the file."""
     files = dict(_files(2))
     files["late.png"] = _encoded(_picture(20, 20, 3), "TIFF")

@@ -126,7 +126,9 @@ def test_port_imports_no_jax():
             "cogview_tpu_torch.parallel.sharding", "cogview_tpu_torch.parallel.spawn",
             "cogview_tpu_torch.dryrun", "cogview_tpu_torch.tokenization.sp_cpp",
             "cogview_tpu_torch.data.native_loader", "cogview_tpu_torch.utils.pnm",
-            "cogview_tpu_torch.utils.qoi"} <= set(mods)
+            "cogview_tpu_torch.utils.qoi", "cogview_tpu_torch.utils.webp",
+            "cogview_tpu_torch.ops.ring_attention",
+            "cogview_tpu_torch.parallel.pipeline"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

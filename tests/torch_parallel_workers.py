@@ -13,7 +13,8 @@ from cogview_tpu_torch import config as C
 from cogview_tpu_torch.generation import sampling
 from cogview_tpu_torch.models import gpt
 from cogview_tpu_torch.parallel import comm
-from cogview_tpu_torch.parallel.mesh import DATA_AXIS, create_mesh, use_mesh
+from cogview_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, create_mesh,
+                                             use_mesh)
 from cogview_tpu_torch.parallel.sharding import gather_params, shard_params
 from cogview_tpu_torch.training import optim
 from cogview_tpu_torch.training import train_loop as tl
@@ -28,15 +29,38 @@ def _save(rank, path, out):
         torch.save(out, os.path.join(path, "out.pt"))
 
 
+def _gather_rows(x, mesh, seq_dim=None):
+    """A rank's block of a [B, ...] result gathered over 'data' (dim 0)
+    and, with ``seq_dim``, over 'seq' along it."""
+    if seq_dim is not None:
+        x = comm.all_gather(x.contiguous(), SEQ_AXIS, seq_dim)
+    return comm.all_gather(x.contiguous(), DATA_AXIS, 0)
+
+
 def train_steps(rank, world, path):
-    """The train steps of ``in.pt`` on a (dp, mp, fsdp) mesh: the metrics,
-    the gathered params after each step and, with mems, the memory."""
+    """The train steps of ``in.pt`` on a (dp, mp, fsdp) mesh, with ``sp``
+    or ``pp`` when given: the metrics, the gathered params after each step
+    and, with mems, the memory; with ``forward``, first the inference
+    logits of the first batch's inputs."""
     inp = _load(path)
     dp, mp, fsdp = inp["mesh"]
     cfg = C.tiny_test(**inp["cfg"])
     mem_len = inp["step"].get("max_memory_length", 0)
-    with use_mesh(create_mesh(model_parallel=mp, data_parallel=dp, fsdp=fsdp)) as mesh:
+    with use_mesh(create_mesh(model_parallel=mp, data_parallel=dp, fsdp=fsdp,
+                              seq_parallel=inp.get("sp", 1),
+                              pipe_parallel=inp.get("pp", 1))) as mesh:
         params = shard_params(inp["params"], mesh)
+        logits = None
+        if inp.get("forward"):
+            text = inp["batches"][0]["text"]
+            rows = text.shape[0] // dp
+            toks = torch.as_tensor(text[mesh.data_rank * rows:(mesh.data_rank + 1) * rows,
+                                        :-1]).long()
+            if mesh.seq > 1:
+                Sc = toks.shape[1] // mesh.seq
+                toks = toks[:, mesh.seq_rank * Sc:(mesh.seq_rank + 1) * Sc]
+            with torch.no_grad():
+                logits = _gather_rows(gpt.forward(params, cfg, toks), mesh, seq_dim=1)
         opt, _ = optim.make_optimizer(params, **inp["opt"])
         state = tl.init_train_state(params, opt, torch.Generator().manual_seed(0))
         step = tl.make_train_step(cfg, opt, **inp["step"])
@@ -56,6 +80,81 @@ def train_steps(rank, world, path):
                    "step": state["step"], "skipped": state["skipped"]}
             if mems is not None:
                 rec["mems"] = comm.all_gather(mems, DATA_AXIS, 1)
+            out.append(rec)
+    if logits is not None:
+        out = {"steps": out, "logits": logits}
+    _save(rank, path, out)
+
+
+def ring_cases(rank, world, path):
+    """Ring attention over 'seq' for each case of ``in.pt`` (its mesh
+    (dp, sp, mp), sep, dropout rate and seed) on this rank's rows, block of
+    positions and heads of the whole q/k/v: the output and the gradients
+    of sum(o * o), gathered into the whole [B, S, N, D]."""
+    from cogview_tpu_torch.ops.ring_attention import ring_attention
+
+    inp = _load(path)
+    out = []
+    for case in inp["cases"]:
+        dp, sp, mp = case["mesh"]
+        with use_mesh(create_mesh(model_parallel=mp, data_parallel=dp,
+                                  seq_parallel=sp)) as mesh:
+            B, S, N, _ = inp["q"].shape
+            b, s, n = B // dp, S // sp, N // mp
+            blk = (slice(mesh.data_rank * b, (mesh.data_rank + 1) * b),
+                   slice(mesh.seq_rank * s, (mesh.seq_rank + 1) * s),
+                   slice(mesh.model_rank * n, (mesh.model_rank + 1) * n))
+            q, k, v = (inp[x][blk].clone().requires_grad_(True) for x in "qkv")
+            o = ring_attention(q, k, v, sep=case["sep"], dropout_rate=case["rate"],
+                               dropout_seed=case["seed"], train=case["rate"] > 0.0,
+                               num_heads=N)
+            grads = torch.autograd.grad((o * o).sum(), (q, k, v))
+
+            def whole(x):
+                return _gather_rows(comm.all_gather(x.contiguous(), MODEL_AXIS, 2), mesh,
+                                    seq_dim=1)
+
+            out.append({"o": whole(o.detach()), "grads": [whole(g) for g in grads]})
+    _save(rank, path, out)
+
+
+def pipe_cases(rank, world, path):
+    """GPipe forwards on a pipe x model mesh for each case of ``in.pt``:
+    the logits (and, with ``grads``, the loss of the JAX pipeline test and
+    the gathered gradients), with the case's microbatches, dropout seeds,
+    sparse pivots and compute dtype."""
+    from cogview_tpu_torch.ops.sparse_attention import build_rmask, gather_pivot_mask
+
+    inp = _load(path)
+    out = []
+    for case in inp["cases"]:
+        cfg = C.tiny_test(**case["cfg"])
+        with use_mesh(create_mesh(model_parallel=case.get("mp", 1), data_parallel=1,
+                                  pipe_parallel=world // case.get("mp", 1))) as mesh:
+            params = shard_params(inp["params"], mesh)
+            optim.tree_map(lambda p: p.requires_grad_(True), params)
+            toks = inp["tokens"]
+            sparse = None
+            if case.get("pivots") is not None:
+                piv = case["pivots"]
+                rmask = torch.from_numpy(build_rmask(toks.shape[1], cfg.query_window,
+                                                     cfg.key_window_times))
+                sparse = gpt.SparseSpec(piv, gather_pivot_mask(rmask, piv),
+                                        cfg.query_window, cfg.key_window_times)
+            lg = gpt.forward(params, cfg, toks, sep=case.get("sep", 0),
+                             train=case.get("train", False), seeds=case.get("seeds"),
+                             remat=case.get("remat", False), sparse=sparse)
+            rec = {"logits": lg.detach().float()}
+            if case.get("grads"):
+                if case.get("loss") == "square":
+                    loss = (lg.float() ** 2).mean()
+                else:
+                    oh = torch.nn.functional.one_hot(torch.roll(toks, -1, 1), lg.shape[-1])
+                    loss = -(torch.log_softmax(lg, -1) * oh).sum(-1).mean()
+                leaves = list(optim.tree_leaves(params))
+                g = torch.autograd.grad(loss, leaves)
+                grads = tl._unflatten(params, [x.float() for x in g])
+                rec.update(loss=float(loss), grads=gather_params(grads, mesh))
             out.append(rec)
     _save(rank, path, out)
 
