@@ -69,8 +69,8 @@ result):
    dropout 0.1, card against CPU;
 9. text->image: ``cogview_tpu_torch.cli.generate.main`` at cogview-base width
    (random weights from a seed), int8 KV cache, batch 4, one request of 30
-   words, first with int8 weights at CUT_LAYERS (12, since phase 29 came),
-   then with bf16 weights at the full 48 layers.
+   words, first with int8 weights at CUT_LAYERS layers, then with bf16
+   weights at MAIN_LAYERS layers.
    Checks the generated ids, the four PNGs, and that every decode step of
    every layer launched K1 and never its plain version; decode steps
    512-519 of the bf16-weight request run under torch.profiler, which gives
@@ -84,10 +84,10 @@ result):
    finite negative scores in scores_rank_0.txt, 48 flash-kernel launches;
    the same tokens scored again through dense attention on the card agree;
 12. serve: ``cogview_tpu_torch.cli.serve.main`` at cogview-base width, depth
-   cut to CUT_LAYERS (12, since phase 29 came), with the int4 cache, bf16
+   cut to CUT_LAYERS, with the int4 cache, bf16
    weights, batch 4, one query file of the 30-word prompt: the file reaches
-   done/ and failed/ stays empty, four PNGs, ids in [0, 8192), 1024 x 12 K2
-   launches, no K1 launch and no plain call;
+   done/ and failed/ stays empty, four PNGs, ids in [0, 8192), 1024 x
+   CUT_LAYERS K2 launches, no K1 launch and no plain call;
 13. cache fidelity: cogview-base at batch 4, random weights, the
    text->image context and 64 teacher-forced decode steps through the bf16,
    int8 and int4 caches: finite logits, the mean per-step KL of int8 and
@@ -102,7 +102,7 @@ result):
    per step (torch.profiler) and peak memory; then a ``--load``
    run resumes at the saved iteration and takes 2 more steps;
 15. low-level super-resolution: the CLI at cogview-base widths, depth cut
-   to CUT_LAYERS (12, since phase 29 came), int8 cache, batch 4, on the
+   to CUT_LAYERS, int8 cache, batch 4, on the
    prompt and the int8-weight request's first PNG read at 128 pixels (the
    bilinear resize): 256 context codes, 4 x 1024 ids in [0, 8192), four
    finite PNGs, 1024 x CUT_LAYERS K1 launches;
@@ -153,7 +153,7 @@ result):
    environment unchanged (the CLI sets the allocator's expandable
    segments itself): finite losses,
    no skipped step, 96 / 48 / 48 K3 / K4 / K5 launches a step; ms per step,
-   tokens per second, peak memory, and two steps under torch.profiler
+   tokens per second, peak memory, and the last step under torch.profiler
    (kernel time by kind, zero fills apart, busy share);
 21. K3, K4 and K5 at the finetune's shape (B=2, N=40, D=64, S=1344, bf16,
    dropout 0.1 and none) against their plain versions, two launches
@@ -180,14 +180,15 @@ result):
    ``cli.pretrain`` steps at the tutorial preset on the .bin: finite
    losses, the flash kernels launched;
 24. VQ-VAE training: ``cli.vqtrain.main`` at the released geometry, batch
-   32 x 256^2 on phase 23's images, 40 straight-through + EMA iterations
+   32 x 256^2 on phase 23's images, 20 straight-through + EMA iterations
    (the recon MSE at the last log below the first, the codebook's
-   cluster_size moved) and 20 with --gumbel --gumbel-hard; ms per
+   cluster_size moved) and 10 with --gumbel --gumbel-hard; ms per
    iteration (CUDA events), images/s and peak memory of each;
 25. FID and IS: ``cli.fid.main`` with the seeded random InceptionV3 on the
-   card: FID(A, A) below 1e-3 and FID(A, B) > 0 for two sets of 32
-   smooth 160 x 200 PNGs, --inception-score, a TSV of A's images giving the
-   folder's statistics (to 1e-5), --extractor vq on phase 23's VQ-VAE;
+   card: FID(A, A) below 1e-3, between a TSV of A's images and A's folder
+   (whose statistics agree to 1e-5), and FID(A, B) > 0 for two sets of 32
+   smooth 160 x 200 PNGs, --inception-score, --extractor vq on phase 23's
+   VQ-VAE;
    then pool3 alone at batch 50, 299 x 299 (images/s);
 26. native host runtimes: ``g++`` builds csrc/spm and csrc/dataio into the
    build directory; on a SentencePiece BPE model written here (2,248
@@ -202,7 +203,9 @@ result):
    unsharded kernels' o, lse, dq, dk and dv (so the shard's keep mask is
    the block of the unsharded one), the forward's time with and without
    the offsets;
-28. two ranks on the one card (``parallel/spawn.run_ranks``): a one-rank
+28. two ranks on the one card (``parallel/spawn.run_ranks``; the ranks of
+   phases 28-30 run in one spawn for each world size, 1, 2 and 4, each
+   function of RANK_RUNS after the other): a one-rank
    NCCL group checks its collectives on CUDA tensors and computes the
    references; then two gloo ranks (NCCL refuses two ranks on one device)
    report which collectives gloo took on CUDA tensors and which went
@@ -213,7 +216,8 @@ result):
    20 heads a rank: a 64-token prefill and 16 decode steps on the int8
    (K1) and int4 (K2) caches against the one-rank logits (max |diff|,
    argmax agreement, ids under fixed gumbel draws); step times only under
-   the label "two ranks share one card";
+   the label "two ranks share one card"; then the dry run's six passes on
+   four ranks;
 29. ring attention and GPipe, two ranks on the one card the same way: a
    one-rank NCCL group times K3 at the ring's global shape and computes
    the references, then two gloo ranks report the ``comm.ppermute`` route
@@ -228,8 +232,22 @@ result):
    microbatches, dropout 0, against one rank (each rank's K3/K4/K5
    launches, no plain version, its peak memory), then a bf16 step with
    dropout 0.1; losses, grad norms and strided samples of every param and
-   Adam moment against the one-rank run; then ``dryrun_multichip(8)``,
-   its six passes, on the card.
+   Adam moment against the one-rank run; one SP = 2 step at SP_LAYERS
+   with ``max_memory_length`` SP_MEM and a seeded memory, whose layers
+   attend over the sequence gathered over 'seq', against one rank (also
+   the new memory); then ``dryrun_multichip(8)``, its six passes, on the
+   card;
+30. the data axis of the last slice, ranks sharing the card the same way:
+   the VQ-VAE step at the released geometry (channel 512, embed 256,
+   8,192 codes, global batch 8 x 256^2, float32, TF32 off) on two gloo
+   ranks against one rank alone, 2 ST + EMA steps and a gumbel-hard step
+   (each rank its rows of one global gumbel draw): losses, sampled
+   encoder/decoder params and the EMA buffers within VQ_DP_TOL, ms a step
+   of each; then the data 2 x pipe 2 train step (tutorial width, 4 layers,
+   batch 8 x 1,088, float32, every dropout at 0.1, 2 microbatches, each
+   data rank its shard of each microbatch) on four gloo ranks against data
+   1 x pipe 2 on two: losses and sampled params within PP_DP_TOL, each
+   rank's K3/K4/K5 launches.
 
 The next-to-last line is the kernels' JSON record (each kernel's launches
 on the main path, error, time, plain version's time, bound and library
@@ -298,17 +316,22 @@ class WordTokenizer:
 PROMPT = " ".join(f"word{i}" for i in range(30))
 
 
+SLEEP_CYCLES = 5_000_000
+
+
 def _device_time_us(torch, fn, reps: int = 25) -> float:
     """Median device microseconds of ``fn()`` over ``reps`` calls, by CUDA
     events.  A queued sleep keeps the card busy while the host enqueues, so
-    the interval holds device time only, not host launch overhead."""
+    the interval holds device time only, not host launch overhead.  Its
+    SLEEP_CYCLES (about 2.5 ms) outlast the enqueue of every function timed
+    here; a longer one only adds to the script's time."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -1072,7 +1095,7 @@ def _decode_step_profile(torch, rec) -> dict:
 
 
 def phase_main_path(torch, da, gpt, cli, cfgmod, tasks, sampling, png, weights: str,
-                    work: str, layers: int = 48):
+                    work: str, layers: int):
     """One text2image request through the CLI at cogview-base widths and
     ``layers`` layers -> (kernel launches, PNG dir, the decode-step profile
     of the bf16-weight request or None)."""
@@ -1135,8 +1158,8 @@ def phase_main_path(torch, da, gpt, cli, cfgmod, tasks, sampling, png, weights: 
               f"per step, wall {profile['wall_ms']:.3f} ms per step, device busy "
               f"{100.0 * profile['busy']:.1f}%; host clock {profile['host_ms_before']:.3f} ms "
               f"per step before the window, {profile['host_ms_after']:.3f} after")
-        _check(profile["k1_launches"] == 48, "the profiled decode steps did not launch K1 48 "
-               "times each")
+        _check(profile["k1_launches"] == layers, f"the profiled decode steps did not launch K1 "
+               f"{layers} times each")
     return launches, out_dir, profile
 
 
@@ -1168,13 +1191,15 @@ def phase_image2text(torch, da, fa, cli, tasks, sampling, png_dir: str, work: st
     return launches
 
 
-# the depth of the decode requests other than the profiled bf16-weight
-# text->image one (which keeps cogview-base's 48 layers): the int8-weight
-# text->image request, the int4 server's and low-level super-resolution's,
-# cut to keep the script inside its time limit with phase 29 (their 1,024
-# host-bound decode steps at batch 4 took 81-116 s each at 48 layers on an
-# H100 host, 28-32 s at 12)
-CUT_LAYERS = 12
+# the depth of the text->image-shaped decode requests, cut from
+# cogview-base's 48 layers to keep the script inside its time limit: their
+# 1,024 decode steps at batch 4 are host-bound, about 6 ms a step plus 1.9
+# ms a layer on an H100 host (98 s a request at 48 layers, 28 s at 12, 14 s
+# at 4), and the script at 12 layers for the three below and 48 for the
+# profiled one ran past 1,200 s on a slow host.  MAIN_LAYERS: the profiled
+# bf16-weight text->image request; CUT_LAYERS: the int8-weight one, the
+# int4 server's and low-level super-resolution's
+MAIN_LAYERS, CUT_LAYERS = 12, 4
 
 
 @contextlib.contextmanager
@@ -2255,8 +2280,8 @@ def phase_sr_finetune(torch, fa, pretrain, gpt, work: str):
 
 # cogview-sr finetuning at its full depth: batch 2 x 1,344 tokens
 SR_FULL_BATCH = 2
-SR_FULL_STEPS = 6
-SR_FULL_PROFILED = (4, 5)  # the 0-based steps under torch.profiler; 1-3 are timed
+SR_FULL_STEPS = 5
+SR_FULL_PROFILED = (4,)  # the 0-based steps under torch.profiler; 1-3 are timed
 
 
 def sr_train_child(spec_json: str) -> int:
@@ -2334,7 +2359,7 @@ def phase_sr_full_depth(torch, rows: str, smi: str):
           f"{tokens / step_ms * 1000.0:.1f} tokens/s; peak memory {r['peak_gib']:.3f} GiB "
           f"(torch.cuda.max_memory_allocated, the child's own); {smi}")
     kernel_ms = sum(r["kernel_ms"].values())
-    print(f"sr full depth: steps {SR_FULL_PROFILED[0] + 1}-{SR_FULL_PROFILED[-1] + 1} under "
+    print(f"sr full depth: step(s) {', '.join(str(i + 1) for i in SR_FULL_PROFILED)} under "
           f"torch.profiler: wall {r['prof_wall_ms']:.3f} ms a step, device busy "
           f"{100.0 * r['busy']:.1f}% of it; {kernel_ms:.3f} ms of kernels a step, "
           f"{100.0 * kernel_ms / step_ms:.1f}% of the unprofiled step; kernel time by kind "
@@ -2506,7 +2531,7 @@ def phase_other_routes(torch, fa, pretrain, work: str):
 
 CORPUS_IMAGES = 64  # 256 x 320 images of phase 23's sources
 SR_IMAGES = 4  # 512 x 640 images of its super-resolution task
-VQ_ST_ITERS, VQ_GUMBEL_ITERS, VQ_BATCH = 40, 20, 32
+VQ_ST_ITERS, VQ_GUMBEL_ITERS, VQ_BATCH = 20, 10, 32
 INCEPTION_BATCH = 50
 
 
@@ -2715,10 +2740,10 @@ def phase_vqtrain(torch, work: str, smi: str) -> None:
 
 def phase_fid(torch, png, work: str, smi: str) -> None:
     """``cli.fid.main`` on the card: the seeded random InceptionV3 gives
-    FID(A, A) below 1e-3 and FID(A, B) > 0 for two distinct sets of 32
-    smooth 160 x 200 images; --inception-score; a TSV of A's images gives
-    A's statistics; --extractor vq with phase 23's VQ-VAE; then the
-    extractor's images/s at batch 50, 299 x 299."""
+    FID(A, A) below 1e-3 between a TSV of A's images and A's folder (and
+    the same statistics) and FID(A, B) > 0 for two distinct sets of 32
+    smooth 160 x 200 images; --inception-score; --extractor vq with phase
+    23's VQ-VAE; then the extractor's images/s at batch 50, 299 x 299."""
     import base64
 
     import numpy as np
@@ -2737,22 +2762,23 @@ def phase_fid(torch, png, work: str, smi: str) -> None:
             with open(os.path.join(a, n), "rb") as g:
                 f.write(f"{n}\t_\tcaption\t{base64.urlsafe_b64encode(g.read()).decode()}\n")
     runs = {}
-    for key, argv in (("aa", ["--path1", a, "--path2", a]),
+    # "aa": the TSV of A against A's folder, so FID(A, A) (each FID a
+    # 2,048-wide matrix square root on the host, seconds each)
+    for key, argv in (("aa", ["--path1", tsv, "--path2", a]),
                       ("ab", ["--path1", a, "--path2", b, "--inception-score", "--is-splits", "2"]),
-                      ("tsv", ["--path1", tsv, "--path2", b]),
                       ("vq", ["--path1", a, "--path2", b, "--extractor", "vq",
                               "--img-tokenizer-path", os.path.join(work, "vqvae_released.pt")])):
         rc, _ = _run_quiet(fid.main, [*argv, "--batch-size", "16", "--device", "cuda"])
         _check(rc == 0, f"fid {key} failed")
         runs[key] = dict(fid.main.last)
-    aa, ab, ts, vq = runs["aa"], runs["ab"], runs["tsv"], runs["vq"]
+    aa, ab, vq = runs["aa"], runs["ab"], runs["vq"]
     _check(abs(aa["fid"]) < 1e-3, f"FID(A, A) = {aa['fid']}")
     _check(ab["fid"] > 0 and vq["fid"] > 0, f"FID(A, B) = {ab['fid']}, vq {vq['fid']}")
     _check(np.isfinite(ab["is_mean"]) and ab["is_mean"] >= 1.0 - 1e-6, "IS is not finite")
-    mu_err = float(np.abs(ts["mu1"] - ab["mu1"]).max())
-    sig_err = float(np.abs(ts["sigma1"] - ab["sigma1"]).max())
-    _check(ts["n1"] == ab["n1"] == 32 and mu_err <= 1e-5 * float(np.abs(ab["mu1"]).max())
-           and sig_err <= 1e-5 * float(np.abs(ab["sigma1"]).max()),
+    mu_err = float(np.abs(aa["mu1"] - aa["mu2"]).max())
+    sig_err = float(np.abs(aa["sigma1"] - aa["sigma2"]).max())
+    _check(aa["n1"] == aa["n2"] == 32 and mu_err <= 1e-5 * float(np.abs(aa["mu2"]).max())
+           and sig_err <= 1e-5 * float(np.abs(aa["sigma2"]).max()),
            f"the TSV's statistics differ from the folder's (mu {mu_err}, sigma {sig_err})")
     # the extractor alone: pool3 of a batch of 50 256-pixel images (the
     # resize to 299 inside), CUDA events
@@ -3177,24 +3203,15 @@ def two_rank_worker(rank: int, world: int, work: str) -> None:
         json.dump(res, f)
 
 
-def phase_two_ranks(torch, work: str) -> dict:
+def phase_two_ranks(torch, work: str, ran: dict) -> dict:
     """Two gloo ranks on the one card (NCCL refuses two ranks on one
     device) against a one-rank NCCL group on the same card: the tutorial
     steps at (dp, mp, fsdp) = (2, 1, no), (1, 2, no), (2, 1, yes), and
     cogview-base decode at TP=2 on the int8 (K1) and int4 (K2) caches; then
-    the dry run's six passes on four ranks on the card -> the kernels'
-    launches in the two-rank and one-rank runs, each rank's as it counted
-    them."""
-    from cogview_tpu_torch.dryrun import dryrun_multichip
-    from cogview_tpu_torch.parallel.spawn import run_ranks
-
-    torch.cuda.empty_cache()
+    the dry run's six passes on four ranks on the card, all run by
+    ``phase_rank_spawns`` (``ran``: its seconds) -> the kernels' launches
+    in the two-rank and one-rank runs, each rank's as it counted them."""
     d = os.path.join(work, "two_ranks")
-    t0 = time.perf_counter()
-    run_ranks(two_rank_reference, 1, d, d, device="cuda:0", timeout=400)
-    t1 = time.perf_counter()
-    run_ranks(two_rank_worker, 2, d, d, device="cuda:0", timeout=500)
-    t2 = time.perf_counter()
     with open(os.path.join(d, "ref.json")) as f:
         ref = json.load(f)
     ranks = []
@@ -3203,11 +3220,12 @@ def phase_two_ranks(torch, work: str) -> dict:
             ranks.append(json.load(f))
     tol = TWO_RANK_TOL
     print(f"one-rank group: backend {ref['backend']}, all_reduce / all_gather / reduce_scatter "
-          f"on CUDA tensors {'correct' if ref['collectives_ok'] else 'WRONG'}; spawned and run "
-          f"in {t1 - t0:.1f} s")
+          f"on CUDA tensors {'correct' if ref['collectives_ok'] else 'WRONG'}; run in "
+          f"{ran[1]['two_rank_reference']:.1f} s")
     print(f"two gloo ranks on the one card: all_reduce / all_gather / reduce_scatter on CUDA "
           f"tensors, results on the card and correct on each rank: "
-          f"{[two['collectives_ok'] for two in ranks]}; spawned and run in {t2 - t1:.1f} s")
+          f"{[two['collectives_ok'] for two in ranks]}; run in "
+          f"{ran[2]['two_rank_worker']:.1f} s")
     _check(ref["backend"] == "nccl" and ref["collectives_ok"]
            and all(two["collectives_ok"] for two in ranks),
            "a collective on CUDA tensors gave a wrong result")
@@ -3273,12 +3291,14 @@ def phase_two_ranks(torch, work: str) -> dict:
               f"{rr['launches']}); ms a decode step, two ranks share one card: median "
               f"{statistics.median(r['ms']):.1f} (one rank alone: "
               f"{statistics.median(rr['ms']):.1f})")
-    t3 = time.perf_counter()
-    lines = dryrun_multichip(4, device="cuda", timeout=300)
+    with open(os.path.join(d, "dryrun_4.txt")) as f:
+        lines = f.read().splitlines()
+    for line in lines:
+        print(line)
     _check(len(lines) == 6 and all(ln.startswith("dryrun_multichip ok") for ln in lines),
            f"the dry run on the card: {lines}")
     print(f"dry run, four gloo ranks share the card: passes 1-6 ok in "
-          f"{time.perf_counter() - t3:.1f} s")
+          f"{ran[4]['dryrun_passes']:.1f} s")
     return {"flash": flash, "decode": decode}
 
 
@@ -3308,6 +3328,9 @@ RING_TOL = {"o_rel": 1e-2, "grad_rel": 2e-2}
 # off by more than lr / 10 (NVIDIA H100 80GB HBM3); the bf16 ring is held
 # to dense attention above, and the pipeline's bf16 step is checked finite
 SAMPLES, LAYER_SAMPLES = 4096, 256  # elements of each leaf, and of each of its layers
+# the new memory (the layers' float32 outputs) of the SP step against one
+# rank's: max |diff| over max |value|
+SP_MEMS_TOL = 1e-4
 
 
 def _leaf_samples(torch, tree, mesh=None):
@@ -3377,6 +3400,50 @@ def _base_steps(torch, mesh, layers: int, dropout: float, flash_min_seq: int, st
     return metrics, ms, launches, plain, samples, peak, state, cfg, opt
 
 
+SP_MEM = 128  # positions of the seeded memory of the SP step with --max-memory-length
+
+
+def _sp_mems_step(torch, mesh):
+    """One cogview-base train step, SP_LAYERS deep, float32, every dropout
+    at 0.1, with the transformer-XL memory (max_memory_length SP_MEM, a
+    seeded memory of SP_MEM positions) on this rank's part of ``mesh``
+    (None: one rank); under 'seq' each layer attends over the gathered
+    sequence -> (metrics, ms, the param and Adam-moment samples, strided
+    samples of the new memory, peak GiB)."""
+    import numpy as np
+
+    from cogview_tpu_torch import config as C
+    from cogview_tpu_torch.models import gpt
+    from cogview_tpu_torch.parallel.sharding import shard_params
+    from cogview_tpu_torch.training import optim
+    from cogview_tpu_torch.training import train_loop as tl
+
+    dev = torch.device("cuda")
+    cfg = C.cogview_base(num_layers=SP_LAYERS, embedding_dropout=0.1, attention_dropout=0.1,
+                         output_dropout=0.1, compute_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(33)
+    params = gpt.init_params(cfg, gen, device=dev)
+    if mesh is not None:
+        params = shard_params(params, mesh)
+    opt, _ = optim.make_optimizer(params, lr=RING_LR, warmup_iter=1, num_iters=10)
+    state = tl.init_train_state(params, opt, torch.Generator().manual_seed(34))
+    step = tl.make_train_step(cfg, opt, img_vocab=8192, max_memory_length=SP_MEM)
+    mems = torch.randn((SP_LAYERS + 1, RING_B, SP_MEM, cfg.hidden_size), generator=gen,
+                       device=dev)
+    text = np.random.RandomState(33).randint(0, 58219, (RING_B, 1089)).astype(np.int64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m, new_mems = step(state, {"text": text, "loss_mask": np.ones_like(text, np.float32)},
+                              mems=mems)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000.0
+    samples = {"params": _leaf_samples(torch, state["params"], mesh),
+               "mu": _leaf_samples(torch, state["opt_state"]["mu"], mesh),
+               "mems": new_mems.reshape(-1)[::max(1, new_mems.numel() // SAMPLES)].cpu()}
+    return m, ms, samples, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
 def _ring_qkv(torch, dev):
     """The whole q, k, v and an output cotangent [B, S, N, D], bf16, from
     RING_SEED on ``dev``."""
@@ -3407,6 +3474,10 @@ def ring_reference(rank: int, world: int, work: str) -> None:
                      "flash_plain_calls": plain, "peak_gib": peak}
         del state
         torch.cuda.empty_cache()
+    m, ms, samples, peak = _sp_mems_step(torch, None)
+    torch.save(samples, os.path.join(work, "ring_ref_sp_mems.pt"))
+    res["sp_mems"] = {"metrics": m, "ms": ms, "peak_gib": peak}
+    torch.cuda.empty_cache()
     with open(os.path.join(work, "ring_ref.json"), "w") as f:
         json.dump(res, f)
 
@@ -3493,7 +3564,18 @@ def ring_worker(rank: int, world: int, work: str) -> None:
         del q, k, v, do
         torch.cuda.empty_cache()
 
-    want = {name: torch.load(os.path.join(work, f"ring_ref_{name}.pt")) for name in ("sp", "pp")}
+    want = {name: torch.load(os.path.join(work, f"ring_ref_{name}.pt"))
+            for name in ("sp", "pp", "sp_mems")}
+    with use_mesh(create_mesh(seq_parallel=2, device=dev)) as mesh:
+        # the gather route: the memory's layers attend over the whole sequence
+        m, ms, samples, peak = _sp_mems_step(torch, mesh)
+        diff, far, mu = _compare_samples(samples, want["sp_mems"])
+        ref_mems = want["sp_mems"]["mems"]
+        res["sp_mems"] = {"metrics": m, "ms": ms, "param_max_abs_diff": diff,
+                          "param_far_share": far, "mu_rel_diff": mu, "peak_gib": peak,
+                          "mems_rel_diff": float((samples["mems"] - ref_mems).abs().max()
+                                                 / ref_mems.abs().max())}
+        torch.cuda.empty_cache()
     for name, layers, drop, fmin, axes in (("sp", SP_LAYERS, 0.1, 4096, dict(seq_parallel=2)),
                                            ("pp", PP_LAYERS, 0.0, 1024, dict(pipe_parallel=2))):
         with use_mesh(create_mesh(device=dev, **axes)) as mesh:
@@ -3525,42 +3607,24 @@ def ring_worker(rank: int, world: int, work: str) -> None:
         json.dump(res, f)
 
 
-def phase_ring_pipeline(torch, work: str) -> list:
+def phase_ring_pipeline(torch, work: str, ran: dict) -> list:
     """Ring attention (SP) and GPipe (PP) on two gloo ranks sharing the
     card, against a one-rank NCCL group's references on the same card
-    (ring_reference, ring_worker); then the dry run's six passes on eight
-    ranks on the card -> the flash kernels' launches of the PP steps on
-    both ranks, each rank's as it counted them."""
+    (ring_reference, ring_worker, run by ``phase_rank_spawns``; ``ran``:
+    its seconds); then the dry run's six passes on eight ranks on the card
+    -> the flash kernels' launches of the PP steps on both ranks, each
+    rank's as it counted them."""
     from cogview_tpu_torch.dryrun import dryrun_multichip
-    from cogview_tpu_torch.parallel.spawn import run_ranks
 
-    torch.cuda.empty_cache()
     d = os.path.join(work, "ring")
-    # the 48-layer steps leave two ranks about 33 GiB each of the card: let
-    # their allocators grow segments in place (fixed segments left 7 GiB
-    # cached and unusable on a rank); the ranks' fork server starts with
-    # this environment, and the script's own is restored after
-    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    try:
-        t0 = time.perf_counter()
-        run_ranks(ring_reference, 1, d, d, device="cuda:0", timeout=300)
-        t1 = time.perf_counter()
-        run_ranks(ring_worker, 2, d, d, device="cuda:0", timeout=400)
-        t2 = time.perf_counter()
-    finally:
-        if alloc is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     with open(os.path.join(d, "ring_ref.json")) as f:
         ref = json.load(f)
     ranks = []
     for rank in range(2):
         with open(os.path.join(d, f"ring_{rank}.json")) as f:
             ranks.append(json.load(f))
-    print(f"ring/pipeline one-rank references spawned and run in {t1 - t0:.1f} s; two gloo "
-          f"ranks in {t2 - t1:.1f} s")
+    print(f"ring/pipeline one-rank references run in {ran[1]['ring_reference']:.1f} s; two gloo "
+          f"ranks in {ran[2]['ring_worker']:.1f} s")
     print(f"ppermute on CUDA tensors under gloo: route {[r['route'] for r in ranks]}, one shift "
           f"and its backward correct on each rank: {[r['ppermute_ok'] for r in ranks]}")
     _check(all(r["ppermute_ok"] and r["route"] == "all_gather" for r in ranks),
@@ -3634,6 +3698,29 @@ def phase_ring_pipeline(torch, work: str) -> list:
               f"{rr['peak_gib']:.2f}); ms a step, two ranks share one card: "
               f"{['%.1f' % x for x in r['ms']]} (one rank alone: "
               f"{['%.1f' % x for x in rr['ms']]})")
+    rr = ref["sp_mems"]
+    for rank, two in enumerate(ranks):
+        r = two["sp_mems"]
+        _check(abs(r["metrics"]["lm_loss"] - rr["metrics"]["lm_loss"])
+               <= tol["loss_rtol"] * abs(rr["metrics"]["lm_loss"])
+               and abs(r["metrics"]["grad_norm"] - rr["metrics"]["grad_norm"])
+               <= tol["grad_norm_rtol"] * abs(rr["metrics"]["grad_norm"])
+               and r["param_max_abs_diff"] <= tol["param_atol"]
+               and r["param_far_share"] <= tol["param_far_share"]
+               and r["mu_rel_diff"] <= tol["mu_rtol"] and r["mems_rel_diff"] <= SP_MEMS_TOL,
+               f"sp with --max-memory-length, rank {rank}: {r} vs one rank {rr}")
+    r = ranks[0]["sp_mems"]
+    print(f"SP=2 step with --max-memory-length {SP_MEM} (a seeded memory of {SP_MEM} "
+          f"positions), cogview-base, {SP_LAYERS} layers, float32, dropout 0.1, the gather "
+          f"route, against one rank: lm loss {r['metrics']['lm_loss']:.6f} vs "
+          f"{rr['metrics']['lm_loss']:.6f}, grad norm {r['metrics']['grad_norm']:.5f} vs "
+          f"{rr['metrics']['grad_norm']:.5f}; sampled params max |diff| "
+          f"{r['param_max_abs_diff']:.3e}, share off by > lr/10 {r['param_far_share']:.2e}, "
+          f"Adam's first moment {r['mu_rel_diff']:.2e} (tolerances as the SP steps); the new "
+          f"memory's samples max |diff| / max {r['mems_rel_diff']:.2e} (tol {SP_MEMS_TOL}); "
+          f"peak GiB {['%.2f' % two['sp_mems']['peak_gib'] for two in ranks]} (one rank "
+          f"{rr['peak_gib']:.2f}); {r['ms']:.1f} ms, two ranks share one card (one rank alone "
+          f"{rr['ms']:.1f} ms)")
     for rank, two in enumerate(ranks):
         r = two["pp_dropout"]
         _check(math.isfinite(r["metrics"]["lm_loss"]) and math.isfinite(r["metrics"]["grad_norm"])
@@ -3654,6 +3741,363 @@ def phase_ring_pipeline(torch, work: str) -> list:
     print(f"dry run, eight gloo ranks share the card: passes 1-6 ok in "
           f"{time.perf_counter() - t3:.1f} s")
     return flash
+
+
+# phase 30: data-parallel vqtrain and the data x pipe dropout step
+VQ_DP = {"channel": 512, "embed_dim": 256, "n_embed": 8192, "size": 256, "batch": 8,
+         "st_steps": 2}  # the released geometry, global batch 8
+VQ_DP_LR = 3e-4
+# two ranks against one on the same global batch, float32 with TF32 off:
+# each rank's convolutions run at batch 4 where one rank's run at 8, and
+# the gradients and EMA sums add in another order, so the losses agree to
+# float32 rounding; Adam turns a near-zero gradient into a step of up to
+# lr, so a param may differ by 2 lr, with at most 1% of the samples off by
+# more than lr / 10; a code that flips between two near-equal distances
+# moves one count between two codes' EMA statistics, so each EMA buffer is
+# held by its share of elements off by more than 1e-3 of its largest
+VQ_DP_TOL = {"loss_rtol": 1e-4, "param_atol": 2 * VQ_DP_LR + 1e-6, "param_far_share": 1e-2,
+             "ema_rel": 1e-3, "ema_far_share": 1e-2}
+# data 2 x pipe 2 against data 1 x pipe 2 on the same global batch, every
+# dropout at 0.1: the masks hash the same global coordinates, so the two
+# differ by float32 rounding (a microbatch's rows split over 'data' run
+# smaller matmuls, and PB-relax's max is over a rank's rows)
+PP_DP = {"layers": 4, "batch": 8, "seq": 1088, "dropout": 0.1, "lr": 1e-4, "steps": 1}
+PP_DP_TOL = {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-4, "param_atol": 2 * 1e-4 + 1e-6,
+             "param_far_share": 1e-2}
+# elements of each leaf compared, evenly strided
+SLICE_SAMPLES = 4096
+
+
+def _strided(t, n: int = SLICE_SAMPLES):
+    flat = t.detach().reshape(-1)
+    return flat[::max(1, flat.numel() // n)].float().cpu()
+
+
+def vq_dp_worker(rank: int, world: int, work: str) -> None:
+    """One of ``world`` ranks training the VQ-VAE of ``vq_dp.json`` on a
+    'data' axis of every rank: st_steps straight-through + EMA steps, then
+    one --gumbel-hard step, on one seeded global batch of which this rank
+    takes its rows (and its rows of one global gumbel draw); writes each
+    step's global metrics and ms, strided samples of every encoder and
+    decoder leaf and the EMA buffers to vq_dp_<world>_<rank>."""
+    import torch
+
+    from cogview_tpu_torch.config import VQVAEConfig
+    from cogview_tpu_torch.models import vqvae
+    from cogview_tpu_torch.ops.precision import set_fp32_precision
+    from cogview_tpu_torch.parallel.mesh import create_mesh, use_mesh
+    from cogview_tpu_torch.parallel.pipeline import data_rows
+    from cogview_tpu_torch.training import vqvae_train as vt
+    from cogview_tpu_torch.training.optim import tree_leaves
+
+    with open(os.path.join(work, "vq_dp.json")) as f:
+        spec = json.load(f)
+    set_fp32_precision()
+    dev = torch.device("cuda", 0)
+    B, S, K = spec["batch"], spec["size"], spec["n_embed"]
+    cfg = VQVAEConfig(channel=spec["channel"], embed_dim=spec["embed_dim"], n_embed=K)
+    res = {"metrics": [], "ms": []}
+    with use_mesh(create_mesh(data_parallel=world, device=dev)) as mesh:
+        rows = data_rows(B, mesh=mesh).to(dev)
+        params = vqvae.with_ema_buffers(vqvae.tree_to(
+            vqvae.init_params(cfg, torch.Generator().manual_seed(0)), dev))
+        tx = vt.make_adam(params, VQ_DP_LR)
+        state = vt.init_vqvae_train_state(params, tx)
+        gen = torch.Generator(device=dev).manual_seed(31)
+        steps = ([("st-ema", vt.make_vqvae_train_step(tx))] * spec["st_steps"]
+                 + [("gumbel-hard", vt.make_vqvae_gumbel_train_step(tx, hard=True))])
+        for mode, step in steps:
+            batch = torch.randn((B, S, S, 3), generator=gen, device=dev)[rows]
+            kw = {}
+            if mode == "gumbel-hard":
+                noise = vqvae.gumbel_noise((B, (S // 8) ** 2, K), gen, device=dev)
+                kw = dict(temperature=1.0, noise=noise[rows].reshape(-1, K))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, batch, **kw)
+            m = {k: float(v) for k, v in m.items()}  # waits for the step
+            res["ms"].append((time.perf_counter() - t0) * 1000.0)
+            res["metrics"].append(dict(m, mode=mode))
+            del batch, kw
+        p = state["params"]
+        samples = [_strided(t) for t in tree_leaves({k: p[k] for k in vt.TRAINED})]
+        ema = {k: p["quantize"][k].detach().float().cpu()
+               for k in ("embed", "cluster_size", "embed_avg")}
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.save({"samples": samples, "ema": ema}, os.path.join(work, f"vq_dp_{world}_{rank}.pt"))
+    with open(os.path.join(work, f"vq_dp_{world}_{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def pp_dp_worker(rank: int, world: int, work: str) -> None:
+    """One of ``world`` ranks of a data world/2 x pipe 2 mesh training
+    ``pp_dp.json``'s config (the tutorial width, every dropout at 0.1,
+    float32, 2 microbatches) on one seeded global batch: this data rank's
+    rows are its shard of each microbatch (``pipeline.data_rows``); writes
+    the metrics, ms a step, K3/K4/K5 launches and plain-version calls, and
+    strided samples of every param to pp_dp_<world>_<rank>."""
+    import numpy as np
+    import torch
+
+    from cogview_tpu_torch import config as C
+    from cogview_tpu_torch.models import gpt
+    from cogview_tpu_torch.ops import flash_attention as fa
+    from cogview_tpu_torch.ops.precision import set_fp32_precision
+    from cogview_tpu_torch.parallel.mesh import create_mesh, use_mesh
+    from cogview_tpu_torch.parallel.pipeline import data_rows
+    from cogview_tpu_torch.parallel.sharding import shard_params
+    from cogview_tpu_torch.training import optim
+    from cogview_tpu_torch.training import train_loop as tl
+
+    with open(os.path.join(work, "pp_dp.json")) as f:
+        spec = json.load(f)
+    set_fp32_precision()
+    dev = torch.device("cuda", 0)
+    r = spec["dropout"]
+    cfg = C.cogview_tutorial(num_layers=spec["layers"], embedding_dropout=r,
+                             attention_dropout=r, output_dropout=r, pp_microbatches=2,
+                             compute_dtype=torch.float32)
+    res = {"metrics": [], "ms": []}
+    with use_mesh(create_mesh(data_parallel=world // 2, pipe_parallel=2, device=dev)) as mesh:
+        params = shard_params(gpt.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(41), device=dev), mesh)
+        opt, _ = optim.make_optimizer(params, lr=spec["lr"], warmup_iter=1, num_iters=10)
+        state = tl.init_train_state(params, opt, torch.Generator().manual_seed(42))
+        step = tl.make_train_step(cfg, opt, img_vocab=8192)
+        rows = data_rows(spec["batch"], 2, mesh).numpy()
+        _zero_flash_counts(fa)
+        for i in range(spec["steps"]):
+            text = np.random.RandomState(41 + i).randint(
+                0, cfg.vocab_size, (spec["batch"], spec["seq"] + 1)).astype(np.int64)[rows]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, {"text": text, "loss_mask": np.ones(text.shape, np.float32)})
+            torch.cuda.synchronize()
+            res["ms"].append((time.perf_counter() - t0) * 1000.0)
+            res["metrics"].append(m)
+        res["flash_launches"], res["flash_plain_calls"] = _flash_counts(fa)
+        samples = _leaf_samples(torch, state["params"], mesh)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.save(samples, os.path.join(work, f"pp_dp_{world}_{rank}.pt"))
+    with open(os.path.join(work, f"pp_dp_{world}_{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _load_ranks(d: str, prefix: str, world: int):
+    """Each rank's JSON record, its saved tensors under "tensors"."""
+    import torch
+
+    out = []
+    for rank in range(world):
+        with open(os.path.join(d, f"{prefix}_{world}_{rank}.json")) as f:
+            res = json.load(f)
+        res["tensors"] = torch.load(os.path.join(d, f"{prefix}_{world}_{rank}.pt"))
+        out.append(res)
+    return out
+
+
+def _far(a, b, atol):
+    return float(((a - b).abs() > atol).float().mean())
+
+
+def phase_data_parallel_slice(torch, work: str, smi: str, ran: dict) -> list:
+    """vqtrain's data axis: the VQ-VAE at VQ_DP's geometry on two gloo ranks
+    sharing the card (NCCL refuses two ranks on one device) against one
+    rank alone, st_steps ST + EMA steps and a gumbel-hard step on the same
+    global batch; then the data 2 x pipe 2 dropout step on four gloo
+    ranks against data 1 x pipe 2 on two, all run by ``phase_rank_spawns``
+    (``ran``: its seconds) -> the K3/K4/K5 launches of both pipeline runs,
+    each rank's as it counted them."""
+    d = os.path.join(work, "slice30")
+    vq, pp = VQ_DP, PP_DP
+    one, = _load_ranks(d, "vq_dp", 1)
+    two = _load_ranks(d, "vq_dp", 2)
+    tol = VQ_DP_TOL
+    for rank, r in enumerate(two):
+        for a, b in zip(r["metrics"], one["metrics"]):
+            for key in ("loss", "recon_mse", "commit", "kl"):
+                if key in b:
+                    _check(abs(a[key] - b[key]) <= tol["loss_rtol"] * abs(b[key]),
+                           f"vqtrain dp 2, rank {rank}, {a['mode']}: {key} {a[key]} vs one "
+                           f"rank {b[key]}")
+        pairs = list(zip(r["tensors"]["samples"], one["tensors"]["samples"]))
+        pmax = max(float((a - b).abs().max()) for a, b in pairs)
+        pfar = sum(int(((a - b).abs() > VQ_DP_LR / 10).sum()) for a, b in pairs) / sum(
+            a.numel() for a, _ in pairs)
+        ema = {}
+        for k, b in one["tensors"]["ema"].items():
+            a = r["tensors"]["ema"][k]
+            scale = max(float(b.abs().max()), 1e-30)
+            ema[k] = (float((a - b).abs().max()) / scale, _far(a, b, tol["ema_rel"] * scale))
+        _check(pmax <= tol["param_atol"] and pfar <= tol["param_far_share"]
+               and all(far <= tol["ema_far_share"] for _, far in ema.values()),
+               f"vqtrain dp 2, rank {rank}: params ({pmax}, {pfar}) or EMA buffers {ema} "
+               "differ from one rank")
+        r.update(pmax=pmax, pfar=pfar, ema=ema)
+    r = two[0]
+    gc = "channel {channel}, embed {embed_dim}, {n_embed} codes, {batch} x {size}^2".format(**vq)
+    print(f"vqtrain data axis ({smi}): 2 gloo ranks share the card (not a speed) against one "
+          f"rank, {gc}, float32, TF32 off; per step {[m['mode'] for m in r['metrics']]}: "
+          f"loss {['%.6f' % m['loss'] for m in r['metrics']]} vs one rank "
+          f"{['%.6f' % m['loss'] for m in one['metrics']]} (rtol {tol['loss_rtol']}); "
+          f"sampled encoder/decoder params max |diff| {r['pmax']:.3e} (tol "
+          f"{tol['param_atol']:.2e}), share off by > lr/10 {r['pfar']:.2e} (tol "
+          f"{tol['param_far_share']}); EMA buffers max |diff| / max, share off by > "
+          f"{tol['ema_rel']} of max: "
+          + ", ".join(f"{k} {a:.2e} {b:.2e}" for k, (a, b) in r["ema"].items())
+          + f" (tol share {tol['ema_far_share']})")
+    print(f"vqtrain data axis ms a step (st-ema x {vq['st_steps']}, gumbel-hard): two ranks "
+          f"share one card {[['%.1f' % x for x in t['ms']] for t in two]}; one rank alone "
+          f"{['%.1f' % x for x in one['ms']]}; run in {ran[1]['vq_dp_worker']:.1f} s (one) and "
+          f"{ran[2]['vq_dp_worker']:.1f} s (two)")
+
+    dp1 = _load_ranks(d, "pp_dp", 2)
+    dp2 = _load_ranks(d, "pp_dp", 4)
+    tol = PP_DP_TOL
+    per = pp["layers"] // 2 * 2 * pp["steps"]  # a stage's layers x microbatches x steps
+    flash = [0, 0, 0]
+    for world, ranks in ((2, dp1), (4, dp2)):
+        for rank, r in enumerate(ranks):
+            # dp 2 splits each microbatch's rows: still one launch a layer
+            # and microbatch, on fewer rows
+            _check(r["flash_launches"] == [2 * per, per, per]
+                   and r["flash_plain_calls"] == [0, 0, 0],
+                   f"pp dp {world // 2} rank {rank}: flash launches {r['flash_launches']}, "
+                   f"plain {r['flash_plain_calls']}, not {[2 * per, per, per]}")
+            flash = [a + b for a, b in zip(flash, r["flash_launches"])]
+    for rank, r in enumerate(dp2):
+        want = dp1[rank % 2]  # the same stage
+        for a, b in zip(r["metrics"], want["metrics"]):
+            _check(abs(a["lm_loss"] - b["lm_loss"]) <= tol["loss_rtol"] * abs(b["lm_loss"])
+                   and abs(a["grad_norm"] - b["grad_norm"]) <= tol["grad_norm_rtol"]
+                   * abs(b["grad_norm"]) and a["skipped"] == 0,
+                   f"data 2 x pipe 2 rank {rank}: {a} vs data 1 x pipe 2 {b}")
+        pairs = list(zip(r["tensors"], want["tensors"]))
+        r["pmax"] = max(float((a - b).abs().max()) for a, b in pairs)
+        r["pfar"] = sum(int(((a - b).abs() > pp["lr"] / 10).sum()) for a, b in pairs) / sum(
+            a.numel() for a, _ in pairs)
+        _check(r["pmax"] <= tol["param_atol"] and r["pfar"] <= tol["param_far_share"],
+               f"data 2 x pipe 2 rank {rank}: params differ ({r['pmax']}, {r['pfar']})")
+    r, w = dp2[0], dp1[0]
+    print(f"data 2 x pipe 2 against data 1 x pipe 2 ({smi}), tutorial width, {pp['layers']} "
+          f"layers, batch {pp['batch']} x {pp['seq']:,}, float32, every dropout at "
+          f"{pp['dropout']}, 2 microbatches, {pp['steps']} step(s): lm loss "
+          f"{['%.7f' % m['lm_loss'] for m in r['metrics']]} vs "
+          f"{['%.7f' % m['lm_loss'] for m in w['metrics']]} (rtol {tol['loss_rtol']}), grad norm "
+          f"{['%.6f' % m['grad_norm'] for m in r['metrics']]} vs "
+          f"{['%.6f' % m['grad_norm'] for m in w['metrics']]} (rtol {tol['grad_norm_rtol']}); "
+          f"sampled params max |diff| {max(x['pmax'] for x in dp2):.3e} (tol "
+          f"{tol['param_atol']:.2e}), share off by > lr/10 {max(x['pfar'] for x in dp2):.2e}; "
+          f"K3/K4/K5 launches by rank {[x['flash_launches'] for x in dp2]} (data 1: "
+          f"{[x['flash_launches'] for x in dp1]}), plain-version calls "
+          f"{[x['flash_plain_calls'] for x in dp2]}; ms a step, ranks share one card (not a "
+          f"speed): four {[['%.1f' % t for t in x['ms']] for x in dp2]}, two "
+          f"{[['%.1f' % t for t in x['ms']] for x in dp1]}; run in "
+          f"{ran[4]['pp_dp_worker']:.1f} s (four) and {ran[2]['pp_dp_worker']:.1f} s (two)")
+    return flash
+
+
+# --------------------------------------------------------------------- #
+# the ranks of phases 28-30: one spawn for each world size
+# --------------------------------------------------------------------- #
+
+def dryrun_passes(rank: int, world: int, work: str) -> None:
+    """The dry run's six passes on this rank; rank 0 writes their lines to
+    dryrun_<world>.txt."""
+    from cogview_tpu_torch.dryrun import passes
+
+    passes(rank, world, os.path.join(work, f"dryrun_{world}.txt"), "cuda")
+
+
+# each world size's functions in the order they run, each on its phase's
+# folder: a rank runs them one after another in one process group, so the
+# process start, CUDA's context and the first step's one-time costs are
+# paid once a world size, not once a function.  The references come first
+# (world 1), and the workers that turn TF32 off (vq_dp_worker,
+# pp_dp_worker, as their entry points do) come last in their spawn
+RANK_RUNS = {
+    1: (("two_rank_reference", "two_ranks"), ("ring_reference", "ring"),
+        ("vq_dp_worker", "slice30")),
+    2: (("two_rank_worker", "two_ranks"), ("ring_worker", "ring"), ("vq_dp_worker", "slice30"),
+        ("pp_dp_worker", "slice30")),
+    4: (("dryrun_passes", "two_ranks"), ("pp_dp_worker", "slice30")),
+}
+
+
+def rank_runs(rank: int, world: int, work: str) -> None:
+    """RANK_RUNS[world] on this rank, each function's device memory freed
+    and peak reset before the next; rank 0 writes each one's seconds to
+    ran_<world>.json."""
+    import gc
+
+    import torch
+
+    secs = {}
+    for name, folder in RANK_RUNS[world]:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        globals()[name](rank, world, os.path.join(work, folder))
+        secs[name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        with open(os.path.join(work, f"ran_{world}.json"), "w") as f:
+            json.dump(secs, f)
+
+
+def phase_rank_spawns(torch, work: str) -> dict:
+    """The spawns of phases 28-30 (RANK_RUNS), every rank on the one card
+    -> {world: {function: seconds on rank 0}}, each world's whole spawn
+    under "spawn"."""
+    from cogview_tpu_torch.parallel.spawn import run_ranks
+
+    torch.cuda.empty_cache()
+    for folder in ("two_ranks", "ring", "slice30"):
+        os.makedirs(os.path.join(work, folder), exist_ok=True)
+    for name, spec in (("vq_dp", VQ_DP), ("pp_dp", PP_DP)):
+        with open(os.path.join(work, "slice30", f"{name}.json"), "w") as f:
+            json.dump(spec, f)
+    # the 48-layer PP steps leave two ranks about 33 GiB each of the card:
+    # let their allocators grow segments in place (fixed segments left 7 GiB
+    # cached and unusable on a rank); the ranks' fork server starts with
+    # this environment, and the script's own is restored after
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    ran = {}
+    try:
+        for world, timeout in ((1, 900), (2, 1000), (4, 500)):
+            t0 = time.perf_counter()
+            run_ranks(rank_runs, world, work, work, device="cuda:0", timeout=timeout)
+            with open(os.path.join(work, f"ran_{world}.json")) as f:
+                ran[world] = json.load(f)
+            ran[world]["spawn"] = time.perf_counter() - t0
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    print("ranks of phases 28-30, every rank on the one card: "
+          + "; ".join(f"{w} rank(s) spawned and run in {r['spawn']:.1f} s ("
+                      + ", ".join(f"{k} {v:.1f} s" for k, v in r.items() if k != "spawn") + ")"
+                      for w, r in ran.items()))
+    return ran
+
+
+def _bytecode_cache() -> None:
+    """Python's bytecode cache for this process and every process it
+    starts, in the build directory.  Where the installed packages'
+    ``__pycache__`` cannot be written, each fresh process compiles the
+    modules it imports again: a spawned rank's first remat step imports
+    ``torch._dynamo`` (``torch.utils.checkpoint`` imports it lazily), 983
+    modules compiled in 4.5 of 11 s on the card's host.  With the cache,
+    the first process compiles them and the ranks read them."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cogview_tpu_torch",
+                        "build", "pycache")
+    os.makedirs(path, exist_ok=True)
+    sys.pycache_prefix = path
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = path
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
 
 
 def main() -> int:
@@ -3681,6 +4125,7 @@ def main() -> int:
         from cogview_tpu_torch.utils import png
     except ImportError as e:
         _fail(f"the port is not importable here ({e}); run from the repository root")
+    _bytecode_cache()
     t_start = time.perf_counter()
 
     def lap(what: str) -> None:  # where the time limit goes
@@ -3743,7 +4188,7 @@ def main() -> int:
                                              png, t2i[0][1], work, smi.splitlines()[0])
         lap("phase 16")
         t2i.append(phase_main_path(torch, da, gpt, cli, cfgmod, tasks, sampling, png, "bfloat16",
-                                   work))
+                                   work, layers=MAIN_LAYERS))
         lap("phase 9, bf16 weights")
         png_dir = t2i[1][1]
         # phase 10: image->text; phase 11: post-selection; phase 13: fidelity
@@ -3790,15 +4235,21 @@ def main() -> int:
         lap("phase 26")
         k345_off = phase_flash_offsets(torch, fa)
         lap("phase 27")
-        two = phase_two_ranks(torch, work)
+        ran = phase_rank_spawns(torch, work)
+        lap("the ranks of phases 28-30")
+        two = phase_two_ranks(torch, work, ran)
         lap("phase 28")
         # phase 29: ring attention (SP) and GPipe (PP) on two ranks, then the
         # dry run's six passes on eight
-        ring_launches = phase_ring_pipeline(torch, work)
+        ring_launches = phase_ring_pipeline(torch, work, ran)
         lap("phase 29")
-    # the flash kernels' launches on the training paths: phases 14, 19, 20, 23, 28, 29
-    train_launches = [a + b + c + d + e + f for a, b, c, d, e, f in zip(
-        train_launches, ft_launches, full_launches, pre_launches, two["flash"], ring_launches)]
+        # phase 30: vqtrain on a data axis, and the data x pipe dropout step
+        dp_launches = phase_data_parallel_slice(torch, work, smi.splitlines()[0], ran)
+        lap("phase 30")
+    # the flash kernels' launches on the training paths: phases 14, 19, 20, 23, 28, 29, 30
+    train_launches = [sum(x) for x in zip(train_launches, ft_launches, full_launches,
+                                          pre_launches, two["flash"], ring_launches,
+                                          dp_launches)]
 
     def decode_entry(name, summary, launches, err, kv):
         times = summary["times"]
@@ -3931,7 +4382,7 @@ def main() -> int:
                         + ckpt_launches + tut_launches,
                         k1["max_abs_err"], "int8"),
          # device ms of K1 per decode step of the bf16-weight request
-         # (torch.profiler over PROFILED_STEPS)
+         # (torch.profiler over PROFILED_STEPS; MAIN_LAYERS launches a step)
          "step_ms": t2i[1][2]["k1_ms"]},
         decode_entry("decode_attention_int4", k2, k2_launches + two["decode"]["int4"],
                      k2["max_abs_err"], "int4"),

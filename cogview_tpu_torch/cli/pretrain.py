@@ -56,6 +56,7 @@ from ..models import gpt
 from ..ops.precision import set_fp32_precision
 from ..parallel import comm
 from ..parallel.mesh import create_mesh, use_mesh
+from ..parallel.pipeline import data_rows
 from ..parallel.sharding import gather_params, shard_params
 from ..tokenization.unified import FakeImageTokenizer, UnifiedTokenizer
 from ..training import checkpointing
@@ -279,17 +280,16 @@ def _stop_profile(prof, profile_dir: str) -> None:
 
 
 def join_group(args, device: torch.device):
-    """Join torchrun's group (its ``env://`` variables) where WORLD_SIZE > 1
-    -> (mesh or None, this rank's device, whether this call joined).  Each
-    rank takes the card LOCAL_RANK; NCCL where every rank has its own, gloo
-    otherwise.  A process that has joined a group already keeps it.  The
-    layout checks and their messages are the JAX CLI's."""
+    """Join torchrun's group (its ``env://`` variables,
+    ``comm.join_torchrun``) where WORLD_SIZE > 1 -> (mesh or None, this
+    rank's device, whether this call joined).  The layout checks and their
+    messages are the JAX CLI's."""
     sp = max(1, args.sequence_parallel_size)
     pp = max(1, args.pipeline_parallel_size)
     if sp > 1 and pp > 1:
         raise SystemExit("--sequence-parallel-size and --pipeline-parallel-size are "
                          "mutually exclusive")
-    world = int(os.environ.get("WORLD_SIZE", "1"))
+    world, _, _, local_world = comm.torchrun_env()
     mp = min(args.model_parallel_size, world)
     if world % (mp * sp * pp):
         raise SystemExit(f"{world} devices not divisible by model_parallel {mp} x "
@@ -304,28 +304,21 @@ def join_group(args, device: torch.device):
         if args.batch_size % mb:
             raise SystemExit(f"--batch-size {args.batch_size} not divisible by {mb} "
                              "pipeline microbatches")
-        if (args.batch_size // dp) % mb:
-            raise SystemExit(f"--batch-size {args.batch_size} leaves each of the {dp} data "
-                             f"ranks {args.batch_size // dp} rows, not divisible by {mb} "
-                             "pipeline microbatches")
+        if args.batch_size // mb < dp:
+            # the JAX package pads such shards with rows it never reads; the
+            # port's shards differ in size by a row, and none may be empty
+            raise SystemExit(f"--batch-size {args.batch_size} leaves each of the {mb} "
+                             f"pipeline microbatches {args.batch_size // mb} rows, fewer "
+                             f"than the {dp} data ranks")
     if args.batch_size % dp:
         raise SystemExit(
             f"--batch-size {args.batch_size} must be divisible by the data "
             f"axis ({dp} = {world} devices / mp {mp} / sp {sp} / pp {pp})")
     if world == 1:
         return None, device, False
-    rank = int(os.environ["RANK"])
-    local_rank = int(os.environ.get("LOCAL_RANK", rank))
-    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
     if local_world != world and not args.multihost:
         raise SystemExit(f"{world} ranks, {local_world} on this host: pass --multihost")
-    if device.type == "cuda":
-        device = torch.device("cuda", local_rank % torch.cuda.device_count())
-        torch.cuda.set_device(device)
-    joined = not torch.distributed.is_initialized()
-    if joined:
-        comm.init_process_group(rank, world, device, ranks_on_host=local_world,
-                                init_method="env://")
+    device, joined = comm.join_torchrun(device)
     return create_mesh(model_parallel=mp, data_parallel=dp, fsdp=args.fsdp, device=device,
                        seq_parallel=sp, pipe_parallel=pp), device, joined
 
@@ -350,12 +343,12 @@ def main(argv=None, txt_tokenizer=None) -> int:
 
 def _train(args, device: torch.device, mesh, txt_tokenizer) -> int:
     rank = 0 if mesh is None else mesh.rank
-    # rows [b0, b0 + rows) of each global batch are this rank's
-    rows = args.batch_size // (1 if mesh is None else mesh.data)
-    b0 = 0 if mesh is None else mesh.data_rank * rows
+    # this rank's rows of each global batch: a contiguous block, or under
+    # pipeline parallelism its shard of each microbatch (the JAX rows)
+    rows = data_rows(args.batch_size, args.pipeline_microbatches, mesh).numpy()
 
     def local(batch):
-        return {k: v[b0:b0 + rows] for k, v in batch.items()}
+        return {k: v[rows] for k, v in batch.items()}
 
     def say(*a, **kw):
         if rank == 0:

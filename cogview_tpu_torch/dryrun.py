@@ -92,7 +92,9 @@ def _decode_pass(cfg, mesh, seed: int) -> None:
         raise AssertionError("sharded decode logits not finite")
 
 
-def _passes(rank: int, world: int, out: str, device: str) -> None:
+def passes(rank: int, world: int, out: str, device: str) -> None:
+    """Passes 1-6 on this rank of a group of ``world`` ranks on ``device``;
+    rank 0 appends one line a pass to ``out``."""
     dp, mp = _dp_mp(world)
     dev = torch.device(device)
     with use_mesh(create_mesh(model_parallel=mp, data_parallel=dp, device=dev)) as mesh:
@@ -159,7 +161,7 @@ def dryrun_multichip(n: int = 4, device: str = "cuda", timeout: float = 300.0) -
                            "(--device cpu) to run on CPU processes")
     with tempfile.TemporaryDirectory() as d:
         out = os.path.join(d, "passes.txt")
-        run_ranks(_passes, n, d, out, device, device=device, timeout=timeout)
+        run_ranks(passes, n, d, out, device, device=device, timeout=timeout)
         with open(out) as f:
             lines = f.read().splitlines()
     for line in lines:

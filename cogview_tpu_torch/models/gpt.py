@@ -58,8 +58,8 @@ from ..ops.layernorm import layer_norm
 from ..ops.ring_attention import ring_attention
 from ..ops.sparse_attention import pivot_window_attention
 from ..parallel import comm
-from ..parallel.mesh import current_mesh
-from ..parallel.pipeline import gpipe, microbatch_seed
+from ..parallel.mesh import SEQ_AXIS, current_mesh
+from ..parallel.pipeline import gpipe, microbatch_seed, shard_rows
 from ..parallel.sharding import layer_fsdp_dim
 
 Params = Dict[str, Any]
@@ -344,16 +344,17 @@ def should_use_flash(cfg: GPTConfig, seq_len: int) -> bool:
             or (cfg.use_flash_attention == "auto" and seq_len >= cfg.flash_min_seq))
 
 
-def _block(shape, heads: bool = False):
+def _block(shape, heads: bool = False, rows: Optional[Tuple[int, int]] = None):
     """(origin, full shape) of this rank's block [B, ...] of a tensor whose
     dim 0 is split over 'data' and dim 1 over 'model' (``heads``) or else
     over 'seq' (an activation [B, S, H]), for :func:`hash_dropout`; (None,
-    None) without a mesh."""
+    None) without a mesh.  ``rows`` (first row, rows) places dim 0's block
+    where the shards over 'data' differ in size (pipeline.shard_rows)."""
     mesh = current_mesh()
     if mesh is None:
         return None, None
     origin, full = [0] * len(shape), list(shape)
-    origin[0], full[0] = mesh.data_rank * shape[0], mesh.data * shape[0]
+    origin[0], full[0] = rows or (mesh.data_rank * shape[0], mesh.data * shape[0])
     if heads:
         origin[1], full[1] = mesh.model_rank * shape[1], mesh.model * shape[1]
     elif mesh.seq > 1:
@@ -362,12 +363,21 @@ def _block(shape, heads: bool = False):
 
 
 def _dropout(x: torch.Tensor, rate: float, seed: Optional[int], train: bool,
-             salt: int) -> torch.Tensor:
+             salt: int, microbatches: int = 1,
+             rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Counter-hash dropout (ops/hash_prng.py) in training, else ``x``; the
-    mask hashes the global coordinates of this rank's rows."""
+    mask hashes the global coordinates of this rank's rows (``rows`` as in
+    :func:`_block`).  With ``microbatches`` M > 1 those rows are its shards
+    of M pipeline microbatches (parallel/pipeline.py::data_rows), the block
+    at (0, first row) of the global [M, B/M, ...]."""
     if not train or rate <= 0.0 or seed is None:
         return x
-    origin, full = _block(x.shape)
+    if microbatches > 1:
+        xm = x.reshape(microbatches, x.shape[0] // microbatches, *x.shape[1:])
+        origin, full = _block(xm.shape[1:], rows=rows)
+        return hash_dropout(xm, rate, seed, salt, origin=[0] + origin,
+                            full_shape=[microbatches] + full).reshape(x.shape)
+    origin, full = _block(x.shape, rows=rows)
     return hash_dropout(x, rate, seed, salt, origin=origin, full_shape=full)
 
 
@@ -401,7 +411,8 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
                 full_prefix: bool = False, sep_for_flash: Optional[int] = None,
                 seed: Optional[int] = None, train: bool = False,
                 sparse: Optional[SparseSpec] = None,
-                mem: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mem: Optional[torch.Tensor] = None,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """One transformer layer.  Without ``cache``: pivot + window attention
     when ``sparse`` is given, else the flash kernels when ``mask`` is
     exactly causal + ``sep_for_flash`` and :func:`should_use_flash` says so,
@@ -412,6 +423,10 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
     decode kernel; S > 1 is a prefill chunk at slots [index, index + S).
     With the bfloat16 cache: the chunk's K/V columns are written at
     ``index`` and attention runs dense over the whole cache under ``mask``.
+    Under sequence parallelism ``h`` is this rank's block of the sequence:
+    the causal route attends through the ring; sparse attention and a
+    memory attend over the sequence gathered over 'seq' (``mask`` and
+    ``sparse`` then cover the whole sequence) and keep this rank's block.
 
     In training, ``seed`` is the layer's uint32 seed: salt 1 drops attention
     probabilities on the dense route (the flash kernels are seeded with
@@ -427,11 +442,10 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
     lseed = seed if train else None
     mesh = current_mesh()
     sp = 1 if mesh is None else mesh.seq
-    ring = cache is None and sparse is None and mem is None and sep_for_flash is not None
-    if sp > 1 and not (ring and S * sp > 1):
-        raise ValueError("under sequence parallelism a layer holds a block of the sequence "
-                         "and attends through the ring: the causal mask only, with no "
-                         "cache, memory or sparse attention")
+    ring = sp > 1 and sparse is None and mem is None and sep_for_flash is not None
+    if sp > 1 and cache is not None:
+        raise ValueError("under sequence parallelism a layer holds a block of the sequence: "
+                         "no KV cache")
     p = _gather_layer(p)
 
     ln1 = layer_norm(h, p["ln_in"]["g"], p["ln_in"]["b"], eps, cfg.pb_relax)
@@ -439,35 +453,41 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
     q = qkv[:, :, 0].reshape(B, S, N, D)
     k = qkv[:, :, 1]
     v = qkv[:, :, 2]
+    Sa = S  # the attended length
+    if sp > 1 and not ring:
+        # sparse attention or a memory: attend over the whole sequence,
+        # gathered over 'seq', and keep this rank's block of the output
+        q, k, v = comm.gather_seq(q), comm.gather_seq(k), comm.gather_seq(v)
+        Sa = S * sp
     if mem is not None:
         lnm = layer_norm(mem.to(cdt), p["ln_in"]["g"], p["ln_in"]["b"], eps, cfg.pb_relax)
         qkv_m = _affine(comm.copy_to_model(lnm), p["qkv"], cdt).reshape(B, mem.shape[1], 3, H)
         k = torch.cat([qkv_m[:, :, 1], k], dim=1)
         v = torch.cat([qkv_m[:, :, 2], v], dim=1)
 
-    if sp > 1:
+    if ring:
         # the sequence is split over 'seq': S is this rank's block
         ctx = ring_attention(q, k.reshape(B, S, N, D), v.reshape(B, S, N, D),
                              sep=sep_for_flash, dropout_rate=cfg.attention_dropout,
                              dropout_seed=lseed, train=train, num_heads=cfg.num_heads)
     elif cache is None and sparse is not None:
-        origin, full = _block((B, N), heads=True)
+        origin, full = _block((B, N), heads=True, rows=rows)
         ctx = pivot_window_attention(
-            q, k.reshape(B, S, N, D), v.reshape(B, S, N, D), sparse.pivot_idx,
+            q, k.reshape(B, Sa, N, D), v.reshape(B, Sa, N, D), sparse.pivot_idx,
             sparse.pivot_mask, sparse.query_window, sparse.key_window_times,
             dropout_rate=cfg.attention_dropout, dropout_seed=lseed, train=train,
             dropout_origin=origin, dropout_full=full)
-    elif cache is None and sep_for_flash is not None and should_use_flash(cfg, S):
+    elif cache is None and sep_for_flash is not None and should_use_flash(cfg, Sa):
         # strided q/k/v views of the fused projection go in as they are
         rate = cfg.attention_dropout if lseed is not None else 0.0
         fseed = (lseed ^ 0x5BD1E995) if rate > 0.0 else None
-        origin, _ = _block((B, N), heads=True)
+        origin, _ = _block((B, N), heads=True, rows=rows)
         b0, n0 = origin if origin is not None else (0, 0)
-        ctx, _ = flash_attention(q, k.reshape(B, S, N, D), v.reshape(B, S, N, D),
+        ctx, _ = flash_attention(q, k.reshape(B, Sa, N, D), v.reshape(B, Sa, N, D),
                                  sep_for_flash, dropout_rate=rate, dropout_seed=fseed,
                                  batch_offset=b0, head_offset=n0, num_heads=cfg.num_heads)
     elif cache is None:
-        origin, full = _block((B, N), heads=True)
+        origin, full = _block((B, N), heads=True, rows=rows)
         ctx = dense_attention(q, k.reshape(B, -1, N, D), v.reshape(B, -1, N, D), mask,
                               dropout_rate=cfg.attention_dropout, dropout_seed=lseed,
                               train=train, dropout_origin=origin, dropout_full=full)
@@ -514,10 +534,12 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
                 ksg, vsg = gather_kv_scales(s_l)
                 kT, vT = dequant(k8g, ksg, cdt), dequant(v8g, vsg, cdt)
                 ctx = dense_attention_kvT(q, kT, vT, mask)
-    ctx = ctx.reshape(B, S, H)
+    ctx = ctx.reshape(B, Sa, H)
+    if Sa != S:
+        ctx = ctx[:, mesh.seq_rank * S:(mesh.seq_rank + 1) * S]
 
     attn_out = _row_parallel(ctx, p["attn_out"], cdt, mp)
-    attn_out = _dropout(attn_out, cfg.output_dropout, lseed, train, salt=2)
+    attn_out = _dropout(attn_out, cfg.output_dropout, lseed, train, salt=2, rows=rows)
     if cfg.sandwich_ln:
         attn_out = layer_norm(attn_out, p["ln_attn"]["g"], p["ln_attn"]["b"], eps, cfg.pb_relax)
     h = h + attn_out
@@ -525,7 +547,7 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
     ln2 = layer_norm(h, p["ln_post"]["g"], p["ln_post"]["b"], eps, cfg.pb_relax)
     inter = F.gelu(_affine(comm.copy_to_model(ln2), p["mlp_in"], cdt), approximate="tanh")
     mlp_out = _row_parallel(inter, p["mlp_out"], cdt, mp)
-    mlp_out = _dropout(mlp_out, cfg.output_dropout, lseed, train, salt=3)
+    mlp_out = _dropout(mlp_out, cfg.output_dropout, lseed, train, salt=3, rows=rows)
     if cfg.sandwich_ln:
         mlp_out = layer_norm(mlp_out, p["ln_mlp"]["g"], p["ln_mlp"]["b"], eps, cfg.pb_relax)
     return h + mlp_out
@@ -533,7 +555,8 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
 
 def _embed(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
            position_ids: torch.Tensor, seed: Optional[int] = None,
-           train: bool = False) -> torch.Tensor:
+           train: bool = False, microbatches: int = 1,
+           rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     cdt = cfg.compute_dtype
     word = params["embed"]["word"]
     if isinstance(word, dict):
@@ -545,7 +568,8 @@ def _embed(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
         h = comm.vocab_parallel_rows(lambda t: word[t], tokens, word.shape[0]).to(cdt)
     pos = comm.fsdp_gather(params["embed"]["pos"], 1)
     h = h + pos[position_ids].to(cdt)
-    return _dropout(h, cfg.embedding_dropout, seed, train, salt=4)
+    return _dropout(h, cfg.embedding_dropout, seed, train, salt=4, microbatches=microbatches,
+                    rows=rows)
 
 
 def tied_logits(params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -611,7 +635,9 @@ def forward(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
     S), and the default position ids are those global positions.  On a mesh
     with a 'pipe' axis ``params`` hold this stage's layers, ``seeds`` all L
     + 1, and the layers run as ``cfg.pp_microbatches`` microbatches (0: one
-    per stage) through the GPipe schedule; the result is every stage's."""
+    per stage) through the GPipe schedule; the result is every stage's.
+    There ``tokens`` are the rows ``pipeline.data_rows`` gives this data
+    rank: its shard of each microbatch in turn."""
     B, S = tokens.shape
     mesh = current_mesh()
     sp, pp = (1, 1) if mesh is None else (mesh.seq, mesh.pipe)
@@ -623,7 +649,10 @@ def forward(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
         position_ids = (off + torch.arange(S, device=tokens.device)).expand(B, S)
     seeds = _check_seeds(cfg, seeds)
     mask = causal_mask(S, sep=sep, device=tokens.device)
-    h = _embed(params, cfg, tokens, position_ids, seeds[0], train)
+    M = (cfg.pp_microbatches or pp) if pp > 1 else 1
+    # where this data rank's shard lies in each pipeline microbatch
+    rows = shard_rows(B // M, tokens.device) if pp > 1 and train else None
+    h = _embed(params, cfg, tokens, position_ids, seeds[0], train, microbatches=M, rows=rows)
     layers = _layers(params)
     if pp > 1:
         # this stage's layers are [s Lp, (s + 1) Lp) of the L; each takes
@@ -639,10 +668,10 @@ def forward(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
                 seed = seeds[s0 + li + 1]
                 act = _run_layer(cfg, act, p, mask, remat, sep_for_flash=sep, train=train,
                                  seed=None if seed is None else microbatch_seed(seed, m),
-                                 sparse=sp_m)
+                                 sparse=sp_m, rows=rows)
             return act
 
-        h = gpipe(stage, h, cfg.pp_microbatches or pp,
+        h = gpipe(stage, h, M,
                   () if sparse is None else (sparse.pivot_idx, sparse.pivot_mask))
     else:
         for li, p in enumerate(layers):
@@ -683,20 +712,31 @@ def forward_with_mems(params: Params, cfg: GPTConfig, tokens: torch.Tensor,
     over LN(mem) ++ LN(h) through dense attention (``causal_mask(S, sk=M +
     S, sep)``).  Entry i of ``mems`` feeds layer i; entry 0 is the
     embedding output, and entry L, the last layer's output, is returned and
-    never read, as in the reference."""
+    never read, as in the reference.
+
+    On a mesh with a 'seq' axis ``tokens`` (and ``position_ids``) are this
+    rank's block of the sequence, as in :func:`forward`; ``mems`` are the
+    whole memory on every rank of the axis, each layer attends over the
+    gathered sequence, and the new mems are gathered likewise."""
     B, S = tokens.shape
+    mesh = current_mesh()
+    sp = 1 if mesh is None else mesh.seq
     if position_ids is None:
-        position_ids = torch.arange(S, device=tokens.device).expand(B, S)
+        off = mesh.seq_rank * S if sp > 1 else 0
+        position_ids = (off + torch.arange(S, device=tokens.device)).expand(B, S)
     seeds = _check_seeds(cfg, seeds)
     M = 0 if mems is None else mems.shape[2]
-    mask = causal_mask(S, sk=M + S, sep=sep, device=tokens.device)
+    mask = causal_mask(S * sp, sk=M + S * sp, sep=sep, device=tokens.device)
     h = _embed(params, cfg, tokens, position_ids, seeds[0], train)
     outs = [h]
     for li, p in enumerate(_layers(params)):
         h = _run_layer(cfg, h, p, mask, remat, seed=seeds[li + 1], train=train,
                        mem=None if mems is None else mems[li])
         outs.append(h)
-    new_mems = update_mems(torch.stack(outs).detach(), mems, max_memory_length)
+    hiddens = torch.stack(outs).detach()
+    if sp > 1:
+        hiddens = comm.all_gather(hiddens, SEQ_AXIS, 2)
+    new_mems = update_mems(hiddens, mems, max_memory_length)
     h = _final_ln(params, cfg, h)
     return (h if return_hidden else _logits(params, cfg, h)), new_mems
 

@@ -39,6 +39,7 @@ from ..utils.jpeg import decode_jpeg
 from ..utils.png import decode_png
 from ..utils.pnm import decode_pnm
 from ..utils.qoi import decode_qoi
+from ..utils.tiff import decode_tiff
 from ..utils.webp import decode_webp
 
 Params = Dict[str, Any]
@@ -346,13 +347,13 @@ def resize_bicubic(img: np.ndarray, width: int, height: int) -> np.ndarray:
 
 
 READ_FORMATS = ("PNG (every colour type, depth and interlace), BMP, GIF, PNM (P1-P6), QOI, "
-                "WebP (lossy, lossless, alpha, an animation's first frame) or baseline "
+                "WebP (lossy, lossless, alpha, an animation's first frame), baseline TIFF "
+                "(none, PackBits, LZW or Deflate; 8-bit, bilevel or palette) or baseline "
                 "JPEG or progressive JPEG (also CMYK and YCCK)")
 
 
 # formats Pillow reads that this package does not, by their magic bytes
 _OTHER_FORMATS = (
-    (lambda d: d[:4] in (b"II*\x00", b"MM\x00*"), "TIFF"),
     (lambda d: d[:4] in (b"\x00\x00\x01\x00", b"\x00\x00\x02\x00"), "ICO/CUR"),
     (lambda d: d[:1] == b"P" and d[1:2] in b"0fy", "PNM extension (PFM, CMYK)"),
     (lambda d: d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or d[:4] == b"\xff\x4f\xff\x51",
@@ -368,7 +369,7 @@ def decode_image(data: bytes) -> np.ndarray:
     """The bytes of an image file -> [h, w, 3] uint8, as Pillow's
     ``Image.open(...).convert("RGB")``.  The reader is chosen by the file's
     magic bytes, as ``Image.open`` chooses it, never by a file name.  A
-    format that Pillow reads and this package does not (TIFF, ICO, ...,
+    format that Pillow reads and this package does not (ICO, PSD, ...,
     known by its magic bytes; an arithmetic-coded JPEG, ...) raises
     :class:`UnsupportedImageError` naming it; bytes that are no image
     raise a plain ``ValueError``."""
@@ -386,6 +387,8 @@ def decode_image(data: bytes) -> np.ndarray:
         return decode_qoi(data)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return decode_webp(data)
+    if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
+        return decode_tiff(data)
     for test, name in _OTHER_FORMATS:
         if test(data):
             raise UnsupportedImageError(f"{name} is not an image this package reads: "

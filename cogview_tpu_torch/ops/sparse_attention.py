@@ -130,22 +130,25 @@ def sparse_attention_inference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def sample_pivots(generator: torch.Generator, tokens: torch.Tensor, num_pivot: int,
                   img_vocab: int, loss_mask: Optional[torch.Tensor] = None,
-                  batch_offset: int = 0, global_batch: Optional[int] = None) -> torch.Tensor:
+                  rows: Optional[torch.Tensor] = None,
+                  global_batch: Optional[int] = None) -> torch.Tensor:
     """Pivot sets [B, num_pivot], sorted: every text position (a token id >=
     img_vocab whose loss mask is on) and uniformly sampled image positions,
     by priority top-k (text 2, image a uniform draw from ``generator``).
     Needs #text <= num_pivot <= S.  The JAX package draws its uniforms with
     ``jax.random``, so one seed gives other pivots in the two packages.
-    A shard of the batch (``tokens`` are rows [batch_offset, batch_offset +
-    B) of ``global_batch``) draws the global batch's uniforms from the
-    replicated generator and keeps its rows, so its pivots are the
-    unsharded pivots of those rows."""
+    A shard of the batch (``tokens`` are the rows ``rows`` of
+    ``global_batch``) draws the global batch's uniforms from the replicated
+    generator and keeps its rows, so its pivots are the unsharded pivots of
+    those rows."""
     B, S = tokens.shape
     is_txt = tokens >= img_vocab
     if loss_mask is not None:
         is_txt = is_txt & (loss_mask > 0)
     u = torch.rand((global_batch or B, S), generator=generator, device=generator.device)
-    u = u[batch_offset:batch_offset + B].to(tokens.device)
+    if rows is not None:
+        u = u[rows.to(u.device)]
+    u = u.to(tokens.device)
     priority = torch.where(is_txt, 2.0, u)
     idx = torch.topk(priority, num_pivot, dim=-1).indices
     return torch.sort(idx, dim=-1).values

@@ -15,7 +15,9 @@ wrote Megatron's (mpu/mappings.py):
 * :func:`vocab_parallel_rows` and :func:`vocab_parallel_logits`: the
   embedding lookup and the tied logits of a vocab table split over 'model';
 * :func:`fsdp_gather`: FSDP's all-gather of a weight over 'data', whose
-  backward reduce-scatters the gradient;
+  backward reduce-scatters the gradient, and :func:`gather_seq`, the same
+  over 'seq' for the sequence blocks of a layer that attends over the
+  whole sequence;
 * :func:`ppermute`: ``lax.ppermute``'s one-hop shift along an axis, whose
   backward shifts back (ring attention's K/V rotation, the pipeline's
   activation hop);
@@ -33,12 +35,13 @@ raises.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+import os
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from .mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, Axes, Mesh, current_mesh
+from .mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, Axes, Mesh, current_mesh
 
 
 def backend_for(device, ranks_on_host: int) -> str:
@@ -66,6 +69,34 @@ def init_process_group(rank: int, world_size: int, device, *, ranks_on_host: Opt
         kw["device_id"] = torch.device(device)
     dist.init_process_group(**kw)
     return backend
+
+
+def torchrun_env() -> Tuple[int, int, int, int]:
+    """(world size, rank, local rank, ranks on this host) from torchrun's
+    ``env://`` variables; (1, 0, 0, 1) outside torchrun."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    rank = int(os.environ.get("RANK", "0"))
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    return world, rank, local_rank, int(os.environ.get("LOCAL_WORLD_SIZE", world))
+
+
+def join_torchrun(device) -> Tuple[torch.device, bool]:
+    """Join torchrun's group as this process's rank -> (this rank's
+    device, whether this call joined).  On CUDA each rank takes the card
+    LOCAL_RANK (mod the card count); :func:`init_process_group` picks NCCL
+    where every rank of the host has its own card, gloo otherwise.  A
+    process that has joined a group already keeps it.  The CLIs check
+    their layout before they call it."""
+    world, rank, local_rank, local_world = torchrun_env()
+    device = torch.device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", local_rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    joined = not dist.is_initialized()
+    if joined:
+        init_process_group(rank, world, device, ranks_on_host=local_world,
+                           init_method="env://")
+    return device, joined
 
 
 def _axis(axis: Axes, mesh: Optional[Mesh] = None):
@@ -210,15 +241,15 @@ class _GatherFromModel(torch.autograd.Function):
         return g.narrow(ctx.dim, r * ctx.size, ctx.size), None
 
 
-class _FsdpGather(torch.autograd.Function):
+class _GatherScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w, dim):
-        ctx.dim, ctx.mesh = dim, current_mesh()
-        return all_gather(w, DATA_AXIS, dim)
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, current_mesh()
+        return all_gather(x, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter(g, DATA_AXIS, ctx.dim, mesh=ctx.mesh), None
+        return reduce_scatter(g, ctx.axis, ctx.dim, mesh=ctx.mesh), None, None
 
 
 class _PPermute(torch.autograd.Function):
@@ -310,7 +341,18 @@ def fsdp_gather(w: torch.Tensor, dim: int) -> torch.Tensor:
     mesh = current_mesh()
     if mesh is None or not mesh.fsdp or mesh.data == 1:
         return w
-    return _FsdpGather.apply(w, dim % w.dim())
+    return _GatherScatter.apply(w, DATA_AXIS, dim % w.dim())
+
+
+def gather_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The blocks of the sequence over 'seq' gathered along ``dim``; the
+    backward reduce-scatters (sums) the gradient back to this rank's
+    block.  A layer that cannot attend through the ring (a memory, sparse
+    attention) attends over the gathered sequence instead."""
+    mesh = current_mesh()
+    if mesh is None or mesh.seq == 1:
+        return x
+    return _GatherScatter.apply(x, SEQ_AXIS, dim % x.dim())
 
 
 def vocab_parallel_rows(lookup: Callable[[torch.Tensor], torch.Tensor], tokens: torch.Tensor,

@@ -18,16 +18,23 @@ does branch on the stage: a stage skips the warm-up and drain ticks that
 the JAX scan computes on values it never reads (the bubble).  The warm-up
 buffer is microbatch 0's real activations, not zeros: zeros turn to NaN
 through the PB-relax LayerNorm, whose eps scales by max|x|^2.
+
+Under data parallelism a rank's rows are its shard of every microbatch
+(:func:`data_rows`): the JAX pipeline cuts the *global* batch into M
+microbatches, and GSPMD then splits each one over 'data'.  So the rank's
+rows chunk into its shards of microbatches 0..M-1, and every dropout mask
+hashes the coordinates that the JAX package hashes (:func:`shard_rows`
+says where the shard lies when the microbatch does not split evenly).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from . import comm
-from .mesh import PIPE_AXIS, current_mesh
+from .mesh import DATA_AXIS, PIPE_AXIS, Mesh, current_mesh
 
 _M32 = 0xFFFFFFFF
 
@@ -39,6 +46,43 @@ def microbatch_seed(seed: int, m: int) -> int:
     1)``, so the seed becomes (d[-1] ^ m) ^ ((d[0] ^ m) << 1) = seed ^ m ^
     (m << 1), in 32 bits."""
     return (seed ^ m ^ ((m << 1) & _M32)) & _M32
+
+
+def data_rows(batch_size: int, microbatches: int = 0,
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The rows of a global batch of ``batch_size`` that this data rank
+    trains, in its order.  Without a 'pipe' axis the contiguous block
+    [d B/dp, (d + 1) B/dp).  With one, and ``microbatches`` M (0: one per
+    stage), the JAX pipeline's rows: rank d holds rows m n + [d n / dp,
+    (d + 1) n / dp) (rounded down) of each microbatch m of n = B/M rows in
+    turn, so that its rows chunk into its shards of the M microbatches.
+    Where dp divides n these are GSPMD's shards; where it does not, GSPMD
+    pads its last shards and the ranks here hold shards one row apart in
+    size: the rows' global coordinates, which the dropout masks hash, are
+    the same.  Every rank holds at least one row of each microbatch."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        return torch.arange(batch_size)
+    M = (microbatches or mesh.pipe) if mesh.pipe > 1 else 1
+    n, dp, d = batch_size // M, mesh.data, mesh.data_rank
+    if n * M != batch_size or n < dp or (M == 1 and n % dp):
+        raise ValueError(f"{batch_size} rows do not split into {M} microbatches x "
+                         f"{dp} data ranks")
+    lo, hi = d * n // dp, (d + 1) * n // dp
+    return (torch.arange(M)[:, None] * n + torch.arange(lo, hi)).reshape(-1)
+
+
+def shard_rows(rows: int, device=None) -> Tuple[int, int]:
+    """(first row, rows) in a pipeline microbatch of this data rank's shard
+    of ``rows`` rows: the ranks' shards lie in rank order (:func:`data_rows`)
+    and may differ in size, so it takes one all-reduce over 'data'."""
+    mesh = current_mesh()
+    if mesh is None or mesh.data == 1:
+        return 0, rows
+    counts = torch.zeros(mesh.data, dtype=torch.int64, device=device)
+    counts[mesh.data_rank] = rows
+    counts = comm.all_reduce(counts, DATA_AXIS).tolist()
+    return sum(counts[:mesh.data_rank]), sum(counts)
 
 
 def gpipe(stage_fn: Callable[..., torch.Tensor], h: torch.Tensor, n_microbatches: int,

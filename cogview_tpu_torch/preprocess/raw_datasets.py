@@ -13,13 +13,14 @@ The JAX package drops every image Pillow cannot open.  Here bytes of a
 format the port reads that fail to decode, and bytes that are no image,
 are skipped too, and counted in the source's ``skipped`` (a warning names
 the count at the end); an image whose format the port does not read
-(TIFF, ICO, arithmetic-coded JPEG, ...: ``UnsupportedImageError``) stops
-the run with an error naming the file, since the JAX package would have
-read it.
+(ICO, JPEG-compressed TIFF, arithmetic-coded JPEG, ...:
+``UnsupportedImageError``) stops the run with an error naming the file,
+since the JAX package would have read it.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import struct
@@ -27,7 +28,7 @@ import sys
 import tarfile
 import zipfile
 import zlib
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -55,19 +56,31 @@ class _Source:
         raise NotImplementedError
 
     def __iter__(self) -> Iterator[Tuple[str, np.ndarray]]:
+        for name, load in self.candidates():
+            arr = load()
+            if arr is not None:
+                yield name, arr
+
+    def candidates(self) -> Iterator[Tuple[str, Callable[[], Optional[np.ndarray]]]]:
+        """(name, load) for every entry in order, decoding nothing until
+        ``load()``: the model input, or None for bytes that fail to decode
+        (counted in ``skipped``)."""
         self.skipped = 0
         for name, data in self._entries():
-            try:
-                img = decode_image(data)
-            except UnsupportedImageError as e:
-                raise UnsupportedImageError(f"{name}: {e}") from None
-            except DECODE_ERRORS:
-                self.skipped += 1
-                continue
-            yield name, to_model_input(img, self.img_size)
+            yield name, functools.partial(self._load, name, data)
         if self.skipped:
             print(f"[warn] {self.path}: skipped {self.skipped} undecodable images",
                   file=sys.stderr)
+
+    def _load(self, name: str, data: bytes) -> Optional[np.ndarray]:
+        try:
+            img = decode_image(data)
+        except UnsupportedImageError as e:
+            raise UnsupportedImageError(f"{name}: {e}") from None
+        except DECODE_ERRORS:
+            self.skipped += 1
+            return None
+        return to_model_input(img, self.img_size)
 
 
 class ImageFolderDataset(_Source):
@@ -134,6 +147,12 @@ class H5Dataset:
         self.img_size = img_size
 
     def __iter__(self):
+        for name, load in self.candidates():
+            yield name, load()
+
+    def candidates(self):
+        """(name, load) for every image in order, as ``_Source.candidates``:
+        the array is read here, and ``load()`` converts it (never None)."""
         try:
             import h5py
         except ImportError as e:
@@ -145,11 +164,14 @@ class H5Dataset:
             names = f.get("names")
             for i in range(len(data)):
                 name = names[i].decode() if names is not None else f"{i}"
-                try:
-                    img = image_from_array(np.asarray(data[i]))
-                except UnsupportedImageError as e:
-                    raise UnsupportedImageError(f"{self.path}[{i}]: {e}") from None
-                yield name, to_model_input(img, self.img_size)
+                yield name, functools.partial(self._load, np.asarray(data[i]), i)
+
+    def _load(self, arr: np.ndarray, i: int) -> np.ndarray:
+        try:
+            img = image_from_array(arr)
+        except UnsupportedImageError as e:
+            raise UnsupportedImageError(f"{self.path}[{i}]: {e}") from None
+        return to_model_input(img, self.img_size)
 
 
 def open_image_source(path: str, img_size: int = 256):

@@ -15,7 +15,7 @@ returns its rows' masked sum over the global mask's sum (all-reduced), so
 the data all-reduce of the gradients is the gradient of the global mean,
 and the metrics are the global means.  Under sequence parallelism a rank
 takes its block of the shifted inputs and targets, and the sums run over
-data x seq.
+data x seq; sparse pivots are drawn over whole rows.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from ..models import gpt
 from ..ops.sparse_attention import build_rmask, gather_pivot_mask, sample_pivots
 from ..parallel import comm
 from ..parallel.mesh import DATA_AXIS, SEQ_AXIS, current_mesh
+from ..parallel.pipeline import data_rows
 
 
 def cross_entropy_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -174,8 +175,6 @@ def lm_loss(params, cfg: GPTConfig, batch: Dict[str, torch.Tensor], *,
     is then this rank's share of the loss, the metrics the global ones."""
     tokens, labels, lmask, img_ind, txt_ind = _split_batch(batch, img_vocab, txt_loss_scale)
     position_ids = _positions(cfg, tokens, position_ids, dual_positions_roi2)
-    position_ids, tokens, labels, lmask, img_ind, txt_ind = _seq_block(
-        position_ids, tokens, labels, lmask, img_ind, txt_ind)
     sparse = None
     if is_sparse:
         S = tokens.shape[1]
@@ -186,14 +185,17 @@ def lm_loss(params, cfg: GPTConfig, batch: Dict[str, torch.Tensor], *,
             if generator is None:
                 raise ValueError("is_sparse needs a generator to draw the pivots, or pivot_idx")
             mesh = current_mesh()
-            B = tokens.shape[0]
+            B = tokens.shape[0] * (1 if mesh is None else mesh.data)
             pivot_idx = sample_pivots(
                 generator, tokens, cfg.num_pivot, img_vocab, loss_mask=lmask,
-                batch_offset=0 if mesh is None else mesh.data_rank * B,
-                global_batch=None if mesh is None else mesh.data * B)
+                rows=data_rows(B, cfg.pp_microbatches), global_batch=B)
         rmask = torch.from_numpy(build_rmask(S, cfg.query_window, cfg.key_window_times))
         pivot_mask = gather_pivot_mask(rmask.to(tokens.device), pivot_idx)
         sparse = gpt.SparseSpec(pivot_idx, pivot_mask, cfg.query_window, cfg.key_window_times)
+    # the pivots cover whole rows; under sequence parallelism the layers
+    # attend over the gathered sequence
+    position_ids, tokens, labels, lmask, img_ind, txt_ind = _seq_block(
+        position_ids, tokens, labels, lmask, img_ind, txt_ind)
     h = gpt.forward(params, cfg, tokens, position_ids=position_ids, train=train,
                     seeds=seeds, remat=remat, sparse=sparse, return_hidden=True)
     ce = cross_entropy_hidden(params, h, labels, chunk_target=cfg.ce_chunk_target)
@@ -209,9 +211,13 @@ def lm_loss_with_mems(params, cfg: GPTConfig, batch: Dict[str, torch.Tensor],
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
     """:func:`lm_loss` over ``gpt.forward_with_mems``: ``batch`` continues
     the segment that left ``mems`` [L + 1, B, M, H] (None at the start) ->
-    (loss, metrics, the new detached mems)."""
+    (loss, metrics, the new detached mems).  Under sequence parallelism a
+    rank takes its block of the positions, as in :func:`lm_loss`, and the
+    mems are whole on every rank."""
     tokens, labels, lmask, img_ind, txt_ind = _split_batch(batch, img_vocab, txt_loss_scale)
     position_ids = _positions(cfg, tokens, position_ids, dual_positions_roi2)
+    position_ids, tokens, labels, lmask, img_ind, txt_ind = _seq_block(
+        position_ids, tokens, labels, lmask, img_ind, txt_ind)
     h, new_mems = gpt.forward_with_mems(
         params, cfg, tokens, mems, max_memory_length=max_memory_length,
         position_ids=position_ids, train=train, seeds=seeds, remat=remat,

@@ -603,8 +603,15 @@ def _four_to_rgb(planes, adobe) -> np.ndarray:
         inv = ycc_to_rgb(*planes[:3]).astype(np.int64)
     else:
         inv = 255 - np.stack([c, m, y], axis=-1)
-    nk = k[..., None]  # 255 - (255 - k)
-    return np.clip(nk - _muldiv255(inv, nk), 0, 255).astype(np.uint8)
+    return cmyk_to_rgb(inv, 255 - k)
+
+
+def cmyk_to_rgb(cmy: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """Pillow's ``cmyk2rgb``: C, M, Y [..., 3] and K [...] (integers in
+    0..255) -> [..., 3] uint8, each channel ``nk - nk * c / 255`` with
+    ``nk = 255 - k``."""
+    nk = 255 - np.asarray(k, np.int64)[..., None]
+    return np.clip(nk - _muldiv255(np.asarray(cmy, np.int64), nk), 0, 255).astype(np.uint8)
 
 
 def _scan_mcus(comps, scan, w: int, h: int) -> int:

@@ -2,8 +2,10 @@
 
 ``cogview_tpu_torch/utils/png.py`` reads every PNG colour type, depth and
 interlace, ``cogview_tpu_torch/utils/jpeg.py`` baseline and progressive
-JPEG (also CMYK and YCCK), ``utils/bmp.py`` BMP and ``utils/gif.py`` GIF's
-first frame, and
+JPEG (also CMYK and YCCK), ``utils/bmp.py`` BMP, ``utils/gif.py`` GIF's
+first frame, ``utils/tiff.py`` baseline TIFF (Pillow's own files, and
+hand-built big-endian, tiled, planar, predictor-2, old-style LZW and
+palette files from a small writer here), and
 ``models/vqvae.py::read_img`` picks between them by the file's magic bytes.
 Each case holds the port's pixels against Pillow 12.1's
 ``Image.open(p).convert("RGB")`` and its ``read_img`` against the JAX
@@ -17,7 +19,7 @@ sampling factors, several scans, RGB and SOF1 files come from a small
 baseline encoder here (a float DCT, flat Huffman tables).
 
 Run as a script, it prints this machine's host-CPU time to decode a
-256 x 256 and a 1024 x 768 baseline and progressive JPEG:
+256 x 256 and a 1024 x 768 baseline and progressive JPEG, WebP and TIFF:
 ``PYTHONPATH=. python tests/test_torch_image_io.py`` from the repository root.
 """
 
@@ -547,19 +549,18 @@ def test_adobe_transform_2_and_oversized_mcus_raise():
 
 @pytest.mark.parametrize("fmt", ["GIF", "BMP", "TIFF", "text"])
 def test_other_files_raise_an_error_naming_what_is_read(tmp_path, fmt):
-    """GIF and BMP now read, by their magic bytes, as the JAX package reads
-    them; TIFF raises an ``UnsupportedImageError`` and other bytes a
-    ``ValueError``, each naming what is read."""
+    """GIF, BMP and TIFF now read, by their magic bytes, as the JAX
+    package reads them; other bytes raise a ``ValueError`` naming what is
+    read."""
     path = tmp_path / "img.png"  # the name is not what decides
     if fmt == "text":
         path.write_bytes(b"not an image\n")
     else:
         Image.fromarray(_picture(9, 7, 2)).save(str(path), fmt)
-    if fmt in ("GIF", "BMP"):
+    if fmt in ("GIF", "BMP", "TIFF"):
         np.testing.assert_array_equal(vqvae.read_img(str(path)), jvq.read_img(str(path)))
         return
-    error = UnsupportedImageError if fmt == "TIFF" else ValueError
-    with pytest.raises(error, match="PNG .* or baseline JPEG"):
+    with pytest.raises(ValueError, match="PNG .* or baseline JPEG"):
         vqvae.read_img(str(path))
 
 
@@ -924,9 +925,9 @@ def test_gif_short_palette_truncation_and_pillow_files(tmp_path):
 @pytest.mark.parametrize("fmt", ["WEBP", "TIFF", "ICO", "PPM", "JPEG2000", "PSD", "QOI"])
 def test_formats_pillow_reads_raise_a_named_error(fmt):
     """Files Pillow reads and the port does not: an ``UnsupportedImageError``
-    naming the format (Pillow writes them here where it can).  PNM, QOI and
-    WebP are read now: Pillow's own files decode byte-equal to it."""
-    if fmt in ("PPM", "QOI", "WEBP"):
+    naming the format (Pillow writes them here where it can).  PNM, QOI,
+    WebP and TIFF are read now: Pillow's own files decode byte-equal to it."""
+    if fmt in ("PPM", "QOI", "WEBP", "TIFF"):
         _check_pillow(vqvae.decode_image, _encoded_by_pillow(fmt))
         return
     names = {"WEBP": "WebP", "ICO": "ICO", "JPEG2000": "JPEG 2000", "TIFF": "TIFF",
@@ -1505,19 +1506,375 @@ def test_webp_reads_through_read_img(tmp_path):
         _check_read_img(tmp_path, data, "img.png")
 
 
+# --------------------------------------------------------------------- #
+# TIFF: byte-equal to Pillow's convert("RGB")
+# --------------------------------------------------------------------- #
+
+
+TIFF_MODES = ("1", "L", "P", "RGB", "RGBA", "CMYK")
+TIFF_COMPRESSIONS = ("raw", "packbits", "tiff_lzw", "tiff_deflate", "tiff_adobe_deflate")
+
+
+def _pillow_tiff(mode: str, h: int, w: int, seed: int, **kw) -> bytes:
+    """A TIFF that Pillow writes of a picture in ``mode``."""
+    pic = _picture(h, w, seed)
+    if mode == "CMYK":
+        im = Image.frombytes("CMYK", (w, h), np.dstack([pic, pic[..., :1] // 3]).tobytes())
+    elif mode == "RGBA":
+        im = Image.fromarray(np.dstack([pic, pic[..., 1:2] ^ 0x5A]), "RGBA")
+    elif mode == "P":
+        im = Image.fromarray(pic).convert("P", palette=Image.Palette.ADAPTIVE, colors=100)
+    else:
+        im = Image.fromarray(pic).convert(mode)
+    buf = io.BytesIO()
+    im.save(buf, "TIFF", **kw)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("compression", TIFF_COMPRESSIONS)
+@pytest.mark.parametrize("mode", TIFF_MODES)
+def test_tiff_as_pillow_writes_it(tmp_path, mode, compression):
+    """Every mode Pillow writes, in every compression it writes, at odd
+    sizes; and ``read_img`` as the JAX package's."""
+    for i, (h, w) in enumerate(((1, 1), (9, 7), (37, 53))):
+        data = _pillow_tiff(mode, h, w, i, compression=compression)
+        got = vqvae.decode_image(data)
+        np.testing.assert_array_equal(got, _pillow(data))
+    _check_read_img(tmp_path, data, "img.tif")
+
+
+def _lzw_tiff(data: bytes, old: bool = False, clear_every: int = 0) -> bytes:
+    """LZW as libtiff writes it: a clear code first, codes MSB first whose
+    width grows when the next free code passes the width (one code before
+    the decoder needs it), a clear at 4094 codes, EOI last; ``old``, the
+    old-style (compat) stream: LSB first, one code later."""
+    out, acc, nacc = bytearray(), 0, 0
+    nbits = 9
+    grow = 513 if old else 512  # table size at which the encoder widens
+
+    def put(code):
+        nonlocal acc, nacc
+        if old:
+            acc |= code << nacc
+            nacc += nbits
+            while nacc >= 8:
+                out.append(acc & 0xFF)
+                acc >>= 8
+                nacc -= 8
+        else:
+            acc = (acc << nbits) | code
+            nacc += nbits
+            while nacc >= 8:
+                out.append((acc >> (nacc - 8)) & 0xFF)
+                nacc -= 8
+            acc &= (1 << nacc) - 1
+
+    def reset():
+        nonlocal nbits
+        put(256)
+        nbits = 9
+        return {bytes([i]): i for i in range(256)}
+
+    table = reset()
+    w, emitted = b"", 0
+    for c in data:
+        wc = w + bytes([c])
+        if w == b"" or wc in table:
+            w = wc
+            continue
+        put(table[w])
+        emitted += 1
+        table[wc] = len(table) + 2
+        w = bytes([c])
+        if len(table) + 2 >= 4094 or (clear_every and emitted % clear_every == 0):
+            table = reset()
+        elif len(table) + 2 >= (1 << nbits) + grow - 512 and nbits < 12:
+            nbits += 1
+    if w:
+        put(table[w])
+        if len(table) + 3 >= (1 << nbits) + grow - 512 and nbits < 12:
+            nbits += 1
+    put(257)
+    if nacc:  # the last bits, zero-padded to a byte
+        out.append(acc & 0xFF if old else (acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def _packbits_tiff(data: bytes) -> bytes:
+    out, i = bytearray(), 0
+    while i < len(data):
+        run = 1
+        while i + run < len(data) and run < 128 and data[i + run] == data[i]:
+            run += 1
+        if run > 1:
+            out += bytes([257 - run, data[i]])
+            i += run
+            continue
+        j = i
+        while j < len(data) and j - i < 128 and (j + 1 >= len(data) or data[j + 1] != data[j]):
+            j += 1
+        j = max(j, i + 1)
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _tiff_rows(blk: np.ndarray, bits: int) -> bytes:
+    """Samples [rows, w, n] -> their rows, MSB first below 8 bits, each
+    row padded to a byte."""
+    rows, w, n = blk.shape
+    flat = blk.reshape(rows, w * n).astype(np.uint8)
+    if bits == 8:
+        return flat.tobytes()
+    per = 8 // bits
+    pad = (-flat.shape[1]) % per
+    flat = np.pad(flat, ((0, 0), (0, pad))).reshape(rows, -1, per).astype(np.uint16)
+    shifts = np.arange(8 - bits, -1, -bits)
+    return (flat << shifts).sum(-1).astype(np.uint8).tobytes()
+
+
+def _tiff(samples: np.ndarray, *, photo: int, bits: int = 8, extra=(), comp: int = 1,
+          predictor: int = 1, planar: int = 1, bo: str = "<", tile=None, rps=None,
+          colormap=None, orientation=None, old_lzw: bool = False, lzw_clear: int = 0,
+          tags=None) -> bytes:
+    """A TIFF of ``samples`` [h, w, spp] (indices below 8 bits), strips of
+    ``rps`` rows or ``tile`` (w, h) tiles, in one IFD after the data;
+    ``tags`` {tag: (type, values)} add or replace fields."""
+    h, w, spp = samples.shape
+    planes = [samples[..., i:i + 1] for i in range(spp)] if planar == 2 else [samples]
+    tw, th = tile if tile else (w, rps or h)
+    across, down = -(-w // tw), -(-h // th)
+    segs = []
+    for p in planes:
+        for r in range(down):
+            for c in range(across):
+                blk = p[r * th:(r + 1) * th, c * tw:(c + 1) * tw]
+                if tile:
+                    blk = np.pad(blk, ((0, th - blk.shape[0]), (0, tw - blk.shape[1]), (0, 0)))
+                if predictor == 2:  # each sample less its left neighbour's
+                    orig, blk = blk, blk.copy()
+                    blk[:, 1:] = orig[:, 1:] - orig[:, :-1]
+                raw = _tiff_rows(blk, bits)
+                segs.append({1: lambda b: b, 32773: _packbits_tiff,
+                             5: lambda b: _lzw_tiff(b, old_lzw, lzw_clear), 8: zlib.compress,
+                             32946: zlib.compress}.get(comp, lambda b: b)(raw))
+    head = (b"II*\x00" if bo == "<" else b"MM\x00*")
+    offsets, pos = [], 8
+    for s in segs:
+        offsets.append(pos)
+        pos += len(s)
+    ifd_at = pos + (pos & 1)
+    fields = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [comp]),
+              262: (3, [photo]), 277: (3, [spp]), 284: (3, [planar])}
+    if tile:
+        fields.update({322: (3, [tw]), 323: (3, [th]), 324: (4, offsets),
+                       325: (4, [len(s) for s in segs])})
+    else:
+        fields.update({273: (4, offsets), 278: (4, [th]), 279: (4, [len(s) for s in segs])})
+    if predictor != 1:
+        fields[317] = (3, [predictor])
+    if extra:
+        fields[338] = (3, list(extra))
+    if colormap is not None:
+        fields[320] = (3, list(colormap))
+    if orientation is not None:
+        fields[274] = (3, [orientation])
+    fields.update(tags or {})
+    n = len(fields)
+    tail_at = ifd_at + 2 + 12 * n + 4
+    ifd, tail = bytearray(struct.pack(bo + "H", n)), bytearray()
+    for tag in sorted(fields):
+        typ, vals = fields[tag]
+        payload = struct.pack(bo + {3: "H", 4: "I"}[typ] * len(vals), *vals)
+        if len(payload) <= 4:
+            val = payload.ljust(4, b"\x00")
+        else:
+            val = struct.pack(bo + "I", tail_at + len(tail))
+            tail += payload + b"\x00" * (len(payload) & 1)
+        ifd += struct.pack(bo + "HHI", tag, typ, len(vals)) + val
+    ifd += b"\x00\x00\x00\x00"
+    return (head + struct.pack(bo + "I", ifd_at) + b"".join(segs)
+            + b"\x00" * (ifd_at - pos) + bytes(ifd) + bytes(tail))
+
+
+def _tiff_case(name: str, rng) -> bytes:
+    h, w = 23, 37
+    rgb = _picture(h, w, 3)
+    rgba = np.dstack([rgb, rng.randint(0, 256, (h, w, 1)).astype(np.uint8)])
+    rgba[0, :5, 3] = (0, 255, 1, 128, 254)
+    cmyk = np.dstack([rgb, rgb[..., :1] // 2])
+    gray = rgb[..., :1]
+    cases = {
+        "big-endian-lzw": lambda: _tiff(rgb, photo=2, comp=5, bo=">"),
+        "big-endian-raw-strips": lambda: _tiff(rgb, photo=2, bo=">", rps=4),
+        "strips-raw": lambda: _tiff(rgb, photo=2, rps=5),
+        "strips-packbits": lambda: _tiff(rgb, photo=2, comp=32773, rps=5),
+        "strips-lzw": lambda: _tiff(rgb, photo=2, comp=5, rps=5),
+        "strips-deflate": lambda: _tiff(cmyk, photo=5, comp=8, rps=7),
+        "one-row-strips-adobe-deflate": lambda: _tiff(gray, photo=1, comp=32946, rps=1),
+        "tiles-raw": lambda: _tiff(rgb, photo=2, tile=(16, 16)),
+        "tiles-packbits": lambda: _tiff(rgb, photo=2, comp=32773, tile=(16, 16)),
+        "tiles-lzw-big-endian": lambda: _tiff(rgba, photo=2, extra=(2,), comp=5,
+                                              tile=(16, 32), bo=">"),
+        "tiles-deflate-planar": lambda: _tiff(rgb, photo=2, comp=8, tile=(32, 16), planar=2),
+        "planar-raw": lambda: _tiff(rgb, photo=2, planar=2, rps=6),
+        "planar-packbits-cmyk": lambda: _tiff(cmyk, photo=5, comp=32773, planar=2),
+        "planar-lzw-rgba": lambda: _tiff(rgba, photo=2, extra=(2,), comp=5, planar=2, rps=8),
+        "planar-lzw-associated": lambda: _tiff(rgba, photo=2, extra=(1,), comp=5, planar=2),
+        "predictor-lzw": lambda: _tiff(rgb, photo=2, comp=5, predictor=2, rps=6),
+        "predictor-deflate-gray": lambda: _tiff(gray, photo=1, comp=8, predictor=2),
+        "predictor-lzw-planar-tiles": lambda: _tiff(cmyk, photo=5, comp=5, predictor=2,
+                                                    planar=2, tile=(16, 16)),
+        "predictor-on-raw-is-ignored": lambda: _tiff(rgb, photo=2, predictor=2),
+        "predictor-on-packbits-is-ignored": lambda: _tiff(rgb, photo=2, comp=32773,
+                                                          predictor=2),
+        "old-style-lzw": lambda: _tiff(rgb, photo=2, comp=5, old_lzw=True, rps=9),
+        "lzw-clear-codes": lambda: _tiff(rgba, photo=2, extra=(0,), comp=5, lzw_clear=300),
+        "associated-alpha": lambda: _tiff(rgba, photo=2, extra=(1,)),
+        "associated-alpha-lzw": lambda: _tiff(rgba, photo=2, extra=(1,), comp=5),
+        "unassociated-alpha": lambda: _tiff(rgba, photo=2, extra=(2,), comp=8),
+        "alpha-without-extra-samples": lambda: _tiff(rgba, photo=2),
+        "rgb-and-two-ignored-samples": lambda: _tiff(
+            np.dstack([rgba, rgb[..., :1]]), photo=2, extra=(0, 0), comp=5),
+        "gray-white-is-zero": lambda: _tiff(gray, photo=0, comp=32773),
+        "gray-and-alpha": lambda: _tiff(rgba[..., 2:], photo=1, extra=(2,), comp=5),
+        "gray-signed-8-bit": lambda: _tiff(gray, photo=1, tags={339: (3, [2])}),
+    }
+    for bits in (1, 2, 4, 8):
+        idx = rng.randint(0, 1 << bits, (h, w, 1)).astype(np.uint8)
+        cmap = rng.randint(0, 65536, 3 << bits)
+        cases[f"palette-{bits}-bit"] = (lambda idx=idx, cmap=cmap, bits=bits: _tiff(
+            idx, photo=3, bits=bits, colormap=cmap, comp=5, rps=7))
+        cases[f"palette-{bits}-bit-raw-tiles"] = (lambda idx=idx, cmap=cmap, bits=bits: _tiff(
+            idx, photo=3, bits=bits, colormap=cmap, tile=(16, 16)))
+    bw = rng.randint(0, 2, (h, w, 1)).astype(np.uint8)
+    for photo in (0, 1):
+        cases[f"bilevel-{photo}"] = lambda photo=photo: _tiff(bw, photo=photo, bits=1, rps=6)
+        cases[f"bilevel-{photo}-packbits"] = lambda photo=photo: _tiff(bw, photo=photo, bits=1,
+                                                                        comp=32773)
+    for o in range(1, 9):
+        cases[f"orientation-{o}"] = lambda o=o: _tiff(rgb, photo=2, comp=5, orientation=o)
+    return cases[name]()
+
+
+TIFF_CASES = ["big-endian-lzw", "big-endian-raw-strips", "strips-raw", "strips-packbits",
+              "strips-lzw", "strips-deflate", "one-row-strips-adobe-deflate", "tiles-raw",
+              "tiles-packbits", "tiles-lzw-big-endian", "tiles-deflate-planar", "planar-raw",
+              "planar-packbits-cmyk", "planar-lzw-rgba", "planar-lzw-associated",
+              "predictor-lzw", "predictor-deflate-gray", "predictor-lzw-planar-tiles",
+              "predictor-on-raw-is-ignored", "predictor-on-packbits-is-ignored",
+              "old-style-lzw", "lzw-clear-codes", "associated-alpha", "associated-alpha-lzw",
+              "unassociated-alpha", "alpha-without-extra-samples",
+              "rgb-and-two-ignored-samples", "gray-white-is-zero", "gray-and-alpha",
+              "gray-signed-8-bit"]
+TIFF_CASES += [f"palette-{b}-bit{t}" for b in (1, 2, 4, 8) for t in ("", "-raw-tiles")]
+TIFF_CASES += [f"bilevel-{p}{c}" for p in (0, 1) for c in ("", "-packbits")]
+TIFF_CASES += [f"orientation-{o}" for o in range(1, 9)]
+
+
+@pytest.mark.parametrize("name", TIFF_CASES)
+def test_tiff_hand_built_layouts(name):
+    """Files Pillow does not write: big-endian, tiles, planar
+    configuration 2, predictor 2, several strips, old-style LZW, associated
+    alpha, palettes below 8 bits, bilevel and the Orientation tag."""
+    data = _tiff_case(name, np.random.RandomState(len(name)))
+    want = _pillow(data)
+    got = vqvae.decode_image(data)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_tiff_lzw_streams_round_trip():
+    """The test's LZW writer and the reader agree on long streams (the
+    width growing to 12 bits, clear codes), new and old style, and Pillow
+    reads both."""
+    from cogview_tpu_torch.utils import tiff
+
+    data = np.random.RandomState(0).randint(0, 6, 20000).astype(np.uint8).tobytes()
+    for old in (False, True):
+        for every in (0, 700):
+            assert tiff._lzw(_lzw_tiff(data, old, every), len(data)) == data
+    img = np.random.RandomState(1).randint(0, 4, (100, 80, 3)).astype(np.uint8) * 60
+    for old in (False, True):
+        tif = _tiff(img, photo=2, comp=5, old_lzw=old)
+        np.testing.assert_array_equal(vqvae.decode_image(tif), _pillow(tif))
+        np.testing.assert_array_equal(vqvae.decode_image(tif), img)
+
+
+REFUSED_TIFF = {
+    # name: fields that replace the file's, the feature the error names
+    "bigtiff": (None, "BigTIFF"),
+    "ccitt-rle": ({259: (3, [2])}, "CCITT RLE"),
+    "ccitt-g3": ({259: (3, [3])}, "CCITT Group 3"),
+    "ccitt-g4": ({259: (3, [4])}, "CCITT Group 4"),
+    "old-jpeg": ({259: (3, [6])}, "old-style JPEG"),
+    "jpeg": ({259: (3, [7])}, "JPEG"),
+    "16-bit": ({258: (3, [16, 16, 16])}, "16-bit samples"),
+    "float": ({258: (3, [32]), 277: (3, [1]), 262: (3, [1]), 339: (3, [3])},
+              "floating-point samples"),
+    "signed-16-bit": ({258: (3, [16]), 277: (3, [1]), 262: (3, [1]), 339: (3, [2])},
+                      "16-bit samples"),
+    "ycbcr": ({262: (3, [6])}, "YCbCr"),
+    "cielab": ({262: (3, [8])}, "CIELab"),
+    "fill-order-2": ({266: (3, [2])}, "FillOrder 2"),
+    "gray-4-bit": ({258: (3, [4]), 277: (3, [1]), 262: (3, [1])}, "grayscale at 4 bits"),
+}
+
+
+@pytest.mark.parametrize("name", list(REFUSED_TIFF))
+def test_tiff_refuses_named_features(name):
+    """Each TIFF feature outside the reader's scope raises
+    ``UnsupportedImageError`` naming it; Pillow opens every one of these
+    files (it may still fail to decode the stand-in pixel data)."""
+    fields, feature = REFUSED_TIFF[name]
+    data = _tiff(_picture(9, 7, 1), photo=2, tags=fields)
+    if fields is None:
+        data = b"II+\x00\x08\x00\x00\x00" + bytes(8)
+    else:
+        Image.open(io.BytesIO(data))
+    with pytest.raises(UnsupportedImageError, match=feature):
+        vqvae.decode_image(data)
+
+
+@pytest.mark.parametrize("cut", [30, 200, -40, -1])
+def test_tiff_truncated_or_corrupt_refuses_as_pillow_does(cut):
+    """A cut file (directory or pixel data missing) raises a plain
+    ``ValueError``, as Pillow fails; so does a corrupt LZW strip."""
+    full = _tiff(_picture(20, 30, 2), photo=2, comp=5, rps=8)
+    if cut == -1:
+        # the first LZW code after the clear points past the table
+        data = bytearray(full)
+        data[9] = 0xFF
+        data = bytes(data)
+    else:
+        data = full[:cut] if cut > 0 else full[:len(full) + cut]
+    with pytest.raises(ValueError) as err:
+        vqvae.decode_image(data)
+    assert not isinstance(err.value, UnsupportedImageError)
+    with pytest.raises((OSError, ValueError, SyntaxError)):
+        _pillow(data)
+
+
 def main() -> None:
     """This machine's host-CPU seconds to decode a 256 x 256 and a
-    1024 x 768 baseline and progressive JPEG (quality 75, 4:2:0) and WebP
-    (lossy at quality 75, and lossless), best of 3, against Pillow's decode
-    of the same bytes."""
+    1024 x 768 baseline and progressive JPEG (quality 75, 4:2:0), WebP
+    (lossy at quality 75, and lossless) and RGB TIFF (LZW, Deflate), best
+    of 3, against Pillow's decode of the same bytes."""
     cases = [(hw, "JPEG", dict(progressive=p)) for p in (False, True)
              for hw in ((256, 256), (768, 1024))]
     cases += [(hw, "WEBP", kw) for kw in ({"quality": 75}, {"lossless": True})
+              for hw in ((256, 256), (768, 1024))]
+    cases += [(hw, "TIFF", {"compression": c}) for c in ("tiff_lzw", "tiff_adobe_deflate")
               for hw in ((256, 256), (768, 1024))]
     for (h, w), fmt, kw in cases:
         if fmt == "JPEG":
             data, decode = _pillow_jpeg(_picture(h, w, 1), quality=75, **kw), decode_jpeg
             kind = "progressive JPEG" if kw["progressive"] else "baseline JPEG"
+        elif fmt == "TIFF":
+            buf = io.BytesIO()
+            Image.fromarray(_picture(h, w, 1)).save(buf, "TIFF", **kw)
+            data, decode = buf.getvalue(), vqvae.decode_image
+            kind = f"TIFF ({kw['compression']})"
         else:
             data, decode = _webp(_picture(h, w, 1), **kw), webp.decode_webp
             kind = "lossless WebP" if kw.get("lossless") else "lossy WebP"

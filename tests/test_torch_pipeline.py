@@ -19,7 +19,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from cogview_tpu.config import tiny_test as jax_tiny
 from cogview_tpu.models import gpt as jgpt
@@ -88,6 +88,10 @@ CASES = {
     "bf16-grads": dict(cfg=dict(compute_dtype=torch.bfloat16), M=2, sep=5, train=True,
                        remat=True, grads=True, loss="square"),
     "dropout-forward": dict(cfg=DROP, M=2, sep=5, train=True),
+    # data 2 x pipe 2: each data rank takes its shard of each microbatch
+    "dp2-dropout-forward": dict(cfg=DROP, M=2, dp=2, sep=5, train=True),
+    "dp2-dropout-grads": dict(cfg=DROP, M=2, dp=2, sep=5, train=True, remat=True,
+                              grads=True),
 }
 
 
@@ -100,7 +104,7 @@ def pipe_out(jparams, tokens, pivots, tmp_path_factory):
         case = {"cfg": dict(CFG, **c["cfg"], pp_microbatches=c["M"]), "sep": c.get("sep", 0),
                 "train": c.get("train", False), "remat": c.get("remat", False),
                 "grads": c.get("grads", False), "loss": c.get("loss"),
-                "seeds": seeds if c.get("train") else None}
+                "seeds": seeds if c.get("train") else None, "dp": c.get("dp", 1)}
         if c.get("sparse"):
             case["pivots"] = torch.from_numpy(np.array(pivots)).long()
         cases.append(case)
@@ -170,6 +174,79 @@ def test_pp_dropout_matches_the_jax_pipeline(pipe_out, jparams, tokens):
     assert np.abs(got - unpiped).max() / np.abs(unpiped).max() > 1e-3
 
 
+def _jax_dp_pp(fn, *args):
+    """``fn(*args)`` jitted on a data 2 x pipe 2 mesh of host devices, the
+    [B, ...] arguments placed over 'data' as the JAX CLI places a batch."""
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "pipe"))
+    with jax.set_mesh(mesh):
+        placed = [jax.device_put(a, NamedSharding(mesh, P("data"))) if isinstance(a, jax.Array)
+                  and a.ndim == 2 else a for a in args]
+        return jax.jit(fn)(*placed)
+
+
+def _cfg_dp_pp(**kw):
+    return _jcfg(**DROP, **kw).replace(pp_axis="pipe", pp_num_stages=2, pp_microbatches=2)
+
+
+def test_dp_pp_dropout_forward_matches_the_jax_pipeline(pipe_out, jparams, tokens):
+    """data 2 x pipe 2, every dropout at 0.1: data rank d runs its shard of
+    each microbatch (the JAX rows), so its masks hash the JAX coordinates."""
+    cfg = _cfg_dp_pp()
+    fw = dict(sep=5, train=True, rng=jax.random.PRNGKey(KEY))
+    want = np.asarray(_jax_dp_pp(lambda p, t: jgpt.forward(p, cfg, t, **fw), jparams,
+                                 jnp.asarray(tokens)))
+    _close_logits(pipe_out["dp2-dropout-forward"]["logits"].numpy(), want)
+
+
+def test_dp_pp_dropout_grads_match_the_jax_pipeline(pipe_out, jparams, tokens):
+    cfg = _cfg_dp_pp()
+
+    def loss(p, t):
+        return _loss(jgpt.forward(p, cfg, t, sep=5, train=True, rng=jax.random.PRNGKey(KEY),
+                                  remat=True), t)
+
+    l_ref, g_ref = _jax_dp_pp(jax.value_and_grad(loss), jparams, jnp.asarray(tokens))
+    _close_grads(pipe_out["dp2-dropout-grads"], l_ref, jax.tree.map(np.asarray, g_ref))
+
+
+def test_data_rows_are_the_jax_microbatch_shards():
+    """``data_rows`` is the row order of the JAX pipeline's sharding: the
+    global batch cut into M microbatches, each split over 'data'."""
+    from cogview_tpu_torch.parallel.mesh import Mesh as TMesh
+    from cogview_tpu_torch.parallel.pipeline import data_rows
+
+    B, M, dp = 24, 3, 4
+    mesh = Mesh(np.array(jax.devices()[:dp]), ("data",))
+    ids = jax.device_put(jnp.arange(B).reshape(M, B // M), NamedSharding(mesh, P(None, "data")))
+    for d, shard in enumerate(sorted(ids.addressable_shards, key=lambda x: x.device.id)):
+        tmesh = TMesh(data=dp, model=1, rank=2 * d, fsdp=False, device=torch.device("cpu"),
+                      groups={}, pipe=2)
+        assert data_rows(B, M, tmesh).tolist() == np.asarray(shard.data).reshape(-1).tolist()
+        flat = TMesh(data=dp, model=1, rank=d, fsdp=False, device=torch.device("cpu"),
+                     groups={})
+        assert data_rows(B, M, flat).tolist() == list(range(d * B // dp, (d + 1) * B // dp))
+
+
+def test_data_rows_split_uneven_microbatches_in_rank_order():
+    """Microbatches of 5 rows over 3 data ranks: shards of 1, 2 and 2 rows,
+    one after another, each rank's rows chunking into its M shards; a
+    microbatch of fewer rows than ranks is refused."""
+    from cogview_tpu_torch.parallel.mesh import Mesh as TMesh
+    from cogview_tpu_torch.parallel.pipeline import data_rows
+
+    B, M, dp = 15, 3, 3
+    shards = [data_rows(B, M, TMesh(data=dp, model=1, rank=2 * d, fsdp=False,
+                                    device=torch.device("cpu"), groups={}, pipe=2))
+              for d in range(dp)]
+    assert [len(r) // M for r in shards] == [1, 2, 2]
+    for m in range(M):
+        got = torch.cat([r.reshape(M, -1)[m] for r in shards]).tolist()
+        assert got == list(range(m * 5, (m + 1) * 5))
+    with pytest.raises(ValueError, match="do not split"):
+        data_rows(4, 2, TMesh(data=dp, model=1, rank=0, fsdp=False,
+                              device=torch.device("cpu"), groups={}, pipe=2))
+
+
 @pytest.mark.parametrize("seed", [0, 1, 0x89ABCDEF, 0xFFFFFFFF])
 @pytest.mark.parametrize("m", [0, 1, 2, 7])
 def test_microbatch_seed_is_the_jax_key_derivation(seed, m):
@@ -199,6 +276,92 @@ def test_pp_train_steps_match_unsharded_jax(tmp_path):
                 "batches": batches, "seeds": seeds}, tmp_path / "in.pt")
     run_ranks(workers.train_steps, 4, str(tmp_path), str(tmp_path), timeout=TIMEOUT)
     _compare(torch.load(tmp_path / "out.pt", weights_only=False), want)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_dp_pp_steps(B):
+    """Two JAX train steps on data 2 x pipe 2 (2 microbatches) at a global
+    batch of ``B``, every dropout at 0.1 -> (cfg, batches, params0, seeds,
+    results)."""
+    from cogview_tpu.parallel.sharding import gpt_param_specs, shard_params
+    from cogview_tpu.training import optim as jopt
+    from cogview_tpu.training import train_loop as jtl
+    from cogview_tpu.utils.rng import rbg_key
+
+    cfg_kw = dict(DROP, num_layers=4)
+    jcfg = jax_tiny(**cfg_kw)
+    cfg_pp = jcfg.replace(pp_axis="pipe", pp_num_stages=2, pp_microbatches=2)
+    batches = _batches(2, B, 64)
+    jparams = jgpt.init_params(jax.random.PRNGKey(0), jcfg)
+    params0 = gpt_params_from_jax(jax.tree.map(np.asarray, jparams))
+    tx, _ = jopt.make_optimizer(jparams, **OPT)
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2, 1), ("data", "pipe", "model"))
+    key, seeds, res = jax.random.PRNGKey(1), [], []
+    with jax.set_mesh(mesh):
+        state = jtl.init_train_state(
+            shard_params(jparams, mesh, gpt_param_specs(pp_axis="pipe")), tx)
+        step = jtl.make_train_step(cfg_pp, tx, img_vocab=IMG_VOCAB, donate=False)
+        for batch in batches:
+            key, sub = jax.random.split(key)
+            state, m = step(state, {k: jax.device_put(v, NamedSharding(mesh, P("data")))
+                                    for k, v in batch.items()}, sub)
+            seeds.append(_seeds(rbg_key(sub), 4))
+            res.append({"lm_loss": float(m["lm_loss"]), "grad_norm": float(m["grad_norm"]),
+                        "params": jax.tree.map(np.asarray, state["params"]), "mems": None})
+    return cfg_kw, batches, params0, seeds, res
+
+
+@pytest.mark.parametrize("B", [8, 6])
+def test_dp_pp_dropout_train_steps_match_the_jax_pipeline_and_data_1(tmp_path, B):
+    """Two train steps on data 2 x pipe 2 with every dropout at 0.1 match
+    the JAX pipelined steps on data 2 x pipe 2, and the port's own data 1 x
+    pipe 2 steps on the same global batches: the masks do not depend on
+    the data sharding.  At a batch of 6 each microbatch of 3 rows splits
+    unevenly over 'data' (GSPMD pads it; the port's ranks hold 2 and 1
+    rows)."""
+    cfg_kw, batches, params0, seeds, want = _jax_dp_pp_steps(B)
+    out = {}
+    for dp in (2, 1):
+        d = tmp_path / f"dp{dp}"
+        d.mkdir()
+        torch.save({"mesh": (dp, 1, False), "pp": 2, "cfg": dict(cfg_kw, pp_microbatches=2),
+                    "step": dict(img_vocab=IMG_VOCAB), "opt": OPT, "params": params0,
+                    "batches": batches, "seeds": seeds}, d / "in.pt")
+        run_ranks(workers.train_steps, 2 * dp, str(d), str(d), timeout=TIMEOUT)
+        out[dp] = torch.load(d / "out.pt", weights_only=False)
+    _compare(out[2], want)
+    same = [{"lm_loss": o["metrics"]["lm_loss"], "grad_norm": o["metrics"]["grad_norm"],
+             "params": gpt_params_to_numpy(o["params"]), "mems": None} for o in out[1]]
+    _compare(out[2], same)
+
+
+def test_pretrain_cli_refuses_microbatches_smaller_than_the_data_axis(tmp_path):
+    """Under pipeline parallelism every data rank holds a shard of each
+    microbatch: a microbatch of fewer rows than data ranks is refused (the
+    JAX package pads the empty shards)."""
+    from cogview_tpu_torch.cli import pretrain
+
+    args = pretrain.build_parser().parse_args(
+        ["--preset", "tiny", "--num-layers", "2", "--batch-size", "2",
+         "--pipeline-parallel-size", "2", "--pipeline-microbatches", "2", "--device", "cpu"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("WORLD_SIZE", "4")
+        with pytest.raises(SystemExit, match="1 rows, fewer than the 2 data ranks"):
+            pretrain.join_group(args, torch.device("cpu"))
+
+
+def test_jax_pipeline_runs_uneven_microbatch_shards(jparams):
+    """The JAX pipeline accepts a batch of 6 in 2 microbatches on data 2 (3
+    rows a microbatch), and its dropout forward there equals its data 1
+    run; so the port takes such batches too (the train step test at B =
+    6)."""
+    cfg = _cfg_dp_pp()
+    toks = jnp.asarray(np.random.RandomState(1).randint(0, 128, (6, 64)), jnp.int32)
+    fw = dict(sep=5, train=True, rng=jax.random.PRNGKey(KEY))
+    got = np.asarray(_jax_dp_pp(lambda p, t: jgpt.forward(p, cfg, t, **fw), jparams, toks))
+    with jax.set_mesh(Mesh(np.array(jax.devices()[:2]).reshape(1, 2), ("data", "pipe"))):
+        want = np.asarray(jax.jit(lambda p, t: jgpt.forward(p, cfg, t, **fw))(jparams, toks))
+    np.testing.assert_array_equal(got, want)
 
 
 class VocabOnly:

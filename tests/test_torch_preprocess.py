@@ -120,6 +120,27 @@ def test_sources_read_webp_and_skip_truncated_webp(tmp_path, kind):
     assert src.skipped == 1
 
 
+@pytest.mark.parametrize("kind", ["folder", "zip", "tar"])
+def test_sources_read_tiff_and_skip_truncated_tiff(tmp_path, kind):
+    """TIFF files in a source (named as images the source lists: the
+    reader goes by the magic bytes, as Pillow does) read as the JAX package
+    reads them; a truncated TIFF is skipped and counted, as the JAX package
+    drops it."""
+    files = {"a.png": _encoded(_picture(40, 44, 1), "TIFF"),
+             "b.jpg": _encoded(_picture(36, 50, 2), "TIFF", compression="tiff_lzw"),
+             "c.bmp": _encoded(np.dstack([_picture(30, 30, 3), _picture(30, 30, 4)[..., 0]]),
+                               "TIFF", compression="tiff_adobe_deflate"),
+             "d.png": _encoded(_picture(40, 40, 5), "TIFF", compression="packbits")[:-300]}
+    path = _write_sources(tmp_path, files)[kind]
+    want = list(jraw.open_image_source(path, img_size=32))
+    src = raw.open_image_source(path, img_size=32)
+    got = list(src)
+    assert [n for n, _ in got] == [n for n, _ in want] and len(got) == 3
+    for (_, g), (_, w) in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert src.skipped == 1
+
+
 def test_h5_source(tmp_path):
     h5py = pytest.importorskip("h5py")
     path = str(tmp_path / "imgs.h5")
@@ -137,10 +158,10 @@ def test_h5_source(tmp_path):
 
 
 def test_unread_format_stops_the_run(tmp_path):
-    """A TIFF in an archive: the JAX package reads it, the port
-    stops with an UnsupportedImageError naming the file."""
+    """A JPEG-compressed TIFF in an archive: the JAX package reads it,
+    the port stops with an UnsupportedImageError naming the file."""
     files = dict(_files(2))
-    files["late.png"] = _encoded(_picture(20, 20, 3), "TIFF")
+    files["late.png"] = _encoded(_picture(20, 20, 3), "TIFF", compression="jpeg")
     path = _write_sources(tmp_path, files)["zip"]
     assert len(list(jraw.open_image_source(path, 16))) == 3
     with pytest.raises(UnsupportedImageError, match="late.png: TIFF"):

@@ -7,7 +7,11 @@ and 17; the dropout keep pattern under data 2 x seq 2 and seq 2 x model 2;
 the gradients of sum(o * o)) and hands back the gathered outputs; the
 model's forward and 3 train steps with dropout 0.1 run on (dp, sp, mp,
 fsdp) = (1, 2, 2, yes) with remat on, so each layer's recomputation
-re-runs the ring and its rotations in the backward.  Tolerances: the ring
+re-runs the ring and its rotations in the backward.  Sparse attention and
+the transformer-XL memory under 'seq' take the gather route: the JAX
+package's own SP step equals its unsharded step there (bit for bit), and
+the port's SP steps and CLI runs match the JAX step and one process.
+Tolerances: the ring
 to 2e-5 (as tests/test_ring_attention.py), its gradients to 5e-4 as there,
 the train steps as tests/test_torch_parallel.py."""
 
@@ -144,6 +148,110 @@ def test_pretrain_cli_sequence_parallel_matches_one_process(tmp_path, monkeypatc
     st_a, a = _leaves(sharded)
     st_b, b = _leaves(single)
     assert st_a["iteration"] == st_b["iteration"] == 2
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_allclose(a[k], b[k], atol=1e-5 if "params" in k else 1e-4,
+                                   rtol=1e-4, err_msg=k)
+
+
+SP_ROUTES = {
+    # name: config, step flags, rows of the global batch, (dp, sp, mp)
+    "sparse": (dict(max_position_embeddings=65, query_window=8, key_window_times=2,
+                    num_pivot=16), dict(is_sparse=True), 4, (2, 2, 1)),
+    "mems": ({}, dict(max_memory_length=80), 2, (1, 2, 1)),
+}
+
+
+@pytest.mark.parametrize("route", list(SP_ROUTES))
+def test_jax_sp_step_matches_its_unsharded_step(route):
+    """The JAX package with seq 2 on a ('data', 'seq') mesh: its layers
+    take sparse attention or a memory ahead of the ring, on the whole
+    sequence, so the loss, every gradient and the new mems equal the
+    unsharded step's.  This is what the port's gather route mirrors."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    from cogview_tpu.training.losses import lm_loss, lm_loss_with_mems
+
+    cfg_kw, step_kw, rows, _ = SP_ROUTES[route]
+    cfg = jax_tiny(**cfg_kw, **DROP)
+    params = jgpt.init_params(jax.random.PRNGKey(0), cfg)
+    batch = _batches(1, rows, 64)[0]
+    mems = jnp.asarray(np.random.RandomState(5).randn(
+        cfg.num_layers + 1, rows, 16, cfg.hidden_size).astype(np.float32))
+    rng = jax.random.PRNGKey(3)
+
+    def step(c, b):
+        def f(p):
+            if step_kw.get("max_memory_length"):
+                loss, (_, new) = lm_loss_with_mems(p, c, b, mems, max_memory_length=80,
+                                                   img_vocab=IMG_VOCAB, rng=rng)
+                return loss, new
+            return lm_loss(p, c, b, img_vocab=IMG_VOCAB, rng=rng, is_sparse=True)[0], mems
+        return jax.jit(jax.value_and_grad(f, has_aux=True))(params)
+
+    (l_ref, m_ref), g_ref = step(cfg, {k: jnp.asarray(v) for k, v in batch.items()})
+    mesh = Mesh(np.array(jax.devices()[:2]).reshape(1, 2), ("data", "seq"))
+    with jax.set_mesh(mesh):
+        cfg_sp = cfg.replace(sp_axis="seq", sp_num_shards=2, sp_data_axis="data")
+        (l_sp, m_sp), g_sp = step(cfg_sp, {k: jax.device_put(v, NamedSharding(mesh, P("data")))
+                                           for k, v in batch.items()})
+    assert float(l_sp) == float(l_ref)
+    np.testing.assert_array_equal(np.asarray(m_sp), np.asarray(m_ref))
+    for a, b in zip(jax.tree.leaves(g_sp), jax.tree.leaves(g_ref)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_route_steps(route):
+    cfg_kw, step_kw, rows, _ = SP_ROUTES[route]
+    cfg_kw = dict(DROP, **cfg_kw)
+    batches = _batches(3, rows, 64)
+    return (cfg_kw, batches) + _jax_run(cfg_kw, step_kw, batches)
+
+
+@pytest.mark.parametrize("route", list(SP_ROUTES))
+def test_sp_sparse_and_mems_train_steps_match_unsharded_jax(route, tmp_path):
+    """Sequence parallelism with sparse attention (data 2 x seq 2) and with
+    a transformer-XL memory (seq 2): each layer gathers the sequence over
+    'seq', attends as the unsharded layer does and keeps its block; 3 train
+    steps with every dropout at 0.1 match the JAX step (losses, grad norms,
+    params and the mems)."""
+    _, step_kw, _, (dp, sp, mp) = SP_ROUTES[route]
+    cfg_kw, batches, params0, seeds, pivots, want = _jax_route_steps(route)
+    torch.save({"mesh": (dp, mp, False), "sp": sp, "cfg": cfg_kw,
+                "step": dict(img_vocab=IMG_VOCAB, **step_kw), "opt": OPT, "params": params0,
+                "batches": batches, "seeds": seeds, "pivots": pivots}, tmp_path / "in.pt")
+    run_ranks(workers.train_steps, dp * sp * mp, str(tmp_path), str(tmp_path),
+              timeout=TIMEOUT)
+    _compare(torch.load(tmp_path / "out.pt", weights_only=False), want)
+
+
+@pytest.mark.parametrize("route,argv", [
+    ("mems", ["--max-memory-length", "32"]),
+    ("sparse", ["--is-sparse", "1", "--query-window", "16", "--key-window-times", "2",
+                "--num-pivot", "24"]),
+])
+def test_pretrain_cli_sequence_parallel_routes_match_one_process(tmp_path, monkeypatch,
+                                                                 route, argv):
+    """``cli.pretrain`` takes --sequence-parallel-size 2 with
+    --max-memory-length and with --is-sparse 1, as the JAX CLI does: 2
+    iterations on 2 ranks save the full leaves of the one-process run."""
+    from cogview_tpu_torch.cli import pretrain
+
+    monkeypatch.setattr(pretrain, "PRESETS", dict(pretrain.PRESETS))
+    workers.register_presets(pretrain.PRESETS)
+    data = _corpus(tmp_path / "c.bin")
+    sharded, single = tmp_path / "sp", tmp_path / "one"
+    torch.save({"argv": _cli_argv(data, "--train-iters", "2", "--save", str(sharded),
+                                  "--sequence-parallel-size", "2", *argv)}, tmp_path / "in.pt")
+    run_ranks(workers.pretrain_cli, 2, str(tmp_path), str(tmp_path), timeout=TIMEOUT)
+
+    class VocabOnly:
+        num_tokens = 50000
+
+    assert pretrain.main(_cli_argv(data, "--train-iters", "2", "--save", str(single), *argv),
+                         txt_tokenizer=VocabOnly()) == 0
+    _, a = _leaves(sharded)
+    _, b = _leaves(single)
     assert a.keys() == b.keys()
     for k in a:
         np.testing.assert_allclose(a[k], b[k], atol=1e-5 if "params" in k else 1e-4,

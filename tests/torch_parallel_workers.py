@@ -15,6 +15,7 @@ from cogview_tpu_torch.models import gpt
 from cogview_tpu_torch.parallel import comm
 from cogview_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, create_mesh,
                                              use_mesh)
+from cogview_tpu_torch.parallel.pipeline import data_rows
 from cogview_tpu_torch.parallel.sharding import gather_params, shard_params
 from cogview_tpu_torch.training import optim
 from cogview_tpu_torch.training import train_loop as tl
@@ -66,12 +67,11 @@ def train_steps(rank, world, path):
         step = tl.make_train_step(cfg, opt, **inp["step"])
         out, mems = [], None
         for i, batch in enumerate(inp["batches"]):
-            rows = batch["text"].shape[0] // dp
-            b0 = mesh.data_rank * rows
-            local = {k: v[b0:b0 + rows] for k, v in batch.items()}
+            rows = data_rows(batch["text"].shape[0], cfg.pp_microbatches).numpy()
+            local = {k: v[rows] for k, v in batch.items()}
             kw = dict(seeds=inp["seeds"][i])
             if inp.get("pivots") is not None:
-                kw["pivot_idx"] = inp["pivots"][i][b0:b0 + rows]
+                kw["pivot_idx"] = inp["pivots"][i][rows]
             if mem_len:
                 state, metrics, mems = step(state, local, mems=mems, **kw)
             else:
@@ -119,24 +119,30 @@ def ring_cases(rank, world, path):
 
 
 def pipe_cases(rank, world, path):
-    """GPipe forwards on a pipe x model mesh for each case of ``in.pt``:
-    the logits (and, with ``grads``, the loss of the JAX pipeline test and
-    the gathered gradients), with the case's microbatches, dropout seeds,
-    sparse pivots and compute dtype."""
+    """GPipe forwards on a data x pipe x model mesh for each case of
+    ``in.pt``: the logits (and, with ``grads``, the loss of the JAX pipeline
+    test and the gathered gradients), with the case's microbatches, dropout
+    seeds, sparse pivots and compute dtype.  Under 'data' a rank takes the
+    rows ``data_rows`` gives it; the logits come back in global row order,
+    and the loss and gradients are the global batch's (the mean of the
+    ranks' equal shares)."""
     from cogview_tpu_torch.ops.sparse_attention import build_rmask, gather_pivot_mask
 
     inp = _load(path)
     out = []
     for case in inp["cases"]:
         cfg = C.tiny_test(**case["cfg"])
-        with use_mesh(create_mesh(model_parallel=case.get("mp", 1), data_parallel=1,
-                                  pipe_parallel=world // case.get("mp", 1))) as mesh:
+        mp, dp = case.get("mp", 1), case.get("dp", 1)
+        with use_mesh(create_mesh(model_parallel=mp, data_parallel=dp,
+                                  pipe_parallel=world // (mp * dp))) as mesh:
             params = shard_params(inp["params"], mesh)
             optim.tree_map(lambda p: p.requires_grad_(True), params)
-            toks = inp["tokens"]
+            rows = data_rows(inp["tokens"].shape[0], cfg.pp_microbatches)
+            order = torch.argsort(comm.all_gather(rows, DATA_AXIS, 0))
+            toks = inp["tokens"][rows]
             sparse = None
             if case.get("pivots") is not None:
-                piv = case["pivots"]
+                piv = case["pivots"][rows]
                 rmask = torch.from_numpy(build_rmask(toks.shape[1], cfg.query_window,
                                                      cfg.key_window_times))
                 sparse = gpt.SparseSpec(piv, gather_pivot_mask(rmask, piv),
@@ -144,7 +150,7 @@ def pipe_cases(rank, world, path):
             lg = gpt.forward(params, cfg, toks, sep=case.get("sep", 0),
                              train=case.get("train", False), seeds=case.get("seeds"),
                              remat=case.get("remat", False), sparse=sparse)
-            rec = {"logits": lg.detach().float()}
+            rec = {"logits": comm.all_gather(lg.detach().float(), DATA_AXIS, 0)[order]}
             if case.get("grads"):
                 if case.get("loss") == "square":
                     loss = (lg.float() ** 2).mean()
@@ -153,8 +159,10 @@ def pipe_cases(rank, world, path):
                     loss = -(torch.log_softmax(lg, -1) * oh).sum(-1).mean()
                 leaves = list(optim.tree_leaves(params))
                 g = torch.autograd.grad(loss, leaves)
-                grads = tl._unflatten(params, [x.float() for x in g])
-                rec.update(loss=float(loss), grads=gather_params(grads, mesh))
+                g = [comm.all_reduce(x.float(), DATA_AXIS) / dp for x in g]
+                grads = tl._unflatten(params, g)
+                rec.update(loss=float(comm.all_reduce(loss.detach(), DATA_AXIS)) / dp,
+                           grads=gather_params(grads, mesh))
             out.append(rec)
     _save(rank, path, out)
 
@@ -217,3 +225,72 @@ def register_presets(presets):
     """smoke-f32: the smoke preset in float32, so a sharded run and a
     single-process one differ by float32 rounding only."""
     presets["smoke-f32"] = lambda: C.smoke(compute_dtype=torch.float32)
+
+
+def vq_steps(rank, world, path):
+    """The VQ-VAE train steps of ``in.pt`` on a 'data' axis of every rank,
+    for each mode (ST + EMA, gumbel soft, gumbel hard): each rank takes its
+    rows of the global batch and of the step's global gumbel noise -> the
+    global metrics and the params after the last step, as the JAX
+    package's numpy layouts."""
+    from cogview_tpu_torch.models.bridge import vqvae_params_to_numpy
+    from cogview_tpu_torch.training import vqvae_train as vt
+
+    inp = _load(path)
+    out = {}
+    with use_mesh(create_mesh(model_parallel=1, data_parallel=world)) as mesh:
+        rows = data_rows(inp["batches"][0].shape[0], mesh=mesh)
+        for mode in inp["modes"]:
+            params = optim.tree_map(torch.clone, inp["params"])
+            tx = vt.make_adam(params, inp["lr"])
+            state = vt.init_vqvae_train_state(params, tx)
+            if mode == "st":
+                step = vt.make_vqvae_train_step(tx, latent_weight=0.25, decay=0.99)
+            else:
+                step = vt.make_vqvae_gumbel_train_step(tx, kl_weight=0.25,
+                                                       hard=mode == "gumbel-hard")
+            metrics = []
+            for i, batch in enumerate(inp["batches"]):
+                b = torch.from_numpy(batch)[rows]
+                if mode == "st":
+                    m = step(state, b)
+                else:
+                    noise = inp["noise"][i]
+                    noise = noise.reshape(b.shape[0] * world, -1, noise.shape[-1])[rows]
+                    m = step(state, b, temperature=inp["temps"][i],
+                             noise=noise.reshape(-1, noise.shape[-1]))
+                metrics.append({k: float(v) for k, v in m.items()})
+            out[mode] = {"metrics": metrics, "params": vqvae_params_to_numpy(state["params"]),
+                         "step": state["step"]}
+    _save(rank, path, out)
+
+
+def vqtrain_cli(rank, world, path):
+    """``cli.vqtrain.main`` as one torchrun rank of ``world`` (the group is
+    the one the spawner joined); each checkpoint a rank writes leaves a
+    ``saved-by-<rank>`` file, and ``decodes-<rank>`` holds the number of
+    images the rank decoded."""
+    from cogview_tpu_torch.cli import vqtrain
+    from cogview_tpu_torch.preprocess import raw_datasets
+    from cogview_tpu_torch.training import checkpointing
+
+    inp = _load(path)
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world))
+    save = checkpointing.save_checkpoint
+
+    def recorded(*a, **kw):
+        open(os.path.join(path, f"saved-by-{rank}"), "a").close()
+        return save(*a, **kw)
+
+    checkpointing.save_checkpoint = recorded
+    decode, decodes = raw_datasets.decode_image, []
+
+    def counted(data):
+        decodes.append(1)
+        return decode(data)
+
+    raw_datasets.decode_image = counted
+    assert vqtrain.main(inp["argv"]) == 0
+    with open(os.path.join(path, f"decodes-{rank}"), "w") as f:
+        f.write(str(len(decodes)))
