@@ -179,6 +179,17 @@ result):
    4 images at 512 (16 rows, each laid out as the JAX package's); then 2
    ``cli.pretrain`` steps at the tutorial preset on the .bin: finite
    losses, the flash kernels launched;
+23b. image formats on the card's host, which has no Pillow: one lossless
+   file of each newly read format written here from a seeded 192 x 240
+   picture by the script's own writers (TGA raw and RLE, PCX, SGI RLE,
+   DIB, ICO holding a BMP and one holding a PNG, PSD raw and PackBits,
+   uncompressed DDS, gray PFM), named .jpg and .png as a crawl mislabels
+   files: each decodes to its source array (``decode_image``'s host ms
+   printed per format), and ``cli.preprocess --task text2image --device
+   cuda`` over the folder writes as many rows as files, skips none, and
+   every row's codes equal the card's img2code of the source arrays (this
+   path launches no kernel of the port: the VQ-VAE encoder's convolutions
+   are PyTorch's);
 24. VQ-VAE training: ``cli.vqtrain.main`` at the released geometry, batch
    32 x 256^2 on phase 23's images, 20 straight-through + EMA iterations
    (the recon MSE at the last log below the first, the codebook's
@@ -2526,7 +2537,8 @@ def phase_other_routes(torch, fa, pretrain, work: str):
 
 
 # --------------------------------------------------------------------- #
-# phases 23-25: preprocessing -> pretraining, VQ-VAE training, FID / IS
+# phases 23-25: preprocessing -> pretraining, the image formats, VQ-VAE
+# training, FID / IS
 # --------------------------------------------------------------------- #
 
 CORPUS_IMAGES = 64  # 256 x 320 images of phase 23's sources
@@ -2693,6 +2705,175 @@ def phase_preprocess(torch, fa, vqvae, cfgmod, png, pretrain, work: str) -> list
     _check(min(launches) > 0 and plain == [0, 0, 0],
            "pretraining on the preprocessed corpus did not run the flash kernels")
     return launches
+
+
+FORMAT_SIZE = (192, 240)  # phase 23b's pictures, h x w
+
+
+def _le_header(fmt: str, *values) -> bytes:
+    import struct
+
+    return struct.pack("<" + fmt, *values)
+
+
+def _rle_runs(row: bytes, px: int, most: int):
+    """A row of ``px``-byte pixels -> (run length, pixel bytes, literal)
+    pieces: runs of equal pixels (2 or more), literals of the rest, at most
+    ``most`` pixels each."""
+    n, i, out = len(row) // px, 0, []
+    while i < n:
+        j = i + 1
+        while j < n and j - i < most and row[j * px:(j + 1) * px] == row[i * px:(i + 1) * px]:
+            j += 1
+        if j - i > 1:
+            out.append((j - i, row[i * px:(i + 1) * px], False))
+        else:
+            while j < n and j - i < most and (j + 1 >= n or row[j * px:(j + 1) * px]
+                                                != row[(j + 1) * px:(j + 2) * px]):
+                j += 1
+            out.append((j - i, row[i * px:j * px], True))
+        i = j
+    return out
+
+
+def _format_files(png, rng):
+    """The files of phase 23b -> {name: (bytes, the [h, w, 3] uint8 they hold)},
+    each written by a few lines here (the host has no Pillow)."""
+    import struct
+
+    import numpy as np
+
+    h, w = FORMAT_SIZE
+    pic = [_gradient_image(rng, h, w) for _ in range(10)]
+    pic[1][:, ::3] = pic[1][:, ::3] // 16 * 16  # runs for the run-length coders
+    files = {}
+    bgr = pic[0][..., ::-1]
+    files["tga_raw.jpg"] = (_le_header("BBBHHBHHHHBB", 0, 0, 2, 0, 0, 0, 0, 0, w, h, 24, 0x20)
+                            + bgr.tobytes(), pic[0])
+    body = b""
+    for row in pic[1][..., ::-1]:
+        for n, px, literal in _rle_runs(row.tobytes(), 3, 128):
+            body += bytes([(n - 1) | (0 if literal else 0x80)]) + px
+    files["tga_rle.png"] = (_le_header("BBBHHBHHHHBB", 0, 0, 10, 0, 0, 0, 0, 0, w, h, 24, 0x20)
+                            + body, pic[1])
+    pcx = bytes([10, 5, 1, 8]) + _le_header("HHHHHH", 0, 0, w - 1, h - 1, 72, 72) + bytes(49)
+    pcx += bytes([3]) + _le_header("HH", w, 1)
+    pcx = pcx.ljust(128, b"\0")
+    for row in pic[2]:
+        for plane in row.T:
+            for n, v, literal in _rle_runs(plane.tobytes(), 1, 63):
+                if literal:  # a byte of the form 11xxxxxx goes as a run of one
+                    pcx += b"".join(bytes([b]) if b < 0xC0 else bytes([0xC1, b]) for b in v)
+                else:
+                    pcx += bytes([0xC0 | n]) + v
+    files["pcx.jpg"] = (pcx, pic[2])
+    rows = []  # SGI: each channel's rows bottom-up, RLE
+    for c in range(3):
+        for row in pic[3][::-1, :, c]:
+            out = b""
+            for n, v, literal in _rle_runs(row.tobytes(), 1, 127):
+                out += bytes([0x80 | n]) + v if literal else bytes([n]) + v
+            rows.append(out + b"\0")
+    table_end = 512 + 8 * len(rows)
+    starts = np.cumsum([table_end] + [len(r) for r in rows[:-1]])
+    sgi = struct.pack(">HBBHHHH", 474, 1, 1, 3, w, h, 3).ljust(512, b"\0")
+    sgi += struct.pack(f">{len(rows)}I", *starts) + struct.pack(f">{len(rows)}I",
+                                                               *map(len, rows))
+    files["sgi_rle.png"] = (sgi + b"".join(rows), pic[3])
+
+    def dib(img, extra_rows=0):
+        ih, iw = img.shape[:2]
+        stride = (iw * 3 + 3) & ~3
+        rows = np.zeros((ih, stride), np.uint8)
+        rows[:, :iw * 3] = img[::-1, :, ::-1].reshape(ih, -1)
+        return (_le_header("IiiHHIIiiII", 40, iw, ih + extra_rows, 1, 24, 0, 0, 0, 0, 0, 0)
+                + rows.tobytes())
+
+    files["dib.jpg"] = (dib(pic[4]), pic[4])
+    icon = pic[5][:128, :128]
+    mask = bytes(((128 + 31) // 32 * 4) * 128)
+    payload = dib(icon, extra_rows=128) + mask
+    files["ico_bmp.png"] = (_le_header("HHH", 0, 1, 1) + bytes([128, 128, 0, 0])
+                            + _le_header("HHII", 1, 24, len(payload), 22) + payload, icon)
+    icon2 = pic[6][:128, :128]
+    payload = png.encode_png(icon2)
+    files["ico_png.jpg"] = (_le_header("HHH", 0, 1, 1) + bytes([128, 128, 0, 0])
+                            + _le_header("HHII", 1, 32, len(payload), 22) + payload, icon2)
+    head = b"8BPS" + struct.pack(">H", 1) + bytes(6) + struct.pack(">HIIHH", 3, h, w, 8, 3)
+    head += bytes(12)
+    files["psd_raw.png"] = (head + b"\0\0" + pic[7].transpose(2, 0, 1).tobytes(), pic[7])
+    packed = []
+    for plane in pic[8].transpose(2, 0, 1):
+        for row in plane:
+            out = b""
+            for n, v, literal in _rle_runs(row.tobytes(), 1, 128):
+                out += bytes([n - 1]) + v if literal else bytes([257 - n]) + v
+            packed.append(out)
+    files["psd_packbits.jpg"] = (head + struct.pack(">H", 1) + struct.pack(
+        f">{len(packed)}H", *map(len, packed)) + b"".join(packed), pic[8])
+    dds = b"DDS " + _le_header("IIIIIII", 124, 0x1007, h, w, 0, 0, 0) + bytes(44)
+    dds += _le_header("II4sI4I", 32, 0x40, bytes(4), 24, 0xFF0000, 0xFF00, 0xFF, 0)
+    files["dds.png"] = (dds.ljust(128, b"\0") + pic[9][..., ::-1].tobytes(), pic[9])
+    gray = pic[0][..., 1]
+    pfm = b"Pf\n%d %d\n-1.0\n" % (w, h) + gray[::-1].astype("<f4").tobytes()
+    files["pfm.jpg"] = (pfm, np.repeat(gray[..., None], 3, axis=2))
+    return files
+
+
+def phase_image_formats(torch, vqvae, work: str, smi: str) -> None:
+    """Phase 23b: the newly read formats on the card's host, then through
+    the preprocess CLI on the card (see the module docstring)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from cogview_tpu_torch.cli import preprocess
+    from cogview_tpu_torch.models import convert
+    from cogview_tpu_torch.models.vqvae import decode_image, to_model_input
+    from cogview_tpu_torch.utils import png
+
+    t0 = time.perf_counter()
+    files = _format_files(png, np.random.RandomState(31))
+    folder = os.path.join(work, "formats")
+    os.makedirs(folder)
+    host_ms = {}
+    for name, (data, want) in files.items():
+        with open(os.path.join(folder, name), "wb") as f:
+            f.write(data)
+        t = time.perf_counter()
+        got = decode_image(data)
+        host_ms[name] = (time.perf_counter() - t) * 1000.0
+        _check(got.shape == want.shape and np.array_equal(got, want),
+               f"{name} does not decode to its source array")
+    names = sorted(files)
+    caps = os.path.join(work, "formats.tsv")
+    with open(caps, "w") as f:
+        for i, name in enumerate(names):
+            f.write(f"{name}\t" + " ".join(f"word{(i + k) % 50}" for k in range(5)) + "\n")
+    vq_path = os.path.join(work, "vqvae_released.pt")
+    out = os.path.join(work, "formats.bin")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, log = _run_quiet(preprocess.main, [
+            "--task", "text2image", "--image-source", folder, "--text-source", caps,
+            "--img-tokenizer-path", vq_path, "--output", out, "--batch-size", "32",
+            "--device", "cuda"], txt_tokenizer=WordTokenizer())
+    print(err.getvalue(), end="")
+    _check(rc == 0, "preprocess text2image over the format folder failed")
+    _check("skipped" not in err.getvalue(), "the format folder skipped an image")
+    rows = np.fromfile(out, np.int32).reshape(-1, 64 + 1024)
+    _check(rows.shape[0] == len(files), f"{rows.shape[0]} rows from {len(files)} files")
+    params = convert.load_vqvae_checkpoint(vq_path, torch.device("cuda"))
+    x = torch.from_numpy(np.stack([to_model_input(files[n][1], 256) for n in names])).cuda()
+    own = vqvae.img2code(params, x).cpu().numpy()
+    _check(np.array_equal(own, rows[:, 64:]),
+           "the format folder's codes differ from the card's img2code of the sources")
+    h, w = FORMAT_SIZE
+    print(f"image formats ({smi}; host decode of {h} x {w}, ms): "
+          + ", ".join(f"{n} {host_ms[n]:.1f}" for n in names))
+    print(f"image formats: {len(files)} files -> {rows.shape[0]} rows, 0 skipped, codes equal "
+          f"to img2code of the sources; phase {time.perf_counter() - t0:.1f} s")
 
 
 def phase_vqtrain(torch, work: str, smi: str) -> None:
@@ -4225,6 +4406,8 @@ def main() -> int:
         # pretraining on it; phase 24: VQ-VAE training; phase 25: FID and IS
         pre_launches = phase_preprocess(torch, fa, vqvae, cfgmod, png, pretrain, work)
         lap("phase 23")
+        phase_image_formats(torch, vqvae, work, smi.splitlines()[0])
+        lap("phase 23b")
         phase_vqtrain(torch, work, smi.splitlines()[0])
         lap("phase 24")
         phase_fid(torch, png, work, smi.splitlines()[0])

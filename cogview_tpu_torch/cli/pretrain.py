@@ -304,12 +304,6 @@ def join_group(args, device: torch.device):
         if args.batch_size % mb:
             raise SystemExit(f"--batch-size {args.batch_size} not divisible by {mb} "
                              "pipeline microbatches")
-        if args.batch_size // mb < dp:
-            # the JAX package pads such shards with rows it never reads; the
-            # port's shards differ in size by a row, and none may be empty
-            raise SystemExit(f"--batch-size {args.batch_size} leaves each of the {mb} "
-                             f"pipeline microbatches {args.batch_size // mb} rows, fewer "
-                             f"than the {dp} data ranks")
     if args.batch_size % dp:
         raise SystemExit(
             f"--batch-size {args.batch_size} must be divisible by the data "

@@ -10,13 +10,16 @@ Row layout (reference eval_utils/dataset.py:28-32):
   * ``caption_only``: ``id \\t caption``: no image column; yields a zero
     image placeholder like the reference does.
 
-Images are decoded by the port's readers (``models/vqvae.py::
-decode_image``) and, where their size differs, resized as Pillow's
+Images are decoded by the port's readers, chosen as Pillow's
+``Image.open`` chooses its plugin (``utils/image_formats.py::
+decode_image``), and, where their size differs, resized as Pillow's
 ``Image.resize((s, s))`` does with its default filter, BICUBIC for RGB
-(``resize_bicubic``), byte-equal.  Rows that are short, not base64, or
-hold bytes of a format the port reads that fail to decode are skipped and
-counted (``skipped``), as the JAX package skips them; an image of a format
-the port does not read stops the stream with an ``UnsupportedImageError``.
+(``resize_bicubic``), byte-equal.  Every row ends in one of the three
+outcomes of ``utils/image_errors.py``: its image is read as Pillow reads
+it; an image Pillow reads and the port does not stops the stream with an
+``UnsupportedImageError``; a row that is short, not base64, or holds bytes
+Pillow cannot open or load is skipped and counted (``skipped``), as the
+JAX package skips it.
 """
 
 from __future__ import annotations

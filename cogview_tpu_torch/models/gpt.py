@@ -488,7 +488,8 @@ def _layer_body(cfg: GPTConfig, h: torch.Tensor, p: Params, mask: torch.Tensor,
                                  batch_offset=b0, head_offset=n0, num_heads=cfg.num_heads)
     elif cache is None:
         origin, full = _block((B, N), heads=True, rows=rows)
-        ctx = dense_attention(q, k.reshape(B, -1, N, D), v.reshape(B, -1, N, D), mask,
+        ctx = dense_attention(q, k.reshape(B, k.shape[1], N, D),
+                              v.reshape(B, v.shape[1], N, D), mask,
                               dropout_rate=cfg.attention_dropout, dropout_seed=lseed,
                               train=train, dropout_origin=origin, dropout_full=full)
     elif isinstance(cache, KVCache):

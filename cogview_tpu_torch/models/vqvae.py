@@ -32,15 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import VQVAEConfig
-from ..utils.bmp import decode_bmp
-from ..utils.gif import decode_gif
 from ..utils.image_errors import UnsupportedImageError
-from ..utils.jpeg import decode_jpeg
-from ..utils.png import decode_png
-from ..utils.pnm import decode_pnm
-from ..utils.qoi import decode_qoi
-from ..utils.tiff import decode_tiff
-from ..utils.webp import decode_webp
+from ..utils.image_formats import decode_image  # noqa: F401 (the readers' entry point)
 
 Params = Dict[str, Any]
 
@@ -344,56 +337,6 @@ def resize_bicubic(img: np.ndarray, width: int, height: int) -> np.ndarray:
     ``Image.resize((width, height))`` on an RGB image, whose default filter
     is BICUBIC."""
     return _resample_axis(_resample_axis(img, width, 1, BICUBIC), height, 0, BICUBIC)
-
-
-READ_FORMATS = ("PNG (every colour type, depth and interlace), BMP, GIF, PNM (P1-P6), QOI, "
-                "WebP (lossy, lossless, alpha, an animation's first frame), baseline TIFF "
-                "(none, PackBits, LZW or Deflate; 8-bit, bilevel or palette) or baseline "
-                "JPEG or progressive JPEG (also CMYK and YCCK)")
-
-
-# formats Pillow reads that this package does not, by their magic bytes
-_OTHER_FORMATS = (
-    (lambda d: d[:4] in (b"\x00\x00\x01\x00", b"\x00\x00\x02\x00"), "ICO/CUR"),
-    (lambda d: d[:1] == b"P" and d[1:2] in b"0fy", "PNM extension (PFM, CMYK)"),
-    (lambda d: d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or d[:4] == b"\xff\x4f\xff\x51",
-     "JPEG 2000"),
-    (lambda d: d[:4] == b"8BPS", "PSD"),
-    (lambda d: d[:4] == b"DDS ", "DDS"),
-    (lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"heic", b"mif1"),
-     "AVIF/HEIF"),
-)
-
-
-def decode_image(data: bytes) -> np.ndarray:
-    """The bytes of an image file -> [h, w, 3] uint8, as Pillow's
-    ``Image.open(...).convert("RGB")``.  The reader is chosen by the file's
-    magic bytes, as ``Image.open`` chooses it, never by a file name.  A
-    format that Pillow reads and this package does not (ICO, PSD, ...,
-    known by its magic bytes; an arithmetic-coded JPEG, ...) raises
-    :class:`UnsupportedImageError` naming it; bytes that are no image
-    raise a plain ``ValueError``."""
-    if data[:8] == b"\x89PNG\r\n\x1a\n":
-        return decode_png(data)
-    if data[:3] == b"\xff\xd8\xff":
-        return decode_jpeg(data)
-    if data[:2] == b"BM":
-        return decode_bmp(data)
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        return decode_gif(data)
-    if data[:1] == b"P" and data[1:2] in b"123456" and len(data) > 1:
-        return decode_pnm(data)
-    if data[:4] == b"qoif":
-        return decode_qoi(data)
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return decode_webp(data)
-    if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
-        return decode_tiff(data)
-    for test, name in _OTHER_FORMATS:
-        if test(data):
-            raise UnsupportedImageError(f"{name} is not an image this package reads: "
-                                        f"{READ_FORMATS}")
-    raise ValueError(f"not an image this package reads: {READ_FORMATS}")
 
 
 def image_from_array(a: np.ndarray) -> np.ndarray:

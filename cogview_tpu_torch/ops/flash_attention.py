@@ -222,6 +222,9 @@ def _flash_fwd(q, k, v, sep, rate, seed, offsets=(0, 0, None)):
         return flash_attention_reference(q, k, v, sep, rate, seed, offsets)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.shape[0] == 0:  # a data rank's empty shard of a pipeline microbatch: no grid
+        _, S, N, _ = q.shape
+        return torch.empty_like(q), q.new_empty((0, N, S), dtype=torch.float32)
     B, S, N, D, strides = _cuda_operands(("q", q), ("k", k), ("v", v))
     o = torch.empty((B, S, N, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, N, S), dtype=torch.float32, device=q.device)
@@ -251,6 +254,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, sep: int = 0, *, dropout_rate: float =
                                       offsets)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dq: unsupported device {q.device}")
+    if q.shape[0] == 0:  # an empty shard (an empty dO may have any strides)
+        return torch.empty_like(q)
     do = do.contiguous()
     B, S, N, D, strides = _bwd_launch_args(q, k, v, do, lse, delta)
     dq = torch.empty((B, S, N, D), dtype=q.dtype, device=q.device)
@@ -275,6 +280,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, sep: int = 0, *, dropout_rate: float 
                                        offsets)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dkv: unsupported device {q.device}")
+    if q.shape[0] == 0:  # an empty shard
+        return torch.empty_like(k), torch.empty_like(v)
     do = do.contiguous()
     B, S, N, D, strides = _bwd_launch_args(q, k, v, do, lse, delta)
     dk = torch.empty((B, S, N, D), dtype=q.dtype, device=q.device)

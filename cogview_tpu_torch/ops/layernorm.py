@@ -15,8 +15,9 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     """x: [..., H]; g/b: [H].  Statistics in float32; output in x.dtype."""
     xf = x.float()
     if pb_relax:
-        # the reference detaches the max: no gradient flows through it
-        c = xf.abs().max().detach() / 8.0
+        # the reference detaches the max: no gradient flows through it; a
+        # data rank's empty shard of a pipeline microbatch has no max
+        c = (xf.abs().max() if xf.numel() else xf.new_zeros(())).detach() / 8.0
         eps = eps * torch.square(c)
     mean = xf.mean(dim=-1, keepdim=True)
     var = torch.square(xf - mean).mean(dim=-1, keepdim=True)

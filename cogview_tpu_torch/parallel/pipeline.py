@@ -59,13 +59,15 @@ def data_rows(batch_size: int, microbatches: int = 0,
     Where dp divides n these are GSPMD's shards; where it does not, GSPMD
     pads its last shards and the ranks here hold shards one row apart in
     size: the rows' global coordinates, which the dropout masks hash, are
-    the same.  Every rank holds at least one row of each microbatch."""
+    the same.  Where a microbatch holds fewer rows than there are data
+    ranks, the first ranks hold empty shards of it, as GSPMD's padded
+    shards hold no row of the batch."""
     mesh = mesh if mesh is not None else current_mesh()
     if mesh is None:
         return torch.arange(batch_size)
     M = (microbatches or mesh.pipe) if mesh.pipe > 1 else 1
     n, dp, d = batch_size // M, mesh.data, mesh.data_rank
-    if n * M != batch_size or n < dp or (M == 1 and n % dp):
+    if n * M != batch_size or (M == 1 and n % dp):
         raise ValueError(f"{batch_size} rows do not split into {M} microbatches x "
                          f"{dp} data ranks")
     lo, hi = d * n // dp, (d + 1) * n // dp

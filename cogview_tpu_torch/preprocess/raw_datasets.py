@@ -4,18 +4,20 @@ cogview_tpu/preprocess/raw_datasets.py).
 A folder, zip, tar (streamed), RAR (through the system libarchive,
 rar_reader.py) or HDF5 source yields ``(sample_id, normalized [h, w, 3]
 float32)`` pairs ready for VQ encoding, in the JAX package's order; a TSV
-or JSON file maps image names to captions.  Images are decoded by the
-port's own readers (``models/vqvae.py::decode_image``: PNG, JPEG, BMP,
-GIF, PNM, QOI, WebP) and resized as Pillow's bilinear filter does, byte-equal to Pillow's
-``convert("RGB")`` and ``resize``.
+or JSON file maps image names to captions.  As in the JAX package a file
+is taken by its name's extension and read by its content: the port's
+readers are chosen as Pillow's ``Image.open`` chooses its plugin
+(``utils/image_formats.py::decode_image``), byte-equal to Pillow's
+``convert("RGB")``, and resized as Pillow's bilinear filter does.
 
-The JAX package drops every image Pillow cannot open.  Here bytes of a
-format the port reads that fail to decode, and bytes that are no image,
-are skipped too, and counted in the source's ``skipped`` (a warning names
-the count at the end); an image whose format the port does not read
-(ICO, JPEG-compressed TIFF, arithmetic-coded JPEG, ...:
-``UnsupportedImageError``) stops the run with an error naming the file,
-since the JAX package would have read it.
+Every image ends in one of the three outcomes of ``utils/image_errors.py``:
+it is read; an image Pillow reads and the port does not (JPEG 2000,
+AVIF, a JPEG-compressed TIFF, ...: ``UnsupportedImageError``) stops the
+run with an error naming the file, since the JAX package would have read
+it; bytes Pillow cannot open or load (corrupt or cut files, bytes that are
+no image, an EPS without Ghostscript) are skipped and counted in the
+source's ``skipped`` (a warning names the count at the end), as the JAX
+package drops them.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from ..utils.image_errors import UnsupportedImageError
 
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 
-# what a corrupt file of a format the port reads raises while it is decoded
+# what bytes Pillow cannot open or load raise while they are decoded
 DECODE_ERRORS = (ValueError, zlib.error, IndexError, struct.error)
 
 __all__ = ["IMG_EXTS", "to_model_input", "ImageFolderDataset", "ZipDataset", "TarDataset",

@@ -6,9 +6,11 @@ a palette, 16 bits as 5-5-5, 24 and 32 bits as BGR(X); BI_BITFIELDS with
 the masks Pillow accepts (5-6-5 and 5-5-5 at 16 bits, the byte-aligned
 layouts at 24 and 32); RLE8 and RLE4 as Pillow's ``BmpRleDecoder`` runs
 them (its delta escape reads two bytes it drops and then two more, as
-there); bottom-up rows, and top-down where the height is negative.  What
-Pillow refuses (another header size or depth, a bitfield layout it does not
-know, too little pixel data) raises a ``ValueError``.
+there); bottom-up rows, and top-down where the height is negative.
+:func:`decode_dib` reads the bitmap of a headerless DIB file or of an
+icon or cursor entry.  What Pillow refuses (another header size or depth,
+a bitfield layout it does not know, too little pixel data) raises a
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+
+from .image_errors import NotThisFormat
 
 _RAW, _RLE8, _RLE4, _BITFIELDS = 0, 1, 2, 3
 
@@ -136,13 +140,24 @@ def decode_bmp(data: bytes) -> np.ndarray:
     if data[:2] != b"BM":
         raise ValueError("not a BMP")
     if len(data) < 18:
-        raise ValueError("corrupt BMP: truncated header")
-    offset = _i32(data, 10)
-    header_size = _i32(data, 14)
-    hd = data[18:14 + header_size]
+        raise NotThisFormat("corrupt BMP: truncated header")
+    return decode_dib(data, 14, _i32(data, 10))
+
+
+def decode_dib(data: bytes, start: int = 0, offset: int = 0, halve: bool = False
+               ) -> np.ndarray:
+    """The bitmap whose info header starts at ``start`` -> [h, w, 3] uint8,
+    as Pillow's ``BmpImageFile._bitmap``: ``offset`` is where the pixels
+    start (0: right after the header, masks and palette, as in a DIB file
+    or an icon).  ``halve`` reads the top half of the height, as an icon's
+    bitmap, whose height counts its AND mask too, is read."""
+    if len(data) < start + 4:
+        raise NotThisFormat("corrupt BMP: truncated header")
+    header_size = _i32(data, start)
+    hd = data[start + 4:start + header_size]
     if len(hd) < header_size - 4:
         raise ValueError("corrupt BMP: truncated header")
-    at = 14 + header_size  # the file position after the header
+    at = start + header_size  # the file position after the header
     direction = -1
     if header_size == 12:
         w, h, bits = _i16(hd, 0), _i16(hd, 2), _i16(hd, 6)
@@ -168,6 +183,8 @@ def decode_bmp(data: bytes) -> np.ndarray:
     colors = colors or (1 << bits)
     if offset == 14 + header_size and bits <= 8:
         offset += 4 * colors
+    if halve:
+        h //= 2
     raw = {1: "P;1", 4: "P;4", 8: "P", 16: "BGR;15", 24: "BGR", 32: "BGRX"}.get(bits)
     if raw is None:
         raise ValueError(f"unsupported BMP pixel depth ({bits})")
@@ -178,7 +195,9 @@ def decode_bmp(data: bytes) -> np.ndarray:
         raw = _MASKS[key]
     elif compression not in (_RAW, _RLE8, _RLE4):
         raise ValueError(f"unsupported BMP compression ({compression})")
-    if w <= 0 or h <= 0 or w * h > 1 << 30:
+    if w <= 0 or h <= 0:  # Pillow's "not identified by this driver"
+        raise NotThisFormat(f"corrupt BMP: size {w} x {h}")
+    if w * h > 1 << 30:
         raise ValueError(f"corrupt BMP: size {w} x {h}")
 
     palette = None
@@ -187,6 +206,7 @@ def decode_bmp(data: bytes) -> np.ndarray:
         if not 0 < colors <= 65536:
             raise ValueError(f"unsupported BMP palette size ({colors})")
         pal = data[at:at + padding * colors]
+        at += len(pal)
         entries = (0, 255) if colors == 2 else range(colors)
         gray = all(pal[i * padding:i * padding + 3] == bytes([v]) * 3
                    for i, v in enumerate(entries))
@@ -203,6 +223,7 @@ def decode_bmp(data: bytes) -> np.ndarray:
             palette = np.zeros((256, 3), np.uint8)
             palette[:k] = p[:, 2::-1]  # BGR(X) -> RGB
 
+    offset = offset or at
     if compression in (_RLE8, _RLE4):
         if unpack_bits == 1:
             raise ValueError("BMP: Pillow cannot read a two-colour gray RLE bitmap")
@@ -215,9 +236,10 @@ def decode_bmp(data: bytes) -> np.ndarray:
     if (w * unpack_bits + 7) // 8 > stride:
         raise ValueError("BMP: Pillow cannot read a gray-palette bitmap at this depth")
     body = data[offset:offset + stride * h]
-    if len(body) < stride * h:
+    # Pillow's raw decoder needs no padding after the last row
+    if len(body) < stride * (h - 1) + (w * unpack_bits + 7) // 8:
         raise ValueError("corrupt BMP: image file is truncated")
-    rows = np.frombuffer(body, np.uint8).reshape(h, stride)
+    rows = np.frombuffer(body.ljust(stride * h, b"\0"), np.uint8).reshape(h, stride)
     if direction == -1:
         rows = rows[::-1]
     if palette is not None:

@@ -1,14 +1,42 @@
-"""The error the image readers raise for a file they do not read.
+"""The errors the image readers raise for a file they do not read.
 
-``UnsupportedImageError`` names a format, or a variant of one, that Pillow
-reads and this package does not (ICO, PSD, arithmetic-coded, lossless,
-hierarchical and 12-bit JPEG, ...).  It is a ``ValueError``, as every other
-reader error is; the dataset sources tell the two apart: bytes of a format
-the package reads that fail to decode are skipped and counted, as the JAX
-package skips what Pillow cannot open, while an ``UnsupportedImageError``
-stops the run, since the JAX package would have read that image.
+Every file ends in one of three ways, as in the JAX package, which opens
+every image through Pillow's ``Image.open(...).convert("RGB")``:
+
+(a) it is read, byte-equal to Pillow;
+(b) Pillow reads it and this package does not: ``UnsupportedImageError``
+    names Pillow's format (JPEG 2000, AVIF, ICNS, ...), and the dataset
+    sources stop on it, since the JAX package would have trained on it;
+(c) Pillow cannot open or load it (corrupt or truncated bytes, bytes that
+    are no image, an EPS without Ghostscript, a WMF off Windows): any other
+    ``ValueError``, which the dataset sources skip and count, as the JAX
+    package skips the file.
+
+``NotThisFormat`` is raised where a plugin's header check refuses the
+file while ``Image.open`` opens it (a ``SyntaxError``, an ``IndexError``
+and the like in Pillow): ``utils/image_formats.py`` then goes on to the
+next format, as ``Image.open`` goes on to its next plugin.  Both are
+``ValueError``s.  :func:`check_pixels` is Pillow's decompression-bomb
+check, for the readers that allocate an image before they read it.
 """
 
 
 class UnsupportedImageError(ValueError):
     pass
+
+
+class NotThisFormat(ValueError):
+    pass
+
+
+# Pillow's Image.open raises DecompressionBombError above twice
+# Image.MAX_IMAGE_PIXELS; a reader that allocates its image before it
+# reads the pixels checks it first
+MAX_PIXELS = 2 * 89_478_485
+
+
+def check_pixels(w: int, h: int) -> None:
+    """Raise as Pillow's decompression-bomb check does for a w x h image."""
+    if w * h > MAX_PIXELS:
+        raise ValueError(f"an image of {w} x {h} pixels: Pillow refuses it as a "
+                         "decompression bomb")

@@ -1,25 +1,28 @@
-"""Baseline and progressive JPEG decoder on numpy, equal to libjpeg-turbo's
-default output.
+"""JPEG decoder on numpy, equal to libjpeg-turbo's default output as
+Pillow 12.1 reads it (libjpeg-turbo 3.1).
 
-Reads Huffman JPEG at 8 bits, sequential (SOF0, and SOF1 at 8 bits) and
-progressive (SOF2: spectral selection and successive approximation, the DC
-and AC first and refinement scans with their end-of-band runs): 1 or 3
-components, any sampling factors whose H and V are 1 or 2 (4:4:4, 4:2:2,
-4:2:0, 4:4:0 and the rest), restart intervals, several scans, and images
-whose sides are not a multiple of the MCU.  A progressive file's scans fill
-one whole-image coefficient buffer before the IDCT, as libjpeg-turbo reads
-every scan before its first output pass when not in buffered-image mode;
-once every coefficient is complete its block smoothing (``jdcoefct.c``,
-``smoothing_ok``) is off, so the output is that of a baseline file with the
-same coefficients.  It returns [h, w, 3] uint8, as
-Pillow's ``Image.open(path).convert("RGB")``: Pillow decodes through
-libjpeg-turbo, whose default output is integer arithmetic, ported here:
+Reads 8-bit JPEG, Huffman or arithmetic-coded (T.81 Annex D's QM coder,
+``jdarith.c``, with the DAC conditioning), sequential (SOF0, SOF1, SOF9)
+and progressive (SOF2, SOF10: spectral selection and successive
+approximation, the DC and AC first and refinement scans), and 8-bit
+lossless (SOF3: the seven predictors, point transforms): 1, 3 or 4
+components, sampling factors of 1 to 4 whose ratios are whole, restart
+intervals, several scans, and images whose sides are not a multiple of the
+MCU.  A progressive file's scans fill one whole-image coefficient buffer
+before the IDCT, as libjpeg-turbo reads every scan before its first output
+pass when not in buffered-image mode; once every coefficient is complete
+its block smoothing (``jdcoefct.c``, ``smoothing_ok``) is off, so the
+output is that of a baseline file with the same coefficients.  It returns
+[h, w, 3] uint8, as Pillow's ``Image.open(path).convert("RGB")``: Pillow
+decodes through libjpeg-turbo, whose default output is integer
+arithmetic, ported here:
 
 - the "islow" IDCT (``jidctint.c``: ``CONST_BITS`` 13, ``PASS1_BITS`` 2,
   and the range-limit table that wraps the output modulo 1024);
 - fancy upsampling (``jdsample.c``: ``h2v1``, ``h2v2`` and ``h1v2``, the
   image's edge rows and columns repeated, the alternating biases), with
-  plain replication where a component is at most two samples wide;
+  plain replication where a component is at most two samples wide, for
+  every other whole ratio (3, 4) and for every ratio of a lossless file;
 - the fixed-point YCbCr -> RGB tables (``jdcolor.c``: 16 fraction bits,
   ``ONE_HALF``).
 
@@ -28,18 +31,22 @@ without an Adobe marker or with transform 0, YCCK with transform 2 (or any
 other), each inverted as Pillow's ``CMYK;I`` raw mode and converted to RGB
 as Pillow's ``cmyk2rgb`` does.  Three components are YCbCr unless an
 Adobe marker's transform 0 or the ids 'R', 'G', 'B' (without JFIF) make
-them RGB: an Adobe transform 2 is read as YCbCr, as libjpeg reads it.
-Lossless, hierarchical, arithmetic-coded
-and 12-bit files raise an ``UnsupportedImageError`` (a ``ValueError``) that
-names the format.  Huffman decoding is a Python loop over symbols: each reads a
-16-bit window through a 65,536-entry table.
+them RGB: an Adobe transform 2 is read as YCbCr, as libjpeg reads it.  A
+lossless file's three components are RGB without a JFIF or Adobe marker;
+libjpeg-turbo converts no colour in lossless mode, so Pillow fails on a
+lossless YCbCr or YCCK file.  What Pillow cannot read raises a
+``ValueError`` that names it: 12-bit (and other precisions), hierarchical
+frames (SOF5-7, SOF13-15), arithmetic-coded lossless (SOF11), fractional
+sampling ratios.  Entropy decoding is a Python loop over symbols: Huffman
+codes read a 16-bit window through a 65,536-entry table, the arithmetic
+decoder one binary decision at a time.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .image_errors import UnsupportedImageError
+from .image_errors import check_pixels
 
 # zigzag index -> natural (row-major) index of the 8x8 block
 _ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48,
@@ -47,20 +54,32 @@ _ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 3
            15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55,
            62, 63)
 
-_UNSUPPORTED_SOF = {
-    0xC3: "lossless JPEG (SOF3)",
+# SOF marker -> (arithmetic-coded, process); libjpeg-turbo reads these
+_SOF = {0xC0: (False, "sequential"), 0xC1: (False, "sequential"),
+        0xC2: (False, "progressive"), 0xC3: (False, "lossless"),
+        0xC9: (True, "sequential"), 0xCA: (True, "progressive")}
+# the frames it refuses (JERR_SOF_UNSUPPORTED): Pillow opens them and fails
+_REFUSED_SOF = {
     0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical progressive JPEG (SOF6)",
-    0xC7: "hierarchical lossless JPEG (SOF7)", 0xC9: "arithmetic-coded JPEG (SOF9)",
-    0xCA: "arithmetic-coded progressive JPEG (SOF10)",
+    0xC7: "hierarchical lossless JPEG (SOF7)",
     0xCB: "arithmetic-coded lossless JPEG (SOF11)",
     0xCD: "arithmetic-coded hierarchical JPEG (SOF13)",
     0xCE: "arithmetic-coded hierarchical progressive JPEG (SOF14)",
     0xCF: "arithmetic-coded hierarchical lossless JPEG (SOF15)",
 }
+_FRAME_NAMES = {0xC0: "baseline JPEG", 0xC1: "extended sequential JPEG (SOF1)",
+                0xC2: "progressive JPEG", 0xC3: "lossless JPEG (SOF3)",
+                0xC9: "arithmetic-coded JPEG (SOF9)",
+                0xCA: "arithmetic-coded progressive JPEG (SOF10)"}
 
 
 def _u16(data: bytes, pos: int) -> int:
     return (data[pos] << 8) | data[pos + 1]
+
+
+# what a code no table holds decodes to: libjpeg warns, drops 17 bits and
+# fakes the symbol 0 (jdhuff.c, jpeg_huff_decode)
+_BAD_CODE = 17 << 8
 
 
 def _huffman_table(counts, symbols) -> list:
@@ -122,9 +141,7 @@ def _decode_segment(seg: bytes, blocks, coefs, tables) -> None:
             acc = ((acc & ((1 << nbits) - 1)) << 32) | int.from_bytes(seg[pos:pos + 4], "big")
             pos += 4
             nbits += 32
-        e = dc[(acc >> (nbits - 16)) & 0xFFFF]
-        if not e:
-            raise ValueError("corrupt JPEG: bad Huffman code")
+        e = dc[(acc >> (nbits - 16)) & 0xFFFF] or _BAD_CODE
         nbits -= e >> 8
         s = e & 0xFF
         v = 0
@@ -144,21 +161,17 @@ def _decode_segment(seg: bytes, blocks, coefs, tables) -> None:
                                                                           "big")
                 pos += 4
                 nbits += 32
-            e = ac[(acc >> (nbits - 16)) & 0xFFFF]
-            if not e:
-                raise ValueError("corrupt JPEG: bad Huffman code")
+            e = ac[(acc >> (nbits - 16)) & 0xFFFF] or _BAD_CODE
             nbits -= e >> 8
             rs = e & 0xFF
             s = rs & 15
             if s:
                 k += rs >> 4
-                if k > 63:
-                    raise ValueError("corrupt JPEG: coefficient index past 63")
                 v = (acc >> (nbits - s)) & ((1 << s) - 1)
                 nbits -= s
                 if v < (1 << (s - 1)):
                     v -= (1 << s) - 1
-                out[base + zz[k]] = v
+                out[base + (zz[k] if k < 64 else 63)] = v
                 k += 1
             elif rs == 0xF0:
                 k += 16
@@ -183,9 +196,7 @@ class _BitReader:
 
     def huff(self, lut) -> int:
         self._fill()
-        e = lut[(self.acc >> (self.nbits - 16)) & 0xFFFF]
-        if not e:
-            raise ValueError("corrupt JPEG: bad Huffman code")
+        e = lut[(self.acc >> (self.nbits - 16)) & 0xFFFF] or _BAD_CODE
         self.nbits -= e >> 8
         return e & 0xFF
 
@@ -235,9 +246,7 @@ def _decode_progressive_segment(seg: bytes, blocks, coefs, tables, ss: int, se: 
                 r, s = rs >> 4, rs & 15
                 if s:
                     k += r
-                    if k > 63:
-                        raise ValueError("corrupt JPEG: coefficient index past 63")
-                    out[base + zz[k]] = br.signed(s) * p1
+                    out[base + (zz[k] if k < 64 else 63)] = br.signed(s) * p1
                 elif r == 15:
                     k += 15
                 else:
@@ -268,9 +277,7 @@ def _decode_progressive_segment(seg: bytes, blocks, coefs, tables, ss: int, se: 
                             break
                     k += 1
                 if s:
-                    if k > 63:
-                        raise ValueError("corrupt JPEG: coefficient index past 63")
-                    out[base + zz[k]] = s
+                    out[base + (zz[k] if k < 64 else 63)] = s
                 k += 1
         if eobrun:
             while k <= se:
@@ -279,6 +286,340 @@ def _decode_progressive_segment(seg: bytes, blocks, coefs, tables, ss: int, se: 
                     out[pos] += p1 if out[pos] >= 0 else m1
                 k += 1
             eobrun -= 1
+
+
+# T.81 Table D.2 as libjpeg's jpeg_aritab packs it: Qe << 16 | next index
+# after an MPS << 8 | switch << 7 | next index after an LPS; entry 113 is
+# the fixed probability 0.5 of the sign of an AC coefficient and of the
+# refinement bits
+_ARITAB = tuple((qe << 16) | (nm << 8) | (sw << 7) | nl for qe, nl, nm, sw in (
+    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080B, 18, 4, 0),
+    (0x03D8, 20, 5, 0), (0x01DA, 23, 6, 0), (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001A, 33, 10, 0), (0x000D, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1), (0x3F25, 36, 16, 0),
+    (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0), (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0CEF, 43, 21, 0), (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01B1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0), (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004E, 63, 34, 0), (0x003B, 32, 35, 0), (0x002C, 33, 9, 0),
+    (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0), (0x2EF1, 67, 40, 0),
+    (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0), (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05CD, 48, 51, 0), (0x04DE, 50, 52, 0),
+    (0x040F, 50, 53, 0), (0x0363, 51, 54, 0), (0x02D4, 52, 55, 0), (0x025C, 53, 56, 0),
+    (0x01F8, 54, 57, 0), (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0), (0x008F, 61, 32, 0),
+    (0x5B12, 65, 65, 1), (0x4D04, 80, 66, 0), (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0),
+    (0x2FE8, 83, 69, 0), (0x293C, 84, 70, 0), (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0),
+    (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0), (0x119C, 74, 76, 0),
+    (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0), (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0),
+    (0x34EE, 91, 85, 0), (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0), (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0), (0x56A8, 95, 96, 1),
+    (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0), (0x3C3D, 104, 100, 0),
+    (0x375E, 99, 93, 0), (0x5231, 105, 102, 0), (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415E, 103, 99, 0), (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504F, 111, 107, 0), (0x5A10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59EB, 112, 111, 1), (0x5A1D, 113, 113, 0)))
+
+
+class _ArithDecoder:
+    """libjpeg's arith_decode (``jdarith.c``, T.81 D.2) over one restart
+    interval's bytes, zeros past their end as libjpeg feeds them after a
+    marker."""
+
+    def __init__(self, seg: bytes):
+        self.seg, self.pos = seg, 0
+        self.c = self.a = 0
+        self.ct = -16
+
+    def decode(self, st: bytearray, i: int) -> int:
+        """One binary decision with the statistics bin ``st[i]``."""
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                byte = self.seg[self.pos] if self.pos < len(self.seg) else 0
+                self.pos += 1
+                c = (c << 8) | byte
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        qe = _ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+def _s16(v: int) -> int:
+    """An int stored in a JCOEF (int16)."""
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _arith_segment(seg: bytes, blocks, coefs, comps, scan, arith, ss: int, se: int,
+                   ah: int, al: int, progressive: bool) -> None:
+    """One restart interval of an arithmetic-coded scan (``jdarith.c``):
+    sequential (DC and AC of every block), or a progressive DC first, DC
+    refinement, AC first or AC refinement pass.  The statistics, the DC
+    predictions and contexts start afresh; ``arith`` holds the DAC
+    conditioning (L and U of each DC table, K of each AC table)."""
+    dec = _ArithDecoder(seg)
+    dc_stats = {comps[ci]["td"]: bytearray(64) for ci in scan}
+    ac_stats = {comps[ci]["ta"]: bytearray(256) for ci in scan}
+    fixed = bytearray([113])
+    last = {ci: 0 for ci in scan}
+    ctx = {ci: 0 for ci in scan}
+    zz = _ZIGZAG
+    decode = dec.decode
+
+    def dc_diff(ci: int):
+        tbl = comps[ci]["td"]
+        st = dc_stats[tbl]
+        i = ctx[ci]
+        if not decode(st, i):
+            ctx[ci] = 0
+            return 0
+        sign = decode(st, i + 1)
+        i += 2 + sign
+        m = decode(st, i)
+        if m:
+            i = 20
+            while decode(st, i):
+                m <<= 1
+                if m == 0x8000:
+                    return None
+                i += 1
+        lo, hi = arith["L"].get(tbl, 0), arith["U"].get(tbl, 1)
+        if m < (1 << lo) >> 1:
+            ctx[ci] = 0
+        elif m > (1 << hi) >> 1:
+            ctx[ci] = 12 + 4 * sign
+        else:
+            ctx[ci] = 4 + 4 * sign
+        v = m
+        i += 14
+        m >>= 1
+        while m:
+            if decode(st, i):
+                v |= m
+            m >>= 1
+        v += 1
+        return -v if sign else v
+
+    def ac_value(st: bytearray, i: int, k: int, kx: int):
+        """The nonzero AC coefficient at index k, its bins from st[i]."""
+        sign = decode(fixed, 0)
+        i += 2
+        m = decode(st, i)
+        if m and decode(st, i):
+            m <<= 1
+            i = 189 if k <= kx else 217
+            while decode(st, i):
+                m <<= 1
+                if m == 0x8000:
+                    return None
+                i += 1
+        v = m
+        i += 14
+        m >>= 1
+        while m:
+            if decode(st, i):
+                v |= m
+            m >>= 1
+        v += 1
+        return -v if sign else v
+
+    if progressive and ss == 0 and ah:  # DC refinement
+        for ci, base in blocks:
+            if decode(fixed, 0):
+                coefs[ci][base] |= 1 << al
+        return
+    if progressive and ss == 0:  # DC first
+        for ci, base in blocks:
+            d = dc_diff(ci)
+            if d is None:
+                return
+            last[ci] = (last[ci] + d) & 0xFFFF
+            coefs[ci][base] = _s16(last[ci] << al)
+        return
+    if progressive:
+        ci0 = scan[0]
+        tbl = comps[ci0]["ta"]
+        st = ac_stats[tbl]
+        kx = arith["K"].get(tbl, 5)
+        p1, m1 = 1 << al, -1 << al
+        for ci, base in blocks:
+            out = coefs[ci]
+            if not ah:  # AC first
+                k = ss
+                while k <= se:
+                    i = 3 * (k - 1)
+                    if decode(st, i):
+                        break  # end of block
+                    while not decode(st, i + 1):
+                        i += 3
+                        k += 1
+                        if k > se:
+                            return
+                    v = ac_value(st, i, k, kx)
+                    if v is None:
+                        return
+                    out[base + zz[k]] = _s16(v << al)
+                    k += 1
+                continue
+            # AC refinement: EOBx is the last coefficient already nonzero
+            kex = se
+            while kex > 0 and not out[base + zz[kex]]:
+                kex -= 1
+            k = ss
+            while k <= se:
+                i = 3 * (k - 1)
+                if k > kex and decode(st, i):
+                    break
+                while True:
+                    pos = base + zz[k]
+                    if out[pos]:
+                        if decode(st, i + 2):
+                            out[pos] += m1 if out[pos] < 0 else p1
+                        break
+                    if decode(st, i + 1):
+                        out[pos] = m1 if decode(fixed, 0) else p1
+                        break
+                    i += 3
+                    k += 1
+                    if k > se:
+                        return
+                k += 1
+        return
+    for ci, base in blocks:  # sequential
+        d = dc_diff(ci)
+        if d is None:
+            return
+        last[ci] = (last[ci] + d) & 0xFFFF
+        out = coefs[ci]
+        out[base] = _s16(last[ci])
+        tbl = comps[ci]["ta"]
+        st = ac_stats[tbl]
+        kx = arith["K"].get(tbl, 5)
+        k = 1
+        while k <= 63:
+            i = 3 * (k - 1)
+            if decode(st, i):
+                break
+            while not decode(st, i + 1):
+                i += 3
+                k += 1
+                if k > 63:
+                    return
+            v = ac_value(st, i, k, kx)
+            if v is None:
+                return
+            out[base + zz[k]] = _s16(v)
+            k += 1
+
+
+def _lossless_scan(segments, comps, scan, w: int, h: int, restart: int, dc_tables,
+                   predictor: int, pt: int, samples) -> None:
+    """A lossless scan (``jdlhuff.c``, ``jddiffct.c``, ``jdpred.c``): one
+    Huffman-coded difference a sample, MCU by MCU (each component's h x v
+    samples in an interleaved scan, one sample in a single-component one),
+    then undifferenced row by row as ``jddiffct.c`` does, an iMCU row (the
+    component's v rows) at a time: its first row, where the scan or a
+    restart interval starts among its MCU rows, from 1 << (7 - Pt) and its
+    left neighbour, every other
+    row's first sample from the one above, the rest by the scan's
+    predictor, modulo 2**16.  ``samples[ci]`` receives the component's rows
+    at its downsampled width, shifted left by Pt into 8 bits."""
+    hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
+    if len(scan) == 1:
+        c = comps[scan[0]]
+        mcux, mcuy, units = c["dw"], c["dh"], [(scan[0], 1, 1)]
+    else:
+        mcux, mcuy = -(-w // hmax), -(-h // vmax)
+        units = [(ci, comps[ci]["h"], comps[ci]["v"]) for ci in scan]
+    diffs = {ci: np.zeros((mcuy * v, mcux * hh), np.int64) for ci, hh, v in units}
+    luts = {ci: dc_tables.get(comps[ci]["td"]) for ci, _, _ in units}
+    if any(t is None for t in luts.values()):
+        raise ValueError("corrupt JPEG: a lossless scan without its Huffman table")
+    per_rows = restart // mcux if restart else mcuy  # MCU rows a restart interval
+    if restart and (restart % mcux or not per_rows):
+        raise ValueError("lossless JPEG with a restart interval that is not a whole "
+                         "number of MCU rows")
+    for n, my0 in enumerate(range(0, mcuy, per_rows)):  # the restart intervals
+        br = _BitReader(segments[n] if n < len(segments) else b"")
+        for my in range(my0, min(my0 + per_rows, mcuy)):
+            for mx in range(mcux):
+                for ci, hh, v in units:
+                    lut, d = luts[ci], diffs[ci]
+                    for y in range(my * v, my * v + v):
+                        for x in range(mx * hh, mx * hh + hh):
+                            s = br.huff(lut)
+                            d[y, x] = 32768 if s == 16 else (br.signed(s) if s else 0)
+    initial = 1 << (8 - pt - 1)
+    per_rows = per_rows if restart else 1 << 30
+    for ci, hh, v in units:
+        c = comps[ci]
+        d = diffs[ci][:, :c["dw"]]
+        out = np.zeros_like(d)
+        vc = c["v"]  # the rows of an iMCU row, which libjpeg undifferences together
+        for y in range(d.shape[0]):
+            row, dd = out[y], d[y]
+            # the first row of an iMCU row in whose MCU rows (v of them, or 1)
+            # the scan or a restart interval starts
+            first = y % vc == 0 and any(k % per_rows == 0 for k in range(y // v, (y + vc) // v))
+            if first:
+                np.cumsum(dd, out=row)
+                row += initial
+                row &= 0xFFFF  # a running sum modulo 2**16 is the 1-D rule
+                continue
+            prev = out[y - 1]
+            if predictor in (1, 2):
+                if predictor == 2:
+                    row[:] = (dd + prev) & 0xFFFF
+                else:
+                    row[0] = (dd[0] + prev[0]) & 0xFFFF
+                    row[1:] = dd[1:]
+                    np.cumsum(row, out=row)
+                    row &= 0xFFFF
+                continue
+            ra = (dd[0] + prev[0]) & 0xFFFF
+            row[0] = ra
+            for x in range(1, len(dd)):
+                rb, rc = prev[x], prev[x - 1]
+                if predictor == 3:
+                    p = rc
+                elif predictor == 4:
+                    p = ra + rb - rc
+                elif predictor == 5:
+                    p = ra + ((rb - rc) >> 1)
+                elif predictor == 6:
+                    p = rb + ((ra - rc) >> 1)
+                else:
+                    p = (ra + rb) >> 1
+                ra = (dd[x] + p) & 0xFFFF
+                row[x] = ra
+        samples[ci] = ((out[:c["dh"]] << pt) & 0xFF).astype(np.uint8)
 
 
 # jidctint.c's fixed-point constants, FIX(x) = round(x * 2**13)
@@ -387,7 +728,9 @@ def _upsample_h2v2(x: np.ndarray, fancy: bool) -> np.ndarray:
 def _upsample(plane: np.ndarray, hr: int, vr: int) -> np.ndarray:
     """A component at its downsampled size -> the full grid, by the
     (horizontal, vertical) ratio of the largest sampling factor to its own,
-    as libjpeg-turbo's jinit_upsampler picks the method."""
+    as libjpeg-turbo's jinit_upsampler picks the method: the fancy h2v1,
+    h1v2 and h2v2 filters, and replication (``int_upsample``) for every
+    other whole ratio (3 and 4, and 2 beside 3 or 4)."""
     width = plane.shape[1]
     if (hr, vr) == (1, 1):
         return plane
@@ -397,7 +740,7 @@ def _upsample(plane: np.ndarray, hr: int, vr: int) -> np.ndarray:
         return _upsample_v2(plane)
     if (hr, vr) == (2, 2):
         return _upsample_h2v2(plane, width > 2)
-    raise ValueError(f"JPEG sampling ratio {hr}x{vr} is not supported")
+    return np.repeat(np.repeat(plane, vr, axis=0), hr, axis=1)
 
 
 def _ycc_tables():
@@ -428,17 +771,18 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """The bytes of a baseline or progressive JPEG file -> [h, w, 3] uint8."""
+    """The bytes of a JPEG file -> [h, w, 3] uint8."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG")
     pos = 2
     quant, dc_tables, ac_tables = {}, {}, {}
-    frame = None
-    progressive = False
+    arith = {"L": {}, "U": {}, "K": {}}  # DAC conditioning; libjpeg's defaults 0, 1, 5
+    frame = sof = None
     restart = 0
     adobe = None
     jfif = False
-    coefs = None
+    coefs = samples = None
+    scans = 0
     while True:
         i = data.find(b"\xff", pos)
         if i < 0:
@@ -457,36 +801,39 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         length = _u16(data, pos)
         body = data[pos + 2:pos + length]
         pos += length
-        if m in (0xC0, 0xC1, 0xC2):
-            progressive = m == 0xC2
+        if m in _SOF or m in _REFUSED_SOF:
             precision, h, w, nc = body[0], _u16(body, 1), _u16(body, 3), body[5]
-            if precision != 8:
-                raise UnsupportedImageError(
-                    f"{precision}-bit JPEG is not supported (8-bit only)")
+            if precision != 8:  # Pillow's plugin refuses it: no plugin opens it
+                raise ValueError(f"{precision}-bit JPEG: Pillow cannot open it (8-bit only)")
             if nc not in (1, 3, 4):
-                raise ValueError(f"JPEG with {nc} components is not supported")
+                raise ValueError(f"JPEG with {nc} components: Pillow cannot open it")
             if h == 0 or w == 0:
-                raise ValueError("JPEG with a DNL-defined height is not supported")
+                raise ValueError("JPEG with a DNL-defined height: Pillow cannot open it")
+            check_pixels(w, h)
+            if m in _REFUSED_SOF:
+                raise ValueError(f"{_REFUSED_SOF[m]}: libjpeg-turbo, and so Pillow, cannot "
+                                 "read it")
+            sof = m
             comps = []
             for k in range(nc):
                 cid, hv, tq = body[6 + 3 * k], body[7 + 3 * k], body[8 + 3 * k]
                 hs, vs = hv >> 4, hv & 15
-                if hs not in (1, 2) or vs not in (1, 2):
-                    raise ValueError(f"JPEG sampling factors {hs}x{vs} are not supported "
-                                     "(1 or 2 only)")
+                if not (1 <= hs <= 4 and 1 <= vs <= 4):
+                    raise ValueError(f"corrupt JPEG: sampling factors {hs}x{vs} (libjpeg "
+                                     "takes 1 to 4)")
                 comps.append({"id": cid, "h": hs, "v": vs, "tq": tq})
             frame = (h, w, comps)
             hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
+            if any(hmax % c["h"] or vmax % c["v"] for c in comps):
+                raise ValueError("JPEG with a fractional sampling ratio: libjpeg cannot "
+                                 "upsample it")
             mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
             for c in comps:
                 c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]  # blocks allocated
                 c["dw"] = -(-w * c["h"] // hmax)  # downsampled size
                 c["dh"] = -(-h * c["v"] // vmax)
             coefs = [[0] * (c["bw"] * c["bh"] * 64) for c in comps]
-        elif m in _UNSUPPORTED_SOF or m == 0xCC:
-            raise UnsupportedImageError(
-                f"{_UNSUPPORTED_SOF.get(m, 'arithmetic-coded JPEG (DAC)')} is not supported "
-                "(sequential and progressive Huffman only)")
+            samples = [np.zeros((c["dh"], c["dw"]), np.uint8) for c in comps]
         elif m == 0xC4:  # DHT
             at = 0
             while at < len(body):
@@ -496,6 +843,17 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 table = _huffman_table(counts, body[at + 17:at + 17 + n])
                 (ac_tables if tc_th >> 4 else dc_tables)[tc_th & 15] = table
                 at += 17 + n
+        elif m == 0xCC:  # DAC
+            for at in range(0, len(body) - 1, 2):
+                index, val = body[at], body[at + 1]
+                if index >= 32:
+                    raise ValueError("corrupt JPEG: bad DAC index")
+                if index >= 16:
+                    arith["K"][index - 16] = val
+                elif (val & 15) > (val >> 4):
+                    raise ValueError("corrupt JPEG: DAC with L above U")
+                else:
+                    arith["L"][index], arith["U"][index] = val & 15, val >> 4
         elif m == 0xDB:  # DQT
             at = 0
             while at < len(body):
@@ -519,6 +877,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             if frame is None:
                 raise ValueError("corrupt JPEG: scan before the frame header")
             h, w, comps = frame
+            is_arith, process = _SOF[sof]
             ns = body[0]
             scan = []
             for k in range(ns):
@@ -527,16 +886,32 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 if ci is None:
                     raise ValueError("corrupt JPEG: scan names an unknown component")
                 scan.append(ci)
+                comps[ci]["td"], comps[ci]["ta"] = tdta >> 4, tdta & 15
                 # a progressive DC scan needs no AC table, an AC scan no DC table
                 comps[ci]["tables"] = (dc_tables.get(tdta >> 4), ac_tables.get(tdta & 15))
             ss, se, ah, al = body[1 + 2 * ns], body[2 + 2 * ns], *divmod(body[3 + 2 * ns], 16)
+            if not is_arith and process != "lossless":
+                for ci in scan:  # libjpeg fails on a table the scan uses and no DHT defined
+                    dc, ac = comps[ci]["tables"]
+                    if (dc is None and (process == "sequential" or (ss == 0 and not ah))
+                            or ac is None and (process == "sequential" or ss)):
+                        raise ValueError("corrupt JPEG: a scan names an undefined Huffman "
+                                         "table")
+            segments, pos = _scan_segments(data, pos)
+            scans += 1
             if len(scan) > 1 and sum(comps[ci]["h"] * comps[ci]["v"] for ci in scan) > 10:
                 raise ValueError("corrupt JPEG: more than 10 blocks in an MCU")
+            if process == "lossless":
+                if not 1 <= ss <= 7 or se or ah or al >= 8:
+                    raise ValueError("corrupt JPEG: bad lossless scan parameters")
+                _lossless_scan(segments, comps, scan, w, h, restart, dc_tables, ss, al,
+                               samples)
+                continue
+            progressive = process == "progressive"
             if progressive and (se > 63 or ss > se or (ss == 0) != (se == 0)
                                 or (ss and len(scan) > 1)):
                 raise ValueError("corrupt JPEG: bad progressive scan parameters")
             blocks = _scan_blocks(comps, scan, w, h)
-            segments, pos = _scan_segments(data, pos)
             per = restart * len(blocks) // _scan_mcus(comps, scan, w, h) if restart else 0
             tables = {ci: comps[ci]["tables"] for ci in scan}
             if per:
@@ -545,17 +920,26 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 parts = [blocks]
             segments += [b""] * (len(parts) - len(segments))
             for seg, part in zip(segments, parts):
-                if progressive:
+                if is_arith:
+                    _arith_segment(seg, part, coefs, comps, scan, arith, ss, se, ah, al,
+                                   progressive)
+                elif progressive:
                     _decode_progressive_segment(seg, part, coefs, tables, ss, se, ah, al)
                 else:
                     _decode_segment(seg, part, coefs, tables)
         # every other marker (APPn, COM, ...) is skipped
     if frame is None:
         raise ValueError("corrupt JPEG: no frame header")
+    if not scans:
+        raise ValueError(f"corrupt JPEG: the {_FRAME_NAMES[sof]} frame has no scan")
     h, w, comps = frame
     hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
+    lossless = _SOF[sof][1] == "lossless"
     planes = []
-    for c, cf in zip(comps, coefs):
+    for c, cf, px in zip(comps, coefs, samples):
+        if lossless:  # no IDCT, and plain upsampling: libjpeg's fancy filters need DCT blocks
+            planes.append(np.repeat(np.repeat(px, vmax // c["v"], 0), hmax // c["h"], 1)[:h, :w])
+            continue
         if c["tq"] not in quant:
             raise ValueError("corrupt JPEG: missing quantization table")
         px = idct_islow(np.asarray(cf, np.int64).reshape(-1, 64), quant[c["tq"]])
@@ -564,9 +948,12 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         planes.append(_upsample(plane, hmax // c["h"], vmax // c["v"])[:h, :w])
     if len(planes) == 1:
         return np.repeat(planes[0][..., None], 3, axis=2)
+    if lossless and (len(planes) == 3 and jfif or adobe not in (None, 0)):
+        raise ValueError("lossless JPEG in YCbCr or YCCK: libjpeg-turbo converts no colour "
+                         "in lossless mode, and Pillow fails on it")
     if len(planes) == 4:
         return _four_to_rgb(planes, adobe)
-    if _is_rgb(comps, jfif, adobe):
+    if lossless or _is_rgb(comps, jfif, adobe):
         return np.stack(planes, axis=-1)
     return ycc_to_rgb(*planes)
 

@@ -148,6 +148,14 @@ def _to_rgb(s: np.ndarray, ctype: int, depth: int, palette: np.ndarray) -> np.nd
     return np.ascontiguousarray(s[..., :3])
 
 
+def _inflate(z: bytes, need: int) -> bytes:
+    """The IDAT stream inflated as Pillow's decoder inflates it: zlib stops
+    once the image's ``need`` bytes are out, so what follows them (the
+    Adler-32 among it) is checked only as far as that last call reads; a
+    stream cut short gives what it holds (too little fails later)."""
+    return zlib.decompressobj().decompress(z, need)
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """The bytes of a PNG file -> [h, w, 3] uint8."""
     if data[:8] != _SIG:
@@ -173,7 +181,10 @@ def decode_png(data: bytes) -> np.ndarray:
     if interlace not in (0, 1):
         raise ValueError(f"PNG interlace method {interlace} is not a legal PNG")
     channels = _COLOUR_TYPES[ctype][0]
-    stream = memoryview(zlib.decompress(b"".join(idat)))
+    passes = [(w, h)] if interlace == 0 else [
+        (max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))) for y0, x0, dy, dx in _ADAM7]
+    need = sum(ph * (1 + -(-pw * channels * depth // 8)) for pw, ph in passes if pw and ph)
+    stream = memoryview(_inflate(b"".join(idat), need))
     if interlace == 0:
         samples, _ = _decode_pass(stream, 0, w, h, channels, depth)
     else:

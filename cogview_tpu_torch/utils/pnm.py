@@ -1,5 +1,5 @@
-"""PNM decoder on numpy (P1-P6): equal to Pillow 12.1's
-``Image.open(...).convert("RGB")``.
+"""PNM decoder on numpy (P1-P6 and the extensions Pillow opens): equal to
+Pillow 12.1's ``Image.open(...).convert("RGB")``.
 
 Follows Pillow's ``PpmImagePlugin``: the magic is read up to the first
 whitespace (6 bytes at most); header tokens are separated by whitespace,
@@ -17,6 +17,13 @@ after the last token is the last of the header.
   ``round(v / maxval * out_max)`` with the same out_max; a value above
   maxval raises.
 
+* The extensions, raw like P5/P6: P0CMYK and PyCMYK (CMYK, through
+  Pillow's ``cmyk2rgb``), PyRGBA (the alpha dropped), PyP (a palette image
+  with no palette: black) and Pf (PFM gray float32, little-endian where
+  the scale is negative, rows bottom-up; ``convert`` clips each value to
+  [0, 255] and truncates it, NaN to 0).  Pillow's plugin does not open a
+  colour PFM (``PF``).
+
 ``round`` is Python's (half to even), on float64.  An "I" image converts to
 RGB by clipping each value to 255, a bitmap to 0 and 255.  A file that
 ends before its pixels raises a ``ValueError``.
@@ -25,11 +32,19 @@ ends before its pixels raises a ``ValueError``.
 from __future__ import annotations
 
 import io
+import math
 
 import numpy as np
 
+from .image_errors import NotThisFormat
+from .jpeg import cmyk_to_rgb
+from .raw_formats import gray_to_rgb
+
 _WS = b"\x20\x09\x0a\x0b\x0c\x0d"
-_CHANNELS = {b"P1": 1, b"P2": 1, b"P3": 3, b"P4": 1, b"P5": 1, b"P6": 3}
+# magic -> (Pillow's mode, bands): P1-P6 and the extensions Pillow opens
+_MODES = {b"P1": ("1", 1), b"P2": ("L", 1), b"P3": ("RGB", 3), b"P4": ("1", 1),
+          b"P5": ("L", 1), b"P6": ("RGB", 3), b"P0CMYK": ("CMYK", 4), b"Pf": ("F", 1),
+          b"PyP": ("P", 1), b"PyRGBA": ("RGBA", 4), b"PyCMYK": ("CMYK", 4)}
 _BLOCK = 1 << 20  # Pillow's ImageFile.SAFEBLOCK: the plain decoder's read size
 
 
@@ -141,15 +156,25 @@ class _PlainReader:
 
 
 def decode_pnm(data: bytes) -> np.ndarray:
-    """The bytes of a P1-P6 file -> [h, w, 3] uint8."""
+    """The bytes of a PNM file (P1-P6 or an extension) -> [h, w, 3] uint8."""
     fp = io.BytesIO(data)
     magic = _magic(fp)
-    if magic not in _CHANNELS:
-        raise ValueError(f"not a PNM file: magic {magic!r}")
+    if magic not in _MODES:
+        raise NotThisFormat(f"not a PNM file: magic {magic!r}")
     w, h = int(_token(fp)), int(_token(fp))
-    if w <= 0 or h <= 0:
-        raise ValueError(f"corrupt PNM: size {w} x {h}")
-    bands = _CHANNELS[magic]
+    mode, bands = _MODES[magic]
+    if mode == "F":
+        scale = float(_token(fp))
+        if scale == 0.0 or not math.isfinite(scale):
+            raise ValueError("corrupt PFM: scale must be finite and non-zero")
+    if w <= 0 or h <= 0:  # Pillow's "not identified by this driver"
+        raise NotThisFormat(f"corrupt PNM: size {w} x {h}")
+    if mode == "F":
+        raw = fp.read(4 * w * h)
+        if len(raw) < 4 * w * h:
+            raise ValueError("corrupt PFM: the file ends in its pixels")
+        v = np.frombuffer(raw, "<f4" if scale < 0 else ">f4").reshape(h, w)[::-1]
+        return gray_to_rgb(v)
     if magic in (b"P1", b"P4"):
         if magic == b"P1":
             bits = _PlainReader(fp).bitonal(w * h)
@@ -168,7 +193,7 @@ def decode_pnm(data: bytes) -> np.ndarray:
     maxval = int(_token(fp))
     if not 0 < maxval < 65536:
         raise ValueError("corrupt PNM: maxval must be greater than 0 and less than 65536")
-    wide = bands == 1 and maxval > 255  # Pillow's mode "I"
+    wide = mode == "L" and maxval > 255  # Pillow's mode "I"
     out_max = 65535 if wide else 255
     n = w * h * bands
     if magic in (b"P2", b"P3"):
@@ -185,4 +210,8 @@ def decode_pnm(data: bytes) -> np.ndarray:
         if not (maxval == 255 or wide and maxval == 65535):  # else the raw values
             v = np.minimum(out_max, np.round(v / maxval * out_max)).astype(np.int64)
     v = np.minimum(v, 255).astype(np.uint8).reshape(h, w, bands)  # "I" clips to 8 bits
-    return np.repeat(v, 3, axis=2) if bands == 1 else v
+    if mode == "P":  # no palette: every index is black, as in Pillow
+        return np.zeros((h, w, 3), np.uint8)
+    if mode == "CMYK":
+        return cmyk_to_rgb(v[..., :3], v[..., 3])
+    return np.repeat(v, 3, axis=2) if bands == 1 else np.ascontiguousarray(v[..., :3])

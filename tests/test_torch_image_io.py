@@ -509,9 +509,10 @@ def test_progressive_jpeg_raises_a_named_error(sof, match):
 
 
 def test_cmyk_jpeg_raises_a_named_error(tmp_path):
-    """A CMYK JPEG now reads as Pillow reads it (the cases below); what
-    still raises by name is a four-component frame that no reader here
-    takes, an arithmetic-coded one."""
+    """A CMYK JPEG now reads as Pillow reads it (the cases below), and so
+    does an arithmetic-coded one (tests/test_torch_image_formats.py); a
+    four-component arithmetic-coded frame with no scan, which Pillow cannot
+    load, raises a ValueError naming the frame, and is no named refusal."""
     buf = io.BytesIO()
     Image.fromarray(_picture(9, 7, 1)).convert("CMYK").save(buf, "JPEG")
     path = tmp_path / "cmyk.jpg"
@@ -519,8 +520,11 @@ def test_cmyk_jpeg_raises_a_named_error(tmp_path):
     np.testing.assert_array_equal(vqvae.read_img(str(path)), jvq.read_img(str(path)))
     header = b"\xff\xc9" + struct.pack(">HBHHB", 20, 8, 8, 8, 4) + b"".join(
         bytes([k, 0x11, 0]) for k in range(1, 5))
-    with pytest.raises(UnsupportedImageError, match="arithmetic-coded"):
+    with pytest.raises(ValueError, match="arithmetic-coded") as err:
         decode_jpeg(b"\xff\xd8" + header + b"\xff\xd9")
+    assert not isinstance(err.value, UnsupportedImageError)
+    with pytest.raises(OSError):
+        _pillow(b"\xff\xd8" + header + b"\xff\xd9")
 
 
 @pytest.mark.parametrize("header,match", [
@@ -926,9 +930,15 @@ def test_gif_short_palette_truncation_and_pillow_files(tmp_path):
 def test_formats_pillow_reads_raise_a_named_error(fmt):
     """Files Pillow reads and the port does not: an ``UnsupportedImageError``
     naming the format (Pillow writes them here where it can).  PNM, QOI,
-    WebP and TIFF are read now: Pillow's own files decode byte-equal to it."""
-    if fmt in ("PPM", "QOI", "WEBP", "TIFF"):
+    WebP, TIFF, ICO and PSD are read now: Pillow's own files (a PSD built
+    here, since Pillow writes none) decode byte-equal to it."""
+    if fmt in ("PPM", "QOI", "WEBP", "TIFF", "ICO"):
         _check_pillow(vqvae.decode_image, _encoded_by_pillow(fmt))
+        return
+    if fmt == "PSD":  # 8-bit RGB, raw: header, empty sections, the composite
+        planes = _picture(5, 7, 2).transpose(2, 0, 1)
+        _check_pillow(vqvae.decode_image, b"8BPS\x00\x01" + bytes(6) + struct.pack(
+            ">HIIHH", 3, 5, 7, 8, 3) + bytes(12) + b"\x00\x00" + planes.tobytes())
         return
     names = {"WEBP": "WebP", "ICO": "ICO", "JPEG2000": "JPEG 2000", "TIFF": "TIFF",
              "PSD": "PSD"}

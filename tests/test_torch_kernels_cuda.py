@@ -70,6 +70,24 @@ def _flash_inputs(device, dtype, b, s, n, d, q_scale=1.0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_take_an_empty_shard(cuda_device, dtype):
+    """A data rank's empty shard of a pipeline microbatch (batch 0): the
+    forward and both backward wrappers return empty tensors and launch no
+    grid (a grid of no blocks is a launch error)."""
+    q, k, v = (torch.zeros(0, 77, 4, 64, dtype=dtype, device=cuda_device,
+                           requires_grad=True) for _ in range(3))
+    before = (fa.flash_attention.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    o, lse = fa.flash_attention(q, k, v, 5, dropout_rate=0.1, dropout_seed=7)
+    grads = torch.autograd.grad(o.float().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert o.shape == (0, 77, 4, 64) and lse.shape == (0, 4, 77)
+    assert all(g.shape == (0, 77, 4, 64) for g in grads)
+    assert (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_repeats_bit_equal(cuda_device, dtype, d):

@@ -229,8 +229,10 @@ def test_data_rows_are_the_jax_microbatch_shards():
 
 def test_data_rows_split_uneven_microbatches_in_rank_order():
     """Microbatches of 5 rows over 3 data ranks: shards of 1, 2 and 2 rows,
-    one after another, each rank's rows chunking into its M shards; a
-    microbatch of fewer rows than ranks is refused."""
+    one after another, each rank's rows chunking into its M shards.
+    Microbatches of 2 rows over 3 ranks leave rank 0 empty shards, as
+    GSPMD pads them; a batch that does not split into M microbatches is
+    refused."""
     from cogview_tpu_torch.parallel.mesh import Mesh as TMesh
     from cogview_tpu_torch.parallel.pipeline import data_rows
 
@@ -242,8 +244,12 @@ def test_data_rows_split_uneven_microbatches_in_rank_order():
     for m in range(M):
         got = torch.cat([r.reshape(M, -1)[m] for r in shards]).tolist()
         assert got == list(range(m * 5, (m + 1) * 5))
+    shards = [data_rows(4, 2, TMesh(data=dp, model=1, rank=2 * d, fsdp=False,
+                                    device=torch.device("cpu"), groups={}, pipe=2)).tolist()
+              for d in range(dp)]
+    assert shards == [[], [0, 2], [1, 3]]
     with pytest.raises(ValueError, match="do not split"):
-        data_rows(4, 2, TMesh(data=dp, model=1, rank=0, fsdp=False,
+        data_rows(5, 2, TMesh(data=dp, model=1, rank=0, fsdp=False,
                               device=torch.device("cpu"), groups={}, pipe=2))
 
 
@@ -335,19 +341,34 @@ def test_dp_pp_dropout_train_steps_match_the_jax_pipeline_and_data_1(tmp_path, B
     _compare(out[2], same)
 
 
-def test_pretrain_cli_refuses_microbatches_smaller_than_the_data_axis(tmp_path):
-    """Under pipeline parallelism every data rank holds a shard of each
-    microbatch: a microbatch of fewer rows than data ranks is refused (the
-    JAX package pads the empty shards)."""
+def test_pretrain_cli_refuses_microbatches_smaller_than_the_data_axis(tmp_path, monkeypatch):
+    """The layout this test once found refused now trains: data 2 x pipe 2
+    with one row a microbatch (a batch of 2 in 2 microbatches), where the
+    first data rank holds an empty shard of each microbatch and GSPMD pads
+    it.  Two train steps with every dropout at 0.1 match the JAX pipelined
+    steps on a data 2 x pipe 2 host mesh (losses 1e-5, params as the data
+    x pipe tests hold them); ``cli.pretrain`` on 4 ranks at that layout
+    saves the leaves of the one-process run of the same 2 iterations."""
     from cogview_tpu_torch.cli import pretrain
 
-    args = pretrain.build_parser().parse_args(
-        ["--preset", "tiny", "--num-layers", "2", "--batch-size", "2",
-         "--pipeline-parallel-size", "2", "--pipeline-microbatches", "2", "--device", "cpu"])
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("WORLD_SIZE", "4")
-        with pytest.raises(SystemExit, match="1 rows, fewer than the 2 data ranks"):
-            pretrain.join_group(args, torch.device("cpu"))
+    cfg_kw, batches, params0, seeds, want = _jax_dp_pp_steps(2)
+    torch.save({"mesh": (2, 1, False), "pp": 2, "cfg": dict(cfg_kw, pp_microbatches=2),
+                "step": dict(img_vocab=IMG_VOCAB), "opt": OPT, "params": params0,
+                "batches": batches, "seeds": seeds}, tmp_path / "in.pt")
+    run_ranks(workers.train_steps, 4, str(tmp_path), str(tmp_path), timeout=TIMEOUT)
+    out = torch.load(tmp_path / "out.pt", weights_only=False)
+    for o, w in zip(out, want):
+        np.testing.assert_allclose(o["metrics"]["lm_loss"], w["lm_loss"], rtol=1e-5)
+    _compare(out, want)
+
+    monkeypatch.setattr(pretrain, "PRESETS", dict(pretrain.PRESETS))
+    workers.register_presets(pretrain.PRESETS)
+    data = _corpus(tmp_path / "c.bin")
+    argv = _cli_argv(data, "--num-layers", "2", "--batch-size", "2", "--train-iters", "2")
+    pp = ["--pipeline-parallel-size", "2", "--pipeline-microbatches", "2"]
+    _cli(tmp_path, 4, argv + ["--save", str(tmp_path / "pp"), *pp])
+    _cli(tmp_path, 1, argv + ["--save", str(tmp_path / "one")])
+    _same_leaves(tmp_path / "pp", tmp_path / "one")
 
 
 def test_jax_pipeline_runs_uneven_microbatch_shards(jparams):
