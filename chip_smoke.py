@@ -259,6 +259,11 @@ result):
    data rank its shard of each microbatch) on four gloo ranks against data
    1 x pipe 2 on two: losses and sampled params within PP_DP_TOL, each
    rank's K3/K4/K5 launches.
+30b. the same step at one row a microbatch (batch 2 in 2 microbatches): on
+   a data axis of 2 the first data rank holds empty shards of both
+   microbatches, as GSPMD pads them, and runs its layers on no rows (no
+   flash launch there); four gloo ranks against data 1 x pipe 2 on two,
+   within PP_DP_TOL.
 
 The next-to-last line is the kernels' JSON record (each kernel's launches
 on the main path, error, time, plain version's time, bound and library
@@ -3943,6 +3948,7 @@ VQ_DP_TOL = {"loss_rtol": 1e-4, "param_atol": 2 * VQ_DP_LR + 1e-6, "param_far_sh
 # differ by float32 rounding (a microbatch's rows split over 'data' run
 # smaller matmuls, and PB-relax's max is over a rank's rows)
 PP_DP = {"layers": 4, "batch": 8, "seq": 1088, "dropout": 0.1, "lr": 1e-4, "steps": 1}
+PP_DP1 = dict(PP_DP, batch=2)  # phase 30b: one row a microbatch
 PP_DP_TOL = {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-4, "param_atol": 2 * 1e-4 + 1e-6,
              "param_far_share": 1e-2}
 # elements of each leaf compared, evenly strided
@@ -4010,13 +4016,13 @@ def vq_dp_worker(rank: int, world: int, work: str) -> None:
         json.dump(res, f)
 
 
-def pp_dp_worker(rank: int, world: int, work: str) -> None:
+def pp_dp_worker(rank: int, world: int, work: str, name: str = "pp_dp") -> None:
     """One of ``world`` ranks of a data world/2 x pipe 2 mesh training
-    ``pp_dp.json``'s config (the tutorial width, every dropout at 0.1,
+    ``<name>.json``'s config (the tutorial width, every dropout at 0.1,
     float32, 2 microbatches) on one seeded global batch: this data rank's
     rows are its shard of each microbatch (``pipeline.data_rows``); writes
-    the metrics, ms a step, K3/K4/K5 launches and plain-version calls, and
-    strided samples of every param to pp_dp_<world>_<rank>."""
+    the metrics, ms a step, its rows, K3/K4/K5 launches and plain-version
+    calls, and strided samples of every param to <name>_<world>_<rank>."""
     import numpy as np
     import torch
 
@@ -4030,7 +4036,7 @@ def pp_dp_worker(rank: int, world: int, work: str) -> None:
     from cogview_tpu_torch.training import optim
     from cogview_tpu_torch.training import train_loop as tl
 
-    with open(os.path.join(work, "pp_dp.json")) as f:
+    with open(os.path.join(work, f"{name}.json")) as f:
         spec = json.load(f)
     set_fp32_precision()
     dev = torch.device("cuda", 0)
@@ -4046,6 +4052,7 @@ def pp_dp_worker(rank: int, world: int, work: str) -> None:
         state = tl.init_train_state(params, opt, torch.Generator().manual_seed(42))
         step = tl.make_train_step(cfg, opt, img_vocab=8192)
         rows = data_rows(spec["batch"], 2, mesh).numpy()
+        res["rows"] = len(rows)
         _zero_flash_counts(fa)
         for i in range(spec["steps"]):
             text = np.random.RandomState(41 + i).randint(
@@ -4059,9 +4066,15 @@ def pp_dp_worker(rank: int, world: int, work: str) -> None:
         res["flash_launches"], res["flash_plain_calls"] = _flash_counts(fa)
         samples = _leaf_samples(torch, state["params"], mesh)
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    torch.save(samples, os.path.join(work, f"pp_dp_{world}_{rank}.pt"))
-    with open(os.path.join(work, f"pp_dp_{world}_{rank}.json"), "w") as f:
+    torch.save(samples, os.path.join(work, f"{name}_{world}_{rank}.pt"))
+    with open(os.path.join(work, f"{name}_{world}_{rank}.json"), "w") as f:
         json.dump(res, f)
+
+
+def pp_dp1_worker(rank: int, world: int, work: str) -> None:
+    """pp_dp_worker on PP_DP1 (phase 30b): batch 2 in 2 microbatches, so
+    that on a data axis of 2 the first data rank holds no row."""
+    pp_dp_worker(rank, world, work, "pp_dp1")
 
 
 def _load_ranks(d: str, prefix: str, world: int):
@@ -4131,9 +4144,16 @@ def phase_data_parallel_slice(torch, work: str, smi: str, ran: dict) -> list:
           f"share one card {[['%.1f' % x for x in t['ms']] for t in two]}; one rank alone "
           f"{['%.1f' % x for x in one['ms']]}; run in {ran[1]['vq_dp_worker']:.1f} s (one) and "
           f"{ran[2]['vq_dp_worker']:.1f} s (two)")
+    return _pp_dp_against_data_1(d, "pp_dp", pp, ran, smi)
 
-    dp1 = _load_ranks(d, "pp_dp", 2)
-    dp2 = _load_ranks(d, "pp_dp", 4)
+
+def _pp_dp_against_data_1(d: str, name: str, pp: dict, ran: dict, smi: str) -> list:
+    """``name``'s data 2 x pipe 2 ranks against its data 1 x pipe 2 ranks on
+    the same global batch (phases 30 and 30b) -> the K3/K4/K5 launches of
+    both runs.  A rank launches each flash kernel once a layer and
+    microbatch on the rows it holds, and not at all where it holds none."""
+    dp1 = _load_ranks(d, name, 2)
+    dp2 = _load_ranks(d, name, 4)
     tol = PP_DP_TOL
     per = pp["layers"] // 2 * 2 * pp["steps"]  # a stage's layers x microbatches x steps
     flash = [0, 0, 0]
@@ -4141,10 +4161,10 @@ def phase_data_parallel_slice(torch, work: str, smi: str, ran: dict) -> list:
         for rank, r in enumerate(ranks):
             # dp 2 splits each microbatch's rows: still one launch a layer
             # and microbatch, on fewer rows
-            _check(r["flash_launches"] == [2 * per, per, per]
-                   and r["flash_plain_calls"] == [0, 0, 0],
-                   f"pp dp {world // 2} rank {rank}: flash launches {r['flash_launches']}, "
-                   f"plain {r['flash_plain_calls']}, not {[2 * per, per, per]}")
+            want = [2 * per, per, per] if r["rows"] else [0, 0, 0]
+            _check(r["flash_launches"] == want and r["flash_plain_calls"] == [0, 0, 0],
+                   f"{name} dp {world // 2} rank {rank}: flash launches {r['flash_launches']}, "
+                   f"plain {r['flash_plain_calls']}, not {want}")
             flash = [a + b for a, b in zip(flash, r["flash_launches"])]
     for rank, r in enumerate(dp2):
         want = dp1[rank % 2]  # the same stage
@@ -4152,17 +4172,19 @@ def phase_data_parallel_slice(torch, work: str, smi: str, ran: dict) -> list:
             _check(abs(a["lm_loss"] - b["lm_loss"]) <= tol["loss_rtol"] * abs(b["lm_loss"])
                    and abs(a["grad_norm"] - b["grad_norm"]) <= tol["grad_norm_rtol"]
                    * abs(b["grad_norm"]) and a["skipped"] == 0,
-                   f"data 2 x pipe 2 rank {rank}: {a} vs data 1 x pipe 2 {b}")
+                   f"{name} data 2 x pipe 2 rank {rank}: {a} vs data 1 x pipe 2 {b}")
         pairs = list(zip(r["tensors"], want["tensors"]))
         r["pmax"] = max(float((a - b).abs().max()) for a, b in pairs)
         r["pfar"] = sum(int(((a - b).abs() > pp["lr"] / 10).sum()) for a, b in pairs) / sum(
             a.numel() for a, _ in pairs)
         _check(r["pmax"] <= tol["param_atol"] and r["pfar"] <= tol["param_far_share"],
-               f"data 2 x pipe 2 rank {rank}: params differ ({r['pmax']}, {r['pfar']})")
+               f"{name} data 2 x pipe 2 rank {rank}: params differ ({r['pmax']}, {r['pfar']})")
     r, w = dp2[0], dp1[0]
+    worker = f"{name}_worker"
     print(f"data 2 x pipe 2 against data 1 x pipe 2 ({smi}), tutorial width, {pp['layers']} "
           f"layers, batch {pp['batch']} x {pp['seq']:,}, float32, every dropout at "
-          f"{pp['dropout']}, 2 microbatches, {pp['steps']} step(s): lm loss "
+          f"{pp['dropout']}, 2 microbatches, {pp['steps']} step(s), rows by rank "
+          f"{[x['rows'] for x in dp2]}: lm loss "
           f"{['%.7f' % m['lm_loss'] for m in r['metrics']]} vs "
           f"{['%.7f' % m['lm_loss'] for m in w['metrics']]} (rtol {tol['loss_rtol']}), grad norm "
           f"{['%.6f' % m['grad_norm'] for m in r['metrics']]} vs "
@@ -4174,8 +4196,15 @@ def phase_data_parallel_slice(torch, work: str, smi: str, ran: dict) -> list:
           f"{[x['flash_plain_calls'] for x in dp2]}; ms a step, ranks share one card (not a "
           f"speed): four {[['%.1f' % t for t in x['ms']] for x in dp2]}, two "
           f"{[['%.1f' % t for t in x['ms']] for x in dp1]}; run in "
-          f"{ran[4]['pp_dp_worker']:.1f} s (four) and {ran[2]['pp_dp_worker']:.1f} s (two)")
+          f"{ran[4][worker]:.1f} s (four) and {ran[2][worker]:.1f} s (two)")
     return flash
+
+
+def phase_one_row_microbatches(torch, work: str, smi: str, ran: dict) -> list:
+    """Phase 30b: data 2 x pipe 2 at one row a microbatch, the first data
+    rank's shards empty, against data 1 x pipe 2 (``phase_rank_spawns``
+    ran both) -> the K3/K4/K5 launches."""
+    return _pp_dp_against_data_1(os.path.join(work, "slice30"), "pp_dp1", PP_DP1, ran, smi)
 
 
 # --------------------------------------------------------------------- #
@@ -4200,8 +4229,9 @@ RANK_RUNS = {
     1: (("two_rank_reference", "two_ranks"), ("ring_reference", "ring"),
         ("vq_dp_worker", "slice30")),
     2: (("two_rank_worker", "two_ranks"), ("ring_worker", "ring"), ("vq_dp_worker", "slice30"),
-        ("pp_dp_worker", "slice30")),
-    4: (("dryrun_passes", "two_ranks"), ("pp_dp_worker", "slice30")),
+        ("pp_dp_worker", "slice30"), ("pp_dp1_worker", "slice30")),
+    4: (("dryrun_passes", "two_ranks"), ("pp_dp_worker", "slice30"),
+        ("pp_dp1_worker", "slice30")),
 }
 
 
@@ -4235,7 +4265,7 @@ def phase_rank_spawns(torch, work: str) -> dict:
     torch.cuda.empty_cache()
     for folder in ("two_ranks", "ring", "slice30"):
         os.makedirs(os.path.join(work, folder), exist_ok=True)
-    for name, spec in (("vq_dp", VQ_DP), ("pp_dp", PP_DP)):
+    for name, spec in (("vq_dp", VQ_DP), ("pp_dp", PP_DP), ("pp_dp1", PP_DP1)):
         with open(os.path.join(work, "slice30", f"{name}.json"), "w") as f:
             json.dump(spec, f)
     # the 48-layer PP steps leave two ranks about 33 GiB each of the card:
@@ -4429,10 +4459,14 @@ def main() -> int:
         # phase 30: vqtrain on a data axis, and the data x pipe dropout step
         dp_launches = phase_data_parallel_slice(torch, work, smi.splitlines()[0], ran)
         lap("phase 30")
+        # phase 30b: the same step at one row a microbatch
+        dp1_launches = phase_one_row_microbatches(torch, work, smi.splitlines()[0], ran)
+        lap("phase 30b")
     # the flash kernels' launches on the training paths: phases 14, 19, 20, 23, 28, 29, 30
+    # and 30b
     train_launches = [sum(x) for x in zip(train_launches, ft_launches, full_launches,
                                           pre_launches, two["flash"], ring_launches,
-                                          dp_launches)]
+                                          dp_launches, dp1_launches)]
 
     def decode_entry(name, summary, launches, err, kv):
         times = summary["times"]

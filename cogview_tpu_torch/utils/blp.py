@@ -21,7 +21,7 @@ import struct
 
 import numpy as np
 
-from .image_errors import NotThisFormat, UnsupportedImageError
+from .image_errors import NotThisFormat, UnsupportedImageError, check_pixels
 from .jpeg import decode_jpeg
 
 
@@ -95,6 +95,7 @@ def decode_blp(data: bytes) -> np.ndarray:
         raise NotThisFormat("not a BLP file: short header") from None
     if w <= 0 or h <= 0:
         raise NotThisFormat("not identified by this driver")
+    check_pixels(w, h)
     c = 4 if alpha else 3
     if len(data) < pos + 128:
         raise ValueError("corrupt BLP: truncated mipmap table")

@@ -19,7 +19,7 @@ import struct
 
 import numpy as np
 
-from .image_errors import NotThisFormat
+from .image_errors import NotThisFormat, check_pixels
 
 _RAW, _RLE8, _RLE4, _BITFIELDS = 0, 1, 2, 3
 
@@ -144,13 +144,15 @@ def decode_bmp(data: bytes) -> np.ndarray:
     return decode_dib(data, 14, _i32(data, 10))
 
 
-def decode_dib(data: bytes, start: int = 0, offset: int = 0, halve: bool = False
-               ) -> np.ndarray:
+def decode_dib(data: bytes, start: int = 0, offset: int = 0, halve: bool = False,
+               icon: bool = False) -> np.ndarray:
     """The bitmap whose info header starts at ``start`` -> [h, w, 3] uint8,
     as Pillow's ``BmpImageFile._bitmap``: ``offset`` is where the pixels
     start (0: right after the header, masks and palette, as in a DIB file
     or an icon).  ``halve`` reads the top half of the height, as an icon's
-    bitmap, whose height counts its AND mask too, is read."""
+    bitmap, whose height counts its AND mask too, is read.  Pillow's
+    decompression-bomb check sees the halved height of a cursor and the
+    whole height of an ``icon`` entry."""
     if len(data) < start + 4:
         raise NotThisFormat("corrupt BMP: truncated header")
     header_size = _i32(data, start)
@@ -183,6 +185,7 @@ def decode_dib(data: bytes, start: int = 0, offset: int = 0, halve: bool = False
     colors = colors or (1 << bits)
     if offset == 14 + header_size and bits <= 8:
         offset += 4 * colors
+    full_h = h
     if halve:
         h //= 2
     raw = {1: "P;1", 4: "P;4", 8: "P", 16: "BGR;15", 24: "BGR", 32: "BGRX"}.get(bits)
@@ -197,8 +200,7 @@ def decode_dib(data: bytes, start: int = 0, offset: int = 0, halve: bool = False
         raise ValueError(f"unsupported BMP compression ({compression})")
     if w <= 0 or h <= 0:  # Pillow's "not identified by this driver"
         raise NotThisFormat(f"corrupt BMP: size {w} x {h}")
-    if w * h > 1 << 30:
-        raise ValueError(f"corrupt BMP: size {w} x {h}")
+    check_pixels(w, full_h if icon else h)
 
     palette = None
     unpack_bits = bits  # what Pillow's unpacker reads a pixel as

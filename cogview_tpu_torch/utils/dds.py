@@ -208,15 +208,18 @@ def bcn_decode(data: bytes, pos: int, w: int, h: int, n: int) -> np.ndarray:
 def _masked(data: bytes, pos: int, w: int, h: int, bitcount: int, masks) -> np.ndarray:
     """DdsRgbDecoder: little-endian pixels of bitcount // 8 bytes, each
     channel int(masked value / its maximum * 255) wrapped to 8 bits.  Past
-    the end of the data Pillow reads zeros: those pixels are black."""
+    the end of the data Pillow reads zeros: those pixels are black.  The
+    masks are 32-bit, so only a pixel's first 4 bytes count."""
     nbytes = bitcount // 8
     n = w * h
     out = np.zeros((n, 3), np.uint8)
-    raw = data[pos:pos + n * nbytes] if nbytes else b""
-    m = -(-len(raw) // nbytes) if nbytes else 0  # the pixels the data reaches
-    b = np.frombuffer(raw.ljust(m * nbytes, b"\0"), np.uint8).reshape(m, nbytes)
+    k = min(nbytes, 4)
+    avail = max(0, len(data) - pos)
+    m = min(n, -(-avail // nbytes)) if nbytes else 0  # the pixels the data reaches
+    buf = np.frombuffer(data[pos:] + bytes(k), np.uint8)
+    b = buf[(np.arange(m, dtype=np.int64) * nbytes)[:, None] + np.arange(k)]
     px = np.zeros(m, np.uint64)
-    for i in range(nbytes):
+    for i in range(k):
         px |= b[:, i].astype(np.uint64) << np.uint64(8 * i)
     for c, mask in enumerate(masks[:3]):
         if mask:

@@ -23,7 +23,7 @@ import zlib
 
 import numpy as np
 
-from .image_errors import NotThisFormat
+from .image_errors import NotThisFormat, check_pixels
 from .raw_formats import gray_to_rgb
 
 _MODES = {8: "u1", 16: "<u2", 32: "<i4", -32: "<f4", -64: "<f4"}
@@ -72,6 +72,7 @@ def decode_fits(data: bytes) -> np.ndarray:
         raise ValueError("FITS: no image data")
     kind, offset, size, bits = found
     w, h = size
+    check_pixels(w, h)
     start = offset + pos - 80  # Pillow's tell() - 80, even after a short read
     if kind == "gzip":
         try:

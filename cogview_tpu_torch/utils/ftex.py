@@ -16,7 +16,7 @@ import struct
 import numpy as np
 
 from .dds import bcn_decode
-from .image_errors import NotThisFormat
+from .image_errors import NotThisFormat, check_pixels
 
 
 def decode_ftex(data: bytes) -> np.ndarray:
@@ -36,6 +36,7 @@ def decode_ftex(data: bytes) -> np.ndarray:
         raise ValueError(f"invalid FTEX texture compression format {fmt}")
     if w <= 0 or h <= 0:
         raise NotThisFormat("not identified by this driver")
+    check_pixels(w, h)
     if fmt == 0:
         return bcn_decode(mip, 0, w, h, 1)
     if len(mip) < w * h * 3:

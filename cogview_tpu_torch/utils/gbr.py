@@ -14,7 +14,7 @@ import struct
 
 import numpy as np
 
-from .image_errors import NotThisFormat
+from .image_errors import NotThisFormat, check_pixels
 
 
 def decode_gbr(data: bytes) -> np.ndarray:
@@ -26,6 +26,7 @@ def decode_gbr(data: bytes) -> np.ndarray:
         raise NotThisFormat("not a GIMP brush")
     if version == 2 and data[20:24] != b"GIMP":
         raise NotThisFormat("not a GIMP brush, bad magic number")
+    check_pixels(w, h)
     body = data[header_size:header_size + w * h * depth]
     if len(body) < w * h * depth:
         raise ValueError("corrupt GBR: not enough image data")

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .image_errors import check_pixels
+
 
 def _palette_needed(p: bytes) -> bool:
     """Pillow's ``_is_palette_needed``: False when entry i is (i, i, i)."""
@@ -146,8 +148,9 @@ def decode_gif(data: bytes) -> np.ndarray:
         raise ValueError(f"corrupt GIF: LZW code size {bits}")
     x1, y1 = x0 + fw, y0 + fh
     w, h = max(sw, x1), max(sh, y1)
-    if w == 0 or h == 0 or w * h > 1 << 30:
+    if w == 0 or h == 0:
         raise ValueError(f"corrupt GIF: size {w} x {h}")
+    check_pixels(w, h)
     pal = local_pal if local_pal is not None else global_pal
     canvas = np.full((h, w), transparency or 0, np.uint8)
     if fw and fh:

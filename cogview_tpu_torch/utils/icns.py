@@ -10,10 +10,10 @@ exactly w x h x 3 bytes, else each channel in turn in Apple's PackBits
 (a byte under 128 copies that many plus one bytes, one above repeats the
 next byte 125 fewer times).  The mask members are alpha, which
 ``convert("RGB")`` drops.  A JPEG 2000 member raises
-``UnsupportedImageError``; a file with no icon Pillow knows, or whose
-blocks Pillow cannot walk, raises :class:`NotThisFormat`; a channel that
-does not decode to its size, another member and short data raise a
-``ValueError``.
+``UnsupportedImageError`` where Pillow opens it (``utils/jpeg2000.py``);
+a file with no icon Pillow knows, or whose blocks Pillow cannot walk,
+raises :class:`NotThisFormat`; a channel that does not decode to its
+size, another member and short data raise a ``ValueError``.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import struct
 import numpy as np
 
 from .image_errors import NotThisFormat, UnsupportedImageError
+from .jpeg2000 import CODESTREAM, JP2_SIGNATURE, check_jpeg2000
 from .png import decode_png
 
 # (width, height, scale) -> its members, as Pillow's IcnsFile.SIZES
@@ -107,8 +108,12 @@ def decode_icns(data: bytes) -> np.ndarray:
             head = data[start:start + 12]
             if head[:8] == b"\x89PNG\r\n\x1a\n":
                 img = decode_png(data[start:])
-            elif head[:4] in (b"\xff\x4f\xff\x51", b"\x0d\x0a\x87\x0a") or \
-                    head == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a":
+            elif head[:4] in (CODESTREAM, b"\x0d\x0a\x87\x0a") or head == JP2_SIGNATURE:
+                try:  # Pillow opens the member itself: a refused header fails the load
+                    check_jpeg2000(data[start:start + length])
+                except NotThisFormat as e:
+                    raise ValueError(f"ICNS: a JPEG 2000 member Pillow cannot open ({e})") \
+                        from None
                 raise UnsupportedImageError("ICNS with a JPEG 2000 member is not read by "
                                             "this package")
             else:

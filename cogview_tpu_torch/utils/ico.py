@@ -61,7 +61,7 @@ def decode_ico(data: bytes) -> np.ndarray:
         return decode_png(data[offset:])
     if len(data) < offset + 4:
         raise NotThisFormat("an icon entry past the end of the file")
-    img = decode_dib(data, offset, halve=True)
+    img = decode_dib(data, offset, halve=True, icon=True)
     h, w = img.shape[:2]
     if bpp == 32:
         header_size = struct.unpack_from("<I", data, offset)[0]

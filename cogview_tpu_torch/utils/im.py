@@ -22,7 +22,7 @@ import re
 
 import numpy as np
 
-from .image_errors import NotThisFormat, UnsupportedImageError
+from .image_errors import NotThisFormat, UnsupportedImageError, check_pixels
 from .jpeg import cmyk_to_rgb
 from .raw_formats import gray_to_rgb
 
@@ -105,16 +105,18 @@ def decode_im(data: bytes) -> np.ndarray:
                                                     b"File size (no of images)", b"Scale (x,y)"))
     except ValueError:
         raise ValueError("IM: a number Pillow cannot parse") from None
-    if kind in _NAMED or (kind not in _TYPES and re.fullmatch(rb"L\*([2-9]|[12][0-9]|3[0-2]) image",
-                                                              kind)):
-        raise UnsupportedImageError(f"IM {kind.decode()} is not read by this package")
-    if kind not in _TYPES:
+    named = kind in _NAMED or (kind not in _TYPES and re.fullmatch(
+        rb"L\*([2-9]|[12][0-9]|3[0-2]) image", kind))
+    if kind not in _TYPES and not named:
         raise ValueError(f"IM image type {kind!r}: Pillow cannot load it")
     if len(size) != 2 or not all(isinstance(v, int) for v in size):
         raise ValueError("IM: a size Pillow cannot use")
     w, h = size
     if w <= 0 or h <= 0:
         raise NotThisFormat("not identified by this driver")
+    check_pixels(w, h)
+    if named:
+        raise UnsupportedImageError(f"IM {kind.decode()} is not read by this package")
     mode, raw = _TYPES[kind]
     palette = None
     if b"Lut" in info:

@@ -17,7 +17,11 @@ file while ``Image.open`` opens it (a ``SyntaxError``, an ``IndexError``
 and the like in Pillow): ``utils/image_formats.py`` then goes on to the
 next format, as ``Image.open`` goes on to its next plugin.  Both are
 ``ValueError``s.  :func:`check_pixels` is Pillow's decompression-bomb
-check, for the readers that allocate an image before they read it.
+check, which ``Image.open`` makes for every plugin once its header is
+read: every reader, and every header check of a format the port names,
+calls it right after the header's own checks, before it allocates the
+image, so that a few bytes that claim a huge image end in (c) and not in a
+``MemoryError``.
 """
 
 
@@ -30,8 +34,7 @@ class NotThisFormat(ValueError):
 
 
 # Pillow's Image.open raises DecompressionBombError above twice
-# Image.MAX_IMAGE_PIXELS; a reader that allocates its image before it
-# reads the pixels checks it first
+# Image.MAX_IMAGE_PIXELS
 MAX_PIXELS = 2 * 89_478_485
 
 

@@ -25,6 +25,13 @@ opens but cannot load here (EPS without Ghostscript, WMF off Windows, the
 BUFR, GRIB and HDF5 stubs, MPEG), a plain ``ValueError``.
 :func:`decode_image` walks the rows.  Every file ends in one of the three
 outcomes of ``utils/image_errors.py``.
+
+The header checks of the named formats (AVIF as far as libavif's parse
+goes, FLI, JPEG 2000 in ``utils/jpeg2000.py``, IPTC, PCD) end with
+Pillow's decompression-bomb check, and skip a file cut short where
+Pillow fails to load it.  They cannot see damage inside the compressed
+data, which Pillow finds only as it decodes: such a file is named where
+Pillow would skip it.
 """
 
 from __future__ import annotations
@@ -44,8 +51,9 @@ from .gif import decode_gif
 from .icns import decode_icns
 from .ico import decode_cur, decode_ico
 from .im import decode_im
-from .image_errors import NotThisFormat, UnsupportedImageError
+from .image_errors import NotThisFormat, UnsupportedImageError, check_pixels
 from .jpeg import decode_jpeg
+from .jpeg2000 import check_jpeg2000
 from .msp import decode_msp
 from .pcx import decode_dcx, decode_pcx
 from .png import decode_png
@@ -145,6 +153,7 @@ def _check_iptc(data: bytes) -> None:
         raise NotThisFormat("not an IPTC image")
     if w <= 0 or h <= 0:
         raise NotThisFormat("not an IPTC image")
+    check_pixels(w, h)
     if tag != (8, 10):
         raise ValueError("IPTC: Pillow opens it but cannot load it (no image record)")
 
@@ -152,6 +161,174 @@ def _check_iptc(data: bytes) -> None:
 def _check_pcd(data: bytes) -> None:
     if len(data) < 2048 + 1539 or data[2048:2052] != b"PCD_":
         raise NotThisFormat("not a PCD file")
+
+
+def _check_fli(data: bytes) -> None:
+    """FliImagePlugin's _open: zeros in the header's reserved bytes, the
+    chunks it walks for a palette, the first frame's size word; a first
+    frame cut short fails to load."""
+    if (len(data) < 128 or data[20:22] != bytes(2) or data[42:80] != bytes(38)
+            or data[88:128] != bytes(40)):
+        raise NotThisFormat("not an FLI/FLC file")
+    w, h = struct.unpack_from("<HH", data, 8)
+    try:
+        pos = 128
+        if struct.unpack_from("<H", data, pos + 4)[0] == 0xF100:  # a prefix chunk
+            pos += struct.unpack_from("<I", data, pos)[0]
+        if struct.unpack_from("<H", data, pos + 4)[0] == 0xF1FA:  # a frame: its palette
+            pos += 16
+            size = None
+            for _ in range(struct.unpack_from("<H", data, pos - 10)[0]):
+                if size is not None:
+                    pos += size - 6
+                kind = struct.unpack_from("<H", data, pos + 4)[0]
+                if kind in (4, 11):
+                    _fli_palette(data, pos + 6)
+                    break
+                size = struct.unpack_from("<I", data, pos)[0]
+                pos += 6
+                if not size:
+                    break
+        frame = struct.unpack_from("<I", data, 128)[0]  # the first frame's size
+    except (struct.error, IndexError):
+        raise NotThisFormat("not an FLI/FLC file: a chunk cut short") from None
+    if w <= 0 or h <= 0:
+        raise NotThisFormat("not identified by this driver")
+    check_pixels(w, h)
+    if 128 + frame > len(data) + 1:  # Pillow's decoder allows one pad byte
+        raise ValueError("FLI: the first frame runs past the end of the file")
+
+
+def _fli_palette(data: bytes, pos: int) -> None:
+    """FliImagePlugin._palette's reads: an index past 255 or a packet cut
+    short is an IndexError, which Pillow takes as "not this format"."""
+    i, count = 0, struct.unpack_from("<H", data, pos)[0]
+    pos += 2
+    for _ in range(count):
+        s = data[pos:pos + 2]
+        pos += len(s)
+        i += s[0]
+        n = s[1] or 256
+        s = data[pos:pos + 3 * n]
+        pos += len(s)
+        for k in range(0, len(s), 3):
+            if k + 2 >= len(s) or i > 255:
+                raise IndexError("an FLI palette packet cut short, or an index past 255")
+            i += 1
+
+
+def _avif_boxes(data: bytes, start: int, end: int, top: bool = False):
+    """ISO-BMFF boxes in data[start:end] -> (type, body start, body end);
+    a box that runs past ``end`` raises NotThisFormat.  At the file's top
+    level, as libavif parses it, fewer than 8 bytes after the last box are
+    no box, and a box other than ftyp and meta may run past the end (its
+    body then ends with the file)."""
+    pos = start
+    while pos < end:
+        if pos + 8 > end:
+            if top:
+                return
+            raise NotThisFormat("AVIF: a box header cut short")
+        size, kind = struct.unpack_from(">I4s", data, pos)
+        head = 8
+        if size == 1:
+            if pos + 16 > end:
+                raise NotThisFormat("AVIF: a box header cut short")
+            size, head = struct.unpack_from(">Q", data, pos + 8)[0], 16
+        elif size == 0:
+            size = end - pos
+        if size < head or (pos + size > end and (not top or kind in (b"ftyp", b"meta"))):
+            raise NotThisFormat(f"AVIF: a {kind!r} box past its parent's end")
+        yield kind, pos + head, min(pos + size, end)
+        pos += size
+
+
+def _uint(data: bytes, pos: int, n: int) -> int:
+    if pos + n > len(data):
+        raise IndexError("AVIF: a field cut short")
+    return int.from_bytes(data[pos:pos + n], "big")
+
+
+def _avif_item(data: bytes, meta: dict, item: int) -> tuple:
+    """The item's ispe (width, height) and the end of its bytes in the
+    file (0 where they lie in an idat box), from the meta box's iprp and
+    iloc boxes."""
+    props, ispe = [], None
+    for kind, a, b in _avif_boxes(data, *meta[b"iprp"]):
+        if kind == b"ipco":
+            props = list(_avif_boxes(data, a, b))
+        elif kind == b"ipma":
+            version, flags = data[a], _uint(data, a + 1, 3)
+            idw = 2 if version < 1 else 4
+            pos = a + 8
+            for _ in range(_uint(data, a + 4, 4)):
+                owner, count = _uint(data, pos, idw), _uint(data, pos + idw, 1)
+                pos += idw + 1
+                for _ in range(count):
+                    width = 2 if flags & 1 else 1
+                    index = _uint(data, pos, width) & ((1 << (8 * width - 1)) - 1)
+                    pos += width
+                    if owner == item and index and props[index - 1][0] == b"ispe":
+                        ispe = (_uint(data, props[index - 1][1] + 4, 4),
+                                _uint(data, props[index - 1][1] + 8, 4))
+    a, _ = meta[b"iloc"]
+    version, sizes = data[a], _uint(data, a + 4, 2)
+    off_w, len_w, base_w = sizes >> 12, (sizes >> 8) & 15, (sizes >> 4) & 15
+    index_w = sizes & 15 if version in (1, 2) else 0
+    idw = 4 if version == 2 else 2
+    pos = a + 6 + idw
+    last = 0
+    for _ in range(_uint(data, a + 6, idw)):
+        owner = _uint(data, pos, idw)
+        pos += idw
+        method = 0
+        if version in (1, 2):
+            method = _uint(data, pos, 2) & 15
+            pos += 2
+        base = _uint(data, pos + 2, base_w)
+        count = _uint(data, pos + 2 + base_w, 2)
+        pos += 4 + base_w
+        for _ in range(count):
+            offset = _uint(data, pos + index_w, off_w)
+            length = _uint(data, pos + index_w + off_w, len_w)
+            pos += index_w + off_w + len_w
+            if owner == item and method == 0:
+                last = max(last, base + offset + length)
+    return ispe, last
+
+
+def _check_avif(data: bytes) -> None:
+    """What libavif's parse, which Pillow's AVIF _open runs, needs of a
+    file's header, in part: an ftyp box with the brand avif or avis, a
+    meta box that starts with a "pict" handler, its primary item and that
+    item's ispe size, inside libavif's limits (32,768 a side, 16,384^2
+    pixels).  Where the item's bytes run past the end of the file Pillow
+    fails to load it: a ValueError."""
+    brands, meta = None, None
+    for kind, a, b in _avif_boxes(data, 0, len(data), top=True):
+        if kind == b"ftyp":
+            brands = [data[i:i + 4] for i in range(a, b - 3, 4) if i != a + 4]
+        elif kind == b"meta" and meta is None:
+            meta = {}
+            for i, (child, c, d) in enumerate(_avif_boxes(data, a + 4, b)):
+                if i == 0 and (child != b"hdlr" or data[c + 8:c + 12] != b"pict"):
+                    raise NotThisFormat("AVIF: the meta box has no picture handler")
+                meta.setdefault(child, (c, d))
+    if not brands or not {b"avif", b"avis"} & set(brands) or not meta:
+        raise NotThisFormat("not an AVIF file this Pillow opens")
+    try:
+        a, _ = meta[b"pitm"]
+        ispe, last = _avif_item(data, meta, _uint(data, a + 4, 2 if data[a] == 0 else 4))
+    except (KeyError, IndexError):
+        raise NotThisFormat("AVIF: no primary item libavif can parse") from None
+    if ispe is None:
+        raise NotThisFormat("AVIF: the primary item has no ispe size")
+    w, h = ispe
+    if not (0 < w <= 32768 and 0 < h <= 32768) or w * h > 16384 * 16384:
+        raise NotThisFormat(f"AVIF: a size of {w} x {h} libavif refuses")
+    check_pixels(w, h)
+    if last > len(data):
+        raise ValueError("AVIF: the image's bytes run past the end of the file")
 
 
 FORMATS = (
@@ -165,7 +342,8 @@ FORMATS = (
     Format("PNG", lambda p: p[:8] == b"\x89PNG\r\n\x1a\n", decode_png),
     # Image.ID after init()
     Format("AVIF", lambda p: p[4:8] == b"ftyp" and p[8:12] in (b"avif", b"avis", b"mif1",
-                                                                b"msf1"), _named("AVIF")),
+                                                                b"msf1"),
+           _named("AVIF", _check_avif)),
     Format("BLP", lambda p: p[:4] in (b"BLP1", b"BLP2"), decode_blp),
     Format("BUFR", lambda p: p[:4] in (b"BUFR", b"ZCZC"), _unloadable("BUFR", "a stub")),
     Format("CUR", lambda p: p[:4] == b"\0\0\2\0", decode_cur),
@@ -177,7 +355,7 @@ FORMATS = (
     Format("FITS", lambda p: p[:6] == b"SIMPLE", decode_fits),
     Format("FLI", lambda p: (len(p) >= 16 and struct.unpack_from("<H", p, 4)[0] in
                              (0xAF11, 0xAF12) and struct.unpack_from("<H", p, 14)[0] in (0, 3)),
-           _named("FLI")),
+           _named("FLI", _check_fli)),
     Format("FTEX", lambda p: p[:4] == b"FTEX", decode_ftex),
     Format("GBR", lambda p: (len(p) >= 8 and struct.unpack_from(">I", p)[0] >= 20
                              and struct.unpack_from(">I", p, 4)[0] in (1, 2)), decode_gbr),
@@ -185,7 +363,7 @@ FORMATS = (
            _unloadable("GRIB", "a stub")),
     Format("HDF5", lambda p: p[:8] == b"\x89HDF\r\n\x1a\n", _unloadable("HDF5", "a stub")),
     Format("JPEG2000", lambda p: p[:4] == b"\xff\x4f\xff\x51"
-           or p[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n", _named("JPEG 2000")),
+           or p[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n", _named("JPEG 2000", check_jpeg2000)),
     Format("ICNS", lambda p: p[:4] == b"icns", decode_icns),
     Format("ICO", lambda p: p[:4] == b"\0\0\1\0", decode_ico),
     Format("IM", None, decode_im),

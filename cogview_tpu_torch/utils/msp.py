@@ -16,7 +16,7 @@ import struct
 
 import numpy as np
 
-from .image_errors import NotThisFormat
+from .image_errors import NotThisFormat, check_pixels
 
 
 def decode_msp(data: bytes) -> np.ndarray:
@@ -32,6 +32,7 @@ def decode_msp(data: bytes) -> np.ndarray:
     w, h = words[2], words[3]
     if w <= 0 or h <= 0:
         raise NotThisFormat("not identified by this driver")
+    check_pixels(w, h)
     row = (w + 7) // 8
     if data[:4] == b"DanM":
         body = data[32:32 + row * h]

@@ -22,7 +22,7 @@ import struct
 
 import numpy as np
 
-from .image_errors import NotThisFormat
+from .image_errors import NotThisFormat, check_pixels
 
 
 def _rows(data: bytes, pos: int, h: int, row_bytes: int) -> np.ndarray:
@@ -81,6 +81,7 @@ def decode_pcx(data: bytes, start: int = 0) -> np.ndarray:
     w, h = x1 + 1 - x0, y1 + 1 - y0
     if w <= 0 or h <= 0:
         raise NotThisFormat("bad PCX image size")
+    check_pixels(w, h)
     version, bits, planes = s[1], s[3], s[65]
     given_stride = struct.unpack_from("<H", s, 66)[0]
     palette = None

@@ -22,6 +22,8 @@ import zlib
 
 import numpy as np
 
+from .image_errors import check_pixels
+
 _SIG = b"\x89PNG\r\n\x1a\n"
 # colour type -> (samples per pixel, legal depths)
 _COLOUR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
@@ -180,6 +182,7 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError(f"PNG colour type {ctype} at depth {depth} is not a legal PNG")
     if interlace not in (0, 1):
         raise ValueError(f"PNG interlace method {interlace} is not a legal PNG")
+    check_pixels(w, h)
     channels = _COLOUR_TYPES[ctype][0]
     passes = [(w, h)] if interlace == 0 else [
         (max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))) for y0, x0, dy, dx in _ADAM7]

@@ -36,7 +36,7 @@ import math
 
 import numpy as np
 
-from .image_errors import NotThisFormat
+from .image_errors import NotThisFormat, check_pixels
 from .jpeg import cmyk_to_rgb
 from .raw_formats import gray_to_rgb
 
@@ -169,6 +169,7 @@ def decode_pnm(data: bytes) -> np.ndarray:
             raise ValueError("corrupt PFM: scale must be finite and non-zero")
     if w <= 0 or h <= 0:  # Pillow's "not identified by this driver"
         raise NotThisFormat(f"corrupt PNM: size {w} x {h}")
+    check_pixels(w, h)
     if mode == "F":
         raw = fp.read(4 * w * h)
         if len(raw) < 4 * w * h:

@@ -80,7 +80,6 @@ def decode_psd(data: bytes) -> np.ndarray:
         channels = 4
     if w <= 0 or h <= 0:
         raise NotThisFormat(f"corrupt PSD: size {w} x {h}")
-    check_pixels(w, h)
     pos = 26
     size = _u32(data, pos)  # the colour mode data
     palette = None
@@ -111,6 +110,7 @@ def decode_psd(data: bytes) -> np.ndarray:
         raise NotThisFormat("corrupt PSD: no composite image")
     compression = struct.unpack_from(">H", data, pos)[0]
     pos += 2
+    check_pixels(w, h)  # before the composite is allocated
     if mode == "LAB":
         raise UnsupportedImageError("PSD in Lab mode is not read by this package (Pillow "
                                     "converts it to RGB through LittleCMS)")

@@ -16,12 +16,14 @@ import struct
 
 import numpy as np
 
+from .image_errors import check_pixels
 
 def decode_qoi(data: bytes) -> np.ndarray:
     """The bytes of a QOI file -> [h, w, 3] uint8."""
     if data[:4] != b"qoif" or len(data) < 14:
         raise ValueError("not a QOI file")
     w, h = struct.unpack(">II", data[4:12])
+    check_pixels(w, h)
     bands = 3 if data[12] == 3 else 4
     total = w * h
     out = bytearray()

@@ -14,7 +14,7 @@ import struct
 
 import numpy as np
 
-from .image_errors import NotThisFormat
+from .image_errors import NotThisFormat, check_pixels
 
 
 def gray_to_rgb(v: np.ndarray) -> np.ndarray:
@@ -54,6 +54,7 @@ def decode_xvthumb(data: bytes) -> np.ndarray:
     w, h = (int(t) for t in line.strip().split(maxsplit=2)[:2])
     if w <= 0 or h <= 0:
         raise NotThisFormat("not identified by this driver")
+    check_pixels(w, h)
     return _XV[np.frombuffer(_block(data, pos, w * h), np.uint8).reshape(h, w)]
 
 
@@ -65,6 +66,7 @@ def decode_pixar(data: bytes) -> np.ndarray:
     h, w = struct.unpack_from("<HH", data, 416)
     if struct.unpack_from("<HH", data, 424) != (14, 2) or w <= 0 or h <= 0:
         raise NotThisFormat("not identified by this driver")
+    check_pixels(w, h)
     return np.frombuffer(_block(data, 1024, w * h * 3), np.uint8).reshape(h, w, 3).copy()
 
 
@@ -80,6 +82,7 @@ def decode_mcidas(data: bytes) -> np.ndarray:
     w, h = wd[10], wd[9]
     if w <= 0 or h <= 0:
         raise NotThisFormat("not identified by this driver")
+    check_pixels(w, h)
     offset, stride = wd[34] + wd[15], wd[15] + wd[10] * wd[11] * wd[14]
     stride = stride or w * size  # Pillow's raw decoder: 0 means rows back to back
     if stride < w * size:
@@ -123,6 +126,7 @@ def decode_imt(data: bytes) -> np.ndarray:
             gray = True
     if not gray or w <= 0 or h <= 0:
         raise NotThisFormat("not an IMT file")
+    check_pixels(w, h)
     if pos is None:
         raise ValueError("IMT: Pillow opens it but cannot load it (no image data)")
     return gray_to_rgb(np.frombuffer(_block(data, pos, w * h), np.uint8).reshape(h, w))

@@ -20,7 +20,7 @@ import struct
 
 import numpy as np
 
-from .image_errors import NotThisFormat
+from .image_errors import NotThisFormat, check_pixels
 
 _CHANNELS = {(1, 1): 1, (2, 1): 1, (3, 3): 3, (3, 4): 4}
 
@@ -70,6 +70,7 @@ def decode_sgi(data: bytes) -> np.ndarray:
         raise ValueError("unsupported SGI image mode")
     if w <= 0 or h <= 0:  # Pillow's "not identified by this driver"
         raise NotThisFormat(f"corrupt SGI: size {w} x {h}")
+    check_pixels(w, h)
     bands = _CHANNELS[(dim, z)]
     if compression == 0:
         page = w * h * bpc

@@ -19,7 +19,7 @@ import struct
 
 import numpy as np
 
-from .image_errors import NotThisFormat
+from .image_errors import NotThisFormat, check_pixels
 from .raw_formats import gray_to_rgb
 
 _IFORMS = (1, 3, -11, -12, -21, -22)
@@ -64,6 +64,7 @@ def decode_spider(data: bytes) -> np.ndarray:
         raise ValueError("SPIDER: a stack header Pillow does not open")
     if w <= 0 or ht <= 0:
         raise NotThisFormat("not identified by this driver")
+    check_pixels(w, ht)
     body = data[offset:offset + 4 * w * ht]
     if len(body) < 4 * w * ht:
         raise ValueError("corrupt SPIDER: image file is truncated")

@@ -17,7 +17,7 @@ import struct
 
 import numpy as np
 
-from .image_errors import NotThisFormat
+from .image_errors import NotThisFormat, check_pixels
 
 
 def _rle(data: bytes, pos: int, h: int, row: int) -> np.ndarray:
@@ -63,6 +63,7 @@ def decode_sun(data: bytes) -> np.ndarray:
         raise NotThisFormat("unsupported Sun raster file type")
     if w <= 0 or h <= 0:
         raise NotThisFormat("not identified by this driver")
+    check_pixels(w, h)
     if palette is not None and depth not in (4, 8):
         raise ValueError("Sun raster: Pillow cannot load a colour map beside true colour "
                          "or a bitmap")

@@ -25,7 +25,7 @@ import struct
 
 import numpy as np
 
-from .image_errors import NotThisFormat
+from .image_errors import NotThisFormat, check_pixels
 
 # (image type & 7, depth) -> bytes a pixel in the file; Pillow's raw modes
 # "P"/"L" (1 byte), "LA", "BGRA;15Z", "BGR", "BGRA" and "1"
@@ -90,6 +90,7 @@ def decode_tga(data: bytes) -> np.ndarray:
             palette[:len(ents)] = _bgr15(ents[:, 0] | (ents[:, 1].astype(np.int64) << 8))
         else:
             palette[:len(ents)] = ents[:, 2::-1]
+    check_pixels(w, h)
     key = (itype & 7, depth)
     if key not in _RAW:
         raise ValueError(f"TGA image type {itype} at depth {depth}: Pillow cannot load it")

@@ -39,12 +39,14 @@ import zlib
 
 import numpy as np
 
-from .image_errors import UnsupportedImageError
+from .image_errors import UnsupportedImageError, check_pixels
 from .jpeg import cmyk_to_rgb
 
 # field type -> struct code of the integer types (the others are not read)
-_INT_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 7: "B", 8: "h", 9: "i"}
-_SIZES = {"B": 1, "b": 1, "H": 2, "h": 2, "I": 4, "i": 4}
+_INT_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 7: "B", 8: "h", 9: "i", 13: "I", 16: "Q"}
+# the bytes of a value of each type Pillow loads
+_UNITS = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4,
+          16: 8}
 
 (_WIDTH, _LENGTH, _BITS, _COMPRESSION, _PHOTOMETRIC, _FILL_ORDER, _STRIP_OFFSETS,
  _ORIENTATION, _SAMPLES, _ROWS_PER_STRIP, _STRIP_COUNTS, _PLANAR, _PREDICTOR,
@@ -79,26 +81,35 @@ _MODES = {
 }
 
 
-def _read_ifd(data: bytes, bo: str) -> dict:
-    """The first IFD -> {tag: tuple of ints} for the integer-typed fields."""
+def _read_ifd(data: bytes, bo: str, big: bool = False) -> tuple:
+    """The first IFD -> ({tag: tuple of ints} for the integer-typed fields,
+    whether the file's end cut it short), of a BigTIFF file where ``big``
+    (8-byte offsets and counts), read as Pillow reads it: an entry, or a
+    value outside it, that the end of the file cuts short ends the
+    directory there, the tags before it kept; a tag of no values or of a
+    type Pillow has no loader for is skipped."""
+    off, head, entry, inline = ("Q", 8, 20, 8) if big else ("I", 4, 12, 4)
+    tags = {}
     try:
-        at = struct.unpack_from(bo + "I", data, 4)[0]
-        n = struct.unpack_from(bo + "H", data, at)[0]
-        tags = {}
+        at = struct.unpack_from(bo + off, data, head)[0]
+        n = struct.unpack_from(bo + ("Q" if big else "H"), data, at)[0]
         for i in range(n):
-            e = at + 2 + 12 * i
-            tag, typ, count = struct.unpack_from(bo + "HHI", data, e)
-            code = _INT_TYPES.get(typ)
-            if code is None:
+            e = at + (8 if big else 2) + entry * i
+            if e + entry > len(data):
+                return tags, True
+            tag, typ, count = struct.unpack_from(bo + "HH" + off, data, e)
+            if typ not in _UNITS:
                 continue
-            size = _SIZES[code] * count
-            pos = e + 8 if size <= 4 else struct.unpack_from(bo + "I", data, e + 8)[0]
+            size = _UNITS[typ] * count
+            value = e + 4 + inline
+            pos = value if size <= inline else struct.unpack_from(bo + off, data, value)[0]
             if pos + size > len(data):
-                raise ValueError(f"TIFF tag {tag}'s value lies past the end of the file")
-            tags[tag] = struct.unpack_from(bo + code * count, data, pos)
+                return tags, True
+            if count and typ in _INT_TYPES:
+                tags[tag] = struct.unpack_from(bo + _INT_TYPES[typ] * count, data, pos)
     except struct.error:
-        raise ValueError("truncated TIFF directory") from None
-    return tags
+        return tags, True
+    return tags, False
 
 
 def _one(tags: dict, tag: int, default: int) -> int:
@@ -292,12 +303,19 @@ def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
 def decode_tiff(data: bytes) -> np.ndarray:
     """The bytes of a TIFF file -> [h, w, 3] uint8 of its first image, as
     Pillow's ``Image.open(...).convert("RGB")``."""
-    if data[:4] in (b"II+\x00", b"MM\x00+"):
-        raise UnsupportedImageError("BigTIFF is not read by this package (classic TIFF)")
-    if data[:4] not in (b"II*\x00", b"MM\x00*"):
+    big = data[:4] in (b"II+\x00", b"MM\x00+")
+    if not big and data[:4] not in (b"II*\x00", b"MM\x00*"):
         raise ValueError("not a TIFF file")
     bo = "<" if data[:2] == b"II" else ">"
-    tags = _read_ifd(data, bo)
+    tags, cut = _read_ifd(data, bo, big)
+    if _WIDTH not in tags or _LENGTH not in tags:
+        raise ValueError("TIFF without ImageWidth or ImageLength")
+    w, h = tags[_WIDTH][0], tags[_LENGTH][0]
+    if w <= 0 or h <= 0:
+        raise ValueError("TIFF of no pixels")
+    check_pixels(w, h)
+    if big:
+        raise UnsupportedImageError("BigTIFF is not read by this package (classic TIFF)")
     comp = _one(tags, _COMPRESSION, 1)
     if comp not in _READ:
         if comp in _OTHER_COMPRESSIONS:
@@ -306,11 +324,6 @@ def decode_tiff(data: bytes) -> np.ndarray:
         raise ValueError(f"unknown TIFF compression {comp}")
     photo = _one(tags, _PHOTOMETRIC, 0)
     mode = _raw_mode(tags, photo)
-    if _WIDTH not in tags or _LENGTH not in tags:
-        raise ValueError("TIFF without ImageWidth or ImageLength")
-    w, h = tags[_WIDTH][0], tags[_LENGTH][0]
-    if w <= 0 or h <= 0:
-        raise ValueError("TIFF of no pixels")
     bits = tags.get(_BITS, (1,))[0]
     spp = _one(tags, _SAMPLES, 1)
     planar = _one(tags, _PLANAR, 1)
@@ -336,11 +349,17 @@ def decode_tiff(data: bytes) -> np.ndarray:
     nseg = planes * across * down
     if comp == 1 and not tiled and th == h and planes == 1:
         offsets = offsets[-1:]  # Pillow reads one strip covering the image at the last offset
-    if len(offsets) < nseg or (comp != 1 and len(counts) < nseg):
+    if not offsets:
+        raise ValueError("TIFF without strip or tile offsets: Pillow cannot open it")
+    if cut and comp != 1:
+        raise ValueError("TIFF whose directory the file's end cuts short: libtiff, which "
+                         "Pillow decodes compressed TIFF with, fails on it")
+    if comp != 1 and (len(offsets) < nseg or len(counts) < nseg):
         raise ValueError("TIFF with fewer strip or tile offsets than its layout needs")
     row_bytes = -(-tw * nsamp * bits // 8)
-    img = np.zeros((planes, down * th, across * tw, nsamp), np.uint8)
-    for i in range(nseg):
+    img = np.zeros((planes, h, w, nsamp), np.uint8)
+    # Pillow's own raw decoder reads the strips that have an offset; the rest stay black
+    for i in range(min(nseg, len(offsets))):
         plane, rest = divmod(i, across * down)
         y0, x0 = (rest // across) * th, (rest % across) * tw
         # libtiff decodes whole tiles and a strip's rows; Pillow's own raw
@@ -359,6 +378,7 @@ def decode_tiff(data: bytes) -> np.ndarray:
         seg = _samples(np.frombuffer(raw, np.uint8).reshape(rows, row_bytes), tw, nsamp, bits)
         if predictor == 2 and comp != 1 and comp != 32773:
             seg = np.cumsum(seg, axis=1, dtype=np.uint8)
-        img[plane, y0:y0 + rows, x0:x0 + tw] = seg
-    s = np.concatenate(list(img), axis=-1)[:h, :w] if planes > 1 else img[0, :h, :w]
+        part = img[plane, y0:y0 + rows, x0:x0 + tw]  # a tile's part inside the image
+        part[...] = seg[:part.shape[0], :part.shape[1]]
+    s = np.concatenate(list(img), axis=-1) if planes > 1 else img[0]
     return np.ascontiguousarray(_orient(_to_rgb(s, mode, tags), _one(tags, _ORIENTATION, 1)))

@@ -40,6 +40,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+from .image_errors import check_pixels
+
 # VP8's key-frame tables: the intra 4x4 mode probabilities [10][10][9],
 # the coefficient probabilities [4][8][3][11] and their update
 # probabilities, and the DC and AC dequantization steps (RFC 6386)
@@ -1390,6 +1392,7 @@ def decode_webp(data: bytes) -> np.ndarray:
     first = data[12:16]
     if first != b"VP8X":
         frame = _frame(data, 12, end)
+        check_pixels(*frame["size"])
         return _decode_frame(frame, check_alpha=False)
     chunks = iter(_chunks(data, 12, end))
     _, start, size, pos = next(chunks)
@@ -1400,6 +1403,7 @@ def decode_webp(data: bytes) -> np.ndarray:
         raise ValueError("WebP: unknown VP8X flags")
     cw = int.from_bytes(data[start + 4:start + 7], "little") + 1
     ch = int.from_bytes(data[start + 7:start + 10], "little") + 1
+    check_pixels(cw, ch)
     animated = bool(flags & _ANIMATION_FLAG)
     has_anim, first_frame = False, None
     for fourcc, start, size, nxt in chunks:

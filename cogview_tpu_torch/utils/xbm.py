@@ -17,7 +17,7 @@ import re
 
 import numpy as np
 
-from .image_errors import NotThisFormat
+from .image_errors import NotThisFormat, check_pixels
 
 _HEAD = re.compile(
     rb"\s*#define[ \t]+.*_width[ \t]+(?P<width>[0-9]+)[\r\n]+"
@@ -42,6 +42,7 @@ def decode_xbm(data: bytes) -> np.ndarray:
     w, h = int(m.group("width")), int(m.group("height"))
     if w <= 0 or h <= 0:
         raise NotThisFormat("not identified by this driver")
+    check_pixels(w, h)
     row = (w + 7) // 8
     need = row * h
     body = np.frombuffer(data, np.uint8)

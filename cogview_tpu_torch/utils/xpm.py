@@ -17,7 +17,7 @@ import re
 
 import numpy as np
 
-from .image_errors import NotThisFormat
+from .image_errors import NotThisFormat, check_pixels
 
 _HEAD = re.compile(rb'"([0-9]*) ([0-9]*) ([0-9]*) ([0-9]*)')
 
@@ -57,6 +57,7 @@ def decode_xpm(data: bytes) -> np.ndarray:
             raise ValueError("cannot read this XPM file")
     if w <= 0 or h <= 0:
         raise NotThisFormat("not identified by this driver")
+    check_pixels(w, h)
     rgb = ncolors > 256  # Pillow's RGB mode; else P, whose palette is the colours in order
     keys = list(palette)
     colors = np.array(list(palette.values()) or [(0, 0, 0)], np.uint8)

@@ -22,6 +22,7 @@ import struct
 import sys
 import time
 import warnings
+import zlib
 
 import numpy as np
 import pytest
@@ -35,7 +36,7 @@ from cogview_tpu_torch.preprocess import raw_datasets as raw  # noqa: E402
 from cogview_tpu_torch.utils import image_formats  # noqa: E402
 from cogview_tpu_torch.utils.image_errors import UnsupportedImageError  # noqa: E402
 from cogview_tpu_torch.utils.jpeg import _ARITAB, _ZIGZAG  # noqa: E402
-from test_torch_image_io import JFIF, _adobe, _encode_jpeg  # noqa: E402
+from test_torch_image_io import JFIF, _adobe, _encode_jpeg, _tiff  # noqa: E402
 
 decode_image = vqvae.decode_image
 
@@ -563,6 +564,20 @@ def test_dds_uncompressed_and_named():
                       named=True) == "named"
     assert _check(_dds(4, 4, 0x4, b"DX10", extra=_dx10(2), body=bytes(64))) == "skipped"
     assert _check(_dds(4, 4, 0x4, b"XXXX", body=bytes(64))) == "skipped"
+
+
+@pytest.mark.parametrize("bits", [40, 64, 2_701_131_800])
+def test_dds_masked_pixels_wider_than_their_masks(bits):
+    """Channel-mask pixels of more than 4 bytes, up to a bit count past the
+    whole file: Pillow reads each pixel's bytes and masks them with 32-bit
+    masks, and reads zeros past the data; the port reads each pixel's first
+    4 bytes, byte-equal and in no more time than the data takes."""
+    rng = np.random.RandomState(bits % 1000)
+    body = rng.randint(0, 256, 5 * 3 * 8).astype(np.uint8).tobytes()
+    data = _dds(5, 3, 0x41, bitcount=bits, masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000), body=body)
+    t0 = time.perf_counter()
+    assert _check(data, "DDS") == "read"
+    assert time.perf_counter() - t0 < 5
 
 
 # --------------------------------------------------------------------- #
@@ -1663,6 +1678,205 @@ def test_corrupted_files_end_as_in_pillow(fmt):
             for _ in range(rng.randint(1, 6)):
                 data[rng.randint(len(data))] = rng.randint(256)
         _check(bytes(data))
+
+
+# --------------------------------------------------------------------- #
+# the header checks of the formats the port names
+# --------------------------------------------------------------------- #
+
+
+def _put(data: bytes, at: int, fmt: str, *values) -> bytes:
+    out = bytearray(data)
+    struct.pack_into(fmt, out, at, *values)
+    return bytes(out)
+
+
+def _jp2_boxes(data: bytes) -> dict:
+    """A JP2 file's top-level boxes and those in its header -> {type: offset}."""
+    out, pos = {}, 0
+    while pos + 8 <= len(data):
+        size, kind = struct.unpack_from(">I4s", data, pos)
+        out.setdefault(kind, pos)
+        pos = pos + 8 if kind == b"jp2h" else pos + (size or len(data) - pos)
+    return out
+
+
+def _refused_headers():
+    """Files of each format the port names whose header Pillow's plugin
+    refuses or cannot load, or that are cut short -> (name, bytes)."""
+    pic = Image.fromarray(_picture(16, 16, 1))
+    avif, jp2 = _saved(pic, "AVIF"), _saved(pic, "JPEG2000")
+    j2k = _saved(pic, "JPEG2000", no_jp2=True)
+    fli = _fli()
+    at = _jp2_boxes(jp2)
+    ihdr, jp2c = at[b"ihdr"], at[b"jp2c"]
+    meta = avif.index(b"meta") - 4
+    yield "AVIF without the avif brand", avif[:8] + b"mif1" + avif[12:16] + b"mif1" * 4 + avif[32:]
+    yield "AVIF cut in its meta box", avif[:meta + 40]
+    yield "AVIF cut in its image", avif[:-20]
+    yield "AVIF without a picture handler", avif.replace(b"pict", b"vide", 1)
+    yield "AVIF without ispe", avif.replace(b"ispe", b"ispf", 1)
+    yield "FLI with reserved bytes set", _put(fli, 20, "B", 1)
+    yield "FLI cut in its palette", fli[:150]
+    yield "FLI cut in its frame", fli[:165]
+    yield "FLI whose palette runs past index 255", _put(fli, 128 + 24, "B", 255)
+    yield "J2K of 5 components", _put(j2k, 4 + 36, ">H", 5)
+    yield "J2K cut in its SIZ segment", j2k[:30]
+    yield "J2K cut in its main header", j2k[:60]
+    yield "J2K cut in a tile", j2k[:-30]
+    yield "JP2 without jp2h", jp2[:12] + jp2[12:].replace(b"jp2h", b"jp2x", 1)
+    yield "JP2 with an ihdr box too short for its fields", _put(jp2, ihdr, ">I", 12)
+    yield "JP2 of 5 components", _put(jp2, ihdr + 16, ">H", 5)
+    yield "JP2 without its codestream", jp2[:jp2c - 4]
+    yield "JP2 cut in its codestream", jp2[:jp2c + 200]
+    yield "IPTC without its size", _iptc().replace(bytes([0x1C, 3, 20]), bytes([0x1C, 3, 21]))
+    yield "PCD without its tag", _pcd()[:2048] + b"XXXX" + _pcd()[2052:]
+
+
+@pytest.mark.parametrize("case", list(dict(_refused_headers())), ids=str)
+def test_named_formats_check_their_headers_as_pillow_does(case):
+    """A format the port names is named only for a file whose header
+    Pillow opens: where Pillow's _open refuses the header, or the file is
+    cut short and fails to load, the port skips it too (or reads it with
+    the next plugin Pillow tries)."""
+    data = dict(_refused_headers())[case]
+    assert _pillow(data) is None
+    assert _check(data) == "skipped"
+
+
+# --------------------------------------------------------------------- #
+# decompression bombs: a header of more pixels than Pillow opens
+# --------------------------------------------------------------------- #
+
+W, H = 13_000, 14_000  # 182,000,000 pixels: above Pillow's 178,956,970
+W16, H16 = 65_535, 2_731  # the same for 16-bit sizes: 178,976,085
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(
+        ">I", zlib.crc32(kind + body))
+
+
+def _png_of(w: int, h: int) -> bytes:
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(bytes(64))) + _png_chunk(b"IEND", b""))
+
+
+def _j2k_of(w: int, h: int) -> bytes:
+    j2k = _saved(Image.fromarray(_picture(16, 16, 1)), "JPEG2000", no_jp2=True)
+    return _put(j2k, 8, ">II", w, h)
+
+
+def _bigtiff_of(w: int, h: int) -> bytes:
+    fields = [(256, 4, w), (257, 4, h), (258, 3, 8), (262, 3, 1), (273, 4, 8),
+              (278, 4, h), (279, 4, 1)]
+    ifd = struct.pack("<Q", len(fields)) + b"".join(
+        struct.pack("<HHQQ", tag, typ, 1, v) for tag, typ, v in fields) + bytes(8)
+    return b"II+\x00" + struct.pack("<HHQ", 8, 0, 16) + ifd
+
+
+def _spider_of(w: int, h: int) -> bytes:
+    data = _saved(Image.fromarray(_picture(4, 4, 1)).convert("F"), "SPIDER")
+    order = ">" if 1 <= struct.unpack_from(">f", data, 4)[0] < 1e6 else "<"
+    v = list(struct.unpack_from(f"{order}27f", data))
+    v[1], v[11], v[12], v[21], v[22] = h, w, 1, 4 * w, 4 * w  # nrow, nsam, labrec, labbyt, lenbyt
+    return struct.pack(f"{order}27f", *v) + data[108:]
+
+
+def _iptc_of(w: int, h: int) -> bytes:
+    def field(rec, tag, value):
+        return bytes([0x1C, rec, tag]) + struct.pack(">H", len(value)) + value
+    return (field(3, 60, bytes([1, 0])) + field(3, 20, struct.pack(">I", w))
+            + field(3, 30, struct.pack(">I", h)) + field(3, 120, bytes([1]))
+            + field(8, 10, bytes(range(6))) + bytes(5))
+
+
+def _webp_of(w: int, h: int) -> bytes:
+    data = _saved(Image.fromarray(_picture(16, 16, 1)), "WEBP")
+    at = data.index(b"\x9d\x01\x2a") + 3
+    return _put(data, at, "<HH", w, h)
+
+
+def _bombs():
+    pic = Image.fromarray(_picture(16, 16, 1))
+    png = _png_of(W, H)
+    bc6 = _dds(16, 16, 0x4, b"DX10", extra=_dx10(95), body=bytes(256))
+    avif = _saved(pic, "AVIF")
+    jp2 = _saved(pic, "JPEG2000")
+    jpeg = _saved(pic, "JPEG")
+    dib = _put(_icon_bitmap(_picture(4, 4, 1), "RGB")[1], 4, "<ii", W, 2 * H)
+    sgi_rle = _sgi(_picture(4, 4, 2).transpose(2, 0, 1), 1, 3, True, np.random.RandomState(0))
+    yield "BMP", _put(_saved(pic, "BMP"), 18, "<ii", W, H)
+    yield "DIB", _put(_saved(pic, "DIB"), 4, "<ii", W, H)
+    yield "GIF", _put(_saved(pic, "GIF"), 6, "<HH", W16, H16)
+    yield "JPEG", _put(jpeg, jpeg.index(b"\xff\xc0") + 5, ">HH", H16, W16)
+    yield "PPM", b"P6\n%d %d\n255\n" % (W, H) + bytes(30)
+    yield "PFM", b"Pf\n%d %d\n-1.0\n" % (W, H) + bytes(30)
+    yield "PNG", png
+    yield "AVIF", _put(avif, avif.index(b"ispe") + 8, ">II", W, H)
+    yield "BLP", _put(_from_pillow("BLP", "P")(), 12, "<II", W, H)
+    yield "CUR", _put(_cur(), 22 + 4, "<ii", W, 2 * H)
+    yield "PCX", _put(_saved(pic, "PCX"), 4, "<HHHH", 0, 0, W16 - 1, H16 - 1)
+    yield "DCX", _put(_dcx(), 12 + 4, "<HHHH", 0, 0, W16 - 1, H16 - 1)
+    yield "DDS", _put(_saved(pic, "DDS"), 12, "<II", H, W)
+    yield "DDS BC6H", _put(bc6, 12, "<II", H, W)
+    yield "FITS", _fits_cards(b"SIMPLE  =                    T", b"BITPIX  =                    8",
+                              b"NAXIS   =                    2", b"NAXIS1  = %20d" % W,
+                              b"NAXIS2  = %20d" % H) + bytes(64)
+    yield "FLI", _put(_fli(), 8, "<HH", W16, H16)
+    yield "FTEX", _put(_ftex(), 8, "<ii", W, H)
+    yield "GBR", _put(_gbr(), 8, ">II", W, H)
+    yield "JPEG 2000 codestream", _j2k_of(W, H)
+    yield "JPEG 2000 JP2", _put(jp2, _jp2_boxes(jp2)[b"ihdr"] + 8, ">II", H, W)
+    yield "ICNS PNG member", _icns([(b"ic07", png)])
+    yield "ICNS JPEG 2000 member", _icns([(b"ic07", _j2k_of(W, H))])
+    yield "ICO BMP entry", _icon([(4, 4, 0, 24, dib)])
+    yield "ICO PNG entry", _icon([(4, 4, 0, 32, png)])
+    yield "IM", _im(b"RGB image", W, H, b"")
+    yield "IM YCC", _im(b"YCC image", W, H, b"")
+    yield "IMT", b"width %d\nheight %d\npixel n8\n\x0c" % (W, H) + bytes(6)
+    yield "IPTC", _iptc_of(W, H)
+    yield "MCIDAS", _put(_mcidas(), 32, ">ii", H, W)
+    yield "TIFF", _tiff(_picture(2, 2, 1), photo=2, tags={256: (4, [W]), 257: (4, [H])})
+    yield "TIFF JPEG-compressed", _tiff(_picture(2, 2, 1), photo=2, tags={
+        256: (4, [W]), 257: (4, [H]), 259: (3, [7])})
+    yield "BigTIFF", _bigtiff_of(W, H)
+    yield "MSP", _msp_header(b"DanM", W16, H16) + bytes(16)
+    yield "PIXAR", _put(_pixar(), 416, "<HH", H16, W16)
+    yield "PSD", _put(_psd(3, 8, _picture(2, 2, 1).transpose(2, 0, 1).copy(), False,
+                           np.random.RandomState(0)), 14, ">II", H, W)
+    yield "PSD Lab", _put(_psd(9, 8, _picture(2, 2, 1).transpose(2, 0, 1).copy(), False,
+                               np.random.RandomState(0)), 14, ">II", H, W)
+    yield "QOI", _put(_saved(pic, "QOI"), 4, ">II", W, H)
+    yield "SGI", _put(_saved(pic, "SGI"), 6, ">HH", W16, H16)
+    yield "SGI RLE", _put(sgi_rle, 6, ">HH", W16, H16)
+    yield "SPIDER", _spider_of(W, H)
+    yield "SUN", _put(_sun(), 4, ">II", W, H)
+    yield "TGA", _put(_saved(pic, "TGA"), 12, "<HH", W16, H16)
+    yield "WEBP", _webp_of(16_383, 10_924)
+    yield "XBM", b"#define x_width %d\n#define x_height %d\nstatic char x_bits[] = {\n0x00};\n" % (
+        W, H)
+    yield "XPM", b'/* XPM */\nstatic char *x[] = {\n"%d %d 1 1",\n"a c #FF0000",\n"a"\n};\n' % (
+        W, H)
+    yield "XVTHUMB", b"P7 332\n#END_OF_COMMENTS\n%d %d 255\n" % (W, H) + bytes(6)
+
+
+@pytest.mark.parametrize("case", list(dict(_bombs())), ids=str)
+def test_a_header_of_too_many_pixels_is_skipped_as_pillow_refuses_it(case):
+    """A few bytes whose header claims more pixels than Pillow's
+    decompression-bomb check lets through, for every reader and every
+    named format whose header holds a size: Pillow raises
+    DecompressionBombError, and the port raises its plain ValueError before
+    it allocates the image (so the dataset sources skip the file), never
+    an UnsupportedImageError and never a MemoryError."""
+    data = dict(_bombs())[case]
+    with pytest.raises(Image.DecompressionBombError):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            Image.open(io.BytesIO(data)).convert("RGB")
+    with pytest.raises(raw.DECODE_ERRORS, match="decompression bomb") as err:
+        decode_image(data)
+    assert not isinstance(err.value, UnsupportedImageError)
 
 
 # --------------------------------------------------------------------- #

@@ -929,7 +929,7 @@ def test_gif_short_palette_truncation_and_pillow_files(tmp_path):
 @pytest.mark.parametrize("fmt", ["WEBP", "TIFF", "ICO", "PPM", "JPEG2000", "PSD", "QOI"])
 def test_formats_pillow_reads_raise_a_named_error(fmt):
     """Files Pillow reads and the port does not: an ``UnsupportedImageError``
-    naming the format (Pillow writes them here where it can).  PNM, QOI,
+    naming the format, on a file Pillow writes and reads back.  PNM, QOI,
     WebP, TIFF, ICO and PSD are read now: Pillow's own files (a PSD built
     here, since Pillow writes none) decode byte-equal to it."""
     if fmt in ("PPM", "QOI", "WEBP", "TIFF", "ICO"):
@@ -940,14 +940,9 @@ def test_formats_pillow_reads_raise_a_named_error(fmt):
         _check_pillow(vqvae.decode_image, b"8BPS\x00\x01" + bytes(6) + struct.pack(
             ">HIIHH", 3, 5, 7, 8, 3) + bytes(12) + b"\x00\x00" + planes.tobytes())
         return
-    names = {"WEBP": "WebP", "ICO": "ICO", "JPEG2000": "JPEG 2000", "TIFF": "TIFF",
-             "PSD": "PSD"}
-    try:
-        data = _encoded_by_pillow(fmt)
-    except (KeyError, OSError, ValueError):  # no writer in this Pillow: the magic bytes
-        data = {"WEBP": b"RIFF\x10\x00\x00\x00WEBPVP8 ", "PSD": b"8BPS\x00\x01",
-                "JPEG2000": b"\xff\x4f\xff\x51"}[fmt] + bytes(16)
-    with pytest.raises(UnsupportedImageError, match=names[fmt]):
+    data = _encoded_by_pillow(fmt)  # JPEG 2000: a file Pillow reads, so named
+    Image.open(io.BytesIO(data)).convert("RGB")
+    with pytest.raises(UnsupportedImageError, match="JPEG 2000"):
         vqvae.decode_image(data)
 
 
@@ -1835,13 +1830,15 @@ REFUSED_TIFF = {
 def test_tiff_refuses_named_features(name):
     """Each TIFF feature outside the reader's scope raises
     ``UnsupportedImageError`` naming it; Pillow opens every one of these
-    files (it may still fail to decode the stand-in pixel data)."""
+    files (it may still fail to decode the stand-in pixel data).  The
+    BigTIFF file is Pillow's own."""
     fields, feature = REFUSED_TIFF[name]
     data = _tiff(_picture(9, 7, 1), photo=2, tags=fields)
     if fields is None:
-        data = b"II+\x00\x08\x00\x00\x00" + bytes(8)
-    else:
-        Image.open(io.BytesIO(data))
+        buf = io.BytesIO()
+        Image.fromarray(_picture(9, 7, 1)).save(buf, "TIFF", big_tiff=True)
+        data = buf.getvalue()
+    Image.open(io.BytesIO(data))
     with pytest.raises(UnsupportedImageError, match=feature):
         vqvae.decode_image(data)
 
