@@ -179,7 +179,7 @@ result):
    4 images at 512 (16 rows, each laid out as the JAX package's); then 2
    ``cli.pretrain`` steps at the tutorial preset on the .bin: finite
    losses, the flash kernels launched;
-23b. image formats on the card's host, which has no Pillow: one lossless
+23b. image formats on the card's host, without Pillow: one lossless
    file of each newly read format written here from a seeded 192 x 240
    picture by the script's own writers (TGA raw and RLE, PCX, SGI RLE,
    DIB, ICO holding a BMP and one holding a PNG, PSD raw and PackBits,
@@ -190,6 +190,17 @@ result):
    every row's codes equal the card's img2code of the source arrays (this
    path launches no kernel of the port: the VQ-VAE encoder's convolutions
    are PyTorch's);
+23c. damaged files on the card's host: a seeded 96 x 128 picture as a
+   baseline JPEG, as one with a restart marker every 2 MCUs and as a GIF,
+   written by the script's own writers, then damaged (bytes overwritten
+   from seeds, and one edit each for a marker inside the scan data, a lost
+   or forged restart marker, a lost end of image, GIF sub-blocks zeroed,
+   lengthened or cut): each of the 24 ends as the script's table of
+   Pillow's outcomes says (skipped, or the SHA-256 of the array read),
+   ``decode_image``'s host ms printed per file, and ``cli.preprocess
+   --task text2image --device cuda`` over the folder writes a row for each
+   file the table reads, skips the rest, and every row's codes equal the
+   card's img2code of the arrays read;
 24. VQ-VAE training: ``cli.vqtrain.main`` at the released geometry, batch
    32 x 256^2 on phase 23's images, 20 straight-through + EMA iterations
    (the recon MSE at the last log below the first, the codebook's
@@ -2743,7 +2754,7 @@ def _rle_runs(row: bytes, px: int, most: int):
 
 def _format_files(png, rng):
     """The files of phase 23b -> {name: (bytes, the [h, w, 3] uint8 they hold)},
-    each written by a few lines here (the host has no Pillow)."""
+    each written by a few lines here (the port imports no Pillow)."""
     import struct
 
     import numpy as np
@@ -2879,6 +2890,323 @@ def phase_image_formats(torch, vqvae, work: str, smi: str) -> None:
           + ", ".join(f"{n} {host_ms[n]:.1f}" for n in names))
     print(f"image formats: {len(files)} files -> {rows.shape[0]} rows, 0 skipped, codes equal "
           f"to img2code of the sources; phase {time.perf_counter() - t0:.1f} s")
+
+
+DAMAGE_SIZE = (96, 128)  # phase 23c's pictures, h x w
+# phase 23c's files as Pillow 12.1 ends them (Image.open(...).convert("RGB")
+# on this script's files): "skip" where it raises, else the SHA-256 of the
+# RGB array it reads; tests/test_torch_image_damage_other.py holds this
+# table to live Pillow
+DAMAGED_OUTCOMES = {
+    'gif_data_cut.png': 'skip',
+    'gif_longer_block.jpg': 'skip',
+    'gif_seed1001.png': 'skip',
+    'gif_seed1006.jpg': '7ebdf0edec4d0a366ace3bb5dfb8d4f2902735a54c3c662159d80c2319abfbb2',
+    'gif_seed1019.png': '89593fdde738dc968e74a49955661eaef2dc7c82478fe42cbc0409df2eeaacf7',
+    'gif_trailer_lost.jpg': 'ece876e1140627815a50d96f5439973c0c6d44adddfd18c01739c558db189a79',
+    'gif_zero_block.png': 'skip',
+    'jpeg_dht_in_scan.png': 'skip',
+    'jpeg_eoi_in_scan.jpg': 'cdfd42ff2434f265f67260ab635d7491ad1d66f853d489e7d773606abd426528',
+    'jpeg_eoi_lost.jpg': 'skip',
+    'jpeg_rst_in_scan.jpg': 'cdfd42ff2434f265f67260ab635d7491ad1d66f853d489e7d773606abd426528',
+    'jpeg_seed1004.jpg': 'skip',
+    'jpeg_seed1011.png': '3a43fc74bee812d35264d3364c514f7f0acc325b31d45113ac3bb38b335bf4ce',
+    'jpeg_seed1023.png': '2aa9755b5a9921b3c96edd91324a30fe320da295a6cc338aadba21c50001d9aa',
+    'jpeg_seed1042.jpg': '3ac404aa6388d2ab3028258a7b77bb7cc28430a017cdf22ff3ea616a3ac2c4af',
+    'rst_forged_far.jpg': 'dee07e45b74093bdf66c93d0ea06d7b9123f397025cd8fc47d2e193a8f90ebad',
+    'rst_forged_next.png': '94a846e9af8b4d5346a28809cfb9d09e7cbf69b9aa7045b0f9dab820b52ddffb',
+    'rst_forged_prior.jpg': '9a47fd555c8c41c276769f2b0be96b88a17584338d46ea79e63c68957da3a1fd',
+    'rst_lost.jpg': '9a47fd555c8c41c276769f2b0be96b88a17584338d46ea79e63c68957da3a1fd',
+    'rst_reserved_marker.png': '2fb9a16938d5ee389c17ead7ab87793c687197938303c3f3998042e137e6a9fb',
+    'rst_seed1002.jpg': 'd5dc8ae98bbf5618ba32a57750e086eec88311b12ff52a973eadfdf117bccd81',
+    'rst_seed1017.png': '42c9f2bc0d176cac1b32c01f038156049ede3d14e160181edda0eef5746ccbf9',
+    'rst_seed1030.jpg': 'ff96cdb358c2445b6f8c39a3644e5bce4b586a18940e67bc6ddc9ddc200df8a2',
+    'rst_seed1055.png': 'eef85a6dd36f79529231844968f50df4ef528ccfa2c06232fd5529313f63590e',
+}
+
+
+def _huffman_codes(counts, symbols):
+    """A DHT table's canonical codes -> {symbol: (code, length)}."""
+    codes, code, k = {}, 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            codes[symbols[k]] = (code, length)
+            code += 1
+            k += 1
+        code <<= 1
+    return codes
+
+
+def _jpeg_file(img, restart: int = 0) -> bytes:
+    """A baseline 4:2:0 JFIF JPEG of ``img`` [h, w, 3] uint8: T.81's K.3
+    Huffman tables, quantizers 2 + 3 (u + v) / 2 (luma) and twice those
+    (chroma), and a restart marker every ``restart`` MCUs where it is not
+    0."""
+    import struct
+
+    import numpy as np
+
+    from cogview_tpu_torch.utils.jpeg import _STD_TABLES, _ZIGZAG
+
+    h, w = img.shape[:2]
+    f = img.astype(np.float64)
+    ycc = [0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2],
+           128 - 0.168736 * f[..., 0] - 0.331264 * f[..., 1] + 0.5 * f[..., 2],
+           128 + 0.5 * f[..., 0] - 0.418688 * f[..., 1] - 0.081312 * f[..., 2]]
+    mh, mw = -(-h // 16), -(-w // 16)
+    n = np.arange(8)
+    dct = np.sqrt(np.where(n == 0, 1, 2) / 8)[:, None] * np.cos(
+        (2 * n[None, :] + 1) * n[:, None] * np.pi / 16)
+    quant = 2 + np.add.outer(n, n) * 3 // 2
+    zz = list(_ZIGZAG)
+    blocks = []
+    for k, p in enumerate(ycc):
+        p = np.pad(p, ((0, 16 * mh - h), (0, 16 * mw - w)), mode="edge")
+        if k:
+            p = p.reshape(8 * mh, 2, 8 * mw, 2).mean(axis=(1, 3))
+        t = (p - 128).reshape(p.shape[0] // 8, 8, p.shape[1] // 8, 8).transpose(0, 2, 1, 3)
+        c = np.einsum("ij,abjk,lk->abil", dct, t, dct) / (quant * (1 + (k > 0)))
+        blocks.append(np.round(c).astype(np.int64).reshape(c.shape[0], c.shape[1], 64)[..., zz])
+    tables = [(_huffman_codes(*_STD_TABLES[0, t]), _huffman_codes(*_STD_TABLES[1, t]))
+              for t in (0, 1)]
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(code: int, length: int) -> None:
+        nonlocal acc, nacc
+        acc, nacc = (acc << length) | (code & ((1 << length) - 1)), nacc + length
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+            if out[-1] == 0xFF:
+                out.append(0)
+
+    def value(v: int) -> None:  # the magnitude category's symbol bits
+        s = abs(v).bit_length()
+        put(v if v >= 0 else v + (1 << s) - 1, s)
+
+    pred = [0, 0, 0]
+    for m in range(mh * mw):
+        if restart and m and m % restart == 0:
+            if nacc:
+                put(0x7F, 8 - nacc)
+            out += bytes([0xFF, 0xD0 + (m // restart - 1) % 8])
+            pred = [0, 0, 0]
+        my, mx = divmod(m, mw)
+        units = [(0, blocks[0][2 * my + v, 2 * mx + u]) for v in (0, 1) for u in (0, 1)]
+        for k, blk in [*units, (1, blocks[1][my, mx]), (2, blocks[2][my, mx])]:
+            dc, ac = tables[k > 0]
+            diff, pred[k] = int(blk[0]) - pred[k], int(blk[0])
+            put(*dc[abs(diff).bit_length()])
+            value(diff)
+            last = max([i for i in range(1, 64) if blk[i]] or [0])
+            run = 0
+            for i in range(1, last + 1):
+                if not blk[i]:
+                    run += 1
+                    continue
+                while run > 15:
+                    put(*ac[0xF0])
+                    run -= 16
+                put(*ac[(run << 4) | abs(int(blk[i])).bit_length()])
+                value(int(blk[i]))
+                run = 0
+            if last < 63:
+                put(*ac[0x00])
+    if nacc:
+        put(0x7F, 8 - nacc)
+
+    def seg(marker: int, body: bytes) -> bytes:
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    dqt = b"".join(bytes([t]) + bytes((quant * (1 + t)).reshape(-1)[zz].tolist()) for t in (0, 1))
+    dht = b"".join(bytes([(c << 4) | t]) + _STD_TABLES[c, t][0] + _STD_TABLES[c, t][1]
+                   for t in (0, 1) for c in (0, 1))
+    sof = struct.pack(">BHHB", 8, h, w, 3) + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])
+    return b"".join([b"\xff\xd8", seg(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0"), seg(0xDB, dqt),
+                     seg(0xC0, sof), seg(0xC4, dht),
+                     seg(0xDD, struct.pack(">H", restart)) if restart else b"",
+                     seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])), bytes(out),
+                     b"\xff\xd9"])
+
+
+def _gif_file(img) -> bytes:
+    """A GIF of ``img`` [h, w, 3] uint8 on a fixed palette of 4 levels a
+    channel (64 colours), LZW-coded with an 8-bit minimum code size."""
+    import struct
+
+    h, w = img.shape[:2]
+    idx = ((img[..., 0] >> 6) * 16 + (img[..., 1] >> 6) * 4 + (img[..., 2] >> 6)).reshape(-1)
+    palette = bytes(85 * ((i >> s) & 3) for i in range(256) for s in (4, 2, 0))
+    clear, end = 256, 257
+    table, nxt, size = {bytes([i]): i for i in range(256)}, 258, 9
+    codes, cur = [(clear, 9)], b""
+    for p in idx.tolist():
+        grown = cur + bytes([p])
+        if grown in table:
+            cur = grown
+            continue
+        codes.append((table[cur], size))
+        if nxt < 4096:
+            table[grown] = nxt
+            nxt += 1
+            if nxt > (1 << size) and size < 12:
+                size += 1
+        cur = bytes([p])
+    codes += [(table[cur], size), (end, size)]
+    acc = nacc = 0
+    data = bytearray()
+    for code, length in codes:
+        acc, nacc = acc | (code << nacc), nacc + length
+        while nacc >= 8:
+            data.append(acc & 0xFF)
+            acc, nacc = acc >> 8, nacc - 8
+    if nacc:
+        data.append(acc)
+    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                      for i in range(0, len(data), 255))
+    return (b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0) + palette
+            + b"," + struct.pack("<HHHHB", 0, 0, w, h, 0) + b"\x08" + blocks + b"\x00;")
+
+
+def _damaged(data: bytes, seed: int) -> bytes:
+    """``data`` with 1 to 3 bytes at offsets 20 and on overwritten, from a
+    seed."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = bytearray(data)
+    for _ in range(rng.randint(1, 4)):
+        out[rng.randint(20, len(out))] = rng.randint(256)
+    return bytes(out)
+
+def _damaged_files() -> dict:
+    """The files of phase 23c -> {name: bytes}: a seeded 96 x 128 picture
+    (a smooth gradient and noise) as a baseline JPEG, the same with a
+    restart marker every 2 MCUs, and a GIF, each damaged by the script: 1
+    to 3 bytes overwritten from seeds, as in a crawl, and one edit each
+    for a rule of libjpeg-turbo's or Pillow's the readers follow (a marker
+    inside the scan data, a lost or forged restart marker, a lost end of
+    image, a zero-length or lengthened GIF sub-block, GIF data cut short).
+    Named .jpg and .png as a crawl mislabels files."""
+    import numpy as np
+
+    rng = np.random.RandomState(37)
+    h, w = DAMAGE_SIZE
+    img = _gradient_image(rng, h, w)
+    img = np.clip(img.astype(np.int64) + rng.randint(-20, 21, img.shape), 0, 255)
+    img = img.astype(np.uint8)
+    jpeg, rst, gif = _jpeg_file(img), _jpeg_file(img, 2), _gif_file(img)
+
+    def edit(data: bytes, at: int, new: bytes) -> bytes:
+        return data[:at] + new + data[at + len(new):]
+
+    def scan_start(data: bytes) -> int:
+        i = data.index(b"\xff\xda")
+        return i + 2 + (data[i + 2] << 8 | data[i + 3])
+
+    mid = (scan_start(jpeg) + len(jpeg)) // 2
+    rsts = [m.start() for m in re.finditer(rb"\xff[\xd0-\xd7]", rst)]
+    blocks, at = [], 13 + 768 + 10 + 1  # GIF: the sub-blocks' size bytes
+    while gif[at]:
+        blocks.append(at)
+        at += 1 + gif[at]
+    files = {
+        "jpeg_rst_in_scan.jpg": edit(jpeg, mid, b"\xff\xd3"),
+        "jpeg_eoi_in_scan.jpg": edit(jpeg, mid, b"\xff\xd9"),
+        "jpeg_dht_in_scan.png": edit(jpeg, mid, b"\xff\xc4"),
+        "jpeg_eoi_lost.jpg": edit(jpeg, len(jpeg) - 2, b"\x00\x00"),
+        "rst_lost.jpg": edit(rst, rsts[4], b"\x37"),
+        "rst_forged_next.png": edit(rst, rsts[4] + 1, bytes([0xD0 + 5 % 8])),
+        "rst_forged_prior.jpg": edit(rst, rsts[4] + 1, bytes([0xD0 + 3 % 8])),
+        "rst_forged_far.jpg": edit(rst, rsts[4] + 1, bytes([0xD0 + 8 % 8])),
+        "rst_reserved_marker.png": edit(rst, (rsts[6] + rsts[7]) // 2, b"\xff\x05"),
+        "gif_zero_block.png": edit(gif, blocks[len(blocks) // 2], b"\x00"),
+        "gif_longer_block.jpg": edit(gif, blocks[len(blocks) // 2], bytes([255 if gif[
+            blocks[len(blocks) // 2]] < 255 else 254])),
+        "gif_data_cut.png": gif[:blocks[2 * len(blocks) // 3]] + b"\x00;",
+        "gif_trailer_lost.jpg": gif[:-2],
+    }
+    for kind, base, seeds in (("jpeg", jpeg, (1004, 1011, 1023, 1042)),
+                              ("rst", rst, (1002, 1017, 1030, 1055)),
+                              ("gif", gif, (1001, 1006, 1019))):
+        for seed in seeds:
+            files[f"{kind}_seed{seed}.{'png' if seed % 2 else 'jpg'}"] = _damaged(base, seed)
+    return files
+
+
+def phase_damaged_files(torch, vqvae, work: str, smi: str) -> None:
+    """Phase 23c: damaged JPEG and GIF files on the card's host, without
+    Pillow, each ending as Pillow 12.1 ends it (DAMAGED_OUTCOMES:
+    skipped, or the SHA-256 of the RGB array it reads), then through the
+    preprocess CLI on the card (see the module docstring)."""
+    import contextlib
+    import hashlib
+    import io
+
+    import numpy as np
+
+    from cogview_tpu_torch.cli import preprocess
+    from cogview_tpu_torch.models import convert
+    from cogview_tpu_torch.models.vqvae import decode_image, to_model_input
+    from cogview_tpu_torch.preprocess.raw_datasets import DECODE_ERRORS
+    from cogview_tpu_torch.utils.image_errors import UnsupportedImageError
+
+    t0 = time.perf_counter()
+    files = _damaged_files()
+    _check(sorted(files) == sorted(DAMAGED_OUTCOMES), "phase 23c's files are not its table's")
+    folder = os.path.join(work, "damaged")
+    os.makedirs(folder)
+    host_ms, read = {}, {}
+    for name, data in files.items():
+        with open(os.path.join(folder, name), "wb") as f:
+            f.write(data)
+        t = time.perf_counter()
+        try:
+            got = decode_image(data)
+        except UnsupportedImageError:
+            _fail(f"{name}: a damaged file named as a format the port does not read")
+        except DECODE_ERRORS:
+            got = None
+        host_ms[name] = (time.perf_counter() - t) * 1000.0
+        outcome = "skip" if got is None else hashlib.sha256(
+            np.ascontiguousarray(got).tobytes()).hexdigest()
+        _check(outcome == DAMAGED_OUTCOMES[name],
+               f"{name}: the port's outcome is not Pillow's ({outcome[:12]})")
+        if got is not None:
+            read[name] = got
+    names = sorted(files)
+    caps = os.path.join(work, "damaged.tsv")
+    with open(caps, "w") as f:
+        for i, name in enumerate(names):
+            f.write(f"{name}\t" + " ".join(f"word{(i + k) % 50}" for k in range(5)) + "\n")
+    vq_path = os.path.join(work, "vqvae_released.pt")
+    out = os.path.join(work, "damaged.bin")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, log = _run_quiet(preprocess.main, [
+            "--task", "text2image", "--image-source", folder, "--text-source", caps,
+            "--img-tokenizer-path", vq_path, "--output", out, "--batch-size", "32",
+            "--device", "cuda"], txt_tokenizer=WordTokenizer())
+    print(err.getvalue(), end="")
+    _check(rc == 0, "preprocess text2image over the damaged folder failed")
+    skipped = re.search(r"skipped (\d+) undecodable", err.getvalue())
+    skipped = int(skipped.group(1)) if skipped else 0
+    rows = np.fromfile(out, np.int32).reshape(-1, 64 + 1024)
+    _check(rows.shape[0] == len(read) and skipped == len(files) - len(read),
+           f"{rows.shape[0]} rows and {skipped} skipped from {len(read)} files Pillow reads "
+           f"and {len(files) - len(read)} it does not")
+    params = convert.load_vqvae_checkpoint(vq_path, torch.device("cuda"))
+    kept = sorted(read)
+    x = torch.from_numpy(np.stack([to_model_input(read[n], 256) for n in kept])).cuda()
+    own = vqvae.img2code(params, x).cpu().numpy()
+    _check(np.array_equal(own, rows[:, 64:]),
+           "the damaged folder's codes differ from the card's img2code of the arrays read")
+    h, w = DAMAGE_SIZE
+    print(f"damaged files ({smi}; host decode of {h} x {w}, ms): "
+          + ", ".join(f"{n} {host_ms[n]:.1f}" for n in names))
+    print(f"damaged files: {len(files)} files as Pillow ends them, {rows.shape[0]} rows, "
+          f"{skipped} skipped, codes equal to img2code of the arrays read; mean host decode "
+          f"{sum(host_ms.values()) / len(host_ms):.1f} ms; phase {time.perf_counter() - t0:.1f} s")
 
 
 def phase_vqtrain(torch, work: str, smi: str) -> None:
@@ -4438,6 +4766,8 @@ def main() -> int:
         lap("phase 23")
         phase_image_formats(torch, vqvae, work, smi.splitlines()[0])
         lap("phase 23b")
+        phase_damaged_files(torch, vqvae, work, smi.splitlines()[0])
+        lap("phase 23c")
         phase_vqtrain(torch, work, smi.splitlines()[0])
         lap("phase 24")
         phase_fid(torch, png, work, smi.splitlines()[0])

@@ -10,10 +10,15 @@ where there is one, else index 0; the transparent index is not applied,
 since ``convert("RGB")`` of a "P" image ignores it.  The LZW stream is
 decoded as Pillow's ``GifDecode.c`` does (LSB-first codes across data
 sub-blocks, a clear code resets the table, the code size grows to 12 bits
-and then stays, the end code or a zero-length block ends the frame early),
-and interlaced frames write their rows in the four passes 0::8, 4::8, 2::4
-and 1::2.  A file that ends before its frame is complete, or a code that
-the table does not yet hold, raises a ``ValueError``.
+and then stays, a data sub-block is read only once the file holds all of
+it), and interlaced frames write their rows in the four passes 0::8,
+4::8, 2::4 and 1::2.  The frame is done when its last pixel is written,
+and only then: a zero-length block does not end it (``GifDecode.c`` reads
+the bytes after it as further sub-blocks), and an end code before the
+last pixel leaves it undone, so that Pillow's ``ImageFile.load`` meets
+the end of the file and raises "image file is truncated", as it does
+where the data run out; a code that the table does not yet hold is a
+broken stream.  Both raise a ``ValueError``.
 """
 
 from __future__ import annotations
@@ -28,19 +33,19 @@ def _palette_needed(p: bytes) -> bool:
     return any(not (i // 3 == p[i] == p[i + 1] == p[i + 2]) for i in range(0, len(p) - 2, 3))
 
 
-def _sub_blocks(data: bytes, pos: int):
-    """Data sub-blocks from ``pos`` -> (their bytes joined, whether a
-    zero-length block ended them)."""
+def _sub_blocks(data: bytes, pos: int, past_zero: bool = False) -> bytes:
+    """Data sub-blocks from ``pos`` -> their bytes joined: up to a
+    zero-length block, or with ``past_zero`` on through the rest of the
+    file; a block the file holds only part of is not read."""
     out = bytearray()
     n = len(data)
     while pos < n:
         size = data[pos]
-        pos += 1
-        if size == 0:
-            return bytes(out), True
-        out += data[pos:pos + size]
-        pos += size
-    return bytes(out), False
+        if pos + 1 + size > n or not (size or past_zero):
+            break
+        out += data[pos + 1:pos + 1 + size]
+        pos += 1 + size
+    return bytes(out)
 
 
 def _skip_sub_blocks(data: bytes, pos: int) -> int:
@@ -51,7 +56,7 @@ def _skip_sub_blocks(data: bytes, pos: int) -> int:
 
 def _lzw(stream: bytes, bits: int, npix: int):
     """The LZW codes in ``stream`` -> (up to ``npix`` pixel values,
-    whether the end code or the full frame stopped the decode)."""
+    whether the end code stopped the decode)."""
     clear, end = 1 << bits, (1 << bits) + 1
     table = [bytes([i & 0xFF]) for i in range(clear)] + [b"", b""]
     out = bytearray()
@@ -92,7 +97,7 @@ def _lzw(stream: bytes, bits: int, npix: int):
             out += entry
             prev = entry
             if len(out) >= npix:
-                return out[:npix], True
+                return out[:npix], False
     return out, False
 
 
@@ -154,10 +159,12 @@ def decode_gif(data: bytes) -> np.ndarray:
     pal = local_pal if local_pal is not None else global_pal
     canvas = np.full((h, w), transparency or 0, np.uint8)
     if fw and fh:
-        stream, terminated = _sub_blocks(data, pos)
-        px, stopped = _lzw(stream, bits, fw * fh)
-        if not stopped and not terminated:
-            raise ValueError("corrupt GIF: image file is truncated")
+        px, ended = _lzw(_sub_blocks(data, pos), bits, fw * fh)
+        if len(px) < fw * fh and not ended:  # on past a zero-length block
+            px, ended = _lzw(_sub_blocks(data, pos, True), bits, fw * fh)
+        if len(px) < fw * fh:
+            raise ValueError("corrupt GIF: the frame ends before its last pixel (Pillow: "
+                             "image file is truncated)")
         frame = canvas[y0:y1, x0:x1]
         rows = [r for start, step in ((0, 8), (4, 8), (2, 4), (1, 2)) for r in range(start, fh, step)]
         rows = rows if flags & 64 else list(range(fh))

@@ -1,5 +1,5 @@
 """JPEG decoder on numpy, equal to libjpeg-turbo's default output as
-Pillow 12.1 reads it (libjpeg-turbo 3.1).
+Pillow 12.1 reads it (libjpeg-turbo 3.1), damaged files included.
 
 Reads 8-bit JPEG, Huffman or arithmetic-coded (T.81 Annex D's QM coder,
 ``jdarith.c``, with the DAC conditioning), sequential (SOF0, SOF1, SOF9)
@@ -17,14 +17,34 @@ output is that of a baseline file with the same coefficients.  It returns
 decodes through libjpeg-turbo, whose default output is integer
 arithmetic, ported here:
 
-- the "islow" IDCT (``jidctint.c``: ``CONST_BITS`` 13, ``PASS1_BITS`` 2,
-  and the range-limit table that wraps the output modulo 1024);
+- the "islow" IDCT as libjpeg-turbo's x86-64 build runs it, in AVX2
+  (``jidctint-avx2.asm``, the same arithmetic as the SSE2 version):
+  ``jidctint.c``'s sums (``CONST_BITS`` 13, ``PASS1_BITS`` 2) in 16-bit
+  lanes, so the dequantized coefficients and the sums ``in0 + in4``,
+  ``in7 + in3`` and ``in5 + in1`` wrap at 16 bits, each pass's outputs
+  saturate to 16 bits, a block whose rows 1-7 are zero takes the shortcut
+  ``(in0 << 2)`` in 16 bits, and the samples saturate to 0..255;
 - fancy upsampling (``jdsample.c``: ``h2v1``, ``h2v2`` and ``h1v2``, the
   image's edge rows and columns repeated, the alternating biases), with
   plain replication where a component is at most two samples wide, for
   every other whole ratio (3, 4) and for every ratio of a lossless file;
 - the fixed-point YCbCr -> RGB tables (``jdcolor.c``: 16 fraction bits,
   ``ONE_HALF``).
+
+Damaged files end as in Pillow: its JPEG plugin's own header parse, which
+``Image.open`` runs first (:func:`_pillow_open`), and then libjpeg's,
+followed marker by marker (``jdmarker.c``: each segment's length and
+table checks, the markers it refuses, a second SOI or SOF, a second scan
+in a one-scan file).  In the entropy-coded data libjpeg-turbo counts MCUs
+to each restart marker and, where the marker it meets is not the one it
+expects, resynchronizes as ``jpeg_resync_to_restart`` does; a marker met
+inside an interval ends its data, the MCU then in hand is finished with
+zero bits and the rest of the interval is zero blocks, the DC predictions
+unmoved, until a restart marker is read (``insufficient_data``); each
+coefficient is stored in 16 bits (``JCOEF``).  Where libjpeg stops with
+an error Pillow raises "broken data stream", and where its data run out
+(a file cut short) Pillow raises "image file is truncated": both raise a
+``ValueError`` here, as ``UnsupportedImageError`` never is.
 
 Four components are read as libjpeg-turbo reads them for Pillow: CMYK
 without an Adobe marker or with transform 0, YCCK with transform 2 (or any
@@ -44,9 +64,11 @@ decoder one binary decision at a time.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 
-from .image_errors import check_pixels
+from .image_errors import NotThisFormat, check_pixels
 
 # zigzag index -> natural (row-major) index of the 8x8 block
 _ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48,
@@ -61,7 +83,7 @@ _SOF = {0xC0: (False, "sequential"), 0xC1: (False, "sequential"),
 # the frames it refuses (JERR_SOF_UNSUPPORTED): Pillow opens them and fails
 _REFUSED_SOF = {
     0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical progressive JPEG (SOF6)",
-    0xC7: "hierarchical lossless JPEG (SOF7)",
+    0xC7: "hierarchical lossless JPEG (SOF7)", 0xC8: "JPEG extension frame (JPG)",
     0xCB: "arithmetic-coded lossless JPEG (SOF11)",
     0xCD: "arithmetic-coded hierarchical JPEG (SOF13)",
     0xCE: "arithmetic-coded hierarchical progressive JPEG (SOF14)",
@@ -70,29 +92,198 @@ _REFUSED_SOF = {
 _FRAME_NAMES = {0xC0: "baseline JPEG", 0xC1: "extended sequential JPEG (SOF1)",
                 0xC2: "progressive JPEG", 0xC3: "lossless JPEG (SOF3)",
                 0xC9: "arithmetic-coded JPEG (SOF9)",
-                0xCA: "arithmetic-coded progressive JPEG (SOF10)"}
+                0xCA: "arithmetic-coded progressive JPEG (SOF10)",
+                0xDE: "hierarchical progression (DHP)", **_REFUSED_SOF}
 
 
 def _u16(data: bytes, pos: int) -> int:
     return (data[pos] << 8) | data[pos + 1]
 
 
+def _s16(v: int) -> int:
+    """An int stored in a JCOEF (int16)."""
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+class _Suspend(ValueError):
+    """The file ends where libjpeg reads on: Pillow's decoder suspends for
+    more data, and at the end of the file ``ImageFile.load`` raises "image
+    file is truncated"."""
+
+
+def _broken(why: str) -> ValueError:
+    return ValueError(f"corrupt JPEG: {why} (libjpeg-turbo stops with an error, and Pillow "
+                      "raises 'broken data stream')")
+
+
+# ---- JpegImagePlugin's _open ---------------------------------------------
+
+# the markers Pillow's MARKER table gives the SOF handler, and a plain skip
+_PIL_SOF = frozenset((0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE,
+                      0xCF, 0xDE))
+_PIL_SKIP = frozenset((0xC4, 0xCC, 0xDA, 0xDC, 0xDD, 0xDF))
+
+
+def _pillow_open(data: bytes) -> None:
+    """Pillow's ``JpegImagePlugin._open``: the markers up to the first SOS
+    as Pillow parses them for the mode and size (its SOF, DQT, APPn, COM
+    and skip handlers, junk bytes and fill bytes skipped), then
+    ``Image.open``'s size and decompression-bomb checks.  Where it fails
+    (a ``SyntaxError``, an ``IndexError``, a ``struct.error`` or a short
+    read) ``Image.open`` opens no JPEG: ``NotThisFormat``, which names the
+    frame where one was read."""
+    n = len(data)
+    pos, cur = 3, 0xFF
+    frame = size = None
+    icc = []
+
+    def fail(why: str):
+        name = _FRAME_NAMES.get(frame, "JPEG") if frame is not None else "JPEG"
+        raise NotThisFormat(f"{name}: Pillow's JPEG plugin cannot read the header ({why})")
+
+    def body() -> bytes:
+        nonlocal pos
+        if pos + 2 > n:
+            fail("a marker's length runs past the end of the file")
+        length = _u16(data, pos) - 2
+        pos += 2
+        if length <= 0:
+            return b""
+        if pos + length > n:
+            fail("a marker segment runs past the end of the file")
+        pos += length
+        return data[pos - length:pos]
+
+    while True:
+        if pos >= n:
+            fail("no start-of-scan marker")
+        if cur != 0xFF:  # junk between markers
+            cur = data[pos]
+            pos += 1
+            continue
+        m = data[pos]
+        pos += 1
+        if m == 0xFF:  # a fill byte: the next FF starts the marker
+            continue
+        if m == 0x00:
+            cur = -1
+            continue
+        if m < 0xC0:
+            fail("no marker found")
+        if m in _PIL_SOF:
+            s = body()
+            if len(s) < 5:
+                fail("a short frame header")
+            if s[0] != 8:
+                raise NotThisFormat(f"{s[0]}-bit JPEG: Pillow cannot open it (8-bit only)")
+            if len(s) < 6:
+                fail("a short frame header")
+            if s[5] not in (1, 3, 4):
+                raise NotThisFormat(f"JPEG with {s[5]} components: Pillow cannot open it")
+            if icc and len(min(icc)) < 14:
+                fail("a short ICC profile marker")
+            icc = []
+            if (len(s) - 6) % 3:
+                fail("a frame header that ends inside a component")
+            frame, size = m, (_u16(s, 3), _u16(s, 1))
+        elif m in _PIL_SKIP:
+            body()
+        elif m == 0xDB:
+            s = body()
+            while s:
+                qt_length = 65 if s[0] < 16 else 129
+                if len(s) < qt_length:
+                    fail("a bad quantization table marker")
+                s = s[qt_length:]
+        elif 0xE0 <= m <= 0xEF:
+            s = body()
+            if (m == 0xE0 and s[:4] == b"JFIF" or m == 0xEE and s[:5] == b"Adobe") and len(s) < 7:
+                fail("a short JFIF or Adobe marker")
+            if m == 0xE2 and s[:12] == b"ICC_PROFILE\0":
+                icc.append(s)
+            if m == 0xED and s[:14] == b"Photoshop 3.0\0":
+                _photoshop(s, fail)
+        elif m == 0xFE:
+            body()
+        if m == 0xDA:
+            break
+        if pos >= n:
+            fail("no byte after a marker")
+        cur = data[pos]
+        pos += 1
+    if frame is None or not size[0] or not size[1]:
+        fail("no frame of a known size before the scan")
+    check_pixels(*size)
+
+
+def _photoshop(s: bytes, fail) -> None:
+    """The resource blocks of Pillow's APP13 parse: a block cut short ends
+    it (its ``struct.error``), a name length past the end fails it (an
+    ``IndexError``)."""
+    at = 14
+    while s[at:at + 4] == b"8BIM":
+        at += 6
+        if at > len(s):
+            return
+        if at >= len(s):
+            fail("a Photoshop resource without its name")
+        code = _u16(s, at - 2)
+        at += 1 + s[at]
+        at += at & 1
+        if at + 4 > len(s):
+            return
+        size = int.from_bytes(s[at:at + 4], "big")
+        at += 4
+        if code == 0x03ED and len(s[at:at + size]) < 14:
+            return
+        at += size
+        at += at & 1
+
+
+# ---- Huffman tables ------------------------------------------------------
+
+# T.81 Annex K.3's tables, which libjpeg-turbo puts in the Huffman slots 0
+# and 1 that no DHT has filled when a sequential Huffman file's decoding
+# starts (jstdhuff.c, for Motion-JPEG; not for a progressive or lossless
+# file): (class, index) -> (counts, symbols)
+_STD_TABLES = {
+    (0, 0): (bytes([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]), bytes(range(12))),
+    (0, 1): (bytes([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0]), bytes(range(12))),
+    (1, 0): (bytes([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125]), bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a16"
+        "1718191a25262728292a3435363738393a434445464748494a535455565758595a63646566676869"
+        "6a737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6"
+        "b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
+        "f9fa")),
+    (1, 1): (bytes([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119]), bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434"
+        "e125f11718191a262728292a35363738393a434445464748494a535455565758595a636465666768"
+        "696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4"
+        "b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+        "f9fa")),
+}
+
 # what a code no table holds decodes to: libjpeg warns, drops 17 bits and
 # fakes the symbol 0 (jdhuff.c, jpeg_huff_decode)
 _BAD_CODE = 17 << 8
 
 
-def _huffman_table(counts, symbols) -> list:
+def _huffman_table(counts, symbols, dc_limit=None) -> list:
     """A DHT table -> a 65,536-entry list indexed by the next 16 bits of the
-    stream: (code length << 8) | symbol, or 0 where no code matches."""
+    stream: (code length << 8) | symbol, or 0 where no code matches.  As
+    ``jpeg_make_d_derived_tbl`` checks it when a scan first uses it: no
+    code may be all ones, and a DC table's symbols are at most
+    ``dc_limit``."""
+    if dc_limit is not None and any(s > dc_limit for s in symbols):
+        raise _broken("a DC Huffman table with a category past its limit")
     lut = [0] * 65536
     code, k = 0, 0
     for length in range(1, 17):
         for _ in range(counts[length - 1]):
+            if code + 1 >= 1 << length:
+                raise _broken("a Huffman table with an all-ones code")
             lo = code << (16 - length)
             hi = (code + 1) << (16 - length)
-            if hi > 65536:
-                raise ValueError("corrupt JPEG: bad Huffman table")
             lut[lo:hi] = [(length << 8) | symbols[k]] * (hi - lo)
             code += 1
             k += 1
@@ -100,40 +291,33 @@ def _huffman_table(counts, symbols) -> list:
     return lut
 
 
-def _scan_segments(data: bytes, pos: int):
-    """The entropy-coded data of a scan from ``pos`` -> (its restart
-    intervals as unstuffed byte strings, the position of the marker that
-    ends the scan)."""
-    segments, start = [], pos
-    while True:
-        i = data.find(b"\xff", pos)
-        if i < 0 or i + 1 >= len(data):
-            segments.append(data[start:])
-            return [s.replace(b"\xff\x00", b"\xff") for s in segments], len(data)
-        j = i + 1
-        while j < len(data) and data[j] == 0xFF:  # fill bytes
-            j += 1
-        m = data[j] if j < len(data) else 0xD9
-        if m == 0x00:
-            pos = j + 1
-        elif 0xD0 <= m <= 0xD7:
-            segments.append(data[start:i])
-            start = pos = j + 1
-        else:
-            segments.append(data[start:i])
-            return [s.replace(b"\xff\x00", b"\xff") for s in segments], i
+def _unstuff(chunk: bytes) -> bytes:
+    """Entropy-coded bytes before a marker -> their data: each FF, or run
+    of FF fill bytes, before a stuffed 00 is one FF byte, as
+    ``jpeg_fill_bit_buffer`` reads them."""
+    if b"\xff\xff" in chunk:
+        return re.sub(rb"\xff+\x00", b"\xff", chunk)
+    return chunk.replace(b"\xff\x00", b"\xff")
 
 
-def _decode_segment(seg: bytes, blocks, coefs, tables) -> None:
+def _decode_segment(seg: bytes, blocks, coefs, tables):
     """Huffman-decode the blocks of one restart interval.  ``blocks`` lists,
     in stream order, (component, offset of the block's 64 coefficients in
-    ``coefs[component]``); ``tables[component]`` is (DC table, AC table);
-    DC predictions start at 0."""
+    ``coefs[component]``, whether the block starts an MCU);
+    ``tables[component]`` is (DC table, AC table); DC predictions start at
+    0.  Past the interval's data libjpeg reads zero bits: once an MCU has
+    needed them (``insufficient_data``) the rest of the interval stays
+    zero blocks.  Returns None, or where the data ran out: the index in
+    ``blocks`` of the first MCU left undecoded."""
+    limit = 8 * len(seg)
     seg = seg + b"\x00" * 8  # libjpeg feeds zero bits past the end
     acc = nbits = pos = 0
     pred = {}
     zz = _ZIGZAG
-    for comp, base in blocks:
+    for block in blocks:
+        comp, base, first = block
+        if first and (pos << 3) - nbits > limit:
+            return blocks.index(block)
         dc, ac = tables[comp]
         out = coefs[comp]
         # DC: a category, then that many bits
@@ -152,7 +336,7 @@ def _decode_segment(seg: bytes, blocks, coefs, tables) -> None:
                 v -= (1 << s) - 1
         v += pred.get(comp, 0)
         pred[comp] = v
-        out[base] = v
+        out[base] = v  # stored in 16 bits when the block is transformed
         # AC: (run, size) symbols until EOB or coefficient 63
         k = 1
         while k < 64:
@@ -177,6 +361,117 @@ def _decode_segment(seg: bytes, blocks, coefs, tables) -> None:
                 k += 16
             else:
                 break
+    return len(blocks) if (pos << 3) - nbits > limit else None
+
+
+class _Dry(Exception):
+    """A fill of libjpeg's bit buffer that needs a byte Pillow has not
+    given the decoder."""
+
+
+def _runs_dry(raw: bytes, start: int, blocks, tables, fast: bool) -> bool:
+    """Whether libjpeg-turbo, Huffman-decoding the ``blocks`` of a one-scan
+    file whose entropy-coded data run from ``raw[start:]`` to the end of
+    the file with no marker after them, asks for a byte past the end
+    before its last MCU is complete: then Pillow's decoder suspends and
+    the file is cut short; else Pillow reads it.  The bit buffer is
+    filled as ``jdhuff.c`` fills it: the slow path (``decode_mcu_slow``:
+    to at least 57 bits, when a code or its extra bits need more than
+    are held, 8 for the lookahead) and, without restart intervals and
+    with at least 512 bytes an MCU block left in Pillow's buffer, the fast
+    path (``decode_mcu_fast``: six bytes when at most 16 bits are held;
+    an MCU whose bytes hold an FF FF pair is decoded again slowly).
+    Pillow gives the decoder the file 65,536 bytes at a time, and an MCU
+    that runs past the buffer is decoded again once more is given."""
+    data, ends, twice = bytearray(), [], []  # data bytes, the raw offset past each
+    n, p = len(raw), start
+    while p < n:
+        q = p + 1
+        if raw[p] == 0xFF:
+            while q < n and raw[q] == 0xFF:
+                q += 1
+            if q >= n:
+                break
+            q += 1  # the stuffed 00
+        data.append(raw[p])
+        ends.append(q)
+        twice.append(q - p > 2)
+        p = q
+    nd = len(data)
+    data += bytes(8)
+    end = min(n, -(-start // 65536) * 65536)
+    mcus = [i for i, b in enumerate(blocks) if b[2]] + [len(blocks)]
+    loaded = used = 0  # data bytes loaded into the buffer, bits taken from it
+
+    def fill(need: int) -> None:  # jpeg_fill_bit_buffer
+        nonlocal loaded
+        if 8 * loaded - used < need:
+            to = loaded + max(0, (64 - 8 * loaded + used) // 8)
+            if to > nd or ends[to - 1] > end:
+                raise _Dry
+            loaded = to
+
+    def fill_fast() -> None:  # FILL_BIT_BUFFER_FAST
+        nonlocal loaded
+        if 8 * loaded - used <= 16:
+            if loaded + 6 > nd or any(twice[loaded:loaded + 6]):
+                raise _Dry
+            loaded += 6
+
+    def symbol(lut, quick: bool) -> int:
+        nonlocal used
+        at = used >> 3
+        e = lut[(int.from_bytes(data[at:at + 3], "big") >> (8 - (used & 7))) & 0xFFFF]
+        length = e >> 8 or 17
+        if quick:
+            fill_fast()
+            used += length
+        elif fill(8) or length <= 8:
+            used += length
+        else:  # jpeg_huff_decode: 9 bits, then one at a time
+            fill(9)
+            used += 9
+            for _ in range(length - 9):
+                fill(1)
+                used += 1
+        return e & 0xFF
+
+    def extra(s: int, quick: bool) -> None:
+        nonlocal used
+        if s:
+            fill_fast() if quick else fill(s)
+            used += s
+
+    for m0, m1 in zip(mcus, mcus[1:]):
+        state, slow = (loaded, used), False
+        while True:
+            quick = fast and not slow and end - (ends[loaded - 1] if loaded else start) >= 512 * (
+                m1 - m0)
+            try:
+                for comp, _, _ in blocks[m0:m1]:
+                    dc, ac = tables[comp]
+                    extra(symbol(dc, quick), quick)
+                    k = 1
+                    while k < 64:
+                        rs = symbol(ac, quick)
+                        if rs & 15:
+                            k += rs >> 4
+                            extra(rs & 15, quick)
+                        elif rs != 0xF0:
+                            break
+                        else:
+                            k += 15
+                        k += 1
+                break
+            except _Dry:
+                loaded, used = state
+                if quick:
+                    slow = True
+                elif end >= n:
+                    return True
+                else:
+                    end = min(end + 65536, n)
+    return False
 
 
 class _BitReader:
@@ -184,6 +479,7 @@ class _BitReader:
     libjpeg feeds them."""
 
     def __init__(self, seg: bytes):
+        self.limit = 8 * len(seg)
         self.seg = seg + b"\x00" * 8
         self.acc = self.nbits = self.pos = 0
 
@@ -210,19 +506,28 @@ class _BitReader:
         v = self.bits(s)
         return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
 
+    def ran_out(self) -> bool:
+        """Whether more bits were read than the interval holds."""
+        return (self.pos << 3) - self.nbits > self.limit
+
 
 def _decode_progressive_segment(seg: bytes, blocks, coefs, tables, ss: int, se: int,
-                                ah: int, al: int) -> None:
+                                ah: int, al: int):
     """One restart interval of a progressive scan (``jdphuff.c``): DC first
     (Ss = 0, Ah = 0) or refinement, AC first or refinement over zigzag
     positions ss..se with point transform al.  ``blocks`` and ``tables`` as
-    :func:`_decode_segment`; the DC predictions and the end-of-band run
-    start at 0."""
+    :func:`_decode_segment`, and so is the return; the DC predictions and
+    the end-of-band run start at 0.  The AC coefficients are stored in 16
+    bits as they are written, since a refinement reads them back."""
     br = _BitReader(seg)
     zz = _ZIGZAG
+    limit = br.limit
     if ss == 0:
         pred = {}
-        for comp, base in blocks:
+        for block in blocks:
+            comp, base, first = block
+            if first and (br.pos << 3) - br.nbits > limit:  # a refinement reads on, to no avail
+                return blocks.index(block)
             if ah:
                 if br.bits(1):
                     coefs[comp][base] |= 1 << al
@@ -231,10 +536,12 @@ def _decode_progressive_segment(seg: bytes, blocks, coefs, tables, ss: int, se: 
             v = (br.signed(s) if s else 0) + pred.get(comp, 0)
             pred[comp] = v
             coefs[comp][base] = v << al
-        return
+        return len(blocks) if br.ran_out() else None
     p1, m1 = 1 << al, -1 << al
+    big = 15 - al  # a category above this leaves 16 bits
     eobrun = 0
-    for comp, base in blocks:
+    for block in blocks:  # an MCU each; the data can run out only in one that reads bits
+        comp, base, _ = block
         out, ac = coefs[comp], tables[comp][1]
         if not ah:
             if eobrun:
@@ -246,13 +553,16 @@ def _decode_progressive_segment(seg: bytes, blocks, coefs, tables, ss: int, se: 
                 r, s = rs >> 4, rs & 15
                 if s:
                     k += r
-                    out[base + (zz[k] if k < 64 else 63)] = br.signed(s) * p1
+                    v = br.signed(s) * p1
+                    out[base + (zz[k] if k < 64 else 63)] = _s16(v) if s > big else v
                 elif r == 15:
                     k += 15
                 else:
                     eobrun = (1 << r) + (br.bits(r) if r else 0) - 1
                     break
                 k += 1
+            if (br.pos << 3) - br.nbits > limit:
+                return blocks.index(block) + 1
             continue
         # refinement: a correction bit for every coefficient already nonzero
         # that the pass crosses, and new coefficients of magnitude 1 << al
@@ -270,7 +580,8 @@ def _decode_progressive_segment(seg: bytes, blocks, coefs, tables, ss: int, se: 
                     pos = base + zz[k]
                     if out[pos]:
                         if br.bits(1) and not out[pos] & p1:
-                            out[pos] += p1 if out[pos] >= 0 else m1
+                            v = out[pos] + (p1 if out[pos] >= 0 else m1)
+                            out[pos] = v if v >= -0x8000 else v + 0x10000
                     else:
                         r -= 1
                         if r < 0:
@@ -283,9 +594,13 @@ def _decode_progressive_segment(seg: bytes, blocks, coefs, tables, ss: int, se: 
             while k <= se:
                 pos = base + zz[k]
                 if out[pos] and br.bits(1) and not out[pos] & p1:
-                    out[pos] += p1 if out[pos] >= 0 else m1
+                    v = out[pos] + (p1 if out[pos] >= 0 else m1)
+                    out[pos] = v if v >= -0x8000 else v + 0x10000
                 k += 1
             eobrun -= 1
+        if (br.pos << 3) - br.nbits > limit:
+            return blocks.index(block) + 1
+    return None
 
 
 # T.81 Table D.2 as libjpeg's jpeg_aritab packs it: Qe << 16 | next index
@@ -327,12 +642,21 @@ _ARITAB = tuple((qe << 16) | (nm << 8) | (sw << 7) | nl for qe, nl, nm, sw in (
 class _ArithDecoder:
     """libjpeg's arith_decode (``jdarith.c``, T.81 D.2) over one restart
     interval's bytes, zeros past their end as libjpeg feeds them after a
-    marker."""
+    marker; ``stop``: None, or the bytes it can read before the data
+    Pillow has handed over run out (see :meth:`_Decoder._segment`)."""
 
-    def __init__(self, seg: bytes):
-        self.seg, self.pos = seg, 0
+    def __init__(self, seg: bytes, stop):
+        self.seg, self.pos, self.stop = seg, 0, stop
+        self.end = len(seg) if stop is None else stop
         self.c = self.a = 0
         self.ct = -16
+
+    def _past_end(self) -> int:
+        """A byte past the readable data: 0 after a marker, else an error,
+        since jdarith.c cannot suspend."""
+        if self.stop is not None:
+            raise _broken("arithmetic-coded data past the bytes Pillow hands over at once")
+        return 0
 
     def decode(self, st: bytearray, i: int) -> int:
         """One binary decision with the statistics bin ``st[i]``."""
@@ -340,7 +664,7 @@ class _ArithDecoder:
         while a < 0x8000:
             ct -= 1
             if ct < 0:
-                byte = self.seg[self.pos] if self.pos < len(self.seg) else 0
+                byte = self.seg[self.pos] if self.pos < self.end else self._past_end()
                 self.pos += 1
                 c = (c << 8) | byte
                 ct += 8
@@ -372,19 +696,14 @@ class _ArithDecoder:
         return sv >> 7
 
 
-def _s16(v: int) -> int:
-    """An int stored in a JCOEF (int16)."""
-    return ((v + 0x8000) & 0xFFFF) - 0x8000
-
-
-def _arith_segment(seg: bytes, blocks, coefs, comps, scan, arith, ss: int, se: int,
+def _arith_segment(seg: bytes, stop, blocks, coefs, comps, scan, arith, ss: int, se: int,
                    ah: int, al: int, progressive: bool) -> None:
     """One restart interval of an arithmetic-coded scan (``jdarith.c``):
     sequential (DC and AC of every block), or a progressive DC first, DC
     refinement, AC first or AC refinement pass.  The statistics, the DC
     predictions and contexts start afresh; ``arith`` holds the DAC
     conditioning (L and U of each DC table, K of each AC table)."""
-    dec = _ArithDecoder(seg)
+    dec = _ArithDecoder(seg, stop)
     dc_stats = {comps[ci]["td"]: bytearray(64) for ci in scan}
     ac_stats = {comps[ci]["ta"]: bytearray(256) for ci in scan}
     fixed = bytearray([113])
@@ -451,12 +770,12 @@ def _arith_segment(seg: bytes, blocks, coefs, comps, scan, arith, ss: int, se: i
         return -v if sign else v
 
     if progressive and ss == 0 and ah:  # DC refinement
-        for ci, base in blocks:
+        for ci, base, _ in blocks:
             if decode(fixed, 0):
                 coefs[ci][base] |= 1 << al
         return
     if progressive and ss == 0:  # DC first
-        for ci, base in blocks:
+        for ci, base, _ in blocks:
             d = dc_diff(ci)
             if d is None:
                 return
@@ -469,7 +788,7 @@ def _arith_segment(seg: bytes, blocks, coefs, comps, scan, arith, ss: int, se: i
         st = ac_stats[tbl]
         kx = arith["K"].get(tbl, 5)
         p1, m1 = 1 << al, -1 << al
-        for ci, base in blocks:
+        for ci, base, _ in blocks:
             out = coefs[ci]
             if not ah:  # AC first
                 k = ss
@@ -501,7 +820,7 @@ def _arith_segment(seg: bytes, blocks, coefs, comps, scan, arith, ss: int, se: i
                     pos = base + zz[k]
                     if out[pos]:
                         if decode(st, i + 2):
-                            out[pos] += m1 if out[pos] < 0 else p1
+                            out[pos] = _s16(out[pos] + (m1 if out[pos] < 0 else p1))
                         break
                     if decode(st, i + 1):
                         out[pos] = m1 if decode(fixed, 0) else p1
@@ -512,7 +831,7 @@ def _arith_segment(seg: bytes, blocks, coefs, comps, scan, arith, ss: int, se: i
                         return
                 k += 1
         return
-    for ci, base in blocks:  # sequential
+    for ci, base, _ in blocks:  # sequential
         d = dc_diff(ci)
         if d is None:
             return
@@ -539,18 +858,21 @@ def _arith_segment(seg: bytes, blocks, coefs, comps, scan, arith, ss: int, se: i
             k += 1
 
 
-def _lossless_scan(segments, comps, scan, w: int, h: int, restart: int, dc_tables,
+def _lossless_scan(drive, comps, scan, w: int, h: int, restart: int, luts: dict,
                    predictor: int, pt: int, samples) -> None:
     """A lossless scan (``jdlhuff.c``, ``jddiffct.c``, ``jdpred.c``): one
     Huffman-coded difference a sample, MCU by MCU (each component's h x v
     samples in an interleaved scan, one sample in a single-component one),
-    then undifferenced row by row as ``jddiffct.c`` does, an iMCU row (the
-    component's v rows) at a time: its first row, where the scan or a
-    restart interval starts among its MCU rows, from 1 << (7 - Pt) and its
-    left neighbour, every other
-    row's first sample from the one above, the rest by the scan's
-    predictor, modulo 2**16.  ``samples[ci]`` receives the component's rows
-    at its downsampled width, shifted left by Pt into 8 bits."""
+    its restart intervals read through ``drive``, then undifferenced row by
+    row as ``jddiffct.c`` does, an iMCU row (the component's v rows) at a
+    time: its first row, where the scan or a restart interval starts among
+    its MCU rows, or where an MCU row's data had run out
+    (``insufficient_data``: its differences stay 0 and the predictor is
+    reset, as at a restart), from 1 << (7 - Pt) and its left neighbour,
+    every other row's first sample from the one above, the rest by the
+    scan's predictor, modulo 2**16.  ``luts[ci]`` is the component's
+    Huffman table; ``samples[ci]`` receives the component's rows at its
+    downsampled width, shifted left by Pt into 8 bits."""
     hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
     if len(scan) == 1:
         c = comps[scan[0]]
@@ -559,16 +881,23 @@ def _lossless_scan(segments, comps, scan, w: int, h: int, restart: int, dc_table
         mcux, mcuy = -(-w // hmax), -(-h // vmax)
         units = [(ci, comps[ci]["h"], comps[ci]["v"]) for ci in scan]
     diffs = {ci: np.zeros((mcuy * v, mcux * hh), np.int64) for ci, hh, v in units}
-    luts = {ci: dc_tables.get(comps[ci]["td"]) for ci, _, _ in units}
-    if any(t is None for t in luts.values()):
-        raise ValueError("corrupt JPEG: a lossless scan without its Huffman table")
     per_rows = restart // mcux if restart else mcuy  # MCU rows a restart interval
     if restart and (restart % mcux or not per_rows):
         raise ValueError("lossless JPEG with a restart interval that is not a whole "
                          "number of MCU rows")
-    for n, my0 in enumerate(range(0, mcuy, per_rows)):  # the restart intervals
-        br = _BitReader(segments[n] if n < len(segments) else b"")
-        for my in range(my0, min(my0 + per_rows, mcuy)):
+    resets = set()  # the MCU rows where the predictor starts afresh
+
+    def part(n: int, seg, stop):
+        rows = range(n * per_rows, min(n * per_rows + per_rows, mcuy))
+        resets.add(rows.start)
+        if seg is None:
+            resets.update(rows)
+            return 0
+        br = _BitReader(seg)
+        for my in rows:
+            if br.ran_out():
+                resets.update(range(my, rows.stop))
+                return my
             for mx in range(mcux):
                 for ci, hh, v in units:
                     lut, d = luts[ci], diffs[ci]
@@ -576,8 +905,10 @@ def _lossless_scan(segments, comps, scan, w: int, h: int, restart: int, dc_table
                         for x in range(mx * hh, mx * hh + hh):
                             s = br.huff(lut)
                             d[y, x] = 32768 if s == 16 else (br.signed(s) if s else 0)
+        return rows.stop if br.ran_out() else None
+
+    drive(-(-mcuy // per_rows), part)
     initial = 1 << (8 - pt - 1)
-    per_rows = per_rows if restart else 1 << 30
     for ci, hh, v in units:
         c = comps[ci]
         d = diffs[ci][:, :c["dw"]]
@@ -586,8 +917,8 @@ def _lossless_scan(segments, comps, scan, w: int, h: int, restart: int, dc_table
         for y in range(d.shape[0]):
             row, dd = out[y], d[y]
             # the first row of an iMCU row in whose MCU rows (v of them, or 1)
-            # the scan or a restart interval starts
-            first = y % vc == 0 and any(k % per_rows == 0 for k in range(y // v, (y + vc) // v))
+            # the predictor was reset
+            first = y % vc == 0 and any(k in resets for k in range(y // v, (y + vc) // v))
             if first:
                 np.cumsum(dd, out=row)
                 row += initial
@@ -623,62 +954,60 @@ def _lossless_scan(segments, comps, scan, w: int, h: int, restart: int, dc_table
 
 
 # jidctint.c's fixed-point constants, FIX(x) = round(x * 2**13)
-_CONST_BITS, _PASS1_BITS = 13, 2
 (_F0298, _F0390, _F0541, _F0765, _F0899, _F1175, _F1501, _F1847, _F1961, _F2053, _F2562,
  _F3072) = (2446, 3196, 4433, 6270, 7373, 9633, 12299, 15137, 16069, 16819, 20995, 25172)
 
 
-def _idct_1d(s0, s1, s2, s3, s4, s5, s6, s7):
-    """One pass of jpeg_idct_islow on int64 arrays (the eight inputs along
-    the transformed axis) -> its eight sums before the descale."""
-    z1 = (s2 + s6) * _F0541
-    tmp2 = z1 - s6 * _F1847
-    tmp3 = z1 + s2 * _F0765
-    tmp0 = (s0 + s4) << _CONST_BITS
-    tmp1 = (s0 - s4) << _CONST_BITS
+def _w16(x: np.ndarray) -> np.ndarray:
+    """Integers -> their low 16 bits as a signed int (a 16-bit lane)."""
+    return x.astype(np.int16).astype(np.int32)
+
+
+def _idct_pass(i0, i1, i2, i3, i4, i5, i6, i7, shift: int):
+    """One pass of jsimd_idct_islow_avx2 (``dodct``) on 16-bit lanes held in
+    int32 arrays (the eight inputs along the transformed axis): the
+    products by the constant pairs and their sums in 32 bits
+    (``vpmaddwd``, ``vpaddd``, wrapping as int32 arrays do), the sums
+    ``in0 +- in4``, ``in7 + in3`` and ``in5 + in1`` in 16 bits, the eight
+    outputs descaled by ``shift`` with rounding and saturated to 16 bits
+    (``vpackssdw``)."""
+    tmp3 = i2 * (_F0541 + _F0765) + i6 * _F0541
+    tmp2 = i2 * _F0541 + i6 * (_F0541 - _F1847)
+    tmp0 = _w16(i0 + i4) << 13
+    tmp1 = _w16(i0 - i4) << 13
+    tmp0 += 1 << (shift - 1)  # the rounding, folded into the even part
+    tmp1 += 1 << (shift - 1)
     t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
-    o0, o1, o2, o3 = s7, s5, s3, s1
-    z1, z2, z3, z4 = o0 + o3, o1 + o2, o0 + o2, o1 + o3
-    z5 = (z3 + z4) * _F1175
-    o0 = o0 * _F0298
-    o1 = o1 * _F2053
-    o2 = o2 * _F3072
-    o3 = o3 * _F1501
-    z1 = z1 * -_F0899
-    z2 = z2 * -_F2562
-    z3 = z3 * -_F1961 + z5
-    z4 = z4 * -_F0390 + z5
-    o0 += z1 + z3
-    o1 += z2 + z4
-    o2 += z2 + z3
-    o3 += z1 + z4
-    return (t10 + o3, t11 + o2, t12 + o1, t13 + o0, t13 - o0, t12 - o1, t11 - o2, t10 - o3)
-
-
-def _range_limit() -> np.ndarray:
-    """jdmaster.c's post-IDCT table indexed by (x & 1023): x + 128 clamped
-    to [0, 255] for x in [-512, 512), wrapping outside it."""
-    x = np.arange(1024)
-    x = np.where(x >= 512, x - 1024, x)
-    return np.clip(x + 128, 0, 255).astype(np.uint8)
-
-
-_RANGE_LIMIT = _range_limit()
+    z3, z4 = _w16(i7 + i3), _w16(i5 + i1)
+    z3, z4 = (z3 * (_F1175 - _F1961) + z4 * _F1175, z3 * _F1175 + z4 * (_F1175 - _F0390))
+    o0 = i7 * (_F0298 - _F0899) - i1 * _F0899 + z3
+    o1 = i5 * (_F2053 - _F2562) - i3 * _F2562 + z4
+    o2 = i3 * (_F3072 - _F2562) - i5 * _F2562 + z3
+    o3 = i1 * (_F1501 - _F0899) - i7 * _F0899 + z4
+    out = np.stack((t10 + o3, t11 + o2, t12 + o1, t13 + o0, t13 - o0, t12 - o1, t11 - o2,
+                    t10 - o3))
+    out >>= shift
+    return np.clip(out, -0x8000, 0x7FFF, out=out)
 
 
 def idct_islow(coefs: np.ndarray, quant: np.ndarray) -> np.ndarray:
-    """Quantized coefficients [n, 64] (natural order) and their table [64]
-    -> samples [n, 8, 8] uint8, as libjpeg-turbo's jpeg_idct_islow."""
-    c = (coefs.astype(np.int64) * quant.astype(np.int64)).reshape(-1, 8, 8)
-    # pass 1: columns (axis 1), descaled by CONST_BITS - PASS1_BITS into int
-    cols = _idct_1d(*(c[:, i, :] for i in range(8)))
-    sh = _CONST_BITS - _PASS1_BITS
-    ws = np.stack([(t + (1 << (sh - 1))) >> sh for t in cols], axis=1)
-    # pass 2: rows (axis 2), descaled by CONST_BITS + PASS1_BITS + 3
-    rows = _idct_1d(*(ws[:, :, i] for i in range(8)))
-    sh = _CONST_BITS + _PASS1_BITS + 3
-    out = np.stack([(t + (1 << (sh - 1))) >> sh for t in rows], axis=2)
-    return _RANGE_LIMIT[out & 1023]
+    """Quantized coefficients [n, 64] (natural order, each stored in 16
+    bits first as a JCOEF) and their table [64] -> samples [n, 8, 8]
+    uint8, as libjpeg-turbo's x86-64 islow IDCT (AVX2): the dequantized
+    coefficients in 16 bits (``vpmullw``); pass 1 over the columns, or for
+    a block whose rows 1-7 are all zero each column's ``in0 << 2`` in 16
+    bits; pass 2 over the rows; the samples saturated to -128..127 and
+    offset by 128 (``vpacksswb``)."""
+    c = _w16(coefs.T).reshape(8, 8, -1)  # [row, column, block]
+    q = _w16(c * quant.astype(np.int32).reshape(8, 8, 1))
+    ws = _idct_pass(*q, 11)  # [row, column, block]
+    dc_rows = ~c[1:].any(axis=(0, 1))
+    if dc_rows.any():
+        ws[:, :, dc_rows] = _w16(q[0, :, dc_rows] << 2).T
+    out = _idct_pass(*ws.transpose(1, 0, 2), 18)  # [column, row, block]
+    np.clip(out, -128, 127, out=out)
+    out += 128
+    return out.transpose(2, 1, 0).astype(np.uint8)
 
 
 def _upsample_h2(x: np.ndarray, width: int, fancy: bool) -> np.ndarray:
@@ -772,190 +1101,563 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 
 def decode_jpeg(data: bytes) -> np.ndarray:
     """The bytes of a JPEG file -> [h, w, 3] uint8."""
-    if data[:2] != b"\xff\xd8":
+    if data[:3] != b"\xff\xd8\xff":
         raise ValueError("not a JPEG")
-    pos = 2
-    quant, dc_tables, ac_tables = {}, {}, {}
-    arith = {"L": {}, "U": {}, "K": {}}  # DAC conditioning; libjpeg's defaults 0, 1, 5
-    frame = sof = None
-    restart = 0
-    adobe = None
-    jfif = False
-    coefs = samples = None
-    scans = 0
-    while True:
-        i = data.find(b"\xff", pos)
-        if i < 0:
-            raise ValueError("corrupt JPEG: no end-of-image marker")
-        j = i + 1
-        while j < len(data) and data[j] == 0xFF:
-            j += 1
-        if j >= len(data):
-            raise ValueError("corrupt JPEG: no end-of-image marker")
-        m = data[j]
-        pos = j + 1
-        if m == 0xD9:  # EOI
-            break
-        if m in (0x01,) or 0xD0 <= m <= 0xD7:  # no length
-            continue
-        length = _u16(data, pos)
-        body = data[pos + 2:pos + length]
-        pos += length
-        if m in _SOF or m in _REFUSED_SOF:
-            precision, h, w, nc = body[0], _u16(body, 1), _u16(body, 3), body[5]
-            if precision != 8:  # Pillow's plugin refuses it: no plugin opens it
-                raise ValueError(f"{precision}-bit JPEG: Pillow cannot open it (8-bit only)")
-            if nc not in (1, 3, 4):
-                raise ValueError(f"JPEG with {nc} components: Pillow cannot open it")
-            if h == 0 or w == 0:
-                raise ValueError("JPEG with a DNL-defined height: Pillow cannot open it")
-            check_pixels(w, h)
-            if m in _REFUSED_SOF:
-                raise ValueError(f"{_REFUSED_SOF[m]}: libjpeg-turbo, and so Pillow, cannot "
-                                 "read it")
-            sof = m
-            comps = []
-            for k in range(nc):
-                cid, hv, tq = body[6 + 3 * k], body[7 + 3 * k], body[8 + 3 * k]
-                hs, vs = hv >> 4, hv & 15
-                if not (1 <= hs <= 4 and 1 <= vs <= 4):
-                    raise ValueError(f"corrupt JPEG: sampling factors {hs}x{vs} (libjpeg "
-                                     "takes 1 to 4)")
-                comps.append({"id": cid, "h": hs, "v": vs, "tq": tq})
-            frame = (h, w, comps)
-            hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
-            if any(hmax % c["h"] or vmax % c["v"] for c in comps):
-                raise ValueError("JPEG with a fractional sampling ratio: libjpeg cannot "
-                                 "upsample it")
-            mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
-            for c in comps:
-                c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]  # blocks allocated
-                c["dw"] = -(-w * c["h"] // hmax)  # downsampled size
-                c["dh"] = -(-h * c["v"] // vmax)
-            coefs = [[0] * (c["bw"] * c["bh"] * 64) for c in comps]
-            samples = [np.zeros((c["dh"], c["dw"]), np.uint8) for c in comps]
-        elif m == 0xC4:  # DHT
-            at = 0
-            while at < len(body):
-                tc_th = body[at]
-                counts = body[at + 1:at + 17]
-                n = sum(counts)
-                table = _huffman_table(counts, body[at + 17:at + 17 + n])
-                (ac_tables if tc_th >> 4 else dc_tables)[tc_th & 15] = table
-                at += 17 + n
-        elif m == 0xCC:  # DAC
-            for at in range(0, len(body) - 1, 2):
-                index, val = body[at], body[at + 1]
-                if index >= 32:
-                    raise ValueError("corrupt JPEG: bad DAC index")
-                if index >= 16:
-                    arith["K"][index - 16] = val
-                elif (val & 15) > (val >> 4):
-                    raise ValueError("corrupt JPEG: DAC with L above U")
-                else:
-                    arith["L"][index], arith["U"][index] = val & 15, val >> 4
-        elif m == 0xDB:  # DQT
-            at = 0
-            while at < len(body):
-                pq, tq = body[at] >> 4, body[at] & 15
-                if pq:
-                    vals = [_u16(body, at + 1 + 2 * k) for k in range(64)]
-                    at += 129
-                else:
-                    vals = list(body[at + 1:at + 65])
-                    at += 65
-                q = np.zeros(64, np.int64)
-                q[list(_ZIGZAG)] = vals
-                quant[tq] = q
-        elif m == 0xDD:  # DRI
-            restart = _u16(body, 0)
-        elif m == 0xE0 and body[:5] == b"JFIF\x00":
-            jfif = True
-        elif m == 0xEE and body[:5] == b"Adobe":
-            adobe = body[11] if len(body) > 11 else None
-        elif m == 0xDA:  # SOS
-            if frame is None:
-                raise ValueError("corrupt JPEG: scan before the frame header")
-            h, w, comps = frame
-            is_arith, process = _SOF[sof]
-            ns = body[0]
-            scan = []
-            for k in range(ns):
-                cid, tdta = body[1 + 2 * k], body[2 + 2 * k]
-                ci = next((n for n, c in enumerate(comps) if c["id"] == cid), None)
-                if ci is None:
-                    raise ValueError("corrupt JPEG: scan names an unknown component")
-                scan.append(ci)
-                comps[ci]["td"], comps[ci]["ta"] = tdta >> 4, tdta & 15
-                # a progressive DC scan needs no AC table, an AC scan no DC table
-                comps[ci]["tables"] = (dc_tables.get(tdta >> 4), ac_tables.get(tdta & 15))
-            ss, se, ah, al = body[1 + 2 * ns], body[2 + 2 * ns], *divmod(body[3 + 2 * ns], 16)
-            if not is_arith and process != "lossless":
-                for ci in scan:  # libjpeg fails on a table the scan uses and no DHT defined
-                    dc, ac = comps[ci]["tables"]
-                    if (dc is None and (process == "sequential" or (ss == 0 and not ah))
-                            or ac is None and (process == "sequential" or ss)):
-                        raise ValueError("corrupt JPEG: a scan names an undefined Huffman "
-                                         "table")
-            segments, pos = _scan_segments(data, pos)
-            scans += 1
-            if len(scan) > 1 and sum(comps[ci]["h"] * comps[ci]["v"] for ci in scan) > 10:
-                raise ValueError("corrupt JPEG: more than 10 blocks in an MCU")
-            if process == "lossless":
-                if not 1 <= ss <= 7 or se or ah or al >= 8:
-                    raise ValueError("corrupt JPEG: bad lossless scan parameters")
-                _lossless_scan(segments, comps, scan, w, h, restart, dc_tables, ss, al,
-                               samples)
-                continue
-            progressive = process == "progressive"
-            if progressive and (se > 63 or ss > se or (ss == 0) != (se == 0)
-                                or (ss and len(scan) > 1)):
-                raise ValueError("corrupt JPEG: bad progressive scan parameters")
-            blocks = _scan_blocks(comps, scan, w, h)
-            per = restart * len(blocks) // _scan_mcus(comps, scan, w, h) if restart else 0
-            tables = {ci: comps[ci]["tables"] for ci in scan}
-            if per:
-                parts = [blocks[k:k + per] for k in range(0, len(blocks), per)]
+    _pillow_open(data)
+    return _Decoder(data).run()
+
+
+_CUT = "JPEG cut short: Pillow raises 'image file is truncated'"
+_CHUNK = 65536  # what ImageFile.load reads for the decoder at a time
+
+
+class _Decoder:
+    """libjpeg-turbo's reading of one file as Pillow's decoder drives it:
+    ``jpeg_read_header`` (the markers to the first SOS), then every scan
+    and the markers between them up to EOI.  A file of one scan is output
+    as its MCU rows are decoded, so the end of the file after its last MCU
+    is no error (the last ``jpeg_finish_decompress`` only suspends); a
+    file of several scans (progressive, or one scan per component) must
+    reach EOI first."""
+
+    def __init__(self, data: bytes):
+        self.data, self.n = data, len(data)
+        self.pos, self.unread = 2, 0  # after SOI; a marker read and not yet processed
+        self.held = min(self.n, _CHUNK)  # the bytes Pillow has handed the decoder
+        self.fixed = False  # inside jdarith.c, which cannot suspend for more
+        self.dht = {}  # (0 DC or 1 AC, index) -> (counts, symbols)
+        self.luts = {}
+        self.quant = {}  # index -> [64] in natural order
+        self.arith = {"L": {}, "U": {}, "K": {}}  # DAC conditioning; defaults 0, 1, 5
+        self.restart = 0
+        self.jfif, self.adobe = False, None
+        self.sof = self.comps = self.scan = None
+
+    # ---- jdmarker.c ------------------------------------------------------
+
+    def _reach(self, end: int) -> None:
+        """A read up to byte ``end``: Pillow hands over the file 65,536
+        bytes at a time, more each time the decoder suspends, which the
+        arithmetic decoder cannot do."""
+        if self.held < min(end, self.n) and self.fixed:
+            raise _broken("arithmetic-coded data past the bytes Pillow hands over at once")
+        while self.held < min(end, self.n):
+            self.held = min(self.held + _CHUNK, self.n)
+
+    def _take(self, k: int) -> bytes:
+        if self.pos + k > self.n:
+            raise _Suspend(_CUT)
+        self.pos += k
+        self._reach(self.pos)
+        return self.data[self.pos - k:self.pos]
+
+    def _word(self) -> int:
+        return _u16(self._take(2), 0)
+
+    def _next_marker(self) -> None:
+        """next_marker: skip bytes that are no marker (stuffed FF 00 pairs,
+        FF fill bytes, anything else) and hold the next marker unread."""
+        data, n, pos = self.data, self.n, self.pos
+        while True:
+            i = data.find(b"\xff", pos)
+            if i < 0:
+                raise _Suspend(_CUT)
+            j = i + 1
+            while j < n and data[j] == 0xFF:
+                j += 1
+            if j >= n:
+                raise _Suspend(_CUT)
+            if data[j]:
+                self.unread, self.pos = data[j], j + 1
+                self._reach(self.pos)
+                return
+            pos = j + 1
+
+    def _read_markers(self) -> int:
+        """read_markers: process markers up to the next SOS (its header
+        read) or EOI, and return that marker."""
+        while True:
+            if not self.unread:
+                self._next_marker()
+            m = self.unread
+            if m == 0xDA:
+                self._get_sos()
+            elif m in _SOF:
+                self._get_sof(m)
+            elif m in _REFUSED_SOF:
+                raise ValueError(f"{_REFUSED_SOF[m]}: libjpeg-turbo, and so Pillow, cannot read it")
+            elif m == 0xC4:
+                self._get_dht()
+            elif m == 0xCC:
+                self._get_dac()
+            elif m == 0xDB:
+                self._get_dqt()
+            elif m == 0xDD:
+                if self._word() != 4:
+                    raise _broken("a restart interval marker of the wrong length")
+                self.restart = self._word()
+            elif m in (0xE0, 0xEE):
+                self._get_app(m)
+            elif 0xE0 <= m <= 0xEF or m in (0xFE, 0xDC):  # skip_variable
+                self.pos += max(self._word() - 2, 0)
+            elif m == 0xD8:
+                raise _broken("a second start-of-image marker")
+            elif m != 0xD9 and not 0xD0 <= m <= 0xD7 and m != 0x01:
+                raise _broken(f"the unknown marker FF{m:02X}")
+            self.unread = 0
+            if m in (0xDA, 0xD9):
+                return m
+
+    def _get_sof(self, m: int) -> None:
+        if self.sof is not None:
+            raise _broken("a second frame header")
+        length, precision = self._word(), self._take(1)[0]
+        h, w, nc = self._word(), self._word(), self._take(1)[0]
+        if not (h and w and nc):
+            raise _broken("an empty image")
+        if length - 8 != 3 * nc:
+            raise _broken("a frame header of the wrong length")
+        body = self._take(3 * nc)
+        self.sof, self.precision, self.size = m, precision, (h, w)
+        self.comps = [{"id": body[3 * k], "h": body[3 * k + 1] >> 4, "v": body[3 * k + 1] & 15,
+                       "tq": body[3 * k + 2], "quant": None} for k in range(nc)]
+
+    def _get_sos(self) -> None:
+        if self.sof is None:
+            raise _broken("a scan before the frame header")
+        length, ns = self._word(), self._take(1)[0]
+        if length != 2 * ns + 6 or not 1 <= ns <= 4:
+            raise _broken("a scan header of the wrong length")
+        body = self._take(2 * ns + 3)
+        scan = []
+        for i in range(ns):
+            cc, t = body[2 * i], body[2 * i + 1]
+            # a component whose index names a scan slot not yet filled
+            ci = next((k for k, c in enumerate(self.comps[:4]) if c["id"] == cc and k >= i),
+                      None)
+            if ci is None:
+                raise _broken("a scan names a component the frame does not have")
+            scan.append(ci)
+            self.comps[ci]["td"], self.comps[ci]["ta"] = t >> 4, t & 15
+        self.scan = (scan, body[2 * ns], body[2 * ns + 1], body[2 * ns + 2] >> 4,
+                     body[2 * ns + 2] & 15)
+
+    def _get_dht(self) -> None:
+        length = self._word() - 2
+        while length > 16:
+            index, counts = self._take(1)[0], self._take(16)
+            count = sum(counts)
+            length -= 17
+            if count > 256 or count > length:
+                raise _broken("a bad Huffman table")
+            symbols = self._take(count)
+            length -= count
+            tc, th = (1, index - 16) if index & 16 else (0, index)
+            if th >= 4:
+                raise _broken("a Huffman table index past 3")
+            self.dht[tc, th] = (counts, symbols)
+        if length:
+            raise _broken("a Huffman table marker of the wrong length")
+
+    def _get_dqt(self) -> None:
+        length = self._word() - 2
+        while length > 0:
+            b = self._take(1)[0]
+            if b & 15 >= 4:
+                raise _broken("a quantization table index past 3")
+            vals = np.frombuffer(self._take(128), ">u2") if b >> 4 else np.frombuffer(
+                self._take(64), np.uint8)
+            q = np.zeros(64, np.int64)
+            q[list(_ZIGZAG)] = vals
+            self.quant[b & 15] = q
+            length -= 129 if b >> 4 else 65
+        if length:
+            raise _broken("a quantization table marker of the wrong length")
+
+    def _get_dac(self) -> None:
+        length = self._word() - 2
+        while length > 0:
+            index, val = self._take(2)
+            length -= 2
+            if index >= 32:
+                raise _broken("a bad DAC index")
+            if index >= 16:
+                self.arith["K"][index - 16] = val
+            elif (val & 15) > (val >> 4):
+                raise _broken("a DAC with L above U")
             else:
-                parts = [blocks]
-            segments += [b""] * (len(parts) - len(segments))
-            for seg, part in zip(segments, parts):
-                if is_arith:
-                    _arith_segment(seg, part, coefs, comps, scan, arith, ss, se, ah, al,
-                                   progressive)
-                elif progressive:
-                    _decode_progressive_segment(seg, part, coefs, tables, ss, se, ah, al)
+                self.arith["L"][index], self.arith["U"][index] = val & 15, val >> 4
+        if length:
+            raise _broken("a DAC marker of the wrong length")
+
+    def _get_app(self, m: int) -> None:
+        """get_interesting_appn: the first 14 bytes of APP0 (JFIF) and
+        APP14 (Adobe), the rest skipped."""
+        length = self._word() - 2
+        head = self._take(min(max(length, 0), 14))
+        if m == 0xE0 and len(head) >= 14 and head[:5] == b"JFIF\0":
+            self.jfif = True
+        if m == 0xEE and len(head) >= 12 and head[:5] == b"Adobe":
+            self.adobe = head[11]
+        self.pos += max(length - len(head), 0)
+
+    # ---- the scans -----------------------------------------------------
+
+    def run(self) -> np.ndarray:
+        if self._read_markers() == 0xD9:
+            name = _FRAME_NAMES[self.sof] if self.sof is not None else "JPEG"
+            raise ValueError(f"corrupt JPEG: the {name} frame has no scan")
+        self._setup()
+        self.single = len(self.scan[0]) == len(self.comps) and self.process != "progressive"
+        while True:
+            self._decode_scan()
+            if self.single:
+                try:  # jpeg_finish_decompress: on to EOI, where the file may end
+                    if self._read_markers() == 0xDA:
+                        raise _broken("a second scan in a file of one scan")
+                except _Suspend:
+                    pass
+                break
+            if self._read_markers() == 0xD9:
+                break
+        return self._output()
+
+    def _setup(self) -> None:
+        """initial_setup and the checks of jpeg_start_decompress, at the
+        first scan."""
+        (h, w), comps = self.size, self.comps
+        if h > 65500 or w > 65500:
+            raise _broken(f"an image of {w} x {h}, past libjpeg's 65,500 a side")
+        if self.precision != 8:
+            raise ValueError(f"{self.precision}-bit JPEG: Pillow cannot open it (8-bit only)")
+        for c in comps:
+            if not (1 <= c["h"] <= 4 and 1 <= c["v"] <= 4):
+                raise ValueError(f"corrupt JPEG: sampling factors {c['h']}x{c['v']} (libjpeg "
+                                 "takes 1 to 4)")
+        self.is_arith, self.process = _SOF[self.sof]
+        if self.process == "sequential" and not self.is_arith:  # jinit_huff_decoder only
+            for key, table in _STD_TABLES.items():
+                self.dht.setdefault(key, table)
+        hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
+        if any(hmax % c["h"] or vmax % c["v"] for c in comps):
+            raise ValueError("JPEG with a fractional sampling ratio: libjpeg cannot upsample it")
+        mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+        for c in comps:
+            c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]  # blocks allocated
+            c["dw"] = -(-w * c["h"] // hmax)  # downsampled size
+            c["dh"] = -(-h * c["v"] // vmax)
+        self.coefs = [[0] * (c["bw"] * c["bh"] * 64) for c in comps]
+        self.samples = [np.zeros((c["dh"], c["dw"]), np.uint8) for c in comps]
+        self.coef_bits = [[-1] * 64 for _ in comps]  # jdphuff.c's progression status
+        self.prev_bits = [[-1] * 64 for _ in comps]  # ... before each component's last scan
+        self.scans = 0
+        self.last_good = 0  # the last iMCU row decoded before a scan's data ran out
+        self.colour = (self.jfif, self.adobe)  # default_decompress_parms
+        if self.process == "lossless" and (len(comps) == 3 and self.jfif
+                                           or self.adobe not in (None, 0)):
+            raise ValueError("lossless JPEG in YCbCr or YCCK: libjpeg-turbo converts no colour "
+                             "in lossless mode, and Pillow fails on it")
+
+    def _lut(self, tc: int, th: int, dc_limit=None) -> list:
+        table = self.dht.get((tc, th))
+        if table is None:
+            raise _broken("a scan names an undefined Huffman table")
+        key = (tc, dc_limit) + table
+        if key not in self.luts:
+            self.luts[key] = _huffman_table(*table, dc_limit)
+        return self.luts[key]
+
+    def _decode_scan(self) -> None:
+        """start_input_pass (per_scan_setup, latch_quant_tables, the
+        entropy decoder's start_pass), then the scan's data."""
+        scan, ss, se, ah, al = self.scan
+        comps, (h, w) = self.comps, self.size
+        self.scans += 1
+        if len(scan) > 1 and sum(comps[ci]["h"] * comps[ci]["v"] for ci in scan) > 10:
+            raise ValueError("corrupt JPEG: more than 10 blocks in an MCU")
+        if self.process == "lossless":
+            if not 1 <= ss <= 7 or se or ah or al >= 8:
+                raise _broken("bad lossless scan parameters")
+            luts = {ci: self._lut(0, comps[ci]["td"], 16) for ci in scan}
+            _lossless_scan(self._drive, comps, scan, w, h, self.restart, luts, ss, al,
+                           self.samples)
+            return
+        for ci in scan:
+            c = comps[ci]
+            if c["quant"] is None:
+                if c["tq"] not in self.quant:
+                    raise _broken("a component whose quantization table is not defined")
+                c["quant"] = self.quant[c["tq"]].copy()
+        progressive = self.process == "progressive"
+        if progressive:
+            if (se if ss == 0 else se < ss or se > 63 or len(scan) != 1) or (
+                    ah and al != ah - 1) or al > 13:
+                raise _broken("bad progressive scan parameters")
+            for ci in scan:
+                cur, prev = self.coef_bits[ci], self.prev_bits[ci]
+                for k in range(min(ss, 1), max(se, 9) + 1):
+                    prev[k] = cur[k] if self.scans > 1 else 0
+                cur[ss:se + 1] = [al] * (se - ss + 1)
+        blocks = _scan_blocks(comps, scan, w, h)
+        per = len(blocks)
+        if self.restart:
+            per = self.restart * per // _scan_mcus(comps, scan, w, h)
+        parts = [blocks[k:k + per] for k in range(0, len(blocks), per)]
+        coefs = self.coefs
+        dry = None
+        if self.is_arith:
+            def decode(k, seg, stop):
+                _arith_segment(seg, stop, parts[k], coefs, comps, scan, self.arith, ss, se, ah,
+                               al, progressive)
+        else:
+            tables = {ci: (self._lut(0, comps[ci]["td"], 15)
+                           if not progressive or ss == ah == 0 else None,
+                           self._lut(1, comps[ci]["ta"]) if not progressive or ss else None)
+                      for ci in scan}
+
+            def decode(k, seg, stop):
+                if seg is None:
+                    return 0
+                if progressive:
+                    return _decode_progressive_segment(seg, parts[k], coefs, tables, ss, se,
+                                                       ah, al)
+                return _decode_segment(seg, parts[k], coefs, tables)
+
+            if self.single:
+                def dry(k, start):
+                    return _runs_dry(self.data, start, parts[k], tables, not self.restart)
+        stops = self._drive(len(parts), decode, dry)
+        # jdcoefct.c's last_good_iMCU_row: the iMCU row of the last MCU begun
+        # before the scan's data ran out
+        last = max(k * per + (len(parts[k]) if stop is None else stop) - 1 for k, stop in stops)
+        if len(scan) > 1:
+            mcux = -(-w // (8 * max(c["h"] for c in comps)))
+            self.last_good = last // (len(blocks) // _scan_mcus(comps, scan, w, h)) // mcux
+        else:
+            c = comps[scan[0]]
+            self.last_good = last // -(-c["dw"] // 8) // c["v"]
+
+    def _segment(self):
+        """The entropy-coded bytes from here to the next marker, which is
+        held unread -> (their data, where libjpeg's reads stop, the end of
+        the marker).  The reads stop nowhere (None) where the marker ends
+        the data; where the file ends first, Huffman reads stop at the
+        end of the data; arithmetic-coded reads, which jdarith.c cannot
+        suspend, stop also at the end of the bytes Pillow has handed over,
+        an FF there read only with the byte after it."""
+        data, n, start = self.data, self.n, self.pos
+        pos = start
+        while True:
+            i = data.find(b"\xff", pos)
+            j = i + 1
+            while 0 < j < n and data[j] == 0xFF:
+                j += 1
+            if i < 0 or j >= n:  # the file ends first
+                i, j = (n if i < 0 else i), n + 1
+                break
+            if data[j]:
+                self.unread = data[j]
+                break
+            pos = j + 1
+        seg = _unstuff(data[start:i])
+        self.pos = min(j + 1, n)
+        stop = len(seg) if j > n else None
+        if self.is_arith and j + 1 > self.held:
+            stop = len(_unstuff(data[start:min(i, self.held)].rstrip(b"\xff")))
+        return seg, stop, j + 1
+
+    def _drive(self, nparts: int, decode, dry=None) -> list:
+        """A scan's restart intervals as libjpeg reads them.  Before each
+        but the first, process_restart: the next marker must be the RSTn
+        expected (n counting 0..7 from the scan's start), else
+        jpeg_resync_to_restart decides; a marker left unread makes the
+        next interval empty.  ``decode(k, data, stop)`` reads interval k
+        (``stop`` as :meth:`_segment` gives it) and returns None, or where
+        its data ran out (Huffman: the rest of that interval, and every
+        interval up to a restart marker read, stays zero, ``decode(k,
+        None, None)``) -> [(k, what decode returned)] for the intervals
+        decoded.  Huffman data that run to the end of the file are a file
+        cut short, unless ``dry(k, start)`` finds that libjpeg's reads stay
+        inside the file."""
+        insufficient = False
+        expect = end = 0
+        stops = []
+        for k in range(nparts):
+            if k:  # process_restart, which jdarith.c cannot suspend
+                self.fixed = self.is_arith
+                self._reach(end)
+                if not self.unread:
+                    self._next_marker()
+                if self.unread == 0xD0 + expect:
+                    self.unread = 0
                 else:
-                    _decode_segment(seg, part, coefs, tables)
-        # every other marker (APPn, COM, ...) is skipped
-    if frame is None:
-        raise ValueError("corrupt JPEG: no frame header")
-    if not scans:
-        raise ValueError(f"corrupt JPEG: the {_FRAME_NAMES[sof]} frame has no scan")
-    h, w, comps = frame
-    hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
-    lossless = _SOF[sof][1] == "lossless"
-    planes = []
-    for c, cf, px in zip(comps, coefs, samples):
-        if lossless:  # no IDCT, and plain upsampling: libjpeg's fancy filters need DCT blocks
-            planes.append(np.repeat(np.repeat(px, vmax // c["v"], 0), hmax // c["h"], 1)[:h, :w])
-            continue
-        if c["tq"] not in quant:
-            raise ValueError("corrupt JPEG: missing quantization table")
-        px = idct_islow(np.asarray(cf, np.int64).reshape(-1, 64), quant[c["tq"]])
-        plane = px.reshape(c["bh"], c["bw"], 8, 8).transpose(0, 2, 1, 3)
-        plane = plane.reshape(c["bh"] * 8, c["bw"] * 8)[:c["dh"], :c["dw"]]
-        planes.append(_upsample(plane, hmax // c["h"], vmax // c["v"])[:h, :w])
-    if len(planes) == 1:
-        return np.repeat(planes[0][..., None], 3, axis=2)
-    if lossless and (len(planes) == 3 and jfif or adobe not in (None, 0)):
-        raise ValueError("lossless JPEG in YCbCr or YCCK: libjpeg-turbo converts no colour "
-                         "in lossless mode, and Pillow fails on it")
-    if len(planes) == 4:
-        return _four_to_rgb(planes, adobe)
-    if lossless or _is_rgb(comps, jfif, adobe):
-        return np.stack(planes, axis=-1)
-    return ycc_to_rgb(*planes)
+                    self._resync(expect)
+                self.fixed = False
+                expect = (expect + 1) & 7
+                if not self.unread:
+                    insufficient = False
+            if insufficient:
+                decode(k, None, None)
+                continue
+            start = self.pos
+            seg, stop, end = (b"", None, start) if self.unread else self._segment()
+            if stop is not None and not self.is_arith and (dry is None or dry(k, start)):
+                raise _Suspend(_CUT)
+            ran_out = decode(k, seg, stop)
+            stops.append((k, ran_out))
+            insufficient = ran_out is not None
+        self._reach(end)  # the marker after the scan, read by consume_markers
+        return stops
+
+    def _resync(self, desired: int) -> None:
+        """jpeg_resync_to_restart with the marker held unread: RSTn for
+        n = desired or more than two away is dropped and decoding goes on
+        (1); the next two RSTs, or any marker that is no RST, stay unread
+        (3); the two before it, or a marker below SOF0, are skipped to the
+        next marker and the choice is made again (2)."""
+        while True:
+            m = self.unread
+            if m < 0xC0:
+                action = 2
+            elif not 0xD0 <= m <= 0xD7:
+                action = 3
+            elif m - 0xD0 in ((desired + 1) & 7, (desired + 2) & 7):
+                action = 3
+            elif m - 0xD0 in ((desired - 1) & 7, (desired - 2) & 7):
+                action = 2
+            else:
+                action = 1
+            if action == 1:
+                self.unread = 0
+                return
+            if action == 3:
+                return
+            self._next_marker()
+
+    def _output(self) -> np.ndarray:
+        (h, w), comps = self.size, self.comps
+        hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
+        lossless = self.process == "lossless"
+        smooth = self.process == "progressive" and _smoothing_ok(comps, self.coef_bits)
+        total = -(-h // (8 * vmax))  # iMCU rows
+        planes = []
+        for c, cf, px, bits, prev in zip(comps, self.coefs, self.samples, self.coef_bits,
+                                         self.prev_bits):
+            if lossless:  # no IDCT, and plain upsampling: libjpeg's fancy filters need DCT blocks
+                px = np.repeat(np.repeat(px, vmax // c["v"], 0), hmax // c["h"], 1)
+                planes.append(px[:h, :w])
+                continue
+            # a component no scan named keeps libjpeg's zero multipliers: gray
+            quant = c["quant"] if c["quant"] is not None else np.zeros(64, np.int64)
+            cf = _w16(np.asarray(cf, np.int64)).reshape(c["bh"], c["bw"], 64)
+            if smooth:
+                prev = prev[:10] if self.scans > 1 else [-1] * 10
+                latch = [bits[:10] if i <= self.last_good else prev for i in range(total)]
+                cf = _smooth(cf, quant, latch, c["v"], -(-c["dh"] // 8), -(-c["dw"] // 8), total)
+            px = idct_islow(cf.reshape(-1, 64), quant)
+            plane = px.reshape(c["bh"], c["bw"], 8, 8).transpose(0, 2, 1, 3)
+            plane = plane.reshape(c["bh"] * 8, c["bw"] * 8)[:c["dh"], :c["dw"]]
+            planes.append(_upsample(plane, hmax // c["h"], vmax // c["v"])[:h, :w])
+        jfif, adobe = self.colour
+        if len(planes) == 1:
+            return np.repeat(planes[0][..., None], 3, axis=2)
+        if len(planes) == 4:
+            return _four_to_rgb(planes, adobe)
+        if lossless or _is_rgb(comps, jfif, adobe):
+            return np.stack(planes, axis=-1)
+        return ycc_to_rgb(*planes)
+
+
+def _smoothing_ok(comps, coef_bits) -> bool:
+    """jdcoefct.c's smoothing_ok: block smoothing runs where every
+    component's table is latched with its first ten quantizers nonzero,
+    its DC is known, and some component's first nine AC coefficients are
+    not yet exact."""
+    useful = False
+    for c, bits in zip(comps, coef_bits):
+        q = c["quant"]
+        if q is None or not all(q[i] for i in _ZIGZAG[:10]) or bits[0] < 0:
+            return False
+        useful = useful or any(bits[1:10])
+    return useful
+
+
+# the first ten coefficients' natural positions: Q00, Q01, Q10, Q20, Q11, Q02, Q03, Q12, Q21, Q30
+_SMOOTHED = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)
+# each AC estimate (coefficient k = 1..9 of _SMOOTHED) as weights of the 5 x 5 DC values
+# around the block (rows above to below, columns left to right): libjpeg-turbo's kernels
+# with DC interpolation (no AC coefficient known) and without (only for k = 1..5)
+_KERNELS_DC = {
+    1: ((-1, -1, 0, 1, 1), (-3, 13, 0, -13, 3), (-3, 38, 0, -38, 3), (-3, 13, 0, -13, 3),
+        (-1, -1, 0, 1, 1)),
+    2: ((-1, -3, -3, -3, -1), (-1, 13, 38, 13, -1), (0, 0, 0, 0, 0), (1, -13, -38, -13, 1),
+        (1, 3, 3, 3, 1)),
+    3: ((0, 0, 1, 0, 0), (0, 2, 7, 2, 0), (0, -5, -14, -5, 0), (0, 2, 7, 2, 0), (0, 0, 1, 0, 0)),
+    4: ((-1, 0, 0, 0, 1), (0, 9, 0, -9, 0), (0, 0, 0, 0, 0), (0, -9, 0, 9, 0), (1, 0, 0, 0, -1)),
+    5: ((0, 0, 0, 0, 0), (0, 2, -5, 2, 0), (1, 7, -14, 7, 1), (0, 2, -5, 2, 0), (0, 0, 0, 0, 0)),
+    6: ((0, 0, 0, 0, 0), (0, 1, 0, -1, 0), (0, 2, 0, -2, 0), (0, 1, 0, -1, 0), (0, 0, 0, 0, 0)),
+    7: ((0, 0, 0, 0, 0), (0, 1, -3, 1, 0), (0, 0, 0, 0, 0), (0, -1, 3, -1, 0), (0, 0, 0, 0, 0)),
+    8: ((0, 0, 0, 0, 0), (0, 1, 0, -1, 0), (0, -3, 0, 3, 0), (0, 1, 0, -1, 0), (0, 0, 0, 0, 0)),
+    9: ((0, 0, 0, 0, 0), (0, 1, 2, 1, 0), (0, 0, 0, 0, 0), (0, -1, -2, -1, 0), (0, 0, 0, 0, 0)),
+    0: ((-2, -6, -8, -6, -2), (-6, 6, 42, 6, -6), (-8, 42, 152, 42, -8), (-6, 6, 42, 6, -6),
+        (-2, -6, -8, -6, -2)),
+}
+_KERNELS = {
+    1: ((0, 0, 0, 0, 0), (0, 0, 0, 0, 0), (-7, 50, 0, -50, 7), (0, 0, 0, 0, 0), (0, 0, 0, 0, 0)),
+    2: ((0, 0, -7, 0, 0), (0, 0, 50, 0, 0), (0, 0, 0, 0, 0), (0, 0, -50, 0, 0), (0, 0, 7, 0, 0)),
+    3: ((0, 0, -1, 0, 0), (0, 0, 13, 0, 0), (0, 0, -24, 0, 0), (0, 0, 13, 0, 0), (0, 0, -1, 0, 0)),
+    4: ((0, -1, 0, 1, 0), (-1, 10, 0, -10, 1), (0, 0, 0, 0, 0), (1, -10, 0, 10, -1),
+        (0, 1, 0, -1, 0)),
+    5: ((0, 0, 0, 0, 0), (0, 0, 0, 0, 0), (-1, 13, -24, 13, -1), (0, 0, 0, 0, 0), (0, 0, 0, 0, 0)),
+}
+
+
+def _smooth(cf: np.ndarray, quant, latch, v: int, hib: int, wib: int, total: int) -> np.ndarray:
+    """jdcoefct.c's decompress_smooth_data (libjpeg-turbo 2.1 and later)
+    on one component's blocks [rows, cols, 64] (JCOEF values) -> the
+    blocks as the IDCT gets them.  ``latch[i]`` is the coef_bits latch
+    (coefficients 0..9) that iMCU row i reads; a coefficient whose latch
+    is not 0 (not yet exact) and that is still 0 gets an estimate from
+    the 5 x 5 DC values around its block (the image's edge blocks
+    repeated), as (Q00 * num + Q/2) / Q in sign-magnitude, capped below
+    1 << Al; with no AC coefficient known at all the DC too is estimated
+    (DC interpolation)."""
+    out = cf.copy()
+    view = out[:, :wib]  # the blocks that meet the image
+    rows = np.arange(cf.shape[0])
+    imcu = rows // v
+    part = hib % v or v  # block rows in the last iMCU row
+    block_rows = np.where(imcu < total - 1, v, part)
+    keep = rows - imcu * v < block_rows
+    ibr = imcu * block_rows + rows - imcu * v  # libjpeg's image_block_row
+    ibrs = block_rows * total
+    above = np.where(ibr > 0, rows - 1, rows)
+    around = [np.where(ibr > 1, rows - 2, above), above, rows]
+    below = np.where(ibr < ibrs - 1, rows + 1, rows)
+    around += [below, np.where(ibr < ibrs - 2, rows + 2, below)]
+    cols = np.arange(wib)
+    dc = cf[..., 0]
+    grid = [[dc[r][:, np.clip(cols + d, 0, wib - 1)] for d in (-2, -1, 0, 1, 2)] for r in around]
+    q = [int(quant[p]) for p in _SMOOTHED]
+    for bits in {tuple(b) for b in latch}:
+        sel = keep & np.array([tuple(latch[i]) == bits for i in imcu])
+        change_dc = all(b == -1 for b in bits[1:])
+        kernels = _KERNELS_DC if change_dc else _KERNELS
+        for k, kern in kernels.items():
+            al = bits[k]
+            if k and not al:
+                continue
+            num = q[0] * sum(w * grid[a][b] for a in range(5) for b in range(5)
+                             for w in (kern[a][b],) if w)
+            big = (q[k] << 7) + np.abs(num)
+            pred = big // (q[k] << 8)
+            if k and al > 0:
+                pred = np.minimum(pred, (1 << al) - 1)
+            pred = _w16(np.where(num >= 0, pred, -pred))
+            pos = _SMOOTHED[k]
+            hit = sel[:, None] & ((view[..., pos] == 0) if k else True)
+            view[..., pos] = np.where(hit, pred, view[..., pos])
+    return out
 
 
 def _is_rgb(comps, jfif: bool, adobe) -> bool:
@@ -1012,23 +1714,26 @@ def _scan_mcus(comps, scan, w: int, h: int) -> int:
 
 def _scan_blocks(comps, scan, w: int, h: int):
     """The scan's blocks in stream order -> [(component, offset of its 64
-    coefficients)]: MCU by MCU, each component's h x v blocks in turn; a
-    one-component scan covers only the blocks that meet the component."""
+    coefficients, whether it starts an MCU)]: MCU by MCU, each component's
+    h x v blocks in turn; a one-component scan covers only the blocks that
+    meet the component."""
     out = []
     if len(scan) == 1:
         ci = scan[0]
         c = comps[ci]
         for by in range(-(-c["dh"] // 8)):
             for bx in range(-(-c["dw"] // 8)):
-                out.append((ci, (by * c["bw"] + bx) * 64))
+                out.append((ci, (by * c["bw"] + bx) * 64, True))
         return out
     hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
     for my in range(-(-h // (8 * vmax))):
         for mx in range(-(-w // (8 * hmax))):
+            first = True
             for ci in scan:
                 c = comps[ci]
                 for v in range(c["v"]):
                     for u in range(c["h"]):
-                        out.append((ci, ((my * c["v"] + v) * c["bw"] + mx * c["h"] + u) * 64))
+                        out.append((ci, ((my * c["v"] + v) * c["bw"] + mx * c["h"] + u) * 64,
+                                    first))
+                        first = False
     return out
-

@@ -13,10 +13,17 @@ byte for byte:
 - 16-bit gray saturates at 255 (Pillow opens it as ``I;16``), while 16-bit
   RGB, RGBA and gray + alpha take the high byte of each sample;
 - a palette index past the end of ``PLTE`` reads black.
+
+Damaged files end as in Pillow: :func:`_pillow_chunks` walks the chunks up
+to the first IDAT as ``PngImagePlugin``'s ``_open`` does (chunk types of
+four word characters, every chunk's CRC, the checks of its IHDR, tRNS,
+gAMA, sRGB, pHYs, iCCP and zTXt handlers), and the image data are the run
+of IDAT chunks from there, as its ``load_read`` reads them.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 
@@ -150,6 +157,93 @@ def _to_rgb(s: np.ndarray, ctype: int, depth: int, palette: np.ndarray) -> np.nd
     return np.ascontiguousarray(s[..., :3])
 
 
+_IS_CID = re.compile(rb"\w\w\w\w").match
+# the (depth, colour type) pairs Pillow opens, and those it opens as "P"
+_MODES = {(1, 0), (2, 0), (4, 0), (8, 0), (16, 0), (8, 2), (16, 2), (1, 3), (2, 3), (4, 3),
+          (8, 3), (8, 4), (16, 4), (8, 6), (16, 6)}
+
+
+def _short(s: bytes, n: int) -> None:
+    if len(s) < n:
+        raise ValueError("PNG: a chunk too short for Pillow's handler")
+
+
+def _zlib_text(s: bytes) -> None:
+    """Pillow's ``_safe_zlib_decompress`` of a text or profile chunk: a
+    broken stream is let pass, one that inflates past MAX_TEXT_CHUNK is an
+    error."""
+    obj = zlib.decompressobj()
+    try:
+        obj.decompress(s, 1 << 20)
+    except zlib.error:
+        return
+    if obj.unconsumed_tail:
+        raise ValueError("PNG: a compressed chunk past Pillow's MAX_TEXT_CHUNK")
+
+
+def _pillow_chunks(data: bytes):
+    """The chunks before the first IDAT as Pillow's ``_open`` reads them ->
+    (IHDR fields, PLTE bytes, where the first IDAT's data start); every
+    failure of its walk raises a ValueError."""
+    pos, header, palette, ctype = 8, None, None, None
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError("PNG: the file ends before its image data")
+        (n,), cid = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        if not _IS_CID(cid):
+            raise ValueError(f"broken PNG file (chunk {cid!r})")
+        if cid == b"IDAT":
+            if header is None:
+                raise ValueError("PNG without an IHDR chunk")
+            return header, palette, pos
+        if cid == b"IEND":
+            raise ValueError("PNG: no image data before IEND")
+        body = data[pos + 8:pos + 8 + n]
+        if len(body) < n:
+            raise ValueError("PNG: a chunk runs past the end of the file")
+        if cid == b"IHDR":
+            _short(body, 13)
+            header = struct.unpack(">IIBBBBB", body[:13])
+            ctype = header[3] if header[2:4] in _MODES else None
+            if header[5]:
+                raise ValueError("PNG: unknown filter category")
+        elif cid == b"PLTE" and ctype == 3:
+            palette = body
+        elif cid == b"tRNS" and ctype in (0, 2):
+            _short(body, 6 if ctype == 2 else 2)
+        elif cid == b"gAMA":
+            _short(body, 4)
+        elif cid == b"sRGB":
+            _short(body, 1)
+        elif cid == b"pHYs":
+            _short(body, 9)
+        elif cid == b"iCCP":  # a name, its NUL, the method (0), the profile
+            i = body.find(b"\0")
+            if i + 1 >= len(body) or body[i + 1]:
+                raise ValueError("PNG: an iCCP chunk Pillow cannot parse")
+            _zlib_text(body[i + 2:])
+        elif cid == b"zTXt" and b"\0" in body:
+            i = body.find(b"\0")
+            if i + 1 < len(body) and body[i + 1]:
+                raise ValueError("PNG: a zTXt chunk of an unknown compression method")
+            _zlib_text(body[i + 2:])
+        crc = data[pos + 8 + n:pos + 12 + n]
+        if len(crc) < 4 or struct.unpack(">I", crc)[0] != zlib.crc32(cid + body) & 0xFFFFFFFF:
+            raise ValueError(f"broken PNG file (bad header checksum in {cid!r})")
+        pos += 12 + n
+
+
+def _idat_run(data: bytes, pos: int) -> bytes:
+    """The data of the IDAT chunks from ``pos`` up to the first other (or
+    broken) chunk."""
+    parts = []
+    while pos + 8 <= len(data) and data[pos + 4:pos + 8] == b"IDAT":
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        parts.append(data[pos + 8:pos + 8 + n])
+        pos += 12 + n
+    return b"".join(parts)
+
+
 def _inflate(z: bytes, need: int) -> bytes:
     """The IDAT stream inflated as Pillow's decoder inflates it: zlib stops
     once the image's ``need`` bytes are out, so what follows them (the
@@ -162,32 +256,22 @@ def decode_png(data: bytes) -> np.ndarray:
     """The bytes of a PNG file -> [h, w, 3] uint8."""
     if data[:8] != _SIG:
         raise ValueError("not a PNG")
-    pos, idat, header, palette = 8, [], None, np.zeros((0, 3), np.uint8)
-    while pos + 8 <= len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
-            palette = np.frombuffer(body[:len(body) // 3 * 3], np.uint8).reshape(-1, 3)[:256]
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-        pos += 12 + n
-    if header is None:
-        raise ValueError("PNG without an IHDR chunk")
+    header, plte, pos = _pillow_chunks(data)
     w, h, depth, ctype, _, _, interlace = header
     if ctype not in _COLOUR_TYPES or depth not in _COLOUR_TYPES[ctype][1]:
         raise ValueError(f"PNG colour type {ctype} at depth {depth} is not a legal PNG")
-    if interlace not in (0, 1):
-        raise ValueError(f"PNG interlace method {interlace} is not a legal PNG")
+    if not w or not h:
+        raise ValueError(f"PNG of {w} x {h} pixels: Pillow opens no empty image")
     check_pixels(w, h)
+    palette = np.zeros((0, 3), np.uint8)
+    if plte is not None:
+        palette = np.frombuffer(plte[:len(plte) // 3 * 3], np.uint8).reshape(-1, 3)[:256]
+    interlace = int(bool(interlace))  # Pillow reads any nonzero method as Adam7
     channels = _COLOUR_TYPES[ctype][0]
     passes = [(w, h)] if interlace == 0 else [
         (max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))) for y0, x0, dy, dx in _ADAM7]
     need = sum(ph * (1 + -(-pw * channels * depth // 8)) for pw, ph in passes if pw and ph)
-    stream = memoryview(_inflate(b"".join(idat), need))
+    stream = memoryview(_inflate(_idat_run(data, pos), need))
     if interlace == 0:
         samples, _ = _decode_pass(stream, 0, w, h, channels, depth)
     else:

@@ -787,9 +787,13 @@ def _parse_modes(br: _BoolDecoder, seg: dict, skip_prob, top: list, left: list, 
     return segment, skip, i4x4, modes, uvmode
 
 
-def _idct_add(pred: np.ndarray, coeffs: np.ndarray) -> np.ndarray:
+def _idct_add(pred: np.ndarray, coeffs: np.ndarray, sse2=None) -> np.ndarray:
     """libwebp's TransformOne on blocks: pred [n, 4, 4] plus the inverse
-    transform of coeffs [n, 16] (raster), each clipped to [0, 255]."""
+    transform of coeffs [n, 16] (raster), each clipped to [0, 255].  The
+    blocks marked in ``sse2`` go through Transform_SSE2 instead, whose sums
+    wrap at 16 bits (the same as the C transform modulo 2**16 in each pass,
+    its second pass reading the first's wrapped outputs); the rest, those
+    libwebp sends to TransformDC_C or TransformAC3_C, do not wrap."""
     c = coeffs.reshape(-1, 4, 4).astype(np.int64)
 
     def mul1(a):
@@ -802,11 +806,20 @@ def _idct_add(pred: np.ndarray, coeffs: np.ndarray) -> np.ndarray:
     a, b = c[:, 0] + c[:, 2], c[:, 0] - c[:, 2]
     cc, d = mul2(c[:, 1]) - mul1(c[:, 3]), mul1(c[:, 1]) + mul2(c[:, 3])
     t = np.stack([a + d, b + cc, b - cc, a - d], axis=1)  # t[:, k, i]: column i's k-th
+    if sse2 is not None:
+        t = np.where(sse2[:, None, None], _w16(t), t)
     dc = t[:, :, 0] + 4
     a, b = dc + t[:, :, 2], dc - t[:, :, 2]
     cc, d = mul2(t[:, :, 1]) - mul1(t[:, :, 3]), mul1(t[:, :, 1]) + mul2(t[:, :, 3])
-    res = np.stack([a + d, b + cc, b - cc, a - d], axis=2) >> 3  # [n, row, x]
-    return np.clip(pred.astype(np.int64) + res, 0, 255).astype(np.uint8)
+    res = np.stack([a + d, b + cc, b - cc, a - d], axis=2)  # [n, row, x]
+    if sse2 is not None:
+        res = np.where(sse2[:, None, None], _w16(res), res)
+    return np.clip(pred.astype(np.int64) + (res >> 3), 0, 255).astype(np.uint8)
+
+
+def _w16(x: np.ndarray) -> np.ndarray:
+    """The low 16 bits of each value, as a signed int (an SSE2 lane)."""
+    return ((x + 0x8000) & 0xFFFF) - 0x8000
 
 
 def _iwht(dc: list) -> list:
@@ -1119,6 +1132,7 @@ def _vp8_frame(payload: bytes):
         left_nz, left_nz_dc = 0, 0
         for mx, (segment, skip, i4x4, modes, uvmode) in enumerate(modes_row):
             coeffs = [0] * 384
+            codes = [0] * 24  # libwebp's NzCodeBits, one a block (chroma: 0 or above 1)
             q_y1, q_y2, q_uv = dqm[segment]
             if skip_prob is None or not skip:
                 tnz, lnz = top_nz[mx], left_nz
@@ -1144,6 +1158,7 @@ def _vp8_frame(payload: bytes):
                         nz = _coeffs(tok, ac, l + tb[x], q_y1, first, coeffs, 16 * n)
                         l = int(nz > first)
                         tb[x] = l
+                        codes[n] = 3 if nz > 3 else 2 if nz > 1 else int(coeffs[16 * n] != 0)
                         any_nz |= nz > 1 or coeffs[16 * n] != 0
                     lb[y] = l
                 out_t = sum(b << i for i, b in enumerate(tb))
@@ -1159,6 +1174,7 @@ def _vp8_frame(payload: bytes):
                                          base + 16 * n)
                             l = int(nz > 0)
                             tb[x] = l
+                            codes[base // 16 + n] = 3 if nz > 3 else 2 if nz > 1 else 0
                             any_nz |= nz > 1 or coeffs[base + 16 * n] != 0
                         lb[y] = l
                     out_t |= (tb[0] | (tb[1] << 1)) << (4 + ch)
@@ -1172,7 +1188,7 @@ def _vp8_frame(payload: bytes):
                 if not i4x4:
                     top_nz_dc[mx] = left_nz_dc = 0
                 skipped = True
-            _reconstruct(Y, U, V, mx, my, mb_w, i4x4, modes, uvmode, coeffs)
+            _reconstruct(Y, U, V, mx, my, mb_w, i4x4, modes, uvmode, coeffs, codes)
             if strengths is not None:
                 limit, ilevel, hev_t = strengths[segment][int(i4x4)]
                 filters.append((limit, ilevel, hev_t, i4x4 or not skipped))
@@ -1182,13 +1198,23 @@ def _vp8_frame(payload: bytes):
 
 
 def _reconstruct(Y, U, V, mx: int, my: int, mb_w: int, i4x4: bool, modes, uvmode: int,
-                 coeffs: list) -> None:
+                 coeffs: list, codes: list) -> None:
     """Intra prediction plus the residuals of one macroblock, from the
     unfiltered neighbours, with libwebp's borders: 127 above the frame
     (the corner too), 129 left of it (and in the corner below the first
-    row)."""
+    row).  Each residual goes through the transform libwebp's DoTransform
+    and DoUVTransform pick by the block's ``codes``: a luma block whose
+    tokens reach past position 3, and every block of a chroma plane where
+    one block's do past position 1, through the SSE2 transform; the C
+    transforms otherwise.  Both agree where no coefficient reaches 2,048,
+    as in every stream an encoder writes."""
     y0, x0 = 16 * my, 16 * mx
     c = np.array(coeffs, np.int64).reshape(24, 16)
+    sse2 = None
+    if np.abs(c).max() >= 2048:
+        sse2 = np.array(codes) == 3
+        for k in (16, 20):
+            sse2[k:k + 4] = any(codes[k:k + 4])
     if my > 0:
         top = Y[y0 - 1, x0:x0 + 16].astype(np.int64)
         tl = int(Y[y0 - 1, x0 - 1]) if mx > 0 else 129
@@ -1198,7 +1224,7 @@ def _reconstruct(Y, U, V, mx: int, my: int, mb_w: int, i4x4: bool, modes, uvmode
     if not i4x4:
         pred = _pred_block(modes[0], top, left, tl, 16, my > 0, mx > 0)
         blocks = pred.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3).reshape(16, 4, 4)
-        out = _idct_add(blocks, c[:16])
+        out = _idct_add(blocks, c[:16], None if sse2 is None else sse2[:16])
         Y[y0:y0 + 16, x0:x0 + 16] = out.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3).reshape(16, 16)
     else:
         if my > 0:
@@ -1220,7 +1246,8 @@ def _reconstruct(Y, U, V, mx: int, my: int, mb_w: int, i4x4: bool, modes, uvmode
             above = work[by, bx + 1:bx + 9].tolist()
             lft = work[by + 1:by + 5, bx].tolist()
             pred = _pred4(modes[n], above, lft, int(work[by, bx]))
-            work[by + 1:by + 5, bx + 1:bx + 5] = _idct_add(pred[None], c[n:n + 1])[0]
+            work[by + 1:by + 5, bx + 1:bx + 5] = _idct_add(
+                pred[None], c[n:n + 1], None if sse2 is None else sse2[n:n + 1])[0]
         Y[y0:y0 + 16, x0:x0 + 16] = work[1:17, 1:17]
     cy, cx = 8 * my, 8 * mx
     for P, base in ((U, 16), (V, 20)):
@@ -1232,7 +1259,7 @@ def _reconstruct(Y, U, V, mx: int, my: int, mb_w: int, i4x4: bool, modes, uvmode
         cleft = P[cy:cy + 8, cx - 1].astype(np.int64) if mx > 0 else np.full(8, 129, np.int64)
         pred = _pred_block(uvmode, ctop, cleft, ctl, 8, my > 0, mx > 0)
         blocks = pred.reshape(2, 4, 2, 4).transpose(0, 2, 1, 3).reshape(4, 4, 4)
-        out = _idct_add(blocks, c[base:base + 4])
+        out = _idct_add(blocks, c[base:base + 4], None if sse2 is None else sse2[base:base + 4])
         P[cy:cy + 8, cx:cx + 8] = out.reshape(2, 2, 4, 4).transpose(0, 2, 1, 3).reshape(8, 8)
 
 
@@ -1335,7 +1362,8 @@ def _vp8l_size(payload: bytes) -> Tuple[int, int]:
 
 def _frame(data: bytes, pos: int, end: int) -> dict:
     """The image chunks at data[pos:end]: an optional ALPH, then VP8 or
-    VP8L (libwebp's StoreFrame)."""
+    VP8L (libwebp's StoreFrame); the image's size is read from its chunk
+    as its size field gives it, its bitstream with the pad byte."""
     frame = {"alph": None, "image": None}
     for fourcc, start, size, _ in _chunks(data, pos, end):
         payload = data[start:start + size]
@@ -1344,7 +1372,10 @@ def _frame(data: bytes, pos: int, end: int) -> dict:
         elif fourcc in (b"VP8 ", b"VP8L") and frame["image"] is None:
             if fourcc == b"VP8L" and frame["alph"] is not None:
                 raise ValueError("WebP: an ALPH chunk before a lossless image")
-            frame["image"] = (fourcc, payload)
+            # the decoder reads the chunk with its pad byte, as libwebp's
+            # demuxer hands it over: the last partition, or the lossless
+            # bitstream, may end in it
+            frame["image"] = (fourcc, data[start:start + size + (size & 1)])
             frame["size"] = (_vp8_size if fourcc == b"VP8 " else _vp8l_size)(payload)
         else:
             break

@@ -1467,11 +1467,10 @@ def test_webp_lossy_header_variants(monkeypatch, name, filter_hdr, quant, parts)
 
 def test_webp_truncated_and_corrupt_bytes_refuse_or_match():
     """Files cut short are refused as Pillow refuses them.  Flipped bits:
-    where Pillow refuses so does the port, with a ValueError; a lossless
-    file that still decodes gives Pillow's pixels.  A lossy one gives an
-    image of Pillow's shape: out-of-range coefficients of a corrupt stream
-    go through libwebp's SSE2 transform, which wraps at 16 bits where its
-    C transform, followed here, does not, so a few pixels may differ."""
+    where Pillow refuses so does the port, with a ValueError; a file that
+    still decodes gives Pillow's pixels, lossy ones too (out-of-range
+    coefficients of a corrupt stream go through libwebp's SSE2 transform,
+    which wraps at 16 bits, as the port's does)."""
     rng = np.random.RandomState(13)
     arr = _picture(40, 48, 13)
     for kw in ({"quality": 70}, {"lossless": True},
@@ -1496,8 +1495,7 @@ def test_webp_truncated_and_corrupt_bytes_refuse_or_match():
                 continue
             got = webp.decode_webp(bad)
             assert got.shape == want.shape
-            if kw.get("lossless"):
-                np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(got, want)
         assert refused > 0
 
 
