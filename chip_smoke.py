@@ -201,6 +201,14 @@ result):
    --task text2image --device cuda`` over the folder writes a row for each
    file the table reads, skips the rest, and every row's codes equal the
    card's img2code of the arrays read;
+23d. TIFF files on the card's host: the same picture written by the
+   script's own writers as 14 TIFFs named .jpg and .png (BigTIFF, 4-bit
+   and 16-bit gray, FillOrder 2, 16-bit RGB big-endian, floating point with
+   predictor 3, Group 3 2-D and Group 4 fax, JPEG strips in YCbCr 2 x 2,
+   JPEG in RGB, JPEG tiles past the image's edges, LZMA, and two damaged
+   directories): each ends as ``TIFF_OUTCOMES`` (Pillow's outcomes) says,
+   ``decode_image``'s host ms printed per file, and the folder through
+   ``cli.preprocess`` as in 23c;
 24. VQ-VAE training: ``cli.vqtrain.main`` at the released geometry, batch
    32 x 256^2 on phase 23's images, 20 straight-through + EMA iterations
    (the recon MSE at the last log below the first, the codebook's
@@ -2937,11 +2945,15 @@ def _huffman_codes(counts, symbols):
     return codes
 
 
-def _jpeg_file(img, restart: int = 0) -> bytes:
-    """A baseline 4:2:0 JFIF JPEG of ``img`` [h, w, 3] uint8: T.81's K.3
-    Huffman tables, quantizers 2 + 3 (u + v) / 2 (luma) and twice those
-    (chroma), and a restart marker every ``restart`` MCUs where it is not
-    0."""
+def _jpeg_file(img, restart: int = 0, sampling=(2, 2), ycc: bool = True,
+               abbreviated: bool = False) -> bytes:
+    """A baseline JFIF JPEG of ``img`` [h, w, 3] uint8 (or [h, w], one
+    component): the luma's ``sampling`` factors (h, v) over chroma at 1 x 1
+    (4:2:0 by default), of its YCbCr (``ycc``) or of its samples as they are;
+    T.81's K.3 Huffman tables, quantizers 2 + 3 (u + v) / 2 (luma) and
+    twice those (chroma), and a restart marker every ``restart`` MCUs where
+    it is not 0; ``abbreviated``: without its tables (and JFIF marker), as
+    a TIFF strip whose tables are in JPEGTables (:func:`_jpeg_tables`)."""
     import struct
 
     import numpy as np
@@ -2950,20 +2962,26 @@ def _jpeg_file(img, restart: int = 0) -> bytes:
 
     h, w = img.shape[:2]
     f = img.astype(np.float64)
-    ycc = [0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2],
-           128 - 0.168736 * f[..., 0] - 0.331264 * f[..., 1] + 0.5 * f[..., 2],
-           128 + 0.5 * f[..., 0] - 0.418688 * f[..., 1] - 0.081312 * f[..., 2]]
-    mh, mw = -(-h // 16), -(-w // 16)
+    if f.ndim == 2:
+        comps = [f]
+    elif ycc:
+        comps = [0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2],
+                 128 - 0.168736 * f[..., 0] - 0.331264 * f[..., 1] + 0.5 * f[..., 2],
+                 128 + 0.5 * f[..., 0] - 0.418688 * f[..., 1] - 0.081312 * f[..., 2]]
+    else:
+        comps = [f[..., 0], f[..., 1], f[..., 2]]
+    sh, sv = sampling
+    mh, mw = -(-h // (8 * sv)), -(-w // (8 * sh))
     n = np.arange(8)
     dct = np.sqrt(np.where(n == 0, 1, 2) / 8)[:, None] * np.cos(
         (2 * n[None, :] + 1) * n[:, None] * np.pi / 16)
     quant = 2 + np.add.outer(n, n) * 3 // 2
     zz = list(_ZIGZAG)
     blocks = []
-    for k, p in enumerate(ycc):
-        p = np.pad(p, ((0, 16 * mh - h), (0, 16 * mw - w)), mode="edge")
+    for k, p in enumerate(comps):
+        p = np.pad(p, ((0, 8 * sv * mh - h), (0, 8 * sh * mw - w)), mode="edge")
         if k:
-            p = p.reshape(8 * mh, 2, 8 * mw, 2).mean(axis=(1, 3))
+            p = p.reshape(8 * mh, sv, 8 * mw, sh).mean(axis=(1, 3))
         t = (p - 128).reshape(p.shape[0] // 8, 8, p.shape[1] // 8, 8).transpose(0, 2, 1, 3)
         c = np.einsum("ij,abjk,lk->abil", dct, t, dct) / (quant * (1 + (k > 0)))
         blocks.append(np.round(c).astype(np.int64).reshape(c.shape[0], c.shape[1], 64)[..., zz])
@@ -2992,8 +3010,8 @@ def _jpeg_file(img, restart: int = 0) -> bytes:
             out += bytes([0xFF, 0xD0 + (m // restart - 1) % 8])
             pred = [0, 0, 0]
         my, mx = divmod(m, mw)
-        units = [(0, blocks[0][2 * my + v, 2 * mx + u]) for v in (0, 1) for u in (0, 1)]
-        for k, blk in [*units, (1, blocks[1][my, mx]), (2, blocks[2][my, mx])]:
+        units = [(0, blocks[0][sv * my + v, sh * mx + u]) for v in range(sv) for u in range(sh)]
+        for k, blk in units + [(k, blocks[k][my, mx]) for k in range(1, len(comps))]:
             dc, ac = tables[k > 0]
             diff, pred[k] = int(blk[0]) - pred[k], int(blk[0])
             put(*dc[abs(diff).bit_length()])
@@ -3018,16 +3036,167 @@ def _jpeg_file(img, restart: int = 0) -> bytes:
     def seg(marker: int, body: bytes) -> bytes:
         return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
 
+    sof = struct.pack(">BHHB", 8, h, w, len(comps)) + bytes(
+        [1, sh << 4 | sv, 0, 2, 0x11, 1, 3, 0x11, 1][:3 * len(comps)])
+    head = b"" if abbreviated else _jpeg_tables()[2:-2]
+    return b"".join([b"\xff\xd8", b"" if abbreviated else seg(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0"),
+                     head[:head.find(b"\xff\xc4")], seg(0xC0, sof), head[head.find(b"\xff\xc4"):],
+                     seg(0xDD, struct.pack(">H", restart)) if restart else b"",
+                     seg(0xDA, bytes([len(comps), 1, 0x00, 2, 0x11, 3, 0x11][:1 + 2 * len(comps)]
+                                     + [0, 63, 0])), bytes(out),
+                     b"\xff\xd9"])
+
+
+def _jpeg_tables() -> bytes:
+    """:func:`_jpeg_file`'s quantization and Huffman tables as a stream of
+    tables only (SOI, DQT, DHT, EOI), a TIFF's JPEGTables."""
+    import struct
+
+    import numpy as np
+
+    from cogview_tpu_torch.utils.jpeg import _STD_TABLES, _ZIGZAG
+
+    n = np.arange(8)
+    quant = 2 + np.add.outer(n, n) * 3 // 2
+    zz = list(_ZIGZAG)
     dqt = b"".join(bytes([t]) + bytes((quant * (1 + t)).reshape(-1)[zz].tolist()) for t in (0, 1))
     dht = b"".join(bytes([(c << 4) | t]) + _STD_TABLES[c, t][0] + _STD_TABLES[c, t][1]
                    for t in (0, 1) for c in (0, 1))
-    sof = struct.pack(">BHHB", 8, h, w, 3) + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])
-    return b"".join([b"\xff\xd8", seg(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0"), seg(0xDB, dqt),
-                     seg(0xC0, sof), seg(0xC4, dht),
-                     seg(0xDD, struct.pack(">H", restart)) if restart else b"",
-                     seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])), bytes(out),
-                     b"\xff\xd9"])
+    return (b"\xff\xd8\xff\xdb" + struct.pack(">H", len(dqt) + 2) + dqt + b"\xff\xc4"
+            + struct.pack(">H", len(dht) + 2) + dht + b"\xff\xd9")
 
+
+def _tiff_file(fields: dict, segments, bo: str = "<", big: bool = False,
+               tiled: bool = False) -> bytes:
+    """A TIFF (a BigTIFF where ``big``) of one image: the header,
+    ``segments`` (its strips or tiles, in order), then its directory of
+    ``fields`` {tag: (type, values)} (a list of ints, or bytes for types 1
+    and 7), with the strip or tile offsets and byte counts of the
+    segments added."""
+    import struct
+
+    off = "Q" if big else "L"
+    head = (b"II" if bo == "<" else b"MM") + (struct.pack(bo + "HHHQ", 43, 8, 0, 0) if big
+                                              else struct.pack(bo + "HL", 42, 0))
+    offsets, pos = [], len(head)
+    for s in segments:
+        offsets.append(pos)
+        pos += len(s)
+    fields = dict(fields)
+    fields[324 if tiled else 273] = (16 if big else 4, offsets)
+    fields[325 if tiled else 279] = (16 if big else 4, [len(s) for s in segments])
+    ifd_at = pos + (pos & 1)
+    size, inline = (20, 8) if big else (12, 4)
+    tail_at = ifd_at + (8 if big else 2) + size * len(fields) + (8 if big else 4)
+    ifd = bytearray(struct.pack(bo + ("Q" if big else "H"), len(fields)))
+    tail = bytearray()
+    codes = {3: "H", 4: "L", 16: "Q", 5: "L", 8: "h", 9: "l", 11: "f", 12: "d"}
+    for tag in sorted(fields):
+        typ, vals = fields[tag]
+        payload = bytes(vals) if typ in (1, 2, 7) else struct.pack(
+            bo + codes[typ] * len(vals), *vals)
+        count = len(vals) // 2 if typ == 5 else len(vals)
+        if len(payload) <= inline:
+            value = payload.ljust(inline, b"\0")
+        else:
+            value = struct.pack(bo + off, tail_at + len(tail))
+            tail += payload + b"\0" * (len(payload) & 1)
+        ifd += struct.pack(bo + "HH" + off, tag, typ, count) + value
+    ifd += bytes(8 if big else 4)
+    return (head[:4] + struct.pack(bo + off, ifd_at) if not big else
+            head[:8] + struct.pack(bo + "Q", ifd_at)) + b"".join(segments) + bytes(
+        ifd_at - pos) + bytes(ifd) + bytes(tail)
+
+
+def _fax_rows(bits, comp: int, options: int = 0, k: int = 4) -> bytes:
+    """CCITT-coded rows of ``bits`` [h, w] (1 = black): TIFF compression 2
+    (modified Huffman, each row ending on a byte), 32771 (on a 16-bit
+    word), 3 (Group 3: an EOL before each row, then the row 1-D, or where
+    T4Options bit 0 is set a tag bit and every ``k``-th row 1-D, the others
+    2-D; bit 2 pads each EOL to end on a byte) or 4 (Group 4: every row
+    2-D, then EOFB)."""
+    import numpy as np
+
+    from cogview_tpu_torch.utils import ccitt
+
+    h, w = bits.shape
+    out = []
+
+    def put(code: str) -> None:
+        out.append(code)
+
+    def length() -> int:
+        return sum(len(c) for c in out)
+
+    def run(n: int, colour: int) -> None:
+        codes = ccitt.BLACK_CODES if colour else ccitt.WHITE_CODES
+        while n > 2560:
+            put(codes[2560])
+            n -= 2560
+        if n >= 64:
+            put(codes[n // 64 * 64])
+        put(codes[n % 64])
+
+    def changes(line):
+        """The changing elements of a line (an imaginary white pixel before
+        it), then w twice."""
+        d = np.flatnonzero(np.diff(np.concatenate([[0], line])))
+        return [int(x) for x in d] + [w, w]
+
+    def one_d(line) -> None:
+        c = changes(line)
+        a, colour = 0, 0
+        for x in c[:-2] + [w]:
+            run(x - a, colour)
+            a, colour = x, 1 - colour
+            if x == w:
+                break
+
+    def two_d(line, ref) -> None:
+        cl, cr = changes(line), changes(ref)
+        a0, colour = -1, 0
+        while a0 < w:
+            a1 = next(x for x in cl if x > a0)
+            # b1: the first change on the reference line right of a0 whose
+            # colour is not a0's (an even index starts black)
+            b1 = next(x for i, x in enumerate(cr) if x > a0 and (i % 2 == colour or x == w))
+            b2 = next(x for x in cr if x > b1) if b1 < w else w
+            if b2 < a1:
+                put(ccitt.MODE_CODES[ccitt.S_PASS, 0])
+                a0 = b2
+            elif abs(a1 - b1) <= 3:
+                d = a1 - b1
+                put(ccitt.MODE_CODES[(ccitt.S_V0, 0) if d == 0 else (ccitt.S_VR, d) if d > 0
+                                     else (ccitt.S_VL, -d)])
+                a0, colour = a1, 1 - colour
+            else:
+                a2 = next((x for x in cl if x > a1), w)
+                put(ccitt.MODE_CODES[ccitt.S_HORIZ, 0])
+                run(a1 - max(a0, 0), colour)
+                run(a2 - a1, 1 - colour)
+                a0 = a2
+
+    ref = np.zeros(w, np.uint8)
+    for y in range(h):
+        line = bits[y].astype(np.uint8)
+        if comp == 3:
+            if options & 4:
+                put("0" * ((4 - length()) % 8))
+            put(ccitt.EOL)
+            if options & 1:
+                put("1" if y % k == 0 else "0")
+        if comp in (2, 32771) or (comp == 3 and (not options & 1 or y % k == 0)):
+            one_d(line)
+        else:
+            two_d(line, ref)
+        if comp in (2, 32771):
+            put("0" * ((-length()) % (8 if comp == 2 else 16)))
+        ref = line
+    if comp == 4:
+        put(ccitt.EOL * 2)
+    code = "".join(out)
+    code += "0" * (-len(code) % 8)
+    return int(code, 2).to_bytes(len(code) // 8, "big") if code else b""
 
 def _gif_file(img) -> bytes:
     """A GIF of ``img`` [h, w, 3] uint8 on a fixed palette of 4 levels a
@@ -3134,11 +3303,13 @@ def _damaged_files() -> dict:
     return files
 
 
-def phase_damaged_files(torch, vqvae, work: str, smi: str) -> None:
-    """Phase 23c: damaged JPEG and GIF files on the card's host, without
-    Pillow, each ending as Pillow 12.1 ends it (DAMAGED_OUTCOMES:
-    skipped, or the SHA-256 of the RGB array it reads), then through the
-    preprocess CLI on the card (see the module docstring)."""
+def _outcomes_phase(torch, vqvae, work: str, label: str, files: dict, outcomes: dict) -> tuple:
+    """Phases 23c and 23d: each of ``files`` decoded on the card's host,
+    without Pillow, ending as Pillow 12.1 ends it (``outcomes``: "skip",
+    or the SHA-256 of the RGB array it reads), then the folder through
+    ``cli.preprocess --task text2image --device cuda``: a row for each file
+    read, the rest skipped, every row's codes the card's img2code of the
+    arrays read -> (the host ms of each file's decode, rows, skipped)."""
     import contextlib
     import hashlib
     import io
@@ -3151,10 +3322,8 @@ def phase_damaged_files(torch, vqvae, work: str, smi: str) -> None:
     from cogview_tpu_torch.preprocess.raw_datasets import DECODE_ERRORS
     from cogview_tpu_torch.utils.image_errors import UnsupportedImageError
 
-    t0 = time.perf_counter()
-    files = _damaged_files()
-    _check(sorted(files) == sorted(DAMAGED_OUTCOMES), "phase 23c's files are not its table's")
-    folder = os.path.join(work, "damaged")
+    _check(sorted(files) == sorted(outcomes), f"{label}'s files are not its table's")
+    folder = os.path.join(work, label)
     os.makedirs(folder)
     host_ms, read = {}, {}
     for name, data in files.items():
@@ -3163,24 +3332,24 @@ def phase_damaged_files(torch, vqvae, work: str, smi: str) -> None:
         t = time.perf_counter()
         try:
             got = decode_image(data)
-        except UnsupportedImageError:
-            _fail(f"{name}: a damaged file named as a format the port does not read")
+        except UnsupportedImageError as e:
+            _fail(f"{name}: named as a format the port does not read ({e})")
         except DECODE_ERRORS:
             got = None
         host_ms[name] = (time.perf_counter() - t) * 1000.0
         outcome = "skip" if got is None else hashlib.sha256(
             np.ascontiguousarray(got).tobytes()).hexdigest()
-        _check(outcome == DAMAGED_OUTCOMES[name],
+        _check(outcome == outcomes[name],
                f"{name}: the port's outcome is not Pillow's ({outcome[:12]})")
         if got is not None:
             read[name] = got
     names = sorted(files)
-    caps = os.path.join(work, "damaged.tsv")
+    caps = os.path.join(work, f"{label}.tsv")
     with open(caps, "w") as f:
         for i, name in enumerate(names):
             f.write(f"{name}\t" + " ".join(f"word{(i + k) % 50}" for k in range(5)) + "\n")
     vq_path = os.path.join(work, "vqvae_released.pt")
-    out = os.path.join(work, "damaged.bin")
+    out = os.path.join(work, f"{label}.bin")
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         rc, log = _run_quiet(preprocess.main, [
@@ -3188,7 +3357,7 @@ def phase_damaged_files(torch, vqvae, work: str, smi: str) -> None:
             "--img-tokenizer-path", vq_path, "--output", out, "--batch-size", "32",
             "--device", "cuda"], txt_tokenizer=WordTokenizer())
     print(err.getvalue(), end="")
-    _check(rc == 0, "preprocess text2image over the damaged folder failed")
+    _check(rc == 0, f"preprocess text2image over the {label} folder failed")
     skipped = re.search(r"skipped (\d+) undecodable", err.getvalue())
     skipped = int(skipped.group(1)) if skipped else 0
     rows = np.fromfile(out, np.int32).reshape(-1, 64 + 1024)
@@ -3200,12 +3369,152 @@ def phase_damaged_files(torch, vqvae, work: str, smi: str) -> None:
     x = torch.from_numpy(np.stack([to_model_input(read[n], 256) for n in kept])).cuda()
     own = vqvae.img2code(params, x).cpu().numpy()
     _check(np.array_equal(own, rows[:, 64:]),
-           "the damaged folder's codes differ from the card's img2code of the arrays read")
+           f"the {label} folder's codes differ from the card's img2code of the arrays read")
+    return host_ms, rows.shape[0], skipped
+
+
+def phase_damaged_files(torch, vqvae, work: str, smi: str) -> None:
+    """Phase 23c: damaged JPEG and GIF files on the card's host, without
+    Pillow, each ending as Pillow 12.1 ends it (DAMAGED_OUTCOMES:
+    skipped, or the SHA-256 of the RGB array it reads), then through the
+    preprocess CLI on the card (see the module docstring)."""
+    t0 = time.perf_counter()
+    files = _damaged_files()
+    host_ms, rows, skipped = _outcomes_phase(torch, vqvae, work, "damaged", files,
+                                             DAMAGED_OUTCOMES)
     h, w = DAMAGE_SIZE
     print(f"damaged files ({smi}; host decode of {h} x {w}, ms): "
-          + ", ".join(f"{n} {host_ms[n]:.1f}" for n in names))
-    print(f"damaged files: {len(files)} files as Pillow ends them, {rows.shape[0]} rows, "
+          + ", ".join(f"{n} {host_ms[n]:.1f}" for n in sorted(files)))
+    print(f"damaged files: {len(files)} files as Pillow ends them, {rows} rows, "
           f"{skipped} skipped, codes equal to img2code of the arrays read; mean host decode "
+          f"{sum(host_ms.values()) / len(host_ms):.1f} ms; phase {time.perf_counter() - t0:.1f} s")
+
+
+TIFF_SIZE = (96, 128)  # phase 23d's pictures, h x w
+# phase 23d's files as Pillow 12.1 ends them (Image.open(...).convert("RGB")
+# on this script's files): "skip" where it raises, else the SHA-256 of the
+# RGB array it reads; tests/test_torch_image_tiff.py holds this table to
+# live Pillow
+TIFF_OUTCOMES = {
+    'bigtiff.png': '65bd03b5d09052b2f7b2b54089e648dfc8fc89ec94da7d74048e9b39ae99c52e',
+    'dir_counts_lost.png': '65bd03b5d09052b2f7b2b54089e648dfc8fc89ec94da7d74048e9b39ae99c52e',
+    'dir_planar_3.jpg': 'skip',
+    'fill_order2.jpg': '65bd03b5d09052b2f7b2b54089e648dfc8fc89ec94da7d74048e9b39ae99c52e',
+    'float_predictor3.png': '85e62a8d9b01786f1fd3f7c8cc2a194b7214c7f9a7f84bd344f47ba212dff479',
+    'gray16_predictor2.jpg': '93c11643664e45d5c0698eb690c9162789f01ba58f36b09ba1bc9cd3b9d49603',
+    'gray4.jpg': '74cd85aa38e6a7fbf01eb17cc1544e6217101b8dec9a583f8877b8bfa47520d2',
+    'group3_2d.png': '52fb64ae19cfed462fae8706a230308432e9ab74e52bdd11c6fb894455100d73',
+    'group4.png': '52fb64ae19cfed462fae8706a230308432e9ab74e52bdd11c6fb894455100d73',
+    'jpeg_rgb.jpg': 'aff0af3b3f84feaa41c20cb5b4028d09013ffb24ea18e52cc648705b051fbe6d',
+    'jpeg_tiles.png': 'd0c3f559caaabfb5a00eb0d76a198e2ecb668abe28311b2fff85a787d527bf0f',
+    'jpeg_ycbcr.jpg': 'bac860735c29ef9cb6a1066a7601d5c892c3fd61cebee97abd72811aec5a282c',
+    'lzma.jpg': '65bd03b5d09052b2f7b2b54089e648dfc8fc89ec94da7d74048e9b39ae99c52e',
+    'rgb16_big_endian.png': '42f17fbb64d792acc8e8fa967d8c78e422e8f8cdfb90dc2de77430fcf144a7cf',
+}
+
+
+def _tiff_files() -> dict:
+    """The files of phase 23d -> {name: bytes}: a seeded 96 x 128 picture
+    (the gradient and noise of phase 23c) in the TIFF layouts and codecs
+    the port reads, written by the script's own writers:
+    BigTIFF, 4-bit grayscale, FillOrder 2, 16-bit grayscale (predictor 2),
+    16-bit RGB (big-endian), floating point with predictor 3, Group 3 2-D
+    and Group 4 fax, JPEG in YCbCr 2 x 2 (strips, the last short), in RGB
+    and in tiles that pass the image's edges, LZMA, and two damaged
+    directories (a PlanarConfiguration of 3, which libtiff refuses, and a
+    StripByteCounts lost, which libtiff estimates)."""
+    import lzma
+    import struct
+
+    import numpy as np
+
+    rng = np.random.RandomState(41)
+    h, w = TIFF_SIZE
+    img = _gradient_image(rng, h, w)
+    img = np.clip(img.astype(np.int64) + rng.randint(-20, 21, img.shape), 0, 255)
+    img = img.astype(np.uint8)
+    gray = img[..., 1]
+
+    def fields(photo, bits, spp, comp, more=None):
+        f = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [comp]),
+             262: (3, [photo]), 277: (3, [spp])}
+        f.update(more or {})
+        return f
+
+    def be16(a):
+        return a.astype(">u2").tobytes()
+
+    def deflate_rows(rows: np.ndarray, pred: int = 1, n: int = 1, bo: str = "<") -> bytes:
+        """Rows of native samples, differenced (predictor 2), as Deflate."""
+        if pred == 2:
+            rows = rows.copy()
+            rows[:, n:] = rows[:, n:] - rows[:, :-n]
+        return zlib.compress(rows.astype(rows.dtype.newbyteorder(bo)).tobytes())
+
+    files = {}
+    g16 = gray.astype(np.uint16) * 257 // 3 + (np.arange(w, dtype=np.uint16) * 7)[None]
+    files["gray16_predictor2.jpg"] = _tiff_file(
+        fields(1, 16, 1, 8, {317: (3, [2])}), [deflate_rows(g16, 2)])
+    files["rgb16_big_endian.png"] = _tiff_file(
+        fields(2, 16, 3, 8), [zlib.compress(be16(img.astype(np.uint16) * 257 + 100))], bo=">")
+    f32 = (gray.astype(np.float32) * 1.3 - 20).reshape(h, w)
+    planes = f32.astype("<f4").view(np.uint8).reshape(h, w, 4)[..., ::-1].transpose(0, 2, 1)
+    planes = planes.reshape(h, 4 * w).astype(np.int16)
+    planes[:, 1:] -= planes[:, :-1].copy()
+    files["float_predictor3.png"] = _tiff_file(
+        fields(1, 32, 1, 8, {317: (3, [3]), 339: (3, [3])}),
+        [zlib.compress((planes & 255).astype(np.uint8).tobytes())])
+    g4 = (gray >> 4).astype(np.uint8)
+    files["gray4.jpg"] = _tiff_file(fields(1, 4, 1, 1), [
+        ((g4[:, 0::2] << 4) | g4[:, 1::2]).tobytes()])
+    rev = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+    files["fill_order2.jpg"] = _tiff_file(fields(2, 8, 3, 8, {266: (3, [2])}), [
+        rev[np.frombuffer(zlib.compress(img.tobytes()), np.uint8)].tobytes()])
+    files["bigtiff.png"] = _tiff_file(fields(2, 8, 3, 8), [zlib.compress(img.tobytes())],
+                                      big=True)
+    files["lzma.jpg"] = _tiff_file(fields(2, 8, 3, 34925), [
+        lzma.compress(img.tobytes(), format=lzma.FORMAT_XZ, check=lzma.CHECK_NONE)])
+    bits = (gray > 128).astype(np.uint8)
+    files["group3_2d.png"] = _tiff_file(fields(0, 1, 1, 3, {292: (4, [5])}),
+                                        [_fax_rows(bits, 3, 5)])
+    files["group4.png"] = _tiff_file(fields(0, 1, 1, 4), [_fax_rows(bits, 4)])
+    tables = _jpeg_tables()
+    strips = [_jpeg_file(img[y:y + 40], abbreviated=True) for y in range(0, h, 40)]
+    files["jpeg_ycbcr.jpg"] = _tiff_file(
+        fields(6, 8, 3, 7, {278: (3, [40]), 347: (7, tables), 530: (3, [2, 2])}), strips)
+    files["jpeg_rgb.jpg"] = _tiff_file(fields(2, 8, 3, 7, {347: (7, tables)}), [
+        _jpeg_file(img, sampling=(1, 1), ycc=False, abbreviated=True)])
+    padded = np.pad(img, ((0, 128 - h), (0, 160 - w), (0, 0)), mode="edge")
+    tiles = [_jpeg_file(padded[y:y + 64, x:x + 80], abbreviated=True)
+             for y in (0, 64) for x in (0, 80)]
+    files["jpeg_tiles.png"] = _tiff_file(
+        fields(6, 8, 3, 7, {322: (3, [80]), 323: (3, [64]), 347: (7, tables)}), tiles,
+        tiled=True)
+    files["dir_planar_3.jpg"] = _tiff_file(fields(2, 8, 3, 8, {284: (3, [3])}),
+                                           [zlib.compress(img.tobytes())])
+    lost = bytearray(_tiff_file(fields(2, 8, 3, 8), [zlib.compress(img.tobytes())]))
+    at = struct.unpack_from("<I", lost, 4)[0]
+    for i in range(struct.unpack_from("<H", lost, at)[0]):
+        if struct.unpack_from("<H", lost, at + 2 + 12 * i)[0] == 279:  # StripByteCounts
+            struct.pack_into("<H", lost, at + 2 + 12 * i, 65000)  # now a tag nobody reads
+    files["dir_counts_lost.png"] = bytes(lost)
+    return files
+
+
+def phase_tiff_files(torch, vqvae, work: str, smi: str) -> None:
+    """Phase 23d: TIFF layouts, codecs and damaged directories on the
+    card's host, without Pillow (TIFF_OUTCOMES), then through the
+    preprocess CLI on the card (see the module docstring)."""
+    t0 = time.perf_counter()
+    files = _tiff_files()
+    host_ms, rows, skipped = _outcomes_phase(torch, vqvae, work, "tiff", files, TIFF_OUTCOMES)
+    h, w = TIFF_SIZE
+    print(f"tiff files ({smi}; host decode of {h} x {w}, ms): "
+          + ", ".join(f"{n} {host_ms[n]:.1f}" for n in sorted(files)))
+    print(f"tiff files: the LZMA strip read to its table's hash by the stdlib lzma in "
+          f"{host_ms['lzma.jpg']:.1f} ms")
+    print(f"tiff files: {len(files)} files as Pillow ends them, {rows} rows, {skipped} "
+          f"skipped, codes equal to img2code of the arrays read; mean host decode "
           f"{sum(host_ms.values()) / len(host_ms):.1f} ms; phase {time.perf_counter() - t0:.1f} s")
 
 
@@ -4768,6 +5077,8 @@ def main() -> int:
         lap("phase 23b")
         phase_damaged_files(torch, vqvae, work, smi.splitlines()[0])
         lap("phase 23c")
+        phase_tiff_files(torch, vqvae, work, smi.splitlines()[0])
+        lap("phase 23d")
         phase_vqtrain(torch, work, smi.splitlines()[0])
         lap("phase 24")
         phase_fid(torch, png, work, smi.splitlines()[0])

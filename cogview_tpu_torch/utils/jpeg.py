@@ -369,7 +369,7 @@ class _Dry(Exception):
     given the decoder."""
 
 
-def _runs_dry(raw: bytes, start: int, blocks, tables, fast: bool) -> bool:
+def _runs_dry(raw: bytes, start: int, blocks, tables, fast: bool, lossless=False) -> bool:
     """Whether libjpeg-turbo, Huffman-decoding the ``blocks`` of a one-scan
     file whose entropy-coded data run from ``raw[start:]`` to the end of
     the file with no marker after them, asks for a byte past the end
@@ -382,7 +382,9 @@ def _runs_dry(raw: bytes, start: int, blocks, tables, fast: bool) -> bool:
     path (``decode_mcu_fast``: six bytes when at most 16 bits are held;
     an MCU whose bytes hold an FF FF pair is decoded again slowly).
     Pillow gives the decoder the file 65,536 bytes at a time, and an MCU
-    that runs past the buffer is decoded again once more is given."""
+    that runs past the buffer is decoded again once more is given.  A
+    ``lossless`` scan's units are samples (``jdlhuff.c``: one difference
+    each, its extra bits unless it is 0 or 16, through the slow path)."""
     data, ends, twice = bytearray(), [], []  # data bytes, the raw offset past each
     n, p = len(raw), start
     while p < n:
@@ -449,6 +451,11 @@ def _runs_dry(raw: bytes, start: int, blocks, tables, fast: bool) -> bool:
                 m1 - m0)
             try:
                 for comp, _, _ in blocks[m0:m1]:
+                    if lossless:
+                        s = symbol(tables[comp], False)
+                        if s != 16:
+                            extra(s, False)
+                        continue
                     dc, ac = tables[comp]
                     extra(symbol(dc, quick), quick)
                     k = 1
@@ -858,6 +865,22 @@ def _arith_segment(seg: bytes, stop, blocks, coefs, comps, scan, arith, ss: int,
             k += 1
 
 
+def _lossless_units(comps, scan, w: int, h: int, restart: int, k: int) -> list:
+    """The samples of a lossless scan's restart interval ``k``, in decoding
+    order, as :func:`_runs_dry` takes blocks: (component, None, whether it
+    starts an MCU)."""
+    if len(scan) == 1:
+        c = comps[scan[0]]
+        mcux, mcuy, mcu = c["dw"], c["dh"], [scan[0]]
+    else:
+        hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
+        mcux, mcuy = -(-w // hmax), -(-h // vmax)
+        mcu = [ci for ci in scan for _ in range(comps[ci]["h"] * comps[ci]["v"])]
+    per_rows = restart // mcux if restart else mcuy
+    rows = min(per_rows, mcuy - k * per_rows)
+    return [(ci, None, j == 0) for _ in range(rows * mcux) for j, ci in enumerate(mcu)]
+
+
 def _lossless_scan(drive, comps, scan, w: int, h: int, restart: int, luts: dict,
                    predictor: int, pt: int, samples) -> None:
     """A lossless scan (``jdlhuff.c``, ``jddiffct.c``, ``jdpred.c``): one
@@ -1124,6 +1147,7 @@ class _Decoder:
         self.data, self.n = data, len(data)
         self.pos, self.unread = 2, 0  # after SOI; a marker read and not yet processed
         self.held = min(self.n, _CHUNK)  # the bytes Pillow has handed the decoder
+        self.fake_eoi = False  # libtiff's source: FF D9 FF D9 ... past the end, never cut short
         self.fixed = False  # inside jdarith.c, which cannot suspend for more
         self.dht = {}  # (0 DC or 1 AC, index) -> (counts, symbols)
         self.luts = {}
@@ -1146,10 +1170,26 @@ class _Decoder:
 
     def _take(self, k: int) -> bytes:
         if self.pos + k > self.n:
-            raise _Suspend(_CUT)
+            if not self.fake_eoi:
+                raise _Suspend(_CUT)
+            head, at = self.data[self.pos:], max(self.pos - self.n, 0) % 2
+            self.pos += k
+            return head + (b"\xff\xd9" * (k // 2 + 2))[at:at + k - len(head)]
         self.pos += k
         self._reach(self.pos)
         return self.data[self.pos - k:self.pos]
+
+    def _fake_ff(self, pos: int) -> int:
+        """Where the next fake FF D9 starts at or after ``pos``: the end of
+        the data, or the next even offset past it (a new one once a skip
+        runs past the end)."""
+        return self.n + (max(pos - self.n, 0) + 1) // 2 * 2
+
+    def _skip(self, k: int) -> None:
+        """skip_input_data: a skip past the end of libtiff's source takes a
+        fresh fake EOI."""
+        self.pos = self._fake_ff(self.pos) if self.fake_eoi and self.pos + k > self.n else (
+            self.pos + k)
 
     def _word(self) -> int:
         return _u16(self._take(2), 0)
@@ -1160,13 +1200,14 @@ class _Decoder:
         data, n, pos = self.data, self.n, self.pos
         while True:
             i = data.find(b"\xff", pos)
-            if i < 0:
-                raise _Suspend(_CUT)
             j = i + 1
-            while j < n and data[j] == 0xFF:
+            while 0 < j < n and data[j] == 0xFF:
                 j += 1
-            if j >= n:
-                raise _Suspend(_CUT)
+            if i < 0 or j >= n:  # the data end first
+                if not self.fake_eoi:
+                    raise _Suspend(_CUT)
+                self.unread, self.pos = 0xD9, self._fake_ff(pos if i < 0 else n) + 2
+                return
             if data[j]:
                 self.unread, self.pos = data[j], j + 1
                 self._reach(self.pos)
@@ -1199,7 +1240,7 @@ class _Decoder:
             elif m in (0xE0, 0xEE):
                 self._get_app(m)
             elif 0xE0 <= m <= 0xEF or m in (0xFE, 0xDC):  # skip_variable
-                self.pos += max(self._word() - 2, 0)
+                self._skip(max(self._word() - 2, 0))
             elif m == 0xD8:
                 raise _broken("a second start-of-image marker")
             elif m != 0xD9 and not 0xD0 <= m <= 0xD7 and m != 0x01:
@@ -1299,7 +1340,7 @@ class _Decoder:
             self.jfif = True
         if m == 0xEE and len(head) >= 12 and head[:5] == b"Adobe":
             self.adobe = head[11]
-        self.pos += max(length - len(head), 0)
+        self._skip(max(length - len(head), 0))
 
     # ---- the scans -----------------------------------------------------
 
@@ -1379,8 +1420,13 @@ class _Decoder:
             if not 1 <= ss <= 7 or se or ah or al >= 8:
                 raise _broken("bad lossless scan parameters")
             luts = {ci: self._lut(0, comps[ci]["td"], 16) for ci in scan}
-            _lossless_scan(self._drive, comps, scan, w, h, self.restart, luts, ss, al,
-                           self.samples)
+            dry = None
+            if self.single:
+                def dry(k, start):
+                    units = _lossless_units(comps, scan, w, h, self.restart, k)
+                    return _runs_dry(self.data, start, units, luts, False, lossless=True)
+            _lossless_scan(lambda n, part: self._drive(n, part, dry), comps, scan, w, h,
+                           self.restart, luts, ss, al, self.samples)
             return
         for ci in scan:
             c = comps[ci]
@@ -1453,6 +1499,12 @@ class _Decoder:
             while 0 < j < n and data[j] == 0xFF:
                 j += 1
             if i < 0 or j >= n:  # the file ends first
+                if self.fake_eoi:  # the data, then a fake EOI (a lone D9 first where odd)
+                    seg = _unstuff(data[start:n if i < 0 else i])
+                    if start > n and (start - n) % 2:
+                        seg = b"\xd9"
+                    self.unread, self.pos = 0xD9, self._fake_ff(start if i < 0 else n) + 2
+                    return seg, None, self.pos
                 i, j = (n if i < 0 else i), n + 1
                 break
             if data[j]:
@@ -1535,6 +1587,18 @@ class _Decoder:
             self._next_marker()
 
     def _output(self) -> np.ndarray:
+        planes = self._planes()
+        jfif, adobe = self.colour
+        if len(planes) == 1:
+            return np.repeat(planes[0][..., None], 3, axis=2)
+        if len(planes) == 4:
+            return _four_to_rgb(planes, adobe)
+        if self.process == "lossless" or _is_rgb(self.comps, jfif, adobe):
+            return np.stack(planes, axis=-1)
+        return ycc_to_rgb(*planes)
+
+    def _planes(self) -> list:
+        """The components' samples, each upsampled to [h, w] uint8."""
         (h, w), comps = self.size, self.comps
         hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
         lossless = self.process == "lossless"
@@ -1558,14 +1622,77 @@ class _Decoder:
             plane = px.reshape(c["bh"], c["bw"], 8, 8).transpose(0, 2, 1, 3)
             plane = plane.reshape(c["bh"] * 8, c["bw"] * 8)[:c["dh"], :c["dw"]]
             planes.append(_upsample(plane, hmax // c["h"], vmax // c["v"])[:h, :w])
-        jfif, adobe = self.colour
-        if len(planes) == 1:
-            return np.repeat(planes[0][..., None], 3, axis=2)
-        if len(planes) == 4:
-            return _four_to_rgb(planes, adobe)
-        if lossless or _is_rgb(comps, jfif, adobe):
-            return np.stack(planes, axis=-1)
-        return ycc_to_rgb(*planes)
+        return planes
+
+
+class _TiffDecoder(_Decoder):
+    """libjpeg-turbo as libtiff's JPEG codec drives it over one strip or
+    tile: the whole strip in memory, a fake EOI marker after its end (so
+    data that run out read as a marker met, never as a file cut short),
+    the Huffman and quantization tables of the JPEGTables stream loaded
+    first, no Pillow header parse."""
+
+    def __init__(self, data: bytes, tables):
+        if tables is not None:
+            _check_soi(tables)
+            super().__init__(tables)
+            self.held, self.fake_eoi = self.n, True
+            if self._read_markers() != 0xD9:
+                raise _broken("a JPEGTables stream holding a scan: libtiff refuses it")
+            dht, quant, arith = self.dht, self.quant, self.arith
+        _check_soi(data)
+        super().__init__(data)
+        self.held, self.fake_eoi = self.n, True
+        if tables is not None:
+            self.dht, self.quant, self.arith = dht, quant, arith
+
+
+def _check_soi(data: bytes) -> None:
+    if data[:2] != b"\xff\xd8":
+        raise _broken("a JPEG stream that does not start with SOI")
+
+
+def decode_tiff_jpeg(data: bytes, tables, seg_w: int, seg_h: int, ncomps: int, bps: int,
+                     sampling, rgb: bool, tall_ok: bool) -> np.ndarray:
+    """One strip or tile of a JPEG-compressed TIFF as libtiff 4.7's
+    ``JPEGPreDecode`` and ``JPEGDecode`` read it -> [rows, width *
+    components] uint8, the rows libjpeg outputs: the strip's stream after
+    the JPEGTables stream's tables, its size no larger than the segment's
+    (``tall_ok``: a last strip may be taller), its components, precision
+    and sampling factors those the tags give (the first component's
+    ``sampling``, the others 1 x 1); YCbCr converted to RGB where ``rgb``
+    (Pillow's JPEGCOLORMODE_RGB), every other stream's samples as they
+    are.  libtiff ignores an error of ``jpeg_finish_decompress`` (its
+    wrapper's -1 reads as success), so a one-scan stream's markers after
+    its scan are not read."""
+    d = _TiffDecoder(data, tables)
+    if d._read_markers() == 0xD9:
+        raise _broken("a JPEG stream of no image")
+    h, w = d.size
+    if w > seg_w or h > seg_h and not (w == seg_w and tall_ok):
+        raise ValueError(f"JPEG strip or tile of {w} x {h} beyond its {seg_w} x {seg_h}: "
+                         "libtiff refuses it")
+    if len(d.comps) != ncomps:
+        raise ValueError("JPEG strip of the wrong component count: libtiff refuses it")
+    if d.precision != bps:
+        raise ValueError("JPEG strip of the wrong data precision: libtiff refuses it")
+    if (d.comps[0]["h"], d.comps[0]["v"]) != tuple(sampling) or any(
+            (c["h"], c["v"]) != (1, 1) for c in d.comps[1:]):
+        raise ValueError("JPEG strip of improper sampling factors: libtiff refuses it")
+    d._setup()
+    d.single = len(d.scan[0]) == len(d.comps) and d.process != "progressive"
+    while True:
+        d._decode_scan()
+        if d.single:  # libtiff ignores what jpeg_finish_decompress meets after the scan
+            break
+        if d._read_markers() == 0xD9:
+            break
+    planes = d._planes()
+    if rgb and len(planes) == 3:
+        px = ycc_to_rgb(*planes)
+    else:
+        px = np.stack(planes, axis=-1)
+    return px.reshape(h, w * len(planes))
 
 
 def _smoothing_ok(comps, coef_bits) -> bool:

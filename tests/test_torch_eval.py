@@ -168,10 +168,12 @@ def test_tsv_stream_equals_jax(tmp_path):
 
 
 def test_tsv_stream_stops_on_a_format_the_port_does_not_read(tmp_path):
-    """A JPEG-compressed TIFF row: the JAX package reads it, the port
-    stops with a named error instead of dropping it."""
+    """A Zstandard-compressed TIFF row (a format the port still names;
+    JPEG-compressed TIFF, this test's row before, reads since the port
+    decodes it): the JAX package reads it, the port stops with a named
+    error instead of dropping it."""
     path = tmp_path / "tiff.tsv"
-    tiff = _encoded(np.zeros((16, 16, 3), np.uint8), "TIFF", compression="jpeg")
+    tiff = _encoded(np.zeros((16, 16, 3), np.uint8), "TIFF", compression="zstd")
     path.write_text(_row(0, _encoded(np.zeros((16, 16, 3), np.uint8), "PNG")) + "\n"
                     + _row(1, tiff) + "\n", encoding="utf-8")
     assert len(list(jdataset.TsvImageStream(str(path), img_size=16))) == 2

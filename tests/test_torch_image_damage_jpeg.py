@@ -385,6 +385,21 @@ def _reader_of(root: str, name: str):
     return module
 
 
+@pytest.mark.parametrize("pad", [0, 2, 3, 8])
+def test_lossless_data_that_run_to_the_end_of_the_file(pad):
+    """A lossless JPEG whose EOI is replaced by ``pad`` zero bytes: its data
+    run to the end of the file, and libjpeg-turbo's bit-buffer fills
+    (``jdlhuff.c`` through ``jpeg_fill_bit_buffer``, to 57 bits where a
+    code or its extra bits need more than are held) decide: Pillow reads
+    it where no fill before its last sample passes the end of the file (3
+    bytes and more here) and fails otherwise, and the port ends each as
+    Pillow does, where a reader that treats every such file as cut short
+    skips them all."""
+    base = _lossless_jpeg(list(picture(24, 32).transpose(2, 0, 1)), ((1, 1),) * 3, 1)
+    data = base[:base.rfind(b"\xff\xd9")] + bytes(pad)
+    assert ends_as_in_pillow(data) == ("read" if pad >= 3 else "skipped")
+
+
 def main(argv) -> int:
     """This machine's host CPU seconds for the port to read four valid
     files: a 1024 x 768 baseline JPEG, the same with a restart marker every

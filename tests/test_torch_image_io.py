@@ -1805,37 +1805,46 @@ def test_tiff_lzw_streams_round_trip():
 
 
 REFUSED_TIFF = {
-    # name: fields that replace the file's, the feature the error names
-    "bigtiff": (None, "BigTIFF"),
-    "ccitt-rle": ({259: (3, [2])}, "CCITT RLE"),
-    "ccitt-g3": ({259: (3, [3])}, "CCITT Group 3"),
-    "ccitt-g4": ({259: (3, [4])}, "CCITT Group 4"),
-    "old-jpeg": ({259: (3, [6])}, "old-style JPEG"),
-    "jpeg": ({259: (3, [7])}, "JPEG"),
-    "16-bit": ({258: (3, [16, 16, 16])}, "16-bit samples"),
-    "float": ({258: (3, [32]), 277: (3, [1]), 262: (3, [1]), 339: (3, [3])},
-              "floating-point samples"),
-    "signed-16-bit": ({258: (3, [16]), 277: (3, [1]), 262: (3, [1]), 339: (3, [2])},
-                      "16-bit samples"),
-    "ycbcr": ({262: (3, [6])}, "YCbCr"),
-    "cielab": ({262: (3, [8])}, "CIELab"),
-    "fill-order-2": ({266: (3, [2])}, "FillOrder 2"),
-    "gray-4-bit": ({258: (3, [4]), 277: (3, [1]), 262: (3, [1])}, "grayscale at 4 bits"),
+    # name: fields that replace the file's, the feature the error names.  The
+    # names are TIFF features the reader once named; each reads now
+    # (tests/test_torch_image_tiff.py), so each case pairs its directory
+    # with a feature still named, given after each case
+    "bigtiff": (None, "CIELab"),  # Pillow's BigTIFF of a LAB image
+    "ccitt-rle": ({259: (3, [32809]), 258: (3, [4]), 277: (3, [1]), 262: (3, [1])},
+                  "ThunderScan"),  # ThunderScan compression, 4-bit gray
+    "ccitt-g3": ({259: (3, [50000])}, "Zstandard"),  # Zstandard compression
+    "ccitt-g4": ({262: (3, [6]), 259: (3, [5])}, "YCbCr"),  # YCbCr under LZW
+    # old-style JPEG of YCbCr (libtiff's RGBA interface; of RGB, Pillow's
+    # buffer and libtiff's rows disagree and Pillow fails)
+    "old-jpeg": ({259: (3, [6]), 262: (3, [6])}, "old-style JPEG"),
+    "jpeg": ({259: (3, [7]), 262: (3, [6]), 284: (3, [2])}, "YCbCr"),  # YCbCr JPEG in planes
+    "16-bit": ({262: (3, [8])}, "CIELab"),  # CIELab photometric
+    "float": ({258: (3, [32]), 277: (3, [1]), 262: (3, [1]), 339: (3, [3]), 259: (3, [50000])},
+              "Zstandard"),  # Zstandard compression of float samples
+    "signed-16-bit": ({258: (3, [16]), 277: (3, [1]), 262: (3, [1]), 339: (3, [2]),
+                       259: (3, [32809])}, "ThunderScan"),  # ThunderScan of signed 16-bit
+    "ycbcr": ({262: (3, [6]), 259: (3, [8])}, "YCbCr"),  # YCbCr under Deflate
+    "cielab": ({262: (3, [8])}, "CIELab"),  # CIELab photometric
+    "fill-order-2": ({266: (3, [2]), 259: (3, [50000])}, "Zstandard"),  # Zstandard, FillOrder 2
+    "gray-4-bit": ({258: (3, [4]), 277: (3, [1]), 262: (3, [1]), 259: (3, [32809])},
+                   "ThunderScan"),  # ThunderScan compression, 4-bit gray
 }
 
 
 @pytest.mark.parametrize("name", list(REFUSED_TIFF))
 def test_tiff_refuses_named_features(name):
-    """Each TIFF feature outside the reader's scope raises
-    ``UnsupportedImageError`` naming it; Pillow opens every one of these
-    files (it may still fail to decode the stand-in pixel data).  The
-    BigTIFF file is Pillow's own."""
+    """Each TIFF feature outside the reader's scope (Zstandard, old-style
+    JPEG and ThunderScan compression, YCbCr without JPEG or in planes,
+    CIELab) raises ``UnsupportedImageError`` naming it; Pillow opens every
+    one of these files (it may still fail to decode the stand-in pixel
+    data).  The BigTIFF file is Pillow's own, of a LAB image."""
     fields, feature = REFUSED_TIFF[name]
     data = _tiff(_picture(9, 7, 1), photo=2, tags=fields)
     if fields is None:
         buf = io.BytesIO()
-        Image.fromarray(_picture(9, 7, 1)).save(buf, "TIFF", big_tiff=True)
+        Image.fromarray(_picture(9, 7, 1)).convert("LAB").save(buf, "TIFF", big_tiff=True)
         data = buf.getvalue()
+        assert data[:4] == b"II+\x00"
     Image.open(io.BytesIO(data))
     with pytest.raises(UnsupportedImageError, match=feature):
         vqvae.decode_image(data)

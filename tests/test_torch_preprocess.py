@@ -158,10 +158,12 @@ def test_h5_source(tmp_path):
 
 
 def test_unread_format_stops_the_run(tmp_path):
-    """A JPEG-compressed TIFF in an archive: the JAX package reads it,
-    the port stops with an UnsupportedImageError naming the file."""
+    """A Zstandard-compressed TIFF in an archive (a format the port still
+    names; JPEG-compressed TIFF, this test's file before, reads since the
+    port decodes it): the JAX package reads it, the port stops with an
+    UnsupportedImageError naming the file."""
     files = dict(_files(2))
-    files["late.png"] = _encoded(_picture(20, 20, 3), "TIFF", compression="jpeg")
+    files["late.png"] = _encoded(_picture(20, 20, 3), "TIFF", compression="zstd")
     path = _write_sources(tmp_path, files)["zip"]
     assert len(list(jraw.open_image_source(path, 16))) == 3
     with pytest.raises(UnsupportedImageError, match="late.png: TIFF"):
