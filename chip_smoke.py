@@ -209,6 +209,17 @@ result):
    directories): each ends as ``TIFF_OUTCOMES`` (Pillow's outcomes) says,
    ``decode_image``'s host ms printed per file, and the folder through
    ``cli.preprocess`` as in 23c;
+23e. TIFF codecs on the card's host: the same picture as Zstandard (from
+   constants made with Pillow's libzstd; with predictor 2 as well),
+   ThunderScan, YCbCr LZW at 2 x 2 and 4 x 2 and YCbCr JPEG in planes
+   (libtiff's RGBA interface), CIELab under LZW, old-style JPEG with its
+   header in JPEGInterchangeFormat and with its tables in tags, in three
+   planes and in tiles side by side, and an LZMA strip whose check is
+   damaged after its data: each ends as ``TIFF_CODEC_OUTCOMES`` says and the
+   folder goes through ``cli.preprocess`` as in 23c; then a 2048 x 1536
+   progressive JPEG from the script's writer is decoded in a child
+   process, whose peak host RSS growth must stay within
+   ``JPEG_BYTES_PER_PIXEL`` bytes a declared pixel;
 24. VQ-VAE training: ``cli.vqtrain.main`` at the released geometry, batch
    32 x 256^2 on phase 23's images, 20 straight-through + EMA iterations
    (the recon MSE at the last log below the first, the codebook's
@@ -2946,14 +2957,16 @@ def _huffman_codes(counts, symbols):
 
 
 def _jpeg_file(img, restart: int = 0, sampling=(2, 2), ycc: bool = True,
-               abbreviated: bool = False) -> bytes:
+               abbreviated: bool = False, progressive: bool = False) -> bytes:
     """A baseline JFIF JPEG of ``img`` [h, w, 3] uint8 (or [h, w], one
     component): the luma's ``sampling`` factors (h, v) over chroma at 1 x 1
     (4:2:0 by default), of its YCbCr (``ycc``) or of its samples as they are;
     T.81's K.3 Huffman tables, quantizers 2 + 3 (u + v) / 2 (luma) and
     twice those (chroma), and a restart marker every ``restart`` MCUs where
     it is not 0; ``abbreviated``: without its tables (and JFIF marker), as
-    a TIFF strip whose tables are in JPEGTables (:func:`_jpeg_tables`)."""
+    a TIFF strip whose tables are in JPEGTables (:func:`_jpeg_tables`);
+    ``progressive``: SOF2 with spectral selection only, an interleaved DC
+    scan and then each component's AC scan (1..63, an EOB a block)."""
     import struct
 
     import numpy as np
@@ -2997,12 +3010,38 @@ def _jpeg_file(img, restart: int = 0, sampling=(2, 2), ycc: bool = True,
             out.append((acc >> nacc) & 0xFF)
             if out[-1] == 0xFF:
                 out.append(0)
+        acc &= (1 << nacc) - 1  # only the bits not yet written
 
     def value(v: int) -> None:  # the magnitude category's symbol bits
         s = abs(v).bit_length()
         put(v if v >= 0 else v + (1 << s) - 1, s)
 
+    def dc_code(k: int, blk) -> None:
+        dc = tables[k > 0][0]
+        diff, pred[k] = int(blk[0]) - pred[k], int(blk[0])
+        put(*dc[abs(diff).bit_length()])
+        value(diff)
+
+    def ac_code(k: int, blk) -> None:
+        ac = tables[k > 0][1]
+        last = max([i for i, c in enumerate(blk) if c and i] or [0])
+        run = 0
+        for i in range(1, last + 1):
+            if not blk[i]:
+                run += 1
+                continue
+            while run > 15:
+                put(*ac[0xF0])
+                run -= 16
+            put(*ac[(run << 4) | abs(int(blk[i])).bit_length()])
+            value(int(blk[i]))
+            run = 0
+        if last < 63:
+            put(*ac[0x00])
+
     pred = [0, 0, 0]
+    scans = []
+    blocks = [b.tolist() for b in blocks]  # [block row][block column][64], Python ints
     for m in range(mh * mw):
         if restart and m and m % restart == 0:
             if nacc:
@@ -3010,28 +3049,24 @@ def _jpeg_file(img, restart: int = 0, sampling=(2, 2), ycc: bool = True,
             out += bytes([0xFF, 0xD0 + (m // restart - 1) % 8])
             pred = [0, 0, 0]
         my, mx = divmod(m, mw)
-        units = [(0, blocks[0][sv * my + v, sh * mx + u]) for v in range(sv) for u in range(sh)]
-        for k, blk in units + [(k, blocks[k][my, mx]) for k in range(1, len(comps))]:
-            dc, ac = tables[k > 0]
-            diff, pred[k] = int(blk[0]) - pred[k], int(blk[0])
-            put(*dc[abs(diff).bit_length()])
-            value(diff)
-            last = max([i for i in range(1, 64) if blk[i]] or [0])
-            run = 0
-            for i in range(1, last + 1):
-                if not blk[i]:
-                    run += 1
-                    continue
-                while run > 15:
-                    put(*ac[0xF0])
-                    run -= 16
-                put(*ac[(run << 4) | abs(int(blk[i])).bit_length()])
-                value(int(blk[i]))
-                run = 0
-            if last < 63:
-                put(*ac[0x00])
+        units = [(0, blocks[0][sv * my + v][sh * mx + u]) for v in range(sv) for u in range(sh)]
+        for k, blk in units + [(k, blocks[k][my][mx]) for k in range(1, len(comps))]:
+            dc_code(k, blk)
+            if not progressive:
+                ac_code(k, blk)
     if nacc:
         put(0x7F, 8 - nacc)
+    if progressive:
+        for k in range(len(comps)):
+            scans.append(bytes(out))
+            out, acc, nacc = bytearray(), 0, 0
+            across = -(-(w * (sh if k == 0 else 1)) // (8 * sh))
+            for row in blocks[k][:-(-(h * (sv if k == 0 else 1)) // (8 * sv))]:
+                for blk in row[:across]:
+                    ac_code(k, blk)
+            if nacc:
+                put(0x7F, 8 - nacc)
+        scans.append(bytes(out))
 
     def seg(marker: int, body: bytes) -> bytes:
         return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
@@ -3039,12 +3074,18 @@ def _jpeg_file(img, restart: int = 0, sampling=(2, 2), ycc: bool = True,
     sof = struct.pack(">BHHB", 8, h, w, len(comps)) + bytes(
         [1, sh << 4 | sv, 0, 2, 0x11, 1, 3, 0x11, 1][:3 * len(comps)])
     head = b"" if abbreviated else _jpeg_tables()[2:-2]
+    sel = bytes([len(comps), 1, 0x00, 2, 0x11, 3, 0x11][:1 + 2 * len(comps)])
+    if progressive:
+        body = [seg(0xDA, sel + bytes([0, 0, 0])), scans[0]]
+        for k in range(len(comps)):
+            body += [seg(0xDA, bytes([1, k + 1, 0x11 if k else 0x00, 1, 63, 0])), scans[k + 1]]
+    else:
+        body = [seg(0xDA, sel + bytes([0, 63, 0])), bytes(out)]
     return b"".join([b"\xff\xd8", b"" if abbreviated else seg(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0"),
-                     head[:head.find(b"\xff\xc4")], seg(0xC0, sof), head[head.find(b"\xff\xc4"):],
-                     seg(0xDD, struct.pack(">H", restart)) if restart else b"",
-                     seg(0xDA, bytes([len(comps), 1, 0x00, 2, 0x11, 3, 0x11][:1 + 2 * len(comps)]
-                                     + [0, 63, 0])), bytes(out),
-                     b"\xff\xd9"])
+                     head[:head.find(b"\xff\xc4")], seg(0xC2 if progressive else 0xC0, sof),
+                     head[head.find(b"\xff\xc4"):],
+                     seg(0xDD, struct.pack(">H", restart)) if restart else b""] + body
+                    + [b"\xff\xd9"])
 
 
 def _jpeg_tables() -> bytes:
@@ -3516,6 +3557,662 @@ def phase_tiff_files(torch, vqvae, work: str, smi: str) -> None:
     print(f"tiff files: {len(files)} files as Pillow ends them, {rows} rows, {skipped} "
           f"skipped, codes equal to img2code of the arrays read; mean host decode "
           f"{sum(host_ms.values()) / len(host_ms):.1f} ms; phase {time.perf_counter() - t0:.1f} s")
+
+
+# phase 23e's Zstandard strips, made with Pillow 12.1's libzstd 1.5.7 (the
+# card's host has no zstd writer): the green channel of phase 23d's picture
+# as one frame streamed at level 3 (no content size, no checksum), and the
+# same with predictor 2 applied, in one frame at level 19 with its content
+# size and checksum; tests/test_torch_image_tiff_codecs.py holds both to
+# Pillow's libzstd
+ZSTD_GRAY = (
+    "KLUv/QBYHXUBCgB7ujcwhBj4ATXDzN/uC6U/lP5QOrYj613XdejDONIvzLsOVHR4/tHnYeZcfBZXSnEHAAAAAAAAAAAC"
+    "uguTC3oLIT8cGQ8hDxYHLiASdBiQIQAQComEBIqGDYsQoB6pTxBUVViVWV2bG59eXZ+43WWk5/ma8T6ECPPNt3sPh6/v"
+    "dETAxUcyYeDe2FjZ3hVaNi0LZQXS7mCfZIimVCOdoWeQzkcNEAfNT4k0BsgGZirH6sn6Bad9szsDvDNchM9RXHpsRqIZ"
+    "GQw+Li42NhQQLFQQUIAD4wJCg8bFJqbGKnW0RdK6xvHZdQ+9huDu2VzOo9lzCHXKv91uNssfJdfmM9iwcRBukC2Mjw2M"
+    "60yLJTOSJl2TcKZALUXRlJkRD56QGBMQEJggGqgQUBJQdScri2SlshubWxPss8uDG8GclGDQPFMSJDgbNBYAAACFAhwi"
+    "SkoeTihQnNChmJ6koenRElocm5yYXBiQrzy45pfN63WaUg7X+yXpfUrKN979jfeFw3+Hh2Bab1RXZ15dWqEfoOwViuiH"
+    "aGYFpobjGZX5AIGZSekAkjmiUnWSmLBbs7A2trqyRLw9bxhm50VG5mnhRClh8JgYoMKDAYMFxUcCDwuJFRYdoJqf6pI1"
+    "qAq7zaaRvcUtMjbKy+QyeIxvEN+EozHP/3c+3qe/zYOBjOi4Rba+ry8yLLitVlZ2ysen50WGpYWlJIdmBwqNfsi4jKBA"
+    "d1ZWUlaKrEA/0q4wrq3VmR9cHTnR58bl5EOmwuKjgsFHiAIBCQQgQIQCEAYLFAcUaAuKUI4Mz5Tnyjq1xaZmt3fHd4hI"
+    "Nuvv7bJczZbv4WvJBv91P95/M6q7euNAwzo/Nbs0Nu4YlHbIOsREU4ME9MTB4XliiNzMbMzEtOSUrMzUxPBMn6RUWaMl"
+    "La+3PcG+vr0omB0gHJGQjQwVBQgaGBwAISDBB0UBEgZEUCIwMmY4ep461BsiLTOqKi46vcM4Qb7zG/+XFI/9lZJ3TEtK"
+    "B5qZmWr0eO+eMwbO0b0FxnHp1WmxYNyipSUkqJyUmJsc58wHDkcKiAnKBA2NiAwIDw1MyozS1bqtXrXe1uTIGu1+omCS"
+    "Vk5yXCJSQBAkLEjgYQABiQEYeCQwOGxMdKi8wEB7okHarZSbXcsaC5QjTAQ/wtX/ddv9tsf3mXjIf16vNo/b78VBQEc8"
+    "tkU/MDwu96p1pboSRTG5zOgYvYyohKxcYFRgQGMeZGJAYGZKTHiGmIBqoI6krtirO0HDPyykqemQDsjKRlQCJYEiwcAF"
+    "BgQHhwAiB0pMJjpaPlBCjKJMRVDcpigssTbCwj44RUFDNPo+GR/T+ZvwCJHytjwPzzOKu2E+tF2jnR6hmFXaU1VLq8jJ"
+    "Z8eIhgjnA4fFIuaZseF8eaJslMhkrISMyOTEsEQlYbO0ZGpUe905JKolHCjOTYkzZeVDA0GJQoMDxUYBjwoRCRKJhxSN"
+    "lxmoztFTDRPV6sSVplXY/YbZ4Xo4UXxZxps1HRxQfyCpSY6zz+AyWj3YCH6T27vbmrs6w2q7pqg0LUpF0GgLDoWTAsVE"
+    "ZEHhydLgQBKtAQGBGikBDfn8aGnN6uDK9KaIlpp+kmB+dkxWXBhCEiAIccggQKBiAI2GDYenx8vISckKDJTo6AdrCq2q"
+    "TjBODXzYeK6/GyPd9s3LTTuEfJ0fx7P1f7dhvexF3xUuhnmpaXWVVRkZIRG50LTk7OiQwFRkuHScTDwfQhQoSp4gTgyd"
+    "HphojJHVUlfYl1uW15YY98cHaWmmY6VFwiQKcoDigIEDAjgjEjoWFjAoYHDQvNwY1QQRPWGzW2xXfHZ4gYfotddLHs/z"
+    "+0r5na6H39F7thy/mBh3POyG/bp1cnlaVl5dVUJRRVMkoqOdE52REhGJqIKTI0MC+gFVkfig4QDKyYHeICURkXllcdW+"
+    "vLqShJakMUM+MTYmFwkiEQsiLiYqDjAY4EHBAkUFFGPkxAMmKcYGCIiKCo3tDs/NMXCxPLjohu/ndkx/e1OvrsvVd0v0"
+    "/jGxvHe4B5gYaCfHFmbdJkUV1RAdreTYvGjEaIRkSECfC0ycDScQHBUeThSemRlqFPUqe+UV1XVWrSLxSAklHaG4QGWc"
+    "TgkJAzgcDFRIdHQsEGDg7NhwmXHhePmx4XGyPnG1xXHdzryJY7TXvJfPKf+U+EtJuuQc0t6nDI/n4kQyIOAhXGJaXF7Y"
+    "k1KSUBFO0FHPUU3OjMrHBQRHA4MIjBMQE4UPFwoMlZKdHh+nph+gqxhVnFVZF1Q26chnqGYmJKfkY2EhZKThIwEAEggk"
+    "EGGA4JiQiNCAeYb8DF2ZptIpq5tdWZrceDy4aEi/4/V+yMoHek03G813X0be8d/DRr/yWI6MsO5qak0pC+kI6EnIB4WD"
+    "YyOlY4MiwcRIgsIGgxQQiA4oRYYMNBrDU1VS8tpauWWtZSUxTU093UCFRm6iz+dTI8TCQEKFAkfExQIPBc+Hh6jOR8yK"
+    "TA61qnoWx2b35xc4WBaMG8Yl0+i8g/k+fonvV+L9bsc0PEzYuEjnCNdGBjc39lQ1xaPVsZmJgmR8uIi4QB9QFDYYLpwP"
+    "CUhSJlQwNFheiISqRtkpLa24L6sur6srLBCQj0lI1PkioZHivBjgQyHBhYPGRMWCQohKynPFp8iGKtWRmoZlv84KF/vo"
+    "xoRxL/qRLp5v2iHU6fp0/6+f+9fyRkPFRj5DPb22MrkoLjdqiicGKfpzMvKC4rxISQmZ0MiQoMDwYJBIid48dVh8fqhI"
+    "R1Zu2ljZHJkYdsoJh8boZMXjwwVCQoLAAoIKADgZHIgA4RDpAHkpCQFBCcIx2glqkhrjbq3x9d017s0R5ek9OX65Rle2"
+    "Hzy4vPf9ekg04+B3DZ7DWzurIzNj6nLCosrcqMjshKCwlFxcODgLgHBAJEBQKKBAQZmReQGpyXGJ0T5hBcXU5ryqtqqe"
+    "hqBUZn6cGCvQDAynQgOIRgNHhgAiLCAUPkJWLFRMcKJH16UmsCtrV52eH5ubV/HxfSh3k9PseSU/c96+5NvfanbjXXAR"
+    "T6+RcYy714U1NQ1Kmi651EBBMC5INB4UMCJEIgxAIIAwedCAeKK00DxVlHKcrkF4bWF+ZU9lVVc7UTo0Nz0nKTDPDQ+M"
+    "AwUMsCACwUUCBAoJDicRKBoyPCMvM1FCUktUqrW5NjPFrp2hY3x/V8v3mfN65maDf2Y+bZc3ih8JzY2NbWZqbG5ZLa4s"
+    "qhsonSEglA4aEoeLExGFhoeQBRwWDAkpDiwlFi46KEFBRlSlRbhCOi2uFcqIyCZnRkdnB3oS0vIAQkFiUSCBwUMBjYwJ"
+    "D5AOjYuYmZcfGyds1lXZlkwOLA0P0Y7PfMeX2/j3vQGEteZa0v2nxyHRkG27oKOf97s3VoalLeOK2laRlI5kTG5SMiIy"
+    "MC4YRHBEDHBRUTEx4mxwkjxpRJCEamz8/tD8wsC20rKsVKHqDpGKjo0MiEqDAQqFBQYDMKDIcKAowOCD4mTl4iYmBZpE"
+    "JdWVFaWWtvUnKCafy2ZFct0yU47uY87f+Ht/j2kmswvrXm/j4aAZHzer9YWkZHUimtFh6ZAhAdnoKAm52JgAYRAhQdGA"
+    "4KIDWlJDE3KSNIOGu/OC9cWxhS1l8UTp/EBJMp4xzxKngQMfC84FADBwQGxkmIi0oFh0cBDNKDlFEW01YeG27OraBslv"
+    "9BfMPtfbdUvMy0t5Gw13W97H4XAYsC98+AbI12WGrcoi2lmqSZHB8XixEHlSLDidFAVsWCgcSDBBIdJQopETckOdKooH"
+    "1dL+7MayXlcnIycYpCKakpIVEoYMAxISJCA6PBJoSESQmGicRNTQ/Bjt6NAcaavX7FZbXqHjYyMiIR5Or0u2zftNtd6u"
+    "eWmfjHxU/Hq96scx4l8YnJ3UFFMVSPqjw6Iio3LiLKkw4EyIoJhYUEGAxkIJxIRLCEyHyEuNo5gRjNhFi5u7Vp+mPUXS"
+    "oyCWDafFgwNGSYaC8yLhYcGDRUgCBUoE9GbE5eaFRkhJKqktjK6tjHCRDo1+PN/RenWlZb9uCVl/oPmO/9dkvNdRsEx4"
+    "VtfHF4b2ZeXkFAPE8uSo0fgYSTCRmBBxCLlIkFFAQuGAw0nUQuPkxyYXDgrPFZenyknQEA8RFNGSlxod3NpgXJ5iISIj"
+    "Hh0Xa+rllnf55gM3JOX4LAk/392Jiop9bXV3eHJt2azYE5GW0ZEQzw6O9SoERJWyTlkZPTVZs9SqLy7WFerLjSzOTIuO"
+    "7MxQMVGQELDRsX7oX5flmev9/4DK9rkOz4shEiicGtAUExQaEZQhJCYlqinu2NYLr7EusFFNqAaT5fjLSko83c+ffOPH"
+    "5Lx7PH7cExx0c6OjQxMrW9tikbKepLJYP0xUQ1drkxUrzSYhVcGmVVFZryTuNWoLSzbGtXeGJud1O+zykdHkrlgNGZ6f"
+    "33pLyks6v+5nOycUEnxAgDxPXoB0XqRYqqLq9mwujQ8tj+ztvt3tvz89P7MjL/VufvqtJvPVjGHyISDjHR4f2Fxd2JYX"
+    "FfeIayqKKiV0JYoSGvIBQpoqOqpa+sqyGmOybqOqpqS2ZlmurbEvsre7biBeoHyQzEZPovGQDfzzBnr9ZSaaQAEFHhAJ"
+    "CgxQYnpQglp6iIqIrmVgem5leIN/5sMwvgzZx8fxcPsafsD/8p8+k8H1xHA3jSe4BsZmV4amVfbUVb3iWoN+tqKOsEFM"
+    "UFUtqC6sJyxSFlhXE5qTWRUY1lhWVRvXjM3NsPvmmFfumsPtsny/V//5+8jKPya/AaMABpKUBRIkLDUuMDpDTVis7dYa"
+    "G1xfGuDiHN/iOFxum/WYlJLqd39yH6nG++uN63U80NEvES0tzO8LritrDCpsus3STrdYRVNsExarBDWV9PSVBDXNktL6"
+    "umrigsVZadO40PjiEL95d+AyHHKvGHmJRle673kI8Lml0wGByEdFSgbDCgxLSImKzpHQUdaY2TburuuFC6PH4LtYMtNM"
+    "Z1vm7w/w9/xd0v8+K57RacTuYWHgXh1WGRsUlBmYFWt65ZIaEvISyuLCJk0tUaXbLquupywrqbK1KSk0sbQzrrsztL03"
+    "QkY2OtyId9//fPplPo2v+9sCaIDoMOBh5CJqsUKSo1LC4uOj1VKvaVvbuL/vYLoQ0Y3vR5L3dLo+zZ73zWdK9xo8p8cB"
+    "vY52eH5jenBdblm27VKT1koLS6poCnsVtUXkRG2CwlYpSXGVoqjbMajrlkrsCm3ODs7NT9DND8/P8ItIp1tWQubxDTb9"
+    "mH2IiQcOCQgDEhgUG1AY50kLEJUq9DXFVYV1J1j4tneWdx3P833k5bw+eQB9zsZs28d8c9xLqHf4R0hHZnZ3pdXC+qpy"
+    "+qJuXUmPtFlKU2DaqXWbBIb1wi5ZPU1RSZmdeaFxwdDMusjC3vbwFL1dPkPE8deNNldeQujL55kCZGhocIBQfCwokaBI"
+    "cUJdVpiWrk1P26irvUG4wPE5j844Bk8+0uV/S3y//0//15BuyXeh4V9iupBRz0u3pVXGlbWVhXZlvcLKWuKaOhFlFXFd"
+    "JXE1XZW4WNSl7VUs6opqzI0rDs0LjxBsDW5OrFYfGur3bnibEh7Bvt8X0BBAR0YCjwaNCBQPBhQmHiM8TVBYUExQUVu9"
+    "sMK4QEPz/FDeCPmWPP8dVE765ZOberVe3iY/DibSES66FX7hadF5YaHarKyywJyUsJS4S0VbVScwq7WqiAkJLGur5GUF"
+    "pjQmdcVWbevGwODm1BK96jT8UB73S9LR8kxIucdFgoUHjQUXHQ0kCyQrFyUeJT9KRVJXStkrm9gfYpdP7P6+weLxWs/X"
+    "VN8h55oO4HH0t6wui9uLhmA7uz29tSwvM7K2Ma6oKqmrL2sU1xWS1BDUVEq1Yru2hqyuhpqmmqpbJq0tNiurrTNBQ7ju"
+    "XmHbW+hOR0ZaVubvkBQKDmBERBR4SCDxoRHyAoOT8xLdkcEJqmbL4trc5ujEfOXANXo+yS5jsiXxENJ3PN38Vrv3iobp"
+    "Lx4YD7CPsOxMa22q6goLu2XliuKqcquwWC8mq6ApJKOtIyoqLSQkrinr0lXV6Wwu7E4tjy/wb05tDhOu2fE9HDLT8sGG"
+    "AgMXGAQGIGBABAcEQ3TjCQJyU1QkFbpCbYGpufGdCS6K14zeMLstt8/df8zKB2g9uqx3JJcXFwfbeXh9jXlqZ1hmbnRh"
+    "W1BYYWJPU9etbdFT1NEUF9dJioopCki7rcISaa9ITdwv65bZGZhcHVpeOP2oyN6365hmSPW9YySBQoSHAAkRHAwuNCJM"
+    "IkKgJSQ/N0PTqtTUU7aMbu/r/WscixffenV9DvnnR6jj5w0o8Y+KdXYd7S0M9AKWvfXRyanRtaVVqcjMssS2rmFNU1RC"
+    "XK0lIamqFmuq6UqElMVquZiUsF/ZOT4yM28eHN4jnLCch6/R8778YkFHh4TGR4bGxMZEwwRIBQQGz/PIx+ZHy0SFpX2r"
+    "i6MLXAxkH+7Zjmt85V6zj2+Qh7P9lvK2HRE+7zOc4/ui9XXD6vK+4Ny4WU1ZSVhGWVtLTU5b1Kwkp50eapGV1NVVKetT"
+    "lZWiJkVls2dXb3hzenaJ7rIZ/5ecrDxDWoRkHFBY0NjAIOD0iEigSIlpcZpEU4yuVFJOUFo6LcC2NTo/8p/43Wg/y/H9"
+    "fHwzQmV73m+LyfG8e7CLLuwjVMQDw9t+vX1ptbhdUEtbRVRTJCMlHyAfnZ2mIZulqaoUduony0QlxY5pdY1Vxemt6bWZ"
+    "+xgLH81gfmRZEuJkIYNBBQIMAwK4EOnY8OBwgHDejADZxERJqbZdcFV0aXqIcHuAie07Y7k8uenAEv+g/8Bcl+/hYX55"
+    "3T2jw3l6gnF7cFu7MTmxKpPVk3bq6EpIqslnWjXKkfpcj5Z4pElMPDhPVkNVYtuusjWwMTS9xThAw6878TsG9/sMHiIM"
+    "EwcIoOgYwOGiwuMCo0SFRUamBkcFClsk1ZLS4q4RliUKqsVsRXx4vM9ks+eS+UnIvX2vFs/pi4uLYbq9QDNBuTA3urg0"
+    "sa0XVBeVy2qoCIvFY2VzpEQUhLR0I3RUUyQkRK2qKnFlsbykuGJecW6NgIN9h4fytZs/DqFQwKBERKKAhowDHA4HGD5G"
+    "HCIsbGp2TnqsUyMj67WqDa5L53YOu+Pg/9ndvnTgVvfl7DkanhnOkxm/Y0NyN5Fuzu3LTG6rzoqbdQaVhPTEtETF+uH5"
+    "6ZGS8lEioony4CTRSKF4ioq2SVhUTGRTcWFrenbiRsO2Oy0O20E+GBYoYCzAiDDAAsODIQJkQUZLicwIyI0Rj8wNkvUq"
+    "Lbv2NpYWaIdutLsbxZOTcMjNfdoycr/WPIv198e7Y98fWI9wzvAMbY4bxxUzw4ppUVX5aEVBOf0URTE5KQERSX2iSy7T"
+    "KdUp+3PVVMX14jrTC7tzAxwEP3YTxf0xjYXFBYrGxMUFiAMADFRQhIAgUPBQskJjYyRTLar+SMegxM7Q4vwC/xTref5f"
+    "/JZDojPl+v+Dd4O2m5KvxjOa8xgfA98K8+TCzOq4X9gtVWsoaikJS3S0BJVkEyWaUcF5qsQIUXGAlJqAeqqsjqrWLTg8"
+    "Pje9ukTvOH5WQ8bQVGxskDgTDKC48EjgXMh4cIqIkFTQ3Nw8j2hylqimTVxwYGdlbXp3XUF73PFvh+/reH96H9/T0Ws7"
+    "us742PXuBQKa0b25ucW5bcu6yKbUKukTDpL0hknqsyREI/TiMuPzTILKTG2mRNcpUxUVDXvHffNDexNcGzIWtn00Xig8"
+    "GEgkCGxgILAYYGMBA8SD4ZliYmIi49I0pJQ9SuKeeW2ppXkLy9/7mMyOqzfVc81K+d9+SUlZ90O2xX966T1GPG8d3djW"
+    "Fts1S0U9wiIyugpCCvKpiao8cX6MojU8LCdFMixLOjo8WawnrdKUm9VfWp0bYPos9n6hHBxQCRWQCRACFEAYcIFAAAWc"
+    "ChYcLk4oojw0UJugqyExLLg6O8IyOW+fuTsn+/lpeT3frtTE09f7O7q/CAlXfH/DXUDGQS8ubtsXGhQal1RVmsWhkQpV"
+    "daAxR1LoTIuKTggKC5HLjc0UaggJyQpJKiotTw3OUBFQr5vYGG1bZGRrfoSG4i4b8Z1+Xz5Yu+Oa+f6/XVfv+YyLie00"
+    "3B7eWZkYF9ZIu3TEA6RCs8KRAUHygWDhAQFIiEeChgyJFmjU6QTxeSGK8fmxXtnO2rYA69QK68Bj91o/n3z3/21Iyn/k"
+    "5P9S0++OXFQ0oxkb1fDu8Kqyrkk+VFhsmN4fHGLYEfDr9kuO3WlK/b4SrylZObdbwuGFeLGh311eYV3dFZZMqnojXYoh"
+    "EuHxsEh5sEhpiIhIyGCoUDCxAnKRMlICc8S0dIOlxBVVDdsT8+tTFBxcXLsLx5PuygaW+0i/XS4Jl7S0z9uG68M+8tcu"
+    "b48tq/1qquJi48b5Bbq9gfkCEb93uzu/1sz84xu415KUlGRy+/uYiAYsHERbO4tiy26vsEk4RjIiJSkeUBYSDAmICo2G"
+    "i5QNBhseHzMrLDoxTtIcLC1VlxXaVV1aGzhwvf7C6fB4ZCb+v2nvxyXPkWVL/Bmxbng+/BbW7clxs2NU0iilsGwdnNjb"
+    "Y96h4/d+/6Ytz+y5Xx0hfqnHPIfr77gY0FuImCfmVve1DasqNfXk9Kh0oMRgYJiILEiAMZLB0BAiEeK08CCBGv20CCVR"
+    "JS2hcams3gTvGA+7iX/hdnjuaHnGq9eYlZNpB5pqPlm8JgQko79/gV9ndFBm0yySU1Zrra3NrfHRa1iY5zv2z/03pgM3"
+    "ZaUdbZ7723F7epFw/GcnhlZnvR79MPXIPH+gOxoWHyApKB4bHwo+Rhg4PDJYYJ7QF52aGSlQFZcLbWrrJRf2xvZI2F5s"
+    "hx0dIfls/X3TcpLuoAGc7ujGr91/f319g31t2zAqMquXlxqWmNhc2d4XbY435vdvuKQDB+lICHL6eW9/jxv3jOFEvL23"
+    "t7m9tGuWa91x+nlp+VHJiHlxLpykWIx0KEQ3NCRKNFp+bqJBTEBPVqwtFNcrjgturlsohxeIZiysx/P4d2Ves5+v3OT3"
+    "x5WOiOU5Gu8PsK2t72xrCglLlMVGVRZHdmf4SLhmn9Vh+qZkJBxTMwJeT6fErJy70Y6PXb2/M0KyOzetsivr0RFL0EoJ"
+    "FAPqlHj5iKo8oERXYKAoODnRFyIXl52hpeoUiwyr/VoTq8ubm3MUZDTH3ZKXa815W52OsG5gf/sl2+guGf0FpEOkU5PD"
+    "wim6qmJ6u/MKmyt89At0JGS/KeOTdvuasv+OZ25CUrrFZLaiIh6jIJwX92tLTawrW12SieYEaVisZDhhXJ4ZJiElHyUu"
+    "NyM1LiZIP1KlJKOrJC0yuLKxv0HCPEGvoNmQES92xIRDZsol5/UH9zw5jo/kh79evS/iGZdeVo1QUxSTWlkenlfPGwf2"
+    "Ozx0ZJvxZvSlXDKeqY5EY6bzcsW6fLHxDQ/Qjo7qjIoFJfWZ6tz8BM08nx0jHycVTyfExAqKDE1OTI3RSw9QjY6Tkdap"
+    "S2wbF3i4R1he9L6/hWN+5HjTQR9fSf9Lyudn82Tjo+L4HNiHh8b3tSRjVMU1S+O6Wxuk64oBCb9s8DyeKXmPTFtGuGzv"
+    "73k+277oNTSD3+729tLYxsi6uDlRU5qTGB4aKMuERstGdOOk4nmysiMiIp3yAEEVWadWLC7ulWq75qe4Nw7rjb+OiY/p"
+    "P90fv1vm9w02HaTlkOw9o/dRTy6MJ8eXstOzM31KCmvjSzukw/seBq7fYrM/HVmZCb9k++vs/frOvy+Sw+NunuKYGRlW"
+    "k5JWaupIqUgoB+i54kEDnWFxtnSwoHyMRGtucqbUIiFslYoJi0Wzm1Pjm1NrezSjC81dumPkZHxSD7e7M+/+eOYd0vFw"
+    "HTfEC9u18cXkNEl5jpzItFZ9fn+DY8UyuE1nkyfrmJjz/SWkA8lN+qX5T0ZMKw7W7a0BdllVnWVVVXuCmmJ+iE6gPTcX"
+    "KCUxJSgmKxsfPiDQ6Y0Oz48UT9OWmFqZ2hp360sub66P3BbTveXy35+28/v1v6TlHFNy8r2mu9Ngcx4hnoeKzVQo6Wj6"
+    "lJVj+4qri8MbKzZ+y5LsciVfrt7bIfP5u5hfdhPKvYh53TI4uiycVRvlROXzE+TzMuKR0hLTgXECreGJ5qQ8jWqWimCC"
+    "qqZIStUnLy1VHBna2xnfo6AX0a04HvPxbrIm2gFac7P+f+Mh4/Pv4+IeXl7ezY1KVNqTBXvC6oJzk2PUIwwzkg3VaXfk"
+    "/L+OUNfvISfPdLmbrx409JoFA//S9rSoyJCoSzY1P9CjFhoejucKjUkKCXQlCiUh8aFKqztTU1ZYpCuxsqs6Ll+dXhud"
+    "YN73j9Fc9vPP/Xem+oH8HamvS74h3Xi3d3xoCCfSEkMkRK1uccukzMb0DPnwFgsPFcPzSDV+89//8w/Q6+HmObxeP0wE"
+    "q8vdvzgvNrm2Ja6lnqafIJuhmKCTEZkfHJcUHpCcqI4LVIqDw3SD3YpqKoMS0wrLQoNLm1vDa+yewXFFsp6t9+cj45Hv"
+    "+OQ9c5MMeV57G8ngbzQkZidaM+ND9MV13eqN0c0JDjKWF8eOZnn/DCHC2oElJX5ft0fm8132l09uDhHQqw5Kq43aSqF2"
+    "pDFIPDo/JCUl0RicnhIaoxWYHh+bIWvSE9aUWJL2TI5blhY2F/fn+BX7iRPH7nA6r/nux9Nqv/x9/5fDfTm8bUgHEeV4"
+    "ygAhMWFphT2NcfF9tTV612yxPu1fazZIO5BrNmgAl1vCL79+duMfojjRcM6tyywrWwb1FKTzRAVy6TkyUTE6wVExMqEZ"
+    "ihr5AEmfmLBJRFhiVGhkb3Fycm53dl4+uMDH7/r7GP/v3ZB3f3r9l6sjLzPX4TQZTBaztKD0lMz4DDlVbbuutO4Cw/Ta"
+    "EsWHb3bZ3caEY77VeMsG6kn+pbtdp6/VfX2Mc3dpeGZaWUdVSEROS1QWJJ0WoJboT8vMj4ySzgoVyaZmRwlb1ER9MvNC"
+    "u5aVdXX9kb39+REWJi66z/u7I54Nqdej8ZRoSjj8/33jveSVFY+QHqMYoSBp1WkbttYGiNj21v0q4uX4t9wy3b7E09Vt"
+    "PL2tB/cTweau1+4N8Y6MCy5NzUmI6YmKB6dGKp3uoPC4zEBfdnh4dIKOplWhrCArKi7Y09TVmlmXHBifYhufoN77ETx+"
+    "97/ny0x3Jn1/Wbe8x8fvx/e9HKFRQVGSUgQEZbQjNGYFhgen183L61tsI+bT+vW5X6l5H0ClHK2WtBST6/ZAvjOY8K1r"
+    "F1amtfrKTrNAVxommpbpylJONBqzU0NkNFVkQwVVncpSWX2NkY25ZaHJcZWlLX4FwePG9rqNp7/dlw4aVLLlDir9bHZ4"
+    "fkf0NihcjNjg5LA0wQAtfY1ht1Z6ed05L3jQEXIeibbEVGPe83S4mxKOaU6b3/U/9h4f3N3amtucGncrCls0LWKqsTb5"
+    "RIWYemZ+cGRislorJq2TVdeWq0VGZiXTSnOjAyw063v7G3zsG2yvFfVqPDsTwiYbE99G98n8MBw8kUCj44OEBzrT8tM0"
+    "JdpCU9tTo9vTOysKuttotJvSASY+fq8/iPAgDr9//Y2O470/wLMyt7i7qbAtJCvRTtBNjU1ONWdqTZJpSmKKKkLCiaJO"
+    "BU2ZpLDWrjO0bNwcG9lZWNcv8RDd6A6T9+D7/Q9ppmzT+eg1nm9+tJ9JLB5AYExuQnqoPDlW2zCs7NxYnqAboSF5XK7z"
+    "I+Pu89uB3x7Pp/Xv/iP6aza3H//k+rxpZmNqYlNbLFWbtTYpSYF2cmykP09W603R0bQHymq7FYZFpQWLuvrqEkvj+ypb"
+    "A4ybMyMWmg8ZwXV/n89G4/NrOf3NJ7/LCTIYhERMOHeiQM8XoyYq2LWNLkxubk9PkNFsd+T79ZJ2t6UcPkn3//18yUTx"
+    "YHdx8I+Njs/vq+7K6/qkxb2yTnWoTTVRODNVoKefKyt16MoklaSFpYZJdZ3BRWnHuGyBbIaEandfxi74Pn7/6Wo4PA1/"
+    "y9vx9ple5geREDQPkMPv67Rj3s2+/+UZguvu0sjAzLRbPTUzzxsQlJORZ0lIR0gBHRUIEAjgceDCpGFkgkTiQkXlRMrD"
+    "ZPWqOsGZvREugufMcTrdX5bsu9N4egR15T69CReXz2x1Ww9MWOaXN/fFtJUiekJ6OYm+WIyMPDwgKEAAEh4LG5YRHNgn"
+    "/xDUarwcjshmPKu/3jU6vrqsMa0lIRmlmRGYEI9oBIMCZ4MBEAU6KhoGmIgAQUl5eKgB4TgxYsohWqqqwsGBteUNNioC"
+    "BprP4TF+Lzmv29f1fSRf8xI/jrcF0YeMjN7AOrIxq2oQUc0RdCgII0Sko6TBgEUCB0QB+8t+PFPTknKezoTT5/J5uPxX"
+    "COeWVaXlZq9TPi8+O0EZKRMqGxkKCSAeFjgoMKBYMABRkUESMfISk5KzhNVyTbHWtmeAZH5/guvGeTj/vtzU1zX3lXoI"
+    "/nTm3w8us9VtOzk7uT8wNKcsaU+VSMbHJcVZ8zEioeDRweAAhPnBJN6NKY/QPtsnv2+3PNEPL2zXLfPSojVVlXxqjICC"
+    "VJwvFSIMFi4WEhBoWMgoUGBDAchEB0VMDIiPClV6hLSl1ES35mV4KK47o7uN67x6/K8/eFfm1xHykma1P193Jz4GMrLF"
+    "fZmBnTkJGT3VyPSIhGiMOJ/OkQgQAj7ecr36QeUBbjQkZWTYvCfPw3d9eoZlf2xu2+qWVXo0fbLs3GR8bHQ4WCAg0BER"
+    "AIuEkIaQEJEVFxgUkh6pk5QqqIgszcpsTG2vznyWx9+Rfv5lXK1f/y/r+kp/Ol9Ho9dvQ+/indhWqy07JXUk1eRCg3PS"
+    "0iGygKHBAEbDPTOfPiCul4wQGXmWLC/ixY2KhYh3gYJ8cmRpXUc7PdGhFRcXjwuLkIQLjo4LigUCDhwFIhJITFKgIT08"
+    "NDw20ivsERob1VfdXd3XvE5M9891duabTsmP8GbXH6zN/D5ennYEL97VDbqhoWGlU1VJODFGLTvPqAkGSYVFA16/btBv"
+    "Y/7VcEjKPP2vh9e76/JfXdsXXxlZFJe1xylqRAODcQETTdFIqFgY4AADAQRgGKmwMFHByKggETISEspGXR1tsVx5bnmC"
+    "h2tEM2TdLKmXVMvhmRH6bX5/3uevEwkTEctwcXhoeGRqZ1ztVNWHZ4aDg2WFwblBYGIc+Thph5x8IHn3/yHrdPC8LPgV"
+    "VGxkjOPKitJCZadBPUkyIB42KCcaHRMlDx4JChQMGHAowACOj4cXCSiJSspUyBqEZHb1uguLQwwMdDRci/V2siU+jf9D"
+    "DmDSwfxS76d/y2XFO8C1RDK5sqywKtO22sOEoiLSAZOCQcExAubj+2h7H6+ZZ+8x43hJshj8yIjo5xiHJkcXNaYd2t5U"
+    "ozwrOR4rHhQWIiUdEg4ELGQQwHHABKPjwqVCJcpj4/PTlNVSr9bu7MgGBRkVG9F3OuT8nF7b5QOg+/X3fCQ+/5UnvseE"
+    "hHB3YtkxLVTWSecJOpKTMUMhkqFgkf7/43VMtN++uXcQuemn4/XyRUc3oiJh4Fme3PYsiyiIJ+nIpIRG5sQjwpmAQcBC"
+    "IgACVFgoZDBwLqAo+Yg5MeopuiJlJU1lseLO+t4U/woN1XFGRzNmJluupr/vdXf7/l6Pz2I/wTq7tLw6raklIi1W2lRU"
+    "hCLy8sCgYwLNaK+U3G++5/XIOGT8XbeEJMvphIJ5j412amVZWKmtlXrTAwRkQiJxMYEBgUCBQoEGBo0CDSMkIikhHRY1"
+    "Li5ToelU9YmqdY1zM/P6DToeshP58TRm3B+B0r/OfABfY/rdasb0mM+c59blc3MDM7sm1exAfUhWQmA4Oj4E7XdyffKe"
+    "vmzwtoxwt8RsX/rZ6MHH9eDcHxogGJlXE9O2+sJSxMLyXIFOQDAwWCgggEKAjgIsJBacDSQmGyMdRUrWHawPFUuNC43v"
+    "7S6RL1GQsP1nm+H3eIT75v+uicckq+now0E/Ozs4Qi+XnNRV09TaI7T0I4QDjWhoIEyDxWg/HVMeSanXP9h8w+t2vNmc"
+    "ducJxvXtxXGfnrq0qIxykqIxUJIMjQUUFwoTBmAsdCi4QABy8pHAEn15DrEgxRhJNVlhXbdkgol9dX3d8PzOH781LeWS"
+    "lZF1B34H6zf5bu4u7qXDdYGD2zqssKnskMzOkE/IjgqJy/sdd6fVkPe9nx8hDiHCg/gaU38eu8llMF4bWl0b2hoYVpP1"
+    "6QZmZQXnY8Lj5LnAQEMABUg0XHhccKSQSGhM1ISIFKlMqdempymqL727tL1HMxysNoPRku52vg53cNmPn8ePc746zrhG"
+    "4wHCreVtvZ6kemyoMSsoTxOKmEC1uNz456vLmXoIl/f7ZTufp8fvdzYhYiLiYuAdGNyZGJNWDRPNM4VFBCZkQsHCYUMB"
+    "g8UECAUBBkooRJ5Pm4yUl5seHaaqllfVTM2rzW/Pi06vx2C04xkev2SrD9DM3EO643fFNd3vXAbjvZF1iWnJuLZKOCs2"
+    "IlASkztCRfe67Bip2Y6c9PP59XY/83EfRzyzvYF0cmhrYXRdYGFBVEtETCUfLSIXGysqDQ0KGA44ODGcCj5QNp4hEBo4"
+    "MzA6Vh/tEtnYNS0MTXBtr6sGVIfFdjs6km65l2ygGanO7Ke/dsRDxTvCOj27Mja5qLAioZ4lajQKg9FnJ7hGxL/p4sx+"
+    "gwfy+QH/NL/fT7PnkIGFf9+0ur8zMuwT1lWnejPNIRkBYUF5PkgQUKBQYQCBgosRBhAoHdEalZoVE+mLtkirKsvtis0r"
+    "Z5eoNwjG8/tweGbdwZ3SPZ90l/+S/8a1mN4tk98K+fi0zpqQkIiIbo5wYloYw3eO4jaimGyZ2QBfx//f9b888tzXIyIC"
+    "+o3HhWeAX15UWmqUUZHOzEgHSVTGAgJFwgGjQEYCCBGPAhEMIxMyzqeQkM5LNYmLpIV2NddFt6YoSFasm79vPHlN38/p"
+    "Ef6Y+TimWu7oDj8m3hECjt1poV3HwJiapISeIzl6foJ6iOb0Yptdp+81Iwcwv+vp6z1d/war5Wk7xMQ1rzc5syiin5qe"
+    "npihFmhNylOFQ0ECDg0EHxEIIk5KODIyoicq0BmamuwT14pLhmWnRueXuAjYBcPpkvj5JpvPplRHyIyER1JGggvtXbAi"
+    "XeBbnxYaVhi1yYdJCQZIba8bGE679X83mc2eS1biH0BogNn3V+LJ7MdHR8Y7QDi0q7ilrFJ1RyoDFKOh8oRmJCg0ODkS"
+    "aIgsGAh5GNl4ZnREU2ig1SpUTxE2Lavt76vMTnDw21W3yfnKN7tO12+y/+zIf2VkI98syBhYR5eWl2YlhcVU5dT0JDWJ"
+    "+/trDAQMg9fryjS6bxkJf7DHZ67Tdv8jvf5YNuuBAcm4qqy4UdUpIpmcnI+ZEJCHCQoEIgUKIICAhIsDBRBAPJRUVKjM"
+    "CCHZ3GC5TNqstDHuoNmb2BBOz+PLfTU6Xsnn3yFUVkZuSlLqv2n6Hh7fnfeM+2aNOkIiug6pqI3RueU9Gp4VGx/t5Hxl"
+    "Xq9eR4hLTqr3YcjxIeAf3tuZ1yxvLhuGdMU+TZ84OiAbzxGRiREFBRwjJBwGElCIeKS0dNj0nPgUSdVcsWBmWVV1fWaB"
+    "cF3GcTnutz+a3ZZ2yT4/szKu75clE+nfQ7/BQL+yuiuwtaeunqInFq5dWJrc3dhRzfbv4W3I+Vqtv0eohETv5ZB/t+C6"
+    "MJFQUO6PqwrLtZKigmKS5jxLMFowSERMFiBEEj4yGD44HlI8TGxyWqQqUymOFCuGndsS+xP8GySLCRsTGeNuvLrBPB8J"
+    "IYIlZqW8HOY7qhsB/xgVB7nY0Kq2SkBaJiq0Nrk/wnNbTaimo893+7+/2a7kN9C/Iych72T53iI4MC8QDW7t6tVFlZoK"
+    "9aS00HRIbIyMpExAGNDRULGBQOFjpGJkJKYGqEiJaNrFxJVmlsVXeBiI6Jieow/dc0v7Pw5Jl9/b63cd07y4Rjy/yV3F"
+    "NrM6N7OrV9LQUAA=")
+ZSTD_GRAY_PREDICTOR2 = (
+    "KLUv/WQALyUvAcr05pRO0JSkeQkhQ6vo0Cr0+Pj4+FGMUUettR5rXfkodACSVbAdmNGF0ilHbra6QDMABhQQuACjSQVU"
+    "tzZz1hhDa61jjPjx//+/1MImtbCtFPYOPAksCTcJZsxy52p9Ntoyx4XEGrpuHW36JZsIxGrPdiUJ1so+lKjG4zsXzobG"
+    "QUXhJYJCSaC8V1ocyVQPmhcD5pVwIFeMSgFiQwZx0kll7jRXSnf6EOK1Il/ywdLrqR9w89dRWzZUwRVK3nWl7jIOjEbx"
+    "Umst+VgrIcj86vnyWCfs8R7Xu2Dsf12zFp6MDONp00tGZQm/brcQxcLNY7fhtng4Oeo50y3TRG+GMjJYIAxThKrF2VVH"
+    "IQikFnEXG2Shmx7rgU+arXX5NDJiuaUZ0GWtOeIc4s091WLEoI1PPxEGjN66czB/xhj7TAydR4SfEqqOpKMXpD2kj5Gk"
+    "b9PfxekIW8/kP/umbeA69BOm9Suv24Vib0PY3xYHr9afbOStBDG1Rgb2pjdyIZlruniWZ/A50aBlkivNfv3l/84G/You"
+    "TUgGYl1EaD7YarF9kVHbmnCJSB8emss4PGRFkAfiOvUhjLNn8PFdZ+LoGv2eqcawISRb1HtLJ4ejKzQaVBdmdSI+nFGp"
+    "d2yxJXEyDPmekUtdW5arglmOYuMuGrn0RLe/9eWEWa3lOaxtDqyN59Z24trILuMcxqK79U92zA7VcyHfvBzpU4/hu5ki"
+    "l2hyGXLsp5eFt040yh06def9RDC48NKWA6qi80Ikd61iIcZopOlZ8Mb8Kw8K8jzJ9qIVf7zhayOlKnIs+wh/4VKWRlEs"
+    "Qc8k2hqObmzc36g3VnaFKN0R8bPdSPhyH4FhXCbtxT3J4RnPkWJNWKtx9+pxtzPN3AkOFnAuYCKoMovQXJIaijIP0ckw"
+    "VUb3rPWy869MsIPhEEqGCd9Kh868ZqnO6P+f99t+nlf+myTYj5iEPjSL7mEjeThXo7eIVhH07DI6GXMZX+qljCEDJJ79"
+    "+5rZ7bKLbf2eV7z8kkFD7apL0oamhBPhalT5rfaZSAGiwxff84urDBAKTE1J/rovp2PbBePns7ogl8Ys5KLrNj1f8QPv"
+    "WAbFgsZRwxJcCRGhz8QNpRdUtchFe1Aw0H+OFXGvKik1j87WRiFb4+rkjRRgUAVmR3YrNGJszVFkhaT/eYZQMPY7w+ni"
+    "aWosZd1JJuJRp/WKEL3d1crRijdInCBFryMaTb7Q7n3N3T9cL9HjSaJ5QBve7TRHRaki3r8kyFYZTQ6ogq7wNzDceFwL"
+    "1/r+HKxy3Vn5ghH2nwtZp8ZcY+BIoMroPp7Og8KtXEUzuzqSeYWprworM1a0X6XB4i9LhRxCuZzqUUNOsjZrKw06Ljyw"
+    "rKDyAEjuV8tg4+mb5JXrIcc6qTUiPG4kpuNFaWxPG/q2ean5MiQngVxhgF4a4lD7pJS5h/SD/lWRXR1RqqOVxmx5/dyu"
+    "8g+jDA2Uj2W0N54UUnmPQ1qas7kzPc4fIg14Tew4e9IMsWEIi5gfDe16Y3QeXvosF84/VZithR7sBqKhejwW9dUJFNXX"
+    "E0CQ5HIrEt0bHXodBsRgPnnQFU+rhv9mdOurxDxo+LE8nfr9GMXnviNsevfq6AVWvO+VrHZ9MB9YK2E5+sWyicocK+P9"
+    "vLV+WKXKgYHIV4WJKlxk3qXRWrDUcq4nE1/npuMQHQHEc22YMZYm4h0/Huz5Ll52Su4jZmrrJQ69x06Z1uRZUeiXHs8O"
+    "9tOp1tbNsd08ybxCV8HLZTyxAyMhy42GBV19i+fsDWsq066q/bqf1Yo/cNCH2qQ0/p/Q9zelR0lBaoXckzCai0YMgyKf"
+    "jW+YkE29eKVBtxgExZnrsqjLa0sotUH+6pjiCeFN6b/X+43DNRJNZaehsA+p+JeJKnAXHURlMYHzgCwTnBzaE62aVHVs"
+    "Gvmohrk+dnXQlsvzt0M9lkryAHmGjRp+toTTSHC06Xk+WRN5q5ka9zYODpLHYn0oK3k2U+0C3nAMdV+SFZFL6oBS8xFn"
+    "nY7P2/x18Ox1b+SoSEiX270HvCUXEpNkcdaMduueYCBQz6W564JmaETf6WWkamX0PiEAs/hfD/V4IshuQ06ErHI7woEx"
+    "oVhb+QzSwNHv5txxqM2yVXyrfMG9qwK8eCgpNEQ3o+YBzWDpt+WKM1nVPXS5Z7NaDOrjdUm2eTAh04pt+3ysboYqX8/i"
+    "vKFd7+TQz07Qe4qgi0LIckyoBO8+KuGf8KVSCcWmserEd0e3CZIvF5vxdeZYUJp+aiOeEMFcZ6PtRCRLw+KpvPlPELhl"
+    "Lbs90NvEfl5Cw1BFCN3BsWSese7B1ojFtFlyzbHlw0ISuKmzfoLFNwAhx2M2V9iHCuB1MUwdSITqsJcVl04Rk6Yqjncb"
+    "nV1uFhXzmGwrN3QN+g2PW8dlwug+o5ZLUhmsqrb3MCS8oy8hAFgXD5XVXTBUQ8yadkFspu21QsGO1VyOw8UwkTxvnyLc"
+    "zAwKZJrFEbmA3gImQnXu8PDl1dW4JRfeThCiIRrD2HQXOLLWHcTyglSNTFUbqg6F0XdvMtyS3vRfiz2vnUj6fyX2SFS1"
+    "9w9xn6gLFUgsQbJM2IDT/ejehHSqTKqQdMC8izteHnqGMCDhhBAf+i7iOjU/H9zUOnFuaUfKM8RlIMr10iRV/KRemDiW"
+    "VK5lwXhFRW5Jfyi/l1z2CpQJR0Q1KQbRLcagijI8Nny3zetzvatPZGd+nyVDkOVdjbxET5RanhrzdkSh2n4EPqMjgaj1"
+    "86hMZcQRdJrGFwJDs0+LJk1rs7immskZFFTWK1Aq3RsF6jh0tPfob2+adgbWgccphubIlYjkhoXEE1OUpBORxTyiz9H2"
+    "zRy4+Saqy1NWWyzov7esc16rEyK5hsYDADCvFyzazh5KDJkITVoaCmMbe3wLiYLgiW5vxE6sFcrQCZ+GpkGLEbYgL5DV"
+    "Md8q++xmLTn10DPuLUebTpSeJ5Q62COdJjGjpifX6ehcLjElrczA0MciLXujPPtXRkbrANF0pAvInwPqXGHIflX2Rmim"
+    "D3zk68E25geO2P8oLcj0G8vIAL1zBlGmifEOny77dmpTGqz6t2PVWSPSbUpfG02uGns41teyh5Wb4LEOztbmJhibNPgL"
+    "M2LcIY11VLwL2SkeStIqh4CnerUlsb9AeWyT/a/G8VMW9LKbd+6OV7PsPtyycWEZbGzRLPxqRtDOyqLEDg0PRavd+WG+"
+    "daXa1kwQv46VacH1OqKElSHIfGXcA7GKm7tMeB2hjF8lyww0HehFwZjZUbOYKwIBGBee9gaUz91rixd7KXSX2W1Nh3Dh"
+    "iBoDXupF/qfzZP+pLXlQh3fx4CkKkjA0GbXwxLmDnbrMpe60L6lcN4zXLWro8tPaO5MURKrlPKR1qjUodseNHFiuHJ2S"
+    "5NeRVziX0qmVtTnDebgs69BonOVrBGnTG3ExHn+ZZQ/0mP/48EejOhetL9P1mkuo7KPcUp9D04tiTYRp0ewDhovWrIQq"
+    "ivhhs4GZLkw9gWusPk5Ndt+oh7EFhz+4sAnjpbD0plS2OXujVVUXO8W08kEWCDohEtbokmvbKvJNacKOrrmLZfw6cnqx"
+    "qrX4gcJJFzx2RFT828eq2DvepZrWSb1q8o7elXSjeKJfmZ2umELClCcMRPXopmm+x/URPvhc01mfZ1y3cRHV+UPmZme0"
+    "63ynjAdvwrKmqtniGW3xzRUjkiiOROY4FWBG5sJf79yISbI8BKMNHYc6WC6h3Vlt/MvIUqODxEXYYm22M+DLfUYiO5hU"
+    "a7XwA3YkiK63nGVwH22GnnjPN648HLfw/Hv661bktA+JlquynaIGvdIVzWBnzLE+fCIV24lvWSZpuF8HR2LzK3ADRWgV"
+    "gx8urrm4M4EzjdZyzOvQqUTabK6ZaTgjyswv7Ccy8EnsO5N+UrqLImXlx3XgE1dzlKU45u1dhrOf7CDvrSEt5gnWymwR"
+    "h4R89EqexbH/g7uOKIqarLPEc6EaLINdPRHSgMGi3jo2gygMvyZLwyXRhZqjDOP9UyvhdLKmCxbH0nVy3irBIBDWmpW0"
+    "nW3j2Fybj4LRp/J076WTMmy6acbOgXmXbKxnBvv8Nr6FlLbySxW4G/EcwsHC9OEyit7ttISB5ufYGtFOnaZr8F0f8FW6"
+    "jg5vdTvfTkVqLaoUh2XK8qBQBkEmpMWYhr7XLOJUPs3o3HDjs32yDN3ipRsu5YVoZTemuehZVgJVF0gcZhjvQ4StGO15"
+    "PpWYtE0j2WzHN2dGi3ZgvDIuvrXT0oyuqcy/4I2Wo2uWWFcyKehyvUulVETx8qf9zoXyn15vroMi+g6X0hMHCLZqVoM3"
+    "yGFa1hFFcMibQwQasZzjj2dwxlUzQ8i/3HScRRd8QO41+UgNt/b7USOZN8pDRTVeGLKW2eI3sZIBS+kLlheWcSu8dLeI"
+    "HxHa8DkvccSLB39SyEgsNnttMI8+Lfpi0q5G8e92cGwg1TltJReykp0QTWtF05bK3pde+4pAmaFiyG53cDy1/NjlmGlc"
+    "FyGUaTyvA6YqLIi0YO6kgvF9XVdASe2XxeZA8+MCsZ3TYE5nCcEC6doN1RnUQDAxY61mS1uhsbhKFMzy7mvTfujXvaz6"
+    "FqLtFadL/pXJ9J7ccMeQLuRyFGPVJ1cxzOhpxWBFNJM4n1lJ4vIlbXx5NSw/2nh4i+GNEnM1j5/Zm4eGtKifwEll9Xzs"
+    "1bKUnH75Y5N68TiNS3f69L9oXBgW6VUZVYdIB+NcYP/ExbtmJxoahyzNE8+hEtr/6gXNLx1Na3rWh/qw8SSKpHxmyFPh"
+    "qI1ykIULdra105GGwkR1mU+/GrxKMmecyu+Yaq+626YQVezJsI/fHUnlcM2OmHeGPat1P11LG5Wl+MIZSp0I/bMHs2CA"
+    "aJTspE+VeVh57vsdNNRKktVzKQuNnHMzeeHTRG6mbu7UDNT9Fdq3NBNX16l28ilhem0R+KSWWQts7HJyvzpk+lZQxXJn"
+    "mfZ7Lte5xCp1jqrS/d5o5tIJ6VtjaeR1ueJt/BRNQWD2iiy4miRe1HOwtZmRuIZQRKRWbpi2LlmkUci/DYlVuw5xw19s"
+    "l2xhJ6Z5bel9NSF4nEeTefUr2apmVttyhtECs2LLxta7wqfeulqF3OBtbtterEaZ4TWds7jjiaaX8I6xSUIpVzDrRxqF"
+    "Ung2OhCLZ/hvNjoNTnrVylixpa2SC2miHw6Yifc8lZ3ro7L//uE8wb1I/tUvOSydu9zOO42vvC9QmqLquQNEQxjFsKZR"
+    "smGmeznfVobOGvz9tN7K2YPviNgsi41NhKx6nOx9WHEgNiEkcc5H0y+3bfNWdIceF40lTxOruVeJu3U7QiSt2Nqi1BFL"
+    "h83DivHPJHfG3VIded2lMC6wzaHr0PyUWGSp+njpt4Qj8FORfcV1PJWEVYI1z9LgjvJbjy9/cOaghKsHkdRMlr7NQ1mB"
+    "rqxt7JXxOPjWdThd3ghmzbjMs06jZ2SV5ZSk+b54NJh1Q/aqDTyBwhHMa/707hmBHr1la72qmWy4MNcbUhpd00qeeb3g"
+    "y1McvND/eB4+mTnk4n0tl6wqm8UTkrEivpwtdCgBrS1JphkvD1XpeVONwmhcBtd5OiWLrlPuc6n6+tABx8Uc6RPZlsx4"
+    "mFzWjJqmgDhD07mmp6V5ppcfdYSK7WGFY4YyfDKZGjVnsqYEzXh5zq0gZ0C7m90GJmKWVgkWvVtC6lHmcbCWd6XTyThZ"
+    "R/xYGJ2JuyA7ePA6VXa1+duCOkSAxsmvX1p5pZ9Frj7QTaaCUmbFMBqFW9OBqTW+yThoGQukK54QTrvQsvdHmaAy01g2"
+    "Ro8y4K+M+G+jQ84147yqD7GBgyaQp5XfWt2vsAPE5ek1HLHwWLlH7+noXGhna4/HFogOJJ6PdlX9wOIInxALSby8kWGv"
+    "ihdbG8oaHBv6x22P2j5huwxaMGKanVgmv1OFrOSFKGcR3HDVR6+P2pNHTsRpSStZ8xkbM82Xqd+P03eU3dqTLD4D/mhH"
+    "rjl3d7bKYl09oU/wB77E6uzygwOuGTs/3uvQH89CpMs15BzTmyO5lVhJwwYtMMqt+kye2Wtp/eXax+z9jEMPdkNPlxgW"
+    "espoI2nkbaxL1Tj6ZVBIxBvRpEyOXr8NjgwRcyXn80LySgMEEjSTV8yE4UUSUcjFx8aReAFJz7NOFVu8hh3jXpMKWX5q"
+    "ZcQv05VFRMzZIYul0tPBe9PGXRFxkuwHfdeDTrr3tkbiMxPZki5MgtJ5hsCzZ1mEVIX4eArfZK+9eJxAuhV6iSgOtoH3"
+    "qJBMxrEWYLjrhFW/kHWHUxGTWln7UiQoaBn6s5PWvC6iRYeJxLjX2oYGpyvdXafCBcbogJ3bbGYhglAufqho3s7Mienc"
+    "auOTOdADTG00Ms8bMobMF+RPh2ShitrxTa1RL69rYHFhykxRDs0q01BsEfa4VoUEXz0U38wTvWs+2odyhn4JKCqnALzS"
+    "F0nUJnY4SqsbLvZNV7kjvMYsX3rMbUWZfPjQFl0Ztt+kKZuHG7LMAl7oV1ItVVx92MLT99Lcs+/EALV++xZY6Fugs22j"
+    "cOBBNXSXiSFQTdM+eTfm+vGGWh3sKvlEKBgaVnkWfCCosrEh6iw5LVgiLjMimw/0c6Uc3LWYDTspz25miIHCiPmmTMZx"
+    "gVbsw2l/rBcjZ6YwOromFURrT6IanVHLVI/uu8hnH2wH1K/T9vBXjHTMM5D1chTosswHieMfiCf2aEyFzBOkTxGLyBxR"
+    "XciKYa+zjYpomnvPTnPrz7k8e11gXIb938sML7SawrM83FlPX5U/+R3lLYVkIhbc51Ug0G++QH4xsvMjLYBdfBw2126I"
+    "qHGUeR6uZULP7rhh0tHaiKqkvCfy3z+GO5MW/KDqcKpH7nUlzzpFotPNuN/xVIqKuWypwDJGwc5huzzmzDh74prZbqeo"
+    "YZJy3yJFDwoJ4nRI8GPi1NnnJeTWhAuGC4AyHKP++Ra88xCH+oHC4HQaetL5HRe1LljTW3ehjEvkrQBo71LBLNuQqIUJ"
+    "/jGETfQjUztQT3Hqy/N3R2ZVkb/7iGfzY6UUvkt4btCD6d86mVvqNFCkHld46xJP9HDKI+EONUHncUX3SblO+UbvaOnb"
+    "R9+nwoaV+K2kKq26iKCtsGtPLYOR/oaNDuhFKCO8RAyw4kWWGjeIkGVqHNTSOmz3t7Sfo9lRP/I4s1UWkwxdHS3Vtsu5"
+    "D6m4YLFsNjH/8FHJTdNASlLMx+luZ9p+mb87ZnIu6Nt43uiVWkvgpq7uZXTDAnFeo+tt2RMpGdY8lh9mEa7SA4ZDvJrO"
+    "Tz6t/NYWhx09615nTT0Uz31fyaQjFAYlQRosWJCV2sdNonXmaR0SkyMfaDFRd4Ls6KjJMnrKYfr2ZBqq8xv/weTW5fAR"
+    "OxoISvVWrb1dU6RiZQBMm7Fvogpkd01xN2aUVbYBk2loZ0bN62bRpf5ZXE+cj1sYUQoNeGWondcw/NjO8SSRMK1DTWQV"
+    "CRC0LK82bBNiNXe8CN8nbikU9JRR/TYTjuNiolaOi9TwELGMRRKlBVPjLteTZM9pz8YnOex0Wsfs1tNWnTLYntGcrJNx"
+    "6CyjylxsZtUFvNZM/ZDBd1T7ud77GmTBwC+4dkzbMyUliJgb+e0bRtt06SrW7sqV0abK4IYFvh7r9vUHRyqfWhJy/YD9"
+    "+lUkAItGeu1rZV0yc0hTbMOOxNPIk6FzdemxV8xyiKNp82Q/jOS4UL6CZ472cnzdugr5CrHMqRHWCrEsIBQcg9JHK3xZ"
+    "uGt4MdabyrLUHK0hN3Xt4EBO7FI/l1MSeOqfdpbQI277r66ka3b0TpPBlViGaHXVL+x92i1pY73c+2hY6UKvq2eofcVY"
+    "4UHUyriFAWVuA3bIVfKIh5FcawxkzpW5cSXsKfxfn5hbrbNlUbjzGeN3O7OYcUZkIhvqXRz3yokLMrutjfU6YWkI2qQq"
+    "oNLa9WgO6YoI1yLsvm8gZinLm/7eTMGZWDsj0AcDke38r9fXYUl9ccpkiFdrQcuaVix5eK6gNrSe5grWv2whqwsrs1Cq"
+    "hp6IvDRiicWk/lyIt65wQUJMbXfyvdR1+51rBqXS7vyx4ad8mmtMLSLUuS+3T9nq2So1YV1zRvjJbAzbIMHBQsUn3y/2"
+    "lydpC5T+44Kn6xesojLa+SLC6467EqJPrh05QPiP4kgbTWv4oKOTAUUkKlGhF+rfgGCSApnlCbbDX9/y/5H1WFbqZVQe"
+    "vj9O272Lh0VFbzN7cb71hTIRyekyE4qIhFJUG74ajEHUDWqggK3P6KXPDzsyEofVppLyfT5ZBntmkZdM8smwVqKfiefu"
+    "DikuZPk2QeP4zs9nLahKJrStMKszuXCrtivdw2l0eDvqArK55EuVK9hqOWfj5XRrTcmeCnqPoRPWjVimIBtsJ+zB0cs3"
+    "SB3cgZFC63/hLJ5m12Vk+BYqqkirq/9aD4ZMJ2Kfg0lwADA/lAthHy652SL64T8xn2kIikZ4+61WteLWMiXSzsuAawuN"
+    "2DOqyc71vlysppB1s365SXIM2RUtkhriCigg+7IxR7vcyFQXErbi2vwsA3ZEip+ggGz8E/EmyTGhIvS8F76kcX8xZ5UQ"
+    "KKwy1QaurwW6ImF6lYl0bWAsP7f77SqL63Wm1/9niiEV01Jzsxy9rhPnSjLpS87icP+QxZviUg6+tYGkL822NbfqCgyh"
+    "2SpxppGqGMI0No7NslxCQ8EOSIYuCOJJITW3ghsE6Yy7laAIS7edYWSC3N0yoNdhCiGesuMrzRYLhmwe66mAvCrEe+3N"
+    "qtwNjcb+J1TdyEV81Ak0tpDu4Ok6JR5TiL9QCsP+hCW+804Uil/dlNSZbsL6O1Ws5OICl8XvVZgwtMzqV+haOo6YJPTp"
+    "HcnhaIy7/4nm2cuehUQlimkGPXf2VYIXdbJyK8M20e4aAV94CGaUXzDtKM7dWhnkQbwhtKbsssvmI3TuxoJf7anVk6zw"
+    "UG/izHSI2ULMb2oLPf0k7Mq1jZ1urMX+dl8K2VTAQCoLBMXIPRymVn+KnQZLmr33b/2hl1RhMq4pOrfSVRr5d9qQhkOV"
+    "g2MsKny0s4aYZiCxbcf/jQJCZS+1KEsbIBc8X27FVKyj4h8qn99T1BE3El2KeQkXFb42a0+nrw7q6pHe8KMigSGnBTG3"
+    "oiAUfvfajI2pOnqfyCVTae7OERxOrdEGt0RgxcdqFj5NLl62Ow+NRAVvwJW1pzEhTKEpRVmwfoYuOIwC7Yd34u1VPNL4"
+    "SALNj4qJXkPq74jizks4qwjcXRyLftc40thyVHY9f/VXudxGTMu9KuHfsPCV1SmKqo1QDeXqzYPmiSmxwpjjsbc0YzK7"
+    "HnTWeW6mg6J+0oYOZ1QHrxOLnXqFvCrXnlTJFe7asodqa4Rn8TNn5PbGEkmaLTG2thWypGlXO5JSq4SeCNv9toF7n7MJ"
+    "WkcYjuj5lHBedn5DJ6EeDUGfm/1mHS/GAxM7Px938EqHzIGlSngxh5DKqPhp1qyNGJ3d+6GINiH+vIxNoSz7SQci/ibV"
+    "U9vlnR1i8bApoDlabBRWXrKmwTbKmMKxBY5aaTlepkeriS5XI7qphvGnmqG+64lqu00GbKrodfUni6/k9IMD7J4n0axF"
+    "WCaLXgBQaxzx3J74GJNgRZr6kKFp3tNUV7i4vgfjEDFVyOZDQ7p8pg7ZWXcYEApYXMb1w4a3P+/DMnl7nS4XMFdYAelq"
+    "T0f9AmebaDYlQs4sVLNHNtcS9iEfjILKdkwNAEuMVlotPCwVOcrP7RsGieVK8mKk5mUcoQpK6gO1O162epXr+jaRKv/I"
+    "c0Jjeiti8oVVLYXHa13YlbS/+VUva975n8EzPbVSN7LTgwakH2trH9RtX+/OSSYSAPy3/MBMrtxAxnttmz9FH3bhqCHo"
+    "h7RDZkTkjuBM+pAuAClD80Xe9EYVnziNWSxdu+K5+uwsXf9KOKWoaiKZ3y8dJ9Rgm9qjSi7GTI+8uKCIeY66CVM9tRNZ"
+    "Ao1gJQe6nqMGrw7UaW0JGTJkZYJa2wsoVD82CiNZIaqNM+Ep7kqp7/A4D6y4221TbbQ6HsyI4V7M4hEtSA7U/xdHTYRr"
+    "Q+G/Ew6fhFe2qyyZZtLROA6MOFKX1FSRsNhK0OBMzRFdzU6k9wGyYGvt5FC1QHGAHn8UlztBobAUwTuNNYxwiZ3IhJ7h"
+    "naD2/QS9ThLz7l8MbsrWsHAZsvP8t/bZdIFhrBOpUaBHVJpTiuK/UIRGEUxWqVfOIIcpUp22p9ePaCbHzJuSKOrWSoLX"
+    "YhzSkfpjHc0C6nkZIOCZ7Z4HRpJVGFvaPYQ/hXG0BrF5cOOon9CC3MfKfyVhGatK0svie88okCVTqYYCT6gfbcdHmJgO"
+    "05LBXpYHrVZnhBRrJjbnU9SFQRMZsSP1OEKUDsOqdLBibXWt9zEL3bPgPoxFchjOtrszekJDOTCLszAgRyqS5gUMOEUg"
+    "y94e2Gad7I5Pqul+Sot/Ui3q6dFsuJGxWkv2xnMprubuLtXckCPNDH7qz14IDKsZYkn4s6eKXNIwqRKj6/Gc0UQKRUyL"
+    "rY5fLZM/tSGy5EiWgzskGaeNV/y7JtYxRpgP4hopI+rV83b90kEOERhrjiisFJQzOFINqWquJ8U6WGaDFVy3ytSmgx+m"
+    "VmcM+dHGeLzAwG5b/JBOb0RN6NfuYOAUzwigbE6yMoV+m+oyZvhBkupq0syIC/YlbEAHBQAYDCm4Pqxd5ttuaftjV4nF"
+    "g6LjnJ5S8k/f350dFwIpkBt1d5V4pXn/ThcP7zR5+fqR8sHRwEc8wYpjjAwALk2FysSKeS0BOE9XnxCcq+xSDdayul8N"
+    "emV4S3qgFUTtJtJeJQsQGnEX94qqgzM5PgZrxxalyq3iks8u02A9x2AdzrLJv5zJeq74Em7BW44qCK4pst7+pk6RLMM2"
+    "URhnqoW/ZgHYMKtErZHau158RTzVSNZPRNeFcmh7u6S3o0jeH0kU0hNtab5fLrQ+3M2PZmuyOlTPxZIrjkYhWRcWvV4d"
+    "kYNmURhsqm2xQj9sy/VNHUs9LBAZ5+Iejjs2koOlJNZQxvcH0PDDlNW4Ci3hwI7VQzJWODXQGOK5jA1ETTmg05uQNI5n"
+    "d+gh7ef1sM2DAmIzWain8VpMnTDPDUpkNU3ONTfZ7NbLX06RgmeK4jCz6wTVChzWQGpbD2V6EzoXYo+KSdrtOtZF9mNh"
+    "k/WZk5nk2q/npL8Hn06TEH9uhJHgY04VY7Ms7Ydt52CQw5mNNLTMViMDVFsXhqVRptXqL7itxJwly+xZ84eLmUS1T9qG"
+    "YyXq7PxEGbTwAahM3tA3vljeEJawahvweGl/VaJ7dE4qP5JQlk2cXuxXjmy31u4Z9vUvqaiHjWxu3CPoV/JN6pUt3u5Q"
+    "rjYw/gZJRX+tmq5bjMShmRoG3cmCMyLkTttCXRs2QSkczqQqTcjeZiXmsT8qTqTafgotHHC56otCCjcFZ1reoz7cZ0v8"
+    "ySD8Q13DGOq1H0oCZCAbxLcU7LD2Ykf6lditwSnAVX7WiDSWuVR2lGZQam1Npbf83trwJce/A4k0VNAWaZ0/oHEJl6hy"
+    "XFlFf6e1SZFzGbDlE9DKpURRFbHE9FP0WFb6YshkD5V27C3COnYy+gfApcNeAVApp9VnBPFQtAWvU01mYk69QLhiS7Bm"
+    "rHAWEHmx5gxDhTcSC/bLh9NsKMbh6GJQslHTTKA+th09fTPH0MEg7RSSeOhIASr3IlpcdJghY33kVz6G+Z+xz3MAuJVi"
+    "cOGGNFLt9bCBnF8DktbKS+pw7m7ofdqOX5Ol8NZmFUXDCAwKRXccnIxYl1/MZujPPRpxQ7YkrY4XxkcVVuyUOCESNtkz"
+    "wUpUz3621KsmBtARjHdJuFf0Lkpd/vjLrQ+OVOHBos3TQWgiIA3qYg/KqpCa4RmC0jD229CI7zlNUkrzdXismMfKOlQY"
+    "CWYNKyTnssDK7NJdaCzOsXz9iyd3FudBDlfOY2I7ScyHFdKRIn8eIZVGAnVtqWvvTiiGZPZKJ3VdXak1a58rXxfMD7Gl"
+    "XYOAW0PJye3+7xjQRiIv3dZynk5Vf/j/DRVazTF3ocEw7aI1i+3NJP02jw2V9aVdmsAqKri70YJshRV8Jx1MpYg6gRSe"
+    "0BjE5Gde+9b50oR9voky9kgTI/as8DKAtuMMd2Q7CAp58ftd/Y0ydlgXYudSQTrdbJbC0xtymflKFIKn7m+zTb9Kl5Ri"
+    "aFYnplhC9GTBgsFwNw3KVG+0YHDdoHqrkAD2UTnojNonE4E68v4q4JQ+RG0sQX/Y/4TzRazrz940j+D8SDgjFNLfo0xE"
+    "0eOuolS70eZ7OO86h7+Dy2jnlLIySGIOGqamoVAjRrFpPdQGeyb48teD+wZAqvc60UwMnfvbHCEKqFLqvWwo17kJlq7m"
+    "v89hkn4HGskwtguqLosCcVIT6cTqKWwi9RJKrSAvhUic+VuQvq7TO4eX2ZGZUYkOPuXcrpAZmK+MZe+yl1jLG8+dIHcS"
+    "4e6wmHBhVBkdSQ4V4n0lTADIKwkLwIxyTFOm15+SJrWVBaWTJstAE5M5OLkw6iry2olrciuLW5TFgZvTONqolvATsqm4"
+    "UuoumXx2LTOpkLr1PEMKh2zpUm1K3jv1jgRzFQ4usx/zUrhty8PLddAaXRjUaaxJ7bJloEPTLd3hkkMDa5AKwVH7sLHW"
+    "T0P9JYWsCWjtWbJD3g8pBIE3azPm+aHF8cMZUmcBY86gOXW3Pmn90rPFK45NK3EUr7diGYYzcEOfHtzFWFTzU0JLRVXO"
+    "wHlSrZXlSB+spwIh/Mwnr90uM24CPCQgwhAipx0Akk2jaW8/7vPzvEavyEtSMYCzuNxim01kJ/FIbocH1zZzDZC0xGbN"
+    "PmQ6FwCnT1lMlRqfe+djHDbapH3+SBdbfRL1ZUC8qKpVNI7fRrxJ279otrYWM38WxDClRUJOdqlgfROgvQ7uR1Do6eCb"
+    "IhrU/snii2Tc3+nK95OI+jnUrJR6LUXzk6isVSjCbBkRYUzN5S01GR6bWevI1L+eTgNLQla2")
+# phase 23e's files as Pillow 12.1 ends them, as TIFF_OUTCOMES
+TIFF_CODEC_OUTCOMES = {
+    'cielab_lzw.png': '3835cb3b03bf4076917883fe365b8a340922b0dd9a0701debdbfde968baca67e',
+    'lzma_check_damaged.jpg': '65bd03b5d09052b2f7b2b54089e648dfc8fc89ec94da7d74048e9b39ae99c52e',
+    'ojpeg_interchange.png': '3660c1a9ccc96c740d2f70d30c3a52f30dc3cf9d6d98a457c79988b31ed444c3',
+    'ojpeg_planes.jpg': '7745acaeed760de7dc597f3c71629cb000378e4460010f6c2513cc7d9afd23a8',
+    'ojpeg_tables.jpg': '3660c1a9ccc96c740d2f70d30c3a52f30dc3cf9d6d98a457c79988b31ed444c3',
+    'ojpeg_tiles.png': '6be3b090d7b49f9791c0935e3c647ebe9071135c437616061bbf169e0ff6aeab',
+    'thunderscan.jpg': '74cd85aa38e6a7fbf01eb17cc1544e6217101b8dec9a583f8877b8bfa47520d2',
+    'ycbcr_jpeg_planes.png': '7745acaeed760de7dc597f3c71629cb000378e4460010f6c2513cc7d9afd23a8',
+    'ycbcr_lzw_2x2.png': '79d767c3344ebf4c8ca945dee3e609a629ffab3d05f3edc235ce44ce12943883',
+    'ycbcr_lzw_4x2.jpg': 'c31ae6484332952dbb956fe5711dd93a4914f7cb1c66c9b735a7486a1d4c756e',
+    'zstd.png': '2c39976e943fd0ffc80efe81b40b0c9a12457aeea9b7580a1ccb3043c0727f5a',
+    'zstd_predictor2.jpg': '2c39976e943fd0ffc80efe81b40b0c9a12457aeea9b7580a1ccb3043c0727f5a',
+}
+JPEG_MEMORY_SIZE = (1536, 2048)  # phase 23e's progressive JPEG, h x w
+JPEG_BYTES_PER_PIXEL = 16  # the bound on the decoder's peak host RSS growth
+
+
+def _thunder_rows(g4) -> bytes:
+    """4-bit samples [h, w] as ThunderScan codes (``tif_thunder.c``), each
+    row on its own from a last pixel of 0: runs of the last pixel (2 to
+    63), three 2-bit deltas, two 3-bit deltas, else a raw pixel."""
+    two = {0: 0, 1: 1, -1: 3}
+    three = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    out = bytearray()
+    for row in g4.tolist():
+        w, i, last = len(row), 0, 0
+        while i < w:
+            r = 0
+            while i + r < w and r < 63 and row[i + r] == last:
+                r += 1
+            if r >= 2:
+                out.append(r)
+                i += r
+                continue
+            if i + 3 <= w:
+                d = [row[i] - last, row[i + 1] - row[i], row[i + 2] - row[i + 1]]
+                if all(x in two for x in d):
+                    out.append(0x40 | two[d[0]] << 4 | two[d[1]] << 2 | two[d[2]])
+                    last, i = row[i + 2], i + 3
+                    continue
+            if i + 2 <= w:
+                d = [row[i] - last, row[i + 1] - row[i]]
+                if all(x in three for x in d):
+                    out.append(0x80 | three[d[0]] << 3 | three[d[1]])
+                    last, i = row[i + 1], i + 2
+                    continue
+            out.append(0xC0 | row[i])
+            last, i = row[i], i + 1
+    return bytes(out)
+
+
+def _lzw_literals(data: bytes) -> bytes:
+    """A TIFF LZW strip of ``data`` that codes every byte as itself: a Clear
+    code every 250 codes keeps the codes 9 bits wide, then EOI; MSB first."""
+    codes = []
+    for k in range(0, len(data), 250):
+        codes += [256] + list(data[k:k + 250])
+    codes.append(257)
+    acc = nbits = 0
+    out = bytearray()
+    for c in codes:
+        acc, nbits = (acc << 9) | c, nbits + 9
+        while nbits >= 8:
+            nbits -= 8
+            out.append((acc >> nbits) & 0xFF)
+    if nbits:
+        out.append((acc << (8 - nbits)) & 0xFF)
+    return bytes(out)
+
+
+def _ycbcr_blocks(img, sh: int, sv: int) -> bytes:
+    """An RGB picture [h, w, 3] (h, w multiples of the sampling) as TIFF's
+    chunky YCbCr: each sh x sv block's luma row by row, then its Cb and Cr
+    (the block's means), Rec. 601 full range."""
+    import numpy as np
+
+    f = img.astype(np.float64)
+    y = 0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2]
+    cb = 128 - 0.168736 * f[..., 0] - 0.331264 * f[..., 1] + 0.5 * f[..., 2]
+    cr = 128 + 0.5 * f[..., 0] - 0.418688 * f[..., 1] - 0.081312 * f[..., 2]
+    h, w = y.shape
+    by, bx = h // sv, w // sh
+    luma = y.reshape(by, sv, bx, sh).transpose(0, 2, 1, 3).reshape(by, bx, sv * sh)
+    chroma = [c.reshape(by, sv, bx, sh).mean(axis=(1, 3))[..., None] for c in (cb, cr)]
+    blocks = np.concatenate([luma] + chroma, -1)
+    return np.clip(np.round(blocks), 0, 255).astype(np.uint8).tobytes()
+
+
+def _ojpeg_scan(img, restart: int, sampling):
+    """:func:`_jpeg_file` of ``img`` -> (its header, SOI to SOS; its scan
+    data cut at the restart markers)."""
+    import struct
+
+    jpg = _jpeg_file(img, restart=restart, sampling=sampling)
+    sos = jpg.find(b"\xff\xda")
+    head = jpg[:sos + 2 + struct.unpack_from(">H", jpg, sos + 2)[0]]
+    data = jpg[len(head):-2]
+    parts, cut = [], 0
+    for k in range(len(data) - 1):
+        if data[k] == 0xFF and 0xD0 <= data[k + 1] <= 0xD7:
+            parts.append(data[cut:k])
+            cut = k + 2
+    parts.append(data[cut:])
+    return head, parts
+
+
+def _ojpeg_file(img, form: str, sampling=(2, 2), rps=None, photo: int = 6, tile=None,
+                planar: int = 1) -> bytes:
+    """An old-style JPEG TIFF (compression 6) of ``img`` ([h, w, 3], or [h,
+    w] for one component) from :func:`_jpeg_file` with a restart interval
+    a strip where there are several, its scan data cut at the restart
+    markers into the strips (libtiff writes its own markers back):
+    ``form`` "interchange" puts the stream's header (SOI to SOS) in the
+    JPEGInterchangeFormat tags (513/514), "tables" only its tables in
+    JPEGQTables, JPEGDCTables and JPEGACTables (519-521, JPEGProc 1),
+    "inline" the header at the start of the first strip.  With ``tile``
+    (w, h) the stream is a tile wide and the tiles' rows tall (its left
+    tile's columns of ``img``), a tile a restart interval; tiles past the
+    stream's bands repeat its last.  ``planar`` 2 with three samples makes
+    a scan of each component at 1 x 1 (one frame of three), each in its
+    plane's strips, an SOS marker starting each after the first."""
+    import struct
+
+    import numpy as np
+
+    h, w = img.shape[:2]
+    gray = img.ndim == 2
+    tw, rps = tile if tile else (w, rps or h)
+    if tile:
+        bands = -(-h // rps)
+        canvas = np.zeros((bands * rps, tw) + img.shape[2:], np.uint8)
+        canvas[:h, :min(tw, w)] = img[:, :tw]
+        img = canvas
+    planes = planar == 2 and not gray
+    sh, sv = (1, 1) if gray or planes else sampling
+    restart = -(-tw // (8 * sh)) * (rps // (8 * sv)) if rps < h else 0
+    strips = []
+    for c in range(3 if planes else 1):
+        part_head, parts = _ojpeg_scan(np.ascontiguousarray(img[..., c]) if planes else img,
+                                       restart, (sh, sv))
+        if tile:
+            parts += parts[-1:] * (-(-w // tw) * len(parts) - len(parts))
+        if c:  # the component's scan: SOS, Ss 0, Se 63
+            parts[0] = b"\xff\xda" + struct.pack(">HBBBBBB", 8, 1, c + 1, 0, 0, 63, 0) + parts[0]
+        else:
+            head = part_head
+        strips += parts
+    if planes:  # a frame of three components, then the first one's scan
+        sof = head.find(b"\xff\xc0")
+        y, x = struct.unpack_from(">HH", head, sof + 5)
+        frame = b"\xff\xc0" + struct.pack(">HBHHB", 17, 8, y, x, 3) + bytes(
+            [1, 0x11, 0, 2, 0x11, 0, 3, 0x11, 0])
+        head = (head[:sof] + frame + head[sof + 2 + struct.unpack_from(">H", head, sof + 2)[0]:
+                                          head.find(b"\xff\xda")]
+                + b"\xff\xda" + struct.pack(">HBBBBBB", 8, 1, 1, 0, 0, 63, 0))
+    spp = 1 if gray else 3
+    fields = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * spp), 259: (3, [6]),
+              262: (3, [photo]), 277: (3, [spp])}
+    if tile:
+        fields[322], fields[323] = (3, [tw]), (3, [rps])
+    else:
+        fields[278] = (3, [rps])
+    if planar != 1:
+        fields[284] = (3, [planar])
+    if not gray:
+        fields[530] = (3, [sh, sv])
+    extra = []
+    if form == "inline":
+        strips[0] = head + strips[0]
+    elif form == "interchange":
+        extra = [head]
+    else:  # the tables behind the strips, their offsets in the tags
+        tables = _jpeg_tables()
+        dqt = tables[tables.find(b"\xff\xdb") + 4:]
+        dht = tables[tables.find(b"\xff\xc4") + 4:-2]
+        at, found = 0, {}
+        while at < len(dht):
+            n = 17 + sum(dht[at + 1:at + 17])
+            found[dht[at]] = dht[at + 1:at + n]
+            at += n
+        extra = [dqt[1:65], dqt[66:130], found[0x00], found[0x01], found[0x10], found[0x11]]
+    pos = 8 + sum(len(x) for x in strips)
+    offsets = []
+    for x in extra:
+        offsets.append(pos)
+        pos += len(x)
+    if form == "interchange":
+        fields[513], fields[514] = (4, offsets), (4, [len(head)])
+    elif form == "tables":
+        k = 1 if gray else 3
+        fields[512] = (3, [1])
+        for tag, pair in ((519, offsets[0:2]), (520, offsets[2:4]), (521, offsets[4:6])):
+            fields[tag] = (4, ([pair[0]] * 3 if planes else [pair[0], pair[1], pair[1]])[:k])
+    # the strips first, then the tables as segments after them (not strips)
+    out = bytearray(_tiff_file(fields, strips + extra, tiled=bool(tile)))
+    at = struct.unpack_from("<I", out, 4)[0]
+    for i in range(struct.unpack_from("<H", out, at)[0]):
+        e = at + 2 + 12 * i
+        tag, typ, count, value = struct.unpack_from("<HHII", out, e)
+        if tag in (273, 279, 324, 325):
+            first = value if count == 1 else struct.unpack_from("<I", out, value)[0]
+            if len(strips) == 1:
+                struct.pack_into("<HHII", out, e, tag, typ, 1, first)
+            else:
+                struct.pack_into("<HHII", out, e, tag, typ, len(strips), value)
+    return bytes(out)
+
+
+def _tiff_codec_files() -> dict:
+    """The files of phase 23e -> {name: bytes}: phase 23d's picture in the
+    TIFF codecs and layouts phase 23d leaves out, written by the script's own
+    writers (Zstandard from the constants above): Zstandard, with predictor
+    2, ThunderScan (4-bit), YCbCr in LZW at 2 x 2 and 4 x 2 (libtiff's RGBA
+    interface), YCbCr JPEG in three planes, CIELab in LZW (Pillow's
+    LittleCMS conversion), old-style JPEG in strips of 32 rows with its
+    header in JPEGInterchangeFormat and with its tables in tags, in three
+    planes and in 64 x 32 tiles side by side (libtiff reads each tile as the
+    next band of one stream), and an LZMA
+    strip whose check is damaged after its data (liblzma
+    5.8.2 reads it; older ones fail it)."""
+    import base64
+    import lzma
+    import struct
+
+    import numpy as np
+
+    rng = np.random.RandomState(41)
+    h, w = TIFF_SIZE
+    img = _gradient_image(rng, h, w)
+    img = np.clip(img.astype(np.int64) + rng.randint(-20, 21, img.shape), 0, 255)
+    img = img.astype(np.uint8)
+    gray = img[..., 1]
+
+    def fields(photo, bits, spp, comp, more=None):
+        f = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [comp]),
+             262: (3, [photo]), 277: (3, [spp])}
+        f.update(more or {})
+        return f
+
+    files = {
+        "zstd.png": _tiff_file(fields(1, 8, 1, 50000), [base64.b64decode(ZSTD_GRAY)]),
+        "zstd_predictor2.jpg": _tiff_file(fields(1, 8, 1, 50000, {317: (3, [2])}),
+                                          [base64.b64decode(ZSTD_GRAY_PREDICTOR2)]),
+        "thunderscan.jpg": _tiff_file(fields(1, 4, 1, 32809), [_thunder_rows(gray >> 4)]),
+    }
+    for sh, sv, name in ((2, 2, "ycbcr_lzw_2x2.png"), (4, 2, "ycbcr_lzw_4x2.jpg")):
+        files[name] = _tiff_file(
+            fields(6, 8, 3, 5, {278: (3, [32]), 530: (3, [sh, sv])}),
+            [_lzw_literals(_ycbcr_blocks(img[y:y + 32], sh, sv)) for y in range(0, h, 32)])
+    planes = [_jpeg_file(img[..., c], sampling=(1, 1), ycc=False, abbreviated=True)
+              for c in range(3)]
+    files["ycbcr_jpeg_planes.png"] = _tiff_file(
+        fields(6, 8, 3, 7, {284: (3, [2]), 347: (7, _jpeg_tables()), 530: (3, [1, 1])}), planes)
+    lab = img.astype(np.int64)  # a Lab picture: L from green, a and b signed
+    lab = np.stack([lab[..., 1], lab[..., 0] - 128, lab[..., 2] - 128], -1).astype(np.uint8)
+    files["cielab_lzw.png"] = _tiff_file(fields(8, 8, 3, 5, {278: (3, [48])}),
+                                         [_lzw_literals(lab[y:y + 48].tobytes())
+                                          for y in range(0, h, 48)])
+    files["ojpeg_interchange.png"] = _ojpeg_file(img, "interchange", rps=32)
+    files["ojpeg_tables.jpg"] = _ojpeg_file(img, "tables", rps=32)
+    files["ojpeg_planes.jpg"] = _ojpeg_file(img, "inline", rps=32, planar=2)
+    files["ojpeg_tiles.png"] = _ojpeg_file(img, "interchange", tile=(64, 32))
+    xz = bytearray(lzma.compress(img.tobytes(), format=lzma.FORMAT_XZ, check=lzma.CHECK_CRC64))
+    index = (struct.unpack_from("<I", xz, len(xz) - 8)[0] + 1) * 4  # the footer's backward size
+    xz[len(xz) - 12 - index - 8] ^= 0x5A  # the block's CRC64, after all its data
+    files["lzma_check_damaged.jpg"] = _tiff_file(fields(2, 8, 3, 34925), [bytes(xz)])
+    return files
+
+
+def jpeg_memory_child(spec_json: str) -> int:
+    """``chip_smoke.py --jpeg-memory-child <json>``: the port's JPEG decoder
+    on one file in a process of its own -> one JSON line: its peak host RSS
+    growth in KiB (:class:`_PeakRss` less the RSS before), bytes a declared
+    pixel, the decode's ms and the SHA-256 of the array read."""
+    import hashlib
+
+    import numpy as np
+
+    from cogview_tpu_torch.utils.image_formats import decode_image
+
+    spec = json.loads(spec_json)
+    with open(spec["path"], "rb") as f:
+        data = f.read()
+    before = _status_kib("VmRSS") or 0
+    t0 = time.perf_counter()
+    with _PeakRss() as peak:
+        img = decode_image(data)
+    ms = (time.perf_counter() - t0) * 1000.0
+    h, w = img.shape[:2]
+    ok = img.dtype == np.uint8 and img.shape == (h, w, 3)
+    growth = max(peak.peak - before, 0)
+    print(json.dumps({"growth_kib": growth, "pixels": h * w, "ok": bool(ok),
+                      "bytes_per_pixel": growth * 1024 / (h * w), "ms": ms,
+                      "sha256": hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()}))
+    return 0
+
+
+def phase_tiff_codecs(torch, vqvae, work: str, smi: str) -> None:
+    """Phase 23e: the TIFF codecs phase 23d leaves out on the card's host,
+    without Pillow (TIFF_CODEC_OUTCOMES), then through the preprocess CLI on
+    the card; and a 2048 x 1536 progressive JPEG decoded in a child process,
+    its peak host RSS growth held to JPEG_BYTES_PER_PIXEL a declared pixel
+    (see the module docstring)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    files = _tiff_codec_files()
+    host_ms, rows, skipped = _outcomes_phase(torch, vqvae, work, "tiff_codecs", files,
+                                             TIFF_CODEC_OUTCOMES)
+    h, w = TIFF_SIZE
+    print(f"tiff codecs ({smi}; host decode of {h} x {w}, ms): "
+          + ", ".join(f"{n} {host_ms[n]:.1f}" for n in sorted(files)))
+    print(f"tiff codecs: {len(files)} files as Pillow ends them, {rows} rows, {skipped} "
+          f"skipped, codes equal to img2code of the arrays read")
+    mh, mw = JPEG_MEMORY_SIZE
+    big = _gradient_image(np.random.RandomState(43), mh, mw)
+    path = os.path.join(work, "progressive_2048x1536.jpg")
+    with open(path, "wb") as f:
+        f.write(_jpeg_file(big, progressive=True))
+    got = _run_child("--jpeg-memory-child", {"path": path}, "jpeg memory")
+    _check(got["ok"] and got["pixels"] == mh * mw, "the progressive JPEG did not decode whole")
+    _check(got["bytes_per_pixel"] <= JPEG_BYTES_PER_PIXEL,
+           f"the JPEG decoder's peak host RSS grew {got['bytes_per_pixel']:.2f} bytes a declared "
+           f"pixel, past {JPEG_BYTES_PER_PIXEL}")
+    print(f"jpeg memory ({smi}): a {mw} x {mh} progressive JPEG ({os.path.getsize(path)} "
+          f"bytes) decoded in a child process in {got['ms']:.1f} ms, peak host RSS +"
+          f"{got['growth_kib']} KiB = {got['bytes_per_pixel']:.2f} bytes a declared pixel "
+          f"(bound {JPEG_BYTES_PER_PIXEL})")
+    print(f"tiff codecs: phase {time.perf_counter() - t0:.1f} s")
 
 
 def phase_vqtrain(torch, work: str, smi: str) -> None:
@@ -5079,6 +5776,8 @@ def main() -> int:
         lap("phase 23c")
         phase_tiff_files(torch, vqvae, work, smi.splitlines()[0])
         lap("phase 23d")
+        phase_tiff_codecs(torch, vqvae, work, smi.splitlines()[0])
+        lap("phase 23e")
         phase_vqtrain(torch, work, smi.splitlines()[0])
         lap("phase 24")
         phase_fid(torch, png, work, smi.splitlines()[0])
@@ -5310,4 +6009,6 @@ if __name__ == "__main__":
         sys.exit(write_checkpoint_child(sys.argv[2]))
     if sys.argv[1:2] == ["--sr-train-child"]:
         sys.exit(sr_train_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--jpeg-memory-child"]:
+        sys.exit(jpeg_memory_child(sys.argv[2]))
     sys.exit(main())

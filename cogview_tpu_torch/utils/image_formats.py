@@ -73,8 +73,10 @@ from .xpm import decode_xpm
 READ_FORMATS = (
     "PNG (every colour type, depth and interlace), BMP and DIB, GIF, PNM (P1-P6, PFM and "
     "Pillow's P0CMYK and Py extensions), QOI, WebP (lossy, lossless, alpha, an animation's "
-    "first frame), TIFF and BigTIFF (none, PackBits, LZW, Deflate, LZMA, CCITT RLE, Group "
-    "3 and 4, JPEG; every sample layout Pillow reads), ICO and CUR, TGA, PSD (8-bit composite), DDS (uncompressed, BC1-BC5, BC7), "
+    "first frame), TIFF and BigTIFF (none, PackBits, LZW, Deflate, LZMA, Zstandard, "
+    "ThunderScan, CCITT RLE, Group 3 and 4, JPEG, old-style JPEG; every sample "
+    "layout Pillow reads, YCbCr and CIELab), ICO and CUR, TGA, PSD (8-bit composite), "
+    "DDS (uncompressed, BC1-BC5, BC7), "
     "PCX and DCX, SGI, SUN, XBM, XPM, MSP, ICNS (PNG and RGB members), IM, FITS, BLP, SPIDER, "
     "GBR, FTEX, McIdas, PIXAR, IMT, XV thumbnails or baseline JPEG, progressive, "
     "arithmetic-coded and 8-bit lossless JPEG (also CMYK and YCCK)")

@@ -46,6 +46,18 @@ an error Pillow raises "broken data stream", and where its data run out
 (a file cut short) Pillow raises "image file is truncated": both raise a
 ``ValueError`` here, as ``UnsupportedImageError`` never is.
 
+Host memory stays near libjpeg's: a file of one scan holds its
+coefficients a band of MCU rows at a time (about a sixteenth of the image,
+at most 4,096 blocks, as libjpeg holds an iMCU row), each band going
+through the IDCT into its component's samples when the decoder leaves it;
+a file of several scans keeps each component's coefficients over the
+whole image in 16 bits (an ``array('h')`` of JCOEF values), as libjpeg's
+whole-image buffer does, and drops them once that component's samples
+are made; the IDCT, block smoothing, upsampling and colour conversion
+run over bands of rows, and a lossless file's differences are kept in 16
+bits.  The peak is a few bytes a pixel
+(``tests/test_torch_image_memory.py``).
+
 Four components are read as libjpeg-turbo reads them for Pillow: CMYK
 without an Adobe marker or with transform 0, YCCK with transform 2 (or any
 other), each inverted as Pillow's ``CMYK;I`` raw mode and converted to RGB
@@ -65,6 +77,7 @@ decoder one binary decision at a time.
 from __future__ import annotations
 
 import re
+from array import array
 
 import numpy as np
 
@@ -301,7 +314,7 @@ def _unstuff(chunk: bytes) -> bytes:
 
 
 def _decode_segment(seg: bytes, blocks, coefs, tables):
-    """Huffman-decode the blocks of one restart interval.  ``blocks`` lists,
+    """Huffman-decode the blocks of one restart interval.  ``blocks`` gives,
     in stream order, (component, offset of the block's 64 coefficients in
     ``coefs[component]``, whether the block starts an MCU);
     ``tables[component]`` is (DC table, AC table); DC predictions start at
@@ -314,10 +327,10 @@ def _decode_segment(seg: bytes, blocks, coefs, tables):
     acc = nbits = pos = 0
     pred = {}
     zz = _ZIGZAG
-    for block in blocks:
-        comp, base, first = block
+    i = -1
+    for i, (comp, base, first) in enumerate(blocks):
         if first and (pos << 3) - nbits > limit:
-            return blocks.index(block)
+            return i
         dc, ac = tables[comp]
         out = coefs[comp]
         # DC: a category, then that many bits
@@ -336,7 +349,7 @@ def _decode_segment(seg: bytes, blocks, coefs, tables):
                 v -= (1 << s) - 1
         v += pred.get(comp, 0)
         pred[comp] = v
-        out[base] = v  # stored in 16 bits when the block is transformed
+        out[base] = v if -0x8000 <= v <= 0x7FFF else _s16(v)  # a JCOEF
         # AC: (run, size) symbols until EOB or coefficient 63
         k = 1
         while k < 64:
@@ -361,7 +374,7 @@ def _decode_segment(seg: bytes, blocks, coefs, tables):
                 k += 16
             else:
                 break
-    return len(blocks) if (pos << 3) - nbits > limit else None
+    return i + 1 if (pos << 3) - nbits > limit else None
 
 
 class _Dry(Exception):
@@ -369,9 +382,11 @@ class _Dry(Exception):
     given the decoder."""
 
 
-def _runs_dry(raw: bytes, start: int, blocks, tables, fast: bool, lossless=False) -> bool:
-    """Whether libjpeg-turbo, Huffman-decoding the ``blocks`` of a one-scan
-    file whose entropy-coded data run from ``raw[start:]`` to the end of
+def _runs_dry(raw: bytes, start: int, mcus: int, mcu, tables, fast: bool,
+              lossless=False) -> bool:
+    """Whether libjpeg-turbo, Huffman-decoding ``mcus`` MCUs (each the
+    blocks of the components ``mcu`` lists, in order) of a one-scan file
+    whose entropy-coded data run from ``raw[start:]`` to the end of
     the file with no marker after them, asks for a byte past the end
     before its last MCU is complete: then Pillow's decoder suspends and
     the file is cut short; else Pillow reads it.  The bit buffer is
@@ -402,7 +417,6 @@ def _runs_dry(raw: bytes, start: int, blocks, tables, fast: bool, lossless=False
     nd = len(data)
     data += bytes(8)
     end = min(n, -(-start // 65536) * 65536)
-    mcus = [i for i, b in enumerate(blocks) if b[2]] + [len(blocks)]
     loaded = used = 0  # data bytes loaded into the buffer, bits taken from it
 
     def fill(need: int) -> None:  # jpeg_fill_bit_buffer
@@ -444,13 +458,13 @@ def _runs_dry(raw: bytes, start: int, blocks, tables, fast: bool, lossless=False
             fill_fast() if quick else fill(s)
             used += s
 
-    for m0, m1 in zip(mcus, mcus[1:]):
+    for _ in range(mcus):
         state, slow = (loaded, used), False
         while True:
-            quick = fast and not slow and end - (ends[loaded - 1] if loaded else start) >= 512 * (
-                m1 - m0)
+            left = end - (ends[loaded - 1] if loaded else start)
+            quick = fast and not slow and left >= 512 * len(mcu)
             try:
-                for comp, _, _ in blocks[m0:m1]:
+                for comp in mcu:
                     if lossless:
                         s = symbol(tables[comp], False)
                         if s != 16:
@@ -531,10 +545,10 @@ def _decode_progressive_segment(seg: bytes, blocks, coefs, tables, ss: int, se: 
     limit = br.limit
     if ss == 0:
         pred = {}
-        for block in blocks:
-            comp, base, first = block
+        i = -1
+        for i, (comp, base, first) in enumerate(blocks):
             if first and (br.pos << 3) - br.nbits > limit:  # a refinement reads on, to no avail
-                return blocks.index(block)
+                return i
             if ah:
                 if br.bits(1):
                     coefs[comp][base] |= 1 << al
@@ -542,13 +556,13 @@ def _decode_progressive_segment(seg: bytes, blocks, coefs, tables, ss: int, se: 
             s = br.huff(tables[comp][0])
             v = (br.signed(s) if s else 0) + pred.get(comp, 0)
             pred[comp] = v
-            coefs[comp][base] = v << al
-        return len(blocks) if br.ran_out() else None
+            coefs[comp][base] = _s16(v << al)
+        return i + 1 if br.ran_out() else None
     p1, m1 = 1 << al, -1 << al
     big = 15 - al  # a category above this leaves 16 bits
     eobrun = 0
-    for block in blocks:  # an MCU each; the data can run out only in one that reads bits
-        comp, base, _ = block
+    # a block an MCU; the data can run out only in one that reads bits
+    for i, (comp, base, _) in enumerate(blocks):
         out, ac = coefs[comp], tables[comp][1]
         if not ah:
             if eobrun:
@@ -569,7 +583,7 @@ def _decode_progressive_segment(seg: bytes, blocks, coefs, tables, ss: int, se: 
                     break
                 k += 1
             if (br.pos << 3) - br.nbits > limit:
-                return blocks.index(block) + 1
+                return i + 1
             continue
         # refinement: a correction bit for every coefficient already nonzero
         # that the pass crosses, and new coefficients of magnitude 1 << al
@@ -585,9 +599,10 @@ def _decode_progressive_segment(seg: bytes, blocks, coefs, tables, ss: int, se: 
                     break
                 while k <= se:
                     pos = base + zz[k]
-                    if out[pos]:
-                        if br.bits(1) and not out[pos] & p1:
-                            v = out[pos] + (p1 if out[pos] >= 0 else m1)
+                    c = out[pos]
+                    if c:
+                        if br.bits(1) and not c & p1:
+                            v = c + (p1 if c >= 0 else m1)
                             out[pos] = v if v >= -0x8000 else v + 0x10000
                     else:
                         r -= 1
@@ -600,13 +615,14 @@ def _decode_progressive_segment(seg: bytes, blocks, coefs, tables, ss: int, se: 
         if eobrun:
             while k <= se:
                 pos = base + zz[k]
-                if out[pos] and br.bits(1) and not out[pos] & p1:
-                    v = out[pos] + (p1 if out[pos] >= 0 else m1)
+                c = out[pos]
+                if c and br.bits(1) and not c & p1:
+                    v = c + (p1 if c >= 0 else m1)
                     out[pos] = v if v >= -0x8000 else v + 0x10000
                 k += 1
             eobrun -= 1
         if (br.pos << 3) - br.nbits > limit:
-            return blocks.index(block) + 1
+            return i + 1
     return None
 
 
@@ -865,10 +881,10 @@ def _arith_segment(seg: bytes, stop, blocks, coefs, comps, scan, arith, ss: int,
             k += 1
 
 
-def _lossless_units(comps, scan, w: int, h: int, restart: int, k: int) -> list:
-    """The samples of a lossless scan's restart interval ``k``, in decoding
-    order, as :func:`_runs_dry` takes blocks: (component, None, whether it
-    starts an MCU)."""
+def _lossless_units(comps, scan, w: int, h: int, restart: int, k: int) -> tuple:
+    """The MCUs of a lossless scan's restart interval ``k`` as
+    :func:`_runs_dry` takes them -> (their number, the component of each
+    sample of an MCU)."""
     if len(scan) == 1:
         c = comps[scan[0]]
         mcux, mcuy, mcu = c["dw"], c["dh"], [scan[0]]
@@ -877,8 +893,7 @@ def _lossless_units(comps, scan, w: int, h: int, restart: int, k: int) -> list:
         mcux, mcuy = -(-w // hmax), -(-h // vmax)
         mcu = [ci for ci in scan for _ in range(comps[ci]["h"] * comps[ci]["v"])]
     per_rows = restart // mcux if restart else mcuy
-    rows = min(per_rows, mcuy - k * per_rows)
-    return [(ci, None, j == 0) for _ in range(rows * mcux) for j, ci in enumerate(mcu)]
+    return min(per_rows, mcuy - k * per_rows) * mcux, mcu
 
 
 def _lossless_scan(drive, comps, scan, w: int, h: int, restart: int, luts: dict,
@@ -895,7 +910,9 @@ def _lossless_scan(drive, comps, scan, w: int, h: int, restart: int, luts: dict,
     every other row's first sample from the one above, the rest by the
     scan's predictor, modulo 2**16.  ``luts[ci]`` is the component's
     Huffman table; ``samples[ci]`` receives the component's rows at its
-    downsampled width, shifted left by Pt into 8 bits."""
+    downsampled width, shifted left by Pt into 8 bits.  The differences
+    are kept modulo 2**16 in 16 bits, and the undifferencing holds one row
+    in 64 bits."""
     hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
     if len(scan) == 1:
         c = comps[scan[0]]
@@ -903,7 +920,7 @@ def _lossless_scan(drive, comps, scan, w: int, h: int, restart: int, luts: dict,
     else:
         mcux, mcuy = -(-w // hmax), -(-h // vmax)
         units = [(ci, comps[ci]["h"], comps[ci]["v"]) for ci in scan]
-    diffs = {ci: np.zeros((mcuy * v, mcux * hh), np.int64) for ci, hh, v in units}
+    diffs = {ci: np.zeros((mcuy * v, mcux * hh), np.uint16) for ci, hh, v in units}
     per_rows = restart // mcux if restart else mcuy  # MCU rows a restart interval
     if restart and (restart % mcux or not per_rows):
         raise ValueError("lossless JPEG with a restart interval that is not a whole "
@@ -927,53 +944,55 @@ def _lossless_scan(drive, comps, scan, w: int, h: int, restart: int, luts: dict,
                     for y in range(my * v, my * v + v):
                         for x in range(mx * hh, mx * hh + hh):
                             s = br.huff(lut)
-                            d[y, x] = 32768 if s == 16 else (br.signed(s) if s else 0)
+                            d[y, x] = 32768 if s == 16 else (br.signed(s) & 0xFFFF if s else 0)
         return rows.stop if br.ran_out() else None
 
     drive(-(-mcuy // per_rows), part)
     initial = 1 << (8 - pt - 1)
     for ci, hh, v in units:
         c = comps[ci]
-        d = diffs[ci][:, :c["dw"]]
-        out = np.zeros_like(d)
+        d = diffs.pop(ci)[:, :c["dw"]]
+        plane = samples[ci]
         vc = c["v"]  # the rows of an iMCU row, which libjpeg undifferences together
-        for y in range(d.shape[0]):
-            row, dd = out[y], d[y]
+        prev = None
+        for y in range(c["dh"]):
+            dd = d[y].astype(np.int64)
             # the first row of an iMCU row in whose MCU rows (v of them, or 1)
             # the predictor was reset
             first = y % vc == 0 and any(k in resets for k in range(y // v, (y + vc) // v))
             if first:
-                np.cumsum(dd, out=row)
+                row = np.cumsum(dd)
                 row += initial
                 row &= 0xFFFF  # a running sum modulo 2**16 is the 1-D rule
-                continue
-            prev = out[y - 1]
-            if predictor in (1, 2):
+            elif predictor in (1, 2):
                 if predictor == 2:
-                    row[:] = (dd + prev) & 0xFFFF
+                    row = (dd + prev) & 0xFFFF
                 else:
-                    row[0] = (dd[0] + prev[0]) & 0xFFFF
-                    row[1:] = dd[1:]
+                    row = dd
+                    row[0] += prev[0]
                     np.cumsum(row, out=row)
                     row &= 0xFFFF
-                continue
-            ra = (dd[0] + prev[0]) & 0xFFFF
-            row[0] = ra
-            for x in range(1, len(dd)):
-                rb, rc = prev[x], prev[x - 1]
-                if predictor == 3:
-                    p = rc
-                elif predictor == 4:
-                    p = ra + rb - rc
-                elif predictor == 5:
-                    p = ra + ((rb - rc) >> 1)
-                elif predictor == 6:
-                    p = rb + ((ra - rc) >> 1)
-                else:
-                    p = (ra + rb) >> 1
-                ra = (dd[x] + p) & 0xFFFF
-                row[x] = ra
-        samples[ci] = ((out[:c["dh"]] << pt) & 0xFF).astype(np.uint8)
+            else:
+                row = np.empty_like(dd)
+                ra = int(dd[0] + prev[0]) & 0xFFFF
+                row[0] = ra
+                up, dl = prev.tolist(), dd.tolist()
+                for x in range(1, len(dl)):
+                    rb, rc = up[x], up[x - 1]
+                    if predictor == 3:
+                        p = rc
+                    elif predictor == 4:
+                        p = ra + rb - rc
+                    elif predictor == 5:
+                        p = ra + ((rb - rc) >> 1)
+                    elif predictor == 6:
+                        p = rb + ((ra - rc) >> 1)
+                    else:
+                        p = (ra + rb) >> 1
+                    ra = (dl[x] + p) & 0xFFFF
+                    row[x] = ra
+            plane[y] = (row << pt) & 0xFF
+            prev = row
 
 
 # jidctint.c's fixed-point constants, FIX(x) = round(x * 2**13)
@@ -1107,7 +1126,7 @@ def _ycc_tables():
     cb_b = (fix(1.77200) * x + one_half) >> 16
     cr_g = -fix(0.71414) * x
     cb_g = -fix(0.34414) * x + one_half
-    return cr_r, cb_b, cr_g, cb_g
+    return tuple(t.astype(np.int32) for t in (cr_r, cb_b, cr_g, cb_g))
 
 
 _CR_R, _CB_B, _CR_G, _CB_G = _ycc_tables()
@@ -1115,11 +1134,12 @@ _CR_R, _CB_B, _CR_G, _CB_G = _ycc_tables()
 
 def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     """uint8 planes -> [h, w, 3] uint8, as jdcolor.c's ycc_rgb_convert."""
-    y = y.astype(np.int64)
-    r = y + _CR_R[cr]
-    g = y + ((_CB_G[cb] + _CR_G[cr]) >> 16)
-    b = y + _CB_B[cb]
-    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+    y = y.astype(np.int32)
+    out = np.empty(y.shape + (3,), np.uint8)
+    out[..., 0] = np.clip(y + _CR_R[cr], 0, 255)
+    out[..., 1] = np.clip(y + ((_CB_G[cb] + _CR_G[cr]) >> 16), 0, 255)
+    out[..., 2] = np.clip(y + _CB_B[cb], 0, 255)
+    return out
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
@@ -1143,11 +1163,16 @@ class _Decoder:
     file of several scans (progressive, or one scan per component) must
     reach EOI first."""
 
+    block_rows = False  # keep each component's rows to its last whole block row
+
     def __init__(self, data: bytes):
         self.data, self.n = data, len(data)
         self.pos, self.unread = 2, 0  # after SOI; a marker read and not yet processed
         self.held = min(self.n, _CHUNK)  # the bytes Pillow has handed the decoder
         self.fake_eoi = False  # libtiff's source: FF D9 FF D9 ... past the end, never cut short
+        # libtiff's old-style JPEG source, whose resync_to_restart is an error:
+        # the interval where a restart marker was not the one expected
+        self.resync_fails, self.failed_part = False, None
         self.fixed = False  # inside jdarith.c, which cannot suspend for more
         self.dht = {}  # (0 DC or 1 AC, index) -> (counts, symbols)
         self.luts = {}
@@ -1387,8 +1412,13 @@ class _Decoder:
             c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]  # blocks allocated
             c["dw"] = -(-w * c["h"] // hmax)  # downsampled size
             c["dh"] = -(-h * c["v"] // vmax)
-        self.coefs = [[0] * (c["bw"] * c["bh"] * 64) for c in comps]
-        self.samples = [np.zeros((c["dh"], c["dw"]), np.uint8) for c in comps]
+        # each component's JCOEF values over the whole image (an array('h')),
+        # kept only where the file has several scans, as libjpeg keeps them
+        self.whole = [None] * len(comps)
+        # each component's samples at its downsampled size, made at its first
+        # IDCT (:meth:`_sample_plane`) but in a lossless file
+        self.samples = [np.zeros((c["dh"], c["dw"]), np.uint8) if self.process == "lossless"
+                        else None for c in comps]
         self.coef_bits = [[-1] * 64 for _ in comps]  # jdphuff.c's progression status
         self.prev_bits = [[-1] * 64 for _ in comps]  # ... before each component's last scan
         self.scans = 0
@@ -1414,6 +1444,7 @@ class _Decoder:
         scan, ss, se, ah, al = self.scan
         comps, (h, w) = self.comps, self.size
         self.scans += 1
+        self.luts = {}  # the tables of this scan only
         if len(scan) > 1 and sum(comps[ci]["h"] * comps[ci]["v"] for ci in scan) > 10:
             raise ValueError("corrupt JPEG: more than 10 blocks in an MCU")
         if self.process == "lossless":
@@ -1423,8 +1454,8 @@ class _Decoder:
             dry = None
             if self.single:
                 def dry(k, start):
-                    units = _lossless_units(comps, scan, w, h, self.restart, k)
-                    return _runs_dry(self.data, start, units, luts, False, lossless=True)
+                    mcus, mcu = _lossless_units(comps, scan, w, h, self.restart, k)
+                    return _runs_dry(self.data, start, mcus, mcu, luts, False, lossless=True)
             _lossless_scan(lambda n, part: self._drive(n, part, dry), comps, scan, w, h,
                            self.restart, luts, ss, al, self.samples)
             return
@@ -1444,16 +1475,19 @@ class _Decoder:
                 for k in range(min(ss, 1), max(se, 9) + 1):
                     prev[k] = cur[k] if self.scans > 1 else 0
                 cur[ss:se + 1] = [al] * (se - ss + 1)
-        blocks = _scan_blocks(comps, scan, w, h)
-        per = len(blocks)
-        if self.restart:
-            per = self.restart * per // _scan_mcus(comps, scan, w, h)
-        parts = [blocks[k:k + per] for k in range(0, len(blocks), per)]
-        coefs = self.coefs
+        bands = _Bands(self, scan)
+        nmcus = bands.mcux * bands.mcuy
+        per = self.restart or nmcus  # MCUs a restart interval
+        nparts = -(-nmcus // per)
+        coefs = bands.cur
         dry = None
+
+        def blocks(k):
+            return bands.blocks(k * per, min(nmcus, k * per + per))
+
         if self.is_arith:
             def decode(k, seg, stop):
-                _arith_segment(seg, stop, parts[k], coefs, comps, scan, self.arith, ss, se, ah,
+                _arith_segment(seg, stop, blocks(k), coefs, comps, scan, self.arith, ss, se, ah,
                                al, progressive)
         else:
             tables = {ci: (self._lut(0, comps[ci]["td"], 15)
@@ -1465,23 +1499,25 @@ class _Decoder:
                 if seg is None:
                     return 0
                 if progressive:
-                    return _decode_progressive_segment(seg, parts[k], coefs, tables, ss, se,
+                    return _decode_progressive_segment(seg, blocks(k), coefs, tables, ss, se,
                                                        ah, al)
-                return _decode_segment(seg, parts[k], coefs, tables)
+                return _decode_segment(seg, blocks(k), coefs, tables)
 
             if self.single:
                 def dry(k, start):
-                    return _runs_dry(self.data, start, parts[k], tables, not self.restart)
-        stops = self._drive(len(parts), decode, dry)
+                    return _runs_dry(self.data, start, min(per, nmcus - k * per),
+                                     [b[0] for b in bands.layout], tables, not self.restart)
+        stops = self._drive(nparts, decode, dry)
+        bands.flush()
         # jdcoefct.c's last_good_iMCU_row: the iMCU row of the last MCU begun
         # before the scan's data ran out
-        last = max(k * per + (len(parts[k]) if stop is None else stop) - 1 for k, stop in stops)
+        nb = len(bands.layout)  # blocks an MCU
+        last = max(k * per * nb + (min(per, nmcus - k * per) * nb if stop is None else stop) - 1
+                   for k, stop in stops)
         if len(scan) > 1:
-            mcux = -(-w // (8 * max(c["h"] for c in comps)))
-            self.last_good = last // (len(blocks) // _scan_mcus(comps, scan, w, h)) // mcux
+            self.last_good = last // nb // bands.mcux
         else:
-            c = comps[scan[0]]
-            self.last_good = last // -(-c["dw"] // 8) // c["v"]
+            self.last_good = last // bands.mcux // comps[scan[0]]["v"]
 
     def _segment(self):
         """The entropy-coded bytes from here to the next marker, which is
@@ -1542,6 +1578,9 @@ class _Decoder:
                     self._next_marker()
                 if self.unread == 0xD0 + expect:
                     self.unread = 0
+                elif self.resync_fails:
+                    self.failed_part = k
+                    return stops
                 else:
                     self._resync(expect)
                 self.fixed = False
@@ -1587,42 +1626,200 @@ class _Decoder:
             self._next_marker()
 
     def _output(self) -> np.ndarray:
-        planes = self._planes()
         jfif, adobe = self.colour
-        if len(planes) == 1:
-            return np.repeat(planes[0][..., None], 3, axis=2)
-        if len(planes) == 4:
-            return _four_to_rgb(planes, adobe)
-        if self.process == "lossless" or _is_rgb(self.comps, jfif, adobe):
-            return np.stack(planes, axis=-1)
-        return ycc_to_rgb(*planes)
+        n = len(self.comps)
+        if n == 1:
+            def colour(planes):
+                return np.repeat(planes[0][..., None], 3, axis=2)
+        elif n == 4:
+            def colour(planes):
+                return _four_to_rgb(planes, adobe)
+        elif self.process == "lossless" or _is_rgb(self.comps, jfif, adobe):
+            def colour(planes):
+                return np.stack(planes, axis=-1)
+        else:
+            def colour(planes):
+                return ycc_to_rgb(*planes)
+        return self._pixels(colour, 3)
+
+    def _pixels(self, colour, channels: int) -> np.ndarray:
+        """The image -> [h, w, channels] uint8: each component's samples
+        (:meth:`_planes`), upsampled and passed through ``colour`` (a list
+        of [rows, w] uint8 planes -> [rows, w, channels]) a band of rows at
+        a time, each component's rows taken with the rows around them that
+        its upsampling reads."""
+        (h, w), comps = self.size, self.comps
+        planes = self._planes()
+        hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
+        fancy = self.process != "lossless"  # libjpeg's fancy filters need DCT blocks
+        out = np.empty((h, w, channels), np.uint8)
+        step = vmax * _band_rows(-(-h // vmax), w * vmax, 1 << 18)
+        for y0 in range(0, h, step):
+            y1 = min(h, y0 + step)
+            parts = [_upsampled(p, hmax // c["h"], vmax // c["v"], y0, y1, w, fancy)
+                     for c, p in zip(comps, planes)]
+            out[y0:y1] = colour(parts)
+        return out
 
     def _planes(self) -> list:
-        """The components' samples, each upsampled to [h, w] uint8."""
+        """The components' samples at their downsampled sizes, uint8.  A
+        file of several scans is transformed here from its whole-image
+        coefficients, a band of block rows at a time (block smoothing
+        first, where it runs), each component's coefficients dropped once
+        its samples are made."""
+        if self.process == "lossless":
+            return self.samples
+        if self.single:
+            return [self._sample_plane(ci) for ci in range(len(self.comps))]
         (h, w), comps = self.size, self.comps
-        hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
-        lossless = self.process == "lossless"
+        vmax = max(c["v"] for c in comps)
         smooth = self.process == "progressive" and _smoothing_ok(comps, self.coef_bits)
         total = -(-h // (8 * vmax))  # iMCU rows
-        planes = []
-        for c, cf, px, bits, prev in zip(comps, self.coefs, self.samples, self.coef_bits,
-                                         self.prev_bits):
-            if lossless:  # no IDCT, and plain upsampling: libjpeg's fancy filters need DCT blocks
-                px = np.repeat(np.repeat(px, vmax // c["v"], 0), hmax // c["h"], 1)
-                planes.append(px[:h, :w])
+        for ci, (c, bits, prev) in enumerate(zip(comps, self.coef_bits, self.prev_bits)):
+            cf, self.whole[ci] = self.whole[ci], None
+            if cf is None:  # no scan named it: libjpeg's zero multipliers, gray
                 continue
-            # a component no scan named keeps libjpeg's zero multipliers: gray
-            quant = c["quant"] if c["quant"] is not None else np.zeros(64, np.int64)
-            cf = _w16(np.asarray(cf, np.int64)).reshape(c["bh"], c["bw"], 64)
+            cf = np.frombuffer(cf, np.int16).reshape(c["bh"], c["bw"], 64)
+            quant = c["quant"]
             if smooth:
                 prev = prev[:10] if self.scans > 1 else [-1] * 10
                 latch = [bits[:10] if i <= self.last_good else prev for i in range(total)]
-                cf = _smooth(cf, quant, latch, c["v"], -(-c["dh"] // 8), -(-c["dw"] // 8), total)
-            px = idct_islow(cf.reshape(-1, 64), quant)
-            plane = px.reshape(c["bh"], c["bw"], 8, 8).transpose(0, 2, 1, 3)
-            plane = plane.reshape(c["bh"] * 8, c["bw"] * 8)[:c["dh"], :c["dw"]]
-            planes.append(_upsample(plane, hmax // c["h"], vmax // c["v"])[:h, :w])
-        return planes
+                dc = cf[..., 0].astype(np.int64)
+            rows = _band_rows(c["bh"], c["bw"], 4096)
+            for r0 in range(0, c["bh"], rows):
+                r1 = min(c["bh"], r0 + rows)
+                band = cf[r0:r1]
+                if smooth:
+                    band = _smooth(cf, dc, quant, latch, c["v"], -(-c["dh"] // 8),
+                                   -(-c["dw"] // 8), total, r0, r1)
+                self._transform(ci, band, r0)
+        return [self._sample_plane(ci) for ci in range(len(comps))]
+
+    def _sample_plane(self, ci: int) -> np.ndarray:
+        """Component ``ci``'s samples; where no block has been transformed yet,
+        every block a zero block, 128 after the IDCT."""
+        if self.samples[ci] is None:
+            c = self.comps[ci]
+            rows = -(-c["dh"] // 8) * 8 if self.block_rows else c["dh"]
+            self.samples[ci] = np.full((rows, c["dw"]), 128, np.uint8)
+        return self.samples[ci]
+
+    def _transform(self, ci: int, blocks: np.ndarray, r0: int) -> None:
+        """Blocks [rows, bw, 64] (JCOEF values) from block row ``r0`` of
+        component ``ci`` -> its samples there, through the IDCT."""
+        c = self.comps[ci]
+        rows, bw = blocks.shape[:2]
+        y0 = 8 * r0
+        out = self._sample_plane(ci)
+        y1 = min(out.shape[0], y0 + 8 * rows)
+        if y1 <= y0:
+            return
+        px = idct_islow(blocks.reshape(-1, 64), c["quant"])
+        plane = px.reshape(rows, bw, 8, 8).transpose(0, 2, 1, 3).reshape(8 * rows, 8 * bw)
+        out[y0:y1] = plane[:y1 - y0, :c["dw"]]
+
+
+def _band_rows(rows: int, per_row: int, most: int) -> int:
+    """The rows a band takes: about a sixteenth of ``rows`` but at least an
+    eighth of ``most`` units of ``per_row`` a row (a small image in few
+    bands), at most ``most`` units, at least one row."""
+    per_row = max(per_row, 1)
+    return max(1, min(max(-(-rows // 16), most // 8 // per_row), most // per_row))
+
+
+def _upsampled(plane: np.ndarray, hr: int, vr: int, y0: int, y1: int, w: int,
+               fancy: bool) -> np.ndarray:
+    """Rows y0..y1 (y0 a multiple of ``vr``) of a component upsampled to the
+    full grid -> [y1 - y0, w]: its rows there and, for the fancy vertical
+    filters, the row above and below where the image has them; every
+    whole ratio but the fancy ones (and every ratio where not ``fancy``)
+    replicates."""
+    a, b = y0 // vr, -(-y1 // vr)
+    if not fancy:
+        return np.repeat(np.repeat(plane[a:b], vr, axis=0), hr, axis=1)[:y1 - y0, :w]
+    a0, b0 = (max(a - 1, 0), min(b + 1, plane.shape[0])) if vr == 2 else (a, b)
+    up = _upsample(plane[a0:b0], hr, vr)
+    at = (a - a0) * vr
+    return up[at:at + y1 - y0, :w]
+
+
+class _Bands:
+    """A scan's coefficients as its entropy decoder writes them, 16 bits each
+    (JCOEF): ``cur[ci]`` is component ``ci``'s ``array('h')`` of the blocks
+    the decoder is among.  A file of several scans keeps each component's
+    whole image, as libjpeg does; a one-scan file holds a band of MCU rows
+    (``blocks`` moves it), as libjpeg holds an iMCU row, and a band left
+    goes through the IDCT into the samples."""
+
+    def __init__(self, dec: _Decoder, scan):
+        comps, (h, w) = dec.comps, dec.size
+        self.dec, self.scan = dec, scan
+        if len(scan) == 1:
+            c = comps[scan[0]]
+            self.mcux, self.mcuy = -(-c["dw"] // 8), -(-c["dh"] // 8)
+            units = {scan[0]: (1, 1)}  # block rows and columns an MCU
+        else:
+            hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
+            self.mcux, self.mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+            units = {ci: (comps[ci]["v"], comps[ci]["h"]) for ci in scan}
+        # each block of an MCU: (component, offset a band's MCU row, offset an
+        # MCU column, offset in the MCU, whether it starts the MCU)
+        self.layout = []
+        for ci in scan:
+            bw = comps[ci]["bw"]
+            v, u = units[ci]
+            for y in range(v):
+                for x in range(u):
+                    self.layout.append((ci, v * bw * 64, u * 64, (y * bw + x) * 64,
+                                        not self.layout))
+        self.units = units
+        self.rows = self.mcuy if not dec.single else _band_rows(
+            self.mcuy, sum(comps[ci]["bw"] * v for ci, (v, _) in units.items()), 4096)
+        self.cur = [None] * len(comps)
+        self.band = None
+
+    def blocks(self, m0: int, m1: int):
+        """MCUs m0..m1 -> their blocks in stream order: (component, offset of
+        its 64 coefficients in ``cur[component]``, whether it starts an
+        MCU)."""
+        mcux, rows, layout = self.mcux, self.rows, self.layout
+        for m in range(m0, m1):
+            my, mx = divmod(m, mcux)
+            b = my // rows
+            if b != self.band:
+                self.move(b)
+            ry = my - b * rows
+            for ci, rs, cs, off, first in layout:
+                yield ci, ry * rs + mx * cs + off, first
+
+    def _extent(self, ci: int, b: int):
+        bh = self.dec.comps[ci]["bh"]
+        v = self.units[ci][0] * self.rows
+        return min(bh, b * v), min(bh, b * v + v)
+
+    def move(self, b: int) -> None:
+        self.flush()
+        self.band = b
+        dec = self.dec
+        for ci in self.scan:
+            c = dec.comps[ci]
+            if dec.single:
+                r0, r1 = self._extent(ci, b)
+                self.cur[ci] = array("h", [0]) * ((r1 - r0) * c["bw"] * 64)
+            else:
+                if dec.whole[ci] is None:
+                    dec.whole[ci] = array("h", [0]) * (c["bh"] * c["bw"] * 64)
+                self.cur[ci] = dec.whole[ci]
+
+    def flush(self) -> None:
+        if self.band is None or not self.dec.single:
+            return
+        for ci in self.scan:
+            r0, r1 = self._extent(ci, self.band)
+            band = np.frombuffer(self.cur[ci], np.int16).reshape(r1 - r0, -1, 64)
+            self.dec._transform(ci, band, r0)
+            self.cur[ci] = None
+        self.band = None
 
 
 class _TiffDecoder(_Decoder):
@@ -1687,12 +1884,12 @@ def decode_tiff_jpeg(data: bytes, tables, seg_w: int, seg_h: int, ncomps: int, b
             break
         if d._read_markers() == 0xD9:
             break
-    planes = d._planes()
-    if rgb and len(planes) == 3:
-        px = ycc_to_rgb(*planes)
+    n = len(d.comps)
+    if rgb and n == 3:
+        px = d._pixels(lambda planes: ycc_to_rgb(*planes), 3)
     else:
-        px = np.stack(planes, axis=-1)
-    return px.reshape(h, w * len(planes))
+        px = d._pixels(lambda planes: np.stack(planes, axis=-1), n)
+    return px.reshape(h, w * n)
 
 
 def _smoothing_ok(comps, coef_bits) -> bool:
@@ -1739,19 +1936,21 @@ _KERNELS = {
 }
 
 
-def _smooth(cf: np.ndarray, quant, latch, v: int, hib: int, wib: int, total: int) -> np.ndarray:
+def _smooth(cf: np.ndarray, dc: np.ndarray, quant, latch, v: int, hib: int, wib: int,
+            total: int, r0: int, r1: int) -> np.ndarray:
     """jdcoefct.c's decompress_smooth_data (libjpeg-turbo 2.1 and later)
-    on one component's blocks [rows, cols, 64] (JCOEF values) -> the
-    blocks as the IDCT gets them.  ``latch[i]`` is the coef_bits latch
+    on block rows r0..r1 of one component's blocks ``cf`` [rows, cols, 64]
+    (JCOEF values; ``dc`` their DC values in 64 bits, libjpeg's JLONG) ->
+    those rows as the IDCT gets them.  ``latch[i]`` is the coef_bits latch
     (coefficients 0..9) that iMCU row i reads; a coefficient whose latch
     is not 0 (not yet exact) and that is still 0 gets an estimate from
     the 5 x 5 DC values around its block (the image's edge blocks
     repeated), as (Q00 * num + Q/2) / Q in sign-magnitude, capped below
     1 << Al; with no AC coefficient known at all the DC too is estimated
     (DC interpolation)."""
-    out = cf.copy()
+    out = cf[r0:r1].copy()
     view = out[:, :wib]  # the blocks that meet the image
-    rows = np.arange(cf.shape[0])
+    rows = np.arange(r0, r1)
     imcu = rows // v
     part = hib % v or v  # block rows in the last iMCU row
     block_rows = np.where(imcu < total - 1, v, part)
@@ -1763,10 +1962,9 @@ def _smooth(cf: np.ndarray, quant, latch, v: int, hib: int, wib: int, total: int
     below = np.where(ibr < ibrs - 1, rows + 1, rows)
     around += [below, np.where(ibr < ibrs - 2, rows + 2, below)]
     cols = np.arange(wib)
-    dc = cf[..., 0]
     grid = [[dc[r][:, np.clip(cols + d, 0, wib - 1)] for d in (-2, -1, 0, 1, 2)] for r in around]
     q = [int(quant[p]) for p in _SMOOTHED]
-    for bits in {tuple(b) for b in latch}:
+    for bits in {tuple(latch[i]) for i in set(imcu.tolist())}:
         sel = keep & np.array([tuple(latch[i]) == bits for i in imcu])
         change_dc = all(b == -1 for b in bits[1:])
         kernels = _KERNELS_DC if change_dc else _KERNELS
@@ -1828,39 +2026,3 @@ def cmyk_to_rgb(cmy: np.ndarray, k: np.ndarray) -> np.ndarray:
     ``nk = 255 - k``."""
     nk = 255 - np.asarray(k, np.int64)[..., None]
     return np.clip(nk - _muldiv255(np.asarray(cmy, np.int64), nk), 0, 255).astype(np.uint8)
-
-
-def _scan_mcus(comps, scan, w: int, h: int) -> int:
-    """MCUs in a scan: one block each in a one-component scan."""
-    if len(scan) == 1:
-        c = comps[scan[0]]
-        return -(-c["dw"] // 8) * -(-c["dh"] // 8)
-    hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
-    return -(-w // (8 * hmax)) * -(-h // (8 * vmax))
-
-
-def _scan_blocks(comps, scan, w: int, h: int):
-    """The scan's blocks in stream order -> [(component, offset of its 64
-    coefficients, whether it starts an MCU)]: MCU by MCU, each component's
-    h x v blocks in turn; a one-component scan covers only the blocks that
-    meet the component."""
-    out = []
-    if len(scan) == 1:
-        ci = scan[0]
-        c = comps[ci]
-        for by in range(-(-c["dh"] // 8)):
-            for bx in range(-(-c["dw"] // 8)):
-                out.append((ci, (by * c["bw"] + bx) * 64, True))
-        return out
-    hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
-    for my in range(-(-h // (8 * vmax))):
-        for mx in range(-(-w // (8 * hmax))):
-            first = True
-            for ci in scan:
-                c = comps[ci]
-                for v in range(c["v"]):
-                    for u in range(c["h"]):
-                        out.append((ci, ((my * c["v"] + v) * c["bw"] + mx * c["h"] + u) * 64,
-                                    first))
-                        first = False
-    return out

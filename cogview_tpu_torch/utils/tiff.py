@@ -25,25 +25,30 @@ big-endian, and returns what Pillow 12.1's ``Image.open(...)
   fails a strip and not a tile (``TIFFReadEncodedTile`` tests for zero).
 
 Compressions: none, PackBits, LZW (libtiff's old-style bit order too),
-Deflate (8 and 32946), LZMA (an ``.xz`` stream), CCITT RLE, RLEW, Group 3
-(1-D and 2-D) and Group 4 (``ccitt.py``) and JPEG (7: each strip or tile an
-abbreviated stream decoded with the JPEGTables tag's tables, YCbCr
-converted to RGB by libjpeg as Pillow asks libtiff to).  Predictor 2 at 8,
-16 and 32 bits and predictor 3 (floating point) where libtiff applies
-them (LZW, Deflate, LZMA).  Layouts: every key of Pillow's ``OPEN_INFO``:
-bilevel, grayscale at 2, 4, 8, 12, 16 and 32 bits (signed, unsigned and
-floating point, ``convert`` clipping or truncating them to 8 bits as
-Pillow does), palettes at 1-8 bits, RGB and RGBA at 8 and 16 bits, CMYK
-at 8 and 16 bits, FillOrder 2, planar configuration 1 and 2; the
-Orientation tag, which Pillow's load applies (``exif_transpose``).
+Deflate (8 and 32946), LZMA (an ``.xz`` stream, ``xz.py`` where the
+stream is damaged), Zstandard (``zstd.py``), ThunderScan, CCITT RLE,
+RLEW, Group 3 (1-D and 2-D) and Group 4 (``ccitt.py``) and JPEG (7: each
+strip or tile an abbreviated stream decoded with the JPEGTables tag's
+tables, YCbCr converted to RGB by libjpeg as Pillow asks libtiff to).
+Predictor 2 at 8, 16 and 32 bits and predictor 3 (floating point) where
+libtiff applies them (LZW, Deflate, LZMA, Zstandard).  Layouts: every key
+of Pillow's ``OPEN_INFO``: bilevel, grayscale at 2, 4, 8, 12, 16 and 32
+bits (signed, unsigned and floating point, ``convert`` clipping or
+truncating them to 8 bits as Pillow does), palettes at 1-8 bits, RGB and
+RGBA at 8 and 16 bits, CMYK at 8 and 16 bits, FillOrder 2, planar
+configuration 1 and 2; YCbCr without JPEG compression, or JPEG in planes,
+through libtiff's RGBA interface as Pillow reads it (``tiff_rgba.py``);
+the Orientation tag, which Pillow's load applies (``exif_transpose``).
 
+Old-style JPEG (6) in strips, tiles and planes (``ojpeg.py``) and CIELab
+(``lab.py``: Pillow converts LAB to RGB through LittleCMS) are read too.
 What Pillow reads and this reader does not raises ``UnsupportedImageError``
-naming it: Zstandard, old-style JPEG (6) and ThunderScan compression,
-YCbCr without JPEG compression (Pillow reads it through libtiff's RGBA
-interface), CIELab.  Only the first image is read.  Bytes Pillow cannot
-open or load raise a plain ``ValueError`` (``NotThisFormat`` where
-Pillow's TIFF plugin refuses the header and ``Image.open`` goes on to its
-next plugin).
+naming it: old-style JPEG in planes whose second scan's SOS marker is
+corrupt, in more than one strip (``ojpeg.py``).  Only the first image is
+read.  Bytes
+Pillow cannot open or load raise a plain ``ValueError`` (``NotThisFormat``
+where Pillow's TIFF plugin refuses the header and ``Image.open`` goes on
+to its next plugin).
 """
 
 from __future__ import annotations
@@ -54,15 +59,17 @@ from fractions import Fraction
 
 import numpy as np
 
-from .image_errors import NotThisFormat, UnsupportedImageError, check_pixels
+from . import xz, zstd
+from .image_errors import NotThisFormat, check_pixels
 from .jpeg import cmyk_to_rgb
 
 (_WIDTH, _LENGTH, _BITS, _COMPRESSION, _PHOTOMETRIC, _FILL_ORDER, _STRIP_OFFSETS,
  _ORIENTATION, _SAMPLES, _ROWS_PER_STRIP, _STRIP_COUNTS, _X_RES, _Y_RES, _PLANAR, _T4, _T6,
  _RES_UNIT, _PREDICTOR, _COLOR_MAP, _TILE_WIDTH, _TILE_LENGTH, _TILE_OFFSETS, _TILE_COUNTS,
- _EXTRA_SAMPLES, _SAMPLE_FORMAT, _JPEG_TABLES, _YCBCR_SUBSAMPLING) = (
+ _EXTRA_SAMPLES, _SAMPLE_FORMAT, _JPEG_TABLES, _YCBCR_COEFFICIENTS, _YCBCR_SUBSAMPLING,
+ _REFERENCE_BW) = (
     256, 257, 258, 259, 262, 266, 273, 274, 277, 278, 279, 282, 283, 284, 292, 293, 296, 317,
-    320, 322, 323, 324, 325, 338, 339, 347, 530)
+    320, 322, 323, 324, 325, 338, 339, 347, 529, 530, 532)
 
 # ---------------------------------------------------------------------------
 # Pillow's side: ImageFileDirectory_v2 and TiffImageFile._setup
@@ -387,6 +394,8 @@ def _unpack(rows: np.ndarray, width: int, mode: str, rawmode: str) -> np.ndarray
             return v.astype(np.float32)
         return v.astype(np.uint32).view(np.int32) if dt == "<u4" else v.astype(np.int32)
     n = len(base)
+    if base == "LAB":  # unpackLAB: a and b from signed to offset by 128
+        return rows[:, :3 * width].reshape(r, width, 3) ^ np.array([0, 128, 128], np.uint8)
     if "16" in suffix:  # the high byte of each 16-bit sample
         v = rows[:, :2 * n * width].reshape(r, width, n, 2)[..., 0 if suffix == "16B" else 1]
     else:
@@ -418,6 +427,9 @@ def _to_rgb(img: np.ndarray, mode: str, palette) -> np.ndarray:
         return pal[img if img.ndim == 2 else img[..., 0]]
     elif mode == "CMYK":
         return cmyk_to_rgb(img[..., :3], img[..., 3])
+    elif mode == "LAB":
+        from .lab import lab_to_rgb
+        return lab_to_rgb(img)
     else:
         return np.ascontiguousarray(img[..., :3])
     return np.repeat(g[..., None], 3, axis=2)
@@ -479,7 +491,8 @@ def _raw_decode(data: bytes, o: _Open) -> np.ndarray:
         band = None
         if planar:
             band = "RGBA".find(rawmode) if o.mode in ("RGB", "RGBA") else (
-                "CMYK".find(rawmode) if o.mode == "CMYK" else "LA".find(rawmode)
+                "CMYK".find(rawmode) if o.mode == "CMYK" else "LAB".find(rawmode)
+                if o.mode == "LAB" else "LA".find(rawmode)
                 if o.mode == "LA" else "PA".find(rawmode) if o.mode == "PA" else 0)
             if band < 0 or (_BANDS[o.mode] == 1 and rawmode != o.mode):
                 raise ValueError(f"TIFF raw mode {rawmode} in {o.mode}: Pillow has no unpacker")
@@ -620,6 +633,11 @@ class _LibTiff:
         self.t4 = self.t6 = 0
         self.jpeg_tables = None
         self.subsampling, self.subsampling_set = (2, 2), False
+        self.luma = self.refbw = None  # YCbCrCoefficients, ReferenceBlackWhite
+        # old-style JPEG: JPEGInterchangeFormat and its length, the tables'
+        # offsets, JPEGRestartInterval
+        self.jif_offset = self.jif_length = self.ojpeg_restart = 0
+        self.qtables = self.dctables = self.actables = ()
         self.colormap = False
         have = set()
         e = self._find(_SAMPLES)
@@ -706,6 +724,16 @@ class _LibTiff:
                         pass
             else:
                 self._normal(e)
+        if self.compression == 6:  # TIFFReadDirectory's OJPEG hack
+            present = {e.tag for e in self.entries}
+            if _PHOTOMETRIC not in present or self.photometric == 2:
+                self.photometric = 6
+            if _BITS not in present:
+                self.bps = 8
+            if _SAMPLES not in present and self.photometric in (0, 1):
+                self.spp = 1
+            elif _SAMPLES not in present and self.photometric == 6:
+                self.spp = 3
         colours = {0: 1, 1: 1, 3: 1, 2: 3, 6: 3, 8: 3, 9: 3, 10: 3, 32845: 3, 5: 4,
                    4: 4}.get(self.photometric, 0)
         if colours and self.spp - len(self.extra) > colours:  # the other channels are extra
@@ -799,6 +827,28 @@ class _LibTiff:
                 if e.typ != 7:
                     raise _Bad("incompatible type")
                 self.jpeg_tables = self._raw(e) if e.count else None
+            elif t in (513, 514, 515) and self.compression == 6:
+                if e.count != 1:
+                    raise _Bad("incorrect count")
+                v = self._ints(e, 2 ** 64)[0]
+                if t == 515:
+                    self.ojpeg_restart = v & 0xFFFF
+                else:
+                    setattr(self, "jif_offset" if t == 513 else "jif_length", v)
+            elif t in (519, 520, 521) and self.compression == 6:
+                if not 1 <= e.count <= 3:
+                    raise _Bad("incorrect count")
+                setattr(self, {519: "qtables", 520: "dctables", 521: "actables"}[t],
+                        tuple(self._ints(e, 2 ** 64)))
+            elif t in (_YCBCR_COEFFICIENTS, _REFERENCE_BW):
+                want = 3 if t == _YCBCR_COEFFICIENTS else 6
+                if e.count != want:
+                    raise _Bad("incorrect count")
+                vals = self._floats(e)
+                if t == _YCBCR_COEFFICIENTS:
+                    self.luma = vals
+                else:
+                    self.refbw = vals
             elif t == _YCBCR_SUBSAMPLING:
                 if e.count < 2:
                     raise _Bad("incorrect count")
@@ -806,6 +856,21 @@ class _LibTiff:
                 self.subsampling, self.subsampling_set = tuple(vals), True
         except _Bad:
             pass
+
+    def _floats(self, e: _Entry) -> list:
+        """TIFFReadDirEntryFloatArray: each value as a C float (a rational
+        as float over float, 0 where its denominator is 0)."""
+        if e.typ in (5, 10):
+            ints = struct.unpack(self.bo + ("L" if e.typ == 5 else "l") * (2 * e.count),
+                                 self._raw(e))
+            return [0.0 if b == 0 else float(np.float32(a) / np.float32(b))
+                    for a, b in zip(ints[::2], ints[1::2])]
+        if e.typ in (11, 12):
+            vals = struct.unpack(self.bo + ("f" if e.typ == 11 else "d") * e.count, self._raw(e))
+            return [float(np.float32(v)) for v in vals]
+        if e.typ in _INTS:
+            return [float(np.float32(v)) for v in self._ints(e, 2 ** 64)]
+        raise _Bad("incompatible type")
 
     def _strile(self, e: _Entry) -> list:
         """TIFFFetchStripThing: the strip or tile table, padded with zeros
@@ -863,8 +928,9 @@ class _LibTiff:
 # libtiff's codecs
 # ---------------------------------------------------------------------------
 
-def _packbits(src: bytes, size: int) -> bytes:
-    """libtiff's PackBitsDecode into ``size`` bytes."""
+def _packbits(src: bytes, size: int, partial: bool = False) -> bytes:
+    """libtiff's PackBitsDecode into ``size`` bytes (``partial``: the bytes
+    before it ran out, where it fails)."""
     out = bytearray()
     i, n = 0, len(src)
     while i < n and len(out) < size:
@@ -881,15 +947,17 @@ def _packbits(src: bytes, size: int) -> bytes:
                 break
             out += src[i:i + k]
             i += c + 1
-    if len(out) < size:
+    if len(out) < size and not partial:
         raise ValueError("TIFF PackBits strip ends early")
     return bytes(out)
 
 
-def _lzw(src: bytes, size: int) -> bytes:
+def _lzw(src: bytes, size: int, partial: bool = False) -> bytes:
     """libtiff's LZWDecode into ``size`` bytes: codes MSB first whose width
     grows one code early, or, where the strip starts as libtiff's
-    old-style (compat) streams do, LSB first with no early change."""
+    old-style (compat) streams do, LSB first with no early change.  Where
+    it fails libtiff zeroes the rest of the buffer: ``partial`` returns
+    the bytes before that instead of raising."""
     old = len(src) >= 2 and src[0] == 0 and src[1] & 1
     early = 0 if old else 1
     table = [bytes([i]) for i in range(256)] + [b"", b""]
@@ -920,6 +988,8 @@ def _lzw(src: bytes, size: int) -> bytes:
             break
         if prev is None:
             if code > 255:
+                if partial:
+                    break
                 raise ValueError("corrupt TIFF LZW strip")
             entry = table[code]
         elif code < len(table):
@@ -929,12 +999,16 @@ def _lzw(src: bytes, size: int) -> bytes:
             entry = table[prev] + table[prev][:1]
             table.append(entry)
         else:
+            if partial:
+                break
             raise ValueError("corrupt TIFF LZW strip")
         out += entry
         prev = code
         if len(table) + early >= (1 << nbits) and nbits < 12:
             nbits += 1
     if len(out) < size:
+        if partial:
+            return bytes(out)
         raise ValueError("TIFF LZW strip ends early")
     return bytes(out[:size])
 
@@ -949,33 +1023,103 @@ def _inflate(src: bytes, size: int) -> bytes:
     return out
 
 
-def _unxz(src: bytes, size: int) -> bytes:
-    """libtiff's LZMADecode: an .xz stream (lzma_stream_decoder), the
-    strip good where ``size`` bytes come out before any error."""
-    import lzma  # the standard library's, on liblzma
+def _inflate_partial(src: bytes, size: int) -> bytes:
+    """The bytes libtiff's ZIPDecode leaves in its buffer where zlib fails:
+    every byte inflated before the error (the input fed a byte at a time,
+    the byte that fails an output byte at a time)."""
+    d, out = zlib.decompressobj(), bytearray()
+    for k in range(len(src)):
+        keep = d.copy()
+        try:
+            out += d.decompress(src[k:k + 1], size - len(out))
+        except zlib.error:
+            d, tail = keep, src[k:k + 1]
+            try:
+                while len(out) < size:
+                    got = d.decompress(tail, 1)
+                    tail = d.unconsumed_tail
+                    if not got:
+                        break
+                    out += got
+            except zlib.error:
+                pass
+            break
+        if len(out) >= size or d.eof:
+            break
+    return bytes(out)
 
-    d = lzma.LZMADecompressor(lzma.FORMAT_XZ)
-    try:
-        out = d.decompress(src, size)
-    except lzma.LZMAError:
-        d, out = lzma.LZMADecompressor(lzma.FORMAT_XZ), b""
-        try:  # a byte at a time, to keep what came out before the error
-            for i in range(len(src)):
-                out += d.decompress(src[i:i + 1], size - len(out))
-                if len(out) >= size:
-                    break
-        except lzma.LZMAError:
-            pass
-    if len(out) < size:
-        raise ValueError("TIFF LZMA strip ends early or is corrupt")
-    return out[:size]
+
+def _thunder(src: bytes, rows: int, width: int, row_bytes: int, buf: np.ndarray) -> None:
+    """libtiff's ThunderDecodeRow (``tif_thunder.c``) into ``buf`` [rows,
+    row_bytes], 4-bit samples, a row of ``width`` pixels at a time from one
+    stream: a code's top two bits pick a run of the last pixel (its low six
+    bits the count), three 2-bit deltas, two 3-bit deltas (a delta of 2,
+    resp. 4, skips) or one raw pixel.  A run past the row's end writes
+    nothing, and a row that ends short or long zeroes the rest of its bytes
+    and fails the strip."""
+    twobit, threebit = (0, 1, 0, -1), (0, 1, 2, 3, 0, -3, -2, -1)
+    data, cc, at = src, len(src), 0
+    for r in range(rows):
+        row = buf[r]
+        npix, last, op = 0, 0, 0
+
+        def put(v):
+            nonlocal npix, last, op
+            last = v & 0xF
+            if npix < width:
+                if npix & 1:
+                    row[op] |= last
+                    op += 1
+                else:
+                    row[op] = last << 4
+                npix += 1
+
+        while at < cc and npix < width:
+            n = data[at]
+            at += 1
+            code = n & 0xC0
+            if code == 0x00:  # a run
+                n &= 0x3F
+                if npix & 1:
+                    row[op] |= last
+                    last = int(row[op])
+                    op += 1
+                    npix += 1
+                    n -= 1
+                else:
+                    last |= last << 4
+                npix += n
+                if npix <= width:
+                    while n > 0:
+                        row[op] = last
+                        op += 1
+                        n -= 2
+                if n == -1:
+                    op -= 1
+                    row[op] &= 0xF0
+                last &= 0xF
+            elif code == 0x40:
+                for shift in (4, 2, 0):
+                    d = (n >> shift) & 3
+                    if d != 2:
+                        put(last + twobit[d])
+            elif code == 0x80:
+                for shift in (3, 0):
+                    d = (n >> shift) & 7
+                    if d != 4:
+                        put(last + threebit[d])
+            else:
+                put(n)
+        if npix != width:
+            row[op:(width + 1) // 2] = 0
+            raise ValueError(f"TIFF ThunderScan row of {npix} pixels, not {width}: libtiff fails "
+                             "the strip")
 
 
-_DECODERS = {5: _lzw, 8: _inflate, 32946: _inflate, 32773: _packbits, 34925: _unxz}
-_PREDICTED = (5, 8, 32946, 34925)
+_DECODERS = {5: _lzw, 8: _inflate, 32946: _inflate, 32773: _packbits, 34925: xz.tiff_decode,
+             50000: zstd.tiff_decode}
+_PREDICTED = (5, 8, 32946, 34925, 50000)
 _INT_MAX = 2 ** 31 - 1  # TiffDecode.c's bound on a strip's or tile's buffer
-# compressions Pillow opens and this reader does not decode
-_NAMED = {6: "old-style JPEG", 32809: "ThunderScan", 50000: "Zstandard"}
 _FAILS = {50001: "WebP-compressed TIFF: Pillow's libtiff has no WebP codec",
           34676: "SGILog TIFF: libtiff's codec takes only LogL and LogLuv, which Pillow "
                  "cannot open",
@@ -1049,10 +1193,12 @@ class _Codec:
         comp = lt.compression
         if comp in _FAILS:
             raise ValueError(_FAILS[comp])
-        if comp not in _DECODERS and comp not in (2, 3, 4, 7, 32771):
+        if comp not in _DECODERS and comp not in (2, 3, 4, 7, 32771, 32809):
             raise ValueError(f"TIFF compression {comp}: libtiff has no codec for it")
         if comp in _PREDICTED:
             _predictor_setup(lt)
+        if comp == 32809 and lt.bps != 4:
+            raise ValueError("ThunderScan TIFF of other than 4 bits a sample: libtiff refuses it")
         self.fax = None
         if comp in (2, 3, 4, 32771):
             from .ccitt import FaxDecoder
@@ -1102,16 +1248,16 @@ class _Codec:
                                   last and not lt.tiled)
             n = min(len(buf), len(px))
             buf[:n, :px.shape[1]] = px[:n, :row_bytes]
+        elif comp == 32809:
+            scan = lt.scanline()
+            if (rows * row_bytes) % scan:
+                raise ValueError("libtiff: fractional ThunderScan scanlines")
+            _thunder(src, rows, lt.width, row_bytes, buf)
         else:
             seg = _DECODERS[comp](src, rows * row_bytes)
             if comp in _PREDICTED:
                 seg = _predict(seg, rows, lt)
             buf[:rows] = np.frombuffer(_swab(seg, lt), np.uint8).reshape(rows, row_bytes)
-
-
-def _named(comp: int) -> UnsupportedImageError:
-    return UnsupportedImageError(f"TIFF with {_NAMED[comp]} compression ({comp}) is not read "
-                                 "by this package")
 
 
 def _libtiff_decode(data: bytes, o: _Open, bo: str, big: bool) -> np.ndarray:
@@ -1122,16 +1268,16 @@ def _libtiff_decode(data: bytes, o: _Open, bo: str, big: bool) -> np.ndarray:
     xsize, ysize = o.tile_size
     if (lt.width, lt.length) != (xsize, ysize):
         raise ValueError("TIFF whose libtiff size is not Pillow's: the decoder refuses it")
+    if lt.compression == 6:
+        from .ojpeg import decode_ojpeg
+        return decode_ojpeg(data, lt, xsize, ysize)
     jpeg_rgb = False
     if lt.photometric == 6:
         if lt.compression == 7 and lt.planar == 1:
             jpeg_rgb = True
-        elif lt.compression in _NAMED:  # libtiff's RGBA interface, no buffer of Pillow's
-            raise _named(lt.compression)
-        else:
-            raise UnsupportedImageError("TIFF with YCbCr photometric interpretation and no "
-                                        "JPEG compression is not read by this package (Pillow "
-                                        "reads it through libtiff's RGBA interface)")
+        else:  # libtiff's RGBA interface, no buffer of Pillow's
+            from .tiff_rgba import decode_ycbcr
+            return decode_ycbcr(_Codec(data, lt, False), lt, xsize, ysize)
     bands = _BANDS[o.mode]
     planes = 1
     if lt.planar == 2 and bands > 1:
@@ -1160,8 +1306,6 @@ def _libtiff_decode(data: bytes, o: _Open, bo: str, big: bool) -> np.ndarray:
         if _INT_MAX // row_bytes < min(rps, ysize):
             raise ValueError("TIFF strips too large for Pillow's buffer: the decoder refuses "
                              "them")
-    if lt.compression in _NAMED:
-        raise _named(lt.compression)
     codec = _Codec(data, lt, jpeg_rgb)
     img = _image(o)
     if lt.tiled:
@@ -1213,9 +1357,6 @@ def decode_tiff(data: bytes) -> np.ndarray:
     tags = _pil_directory(data, bo, big)
     o = _pil_setup(tags, prefix)
     check_pixels(*o.size)
-    if o.mode == "LAB":
-        raise UnsupportedImageError("TIFF with CIELab photometric interpretation is not read by "
-                                    "this package")
     if o.libtiff:
         img = _libtiff_decode(data, o, bo, big)
     else:

@@ -168,18 +168,18 @@ def test_tsv_stream_equals_jax(tmp_path):
 
 
 def test_tsv_stream_stops_on_a_format_the_port_does_not_read(tmp_path):
-    """A Zstandard-compressed TIFF row (a format the port still names;
-    JPEG-compressed TIFF, this test's row before, reads since the port
-    decodes it): the JAX package reads it, the port stops with a named
-    error instead of dropping it."""
+    """A JPEG 2000 row (a format the port still names; JPEG-, then
+    Zstandard-compressed and then CIELab TIFF, this test's rows before, read
+    since the port decodes them): the JAX package reads it, the port stops
+    with a named error instead of dropping it."""
     path = tmp_path / "tiff.tsv"
-    tiff = _encoded(np.zeros((16, 16, 3), np.uint8), "TIFF", compression="zstd")
+    tiff = _encoded(np.zeros((16, 16, 3), np.uint8), "JPEG2000")
     path.write_text(_row(0, _encoded(np.zeros((16, 16, 3), np.uint8), "PNG")) + "\n"
                     + _row(1, tiff) + "\n", encoding="utf-8")
     assert len(list(jdataset.TsvImageStream(str(path), img_size=16))) == 2
     stream = iter(dataset.TsvImageStream(str(path), img_size=16))
     next(stream)
-    with pytest.raises(UnsupportedImageError, match="TIFF"):
+    with pytest.raises(UnsupportedImageError, match="JPEG 2000"):
         next(stream)
 
 

@@ -401,13 +401,13 @@ def test_lossless_data_that_run_to_the_end_of_the_file(pad):
 
 
 def main(argv) -> int:
-    """This machine's host CPU seconds for the port to read four valid
+    """This machine's host CPU seconds for the port to read five valid
     files: a 1024 x 768 baseline JPEG, the same with a restart marker every
-    4 MCUs, a 256 x 256 progressive JPEG (quality 85, 4:2:0) and a 256 x 256
-    lossy WebP (quality 80), byte-equal to Pillow.  Alone it prints the
+    4 MCUs, a 256 x 256 and a 1024 x 768 progressive JPEG (quality 85,
+    4:2:0) and a 256 x 256 lossy WebP (quality 80), byte-equal to Pillow.  Alone it prints the
     best of 3; ``python tests/test_torch_image_damage_jpeg.py <checkout>``
     alternates this tree's readers with those of another checkout in one
-    process (40 pairs, 16 for the larger files, the order swapped each
+    process (40 pairs, 16 or 8 for the larger files, the order swapped each
     pair, so a shared host's load falls on both) and prints each side's
     least and median CPU seconds and their ratios."""
     import statistics
@@ -421,6 +421,8 @@ def main(argv) -> int:
                                                       restart_marker_blocks=4), "jpeg", 16),
         "256x256 progressive JPEG": (saved(picture(256, 256), "JPEG", quality=85,
                                            progressive=True), "jpeg", 40),
+        "1024x768 progressive JPEG": (saved(picture(768, 1024), "JPEG", quality=85,
+                                             progressive=True), "jpeg", 8),
         "256x256 lossy WebP": (saved(picture(256, 256), "WEBP", quality=80), "webp", 16),
     }
     ours = {"jpeg": jpeg.decode_jpeg, "webp": webp.decode_webp}

@@ -1805,48 +1805,45 @@ def test_tiff_lzw_streams_round_trip():
 
 
 REFUSED_TIFF = {
-    # name: fields that replace the file's, the feature the error names.  The
-    # names are TIFF features the reader once named; each reads now
-    # (tests/test_torch_image_tiff.py), so each case pairs its directory
-    # with a feature still named, given after each case
-    "bigtiff": (None, "CIELab"),  # Pillow's BigTIFF of a LAB image
-    "ccitt-rle": ({259: (3, [32809]), 258: (3, [4]), 277: (3, [1]), 262: (3, [1])},
-                  "ThunderScan"),  # ThunderScan compression, 4-bit gray
-    "ccitt-g3": ({259: (3, [50000])}, "Zstandard"),  # Zstandard compression
-    "ccitt-g4": ({262: (3, [6]), 259: (3, [5])}, "YCbCr"),  # YCbCr under LZW
-    # old-style JPEG of YCbCr (libtiff's RGBA interface; of RGB, Pillow's
-    # buffer and libtiff's rows disagree and Pillow fails)
-    "old-jpeg": ({259: (3, [6]), 262: (3, [6])}, "old-style JPEG"),
-    "jpeg": ({259: (3, [7]), 262: (3, [6]), 284: (3, [2])}, "YCbCr"),  # YCbCr JPEG in planes
-    "16-bit": ({262: (3, [8])}, "CIELab"),  # CIELab photometric
-    "float": ({258: (3, [32]), 277: (3, [1]), 262: (3, [1]), 339: (3, [3]), 259: (3, [50000])},
-              "Zstandard"),  # Zstandard compression of float samples
-    "signed-16-bit": ({258: (3, [16]), 277: (3, [1]), 262: (3, [1]), 339: (3, [2]),
-                       259: (3, [32809])}, "ThunderScan"),  # ThunderScan of signed 16-bit
-    "ycbcr": ({262: (3, [6]), 259: (3, [8])}, "YCbCr"),  # YCbCr under Deflate
-    "cielab": ({262: (3, [8])}, "CIELab"),  # CIELab photometric
-    "fill-order-2": ({266: (3, [2]), 259: (3, [50000])}, "Zstandard"),  # Zstandard, FillOrder 2
-    "gray-4-bit": ({258: (3, [4]), 277: (3, [1]), 262: (3, [1]), 259: (3, [32809])},
-                   "ThunderScan"),  # ThunderScan compression, 4-bit gray
+    # name: (the old-style JPEG file in three planes: form and layout, the
+    # byte of the second plane's SOS marker overwritten: 3 is Ls, 4 is Ns)
+    f"{layout}-{field}": (kw, 3 if field == "sos-length" else 4)
+    for layout, kw in (
+        ("strips-of-8", dict(form="inline", rps=8)),
+        ("strips-of-16", dict(form="interchange", rps=16)),
+        ("strips-of-24", dict(form="inline", rps=24)),
+        ("tiles-in-a-column", dict(form="interchange", tile=(64, 16))),
+        ("tiles-side-by-side", dict(form="inline", tile=(32, 16))),
+        ("rgb-strips-of-16", dict(form="inline", rps=16, photo=2)),
+        ("rgb-tiles", dict(form="interchange", tile=(32, 32), photo=2)))
+    for field in ("sos-length", "sos-components")
 }
+
+
+def _ojpeg_planes_sos_damaged(kw: dict, at: int) -> bytes:
+    """A 48 x 64 old-style JPEG TIFF in three planes (``chip_smoke``'s
+    writer) whose second plane's SOS marker has byte ``at`` overwritten."""
+    from test_torch_image_tiff import cs
+
+    data = bytearray(cs._ojpeg_file(_picture(48, 64, 7), planar=2, **kw))
+    first = data.find(b"\xff\xda\x00\x08\x01\x02")  # the second component's scan
+    assert first > 0
+    data[first + at] ^= 0x40
+    return bytes(data)
 
 
 @pytest.mark.parametrize("name", list(REFUSED_TIFF))
 def test_tiff_refuses_named_features(name):
-    """Each TIFF feature outside the reader's scope (Zstandard, old-style
-    JPEG and ThunderScan compression, YCbCr without JPEG or in planes,
-    CIELab) raises ``UnsupportedImageError`` naming it; Pillow opens every
-    one of these files (it may still fail to decode the stand-in pixel
-    data).  The BigTIFF file is Pillow's own, of a LAB image."""
-    fields, feature = REFUSED_TIFF[name]
-    data = _tiff(_picture(9, 7, 1), photo=2, tags=fields)
-    if fields is None:
-        buf = io.BytesIO()
-        Image.fromarray(_picture(9, 7, 1)).convert("LAB").save(buf, "TIFF", big_tiff=True)
-        data = buf.getvalue()
-        assert data[:4] == b"II+\x00"
-    Image.open(io.BytesIO(data))
-    with pytest.raises(UnsupportedImageError, match=feature):
+    """The one TIFF the reader names: old-style JPEG in planes whose second
+    scan's SOS marker is corrupt, where the first plane has more than one
+    strip or tile.  libtiff then reads the first plane's later strips or
+    tiles from where its search for that marker stopped; Pillow reads every
+    one of these files, and the port raises ``UnsupportedImageError``
+    naming it."""
+    kw, at = REFUSED_TIFF[name]
+    data = _ojpeg_planes_sos_damaged(kw, at)
+    Image.open(io.BytesIO(data)).load()
+    with pytest.raises(UnsupportedImageError, match="old-style JPEG"):
         vqvae.decode_image(data)
 
 

@@ -158,15 +158,15 @@ def test_h5_source(tmp_path):
 
 
 def test_unread_format_stops_the_run(tmp_path):
-    """A Zstandard-compressed TIFF in an archive (a format the port still
-    names; JPEG-compressed TIFF, this test's file before, reads since the
-    port decodes it): the JAX package reads it, the port stops with an
-    UnsupportedImageError naming the file."""
+    """A JPEG 2000 file in an archive (a format the port still names;
+    JPEG-, then Zstandard-compressed and then CIELab TIFF, this test's files
+    before, read since the port decodes them): the JAX package reads it,
+    the port stops with an UnsupportedImageError naming the file."""
     files = dict(_files(2))
-    files["late.png"] = _encoded(_picture(20, 20, 3), "TIFF", compression="zstd")
+    files["late.png"] = _encoded(_picture(20, 20, 3), "JPEG2000")
     path = _write_sources(tmp_path, files)["zip"]
     assert len(list(jraw.open_image_source(path, 16))) == 3
-    with pytest.raises(UnsupportedImageError, match="late.png: TIFF"):
+    with pytest.raises(UnsupportedImageError, match="late.png: JPEG 2000"):
         list(raw.open_image_source(path, 16))
 
 
