@@ -7,8 +7,9 @@ Phases (each prints its lines; any failure exits non-zero and prints no
 result):
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
-2. build: compile the three kernel sources from cogview_tpu_torch/csrc/ with
-   nvcc, one process per source, in parallel;
+2. build: compile the seven kernel sources from cogview_tpu_torch/csrc/ with
+   nvcc, one process per source, in parallel (the flash kernels' tile
+   widths in five libraries, ``ops/flash_attention.py::LIBRARIES``);
 3. decode kernels: K1 (int8 cache) and K2 (packed int4 cache) against their
    plain PyTorch version at cogview-base head shapes (N=40, D=64, 9
    windows) at batch 4 (the split plan's 4 splits) and 40 (one), float32
@@ -20,8 +21,9 @@ result):
    microseconds per call of both at index 600 and 1031 at batches 4 and 40
    and at 1300 and 1343 at batch 1, and the bound; at batch 4 also at
    every split count.
-   Then the SASS of all 20 decode instantiations holds LDGSTS (cp.async),
-   their registers are printed, and at D=64 they spill nothing;
+   Then the SASS of all 48 decode instantiations (6 tile widths, each
+   exact and not) holds LDGSTS (cp.async), their registers are printed,
+   and at D=64 they spill nothing;
 4. flash forward kernel (K3; bf16 on the tensor cores, float32 FMA):
    against its plain PyTorch version at cogview-base head shapes (B=4,
    N=40, D=64) on strided q/k/v views of a fused QKV tensor, float32 and
@@ -41,8 +43,29 @@ result):
    of both at the tutorial's training shape, with and without dropout, and
    of one torch.autograd.grad through SDPA with the boolean mask and with
    is_causal; then the SASS of every bf16 instantiation of the three flash
-   kernels (8 each) holds HGMMA (wgmma) and LDGSTS (cp.async), their
-   registers are printed, and at D=64 they spill nothing;
+   kernels (26 each: the exact library's 4 tile widths and the other
+   libraries' 9, with and without dropout) holds HGMMA (wgmma) and LDGSTS
+   (cp.async), their registers and spills are printed, and at D=64 they
+   spill nothing;
+5b. head dims: K1 and K2 (B=2, N=4, 3 windows, indices 135 and 300, f32
+   and bf16 q) and K3, K4, K5 (B=2, N=4, S=200, sep 40 on fused-QKV views,
+   f32 and bf16, dropout 0 and 0.1, and with dropout on a shard with its
+   batch and head offsets) against their plain versions at
+   HEAD_DIMS_CHECKED and at the odd D = 33 (K2 refuses it with its plain
+   version's message), with phases 3-5's tolerances, two launches
+   bit-equal; D = 264 refused by name; all five at D = 100, 128 and 256
+   (HEAD_DIM_TIMED: K3-K5 at the pretraining shape B=2, N=32, S=1,088
+   at D = 100; K1/K2 at batch 4, index 600 and 1031) and K1/K2 at
+   text->image's batch 1, 32 heads, index 1031 and 1087 held against their
+   plain versions on the inputs they are then timed on, beside their plain
+   versions, bounds and SDPA; then
+   D = 100 through the entry points: ``cli.pretrain --preset tutorial``
+   at 2 layers, hidden 3,200, 32 heads, 2 steps at batch 2 x 1,088 (the
+   first batch's loss after the steps below its loss before, K3-K5
+   launched, no plain call) and one text->image request at that width and
+   depth through ``cli.generate`` (``generation.tasks``), batch 1, on the
+   int8 cache (K1 once per step and layer) and the int4 cache (K2): the
+   1,024 codes' checksum and the request's seconds;
 6. probes: P1a (add_one) on a random block and P2 (the seal's lane
    scatter) on the TPU probe's inputs and at every lane0 in [0, 120], with
    the one-hot and with it permuted within the group, bit-equal to their
@@ -362,28 +385,13 @@ class WordTokenizer:
 PROMPT = " ".join(f"word{i}" for i in range(30))
 
 
-SLEEP_CYCLES = 5_000_000
-
-
 def _device_time_us(torch, fn, reps: int = 25) -> float:
     """Median device microseconds of ``fn()`` over ``reps`` calls, by CUDA
-    events.  A queued sleep keeps the card busy while the host enqueues, so
-    the interval holds device time only, not host launch overhead.  Its
-    SLEEP_CYCLES (about 2.5 ms) outlast the enqueue of every function timed
-    here; a longer one only adds to the script's time."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) * 1000.0)
-    return statistics.median(times)
+    events behind a queued sleep (``scripts/_timing.py::median_device_us``,
+    the timer of the port's measurement scripts)."""
+    from cogview_tpu_torch.scripts._timing import median_device_us
+
+    return median_device_us(fn, reps)
 
 
 # the card's peaks for bound_ms: NVIDIA's H100 SXM data sheet, dense rates
@@ -756,6 +764,437 @@ def phase_flash_backward(torch, fa):
             "nodrop_us": nodrop}
 
 
+# ---------------------------------------------------------------------------
+# phase 5b: the head dims past {16, 32, 64, 128}
+# ---------------------------------------------------------------------------
+
+# the head dims phase 5b holds every kernel to beside D = 64: tile widths
+# (8, 96, 160, 192, 256) and dims between them (24, 40, 72, 80, 100, 112),
+# and an odd one (33), which the int4 cache cannot hold
+HEAD_DIMS_CHECKED = (8, 24, 40, 72, 80, 96, 100, 112, 160, 192, 256)
+ODD_HEAD_DIM = 33
+# the end-to-end width of phase 5b: 3,200 wide with 32 heads is D = 100, the
+# width of LlamaGen's 3.1B GPT (24 layers), cut to 2 layers
+WIDE_HIDDEN, WIDE_HEADS, WIDE_LAYERS = 3200, 32, 2
+# phase 5b's timed shapes: (B, N, D) of the decode kernels at index 600 over
+# 9 windows, (B, N, D, S) of the flash kernels at sep 0: D = 100 at the
+# text->image batch and the pretraining batch of that width, D = 128 at the
+# same shapes (the exact kernels of D = 100's tile width), and D = 256
+HEAD_DIM_TIMED = {100: ((4, 32, 100), (2, 32, 100, 1088)),
+                  128: ((4, 32, 128), (2, 32, 128, 1088)),
+                  256: ((4, 16, 256), (2, 16, 256, 1088))}
+
+
+def _wide_decode_inputs(torch, da, packed: bool, B: int, N: int, D: int, NW: int, seed: int):
+    """One layer of a random cache at any head dim -> (kv, scales, ring,
+    float32 q); int4 bytes are those the packer makes."""
+    dev = torch.device("cuda")
+    W, G = da.WRITE_WINDOW, da.SEAL_GROUP
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if packed:
+        hi, lo = (torch.randint(-7, 8, (NW, B, 2, N, D // 2, W), generator=gen, device=dev)
+                  for _ in range(2))
+        kv = (16 * hi + lo + 8).to(torch.int8)
+        sc = torch.rand((NW, B, 2, N, W), generator=gen, device=dev) * 0.3
+    else:
+        kv = torch.randint(-127, 128, (NW, B, 2, N, D, W), generator=gen, device=dev,
+                           dtype=torch.int8)
+        sc = torch.rand((NW, B, 2, N, W), generator=gen, device=dev) * 0.02
+    ring = torch.randn((G, B, N, 2 * D), generator=gen, device=dev)
+    return kv, sc, ring, torch.randn((B, N, D), generator=gen, device=dev)
+
+
+def _decode_against_plain(torch, da, packed: bool, call, what: str) -> float:
+    """One decode call ``(q, ring, kv, scales, index)`` of K1 or K2 against
+    the plain version on copies of the cache: ctx within phase 3's
+    tolerances (float32 q 1e-4; bf16 q: K1 2e-2, K2 1e-4 + one bf16 ulp of
+    the value), cache bytes bit-equal (and changed only on a seal step), two
+    launches bit-equal -> the largest error."""
+    q, ring, kv, sc, idx = call
+    kv_k, sc_k, kv_2, sc_2, kv_r, sc_r = (t.clone() for t in (kv, sc) * 3)
+    ctx = da.decode_attention_quant(q, ring, kv_k, sc_k, idx)
+    ctx2 = da.decode_attention_quant(q, ring, kv_2, sc_2, idx)
+    want = da.decode_attention_quant_reference(q, ring, kv_r, sc_r, idx)
+    torch.cuda.synchronize()
+    diff = (ctx.float() - want.float()).abs()
+    err = diff.max().item()
+    if q.dtype == torch.float32:
+        ok = err <= 1e-4
+    elif packed:
+        ok = bool((diff <= 1e-4 + want.float().abs() * 2.0 ** -7).all())
+    else:
+        ok = err <= 2e-2
+    name = "K2 int4" if packed else "K1 int8"
+    what = f"{what} index {idx} {str(q.dtype)[6:]}"
+    _check(ctx.shape == q.shape and ok, f"{name} differs at {what}: {err}")
+    _check(torch.equal(kv_k, kv_r) and torch.equal(sc_k, sc_r)
+           and torch.equal(kv_k, kv) == (idx % da.SEAL_GROUP != da.SEAL_GROUP - 1),
+           f"{name} cache differs from the plain version at {what}")
+    _check(torch.equal(ctx, ctx2) and torch.equal(kv_k, kv_2),
+           f"two launches of {name} differ at {what}")
+    return err
+
+
+def _check_wide_decode(torch, da, packed: bool, D: int) -> float:
+    """K1 or K2 at head dim D (B=2, N=4, 3 windows, a seal on a window
+    boundary and a step mid-window), float32 and bf16 q, against the plain
+    version (:func:`_decode_against_plain`) -> the largest error."""
+    kv, sc, ring, q32 = _wide_decode_inputs(torch, da, packed, 2, 4, D, 3, seed=D)
+    return max(_decode_against_plain(torch, da, packed, (q32.to(dtype), ring, kv, sc, idx),
+                                     f"D={D} B=2 N=4")
+               for dtype in (torch.float32, torch.bfloat16) for idx in (135, 300))
+
+
+def _flash_against_plain(torch, fa, qkvd, sep: int, rate: float, tol: float, what: str,
+                         offsets=None) -> dict:
+    """K3, K4 and K5 on ``(q, k, v, do)`` against their plain versions: o
+    within ``tol`` and lse within 1e-4, dq, dk and dv within ``tol`` of their
+    largest magnitude, two launches bit-equal.  With ``offsets`` (b0, n0, N,
+    rows, heads) the kernels run on the block (rows, heads) with its batch
+    and head offsets, and each result must also equal the block of the
+    unsharded kernels' result -> {kernel: largest error}."""
+    q, k, v, do = qkvd
+    kw = dict(dropout_rate=rate, dropout_seed=1234 if rate else None)
+    o, lse = fa.flash_attention(q, k, v, sep, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    full = None
+    if offsets is not None:
+        b0, n0, n_all, rows, heads = offsets
+        full = (o, lse, fa.flash_bwd_dq(q, k, v, do, lse, delta, sep, **kw),
+                *fa.flash_bwd_dkv(q, k, v, do, lse, delta, sep, **kw))
+        q, k, v, do = (t[rows, :, heads] for t in (q, k, v, do))
+        lse, delta = lse[rows, heads].contiguous(), delta[rows, heads].contiguous()
+        off = (b0, n0, n_all)
+        o, blse = fa.flash_attention(q, k, v, sep, batch_offset=b0, head_offset=n0,
+                                     num_heads=n_all, **kw)
+        _check(torch.equal(blse, lse), f"the shard's lse is not the block at {what}")
+    else:
+        off = (0, 0, None)
+    o2, _ = fa.flash_attention(q, k, v, sep, batch_offset=off[0], head_offset=off[1],
+                               num_heads=off[2], **kw)
+    ro, rlse = fa.flash_attention_reference(q, k, v, sep, rate, kw["dropout_seed"], off)
+    args = (q, k, v, do, lse, delta, sep)
+    dq = fa.flash_bwd_dq(*args, offsets=off, **kw)
+    dk, dv = fa.flash_bwd_dkv(*args, offsets=off, **kw)
+    dq2 = fa.flash_bwd_dq(*args, offsets=off, **kw)
+    rdq = fa.flash_bwd_dq_reference(*args, rate, kw["dropout_seed"], off)
+    rdk, rdv = fa.flash_bwd_dkv_reference(*args, rate, kw["dropout_seed"], off)
+    torch.cuda.synchronize()
+    err = (o.float() - ro.float()).abs().max().item()
+    lerr = (lse - rlse).abs().max().item()
+    _check(o.shape == q.shape and err <= tol and lerr <= 1e-4,
+           f"flash forward differs at {what}: o {err}, lse {lerr}")
+    _check(torch.equal(o, o2) and torch.equal(dq, dq2),
+           f"two launches of the flash kernels differ at {what}")
+    worst = {"fwd": err, "dq": 0.0, "dkv": 0.0}
+    for i, (name, got, want) in enumerate((("dq", dq, rdq), ("dkv", dk, rdk), ("dkv", dv, rdv))):
+        gerr = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        _check(gerr <= tol * scale, f"flash {name} differs at {what}: {gerr} > {tol} x {scale}")
+        if full is not None:
+            _check(torch.equal(got, full[2 + i][rows, :, heads]) and torch.equal(
+                o, full[0][rows, :, heads]), f"flash {name} on the shard is not the block of "
+                   f"the unsharded result at {what}")
+        worst[name] = max(worst[name], gerr / scale)
+    return worst
+
+
+def _check_wide_flash(torch, fa, D: int) -> dict:
+    """K3, K4 and K5 at head dim D on strided views of a fused QKV tensor
+    (B=2, N=4, S=200, sep 40), float32 and bf16, without dropout and with
+    0.1, against the plain versions at phases 4 and 5's tolerances; with
+    dropout also on the shard of row 1 and heads 2-3, with its batch and
+    head offsets (:func:`_flash_against_plain`) -> {kernel: largest
+    error}."""
+    gen = torch.Generator(device="cuda").manual_seed(D)
+    B, N, S, sep = 2, 4, 200, 40
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        for rate in (0.0, 0.1):
+            qkv = torch.randn((B, S, 3, N * D), generator=gen, device="cuda").to(dtype)
+            q, k, v = (qkv[:, :, i].reshape(B, S, N, D) for i in range(3))
+            do = torch.randn((B, S, N, D), generator=gen, device="cuda").to(dtype)
+            what = f"D={D} {str(dtype)[6:]} dropout={rate}"
+            cases = [(None, what)]
+            if rate:
+                cases.append(((1, 2, N, slice(1, 2), slice(2, 4)), what + " offsets (1, 2, 4)"))
+            for offsets, label in cases:
+                errs = _flash_against_plain(torch, fa, (q, k, v, do), sep, rate, tol, label,
+                                            offsets)
+                for name, e in errs.items():
+                    worst[name] = max(worst[name], e)
+    return worst
+
+
+def _wide_flash_times(torch, fa, B, N, D, S):
+    """K3 (dropout 0.1 and none), K4 and K5 (dropout 0.1 and none), first
+    held against their plain versions on the same inputs (phases 4 and 5's
+    bf16 tolerances), then timed beside the plain versions, SDPA with the
+    boolean mask and autograd.grad through it, bf16 on fused-QKV views at
+    sep 0 -> ({kernel: {field: value}}, {kernel: largest error})."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    qkv = torch.randn((B, S, 3, N * D), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].reshape(B, S, N, D) for i in range(3))
+    do = torch.randn((B, S, N, D), generator=gen, device="cuda").to(torch.bfloat16)
+    err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for rate in (0.0, 0.1):
+        for name, e in _flash_against_plain(torch, fa, (q, k, v, do), 0, rate, 2e-2,
+                                            f"D={D} B={B} N={N} S={S} bf16 dropout={rate}"
+                                            ).items():
+            err[name] = max(err[name], e)
+    torch.cuda.empty_cache()
+    drop = dict(dropout_rate=0.1, dropout_seed=2024)
+    with torch.no_grad():
+        o, lse = fa.flash_attention(q, k, v, 0)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, 0)
+    fwd_bound = _flash_bound(B, N, D, S, 0, 2, "bf16")
+    bwd_bounds = _bwd_bounds(B, N, D, S)
+    sdpa_fwd, _ = _sdpa_time_us(torch, q, k, v, 0)
+    sdpa_bwd = _sdpa_backward_us(torch, (q, k, v, do))["boolean mask"]
+    out = {"fwd": dict(
+        ms=_device_time_us(torch, lambda: fa.flash_attention(q, k, v, 0)) / 1000.0,
+        drop_ms=_device_time_us(torch, lambda: fa.flash_attention(q, k, v, 0, **drop)) / 1000.0,
+        plain_ms=_device_time_us(torch, lambda: fa.flash_attention_reference(q, k, v, 0))
+        / 1000.0, bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=sdpa_fwd / 1000.0)}
+    for name, fn, ref in (("dq", fa.flash_bwd_dq, fa.flash_bwd_dq_reference),
+                          ("dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_reference)):
+        out[name] = dict(
+            ms=_device_time_us(torch, lambda: fn(*args)) / 1000.0,
+            drop_ms=_device_time_us(torch, lambda: fn(*args, **drop)) / 1000.0,
+            plain_ms=_device_time_us(torch, lambda: ref(*args)) / 1000.0,
+            bound_ms=bwd_bounds[name][0], bound_by=bwd_bounds[name][1],
+            # one autograd.grad through SDPA computes dq, dk and dv together
+            library_ms=sdpa_bwd / 1000.0)
+    return out, err
+
+
+def phase_head_dims_kernels(torch, da, fa, smi: str) -> dict:
+    """K1 and K2, and K3-K5, against their plain versions at every head dim
+    of HEAD_DIMS_CHECKED and at D = 33 (K2 refuses it as its plain version
+    does); a head dim past 256 refused by name; then at the main path's
+    shapes: K1/K2 at text->image's batch 1, and at HEAD_DIM_TIMED each
+    kernel against its plain version on the inputs it is then timed on ->
+    {"dims": ..., "err": ..., "times": ...}."""
+    t0 = time.perf_counter()
+    err = {"int8": 0.0, "int4": 0.0, "fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    dims = {"int8": [], "int4": [], "fwd": [], "dq": [], "dkv": []}
+    for D in HEAD_DIMS_CHECKED + (ODD_HEAD_DIM,):
+        for packed, key in ((False, "int8"), (True, "int4")):
+            if packed and D % 2:
+                kv, sc, ring, q = _wide_decode_inputs(torch, da, True, 2, 4, D, 3, seed=D)
+                msgs = []
+                for fn in (da.decode_attention_quant, da.decode_attention_quant_reference):
+                    try:
+                        fn(q, ring, kv, sc, 135)
+                        msgs.append(None)
+                    except ValueError as e:
+                        msgs.append(str(e))
+                print(f"head dims: K2 at D={D}: {msgs[0]}")
+                _check(msgs[0] is not None and msgs[0] == msgs[1],
+                       f"K2 at odd D={D} did not refuse as its plain version does: {msgs}")
+                continue
+            err[key] = max(err[key], _check_wide_decode(torch, da, packed, D))
+            dims[key].append(D)
+        for name, e in _check_wide_flash(torch, fa, D).items():
+            err[name] = max(err[name], e)
+            dims[name].append(D)
+        print(f"head dims: D={D} (tiles: decode {da.tile_width(D)}, flash {fa.tile_width(D)}): "
+              f"K1{'' if D % 2 else ', K2'}, K3, K4, K5 agree with their plain versions")
+    wide = torch.zeros((1, 8, 2, 264), device="cuda")
+    for what, call in (("K3", lambda: fa.flash_attention(wide, wide, wide)),
+                       ("K1/K2", lambda: da.tile_width(264))):
+        try:
+            call()
+            _fail(f"{what} took head_dim 264")
+        except NotImplementedError as e:
+            print(f"head dims: {what} refuses D=264: {e}")
+    print(f"head dims: largest errors K1 {err['int8']:.3e}, K2 {err['int4']:.3e} (ctx), K3 "
+          f"{err['fwd']:.3e} (o), K4 {err['dq']:.3e}, K5 {err['dkv']:.3e} (of the largest "
+          f"gradient); tolerances: decode float32 1e-4, bf16 K1 2e-2, K2 1e-4 + one bf16 ulp; "
+          f"flash float32 1e-4, bf16 2e-2")
+
+    # the main path's shapes: each timed shape's inputs are first held
+    # against the plain versions (index 600 and the seal at 1031, float32
+    # and bf16 q), and at D = WIDE_HIDDEN / WIDE_HEADS also text->image's
+    # batch 1 past index 1024
+    timed_err = {"int8": 0.0, "int4": 0.0, "fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    t2i_D = WIDE_HIDDEN // WIDE_HEADS
+    for packed, key in ((False, "int8"), (True, "int4")):
+        kv, sc, ring, q32 = _wide_decode_inputs(torch, da, packed, 1, WIDE_HEADS, t2i_D, 9,
+                                                seed=3)
+        for dtype in (torch.float32, torch.bfloat16):
+            for idx in (1031, 1087):
+                timed_err[key] = max(timed_err[key], _decode_against_plain(
+                    torch, da, packed, (q32.to(dtype), ring, kv, sc, idx),
+                    f"D={t2i_D} B=1 N={WIDE_HEADS}"))
+        del kv, sc, ring
+    times = {}
+    for D, ((db, dn, dd), (fb, fn_, fd, fs)) in HEAD_DIM_TIMED.items():
+        row = {}
+        for packed, key in ((False, "int8"), (True, "int4")):
+            kv, sc, ring, q32 = _wide_decode_inputs(torch, da, packed, db, dn, dd, 9, seed=1)
+            for dtype in (torch.float32, torch.bfloat16):
+                for idx in (600, 1031):
+                    timed_err[key] = max(timed_err[key], _decode_against_plain(
+                        torch, da, packed, (q32.to(dtype), ring, kv, sc, idx),
+                        f"D={dd} B={db} N={dn}"))
+            q, idx = q32.to(torch.bfloat16), 600
+            call = (q, ring, kv, sc, idx)
+            bound_ms, by = _decode_bound(db, dn, dd, dd // 2 if packed else dd,
+                                         da.SEAL_GROUP, idx, 2)
+            row[key] = dict(
+                ms=_device_time_us(torch, lambda: da.decode_attention_quant(*call)) / 1000.0,
+                plain_ms=_device_time_us(torch, lambda: da.decode_attention_quant_reference(
+                    *call)) / 1000.0, bound_ms=bound_ms, bound_by=by, library_ms=None)
+            del kv, sc, ring
+        flash_times, flash_err = _wide_flash_times(torch, fa, fb, fn_, fd, fs)
+        row.update(flash_times)
+        for name, e in flash_err.items():
+            timed_err[name] = max(timed_err[name], e)
+        times[D] = row
+        for key, r in row.items():
+            drop = f", with dropout 0.1 {r['drop_ms']:.4f} ms" if "drop_ms" in r else ""
+            lib = ("" if r["library_ms"] is None
+                   else f", library {r['library_ms']:.4f} ms")
+            print(f"head dims: time D={D} {key}: kernel {r['ms']:.4f} ms{drop}, plain "
+                  f"{r['plain_ms']:.4f} ms{lib}; bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+                  f"(CUDA events, median of 25; decode B={db} N={dn} index 600 bf16 q, flash "
+                  f"B={fb} N={fn_} S={fs} bf16; {smi})")
+        torch.cuda.empty_cache()
+    print(f"head dims: at the timed shapes and text->image's (D={t2i_D} B=1 N={WIDE_HEADS} "
+          f"index 1031 and 1087) the kernels agree with their plain versions: largest errors "
+          f"K1 {timed_err['int8']:.3e}, K2 {timed_err['int4']:.3e} (ctx), K3 "
+          f"{timed_err['fwd']:.3e} (o), K4 {timed_err['dq']:.3e}, K5 {timed_err['dkv']:.3e} "
+          f"(of the largest gradient), the tolerances above")
+    for key, e in timed_err.items():
+        err[key] = max(err[key], e)
+    print(f"head dims: kernels phase {time.perf_counter() - t0:.1f} s")
+    return {"dims": dims, "err": err, "times": times}
+
+
+def phase_head_dims_main_path(torch, da, fa, cli, cfgmod, tasks, sampling, pretrain, losses,
+                              optim, work: str) -> dict:
+    """D = 100 through the entry points: ``cli.pretrain`` at the tutorial
+    preset, WIDE_LAYERS layers WIDE_HIDDEN wide with WIDE_HEADS heads, two
+    steps at batch 2 x 1,088 (K3-K5), then one text->image request at that
+    width and depth, random weights, batch 1, through ``cli.generate`` and
+    ``generation.tasks`` on the int8 cache (K1) and on the int4 cache (K2)
+    -> each kernel's launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    corpus = os.path.join(work, "wide_t2i.bin")
+    _write_corpus(corpus, 16, seed=11)
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    plains = (fa.flash_attention_reference, fa.flash_bwd_dq_reference, fa.flash_bwd_dkv_reference)
+    for c in counters:
+        c.launches = 0
+    for c in plains:
+        c.calls = 0
+    rec = {"metrics": []}
+    orig_make = pretrain.make_train_step
+
+    def recording_make(cfg, opt, **kw):
+        step = orig_make(cfg, opt, **kw)
+        rec.update(cfg=cfg, kw=kw)
+
+        def recorded(state, batch):
+            if not rec["metrics"]:  # the first batch and the params before any step
+                rec["batch"] = batch
+                rec["params0"] = optim.tree_map(lambda t: t.detach().clone(), state["params"])
+            state, metrics = step(state, batch)
+            rec["metrics"].append(metrics)
+            rec["state"] = state
+            return state, metrics
+
+        return recorded
+
+    argv = ["--preset", "tutorial", "--device", "cuda", "--train-data", corpus,
+            "--num-layers", str(WIDE_LAYERS), "--hidden-size", str(WIDE_HIDDEN),
+            "--num-attention-heads", str(WIDE_HEADS), "--batch-size", "2",
+            "--split", "1.0,0.0,0.0", "--lr", "1e-3", "--warmup", "0.0", "--seed", "1234",
+            "--log-interval", "1", "--eval-interval", "1000", "--train-iters", "2"]
+    out = io.StringIO()
+    pretrain.make_train_step = recording_make
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = pretrain.main(argv, txt_tokenizer=WordTokenizer())
+    finally:
+        pretrain.make_train_step = orig_make
+    print(out.getvalue(), end="")
+    _check(rc == 0, f"pretrain.main at D=100 returned {rc}")
+    train = [c.launches for c in counters]
+    plain_calls = [c.calls for c in plains]
+    cfg, kw = rec["cfg"], rec["kw"]
+    lm = [m["lm_loss"] for m in rec["metrics"]]
+    # the first batch's loss before and after the two steps, on the same
+    # dropout seeds
+    batch = {k: torch.as_tensor(v).cuda() for k, v in rec["batch"].items()}
+    seeds = list(range(1, cfg.num_layers + 2))
+    with torch.no_grad():
+        before, after = (float(losses.lm_loss(p, cfg, batch, img_vocab=kw["img_vocab"],
+                                              txt_loss_scale=kw["txt_loss_scale"],
+                                              seeds=seeds)[0])
+                         for p in (rec["params0"], rec["state"]["params"]))
+    print(f"head dims: pretrain D={cfg.head_dim} ({cfg.hidden_size} wide, {cfg.num_heads} heads, "
+          f"{cfg.num_layers} layers, {str(cfg.compute_dtype)[6:]}): step losses "
+          f"{', '.join(f'{x:.4f}' for x in lm)}; the first batch's loss {before:.4f} before, "
+          f"{after:.4f} after; flash launches (K3, K4, K5) {train}, plain-version calls "
+          f"{plain_calls}")
+    _check(cfg.head_dim == 100 and len(lm) == 2 and np.isfinite(lm).all()
+           and np.isfinite([before, after]).all() and after < before,
+           "pretraining at D=100: losses not finite or not falling")
+    _check(all(n > 0 for n in train) and plain_calls == [0, 0, 0],
+           "pretraining at D=100 did not run K3-K5")
+    del rec, batch
+    torch.cuda.empty_cache()
+
+    query = os.path.join(work, "wide_query.txt")
+    with open(query, "w") as f:
+        f.write(PROMPT + "\n")
+    orig = cli.PRESETS["cogview-base"]
+    cli.PRESETS["cogview-base"] = lambda: cfgmod.cogview_base(
+        num_layers=WIDE_LAYERS, hidden_size=WIDE_HIDDEN, num_heads=WIDE_HEADS)
+    decode = {}
+    try:
+        for kv in ("int8", "int4"):
+            da.decode_attention_quant.launches = 0
+            da.decode_attention_quant.launches_int4 = 0
+            da.decode_attention_quant_reference.calls = 0
+            captured = {}
+            argv = _cli_argv("bfloat16", "text2image", query, os.path.join(work, f"wide_{kv}"))
+            argv[argv.index("--kv-cache") + 1] = kv
+            argv[argv.index("--batch-size") + 1] = "1"
+            _run_cli(cli, tasks, sampling, torch, argv, captured)
+            k1, k2 = da.decode_attention_quant.launches, da.decode_attention_quant.launches_int4
+            res, ctx, steps = captured["res"], captured["ctx"], captured["steps"]
+            codes = res.tokens[:, ctx:ctx + 1024]
+            ok = (codes.shape == (1, 1024) and bool(((codes >= 0) & (codes < 8192)).all())
+                  and len(res.images) == 1 and bool(np.isfinite(res.images[0]).all()))
+            launched = k2 if kv == "int4" else k1
+            print(f"head dims: text->image D=100 {kv} cache: 1024 codes, checksum "
+                  f"{int(codes.astype(np.int64).sum())} (crc32 "
+                  f"{zlib.crc32(codes.astype(np.int32).tobytes())}), in [0, 8192) with a finite "
+                  f"image: {ok}; {captured['request_s']:.3f} s per request (batch 1, "
+                  f"{WIDE_LAYERS} layers); K1 launches {k1}, K2 launches {k2}, plain-version "
+                  f"calls {da.decode_attention_quant_reference.calls}")
+            _check(ok and steps == 1024 and launched == 1024 * WIDE_LAYERS
+                   and (k1 if kv == "int4" else k2) == 0
+                   and da.decode_attention_quant_reference.calls == 0,
+                   f"the D=100 request on the {kv} cache did not run its kernel once per step "
+                   f"and layer")
+            decode[kv] = launched
+    finally:
+        cli.PRESETS["cogview-base"] = orig
+    print(f"head dims: main path phase {time.perf_counter() - t0:.1f} s")
+    return {"int8": decode["int8"], "int4": decode["int4"], "fwd": train[0], "dq": train[1],
+            "dkv": train[2]}
+
+
 def _cuobjdump(so, flag):
     from cogview_tpu_torch.ops import _kernels
 
@@ -768,46 +1207,60 @@ FLASH_TC_KERNELS = {"fwd": "flash_fwd_wgmma_kernel", "dq": "flash_bwd_dq_wgmma_k
                     "dkv": "flash_bwd_dkv_wgmma_kernel"}
 
 
-def _check_tensor_core_kernels(so) -> None:
+def _check_tensor_core_kernels(sos, libraries: dict) -> None:
     """The bf16 flash kernels (K3 forward, K4, K5) run their products on the
-    tensor cores and copy asynchronously: each of the 8 instantiations of
-    each (D in HEAD_DIMS, with and without dropout) holds HGMMA and UTMALDG
-    or LDGSTS in its SASS; and at D = 64 none spills (no stack, no local
-    memory in cuobjdump's resource usage).  Prints every one's registers."""
-    found = {}
-    for section in _cuobjdump(so, "-sass").split("Function : ")[1:]:
-        name = section.split(None, 1)[0]
-        if "wgmma_kernel" in name:
-            found[name] = (section.count("HGMMA"),
-                           section.count("UTMALDG") + section.count("LDGSTS"))
-    usage = {}
-    for fn, line in re.findall(r"Function (\S+?):\s*\n\s*(REG:.*)", _cuobjdump(so, "-res-usage")):
-        if "wgmma_kernel" in fn:
-            usage[fn] = {k: int(v) for k, v in re.findall(r"(REG|STACK|LOCAL):(\d+)", line)}
+    tensor cores and copy asynchronously: in the flash libraries ``sos``
+    (``libraries``: each one's tile widths), each instantiation of each
+    (every library's tile widths, with and without dropout; ``EXACT`` the
+    exact library's) holds HGMMA and UTMALDG or LDGSTS in its SASS; and at
+    D = 64, the exact library's D = 64 kernels, none spills (no stack, no
+    local memory in cuobjdump's resource usage).  Prints every one's
+    registers and every spill."""
+    pat = r"ILi(\d+)ELb([01])ELb([01])E"  # tile width, dropout, exact
+    found, usage = {}, {}
+    for so in sos:
+        for section in _cuobjdump(so, "-sass").split("Function : ")[1:]:
+            name = section.split(None, 1)[0]
+            if "wgmma_kernel" in name:
+                found[name] = (section.count("HGMMA"),
+                               section.count("UTMALDG") + section.count("LDGSTS"))
+        for fn, line in re.findall(r"Function (\S+?):\s*\n\s*(REG:.*)",
+                                   _cuobjdump(so, "-res-usage")):
+            if "wgmma_kernel" in fn:
+                usage[fn] = {k: int(v) for k, v in re.findall(r"(REG|STACK|LOCAL):(\d+)", line)}
+    n = 2 * sum(len(widths) for widths in libraries.values())
+    widths = {w for ws in libraries.values() for w in ws}
     for kind, kernel in FLASH_TC_KERNELS.items():
         mine = {fn: hc for fn, hc in found.items() if kernel in fn}
-        regs = {(int(d), drop == "1"): u["REG"] for fn, u in usage.items() if kernel in fn
-                for d, drop in re.findall(r"ILi(\d+)ELb([01])E", fn)}
+        keys = {fn: (int(d), drop == "1", x == "1") for fn in usage if kernel in fn
+                for d, drop, x in re.findall(pat, fn)}
+        regs = {keys[fn]: u["REG"] for fn, u in usage.items() if fn in keys}
+        spills = {keys[fn]: u["STACK"] + u["LOCAL"] for fn, u in usage.items()
+                  if fn in keys and u["STACK"] + u["LOCAL"]}
         print(f"flash {kind} SASS (cuobjdump): {len(mine)} bf16 instantiations, HGMMA "
               f"{sorted({h for h, _ in mine.values()})}, UTMALDG + LDGSTS "
-              f"{sorted({c for _, c in mine.values()})}; registers (D, dropout) "
-              f"{dict(sorted(regs.items()))}")
-        _check(len(mine) == 8 and all(h > 0 and c > 0 for h, c in mine.values()),
-               f"a bf16 {kind} kernel lacks tensor-core products or asynchronous copies")
-    d64 = {fn: u for fn, u in usage.items() if "Li64E" in fn}
+              f"{sorted({c for _, c in mine.values()})}; registers (tile width, dropout, "
+              f"exact) {dict(sorted(regs.items()))}; stack + local bytes where not 0 "
+              f"{dict(sorted(spills.items()))}")
+        _check(len(mine) == n and all(h > 0 and c > 0 for h, c in mine.values())
+               and {d for d, _, _ in keys.values()} == widths,
+               f"a bf16 {kind} kernel lacks tensor-core products or asynchronous copies, or "
+               f"a tile width is missing")
+    d64 = {fn: u for fn, u in usage.items() if re.search(r"ILi64ELb[01]ELb1E", fn)}
     print(f"flash SASS at D = 64: {len(d64)} bf16 instantiations, stack and local bytes "
           f"{sorted({u['STACK'] + u['LOCAL'] for u in d64.values()})}")
-    _check(len(found) == 24, f"{len(found)} bf16 flash instantiations, expected 24")
+    _check(len(found) == 3 * n, f"{len(found)} bf16 flash instantiations, expected {3 * n}")
     _check(len(d64) == 6 and all(u["STACK"] == 0 and u["LOCAL"] == 0 for u in d64.values()),
            "a bf16 flash kernel at D = 64 spills")
 
 
-def _check_decode_kernels(so, head_dims) -> None:
-    """K1 and K2 stream their windows with cp.async: each of the 20
-    instantiations (int8 with bf16 or float32 q, int4 with either, D in
-    HEAD_DIMS) holds LDGSTS in its SASS, and at D = 64 none spills (no stack,
+def _check_decode_kernels(so, tile_widths) -> None:
+    """K1 and K2 stream their windows with cp.async: each of the
+    instantiations (int8 with bf16 or float32 q, int4 with either, at every
+    tile width, exact (D = the tile width) and not) holds LDGSTS in its
+    SASS, and at D = 64 (the exact D = 64 kernels) none spills (no stack,
     no local memory).  Prints every one's registers."""
-    pat = r"decode_attention_kernelI(f|13__nv_bfloat16)Lb[01]ELb([01])ELi(\d+)E"
+    pat = r"decode_attention_kernelI(f|13__nv_bfloat16)Lb[01]ELb([01])ELi(\d+)ELb([01])E"
     copies = {}
     for section in _cuobjdump(so, "-sass").split("Function : ")[1:]:
         m = re.search(pat, section.split(None, 1)[0])
@@ -819,17 +1272,21 @@ def _check_decode_kernels(so, head_dims) -> None:
         if m:
             usage[m.groups()] = {k: int(v) for k, v in re.findall(r"(REG|STACK|LOCAL):(\d+)", line)}
 
-    def key(t, packed, d):
-        return f"{'int4' if packed == '1' else 'int8'} {'f32' if t == 'f' else 'bf16'} D={d}"
+    def key(t, packed, d, exact):
+        return (f"{'int4' if packed == '1' else 'int8'} {'f32' if t == 'f' else 'bf16'} D={d}"
+                f"{' exact' if exact == '1' else ''}")
 
     regs = {key(*k): u["REG"] for k, u in sorted(usage.items(), key=lambda kv: int(kv[0][2]))}
+    spills = {key(*k): u["STACK"] + u["LOCAL"] for k, u in usage.items()
+              if u["STACK"] + u["LOCAL"]}
     print(f"decode SASS (cuobjdump): {len(copies)} instantiations, LDGSTS "
-          f"{sorted(set(copies.values()))}; registers {regs}")
-    d64 = [u for (_, _, d), u in usage.items() if d == "64"]
+          f"{sorted(set(copies.values()))}; registers {regs}; stack + local bytes where not "
+          f"0 {spills}")
+    d64 = [u for (_, _, d, x), u in usage.items() if d == "64" and x == "1"]
     print(f"decode SASS at D = 64: {len(d64)} instantiations, stack and local bytes "
           f"{sorted({u['STACK'] + u['LOCAL'] for u in d64})}")
-    _check(len(copies) == 4 * len(head_dims) and all(copies.values())
-           and {int(d) for _, _, d in copies} == set(head_dims),
+    _check(len(copies) == 8 * len(tile_widths) and all(copies.values())
+           and {int(d) for _, _, d, _ in copies} == set(tile_widths),
            f"a decode kernel lacks cp.async or an instantiation is missing: {copies}")
     _check(len(d64) == 4 and all(u["STACK"] == 0 and u["LOCAL"] == 0 for u in d64),
            "a decode kernel at D = 64 spills")
@@ -5685,9 +6142,9 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     set_fp32_precision()
 
-    # phase 2: build the three libraries, one nvcc each, in parallel
+    # phase 2: build the seven libraries, one nvcc each, in parallel
     t0 = time.perf_counter()
-    names = ("decode_attention", "flash_attention", "probes")
+    names = ("decode_attention", *fa.LIBRARIES, "probes")
     sos = _kernels.build_all(names)
     for name in names:
         _kernels.lib(name)
@@ -5696,11 +6153,18 @@ def main() -> int:
     # phases 3-5: kernels against their plain versions
     k1 = phase_kernel(torch, da, packed=False)
     k2 = phase_kernel(torch, da, packed=True)
-    _check_decode_kernels(sos[names.index("decode_attention")], da.HEAD_DIMS)
+    _check_decode_kernels(sos[names.index("decode_attention")], da.TILE_WIDTHS)
     k3 = phase_flash_kernel(torch, fa)
     k45 = phase_flash_backward(torch, fa)
-    _check_tensor_core_kernels(sos[names.index("flash_attention")])
+    _check_tensor_core_kernels([sos[names.index(n)] for n in fa.LIBRARIES], fa.LIBRARIES)
     lap("phases 3-5")
+    # phase 5b: every kernel at the other head dims, then D = 100 through
+    # pretraining and text->image
+    wide = phase_head_dims_kernels(torch, da, fa, smi.splitlines()[0])
+    with tempfile.TemporaryDirectory() as work:
+        wide_launches = phase_head_dims_main_path(torch, da, fa, cli, cfgmod, tasks, sampling,
+                                                  pretrain, losses, optim, work)
+    lap("phase 5b")
     # phase 6: the probes against their plain versions, then the three
     # measurement entry points
     probe_err = phase_probes(torch, probes, ssp)
@@ -5991,7 +6455,22 @@ def main() -> int:
         "sr_library_causal_ms": k345_sr["library_causal_ms"],
         "sr_rel_err": k345_sr["rel_err"],
     } for i, (name, line, n) in enumerate((("dq", 212, train_launches[1]),
-                                           ("dkv", 249, train_launches[2])))] + probe_rows
+                                           ("dkv", 249, train_launches[2])))]
+    # phase 5b: each kernel's head dims checked (phases 3-5's and 5b's), its
+    # largest error at 5b's (K4 and K5: relative to the largest gradient),
+    # its times at D = 100 and 256 (d100, d256:
+    # HEAD_DIM_TIMED, bf16; library_ms of K4 and K5 covers dq + dk/dv; d128
+    # the exact kernels at D = 100's shapes) and
+    # the launches of 5b's main path, which "launches" includes
+    for entry, key, earlier in zip(kernels, ("int8", "int4", "fwd", "dq", "dkv"),
+                                   ([64], [64], [16, 32, 64, 128], [16, 32, 64, 128],
+                                    [16, 32, 64, 128])):
+        entry["launches"] += wide_launches[key]
+        entry.update(head_dims=sorted(set(earlier + wide["dims"][key])),
+                     head_dims_max_abs_err=wide["err"][key],
+                     head_dim_launches=wide_launches[key],
+                     **{f"d{d}": wide["times"][d][key] for d in HEAD_DIM_TIMED})
+    kernels += probe_rows
     left = _live_children()
     _check(not left, f"processes the script started are still running: {left}")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

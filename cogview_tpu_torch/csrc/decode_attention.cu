@@ -6,7 +6,18 @@
 // decode_attention_quant's pallas_call: its int8 branch (Dc == D, K1,
 // decode_attention_int8) and its packed int4 branch (Dc == D / 2, K2,
 // decode_attention_int4).  One kernel template serves both (PACKED), for
-// each head dim of with_head_dim below (ops/decode_attention.py HEAD_DIMS).
+// each tile width of with_tile_width below (ops/decode_attention.py
+// TILE_WIDTHS: 8, 16, 32, 64, 128 and 256).  The kernel takes the real head
+// dim D <= DT at run time: the row and ring strides, the scale 1/sqrt(D),
+// and the window bytes it copies (Dc x W) come from D, and a lane's rows
+// at or past Dc multiply zeros of q with whatever the tile holds there
+// (bytes become finite floats) and are never stored, so every D from 1 to
+// 256 runs (the packed cache needs D even: D / 2 columns hold D values).
+// Each tile width is built twice: EXACT for D == DT, D a constant (at D in
+// {8, 16, 32, 64, 128} the code those widths always ran), and for any
+// other D, read at run time.  A D between tile widths pays in registers and
+// in the loop steps of the tile's idle rows, not in bytes: it copies only
+// its own Dc rows of each window.
 //
 // Layout (the JAX package's, kept so cache bytes compare with no converter):
 //   kv     [NW, B, 2, N, Dc, W] int8  one layer's view, K at 0 / V at 1,
@@ -15,6 +26,7 @@
 //                                     (v[d2 + D/2] + 8), v in [-7, 7]
 //   scales [NW, B, 2, N, W]    float  per (head, token), absmax / 127 or / 7
 //   ring   [G, B, N, 2*D]      float  exact K|V columns of positions c0 + g
+//                                     (copied by 16 bytes, by 8 at odd D)
 //   q, ctx [B, N, D]                  bfloat16 or float32
 //
 // Semantics (the JAX kernel's).  A step at index (rem = index % G, c0 =
@@ -59,8 +71,9 @@
 //   Bytes become floats exactly with integer ops and one add (the byte
 //   placed in the mantissa of 2^23), never through the conversion unit.
 // - Softmax: each warp keeps its own running max; each lane its share of
-//   the sum and its rows' P.V over its four tokens, all in registers; D is a
-//   template parameter, so q sits in registers and every loop unrolls.  In
+//   the sum and its rows' P.V over its four tokens, all in registers; the
+//   tile width is a template parameter, so q sits in registers and every
+//   loop over a lane's rows unrolls.  In
 //   the loop only shuffles meet: two for the logits' four row groups, three
 //   for the warp's max.  After it the lanes' sums meet by shuffles and the
 //   four warps (in split 0 with the exact ring slots) merge once.
@@ -128,6 +141,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -172,26 +190,27 @@ struct Stage {
   float vs[W];
 };
 
-template <int D, bool PACKED>
+template <int DT, bool PACKED>
 struct Shared {
-  static constexpr int Dc = PACKED ? D / 2 : D;
-  Stage<Dc> stage[STAGES];
-  float ring[G][2 * D];  // split 0: its pair's ring slots 0..rem
-  float acc[WARPS][D];   // each warp's P.V
+  static constexpr int DcT = PACKED ? DT / 2 : DT;
+  Stage<DcT> stage[STAGES];
+  float ring[G][2 * DT];  // split 0: its pair's ring slots 0..rem
+  float acc[WARPS][DT];   // each warp's P.V
   float m[WARPS], l[WARPS];  // each warp's max and sum
   float sg[G];           // split 0: the ring logits
   int last;              // this block merges the splits
 };
 
-// Row i of lane group grp (i < Dc / 4).  For Dc >= 8 the four groups read
-// rows whose (r & 7) / 2 differ, so a warp's 32 loads of a pass (8 quads x
-// 4 groups, two chunks of each row) land in 32 different banks.
-template <int Dc>
+// Row i of lane group grp (i < DcT / 4) of a tile DcT rows high.  For
+// DcT >= 8 the four groups read rows whose (r & 7) / 2 differ, so a warp's
+// 32 loads of a pass (8 quads x 4 groups, two chunks of each row) land in
+// 32 different banks.
+template <int DcT>
 __device__ __forceinline__ int row_of(int grp, int i) {
-  if constexpr (Dc >= 8)
+  if constexpr (DcT >= 8)
     return 8 * (i >> 1) + 2 * grp + (i & 1);
   else
-    return grp;  // Dc == 4 (int4 at D = 8): one row per group
+    return grp;  // DcT == 4 (int4 at tile width 8): one row per group
 }
 
 struct Args {
@@ -202,23 +221,24 @@ struct Args {
   void* ctx;
   float* part;    // [splits, B, N, D + 2] partials (splits > 1)
   int* counters;  // [B * N] tickets, 0 between calls (splits > 1)
-  int B, N, index, splits;
+  int B, N, D, index, splits;  // D: the head dim, at most the tile width
 };
 
-template <typename T, bool BF16, bool PACKED, int D>
+template <typename T, bool BF16, bool PACKED, int DT, bool EXACT>
 __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a) {
   static_assert(!(BF16 && PACKED), "the packed branch is float32 throughout");
-  constexpr int Dc = PACKED ? D / 2 : D;  // bytes per column
-  constexpr int RPG = Dc / 4;             // rows per lane group
-  constexpr size_t BLK = (size_t)Dc * W;  // bytes of one [Dc, W] block
-  static_assert(W % D == 0 && Dc >= 4, "D divides 128, D >= 8");
+  constexpr int DcT = PACKED ? DT / 2 : DT;  // rows of the tile
+  constexpr int RPG = DcT / 4;               // rows per lane group
+  static_assert(DcT % 8 == 0 || DcT == 4, "tile widths 8 .. 256");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Shared<D, PACKED>& sh = *reinterpret_cast<Shared<D, PACKED>*>(smem_raw);
+  Shared<DT, PACKED>& sh = *reinterpret_cast<Shared<DT, PACKED>*>(smem_raw);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int quad = lane & 7, grp = lane >> 3;
   const int bn = blockIdx.x, split = blockIdx.y, splits = a.splits;
-  const int B = a.B, N = a.N;
+  const int B = a.B, N = a.N, D = EXACT ? DT : a.D;  // EXACT: the tile's own D
+  const int Dc = PACKED ? D / 2 : D;      // bytes per column
+  const size_t BLK = (size_t)Dc * W;      // bytes of one [Dc, W] block
   const int b = bn / N, n = bn - b * N;
   const int rem = a.index % G, c0 = a.index - rem;
   const int swl = max((c0 + W - 1) / W, 1);
@@ -232,14 +252,14 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
   auto issue = [&](int i) {
     if (i < nwin) {
       const int w = split + i * splits;
-      Stage<Dc>& st = sh.stage[i % STAGES];
+      Stage<DcT>& st = sh.stage[i % STAGES];
       const int8_t* kg = a.kv + ((((size_t)w * B + b) * 2) * N + n) * BLK;
       const int8_t* vg = kg + (size_t)N * BLK;
-      constexpr int CHUNKS = Dc * W / 16;  // 16-byte chunks of a block
+      constexpr int CHUNKS = DcT * W / 16;  // 16-byte chunks of a tile's block
 #pragma unroll
       for (int k = 0; k < (CHUNKS + THREADS - 1) / THREADS; ++k) {
         const int c = tid + k * THREADS;
-        if (CHUNKS % THREADS == 0 || c < CHUNKS) {
+        if ((EXACT && CHUNKS % THREADS == 0) || c < Dc * (W / 16)) {  // the block's rows
           const int r = c >> 3, off = r * W + (((c & 7) ^ (r & 7)) << 4);
           cp_async16(st.k + off, kg + 16 * c);
           cp_async16(st.v + off, vg + 16 * c);
@@ -256,22 +276,34 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
     cp_async_commit();
   };
 
-  if (split == 0)  // the ring slots 0..rem, 2D floats each, join window 0's group
-    for (int c = tid; c < (rem + 1) * (D / 2); c += THREADS) {
-      const int g = c / (D / 2), k = c - g * (D / 2);
-      cp_async16(&sh.ring[g][4 * k], ring_bn + g * gstride + 4 * k);
+  // the ring slots 0..rem, 2D floats each, join window 0's group: 16-byte
+  // copies where D is even (a slot starts 16-byte aligned), else 8-byte ones
+  if (split == 0) {
+    if ((D & 1) == 0) {
+      for (int c = tid; c < (rem + 1) * (D / 2); c += THREADS) {
+        const int g = c / (D / 2), k = c - g * (D / 2);
+        cp_async16(&sh.ring[g][4 * k], ring_bn + g * gstride + 4 * k);
+      }
+    } else {
+      for (int c = tid; c < (rem + 1) * D; c += THREADS) {
+        const int g = c / D, k = c - g * D;
+        cp_async8(&sh.ring[g][2 * k], ring_bn + g * gstride + 2 * k);
+      }
     }
+  }
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) issue(i);
 
-  // this lane's rows of q: scaled unless the bf16 path scales the logits
+  // this lane's rows of q: scaled unless the bf16 path scales the logits;
+  // zero at rows >= Dc
   float qr[RPG], qlo[PACKED ? RPG : 1];
 #pragma unroll
   for (int i = 0; i < RPG; ++i) {
-    const int r = row_of<Dc>(grp, i);
-    const float x = to_f32<T>(qg[r]);
+    const int r = row_of<DcT>(grp, i);
+    const bool in = EXACT || r < Dc;
+    const float x = in ? to_f32<T>(qg[r]) : 0.0f;
     qr[i] = BF16 ? x : x * scale;
-    if constexpr (PACKED) qlo[i] = to_f32<T>(qg[Dc + r]) * scale;
+    if constexpr (PACKED) qlo[i] = in ? to_f32<T>(qg[Dc + r]) * scale : 0.0f;
   }
 
   float m = EMPTY, l = 0.0f;  // the warp's running max, this lane's share of the sum
@@ -290,12 +322,12 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
     cp_async_wait<STAGES - 2>();  // window i has landed, for this thread's copies
     __syncthreads();              // for everyone's; window i - 1's stage is free
     issue(i + STAGES - 1);
-    const Stage<Dc>& st = sh.stage[i % STAGES];
+    const Stage<DcT>& st = sh.stage[i % STAGES];
 
     float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int k = 0; k < RPG; ++k) {
-      const int r = row_of<Dc>(grp, k);
+      const int r = row_of<DcT>(grp, k);
       const uint32_t wk =
           *reinterpret_cast<const uint32_t*>(st.k + r * W + ((chunk ^ (r & 7)) << 4) + word);
       if constexpr (PACKED) {
@@ -342,7 +374,7 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
 
 #pragma unroll
     for (int k = 0; k < RPG; ++k) {
-      const int r = row_of<Dc>(grp, k);
+      const int r = row_of<DcT>(grp, k);
       const uint32_t wv =
           *reinterpret_cast<const uint32_t*>(st.v + r * W + ((chunk ^ (r & 7)) << 4) + word);
       if constexpr (PACKED) {
@@ -376,7 +408,8 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
   if (quad == 0) {
 #pragma unroll
     for (int k = 0; k < RPG; ++k) {
-      const int r = row_of<Dc>(grp, k);
+      const int r = row_of<DcT>(grp, k);
+      if (!EXACT && r >= Dc) continue;
       sh.acc[warp][r] = acc[k];
       if constexpr (PACKED) sh.acc[warp][Dc + r] = acc_lo[k];
     }
@@ -393,9 +426,11 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
     }
   __syncthreads();
 
-  // the block's partial: thread d merges the warps' (and split 0's ring)
+  // the block's partial: thread d (and d + 128) merges the warps' (and
+  // split 0's ring); a tile of at most 128 columns takes one pass, as the
+  // exact kernels always did
   T* ctx = static_cast<T*>(a.ctx) + (size_t)bn * D;
-  if (tid < D) {
+  const auto partial = [&](int d) {
     float M = sh.m[0];
 #pragma unroll
     for (int w = 1; w < WARPS; ++w) M = fmaxf(M, sh.m[w]);
@@ -406,21 +441,26 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
     for (int w = 0; w < WARPS; ++w) {
       const float e = expf(sh.m[w] - M);
       lb += e * sh.l[w];
-      ab += e * sh.acc[w][tid];
+      ab += e * sh.acc[w][d];
     }
     if (split == 0)
       for (int g = 0; g <= rem; ++g) {
         const float e = expf(sh.sg[g] - M);
         lb += e;
-        ab += e * sh.ring[g][D + tid];
+        ab += e * sh.ring[g][D + d];
       }
     if (splits == 1) {
-      ctx[tid] = from_f32<T>(ab / lb);
+      ctx[d] = from_f32<T>(ab / lb);
     } else {
       float* p = a.part + ((size_t)split * B * N + bn) * (D + 2);
-      p[tid] = ab;
-      if (tid == 0) p[D] = M, p[D + 1] = lb;
+      p[d] = ab;
+      if (d == 0) p[D] = M, p[D + 1] = lb;
     }
+  };
+  if constexpr (DT <= THREADS) {
+    if (tid < D) partial(tid);
+  } else {
+    for (int d = tid; d < D; d += THREADS) partial(d);
   }
 
   if (splits > 1) {
@@ -430,21 +470,26 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
     __syncthreads();
     if (!sh.last) return;
     __threadfence();
-    if (tid < D) {  // merge the splits in split order, online: one pass
+    const auto merge = [&](int d) {  // the splits in split order, online: one pass
       const size_t stride = (size_t)B * N * (D + 2);
       const float* p = a.part + (size_t)bn * (D + 2);
       float M = EMPTY, lt = 0.0f, at = 0.0f;
 #pragma unroll 4
       for (int s = 0; s < splits; ++s) {
         const float ms = __ldcg(p + s * stride + D), ls = __ldcg(p + s * stride + D + 1);
-        const float as = __ldcg(p + s * stride + tid);
+        const float as = __ldcg(p + s * stride + d);
         const float Mn = fmaxf(M, ms);
         const float r = expf(M - Mn), e = expf(ms - Mn);
         lt = lt * r + ls * e;
         at = at * r + as * e;
         M = Mn;
       }
-      ctx[tid] = from_f32<T>(at / lt);
+      ctx[d] = from_f32<T>(at / lt);
+    };
+    if constexpr (DT <= THREADS) {
+      if (tid < D) merge(tid);
+    } else {
+      for (int d = tid; d < D; d += THREADS) merge(d);
     }
     if (tid == 0) a.counters[bn] = 0;
   }
@@ -479,10 +524,10 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
   }
 }
 
-template <typename T, bool BF16, bool PACKED, int D>
+template <typename T, bool BF16, bool PACKED, int DT, bool EXACT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const auto kernel = decode_attention_kernel<T, BF16, PACKED, D>;
-  constexpr size_t smem = sizeof(Shared<D, PACKED>);
+  const auto kernel = decode_attention_kernel<T, BF16, PACKED, DT, EXACT>;
+  constexpr size_t smem = sizeof(Shared<DT, PACKED>);
   if constexpr (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -492,16 +537,18 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// f(std::integral_constant<int, D>) for the head dims the kernels are built
-// for (ops/decode_attention.py HEAD_DIMS; a CPU test parses this switch)
+// f(std::integral_constant<int, DT>) for the tile widths the kernels are
+// built for (ops/decode_attention.py TILE_WIDTHS; a CPU test parses this
+// switch)
 template <typename F>
-cudaError_t with_head_dim(int head_dim, F&& f) {
-  switch (head_dim) {
+cudaError_t with_tile_width(int tile, F&& f) {
+  switch (tile) {
     case 8: return f(std::integral_constant<int, 8>{});
     case 16: return f(std::integral_constant<int, 16>{});
     case 32: return f(std::integral_constant<int, 32>{});
     case 64: return f(std::integral_constant<int, 64>{});
     case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
     default: return cudaErrorInvalidValue;
   }
 }
@@ -509,20 +556,25 @@ cudaError_t with_head_dim(int head_dim, F&& f) {
 template <bool PACKED>
 int decode_attention(const void* q, int q_is_bf16, const float* ring, int8_t* kv,
                      float* scales, void* ctx, float* part, int* counters, int B, int N, int D,
-                     int NW, int index, int splits, void* stream) {
+                     int tile, int NW, int index, int splits, void* stream) {
   if (B <= 0 || N <= 0 || NW <= 0 || index < 0 || index >= NW * W || splits < 1 ||
-      splits > 65535 || (splits > 1 && (part == nullptr || counters == nullptr)))
+      splits > 65535 || (splits > 1 && (part == nullptr || counters == nullptr)) || D < 1 ||
+      D > tile || (PACKED && D % 2 != 0))
     return (int)cudaErrorInvalidValue;
-  const Args a{q, ring, kv, scales, ctx, part, counters, B, N, index, splits};
+  const Args a{q, ring, kv, scales, ctx, part, counters, B, N, D, index, splits};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)with_head_dim(D, [&](auto hd) {
-    constexpr int Dv = decltype(hd)::value;
-    if constexpr (PACKED)  // float32 arithmetic for both q dtypes
-      return q_is_bf16 ? launch<__nv_bfloat16, false, true, Dv>(a, s)
-                       : launch<float, false, true, Dv>(a, s);
-    else
-      return q_is_bf16 ? launch<__nv_bfloat16, true, false, Dv>(a, s)
-                       : launch<float, false, false, Dv>(a, s);
+  return (int)with_tile_width(tile, [&](auto t) {
+    constexpr int DT = decltype(t)::value;
+    const auto pick = [&](auto exact) {
+      constexpr bool X = decltype(exact)::value;
+      if constexpr (PACKED)  // float32 arithmetic for both q dtypes
+        return q_is_bf16 ? launch<__nv_bfloat16, false, true, DT, X>(a, s)
+                         : launch<float, false, true, DT, X>(a, s);
+      else
+        return q_is_bf16 ? launch<__nv_bfloat16, true, false, DT, X>(a, s)
+                         : launch<float, false, false, DT, X>(a, s);
+    };
+    return D == DT ? pick(std::true_type{}) : pick(std::false_type{});
   });
 }
 
@@ -531,17 +583,17 @@ int decode_attention(const void* q, int q_is_bf16, const float* ring, int8_t* kv
 // K1: int8 cache, Dc == D
 extern "C" int decode_attention_int8(const void* q, int q_is_bf16, const float* ring,
                                      int8_t* kv, float* scales, void* ctx, float* part,
-                                     int* counters, int B, int N, int D, int NW, int index,
-                                     int splits, void* stream) {
+                                     int* counters, int B, int N, int D, int tile, int NW,
+                                     int index, int splits, void* stream) {
   return decode_attention<false>(q, q_is_bf16, ring, kv, scales, ctx, part, counters, B, N, D,
-                                 NW, index, splits, stream);
+                                 tile, NW, index, splits, stream);
 }
 
 // K2: packed int4 cache, Dc == D / 2
 extern "C" int decode_attention_int4(const void* q, int q_is_bf16, const float* ring,
                                      int8_t* kv, float* scales, void* ctx, float* part,
-                                     int* counters, int B, int N, int D, int NW, int index,
-                                     int splits, void* stream) {
+                                     int* counters, int B, int N, int D, int tile, int NW,
+                                     int index, int splits, void* stream) {
   return decode_attention<true>(q, q_is_bf16, ring, kv, scales, ctx, part, counters, B, N, D,
-                                NW, index, splits, stream);
+                                tile, NW, index, splits, stream);
 }

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  The
 build runs at first use, from the sources in the checkout, into
 ``cogview_tpu_torch/build/`` (which git ignores); the library's file name
-carries a hash of its source and flags, so an edited source is rebuilt.
+carries a hash of its source, the headers under ``csrc/`` and the flags, so
+an edited source or header is rebuilt.
 Nothing here runs at import time.
 
 :func:`build_host` does the same with ``g++`` for the host runtimes of
@@ -42,34 +43,45 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_float, ctypes.c_uint)
 
+# the entry points of a flash-attention library: flash_attention.cu and
+# flash_attention_<widths>.cu build the same functions for other tile widths
+_FLASH = {
+    # q, k, v, o, lse, is_bf16, B, S, N, D, tile width, copy bytes,
+    # q/k/v batch and sequence strides (elements),
+    # sep, scale, seed, threshold, keep, dropout,
+    # the dropout hash's batch offset, head offset and global heads, stream
+    "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _L, _L, _L, _L, _L, _L,
+                            _I, _F, _U, _U, _F, _I, _U, _U, _U, _P],
+    # q, k, v, dO, lse, delta, dq, is_bf16, B, S, N, D, tile width, copy bytes,
+    # q/k/v/dO batch and sequence strides, then as the forward
+    "flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _L, _L, _L, _L, _L, _L, _L, _L,
+                               _I, _F, _U, _U, _F, _I, _U, _U, _U, _P],
+    # q, k, v, dO, lse, delta, dk, dv, is_bf16, B, S, N, D, tile width, copy
+    # bytes, then as dq
+    "flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _L, _L, _L, _L, _L, _L, _L, _L,
+                                _I, _F, _U, _U, _F, _I, _U, _U, _U, _P],
+}
+
 # library -> {exported C function: argtypes}; every function returns the
 # cudaError_t of its launch as an int
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "decode_attention": {
         # q, q_is_bf16, ring, kv, scales, ctx, split partials, split
-        # counters, B, N, D, NW, index, splits, stream
-        "decode_attention_int8": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # counters, B, N, D, tile width, NW, index, splits, stream
+        "decode_attention_int8": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _P],
         # the packed int4 cache, same arguments
-        "decode_attention_int4": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "decode_attention_int4": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _P],
     },
-    "flash_attention": {
-        # q, k, v, o, lse, is_bf16, B, S, N, D,
-        # q/k/v batch and sequence strides (elements),
-        # sep, scale, seed, threshold, keep, dropout,
-        # the dropout hash's batch offset, head offset and global heads, stream
-        "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _L, _L, _L, _L, _L, _L,
-                                _I, _F, _U, _U, _F, _I, _U, _U, _U, _P],
-        # q, k, v, dO, lse, delta, dq, is_bf16, B, S, N, D,
-        # q/k/v/dO batch and sequence strides, then as the forward
-        "flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _L, _L, _L, _L, _L, _L, _L, _L,
-                                   _I, _F, _U, _U, _F, _I, _U, _U, _U, _P],
-        # q, k, v, dO, lse, delta, dk, dv, is_bf16, B, S, N, D, then as dq
-        "flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _L, _L, _L, _L, _L, _L, _L, _L,
-                                    _I, _F, _U, _U, _F, _I, _U, _U, _U, _P],
-    },
+    "flash_attention": _FLASH,
+    "flash_attention_16_128": _FLASH,
+    "flash_attention_96_160": _FLASH,
+    "flash_attention_192_224": _FLASH,
+    "flash_attention_256": _FLASH,
     "probes": {
         # x, o, n, stream
         "probe_add_one": [_P, _P, _I, _P],
@@ -108,7 +120,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str, src: Path, flags: List[str]) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+    data = src.read_bytes()
+    if src.suffix == ".cu":  # a source may include any header beside it
+        data += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(data + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD / f"lib{name}_{digest}.so"
 
 

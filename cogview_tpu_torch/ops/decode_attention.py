@@ -50,10 +50,11 @@ from ._kernels import launch
 MASK_VALUE = -10000.0
 WRITE_WINDOW = 128  # tokens per cache window
 SEAL_GROUP = 8  # decode steps per seal; the last <= 8 tokens ride the ring
-# the head dims the kernels are built for: every D that divides WRITE_WINDOW
-# from 8 up (csrc/decode_attention.cu's with_head_dim switch); the plain
-# version takes any
-HEAD_DIMS = (8, 16, 32, 64, 128)
+# the tile widths the kernels are built for (csrc/decode_attention.cu's
+# with_tile_width switch): a call runs its head dim D in the narrowest that
+# holds it, D's own rows of each window copied and read, the rest of the
+# tile skipped; the plain version takes any D
+TILE_WIDTHS = (8, 16, 32, 64, 128, 256)
 # blocks a call aims for: four of 128 threads for each of an H100's 132 SMs
 SPLIT_TARGET_BLOCKS = 4 * 132
 
@@ -69,6 +70,16 @@ def streamed_windows(index: int) -> int:
     masked)."""
     c0 = index - index % SEAL_GROUP
     return max(-(-c0 // WRITE_WINDOW), 1)
+
+
+def tile_width(head_dim: int) -> int:
+    """The narrowest tile width of the kernels that holds ``head_dim``;
+    past 256 it raises NotImplementedError."""
+    for width in TILE_WIDTHS:
+        if head_dim <= width:
+            return width
+    raise NotImplementedError(f"head_dim {head_dim}: the CUDA decode kernels take head dims "
+                              f"up to {TILE_WIDTHS[-1]}")
 
 
 def split_plan(batch: int, heads: int, num_windows: int) -> int:
@@ -170,8 +181,13 @@ def dequantize_kv4(q4: torch.Tensor, scales: torch.Tensor,
 def is_packed(kv_l: torch.Tensor, head_dim: int) -> bool:
     """Whether a cache view [..., Dc, W] is the packed int4 cache
     (Dc = head_dim / 2) rather than the int8 one (Dc = head_dim); any other
-    width raises.  The one place the cache's format is read off its shape."""
+    width raises, and so does the packed width at an odd head_dim (its
+    D // 2 columns hold no room for the last value).  The one place the
+    cache's format is read off its shape."""
     Dc = kv_l.shape[-2]
+    if Dc != head_dim and head_dim % 2 and Dc == head_dim // 2:
+        raise ValueError(f"the int4 cache packs two values a byte: odd head_dim {head_dim} "
+                         f"does not fit its {Dc} columns")
     if Dc != head_dim and 2 * Dc != head_dim:
         raise ValueError(f"cache column width {Dc} is neither head_dim {head_dim} (int8) "
                          f"nor {head_dim // 2} (int4)")
@@ -393,8 +409,9 @@ def decode_attention_quant(
     A CPU tensor runs the plain version.  A CUDA tensor launches a kernel
     of csrc/decode_attention.cu on the current stream, chosen by the cache's
     column width ``kv_l.shape[4]``: D is the int8 kernel (K1), D/2 the
-    packed int4 kernel (K2).  Anything else raises; there is no fallback.
-    The kernel runs ``splits`` blocks per (row, head), :func:`split_plan`
+    packed int4 kernel (K2), at the tile width :func:`tile_width` picks for
+    D (any D up to 256; the int4 cache needs D even).  Anything else
+    raises; there is no fallback.  The kernel runs ``splits`` blocks per (row, head), :func:`split_plan`
     unless given (tests and measurements pick others), and merges them in
     the same launch; with more than one, the calls on a device must run in
     stream order, as they share its split counters."""
@@ -406,8 +423,7 @@ def decode_attention_quant(
     if kv_l.ndim != 6 or kv_l.shape[5] != WRITE_WINDOW:
         raise ValueError(f"kv cache layer view must be [NW, B, 2, N, Dc, 128], got {tuple(kv_l.shape)}")
     NW, Dc = kv_l.shape[0], kv_l.shape[4]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D}: the kernels are built for {HEAD_DIMS}")
+    tile = tile_width(D)
     packed = is_packed(kv_l, D)
     fn = "decode_attention_int4" if packed else "decode_attention_int8"
     if tuple(kv_l.shape) != (NW, B, 2, N, Dc, WRITE_WINDOW):
@@ -444,7 +460,7 @@ def decode_attention_quant(
            kv_l.data_ptr(), scales_l.data_ptr(), ctx.data_ptr(),
            None if part is None else part.data_ptr(),
            None if counters is None else counters.data_ptr(),
-           B, N, D, NW, int(index), splits)
+           B, N, D, tile, NW, int(index), splits)
     if packed:
         decode_attention_quant.launches_int4 += 1
     else:

@@ -27,12 +27,19 @@ backward computes ``delta = rowsum(dO * O)`` in float32 and then dq through
 of the JAX package's custom VJP.  lse has no gradient.
 
 Each of the three passes launches a hand-written kernel of
-csrc/flash_attention.cu on a CUDA tensor (bfloat16 on the tensor cores,
+csrc/flash_attention.cuh on a CUDA tensor (bfloat16 on the tensor cores,
 float32 on the CUDA cores), or raises; on a CPU tensor it runs
 its plain PyTorch version (``flash_attention_reference``,
 ``flash_bwd_dq_reference``, ``flash_bwd_dkv_reference``).  ``.launches`` on
 each wrapper counts kernel launches, ``.calls`` on each plain version counts
 its calls.
+
+The kernels take any head dim D up to 256: each is built for the tile
+widths of ``TILE_WIDTHS`` and runs D in the narrowest that holds it
+(:func:`tile_width`), its columns past D zero; the wider widths live in
+libraries of their own (``LIBRARIES``), built beside the first.  Operands
+whose pointers, strides or D values are not 16-byte multiples are copied
+with narrower copies (:func:`copy_width`), never padded or refused.
 """
 
 from __future__ import annotations
@@ -46,9 +53,55 @@ from ._kernels import launch
 from .hash_prng import hash_u32
 
 MASK_VALUE = -10000.0
-# the head widths the CUDA kernels are built for (csrc/flash_attention.cu,
-# with_head_dim); the plain versions take any
-HEAD_DIMS = (16, 32, 64, 128)
+# the tile widths the CUDA kernels are built for, by library: each library's
+# source (csrc/<library>.cu) lists its own in with_tile_width.  The float32
+# kernels' column layout takes multiples of 32 (and 16).  EXACT_LIBRARY
+# holds the kernels for a head dim equal to its tile width with 16-byte
+# copies, D and the copy width folded to constants (the code D = 16, 32, 64
+# and 128 ran before); the others take D and the copy width at run time.
+# The libraries build side by side, so no one nvcc holds them all.  The
+# plain versions take any head dim.
+LIBRARIES = {"flash_attention": (16, 32, 64, 128),
+             "flash_attention_16_128": (16, 32, 64, 128),
+             "flash_attention_96_160": (96, 160),
+             "flash_attention_192_224": (192, 224),
+             "flash_attention_256": (256,)}
+EXACT_LIBRARY = "flash_attention"
+TILE_WIDTHS = tuple(sorted({w for widths in LIBRARIES.values() for w in widths}))
+
+
+def tile_width(head_dim: int) -> int:
+    """The narrowest tile width of the CUDA kernels that holds ``head_dim``
+    columns.  Past 256 it raises NotImplementedError: wgmma's widest
+    product is 256 columns."""
+    for width in TILE_WIDTHS:
+        if head_dim <= width:
+            return width
+    raise NotImplementedError(f"head_dim {head_dim}: the CUDA flash kernels take head dims "
+                              f"up to {TILE_WIDTHS[-1]}")
+
+
+def _library(head_dim: int, tile: int, width: int) -> str:
+    """The library whose kernels run a call at ``head_dim`` in ``tile``
+    with copies of ``width`` bytes."""
+    if head_dim == tile and width == 16 and tile in LIBRARIES[EXACT_LIBRARY]:
+        return EXACT_LIBRARY
+    return next(name for name, widths in LIBRARIES.items()
+                if name != EXACT_LIBRARY and tile in widths)
+
+
+def copy_width(tensors, head_dim: int) -> int:
+    """Bytes of one global copy the kernels use on these [B, S, N, D]
+    operands: the widest of 16, 8, 4 and 2 that divides every pointer, every
+    batch and sequence stride and a head's D values, in bytes (bfloat16 at
+    D = 100: 200-byte heads, 8)."""
+    es = tensors[0].element_size()
+    width = 16
+    for t in tensors:
+        for nbytes in (t.data_ptr(), t.stride(0) * es, t.stride(1) * es, head_dim * es):
+            while nbytes % width:
+                width //= 2
+    return width
 
 
 def _rate_threshold(rate: float) -> int:
@@ -169,38 +222,37 @@ flash_bwd_dkv_reference.calls = 0
 # --------------------------------------------------------------------- #
 
 
-def _check_operand(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+def _check_operand(name: str, t: torch.Tensor, shape, dtype, device, width: int) -> None:
     if tuple(t.shape) != shape or t.dtype != dtype or t.device != device:
         raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on {t.device}, "
                          f"expected {shape} {dtype} on {device}")
     # the kernels take batch and sequence strides; a head row must be
-    # contiguous and start 16-byte aligned (the float32 kernels read 4
-    # values at a time, the bfloat16 kernels copy 16 bytes with cp.async)
+    # contiguous, and its pointer and strides multiples of the copy width
     if t.stride(3) != 1 or t.stride(2) != shape[3]:
         raise ValueError(f"{name}: heads and head dims must be contiguous, "
                          f"strides {t.stride()}")
-    per16 = 16 // t.element_size()
-    if t.data_ptr() % 16 or t.stride(0) % per16 or t.stride(1) % per16:
-        raise ValueError(f"{name}: pointer or strides not 16-byte aligned, "
+    es = t.element_size()
+    if t.data_ptr() % width or t.stride(0) * es % width or t.stride(1) * es % width:
+        raise ValueError(f"{name}: pointer or strides not {width}-byte aligned, "
                          f"strides {t.stride()}")
 
 
 def _cuda_operands(*named):
-    """Validate [B, S, N, D] operands of one launch -> (B, S, N, D, flat
-    pointer-and-stride arguments)."""
+    """Validate [B, S, N, D] operands of one launch -> (B, S, N, D, [D, tile
+    width, copy width, flat strides])."""
     q = named[0][1]
     if q.ndim != 4:
         raise ValueError(f"q must be [B, S, N, D], got {tuple(q.shape)}")
     B, S, N, D = q.shape
-    if D not in HEAD_DIMS:
-        raise NotImplementedError(f"head_dim {D}: the CUDA kernels are built for {HEAD_DIMS}")
+    tile = tile_width(D)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q dtype {q.dtype}: bfloat16 or float32")
+    width = copy_width([t for _, t in named], D)
     strides = []
     for name, t in named:
-        _check_operand(name, t, (B, S, N, D), q.dtype, q.device)
+        _check_operand(name, t, (B, S, N, D), q.dtype, q.device, width)
         strides += [t.stride(0), t.stride(1)]
-    return B, S, N, D, strides
+    return B, S, N, D, [D, tile, width, *strides]
 
 
 def _check_rows(name: str, t: torch.Tensor, shape, device) -> None:
@@ -225,22 +277,22 @@ def _flash_fwd(q, k, v, sep, rate, seed, offsets=(0, 0, None)):
     if q.shape[0] == 0:  # a data rank's empty shard of a pipeline microbatch: no grid
         _, S, N, _ = q.shape
         return torch.empty_like(q), q.new_empty((0, N, S), dtype=torch.float32)
-    B, S, N, D, strides = _cuda_operands(("q", q), ("k", k), ("v", v))
+    B, S, N, D, layout = _cuda_operands(("q", q), ("k", k), ("v", v))
     o = torch.empty((B, S, N, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, N, S), dtype=torch.float32, device=q.device)
-    launch("flash_attention", "flash_attention_fwd", q.device,
+    launch(_library(*layout[:3]), "flash_attention_fwd", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-           int(q.dtype == torch.bfloat16), B, S, N, D, *strides,
+           int(q.dtype == torch.bfloat16), B, S, N, *layout,
            *_dropout_args(D, N, sep, rate, seed, offsets))
     flash_attention.launches += 1
     return o, lse
 
 
 def _bwd_launch_args(q, k, v, do, lse, delta):
-    B, S, N, D, strides = _cuda_operands(("q", q), ("k", k), ("v", v), ("do", do))
+    B, S, N, D, layout = _cuda_operands(("q", q), ("k", k), ("v", v), ("do", do))
     _check_rows("lse", lse, (B, N, S), q.device)
     _check_rows("delta", delta, (B, N, S), q.device)
-    return B, S, N, D, strides
+    return B, S, N, D, layout
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, sep: int = 0, *, dropout_rate: float = 0.0,
@@ -257,12 +309,12 @@ def flash_bwd_dq(q, k, v, do, lse, delta, sep: int = 0, *, dropout_rate: float =
     if q.shape[0] == 0:  # an empty shard (an empty dO may have any strides)
         return torch.empty_like(q)
     do = do.contiguous()
-    B, S, N, D, strides = _bwd_launch_args(q, k, v, do, lse, delta)
+    B, S, N, D, layout = _bwd_launch_args(q, k, v, do, lse, delta)
     dq = torch.empty((B, S, N, D), dtype=q.dtype, device=q.device)
-    launch("flash_attention", "flash_attention_bwd_dq", q.device,
+    launch(_library(*layout[:3]), "flash_attention_bwd_dq", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-           delta.data_ptr(), dq.data_ptr(), int(q.dtype == torch.bfloat16), B, S, N, D,
-           *strides, *_dropout_args(D, N, sep, dropout_rate, dropout_seed, offsets))
+           delta.data_ptr(), dq.data_ptr(), int(q.dtype == torch.bfloat16), B, S, N,
+           *layout, *_dropout_args(D, N, sep, dropout_rate, dropout_seed, offsets))
     flash_bwd_dq.launches += 1
     return dq
 
@@ -283,13 +335,13 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, sep: int = 0, *, dropout_rate: float 
     if q.shape[0] == 0:  # an empty shard
         return torch.empty_like(k), torch.empty_like(v)
     do = do.contiguous()
-    B, S, N, D, strides = _bwd_launch_args(q, k, v, do, lse, delta)
+    B, S, N, D, layout = _bwd_launch_args(q, k, v, do, lse, delta)
     dk = torch.empty((B, S, N, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, S, N, D), dtype=q.dtype, device=q.device)
-    launch("flash_attention", "flash_attention_bwd_dkv", q.device,
+    launch(_library(*layout[:3]), "flash_attention_bwd_dkv", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
-           B, S, N, D, *strides, *_dropout_args(D, N, sep, dropout_rate, dropout_seed, offsets))
+           B, S, N, *layout, *_dropout_args(D, N, sep, dropout_rate, dropout_seed, offsets))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -340,8 +392,9 @@ def flash_attention(
     q, k and v may be strided views (the slices of a fused QKV projection):
     the kernels read them through their batch and sequence strides, with no
     copy.  ``dropout_seed`` is a uint32.  A CPU tensor runs the plain
-    versions; a CUDA tensor launches the kernels of csrc/flash_attention.cu
-    on the current stream, or raises.  There is no fallback."""
+    versions; a CUDA tensor launches the kernels of csrc/flash_attention.cuh
+    on the current stream, or raises (a head dim past 256 raises
+    NotImplementedError).  There is no fallback."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     if not 0.0 <= dropout_rate < 1.0:

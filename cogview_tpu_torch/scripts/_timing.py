@@ -16,6 +16,7 @@ reports what the capture recorded and counts the launches its replays ran.
 from __future__ import annotations
 
 import re
+import statistics
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -49,6 +50,31 @@ def time_runs(device: torch.device, run: Callable[[], object], reps: int) -> flo
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / 1000.0 / reps
+
+
+SLEEP_CYCLES = 5_000_000
+
+
+def median_device_us(fn: Callable[[], object], reps: int = 25) -> float:
+    """Median device microseconds of ``fn()`` over ``reps`` calls after
+    three warm ones, by CUDA events around each call.  A queued sleep keeps
+    the card busy while the host enqueues, so the interval holds device time
+    only, not host launch overhead.  Its SLEEP_CYCLES (about 2.5 ms) outlast
+    the enqueue of every function timed with it; a longer one only adds
+    time."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) * 1000.0)
+    return statistics.median(times)
 
 
 def capture(loop: Callable[[], torch.Tensor]) -> Tuple[torch.cuda.CUDAGraph, torch.Tensor]:

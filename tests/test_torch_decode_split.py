@@ -166,18 +166,23 @@ def test_split_and_merge_matches_plain_version_and_jax_kernel(packed, index, spl
     np.testing.assert_allclose(got.numpy(), _jax_ctx(packed, index), atol=1e-5, rtol=0)
 
 
-def test_head_dims_match_the_kernels_dispatch():
-    """HEAD_DIMS is the set of head dims csrc/decode_attention.cu's
-    ``with_head_dim`` switch instantiates, so the wrapper and the C entry
-    points cannot drift apart; each divides the window."""
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+def test_head_dims_match_the_kernels_dispatch(packed):
+    """TILE_WIDTHS is the set of tile widths csrc/decode_attention.cu's
+    ``with_tile_width`` switch instantiates, so the wrapper and the C entry
+    points cannot drift apart; a tile's rows (DT for the int8 cache, DT / 2
+    for the int4 cache) split over the kernel's four lane groups, in pairs
+    from 8 rows up (``row_of``), one row a group at 4, and the widest is
+    256."""
     src = (Path(tda.__file__).resolve().parent.parent / "csrc"
            / "decode_attention.cu").read_text()
-    body = src[src.index("cudaError_t with_head_dim("):]
+    body = src[src.index("cudaError_t with_tile_width("):]
     body = body[:body.index("default:")]
     pairs = re.findall(r"case (\d+): return f\(std::integral_constant<int, (\d+)>", body)
     assert pairs and all(a == b for a, b in pairs)
-    assert tuple(sorted(int(a) for a, _ in pairs)) == tda.HEAD_DIMS
-    assert all(W % d == 0 for d in tda.HEAD_DIMS)
+    assert tuple(sorted(int(a) for a, _ in pairs)) == tda.TILE_WIDTHS
+    rows = [w // 2 if packed else w for w in tda.TILE_WIDTHS]
+    assert all(r % 8 == 0 or r == 4 for r in rows) and tda.TILE_WIDTHS[-1] == 256
 
 
 def test_cpu_tensors_run_the_plain_version_at_any_split_count():

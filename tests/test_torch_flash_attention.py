@@ -53,10 +53,14 @@ def test_forward_matches_jax_kernel(s, bq, bk):
 
 @pytest.mark.parametrize("d,s,sep,rate", [(16, 128, 0, 0.0), (16, 150, 20, 0.3),
                                          (64, 200, 37, 0.0), (64, 128, 0, 0.1),
-                                         (128, 96, 0, 0.0), (128, 130, 64, 0.2)])
+                                         (128, 96, 0, 0.0), (128, 130, 64, 0.2)]
+                         + [(d, s, sep, rate) for d in (8, 33, 80, 100, 256)
+                            for s, sep, rate in ((77, 0, 0.0), (130, 40, 0.2))])
 def test_forward_matches_jax_kernel_at_other_head_dims(d, s, sep, rate):
-    """The other head widths the CUDA kernels are built for (the cases above
-    are D = 32), two cases each, one with dropout."""
+    """Other head dims than the cases above (D = 32), two cases each, one
+    with dropout: 16, 64 and 128, and D = 8 (in the kernels' 16-wide tile),
+    33 (odd: 66-byte bf16 heads), 80, 100 (LlamaGen's 3.1B GPT, 3,200 wide
+    with 32 heads) and 256, the widest."""
     got, want, _, _ = _both(s, sep, 64, 64, seed=d, rate=rate,
                             dropout_seed=55 if rate else None, d=d)
     np.testing.assert_allclose(got, want, atol=1e-5)
@@ -84,16 +88,25 @@ def test_bf16_forward_matches_jax_kernel(sep, rate):
     np.testing.assert_allclose(lse.numpy(), want_lse, atol=1e-4)
 
 
-def test_head_dims_match_the_kernels_dispatch():
-    """HEAD_DIMS is the set of head dims csrc/flash_attention.cu's
-    ``with_head_dim`` switch instantiates, so the wrapper and the C entry
-    points cannot drift apart."""
-    src = (Path(tfa.__file__).resolve().parent.parent / "csrc" / "flash_attention.cu").read_text()
-    body = src[src.index("cudaError_t with_head_dim("):]
+@pytest.mark.parametrize("library", sorted(tfa.LIBRARIES))
+def test_head_dims_match_the_kernels_dispatch(library):
+    """Each flash library's source (csrc/<library>.cu) instantiates, in its
+    ``with_tile_width`` switch, exactly the tile widths ``LIBRARIES`` gives
+    it, and only EXACT_LIBRARY's is built for D equal to the tile width
+    (``EXACT_TILES``), so the wrapper and the C entry points cannot drift
+    apart; together they are TILE_WIDTHS, every width a multiple of 16 up to 256 (wgmma's
+    k-step and widest product) and past 16 a multiple of 32 (the float32
+    kernels' columns: 8 threads of 4-wide vectors)."""
+    src = (Path(tfa.__file__).resolve().parent.parent / "csrc" / f"{library}.cu").read_text()
+    body = src[src.index("cudaError_t with_tile_width("):]
     body = body[:body.index("default:")]
     pairs = re.findall(r"case (\d+): return f\(std::integral_constant<int, (\d+)>", body)
     assert pairs and all(a == b for a, b in pairs)
-    assert tuple(sorted(int(a) for a, _ in pairs)) == tfa.HEAD_DIMS
+    assert tuple(sorted(int(a) for a, _ in pairs)) == tfa.LIBRARIES[library]
+    exact = re.search(r"constexpr bool EXACT_TILES = (true|false);", src).group(1)
+    assert (exact == "true") == (library == tfa.EXACT_LIBRARY)
+    assert tfa.TILE_WIDTHS == tuple(sorted({w for ws in tfa.LIBRARIES.values() for w in ws}))
+    assert all(w % 16 == 0 and w <= 256 and (w == 16 or w % 32 == 0) for w in tfa.TILE_WIDTHS)
 
 
 def test_sep_prefix_matches_jax_kernel():

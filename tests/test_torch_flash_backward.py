@@ -8,8 +8,8 @@ whole rows).
 The cases are those of tests/test_flash_attention.py's backward tests:
 causal, a ragged length, a prefix inside a tile, a prefix across tiles,
 asymmetric JAX blocks, and hash dropout with a fixed seed, at D = 32; and
-two cases (one with dropout) at each other head width the CUDA kernels are
-built for, 16, 64 and 128."""
+two cases (one with dropout) at D = 16, 64 and 128 and at 8, 33, 80, 100
+and 256."""
 
 import numpy as np
 import pytest
@@ -37,7 +37,8 @@ CASES = [  # s, sep, JAX block_q, JAX block_k, dropout rate
 ]
 
 
-# the other head widths the CUDA kernels are built for, two cases each
+# other head dims, two cases each: 16, 64 and 128, and D = 8, 33 (odd), 80,
+# 100 and 256 (the CUDA kernels' tile widths hold every D up to 256)
 HEAD_DIM_CASES = [  # d, s, sep, JAX block_q, JAX block_k, dropout rate
     (16, 96, 0, 32, 32, 0.0),
     (16, 77, 37, 32, 32, 0.1),
@@ -45,7 +46,8 @@ HEAD_DIM_CASES = [  # d, s, sep, JAX block_q, JAX block_k, dropout rate
     (64, 96, 0, 32, 64, 0.1),
     (128, 77, 0, 32, 32, 0.0),
     (128, 96, 40, 64, 32, 0.1),
-]
+] + [(d, s, sep, 64, 64, rate) for d in (8, 33, 80, 100, 256)
+     for s, sep, rate in ((77, 0, 0.0), (130, 40, 0.2))]
 
 
 def _inputs(s, seed, d=D):

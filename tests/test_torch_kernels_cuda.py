@@ -24,13 +24,22 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the flash kernels' head dims here: every tile width, and dims between them
+# (8 in the 16 tile, 33 odd with 66-byte bf16 heads, 80, 100 with 200-byte
+# ones); the decode kernels' likewise, the int4 cache at even D only
+FLASH_DIMS = tuple(sorted(fa.TILE_WIDTHS + (8, 33, 80, 100)))
+DECODE_CASES = [(packed, d) for packed in (False, True)
+                for d in sorted(da.TILE_WIDTHS + (24, 33, 80, 100))
+                if not (packed and d % 2)]
+
+
 def _shape(d):
     """(B, N) of a case: cogview-base's at D = 64, small at the other widths."""
     return (4, 40) if d == 64 else (2, 4)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", FLASH_DIMS)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("s,sep,rate,q_scale", [(77, 5, 0.0, 1.0), (1058, 0, 0.0, 1.0),
                                                 (1089, 100, 0.0, 1.0), (333, 40, 0.1, 1.0),
@@ -88,7 +97,7 @@ def test_flash_kernels_take_an_empty_shard(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", FLASH_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_repeats_bit_equal(cuda_device, dtype, d):
     """Two forward launches on the same inputs (a prefix across tiles,
@@ -120,7 +129,7 @@ def _rel_err(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", FLASH_DIMS)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("s,sep,rate", [(77, 0, 0.0), (77, 64, 0.1), (130, 5, 0.0),
                                         (130, 100, 0.0), (130, 64, 0.1), (1088, 0, 0.1),
@@ -147,7 +156,7 @@ def test_flash_backward_kernels_match_plain_versions(cuda_device, dtype, tol, s,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", FLASH_DIMS)
 @pytest.mark.parametrize("sep,rate", [(0, 0.0), (40, 0.1)])
 def test_flash_grads_match_autograd_of_plain_forward(cuda_device, sep, rate, d):
     """Gradients through the three kernels (forward, dq, dk/dv) against
@@ -167,15 +176,19 @@ def test_flash_grads_match_autograd_of_plain_forward(cuda_device, sep, rate, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 100, 160, 256])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("s,sep", [(130, 5), (1088, 0)])
-def test_flash_kernels_with_offsets_match_plain_versions(cuda_device, dtype, tol, s, sep):
+def test_flash_kernels_with_offsets_match_plain_versions(cuda_device, dtype, tol, s, sep, d):
     """K3, K4 and K5 on a shard (rows 2-3 and heads 2-3 of a batch of 4 x 4
     heads, strided views) with dropout 0.1 and the shard's batch and head
     offsets: each within ``tol`` of its plain version with the same offsets
     and of the unsharded kernels' block; zero offsets are the unsharded
-    launch, bit for bit."""
-    (q, k, v, do, lse, delta), kw = _backward_inputs(cuda_device, dtype, 4, s, 4, sep, 0.1)
+    launch, bit for bit.  Besides D = 64: D = 100 (8-byte copies of its
+    200-byte bf16 heads) and the tiles past 128 columns, where two blocks
+    each form the whole dropout tile (160, 256)."""
+    (q, k, v, do, lse, delta), kw = _backward_inputs(cuda_device, dtype, 4, s, 4, sep, 0.1,
+                                                     d=d)
     full_o, full_lse = fa.flash_attention(q, k, v, sep, **kw)
     zero_o, zero_lse = fa.flash_attention(q, k, v, sep, batch_offset=0, head_offset=0,
                                           num_heads=4, **kw)
@@ -204,20 +217,38 @@ def test_flash_kernels_with_offsets_match_plain_versions(cuda_device, dtype, tol
 
 @pytest.mark.cuda
 def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
-    for d in (8, 48):  # outside HEAD_DIMS
-        q = torch.zeros((1, 8, 2, d), device=cuda_device)
-        with pytest.raises(NotImplementedError, match="head_dim"):
-            fa.flash_attention(q, q, q)
-    qkv = torch.zeros((1, 8, 3 * 64 * 2 + 1), device=cuda_device)
-    q = qkv[:, :, 1:129].reshape(1, 8, 2, 64)  # rows not 4-element aligned
-    with pytest.raises(ValueError, match="aligned"):
+    """A head dim past 256 (wgmma's widest product) and heads that are not
+    contiguous are refused by name; operands off a 16-byte boundary are
+    taken (test_flash_kernel_takes_unaligned_operands)."""
+    q = torch.zeros((1, 8, 2, 264), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="head_dim 264"):
         fa.flash_attention(q, q, q)
-    # bfloat16 rows 8 bytes past a 16-byte boundary: the cp.async copies of
-    # the bfloat16 kernels need 16
-    qkv = torch.zeros((1, 8, 3 * 64 * 2 + 4), dtype=torch.bfloat16, device=cuda_device)
-    q = qkv[:, :, 4:132].reshape(1, 8, 2, 64)
-    with pytest.raises(ValueError, match="aligned"):
+    q = torch.zeros((1, 8, 64, 2), device=cuda_device).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 1), (torch.bfloat16, 4),
+                                          (torch.bfloat16, 1)])
+def test_flash_kernel_takes_unaligned_operands(cuda_device, dtype, offset):
+    """Rows ``offset`` elements past a 16-byte boundary (float32 4 bytes;
+    bf16 8 and 2 bytes) run with narrower copies, forward and backward,
+    within the plain versions' tolerances, without a copy of the operands."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    qkv = torch.randn((2, 77, 3 * 4 * 64 + offset), generator=gen, device=cuda_device)
+    qkv = qkv.to(dtype).requires_grad_()
+    q, k, v = (qkv[:, :, offset + i * 256:offset + (i + 1) * 256].reshape(2, 77, 4, 64)
+               for i in range(3))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    o, lse = fa.flash_attention(q, k, v, 5)
+    ro, rlse = fa.flash_attention_reference(q, k, v, 5)
+    assert (o.float() - ro.float()).abs().max().item() <= tol
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    w = torch.randn(o.shape, generator=gen, device=cuda_device).to(dtype)
+    got = torch.autograd.grad((o.float() * w.float()).sum(), qkv)[0]
+    want = torch.autograd.grad((ro.float() * w.float()).sum(), qkv)[0]
+    assert _rel_err(got, want) <= tol
 
 
 @pytest.mark.cuda
@@ -392,13 +423,13 @@ def test_int4_decode_kernel_matches_plain_version(cuda_device, dtype, index):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", da.HEAD_DIMS)
+@pytest.mark.parametrize("packed,d", DECODE_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("index", [3, 135, 1031, 1088])
-@pytest.mark.parametrize("packed", [False, True], ids=["K1", "K2"])
 def test_decode_kernels_over_head_dims(cuda_device, packed, dtype, index, d):
-    """K1 and K2 at every head dim of the switch, B=2, N=4 (9 splits): at
-    D = 8 an int4 block is 512 bytes, 4 rows of 128."""
+    """K1 and K2 at every tile width of the switch and at dims between them
+    (odd D = 33: K1 only, its ring slots 8-byte aligned), B=2, N=4 (9
+    splits): at D = 8 an int4 block is 512 bytes, 4 rows of 128."""
     _check_decode(cuda_device, packed, dtype, 2, 4, d, index, seed=3)
 
 
@@ -437,9 +468,13 @@ def test_decode_kernels_at_every_split_count(cuda_device, packed, splits):
 
 @pytest.mark.cuda
 def test_decode_wrapper_rejects_what_the_kernels_do_not_take(cuda_device):
-    q, ring, kv, sc = _decode_cache(cuda_device, False, 2, 4, 48, seed=0)
-    with pytest.raises(ValueError, match="head_dim"):  # 48 does not divide 128
+    q, ring, kv, sc = _decode_cache(cuda_device, False, 2, 4, 264, seed=0, NW=1)
+    with pytest.raises(NotImplementedError, match="head_dim 264"):  # past the widest tile
         da.decode_attention_quant(q, ring, kv, sc, 20)
+    q, ring, kv, sc = _decode_cache(cuda_device, False, 2, 4, 33, seed=0)
+    with pytest.raises(ValueError, match="odd head_dim 33"):  # no room in the int4 cache
+        da.decode_attention_quant(q, ring, kv[:, :, :, :, :16].contiguous(),
+                                  sc, 20)
     q, ring, kv, sc = _decode_cache(cuda_device, False, 2, 4, 64, seed=0)
 
     def misaligned(t):  # a contiguous view 4 bytes past a 16-byte boundary
