@@ -243,6 +243,14 @@ result):
    progressive JPEG from the script's writer is decoded in a child
    process, whose peak host RSS growth must stay within
    ``JPEG_BYTES_PER_PIXEL`` bytes a declared pixel;
+23f. the rarer formats on the card's host: the same kind of picture as
+   FLI and FLC (every chunk type of a first frame), IPTC raw and holding a
+   JPEG, Kodak PhotoCD upright and rotated, DDS in BC6H unsigned and
+   signed, PSD in Lab, IM in YCC and at 12 bits a sample, BLP1 holding a
+   YCCK JPEG (read as CMYK), and two damaged files (an FLI run past its
+   row, a PCD cut short), all by the script's own writers: each ends as
+   ``RARE_OUTCOMES`` (Pillow's outcomes) says, ``decode_image``'s host ms
+   printed per file, and the folder through ``cli.preprocess`` as in 23c;
 24. VQ-VAE training: ``cli.vqtrain.main`` at the released geometry, batch
    32 x 256^2 on phase 23's images, 20 straight-through + EMA iterations
    (the recon MSE at the last log below the first, the codebook's
@@ -3414,10 +3422,13 @@ def _huffman_codes(counts, symbols):
 
 
 def _jpeg_file(img, restart: int = 0, sampling=(2, 2), ycc: bool = True,
-               abbreviated: bool = False, progressive: bool = False) -> bytes:
+               abbreviated: bool = False, progressive: bool = False,
+               adobe: int = None) -> bytes:
     """A baseline JFIF JPEG of ``img`` [h, w, 3] uint8 (or [h, w], one
-    component): the luma's ``sampling`` factors (h, v) over chroma at 1 x 1
-    (4:2:0 by default), of its YCbCr (``ycc``) or of its samples as they are;
+    component, or [h, w, 4], four taken as they are): the first component's
+    ``sampling`` factors (h, v) over the others at 1 x 1 (4:2:0 by
+    default), of its YCbCr (``ycc``) or of its samples as they are;
+    ``adobe``: an Adobe marker with that transform after the JFIF marker;
     T.81's K.3 Huffman tables, quantizers 2 + 3 (u + v) / 2 (luma) and
     twice those (chroma), and a restart marker every ``restart`` MCUs where
     it is not 0; ``abbreviated``: without its tables (and JFIF marker), as
@@ -3434,12 +3445,12 @@ def _jpeg_file(img, restart: int = 0, sampling=(2, 2), ycc: bool = True,
     f = img.astype(np.float64)
     if f.ndim == 2:
         comps = [f]
-    elif ycc:
+    elif ycc and f.shape[2] == 3:
         comps = [0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2],
                  128 - 0.168736 * f[..., 0] - 0.331264 * f[..., 1] + 0.5 * f[..., 2],
                  128 + 0.5 * f[..., 0] - 0.418688 * f[..., 1] - 0.081312 * f[..., 2]]
     else:
-        comps = [f[..., 0], f[..., 1], f[..., 2]]
+        comps = [f[..., c] for c in range(f.shape[2])]
     sh, sv = sampling
     mh, mw = -(-h // (8 * sv)), -(-w // (8 * sh))
     n = np.arange(8)
@@ -3496,7 +3507,7 @@ def _jpeg_file(img, restart: int = 0, sampling=(2, 2), ycc: bool = True,
         if last < 63:
             put(*ac[0x00])
 
-    pred = [0, 0, 0]
+    pred = [0] * len(comps)
     scans = []
     blocks = [b.tolist() for b in blocks]  # [block row][block column][64], Python ints
     for m in range(mh * mw):
@@ -3504,7 +3515,7 @@ def _jpeg_file(img, restart: int = 0, sampling=(2, 2), ycc: bool = True,
             if nacc:
                 put(0x7F, 8 - nacc)
             out += bytes([0xFF, 0xD0 + (m // restart - 1) % 8])
-            pred = [0, 0, 0]
+            pred = [0] * len(comps)
         my, mx = divmod(m, mw)
         units = [(0, blocks[0][sv * my + v][sh * mx + u]) for v in range(sv) for u in range(sh)]
         for k, blk in units + [(k, blocks[k][my][mx]) for k in range(1, len(comps))]:
@@ -3529,9 +3540,9 @@ def _jpeg_file(img, restart: int = 0, sampling=(2, 2), ycc: bool = True,
         return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
 
     sof = struct.pack(">BHHB", 8, h, w, len(comps)) + bytes(
-        [1, sh << 4 | sv, 0, 2, 0x11, 1, 3, 0x11, 1][:3 * len(comps)])
+        [1, sh << 4 | sv, 0, 2, 0x11, 1, 3, 0x11, 1, 4, 0x11, 1][:3 * len(comps)])
     head = b"" if abbreviated else _jpeg_tables()[2:-2]
-    sel = bytes([len(comps), 1, 0x00, 2, 0x11, 3, 0x11][:1 + 2 * len(comps)])
+    sel = bytes([len(comps), 1, 0x00, 2, 0x11, 3, 0x11, 4, 0x11][:1 + 2 * len(comps)])
     if progressive:
         body = [seg(0xDA, sel + bytes([0, 0, 0])), scans[0]]
         for k in range(len(comps)):
@@ -3539,6 +3550,7 @@ def _jpeg_file(img, restart: int = 0, sampling=(2, 2), ycc: bool = True,
     else:
         body = [seg(0xDA, sel + bytes([0, 63, 0])), bytes(out)]
     return b"".join([b"\xff\xd8", b"" if abbreviated else seg(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0"),
+                     b"" if adobe is None else seg(0xEE, b"Adobe\0\x64\0\0\0\0" + bytes([adobe])),
                      head[:head.find(b"\xff\xc4")], seg(0xC2 if progressive else 0xC0, sof),
                      head[head.find(b"\xff\xc4"):],
                      seg(0xDD, struct.pack(">H", restart)) if restart else b""] + body
@@ -4670,6 +4682,223 @@ def phase_tiff_codecs(torch, vqvae, work: str, smi: str) -> None:
           f"{got['growth_kib']} KiB = {got['bytes_per_pixel']:.2f} bytes a declared pixel "
           f"(bound {JPEG_BYTES_PER_PIXEL})")
     print(f"tiff codecs: phase {time.perf_counter() - t0:.1f} s")
+
+
+RARE_SIZE = (96, 128)  # phase 23f's pictures, h x w (PCD's base image is 512 x 768)
+# phase 23f's files as Pillow 12.1 ends them (Image.open(...).convert("RGB")
+# on this script's files): "skip" where it raises, else the SHA-256 of the
+# RGB array it reads; tests/test_torch_image_rare.py holds this table to
+# live Pillow
+RARE_OUTCOMES = {
+    'bc6h.png': 'ae5ac0ddad678b9cd4464dc12d2fa0f8834283abb1fa127cd7c4af8299adb463',
+    'bc6h_signed.jpg': 'ecf3ebd2b63fdabd9b929c34a3463d48bc8ccc2c94d5ed0c5646c8c44e4072df',
+    'blp1_cmyk.jpg': '254018bcb0578625d17a2e17f482767a7c087d76770fe37e090830252597e28f',
+    'flc.png': '011e483e06a72c66d7a8f7cbf1c874f1d84e5ab94326e2c2df5956bb74d3f97f',
+    'fli.jpg': '14820757eba4f9dd4570fb2b243c36529b8c57604fe56f3ec7578317b42533a3',
+    'fli_broken.jpg': 'skip',
+    'im_l12.png': 'd5c8fa0d7c6b2b159f7c057c52725ec1a13c20769d92d477b54b1d2ad3d91e52',
+    'im_ycc.jpg': '2384f43ffffe6d703466982f2b7203adffe1da1030ade9ac3da5d23bedfbb0a6',
+    'iptc_jpeg.jpg': '532cff5e158c2d73b2bc366cfef5156cb11343e9c8185830c843872388b8b888',
+    'iptc_raw.png': 'f60c27f47af569a5e17216097776e3c7d6f38be4605d074bce5b29e9b84c1b1f',
+    'pcd.jpg': '30c8b53daf10d4a2fdc0ec1fdf739fa9b8c88d622571504c2b0c76e19dcd465a',
+    'pcd_cut.jpg': 'skip',
+    'pcd_rotated.png': '72121ae19133c62653d12bf3f6aadb682ebaa3a890b19bf23104215325449745',
+    'psd_lab.png': '15705f25024d037f8fa9feca31842e47f580f962bbcc8ff2ad5ef4ff614db82a',
+}
+
+
+def _packbits_rows(rows) -> bytes:
+    """PackBits of each row of ``rows`` [n, w] uint8, its byte counts
+    first (a PSD composite's layout): a run packet for 3 or more equal
+    bytes, else literals of up to 128."""
+    import struct
+
+    out = []
+    for row in rows.tolist():
+        enc, i = bytearray(), 0
+        while i < len(row):
+            j = i
+            while j < len(row) and j - i < 128 and row[j] == row[i]:
+                j += 1
+            if j - i >= 3:
+                enc += bytes([257 - (j - i), row[i]])
+                i = j
+                continue
+            j = i
+            while j < len(row) and j - i < 128 and not (
+                    j + 2 < len(row) and row[j] == row[j + 1] == row[j + 2]):
+                j += 1
+            enc += bytes([j - i - 1]) + bytes(row[i:j])
+            i = j
+        out.append(bytes(enc))
+    return struct.pack(f">{len(out)}H", *map(len, out)) + b"".join(out)
+
+
+def _fli_file(w: int, h: int, chunks, magic: int = 0xAF11) -> bytes:
+    """An FLI (0xAF11) or FLC (0xAF12) of one frame of ``chunks`` [(type,
+    body)], each body padded to an even length."""
+    import struct
+
+    body = b""
+    for kind, data in chunks:
+        data += bytes(len(data) % 2)
+        body += struct.pack("<IH", 6 + len(data), kind) + data
+    frame = struct.pack("<IHH", 16 + len(body), 0xF1FA, len(chunks)) + bytes(8) + body
+    head = struct.pack("<IHHHHHHI", 128 + len(frame), magic, 1, w, h, 8, 0, 5)
+    return head.ljust(128, b"\0") + frame
+
+
+def _brun(idx) -> bytes:
+    """An FLI BRUN chunk's body: each row's packet count (unused), then a
+    run (count, byte) for 3 or more equal bytes, else a literal (-count,
+    bytes) of up to 127."""
+    out = bytearray()
+    for row in idx.tolist():
+        out.append(0)
+        i = 0
+        while i < len(row):
+            j = i
+            while j < len(row) and j - i < 127 and row[j] == row[i]:
+                j += 1
+            if j - i >= 3:
+                out += bytes([j - i, row[i]])
+            else:
+                j = min(len(row), i + 127)
+                out += bytes([256 - (j - i)]) + bytes(row[i:j])
+            i = j
+    return bytes(out)
+
+
+def _rare_files() -> dict:
+    """The files of phase 23f -> {name: bytes}: a seeded 96 x 128 picture
+    (the gradient of phase 23, with noise) as the script's own writers
+    write it in the rarer formats the port reads: FLI (a 64-colour palette
+    and byte runs) and FLC (a 256-colour palette, then BLACK, COPY, LC,
+    SS2 and PSTAMP chunks over one another), IPTC raw (in two image
+    records) and holding a JPEG, Kodak PhotoCD (a 768 x 512 base image of
+    a larger gradient) upright and rotated, DDS in BC6H unsigned and signed
+    (seeded blocks of every mode and a reserved one), PSD in Lab
+    (PackBits), IM in YCC and at 12 bits a sample on an odd width, BLP1
+    holding a four-component JPEG with Adobe transform 2 (YCCK, which
+    Pillow reads as CMYK); and two damaged files Pillow skips: an FLI byte
+    run past its row and a PCD cut inside its base image."""
+    import struct
+
+    import numpy as np
+
+    rng = np.random.RandomState(47)
+    h, w = RARE_SIZE
+    img = _gradient_image(rng, h, w)
+    img = np.clip(img.astype(np.int64) + rng.randint(-12, 13, img.shape), 0, 255).astype(np.uint8)
+    files = {}
+    # FLI: indices into a 4 x 4 x 4 colour cube, 6-bit values (shifted by 2)
+    cube = (img.astype(np.int64) >> 6)
+    idx = ((cube[..., 0] << 4) | (cube[..., 1] << 2) | cube[..., 2]).astype(np.uint8)
+    pal64 = bytes(v * 21 for c in range(64) for v in (c >> 4, (c >> 2) & 3, c & 3))
+    files["fli.jpg"] = _fli_file(w, h, [(11, struct.pack("<HBB", 1, 0, 64) + pal64),
+                                        (15, _brun(idx))])
+    # FLC: a 6 x 6 x 6 cube and a gray ramp, then chunks over one another
+    pal = bytes(v * 51 for c in range(216) for v in (c // 36, (c // 6) % 6, c % 6))
+    pal += bytes(v for g in range(40) for v in (g * 6,) * 3)
+    six = (img.astype(np.int64) * 6) >> 8
+    full = (six[..., 0] * 36 + six[..., 1] * 6 + six[..., 2]).astype(np.uint8)
+    lc = struct.pack("<HH", 20, 30)
+    for row in (216 + (img[20:50, :, 1] // 7)).astype(np.uint8).tolist():
+        lc += bytes([2, 0, 100]) + bytes(row[:100]) + bytes([5, 256 - 20, row[110]])
+    ss2 = struct.pack("<HH", 2, 65536 - 60)  # two lines, the first after 60 skipped
+    for row in (full[60:62] ^ 7).tolist():
+        ss2 += struct.pack("<HBB", 2, 0, 32) + bytes(row[:64]) + bytes([16, 256 - 8, 9, 200])
+    files["flc.png"] = _fli_file(w, h, [(4, struct.pack("<HBB", 1, 0, 0) + pal), (13, b""),
+                                        (16, full.tobytes()), (12, lc), (7, ss2),
+                                        (18, bytes(12))], magic=0xAF12)
+    broken = bytearray(_brun(idx))
+    broken[1] = 200  # the first row's first run, 200 bytes long, past the row's 128
+    files["fli_broken.jpg"] = _fli_file(w, h, [(15, bytes(broken))])
+
+    def field(record: int, tag: int, value: bytes) -> bytes:
+        return bytes([0x1C, record, tag]) + struct.pack(">H", len(value)) + value
+
+    def iptc(compression: int, data: bytes, parts: int) -> bytes:
+        head = (field(3, 60, bytes([1, 0])) + field(3, 20, struct.pack(">H", w))
+                + field(3, 30, struct.pack(">H", h)) + field(3, 120, bytes([compression])))
+        cut = -(-len(data) // parts)
+        return head + b"".join(field(8, 10, data[i:i + cut])
+                               for i in range(0, len(data), cut)) + bytes(5)
+
+    files["iptc_raw.png"] = iptc(1, img[..., 1].tobytes(), 2)
+    files["iptc_jpeg.jpg"] = iptc(5, _jpeg_file(img), 1)
+    # PCD: a 512 x 768 gradient in PhotoYCC-like planes, at sector 96
+    big = _gradient_image(np.random.RandomState(48), 512, 768).astype(np.float64)
+    lum = 0.299 * big[..., 0] + 0.587 * big[..., 1] + 0.114 * big[..., 2]
+    ycc = [np.clip(lum * 0.72, 0, 255),
+           np.clip(156 + (big[..., 2] - lum) * 0.45, 0, 255)[::2, ::2],
+           np.clip(137 + (big[..., 0] - lum) * 0.55, 0, 255)[::2, ::2]]
+    ycc = [p.astype(np.uint8) for p in ycc]
+    base = np.concatenate([ycc[0].reshape(256, 2 * 768), ycc[1], ycc[2]], axis=1)
+    for name, orientation in (("pcd.jpg", 0), ("pcd_rotated.png", 1)):
+        head = bytearray(2048 + 1539)
+        head[2048:2055] = b"PCD_IPI"
+        head[2048 + 1538] = orientation
+        files[name] = bytes(head).ljust(96 * 2048, b"\0") + base.tobytes()
+    files["pcd_cut.jpg"] = files["pcd.jpg"][:-1000]
+    # BC6H: seeded blocks, the mode bits set to each of the 14 modes and one
+    # reserved, in turn
+    mode_bits = [(0, 2), (1, 2)] + [(v, 5) for v in (2, 6, 10, 14, 18, 22, 26, 30, 3, 7, 11,
+                                                     15, 19)]
+    for name, fmt in (("bc6h.png", 95), ("bc6h_signed.jpg", 96)):
+        blk = rng.randint(0, 256, ((h // 4) * (w // 4), 16)).astype(np.uint8)
+        for i, (v, n) in enumerate(mode_bits):
+            blk[i::len(mode_bits), 0] = (blk[i::len(mode_bits), 0] & (255 ^ ((1 << n) - 1))) | v
+        head = struct.pack("<4sIIIIIII", b"DDS ", 124, 0x1007, h, w, 0, 0, 0) + bytes(44)
+        head += struct.pack("<II4sI4I", 32, 0x4, b"DX10", 0, 0, 0, 0, 0)
+        files[name] = head.ljust(128, b"\0") + struct.pack("<5I", fmt, 3, 0, 1, 0) + blk.tobytes()
+    # PSD in Lab: L from green, a and b from the colour differences
+    i64 = img.astype(np.int64)
+    lab = np.stack([i64[..., 1], 128 + (i64[..., 0] - i64[..., 1]) // 2,
+                    128 + (i64[..., 1] - i64[..., 2]) // 2]).astype(np.uint8)
+    res = b"8BIM" + struct.pack(">HHI", 1005, 0, 4) + bytes(4)
+    files["psd_lab.png"] = (b"8BPS" + struct.pack(">H", 1) + bytes(6)
+                            + struct.pack(">HIIHH", 3, h, w, 8, 9) + struct.pack(">I", 0)
+                            + struct.pack(">I", len(res)) + res + struct.pack(">I", 0)
+                            + struct.pack(">H", 1) + _packbits_rows(lab.reshape(3 * h, w)))
+
+    def im(kind: bytes, iw: int, body: bytes) -> bytes:
+        head = b"Image type: %s\r\nImage size (x*y): %d*%d\r\n" % (kind, iw, h)
+        return head.ljust(511, b"\0") + b"\x1a" + body
+
+    ycbcr = np.stack([0.299 * i64[..., 0] + 0.587 * i64[..., 1] + 0.114 * i64[..., 2],
+                      128 - 0.1687 * i64[..., 0] - 0.3313 * i64[..., 1] + 0.5 * i64[..., 2],
+                      128 + 0.5 * i64[..., 0] - 0.4187 * i64[..., 1] - 0.0813 * i64[..., 2]], 1)
+    files["im_ycc.jpg"] = im(b"YCC image", w, np.clip(ycbcr, 0, 255).astype(np.uint8)[::-1].tobytes())
+    v12 = i64[:, :w - 1, 1] + rng.randint(0, 3, (h, w - 1)) * 128  # some past 255
+    bits = ((v12[..., None] >> np.arange(12)) & 1).reshape(h, -1).astype(np.uint8)
+    pad = rng.randint(0, 2, (h, -bits.shape[1] % 8)).astype(np.uint8)  # junk padding
+    files["im_l12.png"] = im(b"L*12 image", w - 1, np.packbits(
+        np.concatenate([bits, pad], 1), axis=1, bitorder="little")[::-1].tobytes())
+    cmyk = np.concatenate([img, 255 - img[..., 1:2]], -1)
+    jpeg = _jpeg_file(cmyk, sampling=(1, 1), ycc=False, adobe=2)
+    sos = jpeg.index(b"\xff\xda")
+    at = 28 + 128 + 4 + sos
+    files["blp1_cmyk.jpg"] = (b"BLP1" + struct.pack("<iIIIiI", 0, 0, w, h, 5, 0)
+                              + struct.pack("<16I", at, *[0] * 15)
+                              + struct.pack("<16I", len(jpeg) - sos, *[0] * 15)
+                              + struct.pack("<I", sos) + jpeg)
+    return files
+
+
+def phase_rare_formats(torch, vqvae, work: str, smi: str) -> None:
+    """Phase 23f: the rarer formats on the card's host, without Pillow
+    (RARE_OUTCOMES), then through the preprocess CLI on the card (see the
+    module docstring)."""
+    t0 = time.perf_counter()
+    files = _rare_files()
+    host_ms, rows, skipped = _outcomes_phase(torch, vqvae, work, "rare_formats", files,
+                                             RARE_OUTCOMES)
+    print(f"rare formats ({smi}; host decode of {RARE_SIZE[0]} x {RARE_SIZE[1]}, PCD 512 x "
+          "768, ms): " + ", ".join(f"{n} {host_ms[n]:.1f}" for n in sorted(files)))
+    print(f"rare formats: {len(files)} files as Pillow ends them, {rows} rows, {skipped} "
+          f"skipped, codes equal to img2code of the arrays read; phase "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase_vqtrain(torch, work: str, smi: str) -> None:
@@ -6242,6 +6471,8 @@ def main() -> int:
         lap("phase 23d")
         phase_tiff_codecs(torch, vqvae, work, smi.splitlines()[0])
         lap("phase 23e")
+        phase_rare_formats(torch, vqvae, work, smi.splitlines()[0])
+        lap("phase 23f")
         phase_vqtrain(torch, work, smi.splitlines()[0])
         lap("phase 24")
         phase_fid(torch, png, work, smi.splitlines()[0])

@@ -12,9 +12,9 @@ readers are chosen as Pillow's ``Image.open`` chooses its plugin
 
 Every image ends in one of the three outcomes of ``utils/image_errors.py``:
 it is read; an image Pillow reads and the port does not (JPEG 2000,
-AVIF, a JPEG-compressed TIFF, ...: ``UnsupportedImageError``) stops the
-run with an error naming the file, since the JAX package would have read
-it; bytes Pillow cannot open or load (corrupt or cut files, bytes that are
+AVIF, an ICNS whose best member is JPEG 2000, one damaged planar
+old-style JPEG TIFF: ``UnsupportedImageError``) stops the run with an
+error naming the file, since the JAX package would have read it; bytes Pillow cannot open or load (corrupt or cut files, bytes that are
 no image, an EPS without Ghostscript) are skipped and counted in the
 source's ``skipped`` (a warning names the count at the end), as the JAX
 package drops them.

@@ -4,13 +4,15 @@
 Follows Pillow's ``BlpImagePlugin``, which decodes BLP in Python: after the
 header, 16 mipmap offsets and 16 lengths; the first mipmap is read.
 BLP1 holds a JPEG (a shared header, then the mipmap's bytes; Pillow hands
-its RGB on as BGR, so red and blue trade places; a CMYK JPEG, which it
-reads without inverting, raises ``UnsupportedImageError``) or 8-bit indices into a 256-entry BGRA palette (encodings 4
-and 5).  BLP2 holds palette indices or DXT1, DXT3 or DXT5 blocks decoded
-by the plugin's own code (5-6-5 colours shifted, not replicated, into 8
-bits), whose rows of whole blocks Pillow then reads as rows of the
-image's width, and whose RGBA pixels it reads as RGB where the header
-says no alpha: the reader keeps both.  A header cut short raises
+its RGB on as BGR, so red and blue trade places; four components it
+decodes as CMYK whatever the Adobe marker says, so a YCCK JPEG's three
+colour components are read as C, M and Y, inverted like any CMYK JPEG's)
+or 8-bit indices into a 256-entry BGRA palette (encodings 4 and 5).
+BLP2 holds palette indices or DXT1, DXT3 or DXT5 blocks decoded by the
+plugin's own code (5-6-5 colours shifted, not replicated, into 8 bits),
+whose rows of whole blocks Pillow then reads as rows of the image's width,
+and whose RGBA pixels it reads as RGB where the header says no alpha: the
+reader keeps both.  A header cut short raises
 :class:`NotThisFormat`; another compression or encoding, an index past
 the palette and short data raise a ``ValueError``.
 """
@@ -21,7 +23,7 @@ import struct
 
 import numpy as np
 
-from .image_errors import NotThisFormat, UnsupportedImageError, check_pixels
+from .image_errors import NotThisFormat, check_pixels
 from .jpeg import decode_jpeg
 
 
@@ -111,13 +113,10 @@ def decode_blp(data: bytes) -> np.ndarray:
         body = data[at:at + lengths[0]]
         if len(head) < size or len(body) < lengths[0]:
             raise ValueError("truncated BLP file")
-        jpeg = head + body
-        if any(jpeg[i + 9:i + 10] == b"\x04" for m in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA)
-               for i in [jpeg.find(bytes([0xFF, m]))] if i >= 0):
-            raise UnsupportedImageError("BLP1 with a CMYK JPEG is not read by this package "
-                                        "(Pillow reads it without the inversion)")
-        # Pillow hands the JPEG's RGB bytes to a BGR raw decoder of the texture's size
-        return _raw(decode_jpeg(jpeg).tobytes(), w, h, 3)[..., ::-1].copy()
+        # Pillow decodes a CMYK JPEG with the JPEG mode "CMYK" (no YCCK
+        # conversion), and hands the RGB bytes to a BGR raw decoder of the
+        # texture's size
+        return _raw(decode_jpeg(head + body, cmyk=True).tobytes(), w, h, 3)[..., ::-1].copy()
     n_pal = min(256, (len(data) - pos) // 4)
     pal = np.frombuffer(data[pos:pos + 4 * n_pal], np.uint8).reshape(-1, 4)
     rgba = pal[:, [2, 1, 0, 3]]

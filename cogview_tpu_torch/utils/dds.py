@@ -11,10 +11,12 @@ start right after the 128-byte header (and the DX10 header, or the
 * Luminance at 8 bits, luminance and alpha at 16, 8-bit palette indices,
   and DX10's R8G8B8A8.
 * Block compression BC1 (DXT1), BC2 (DXT3), BC3 (DXT5), BC4 (ATI1) and BC5
-  (ATI2, and signed BC5S, whose blue Pillow sets to 128), and BC7's eight
-  modes (partitions, p-bits, rotations, the index-selection bit), by
-  FourCC or DX10 format, in 4 x 4 blocks that the image's edge may cut.
-  BC6H raises ``UnsupportedImageError``.
+  (ATI2, and signed BC5S, whose blue Pillow sets to 128), BC6H unsigned
+  and signed (DX10 formats 95 and 96: its 14 modes, reserved ones black,
+  the delta endpoints, the unquantize step, then Pillow's half float
+  clamped to [0, 1] and truncated to 8 bits) and BC7's eight modes
+  (partitions, p-bits, rotations, the index-selection bit), by FourCC or
+  DX10 format, in 4 x 4 blocks that the image's edge may cut.
 
 A header size other than 124, a FourCC or DXGI format Pillow does not
 know and data cut short raise a ``ValueError``, as Pillow fails on them.
@@ -26,14 +28,14 @@ import struct
 
 import numpy as np
 
-from .image_errors import NotThisFormat, UnsupportedImageError, check_pixels
+from .image_errors import NotThisFormat, check_pixels
 
 _ALPHAPIXELS, _FOURCC, _PAL8, _RGB, _LUMINANCE = 0x1, 0x4, 0x20, 0x40, 0x20000
 _FOURCCS = {b"DXT1": 1, b"DXT3": 2, b"DXT5": 3, b"BC4U": 4, b"ATI1": 4, b"BC5U": 5,
             b"ATI2": 5, b"BC5S": -5}
 _DXGI = {70: 1, 71: 1, 73: 2, 74: 2, 76: 3, 77: 3, 79: 4, 80: 4, 82: 5, 83: 5, 84: -5,
-         95: 6, 96: 6, 97: 7, 98: 7, 99: 7, 27: 0, 28: 0, 29: 0}
-_BLOCK_BYTES = {1: 8, 2: 16, 3: 16, 4: 8, 5: 16, 7: 16}
+         95: 6, 96: -6, 97: 7, 98: 7, 99: 7, 27: 0, 28: 0, 29: 0}
+_BLOCK_BYTES = {1: 8, 2: 16, 3: 16, 4: 8, 5: 16, 6: 16, 7: 16}
 
 
 def _565(c: np.ndarray) -> np.ndarray:
@@ -181,6 +183,137 @@ def _bc7_block(blk: bytes) -> list:
     return out
 
 
+# BC6H: per mode, in Pillow's order (the 2-bit modes 0 and 1, then the 5-bit
+# ones 2, 6, ..., 30 and 3, 7, 11, 15): (regions, transformed, endpoint
+# bits, delta bits of r, g, b) and where each endpoint bit lies, in the
+# order the block stores them after the mode bits (D3D's table of BC6H
+# endpoint layouts; a field [9:0] is stored from bit 0 up, [10:15] from bit
+# 15 down).  Endpoints r0 g0 b0 (w), r1 g1 b1 (x), r2 g2 b2 (y), r3 g3 b3 (z).
+_BC6_MODES = (
+    (2, 1, 10, 5, 5, 5, "g2[4] b2[4] b3[4] r0[9:0] g0[9:0] b0[9:0] r1[4:0] g3[4] g2[3:0] "
+     "g1[4:0] b3[0] g3[3:0] b1[4:0] b3[1] b2[3:0] r2[4:0] b3[2] r3[4:0] b3[3]"),
+    (2, 1, 7, 6, 6, 6, "g2[5] g3[4] g3[5] r0[6:0] b3[0] b3[1] b2[4] g0[6:0] b2[5] b3[2] "
+     "g2[4] b0[6:0] b3[3] b3[5] b3[4] r1[5:0] g2[3:0] g1[5:0] g3[3:0] b1[5:0] b2[3:0] "
+     "r2[5:0] r3[5:0]"),
+    (2, 1, 11, 5, 4, 4, "r0[9:0] g0[9:0] b0[9:0] r1[4:0] r0[10] g2[3:0] g1[3:0] g0[10] "
+     "b3[0] g3[3:0] b1[3:0] b0[10] b3[1] b2[3:0] r2[4:0] b3[2] r3[4:0] b3[3]"),
+    (2, 1, 11, 4, 5, 4, "r0[9:0] g0[9:0] b0[9:0] r1[3:0] r0[10] g3[4] g2[3:0] g1[4:0] "
+     "g0[10] g3[3:0] b1[3:0] b0[10] b3[1] b2[3:0] r2[3:0] b3[0] b3[2] r3[3:0] g2[4] b3[3]"),
+    (2, 1, 11, 4, 4, 5, "r0[9:0] g0[9:0] b0[9:0] r1[3:0] r0[10] b2[4] g2[3:0] g1[3:0] "
+     "g0[10] b3[0] g3[3:0] b1[4:0] b0[10] b2[3:0] r2[3:0] b3[1] b3[2] r3[3:0] b3[4] b3[3]"),
+    (2, 1, 9, 5, 5, 5, "r0[8:0] b2[4] g0[8:0] g2[4] b0[8:0] b3[4] r1[4:0] g3[4] g2[3:0] "
+     "g1[4:0] b3[0] g3[3:0] b1[4:0] b3[1] b2[3:0] r2[4:0] b3[2] r3[4:0] b3[3]"),
+    (2, 1, 8, 6, 5, 5, "r0[7:0] g3[4] b2[4] g0[7:0] b3[2] g2[4] b0[7:0] b3[3] b3[4] "
+     "r1[5:0] g2[3:0] g1[4:0] b3[0] g3[3:0] b1[4:0] b3[1] b2[3:0] r2[5:0] r3[5:0]"),
+    (2, 1, 8, 5, 6, 5, "r0[7:0] b3[0] b2[4] g0[7:0] g2[5] g2[4] b0[7:0] g3[5] b3[4] "
+     "r1[4:0] g3[4] g2[3:0] g1[5:0] g3[3:0] b1[4:0] b3[1] b2[3:0] r2[4:0] b3[2] r3[4:0] "
+     "b3[3]"),
+    (2, 1, 8, 5, 5, 6, "r0[7:0] b3[1] b2[4] g0[7:0] b2[5] g2[4] b0[7:0] b3[5] b3[4] "
+     "r1[4:0] g3[4] g2[3:0] g1[4:0] b3[0] g3[3:0] b1[5:0] b2[3:0] r2[4:0] b3[2] r3[4:0] "
+     "b3[3]"),
+    (2, 0, 6, 6, 6, 6, "r0[5:0] g3[4] b3[0] b3[1] b2[4] g0[5:0] g2[5] b2[5] b3[2] g2[4] "
+     "b0[5:0] g3[5] b3[3] b3[5] b3[4] r1[5:0] g2[3:0] g1[5:0] g3[3:0] b1[5:0] b2[3:0] "
+     "r2[5:0] r3[5:0]"),
+    (1, 0, 10, 10, 10, 10, "r0[9:0] g0[9:0] b0[9:0] r1[9:0] g1[9:0] b1[9:0]"),
+    (1, 1, 11, 9, 9, 9, "r0[9:0] g0[9:0] b0[9:0] r1[8:0] r0[10] g1[8:0] g0[10] b1[8:0] b0[10]"),
+    (1, 1, 12, 8, 8, 8, "r0[9:0] g0[9:0] b0[9:0] r1[7:0] r0[10:11] g1[7:0] g0[10:11] "
+     "b1[7:0] b0[10:11]"),
+    (1, 1, 16, 4, 4, 4, "r0[9:0] g0[9:0] b0[9:0] r1[3:0] r0[10:15] g1[3:0] g0[10:15] "
+     "b1[3:0] b0[10:15]"))
+
+
+def _bc6_layout(text: str) -> list:
+    """A layout string -> [(endpoint 0..11, bit)] in stored order."""
+    out = []
+    for field in text.split():
+        name, bits = field[:2], field[3:-1].split(":")
+        k = "rgb".index(name[0]) + 3 * int(name[1])
+        hi, lo = int(bits[0]), int(bits[-1])
+        out += [(k, b) for b in range(lo, hi + (1 if hi >= lo else -1), 1 if hi >= lo else -1)]
+    return out
+
+
+_BC6_LAYOUTS = [_bc6_layout(m[6]) for m in _BC6_MODES]
+
+
+def _sign_extend(v: np.ndarray, bits: int) -> np.ndarray:
+    return np.where(v & (1 << (bits - 1)), v - (1 << bits), v)
+
+
+def _bc6_unquantize(v: np.ndarray, prec: int, signed: bool) -> np.ndarray:
+    """BcnDecode.c's bc6_unquantize of endpoints at ``prec`` bits."""
+    if not signed:
+        if prec >= 15:
+            return v
+        q = ((v << 15) + 0x4000) >> (prec - 1)
+        return np.where(v == 0, 0, np.where(v == (1 << prec) - 1, 0xFFFF, q))
+    v = _sign_extend(v & 0xFFFF, 16)  # the endpoints are UINT16, read as INT16
+    if prec >= 16:
+        return v
+    a = np.abs(v)
+    q = np.where(a >= (1 << (prec - 1)) - 1, 0x7FFF, ((a << 15) + 0x4000) >> (prec - 1))
+    q = np.where(a == 0, 0, q)
+    return np.where(v < 0, -q, q)
+
+
+def _bc6_blocks(blk: np.ndarray, signed: bool) -> np.ndarray:
+    """[n, 16] BC6H blocks -> [n, 16, 3] uint8 (BcnDecode's
+    decode_bc6_block, then Pillow's half float to 8 bits)."""
+    bits = np.unpackbits(blk, axis=1, bitorder="little")  # [n, 128]
+    two = (blk[:, 0] & 3).astype(np.int64)
+    five = (blk[:, 0] & 31).astype(np.int64)
+    mode = np.where(two < 2, two, np.where(two == 2, 2 + (five >> 2), 10 + (five >> 2)))
+    px = np.zeros((len(blk), 16, 3), np.uint8)  # a reserved mode is black
+    for m, (ns, tr, epb, rb, gb, bb, _) in enumerate(_BC6_MODES):
+        sel = np.nonzero(mode == m)[0]
+        if not len(sel):
+            continue
+        b = bits[sel].astype(np.int64)
+        pos = 2 if m < 2 else 5
+        ep = np.zeros((len(sel), 12), np.int64)
+        for k, bit in _BC6_LAYOUTS[m]:
+            ep[:, k] |= b[:, pos] << bit
+            pos += 1
+        nep = 6 * ns
+        if signed:
+            ep[:, :3] = _sign_extend(ep[:, :3], epb)
+        if signed or tr:
+            for i, db in enumerate((rb, gb, bb) * (ns * 2 - 1)):
+                ep[:, 3 + i] = _sign_extend(ep[:, 3 + i], db)
+        if tr:  # the sum is not sign-extended again (bc6_unquantize's INT16 cast aside)
+            ep[:, 3:nep] = (ep[:, 3:nep] + np.tile(ep[:, :3], ns * 2 - 1)) & ((1 << epb) - 1)
+        ep = _bc6_unquantize(ep[:, :nep], epb, signed)
+        if ns == 2:
+            part = sum(b[:, pos + i] << i for i in range(5))
+            pos += 5
+            subset = (np.array(_BC7_P2)[part][:, None] >> (2 * np.arange(16))) & 3
+            anchor = np.array(_BC7_A2)[part]
+            ib = 3
+        else:
+            subset = np.zeros((len(sel), 16), np.int64)
+            anchor = np.zeros(len(sel), np.int64)
+            ib = 4
+        at = np.full(len(sel), pos)
+        idx = np.zeros((len(sel), 16), np.int64)
+        for i in range(16):
+            width = ib - ((i == 0) | (anchor == i))  # an anchor's index is a bit shorter
+            for t in range(ib):
+                bit = b[np.arange(len(sel)), np.minimum(at + t, 127)]
+                idx[:, i] |= np.where(t < width, bit << t, 0)
+            at = at + width
+        weights = np.array(_BC7_WEIGHTS[ib])[idx]
+        ep3, rows = ep.reshape(-1, ns * 2, 3), np.arange(len(sel))[:, None]
+        e0, e1 = ep3[rows, 2 * subset], ep3[rows, 2 * subset + 1]
+        v = (e0 * (64 - weights[..., None]) + e1 * weights[..., None]) >> 6
+        if signed:
+            half = np.where(v < 0, 0x8000 | (((-v) * 31) >> 5), (v * 31) >> 5)
+        else:
+            half = (v * 31) >> 6
+        f = half.astype(np.uint16).view(np.float16).astype(np.float32)
+        px[sel] = np.where(f < 0, 0, np.where(f > 1, 255, f * np.float32(255))).astype(np.uint8)
+    return px
+
+
 def bcn_decode(data: bytes, pos: int, w: int, h: int, n: int) -> np.ndarray:
     """Block-compressed pixels from ``pos`` -> [h, w, 3] uint8."""
     bw, bh = -(-w // 4), -(-h // 4)
@@ -195,6 +328,8 @@ def bcn_decode(data: bytes, pos: int, w: int, h: int, n: int) -> np.ndarray:
         px = _bc1_colors(blk[:, 8:], True)
     elif n == 4:
         px = np.repeat(_bc3_alpha(blk)[..., None], 3, axis=2)
+    elif abs(n) == 6:
+        px = _bc6_blocks(blk, n < 0)
     elif n == 7:
         px = np.array([_bc7_block(b.tobytes()) for b in blk], np.uint8).reshape(-1, 16, 3)
     else:
@@ -278,7 +413,4 @@ def decode_dds(data: bytes) -> np.ndarray:
         raise ValueError(f"DDS: unimplemented pixel format {fourcc!r}")
     if n == 0:
         return np.ascontiguousarray(_raw(data, pos, w, h, 4)[..., :3])
-    if n == 6:
-        raise UnsupportedImageError("DDS in BC6H is not read by this package (BC1-BC5, BC7 "
-                                    "and uncompressed only)")
     return bcn_decode(data, pos, w, h, n)

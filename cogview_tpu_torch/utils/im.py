@@ -10,10 +10,12 @@ planes), palette images (``B2``/``B4`` and any gray type whose map is no
 gray ramp), the older planar ``RGB3`` and ``RYB3`` (green, red, blue),
 16-bit and 32-bit integer and float gray (``L 16``, ``L 32S``, ``L 32F``,
 ``L 8`` ...), each converted to RGB as Pillow converts its mode (clipped,
-floats truncated).  A header Pillow's plugin refuses raises
-:class:`NotThisFormat`; the YCC and ``L*n`` bit depths raise
-``UnsupportedImageError``; an unknown type (the older ``RLB`` and ``RYB``,
-whose raw mode Pillow lacks) or short data a ``ValueError``.
+floats truncated); YCC (``YCbCr;L`` planes, converted by Pillow's own
+YCbCr tables, :data:`YCBCR_TABLES`, not libjpeg's); and the ``L*n``
+depths other than 8, 16 and 32, which Pillow reads through its ``bit``
+decoder (:func:`_bit_rows`) into float gray.  A header Pillow's plugin
+refuses raises :class:`NotThisFormat`; an unknown type (the older ``RLB``
+and ``RYB``, whose raw mode Pillow lacks) or short data a ``ValueError``.
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ import re
 
 import numpy as np
 
-from .image_errors import NotThisFormat, UnsupportedImageError, check_pixels
+from .image_errors import NotThisFormat, check_pixels
 from .jpeg import cmyk_to_rgb
 from .raw_formats import gray_to_rgb
+from .tiff_rgba import ycbcr_to_rgb
 
 _LINE = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
 _TAGS = {b"Comment", b"Date", b"Digitalization equipment", b"File size (no of images)",
@@ -47,8 +50,47 @@ _TYPES = {
     b"L*16L image": ("I;16", "<u2"), b"L 16B image": ("I;16", ">u2"),
     b"L*16B image": ("I;16", ">u2"), b"L 32S image": ("I", "<i4"),
     b"L*32S image": ("I", "<i4"), b"RGB3 image": ("RGB", "RGB;T"),
-    b"RYB3 image": ("RGB", "RGB;T")}
-_NAMED = (b"YCC image",)
+    b"RYB3 image": ("RGB", "RGB;T"), b"YCC image": ("YCbCr", "YCbCr;L")}
+# the depths Pillow's bit decoder reads: L*2 ... L*31 but 8 and 16 (32 is
+# in the table, and the bit decoder refuses 32 bits)
+_BITS = re.compile(rb"L\*([2-9]|[12][0-9]|3[01]) image")
+
+
+def _ycbcr_table(k: float) -> np.ndarray:
+    """One of ConvertYCbCr.c's tables: (c - 128) * k in 6-bit fixed point,
+    each entry C's ``(int)(x + 0.5)``."""
+    return np.trunc((np.arange(256) - 128) * k * 64 + 0.5).astype(np.int64)
+
+
+# Pillow's convert("RGB") of YCbCr (ImagingConvertYCbCr2RGB: Y plus each
+# table shifted right by 6, G's two summed first), as the tables
+# tiff_rgba.ycbcr_to_rgb takes: Y, R of Cr, B of Cb, then G of Cr and of Cb
+# in its 16-bit fixed point
+YCBCR_TABLES = (np.arange(256), _ycbcr_table(1.402) >> 6, _ycbcr_table(1.772) >> 6,
+                _ycbcr_table(-0.71414) << 10, _ycbcr_table(-0.34414) << 10)
+
+
+def _bit_rows(data: bytes, pos: int, w: int, h: int, bits: int) -> np.ndarray:
+    """Pillow's bit decoder with ImImagePlugin's arguments (``bits``, pad 8,
+    fill 3, unsigned, bottom-up) -> [h, w] float32: each row from a byte
+    boundary, its pixels taken from the low bits of the bytes up.  At a
+    new row the decoder clears its bit count but not its bit buffer, so the
+    bits left over from the last byte of the row before are OR-ed into the
+    first byte of the next."""
+    k = (w * bits + 7) // 8
+    body = data[pos:pos + h * k]
+    if len(body) < h * k:
+        raise ValueError("corrupt IM: image file is truncated")
+    rows = np.frombuffer(body, np.uint8).reshape(h, k).copy()
+    left = 8 * k - w * bits
+    if left and k > 1:
+        rows[1:, 0] |= rows[:-1, -1] >> (8 - left)
+    elif left:  # a row of one byte: the bits left over come from the byte just changed
+        for r in range(1, h):
+            rows[r, 0] |= rows[r - 1, 0] >> (8 - left)
+    v = np.unpackbits(rows, axis=1, bitorder="little")[:, :w * bits].reshape(h, w, bits)
+    v = v.astype(np.int64) @ (np.int64(1) << np.arange(bits, dtype=np.int64))
+    return v[::-1].astype(np.float32)
 
 
 def _header(data: bytes):
@@ -105,9 +147,8 @@ def decode_im(data: bytes) -> np.ndarray:
                                                     b"File size (no of images)", b"Scale (x,y)"))
     except ValueError:
         raise ValueError("IM: a number Pillow cannot parse") from None
-    named = kind in _NAMED or (kind not in _TYPES and re.fullmatch(
-        rb"L\*([2-9]|[12][0-9]|3[0-2]) image", kind))
-    if kind not in _TYPES and not named:
+    bits = kind not in _TYPES and _BITS.fullmatch(kind)
+    if kind not in _TYPES and not bits:
         raise ValueError(f"IM image type {kind!r}: Pillow cannot load it")
     if len(size) != 2 or not all(isinstance(v, int) for v in size):
         raise ValueError("IM: a size Pillow cannot use")
@@ -115,9 +156,7 @@ def decode_im(data: bytes) -> np.ndarray:
     if w <= 0 or h <= 0:
         raise NotThisFormat("not identified by this driver")
     check_pixels(w, h)
-    if named:
-        raise UnsupportedImageError(f"IM {kind.decode()} is not read by this package")
-    mode, raw = _TYPES[kind]
+    mode, raw = _TYPES[kind] if not bits else ("F", "bit")
     palette = None
     if b"Lut" in info:
         pal = np.frombuffer(data[pos:pos + 768].ljust(768, b"\0"), np.uint8).reshape(3, 256)
@@ -126,6 +165,8 @@ def decode_im(data: bytes) -> np.ndarray:
         if mode in ("L", "LA", "P") and not gray:
             palette, mode = np.ascontiguousarray(pal.T), "P"
             raw = "P" if raw in ("L", "P;2", "P;4") else "PA;L"
+    if raw == "bit":
+        return gray_to_rgb(_bit_rows(data, pos, w, h, int(bits.group(1))))
     if raw == "RGB;T":  # three planes, G, R and B, each bottom-up
         body = data[pos:pos + 3 * w * h]
         if len(body) < 3 * w * h:
@@ -136,7 +177,7 @@ def decode_im(data: bytes) -> np.ndarray:
         bits = {"1": 1, "P;2": 2, "P;4": 4}[raw]
         row = (w * bits + 7) // 8
     elif raw.endswith(";L") or raw == "RGB":
-        bands = len(raw.split(";")[0]) if raw.endswith(";L") else 3
+        bands = 3 if raw == "YCbCr;L" else len(raw.split(";")[0])
         row = w * bands
     elif raw in ("L", "P"):
         row = w
@@ -161,6 +202,8 @@ def decode_im(data: bytes) -> np.ndarray:
             return np.repeat(first[..., None], 3, axis=2)
         if raw == "CMYK;L":
             return cmyk_to_rgb(np.moveaxis(planes[:, :3], 1, -1), planes[:, 3])
+        if raw == "YCbCr;L":
+            return ycbcr_to_rgb(YCBCR_TABLES, *(planes[:, i] for i in range(3)))
         return np.ascontiguousarray(np.moveaxis(planes[:, :3], 1, -1))
     if raw == "RGB":
         return rows.reshape(h, w, 3).copy()

@@ -26,10 +26,10 @@ BUFR, GRIB and HDF5 stubs, MPEG), a plain ``ValueError``.
 :func:`decode_image` walks the rows.  Every file ends in one of the three
 outcomes of ``utils/image_errors.py``.
 
-The header checks of the named formats (AVIF as far as libavif's parse
-goes, FLI, JPEG 2000 in ``utils/jpeg2000.py``, IPTC, PCD) end with
-Pillow's decompression-bomb check, and skip a file cut short where
-Pillow fails to load it.  They cannot see damage inside the compressed
+The header checks of the two named formats (AVIF as far as libavif's
+parse goes, JPEG 2000 in ``utils/jpeg2000.py``) end with Pillow's
+decompression-bomb check, and skip a file cut short where Pillow fails to
+load it.  They cannot see damage inside the compressed
 data, which Pillow finds only as it decodes: such a file is named where
 Pillow would skip it.
 """
@@ -45,6 +45,7 @@ from .blp import decode_blp
 from .bmp import decode_bmp, decode_dib
 from .dds import decode_dds
 from .fits import decode_fits
+from .fli import decode_fli
 from .ftex import decode_ftex
 from .gbr import decode_gbr
 from .gif import decode_gif
@@ -52,9 +53,11 @@ from .icns import decode_icns
 from .ico import decode_cur, decode_ico
 from .im import decode_im
 from .image_errors import NotThisFormat, UnsupportedImageError, check_pixels
+from .iptc import decode_iptc
 from .jpeg import decode_jpeg
 from .jpeg2000 import check_jpeg2000
 from .msp import decode_msp
+from .pcd import decode_pcd
 from .pcx import decode_dcx, decode_pcx
 from .png import decode_png
 from .pnm import decode_pnm
@@ -75,10 +78,12 @@ READ_FORMATS = (
     "Pillow's P0CMYK and Py extensions), QOI, WebP (lossy, lossless, alpha, an animation's "
     "first frame), TIFF and BigTIFF (none, PackBits, LZW, Deflate, LZMA, Zstandard, "
     "ThunderScan, CCITT RLE, Group 3 and 4, JPEG, old-style JPEG; every sample "
-    "layout Pillow reads, YCbCr and CIELab), ICO and CUR, TGA, PSD (8-bit composite), "
-    "DDS (uncompressed, BC1-BC5, BC7), "
-    "PCX and DCX, SGI, SUN, XBM, XPM, MSP, ICNS (PNG and RGB members), IM, FITS, BLP, SPIDER, "
-    "GBR, FTEX, McIdas, PIXAR, IMT, XV thumbnails or baseline JPEG, progressive, "
+    "layout Pillow reads, YCbCr and CIELab), ICO and CUR, TGA, PSD (8-bit composite, "
+    "also Lab), DDS (uncompressed, BC1-BC7, BC6H signed and unsigned), "
+    "PCX and DCX, SGI, SUN, XBM, XPM, MSP, ICNS (PNG and RGB members), IM (also YCC and "
+    "L*n bit depths), FITS, BLP (also BLP1 with a CMYK JPEG), SPIDER, GBR, FTEX, McIdas, "
+    "PIXAR, IMT, XV thumbnails, FLI and FLC (the first frame), IPTC/NAA (raw and JPEG), "
+    "Kodak PhotoCD (the 768 x 512 base image) or baseline JPEG, progressive, "
     "arithmetic-coded and 8-bit lossless JPEG (also CMYK and YCCK)")
 
 
@@ -94,13 +99,12 @@ def _u32le(prefix: bytes) -> int:
     return struct.unpack_from("<I", prefix)[0]
 
 
-def _named(name: str, check: Optional[Callable[[bytes], None]] = None):
+def _named(name: str, check: Callable[[bytes], None]):
     """A format Pillow reads and the port does not: ``check`` (the header
     tests of Pillow's ``_open``, raising NotThisFormat or ValueError),
     then ``UnsupportedImageError`` naming it."""
     def read(data: bytes) -> np.ndarray:
-        if check is not None:
-            check(data)
+        check(data)
         raise UnsupportedImageError(f"{name} is not an image this package reads: "
                                     f"{READ_FORMATS}")
     return read
@@ -111,112 +115,6 @@ def _unloadable(name: str, why: str):
     def read(data: bytes) -> np.ndarray:
         raise ValueError(f"{name}: Pillow opens it but cannot load it ({why})")
     return read
-
-
-# ---- the header checks of the plugins that have no _accept --------------
-
-def _check_iptc(data: bytes) -> None:
-    """IptcImagePlugin's _open: IPTC/NAA records up to the image record."""
-    pos, info, tag = 0, {}, None
-    while True:
-        s = data[pos:pos + 5]
-        pos += 5
-        if not s.strip(b"\x00"):
-            tag = None
-            break
-        if len(s) < 5:
-            raise NotThisFormat("not an IPTC file")
-        tag = s[1], s[2]
-        if s[0] != 0x1C or tag[0] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
-            raise NotThisFormat("invalid IPTC/NAA file")
-        size = s[3]
-        if size > 132:
-            raise ValueError("illegal field length in IPTC/NAA file")
-        if size == 128:
-            size = 0
-        elif size > 128:
-            size = int.from_bytes(data[pos:pos + size - 128], "big")
-            pos += s[3] - 128
-        else:
-            size = struct.unpack_from(">H", s, 3)[0]
-        if tag == (8, 10):
-            break
-        info[tag] = data[pos:pos + size]
-        pos += size
-    try:
-        layers, component = info[(3, 60)][0], info[(3, 60)][1]
-        w, h = (int.from_bytes(info[k][-4:], "big") for k in ((3, 20), (3, 30)))
-        compression = int.from_bytes(info[(3, 120)][-4:], "big")
-    except (KeyError, IndexError):
-        raise NotThisFormat("not an IPTC image") from None
-    if compression not in (1, 5):
-        raise ValueError("unknown IPTC image compression")
-    if not ((layers == 1 and not component) or (layers in (3, 4) and component)):
-        raise NotThisFormat("not an IPTC image")
-    if w <= 0 or h <= 0:
-        raise NotThisFormat("not an IPTC image")
-    check_pixels(w, h)
-    if tag != (8, 10):
-        raise ValueError("IPTC: Pillow opens it but cannot load it (no image record)")
-
-
-def _check_pcd(data: bytes) -> None:
-    if len(data) < 2048 + 1539 or data[2048:2052] != b"PCD_":
-        raise NotThisFormat("not a PCD file")
-
-
-def _check_fli(data: bytes) -> None:
-    """FliImagePlugin's _open: zeros in the header's reserved bytes, the
-    chunks it walks for a palette, the first frame's size word; a first
-    frame cut short fails to load."""
-    if (len(data) < 128 or data[20:22] != bytes(2) or data[42:80] != bytes(38)
-            or data[88:128] != bytes(40)):
-        raise NotThisFormat("not an FLI/FLC file")
-    w, h = struct.unpack_from("<HH", data, 8)
-    try:
-        pos = 128
-        if struct.unpack_from("<H", data, pos + 4)[0] == 0xF100:  # a prefix chunk
-            pos += struct.unpack_from("<I", data, pos)[0]
-        if struct.unpack_from("<H", data, pos + 4)[0] == 0xF1FA:  # a frame: its palette
-            pos += 16
-            size = None
-            for _ in range(struct.unpack_from("<H", data, pos - 10)[0]):
-                if size is not None:
-                    pos += size - 6
-                kind = struct.unpack_from("<H", data, pos + 4)[0]
-                if kind in (4, 11):
-                    _fli_palette(data, pos + 6)
-                    break
-                size = struct.unpack_from("<I", data, pos)[0]
-                pos += 6
-                if not size:
-                    break
-        frame = struct.unpack_from("<I", data, 128)[0]  # the first frame's size
-    except (struct.error, IndexError):
-        raise NotThisFormat("not an FLI/FLC file: a chunk cut short") from None
-    if w <= 0 or h <= 0:
-        raise NotThisFormat("not identified by this driver")
-    check_pixels(w, h)
-    if 128 + frame > len(data) + 1:  # Pillow's decoder allows one pad byte
-        raise ValueError("FLI: the first frame runs past the end of the file")
-
-
-def _fli_palette(data: bytes, pos: int) -> None:
-    """FliImagePlugin._palette's reads: an index past 255 or a packet cut
-    short is an IndexError, which Pillow takes as "not this format"."""
-    i, count = 0, struct.unpack_from("<H", data, pos)[0]
-    pos += 2
-    for _ in range(count):
-        s = data[pos:pos + 2]
-        pos += len(s)
-        i += s[0]
-        n = s[1] or 256
-        s = data[pos:pos + 3 * n]
-        pos += len(s)
-        for k in range(0, len(s), 3):
-            if k + 2 >= len(s) or i > 255:
-                raise IndexError("an FLI palette packet cut short, or an index past 255")
-            i += 1
 
 
 def _avif_boxes(data: bytes, start: int, end: int, top: bool = False):
@@ -357,7 +255,7 @@ FORMATS = (
     Format("FITS", lambda p: p[:6] == b"SIMPLE", decode_fits),
     Format("FLI", lambda p: (len(p) >= 16 and struct.unpack_from("<H", p, 4)[0] in
                              (0xAF11, 0xAF12) and struct.unpack_from("<H", p, 14)[0] in (0, 3)),
-           _named("FLI", _check_fli)),
+           decode_fli),
     Format("FTEX", lambda p: p[:4] == b"FTEX", decode_ftex),
     Format("GBR", lambda p: (len(p) >= 8 and struct.unpack_from(">I", p)[0] >= 20
                              and struct.unpack_from(">I", p, 4)[0] in (1, 2)), decode_gbr),
@@ -370,14 +268,14 @@ FORMATS = (
     Format("ICO", lambda p: p[:4] == b"\0\0\1\0", decode_ico),
     Format("IM", None, decode_im),
     Format("IMT", None, decode_imt),
-    Format("IPTC", None, _named("IPTC", _check_iptc)),
+    Format("IPTC", None, decode_iptc),
     Format("MCIDAS", lambda p: p[:8] == b"\0\0\0\0\0\0\0\4", decode_mcidas),
     Format("MPEG", lambda p: p[:4] == b"\0\0\1\xb3",
            _unloadable("MPEG", "Pillow identifies MPEG and decodes no frame")),
     Format("TIFF", lambda p: p[:4] in (b"MM\0*", b"II*\0", b"MM*\0", b"II\0*", b"MM\0+",
                                        b"II+\0"), decode_tiff),
     Format("MSP", lambda p: p[:4] in (b"DanM", b"LinS"), decode_msp),
-    Format("PCD", None, _named("PCD", _check_pcd)),
+    Format("PCD", None, decode_pcd),
     Format("PIXAR", lambda p: p[:4] == b"\x80\xe8\0\0", decode_pixar),
     Format("PSD", lambda p: p[:4] == b"8BPS", decode_psd),
     Format("QOI", lambda p: p[:4] == b"qoif", decode_qoi),

@@ -137,17 +137,18 @@ _PIL_SOF = frozenset((0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB
 _PIL_SKIP = frozenset((0xC4, 0xCC, 0xDA, 0xDC, 0xDD, 0xDF))
 
 
-def _pillow_open(data: bytes) -> None:
+def _pillow_open(data: bytes) -> int:
     """Pillow's ``JpegImagePlugin._open``: the markers up to the first SOS
     as Pillow parses them for the mode and size (its SOF, DQT, APPn, COM
     and skip handlers, junk bytes and fill bytes skipped), then
-    ``Image.open``'s size and decompression-bomb checks.  Where it fails
+    ``Image.open``'s size and decompression-bomb checks -> the frame's
+    components, which set Pillow's mode (1 L, 3 RGB, 4 CMYK).  Where it fails
     (a ``SyntaxError``, an ``IndexError``, a ``struct.error`` or a short
     read) ``Image.open`` opens no JPEG: ``NotThisFormat``, which names the
     frame where one was read."""
     n = len(data)
     pos, cur = 3, 0xFF
-    frame = size = None
+    frame = size = layers = None
     icc = []
 
     def fail(why: str):
@@ -198,7 +199,7 @@ def _pillow_open(data: bytes) -> None:
             icc = []
             if (len(s) - 6) % 3:
                 fail("a frame header that ends inside a component")
-            frame, size = m, (_u16(s, 3), _u16(s, 1))
+            frame, size, layers = m, (_u16(s, 3), _u16(s, 1)), s[5]
         elif m in _PIL_SKIP:
             body()
         elif m == 0xDB:
@@ -227,6 +228,7 @@ def _pillow_open(data: bytes) -> None:
     if frame is None or not size[0] or not size[1]:
         fail("no frame of a known size before the scan")
     check_pixels(*size)
+    return layers
 
 
 def _photoshop(s: bytes, fail) -> None:
@@ -1142,12 +1144,17 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return out
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """The bytes of a JPEG file -> [h, w, 3] uint8."""
+def decode_jpeg(data: bytes, cmyk: bool = False) -> np.ndarray:
+    """The bytes of a JPEG file -> [h, w, 3] uint8.  ``cmyk``: four
+    components are CMYK whatever an Adobe marker says, as where Pillow's
+    decoder is given the JPEG mode "CMYK" (a BLP1 texture's JPEG): libjpeg
+    then converts no YCCK, and the inversion and ``cmyk2rgb`` follow."""
     if data[:3] != b"\xff\xd8\xff":
         raise ValueError("not a JPEG")
     _pillow_open(data)
-    return _Decoder(data).run()
+    dec = _Decoder(data)
+    dec.cmyk = cmyk
+    return dec.run()
 
 
 _CUT = "JPEG cut short: Pillow raises 'image file is truncated'"
@@ -1164,6 +1171,7 @@ class _Decoder:
     reach EOI first."""
 
     block_rows = False  # keep each component's rows to its last whole block row
+    cmyk = False  # four components as CMYK whatever the Adobe transform (decode_jpeg)
 
     def __init__(self, data: bytes):
         self.data, self.n = data, len(data)
@@ -1423,9 +1431,10 @@ class _Decoder:
         self.prev_bits = [[-1] * 64 for _ in comps]  # ... before each component's last scan
         self.scans = 0
         self.last_good = 0  # the last iMCU row decoded before a scan's data ran out
-        self.colour = (self.jfif, self.adobe)  # default_decompress_parms
+        # default_decompress_parms, or the colour space Pillow's JPEG mode sets
+        self.colour = (self.jfif, 0 if self.cmyk and len(comps) == 4 else self.adobe)
         if self.process == "lossless" and (len(comps) == 3 and self.jfif
-                                           or self.adobe not in (None, 0)):
+                                           or self.colour[1] not in (None, 0)):
             raise ValueError("lossless JPEG in YCbCr or YCCK: libjpeg-turbo converts no colour "
                              "in lossless mode, and Pillow fails on it")
 

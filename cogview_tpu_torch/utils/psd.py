@@ -5,14 +5,16 @@ Follows Pillow's ``PsdImagePlugin``: the image it opens is the merged
 composite at the end of the file (its ``_min_frame``), never a layer.
 Pillow reads 8-bit files only, in the modes bitmap (1 bit), gray,
 multichannel and duotone (read as gray), indexed (with a 768-byte planar
-colour table), RGB (with a fourth channel as alpha) and CMYK (each channel
-inverted, then Pillow's ``cmyk2rgb``); channels past those are ignored.
+colour table), RGB (with a fourth channel as alpha), CMYK (each channel
+inverted, then Pillow's ``cmyk2rgb``) and Lab (the three planes' bytes, a
+and b offset by 128 as Pillow's LAB bands hold them, converted as
+LittleCMS converts them: ``utils/lab.py``); channels past those are
+ignored.
 The composite is raw or PackBits (each channel's rows after a table of
 row byte counts).  A 16- or 32-bit file, or another mode, is one Pillow's
 plugin refuses while opening (:class:`NotThisFormat`); too few
 channels, another compression or short data raise a ``ValueError``, as
-Pillow fails on them.  Lab, which Pillow converts through LittleCMS, raises
-``UnsupportedImageError``.
+Pillow fails on them.
 """
 
 from __future__ import annotations
@@ -21,8 +23,9 @@ import struct
 
 import numpy as np
 
-from .image_errors import NotThisFormat, UnsupportedImageError, check_pixels
+from .image_errors import NotThisFormat, check_pixels
 from .jpeg import cmyk_to_rgb
+from .lab import lab_to_rgb
 
 # (Photoshop mode, bits) -> (Pillow's mode, channels it reads)
 _MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1), (2, 8): ("P", 1),
@@ -111,9 +114,6 @@ def decode_psd(data: bytes) -> np.ndarray:
     compression = struct.unpack_from(">H", data, pos)[0]
     pos += 2
     check_pixels(w, h)  # before the composite is allocated
-    if mode == "LAB":
-        raise UnsupportedImageError("PSD in Lab mode is not read by this package (Pillow "
-                                    "converts it to RGB through LittleCMS)")
     row = -(-w // 8) if mode == "1" else w
     if compression == 0:
         body = data[pos:pos + channels * h * row]
@@ -139,4 +139,6 @@ def decode_psd(data: bytes) -> np.ndarray:
     if mode == "CMYK":
         inv = 255 - planes.astype(np.int64)
         return cmyk_to_rgb(np.moveaxis(inv[:3], 0, -1), inv[3])
+    if mode == "LAB":
+        return lab_to_rgb(np.moveaxis(planes[:3], 0, -1))
     return np.ascontiguousarray(np.moveaxis(planes[:3], 0, -1))

@@ -460,11 +460,13 @@ def test_psd_modes_raw_and_packbits(layout):
 
 
 def test_psd_lab_named_and_cuts():
-    """Lab (Pillow converts it through LittleCMS) is named; too few
-    channels, a cut composite, an unknown compression skipped."""
+    """Lab (Pillow converts it through LittleCMS) is read, raw and
+    PackBits; too few channels, a cut composite, an unknown compression
+    skipped."""
     rng = np.random.RandomState(3)
     ch = rng.randint(0, 256, (3, 4, 5)).astype(np.uint8)
-    assert _check(_psd(9, 8, ch, False, rng), "PSD", named=True) == "named"
+    assert _check(_psd(9, 8, ch, False, rng), "PSD") == "read"
+    assert _check(_psd(9, 8, ch, True, rng), "PSD") == "read"
     assert _check(_psd(3, 8, ch[:2], False, rng)) == "skipped"
     data = _psd(3, 8, ch, True, rng)
     assert _check(data[:-3]) == "skipped"
@@ -532,7 +534,8 @@ def test_dds_bc7_every_mode(fmt):
 def test_dds_uncompressed_and_named():
     """Channel masks at 16, 24 and 32 bits (5-6-5, BGR, BGRA, odd masks,
     and data cut short, which Pillow reads as zeros), luminance, luminance
-    and alpha, 8-bit palettes, Pillow's own files; BC6H and BC7 named."""
+    and alpha, 8-bit palettes, Pillow's own files; BC6H unsigned and signed
+    read."""
     rng = np.random.RandomState(11)
     w, h = 5, 3
     for bits, masks, flags in ((16, (0xF800, 0x7E0, 0x1F, 0), 0x40),
@@ -560,8 +563,8 @@ def test_dds_uncompressed_and_named():
             assert _check(_saved(im, "DDS", pixel_format=pf), "DDS") == "read"
     for fmt in (95, 96):
         blocks = rng.randint(0, 256, 16 * 4).astype(np.uint8).tobytes()
-        assert _check(_dds(8, 8, 0x4, b"DX10", extra=_dx10(fmt), body=blocks), "DDS",
-                      named=True) == "named"
+        assert _check(_dds(8, 8, 0x4, b"DX10", extra=_dx10(fmt), body=blocks),
+                      "DDS") == "read"
     assert _check(_dds(4, 4, 0x4, b"DX10", extra=_dx10(2), body=bytes(64))) == "skipped"
     assert _check(_dds(4, 4, 0x4, b"XXXX", body=bytes(64))) == "skipped"
 
@@ -1329,7 +1332,7 @@ def _im(kind: bytes, w: int, h: int, body: bytes, lut: bytes = b"", size=True) -
 @pytest.mark.parametrize("mode", ["1", "L", "P", "RGB", "RGBA", "LA", "PA", "RGBX", "CMYK",
                                   "YCbCr", "I", "F", "I;16", "I;16B"])
 def test_im_pillow_files(mode):
-    """Pillow's IM files of every mode it writes (YCC is named: Pillow's own
+    """Pillow's IM files of every mode it writes (YCC through Pillow's own
     YCbCr conversion), and cut short."""
     for h, w in SIZES:
         arr = _picture(h, w, h + w)
@@ -1344,9 +1347,6 @@ def test_im_pillow_files(mode):
         else:
             im = im.convert(mode)
         data = _saved(im, "IM")
-        if mode == "YCbCr":  # named before its pixels are read, cut or not
-            assert _check(data, "IM", named=True) == "named"
-            continue
         assert _check(data, "IM") == "read"
         assert _check(data[:len(data) - 1]) == "skipped"
 
@@ -1356,7 +1356,7 @@ def test_im_built_here():
     and without a colour map, 8-bit unsigned and signed, 16-bit signed and
     32-bit integer floats, RGB pixel-interleaved, a gray map (kept gray), a
     missing size line (512 x 512), the older RGB types (two Pillow reads,
-    two it fails on); a 12-bit depth (Pillow's bit decoder) is named."""
+    two it fails on); a 12-bit depth (Pillow's bit decoder) read."""
     rng = np.random.RandomState(20)
     w, h = 7, 3
     raw = rng.randint(0, 256, 512 * 512 * 4).astype(np.uint8).tobytes()
@@ -1369,7 +1369,7 @@ def test_im_built_here():
     assert _check(_im(b"Greyscale image", w, h, raw, size=False), "IM") == "read"
     for kind in (b"RGB3 image", b"RYB3 image", b"RLB image", b"RYB image"):
         _check(_im(kind, w, h, raw))
-    assert _check(_im(b"L*12 image", w, h, raw), "IM", named=True) == "named"
+    assert _check(_im(b"L*12 image", w, h, raw), "IM") == "read"
 
 
 def _fits_cards(*cards: bytes) -> bytes:
@@ -1596,7 +1596,7 @@ TABLE = {
     "DDS": (_from_pillow("DDS"), "read"),
     "EPS": (_from_pillow("EPS"), "skipped"),
     "FITS": (_fits, "read"),
-    "FLI": (_fli, "named"),
+    "FLI": (_fli, "read"),
     "FTEX": (_ftex, "read"),
     "GBR": (_gbr, "read"),
     "GRIB": (lambda: b"GRIB\0\0\1\1" + bytes(60), "skipped"),  # GBR refuses it
@@ -1606,13 +1606,13 @@ TABLE = {
     "ICO": (_from_pillow("ICO"), "read"),
     "IM": (_from_pillow("IM"), "read"),
     "IMT": (_imt, "read"),
-    "IPTC": (_iptc, "named"),
+    "IPTC": (_iptc, "read"),
     "MCIDAS": (_mcidas, "read"),
     "MPEG": (lambda: b"\x00\x00\x01\xb3" + struct.pack(">HB", 0x0100, 0x80) + bytes(60),
              "skipped"),
     "TIFF": (_from_pillow("TIFF"), "read"),
     "MSP": (_from_pillow("MSP", "1"), "read"),
-    "PCD": (_pcd, "named"),
+    "PCD": (_pcd, "read"),
     "PIXAR": (_pixar, "read"),
     "PSD": (_psd_file, "read"),
     "QOI": (_from_pillow("QOI"), "read"),
@@ -1657,9 +1657,9 @@ def test_every_pillow_format(fmt):
     assert _check(data, named=outcome == "named") == outcome
 
 
-CORRUPTED = ["BLP", "CUR", "DCX", "DDS", "DIB", "FITS", "FTEX", "GBR", "ICNS", "ICO", "IM", "IMT",
-             "MCIDAS", "MSP", "PCX", "PIXAR", "PPM", "PSD", "SGI", "SPIDER", "SUN", "TGA",
-             "XBM", "XPM", "XVTHUMB"]
+CORRUPTED = ["BLP", "CUR", "DCX", "DDS", "DIB", "FITS", "FLI", "FTEX", "GBR", "ICNS", "ICO", "IM",
+             "IMT", "IPTC", "MCIDAS", "MSP", "PCD", "PCX", "PIXAR", "PPM", "PSD", "SGI", "SPIDER",
+             "SUN", "TGA", "XBM", "XPM", "XVTHUMB"]
 
 
 @pytest.mark.parametrize("fmt", CORRUPTED)
